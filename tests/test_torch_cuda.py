@@ -36,7 +36,10 @@ def _lstm_inputs(dev, T, R, B, G, seed):
     return xp, whh, h0, c0
 
 
-@pytest.mark.parametrize("T, R, B, G", [(37, 3, 3, 40), (9, 8, 1, 512), (5, 2, 6, 24)])
+@pytest.mark.parametrize(
+    "T, R, B, G",
+    [(37, 3, 3, 40), (9, 8, 1, 512), (5, 2, 6, 24), (7, 8, 16, 512), (5, 8, 32, 512)],
+)
 def test_lstm_kernel_matches_plain(dev, T, R, B, G):
     xp, whh, h0, c0 = _lstm_inputs(dev, T, R, B, G, seed=T)
     before = lstm_cuda.lstm_merged.launches
@@ -49,6 +52,110 @@ def test_lstm_kernel_matches_plain(dev, T, R, B, G):
     for k, p in zip(out_k, out_p):
         assert (k - p).abs().max().item() <= 5e-3
     assert torch.equal(c0, _lstm_inputs(dev, T, R, B, G, seed=T)[3])  # c0 untouched
+
+
+def test_lstm_kernel_takes_b64_and_refuses_what_it_cannot_hold(dev):
+    xp, whh, h0, c0 = _lstm_inputs(dev, 2, 2, 64, 512, seed=1)
+    out_k = lstm_cuda.lstm_merged(xp, whh, h0, c0, 64)
+    out_p = lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, 64)
+    for k, p in zip(out_k, out_p):
+        assert (k - p).abs().max().item() <= 5e-3
+    xp, whh, h0, c0 = _lstm_inputs(dev, 2, 1, 100, 512, seed=2)
+    before = lstm_cuda.lstm_merged.launches
+    with pytest.raises(ValueError, match="at most B = 81 rows"):
+        lstm_cuda.lstm_merged(xp, whh, h0, c0, 100)
+    with pytest.raises(ValueError, match="at most B = 81 rows"):
+        lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, 100)
+    assert lstm_cuda.lstm_merged.launches == before
+
+
+def _train_case(dev, T, R, B, G, seed):
+    xp, whh, h0, c0 = _lstm_inputs(dev, T, R, B, G, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cts = [torch.randn(s, generator=g, device=dev) for s in ((T, R * B, G), (R * B, G), (R * B, G))]
+    return (xp, whh, h0, c0), cts
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("T, R, B, G", [(1, 2, 3, 40), (37, 3, 3, 40), (37, 8, 16, 512)])
+def test_train_kernels_match_plain(dev, T, R, B, G):
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, T, R, B, G, seed=T + G)
+    counts = [f.launches for f in (lstm_cuda.lstm_merged_train_fwd,
+                                   lstm_cuda.lstm_merged_bwd_step, lstm_cuda.lstm_merged_dw)]
+    fwd_k = lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    fwd_p = lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
+    # as K1: bf16 operands, f32 sums in another order
+    for name, k, p in zip(("hs", "hT", "cT", "gates", "cs"), fwd_k, fwd_p):
+        assert (k - p).abs().max().item() <= 5e-3, name
+    hs, _, _, gates, cs = fwd_p  # the same residuals into both backwards
+    dxp_k, dh0_k, dc0_k = lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    dw_k = lstm_cuda.lstm_merged_dw(hs, h0, dxp_k, B)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (lstm_cuda.lstm_merged_train_fwd, lstm_cuda.lstm_merged_bwd_step,
+                                 lstm_cuda.lstm_merged_dw)] == [c + 1 for c in counts]
+    dxp_p, dw_p, dh0_p, dc0_p = lstm_cuda.lstm_merged_bwd_plain(
+        gates, cs, hs, h0, c0, whh, dhs, dhT, dcT, B
+    )
+    # f32 carries on both sides, but where the f32 sums differ in order the
+    # bf16 rounding of a gate cotangent flips, and the reverse chain carries
+    # it on: at (37, 8, 16, 512) the plain version on the card against the
+    # same plain version on the CPU differs by up to 1.9e-3 of max|ref|
+    # (dW), as much as the kernels do; the bound is 5e-3
+    for name, k, p in (("dxp", dxp_k, dxp_p), ("dW", dw_k, dw_p), ("dh0", dh0_k, dh0_p),
+                       ("dc0", dc0_k, dc0_p)):
+        assert _rel(k, p) <= 5e-3, name
+    # K6 alone, on the plain dxp: identical bf16 operands, f32 sums in
+    # another order
+    assert _rel(lstm_cuda.lstm_merged_dw(hs, h0, dxp_p, B), dw_p) <= 1e-5
+
+
+def test_weight_gradient_is_bit_stable(dev):
+    (xp, whh, h0, c0), _ = _train_case(dev, 64, 8, 16, 512, seed=3)
+    hs = lstm_cuda.lstm_merged(xp, whh, h0, c0, 16)[0]
+    dxp = torch.randn((64, 8 * 16, 2048), device=dev)
+    assert torch.equal(lstm_cuda.lstm_merged_dw(hs, h0, dxp, 16),
+                       lstm_cuda.lstm_merged_dw(hs, h0, dxp, 16))
+
+
+def test_training_loss_and_grads_on_the_card_match_cpu(dev):
+    """mask_loss and its gradients at a small width: K4/K5/K6 on the card
+    against every plain version on the CPU, same weights and batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from umx_tpu_torch.config import ModelConfig
+    from umx_tpu_torch.models.umx import UMXParams, synthetic_params
+    from umx_tpu_torch.train import FROZEN, mask_loss
+
+    cfg = ModelConfig(hidden_size=48)
+    rng = np.random.default_rng(4)
+    batch = {
+        "x": rng.uniform(0, 1, (3, 12, cfg.n_features)),
+        "mix_mag": rng.uniform(0, 1, (3, 2, 12, cfg.n_bins)),
+        "target_mag": rng.uniform(0, 1, (3, 4, 2, 12, cfg.n_bins)),
+    }
+    grads = {}
+    for d in ("cpu", dev):
+        p = synthetic_params(cfg, seed=4, device=d)
+        names = [f.name for f in dataclasses.fields(UMXParams) if f.name not in FROZEN]
+        for n in names:
+            getattr(p, n).requires_grad_(True)
+        b = {k: torch.tensor(v, dtype=torch.float32, device=d) for k, v in batch.items()}
+        before = lstm_cuda.lstm_merged_dw.launches
+        loss = mask_loss(p, b, cfg)
+        loss.backward()
+        if d != "cpu":
+            assert lstm_cuda.lstm_merged_dw.launches == before + cfg.n_lstm_layers
+        grads[str(d)] = (loss.item(), {n: getattr(p, n).grad.cpu() for n in names})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads[str(dev)]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    # bf16 recurrence operands, cuBLAS summation order: 1e-3 of each max|g|
+    for n, g in g_cpu.items():
+        assert _rel(g_gpu[n], g) <= 1e-3, n
 
 
 def test_lstm_kernel_rejects_mixed_devices(dev):

@@ -102,7 +102,10 @@ def test_merged_layer_matches_pallas_interpret():
         jnp.asarray(x_proj), jnp.asarray(hh_w), jnp.asarray(h0), jnp.asarray(c0),
         time_block=8, interpret=True,
     )
-    ours = lstm_cuda.lstm_layer_merged(*map(torch.from_numpy, (x_proj, hh_w, h0, c0)))
+    # the port has one layer entry, batched: a batch of one row
+    ours = [o[0] for o in lstm_cuda.lstm_layer_merged_batched(
+        *(torch.from_numpy(a)[None] if a is not hh_w else torch.from_numpy(a)
+          for a in (x_proj, hh_w, h0, c0)))]
     for o, r in zip(ours, ref):
         assert o.shape == r.shape
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=LSTM_ATOL)

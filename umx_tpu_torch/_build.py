@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with nvcc into one shared library with
-a plain C interface, ``build/umx_tpu_torch/libumx_kernels-<hash>.so`` at
-the repository root, at first use.  The file name carries a hash of the
+Each ``csrc/*.cu`` source compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, ``build/umx_tpu_torch/libumx_kernels-<hash>.so`` at the
+repository root, at first use.  The file name carries a hash of the
 sources and flags, so an edited source rebuilds.  The library is bound
 with ``ctypes``: pointers and the CUDA stream go in as ``c_void_p``,
 sizes as ``c_int``, and every entry point returns the ``cudaError_t`` of
@@ -26,9 +27,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "umx_tpu_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers/spills into the build log
 )
 
@@ -37,6 +38,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # xp, whh, h0, c, hs, hT, T, R, B, G, stream
     "umx_lstm_merged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, whh, h0, c, hs, hT, gates, cs, T, R, B, G, stream
+    "umx_lstm_merged_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, dgbuf, T, R, B, G, stream
+    "umx_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # hs, h0, dxp, dw, T, R, B, G, stream
+    "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # mode, a_re, a_im, masks, inv_ma, partials, racc, T, F, t_chunk, stream
     "umx_wiener_reduce": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # mode, xre, xim, m_or_yre, yim, racc, inv_ma, yre_out, yim_out, T, F, eps, reg, stream
@@ -68,32 +75,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels if the library for these sources is missing.
-    The compiler's output (including ``-Xptxas -v``) is kept beside the
-    library as ``<name>.log``."""
+    """Compile the kernels if the library for these sources is missing:
+    one nvcc per source, run in parallel, then one link.  The compilers'
+    output (including ``-Xptxas -v``) is kept beside the library as
+    ``<name>.log``."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # build to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    nvcc = _nvcc()
+    # build in a temporary directory, then rename: a concurrent or
+    # interrupted build never leaves a half-written library under the
+    # final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            for src, obj in zip(cu, objs)
+        ]
+        logs = [f"== {src.name}\n{p.communicate()[0]}" for src, p in zip(cu, procs)]
+        failed = [src.name for src, p in zip(cu, procs) if p.returncode != 0]
+        lib = os.path.join(tmp, out.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+                capture_output=True, text=True,
+            )
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        log = "".join(logs)
+        Path(str(out) + ".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+        os.replace(lib, out)
     return out
 
 
@@ -107,6 +126,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.umx_error_string.argtypes = [_I]
     lib.umx_error_string.restype = ctypes.c_char_p
+    lib.umx_lstm_step_smem.argtypes = [_I, _I]
+    lib.umx_lstm_step_smem.restype = ctypes.c_longlong
     return lib
 
 

@@ -40,6 +40,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def apply_masks(masks, mag, n_bins: int):
+    """masks (..., T#, T, 2*n_bins) ⊙ mix magnitude (..., 2, T, n_bins) →
+    per-target magnitudes (..., T#, 2, T, n_bins)."""
+    return masks_to_planes(masks, n_bins) * mag.unsqueeze(-4)
+
+
 def segment_forward(
     params: UMXParams, audio, state: LSTMState, cfg: EngineConfig, n_samples: int
 ):

@@ -8,10 +8,12 @@ All four targets' weights are stacked on a leading axis (the layouts of
 ``umx_tpu.models.umx.UMXParams``), so the fc layers run as batched
 matmuls over targets.  The LSTM input projections run outside the
 recurrence as one f32 batched matmul per layer; the recurrence of all
-targets × directions runs as one merged kernel call per layer
-(``ops/lstm_cuda.py``).  The backward direction is the forward
-recurrence over the time-reversed sequence, so its state, like the
-forward one's, carries across segments (the reference's streaming LSTM).
+targets × directions (× batch rows, in training) runs as one merged
+kernel call per layer (``ops/lstm_cuda.py``), differentiable through the
+training kernels when a gradient is wanted.  The backward direction is
+the forward recurrence over the time-reversed sequence, so its state,
+like the forward one's, carries across segments (the reference's
+streaming LSTM).
 
 Float32 matmuls stay full float32 on the GPU (no TF32): the separator
 sets ``torch.backends.cuda.matmul.allow_tf32 = False``.
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from umx_tpu_torch.config import TARGETS, ModelConfig
-from umx_tpu_torch.ops.lstm_cuda import lstm_layer_merged
+from umx_tpu_torch.ops.lstm_cuda import lstm_layer_merged_batched
 
 
 @dataclass
@@ -152,6 +154,49 @@ def _to_params(arrays: dict, device) -> UMXParams:
     })
 
 
+def params_to_state_dicts(params: UMXParams, cfg: ModelConfig) -> dict[str, dict[str, np.ndarray]]:
+    """Per-target torch-layout float32 state dicts from stacked parameters:
+    the inverse of :func:`params_from_ggml` (the halves of the duplicated
+    input/output norms, Linear/LSTM weights transposed back)."""
+    half_f, half_o = cfg.n_features // 2, cfg.n_outputs // 2
+    targets = {}
+    for t_idx, tname in enumerate(TARGETS):
+        p = {f.name: getattr(params, f.name)[t_idx].detach().cpu().numpy() for f in fields(UMXParams)}
+        d = {
+            "input_mean": p["input_mean"][:half_f],
+            "input_scale": p["input_scale"][:half_f],
+            "output_scale": p["output_scale"][:half_o],
+            "output_mean": p["output_mean"][:half_o],
+            "fc1.weight": p["fc1_w"].T,
+            "fc2.weight": p["fc2_w"].T,
+            "fc3.weight": p["fc3_w"].T,
+        }
+        for pre in ("bn1", "bn2", "bn3"):
+            d[f"{pre}.weight"] = p[f"{pre}_w"]
+            d[f"{pre}.bias"] = p[f"{pre}_b"]
+            d[f"{pre}.running_mean"] = p[f"{pre}_rm"]
+            d[f"{pre}.running_var"] = p[f"{pre}_rv"]
+        for layer in range(cfg.n_lstm_layers):
+            for di, rev in enumerate(("", "_reverse")):
+                d[f"lstm.weight_ih_l{layer}{rev}"] = p["lstm_ih_w"][layer, di].T
+                d[f"lstm.weight_hh_l{layer}{rev}"] = p["lstm_hh_w"][layer, di].T
+                d[f"lstm.bias_ih_l{layer}{rev}"] = p["lstm_ih_b"][layer, di]
+                d[f"lstm.bias_hh_l{layer}{rev}"] = p["lstm_hh_b"][layer, di]
+        targets[tname] = d
+    return targets
+
+
+def synthetic_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> UMXParams:
+    """Stacked parameters from :func:`synthetic_state_dicts` (as
+    ``umx_tpu.models.umx.synthetic_params``)."""
+    from umx_tpu_torch.io.ggml import GGMLModel
+
+    return params_from_ggml(
+        GGMLModel(hidden_size=cfg.hidden_size, targets=synthetic_state_dicts(cfg, seed)),
+        cfg, device,
+    )
+
+
 def synthetic_state_dicts(cfg: ModelConfig, seed: int = 0) -> dict[str, dict[str, np.ndarray]]:
     """Random per-target torch-layout state dicts, scaled so activations
     stay in a sane range.  Draws the same numbers, in the same order, as
@@ -200,15 +245,16 @@ def synthetic_state_dicts(cfg: ModelConfig, seed: int = 0) -> dict[str, dict[str
 
 def _batchnorm(x, w, b, rm, rv, eps: float):
     """Inference-mode BatchNorm1d over the last axis; per-target (T#, C)
-    statistics broadcast over time."""
+    statistics broadcast over time (and over a leading batch axis)."""
     inv = torch.rsqrt(rv + eps)[:, None]
     return (x - rm[:, None]) * inv * w[:, None] + b[:, None]
 
 
 def umx_pre(params: UMXParams, x, cfg: ModelConfig):
     """Everything before the recurrence: input norm + fc1 + bn1 + tanh for
-    all targets.  x: (T, F) shared input magnitudes → x1 (T#, T, H)."""
-    x = x.float()[None]
+    all targets.  x: (T, F) shared input magnitudes → x1 (T#, T, H); with a
+    leading batch axis (B, T, F) → (B, T#, T, H)."""
+    x = x.float().unsqueeze(-3)
     if cfg.input_scaling == "openunmix":
         x = (x + params.input_mean[:, None]) * params.input_scale[:, None]
     else:  # the umx.cpp reference's convention
@@ -221,7 +267,7 @@ def umx_pre(params: UMXParams, x, cfg: ModelConfig):
 
 def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig):
     """Skip-concat + fc2/bn2/relu + fc3/bn3 + output norm for all targets.
-    Returns masks (T#, T, O)."""
+    Returns masks (T#, T, O), or (B, T#, T, O) for batched inputs."""
     eps = cfg.bn_eps
     x = torch.matmul(torch.cat([x1, lstm_out], dim=-1), params.fc2_w)
     x = torch.relu(_batchnorm(x, params.bn2_w, params.bn2_b, params.bn2_rm, params.bn2_rv, eps))
@@ -230,26 +276,44 @@ def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig):
     return torch.relu(x * params.output_scale[:, None] + params.output_mean[:, None])
 
 
-def umx_recurrence(params: UMXParams, x1, state: LSTMState, cfg: ModelConfig):
-    """The 3-layer bidirectional LSTM, the only phase with streaming state.
+def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: ModelConfig):
+    """The 3-layer bidirectional LSTM over a batch, in the training
+    recurrence's layout (``umx_tpu.models.umx.umx_recurrence_batched``).
 
-    x1: (T#, T, H) → (lstm_out (T#, T, 2G), new state).  Per layer: the
-    (T#, D, T, in) stack of forward and time-reversed rows, the input
-    projection as one f32 batched matmul plus both biases, the merged
-    recurrence over all T#·D chains, and the backward direction
-    re-reversed."""
-    lstm_in = x1
+    x1_b: (B, T#, T, H); state_b: h/c (B, T#, L, D, G) → (lstm_out
+    (B, T#, T, 2G), new state).  Per layer: the (B, T#, D, T, in) stack of
+    forward and time-reversed rows, the input projection as one f32
+    batched matmul plus both biases, the merged recurrence over all
+    T#·D chains × B rows, and the backward direction re-reversed."""
+    lstm_in = x1_b
     hTs, cTs = [], []
     for layer in range(cfg.n_lstm_layers):
-        xs = torch.stack([lstm_in, lstm_in.flip(1)], dim=1)  # (T#, D, T, in)
-        proj = torch.matmul(xs, params.lstm_ih_w[:, layer])  # (T#, D, T, 4G)
+        xs = torch.stack([lstm_in, lstm_in.flip(2)], dim=2)  # (B, T#, D, T, in)
+        proj = torch.matmul(xs, params.lstm_ih_w[:, layer])  # (B, T#, D, T, 4G)
         bias = params.lstm_ih_b[:, layer] + params.lstm_hh_b[:, layer]  # (T#, D, 4G)
-        x_proj = (proj + bias[:, :, None]).transpose(1, 2)  # (T#, T, D, 4G)
-        hs, hT, cT = lstm_layer_merged(
-            x_proj, params.lstm_hh_w[:, layer], state.h[:, layer], state.c[:, layer]
+        x_proj = (proj + bias[:, :, None]).transpose(2, 3)  # (B, T#, T, D, 4G)
+        hs, hT, cT = lstm_layer_merged_batched(
+            x_proj, params.lstm_hh_w[:, layer], state_b.h[:, :, layer], state_b.c[:, :, layer]
         )
-        lstm_in = torch.cat([hs[:, :, 0], hs[:, :, 1].flip(1)], dim=-1)  # (T#, T, 2G)
+        lstm_in = torch.cat([hs[:, :, :, 0], hs[:, :, :, 1].flip(2)], dim=-1)  # (B, T#, T, 2G)
         hTs.append(hT)
         cTs.append(cT)
-    return lstm_in, LSTMState(h=torch.stack(hTs, dim=1), c=torch.stack(cTs, dim=1))
+    return lstm_in, LSTMState(h=torch.stack(hTs, dim=2), c=torch.stack(cTs, dim=2))
 
+
+def umx_recurrence(params: UMXParams, x1, state: LSTMState, cfg: ModelConfig):
+    """The 3-layer bidirectional LSTM, the only phase with streaming state:
+    x1 (T#, T, H) → (lstm_out (T#, T, 2G), new state); one batch row of
+    :func:`umx_recurrence_batched`."""
+    out, st = umx_recurrence_batched(
+        params, x1[None], LSTMState(h=state.h[None], c=state.c[None]), cfg
+    )
+    return out[0], LSTMState(h=st.h[0], c=st.c[0])
+
+
+def umx_forward_batched(params: UMXParams, x_b, state_b: LSTMState, cfg: ModelConfig):
+    """Batched all-targets mask network (the training forward): x_b
+    (B, T, F) → (masks (B, T#, T, O), new state)."""
+    x1_b = umx_pre(params, x_b, cfg)
+    lstm_out, new_state = umx_recurrence_batched(params, x1_b, state_b, cfg)
+    return umx_post(params, x1_b, lstm_out, cfg), new_state

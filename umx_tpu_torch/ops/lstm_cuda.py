@@ -1,13 +1,25 @@
-"""The merged BLSTM recurrence (kernel ``csrc/lstm_merged.cu``) and its
-plain PyTorch version.
+"""The merged BLSTM recurrence and its backward (kernels
+``csrc/lstm_merged.cu`` and ``csrc/lstm_train.cu``) with their plain
+PyTorch versions.
 
-:func:`lstm_merged` has the contract of the TPU kernel it replaces
-(``umx_tpu/ops/lstm_pallas.py:_make_merged_kernel``): R independent
-chains of B rows each, rows chain-major (``row = r*B + b``), W_hh in
-bf16, products of bf16 operands accumulated in f32, gate math and the
-c/h state in f32.  :func:`lstm_layer_merged` and
-:func:`lstm_layer_merged_batched` are the layer-level entries in the
-JAX package's layouts.
+Every entry has the contract of the TPU kernel it replaces
+(``umx_tpu/ops/lstm_pallas.py``): R independent chains of B rows each,
+rows chain-major (``row = r*B + b``), W_hh in bf16, products of bf16
+operands accumulated in f32, gate math and the c/h state (and in the
+backward the dh/dc carries) in f32.
+
+- K1 :func:`lstm_merged`: the inference recurrence (``_make_merged_kernel``).
+- K4 :func:`lstm_merged_train_fwd`: the same plus the residuals of the
+  backward, activated gates and c per step (``_make_merged_train_kernel``).
+- K5 :func:`lstm_merged_bwd_step` and K6 :func:`lstm_merged_dw`: the
+  reverse-time sweep and the weight gradient (``_make_merged_bwd_kernel``).
+
+A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
+launches its kernel or raises, and adds one to its ``launches`` count per
+kernel run.  :class:`LSTMMergedTrain` is the ``torch.autograd.Function``
+over K4 and K5 + K6; :func:`lstm_layer_merged_batched` takes it when a
+gradient is wanted and K1 otherwise, as the JAX package's custom VJP runs
+the inference kernel for primal-only evaluation.
 """
 
 from __future__ import annotations
@@ -15,6 +27,21 @@ from __future__ import annotations
 import torch
 
 from umx_tpu_torch import _build
+
+
+def _bf16(x):
+    """Round f32 to bf16 and back (the operand rounding of every product)."""
+    return x.to(torch.bfloat16).float()
+
+
+def _cell(pre, c, G: int):
+    """Activated gates (i, f, g, o) of the pre-activations, new c, new h."""
+    i = torch.sigmoid(pre[:, :G])
+    f = torch.sigmoid(pre[:, G : 2 * G])
+    g = torch.tanh(pre[:, 2 * G : 3 * G])
+    o = torch.sigmoid(pre[:, 3 * G :])
+    c = f * c + i * g
+    return (i, f, g, o), c, o * torch.tanh(c)
 
 
 def lstm_merged_plain(xp, whh, h0, c0, B: int):
@@ -30,65 +57,156 @@ def lstm_merged_plain(xp, whh, h0, c0, B: int):
     h, c = h0, c0
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
     for t in range(T):
-        hb = h.to(torch.bfloat16).float().view(R, B, G)
-        gates = xp[t] + torch.bmm(hb, w).view(RB, G4)
-        i = torch.sigmoid(gates[:, :G])
-        f = torch.sigmoid(gates[:, G : 2 * G])
-        g = torch.tanh(gates[:, 2 * G : 3 * G])
-        o = torch.sigmoid(gates[:, 3 * G :])
-        c = f * c + i * g
-        h = o * torch.tanh(c)
+        pre = xp[t] + torch.bmm(_bf16(h).view(R, B, G), w).view(RB, G4)
+        _, c, h = _cell(pre, c, G)
         hs[t] = h
     return hs, h, c
 
 
-def lstm_merged(xp, whh, h0, c0, B: int):
-    """One BLSTM layer's recurrence for all chains (see module docstring).
-
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    :func:`lstm_merged_plain`.  Increments ``lstm_merged.launches`` once
-    per kernel run (one run launches one step grid per timestep)."""
-    if xp.dim() != 3:
-        raise ValueError(f"xp must be (T, R*B, 4G), got shape {tuple(xp.shape)}")
+def lstm_merged_train_fwd_plain(xp, whh, h0, c0, B: int):
+    """:func:`lstm_merged_plain` plus the residuals of the backward:
+    returns (hs, hT, cT, gates (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G))."""
     T, RB, G4 = xp.shape
-    if whh.dim() != 3 or whh.shape[2] != G4 or G4 != 4 * whh.shape[1]:
-        raise ValueError(
-            f"whh must be (R, G, 4G) matching xp's 4G={G4}, got {tuple(whh.shape)}"
-        )
     R, G = whh.shape[0], whh.shape[1]
-    if B < 1 or RB != R * B:
-        raise ValueError(f"xp rows {RB} != R*B = {R}*{B}")
-    for name, t in (("h0", h0), ("c0", c0)):
-        if tuple(t.shape) != (RB, G):
-            raise ValueError(f"{name} must be ({RB}, {G}), got {tuple(t.shape)}")
-    if T < 1:
-        raise ValueError("xp has no timesteps")
-    for name, t, dt in (
-        ("xp", xp, torch.float32), ("whh", whh, torch.bfloat16),
-        ("h0", h0, torch.float32), ("c0", c0, torch.float32),
-    ):
+    w = whh.float()
+    h, c = h0, c0
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
+    cs = torch.empty_like(hs)
+    gates = torch.empty((T, RB, G4), dtype=torch.float32, device=xp.device)
+    for t in range(T):
+        pre = xp[t] + torch.bmm(_bf16(h).view(R, B, G), w).view(RB, G4)
+        act, c, h = _cell(pre, c, G)
+        gates[t] = torch.cat(act, dim=1)
+        cs[t] = c
+        hs[t] = h
+    return hs, h, c, gates, cs
+
+
+def lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """Plain reverse-time sweep, in the TPU backward kernel's operation
+    order: returns (dxp (T, R*B, 4G), dh0, dc0), all f32.  The gate
+    cotangents are rounded to bf16 before their product with W_hhᵀ and the
+    dh/dc carries stay f32 (autograd through :func:`lstm_merged_plain`
+    would round the dh carry to bf16 at every step instead)."""
+    T, RB, G4 = gates.shape
+    R, G = whh.shape[0], whh.shape[1]
+    wt = whh.float().transpose(1, 2)  # (R, 4G, G)
+    dxp = torch.empty((T, RB, G4), dtype=torch.float32, device=gates.device)
+    dh, dc = dhT, dcT
+    for t in range(T - 1, -1, -1):
+        g4 = gates[t]
+        i, f, g, o = g4[:, :G], g4[:, G : 2 * G], g4[:, 2 * G : 3 * G], g4[:, 3 * G :]
+        cprev = cs[t - 1] if t > 0 else c0
+        tc = torch.tanh(cs[t])
+        dh = dh + dhs[t]
+        do = dh * tc
+        dct = dc + dh * o * (1.0 - tc * tc)
+        dg = torch.cat([
+            dct * g * i * (1.0 - i),
+            dct * cprev * f * (1.0 - f),
+            dct * i * (1.0 - g * g),
+            do * o * (1.0 - o),
+        ], dim=1)
+        dxp[t] = dg
+        dh = torch.bmm(_bf16(dg).view(R, B, G4), wt).view(RB, G)
+        dc = dct * f
+    return dxp, dh, dc
+
+
+def lstm_merged_dw_plain(hs, h0, dxp, B: int):
+    """Plain weight gradient: dW[r] = Σ over t, b of bf16(h_{t-1})ᵀ bf16(dxp_t),
+    h_{-1} = h0, f32 accumulation → (R, G, 4G)."""
+    T, RB, G = hs.shape
+    R, G4 = RB // B, dxp.shape[2]
+    hprev = torch.cat([h0[None], hs[:-1]])
+    hp = _bf16(hprev).view(T, R, B, G).permute(1, 0, 2, 3).reshape(R, T * B, G)
+    dg = _bf16(dxp).view(T, R, B, G4).permute(1, 0, 2, 3).reshape(R, T * B, G4)
+    return torch.bmm(hp.transpose(1, 2), dg)
+
+
+def lstm_merged_bwd_plain(gates, cs, hs, h0, c0, whh, dhs, dhT, dcT, B: int):
+    """Plain backward of one layer: (dxp, dW (R, G, 4G), dh0, dc0)."""
+    dxp, dh0, dc0 = lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    return dxp, lstm_merged_dw_plain(hs, h0, dxp, B), dh0, dc0
+
+
+def _check(ref, specs):
+    """Validate ``specs`` = [(name, tensor, shape, dtype)] against the
+    reference tensor's device; returns "cpu" or "cuda" for the route."""
+    for name, t, shape, dt in specs:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.device != xp.device:
-            raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, expected {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if xp.device.type == "cpu":
-        return lstm_merged_plain(xp, whh, h0, c0, B)
-    if xp.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xp.device}")
-    # the kernel reads W_hh rows as 16-byte vectors of 8 bf16
-    if G % 8 != 0 or whh.data_ptr() % 16 != 0:
-        raise ValueError(f"the kernel needs G % 8 == 0 and a 16-byte aligned whh (G={G})")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {ref.device}")
+    return ref.device.type
 
+
+def _dims(xp_or_gates, whh, B: int):
+    """(T, R, G) from a (T, R*B, 4G) tensor and whh (R, G, 4G)."""
+    if xp_or_gates.dim() != 3:
+        raise ValueError(f"expected (T, R*B, 4G), got shape {tuple(xp_or_gates.shape)}")
+    T, RB, G4 = xp_or_gates.shape
+    if whh.dim() != 3 or whh.shape[2] != G4 or G4 != 4 * whh.shape[1]:
+        raise ValueError(f"whh must be (R, G, 4G) matching 4G={G4}, got {tuple(whh.shape)}")
+    R, G = whh.shape[0], whh.shape[1]
+    if B < 1 or RB != R * B:
+        raise ValueError(f"rows {RB} != R*B = {R}*{B}")
+    if T < 1:
+        raise ValueError("no timesteps")
+    return T, R, G
+
+
+def _check_whh_vectors(whh, G: int):
+    # the kernels read W_hh rows as 16-byte vectors of 8 bf16
+    if G % 8 != 0 or whh.data_ptr() % 16 != 0:
+        raise ValueError(f"the kernels need G % 8 == 0 and a 16-byte aligned whh (G={G})")
+
+
+def _check_step_smem(lib, B: int, G: int, device):
+    """K1/K4 keep h_{t-1} (B x G) in shared memory: refuse a batch the
+    device's per-block limit cannot hold, before any launch."""
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if lib.umx_lstm_step_smem(B, G) > limit:
+        max_b = max((b for b in range(1, B) if lib.umx_lstm_step_smem(b, G) <= limit), default=0)
+        raise ValueError(
+            f"the recurrence kernel takes at most B = {max_b} rows per chain at G = {G} "
+            f"({limit} bytes of shared memory per block); got B = {B}"
+        )
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def lstm_merged(xp, whh, h0, c0, B: int):
+    """K1: one BLSTM layer's recurrence for all chains (see module docstring).
+
+    xp (T, R*B, 4G) f32, whh (R, G, 4G) bf16, h0/c0 (R*B, G) f32 →
+    (hs (T, R*B, G), hT, cT).  Increments ``lstm_merged.launches`` once per
+    kernel run (one run launches one step grid per timestep)."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
+    route = _check(xp, [
+        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
+        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_merged_plain(xp, whh, h0, c0, B)
+    _check_whh_vectors(whh, G)
     lib = _build.library()
+    _check_step_smem(lib, B, G, xp.device)
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
     hT = torch.empty((RB, G), dtype=torch.float32, device=xp.device)
     cT = c0.clone()  # the kernel updates c in place
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = lib.umx_lstm_merged(
         xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(),
-        hs.data_ptr(), hT.data_ptr(), T, R, B, G, stream,
+        hs.data_ptr(), hT.data_ptr(), T, R, B, G, _stream(xp),
     )
     _build.check(err, "umx_lstm_merged")
     lstm_merged.launches += 1
@@ -98,28 +216,152 @@ def lstm_merged(xp, whh, h0, c0, B: int):
 lstm_merged.launches = 0
 
 
+def lstm_merged_train_fwd(xp, whh, h0, c0, B: int):
+    """K4: :func:`lstm_merged` plus the residuals → (hs, hT, cT, gates
+    (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G)).  Counts
+    ``lstm_merged_train_fwd.launches``."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
+    route = _check(xp, [
+        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
+        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
+    _check_whh_vectors(whh, G)
+    lib = _build.library()
+    _check_step_smem(lib, B, G, xp.device)
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
+    cs = torch.empty_like(hs)
+    gates = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=xp.device)
+    hT = torch.empty((RB, G), dtype=torch.float32, device=xp.device)
+    cT = c0.clone()
+    err = lib.umx_lstm_merged_train(
+        xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
+        hT.data_ptr(), gates.data_ptr(), cs.data_ptr(), T, R, B, G, _stream(xp),
+    )
+    _build.check(err, "umx_lstm_merged_train")
+    lstm_merged_train_fwd.launches += 1
+    return hs, hT, cT, gates, cs
+
+
+lstm_merged_train_fwd.launches = 0
+
+
+def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """K5: the reverse-time sweep → (dxp (T, R*B, 4G), dh0, dc0), all f32.
+    Counts ``lstm_merged_bwd_step.launches`` once per sweep."""
+    T, R, G = _dims(gates, whh, B)
+    RB = R * B
+    route = _check(gates, [
+        ("gates", gates, gates.shape, torch.float32), ("cs", cs, (T, RB, G), torch.float32),
+        ("c0", c0, (RB, G), torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
+        ("dhs", dhs, (T, RB, G), torch.float32), ("dhT", dhT, (RB, G), torch.float32),
+        ("dcT", dcT, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    _check_whh_vectors(whh, G)
+    lib = _build.library()
+    dev = gates.device
+    dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
+    dgbuf = torch.empty((2, RB, 4 * G), dtype=torch.bfloat16, device=dev)
+    err = lib.umx_lstm_bwd(
+        gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), whh.data_ptr(), dhs.data_ptr(),
+        dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), dgbuf.data_ptr(),
+        T, R, B, G, _stream(gates),
+    )
+    _build.check(err, "umx_lstm_bwd")
+    lstm_merged_bwd_step.launches += 1
+    return dxp, dh0, dc
+
+
+lstm_merged_bwd_step.launches = 0
+
+
+def lstm_merged_dw(hs, h0, dxp, B: int):
+    """K6: dW (R, G, 4G) f32 = Σ over t, b of bf16(h_{t-1})ᵀ bf16(dxp_t).
+    Counts ``lstm_merged_dw.launches``."""
+    if hs.dim() != 3 or dxp.dim() != 3:
+        raise ValueError(f"hs and dxp must be 3-d, got {tuple(hs.shape)}, {tuple(dxp.shape)}")
+    T, RB, G = hs.shape
+    if B < 1 or RB % B != 0:
+        raise ValueError(f"rows {RB} are not a multiple of B = {B}")
+    R = RB // B
+    route = _check(hs, [
+        ("hs", hs, hs.shape, torch.float32), ("h0", h0, (RB, G), torch.float32),
+        ("dxp", dxp, (T, RB, 4 * G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_merged_dw_plain(hs, h0, dxp, B)
+    dw = torch.empty((R, G, 4 * G), dtype=torch.float32, device=hs.device)
+    err = _build.library().umx_lstm_dw(
+        hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), T, R, B, G, _stream(hs)
+    )
+    _build.check(err, "umx_lstm_dw")
+    lstm_merged_dw.launches += 1
+    return dw
+
+
+lstm_merged_dw.launches = 0
+
+
+class LSTMMergedTrain(torch.autograd.Function):
+    """Differentiable merged layer at the row level: K4 forward, K5 + K6
+    backward (their plain versions on the CPU).
+
+    forward(xp (T, R*B, 4G), hh_w (R, G, 4G) f32, h0, c0 (R*B, G), B) →
+    (hs, hT, cT).  W_hh is rounded to bf16 inside, and its gradient leaves
+    in f32 for the f32 ``hh_w`` (as the JAX package's custom VJP does)."""
+
+    @staticmethod
+    def forward(ctx, xp, hh_w, h0, c0, B):
+        whh = hh_w.to(torch.bfloat16).contiguous()
+        hs, hT, cT, gates, cs = lstm_merged_train_fwd(xp, whh, h0, c0, B)
+        ctx.save_for_backward(gates, cs, hs, h0, c0, whh)
+        ctx.B = B
+        return hs, hT, cT
+
+    @staticmethod
+    def backward(ctx, dhs, dhT, dcT):
+        gates, cs, hs, h0, c0, whh = ctx.saved_tensors
+
+        def ct(g, like):
+            return torch.zeros_like(like) if g is None else g.float().contiguous()
+
+        dxp, dh0, dc0 = lstm_merged_bwd_step(
+            gates, cs, c0, whh, ct(dhs, hs), ct(dhT, h0), ct(dcT, c0), ctx.B
+        )
+        need = ctx.needs_input_grad
+        dw = lstm_merged_dw(hs, h0, dxp, ctx.B) if need[1] else None
+        return (dxp if need[0] else None, dw, dh0 if need[2] else None,
+                dc0 if need[3] else None, None)
+
+
 def lstm_layer_merged_batched(x_proj, hh_w, h0, c0):
     """Batched merged layer, layouts as in the JAX package.
 
     x_proj (B, T#, T, D, 4G) f32; hh_w (T#, D, G, 4G); h0/c0 (B, T#, D, G).
-    Returns (hs (B, T#, T, D, G), hT (B, T#, D, G), cT (B, T#, D, G))."""
+    Returns (hs (B, T#, T, D, G), hT (B, T#, D, G), cT (B, T#, D, G)).
+    With grad enabled and an input that requires it, runs
+    :class:`LSTMMergedTrain` (K4, and K5 + K6 in the backward); otherwise K1."""
     Bsz, n_targets, T, D, G4 = x_proj.shape
     G = G4 // 4
     R = n_targets * D
-    whh = hh_w.to(torch.bfloat16).reshape(R, G, G4).contiguous()
     # rows chain-major: row = ((t# * D) + d) * B + b
     xp = x_proj.permute(2, 1, 3, 0, 4).reshape(T, R * Bsz, G4).contiguous()
     h0r = h0.float().permute(1, 2, 0, 3).reshape(R * Bsz, G).contiguous()
     c0r = c0.float().permute(1, 2, 0, 3).reshape(R * Bsz, G).contiguous()
-    hs, hT, cT = lstm_merged(xp, whh, h0r, c0r, Bsz)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, hh_w, h0, c0)):
+        hh = hh_w.float().reshape(R, G, G4).contiguous()
+        hs, hT, cT = LSTMMergedTrain.apply(xp, hh, h0r, c0r, Bsz)
+    else:
+        whh = hh_w.to(torch.bfloat16).reshape(R, G, G4).contiguous()
+        hs, hT, cT = lstm_merged(xp, whh, h0r, c0r, Bsz)
     hs = hs.view(T, n_targets, D, Bsz, G).permute(3, 1, 0, 2, 4)
     hT = hT.view(n_targets, D, Bsz, G).permute(2, 0, 1, 3)
     cT = cT.view(n_targets, D, Bsz, G).permute(2, 0, 1, 3)
     return hs, hT, cT
 
-
-def lstm_layer_merged(x_proj, hh_w, h0, c0):
-    """Unbatched merged layer: x_proj (T#, T, D, 4G), hh_w (T#, D, G, 4G),
-    h0/c0 (T#, D, G) → (hs (T#, T, D, G), hT (T#, D, G), cT (T#, D, G))."""
-    hs, hT, cT = lstm_layer_merged_batched(x_proj[None], hh_w, h0[None], c0[None])
-    return hs[0], hT[0], cT[0]

@@ -47,6 +47,13 @@ def stft_planes(x: torch.Tensor, cfg: DSPConfig):
     return spec.real.contiguous(), spec.imag.contiguous()
 
 
+def stft_magnitude(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """|STFT| of x (..., n) → (..., T, F) float32, e.g. a batch of mixes
+    (B, 2, n) or of targets (B, T#, 2, n)."""
+    re, im = stft_planes(x, cfg)
+    return torch.sqrt(re * re + im * im)
+
+
 def istft_planes(re: torch.Tensor, im: torch.Tensor, n_samples: int, cfg: DSPConfig):
     """Inverse STFT from (re, im) planes (..., T, F) → (..., n_samples)."""
     lead = re.shape[:-2]
@@ -66,17 +73,17 @@ def istft_planes(re: torch.Tensor, im: torch.Tensor, n_samples: int, cfg: DSPCon
 
 
 def crop_stack(mag: torch.Tensor, nb_bins_cropped: int) -> torch.Tensor:
-    """(2, T, F) magnitudes → (T, 2*crop) stacked-stereo network input
-    (left bins, then right bins)."""
-    cropped = mag[:, :, :nb_bins_cropped]
-    return torch.cat([cropped[0], cropped[1]], dim=-1)
+    """(..., 2, T, F) magnitudes → (..., T, 2*crop) stacked-stereo network
+    input (left bins, then right bins)."""
+    cropped = mag[..., :nb_bins_cropped]
+    return torch.cat([cropped[..., 0, :, :], cropped[..., 1, :, :]], dim=-1)
 
 
 def masks_to_planes(masks: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """Network-layout masks (T#, T, 2*n_bins) → channel planes
-    (T#, 2, T, n_bins)."""
-    m = masks.reshape(masks.shape[0], masks.shape[1], 2, n_bins)
-    return m.permute(0, 2, 1, 3)
+    """Network-layout masks (..., T#, T, 2*n_bins) → channel planes
+    (..., T#, 2, T, n_bins)."""
+    m = masks.reshape(*masks.shape[:-1], 2, n_bins)
+    return m.movedim(-2, -3)
 
 
 def polar_to_complex(mag: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -115,3 +115,51 @@ def test_port_imports_no_jax(fixtures):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert len(os.listdir(d / "nojax")) == 4
+
+
+BATCHED = ["--no-streaming", "--chunk-batch", "2", "--istft-algo", "ct2", "--shifts", "2"]
+
+
+def test_cli_batched_whole_track_flags(fixtures):
+    # chunk groups of 2, both shift passes as batch rows, the CT iSTFT
+    d, model, wav, _, mix = fixtures
+    out = str(d / "out_batched")
+    assert cli.main([model, wav, out, *FAST, *BATCHED]) == 0
+    stems = []
+    for i in range(4):
+        rate, data = wavfile.read(os.path.join(out, f"target_{i}.wav"))
+        assert rate == SR and data.shape == (mix.shape[1], 2) and np.isfinite(data).all()
+        stems.append(data.T)
+    corr = np.corrcoef(np.sum(stems, axis=0).ravel(), mix.ravel())[0, 1]
+    assert corr >= 0.99
+
+
+def test_cli_rejects_an_unknown_istft_algo(fixtures):
+    d, model, wav, _, _ = fixtures
+    with pytest.raises(SystemExit) as e:
+        cli.main([model, wav, str(d / "obad"), *FAST, "--istft-algo", "ct2_xla"])
+    assert e.value.code == 2
+
+
+def test_batched_path_imports_no_jax(fixtures):
+    d, model, wav, _, _ = fixtures
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["umx_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        from umx_tpu_torch import cli
+        rc = cli.main([{model!r}, {wav!r}, {str(d / "nojax_b")!r}, "--segment-secs", "1.0",
+                       "--device", "cpu", "--quiet", *{BATCHED!r}])
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "umx_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        sys.exit(rc)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert len(os.listdir(d / "nojax_b")) == 4

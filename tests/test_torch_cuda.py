@@ -230,3 +230,145 @@ def test_separator_on_the_card_matches_cpu(dev):
     cpu = Separator(params_from_ggml(model, cfg.model), cfg).demix_track(track, seed=1)
     # bf16 recurrence operands and cuFFT/cuBLAS summation order
     assert np.max(np.abs(gpu - cpu)) <= 2e-3 * np.max(np.abs(cpu))
+
+
+@pytest.mark.parametrize(
+    "n_chunks, M, seg, stride",
+    [(3, 8, 2646, 1985), (4, 7, 1000, 777), (1, 5, 640, 480), (3, 3, 384, 384), (5, 1, 96, 48)],
+)
+def test_ola_kernel_bit_equal_to_plain(dev, n_chunks, M, seg, stride):
+    """K7 at ragged shapes: odd M, strides that are not multiples of 32,
+    one chunk, no overlap, exactly 50 %: bit-equal to the plain version."""
+    from umx_tpu_torch.ops import ola, ola_cuda
+
+    g = torch.Generator(device=dev).manual_seed(n_chunks * M)
+    ys = torch.randn((n_chunks, M, seg), generator=g, device=dev)
+    L = n_chunks * stride + seg - stride
+    inv = 1.0 / (torch.rand(L, generator=g, device=dev) + 0.5)
+    before = ola_cuda.ola_normalized.launches
+    out = ola_cuda.ola_normalized(ys, inv, stride)
+    torch.cuda.synchronize()
+    assert ola_cuda.ola_normalized.launches == before + 1
+    assert torch.equal(out, ola.ola_normalized_plain(ys, inv, stride))
+    assert torch.equal(out, ola_cuda.ola_normalized(ys, inv, stride))  # bit-stable
+
+
+@pytest.mark.parametrize("seg, stride", [(5000, 4099), (64, 48)])
+def test_pallas_overlap_add_runs_the_kernel_at_every_stride(dev, seg, stride):
+    """ola_impl="pallas" on the card launches K7 also where the stride has
+    no divisor in [128, 4096] (where the CPU route, like the JAX package,
+    falls back to the slice-adds), and raises above 50 % overlap."""
+    from umx_tpu_torch.config import EngineConfig
+    from umx_tpu_torch.engine.separator import _normalized_overlap_add, _overlap_add_chunks
+    from umx_tpu_torch.ops import ola, ola_cuda
+
+    g = torch.Generator(device=dev).manual_seed(seg)
+    n_chunks, mid = 3, (2, 4, 2)
+    ys = torch.randn((n_chunks, *mid, seg), generator=g, device=dev)
+    w = torch.rand(seg, generator=g, device=dev) + 0.5
+    padded_len = (n_chunks - 1) * stride + seg
+    cfg = EngineConfig(ola_impl="pallas")
+    before = ola_cuda.ola_normalized.launches
+    out = _normalized_overlap_add(ys, w, stride, padded_len, cfg)
+    torch.cuda.synchronize()
+    assert ola_cuda.ola_normalized.launches == before + 1
+    inv_sw = 1.0 / _overlap_add_chunks(w.expand(n_chunks, seg), stride, padded_len)
+    plain = ola.ola_normalized_plain(ys.reshape(n_chunks, 16, seg), inv_sw, stride)
+    assert torch.equal(out, plain.reshape(*mid, padded_len))
+    # the CPU's slice-adds / sw: the same sums, then / sw against × 1/sw
+    cpu = _normalized_overlap_add(ys.cpu(), w.cpu(), stride, padded_len, cfg)
+    assert torch.allclose(out.cpu(), cpu, rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="at most 50 %"):
+        _normalized_overlap_add(ys, w, seg // 3, 2 * (seg // 3) + seg, cfg)
+    assert ola_cuda.ola_normalized.launches == before + 1
+
+
+def test_ola_kernel_refuses_what_it_cannot_take(dev):
+    from umx_tpu_torch.ops import ola_cuda
+
+    ys = torch.zeros((3, 2, 512), device=dev)
+    with pytest.raises(ValueError, match="seg - stride"):
+        ola_cuda.ola_normalized(ys, torch.zeros(3 * 128 + 384, device=dev), 128)
+    with pytest.raises(ValueError, match="is on"):
+        ola_cuda.ola_normalized(ys, torch.zeros(3 * 384 + 128), 384)
+
+
+@pytest.mark.parametrize("rows, T, windowed", [(1, 1, True), (3, 37, True), (5, 9, False),
+                                               (2, 200, True)])
+def test_istft_ct_kernel_matches_plain(dev, rows, T, windowed):
+    """K8 at ragged frame counts against its plain version (cuFFT irfft
+    and the same overlap-add) and a float64 CPU reference."""
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    g = torch.Generator(device=dev).manual_seed(rows * T)
+    re = torch.randn((rows, T, 2049), generator=g, device=dev)
+    im = torch.randn((rows, T, 2049), generator=g, device=dev)
+    w = hann_window(4096, dev) if windowed else None
+    before = istft_ct_cuda.istft_ct2.launches
+    out = istft_ct_cuda.istft_ct2(re, im, 4096, 1024, w)
+    torch.cuda.synchronize()
+    assert istft_ct_cuda.istft_ct2.launches == before + 1
+    assert out.shape == (rows, (T - 1) * 1024 + 4096)
+    plain = istft_ct.istft_ct2_plain(re, im, 4096, 1024, w)
+    f64 = istft_ct.istft_ct2_plain(re.cpu().double(), im.cpu().double(), 4096, 1024,
+                                   w.cpu().double() if windowed else None)
+    # unit-normal planes: f32 sums over 2049 bins in other orders
+    assert (out - plain).abs().max().item() <= 1e-5
+    assert (out.cpu().double() - f64).abs().max().item() <= 1e-6
+    assert torch.equal(out, istft_ct_cuda.istft_ct2(re, im, 4096, 1024, w))
+
+
+def test_istft_ct_kernel_refuses_other_geometry(dev):
+    from umx_tpu_torch.ops import istft_ct_cuda
+
+    re = torch.zeros((2, 4, 2049), device=dev)
+    before = istft_ct_cuda.istft_ct2.launches
+    with pytest.raises(ValueError, match="hop == n_fft/4"):
+        istft_ct_cuda.istft_ct2(re, re, 4096, 512)
+    small = torch.zeros((2, 4, 751), device=dev)
+    with pytest.raises(ValueError, match="1024 | n_fft"):
+        istft_ct_cuda.istft_ct2(small, small, 1500, 375)
+    big = torch.zeros((2, 4, 4097), device=dev)
+    with pytest.raises(ValueError, match="n_fft = 4096"):
+        istft_ct_cuda.istft_ct2(big, big, 8192, 2048)
+    assert istft_ct_cuda.istft_ct2.launches == before
+
+
+def test_dense_istft_on_the_card_ignores_dc_and_nyquist_imaginary_parts(dev):
+    """cuFFT's C2R assumes the DC and Nyquist imaginary parts are 0; the
+    inverse sets them so, and agrees with the CPU where they are not."""
+    from umx_tpu_torch.config import DSPConfig
+    from umx_tpu_torch.ops.stft import istft_planes
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    re = torch.randn((8, 300, 2049), generator=g, device=dev)
+    im = torch.randn((8, 300, 2049), generator=g, device=dev)
+    gpu = istft_planes(re, im, 300 * 1024, DSPConfig())
+    cpu = istft_planes(re.cpu(), im.cpu(), 300 * 1024, DSPConfig())
+    assert (gpu.cpu() - cpu).abs().max().item() <= 1e-5
+
+
+def test_batched_whole_track_on_the_card_matches_cpu(dev):
+    """Non-streaming chunk groups, two batched shift passes, K7 and K8 on
+    the card against the CPU's plain versions, same weights and track."""
+    import numpy as np
+
+    from umx_tpu_torch.config import DSPConfig, EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.io.ggml import GGMLModel
+    from umx_tpu_torch.models.umx import params_from_ggml, synthetic_state_dicts
+    from umx_tpu_torch.ops import istft_ct_cuda, ola_cuda
+
+    cfg = EngineConfig(
+        dsp=DSPConfig(istft_algo="ct2"), model=ModelConfig(hidden_size=48),
+        segment=SegmentConfig(segment_secs=1.0, streaming=False, chunk_batch=0),
+        shifts=2, ola_impl="pallas",
+    )
+    model = GGMLModel(48, synthetic_state_dicts(cfg.model, seed=3))
+    track = np.random.default_rng(3).standard_normal((2, 100_000)).astype(np.float32) * 0.1
+    k7, k8 = ola_cuda.ola_normalized.launches, istft_ct_cuda.istft_ct2.launches
+    gpu = Separator(params_from_ggml(model, cfg.model, dev), cfg, dev).demix_track(track, seed=1)
+    assert ola_cuda.ola_normalized.launches > k7 and istft_ct_cuda.istft_ct2.launches > k8
+    cpu = Separator(params_from_ggml(model, cfg.model), cfg).demix_track(track, seed=1)
+    assert np.max(np.abs(gpu - cpu)) <= 2e-3 * np.max(np.abs(cpu))

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "umx_wiener_reduce": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # mode, xre, xim, m_or_yre, yim, racc, inv_ma, yre_out, yim_out, T, F, eps, reg, stream
     "umx_wiener_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # ys, inv_sw, out, n_chunks, M, seg, stride, L, stream
+    "umx_ola_normalized": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # re, im, table, window, frames, out, rows, T, F, N, hop, grid, stream
+    "umx_istft_ct2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -26,6 +26,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wiener-iters", type=int, default=1, help="Wiener EM iterations")
     p.add_argument("--no-streaming", action="store_true", help="reset LSTM state per segment")
     p.add_argument(
+        "--chunk-batch", type=int, default=0,
+        help="non-streaming segment-group width (0 = auto: the memory planner "
+        "picks the widest group that fits the device)",
+    )
+    p.add_argument(
         "--shifts", type=int, default=1,
         help="Demucs shift-trick passes to average (0 disables; reference supports only 1)",
     )
@@ -45,6 +50,13 @@ def build_parser() -> argparse.ArgumentParser:
         default="correct",
         help="source PSD: standard |y|^2 (fused kernels) or the reference's "
         "(re+im)^2 quirk (einsum path)",
+    )
+    p.add_argument(
+        "--istft-algo",
+        choices=("auto", "dense", "ct2"),
+        default="auto",
+        help="inverse-transform algorithm (auto = dense torch.istft; ct2 = the "
+        "fused Cooley-Tukey iSTFT kernel)",
     )
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     p.add_argument(
@@ -74,17 +86,21 @@ def _main(argv=None) -> int:
 
     import torch
 
-    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig, WienerConfig
+    from umx_tpu_torch.config import (
+        DSPConfig, EngineConfig, ModelConfig, SegmentConfig, WienerConfig,
+    )
     from umx_tpu_torch.engine.separator import Separator, resolve_device
     from umx_tpu_torch.io.audio import load_audio, write_audio
 
     device = resolve_device(args.device)
     cfg = EngineConfig(
+        dsp=DSPConfig(istft_algo=args.istft_algo),
         model=ModelConfig(input_scaling=args.input_scaling),
         segment=SegmentConfig(
             segment_secs=args.segment_secs,
             overlap=args.overlap,
             streaming=not args.no_streaming,
+            chunk_batch=args.chunk_batch,
         ),
         wiener=WienerConfig(iterations=args.wiener_iters, psd=args.wiener_psd),
         use_wiener=not args.no_wiener,

@@ -1,10 +1,16 @@
 """Configuration for the port: the fields of ``umx_tpu.config`` that the
-CLI demix path reads, with the same names and defaults.
+port's demix paths read, with the same names and defaults, so a JAX
+config translates field for field.
 
-The TPU-only knobs (FFT/DFT algorithm and precision, storage dtypes,
-overlap-add and streaming schedules, window planning) have no
-counterpart here: the port keeps masks, Wiener output and stems in
-float32 and runs the transforms through cuFFT.
+Three algorithm choices carry over: ``DSPConfig.istft_algo`` ("ct2" is
+the hand-written Cooley-Tukey iSTFT kernel), ``SegmentConfig.chunk_batch``
+(the non-streaming group width, 0 = the memory planner's pick) and
+``EngineConfig.ola_impl`` ("pallas" keeps its JAX name and selects the
+hand-written overlap-add kernel).  Values the port does not implement
+raise ``ValueError``.  The TPU-only knobs (FFT/DFT precision, storage
+dtypes, streaming schedules, window planning) have no counterpart: the
+port keeps masks, Wiener output and stems in float32, and its forward
+STFT and dense iSTFT run through cuFFT.
 """
 
 from __future__ import annotations
@@ -22,6 +28,26 @@ class DSPConfig:
     sample_rate: int = 44100
     n_fft: int = 4096
     hop: int = 1024
+    # inverse-transform algorithm: "dense" = torch.istft; "ct2" = the
+    # fused Cooley-Tukey kernel (K8, ops/istft_ct_cuda.py; needs
+    # n_fft = 4096 and hop = n_fft/4); "auto" = dense
+    istft_algo: Literal["auto", "dense", "ct2"] = "auto"
+
+    def __post_init__(self):
+        if self.istft_algo not in ("auto", "dense", "ct2"):
+            raise ValueError(f"istft_algo must be auto, dense or ct2, got {self.istft_algo!r}")
+
+    @property
+    def n_bins(self) -> int:
+        return self.n_fft // 2 + 1
+
+    @property
+    def pad(self) -> int:
+        return self.n_fft // 2
+
+    def n_frames(self, n_samples: int) -> int:
+        """Frame count of a centered STFT over ``n_samples``."""
+        return n_samples // self.hop + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +99,10 @@ class SegmentConfig:
     transition_power: float = 1.0
     # LSTM h/c state carries across segments (the reference's streaming LSTM)
     streaming: bool = True
+    # non-streaming tracks run their segments in groups of this many rows
+    # through one batched segment forward; 0 = auto, the memory planner's
+    # widest fitting width (engine/memory.py::suggest_chunk_batch)
+    chunk_batch: int = 0
 
     def __post_init__(self):
         if not (0.0 <= self.overlap < 1.0):
@@ -104,6 +134,17 @@ class EngineConfig:
     # random-shift passes averaged for the Demucs time-equivariance trick
     # (0 disables; the reference supports exactly 1)
     shifts: int = 1
+    # overlap-add of the stacked weighted chunk outputs: "auto" = "unroll"
+    # (one slice-add per chunk, then / weight sum); "xla" = the pad+sum
+    # form; "pallas" = the overlap-add kernel (K7, ops/ola_cuda.py; on
+    # CUDA overlap above 50 % raises)
+    ola_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.ola_impl not in ("auto", "unroll", "xla", "pallas"):
+            raise ValueError(
+                f"ola_impl must be auto, unroll, xla or pallas, got {self.ola_impl!r}"
+            )
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

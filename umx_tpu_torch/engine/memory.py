@@ -1,0 +1,188 @@
+"""Device-memory planning for the batched whole-track programs: the subset
+of ``umx_tpu.engine.memory`` that the port's demix paths call.
+
+The non-streaming program runs its segments in groups of ``width`` rows
+and the batched shifts run B tracks at once, so the peak grows with
+B × width; these estimates let the separator pick the widest group (and
+the largest shift batch) that fits instead of finding out by running out
+of memory.  The liveness model is the JAX package's: at the boundary
+between the last segment group and the overlap-add, the stacked weighted
+chunk outputs, the stems, the padded audio and one group of segment
+transients are live together.  How the port differs:
+
+* capacity is ``torch.cuda.mem_get_info(device)[1]`` on a GPU and the
+  physical RAM on the CPU;
+* the stacked chunk outputs are always float32 (the port keeps stems in
+  float32);
+* parameter bytes are exact when the parameters are given;
+* with ``istft_algo="ct2"`` the segment transients count the whole
+  frames buffer of the iSTFT kernel (the dense path keeps a quarter);
+* the fitted factors are anchored on an H100, one transient factor per
+  iSTFT algorithm (``chip_smoke.py`` prints the measured peaks beside
+  these estimates; PERF.md keeps them).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import fields
+
+import torch
+
+from umx_tpu_torch.config import EngineConfig
+
+# Slack on the segment-transient share of the boundary model, per iSTFT
+# algorithm.  The port's segment forward keeps more per row alive than the
+# JAX program (torch.stft and torch.istft intermediates, the input
+# projections of all three LSTM layers, the per-row Wiener outputs).
+# Fitted on an H100 80GB HBM3 at 700 W from the UMX-L peaks
+# (torch.cuda.max_memory_allocated) of a 100 s track at widths 1-3 and two
+# batched shifts, streaming or not: the dense inverse needs 2.93 to 3.03
+# times its per-row term, the ct2 inverse 1.12 to 1.19 times its own
+# (which counts the whole frames buffer); each factor bounds them all.
+_TRANSIENT_FACTOR = {"dense": 3.2, "ct2": 1.3}
+# Resident bytes over the raw float32 parameter bytes: 452,427,776
+# allocated for UMX-L's 452,424,832 (the caching allocator's rounding),
+# on the same card.
+_PARAMS_OVERHEAD = 1.0001
+_F32 = 4
+
+
+def device_hbm_bytes(device=None) -> int:
+    """Memory capacity of ``device``: total device memory of a GPU, the
+    physical RAM for the CPU (default: the current GPU if there is one)."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[1])
+    return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+def params_hbm_bytes(cfg: EngineConfig, params=None) -> int:
+    """Bytes of the resident parameters: exact when ``params`` (a
+    ``UMXParams``) is given, else derived from the model shape (per
+    target fc1, 3 bidirectional LSTM layers, fc2, fc3, batch norms, input
+    and output mean and scale, all float32)."""
+    if params is not None:
+        return sum(
+            t.numel() * t.element_size() for t in (getattr(params, f.name) for f in fields(params))
+        )
+    m = cfg.model
+    h, g, s = m.hidden_size, m.lstm_hidden, m.n_targets
+    nf, no = m.n_features, m.n_outputs
+    mats = nf * h + 6 * (h * 4 * g + g * 4 * g) + 2 * h * h + h * no
+    vec = (
+        4 * h + 4 * h + 4 * no  # bn1, bn2, bn3 (w, b, mean, var)
+        + 2 * nf + 2 * no       # input/output mean+scale
+        + 6 * 2 * 4 * g         # LSTM b_ih + b_hh per direction-layer
+    )
+    return int(s * _F32 * (mats + vec) * _PARAMS_OVERHEAD)
+
+
+def _segment_transient_bytes(cfg: EngineConfig) -> int:
+    """Bytes of one segment row's pipeline tensors: Wiener y planes,
+    masks, mix spectrogram planes and the iSTFT frames (a quarter share
+    for the dense inverse, as the JAX package counts it; the whole buffer
+    for the ct2 kernel, which keeps it until its overlap-add launch)."""
+    s = cfg.model.n_targets
+    t = cfg.dsp.n_frames(cfg.segment.segment_samples(cfg.dsp.sample_rate))
+    f = cfg.dsp.n_bins
+    y_planes = 2 * s * 2 * t * f * _F32
+    mix_planes = 2 * 2 * t * f * _F32
+    masks = s * t * 2 * f * _F32
+    frames = s * 2 * t * cfg.dsp.n_fft * _F32
+    frames_share = frames if cfg.dsp.istft_algo == "ct2" else frames // 4
+    return y_planes + mix_planes + masks + frames_share
+
+
+def _track_terms(cfg: EngineConfig, track_secs: float, b: int) -> dict[str, int]:
+    sr = cfg.dsp.sample_rate
+    seg = cfg.segment.segment_samples(sr)
+    stride = cfg.segment.stride_samples(sr)
+    n_chunks = max(1, math.ceil(int(track_secs * sr) / stride))
+    padded = (n_chunks - 1) * stride + seg
+    s = cfg.model.n_targets
+    return {
+        "n_chunks": n_chunks,
+        "ys": b * s * 2 * n_chunks * seg * _F32,  # stacked weighted chunks
+        "ola": b * 2 * s * 2 * n_chunks * stride * _F32,  # pad+sum combine grids
+        "stems": b * s * 2 * padded * _F32,
+        "audio": b * 2 * padded * _F32,
+    }
+
+
+def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params_b: int) -> dict[str, int]:
+    ys, ola, stems, audio = terms["ys"], terms["ola"], terms["stems"], terms["audio"]
+    factor = _TRANSIENT_FACTOR["ct2" if cfg.dsp.istft_algo == "ct2" else "dense"]
+    # the last group's transients beside the track buffers; with a factor
+    # above 1 this bounds the phase before the stems exist as well
+    boundary = ys + stems + audio + int(seg_transients * factor)
+    ola_phase = ys + ola + stems
+    peak = max(boundary, ola_phase) if cfg.ola_impl == "xla" else boundary
+    return {
+        "ys": ys, "ola": ola, "stems": stems, "audio": audio,
+        "seg_transients": seg_transients, "params": params_b,
+        "boundary": boundary, "ola_phase": ola_phase, "total": peak + params_b,
+    }
+
+
+def fused_track_hbm_bytes(cfg: EngineConfig, batch: int, track_secs: float,
+                          params=None) -> dict[str, int]:
+    """Estimated peak of B stacked tracks through the streaming program
+    (one segment row per track in flight).  Returns the liveness terms
+    (bytes) and ``total``."""
+    terms = _track_terms(cfg, track_secs, batch)
+    return _peak(cfg, terms, batch * _segment_transient_bytes(cfg), params_hbm_bytes(cfg, params))
+
+
+def parallel_track_hbm_bytes(cfg: EngineConfig, chunk_batch: int, track_secs: float,
+                             params=None, batch: int = 1) -> dict[str, int]:
+    """Estimated peak of the non-streaming program at group width
+    ``chunk_batch`` over ``batch`` stacked tracks (batch × width segment
+    rows in flight).  Returns the liveness terms (bytes) and ``total``."""
+    b = max(1, batch)
+    terms = _track_terms(cfg, track_secs, b)
+    width = min(chunk_batch, terms["n_chunks"])
+    return _peak(cfg, terms, b * width * _segment_transient_bytes(cfg),
+                 params_hbm_bytes(cfg, params))
+
+
+def _suggest(estimate, budget: float, hard_cap: int = 1024) -> int:
+    """Largest b in [1, hard_cap] with estimate(b) <= budget (estimate
+    monotonic in b; always >= 1): exponential probe, then bisection."""
+    if hard_cap <= 1 or estimate(2) > budget:
+        return 1
+    lo, hi = 2, 4
+    while hi <= hard_cap and estimate(hi) <= budget:
+        lo, hi = hi, hi * 2
+    hi = min(hi, hard_cap + 1)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if estimate(mid) <= budget:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def suggest_max_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | None = None,
+                      safety: float = 0.9, params=None, device=None) -> int:
+    """Largest number of ``track_secs`` tracks whose estimated streaming
+    footprint fits in ``safety`` × the capacity (always >= 1)."""
+    budget = (device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes) * safety
+    return _suggest(lambda b: fused_track_hbm_bytes(cfg, b, track_secs, params)["total"], budget)
+
+
+def suggest_chunk_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | None = None,
+                        safety: float = 0.9, params=None, batch: int = 1, device=None) -> int:
+    """Widest non-streaming group whose estimated footprint fits (the
+    ``chunk_batch=0`` auto mode).  Capped, as in the JAX package, so that
+    batch × width stays at most 16 rows."""
+    budget = (device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes) * safety
+    return _suggest(
+        lambda w: parallel_track_hbm_bytes(cfg, w, track_secs, params, batch)["total"],
+        budget,
+        hard_cap=max(1, 16 // max(1, batch)),
+    )

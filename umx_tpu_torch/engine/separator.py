@@ -1,13 +1,19 @@
-"""The demixing engine: the per-segment pipeline and the track loop.
+"""The demixing engine: the batched segment pipeline and the whole-track
+programs.
 
 A segment runs STFT → magnitude → crop/stack → mask network (pre,
-recurrence, post) → Wiener-EM (or mix-phase masking) → iSTFT.  A track
-is split into full-length segments at a fixed stride (the last one
-zero-padded), the streaming LSTM state is threaded from segment to
-segment, and the outputs are cross-faded with the triangular transition
-weight, accumulated into one float32 track buffer and divided by the
-weight sum.  With shifts ≥ 1 the track is front-padded by a random
-offset drawn from ``np.random.default_rng(seed)`` and trimmed back.
+recurrence, post) → Wiener-EM (or mix-phase masking) → iSTFT, over a
+leading axis of segment rows.  A track is split into full-length
+segments at a fixed stride (the last one zero-padded).  Streaming
+configs thread the LSTM state from chunk to chunk (:func:`demix_fused`);
+non-streaming configs run the chunks in groups of ``chunk_batch`` rows
+at zero state (:func:`demix_fused_parallel`).  Either way the chunk
+outputs, weighted by the triangular transition, are stacked
+``(n_chunks, ..., seg)`` and finished by one normalized overlap-add
+(:func:`_normalized_overlap_add`, ``EngineConfig.ola_impl``).  With
+shifts ≥ 1 the track is front-padded by offsets drawn from
+``np.random.default_rng(seed)`` and trimmed back; several shift passes
+run as batch rows of one program when the memory planner says they fit.
 """
 
 from __future__ import annotations
@@ -19,16 +25,23 @@ import numpy as np
 import torch
 
 from umx_tpu_torch.config import EngineConfig
+from umx_tpu_torch.engine.memory import suggest_chunk_batch, suggest_max_batch
 from umx_tpu_torch.models.umx import (
     LSTMState,
     UMXParams,
     init_lstm_state,
     umx_post,
     umx_pre,
-    umx_recurrence,
+    umx_recurrence_batched,
 )
+from umx_tpu_torch.ops.ola import overlap_add_chunks
+from umx_tpu_torch.ops.ola_cuda import overlap_add_normalized
 from umx_tpu_torch.ops.stft import crop_stack, istft_planes, masks_to_planes, stft_planes
 from umx_tpu_torch.ops.wiener import wiener_filter_masks
+
+# Shift passes batched into one program at most (batch rows of the
+# recurrence kernel in the streaming program).
+_MAX_SHIFT_BATCH = 16
 
 
 def resolve_device(device) -> torch.device:
@@ -46,25 +59,45 @@ def apply_masks(masks, mag, n_bins: int):
     return masks_to_planes(masks, n_bins) * mag.unsqueeze(-4)
 
 
-def segment_forward(
+def segment_forward_batched(
     params: UMXParams, audio, state: LSTMState, cfg: EngineConfig, n_samples: int
 ):
-    """Demix one segment: audio (2, n_samples) → (waveforms
-    (T#, 2, n_samples), new LSTM state)."""
+    """Demix N segments at once: audio (N, 2, n_samples) and state h/c
+    (N, T#, L, D, G) → (waveforms (N, T#, 2, n_samples), new state).
+
+    The STFT, the network and the iSTFT run on the whole batch (the
+    recurrence kernel takes the N rows per chain); the Wiener passes run
+    row by row, because their max|x| scaling is per segment."""
     mcfg = cfg.model
-    re, im = stft_planes(audio, cfg.dsp)  # (2, T, F)
+    re, im = stft_planes(audio, cfg.dsp)  # (N, 2, T, F)
     mag = torch.sqrt(re * re + im * im)
-    x1 = umx_pre(params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)
-    lstm_out, new_state = umx_recurrence(params, x1, state, mcfg)
-    masks = umx_post(params, x1, lstm_out, mcfg)
+    x1 = umx_pre(params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)  # (N, T#, T, H)
+    lstm_out, new_state = umx_recurrence_batched(params, x1, state, mcfg)
+    masks = umx_post(params, x1, lstm_out, mcfg)  # (N, T#, T, 2F)
     if cfg.use_wiener:
-        tre, tim = wiener_filter_masks(re, im, masks, mcfg.n_bins, cfg.wiener)
+        n, n_t, T = masks.shape[:3]
+        tre = torch.empty((n, n_t, 2, T, mcfg.n_bins), dtype=torch.float32, device=re.device)
+        tim = torch.empty_like(tre)
+        for i in range(n):
+            tre[i], tim[i] = wiener_filter_masks(re[i], im[i], masks[i], mcfg.n_bins, cfg.wiener)
     else:
         # mix-phase reconstruction: mag * unit(x) = mask * x
         m = masks_to_planes(masks, mcfg.n_bins)
-        tre = m * re[None]
-        tim = m * im[None]
+        tre = m * re.unsqueeze(1)
+        tim = m * im.unsqueeze(1)
     return istft_planes(tre, tim, n_samples, cfg.dsp), new_state
+
+
+def segment_forward(
+    params: UMXParams, audio, state: LSTMState, cfg: EngineConfig, n_samples: int
+):
+    """Demix one segment: audio (2, n_samples), state (T#, L, D, G) →
+    (waveforms (T#, 2, n_samples), new state); one row of
+    :func:`segment_forward_batched`."""
+    waves, st = segment_forward_batched(
+        params, audio[None], LSTMState(h=state.h[None], c=state.c[None]), cfg, n_samples
+    )
+    return waves[0], LSTMState(h=st.h[0], c=st.c[0])
 
 
 def transition_weight(segment_samples: int, power: float, device="cpu"):
@@ -78,6 +111,94 @@ def transition_weight(segment_samples: int, power: float, device="cpu"):
         w = torch.cat([up, up.flip(0)])
     w = w / w.max()
     return w**power
+
+
+def _slice_add(ys: torch.Tensor, stride: int, padded_len: int) -> torch.Tensor:
+    """One slice-add per chunk (n_chunks, ..., seg) at offsets k*stride,
+    in chunk order, into a float32 zero buffer."""
+    n_chunks, *mid, seg = ys.shape
+    out = torch.zeros((*mid, padded_len), dtype=torch.float32, device=ys.device)
+    for k in range(n_chunks):
+        out[..., k * stride : k * stride + seg] += ys[k]
+    return out
+
+
+def _overlap_add_chunks(ys: torch.Tensor, stride: int, padded_len: int) -> torch.Tensor:
+    """Overlap-add chunks (n_chunks, ..., seg) at offsets k*stride.  For
+    overlap ≤ 50 % each chunk splits at the stride and the heads and
+    tails combine in one chunk-major → time-major pass
+    (:func:`umx_tpu_torch.ops.ola.overlap_add_chunks`); otherwise the
+    slice-adds."""
+    if ys.shape[-1] - stride > stride:
+        return _slice_add(ys, stride, padded_len)
+    return overlap_add_chunks(ys, stride)
+
+
+def _normalized_overlap_add(ys: torch.Tensor, weight: torch.Tensor, stride: int,
+                            padded_len: int, cfg: EngineConfig) -> torch.Tensor:
+    """Weighted-chunk overlap-add + weight-sum normalization: ys
+    (n_chunks, *mid, seg) → (*mid, padded_len).
+
+    ``ola_impl``: "auto"/"unroll" = one slice-add per chunk, then / sw
+    (each sample sums its ≤ 2 addends in chunk order); "xla" = the pad+sum
+    form, / sw; "pallas" = the overlap-add kernel (K7), × 1/sw.  On CUDA
+    "pallas" runs the kernel at every stride and raises above 50 %
+    overlap; on the CPU its plain version falls back to "unroll" where
+    the JAX package's does."""
+    n_chunks, seg = ys.shape[0], ys.shape[-1]
+    sw = _overlap_add_chunks(weight.expand(n_chunks, seg), stride, padded_len)
+    choice = "unroll" if cfg.ola_impl == "auto" else cfg.ola_impl
+    if choice == "pallas":
+        out = overlap_add_normalized(ys.float(), 1.0 / sw, stride, padded_len)
+        if out is not None:
+            return out
+        choice = "unroll"
+    if choice == "unroll":
+        return _slice_add(ys, stride, padded_len) / sw
+    return _overlap_add_chunks(ys.float(), stride, padded_len) / sw
+
+
+def demix_fused(params: UMXParams, audio_p, state: LSTMState, cfg: EngineConfig,
+                n_chunks: int, seg: int, stride: int):
+    """Streaming whole-track demix of B stacked tracks: audio_p (B, 2, P)
+    with P = (n_chunks-1)*stride + seg, state h/c (B, T#, L, D, G) →
+    (stems (B, T#, 2, P), final state).  The chunk loop carries each
+    track's state in its batch row."""
+    B, P = audio_p.shape[0], audio_p.shape[-1]
+    weight = transition_weight(seg, cfg.segment.transition_power, audio_p.device)
+    ys = torch.empty((n_chunks, B, cfg.model.n_targets, 2, seg), device=audio_p.device)
+    for i in range(n_chunks):
+        off = i * stride
+        chunk_out, state = segment_forward_batched(
+            params, audio_p[:, :, off : off + seg], state, cfg, seg
+        )
+        torch.mul(weight, chunk_out, out=ys[i])
+    return _normalized_overlap_add(ys, weight, stride, P, cfg), state
+
+
+def demix_fused_parallel(params: UMXParams, audio_p, cfg: EngineConfig, n_chunks: int,
+                         seg: int, stride: int, chunk_batch: int):
+    """Non-streaming whole-track demix with the chunks run in groups:
+    audio_p (..., 2, P) → stems (..., T#, 2, P).
+
+    Without the state carry every segment is independent, so each group
+    of ``chunk_batch`` chunks (× the leading batch of tracks) runs as the
+    rows of one batched segment forward at zero state; the remainder
+    group runs at its natural width."""
+    lead, P = audio_p.shape[:-2], audio_p.shape[-1]
+    a = audio_p.reshape(-1, 2, P)
+    B = a.shape[0]
+    n_t = cfg.model.n_targets
+    weight = transition_weight(seg, cfg.segment.transition_power, a.device)
+    ys = torch.empty((n_chunks, B, n_t, 2, seg), device=a.device)
+    for k0 in range(0, n_chunks, chunk_batch):
+        width = min(chunk_batch, n_chunks - k0)
+        rows = torch.stack([a[:, :, k * stride : k * stride + seg] for k in range(k0, k0 + width)])
+        state = init_lstm_state(cfg.model, a.device, batch=width * B)
+        outs, _ = segment_forward_batched(params, rows.reshape(width * B, 2, seg), state, cfg, seg)
+        torch.mul(weight, outs.view(width, B, n_t, 2, seg), out=ys[k0 : k0 + width])
+    ys = ys.view(n_chunks, *lead, n_t, 2, seg)
+    return _normalized_overlap_add(ys, weight, stride, P, cfg)
 
 
 class Separator:
@@ -108,41 +229,44 @@ class Separator:
             )
         return cls(params_from_ggml(model, cfg.model, device), cfg, device)
 
+    def _geometry(self, length: int):
+        sr = self.cfg.dsp.sample_rate
+        seg = self.cfg.segment.segment_samples(sr)
+        stride = self.cfg.segment.stride_samples(sr)
+        n_chunks = max(1, math.ceil(length / stride))
+        return seg, stride, n_chunks, (n_chunks - 1) * stride + seg
+
     @torch.inference_mode()
     def demix(self, audio) -> torch.Tensor:
         """Overlapping-segment demix of a track: audio (2, length) →
-        (T#, 2, length) float32 on the separator's device."""
+        (T#, 2, length) float32 on the separator's device.  Non-streaming
+        configs run the chunk groups at ``chunk_batch`` rows (0 = the
+        memory planner's width), streaming configs the chunk loop."""
         cfg = self.cfg
-        sr = cfg.dsp.sample_rate
-        seg = cfg.segment.segment_samples(sr)
-        stride = cfg.segment.stride_samples(sr)
         audio = torch.as_tensor(np.asarray(audio, np.float32)).to(self.device)
         length = audio.shape[1]
-
-        n_chunks = max(1, math.ceil(length / stride))
-        padded_len = (n_chunks - 1) * stride + seg
+        seg, stride, n_chunks, padded_len = self._geometry(length)
         audio_p = torch.nn.functional.pad(audio, (0, padded_len - length))
-
-        weight = transition_weight(seg, cfg.segment.transition_power, self.device)
-        out = torch.zeros((cfg.model.n_targets, 2, padded_len), device=self.device)
-        sum_weight = torch.zeros((padded_len,), device=self.device)
-        state = init_lstm_state(cfg.model, self.device)
-        for i in range(n_chunks):
-            off = i * stride
-            chunk_out, new_state = segment_forward(
-                self.params, audio_p[:, off : off + seg], state, cfg, seg
-            )
-            if cfg.segment.streaming:
-                state = new_state
-            out[..., off : off + seg] += weight * chunk_out
-            sum_weight[off : off + seg] += weight
-        return (out / sum_weight)[..., :length]
+        if not cfg.segment.streaming:
+            cb = cfg.segment.chunk_batch
+            if cb <= 0:
+                cb = suggest_chunk_batch(cfg, length / cfg.dsp.sample_rate, params=self.params,
+                                         device=self.device)
+            out = demix_fused_parallel(self.params, audio_p, cfg, n_chunks, seg, stride,
+                                       min(cb, n_chunks))
+        else:
+            state = init_lstm_state(cfg.model, self.device, batch=1)
+            out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg, stride)
+            out = out[0]
+        return out[..., :length]
 
     def demix_track(self, audio, seed: int = 0) -> np.ndarray:
         """Full-track demix with the Demucs random-shift trick: each of
         ``cfg.shifts`` passes front-pads the track by an offset in
         [0, max_shift) and trims the output back; the passes are
-        averaged.  Returns (T#, 2, length) float32 numpy."""
+        averaged.  Several passes run as batch rows of one program when
+        the memory planner fits at least two.  Returns (T#, 2, length)
+        float32 numpy."""
         cfg = self.cfg
         audio = np.asarray(audio, np.float32)
         length = audio.shape[1]
@@ -152,9 +276,40 @@ class Separator:
         max_shift = cfg.segment.max_shift_samples(cfg.dsp.sample_rate)
         rng = np.random.default_rng(seed)
         offsets = [int(rng.integers(0, max_shift)) for _ in range(cfg.shifts)]
+        if cfg.shifts > 1:
+            fit = suggest_max_batch(cfg, (length + max_shift) / cfg.dsp.sample_rate,
+                                    params=self.params, device=self.device)
+            if fit >= 2:
+                return self._demix_shifts_batched(audio, offsets, max_shift,
+                                                  min(fit, _MAX_SHIFT_BATCH))
         acc = None
         for offset in offsets:
             shifted = np.pad(audio, ((0, 0), (offset, max_shift - offset)))
             out = self.demix(shifted)[..., offset : offset + length]
             acc = out if acc is None else acc + out
         return (acc / cfg.shifts).cpu().numpy()
+
+    @torch.inference_mode()
+    def _demix_shifts_batched(self, audio: np.ndarray, offsets: list[int], max_shift: int,
+                              max_batch: int) -> np.ndarray:
+        """All shift passes as batch rows of the whole-track program, in
+        groups of at most ``max_batch`` tracks."""
+        from umx_tpu_torch.engine.fleet import _batched_demix
+
+        cfg = self.cfg
+        length = audio.shape[1]
+        seg, stride, n_chunks, padded_len = self._geometry(length + max_shift)
+        track = torch.from_numpy(audio).to(self.device)
+        acc = None
+        for g in range(0, len(offsets), max_batch):
+            group = offsets[g : g + max_batch]
+            batch = torch.zeros((len(group), 2, padded_len), device=self.device)
+            for b, off in enumerate(group):
+                batch[b, :, off : off + length] = track
+            states = init_lstm_state(cfg.model, self.device, batch=len(group))
+            fn = _batched_demix(cfg, n_chunks, seg, stride, batch=len(group), device=self.device)
+            out_b, _ = fn(self.params, batch, states)
+            for b, off in enumerate(group):
+                contrib = out_b[b, ..., off : off + length]
+                acc = contrib.clone() if acc is None else acc + contrib
+        return (acc / len(offsets)).cpu().numpy()

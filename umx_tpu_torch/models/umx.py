@@ -69,8 +69,11 @@ class LSTMState:
     c: torch.Tensor  # (T#, L, D, G)
 
 
-def init_lstm_state(cfg: ModelConfig, device="cpu") -> LSTMState:
+def init_lstm_state(cfg: ModelConfig, device="cpu", batch: int | None = None) -> LSTMState:
+    """Zero state (T#, L, D, G), or (batch, T#, L, D, G) with ``batch``."""
     shape = (cfg.n_targets, cfg.n_lstm_layers, 2, cfg.lstm_hidden)
+    if batch is not None:
+        shape = (batch, *shape)
     return LSTMState(
         h=torch.zeros(shape, dtype=torch.float32, device=device),
         c=torch.zeros(shape, dtype=torch.float32, device=device),

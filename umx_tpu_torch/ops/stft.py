@@ -1,10 +1,15 @@
-"""STFT / iSTFT on (re, im) float32 planes in the (..., T, F) layout,
-through ``torch.stft``/``torch.istft`` (cuFFT on the GPU).
+"""STFT / iSTFT on (re, im) float32 planes in the (..., T, F) layout.
 
 Conventions (those of ``umx_tpu.ops.stft`` and of torch.stft):
 centered with a reflect pad of n_fft/2, periodic Hann window, one-sided,
 unscaled forward, 1/N inverse, overlap-add normalized by the window
 sum-of-squares, cropped to ``[pad : pad + n]``.
+
+The forward transform and the dense inverse run through
+``torch.stft``/``torch.istft`` (cuFFT on the GPU).  ``istft_algo="ct2"``
+runs the fused Cooley-Tukey inverse (K8, ``ops/istft_ct_cuda.py``) and
+normalizes as the JAX package does: raw signal / (window_sumsquare +
+1e-8), then the crop.
 """
 
 from __future__ import annotations
@@ -54,11 +59,56 @@ def stft_magnitude(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     return torch.sqrt(re * re + im * im)
 
 
+def hermitian_spectrum(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """complex(re, im) with the imaginary parts of the DC and Nyquist bins
+    set to 0.  A one-sided inverse drops them by definition (the JAX
+    package's and the CPU's irfft ignore them), but cuFFT's C2R transform
+    assumes they are 0 and gives another result where they are not; the
+    Wiener output can carry them."""
+    spec = torch.complex(re.float(), im.float())
+    spec.imag[..., 0] = 0.0
+    spec.imag[..., -1] = 0.0
+    return spec
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Sum frames (..., T, n_fft) at hop-strided offsets into a signal
+    (..., (T-1)*hop + n_fft): the sum of n_fft/hop zero-padded piece grids,
+    in piece order (``umx_tpu.ops.stft.overlap_add``)."""
+    *lead, n_frames, n_fft = frames.shape
+    if n_fft % hop:
+        raise ValueError(f"overlap_add requires hop | n_fft, got {hop}, {n_fft}")
+    ratio = n_fft // hop
+    pieces = frames.reshape(*lead, n_frames, ratio, hop)
+    total = None
+    for p in range(ratio):
+        # piece p of frame t lands at row t + p of a hop-wide grid
+        x = torch.nn.functional.pad(pieces[..., p, :], (0, 0, p, ratio - 1 - p))
+        total = x if total is None else total + x
+    out = total.reshape(*lead, (n_frames + ratio - 1) * hop)
+    return out[..., : (n_frames - 1) * hop + n_fft]
+
+
+def window_sumsquare(window: torch.Tensor, n_frames: int, hop: int, out_len: int) -> torch.Tensor:
+    """Sum of the squared, hop-shifted windows over ``n_frames`` frames,
+    cut to ``out_len`` samples."""
+    w2 = (window * window).expand(n_frames, window.shape[0])
+    return overlap_add(w2, hop)[:out_len]
+
+
 def istft_planes(re: torch.Tensor, im: torch.Tensor, n_samples: int, cfg: DSPConfig):
     """Inverse STFT from (re, im) planes (..., T, F) → (..., n_samples)."""
+    if cfg.istft_algo == "ct2":
+        from umx_tpu_torch.ops.istft_ct_cuda import istft_ct2
+
+        win = hann_window(cfg.n_fft, re.device)
+        sig = istft_ct2(re.float().contiguous(), im.float().contiguous(), cfg.n_fft, cfg.hop, win)
+        wss = window_sumsquare(win, re.shape[-2], cfg.hop, sig.shape[-1])
+        sig = sig / (wss + 1e-8)
+        return sig[..., cfg.pad : cfg.pad + n_samples]
     lead = re.shape[:-2]
     T, F = re.shape[-2:]
-    spec = torch.complex(re.float(), im.float()).reshape(-1, T, F).transpose(-1, -2)
+    spec = hermitian_spectrum(re, im).reshape(-1, T, F).transpose(-1, -2)
     sig = torch.istft(
         spec,
         n_fft=cfg.n_fft,

@@ -42,8 +42,30 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 9. memory-planner anchors: the measured peak of the non-streaming and
    batched-shift programs beside the planner's estimate, which must bound
    it;
-10. timings: each kernel against its plain version (CUDA events, after
-    warm-up), the warm demix times of the 100 s track, and train steps/s.
+10. the per-target recurrence kernel K9 against its plain version and
+    against K1 at T = 2584, G = 512 and G = 256, timed beside K1;
+    the Wiener passes in mode "mags" (and "y") against their plain
+    versions at S = 4, T = 2584, F = 2049;
+11. the catalogue path: five synthetic tracks (three of 100 s, one of
+    40 s, one of 400 s) demixed by ``python -m umx_tpu_torch.cli_batch
+    --quantized-hbm`` in a subprocess with its defaults, every stem
+    directory checked; then ``demix_tracks`` in process with
+    ``window_chunks=4`` (the 400 s track takes the windowed route), its
+    launch counts read, its stems held against the subprocess's, the
+    shapes it gave K1 (three rows per chain in the bucket of 100 s tracks)
+    and K2/K3 recorded and each kernel held against its plain version
+    there, and that bucket with dense weights held against the tracks one
+    by one and against the CPU; one
+    ``Separator`` with ``lstm_impl="pallas"`` on the 400 s track (K9
+    launched 3 layers x chunks times) against the K1 run and against the
+    CPU on a 100 s cut; ``wiener_filter_planes`` on a real segment against
+    ``wiener_filter_masks``; the window and fleet planners' estimates
+    beside the measured peaks;
+12. timings: each kernel against its plain version and, where one
+    PyTorch call computes the same function, that call (CUDA events,
+    after warm-up), each beside its bound (bytes over 3.35 TB/s or
+    operations over the peak rate, whichever is larger), the warm demix
+    times of the 100 s track, and train steps/s.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -77,6 +99,13 @@ N_CHUNKS, SEG, STRIDE = 3, 2_646_000, 1_984_500
 # the iSTFT kernel's rows at one segment row (T# x 2 channels); the
 # batched path's own rows are recorded when it runs
 ISTFT_ROWS = 8
+# the catalogue: track lengths in seconds; at 60 s segments and a 45 s
+# stride (plus the 0.5 s shift pad) 3, 3, 3, 1 and 9 chunks
+CATALOGUE_SECS = (100.0, 100.0, 100.0, 40.0, 400.0)
+WINDOW_CHUNKS = 4
+# published peaks of the H100 SXM: device memory rate, dense bf16 tensor
+# cores, float32 outside them
+HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -101,6 +130,27 @@ def cuda_ms(fn, reps: int) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: float, ops: float, kind: str):
+    """The least time the card could take: every input byte read and every
+    output byte written once at the memory rate, or the operations at the
+    peak rate of their type, whichever is larger -> (ms, "bytes" | "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lstm_bound(T, rows, G, inputs, extra_out: int = 0):
+    """Bound of one recurrence layer over ``rows`` = chains x batch rows:
+    the inputs, hs + hT + cT (and ``extra_out`` bytes) out, 2*T*rows*G*4G
+    operations on bf16 operands."""
+    out = (T + 2) * rows * G * 4 + extra_out
+    return bound_ms(nbytes(*inputs) + out, 2.0 * T * rows * G * 4 * G, "bf16")
 
 
 def lstm_inputs(dev, T, B, seed):
@@ -372,6 +422,423 @@ def stem_correlation(est, ref) -> float:
 def reset_counts(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
+
+
+def check_pertarget(dev, T, G, seed, smi):
+    """Phase 10: K9 against its plain version and against K1 on the same
+    values (T# = 4, D = 2), then both timed."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x_proj = torch.randn((4, T, 2, 4 * G), generator=g, device=dev)
+    whh = (torch.randn((4, 2, G, 4 * G), generator=g, device=dev) / G**0.5).to(torch.bfloat16)
+    h0 = 0.5 * torch.randn((4, 2, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((4, 2, G), generator=g, device=dev)
+    args = (x_proj, whh, h0, c0)
+    out_k = L.lstm_layer_pertarget(*args)
+    torch.cuda.synchronize()
+    form = L.lstm_layer_pertarget.form
+    out_p = L.lstm_pertarget_plain(*args)
+    errs = {n: max_err(a, b) for n, a, b in zip(("hs", "hT", "cT"), out_k, out_p)}
+    # the merged kernel on the same values, rows chain-major
+    k1_args = (x_proj.permute(1, 0, 2, 3).reshape(T, 8, 4 * G).contiguous(),
+               whh.reshape(8, G, 4 * G), h0.reshape(8, G), c0.reshape(8, G), 1)
+    hs1 = L.lstm_merged(*k1_args)[0].view(T, 4, 2, G).permute(1, 0, 2, 3)
+    vs_k1 = max_err(out_k[0], hs1)
+    print(f"lstm_layer_pertarget vs plain (T={T}, T#=4, D=2, G={G}): max|err| hs "
+          f"{errs['hs']:.3g} hT {errs['hT']:.3g} cT {errs['cT']:.3g}; vs lstm_merged hs "
+          f"{vs_k1:.3g}; form (blocks per cluster, clusters at once) {form}")
+    # the same contract and the same argument as K1: 5e-3 absolute
+    require(max(errs.values()) <= 5e-3, f"lstm_layer_pertarget disagrees with plain: {errs}")
+    require(vs_k1 <= 5e-3, f"lstm_layer_pertarget disagrees with lstm_merged: {vs_k1}")
+    ms = cuda_ms(lambda: L.lstm_layer_pertarget(*args), 5)
+    k1_ms = cuda_ms(lambda: L.lstm_merged(*k1_args), 5)
+    print(f"lstm_layer_pertarget at T={T}, G={G}: {ms:.4f} ms per layer; lstm_merged on the "
+          f"same values {k1_ms:.4f} ms  [{smi}]")
+    return args, max(errs.values()), form, ms, k1_ms
+
+
+def check_wiener_modes(dev, xre, xim, masks):
+    """Phase 10: K2/K3 in mode "mags" (and the later iterations' mode "y")
+    against their plain versions, on the Wiener check's x with a patch of
+    exact zeros and the magnitudes mask * |x|."""
+    import torch
+
+    from umx_tpu_torch.config import WienerConfig
+    from umx_tpu_torch.ops import wiener_cuda as W
+    from umx_tpu_torch.ops.stft import masks_to_planes
+
+    xre, xim = xre.clone(), xim.clone()
+    xre[0, 3, 5:40] = 0.0
+    xim[0, 3, 5:40] = 0.0  # |x| = 0: the unit phasor is 1 + 0i
+    mags = (masks_to_planes(masks, F_BINS) * torch.sqrt(xre * xre + xim * xim)[None]).contiguous()
+    for iterations in (1, 2):
+        cfg = WienerConfig(iterations=iterations)
+        yk = W.wiener_planes_from_mags(xre, xim, mags, cfg)
+        torch.cuda.synchronize()
+        yp = W.wiener_planes_from_mags(xre.cpu(), xim.cpu(), mags.cpu(), cfg)
+        scale = max(float(yp[0].abs().max()), float(yp[1].abs().max()))
+        err = max(max_err(yk[0].cpu(), yp[0]), max_err(yk[1].cpu(), yp[1])) / scale
+        print(f"wiener reduce+apply, mode mags, vs plain, {iterations} iteration(s) "
+              f"(S={N_SRC}, T={T_SEG}, F={F_BINS}): max|err|/max|y| {err:.3g}")
+        # as the masks mode, plus rsqrtf against torch.rsqrt in the last place
+        require(bool(torch.isfinite(yk[0]).all()) and err <= 1e-4,
+                f"wiener mags kernels disagree with plain: {err}")
+    inv = W.inv_max_abs(xre, xim, 10.0)
+    args, errs = {}, {}
+    # mode y reads the first iteration's estimates in the working frame
+    y1 = W.wiener_planes_from_mags(xre, xim, mags, WienerConfig())
+    yre_s, yim_s = y1[0] * inv, y1[1] * inv
+    for mode, first, second in (("mags", mags, None), ("y", yre_s, yim_s)):
+        racc = W.wiener_reduce(mode, xre, xim, first, second, inv)
+        a_re, a_im, m = (first, second, None) if mode == "y" else (xre, xim, first)
+        racc_p = W.wiener_reduce_plain(mode, a_re, a_im, m, inv)
+        y_k = W.wiener_apply(mode, xre, xim, first, second, racc_p, inv, 1e-10)
+        y_p = W.wiener_apply_plain(mode, xre, xim, first, second, racc_p, inv, 1e-10)
+        torch.cuda.synchronize()
+        e_r, e_a = max_err(racc, racc_p), max(max_err(y_k[0], y_p[0]), max_err(y_k[1], y_p[1]))
+        r_scale, y_scale = float(racc_p.abs().max()), float(y_p[0].abs().max())
+        print(f"wiener passes alone, mode {mode}: max|err| reduce {e_r:.3g} (max|racc| "
+              f"{r_scale:.3g}), apply {e_a:.3g} (max|y| {y_scale:.3g})")
+        # relative bounds: the time sums in another order (reduce), the same
+        # f32 operations with FMA contraction and rsqrtf (apply)
+        require(e_r <= 1e-5 * r_scale and e_a <= 1e-4 * y_scale,
+                f"wiener mode {mode} disagrees with plain: reduce {e_r}, apply {e_a}")
+        errs[f"wiener_reduce_{mode}"], errs[f"wiener_apply_{mode}"] = e_r, e_a
+        args[mode] = (xre, xim, first, second, inv, racc_p, (a_re, a_im, m))
+    return args, errs
+
+
+def synth_mix(secs: float, seed: int):
+    """A synthetic stereo mix: two tones per channel in noise."""
+    t = np.arange(int(secs * SR)) / SR
+    rng = np.random.default_rng(seed)
+    f = 110.0 * (1 + 0.25 * seed)
+    return np.stack([
+        0.3 * np.sin(2 * np.pi * f * t) + 0.2 * np.sin(2 * np.pi * 4 * f * t)
+        + 0.05 * rng.standard_normal(t.size),
+        0.3 * np.sin(2 * np.pi * 1.5 * f * t) + 0.2 * np.sin(2 * np.pi * 6 * f * t)
+        + 0.05 * rng.standard_normal(t.size),
+    ]).astype(np.float32)
+
+
+def write_catalogue(tmp: str):
+    """Five tracks on disk: flat WAVs, and the 40 s one as a MUSDB-style
+    directory with a ``mixture.wav``.  Returns (dir, {name: audio})."""
+    from scipy.io import wavfile
+
+    root = os.path.join(tmp, "catalogue")
+    os.makedirs(root)
+    tracks = {}
+    for k, secs in enumerate(CATALOGUE_SECS):
+        name = f"track{k}_{secs:.0f}s"
+        tracks[name] = synth_mix(secs, seed=k)
+        if secs == 40.0:
+            os.makedirs(os.path.join(root, name))
+            path = os.path.join(root, name, "mixture.wav")
+        else:
+            path = os.path.join(root, name + ".wav")
+        wavfile.write(path, SR, np.ascontiguousarray(tracks[name].T))
+    return root, tracks
+
+
+def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
+    """Phase 11: the batch CLI in a subprocess, then ``demix_tracks`` in
+    process with a forced window, launch counts around it and the shapes
+    it gives K1 ((rows per chain, frames)) and K2/K3 ((frames, bins))
+    recorded; then the bucket of 100 s tracks with dense weights against
+    the same tracks one by one and against the CPU."""
+    import torch
+
+    from umx_tpu_torch.config import EngineConfig, SegmentConfig
+    from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.engine.memory import params_hbm_bytes
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.models import umx
+    from umx_tpu_torch.ops import wiener
+
+    root, tracks = write_catalogue(tmp)
+    total = sum(CATALOGUE_SECS)
+    out_root = os.path.join(tmp, "catalogue_stems")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "umx_tpu_torch.cli_batch", model, root, out_root, "--quantized-hbm"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli_batch exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("demixed"):
+            print(f"catalogue path (cli_batch --quantized-hbm, subprocess, UMX-L, {len(tracks)} "
+                  f"tracks, {total:.0f} s): {line}; process wall {cli_s:.3f} s  [{smi}]")
+    cli_stems = {}
+    for name, audio in tracks.items():
+        print(f"{name}: ", end="")
+        cli_stems[name] = check_stems(os.path.join(out_root, name), audio)
+
+    cfg = EngineConfig(segment=SegmentConfig(window_chunks=WINDOW_CHUNKS))
+    sep = Separator.from_ggml(model, cfg, "cuda", quantized_hbm=True)
+    print(f"quantized parameters resident: {params_hbm_bytes(sep.cfg, sep.params)} B")
+    audio = list(tracks.values())
+    stats: dict = {}
+    k1_shapes, k23_shapes = set(), set()
+    with recording(umx, "lstm_layer_merged_batched", lambda x, *a: (x.shape[0], x.shape[2]),
+                   k1_shapes), \
+         recording(wiener, "wiener_planes_from_masks", lambda xre, *a: tuple(xre.shape[1:]),
+                   k23_shapes):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = demix_tracks(sep, audio, stats=stats)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"catalogue path (demix_tracks, window_chunks {WINDOW_CHUNKS}, quantized weights): "
+          f"{fleet_s:.3f} s wall, {total / fleet_s:.1f}x realtime aggregate  [{smi}]; stats "
+          f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()} }; "
+          f"kernel runs {launches}")
+    print(f"catalogue path shapes: K1 (rows per chain, frames) {sorted(k1_shapes)}, "
+          f"K2/K3 (frames, bins) {sorted(k23_shapes)}")
+    require(stats.get("windowed_tracks") == 1,
+            f"the 400 s track did not take the windowed route: {stats}")
+    require(max(b for b, _ in k1_shapes) == 3,
+            f"the three 100 s tracks did not run as one bucket of 3 rows: {sorted(k1_shapes)}")
+    # phase 3 holds K2 and K3 against their plain versions at this shape
+    require(k23_shapes == {(T_SEG, F_BINS)}, f"K2/K3 ran at other shapes: {sorted(k23_shapes)}")
+    for name in ("lstm_merged", "wiener_reduce", "wiener_apply"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the catalogue path")
+    worst, equal = 0.0, True
+    for (name, ref), out in zip(cli_stems.items(), outs):
+        require(out.shape == ref.shape and bool(np.isfinite(out).all()), f"{name}: {out.shape}")
+        worst = max(worst, float(np.max(np.abs(out - ref)) / np.max(np.abs(ref))))
+        equal = equal and bool(np.array_equal(out, ref))
+    print(f"demix_tracks (400 s track windowed) vs cli_batch (planner's choice): "
+          f"max|err|/max|stem| {worst:.3g}; bit-equal: {equal}")
+    # the same programs on the same rows; windowed sums the same two
+    # addends per sample as the single program
+    require(worst <= 1e-5, f"windowed and single-program stems disagree: {worst}")
+
+    # The two runs above share the kernel at 3 rows per chain, so neither
+    # holds it to anything else.  With dense weights (no activation is
+    # rounded, so the f32 class applies) the bucket of three 100 s tracks,
+    # K1 at B = 3, against each track alone, K1 at B = 1.
+    dense = Separator.from_ggml(model, cfg, "cuda")
+    bucket, seeds, rows = audio[:3], [0, 1, 2], set()
+    with recording(umx, "lstm_layer_merged_batched", lambda x, *a: x.shape[0], rows):
+        together = demix_tracks(dense, bucket, seeds=seeds)
+    require(rows == {3}, f"the dense bucket ran K1 at {sorted(rows)} rows per chain")
+    bucket_err = max(
+        float(np.max(np.abs(out - alone)) / np.max(np.abs(alone)))
+        for out, alone in zip(together, (dense.demix_track(a, seed=k) for a, k in zip(bucket, seeds))))
+    print(f"fleet bucket of 3 x 100 s, dense weights (K1 at 3 rows per chain) vs the tracks one "
+          f"by one (1 row): max|err|/max|stem| {bucket_err:.3g}")
+    require(bucket_err <= 2e-3, f"the bucket and the single tracks disagree: {bucket_err}")
+    # and the bucket's first track against the port's CPU path (plain versions)
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    cpu = Separator.from_ggml(model, cfg, "cpu").demix_track(bucket[0], seed=seeds[0])
+    cpu_err = float(np.max(np.abs(together[0] - cpu)) / np.max(np.abs(cpu)))
+    print(f"GPU vs CPU port, first track of that bucket, 100 s at UMX-L: max|err|/max|stem| "
+          f"{cpu_err:.3g} (CPU run {time.perf_counter() - t0:.1f} s)")
+    # bf16 operands in the recurrence and cuFFT/cuBLAS summation order, as phase 4
+    require(cpu_err <= 2e-3, f"the bucket on the GPU and the CPU path disagree: {cpu_err}")
+    return sep, tracks, launches, stats, fleet_s, sorted(k1_shapes), max(bucket_err, cpu_err)
+
+
+def pertarget_path(sep, model: str, long_track, counters: dict, smi: str):
+    """Phase 11: K9 on a path.  The 400 s track windowed with
+    ``lstm_impl="pallas"`` and quantized weights: launch count, against
+    the K1 run of the same track, and against the CPU on a 100 s cut."""
+    import dataclasses
+
+    import torch
+
+    from umx_tpu_torch.config import ModelConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.models import umx
+    from umx_tpu_torch.ops import lstm_cuda
+
+    cfg9 = dataclasses.replace(sep.cfg, model=ModelConfig(lstm_impl="pallas"))
+    sep9 = Separator(sep.params, cfg9, "cuda")
+    _, stride, n_chunks, _ = sep9._geometry(long_track.shape[1] + sep.cfg.segment.max_shift_samples(SR))
+    chunks_run = -(-n_chunks // WINDOW_CHUNKS) * WINDOW_CHUNKS
+    sep9.demix_track(long_track, seed=0)  # warm-up
+    k9_shapes = set()
+    with recording(umx, "lstm_layer_pertarget_batched",
+                   lambda x, *a: (x.shape[0], x.shape[2], x.shape[-1] // 4), k9_shapes):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s9 = sep9.demix_track(long_track, seed=0)
+        torch.cuda.synchronize()
+        k9_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    # phase 10 holds K9 against its plain version at this shape
+    require(k9_shapes == {(1, T_SEG, G_HIDDEN)},
+            f"K9 ran at other (batch, frames, G) than phase 10 checks: {sorted(k9_shapes)}")
+    t0 = time.perf_counter()
+    s1 = sep.demix_track(long_track, seed=0)
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t0
+    secs = long_track.shape[1] / SR
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    def energy_db(a, b):
+        return float(20 * np.log10(np.linalg.norm(a - b) / np.linalg.norm(b)))
+
+    # Two runs of the quantized path are not held to the dense path's f32
+    # class.  The quantized network rounds its activations to bf16 before
+    # every product (and takes offset * rowsum from the unrounded ones), and
+    # the state streams over all of the track's chunks, so a last-bit
+    # difference flips roundings and the stems move by bf16 noise: the K1
+    # path against itself on the track scaled by 1 + 1e-6 is printed beside
+    # each comparison.  The gate is on the error's energy, 30 dB below the
+    # stems': the order at which the quantized mode itself departs from the
+    # dense model.
+    nudged = long_track * np.float32(1 + 1e-6)
+    s1n = sep.demix_track(nudged, seed=0)
+    err, err_db = rel(s9, s1), energy_db(s9, s1)
+    print(f"per-target path ({secs:.0f} s track, windows of {WINDOW_CHUNKS}, quantized weights, "
+          f"lstm_impl pallas): {k9_s:.3f} s = {secs / k9_s:.1f}x realtime against {k1_s:.3f} s = "
+          f"{secs / k1_s:.1f}x with lstm_impl auto  [{smi}]; kernel runs {launches}; form "
+          f"{lstm_cuda.lstm_layer_pertarget.form}; K9 vs K1 stems max|err|/max|stem| {err:.3g}, "
+          f"error energy {err_db:.1f} dB; the K1 path against itself on the track x (1 + 1e-6): "
+          f"{rel(s1n, s1):.3g}, {energy_db(s1n, s1):.1f} dB")
+    require(launches["lstm_layer_pertarget"] == 3 * chunks_run and launches["lstm_merged"] == 0,
+            f"K9 launches {launches['lstm_layer_pertarget']} != 3 layers x {chunks_run} chunks")
+    require(bool(np.isfinite(s9).all()) and err_db <= -30.0,
+            f"K9 and K1 paths disagree: error energy {err_db} dB")
+    del s1n
+
+    # the same two kernels with dense weights, where no activation is
+    # rounded: the class of the GPU against the CPU
+    dense = Separator.from_ggml(model, sep.cfg, "cuda")
+    d1 = dense.demix_track(long_track, seed=0)
+    d9 = Separator(dense.params, cfg9, "cuda").demix_track(long_track, seed=0)
+    d_err = rel(d9, d1)
+    print(f"the same with dense weights: K9 vs K1 stems max|err|/max|stem| {d_err:.3g}; the K1 "
+          f"path against itself on the track x (1 + 1e-6): "
+          f"{rel(dense.demix_track(nudged, seed=0), d1):.3g}")
+    require(d_err <= 2e-3, f"dense K9 and K1 paths disagree: {d_err}")
+    del dense, d1, d9
+
+    cut = long_track[:, : int(100 * SR)]
+    cfgc = dataclasses.replace(cfg9, segment=dataclasses.replace(cfg9.segment, window_chunks=2))
+    gpu = Separator(sep.params, cfgc, "cuda").demix_track(cut, seed=0)
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    cpu = Separator.from_ggml(model, cfgc, "cpu", quantized_hbm=True).demix_track(cut, seed=0)
+    err_cpu, cpu_db = rel(gpu, cpu), energy_db(gpu, cpu)
+    print(f"GPU vs CPU port, catalogue slice (quantized, lstm_impl pallas, windows of 2), 100 s at "
+          f"UMX-L: max|err|/max|stem| {err_cpu:.3g}, error energy {cpu_db:.1f} dB "
+          f"(CPU run {time.perf_counter() - t0:.1f} s)")
+    require(bool(np.isfinite(gpu).all()) and cpu_db <= -30.0,
+            f"GPU and CPU disagree: error energy {cpu_db} dB")
+    return launches, k9_s, k1_s, err, err_cpu
+
+
+def planes_entry(sep, track):
+    """Phase 11: ``wiener_filter_planes`` (modes "mags", then "y") on a real
+    segment's x and target magnitudes, against ``wiener_filter_masks`` on
+    the masks that gave them: one estimate through two entries."""
+    import torch
+
+    from umx_tpu_torch.config import WienerConfig
+    from umx_tpu_torch.engine.separator import apply_masks
+    from umx_tpu_torch.models.umx import (
+        init_lstm_state, umx_post, umx_pre, umx_recurrence_batched,
+    )
+    from umx_tpu_torch.ops import wiener_cuda as W
+    from umx_tpu_torch.ops.stft import crop_stack, stft_planes
+    from umx_tpu_torch.ops.wiener import wiener_filter_masks, wiener_filter_planes
+
+    cfg, mcfg = sep.cfg, sep.cfg.model
+    with torch.inference_mode():
+        audio = torch.from_numpy(track[:, :SEG]).to("cuda")[None]
+        re, im = stft_planes(audio, cfg.dsp)
+        mag = torch.sqrt(re * re + im * im)
+        x1 = umx_pre(sep.params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)
+        lstm_out, _ = umx_recurrence_batched(sep.params, x1, init_lstm_state(mcfg, "cuda", 1), mcfg)
+        masks = umx_post(sep.params, x1, lstm_out, mcfg)
+        mags = apply_masks(masks, mag, mcfg.n_bins)[0].contiguous()
+        wcfg = WienerConfig(iterations=2)
+        for fn in (W.wiener_reduce, W.wiener_apply):
+            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+        yp = wiener_filter_planes(re[0], im[0], mags, wcfg)
+        torch.cuda.synchronize()
+        counts = {f"{n}_{m}": fn.mode_launches[m] for n, fn in
+                  (("wiener_reduce", W.wiener_reduce), ("wiener_apply", W.wiener_apply))
+                  for m in ("mags", "y")}
+        ym = wiener_filter_masks(re[0], im[0], masks[0], mcfg.n_bins, wcfg)
+    scale = float(ym[0].abs().max())
+    err = max(max_err(yp[0], ym[0]), max_err(yp[1], ym[1])) / scale
+    print(f"wiener_filter_planes vs wiener_filter_masks on a real segment, 2 iterations: "
+          f"max|err|/max|y| {err:.3g}; kernel runs by mode {counts}")
+    for name, n in counts.items():
+        require(n == 1, f"{name} ran {n} times through wiener_filter_planes")
+    # mask * x against (mask * |x|) * (x * rsqrt(|x|^2)): a few f32 roundings
+    # per element, carried through two EM iterations
+    require(err <= 1e-4, f"the planes and masks entries disagree: {err}")
+    return counts, err
+
+
+def catalogue_anchors(sep, tracks, smi: str):
+    """Phase 11: the window and fleet planners' estimates beside the
+    measured peaks (taken as in phase 9), which they must bound."""
+    import dataclasses
+
+    import torch
+
+    from umx_tpu_torch.config import SegmentConfig
+    from umx_tpu_torch.engine import memory
+    from umx_tpu_torch.engine.fleet import demix_tracks, resolve_batched_width
+
+    cfg0, params = sep.cfg, sep.params
+    audio = list(tracks.values())
+    capacity = memory.device_hbm_bytes("cuda")
+    seg, stride = cfg0.segment.segment_samples(SR), cfg0.segment.stride_samples(SR)
+    rows = []
+
+    def measure(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base + memory.params_hbm_bytes(cfg0, params)
+
+    def report(what, peak, est):
+        print(f"planner anchor {what}: peak {peak} B, estimate {est} B ({est / peak:.3f}x)  [{smi}]")
+        require(est >= peak, f"the planner's estimate {est} is below the peak {peak} ({what})")
+        rows.append({"what": what, "peak": peak, "estimate": est})
+
+    for streaming in (True, False):
+        cfg = dataclasses.replace(cfg0, shifts=0, segment=SegmentConfig(
+            streaming=streaming, window_chunks=WINDOW_CHUNKS))
+        s = type(sep)(params, cfg, "cuda")
+        peak = measure(lambda: s.demix(audio[-1]))
+        est = memory.window_hbm_bytes(cfg, WINDOW_CHUNKS, capacity, params=params)
+        report(f"window of {WINDOW_CHUNKS} chunks, {'streaming' if streaming else 'non-streaming'}, "
+               "host input", peak, est)
+        # the three 100 s tracks as one bucket of the fleet runner
+        fcfg = dataclasses.replace(cfg, shifts=1)
+        n_chunks = -(-(audio[0].shape[1] + fcfg.segment.max_shift_samples(SR)) // stride)
+        secs = ((n_chunks - 1) * stride + seg) / SR
+        cap = memory.suggest_max_fleet_batch(fcfg, secs, params=params, device="cuda")
+        require(cap >= 3, f"the fleet planner caps a 100 s bucket at {cap} tracks on this card")
+        peak = measure(lambda: demix_tracks(params, audio[:3], fcfg))
+        if streaming:
+            est = memory.fused_track_hbm_bytes(fcfg, 3, secs, params)["total"]
+        else:
+            width = resolve_batched_width(fcfg, n_chunks, seg, stride, batch=3, params=params,
+                                          device="cuda")
+            est = memory.parallel_track_hbm_bytes(fcfg, width, secs, params, batch=3)["total"]
+        report(f"fleet bucket of 3 x 100 s, {'streaming' if streaming else 'non-streaming'} "
+               f"(planner's cap {cap})", peak, est)
+    return rows
 
 
 def main_path(tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
@@ -691,13 +1158,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    lstm_args, lstm_err = check_lstm(dev, T_SEG, 1, seed=0)
-    lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # batches above 12 rows
-    wiener_args, wiener_errs = check_wiener(dev)
-    ola_args, ola_err = check_ola(dev)
-    _, istft_err = check_istft_ct(dev, [(ISTFT_ROWS, T_SEG), (3, 37)], seed=4)
-
     counters = {
+        "lstm_layer_pertarget": lstm_cuda.lstm_layer_pertarget,
         "lstm_merged": lstm_cuda.lstm_merged,
         "wiener_reduce": wiener_cuda.wiener_reduce,
         "wiener_apply": wiener_cuda.wiener_apply,
@@ -707,6 +1169,16 @@ def main() -> int:
         "ola_normalized": ola_cuda.ola_normalized,
         "istft_ct2": istft_ct_cuda.istft_ct2,
     }
+    wiener_args, wiener_errs = check_wiener(dev)
+    k9_args, k9_err, k9_form, k9_ms, k9_k1_ms = check_pertarget(dev, T_SEG, G_HIDDEN, 9, smi)
+    _, k9_err_hq, k9_form_hq, k9_ms_hq, k9_k1_ms_hq = check_pertarget(dev, T_SEG, 256, 10, smi)
+    mode_args, mode_errs = check_wiener_modes(dev, *wiener_args[:3])
+
+    lstm_args, lstm_err = check_lstm(dev, T_SEG, 1, seed=0)
+    lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # batches above 12 rows
+    ola_args, ola_err = check_ola(dev)
+    istft8_args, istft_err = check_istft_ct(dev, [(ISTFT_ROWS, T_SEG), (3, 37)], seed=4)
+
     with tempfile.TemporaryDirectory(prefix="umx_smoke_") as tmp:
         model, wav, mix = write_inputs(tmp)
         launches = main_path(tmp, model, wav, mix, counters, smi)
@@ -746,19 +1218,37 @@ def main() -> int:
             path_lstm_args[B, T], err = check_lstm(dev, T, B, seed=100 + B)
             lstm_err = max(lstm_err, err)
         istft_args, err = check_istft_ct(dev, k8_shapes, seed=5)
+        istft_args = {**istft8_args, **istft_args}
         istft_err = max(istft_err, err)
+
+        csep, tracks, cat_launches, cat_stats, cat_s, cat_k1_shapes, bucket_err = catalogue_path(
+            tmp, model, counters, smi)
+        # K1 against its plain version at the shapes the catalogue path ran it at
+        for B, T in cat_k1_shapes:
+            if (B, T) not in path_lstm_args and (B, T) != (1, T_SEG):
+                path_lstm_args[B, T], err = check_lstm(dev, T, B, seed=100 + B)
+                lstm_err = max(lstm_err, err)
+        long_track = list(tracks.values())[-1]
+        k9_launches, k9_path_s, k1_path_s, k9_vs_k1, cat_cpu_err = pertarget_path(
+            csep, model, long_track, counters, smi)
+        mode_launches, planes_err = planes_entry(csep, long_track)
+        cat_anchors = catalogue_anchors(csep, tracks, smi)
+        del csep
 
         train_args, train_errs = check_train_kernels(dev)
         train_launches, steps_per_s = training_path(tmp, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f}  [{smi}]")
 
-    # Phase 10: kernel vs plain times: K1-K3 at the UMX-L segment shape, the
-    # training kernels (and K1 again) at the training shape, K7-K8 at the
-    # batched whole-track path's shapes
+    # Phase 12: kernel, plain and library times beside each kernel's bound:
+    # K1-K3 and K9 at the UMX-L segment shape, the training kernels (and K1
+    # again) at the training shape, K7-K8 at the batched whole-track path's
+    # shapes.  Each bound is computed from the tensors that are timed.
     xre, xim, masks, inv, racc = wiener_args
     W = wiener_cuda
     L = lstm_cuda
+    y_bytes = 2 * N_SRC * 2 * T_SEG * F_BINS * 4  # the apply pass's output planes
+    px = 2 * T_SEG * F_BINS  # elements of one (2, T, F) plane pair
     times = {
         "lstm_merged": (
             cuda_ms(lambda: L.lstm_merged(*lstm_args), 5),
@@ -772,7 +1262,33 @@ def main() -> int:
             cuda_ms(lambda: W.wiener_apply("masks", xre, xim, masks, None, racc, inv, 1e-10), 20),
             cuda_ms(lambda: W.wiener_apply_plain("masks", xre, xim, masks, None, racc, inv, 1e-10), 20),
         ),
+        "lstm_layer_pertarget": (
+            k9_ms, cuda_ms(lambda: L.lstm_pertarget_plain(*k9_args), 2)),
     }
+    # ~8 operations per element of x and ~12 per source and element
+    # (reduce), ~40 + 30 per source (apply), float32 outside the tensor cores
+    bounds = {
+        "lstm_merged": lstm_bound(T_SEG, R_CHAINS, G_HIDDEN, lstm_args[:4]),
+        "wiener_reduce": bound_ms(nbytes(xre, xim, masks, racc), px * (8 + 12 * N_SRC), "f32"),
+        "wiener_apply": bound_ms(nbytes(xre, xim, masks, racc) + y_bytes,
+                                 px / 2 * (40 + 30 * N_SRC), "f32"),
+        "lstm_layer_pertarget": lstm_bound(T_SEG, R_CHAINS, G_HIDDEN, k9_args),
+    }
+    for mode, (mxre, mxim, first, second, minv, mracc, plain_in) in mode_args.items():
+        times[f"wiener_reduce_{mode}"] = (
+            cuda_ms(lambda: W.wiener_reduce(mode, mxre, mxim, first, second, minv), 20),
+            cuda_ms(lambda: W.wiener_reduce_plain(mode, *plain_in, minv), 20))
+        times[f"wiener_apply_{mode}"] = (
+            cuda_ms(lambda: W.wiener_apply(mode, mxre, mxim, first, second, mracc, minv, 1e-10), 20),
+            cuda_ms(lambda: W.wiener_apply_plain(mode, mxre, mxim, first, second, mracc, minv,
+                                                 1e-10), 20))
+        # mode mags reads x and the magnitudes; mode y reads the two y planes
+        # (the apply pass x as well)
+        r_in = nbytes(mxre, mxim, first) if mode == "mags" else nbytes(first, second)
+        a_in = nbytes(mxre, mxim, first) + (nbytes(second) if mode == "y" else 0)
+        bounds[f"wiener_reduce_{mode}"] = bound_ms(r_in + nbytes(mracc), px * (8 + 12 * N_SRC), "f32")
+        bounds[f"wiener_apply_{mode}"] = bound_ms(a_in + nbytes(mracc) + y_bytes,
+                                                  px / 2 * (40 + 30 * N_SRC), "f32")
     for name, fn, plain in (
         ("lstm_merged_train_fwd", L.lstm_merged_train_fwd, L.lstm_merged_train_fwd_plain),
         ("lstm_merged_bwd_step", L.lstm_merged_bwd_step, L.lstm_merged_bwd_step_plain),
@@ -780,37 +1296,103 @@ def main() -> int:
     ):
         times[name] = (cuda_ms(lambda: fn(*train_args[name]), 5),
                        cuda_ms(lambda: plain(*train_args[name]), 2))
+    rows_t, train_ops = R_CHAINS * B_TRAIN, 2.0 * T_TRAIN * R_CHAINS * B_TRAIN * G_HIDDEN * 4 * G_HIDDEN
+    step_elems = T_TRAIN * rows_t * G_HIDDEN * 4  # bytes of one (T, RB, G) f32 tensor
+    bounds["lstm_merged_train_fwd"] = lstm_bound(
+        T_TRAIN, rows_t, G_HIDDEN, train_args["lstm_merged_train_fwd"][:4],
+        extra_out=5 * step_elems)  # the residuals: gates (T, RB, 4G) and cs (T, RB, G)
+    # K5 reads gates, cs, c0, W_hh and the three cotangents, writes dxp, dh0, dc0
+    bounds["lstm_merged_bwd_step"] = bound_ms(
+        nbytes(*train_args["lstm_merged_bwd_step"][:7]) + 4 * step_elems + 2 * rows_t * G_HIDDEN * 4,
+        train_ops, "bf16")
+    # K6 reads hs, h0, dxp and writes dW (R, G, 4G) f32; its operands are bf16-rounded
+    bounds["lstm_merged_dw"] = bound_ms(
+        nbytes(*train_args["lstm_merged_dw"][:3]) + R_CHAINS * G_HIDDEN * 4 * G_HIDDEN * 4,
+        train_ops, "bf16")
     times["ola_normalized"] = (cuda_ms(lambda: ola_cuda.ola_normalized(*ola_args[8]), 20),
                                cuda_ms(lambda: ola.ola_normalized_plain(*ola_args[8]), 20))
+    ola_len = N_CHUNKS * STRIDE + SEG - STRIDE
+    bounds["ola_normalized"] = bound_ms(nbytes(*ola_args[8][:2]) + 8 * ola_len * 4,
+                                        2.0 * 8 * ola_len, "f32")
     ola16 = (cuda_ms(lambda: ola_cuda.ola_normalized(*ola_args[16]), 20),
              cuda_ms(lambda: ola.ola_normalized_plain(*ola_args[16]), 20))
     k8_shape = max(istft_args, key=math.prod)
     k8_args = istft_args[k8_shape]
     times["istft_ct2"] = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*k8_args), 10),
                           cuda_ms(lambda: istft_ct.istft_ct2_plain(*k8_args), 10))
+
+    def istft_bound(rows, T):
+        # planes in, signal out; a 4096-point real inverse FFT is about
+        # 2.5 N log2 N operations per frame, plus the window and the overlap-add
+        out = rows * ((T - 1) * 1024 + 4096) * 4
+        return bound_ms(2 * rows * T * F_BINS * 4 + out, rows * T * (2.5 * 4096 * 12 + 2 * 4096), "f32")
+
+    bounds["istft_ct2"] = istft_bound(*k8_shape)
+
+    # the one PyTorch call that computes the same function, where there is one
+    def istft_library_ms(rows, T):
+        re, im, _, _, win = istft_args[rows, T]
+        spec = torch.complex(re, im).transpose(-1, -2).contiguous()
+        spec.imag[:, 0] = 0.0
+        spec.imag[:, -1] = 0.0
+        return cuda_ms(lambda: torch.istft(spec, n_fft=4096, hop_length=1024, window=win,
+                                           center=True, normalized=False, onesided=True,
+                                           length=(T - 1) * 1024), 10)
+
+    hs_t, h0_t, dxp_t, b_t = train_args["lstm_merged_dw"]
+    hp = torch.cat([h0_t[None], hs_t[:-1]]).to(torch.bfloat16).float().view(
+        T_TRAIN, R_CHAINS, b_t, G_HIDDEN).permute(1, 3, 0, 2).reshape(R_CHAINS, G_HIDDEN, -1)
+    dg = dxp_t.to(torch.bfloat16).float().view(T_TRAIN, R_CHAINS, b_t, 4 * G_HIDDEN).permute(
+        1, 0, 2, 3).reshape(R_CHAINS, -1, 4 * G_HIDDEN)
+    library = dict.fromkeys(times)
+    library["lstm_merged_dw"] = cuda_ms(lambda: torch.bmm(hp, dg), 10)
+    library["istft_ct2"] = istft_library_ms(*k8_shape)
+    del hp, dg
+    istft8 = (ISTFT_ROWS, T_SEG)
+    if istft8 in istft_args and istft8 != k8_shape:
+        k8 = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*istft_args[istft8]), 10),
+              cuda_ms(lambda: istft_ct.istft_ct2_plain(*istft_args[istft8]), 10))
+        print(f"istft_ct2 at {istft8[0]} rows x {istft8[1]} frames: kernel {k8[0]:.4f} ms, plain "
+              f"{k8[1]:.4f} ms, torch.istft {istft_library_ms(*istft8):.4f} ms, bound "
+              f"{istft_bound(*istft8)[0]:.4f} ms  [{smi}]")
+
     k1_path = {bt: (cuda_ms(lambda: L.lstm_merged(*a), 5),
                     cuda_ms(lambda: L.lstm_merged_plain(*a), 2))
                for bt, a in path_lstm_args.items()}
     k1_train = (cuda_ms(lambda: L.lstm_merged(*lstm16_args), 5),
                 cuda_ms(lambda: L.lstm_merged_plain(*lstm16_args), 2))
     for name, (k, p) in times.items():
-        print(f"{name}: kernel {k:.4f} ms, plain {p:.4f} ms  [{smi}]")
+        lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
+        print(f"{name}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {bounds[name][0]:.4f} ms by "
+              f"{bounds[name][1]}, library call {lib}  [{smi}]")
+    step_bytes = nbytes(lstm_args[1]) + R_CHAINS * (4 * G_HIDDEN + 2 * G_HIDDEN) * 4
+    print(f"lstm_merged per step at B = 1: {times['lstm_merged'][0] / T_SEG * 1e3:.3f} us measured; "
+          f"K9 {times['lstm_layer_pertarget'][0] / T_SEG * 1e3:.3f} us; one step's bytes from "
+          f"device memory would take {step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us, and the layer's "
+          f"bound ignores that the {T_SEG} steps depend on each other")
     print(f"lstm_merged at the training shape (T={T_TRAIN}, B={B_TRAIN}): kernel "
-          f"{k1_train[0]:.4f} ms, plain {k1_train[1]:.4f} ms  [{smi}]")
+          f"{k1_train[0]:.4f} ms, plain {k1_train[1]:.4f} ms, bound "
+          f"{lstm_bound(T_TRAIN, rows_t, G_HIDDEN, lstm16_args[:4])[0]:.4f} ms  [{smi}]")
     print(f"ola_normalized at M=16 (two shift rows): kernel {ola16[0]:.4f} ms, plain "
           f"{ola16[1]:.4f} ms  [{smi}]")
     for (B, T), (k, p) in k1_path.items():
-        print(f"lstm_merged at the batched path's shape (T={T}, B={B}): kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms  [{smi}]")
+        print(f"lstm_merged at a path's shape (T={T}, B={B}): kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms, bound "
+              f"{lstm_bound(T, R_CHAINS * B, G_HIDDEN, path_lstm_args[B, T][:4])[0]:.4f} ms  [{smi}]")
     print(f"istft_ct2 timed at the batched path's shape (rows={k8_shape[0]}, T={k8_shape[1]})")
 
+    wsrc, wrep = "umx_tpu_torch/csrc/wiener.cu", "umx_tpu/ops/wiener_pallas.py"
     meta = {
         "lstm_merged": ("umx_tpu_torch/csrc/lstm_merged.cu",
                         "umx_tpu/ops/lstm_pallas.py:158", max(lstm_err, lstm16_err)),
-        "wiener_reduce": ("umx_tpu_torch/csrc/wiener.cu",
-                          "umx_tpu/ops/wiener_pallas.py:89", wiener_errs["wiener_reduce"]),
-        "wiener_apply": ("umx_tpu_torch/csrc/wiener.cu",
-                         "umx_tpu/ops/wiener_pallas.py:128", wiener_errs["wiener_apply"]),
+        "wiener_reduce": (wsrc, f"{wrep}:89", wiener_errs["wiener_reduce"]),
+        "wiener_apply": (wsrc, f"{wrep}:128", wiener_errs["wiener_apply"]),
+        "wiener_reduce_y": (wsrc, f"{wrep}:148", mode_errs["wiener_reduce_y"]),
+        "wiener_apply_y": (wsrc, f"{wrep}:245", mode_errs["wiener_apply_y"]),
+        "wiener_reduce_mags": (wsrc, f"{wrep}:148", mode_errs["wiener_reduce_mags"]),
+        "wiener_apply_mags": (wsrc, f"{wrep}:245", mode_errs["wiener_apply_mags"]),
+        "lstm_layer_pertarget": ("umx_tpu_torch/csrc/lstm_pertarget.cu",
+                                 "umx_tpu/ops/lstm_pallas.py:39", max(k9_err, k9_err_hq)),
         "lstm_merged_train_fwd": ("umx_tpu_torch/csrc/lstm_merged.cu",
                                   "umx_tpu/ops/lstm_pallas.py:323",
                                   train_errs["lstm_merged_train_fwd"]),
@@ -823,15 +1405,21 @@ def main() -> int:
         "istft_ct2": ("umx_tpu_torch/csrc/istft_ct.cu", "umx_tpu/ops/istft_ct.py:270", istft_err),
     }
     # each kernel's launches on its own path: K1-K3 the demix, K4-K6
-    # training, K7-K8 the batched whole-track demix
-    path_launches = {**launches, **{k: train_launches[k] for k in
-                                    ("lstm_merged_train_fwd", "lstm_merged_bwd_step",
-                                     "lstm_merged_dw")},
-                     **{k: batched_launches[k] for k in ("ola_normalized", "istft_ct2")}}
+    # training, K7-K8 the batched whole-track demix, K9 the per-target
+    # catalogue run, the Wiener modes mags and y the planes entry
+    path_launches = {**{k: launches[k] for k in ("lstm_merged", "wiener_reduce", "wiener_apply")},
+                     **{k: train_launches[k] for k in
+                        ("lstm_merged_train_fwd", "lstm_merged_bwd_step", "lstm_merged_dw")},
+                     **{k: batched_launches[k] for k in ("ola_normalized", "istft_ct2")},
+                     "lstm_layer_pertarget": k9_launches["lstm_layer_pertarget"],
+                     **mode_launches}
+    for name, n in path_launches.items():
+        require(n > 0, f"kernel {name} was launched no time on its path")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[name], "max_abs_err": err,
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": library[name]}
         for name, (src, rep, err) in meta.items()
     ]
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
@@ -839,7 +1427,18 @@ def main() -> int:
                       "train_path_launches": train_launches, "batched_demix_s": batched_s,
                       "batched_path_launches": batched_launches, "batched_k1_rows": k1_rows,
                       "batched_gpu_vs_cpu_rel_err": batched_err, "planner_anchors": anchors,
-                      "batched_k1_shapes": k1_shapes, "batched_k8_shapes": k8_shapes}))
+                      "batched_k1_shapes": k1_shapes, "batched_k8_shapes": k8_shapes,
+                      "catalogue_demix_s": cat_s, "catalogue_launches": cat_launches,
+                      "catalogue_stats": cat_stats, "catalogue_anchors": cat_anchors,
+                      "catalogue_k1_shapes": cat_k1_shapes,
+                      "catalogue_bucket_rel_err": bucket_err,
+                      "pertarget_form": k9_form, "pertarget_form_g256": k9_form_hq,
+                      "pertarget_ms": [k9_ms, k9_ms_hq],
+                      "lstm_merged_ms_at_k9_shapes": [k9_k1_ms, k9_k1_ms_hq],
+                      "pertarget_path_s": k9_path_s, "merged_path_s": k1_path_s,
+                      "pertarget_vs_merged_rel_err": k9_vs_k1,
+                      "catalogue_gpu_vs_cpu_rel_err": cat_cpu_err,
+                      "planes_vs_masks_rel_err": planes_err}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

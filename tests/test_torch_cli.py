@@ -1,9 +1,12 @@
-"""The port's CLI: the 3-argument contract writes four stems, the error
-codes hold, a CUDA device without a GPU raises, and the port imports no
-jax (checked in a subprocess where importing jax fails)."""
+"""The port's CLIs: the 3-argument contract writes four stems, the error
+codes hold, a CUDA device without a GPU raises, the catalogue flags
+(quantized weights, windows, the per-target recurrence) give the
+``Separator``'s stems, ``cli_batch`` demixes a directory, and the port
+imports no jax (checked in a subprocess where importing jax fails)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -163,3 +166,120 @@ def test_batched_path_imports_no_jax(fixtures):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert len(os.listdir(d / "nojax_b")) == 4
+
+
+def _read_stems(out_dir, n):
+    stems = []
+    for i in range(4):
+        rate, data = wavfile.read(os.path.join(out_dir, f"target_{i}.wav"))
+        assert rate == SR and data.dtype == np.float32 and data.shape == (n, 2)
+        assert np.isfinite(data).all()
+        stems.append(data.T)
+    return np.stack(stems)
+
+
+def test_cli_catalogue_flags_equal_the_separator_api(fixtures):
+    """--quantized-hbm --window-chunks 2 --lstm-impl pallas: the stems the
+    CLI writes are the ones the Separator gives with that config."""
+    from umx_tpu_torch.config import EngineConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+
+    d, model, wav, _, mix = fixtures
+    out = str(d / "out_catalogue")
+    assert cli.main([model, wav, out, *FAST, "--quantized-hbm", "--window-chunks", "2",
+                     "--lstm-impl", "pallas"]) == 0
+    stems = _read_stems(out, mix.shape[1])
+    cfg = EngineConfig(model=ModelConfig(hidden_size=32, lstm_impl="pallas"),
+                       segment=SegmentConfig(segment_secs=1.0, window_chunks=2))
+    assert cli.engine_config_from_args(cli.build_parser().parse_args(
+        [model, wav, out, *FAST, "--window-chunks", "2", "--lstm-impl", "pallas"])) == \
+        dataclasses.replace(cfg, model=ModelConfig(lstm_impl="pallas"))
+    sep = Separator.from_ggml(model, cfg, "cpu", quantized_hbm=True)
+    assert sep._geometry(mix.shape[1] + 22050)[2] == 3  # 3 chunks: two windows of 2
+    assert np.array_equal(stems, sep.demix_track(mix, seed=0))
+    corr = np.corrcoef(stems.sum(axis=0).ravel(), mix.ravel())[0, 1]
+    assert corr >= 0.99
+
+
+def test_cli_rejects_an_unknown_lstm_impl(fixtures):
+    d, model, wav, _, _ = fixtures
+    with pytest.raises(SystemExit) as e:
+        cli.main([model, wav, str(d / "obad2"), *FAST, "--lstm-impl", "scan"])
+    assert e.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def catalogue(fixtures):
+    """Two flat WAVs of different lengths and one MUSDB-style folder."""
+    d, _, _, _, mix = fixtures
+    root = d / "catalogue"
+    (root / "song_c").mkdir(parents=True)
+    tracks = {"song_a": mix, "song_b": mix[:, : int(0.8 * SR)], "song_c": 0.5 * mix[:, ::-1]}
+    for name, audio in tracks.items():
+        path = root / "song_c" / "mixture.wav" if name == "song_c" else root / f"{name}.wav"
+        wavfile.write(str(path), SR, np.ascontiguousarray(audio.T))
+    (root / "notes.txt").write_text("not a track")
+    return str(root), tracks
+
+
+@pytest.mark.parametrize("extra", [[], ["--quantized-hbm", "--shifts", "2"], ["--no-wiener"]])
+def test_cli_batch_writes_every_tracks_stems(fixtures, catalogue, extra):
+    from umx_tpu_torch import cli_batch
+    from umx_tpu_torch.engine.separator import Separator
+
+    d, model, _, _, _ = fixtures
+    root, tracks = catalogue
+    out_root = str(d / ("batch_" + "_".join(x.strip("-") for x in extra)))
+    assert cli_batch.main([model, root, out_root, *FAST, *extra]) == 0
+    assert sorted(os.listdir(out_root)) == sorted(tracks)
+    args = cli_batch.build_parser().parse_args([model, root, out_root, *FAST, *extra])
+    sep = Separator.from_ggml(model, cli.engine_config_from_args(args), "cpu",
+                              quantized_hbm=args.quantized_hbm)
+    for name, audio in tracks.items():
+        stems = _read_stems(os.path.join(out_root, name), audio.shape[1])
+        ref = sep.demix_track(audio, seed=0)
+        # batched rows meet other matmul widths than a track alone; with
+        # quantized weights such a last-bit difference flips bf16 roundings
+        # of activations (2.5e-5 of max|stem| measured), hence 1e-3 there
+        tol = 1e-3 if args.quantized_hbm else 1e-5
+        np.testing.assert_allclose(stems, ref, rtol=0, atol=tol * np.abs(ref).max())
+        if "--no-wiener" not in extra:
+            assert np.corrcoef(stems.sum(axis=0).ravel(), audio.ravel())[0, 1] >= 0.99
+
+
+def test_cli_batch_errors(fixtures, tmp_path):
+    from umx_tpu_torch import cli_batch
+
+    d, model, _, _, _ = fixtures
+    assert cli_batch.main([model, str(tmp_path), str(tmp_path / "o"), *FAST]) == 1  # no WAVs
+    with pytest.raises(SystemExit) as e:
+        cli_batch.main([model])
+    assert e.value.code == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli_batch.main([model, str(tmp_path), str(tmp_path / "o"), "--quiet"])
+
+
+def test_cli_batch_imports_no_jax(fixtures, catalogue):
+    d, model, _, _, _ = fixtures
+    root, tracks = catalogue
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["umx_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        from umx_tpu_torch import cli_batch
+        rc = cli_batch.main([{model!r}, {root!r}, {str(d / "nojax_batch")!r}, "--segment-secs",
+                             "1.0", "--device", "cpu", "--quiet", "--quantized-hbm"])
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "umx_tpu")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        sys.exit(rc)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert sorted(os.listdir(d / "nojax_batch")) == sorted(tracks)

@@ -372,3 +372,178 @@ def test_batched_whole_track_on_the_card_matches_cpu(dev):
     assert ola_cuda.ola_normalized.launches > k7 and istft_ct_cuda.istft_ct2.launches > k8
     cpu = Separator(params_from_ggml(model, cfg.model), cfg).demix_track(track, seed=1)
     assert np.max(np.abs(gpu - cpu)) <= 2e-3 * np.max(np.abs(cpu))
+
+
+def _pertarget_inputs(dev, T, G, seed, n_targets=4, D=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x_proj = torch.randn((n_targets, T, D, 4 * G), generator=g, device=dev)
+    whh = (torch.randn((n_targets, D, G, 4 * G), generator=g, device=dev) / G**0.5).to(
+        torch.bfloat16)
+    h0 = 0.5 * torch.randn((n_targets, D, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((n_targets, D, G), generator=g, device=dev)
+    return x_proj, whh, h0, c0
+
+
+@pytest.mark.parametrize("G", [64, 256, 512])
+@pytest.mark.parametrize("T", [1, 37, 300])
+def test_pertarget_lstm_kernel_matches_plain(dev, G, T):
+    args = _pertarget_inputs(dev, T, G, seed=G + T)
+    before = lstm_cuda.lstm_layer_pertarget.launches
+    out_k = lstm_cuda.lstm_layer_pertarget(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_layer_pertarget.launches == before + 1
+    cluster, active = lstm_cuda.lstm_layer_pertarget.form
+    assert cluster >= 1 and active >= 1
+    out_p = lstm_cuda.lstm_pertarget_plain(*args)
+    # as the merged kernel: bf16 operands, f32 sums in another order; a
+    # flipped bf16 rounding of h moves a gate by ~1e-3 at most
+    for k, p in zip(out_k, out_p):
+        assert k.shape == p.shape
+        assert (k - p).abs().max().item() <= 5e-3
+    # h0/c0 are inputs only
+    assert torch.equal(args[3], _pertarget_inputs(dev, T, G, seed=G + T)[3])
+
+
+@pytest.mark.parametrize("G", [16, 40, 72, 128, 200, 640])
+def test_pertarget_lstm_kernel_cluster_sizes(dev, G):
+    """Widths that take each cluster size from 1 to 16 blocks, some with a
+    last block that owns fewer units than the others or none (G = 72 in
+    two blocks of 40, G = 200 in four of 56): idle blocks still keep the
+    barriers."""
+    args = _pertarget_inputs(dev, 29, G, seed=11, n_targets=2, D=2)
+    ref = lstm_cuda.lstm_pertarget_plain(*args)
+    out = lstm_cuda.lstm_layer_pertarget(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_layer_pertarget.form[0] in (1, 2, 4, 8, 16)
+    for k, p in zip(out, ref):
+        assert (k - p).abs().max().item() <= 5e-3
+
+
+def test_pertarget_lstm_kernel_agrees_with_the_merged_kernel(dev):
+    x_proj, whh, h0, c0 = _pertarget_inputs(dev, 50, 512, seed=3)
+    hs, hT, cT = lstm_cuda.lstm_layer_pertarget(x_proj, whh, h0, c0)
+    mhs, mhT, mcT = lstm_cuda.lstm_layer_merged_batched(x_proj[None], whh, h0[None], c0[None])
+    for k, m in ((hs, mhs[0]), (hT, mhT[0]), (cT, mcT[0])):
+        assert (k - m).abs().max().item() <= 5e-3
+
+
+def test_pertarget_lstm_kernel_refuses_what_it_cannot_take(dev):
+    before = lstm_cuda.lstm_layer_pertarget.launches
+    # 1024 / 16 units x 4 gates x 1024 x 2 bytes do not fit one block's shared memory
+    with pytest.raises(RuntimeError, match="no cluster of up to 16 blocks"):
+        lstm_cuda.lstm_layer_pertarget(*_pertarget_inputs(dev, 3, 1024, seed=1, n_targets=1, D=1))
+    x_proj, whh, h0, c0 = _pertarget_inputs(dev, 3, 512, seed=1, n_targets=1, D=1)
+    with pytest.raises(ValueError, match="h0 is on"):
+        lstm_cuda.lstm_layer_pertarget(x_proj, whh, h0.cpu(), c0)
+    x20 = _pertarget_inputs(dev, 3, 20, seed=1, n_targets=1, D=1)
+    with pytest.raises(ValueError, match="G % 8"):
+        lstm_cuda.lstm_layer_pertarget(*x20)
+    assert lstm_cuda.lstm_layer_pertarget.launches == before
+
+
+@pytest.mark.parametrize("T, F", [(19, 2049), (130, 2049), (67, 300)])
+@pytest.mark.parametrize("iterations", [1, 2])
+def test_wiener_mags_kernels_match_plain(dev, T, F, iterations):
+    g = torch.Generator(device=dev).manual_seed(T + F)
+    xre = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    xim = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    xre[0, 3, 5:40] = 0.0
+    xim[0, 3, 5:40] = 0.0  # |x| = 0: the unit phasor is 1 + 0i
+    mags = 40 * torch.rand((4, 2, T, F), generator=g, device=dev)
+    cfg = WienerConfig(iterations=iterations)
+    before = (wiener_cuda.wiener_reduce.launches, wiener_cuda.wiener_apply.launches)
+    yk = wiener_cuda.wiener_planes_from_mags(xre, xim, mags, cfg)
+    torch.cuda.synchronize()
+    assert (wiener_cuda.wiener_reduce.launches, wiener_cuda.wiener_apply.launches) == (
+        before[0] + iterations, before[1] + iterations)
+    ycpu = wiener_cuda.wiener_planes_from_mags(xre.cpu(), xim.cpu(), mags.cpu(), cfg)
+    # same f32 operations per element; rsqrtf against torch.rsqrt differs
+    # in the last place, summation order and FMA differ: 1e-4 of max|y|
+    for k, p in zip(yk, ycpu):
+        assert torch.isfinite(k).all()
+        assert (k.cpu() - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+    # each pass alone against its plain version on the card
+    inv = wiener_cuda.inv_max_abs(xre, xim, 10.0)
+    racc = wiener_cuda.wiener_reduce("mags", xre, xim, mags, None, inv)
+    racc_p = wiener_cuda.wiener_reduce_plain("mags", xre, xim, mags, inv)
+    assert _rel(racc, racc_p) <= 1e-4
+    y_k = wiener_cuda.wiener_apply("mags", xre, xim, mags, None, racc_p, inv, 1e-10)
+    y_p = wiener_cuda.wiener_apply_plain("mags", xre, xim, mags, None, racc_p, inv, 1e-10)
+    for k, p in zip(y_k, y_p):
+        assert _rel(k, p) <= 1e-4
+
+
+def test_catalogue_slice_on_the_card_matches_cpu(dev):
+    """The per-target kernel, a forced window and the fleet runner at a
+    small width, dense and quantized weights: the card against the CPU's
+    plain versions."""
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.io.ggml import read_ggml_bytes, write_ggml_bytes
+    from umx_tpu_torch.models.umx import (
+        params_from_ggml, quantized_params_from_ggml, synthetic_state_dicts,
+    )
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=128, lstm_impl="pallas"),
+                       segment=SegmentConfig(segment_secs=1.0, window_chunks=2), shifts=1)
+    model = read_ggml_bytes(write_ggml_bytes(128, synthetic_state_dicts(cfg.model, seed=0)),
+                            keep_quantized=True)
+    t = np.arange(int(2.6 * 44100)) / 44100
+    rng = np.random.default_rng(0)
+    tracks = [np.stack([0.4 * np.sin(2 * np.pi * 220 * t[:n]) + 0.05 * rng.standard_normal(n),
+                        0.3 * np.sin(2 * np.pi * 330 * t[:n]) + 0.05 * rng.standard_normal(n)]
+                       ).astype(np.float32) for n in (t.size, 40_000)]
+    for build in (params_from_ggml, quantized_params_from_ggml):
+        outs = {}
+        for d in ("cpu", dev):
+            sep = Separator(build(model, cfg.model, d), cfg, d)
+            before = lstm_cuda.lstm_layer_pertarget.launches
+            stats: dict = {}
+            outs[str(d)] = demix_tracks(sep, tracks, stats=stats)
+            assert stats["windowed_tracks"] == 1 and stats["rows"] == 1
+            if d != "cpu":
+                assert lstm_cuda.lstm_layer_pertarget.launches > before
+        for a, b in zip(outs[str(dev)], outs["cpu"]):
+            assert np.isfinite(a).all()
+            err = np.abs(a - b).max() / np.abs(b).max()
+            db = 20 * np.log10(np.linalg.norm(a - b) / np.linalg.norm(b))
+            if build is params_from_ggml:
+                # bf16 recurrence operands, cuFFT/cuBLAS summation order
+                assert err <= 2e-3, f"dense: max|err|/max|stem| {err:.3g} ({db:.1f} dB)"
+            else:
+                # The quantized network rounds its activations to bf16 before
+                # every product, so those last-bit differences flip roundings
+                # and the stems differ by bf16 noise, not by the dense path's
+                # f32 class.  The gate is on the error's energy: 20 dB below
+                # the stems' at this width, where one flipped rounding weighs
+                # eight times what it does among UMX-L's 1024 units.
+                assert db <= -20.0, f"quantized: {db:.1f} dB, max|err|/max|stem| {err:.3g}"
+
+
+def test_windowed_device_tensor_on_the_card(dev):
+    """A track already on the card runs windowed into one resident result
+    buffer and equals the host-array route and the single program."""
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.models.umx import synthetic_params
+
+    rng = np.random.default_rng(7)
+    track = rng.uniform(-0.5, 0.5, (2, int(2.1 * 44100))).astype(np.float32)
+    model = ModelConfig(hidden_size=64)
+    params = synthetic_params(model, seed=0, device=dev)
+
+    def sep(W):
+        return Separator(params, EngineConfig(model=model, segment=SegmentConfig(
+            segment_secs=0.5, window_chunks=W), shifts=0), dev)
+
+    single = sep(-1).demix(track)
+    on_card = sep(4).demix(torch.from_numpy(track).to(dev))
+    from_host = sep(4).demix(track)
+    assert on_card.is_cuda and single.is_cuda and from_host.device.type == "cpu"
+    assert torch.equal(on_card, single)
+    assert torch.equal(from_host, single.cpu())

@@ -129,7 +129,7 @@ def test_wrappers_reject_bad_inputs(data):
     with pytest.raises(TypeError, match="float32"):
         wiener_cuda.wiener_reduce("masks", xre, xim, masks.double(), None, inv)
     with pytest.raises(ValueError, match="mode"):
-        wiener_cuda.wiener_reduce("mags", xre, xim, masks, None, inv)
+        wiener_cuda.wiener_reduce("magnitudes", xre, xim, masks, None, inv)
     with pytest.raises(ValueError, match="contiguous"):
         wiener_cuda.wiener_reduce("masks", xre, xim, masks.transpose(0, 1).contiguous().transpose(0, 1), None, inv)
     racc = wiener_cuda.wiener_reduce("masks", xre, xim, masks, None, inv)

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "umx_lstm_merged_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, dgbuf, T, R, B, G, stream
     "umx_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, whh, h0, c0, hs, hT, cT, T, n_targets, D, G, chosen, stream
+    "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # hs, h0, dxp, dw, T, R, B, G, stream
     "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # mode, a_re, a_im, masks, inv_ma, partials, racc, T, F, t_chunk, stream

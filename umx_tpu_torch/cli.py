@@ -4,6 +4,11 @@ drums, other, vocals).
 
 ``--device`` picks the device (default ``cuda``); asking for CUDA on a
 machine without a usable GPU raises rather than running on the CPU.
+``--quantized-hbm`` keeps the u8/u16 weights quantized on the device,
+``--window-chunks`` sets the window of a long track (0 = the memory
+planner decides, -1 = never, N = N chunks) and ``--lstm-impl`` picks the
+recurrence kernel.  :func:`engine_config_from_args` builds the
+``EngineConfig`` for this entry point and for ``cli_batch``.
 """
 
 from __future__ import annotations
@@ -58,12 +63,60 @@ def build_parser() -> argparse.ArgumentParser:
         help="inverse-transform algorithm (auto = dense torch.istft; ct2 = the "
         "fused Cooley-Tukey iSTFT kernel)",
     )
+    p.add_argument(
+        "--window-chunks", type=int, default=0,
+        help="chunks per window of a long track (0 = auto: one program while the memory "
+        "planner says the track fits; -1 = never window; N = windows of N chunks)",
+    )
+    p.add_argument(
+        "--lstm-impl",
+        choices=("auto", "pallas_merged", "pallas"),
+        default="auto",
+        help="BLSTM recurrence kernel: the merged kernel (auto, pallas_merged) or the "
+        "per-target kernel (pallas)",
+    )
+    p.add_argument(
+        "--quantized-hbm", action="store_true",
+        help="keep the u8/u16 weights quantized on the device (dequantization fused "
+        "into the matmuls)",
+    )
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     p.add_argument(
         "--timings", action="store_true", help="print a per-stage wall-clock table"
     )
     p.add_argument("--quiet", action="store_true")
     return p
+
+
+def engine_config_from_args(args):
+    """The ``EngineConfig`` of a parsed command line.  Shared by this CLI
+    and ``cli_batch``; a flag that an entry point does not offer takes the
+    config's default."""
+    from umx_tpu_torch.config import (
+        DSPConfig, EngineConfig, ModelConfig, SegmentConfig, WienerConfig,
+    )
+
+    d = EngineConfig()
+
+    def arg(name, default):
+        return getattr(args, name, default)
+
+    return EngineConfig(
+        dsp=DSPConfig(istft_algo=arg("istft_algo", d.dsp.istft_algo)),
+        model=ModelConfig(input_scaling=arg("input_scaling", d.model.input_scaling),
+                          lstm_impl=arg("lstm_impl", d.model.lstm_impl)),
+        segment=SegmentConfig(
+            segment_secs=arg("segment_secs", d.segment.segment_secs),
+            overlap=arg("overlap", d.segment.overlap),
+            streaming=not arg("no_streaming", not d.segment.streaming),
+            chunk_batch=arg("chunk_batch", d.segment.chunk_batch),
+            window_chunks=arg("window_chunks", d.segment.window_chunks),
+        ),
+        wiener=WienerConfig(iterations=arg("wiener_iters", d.wiener.iterations),
+                            psd=arg("wiener_psd", d.wiener.psd)),
+        use_wiener=not arg("no_wiener", not d.use_wiener),
+        shifts=arg("shifts", d.shifts),
+    )
 
 
 def main(argv=None) -> int:
@@ -86,26 +139,11 @@ def _main(argv=None) -> int:
 
     import torch
 
-    from umx_tpu_torch.config import (
-        DSPConfig, EngineConfig, ModelConfig, SegmentConfig, WienerConfig,
-    )
     from umx_tpu_torch.engine.separator import Separator, resolve_device
     from umx_tpu_torch.io.audio import load_audio, write_audio
 
     device = resolve_device(args.device)
-    cfg = EngineConfig(
-        dsp=DSPConfig(istft_algo=args.istft_algo),
-        model=ModelConfig(input_scaling=args.input_scaling),
-        segment=SegmentConfig(
-            segment_secs=args.segment_secs,
-            overlap=args.overlap,
-            streaming=not args.no_streaming,
-            chunk_batch=args.chunk_batch,
-        ),
-        wiener=WienerConfig(iterations=args.wiener_iters, psd=args.wiener_psd),
-        use_wiener=not args.no_wiener,
-        shifts=args.shifts,
-    )
+    cfg = engine_config_from_args(args)
 
     totals: dict[str, float] = {}
 
@@ -122,8 +160,10 @@ def _main(argv=None) -> int:
     secs = audio.shape[1] / cfg.dsp.sample_rate
     log(f"Loaded {args.wav_file}: {audio.shape[1]} samples ({secs:.1f} s)")
 
-    sep = timed("load_model", Separator.from_ggml, args.model_file, cfg, device)
-    log(f"Loaded model {args.model_file} (hidden_size={sep.cfg.model.hidden_size}) "
+    sep = timed("load_model", Separator.from_ggml, args.model_file, cfg, device,
+                args.quantized_hbm)
+    log(f"Loaded model {args.model_file} (hidden_size={sep.cfg.model.hidden_size}"
+        f"{', quantized weights' if args.quantized_hbm else ''}) "
         f"onto {device} in {totals['load_model']:.2f} s")
 
     stems = timed("demix", sep.demix_track, audio, args.seed)

@@ -2,15 +2,17 @@
 port's demix paths read, with the same names and defaults, so a JAX
 config translates field for field.
 
-Three algorithm choices carry over: ``DSPConfig.istft_algo`` ("ct2" is
-the hand-written Cooley-Tukey iSTFT kernel), ``SegmentConfig.chunk_batch``
-(the non-streaming group width, 0 = the memory planner's pick) and
-``EngineConfig.ola_impl`` ("pallas" keeps its JAX name and selects the
-hand-written overlap-add kernel).  Values the port does not implement
-raise ``ValueError``.  The TPU-only knobs (FFT/DFT precision, storage
-dtypes, streaming schedules, window planning) have no counterpart: the
-port keeps masks, Wiener output and stems in float32, and its forward
-STFT and dense iSTFT run through cuFFT.
+The algorithm choices that carry over: ``DSPConfig.istft_algo`` ("ct2" is
+the hand-written Cooley-Tukey iSTFT kernel), ``ModelConfig.lstm_impl``
+("pallas_merged" and "pallas" keep their JAX names and select the merged
+and the per-target recurrence kernel), ``SegmentConfig.chunk_batch`` (the
+non-streaming group width, 0 = the memory planner's pick),
+``SegmentConfig.window_chunks`` (windowed long tracks) and
+``EngineConfig.ola_impl`` ("pallas" selects the hand-written overlap-add
+kernel).  Values the port does not implement raise ``ValueError``.  The
+TPU-only knobs (FFT/DFT precision, storage dtypes, streaming schedules)
+have no counterpart: the port keeps masks, Wiener output and stems in
+float32, and its forward STFT and dense iSTFT run through cuFFT.
 """
 
 from __future__ import annotations
@@ -63,6 +65,25 @@ class ModelConfig:
     # "openunmix": x = (x + mean) * scale (upstream open-unmix-pytorch);
     # "umxcpp":    x = x * scale + mean   (the umx.cpp reference)
     input_scaling: Literal["openunmix", "umxcpp"] = "openunmix"
+    # BLSTM recurrence kernel: "auto" = "pallas_merged" = the merged
+    # kernel (K1, all chains per step, any batch); "pallas" = the
+    # per-target kernel (K9, one launch per layer with each chain's
+    # weights and state kept on chip; one launch per batch row).  The
+    # JAX package's "scan" and "pallas_interpret" are CPU/interpreter
+    # forms with no meaning here.  Training always runs K4-K6.
+    lstm_impl: Literal["auto", "pallas_merged", "pallas"] = "auto"
+
+    def __post_init__(self):
+        if self.lstm_impl in ("scan", "pallas_interpret"):
+            raise ValueError(
+                f"lstm_impl {self.lstm_impl!r} has no meaning in the port (the recurrence "
+                "always runs a kernel on a GPU and its plain version on the CPU); "
+                "use auto, pallas_merged or pallas"
+            )
+        if self.lstm_impl not in ("auto", "pallas_merged", "pallas"):
+            raise ValueError(
+                f"lstm_impl must be auto, pallas_merged or pallas, got {self.lstm_impl!r}"
+            )
 
     @property
     def lstm_hidden(self) -> int:
@@ -103,6 +124,12 @@ class SegmentConfig:
     # through one batched segment forward; 0 = auto, the memory planner's
     # widest fitting width (engine/memory.py::suggest_chunk_batch)
     chunk_batch: int = 0
+    # tracks longer than one whole-track program can hold run as a chain of
+    # W-chunk windows carrying the LSTM state and the unnormalized
+    # overlap-add tail: 0 = auto (one program while the memory planner says
+    # the track fits, else its widest fitting W,
+    # engine/memory.py::suggest_window_chunks); -1 = never; > 0 = that W
+    window_chunks: int = 0
 
     def __post_init__(self):
         if not (0.0 <= self.overlap < 1.0):

@@ -6,13 +6,18 @@
 //   reduce, MODE_Y:     _make_reduce_kernel(from_mags=False)   (iterations >= 2)
 //   apply,  MODE_MASKS: _make_apply_kernel_masks + _apply_common
 //   apply,  MODE_Y:     _make_apply_kernel(from_mags=False) + _apply_common
+//   reduce, MODE_MAGS:  _make_reduce_kernel(from_mags=True)   (wiener_filter_planes)
+//   apply,  MODE_MAGS:  _make_apply_kernel(from_mags=True) + _apply_common
 // The input mode is a template parameter, so each pass is one kernel.
+// MODE_MAGS reads the target magnitudes (S, 2, T, F) with x: the first
+// estimate is y_sc = mag_sc / max_abs * unit(x_c), with unit(0) = 1 + 0i
+// and rsqrt elsewhere, as the TPU kernel's _unit_phasors.
 //
 // What bounds them on the H100: both are streaming passes over (T, F)
 // planes with a few dozen flops per element and no tensor-core work, so
 // device-memory bandwidth bounds them.  At a 60 s segment (T = 2584,
-// F = 2049) reduce reads x and the masks (~254 MB) and apply reads them
-// again and writes y (~593 MB).
+// F = 2049) reduce reads x and the masks or magnitudes (~254 MB) and apply
+// reads them again and writes y (~593 MB).
 //
 // Design:
 //  * reduce.  The TPU carried one accumulator across a sequential grid;
@@ -39,8 +44,20 @@ constexpr int S = 4;          // sources (targets)
 constexpr int BLOCK_F = 128;  // bins per block
 constexpr int MODE_MASKS = 0;
 constexpr int MODE_Y = 1;
+constexpr int MODE_MAGS = 2;
 
-// a_re/a_im: MODE_MASKS: mix planes (2, T, F); MODE_Y: y planes (S, 2, T, F)
+// x / |x| as (re, im); |x| = 0 gives 1 + 0i
+__device__ __forceinline__ void unit_phasor(float re, float im, float* ure, float* uim) {
+  const float a2 = re * re + im * im;
+  const bool nz = a2 > 0.0f;
+  const float rs = rsqrtf(nz ? a2 : 1.0f);
+  *ure = nz ? re * rs : 1.0f;
+  *uim = nz ? im * rs : 0.0f;
+}
+
+// a_re/a_im: MODE_MASKS and MODE_MAGS: mix planes (2, T, F); MODE_Y: y
+// planes (S, 2, T, F).  masks: (S, T, 2F) masks, or MODE_MAGS' (S, 2, T, F)
+// magnitudes.
 template <int MODE>
 __global__ void reduce_partial_kernel(const float* __restrict__ a_re,
                                       const float* __restrict__ a_im,
@@ -79,6 +96,23 @@ __global__ void reduce_partial_kernel(const float* __restrict__ a_re,
         acc[4 * s + 2] += m01 * cr;
         acc[4 * s + 3] += m01 * ci;
       }
+    } else if (MODE == MODE_MAGS) {
+      const float inv = inv_ma[0];
+      float u0r, u0i, u1r, u1i;
+      unit_phasor(a_re[i], a_im[i], &u0r, &u0i);
+      unit_phasor(a_re[TF + i], a_im[TF + i], &u1r, &u1i);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t c0 = (size_t)(2 * s) * TF + i;
+        const float m0 = masks[c0] * inv;
+        const float m1 = masks[c0 + TF] * inv;
+        const float yr0 = m0 * u0r, yi0 = m0 * u0i;
+        const float yr1 = m1 * u1r, yi1 = m1 * u1i;
+        acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
+        acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
+        acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
+        acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
+      }
     } else {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -114,7 +148,8 @@ __global__ void reduce_sum_kernel(const float* __restrict__ partials, float* __r
 
 template <int MODE>
 __global__ void apply_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
-                             const float* __restrict__ m_or_yre,  // masks (S,T,2F) or y_re (S,2,T,F)
+                             // masks (S,T,2F), or mags or y_re (S,2,T,F)
+                             const float* __restrict__ m_or_yre,
                              const float* __restrict__ y_im,      // y_im (S,2,T,F); MODE_Y only
                              const float* __restrict__ racc,      // (4S, F)
                              const float* __restrict__ inv_ma_p,  // (1,)
@@ -138,6 +173,15 @@ __global__ void apply_kernel(const float* __restrict__ xre, const float* __restr
       const float m0 = m_or_yre[mi];
       const float m1 = m_or_yre[mi + F];
       v[s] = 0.5f * sq * (m0 * m0 * ax0 + m1 * m1 * ax1);
+    }
+  } else if (MODE == MODE_MAGS) {
+    const float sq = inv_ma * inv_ma;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const size_t c0 = (size_t)(2 * s) * TF + i;
+      const float m0 = m_or_yre[c0];
+      const float m1 = m_or_yre[c0 + TF];
+      v[s] = 0.5f * sq * (m0 * m0 + m1 * m1);
     }
   } else {
 #pragma unroll
@@ -206,6 +250,9 @@ extern "C" int umx_wiener_reduce(int mode, const float* a_re, const float* a_im,
   } else if (mode == MODE_Y) {
     reduce_partial_kernel<MODE_Y><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma,
                                                            partials, T, F, t_chunk);
+  } else if (mode == MODE_MAGS) {
+    reduce_partial_kernel<MODE_MAGS><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma,
+                                                              partials, T, F, t_chunk);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -228,6 +275,9 @@ extern "C" int umx_wiener_apply(int mode, const float* xre, const float* xim,
   } else if (mode == MODE_Y) {
     apply_kernel<MODE_Y><<<grid, BLOCK_F, 0, st>>>(xre, xim, m_or_yre, y_im, racc, inv_ma,
                                                   yre_out, yim_out, T, F, eps, reg);
+  } else if (mode == MODE_MAGS) {
+    apply_kernel<MODE_MAGS><<<grid, BLOCK_F, 0, st>>>(xre, xim, m_or_yre, y_im, racc, inv_ma,
+                                                     yre_out, yim_out, T, F, eps, reg);
   } else {
     return (int)cudaErrorInvalidValue;
   }

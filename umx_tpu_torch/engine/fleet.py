@@ -1,17 +1,33 @@
-"""B stacked tracks through one whole-track program: the two functions of
-``umx_tpu.engine.fleet`` that the batched shift passes use.
+"""The fleet runner: many tracks of mixed lengths through batched
+whole-track programs on one device (``umx_tpu.engine.fleet``).
 
-Streaming configs run the chunk loop over all B tracks at once, each
-track's LSTM state carried in its own batch row (the recurrence kernel
-runs B rows per chain).  Non-streaming configs run the chunk groups with
-B × width segment rows per group.
+:func:`demix_tracks` buckets the tracks by chunk count, so that each
+bucket is one shape, caps every dispatch with the memory planner and
+sends tracks beyond one program's window through the per-track windowed
+path.  A bucket runs B stacked tracks through one program: streaming
+configs run the chunk loop over all B tracks at once, each track's LSTM
+state carried in its own batch row (the recurrence kernel runs B rows per
+chain); non-streaming configs run the chunk groups with B × width segment
+rows per group.
 """
 
 from __future__ import annotations
 
+import math
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
 from umx_tpu_torch.config import EngineConfig
-from umx_tpu_torch.engine.memory import suggest_chunk_batch
-from umx_tpu_torch.engine.separator import demix_fused, demix_fused_parallel
+from umx_tpu_torch.engine.memory import (
+    suggest_chunk_batch,
+    suggest_max_fleet_batch,
+    suggest_window_chunks,
+)
+from umx_tpu_torch.engine.separator import Separator, demix_fused, demix_fused_parallel
+from umx_tpu_torch.models.umx import init_lstm_state
 
 
 def resolve_batched_width(cfg: EngineConfig, n_chunks: int, seg: int, stride: int,
@@ -42,3 +58,114 @@ def _batched_demix(cfg: EngineConfig, n_chunks: int, seg: int, stride: int, batc
                                        device=device)
             return demix_fused_parallel(params, audio_p, cfg, n_chunks, seg, stride, cb), states
     return run
+
+
+def _add(stats: dict | None, **kw) -> None:
+    if stats is not None:
+        for k, v in kw.items():
+            stats[k] = stats.get(k, 0) + v
+
+
+@torch.inference_mode()
+def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | None = None,
+                 seeds: list[int] | None = None, stats: dict | None = None) -> list[np.ndarray]:
+    """Demix many tracks on one device.
+
+    ``sep_or_params``: a :class:`Separator` (its parameters and device;
+    ``cfg`` defaults to its config) or parameters already on their device.
+    tracks: (2, n_i) float32 arrays, lengths may differ.  Returns
+    (T#, 2, n_i) float32 arrays in input order, equal to what
+    ``Separator.demix_track(track, seed)`` gives each track (``seeds``
+    default to 0 as there).
+
+    stats: an optional dict that accumulates the phase times of every
+    dispatch, each closed by a device synchronisation: ``upload_s``
+    (host → device), ``compute_s`` (the program), ``download_s`` (stems →
+    host), and ``dispatches``, ``rows`` (track rows dispatched) and
+    ``windowed_tracks`` (tracks beyond the single-program window, demixed
+    one by one through the windowed path)."""
+    if isinstance(sep_or_params, Separator):
+        params, device = sep_or_params.params, sep_or_params.device
+        cfg = sep_or_params.cfg if cfg is None else cfg
+    else:
+        params = sep_or_params
+        device = params.input_mean.device
+        cfg = EngineConfig() if cfg is None else cfg
+    sr = cfg.dsp.sample_rate
+    seg = cfg.segment.segment_samples(sr)
+    stride = cfg.segment.stride_samples(sr)
+    max_shift = cfg.segment.max_shift_samples(sr)
+    if seeds is None:
+        seeds = [0] * len(tracks)
+
+    def sync():
+        if stats is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    # per-track offsets drawn as Separator.demix_track draws them
+    n_passes = max(1, cfg.shifts)
+    track_offsets = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        track_offsets.append([int(rng.integers(0, max_shift)) if cfg.shifts > 0 else 0
+                              for _ in range(n_passes)])
+
+    results: list[np.ndarray | None] = [None] * len(tracks)
+
+    # Tracks beyond the single-program window go one by one through
+    # Separator.demix_track, which chains windows: a bucket never
+    # dispatches a program that the planner says does not fit.  The same
+    # seed draws the same offsets, and windowed equals single-program.
+    long_set: set[int] = set()
+    win_limit = cfg.segment.window_chunks
+    if win_limit == 0:
+        win_limit = suggest_window_chunks(cfg, params=params, device=device)
+    if win_limit > 0:
+        shift_pad = max_shift if cfg.shifts > 0 else 0
+        for i, t in enumerate(tracks):
+            if max(1, math.ceil((np.asarray(t).shape[1] + shift_pad) / stride)) > win_limit:
+                long_set.add(i)
+    if long_set:
+        sep = Separator(params, cfg, device)
+        for i in sorted(long_set):
+            results[i] = sep.demix_track(np.asarray(tracks[i], np.float32), seed=seeds[i])
+            _add(stats, windowed_tracks=1)
+
+    for p in range(n_passes):
+        # host-side shift padding, then buckets by chunk count
+        buckets: dict[int, list] = defaultdict(list)
+        for i, track in enumerate(tracks):
+            if i in long_set:
+                continue
+            track = np.asarray(track, np.float32)
+            length = track.shape[1]
+            offset = track_offsets[i][p]
+            if cfg.shifts > 0:
+                track = np.pad(track, ((0, 0), (offset, max_shift - offset)))
+            n_chunks = max(1, math.ceil(track.shape[1] / stride))
+            padded_len = (n_chunks - 1) * stride + seg
+            track = np.pad(track, ((0, 0), (0, padded_len - track.shape[1])))
+            buckets[n_chunks].append((i, offset, length, track))
+
+        for n_chunks, items in sorted(buckets.items()):
+            # sub-batches of at most the planner's batch for this length
+            track_secs = ((n_chunks - 1) * stride + seg) / sr
+            cap = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params, device=device))
+            for s0 in range(0, len(items), cap):
+                sub = items[s0 : s0 + cap]
+                fn = _batched_demix(cfg, n_chunks, seg, stride, batch=len(sub), device=device)
+                t0 = sync()
+                audio_b = torch.from_numpy(np.stack([it[3] for it in sub])).to(device)
+                states = init_lstm_state(cfg.model, device, batch=len(sub))
+                t1 = sync()
+                out_b, _ = fn(params, audio_b, states)
+                t2 = sync()
+                out_b = out_b.cpu().numpy()
+                t3 = sync()
+                _add(stats, upload_s=t1 - t0, compute_s=t2 - t1, download_s=t3 - t2,
+                     dispatches=1, rows=len(sub))
+                for (idx, offset, length, _), out in zip(sub, out_b):
+                    contrib = out[..., offset : offset + length] / n_passes
+                    results[idx] = contrib if results[idx] is None else results[idx] + contrib
+    return results  # type: ignore[return-value]

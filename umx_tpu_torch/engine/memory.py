@@ -1,5 +1,6 @@
-"""Device-memory planning for the batched whole-track programs: the subset
-of ``umx_tpu.engine.memory`` that the port's demix paths call.
+"""Device-memory planning for the whole-track programs: the subset of
+``umx_tpu.engine.memory`` that the port's demix paths call (the chunk-group
+width, the shift and fleet batches, the window of a long track).
 
 The non-streaming program runs its segments in groups of ``width`` rows
 and the batched shifts run B tracks at once, so the peak grows with
@@ -14,7 +15,8 @@ transients are live together.  How the port differs:
   physical RAM on the CPU;
 * the stacked chunk outputs are always float32 (the port keeps stems in
   float32);
-* parameter bytes are exact when the parameters are given;
+* parameter bytes are exact when the parameters are given, quantized
+  ones counted at their stored size;
 * with ``istft_algo="ct2"`` the segment transients count the whole
   frames buffer of the iSTFT kernel (the dense path keeps a quarter);
 * the fitted factors are anchored on an H100, one transient factor per
@@ -66,8 +68,10 @@ def params_hbm_bytes(cfg: EngineConfig, params=None) -> int:
     target fc1, 3 bidirectional LSTM layers, fc2, fc3, batch norms, input
     and output mean and scale, all float32)."""
     if params is not None:
+        # a QTensor counts its planes, scale and offset at their stored size
         return sum(
-            t.numel() * t.element_size() for t in (getattr(params, f.name) for f in fields(params))
+            t.nbytes if hasattr(t, "planes") else t.numel() * t.element_size()
+            for t in (getattr(params, f.name) for f in fields(params))
         )
     m = cfg.model
     h, g, s = m.hidden_size, m.lstm_hidden, m.n_targets
@@ -113,12 +117,23 @@ def _track_terms(cfg: EngineConfig, track_secs: float, b: int) -> dict[str, int]
     }
 
 
-def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params_b: int) -> dict[str, int]:
+def _dequant_transient_bytes(params) -> int:
+    """The largest transient float32 copy a quantized matmul makes of its
+    weight (``ops/qmatmul.py``); 0 for dense parameters."""
+    if params is None:
+        return 0
+    return max((4 * t.planes[0].numel() for t in (getattr(params, f.name) for f in fields(params))
+                if hasattr(t, "planes")), default=0)
+
+
+def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params) -> dict[str, int]:
     ys, ola, stems, audio = terms["ys"], terms["ola"], terms["stems"], terms["audio"]
+    params_b = params_hbm_bytes(cfg, params)
     factor = _TRANSIENT_FACTOR["ct2" if cfg.dsp.istft_algo == "ct2" else "dense"]
     # the last group's transients beside the track buffers; with a factor
     # above 1 this bounds the phase before the stems exist as well
-    boundary = ys + stems + audio + int(seg_transients * factor)
+    boundary = (ys + stems + audio + int(seg_transients * factor)
+                + _dequant_transient_bytes(params))
     ola_phase = ys + ola + stems
     peak = max(boundary, ola_phase) if cfg.ola_impl == "xla" else boundary
     return {
@@ -134,7 +149,7 @@ def fused_track_hbm_bytes(cfg: EngineConfig, batch: int, track_secs: float,
     (one segment row per track in flight).  Returns the liveness terms
     (bytes) and ``total``."""
     terms = _track_terms(cfg, track_secs, batch)
-    return _peak(cfg, terms, batch * _segment_transient_bytes(cfg), params_hbm_bytes(cfg, params))
+    return _peak(cfg, terms, batch * _segment_transient_bytes(cfg), params)
 
 
 def parallel_track_hbm_bytes(cfg: EngineConfig, chunk_batch: int, track_secs: float,
@@ -145,8 +160,7 @@ def parallel_track_hbm_bytes(cfg: EngineConfig, chunk_batch: int, track_secs: fl
     b = max(1, batch)
     terms = _track_terms(cfg, track_secs, b)
     width = min(chunk_batch, terms["n_chunks"])
-    return _peak(cfg, terms, b * width * _segment_transient_bytes(cfg),
-                 params_hbm_bytes(cfg, params))
+    return _peak(cfg, terms, b * width * _segment_transient_bytes(cfg), params)
 
 
 def _suggest(estimate, budget: float, hard_cap: int = 1024) -> int:
@@ -186,3 +200,61 @@ def suggest_chunk_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | N
         budget,
         hard_cap=max(1, 16 // max(1, batch)),
     )
+
+
+def suggest_max_fleet_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | None = None,
+                            safety: float = 0.9, params=None, device=None) -> int:
+    """Largest batch of whole ``track_secs`` tracks for one bucket dispatch
+    of ``fleet.demix_tracks``.  Streaming buckets run the chunk loop over
+    the batch (:func:`suggest_max_batch`); non-streaming buckets run chunk
+    groups whose width is re-resolved per batch, so each candidate batch
+    is estimated at the width it would run at (``chunk_batch``, or the
+    planner's batch-aware pick)."""
+    if cfg.segment.streaming:
+        return suggest_max_batch(cfg, track_secs, hbm_bytes, safety, params, device)
+    capacity = device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes
+
+    def est(b: int) -> int:
+        w = cfg.segment.chunk_batch
+        if w <= 0:
+            w = suggest_chunk_batch(cfg, track_secs, capacity, safety, params, batch=b)
+        return parallel_track_hbm_bytes(cfg, w, track_secs, params, batch=b)["total"]
+
+    return _suggest(est, capacity * safety)
+
+
+def suggest_window_chunks(cfg: EngineConfig, hbm_bytes: int | None = None, safety: float = 0.9,
+                          params=None, resident_bytes: int = 0, device=None) -> int:
+    """Largest W (chunks) for one window of a windowed track
+    (``SegmentConfig.window_chunks == 0``): the widest window whose
+    footprint, that of a W-chunk track through the single program plus
+    the previous window's normalized stems (live until they are copied
+    out or written into the result), fits in ``safety`` × the capacity
+    after ``resident_bytes`` are set aside for what the caller keeps on
+    the device across windows (its whole-track audio and result buffer
+    when the input arrived as a device tensor)."""
+    capacity = device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes
+    budget = capacity * safety - resident_bytes
+    return _suggest(lambda w: window_hbm_bytes(cfg, w, capacity, safety, params), budget,
+                    hard_cap=4096)
+
+
+def window_hbm_bytes(cfg: EngineConfig, w: int, hbm_bytes: int, safety: float = 0.9,
+                     params=None) -> int:
+    """Estimated peak of one W-chunk window: a W-chunk track through the
+    single program (non-streaming: at ``chunk_batch``, or the width the
+    planner picks within ``safety`` × ``hbm_bytes``) plus the previous
+    window's normalized stems."""
+    stride = cfg.segment.stride_samples(cfg.dsp.sample_rate)
+    # track_secs = w*stride/sr gives exactly w chunks: a window of W chunks
+    # has the buffer shapes of a W-chunk track
+    secs = w * stride / cfg.dsp.sample_rate
+    prev_out = cfg.model.n_targets * 2 * w * stride * _F32
+    if cfg.segment.streaming:
+        one = fused_track_hbm_bytes(cfg, 1, secs, params)["total"]
+    else:
+        width = cfg.segment.chunk_batch
+        if width <= 0:
+            width = suggest_chunk_batch(cfg, secs, hbm_bytes, safety, params)
+        one = parallel_track_hbm_bytes(cfg, width, secs, params)["total"]
+    return one + prev_out

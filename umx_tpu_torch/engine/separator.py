@@ -14,6 +14,9 @@ outputs, weighted by the triangular transition, are stacked
 shifts ≥ 1 the track is front-padded by offsets drawn from
 ``np.random.default_rng(seed)`` and trimmed back; several shift passes
 run as batch rows of one program when the memory planner says they fit.
+A track longer than one program can hold (``SegmentConfig.window_chunks``)
+runs as a chain of W-chunk windows (:func:`demix_windowed_window`) that
+carry the LSTM state and the unnormalized overlap-add tail.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ import numpy as np
 import torch
 
 from umx_tpu_torch.config import EngineConfig
-from umx_tpu_torch.engine.memory import suggest_chunk_batch, suggest_max_batch
+from umx_tpu_torch.engine.memory import (
+    suggest_chunk_batch,
+    suggest_max_batch,
+    suggest_window_chunks,
+)
 from umx_tpu_torch.models.umx import (
     LSTMState,
     UMXParams,
@@ -164,16 +171,8 @@ def demix_fused(params: UMXParams, audio_p, state: LSTMState, cfg: EngineConfig,
     with P = (n_chunks-1)*stride + seg, state h/c (B, T#, L, D, G) →
     (stems (B, T#, 2, P), final state).  The chunk loop carries each
     track's state in its batch row."""
-    B, P = audio_p.shape[0], audio_p.shape[-1]
-    weight = transition_weight(seg, cfg.segment.transition_power, audio_p.device)
-    ys = torch.empty((n_chunks, B, cfg.model.n_targets, 2, seg), device=audio_p.device)
-    for i in range(n_chunks):
-        off = i * stride
-        chunk_out, state = segment_forward_batched(
-            params, audio_p[:, :, off : off + seg], state, cfg, seg
-        )
-        torch.mul(weight, chunk_out, out=ys[i])
-    return _normalized_overlap_add(ys, weight, stride, P, cfg), state
+    ys, weight, state = _chunk_outputs(params, audio_p, state, cfg, n_chunks, seg, stride, 1)
+    return _normalized_overlap_add(ys, weight, stride, audio_p.shape[-1], cfg), state
 
 
 def demix_fused_parallel(params: UMXParams, audio_p, cfg: EngineConfig, n_chunks: int,
@@ -186,19 +185,74 @@ def demix_fused_parallel(params: UMXParams, audio_p, cfg: EngineConfig, n_chunks
     rows of one batched segment forward at zero state; the remainder
     group runs at its natural width."""
     lead, P = audio_p.shape[:-2], audio_p.shape[-1]
-    a = audio_p.reshape(-1, 2, P)
+    ys, weight, _ = _chunk_outputs(params, audio_p.reshape(-1, 2, P), None, cfg, n_chunks, seg,
+                                   stride, chunk_batch)
+    ys = ys.view(n_chunks, *lead, cfg.model.n_targets, 2, seg)
+    return _normalized_overlap_add(ys, weight, stride, P, cfg)
+
+
+def _chunk_outputs(params: UMXParams, a, state: LSTMState | None, cfg: EngineConfig,
+                   n_chunks: int, seg: int, stride: int, chunk_batch: int):
+    """The weighted chunk outputs of B stacked tracks a (B, 2, P): ys
+    (n_chunks, B, T#, 2, seg), the transition weight and the final state.
+    Streaming (``state`` given): the chunk loop, each track's state carried
+    in its batch row.  Non-streaming (``state`` None): groups of
+    ``chunk_batch`` chunks × B rows through one batched segment forward at
+    zero state, the remainder group at its natural width."""
     B = a.shape[0]
     n_t = cfg.model.n_targets
     weight = transition_weight(seg, cfg.segment.transition_power, a.device)
     ys = torch.empty((n_chunks, B, n_t, 2, seg), device=a.device)
+    if state is not None:
+        for i in range(n_chunks):
+            off = i * stride
+            chunk_out, state = segment_forward_batched(
+                params, a[:, :, off : off + seg], state, cfg, seg
+            )
+            torch.mul(weight, chunk_out, out=ys[i])
+        return ys, weight, state
     for k0 in range(0, n_chunks, chunk_batch):
         width = min(chunk_batch, n_chunks - k0)
         rows = torch.stack([a[:, :, k * stride : k * stride + seg] for k in range(k0, k0 + width)])
-        state = init_lstm_state(cfg.model, a.device, batch=width * B)
-        outs, _ = segment_forward_batched(params, rows.reshape(width * B, 2, seg), state, cfg, seg)
+        zero = init_lstm_state(cfg.model, a.device, batch=width * B)
+        outs, _ = segment_forward_batched(params, rows.reshape(width * B, 2, seg), zero, cfg, seg)
         torch.mul(weight, outs.view(width, B, n_t, 2, seg), out=ys[k0 : k0 + width])
-    ys = ys.view(n_chunks, *lead, n_t, 2, seg)
-    return _normalized_overlap_add(ys, weight, stride, P, cfg)
+    return ys, weight, None
+
+
+def demix_windowed_window(params: UMXParams, audio_w, state: LSTMState, tail, tail_w,
+                          cfg: EngineConfig, W: int, seg: int, stride: int, chunk_batch: int = 1):
+    """One W-chunk window of a windowed track: audio_w (2, (W-1)*stride +
+    seg), state (1, T#, L, D, G), ``tail`` (T#, 2, seg - stride) and
+    ``tail_w`` (seg - stride,) → (normalized stems of the window's first
+    W*stride samples, next tail, next tail_w, next state).
+
+    Two carries chain windows into the single program's result: the
+    streaming LSTM state, and the overlap-add boundary.  The window's last
+    chunk reaches seg - stride samples past its output region; their
+    unnormalized stem sums and weight sums go to the next window, which
+    adds them at its start before it normalizes.  At overlap ≤ 50 % every
+    output sample sums the same (at most two) addends as in the single
+    program, so the stems are bit-equal to it.  Non-streaming configs run
+    the window's chunks in groups of ``chunk_batch`` and pass the state
+    through."""
+    padded_w = (W - 1) * stride + seg
+    streaming = cfg.segment.streaming
+    ys, weight, new_state = _chunk_outputs(
+        params, audio_w[None], state if streaming else None, cfg, W, seg, stride,
+        max(1, min(chunk_batch, W)),
+    )
+    acc = _slice_add(ys[:, 0], stride, padded_w)
+    wsum = _overlap_add_chunks(weight.expand(W, seg), stride, padded_w)
+    tail_len = padded_w - W * stride  # == seg - stride
+    if tail_len:
+        acc[..., :tail_len] += tail
+        wsum[:tail_len] += tail_w
+    out = acc[..., : W * stride] / wsum[: W * stride]
+    # copies, so that the carried tail does not keep the window's whole
+    # accumulator alive through the next window
+    return (out, acc[..., W * stride :].clone(), wsum[W * stride :].clone(),
+            new_state if streaming else state)
 
 
 class Separator:
@@ -211,23 +265,46 @@ class Separator:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.params = params
         self.cfg = cfg
+        self._window_plans: dict[int, int] = {}
+
+    def _window_plan(self, resident_bytes: int) -> int:
+        """The planner's window width, memoised: ``resident_bytes`` is
+        rounded up to 256 MB buckets, so tracks of similar length share an
+        entry without loosening the budget."""
+        key = -(-resident_bytes // 2**28) * 2**28
+        if key not in self._window_plans:
+            self._window_plans[key] = suggest_window_chunks(
+                self.cfg, params=self.params, resident_bytes=key, device=self.device
+            )
+        return self._window_plans[key]
 
     @classmethod
-    def from_ggml(cls, path: str, cfg: EngineConfig | None = None, device="cpu") -> "Separator":
+    def from_ggml(cls, path: str, cfg: EngineConfig | None = None, device="cpu",
+                  quantized_hbm: bool = False) -> "Separator":
         """Load ggml weights onto ``device``; the model's hidden size
-        overrides ``cfg``'s."""
+        overrides ``cfg``'s.  With ``quantized_hbm`` the u8/u16 matmul
+        weights stay quantized on the device and are dequantized inside
+        the matmuls (``ops/qmatmul.py``)."""
         from umx_tpu_torch.io.ggml import read_ggml
-        from umx_tpu_torch.models.umx import params_from_ggml
+        from umx_tpu_torch.models.umx import params_from_ggml, quantized_params_from_ggml
 
         device = resolve_device(device)
-        model = read_ggml(path)
+        model = read_ggml(path, keep_quantized=quantized_hbm)
         if cfg is None:
             cfg = EngineConfig()
         if cfg.model.hidden_size != model.hidden_size:
             cfg = dataclasses.replace(
                 cfg, model=dataclasses.replace(cfg.model, hidden_size=model.hidden_size)
             )
-        return cls(params_from_ggml(model, cfg.model, device), cfg, device)
+        build = quantized_params_from_ggml if quantized_hbm else params_from_ggml
+        return cls(build(model, cfg.model, device), cfg, device)
+
+    def _on_device(self, audio) -> bool:
+        """Whether ``audio`` is a tensor that already lies on this
+        separator's device ("cuda" means any index)."""
+        if not isinstance(audio, torch.Tensor) or audio.device.type != self.device.type:
+            return False
+        return self.device.index is None or audio.device.index == self.device.index
 
     def _geometry(self, length: int):
         sr = self.cfg.dsp.sample_rate
@@ -239,19 +316,41 @@ class Separator:
     @torch.inference_mode()
     def demix(self, audio) -> torch.Tensor:
         """Overlapping-segment demix of a track: audio (2, length) →
-        (T#, 2, length) float32 on the separator's device.  Non-streaming
-        configs run the chunk groups at ``chunk_batch`` rows (0 = the
-        memory planner's width), streaming configs the chunk loop."""
+        (T#, 2, length) float32.  Non-streaming configs run the chunk
+        groups at ``chunk_batch`` rows (0 = the memory planner's width),
+        streaming configs the chunk loop.  A track of more chunks than
+        ``window_chunks`` allows (0 = what the planner says fits) runs
+        windowed, decided before the track is placed on the device: a
+        host array then streams window slices in and stems out and a CPU
+        tensor returns, so device memory stays bounded for any length; a
+        tensor already on the device gives a tensor on the device."""
         cfg = self.cfg
-        audio = torch.as_tensor(np.asarray(audio, np.float32)).to(self.device)
+        on_device = self._on_device(audio)
         length = audio.shape[1]
         seg, stride, n_chunks, padded_len = self._geometry(length)
+        cb = cfg.segment.chunk_batch
+        if not cfg.segment.streaming and cb <= 0:
+            cb = suggest_chunk_batch(cfg, length / cfg.dsp.sample_rate, params=self.params,
+                                     device=self.device)
+        Wc = cfg.segment.window_chunks
+        if Wc == 0:
+            # a caller's device tensor and the result buffer stay resident
+            # across windows; a host array's windows come and go
+            resident = (2 + cfg.model.n_targets * 2) * padded_len * 4 if on_device else 0
+            Wc = self._window_plan(resident)
+            if n_chunks <= Wc:
+                Wc = -1
+            else:
+                # even split: the same number of windows at the smallest W,
+                # so the last window pads the fewest silent chunks
+                Wc = -(-n_chunks // -(-n_chunks // Wc))
+        if Wc > 0 and n_chunks > Wc:
+            return self._demix_windowed(audio, n_chunks, seg, stride, Wc, max(1, cb))[..., :length]
+
+        audio = torch.as_tensor(np.asarray(audio, np.float32) if not on_device else audio)
+        audio = audio.float().to(self.device)
         audio_p = torch.nn.functional.pad(audio, (0, padded_len - length))
         if not cfg.segment.streaming:
-            cb = cfg.segment.chunk_batch
-            if cb <= 0:
-                cb = suggest_chunk_batch(cfg, length / cfg.dsp.sample_rate, params=self.params,
-                                         device=self.device)
             out = demix_fused_parallel(self.params, audio_p, cfg, n_chunks, seg, stride,
                                        min(cb, n_chunks))
         else:
@@ -259,6 +358,42 @@ class Separator:
             out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg, stride)
             out = out[0]
         return out[..., :length]
+
+    @torch.inference_mode()
+    def _demix_windowed(self, audio, n_chunks: int, seg: int, stride: int, W: int,
+                        chunk_batch: int):
+        """ceil(n_chunks / W) windows of W chunks chained by the LSTM state
+        and the unnormalized overlap-add tail (:func:`demix_windowed_window`);
+        the last window is padded with silent chunks.  audio (2, length):
+        a host array (or CPU tensor) has each window's slice copied in and
+        its stems copied out as it finishes, and a CPU tensor returns; a
+        tensor on the device has its windows written in place into one
+        resident result buffer, which returns.  Either covers the whole
+        padded length (n_windows*W - 1)*stride + seg."""
+        cfg = self.cfg
+        n_t = cfg.model.n_targets
+        n_windows = -(-n_chunks // W)
+        full_len = (n_windows * W - 1) * stride + seg
+        on_device = self._on_device(audio)
+        if not on_device:
+            audio = torch.as_tensor(np.asarray(audio, np.float32))
+        audio_p = torch.nn.functional.pad(audio.float(), (0, full_len - audio.shape[-1]))
+        tail_len = seg - stride
+        padded_w = (W - 1) * stride + seg
+        state = init_lstm_state(cfg.model, self.device, batch=1)
+        tail = torch.zeros((n_t, 2, tail_len), device=self.device)
+        tail_w = torch.zeros((tail_len,), device=self.device)
+        res = torch.empty((n_t, 2, full_len), device=self.device if on_device else "cpu")
+        for j in range(n_windows):
+            s0 = j * W * stride
+            a = audio_p[:, s0 : s0 + padded_w].to(self.device)
+            out_j, tail, tail_w, state = demix_windowed_window(
+                self.params, a, state, tail, tail_w, cfg, W, seg, stride, chunk_batch
+            )
+            res[..., s0 : s0 + W * stride] = out_j
+        # the last window's tail is the end of the padded track
+        res[..., full_len - tail_len :] = tail / tail_w
+        return res
 
     def demix_track(self, audio, seed: int = 0) -> np.ndarray:
         """Full-track demix with the Demucs random-shift trick: each of

@@ -58,14 +58,19 @@ def qtype_for(name: str):
 @dataclass
 class GGMLModel:
     """Parsed ggml file: ``hidden_size`` plus 4 per-target dicts of
-    dequantized float32 arrays in torch state-dict shapes."""
+    dequantized float32 arrays in torch state-dict shapes.  Parsed with
+    ``keep_quantized=True``, ``raw`` also holds, per target and tensor,
+    the stored payload as ``(q, scale, offset)`` (u8 or u16, in the
+    tensor's shape) for the quantized-weights mode (``ops/qmatmul.py``)."""
 
     hidden_size: int
     targets: dict[str, dict[str, np.ndarray]]
+    raw: dict[str, dict[str, tuple[np.ndarray, float, float]]] | None = None
 
 
-def read_ggml_bytes(data: bytes) -> GGMLModel:
-    """Parse a ggml payload (optionally gzipped)."""
+def read_ggml_bytes(data: bytes, keep_quantized: bool = False) -> GGMLModel:
+    """Parse a ggml payload (optionally gzipped); ``keep_quantized`` also
+    keeps the stored payloads in ``GGMLModel.raw``."""
     if data[:2] == b"\x1f\x8b":
         data = gzip.decompress(data)
     total = len(data)
@@ -82,6 +87,7 @@ def read_ggml_bytes(data: bytes) -> GGMLModel:
         raise ValueError(f"bad ggml magic {magic:#x}, expected {GGML_MAGIC:#x}")
 
     targets: list[dict[str, np.ndarray]] = [{}]
+    raws: list[dict[str, tuple[np.ndarray, float, float]]] = [{}]
     while True:
         header = f.read(16)
         if len(header) < 16:
@@ -114,19 +120,24 @@ def read_ggml_bytes(data: bytes) -> GGMLModel:
         payload = np.frombuffer(raw, dtype=qtype)
         if name in targets[-1]:
             targets.append({})
+            raws.append({})
         targets[-1][name] = dequantize(payload, scale, offset).reshape(shape)
+        if keep_quantized:
+            raws[-1][name] = (payload.reshape(shape), scale, offset)
 
     if len(targets) != len(TARGET_ORDER):
         raise ValueError(f"expected {len(TARGET_ORDER)} targets, got {len(targets)}")
     return GGMLModel(
-        hidden_size=hidden_size, targets=dict(zip(TARGET_ORDER, targets))
+        hidden_size=hidden_size,
+        targets=dict(zip(TARGET_ORDER, targets)),
+        raw=dict(zip(TARGET_ORDER, raws)) if keep_quantized else None,
     )
 
 
-def read_ggml(path: str) -> GGMLModel:
+def read_ggml(path: str, keep_quantized: bool = False) -> GGMLModel:
     """Load a ggml model file (.bin or .bin.gz)."""
     with open(path, "rb") as fh:
-        return read_ggml_bytes(fh.read())
+        return read_ggml_bytes(fh.read(), keep_quantized=keep_quantized)
 
 
 def write_ggml_bytes(hidden_size: int, targets: dict[str, dict[str, np.ndarray]]) -> bytes:

@@ -10,7 +10,13 @@ matmuls over targets.  The LSTM input projections run outside the
 recurrence as one f32 batched matmul per layer; the recurrence of all
 targets × directions (× batch rows, in training) runs as one merged
 kernel call per layer (``ops/lstm_cuda.py``), differentiable through the
-training kernels when a gradient is wanted.  The backward direction is
+training kernels when a gradient is wanted, or with
+``ModelConfig.lstm_impl="pallas"`` as one per-target kernel launch per
+layer and batch row.  With quantized parameters
+(:func:`quantized_params_from_ggml`) the fc and input-projection weights
+are ``QTensor`` s whose dequantization is fused into the matmul
+(``ops/qmatmul.py``) and ``lstm_hh_w`` is dense bfloat16, which the
+recurrence kernels take as it is.  The backward direction is
 the forward recurrence over the time-reversed sequence, so its state,
 like the forward one's, carries across segments (the reference's
 streaming LSTM).
@@ -27,14 +33,17 @@ import numpy as np
 import torch
 
 from umx_tpu_torch.config import TARGETS, ModelConfig
-from umx_tpu_torch.ops.lstm_cuda import lstm_layer_merged_batched
+from umx_tpu_torch.ops.lstm_cuda import lstm_layer_merged_batched, lstm_layer_pertarget_batched
+from umx_tpu_torch.ops.qmatmul import QTensor, q_mm, qtensor_from_raw, stack_qtensors
 
 
 @dataclass
 class UMXParams:
     """UMX weights for all targets, stacked on a leading target axis
-    (float32 tensors).  T#=4 targets, F=2974 features, H=hidden_size,
-    L=3 layers, D=2 directions, G=H/2, O=4098 outputs."""
+    (float32 tensors; in the quantized mode ``fc*_w`` and ``lstm_ih_w``
+    are ``QTensor`` s and ``lstm_hh_w`` is bfloat16).  T#=4 targets,
+    F=2974 features, H=hidden_size, L=3 layers, D=2 directions, G=H/2,
+    O=4098 outputs."""
 
     input_mean: torch.Tensor  # (T#, F)
     input_scale: torch.Tensor  # (T#, F)
@@ -92,6 +101,11 @@ def params_from_ggml(model, cfg: ModelConfig | None = None, device="cpu") -> UMX
     stacked stereo features)."""
     if cfg is None:
         cfg = ModelConfig(hidden_size=model.hidden_size)
+    return _to_params(_arrays_from_ggml(model, cfg), device)
+
+
+def _arrays_from_ggml(model, cfg: ModelConfig) -> dict[str, np.ndarray]:
+    """The stacked float32 numpy arrays of :func:`params_from_ggml`."""
     per_target = [model.targets[t] for t in TARGETS]
 
     def stack(fn):
@@ -113,7 +127,7 @@ def params_from_ggml(model, cfg: ModelConfig | None = None, device="cpu") -> UMX
     def dup(name):
         return stack(lambda t: np.concatenate([t[name], t[name]]))
 
-    arrays = dict(
+    return dict(
         input_mean=dup("input_mean"),
         input_scale=dup("input_scale"),
         fc1_w=stack(lambda t: t["fc1.weight"].T),
@@ -138,7 +152,61 @@ def params_from_ggml(model, cfg: ModelConfig | None = None, device="cpu") -> UMX
         output_scale=dup("output_scale"),
         output_mean=dup("output_mean"),
     )
-    return _to_params(arrays, device)
+
+
+_QUANTIZED_FIELDS = ("fc1_w", "fc2_w", "fc3_w", "lstm_ih_w")
+
+
+def quantized_params_from_ggml(model, cfg: ModelConfig | None = None, device="cpu") -> UMXParams:
+    """Like :func:`params_from_ggml`, but the large matmul weights (fc1,
+    fc2, fc3, LSTM ih) stay quantized on the device as ``QTensor`` s: the
+    u8/u16 payloads of the file, byte for byte, dequantized inside each
+    matmul (``ops/qmatmul.py``).  ``lstm_hh_w`` is densified to bfloat16
+    (the recurrence kernels' operand type, and no larger than the u8
+    planes would be); the small vectors are float32.  Needs a model read
+    with ``keep_quantized=True``."""
+    if model.raw is None:
+        raise ValueError("GGMLModel.raw missing: re-read with keep_quantized=True")
+    if cfg is None:
+        cfg = ModelConfig(hidden_size=model.hidden_size)
+    arrays = _arrays_from_ggml(model, cfg)
+    hh = torch.from_numpy(arrays.pop("lstm_hh_w")).to(torch.bfloat16).to(device)
+    for name in _QUANTIZED_FIELDS:
+        del arrays[name]
+
+    def q_stack(name):
+        return stack_qtensors([
+            qtensor_from_raw(np.ascontiguousarray(model.raw[t][name][0].T), *model.raw[t][name][1:])
+            for t in TARGETS
+        ])
+
+    def q_stack_lstm(kind):
+        return stack_qtensors([
+            stack_qtensors([
+                stack_qtensors([
+                    qtensor_from_raw(np.ascontiguousarray(q.T), scale, offset)
+                    for q, scale, offset in (
+                        model.raw[t][f"lstm.{kind}_l{layer}{rev}"] for rev in ("", "_reverse")
+                    )
+                ])
+                for layer in range(cfg.n_lstm_layers)
+            ])
+            for t in TARGETS
+        ])
+
+    dense = _to_params_dict(arrays, device)
+    return UMXParams(
+        **dense,
+        fc1_w=q_stack("fc1.weight").to(device),
+        fc2_w=q_stack("fc2.weight").to(device),
+        fc3_w=q_stack("fc3.weight").to(device),
+        lstm_ih_w=q_stack_lstm("weight_ih").to(device),
+        lstm_hh_w=hh,
+    )
+
+
+def is_quantized(params: UMXParams) -> bool:
+    return isinstance(params.fc1_w, QTensor)
 
 
 def params_from_jax(np_params, device="cpu") -> UMXParams:
@@ -150,17 +218,48 @@ def params_from_jax(np_params, device="cpu") -> UMXParams:
     )
 
 
+def quantized_params_from_jax(np_params, device="cpu") -> UMXParams:
+    """The port's quantized parameters from the JAX package's quantized
+    ``UMXParams`` (as :func:`params_from_jax`), bit for bit: each field
+    with ``planes`` becomes a ``QTensor`` of the same integer planes (any
+    numpy-convertible type that holds them exactly), scale and offset;
+    ``lstm_hh_w`` (bfloat16 or float32 values) becomes bfloat16; the rest
+    float32."""
+    out = {}
+    for f in fields(UMXParams):
+        v = getattr(np_params, f.name)
+        if hasattr(v, "planes"):
+            out[f.name] = QTensor(
+                planes=tuple(
+                    torch.from_numpy(np.asarray(p).astype(np.float32)).to(torch.bfloat16).to(device)
+                    for p in v.planes
+                ),
+                scale=torch.tensor(np.asarray(v.scale, dtype=np.float32), device=device),
+                offset=torch.tensor(np.asarray(v.offset, dtype=np.float32), device=device),
+            )
+        else:
+            t = torch.from_numpy(np.asarray(v).astype(np.float32))
+            out[f.name] = (t.to(torch.bfloat16) if f.name == "lstm_hh_w" else t).to(device)
+    return UMXParams(**out)
+
+
+def _to_params_dict(arrays: dict, device) -> dict:
+    return {
+        k: torch.tensor(np.asarray(v, dtype=np.float32), device=device) for k, v in arrays.items()
+    }
+
+
 def _to_params(arrays: dict, device) -> UMXParams:
-    return UMXParams(**{
-        k: torch.tensor(np.asarray(v, dtype=np.float32), device=device)
-        for k, v in arrays.items()
-    })
+    return UMXParams(**_to_params_dict(arrays, device))
 
 
 def params_to_state_dicts(params: UMXParams, cfg: ModelConfig) -> dict[str, dict[str, np.ndarray]]:
     """Per-target torch-layout float32 state dicts from stacked parameters:
     the inverse of :func:`params_from_ggml` (the halves of the duplicated
-    input/output norms, Linear/LSTM weights transposed back)."""
+    input/output norms, Linear/LSTM weights transposed back).  Dense
+    parameters only."""
+    if is_quantized(params):
+        raise ValueError("quantized parameters have no state-dict form: load the dense ones")
     half_f, half_o = cfg.n_features // 2, cfg.n_outputs // 2
     targets = {}
     for t_idx, tname in enumerate(TARGETS):
@@ -253,6 +352,11 @@ def _batchnorm(x, w, b, rm, rv, eps: float):
     return (x - rm[:, None]) * inv * w[:, None] + b[:, None]
 
 
+def _mm(x, w):
+    """x @ w for a dense weight or a ``QTensor`` (dequantization fused)."""
+    return q_mm(x, w) if isinstance(w, QTensor) else torch.matmul(x, w)
+
+
 def umx_pre(params: UMXParams, x, cfg: ModelConfig):
     """Everything before the recurrence: input norm + fc1 + bn1 + tanh for
     all targets.  x: (T, F) shared input magnitudes → x1 (T#, T, H); with a
@@ -262,7 +366,7 @@ def umx_pre(params: UMXParams, x, cfg: ModelConfig):
         x = (x + params.input_mean[:, None]) * params.input_scale[:, None]
     else:  # the umx.cpp reference's convention
         x = x * params.input_scale[:, None] + params.input_mean[:, None]
-    x = torch.matmul(x, params.fc1_w)
+    x = _mm(x, params.fc1_w)
     return torch.tanh(
         _batchnorm(x, params.bn1_w, params.bn1_b, params.bn1_rm, params.bn1_rv, cfg.bn_eps)
     )
@@ -272,9 +376,9 @@ def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig):
     """Skip-concat + fc2/bn2/relu + fc3/bn3 + output norm for all targets.
     Returns masks (T#, T, O), or (B, T#, T, O) for batched inputs."""
     eps = cfg.bn_eps
-    x = torch.matmul(torch.cat([x1, lstm_out], dim=-1), params.fc2_w)
+    x = _mm(torch.cat([x1, lstm_out], dim=-1), params.fc2_w)
     x = torch.relu(_batchnorm(x, params.bn2_w, params.bn2_b, params.bn2_rm, params.bn2_rv, eps))
-    x = torch.matmul(x, params.fc3_w)
+    x = _mm(x, params.fc3_w)
     x = _batchnorm(x, params.bn3_w, params.bn3_b, params.bn3_rm, params.bn3_rv, eps)
     return torch.relu(x * params.output_scale[:, None] + params.output_mean[:, None])
 
@@ -286,16 +390,22 @@ def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: Mod
     x1_b: (B, T#, T, H); state_b: h/c (B, T#, L, D, G) → (lstm_out
     (B, T#, T, 2G), new state).  Per layer: the (B, T#, D, T, in) stack of
     forward and time-reversed rows, the input projection as one f32
-    batched matmul plus both biases, the merged recurrence over all
-    T#·D chains × B rows, and the backward direction re-reversed."""
+    batched matmul plus both biases, the recurrence, and the backward
+    direction re-reversed.  ``cfg.lstm_impl``: "auto"/"pallas_merged" run
+    the merged kernel over all T#·D chains × B rows; "pallas" runs the
+    per-target kernel once per batch row and raises where a gradient is
+    wanted, which only the merged kernels provide (the trainer's loss
+    lowers "pallas" to "auto")."""
+    layer_fn = (lstm_layer_pertarget_batched if cfg.lstm_impl == "pallas"
+                else lstm_layer_merged_batched)
     lstm_in = x1_b
     hTs, cTs = [], []
     for layer in range(cfg.n_lstm_layers):
         xs = torch.stack([lstm_in, lstm_in.flip(2)], dim=2)  # (B, T#, D, T, in)
-        proj = torch.matmul(xs, params.lstm_ih_w[:, layer])  # (B, T#, D, T, 4G)
+        proj = _mm(xs, params.lstm_ih_w[:, layer])  # (B, T#, D, T, 4G)
         bias = params.lstm_ih_b[:, layer] + params.lstm_hh_b[:, layer]  # (T#, D, 4G)
         x_proj = (proj + bias[:, :, None]).transpose(2, 3)  # (B, T#, T, D, 4G)
-        hs, hT, cT = lstm_layer_merged_batched(
+        hs, hT, cT = layer_fn(
             x_proj, params.lstm_hh_w[:, layer], state_b.h[:, :, layer], state_b.c[:, :, layer]
         )
         lstm_in = torch.cat([hs[:, :, :, 0], hs[:, :, :, 1].flip(2)], dim=-1)  # (B, T#, T, 2G)

@@ -1,6 +1,7 @@
-"""The merged BLSTM recurrence and its backward (kernels
-``csrc/lstm_merged.cu`` and ``csrc/lstm_train.cu``) with their plain
-PyTorch versions.
+"""The BLSTM recurrence kernels and their plain PyTorch versions: the
+merged recurrence and its backward (``csrc/lstm_merged.cu``,
+``csrc/lstm_train.cu``) and the per-target recurrence
+(``csrc/lstm_pertarget.cu``).
 
 Every entry has the contract of the TPU kernel it replaces
 (``umx_tpu/ops/lstm_pallas.py``): R independent chains of B rows each,
@@ -13,6 +14,10 @@ backward the dh/dc carries) in f32.
   backward, activated gates and c per step (``_make_merged_train_kernel``).
 - K5 :func:`lstm_merged_bwd_step` and K6 :func:`lstm_merged_dw`: the
   reverse-time sweep and the weight gradient (``_make_merged_bwd_kernel``).
+- K9 :func:`lstm_layer_pertarget`: the same function as K1 at one batch
+  row in the per-target layout (T#, T, D, 4G), one launch per layer with
+  each chain's W_hh and state kept on chip (``_make_kernel``, reached by
+  ``lstm_layer_pallas``).
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count per
@@ -340,13 +345,120 @@ class LSTMMergedTrain(torch.autograd.Function):
                 dc0 if need[3] else None, None)
 
 
+def _check_hh_dtype(hh_w):
+    if hh_w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hh_w must be float32 or bfloat16, got {hh_w.dtype}")
+
+
+def lstm_pertarget_plain(x_proj, whh, h0, c0):
+    """Plain PyTorch version of :func:`lstm_layer_pertarget`: one einsum
+    over all chains per timestep, bf16-rounded h against the bf16 weights
+    (exact in f32), f32 sums.
+
+    x_proj (T#, T, D, 4G) f32, whh (T#, D, G, 4G) bf16, h0/c0 (T#, D, G)
+    f32 → (hs (T#, T, D, G), hT, cT)."""
+    n_targets, T, D, G4 = x_proj.shape
+    G = G4 // 4
+    w = whh.float()
+    h, c = h0, c0
+    hs = torch.empty((n_targets, T, D, G), dtype=torch.float32, device=x_proj.device)
+    for t in range(T):
+        pre = x_proj[:, t] + torch.einsum("jdg,jdgf->jdf", _bf16(h), w)
+        i = torch.sigmoid(pre[..., :G])
+        f = torch.sigmoid(pre[..., G : 2 * G])
+        g = torch.tanh(pre[..., 2 * G : 3 * G])
+        o = torch.sigmoid(pre[..., 3 * G :])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs[:, t] = h
+    return hs, h, c
+
+
+_CUDA_ERROR_INVALID_CONFIGURATION = 9
+
+
+def lstm_layer_pertarget(x_proj, whh, h0, c0):
+    """K9: one BLSTM layer's recurrence for all targets and directions at
+    one batch row, one kernel launch for all T steps (see module docstring).
+
+    x_proj (T#, T, D, 4G) f32, whh (T#, D, G, 4G) bf16, h0/c0 (T#, D, G)
+    f32 → (hs (T#, T, D, G), hT, cT).  Each chain runs on a thread-block
+    cluster that keeps its W_hh in shared memory; the kernel picks the
+    cluster size for the device and raises where no size holds a chain's
+    W_hh.  The size that ran is left in ``lstm_layer_pertarget.form`` as
+    (blocks per cluster, clusters the device holds at once).  Increments
+    ``lstm_layer_pertarget.launches`` once per kernel launch."""
+    if x_proj.dim() != 4:
+        raise ValueError(f"expected x_proj (T#, T, D, 4G), got shape {tuple(x_proj.shape)}")
+    n_targets, T, D, G4 = x_proj.shape
+    G = G4 // 4
+    if G4 != 4 * G or tuple(whh.shape) != (n_targets, D, G, G4):
+        raise ValueError(
+            f"whh must be (T#, D, G, 4G) = {(n_targets, D, G, G4)}, got {tuple(whh.shape)}")
+    if T < 1:
+        raise ValueError("no timesteps")
+    route = _check(x_proj, [
+        ("x_proj", x_proj, x_proj.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
+        ("h0", h0, (n_targets, D, G), torch.float32), ("c0", c0, (n_targets, D, G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_pertarget_plain(x_proj, whh, h0, c0)
+    _check_whh_vectors(whh, G)
+    import ctypes
+
+    lib = _build.library()
+    dev = x_proj.device
+    hs = torch.empty((n_targets, T, D, G), dtype=torch.float32, device=dev)
+    hT = torch.empty((n_targets, D, G), dtype=torch.float32, device=dev)
+    cT = torch.empty((n_targets, D, G), dtype=torch.float32, device=dev)
+    chosen = (ctypes.c_int * 2)()
+    err = lib.umx_lstm_pertarget(
+        x_proj.data_ptr(), whh.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        hT.data_ptr(), cT.data_ptr(), T, n_targets, D, G, ctypes.addressof(chosen),
+        _stream(x_proj),
+    )
+    if err == _CUDA_ERROR_INVALID_CONFIGURATION:
+        raise RuntimeError(
+            f"umx_lstm_pertarget: no cluster of up to 16 blocks holds one chain's W_hh "
+            f"(G x 4G bf16 = {G * G4 * 2} bytes at G = {G}) in this device's shared memory")
+    _build.check(err, "umx_lstm_pertarget")
+    lstm_layer_pertarget.launches += 1
+    lstm_layer_pertarget.form = (chosen[0], chosen[1])
+    return hs, hT, cT
+
+
+lstm_layer_pertarget.launches = 0
+lstm_layer_pertarget.form = None
+
+
+def lstm_layer_pertarget_batched(x_proj, hh_w, h0, c0):
+    """The per-target layer over a batch, in the layouts of
+    :func:`lstm_layer_merged_batched`: K9 once per batch row (a batch
+    axis over the TPU kernel serialises its grid the same way).  No
+    gradient: an input that requires one raises, and training runs the
+    merged kernels."""
+    _check_hh_dtype(hh_w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, hh_w, h0, c0)):
+        raise RuntimeError('the per-target kernel (lstm_impl="pallas") has no backward: '
+                           'take a gradient with lstm_impl="auto"')
+    whh = hh_w.to(torch.bfloat16).contiguous()
+    outs = [
+        lstm_layer_pertarget(x_proj[b].float().contiguous(), whh, h0[b].float().contiguous(),
+                             c0[b].float().contiguous())
+        for b in range(x_proj.shape[0])
+    ]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def lstm_layer_merged_batched(x_proj, hh_w, h0, c0):
     """Batched merged layer, layouts as in the JAX package.
 
-    x_proj (B, T#, T, D, 4G) f32; hh_w (T#, D, G, 4G); h0/c0 (B, T#, D, G).
+    x_proj (B, T#, T, D, 4G) f32; hh_w (T#, D, G, 4G) f32 or bf16 (bf16
+    goes to the kernel as it is); h0/c0 (B, T#, D, G).
     Returns (hs (B, T#, T, D, G), hT (B, T#, D, G), cT (B, T#, D, G)).
     With grad enabled and an input that requires it, runs
     :class:`LSTMMergedTrain` (K4, and K5 + K6 in the backward); otherwise K1."""
+    _check_hh_dtype(hh_w)
     Bsz, n_targets, T, D, G4 = x_proj.shape
     G = G4 // 4
     R = n_targets * D

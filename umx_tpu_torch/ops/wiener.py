@@ -15,7 +15,7 @@ import torch
 
 from umx_tpu_torch.config import WienerConfig
 from umx_tpu_torch.ops.stft import masks_to_planes, polar_to_complex
-from umx_tpu_torch.ops.wiener_cuda import wiener_planes_from_masks
+from umx_tpu_torch.ops.wiener_cuda import wiener_planes_from_mags, wiener_planes_from_masks
 
 
 def wiener_filter(mix_stft, target_mags, cfg: WienerConfig):
@@ -58,6 +58,26 @@ def wiener_filter(mix_stft, target_mags, cfg: WienerConfig):
     return y * max_abs
 
 
+def _fused_eligible(cfg: WienerConfig) -> bool:
+    # the fused passes implement the correct PSD only, and zero iterations
+    # is the raw first estimate: both run the einsum reference by semantics
+    return cfg.psd == "correct" and cfg.iterations >= 1
+
+
+def wiener_filter_planes(xre, xim, target_mags, cfg: WienerConfig):
+    """Planes-form Wiener filter: mix planes (2, T, F) and target
+    magnitudes (S, 2, T, F) → (yre, yim), each (S, 2, T, F) float32.
+
+    ``psd="correct"`` with ``iterations >= 1`` runs the fused reduce/apply
+    passes in mode "mags" (kernels for CUDA tensors); ``psd="umxcpp"`` or
+    ``iterations=0`` runs the einsum reference on any device."""
+    if _fused_eligible(cfg):
+        return wiener_planes_from_mags(xre.float().contiguous(), xim.float().contiguous(),
+                                       target_mags.float().contiguous(), cfg)
+    y = wiener_filter(torch.complex(xre, xim), target_mags, cfg)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
 def wiener_filter_masks(xre, xim, masks, n_bins: int, cfg: WienerConfig):
     """Wiener filter fed the network-layout masks (S, T, 2*n_bins).
 
@@ -67,7 +87,7 @@ def wiener_filter_masks(xre, xim, masks, n_bins: int, cfg: WienerConfig):
     semantics — the kernels implement the correct PSD only, and zero
     iterations is the raw mask estimate.  Returns (yre, yim), each
     (S, 2, T, F) float32."""
-    if cfg.psd == "correct" and cfg.iterations >= 1:
+    if _fused_eligible(cfg):
         return wiener_planes_from_masks(xre, xim, masks.contiguous(), cfg)
     m = masks_to_planes(masks, n_bins)
     mag = torch.sqrt(xre * xre + xim * xim)

@@ -11,12 +11,14 @@ One EM iteration is two passes over (T, F) planes:
   back by max_abs.
 
 Each takes an input mode: ``"masks"`` reads the network-layout masks
-(S, T, 2F) with x (first iteration: y = mask * x), ``"y"`` reads the
-previous iteration's y planes, already divided by max_abs.  They replace
-``umx_tpu/ops/wiener_pallas.py`` rows: reduce ← ``_make_reduce_kernel_masks``
-and ``_make_reduce_kernel(from_mags=False)``; apply ←
-``_make_apply_kernel_masks`` and ``_make_apply_kernel(from_mags=False)``
-with ``_apply_common``.
+(S, T, 2F) with x (first iteration: y = mask * x), ``"mags"`` reads the
+target magnitudes (S, 2, T, F) with x (first iteration: y = mag * unit(x),
+unit(0) = 1 + 0i), ``"y"`` reads the previous iteration's y planes,
+already divided by max_abs.  They replace ``umx_tpu/ops/wiener_pallas.py``
+rows: reduce ← ``_make_reduce_kernel_masks`` and ``_make_reduce_kernel``
+(``from_mags`` False: mode y, True: mode mags); apply ←
+``_make_apply_kernel_masks`` and ``_make_apply_kernel`` (the same two
+modes) with ``_apply_common``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from umx_tpu_torch import _build
 
 N_SOURCES = 4  # the kernels are specialized to 4 sources and stereo
-_MODES = {"masks": 0, "y": 1}
+_MODES = {"masks": 0, "y": 1, "mags": 2}
 _T_CHUNK = 64  # time rows per reduce block (pass 1)
 _MAX_GRID_Y = 65535
 
@@ -39,11 +41,32 @@ def inv_max_abs(xre, xim, scale_factor: float):
 
 
 def _planes(mode, a_re, a_im):
-    """Per-channel views (x0re, x0im, x1re, x1im) of mode 'masks' x
-    planes, or per-source (yre0, yim0, yre1, yim1) of mode 'y' planes."""
-    if mode == "masks":
-        return a_re[0], a_im[0], a_re[1], a_im[1]
-    return a_re[:, 0], a_im[:, 0], a_re[:, 1], a_im[:, 1]
+    """Per-channel views (x0re, x0im, x1re, x1im) of the x planes (modes
+    'masks' and 'mags'), or per-source (yre0, yim0, yre1, yim1) of mode
+    'y' planes."""
+    if mode == "y":
+        return a_re[:, 0], a_im[:, 0], a_re[:, 1], a_im[:, 1]
+    return a_re[0], a_im[0], a_re[1], a_im[1]
+
+
+def unit_phasors(re, im):
+    """x / |x| as (re, im) planes, with |x| = 0 → 1 + 0i and rsqrt
+    elsewhere (``umx_tpu.ops.stft.unit_phasors``)."""
+    a2 = re * re + im * im
+    nz = a2 > 0.0
+    rs = torch.rsqrt(torch.where(nz, a2, torch.ones_like(a2)))
+    one, zero = torch.ones_like(re), torch.zeros_like(im)
+    return torch.where(nz, re * rs, one), torch.where(nz, im * rs, zero)
+
+
+def _y_stats(yr0, yi0, yr1, yi1):
+    """Time sums of R00, R11, Re R01, Im R01 of estimates (S, T, F)."""
+    return [
+        (yr0 * yr0 + yi0 * yi0).sum(1),
+        (yr1 * yr1 + yi1 * yi1).sum(1),
+        (yr0 * yr1 + yi0 * yi1).sum(1),
+        (yi0 * yr1 - yr0 * yi1).sum(1),
+    ]
 
 
 def wiener_reduce_plain(mode: str, a_re, a_im, masks, inv_ma):
@@ -65,14 +88,15 @@ def wiener_reduce_plain(mode: str, a_re, a_im, masks, inv_ma):
             (m01 * cr).sum(1) * sq,
             (m01 * ci).sum(1) * sq,
         ]
+    elif mode == "mags":
+        x0r, x0i, x1r, x1i = _planes(mode, a_re, a_im)
+        u0r, u0i = unit_phasors(x0r, x0i)
+        u1r, u1i = unit_phasors(x1r, x1i)
+        m0 = masks[:, 0] * inv_ma[0]  # (S, T, F); `masks` holds the magnitudes
+        m1 = masks[:, 1] * inv_ma[0]
+        rows = _y_stats(m0 * u0r, m0 * u0i, m1 * u1r, m1 * u1i)
     else:
-        yr0, yi0, yr1, yi1 = _planes(mode, a_re, a_im)  # (S, T, F)
-        rows = [
-            (yr0 * yr0 + yi0 * yi0).sum(1),
-            (yr1 * yr1 + yi1 * yi1).sum(1),
-            (yr0 * yr1 + yi0 * yi1).sum(1),
-            (yi0 * yr1 - yr0 * yi1).sum(1),
-        ]
+        rows = _y_stats(*_planes(mode, a_re, a_im))  # (S, T, F) each
     # (4, S, F) -> (S, 4, F) -> (4S, F): row 4s+k is statistic k of source s
     return torch.stack(rows).transpose(0, 1).reshape(-1, rows[0].shape[-1])
 
@@ -89,6 +113,9 @@ def wiener_apply_plain(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: f
         ax1 = xre[1] * xre[1] + xim[1] * xim[1]
         m0, m1 = m_or_yre[..., :F], m_or_yre[..., F:]
         v = 0.5 * sq * (m0 * m0 * ax0 + m1 * m1 * ax1)  # (S, T, F)
+    elif mode == "mags":
+        m0, m1 = m_or_yre[:, 0], m_or_yre[:, 1]
+        v = 0.5 * (inv * inv) * (m0 * m0 + m1 * m1)
     else:
         a, b = m_or_yre[:, 0], y_im[:, 0]
         c, d = m_or_yre[:, 1], y_im[:, 1]
@@ -151,6 +178,10 @@ def _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc=None):
         if tuple(m_or_yre.shape) != (S, T, 2 * F):
             raise ValueError(f"masks must be ({S}, {T}, {2 * F}), got {tuple(m_or_yre.shape)}")
         tensors = [xre, xim, m_or_yre, inv_ma]
+    elif mode == "mags":
+        if tuple(m_or_yre.shape) != (S, 2, T, F):
+            raise ValueError(f"mags must be ({S}, 2, {T}, {F}), got {tuple(m_or_yre.shape)}")
+        tensors = [xre, xim, m_or_yre, inv_ma]
     else:
         for y in (m_or_yre, y_im):
             if tuple(y.shape) != (S, 2, T, F):
@@ -178,12 +209,13 @@ def wiener_reduce(mode: str, xre, xim, m_or_yre, y_im, inv_ma):
     """Covariance statistics racc (4S, F) of one EM iteration.
 
     mode "masks": xre/xim (2, T, F) mix planes, m_or_yre the (S, T, 2F)
-    masks, y_im unused.  mode "y": m_or_yre/y_im the previous y planes
+    masks, y_im unused.  mode "mags": m_or_yre the (S, 2, T, F) target
+    magnitudes, y_im unused.  mode "y": m_or_yre/y_im the previous y planes
     (S, 2, T, F) divided by max_abs.  CUDA tensors launch the kernel (or
     raise); CPU tensors run :func:`wiener_reduce_plain`."""
     T, F = _check(mode, xre, xim, m_or_yre, y_im, inv_ma)
-    a_re, a_im = (xre, xim) if mode == "masks" else (m_or_yre, y_im)
-    masks = m_or_yre if mode == "masks" else None
+    a_re, a_im = (m_or_yre, y_im) if mode == "y" else (xre, xim)
+    masks = None if mode == "y" else m_or_yre
     if xre.device.type == "cpu":
         return wiener_reduce_plain(mode, a_re, a_im, masks, inv_ma)
 
@@ -201,10 +233,12 @@ def wiener_reduce(mode: str, xre, xim, m_or_yre, y_im, inv_ma):
     )
     _build.check(err, "umx_wiener_reduce")
     wiener_reduce.launches += 1
+    wiener_reduce.mode_launches[mode] += 1
     return racc
 
 
 wiener_reduce.launches = 0
+wiener_reduce.mode_launches = dict.fromkeys(_MODES, 0)  # the same launches, by input mode
 
 
 def wiener_apply(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float):
@@ -231,19 +265,20 @@ def wiener_apply(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float):
     )
     _build.check(err, "umx_wiener_apply")
     wiener_apply.launches += 1
+    wiener_apply.mode_launches[mode] += 1
     return yre, yim
 
 
 wiener_apply.launches = 0
+wiener_apply.mode_launches = dict.fromkeys(_MODES, 0)
 
 
-def wiener_planes_from_masks(xre, xim, masks, cfg):
-    """EM-refined estimates (yre, yim), each (S, 2, T, F), straight from
-    the network-layout masks (S, T, 2F): ``cfg.iterations`` (≥ 1)
-    reduce/apply pairs, psd "correct" semantics."""
+def _wiener_planes(mode, xre, xim, first, cfg):
+    """``cfg.iterations`` (≥ 1) reduce/apply pairs; the first pair reads
+    ``first`` in ``mode`` ("masks" or "mags"), later ones the previous y."""
     inv_ma = inv_max_abs(xre, xim, cfg.scale_factor)
-    racc = wiener_reduce("masks", xre, xim, masks, None, inv_ma)
-    yre, yim = wiener_apply("masks", xre, xim, masks, None, racc, inv_ma, cfg.eps)
+    racc = wiener_reduce(mode, xre, xim, first, None, inv_ma)
+    yre, yim = wiener_apply(mode, xre, xim, first, None, racc, inv_ma, cfg.eps)
     for _ in range(cfg.iterations - 1):
         # later iterations read the previous y in the working frame
         # (divided by max_abs); apply emits y * max_abs
@@ -252,3 +287,17 @@ def wiener_planes_from_masks(xre, xim, masks, cfg):
         racc = wiener_reduce("y", xre, xim, yre_s, yim_s, inv_ma)
         yre, yim = wiener_apply("y", xre, xim, yre_s, yim_s, racc, inv_ma, cfg.eps)
     return yre, yim
+
+
+def wiener_planes_from_masks(xre, xim, masks, cfg):
+    """EM-refined estimates (yre, yim), each (S, 2, T, F), straight from
+    the network-layout masks (S, T, 2F): ``cfg.iterations`` (≥ 1)
+    reduce/apply pairs, psd "correct" semantics."""
+    return _wiener_planes("masks", xre, xim, masks, cfg)
+
+
+def wiener_planes_from_mags(xre, xim, target_mags, cfg):
+    """EM-refined estimates (yre, yim), each (S, 2, T, F), from the target
+    magnitudes (S, 2, T, F) and the mix planes (2, T, F): the first
+    estimate is mag × the mix's unit phasor (``wiener_planes_pallas``)."""
+    return _wiener_planes("mags", xre, xim, target_mags, cfg)

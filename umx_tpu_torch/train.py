@@ -17,6 +17,7 @@ over a mesh) is not ported.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -153,7 +154,12 @@ def mask_loss(params: UMXParams, batch: dict, cfg: ModelConfig) -> torch.Tensor:
       x           (B, T, F_in)  cropped stacked-stereo mix magnitudes
       mix_mag     (B, 2, T, n_bins)
       target_mag  (B, T#, 2, T, n_bins)
-    The LSTM state starts at zeros for every row."""
+    The LSTM state starts at zeros for every row.  ``lstm_impl="pallas"``
+    is ignored: the per-target kernel has no backward, so training and
+    its validation always run the merged kernels (the JAX trainer lowers
+    it to its scan the same way)."""
+    if cfg.lstm_impl == "pallas":
+        cfg = dataclasses.replace(cfg, lstm_impl="auto")
     B = batch["x"].shape[0]
     st = init_lstm_state(cfg, batch["x"].device)
     state_b = LSTMState(h=st.h.expand(B, *st.h.shape), c=st.c.expand(B, *st.c.shape))

@@ -7,9 +7,13 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 
 1. build the CUDA kernels from ``umx_tpu_torch/csrc`` (one nvcc per
    source, in parallel; sm_90a);
-2. the BLSTM recurrence kernel K1 against its plain PyTorch version at
-   the UMX-L segment shape (R = 8 chains, B = 1, G = 512, T = 2584), and
-   at the UMX-L training shape (B = 16, T = 256);
+2. the BLSTM recurrence kernel K1 (one resident launch per layer)
+   against its plain PyTorch version at the UMX-L segment shape (R = 8
+   chains, B = 1, G = 512, T = 2584) and at the UMX-L training shape
+   (B = 16, T = 256), with the form that ran (blocks per chain, blocks the
+   card holds at once, chain groups, row groups); at G = 256; at 20 rows
+   per chain (beyond one launch's 16: two row groups); rows bit-equal
+   whatever runs beside them; a width above 512 refused;
 3. the Wiener-EM reduce/apply kernels against their plain versions at
    S = 4, T = 2584, F = 2049, for 1 and 2 EM iterations;
 4. the demix path: synthetic UMX-L weights (hidden 1024, seed 0) written
@@ -65,7 +69,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     PyTorch call computes the same function, that call (CUDA events,
     after warm-up), each beside its bound (bytes over 3.35 TB/s or
     operations over the peak rate, whichever is larger), the warm demix
-    times of the 100 s track, and train steps/s.
+    times of the 100 s track, and train steps/s; K1 must be faster than
+    K9 at one row per chain and K6 no slower than ``torch.bmm`` on the
+    same operands.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -106,6 +112,14 @@ WINDOW_CHUNKS = 4
 # published peaks of the H100 SXM: device memory rate, dense bf16 tensor
 # cores, float32 outside them
 HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
+# This script's figures on an H100 80GB HBM3 at 700 W before the recurrence
+# became one resident launch per layer and the weight gradient moved to the
+# tensor cores (K1 then one grid launch per step, K6 a CUDA-core GEMM);
+# printed beside the new ones
+EARLIER = {"demix_s": 0.319, "batched_demix_s": 0.294, "catalogue_demix_s": 2.706,
+           "train_steps_per_s": 6.735, "lstm_merged_ms": {1: 19.9261, 3: 24.6960, 6: 41.5486,
+                                                          16: 8.1123},
+           "lstm_merged_dw_ms": 3.9927}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -180,13 +194,68 @@ def check_lstm(dev, T, B, seed):
     torch.cuda.synchronize()
     errs = {n: max_err(a, b) for n, a, b in zip(("hs", "hT", "cT"), out_k, out_p)}
     print(f"lstm_merged vs plain (T={T}, R={R_CHAINS}, B={B}, G={G_HIDDEN}): "
-          f"max|err| hs {errs['hs']:.3g} hT {errs['hT']:.3g} cT {errs['cT']:.3g}")
+          f"max|err| hs {errs['hs']:.3g} hT {errs['hT']:.3g} cT {errs['cT']:.3g}; form (blocks per "
+          f"chain, blocks held at once, chain groups, row groups) {lstm_cuda.lstm_merged.form}")
     # Both round h to bf16 before the product; an f32 last-bit difference
     # in a sum can flip one bf16 rounding, a ~4e-3 relative step in one
     # operand, which the contractive recurrence damps: 5e-3 absolute on
     # h (|h| < 1) and c bounds that.
     require(max(errs.values()) <= 5e-3, f"lstm_merged disagrees with plain: {errs}")
     return args, max(errs.values())
+
+
+def check_lstm_resident(dev):
+    """Phase 2: what the resident form of K1 has to hold beyond the paths'
+    shapes: UMX-HQ's width, rows beyond one launch, rows that do not
+    depend on their neighbours, one wave at UMX-L, and the refusal."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    def inputs(T, B, G, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xp = torch.randn((T, R_CHAINS * B, 4 * G), generator=g, device=dev)
+        whh = (torch.randn((R_CHAINS, G, 4 * G), generator=g, device=dev) / G**0.5).to(torch.bfloat16)
+        h0 = 0.5 * torch.randn((R_CHAINS * B, G), generator=g, device=dev)
+        c0 = 0.5 * torch.randn((R_CHAINS * B, G), generator=g, device=dev)
+        return xp, whh, h0, c0, B
+
+    worst = 0.0
+    for T, B, G in ((T_SEG, 1, 256), (300, 20, G_HIDDEN)):
+        args = inputs(T, B, G, seed=T + B)
+        out_k = L.lstm_merged(*args)
+        torch.cuda.synchronize()
+        form = L.lstm_merged.form
+        err = max(max_err(a, b) for a, b in zip(out_k, L.lstm_merged_plain(*args)))
+        print(f"lstm_merged vs plain (T={T}, R={R_CHAINS}, B={B}, G={G}): max|err| {err:.3g}; "
+              f"form {form}")
+        require(err <= 5e-3, f"lstm_merged disagrees with plain at B={B}, G={G}: {err}")
+        require(form[3] == -(-B // L.RESIDENT_ROWS), f"row groups {form} at B = {B}")
+        worst = max(worst, err)
+    blocks, held, chain_groups, _ = L.lstm_merged.form
+    print(f"lstm_merged form at UMX-L: {blocks} blocks per chain, {R_CHAINS * blocks} blocks for "
+          f"{R_CHAINS} chains, {held} held at once by the card, {chain_groups} wave(s)")
+    require(chain_groups == 1, f"UMX-L's {R_CHAINS} chains do not run in one wave: {L.lstm_merged.form}")
+    # a row alone, the fleet bucket's 3 and the batched path's 6 against
+    # the same rows inside the 20 (both n-tiles and the second row group)
+    xp, whh, h0, c0, B = args
+    for picks in ([7], [2, 9, 17], [0, 1, 5, 8, 13, 19]):
+        rows = torch.tensor([r * B + b for r in range(R_CHAINS) for b in picks], device=dev)
+        sub = L.lstm_merged(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                            c0[rows].contiguous(), len(picks))
+        require(all(torch.equal(s, o) for s, o in
+                    zip(sub, (out_k[0][:, rows], out_k[1][rows], out_k[2][rows]))),
+                f"rows {picks} of lstm_merged depend on the rows beside them")
+    print("lstm_merged rows alone, in 3 and in 6 are bit-equal to the same rows among 20")
+    before = L.lstm_merged.launches
+    try:
+        L.lstm_merged(*inputs(2, 1, 520, seed=1))
+    except RuntimeError as e:
+        print(f"lstm_merged refuses G = 520: {e}")
+    else:
+        raise RuntimeError("lstm_merged took G = 520")
+    require(L.lstm_merged.launches == before, "a refused call was counted as a launch")
+    return worst
 
 
 def check_train_kernels(dev):
@@ -595,7 +664,8 @@ def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
         fleet_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
     print(f"catalogue path (demix_tracks, window_chunks {WINDOW_CHUNKS}, quantized weights): "
-          f"{fleet_s:.3f} s wall, {total / fleet_s:.1f}x realtime aggregate  [{smi}]; stats "
+          f"{fleet_s:.3f} s wall, {total / fleet_s:.1f}x realtime aggregate (earlier form "
+          f"{EARLIER['catalogue_demix_s']} s)  [{smi}]; stats "
           f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()} }; "
           f"kernel runs {launches}")
     print(f"catalogue path shapes: K1 (rows per chain, frames) {sorted(k1_shapes)}, "
@@ -632,8 +702,10 @@ def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
         float(np.max(np.abs(out - alone)) / np.max(np.abs(alone)))
         for out, alone in zip(together, (dense.demix_track(a, seed=k) for a, k in zip(bucket, seeds))))
     print(f"fleet bucket of 3 x 100 s, dense weights (K1 at 3 rows per chain) vs the tracks one "
-          f"by one (1 row): max|err|/max|stem| {bucket_err:.3g}")
-    require(bucket_err <= 2e-3, f"the bucket and the single tracks disagree: {bucket_err}")
+          f"by one (1 row): max|err|/max|stem| {bucket_err:.3g}; bit-equal: {bucket_err == 0.0}")
+    # a row of K1 has the same order of summation at every B, and so has
+    # every other product of the path
+    require(bucket_err == 0.0, f"the bucket and the single tracks are not bit-equal: {bucket_err}")
     # and the bucket's first track against the port's CPU path (plain versions)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
@@ -1175,7 +1247,8 @@ def main() -> int:
     mode_args, mode_errs = check_wiener_modes(dev, *wiener_args[:3])
 
     lstm_args, lstm_err = check_lstm(dev, T_SEG, 1, seed=0)
-    lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # batches above 12 rows
+    lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # two n-tiles of rows
+    lstm_err = max(lstm_err, check_lstm_resident(dev))
     ola_args, ola_err = check_ola(dev)
     istft8_args, istft_err = check_istft_ct(dev, [(ISTFT_ROWS, T_SEG), (3, 37)], seed=4)
 
@@ -1195,7 +1268,7 @@ def main() -> int:
         demix_s = time.perf_counter() - t0
         del sep
         print(f"demix {TRACK_SECS:.0f} s track (warm, UMX-L, shifts 1): {demix_s:.3f} s, "
-              f"{TRACK_SECS / demix_s:.1f}x realtime  [{smi}]")
+              f"{TRACK_SECS / demix_s:.1f}x realtime (earlier form {EARLIER['demix_s']} s)  [{smi}]")
 
         batched_launches, k1_rows, bsep, k1_shapes, k8_shapes = batched_path(
             tmp, model, wav, mix, counters, smi)
@@ -1206,7 +1279,8 @@ def main() -> int:
         batched_s = time.perf_counter() - t0
         print(f"demix {TRACK_SECS:.0f} s track (warm, UMX-L, non-streaming chunk groups, "
               f"2 batched shifts, ct2 iSTFT, overlap-add kernel): {batched_s:.3f} s, "
-              f"{TRACK_SECS / batched_s:.1f}x realtime  [{smi}]")
+              f"{TRACK_SECS / batched_s:.1f}x realtime (earlier form {EARLIER['batched_demix_s']} s)"
+              f"  [{smi}]")
         anchors = planner_anchors(bsep, mix, smi)
         del bsep
         batched_err = batched_gpu_vs_cpu(model, mix)
@@ -1238,7 +1312,7 @@ def main() -> int:
         train_args, train_errs = check_train_kernels(dev)
         train_launches, steps_per_s = training_path(tmp, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
-          f"{steps_per_s:.3f}  [{smi}]")
+          f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']})  [{smi}]")
 
     # Phase 12: kernel, plain and library times beside each kernel's bound:
     # K1-K3 and K9 at the UMX-L segment shape, the training kernels (and K1
@@ -1371,13 +1445,25 @@ def main() -> int:
           f"device memory would take {step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us, and the layer's "
           f"bound ignores that the {T_SEG} steps depend on each other")
     print(f"lstm_merged at the training shape (T={T_TRAIN}, B={B_TRAIN}): kernel "
-          f"{k1_train[0]:.4f} ms, plain {k1_train[1]:.4f} ms, bound "
+          f"{k1_train[0]:.4f} ms (earlier form {EARLIER['lstm_merged_ms'][B_TRAIN]}), plain "
+          f"{k1_train[1]:.4f} ms, bound "
           f"{lstm_bound(T_TRAIN, rows_t, G_HIDDEN, lstm16_args[:4])[0]:.4f} ms  [{smi}]")
+    k1_ms, k9_now = times["lstm_merged"][0], times["lstm_layer_pertarget"][0]
+    print(f"lstm_merged at one row per chain {k1_ms:.4f} ms (earlier form "
+          f"{EARLIER['lstm_merged_ms'][1]}) against lstm_layer_pertarget {k9_now:.4f} ms; "
+          f"lstm_merged_dw {times['lstm_merged_dw'][0]:.4f} ms (earlier form "
+          f"{EARLIER['lstm_merged_dw_ms']}) against torch.bmm f32 "
+          f"{library['lstm_merged_dw']:.4f} ms  [{smi}]")
+    require(k1_ms < k9_now, f"lstm_merged ({k1_ms} ms) is not faster than lstm_layer_pertarget "
+            f"({k9_now} ms) at one row per chain")
+    require(times["lstm_merged_dw"][0] <= library["lstm_merged_dw"],
+            f"lstm_merged_dw ({times['lstm_merged_dw'][0]} ms) is slower than torch.bmm "
+            f"({library['lstm_merged_dw']} ms)")
     print(f"ola_normalized at M=16 (two shift rows): kernel {ola16[0]:.4f} ms, plain "
           f"{ola16[1]:.4f} ms  [{smi}]")
     for (B, T), (k, p) in k1_path.items():
-        print(f"lstm_merged at a path's shape (T={T}, B={B}): kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms, bound "
+        print(f"lstm_merged at a path's shape (T={T}, B={B}): kernel {k:.4f} ms (earlier form "
+              f"{EARLIER['lstm_merged_ms'].get(B)}), plain {p:.4f} ms, bound "
               f"{lstm_bound(T, R_CHAINS * B, G_HIDDEN, path_lstm_args[B, T][:4])[0]:.4f} ms  [{smi}]")
     print(f"istft_ct2 timed at the batched path's shape (rows={k8_shape[0]}, T={k8_shape[1]})")
 
@@ -1432,6 +1518,7 @@ def main() -> int:
                       "catalogue_stats": cat_stats, "catalogue_anchors": cat_anchors,
                       "catalogue_k1_shapes": cat_k1_shapes,
                       "catalogue_bucket_rel_err": bucket_err,
+                      "lstm_merged_form": lstm_cuda.lstm_merged.form,
                       "pertarget_form": k9_form, "pertarget_form_g256": k9_form_hq,
                       "pertarget_ms": [k9_ms, k9_ms_hq],
                       "lstm_merged_ms_at_k9_shapes": [k9_k1_ms, k9_k1_ms_hq],

@@ -60,13 +60,58 @@ def test_lstm_kernel_takes_b64_and_refuses_what_it_cannot_hold(dev):
     out_p = lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, 64)
     for k, p in zip(out_k, out_p):
         assert (k - p).abs().max().item() <= 5e-3
+    # the resident kernel takes rows beyond one launch's 16 as further row
+    # groups; the step kernel with residuals is bound by its shared memory
     xp, whh, h0, c0 = _lstm_inputs(dev, 2, 1, 100, 512, seed=2)
-    before = lstm_cuda.lstm_merged.launches
-    with pytest.raises(ValueError, match="at most B = 81 rows"):
-        lstm_cuda.lstm_merged(xp, whh, h0, c0, 100)
+    out_k = lstm_cuda.lstm_merged(xp, whh, h0, c0, 100)
+    assert lstm_cuda.lstm_merged.form[3] == 7
+    out_p = lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, 100)
+    for k, p in zip(out_k, out_p):
+        assert (k - p).abs().max().item() <= 5e-3
+    before = (lstm_cuda.lstm_merged.launches, lstm_cuda.lstm_merged_train_fwd.launches)
     with pytest.raises(ValueError, match="at most B = 81 rows"):
         lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, 100)
-    assert lstm_cuda.lstm_merged.launches == before
+    # a width whose W_hh slice does not fit a warp's registers is refused
+    wide = _lstm_inputs(dev, 2, 1, 1, 520, seed=3)
+    with pytest.raises(RuntimeError, match="G <= 512"):
+        lstm_cuda.lstm_merged(*wide, 1)
+    assert (lstm_cuda.lstm_merged.launches, lstm_cuda.lstm_merged_train_fwd.launches) == before
+
+
+@pytest.mark.parametrize("G", [256, 512])
+@pytest.mark.parametrize("T, B", [(1, 1), (37, 3), (130, 6), (29, 16), (11, 17), (7, 40)])
+def test_resident_lstm_kernel_at_ragged_lengths_and_row_groups(dev, G, T, B):
+    """K1 at both UMX widths, ragged T, the rows the paths give it (1, 3,
+    6, 16) and rows beyond one launch (17: a second group of one row; 40:
+    three groups)."""
+    xp, whh, h0, c0 = _lstm_inputs(dev, T, 8, B, G, seed=T + B)
+    out_k = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    torch.cuda.synchronize()
+    blocks, capacity, chain_groups, row_groups = lstm_cuda.lstm_merged.form
+    assert blocks == G // 32 and row_groups == -(-B // 16)
+    assert chain_groups == -(-8 // (capacity // blocks))
+    out_p = lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, B)
+    for k, p in zip(out_k, out_p):
+        assert torch.isfinite(k).all()
+        assert (k - p).abs().max().item() <= 5e-3
+
+
+@pytest.mark.parametrize("G", [40, 512])
+def test_resident_lstm_rows_do_not_depend_on_the_batch(dev, G):
+    """A row's result is bit-equal whatever rows run beside it: alone, in
+    a group of 3 or 6, in the second n-tile of 16, or in a later row group
+    of 20 (one mma column per row, the same order of summation)."""
+    T, R, B = 23, 8, 20
+    xp, whh, h0, c0 = _lstm_inputs(dev, T, R, B, G, seed=G)
+    hs, hT, cT = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    for picks in ([0], [11], [19], [2, 9, 17], [0, 1, 5, 8, 13, 19], list(range(4, 20))):
+        rows = torch.tensor([r * B + b for r in range(R) for b in picks], device=dev)
+        sub = lstm_cuda.lstm_merged(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                                    c0[rows].contiguous(), len(picks))
+        assert torch.equal(sub[0], hs[:, rows]), picks
+        assert torch.equal(sub[1], hT[rows]) and torch.equal(sub[2], cT[rows]), picks
+    again = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    assert all(torch.equal(a, b) for a, b in zip(again, (hs, hT, cT)))  # bit-stable
 
 
 def _train_case(dev, T, R, B, G, seed):
@@ -118,6 +163,30 @@ def test_weight_gradient_is_bit_stable(dev):
     dxp = torch.randn((64, 8 * 16, 2048), device=dev)
     assert torch.equal(lstm_cuda.lstm_merged_dw(hs, h0, dxp, 16),
                        lstm_cuda.lstm_merged_dw(hs, h0, dxp, 16))
+
+
+@pytest.mark.parametrize(
+    "T, R, B, G",
+    [(1, 1, 1, 8), (3, 2, 5, 40), (37, 3, 3, 72), (33, 1, 7, 136), (5, 2, 1, 130), (64, 8, 16, 512)],
+)
+def test_weight_gradient_kernel_at_ragged_shapes(dev, T, R, B, G):
+    """K6 alone on the tensor cores: G and 4G that are no multiples of its
+    128 x 128 tile (and one G that is no multiple of 4, which takes the
+    scalar loads), T*B that is no multiple of its stage of 32; identical
+    bf16 operands as the plain version, f32 sums in another order; and the
+    same bits from run to run."""
+    g = torch.Generator(device=dev).manual_seed(T * G + B)
+    hs = torch.randn((T, R * B, G), generator=g, device=dev)
+    h0 = torch.randn((R * B, G), generator=g, device=dev)
+    dxp = torch.randn((T, R * B, 4 * G), generator=g, device=dev)
+    before = lstm_cuda.lstm_merged_dw.launches
+    dw = lstm_cuda.lstm_merged_dw(hs, h0, dxp, B)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_merged_dw.launches == before + 1
+    ref = lstm_cuda.lstm_merged_dw_plain(hs, h0, dxp, B)
+    assert dw.shape == ref.shape == (R, G, 4 * G)
+    assert _rel(dw, ref) <= 1e-5
+    assert torch.equal(dw, lstm_cuda.lstm_merged_dw(hs, h0, dxp, B))
 
 
 def test_training_loss_and_grads_on_the_card_match_cpu(dev):

@@ -92,3 +92,40 @@ def test_params_bytes_exact_when_given():
 
 def test_device_capacity_on_cpu_is_physical_ram():
     assert memory.device_hbm_bytes("cpu") > 2**30
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_device_capacity_defaults_to_the_card_and_raises_without_one(device, monkeypatch):
+    """No silent answer with the host's RAM: the default is the GPU, and a
+    machine without one raises unless the CPU is asked for."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        memory.device_hbm_bytes(device)
+    _, tcfg = _cfgs(hidden=64)
+    with pytest.raises(RuntimeError, match="is_available"):
+        memory.suggest_max_batch(tcfg, 100.0, device=device)
+    assert memory.suggest_max_batch(tcfg, 100.0, device="cpu") >= 1
+
+
+def test_device_capacity_of_a_card_is_its_total_memory(monkeypatch):
+    import torch
+
+    asked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: asked.append(dev) or (1 * 2**30, 80 * 2**30))
+    assert memory.device_hbm_bytes() == 80 * 2**30
+    assert memory.device_hbm_bytes("cuda:1") == 80 * 2**30
+    assert [d.type for d in asked] == ["cuda", "cuda"] and asked[1].index == 1
+
+
+def test_peak_counts_the_recurrence_kernels_exchange_buffer():
+    """UMX-L: 8 chains x 2 step parities x 16 rows x 256 words of 8 bytes."""
+    _, tcfg = _cfgs()
+    assert memory._lstm_exchange_bytes(tcfg) == 512 * 1024
+    est = memory.fused_track_hbm_bytes(tcfg, 1, 100.0)
+    parts = est["ys"] + est["stems"] + est["audio"] + int(
+        est["seg_transients"] * memory._TRANSIENT_FACTOR["dense"])
+    assert est["boundary"] == parts + 512 * 1024

@@ -216,8 +216,9 @@ def test_segment_forward_rows_are_independent(track, params):
 
 def test_resolve_batched_width():
     _, tcfg = _cfgs(streaming=False, chunk_batch=0)
-    assert fleet.resolve_batched_width(tcfg, 5, 44100, 33075, batch=2) == 5
-    assert fleet.resolve_batched_width(tcfg, 40, 44100, 33075, batch=4) == 4  # 16-row cap
+    assert fleet.resolve_batched_width(tcfg, 5, 44100, 33075, batch=2, device="cpu") == 5
+    # the 16-row cap
+    assert fleet.resolve_batched_width(tcfg, 40, 44100, 33075, batch=4, device="cpu") == 4
     fixed = dataclasses.replace(tcfg, segment=dataclasses.replace(tcfg.segment, chunk_batch=3))
     assert fleet.resolve_batched_width(fixed, 40, 44100, 33075, batch=4) == 3
     assert fleet.resolve_batched_width(fixed, 2, 44100, 33075) == 2

@@ -33,11 +33,13 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # per-kernel registers/spills into the build log
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # entry point -> argtypes (see the extern "C" functions in csrc/)
 _SIGNATURES = {
-    # xp, whh, h0, c, hs, hT, T, R, B, G, stream
-    "umx_lstm_merged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, whh, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, tag0, stream
+    "umx_lstm_merged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _P],
+    # blocks (out)
+    "umx_lstm_merged_capacity": [_P],
     # xp, whh, h0, c, hs, hT, gates, cs, T, R, B, G, stream
     "umx_lstm_merged_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, dgbuf, T, R, B, G, stream

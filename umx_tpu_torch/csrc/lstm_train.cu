@@ -38,23 +38,32 @@
 // floats hold the block's dh_carry between the two phases.
 //
 // K6, the weight gradient.  What bounds it: 2 * R*G*4G*T*B flops (69 GFLOP
-// per layer at UMX-L training, T*B = 4096) over operands the step already
-// wrote to device memory, so it is compute-bound.  The TPU runs this
-// product on its matrix unit inside the backward kernel; here it is one
-// deterministic shared-memory-tiled CUDA-core GEMM per chain after the
-// sweep: a block owns a 128 x 128 tile of dW[r], loops over all T*B
-// (t, b) pairs in steps of 8, stages bf16-rounded h_{t-1} and dg_t in
-// shared memory and accumulates an 8 x 8 register tile per thread.  Each
-// output has one owner and a fixed order: no atomics, bit-stable from run
-// to run.  Tensor cores (mma/wgmma on the bf16 operands) are later work.
+// per layer at UMX-L training, T*B = 4096) on bf16-rounded operands, which
+// the tensor cores take exactly, over 335 MB of f32 operands that the
+// sweep left in device memory: at the card's peaks 0.07 ms of products and
+// 0.11 ms of bytes, so the design has to keep both busy.  The TPU runs
+// this product on its matrix unit inside the backward kernel; here it is
+// one tensor-core GEMM per chain after the sweep.  Both operands are
+// stored with the contraction index n = (t, b) as the slow one (hs is
+// (n, m), dxp is (n, c)), which is the transposed form for mma.sync:
+// a block stages 32 (t, b) pairs of a 128 x 128 tile of dW[r] at a time,
+// 16-byte f32 loads rounded with __float22bfloat162_rn on their way into
+// shared memory (rows padded to 272 bytes), and ldmatrix.trans hands the
+// fragments to mma.sync.m16n8k16 with f32 accumulators, 8 warps of 64 x 32
+// each.  The next stage's global loads are in flight in registers while
+// this stage is multiplied, and two blocks share an SM, so one block's
+// loads overlap the other's products.  h_{t-1} of step 0 is h0.  Each
+// output has one owner and a fixed order of summation over n: no split, no
+// atomics, bit-stable from run to run.  Ragged G, 4G and T*B are masked
+// with zeros on the way in and on the store.
 //
-// Measured on an H100 SXM at 700 W at the UMX-L training shape (T = 256,
-// R = 8, B = 16, G = 512): K5 11.6 ms per layer (45 us per step), K6
-// 4.0 ms (17 TFLOP/s; cuBLAS's f32 GEMM on the same operands, the plain
-// version, takes 2.1 ms warm).
+// K5 measured on an H100 SXM at 700 W at the UMX-L training shape (T = 256,
+// R = 8, B = 16, G = 512): 11.6 ms per layer (45 us per step).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -190,88 +199,165 @@ __global__ void lstm_bwd_step_kernel(const __nv_bfloat16* __restrict__ dg_in,  /
   }
 }
 
-constexpr int TM = 128;  // dW rows (hidden units) per K6 block
-constexpr int TN = 128;  // dW columns (gate columns) per K6 block
-constexpr int TK = 8;    // (t, b) pairs per shared-memory stage
+constexpr int DW_BM = 128;      // dW rows (hidden units) per K6 block
+constexpr int DW_BN = 128;      // dW columns (gate columns) per K6 block
+constexpr int DW_BK = 32;       // (t, b) pairs per shared-memory stage
+constexpr int DW_LD = DW_BM + 8;  // bf16 per staged row: 272 bytes, conflict-free ldmatrix
 constexpr int DW_THREADS = 256;
+constexpr int DW_F4 = DW_BK * DW_BM / 4 / DW_THREADS;  // float4 loads per thread and operand
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// grid = (ceil(4G/TN), ceil(G/TM), R); 16 x 16 threads, each owning rows
-// {ty*4 + i, 64 + ty*4 + i} x columns {tx*4 + j, 64 + tx*4 + j} of the tile.
-__global__ void __launch_bounds__(DW_THREADS)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four neighbouring f32 of a row of `width`, zeros beyond it; one 16-byte
+// load where the row's alignment allows.
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int i, int width,
+                                        bool vec) {
+  if (vec && i + 3 < width) return __ldg(reinterpret_cast<const float4*>(row + i));
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < width) v.x = __ldg(row + i);
+  if (i + 1 < width) v.y = __ldg(row + i + 1);
+  if (i + 2 < width) v.z = __ldg(row + i + 2);
+  if (i + 3 < width) v.w = __ldg(row + i + 3);
+  return v;
+}
+
+__device__ __forceinline__ uint2 round4(const float4& v) {
+  const __nv_bfloat162 lo = __float22bfloat162_rn(make_float2(v.x, v.y));
+  const __nv_bfloat162 hi = __float22bfloat162_rn(make_float2(v.z, v.w));
+  uint2 out;
+  out.x = *reinterpret_cast<const uint32_t*>(&lo);
+  out.y = *reinterpret_cast<const uint32_t*>(&hi);
+  return out;
+}
+
+// grid = (ceil(4G/128), ceil(G/128), R); 8 warps as 2 (rows) x 4 (columns),
+// each owning 64 x 32 of the tile as 4 x 4 mma tiles.
+__global__ void __launch_bounds__(DW_THREADS, 2)
 lstm_dw_kernel(const float* __restrict__ hs,    // (T, RB, G)
                const float* __restrict__ h0,    // (RB, G)
                const float* __restrict__ dxp,   // (T, RB, 4G)
                float* __restrict__ dw,          // (R, G, 4G)
                int T, int R, int B, int G) {
-  __shared__ __align__(16) float As[TK][TM];  // bf16(h_{t-1}), k-major
-  __shared__ __align__(16) float Bs[TK][TN];  // bf16(dg_t), k-major
+  __shared__ __align__(16) __nv_bfloat16 As[2][DW_BK][DW_LD];  // bf16(h_{t-1}), n-major
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][DW_BK][DW_LD];  // bf16(dg_t), n-major
   const int r = blockIdx.z;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
+  const int m0 = blockIdx.y * DW_BM;
+  const int n0 = blockIdx.x * DW_BN;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 2) * 64;
+  const int wn = (warp & 3) * 32;
   const int G4 = 4 * G;
   const int RB = R * B;
-  const long long N = (long long)T * B;
+  const int N = T * B;
+  const bool vec = (G & 3) == 0;  // rows of hs and dxp are 16-byte aligned
 
-  float acc[8][8];
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (long long k0 = 0; k0 < N; k0 += TK) {
-    for (int e = tid; e < TK * TM; e += DW_THREADS) {
-      const int kk = e / TM;
-      const int mm = e % TM;
-      const long long n = k0 + kk;
-      const int m = m0 + mm;
-      float a = 0.0f;
-      float b = 0.0f;
+  // A stage goes in two halves of 16 pairs; of each half this thread
+  // brings pair kk = e / 32, columns 4 * (e % 32), e = tid + 256 * (2 * half + i)
+  float4 ra[DW_F4 / 2], rb[DW_F4 / 2];
+  auto fetch = [&](int k0, int half) {
+#pragma unroll
+    for (int i = 0; i < DW_F4 / 2; ++i) {
+      const int e = tid + (2 * half + i) * DW_THREADS;
+      const int n = k0 + e / 32;
+      const int q = (e % 32) * 4;
+      ra[i] = rb[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (n < N) {
-        const int t = (int)(n / B);
-        const size_t row = (size_t)r * B + (size_t)(n % B);
-        if (m < G) a = t == 0 ? h0[row * G + m] : hs[((size_t)(t - 1) * RB + row) * G + m];
-        const int c = n0 + mm;  // TN == TM
-        if (c < G4) b = dxp[((size_t)t * RB + row) * G4 + c];
+        const int t = n / B;
+        const size_t row = (size_t)r * B + (size_t)(n - t * B);
+        const float* a = t == 0 ? h0 + row * G : hs + ((size_t)(t - 1) * RB + row) * G;
+        ra[i] = load4(a, m0 + q, G, vec);
+        rb[i] = load4(dxp + ((size_t)t * RB + row) * G4, n0 + q, G4, vec);
       }
-      As[kk][mm] = bf16_round(a);
-      Bs[kk][mm] = bf16_round(b);
     }
-    __syncthreads();
+  };
+  auto stage = [&](int buf, int half) {
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+    for (int i = 0; i < DW_F4 / 2; ++i) {
+      const int e = tid + (2 * half + i) * DW_THREADS;
+      *reinterpret_cast<uint2*>(&As[buf][e / 32][(e % 32) * 4]) = round4(ra[i]);
+      *reinterpret_cast<uint2*>(&Bs[buf][e / 32][(e % 32) * 4]) = round4(rb[i]);
+    }
+  };
+
+  // ldmatrix row addresses: lane l gives row l % 8 of 8 x 8 matrix l / 8
+  const int lrow = lane & 7;
+  const int lmat = lane >> 3;
+  const int a_k = (lmat >> 1) * 8 + lrow;  // A: matrices (k lo, m lo), (k lo, m hi), (k hi, ...)
+  const int a_m = (lmat & 1) * 8;
+  const int b_k = (lmat & 1) * 8 + lrow;   // B: (k lo, n lo), (k hi, n lo), (k lo, n hi), ...
+  const int b_n = (lmat >> 1) * 8;
+
+  const int stages = (N + DW_BK - 1) / DW_BK;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+  for (int half = 0; half < 2; ++half) {
+    fetch(0, half);
+    stage(0, half);
+  }
+  __syncthreads();
+  for (int s = 0; s < stages; ++s) {
+    const int buf = s & 1;
+    const bool more = s + 1 < stages;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
+    for (int half = 0; half < 2; ++half) {
+      // the next stage's loads fly while this half is multiplied
+      if (more) fetch((s + 1) * DW_BK, half);
+      const int kk = half * 16;
+      uint32_t af[4][4], bfr[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4_trans(af[i], &As[buf][kk + a_k][wm + i * 16 + a_m]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldmatrix_x4_trans(bfr[j], &Bs[buf][kk + b_k][wn + j * 16 + b_n]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2], bfr[j >> 1][(j & 1) * 2 + 1]);
+      if (more) stage(buf ^ 1, half);
     }
     __syncthreads();
   }
 
+  const int g = lane >> 2;
+  const int tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= G) continue;
-    float* out = dw + ((size_t)r * G + m) * G4;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c < G4) out[c] = acc[i][j];
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + i * 16 + g + half * 8;
+      if (m >= G) continue;
+      float* out = dw + ((size_t)r * G + m) * G4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + wn + j * 8 + 2 * tq;
+        if (c < G4) out[c] = acc[i][j][half * 2];
+        if (c + 1 < G4) out[c + 1] = acc[i][j][half * 2 + 1];
+      }
     }
   }
 }
@@ -324,7 +410,7 @@ extern "C" int umx_lstm_bwd(const float* gates, const float* cs, const float* c0
 extern "C" int umx_lstm_dw(const float* hs, const float* h0, const float* dxp, float* dw,
                            int T, int R, int B, int G, void* stream) {
   if (B < 1 || T < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((4 * G + TN - 1) / TN, (G + TM - 1) / TM, R);
+  const dim3 grid((4 * G + DW_BN - 1) / DW_BN, (G + DW_BM - 1) / DW_BM, R);
   lstm_dw_kernel<<<grid, DW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(hs, h0, dxp, dw,
                                                                             T, R, B, G);
   return (int)cudaGetLastError();

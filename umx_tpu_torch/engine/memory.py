@@ -11,8 +11,9 @@ between the last segment group and the overlap-add, the stacked weighted
 chunk outputs, the stems, the padded audio and one group of segment
 transients are live together.  How the port differs:
 
-* capacity is ``torch.cuda.mem_get_info(device)[1]`` on a GPU and the
-  physical RAM on the CPU;
+* capacity is ``torch.cuda.mem_get_info(device)[1]`` on a GPU (the
+  default device; it raises without one) and the physical RAM when the
+  CPU is asked for;
 * the stacked chunk outputs are always float32 (the port keeps stems in
   float32);
 * parameter bytes are exact when the parameters are given, quantized
@@ -33,6 +34,7 @@ from dataclasses import fields
 import torch
 
 from umx_tpu_torch.config import EngineConfig
+from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words
 
 # Slack on the segment-transient share of the boundary model, per iSTFT
 # algorithm.  The port's segment forward keeps more per row alive than the
@@ -53,11 +55,14 @@ _F32 = 4
 
 def device_hbm_bytes(device=None) -> int:
     """Memory capacity of ``device``: total device memory of a GPU, the
-    physical RAM for the CPU (default: the current GPU if there is one)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    physical RAM for the CPU.  The default is the current GPU; without a
+    usable one that raises, and the CPU's capacity is given only when the
+    CPU is asked for."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() is False")
         return int(torch.cuda.mem_get_info(dev)[1])
     return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
 
@@ -126,6 +131,13 @@ def _dequant_transient_bytes(params) -> int:
                 if hasattr(t, "planes")), default=0)
 
 
+def _lstm_exchange_bytes(cfg: EngineConfig) -> int:
+    """The recurrence kernel's exchange buffer (``ops/lstm_cuda.py``): one
+    per layer call, whatever the rows."""
+    m = cfg.model
+    return 8 * resident_exchange_words(m.n_targets * 2, m.lstm_hidden)
+
+
 def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params) -> dict[str, int]:
     ys, ola, stems, audio = terms["ys"], terms["ola"], terms["stems"], terms["audio"]
     params_b = params_hbm_bytes(cfg, params)
@@ -133,7 +145,7 @@ def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params) -> dict[s
     # the last group's transients beside the track buffers; with a factor
     # above 1 this bounds the phase before the stems exist as well
     boundary = (ys + stems + audio + int(seg_transients * factor)
-                + _dequant_transient_bytes(params))
+                + _dequant_transient_bytes(params) + _lstm_exchange_bytes(cfg))
     ola_phase = ys + ola + stems
     peak = max(boundary, ola_phase) if cfg.ola_impl == "xla" else boundary
     return {

@@ -9,7 +9,8 @@ rows chain-major (``row = r*B + b``), W_hh in bf16, products of bf16
 operands accumulated in f32, gate math and the c/h state (and in the
 backward the dh/dc carries) in f32.
 
-- K1 :func:`lstm_merged`: the inference recurrence (``_make_merged_kernel``).
+- K1 :func:`lstm_merged`: the inference recurrence (``_make_merged_kernel``),
+  one launch per layer with W_hh resident in registers.
 - K4 :func:`lstm_merged_train_fwd`: the same plus the residuals of the
   backward, activated gates and c per step (``_make_merged_train_kernel``).
 - K5 :func:`lstm_merged_bwd_step` and K6 :func:`lstm_merged_dw`: the
@@ -28,6 +29,8 @@ the inference kernel for primal-only evaluation.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -174,7 +177,7 @@ def _check_whh_vectors(whh, G: int):
 
 
 def _check_step_smem(lib, B: int, G: int, device):
-    """K1/K4 keep h_{t-1} (B x G) in shared memory: refuse a batch the
+    """K4 keeps h_{t-1} (B x G) in shared memory: refuse a batch the
     device's per-block limit cannot hold, before any launch."""
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if lib.umx_lstm_step_smem(B, G) > limit:
@@ -189,12 +192,75 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# The resident recurrence (K1, csrc/lstm_merged.cu): a block of 8 warps
+# owns 32 hidden units of one chain, a launch takes up to 16 rows per chain
+# (two mma n-tiles), and a warp's W_hh slice must fit 128 registers a thread.
+RESIDENT_UNITS = 32
+RESIDENT_ROWS = 16
+RESIDENT_G_MAX = 512
+
+
+def resident_blocks_per_chain(G: int) -> int:
+    """Blocks that share one chain in K1: one per 32 hidden units."""
+    return -(-G // RESIDENT_UNITS)
+
+
+def resident_row_groups(B: int) -> list[tuple[int, int]]:
+    """(first row, rows) of K1's launches over B rows per chain: groups of
+    16, the last one ragged.  Rows are independent, so a row's result does
+    not depend on its group."""
+    return [(b0, min(RESIDENT_ROWS, B - b0)) for b0 in range(0, B, RESIDENT_ROWS)]
+
+
+def resident_chain_groups(R: int, G: int, capacity: int) -> list[tuple[int, int]]:
+    """(first chain, chains) of K1's launches over R chains on a device
+    that holds ``capacity`` of its blocks at once: a launch's blocks must
+    all be resident, because a chain's blocks wait for each other.  Raises
+    where not even one chain fits."""
+    per = capacity // resident_blocks_per_chain(G)
+    if per < 1:
+        raise RuntimeError(
+            f"the resident recurrence needs {resident_blocks_per_chain(G)} co-resident blocks "
+            f"per chain at G = {G}; this device holds {capacity}")
+    return [(r0, min(per, R - r0)) for r0 in range(0, R, per)]
+
+
+def resident_exchange_words(R: int, G: int) -> int:
+    """64-bit words of K1's exchange buffer: per chain two steps of 16 rows
+    of G/2 words (two bf16 values of h and the step's tag each)."""
+    return R * 2 * RESIDENT_ROWS * (G // 2)
+
+
+_CUDA_ERROR_INVALID_CONFIGURATION = 9
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_capacity(index: int) -> int:
+    """Blocks of K1 that CUDA device ``index`` holds at once: a property
+    of the device and the built kernel, asked once."""
+    import ctypes
+
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().umx_lstm_merged_capacity(ctypes.addressof(blocks))
+    if err == _CUDA_ERROR_INVALID_CONFIGURATION:
+        raise RuntimeError("umx_lstm_merged: this device has no cooperative launch, which "
+                           "the resident recurrence needs")
+    _build.check(err, "umx_lstm_merged_capacity")
+    return blocks.value
+
+
 def lstm_merged(xp, whh, h0, c0, B: int):
     """K1: one BLSTM layer's recurrence for all chains (see module docstring).
 
     xp (T, R*B, 4G) f32, whh (R, G, 4G) bf16, h0/c0 (R*B, G) f32 →
-    (hs (T, R*B, G), hT, cT).  Increments ``lstm_merged.launches`` once per
-    kernel run (one run launches one step grid per timestep)."""
+    (hs (T, R*B, G), hT, cT).  One kernel launch runs all T steps of all
+    chains and up to 16 rows per chain with W_hh resident in registers;
+    further rows (and chains beyond what the device holds at once) are
+    further launches of the same kernel.  G above 512 raises.  The form
+    that ran is left in ``lstm_merged.form`` as (blocks per chain, blocks
+    the device holds at once, chain groups, row groups).  Increments
+    ``lstm_merged.launches`` once per layer."""
     T, R, G = _dims(xp, whh, B)
     RB = R * B
     route = _check(xp, [
@@ -204,21 +270,35 @@ def lstm_merged(xp, whh, h0, c0, B: int):
     if route == "cpu":
         return lstm_merged_plain(xp, whh, h0, c0, B)
     _check_whh_vectors(whh, G)
+    if G > RESIDENT_G_MAX:
+        raise RuntimeError(
+            f"umx_lstm_merged: a warp's slice of W_hh (16 x G bf16) must fit 128 registers a "
+            f"thread, G <= {RESIDENT_G_MAX}; got G = {G}")
     lib = _build.library()
-    _check_step_smem(lib, B, G, xp.device)
+    capacity = _resident_capacity(xp.device.index)
+    chains = resident_chain_groups(R, G, capacity)
+    rows = resident_row_groups(B)
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
     hT = torch.empty((RB, G), dtype=torch.float32, device=xp.device)
     cT = c0.clone()  # the kernel updates c in place
-    err = lib.umx_lstm_merged(
-        xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(),
-        hs.data_ptr(), hT.data_ptr(), T, R, B, G, _stream(xp),
-    )
-    _build.check(err, "umx_lstm_merged")
+    hx = torch.zeros(resident_exchange_words(R, G), dtype=torch.int64, device=xp.device)
+    launched = 0
+    for r0, nr in chains:
+        for b0, nb in rows:
+            err = lib.umx_lstm_merged(
+                xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
+                hT.data_ptr(), hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, launched * T,
+                _stream(xp),
+            )
+            _build.check(err, "umx_lstm_merged")
+            launched += 1
     lstm_merged.launches += 1
+    lstm_merged.form = (resident_blocks_per_chain(G), capacity, len(chains), len(rows))
     return hs, hT, cT
 
 
 lstm_merged.launches = 0
+lstm_merged.form = None
 
 
 def lstm_merged_train_fwd(xp, whh, h0, c0, B: int):
@@ -372,9 +452,6 @@ def lstm_pertarget_plain(x_proj, whh, h0, c0):
         h = o * torch.tanh(c)
         hs[:, t] = h
     return hs, h, c
-
-
-_CUDA_ERROR_INVALID_CONFIGURATION = 9
 
 
 def lstm_layer_pertarget(x_proj, whh, h0, c0):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the demix runs of the PyTorch/CUDA port spend the card's time.
+"""Where the demix runs and a training step of the PyTorch/CUDA port spend
+the card's time.
 
     python3 chip_profile.py
 
@@ -10,8 +11,10 @@ each of the streaming demix of the 100 s track (``Separator.demix_track``,
 dense weights, shifts 1) and of the catalogue (``demix_tracks`` with
 quantized weights and ``window_chunks=4``): device time by kind of work
 (the recurrence kernels, the Wiener passes, copies, matrix products, FFTs,
-the rest) as shares of the wall time, and the idle share.  Then the
-trainer's loss and gradients at a small width (hidden 48, batch 3 x 12
+the rest) as shares of the wall time, and the idle share.  Then one warm
+training step (``make_train_step``, UMX-L, batch 16 x 256 frames of
+synthetic stems) the same way, with the largest kernels of "other" by
+name.  Then the trainer's loss and gradients at a small width (hidden 48, batch 3 x 12
 frames), five times on the card against once on the CPU: the worst
 max|g_card - g_cpu| / max|g_cpu| per parameter.  A measurement aid, not a
 check: it holds nothing against a reference.  Needs one CUDA GPU and
@@ -29,21 +32,27 @@ import chip_smoke as S
 
 
 # device work by kernel name: the port's own kernels, then the libraries'
-KINDS = (("K1 lstm_merged", ("lstm_resident_kernel",)),
-         ("K4 lstm_merged_train_fwd", ("lstm_step_kernel",)),
-         ("K5 lstm_merged_bwd_step", ("lstm_bwd_step_kernel",)),
+# (K4 is K1's kernel instantiated with the residual flag: it goes first)
+KINDS = (("K4 lstm_merged_train_fwd", ("lstm_resident_kernel<1, true", "lstm_resident_kernel<2, true",
+                                       "lstm_resident_kernel<1, (bool)1",
+                                       "lstm_resident_kernel<2, (bool)1")),
+         ("K1 lstm_merged", ("lstm_resident_kernel",)),
+         ("K5 lstm_merged_bwd_step", ("lstm_bwd_resident_kernel",)),
          ("K6 lstm_merged_dw", ("lstm_dw_kernel",)),
          ("K9 lstm_pertarget", ("lstm_pertarget_kernel",)),
-         ("K2+K3 wiener", ("reduce_partial_kernel", "reduce_sum_kernel", "apply_kernel")),
+         # ("::apply_kernel", not "apply_kernel": AdamW's multi_tensor_apply_kernel is not K3)
+         ("K2+K3 wiener", ("reduce_partial_kernel", "reduce_sum_kernel", "::apply_kernel",
+                           "void apply_kernel")),
          ("stems copy to host", ("Memcpy DtoH",)),
          ("audio copy to device", ("Memcpy HtoD",)),
          ("matrix products", ("gemm", "gemv", "cutlass", "cublas")),
          ("FFTs", ("fft",)))
 
 
-def profile_run(what: str, audio_secs: float, run, smi: str):
+def profile_run(what: str, audio_secs: float, run, smi: str, others: int = 0):
     """One warm ``run()`` under ``torch.profiler``: the card's time by kind
-    of device work, beside the run's wall time."""
+    of device work, beside the run's wall time; with ``others`` the largest
+    kernels counted under "other", by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -56,12 +65,18 @@ def profile_run(what: str, audio_secs: float, run, smi: str):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     totals = dict.fromkeys([k for k, _ in KINDS] + ["other"], 0.0)
+    other = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # kernels and copies only: an annotation's range on the device's
+        # timeline ("Optimizer.step#AdamW.step"; a kernel's name has its
+        # argument list) would count its kernels twice
+        if e.device_type != DeviceType.CUDA or ("#" in e.key and "(" not in e.key):
             continue
         ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
         kind = next((k for k, keys in KINDS if any(x in e.key for x in keys)), "other")
         totals[kind] += ms
+        if kind == "other":
+            other.append((ms, e.count, e.key))
     busy = sum(totals.values())
     S.require(busy > 0, "the profiler saw no device time")
     print(f"{what} (warm, {audio_secs:.0f} s of audio): wall {wall_ms:.1f} ms under the "
@@ -70,7 +85,38 @@ def profile_run(what: str, audio_secs: float, run, smi: str):
     for kind, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
         if ms > 0:
             print(f"  {kind}: {ms:.1f} ms ({100 * ms / wall_ms:.1f} % of the wall)")
+    for ms, count, key in sorted(other, reverse=True)[:others]:
+        print(f"    other: {ms:.2f} ms in {count} launches: {key[:110]}")
     return totals, wall_ms
+
+
+def profile_training(tmp: str, smi: str):
+    """One warm training step at UMX-L width, batch 16 x 256 frames."""
+    import os
+
+    from umx_tpu_torch.config import DSPConfig, ModelConfig
+    from umx_tpu_torch.data import StemDataset
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.train import (
+        TrainConfig, init_train_state, make_batch_from_audio, make_train_step,
+    )
+
+    root = os.path.join(tmp, "stems_train")
+    S.write_stem_dir(root)
+    mcfg, tcfg = ModelConfig(hidden_size=1024), TrainConfig()
+    train = StemDataset(root, excerpt_samples=DSPConfig().hop * (tcfg.seq_len - 1), split="train",
+                        seed=0)
+    batch = make_batch_from_audio(*train.sample(S.B_TRAIN), mcfg, DSPConfig(), tcfg.seq_len, "cuda")
+    state = [init_train_state(synthetic_params(mcfg, seed=0, device="cuda"), tcfg)]
+    step = make_train_step(mcfg)
+
+    def run():
+        state[0], loss = step(state[0], batch)
+        float(loss)
+
+    run()  # the optimizer's state is made in the first step
+    profile_run(f"training step profile (UMX-L, batch {S.B_TRAIN} x {tcfg.seq_len} frames, AdamW)",
+                S.B_TRAIN * tcfg.seq_len * DSPConfig().hop / S.SR, run, smi, others=8)
 
 
 def grad_ratios(runs: int, smi: str):
@@ -145,7 +191,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="umx_profile_") as tmp:
         model, _, mix = S.write_inputs(tmp)
         _, tracks = S.write_catalogue(tmp)
-        dense = Separator.from_ggml(model, device="cuda")
+        dense = Separator.from_ggml(model)
         profile_run("streaming profile (demix_track, dense weights, shifts 1)", S.TRACK_SECS,
                     lambda: dense.demix_track(mix, seed=0), smi)
         del dense
@@ -155,6 +201,7 @@ def main() -> int:
         profile_run(f"catalogue profile (demix_tracks, window_chunks {S.WINDOW_CHUNKS}, quantized)",
                     sum(S.CATALOGUE_SECS), lambda: demix_tracks(sep, audio), smi)
         del sep
+        profile_training(tmp, smi)
     grad_ratios(5, smi)
     return 0
 

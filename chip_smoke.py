@@ -22,14 +22,19 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    carried twice); the stems are checked, and every kernel's launch
    counter must have moved during that run.  Then the GPU path is held
    against the port's CPU path (plain versions) on a short input;
-5. the training kernels K4 (forward with residuals), K5 (reverse step)
+5. the training kernels K4 (forward with residuals), K5 (reverse sweep)
    and K6 (weight gradient) against their plain versions at the UMX-L
    training shape (T = 256, R = 8, B = 16, G = 512), and K6 bit-stable;
+   K4 and K5, each one resident launch per layer: K4's hs/hT/cT bit-equal
+   to K1's, both at 20 rows per chain and a ragged T (two row groups), at
+   96 rows, at G = 256, rows bit-equal whatever runs beside them, a width
+   above 512 refused, their forms printed (one wave at UMX-L);
 6. the training path: synthetic stems on disk, ``data.train_loop`` for 8
    steps at batch 16 × 256 frames at UMX-L width with a validation split
    (finite losses, frozen BatchNorm statistics, K1/K4/K5/K6 launched),
-   five steps on one fixed batch that must lower its loss, and the
-   trained weights exported as ggml and demixed through the CLI;
+   five steps on one fixed batch that must lower its loss, warm steps/s
+   at batch 32 (two row groups per kernel), and the trained weights
+   exported as ggml and demixed through the CLI;
 7. the overlap-add kernel K7 (bit-equal and bit-stable) and the
    Cooley-Tukey iSTFT kernel K8 against their plain versions (100 s UMX-L
    track: 3 chunks of 60 s, M = 8 and 16 rows; 8 rows x 2584 frames and a
@@ -70,8 +75,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     after warm-up), each beside its bound (bytes over 3.35 TB/s or
     operations over the peak rate, whichever is larger), the warm demix
     times of the 100 s track, and train steps/s; K1 must be faster than
-    K9 at one row per chain and K6 no slower than ``torch.bmm`` on the
-    same operands.
+    K9 at one row per chain, K6 no slower than ``torch.bmm`` on the same
+    operands, K4 at most twice K1 at the same shape, and K4 and K5 faster
+    than their earlier forms.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -112,14 +118,18 @@ WINDOW_CHUNKS = 4
 # published peaks of the H100 SXM: device memory rate, dense bf16 tensor
 # cores, float32 outside them
 HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
-# This script's figures on an H100 80GB HBM3 at 700 W before the recurrence
-# became one resident launch per layer and the weight gradient moved to the
-# tensor cores (K1 then one grid launch per step, K6 a CUDA-core GEMM);
-# printed beside the new ones
+# This script's figures on an H100 80GB HBM3 at 700 W before each kernel
+# took its present form, printed beside the new ones: the demix times, K1
+# and K6 from before the recurrence became one resident launch per layer and
+# the weight gradient moved to the tensor cores (K1 then one grid launch per
+# step, K6 a CUDA-core GEMM); K4, K5 and the training rate from before K4
+# and K5 became resident launches too (then one grid per step each)
 EARLIER = {"demix_s": 0.319, "batched_demix_s": 0.294, "catalogue_demix_s": 2.706,
-           "train_steps_per_s": 6.735, "lstm_merged_ms": {1: 19.9261, 3: 24.6960, 6: 41.5486,
+           "train_steps_per_s": 7.250, "lstm_merged_ms": {1: 19.9261, 3: 24.6960, 6: 41.5486,
                                                           16: 8.1123},
-           "lstm_merged_dw_ms": 3.9927}
+           "lstm_merged_dw_ms": 3.9927, "lstm_merged_train_fwd_ms": 8.7091,
+           "lstm_merged_bwd_step_ms": 11.5000}
+B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
 
 def require(cond: bool, msg: str) -> None:
@@ -213,12 +223,7 @@ def check_lstm_resident(dev):
     from umx_tpu_torch.ops import lstm_cuda as L
 
     def inputs(T, B, G, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        xp = torch.randn((T, R_CHAINS * B, 4 * G), generator=g, device=dev)
-        whh = (torch.randn((R_CHAINS, G, 4 * G), generator=g, device=dev) / G**0.5).to(torch.bfloat16)
-        h0 = 0.5 * torch.randn((R_CHAINS * B, G), generator=g, device=dev)
-        c0 = 0.5 * torch.randn((R_CHAINS * B, G), generator=g, device=dev)
-        return xp, whh, h0, c0, B
+        return train_inputs(dev, T, B, G, seed)[0]
 
     worst = 0.0
     for T, B, G in ((T_SEG, 1, 256), (300, 20, G_HIDDEN)):
@@ -258,6 +263,94 @@ def check_lstm_resident(dev):
     return worst
 
 
+def train_inputs(dev, T, B, G, seed):
+    """Random inputs of K4 and cotangents of K5 at R = 8 chains:
+    ((xp, whh, h0, c0, B), (dhs, dhT, dcT))."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    RB = R_CHAINS * B
+    xp = torch.randn((T, RB, 4 * G), generator=g, device=dev)
+    whh = (torch.randn((R_CHAINS, G, 4 * G), generator=g, device=dev) / G**0.5).to(torch.bfloat16)
+    h0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    cts = tuple(torch.randn(shape, generator=g, device=dev)
+                for shape in ((T, RB, G), (RB, G), (RB, G)))
+    return (xp, whh, h0, c0, B), cts
+
+
+def rel_err(a, b) -> float:
+    return max_err(a, b) / float(b.abs().max())
+
+
+def check_train_resident(dev):
+    """Phase 5: what the resident forms of K4 and K5 have to hold beyond
+    the training shape: K4's hs/hT/cT are K1's bits, rows beyond one launch
+    and beyond the 81 that K4's earlier form could hold, UMX-HQ's width, a
+    ragged T, rows that do not depend on their neighbours, and the refusal."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    def sub(x, rows):
+        return (x[:, rows] if x.dim() == 3 else x[rows]).contiguous()
+
+    for T, B, G in ((37, 20, G_HIDDEN), (5, 96, G_HIDDEN), (131, 3, 256)):
+        fwd_in, cts = train_inputs(dev, T, B, G, seed=T + B)
+        xp, whh, h0, c0, _ = fwd_in
+        k1 = L.lstm_merged(*fwd_in)
+        fwd_k = L.lstm_merged_train_fwd(*fwd_in)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(fwd_k[:3], k1)),
+                f"lstm_merged_train_fwd's hs/hT/cT are not lstm_merged's bits at B={B}, G={G}")
+        fwd_p = L.lstm_merged_train_fwd_plain(*fwd_in)
+        ferr = max(max_err(a, b) for a, b in zip(fwd_k, fwd_p))
+        gates, cs = fwd_p[3], fwd_p[4]
+        bwd_k = L.lstm_merged_bwd_step(gates, cs, c0, whh, *cts, B)
+        torch.cuda.synchronize()
+        bwd_p = L.lstm_merged_bwd_step_plain(gates, cs, c0, whh, *cts, B)
+        berr = max(rel_err(a, b) for a, b in zip(bwd_k, bwd_p))
+        print(f"K4/K5 vs plain (T={T}, R={R_CHAINS}, B={B}, G={G}): forward max|err| {ferr:.3g} "
+              f"(hs/hT/cT bit-equal to lstm_merged), sweep max|err|/max|ref| {berr:.3g}; forms "
+              f"{L.lstm_merged_train_fwd.form} {L.lstm_merged_bwd_step.form}")
+        require(ferr <= 5e-3 and berr <= 5e-3,
+                f"K4/K5 disagree with plain at B={B}, G={G}: {ferr}, {berr}")
+        for fn in (L.lstm_merged_train_fwd, L.lstm_merged_bwd_step):
+            require(fn.form[3] == -(-B // L.RESIDENT_ROWS), f"row groups {fn.form} at B = {B}")
+        if B != 20:
+            continue
+        # a row alone, 3 and 6 rows against the same rows inside the 20
+        # (both n-tiles and the second row group); the sweep on K4's own residuals
+        gates, cs = fwd_k[3], fwd_k[4]
+        bwd_k = L.lstm_merged_bwd_step(gates, cs, c0, whh, *cts, B)
+        for picks in ([7], [2, 9, 17], [0, 1, 5, 8, 13, 19]):
+            rows = torch.tensor([r * B + b for r in range(R_CHAINS) for b in picks], device=dev)
+            n = len(picks)
+            f_sub = L.lstm_merged_train_fwd(sub(xp, rows), whh, sub(h0, rows), sub(c0, rows), n)
+            b_sub = L.lstm_merged_bwd_step(sub(gates, rows), sub(cs, rows), sub(c0, rows), whh,
+                                           *(sub(c, rows) for c in cts), n)
+            require(all(torch.equal(s, sub(o, rows)) for s, o in zip(f_sub, fwd_k)),
+                    f"rows {picks} of lstm_merged_train_fwd depend on the rows beside them")
+            require(all(torch.equal(s, sub(o, rows)) for s, o in zip(b_sub, bwd_k)),
+                    f"rows {picks} of lstm_merged_bwd_step depend on the rows beside them")
+        print("K4 and K5 rows alone, in 3 and in 6 are bit-equal to the same rows among 20")
+    before = (L.lstm_merged_train_fwd.launches, L.lstm_merged_bwd_step.launches)
+    (xp, whh, h0, c0, _), cts = train_inputs(dev, 2, 1, 520, seed=1)
+    for name, call in (
+        ("lstm_merged_train_fwd", lambda: L.lstm_merged_train_fwd(xp, whh, h0, c0, 1)),
+        ("lstm_merged_bwd_step", lambda: L.lstm_merged_bwd_step(
+            torch.zeros_like(xp), cts[0], c0, whh, *cts, 1)),
+    ):
+        try:
+            call()
+        except RuntimeError as e:
+            print(f"{name} refuses G = 520: {e}")
+        else:
+            raise RuntimeError(f"{name} took G = 520")
+    require((L.lstm_merged_train_fwd.launches, L.lstm_merged_bwd_step.launches) == before,
+            "a refused call was counted as a launch")
+
+
 def check_train_kernels(dev):
     """Phase 5: K4, K5 and K6 against their plain versions at the UMX-L
     training shape, random inputs and cotangents."""
@@ -280,22 +373,31 @@ def check_train_kernels(dev):
           + " ".join(f"{n} {e:.3g}" for n, e in fwd_errs.items()))
     # the same argument as K1: 5e-3 absolute on h, c and the activated gates
     require(max(fwd_errs.values()) <= 5e-3, f"lstm_merged_train_fwd disagrees: {fwd_errs}")
+    require(all(torch.equal(a, b) for a, b in zip(fwd_k[:3], L.lstm_merged(xp, whh, h0, c0, B))),
+            "lstm_merged_train_fwd's hs/hT/cT are not lstm_merged's bits at the training shape")
 
     hs, _, _, gates, cs = fwd_p  # the same residuals into both backwards
     dxp_k, dh0_k, dc0_k = L.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
     dw_k = L.lstm_merged_dw(hs, h0, dxp_k, B)
     dxp_p, dw_p, dh0_p, dc0_p = L.lstm_merged_bwd_plain(gates, cs, hs, h0, c0, whh, dhs, dhT,
                                                         dcT, B)
-    rel = {n: max_err(k, p) / float(p.abs().max()) for n, k, p in
+    rel = {n: rel_err(k, p) for n, k, p in
            (("dxp", dxp_k, dxp_p), ("dW", dw_k, dw_p), ("dh0", dh0_k, dh0_p), ("dc0", dc0_k, dc0_p))}
     print("lstm backward vs plain, max|err|/max|ref|: "
           + " ".join(f"{n} {e:.3g}" for n, e in rel.items()))
+    for name, fn in (("lstm_merged_train_fwd", L.lstm_merged_train_fwd),
+                     ("lstm_merged_bwd_step", L.lstm_merged_bwd_step)):
+        blocks, held, chain_groups, _ = fn.form
+        print(f"{name} form at UMX-L: {blocks} blocks per chain, {R_CHAINS * blocks} blocks for "
+              f"{R_CHAINS} chains, {held} held at once by the card, {chain_groups} wave(s)")
+        require(chain_groups == 1, f"UMX-L's {R_CHAINS} chains do not run {name} in one wave: "
+                f"{fn.form}")
     # Where f32 sums differ in order the bf16 rounding of a gate cotangent
     # flips and the reverse chain carries it on: the plain version on the
     # card and on the CPU differ by as much (up to 1.9e-3 of max|ref| at
     # this width, measured on an H100), so the bound is 5e-3.
     require(max(rel.values()) <= 5e-3, f"lstm backward disagrees with plain: {rel}")
-    dw_alone = max_err(L.lstm_merged_dw(hs, h0, dxp_p, B), dw_p) / float(dw_p.abs().max())
+    dw_alone = rel_err(L.lstm_merged_dw(hs, h0, dxp_p, B), dw_p)
     require(dw_alone <= 1e-5, f"lstm_merged_dw disagrees with plain on the same dxp: {dw_alone}")
     require(torch.equal(dw_k, L.lstm_merged_dw(hs, h0, dxp_k, B)),
             "lstm_merged_dw is not bit-stable from run to run")
@@ -1118,9 +1220,10 @@ def training_path(tmp: str, counters: dict, smi: str):
 
     reset_counts(counters)
     t0 = time.perf_counter()
+    # no device given: the entry point's default is the GPU
     state, hist = train_loop(train, mcfg, tcfg, steps=TRAIN_STEPS, batch_size=B_TRAIN,
-                             params=params0, device="cuda", log_every=0,
-                             valid_dataset=valid, valid_every=4)
+                             params=params0, log_every=0, valid_dataset=valid, valid_every=4)
+    require(state.params.fc1_w.is_cuda, "train_loop did not run on the GPU by default")
     train_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     print(f"training path (train_loop, UMX-L, batch {B_TRAIN} x {tcfg.seq_len} frames, "
@@ -1154,6 +1257,23 @@ def training_path(tmp: str, counters: dict, smi: str):
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"5 steps on one batch did not lower its loss: {losses}")
 
+    # the same at twice the batch (two row groups per resident kernel):
+    # one warm-up step, three timed; a figure, not a gate
+    del batch, fixed
+    mix, targets = train.sample(B_TRAIN_WIDE)
+    batch = make_batch_from_audio(mix, targets, mcfg, DSPConfig(), tcfg.seq_len, "cuda")
+    wide = init_train_state(params0, tcfg)
+    wide_losses = []
+    for i in range(4):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        wide, loss = step(wide, batch)
+        wide_losses.append(float(loss))
+    wide_steps_per_s = 3 / (time.perf_counter() - t0)
+    require(bool(np.isfinite(wide_losses).all()), f"batch {B_TRAIN_WIDE} losses: {wide_losses}")
+    del batch, wide
+
     # the trained and the initial weights, exported as ggml, demix 10 s of
     # the held-out track through the CLI
     true = valid._load_stems(valid.tracks[0])[:, :, : 10 * SR]
@@ -1176,7 +1296,7 @@ def training_path(tmp: str, counters: dict, smi: str):
     print(f"mean corr(stem estimate, true stem): trained {sep['trained']:.4f}, "
           f"initial {sep['initial']:.4f}")
     require(sep["trained"] > sep["initial"], f"training did not improve the separation: {sep}")
-    return launches, steps_per_s
+    return launches, steps_per_s, wide_steps_per_s
 
 
 def gpu_vs_cpu(model: str, mix):
@@ -1259,7 +1379,8 @@ def main() -> int:
 
         from umx_tpu_torch.engine.separator import Separator
 
-        sep = Separator.from_ggml(model, device="cuda")
+        sep = Separator.from_ggml(model)  # no device given: the default is the GPU
+        require(sep.device.type == "cuda", "Separator.from_ggml did not default to the GPU")
         sep.demix_track(mix, seed=0)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1310,9 +1431,11 @@ def main() -> int:
         del csep
 
         train_args, train_errs = check_train_kernels(dev)
-        train_launches, steps_per_s = training_path(tmp, counters, smi)
+        check_train_resident(dev)
+        train_launches, steps_per_s, wide_steps_per_s = training_path(tmp, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
-          f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']})  [{smi}]")
+          f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
+          f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
 
     # Phase 12: kernel, plain and library times beside each kernel's bound:
     # K1-K3 and K9 at the UMX-L segment shape, the training kernels (and K1
@@ -1459,6 +1582,17 @@ def main() -> int:
     require(times["lstm_merged_dw"][0] <= library["lstm_merged_dw"],
             f"lstm_merged_dw ({times['lstm_merged_dw'][0]} ms) is slower than torch.bmm "
             f"({library['lstm_merged_dw']} ms)")
+    k4_ms, k5_ms = times["lstm_merged_train_fwd"][0], times["lstm_merged_bwd_step"][0]
+    print(f"lstm_merged_train_fwd {k4_ms:.4f} ms (earlier form "
+          f"{EARLIER['lstm_merged_train_fwd_ms']}) against lstm_merged {k1_train[0]:.4f} ms at the "
+          f"same shape; lstm_merged_bwd_step {k5_ms:.4f} ms (earlier form "
+          f"{EARLIER['lstm_merged_bwd_step_ms']}); forms {L.lstm_merged_train_fwd.form} "
+          f"{L.lstm_merged_bwd_step.form}  [{smi}]")
+    require(k4_ms <= 2 * k1_train[0], f"lstm_merged_train_fwd ({k4_ms} ms) takes more than twice "
+            f"lstm_merged ({k1_train[0]} ms) at the same shape")
+    require(k4_ms < EARLIER["lstm_merged_train_fwd_ms"]
+            and k5_ms < EARLIER["lstm_merged_bwd_step_ms"],
+            f"K4 ({k4_ms} ms) or K5 ({k5_ms} ms) is not faster than its earlier form")
     print(f"ola_normalized at M=16 (two shift rows): kernel {ola16[0]:.4f} ms, plain "
           f"{ola16[1]:.4f} ms  [{smi}]")
     for (B, T), (k, p) in k1_path.items():
@@ -1510,6 +1644,10 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
                       "gpu_vs_cpu_rel_err": cpu_err, "train_steps_per_s": steps_per_s,
+                      "train_steps_per_s_batch_32": wide_steps_per_s,
+                      "lstm_merged_train_fwd_form": lstm_cuda.lstm_merged_train_fwd.form,
+                      "lstm_merged_bwd_step_form": lstm_cuda.lstm_merged_bwd_step.form,
+                      "lstm_merged_ms_at_training_shape": k1_train[0],
                       "train_path_launches": train_launches, "batched_demix_s": batched_s,
                       "batched_path_launches": batched_launches, "batched_k1_rows": k1_rows,
                       "batched_gpu_vs_cpu_rel_err": batched_err, "planner_anchors": anchors,

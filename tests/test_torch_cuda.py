@@ -60,22 +60,46 @@ def test_lstm_kernel_takes_b64_and_refuses_what_it_cannot_hold(dev):
     out_p = lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, 64)
     for k, p in zip(out_k, out_p):
         assert (k - p).abs().max().item() <= 5e-3
-    # the resident kernel takes rows beyond one launch's 16 as further row
-    # groups; the step kernel with residuals is bound by its shared memory
+    # the resident kernels take rows beyond one launch's 16 as further row
+    # groups: no upper B
     xp, whh, h0, c0 = _lstm_inputs(dev, 2, 1, 100, 512, seed=2)
     out_k = lstm_cuda.lstm_merged(xp, whh, h0, c0, 100)
     assert lstm_cuda.lstm_merged.form[3] == 7
     out_p = lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, 100)
     for k, p in zip(out_k, out_p):
         assert (k - p).abs().max().item() <= 5e-3
-    before = (lstm_cuda.lstm_merged.launches, lstm_cuda.lstm_merged_train_fwd.launches)
-    with pytest.raises(ValueError, match="at most B = 81 rows"):
-        lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, 100)
+    wrappers = (lstm_cuda.lstm_merged, lstm_cuda.lstm_merged_train_fwd,
+                lstm_cuda.lstm_merged_bwd_step)
+    before = [f.launches for f in wrappers]
     # a width whose W_hh slice does not fit a warp's registers is refused
     wide = _lstm_inputs(dev, 2, 1, 1, 520, seed=3)
     with pytest.raises(RuntimeError, match="G <= 512"):
         lstm_cuda.lstm_merged(*wide, 1)
-    assert (lstm_cuda.lstm_merged.launches, lstm_cuda.lstm_merged_train_fwd.launches) == before
+    with pytest.raises(RuntimeError, match="G <= 512"):
+        lstm_cuda.lstm_merged_train_fwd(*wide, 1)
+    z = torch.zeros((2, 1, 520), device=dev)
+    with pytest.raises(RuntimeError, match="G <= 512"):
+        lstm_cuda.lstm_merged_bwd_step(torch.zeros((2, 1, 2080), device=dev), z, z[0], wide[1],
+                                       z, z[0], z[0], 1)
+    assert [f.launches for f in wrappers] == before
+
+
+def test_train_kernels_take_b96(dev):
+    """K4 and K5 above the 81 rows per chain that K4's earlier form could
+    hold: six row groups each, against plain."""
+    T, R, B, G = 5, 2, 96, 512
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, T, R, B, G, seed=96)
+    fwd_k = lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    assert lstm_cuda.lstm_merged_train_fwd.form[3] == 6
+    fwd_p = lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
+    for name, k, p in zip(("hs", "hT", "cT", "gates", "cs"), fwd_k, fwd_p):
+        assert (k - p).abs().max().item() <= 5e-3, name
+    _, _, _, gates, cs = fwd_p
+    bwd_k = lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    assert lstm_cuda.lstm_merged_bwd_step.form[3] == 6
+    bwd_p = lstm_cuda.lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    for name, k, p in zip(("dxp", "dh0", "dc0"), bwd_k, bwd_p):
+        assert _rel(k, p) <= 5e-3, name
 
 
 @pytest.mark.parametrize("G", [256, 512])
@@ -123,6 +147,62 @@ def _train_case(dev, T, R, B, G, seed):
 
 def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("G", [256, 512])
+@pytest.mark.parametrize("T, B", [(1, 1), (37, 3), (130, 6), (29, 16), (11, 17), (7, 40)])
+def test_resident_train_kernels_at_ragged_lengths_and_row_groups(dev, G, T, B):
+    """K4 and K5 at both UMX widths, ragged T, the rows training gives them
+    and rows beyond one launch: K4's hs/hT/cT are K1's bits, its residuals
+    and K5's sweep agree with plain, and each takes the planned launches."""
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, T, 8, B, G, seed=T + B)
+    k1 = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    fwd_k = lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd_k[:3], k1):
+        assert torch.equal(a, b)
+    blocks, capacity, chain_groups, row_groups = lstm_cuda.lstm_merged_train_fwd.form
+    assert blocks == G // 32 and row_groups == -(-B // 16)
+    assert chain_groups == -(-8 // (capacity // blocks))
+    fwd_p = lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
+    for name, k, p in zip(("hs", "hT", "cT", "gates", "cs"), fwd_k, fwd_p):
+        assert (k - p).abs().max().item() <= 5e-3, name
+    _, _, _, gates, cs = fwd_p
+    bwd_k = lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    torch.cuda.synchronize()
+    blocks, capacity, chain_groups, row_groups = lstm_cuda.lstm_merged_bwd_step.form
+    assert blocks == G // 32 and row_groups == -(-B // 16)
+    assert chain_groups == -(-8 // (capacity // blocks))
+    bwd_p = lstm_cuda.lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    for name, k, p in zip(("dxp", "dh0", "dc0"), bwd_k, bwd_p):
+        assert torch.isfinite(k).all()
+        assert _rel(k, p) <= 5e-3, name
+
+
+@pytest.mark.parametrize("G", [40, 512])
+def test_resident_train_rows_do_not_depend_on_the_batch(dev, G):
+    """A row of K4 and of K5 is bit-equal whatever rows run beside it (one
+    mma column per row, partial sums added in a fixed order), and both are
+    bit-stable from run to run."""
+    T, R, B = 23, 8, 20
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, T, R, B, G, seed=G)
+    fwd = lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    _, _, _, gates, cs = fwd
+    bwd = lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    for picks in ([0], [11], [19], [2, 9, 17], [0, 1, 5, 8, 13, 19], list(range(4, 20))):
+        rows = torch.tensor([r * B + b for r in range(R) for b in picks], device=dev)
+        n = len(picks)
+        sub = lstm_cuda.lstm_merged_train_fwd(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                                              c0[rows].contiguous(), n)
+        for s_, full in zip(sub, fwd):
+            assert torch.equal(s_, full[:, rows] if full.dim() == 3 else full[rows]), picks
+        sub = lstm_cuda.lstm_merged_bwd_step(
+            gates[:, rows].contiguous(), cs[:, rows].contiguous(), c0[rows].contiguous(), whh,
+            dhs[:, rows].contiguous(), dhT[rows].contiguous(), dcT[rows].contiguous(), n)
+        for s_, full in zip(sub, bwd):
+            assert torch.equal(s_, full[:, rows] if full.dim() == 3 else full[rows]), picks
+    again = lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    assert all(torch.equal(a, b) for a, b in zip(again, bwd))
 
 
 @pytest.mark.parametrize("T, R, B, G", [(1, 2, 3, 40), (37, 3, 3, 40), (37, 8, 16, 512)])
@@ -296,7 +376,7 @@ def test_separator_on_the_card_matches_cpu(dev):
     model = GGMLModel(48, synthetic_state_dicts(cfg.model, seed=2))
     track = np.random.default_rng(2).standard_normal((2, 100_000)).astype(np.float32) * 0.1
     gpu = Separator(params_from_ggml(model, cfg.model, dev), cfg, dev).demix_track(track, seed=1)
-    cpu = Separator(params_from_ggml(model, cfg.model), cfg).demix_track(track, seed=1)
+    cpu = Separator(params_from_ggml(model, cfg.model), cfg, "cpu").demix_track(track, seed=1)
     # bf16 recurrence operands and cuFFT/cuBLAS summation order
     assert np.max(np.abs(gpu - cpu)) <= 2e-3 * np.max(np.abs(cpu))
 
@@ -439,7 +519,7 @@ def test_batched_whole_track_on_the_card_matches_cpu(dev):
     k7, k8 = ola_cuda.ola_normalized.launches, istft_ct_cuda.istft_ct2.launches
     gpu = Separator(params_from_ggml(model, cfg.model, dev), cfg, dev).demix_track(track, seed=1)
     assert ola_cuda.ola_normalized.launches > k7 and istft_ct_cuda.istft_ct2.launches > k8
-    cpu = Separator(params_from_ggml(model, cfg.model), cfg).demix_track(track, seed=1)
+    cpu = Separator(params_from_ggml(model, cfg.model), cfg, "cpu").demix_track(track, seed=1)
     assert np.max(np.abs(gpu - cpu)) <= 2e-3 * np.max(np.abs(cpu))
 
 

@@ -99,7 +99,7 @@ def test_train_loop_early_stops_on_a_flat_validation_loss(stem_root):
     train = StemDataset(stem_root, excerpt_samples=1024 * 7, split="train", seed=4)
     valid = StemDataset(stem_root, excerpt_samples=1024 * 7, split="valid", seed=4)
     _, hist = train_loop(train, mcfg, tcfg, steps=20, batch_size=2, log_every=0,
-                         valid_dataset=valid, valid_every=2, valid_batches=1)
+                         valid_dataset=valid, valid_every=2, valid_batches=1, device="cpu")
     assert hist.stopped_early and len(hist) == 6 and len(hist.valid) == 3
     assert hist.best_step == 2
 

@@ -84,13 +84,13 @@ def test_fleet_equals_per_track(params, tracks, shifts, streaming):
     assert stats["dispatches"] == 2 * max(1, shifts) and stats["rows"] == 5 * max(1, shifts)
     assert "windowed_tracks" not in stats
     assert all(stats[k] >= 0 for k in ("upload_s", "compute_s", "download_s"))
-    sep = Separator(params, cfg)
+    sep = Separator(params, cfg, "cpu")
     for seed, track, out in zip(seeds, tracks, outs):
         _close(out, sep.demix_track(track, seed=seed))
 
 
 def test_fleet_takes_a_separator_and_default_seeds(params, tracks):
-    sep = Separator(params, _cfg(shifts=1))
+    sep = Separator(params, _cfg(shifts=1), "cpu")
     outs = fleet.demix_tracks(sep, tracks[:2])
     for track, out in zip(tracks, outs):
         _close(out, sep.demix_track(track))  # seed 0 on both sides
@@ -103,7 +103,7 @@ def test_fleet_routes_long_tracks_through_the_windowed_path(params, tracks):
     stats: dict = {}
     outs = fleet.demix_tracks(params, mixed, _cfg(W=2), stats=stats)
     assert stats["windowed_tracks"] == 1 and stats["rows"] == 2 and stats["dispatches"] == 1
-    sep = Separator(params, _cfg())  # the single program, no window
+    sep = Separator(params, _cfg(), "cpu")  # the single program, no window
     for track, out in zip(mixed, outs):
         _close(out, sep.demix_track(track))
 
@@ -114,7 +114,7 @@ def test_fleet_splits_a_bucket_at_the_planners_cap(params, tracks, monkeypatch):
     short = [tracks[0], tracks[1], tracks[3]]
     outs = fleet.demix_tracks(params, short, _cfg(), stats=stats)
     assert stats["dispatches"] == 2 and stats["rows"] == 3  # sub-batches of 2 and 1
-    sep = Separator(params, _cfg())
+    sep = Separator(params, _cfg(), "cpu")
     for track, out in zip(short, outs):
         _close(out, sep.demix_track(track))
 

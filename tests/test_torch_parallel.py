@@ -102,7 +102,7 @@ def jax_nonstreaming(track, jax_params):
 def test_demix_fused_parallel_widths_match_jax(track, params, jax_nonstreaming, width):
     # 4 chunks: width 3 runs a group of 3 and a remainder group of 1
     _, tcfg = _cfgs(streaming=False, shifts=0)
-    sep = tsep.Separator(params, tcfg)
+    sep = tsep.Separator(params, tcfg, "cpu")
     seg, stride, n_chunks, padded_len = sep._geometry(track.shape[1])
     assert n_chunks == 4
     audio_p = torch.nn.functional.pad(torch.from_numpy(track), (0, padded_len - track.shape[1]))
@@ -124,7 +124,7 @@ def test_nonstreaming_auto_width_matches_jax(track, params, jax_nonstreaming, mo
 
     monkeypatch.setattr(tsep, "demix_fused_parallel", spy)
     _, tcfg = _cfgs(streaming=False, shifts=0, chunk_batch=0)
-    ours = tsep.Separator(params, tcfg).demix_track(track, seed=0)
+    ours = tsep.Separator(params, tcfg, "cpu").demix_track(track, seed=0)
     assert seen == [4]
     err = _rel(ours, jax_nonstreaming)
     assert err <= SLICE_RTOL, f"max|Δ|/max|stem| = {err:.3g}"
@@ -142,7 +142,7 @@ def test_batched_shifts_match_jax(track, jax_params, params, streaming, monkeypa
 
     monkeypatch.setattr(tsep.Separator, "_demix_shifts_batched", spy)
     ref = JSeparator(jax_params, jcfg).demix_track(track, seed=0)
-    ours = tsep.Separator(params, tcfg).demix_track(track, seed=0)
+    ours = tsep.Separator(params, tcfg, "cpu").demix_track(track, seed=0)
     assert calls and calls[0][0] == 2 and calls[0][1] >= 2  # both passes in one batch
     err = _rel(ours, ref)
     assert err <= SLICE_RTOL, f"max|Δ|/max|stem| = {err:.3g}"
@@ -151,7 +151,7 @@ def test_batched_shifts_match_jax(track, jax_params, params, streaming, monkeypa
 def test_batched_shifts_equal_sequential_passes(track, params):
     # the batched program computes what the pass-by-pass loop computes
     _, tcfg = _cfgs(streaming=True, shifts=2)
-    sep = tsep.Separator(params, tcfg)
+    sep = tsep.Separator(params, tcfg, "cpu")
     batched = sep.demix_track(track, seed=3)
     max_shift = tcfg.segment.max_shift_samples(SR)
     offsets = [int(o) for o in np.random.default_rng(3).integers(0, max_shift, size=2)]
@@ -165,7 +165,7 @@ def test_batched_shifts_equal_sequential_passes(track, params):
 def test_ola_kernel_arm_matches_jax(track, jax_params, params):
     jcfg, tcfg = _cfgs(streaming=True, shifts=0, ola_impl="pallas")
     ref = np.asarray(JSeparator(jax_params, jcfg).demix(track))
-    ours = tsep.Separator(params, tcfg).demix(track).numpy()
+    ours = tsep.Separator(params, tcfg, "cpu").demix(track).numpy()
     err = _rel(ours, ref)
     assert err <= SLICE_RTOL, f"max|Δ|/max|stem| = {err:.3g}"
 
@@ -173,7 +173,7 @@ def test_ola_kernel_arm_matches_jax(track, jax_params, params):
 def test_ct2_istft_matches_jax(track, jax_params, params):
     jcfg, tcfg = _cfgs(streaming=False, shifts=0, ct2=True)
     ref = np.asarray(JSeparator(jax_params, jcfg).demix(track))
-    ours = tsep.Separator(params, tcfg).demix(track).numpy()
+    ours = tsep.Separator(params, tcfg, "cpu").demix(track).numpy()
     err = _rel(ours, ref)
     assert err <= SLICE_RTOL, f"max|Δ|/max|stem| = {err:.3g}"
 
@@ -182,7 +182,7 @@ def test_streaming_auto_stems_equal_the_chunk_loop(track, params):
     # "auto" = one slice-add per chunk, then / weight sum: bit-equal to the
     # accumulate-as-you-go loop, which sums the same <= 2 addends per sample
     _, tcfg = _cfgs(streaming=True, shifts=0)
-    sep = tsep.Separator(params, tcfg)
+    sep = tsep.Separator(params, tcfg, "cpu")
     ours = sep.demix(track)
     seg, stride, n_chunks, padded_len = sep._geometry(track.shape[1])
     audio_p = torch.nn.functional.pad(torch.from_numpy(track), (0, padded_len - track.shape[1]))

@@ -77,7 +77,7 @@ SLICE_RTOL = 2e-4
 def test_demix_track_matches_jax(track, jax_params, streaming):
     jcfg, tcfg = _cfgs(streaming=streaming)
     ref = JSeparator(jax_params, jcfg).demix_track(track, seed=0)
-    ours = tsep.Separator(params_from_jax(jax_params), tcfg).demix_track(track, seed=0)
+    ours = tsep.Separator(params_from_jax(jax_params), tcfg, "cpu").demix_track(track, seed=0)
     assert ours.shape == ref.shape == (4, 2, track.shape[1])
     assert ours.dtype == np.float32 and np.isfinite(ours).all()
     err = float(np.max(np.abs(ours - ref)) / np.max(np.abs(ref)))
@@ -88,7 +88,7 @@ def test_demix_without_wiener_and_shifts_matches_jax(track, jax_params):
     jcfg, tcfg = _cfgs(use_wiener=False)
     jcfg, tcfg = jcfg.replace(shifts=0), tcfg.replace(shifts=0)
     ref = JSeparator(jax_params, jcfg).demix_track(track[:, : SR + 123], seed=0)
-    ours = tsep.Separator(params_from_jax(jax_params), tcfg).demix_track(
+    ours = tsep.Separator(params_from_jax(jax_params), tcfg, "cpu").demix_track(
         track[:, : SR + 123], seed=0
     )
     err = float(np.max(np.abs(ours - ref)) / np.max(np.abs(ref)))
@@ -110,3 +110,31 @@ def test_cuda_device_without_gpu_raises(jax_params):
     _, tcfg = _cfgs()
     with pytest.raises(RuntimeError, match="cuda"):
         tsep.Separator(params_from_jax(jax_params), tcfg, device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["Separator", "from_ggml", "train_loop", "resolve_device"])
+def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, jax_params, tmp_path):
+    """No device given means the GPU: where there is none the entry points
+    raise, they do not run on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU error path cannot be reached")
+    from umx_tpu_torch.config import ModelConfig
+    from umx_tpu_torch.data import train_loop
+    from umx_tpu_torch.io.ggml import write_ggml
+    from umx_tpu_torch.models.umx import synthetic_state_dicts
+    from umx_tpu_torch.train import TrainConfig
+
+    _, tcfg = _cfgs()
+    with pytest.raises(RuntimeError, match="'cuda' requested"):
+        if entry == "Separator":
+            tsep.Separator(params_from_jax(jax_params), tcfg)
+        elif entry == "from_ggml":
+            path = str(tmp_path / "model.bin")
+            write_ggml(path, 32, synthetic_state_dicts(ModelConfig(hidden_size=32), seed=0))
+            tsep.Separator.from_ggml(path)
+        elif entry == "train_loop":
+            # the device is resolved before the dataset is touched
+            train_loop(None, ModelConfig(hidden_size=32), TrainConfig(seq_len=8), steps=1)
+        else:
+            tsep.resolve_device()
+    assert tsep.resolve_device("cpu") == torch.device("cpu")

@@ -72,14 +72,14 @@ def _cfg(W=-1, streaming=True, chunk_batch=0, **model):
 
 @pytest.fixture(scope="module")
 def single(track, params):
-    return {s: tsep.Separator(params, _cfg(streaming=s, chunk_batch=1)).demix(track)
+    return {s: tsep.Separator(params, _cfg(streaming=s, chunk_batch=1), "cpu").demix(track)
             for s in (True, False)}
 
 
 @pytest.mark.parametrize("W", [1, 2, 3, 4])
 @pytest.mark.parametrize("streaming", [True, False])
 def test_windowed_equals_single_program_bit_for_bit(track, params, single, W, streaming):
-    sep = tsep.Separator(params, _cfg(W, streaming, chunk_batch=1))
+    sep = tsep.Separator(params, _cfg(W, streaming, chunk_batch=1), "cpu")
     assert sep._geometry(track.shape[1])[2] == 6
     out = sep.demix(track)
     assert out.shape == (4, 2, track.shape[1]) and out.device.type == "cpu"
@@ -89,7 +89,7 @@ def test_windowed_equals_single_program_bit_for_bit(track, params, single, W, st
 def test_windowed_device_tensor_equals_host_array(track, params, single):
     """A tensor that already lies on the separator's device takes the
     in-place result buffer and comes back as a tensor on that device."""
-    sep = tsep.Separator(params, _cfg(4))
+    sep = tsep.Separator(params, _cfg(4), "cpu")
     out = sep.demix(torch.from_numpy(track))
     assert isinstance(out, torch.Tensor) and out.device == sep.device
     assert torch.equal(out, single[True])
@@ -98,7 +98,7 @@ def test_windowed_device_tensor_equals_host_array(track, params, single):
 def test_windowed_nonstreaming_group_width(track, params, single):
     # groups of 2 inside windows of 4: other batch widths through the
     # matmuls than the single program's groups of 1, so not bit for bit
-    out = tsep.Separator(params, _cfg(4, streaming=False, chunk_batch=2)).demix(track)
+    out = tsep.Separator(params, _cfg(4, streaming=False, chunk_batch=2), "cpu").demix(track)
     ref = single[False]
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-6
 
@@ -115,11 +115,11 @@ def test_windowed_auto_follows_the_planner(track, params, monkeypatch):
 
     monkeypatch.setattr(tsep.Separator, "_demix_windowed", spy)
     monkeypatch.setattr(tsep, "suggest_window_chunks", lambda *a, **kw: 10_000)
-    ref = tsep.Separator(params, _cfg(0)).demix(track)
+    ref = tsep.Separator(params, _cfg(0), "cpu").demix(track)
     assert calls == []
     # the planner allows 4: 6 chunks make 2 windows, evenly 3 + 3
     monkeypatch.setattr(tsep, "suggest_window_chunks", lambda *a, **kw: 4)
-    sep = tsep.Separator(params, _cfg(0))
+    sep = tsep.Separator(params, _cfg(0), "cpu")
     out = sep.demix(track)
     assert calls == [3]
     assert torch.equal(out, ref)
@@ -170,7 +170,7 @@ def test_windowed_matches_jax_windowed(track, jax_params, params, streaming):
         shifts=0,
     )
     ref = np.asarray(JSeparator(jax_params, jcfg).demix(track))
-    ours = tsep.Separator(params, _cfg(4, streaming, chunk_batch=2)).demix(track).numpy()
+    ours = tsep.Separator(params, _cfg(4, streaming, chunk_batch=2), "cpu").demix(track).numpy()
     err = _rel(ours, ref)
     assert err <= SLICE_RTOL, f"max|Δ|/max|stem| = {err:.3g}"
 

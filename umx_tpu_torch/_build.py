@@ -38,12 +38,17 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     # xp, whh, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, tag0, stream
     "umx_lstm_merged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _P],
-    # blocks (out)
-    "umx_lstm_merged_capacity": [_P],
-    # xp, whh, h0, c, hs, hT, gates, cs, T, R, B, G, stream
-    "umx_lstm_merged_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, dgbuf, T, R, B, G, stream
-    "umx_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # resid (0: K1, 1: K4), blocks (out)
+    "umx_lstm_merged_capacity": [_I, _P],
+    # xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, tag0, stream
+    "umx_lstm_merged_train": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _U, _P],
+    # G, blocks (out)
+    "umx_lstm_bwd_capacity": [_I, _P],
+    # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, dgx, flags, T, R, B, G, r0, nr, b0, nb, tag0,
+    # stream
+    "umx_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _U, _P],
     # xp, whh, h0, c0, hs, hT, cT, T, n_targets, D, G, chosen, stream
     "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # hs, h0, dxp, dw, T, R, B, G, stream
@@ -134,8 +139,6 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.umx_error_string.argtypes = [_I]
     lib.umx_error_string.restype = ctypes.c_char_p
-    lib.umx_lstm_step_smem.argtypes = [_I, _I]
-    lib.umx_lstm_step_smem.restype = ctypes.c_longlong
     return lib
 
 

@@ -24,10 +24,10 @@
 // other, so a layer costs T times one step's latency; the bytes (xp and hs
 // once, W_hh once) would take tens of microseconds.  A step needs the whole
 // of W_hh (UMX-L: 8 x 512 x 2048 bf16 = 16.8 MB) against a few rows of h.
-// Read from L2 every step, as K4 still does, W_hh alone costs 5-30 us per
-// step; kept on chip, a step is as long as its one exchange of h.
+// Read from L2 every step, W_hh alone costs 5-30 us per step; kept on
+// chip, a step is as long as its one exchange of h.
 //
-// K1, the resident form: ONE launch runs all T steps of all chains and up
+// The resident form (K1 and K4): ONE launch runs all T steps of all chains and up
 // to 16 rows per chain.  A chain's W_hh (2 MiB at G = 512) fits neither one
 // block's shared memory nor eight, but the card's register files hold
 // 33 MB: a chain is split over ceil(G/32) blocks of 8 warps, each warp owns
@@ -67,22 +67,26 @@
 // plans both.  G above 512 does not fit the register file in this form and
 // is refused (cudaErrorInvalidConfiguration).  Requires G % 8 == 0.
 //
-// K4 is a step kernel: one grid per timestep, launched T times on the
-// caller's stream, the kernel boundary being the barrier between steps.  grid = (R, ceil(G/UNITS)): a block owns UNITS hidden units of
-// one chain and computes their 4 gate columns for all B rows.  Each thread
-// reads VEC = 8 neighbouring bf16 columns of a W_hh row with one 16-byte
-// load, and KSPLIT threads split the G-long dot product.  Batch rows go in
-// tiles of ROWS: per tile the partial sums are reduced in shared memory,
-// then one thread per (row, unit) applies the gates, updates its unit's c
-// in place and writes h_t, the activated gates and c.  Only h_{t-1}
-// (B x G) grows with B in shared memory, so B is bounded by
-// (B*G + KSPLIT*ROWS*COLS)*4 <= 227 KB (B <= 81 at G = 512; the wrapper
-// checks it before a launch).
+// K4 is the same kernel with a compile-time flag: the thread that owns
+// (unit, row) after the gate shuffle holds the four activated gates and c
+// in registers and stores them, after the step's h has gone to the
+// exchange, so that no consumer's poll waits behind them.  The mma order
+// and the cell are K1's, so hs, hT and cT are K1's bits; rows beyond 16 and
+// chains beyond the card's capacity are further launches, as for K1, and
+// there is no upper B.
+//
+// Measured on an H100 80GB HBM3 at 700 W (T = 256, R = 8, B = 16, G = 512):
+// K1 1.65 ms per layer, K4 1.74 ms: the 0.09 ms between them is what the
+// 335 MB of residuals cost at the card's memory rate, so staging them
+// through shared memory into full lines has nothing left to gain (K4's
+// earlier form, one grid per step with W_hh re-read from L2, took 8.71 ms).
+// 179 / 202 registers (K1, one / two n-tiles), 184 / 202 (K4), no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -131,8 +135,9 @@ __device__ __forceinline__ uint32_t bf16_bits(float x) {
 // grid = (ceil(G/32), chains of this launch).  NT n-tiles of 8 rows.
 // hx: exchange words (R, 2, RES_ROWS, G/2), zeroed by the caller before the
 // layer's first launch; tag0 makes the tags of this launch unique among the
-// launches that share the buffer.
-template <int NT>
+// launches that share the buffer.  RESID (K4): also write the activated
+// gates (T, RB, 4G) and c (T, RB, G) of every step.
+template <int NT, bool RESID>
 __global__ void __launch_bounds__(RES_THREADS, 1)
 lstm_resident_kernel(const float* __restrict__ xp,          // (T, RB, 4G)
                      const __nv_bfloat16* __restrict__ whh,  // (R, G, 4G)
@@ -140,6 +145,8 @@ lstm_resident_kernel(const float* __restrict__ xp,          // (T, RB, 4G)
                      float* __restrict__ c,                  // (RB, G), in place
                      float* __restrict__ hs,                 // (T, RB, G)
                      float* __restrict__ hT,                 // (RB, G)
+                     float* __restrict__ gates,              // (T, RB, 4G), RESID only
+                     float* __restrict__ cs,                 // (T, RB, G), RESID only
                      unsigned long long* hx, int T, int R, int B, int b0, int nb, int G, int r0,
                      unsigned tag0) {
   // bf16 h_{t-1} of this chain's rows, two steps: (2, NT*8 rows, KT*8 + pad words)
@@ -334,6 +341,15 @@ lstm_resident_kernel(const float* __restrict__ xp,          // (T, RB, 4G)
                    (unsigned long long)(mine | (other << 16));
           }
           hs[(size_t)t * h_step + row[j] * G + u] = hl[j];
+          if (RESID) {
+            // after the exchange store: four neighbouring units a gate
+            float* gr = gates + (size_t)t * x_step + row[j] * G4 + u;
+            gr[0] = ig;
+            gr[(size_t)G] = fg;
+            gr[2 * (size_t)G] = gg;
+            gr[3 * (size_t)G] = og;
+            cs[(size_t)t * h_step + row[j] * G + u] = cc[j];
+          }
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) xg[j][q] = xn[j][q];
@@ -350,142 +366,34 @@ lstm_resident_kernel(const float* __restrict__ xp,          // (T, RB, 4G)
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4: the step kernel with residuals
-// ---------------------------------------------------------------------------
+using resident_fn = void (*)(const float*, const __nv_bfloat16*, const float*, float*, float*,
+                             float*, float*, float*, unsigned long long*, int, int, int, int,
+                             int, int, int, unsigned);
 
-constexpr int UNITS = 32;                 // hidden units owned by one block
-constexpr int COLS = 4 * UNITS;           // gate columns per block (i|f|g|o)
-constexpr int VEC = 8;                    // bf16 columns per 16-byte load
-constexpr int NVEC = COLS / VEC;          // column vectors per block
-constexpr int KSPLIT = 32;                // threads sharing one vector's dot product
-constexpr int ROWS = 4;                   // batch rows per tile (one pass over W)
-
-// One row tile's epilogue: each (row, unit) of the tile sums its gate
-// columns' KSPLIT partials, applies the gates, updates c in place and
-// writes h, the activated gates and c.  Not inlined: inlined into the tile
-// loop the loop's schedule around it got worse on an H100.
-__device__ __noinline__ void tile_epilogue(const float* __restrict__ xp_t,
-                                           const float* __restrict__ red,
-                                           float* __restrict__ c, float* __restrict__ h_out,
-                                           float* __restrict__ gates_t, float* __restrict__ cs_t,
-                                           int tid, int b0, int nb, int tile, int r, int u0,
-                                           int B, int G) {
-  const int nthreads = NVEC * KSPLIT;
-  const int G4 = 4 * G;
-  for (int i = tid; i < nb * UNITS; i += nthreads) {
-    const int j = i / UNITS;
-    const int uu = i % UNITS;
-    const int u = u0 + uu;
-    if (u >= G) continue;
-    const size_t row = (size_t)r * B + b0 + j;
-    float gate[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      float s = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < KSPLIT; ++ks) s += red[(ks * tile + j) * COLS + g * UNITS + uu];
-      gate[g] = xp_t[row * G4 + (size_t)g * G + u] + s;
-    }
-    const float ig = sigmoidf_(gate[0]);
-    const float fg = sigmoidf_(gate[1]);
-    const float gg = tanhf(gate[2]);
-    const float og = sigmoidf_(gate[3]);
-    const size_t ci = row * G + u;
-    const float cn = fg * c[ci] + ig * gg;
-    c[ci] = cn;
-    h_out[ci] = og * tanhf(cn);
-    float* gr = gates_t + row * G4 + u;
-    gr[0] = ig;
-    gr[(size_t)G] = fg;
-    gr[2 * (size_t)G] = gg;
-    gr[3 * (size_t)G] = og;
-    cs_t[ci] = cn;
-  }
+// The instantiation for nb rows per chain, with or without residuals.
+template <bool RESID>
+resident_fn resident_kernel(int nb) {
+  return nb > 8 ? lstm_resident_kernel<2, RESID> : lstm_resident_kernel<1, RESID>;
 }
 
-__global__ void lstm_step_kernel(const float* __restrict__ xp_t,          // (RB, 4G)
-                                 const __nv_bfloat16* __restrict__ whh,   // (R, G, 4G)
-                                 const float* __restrict__ h_prev,        // (RB, G)
-                                 float* __restrict__ c,                   // (RB, G), in place
-                                 float* __restrict__ h_out,               // (RB, G)
-                                 float* __restrict__ gates_t,             // (RB, 4G)
-                                 float* __restrict__ cs_t,                // (RB, G)
-                                 int B, int G) {
-  extern __shared__ float smem[];
-  const int tile = min(B, ROWS);
-  float* h_s = smem;              // (B, G): bf16-rounded h_{t-1} of this chain
-  float* red = smem + B * G;      // (KSPLIT, tile, COLS) partial dot products
-
-  const int r = blockIdx.x;
-  const int u0 = blockIdx.y * UNITS;
-  const int G4 = 4 * G;
-  const int nthreads = NVEC * KSPLIT;
-  const int tid = threadIdx.y * NVEC + threadIdx.x;
-
-  const float* hp = h_prev + (size_t)r * B * G;
-  for (int i = tid; i < B * G; i += nthreads) {
-    h_s[i] = __bfloat162float(__float2bfloat16(hp[i]));
-  }
-  __syncthreads();
-
-  // this thread's 8 columns: gate q, units [ub, ub + 8) (all in or all out
-  // of range, since G % 8 == 0)
-  const int q = threadIdx.x / (UNITS / VEC);
-  const int col = q * UNITS + (threadIdx.x % (UNITS / VEC)) * VEC;  // within the block
-  const int ub = u0 + (threadIdx.x % (UNITS / VEC)) * VEC;
-  const int kper = (G + KSPLIT - 1) / KSPLIT;
-  const int k0 = threadIdx.y * kper;
-  const int k1 = min(G, k0 + kper);
-  const size_t row_stride = (size_t)G4 / VEC;  // uint4 per W_hh row
-  const uint4* w = reinterpret_cast<const uint4*>(whh + (size_t)r * G * G4 + (size_t)q * G + ub);
-
-  for (int b0 = 0; b0 < B; b0 += ROWS) {
-    const int nb = min(ROWS, B - b0);
-    float acc[ROWS][VEC];
-#pragma unroll
-    for (int j = 0; j < ROWS; ++j)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[j][e] = 0.0f;
-    if (ub < G) {
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) {
-        const uint4 raw = __ldg(w + (size_t)k * row_stride);
-        const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float wv[VEC];
-#pragma unroll
-        for (int e = 0; e < VEC / 2; ++e) {
-          const float2 f = __bfloat1622float2(pair[e]);
-          wv[2 * e] = f.x;
-          wv[2 * e + 1] = f.y;
-        }
-#pragma unroll
-        for (int j = 0; j < ROWS; ++j) {
-          if (j < nb) {
-            const float hv = h_s[(b0 + j) * G + k];
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[j][e] += hv * wv[e];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < ROWS; ++j) {
-      if (j < nb) {
-        float* dst = red + (threadIdx.y * tile + j) * COLS + col;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = acc[j][e];
-      }
-    }
-    __syncthreads();
-
-    tile_epilogue(xp_t, red, c, h_out, gates_t, cs_t, tid, b0, nb, tile, r, u0, B, G);
-    __syncthreads();  // the next tile reuses `red`
-  }
-}
-
-size_t step_smem_bytes(int B, int G) {
-  return (size_t)(B * G + KSPLIT * (B < ROWS ? B : ROWS) * COLS) * sizeof(float);
+cudaError_t resident_launch(bool resid, const float* xp, const void* whh, const float* h0, float* c,
+                            float* hs, float* hT, float* gates, float* cs, void* hx, int T, int R,
+                            int B, int G, int r0, int nr, int b0, int nb, unsigned tag0,
+                            void* stream) {
+  if (G % 8 != 0 || T < 1 || B < 1 || nb < 1 || nb > RES_ROWS || b0 < 0 || b0 + nb > B ||
+      nr < 1 || r0 < 0 || r0 + nr > R)
+    return cudaErrorInvalidValue;
+  if (G > RES_G_MAX) return cudaErrorInvalidConfiguration;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(whh);
+  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
+  void* args[] = {&xp, &w,  &h0, &c, &hs, &hT, &gates, &cs,  &hxp,
+                  &T,  &R,  &B,  &b0, &nb, &G, &r0,    &tag0};
+  const dim3 grid((G + RES_UNITS - 1) / RES_UNITS, nr);
+  const resident_fn fn = resid ? resident_kernel<true>(nb) : resident_kernel<false>(nb);
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)fn, grid, dim3(RES_THREADS), args, 0,
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -494,16 +402,13 @@ extern "C" const char* umx_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory one K4 step block needs; the wrapper holds it against the
-// device's per-block limit before it launches.
-extern "C" long long umx_lstm_step_smem(int B, int G) { return (long long)step_smem_bytes(B, G); }
-
-// K1: how many blocks of the resident kernel the current device holds at
-// once (what a cooperative launch may ask for).  Returns the first CUDA
-// error; cudaErrorInvalidConfiguration where the device has no cooperative
-// launch.
-extern "C" int umx_lstm_merged_capacity(int* blocks) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+// How many blocks of the resident kernel the current device holds at once
+// (what a cooperative launch may ask for), for K1 (resid = 0) or K4
+// (resid = 1): the smaller of the two row-tile instantiations.  Returns the
+// first CUDA error; cudaErrorInvalidConfiguration where the device has no
+// cooperative launch.
+extern "C" int umx_lstm_merged_capacity(int resid, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 1 << 30;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -511,9 +416,13 @@ extern "C" int umx_lstm_merged_capacity(int* blocks) {
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorInvalidConfiguration;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_resident_kernel<2>,
-                                                    RES_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
+  for (int nb : {8, 16}) {
+    int n = 0;
+    const resident_fn fn = resid ? resident_kernel<true>(nb) : resident_kernel<false>(nb);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, RES_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    per_sm = n < per_sm ? n : per_sm;
+  }
   *blocks = per_sm * sms;
   return (int)cudaSuccess;
 }
@@ -527,50 +436,16 @@ extern "C" int umx_lstm_merged_capacity(int* blocks) {
 extern "C" int umx_lstm_merged(const float* xp, const void* whh, const float* h0, float* c,
                                float* hs, float* hT, void* hx, int T, int R, int B, int G,
                                int r0, int nr, int b0, int nb, unsigned tag0, void* stream) {
-  if (G % VEC != 0 || T < 1 || B < 1 || nb < 1 || nb > RES_ROWS || b0 < 0 || b0 + nb > B ||
-      nr < 1 || r0 < 0 || r0 + nr > R)
-    return (int)cudaErrorInvalidValue;
-  if (G > RES_G_MAX) return (int)cudaErrorInvalidConfiguration;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(whh);
-  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
-  void* args[] = {&xp, &w, &h0, &c, &hs, &hT, &hxp, &T, &R, &B, &b0, &nb, &G, &r0, &tag0};
-  const dim3 grid((G + RES_UNITS - 1) / RES_UNITS, nr);
-  const void* fn = nb > 8 ? (const void*)lstm_resident_kernel<2>
-                          : (const void*)lstm_resident_kernel<1>;
-  cudaError_t e = cudaLaunchCooperativeKernel(fn, grid, dim3(RES_THREADS), args, 0,
-                                              static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)resident_launch(false, xp, whh, h0, c, hs, hT, nullptr, nullptr, hx, T, R, B, G, r0,
+                              nr, b0, nb, tag0, stream);
 }
 
-// K4: the whole layer, T step launches on `stream`, then hT <- hs[T-1].
-// `c` holds c0 on entry and cT on return; writes the residuals gates
-// (T, RB, 4G) and cs (T, RB, G).  Returns the first CUDA error.
+// K4: umx_lstm_merged plus the residuals gates (T, RB, 4G) and cs (T, RB, G)
+// of the launch's rows; one launch, no grid per step.
 extern "C" int umx_lstm_merged_train(const float* xp, const void* whh, const float* h0,
                                      float* c, float* hs, float* hT, float* gates, float* cs,
-                                     int T, int R, int B, int G, void* stream) {
-  if (G % VEC != 0 || B < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(R, (G + UNITS - 1) / UNITS);
-  const dim3 block(NVEC, KSPLIT);
-  const size_t smem = step_smem_bytes(B, G);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const size_t rbg = (size_t)R * B * G;
-  const size_t step_in = (size_t)R * B * 4 * G;
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(whh);
-  for (int t = 0; t < T; ++t) {
-    const float* hp = t == 0 ? h0 : hs + (size_t)(t - 1) * rbg;
-    lstm_step_kernel<<<grid, block, smem, st>>>(
-        xp + (size_t)t * step_in, w, hp, c, hs + (size_t)t * rbg,
-        gates + (size_t)t * step_in, cs + (size_t)t * rbg, B, G);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaMemcpyAsync(hT, hs + (size_t)(T - 1) * rbg, rbg * sizeof(float),
-                  cudaMemcpyDeviceToDevice, st);
-  return (int)cudaGetLastError();
+                                     void* hx, int T, int R, int B, int G, int r0, int nr, int b0,
+                                     int nb, unsigned tag0, void* stream) {
+  return (int)resident_launch(true, xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0,
+                              nb, tag0, stream);
 }

@@ -185,14 +185,15 @@ def train_loop(
     steps: int,
     batch_size: int = 4,
     params=None,
-    device="cpu",
+    device=None,
     log_every: int = 50,
     checkpoint_dir: str | None = None,
     valid_dataset: StemDataset | None = None,
     valid_every: int = 50,
     valid_batches: int = 4,
 ):
-    """Dataset → batches → train steps on one ``device``.
+    """Dataset → batches → train steps on one ``device``: the GPU unless
+    another is named (``"cpu"`` runs the kernels' plain versions).
 
     With a ``valid_dataset`` this runs the upstream open-unmix recipe:
     every ``valid_every`` steps the deterministic validation loss drives

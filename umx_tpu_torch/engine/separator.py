@@ -51,12 +51,13 @@ from umx_tpu_torch.ops.wiener import wiener_filter_masks
 _MAX_SHIFT_BATCH = 16
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; a CUDA device without a usable GPU
-    raises instead of running anywhere else."""
-    dev = torch.device(device)
+def resolve_device(device=None) -> torch.device:
+    """``torch.device`` for ``device``; None means the GPU.  A CUDA device
+    without a usable GPU raises instead of running anywhere else: the CPU
+    runs only what asks for it by name."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but torch.cuda.is_available() is False")
+        raise RuntimeError(f"device {str(dev)!r} requested but torch.cuda.is_available() is False")
     return dev
 
 
@@ -256,9 +257,10 @@ def demix_windowed_window(params: UMXParams, audio_w, state: LSTMState, tail, ta
 
 
 class Separator:
-    """Demixer holding one model's parameters on one device."""
+    """Demixer holding one model's parameters on one device: the GPU
+    unless ``device`` names another (``"cpu"`` for the plain versions)."""
 
-    def __init__(self, params: UMXParams, cfg: EngineConfig = EngineConfig(), device="cpu"):
+    def __init__(self, params: UMXParams, cfg: EngineConfig = EngineConfig(), device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # full-f32 matmuls, as the reference computes them
@@ -279,9 +281,9 @@ class Separator:
         return self._window_plans[key]
 
     @classmethod
-    def from_ggml(cls, path: str, cfg: EngineConfig | None = None, device="cpu",
+    def from_ggml(cls, path: str, cfg: EngineConfig | None = None, device=None,
                   quantized_hbm: bool = False) -> "Separator":
-        """Load ggml weights onto ``device``; the model's hidden size
+        """Load ggml weights onto ``device`` (default: the GPU); the model's hidden size
         overrides ``cfg``'s.  With ``quantized_hbm`` the u8/u16 matmul
         weights stay quantized on the device and are dequantized inside
         the matmuls (``ops/qmatmul.py``)."""

@@ -11,10 +11,12 @@ backward the dh/dc carries) in f32.
 
 - K1 :func:`lstm_merged`: the inference recurrence (``_make_merged_kernel``),
   one launch per layer with W_hh resident in registers.
-- K4 :func:`lstm_merged_train_fwd`: the same plus the residuals of the
-  backward, activated gates and c per step (``_make_merged_train_kernel``).
+- K4 :func:`lstm_merged_train_fwd`: the same kernel with a flag that also
+  writes the residuals of the backward, activated gates and c per step
+  (``_make_merged_train_kernel``).
 - K5 :func:`lstm_merged_bwd_step` and K6 :func:`lstm_merged_dw`: the
-  reverse-time sweep and the weight gradient (``_make_merged_bwd_kernel``).
+  reverse-time sweep, one resident launch per layer with W_hh in registers,
+  and the weight gradient (``_make_merged_bwd_kernel``).
 - K9 :func:`lstm_layer_pertarget`: the same function as K1 at one batch
   row in the per-target layout (T#, T, D, 4G), one launch per layer with
   each chain's W_hh and state kept on chip (``_make_kernel``, reached by
@@ -176,47 +178,38 @@ def _check_whh_vectors(whh, G: int):
         raise ValueError(f"the kernels need G % 8 == 0 and a 16-byte aligned whh (G={G})")
 
 
-def _check_step_smem(lib, B: int, G: int, device):
-    """K4 keeps h_{t-1} (B x G) in shared memory: refuse a batch the
-    device's per-block limit cannot hold, before any launch."""
-    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    if lib.umx_lstm_step_smem(B, G) > limit:
-        max_b = max((b for b in range(1, B) if lib.umx_lstm_step_smem(b, G) <= limit), default=0)
-        raise ValueError(
-            f"the recurrence kernel takes at most B = {max_b} rows per chain at G = {G} "
-            f"({limit} bytes of shared memory per block); got B = {B}"
-        )
-
-
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# The resident recurrence (K1, csrc/lstm_merged.cu): a block of 8 warps
-# owns 32 hidden units of one chain, a launch takes up to 16 rows per chain
-# (two mma n-tiles), and a warp's W_hh slice must fit 128 registers a thread.
+# The resident kernels (K1 and K4, csrc/lstm_merged.cu; K5,
+# csrc/lstm_train.cu): a block of 8 warps owns 32 hidden units of one chain,
+# a launch takes up to 16 rows per chain (two mma n-tiles), and a warp's
+# W_hh slice must fit 128 registers a thread.
 RESIDENT_UNITS = 32
 RESIDENT_ROWS = 16
 RESIDENT_G_MAX = 512
+# K5: flag words per chain (one 128-byte line, one word per producer block)
+BWD_FLAG_WORDS = 32
 
 
 def resident_blocks_per_chain(G: int) -> int:
-    """Blocks that share one chain in K1: one per 32 hidden units."""
+    """Blocks that share one chain in a resident kernel: one per 32 hidden units."""
     return -(-G // RESIDENT_UNITS)
 
 
 def resident_row_groups(B: int) -> list[tuple[int, int]]:
-    """(first row, rows) of K1's launches over B rows per chain: groups of
-    16, the last one ragged.  Rows are independent, so a row's result does
-    not depend on its group."""
+    """(first row, rows) of a resident kernel's launches over B rows per
+    chain: groups of 16, the last one ragged.  Rows are independent, so a
+    row's result does not depend on its group."""
     return [(b0, min(RESIDENT_ROWS, B - b0)) for b0 in range(0, B, RESIDENT_ROWS)]
 
 
 def resident_chain_groups(R: int, G: int, capacity: int) -> list[tuple[int, int]]:
-    """(first chain, chains) of K1's launches over R chains on a device
-    that holds ``capacity`` of its blocks at once: a launch's blocks must
-    all be resident, because a chain's blocks wait for each other.  Raises
-    where not even one chain fits."""
+    """(first chain, chains) of a resident kernel's launches over R chains
+    on a device that holds ``capacity`` of its blocks at once: a launch's
+    blocks must all be resident, because a chain's blocks wait for each
+    other.  Raises where not even one chain fits."""
     per = capacity // resident_blocks_per_chain(G)
     if per < 1:
         raise RuntimeError(
@@ -226,28 +219,102 @@ def resident_chain_groups(R: int, G: int, capacity: int) -> list[tuple[int, int]
 
 
 def resident_exchange_words(R: int, G: int) -> int:
-    """64-bit words of K1's exchange buffer: per chain two steps of 16 rows
-    of G/2 words (two bf16 values of h and the step's tag each)."""
+    """64-bit words of the forward's exchange buffer (K1, K4): per chain
+    two steps of 16 rows of G/2 words (two bf16 values of h and the step's
+    tag each)."""
     return R * 2 * RESIDENT_ROWS * (G // 2)
+
+
+def bwd_exchange_elems(R: int, G: int) -> int:
+    """bf16 elements of K5's exchange buffer: per chain two steps of 16
+    rows of 4G gate cotangents (four times the forward's h)."""
+    return R * 2 * RESIDENT_ROWS * 4 * G
+
+
+def bwd_flag_words(R: int) -> int:
+    """32-bit words of K5's flags: one line per chain, one word per block."""
+    return R * BWD_FLAG_WORDS
 
 
 _CUDA_ERROR_INVALID_CONFIGURATION = 9
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_capacity(index: int) -> int:
-    """Blocks of K1 that CUDA device ``index`` holds at once: a property
-    of the device and the built kernel, asked once."""
+def _resident_capacity(index: int, kernel: str, G: int = 0) -> int:
+    """Blocks of resident kernel ``kernel`` ("K1", "K4" or "K5", the last
+    at width G, which sets its shared memory) that CUDA device ``index``
+    holds at once: a property of the device and the built kernel, asked
+    once."""
     import ctypes
 
     blocks = ctypes.c_int(0)
+    lib = _build.library()
     with torch.cuda.device(index):
-        err = _build.library().umx_lstm_merged_capacity(ctypes.addressof(blocks))
+        if kernel == "K5":
+            err = lib.umx_lstm_bwd_capacity(G, ctypes.addressof(blocks))
+        else:
+            err = lib.umx_lstm_merged_capacity(int(kernel == "K4"), ctypes.addressof(blocks))
     if err == _CUDA_ERROR_INVALID_CONFIGURATION:
-        raise RuntimeError("umx_lstm_merged: this device has no cooperative launch, which "
-                           "the resident recurrence needs")
-    _build.check(err, "umx_lstm_merged_capacity")
+        raise RuntimeError(f"{kernel}: this device has no cooperative launch, which the "
+                           "resident recurrence needs")
+    _build.check(err, f"{kernel} capacity")
     return blocks.value
+
+
+def _check_resident_width(what: str, G: int):
+    if G > RESIDENT_G_MAX:
+        raise RuntimeError(
+            f"{what}: a warp's slice of W_hh must fit 128 registers a thread, "
+            f"G <= {RESIDENT_G_MAX}; got G = {G}")
+
+
+def _resident_plan(wrapper, kernel: str, xp, R: int, B: int, G: int):
+    """Chain groups and row groups of one layer's launches; leaves the form
+    in ``wrapper.form`` as (blocks per chain, blocks the device holds at
+    once, chain groups, row groups)."""
+    capacity = _resident_capacity(xp.device.index, kernel, G if kernel == "K5" else 0)
+    chains = resident_chain_groups(R, G, capacity)
+    rows = resident_row_groups(B)
+    wrapper.form = (resident_blocks_per_chain(G), capacity, len(chains), len(rows))
+    return [(r0, nr, b0, nb) for r0, nr in chains for b0, nb in rows]
+
+
+def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+    """K1 (``residuals`` False) or K4 on CUDA tensors, or their plain
+    versions on CPU tensors: the launches of one layer over its chain and
+    row groups, counted once in ``wrapper.launches``."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
+    route = _check(xp, [
+        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
+        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        plain = lstm_merged_train_fwd_plain if residuals else lstm_merged_plain
+        return plain(xp, whh, h0, c0, B)
+    entry = "umx_lstm_merged_train" if residuals else "umx_lstm_merged"
+    _check_whh_vectors(whh, G)
+    _check_resident_width(entry, G)
+    lib = _build.library()
+    plan = _resident_plan(wrapper, "K4" if residuals else "K1", xp, R, B, G)
+    dev = xp.device
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
+    hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    cT = c0.clone()  # the kernel updates c in place
+    hx = torch.zeros(resident_exchange_words(R, G), dtype=torch.int64, device=dev)
+    extra = ()
+    if residuals:
+        extra = (torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev),  # gates
+                 torch.empty((T, RB, G), dtype=torch.float32, device=dev))  # cs
+    for launched, (r0, nr, b0, nb) in enumerate(plan):
+        err = getattr(lib, entry)(
+            xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
+            hT.data_ptr(), *(t.data_ptr() for t in extra), hx.data_ptr(), T, R, B, G,
+            r0, nr, b0, nb, launched * T, _stream(xp),
+        )
+        _build.check(err, entry)
+    wrapper.launches += 1
+    return (hs, hT, cT, *extra)
 
 
 def lstm_merged(xp, whh, h0, c0, B: int):
@@ -261,40 +328,7 @@ def lstm_merged(xp, whh, h0, c0, B: int):
     that ran is left in ``lstm_merged.form`` as (blocks per chain, blocks
     the device holds at once, chain groups, row groups).  Increments
     ``lstm_merged.launches`` once per layer."""
-    T, R, G = _dims(xp, whh, B)
-    RB = R * B
-    route = _check(xp, [
-        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
-        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
-    ])
-    if route == "cpu":
-        return lstm_merged_plain(xp, whh, h0, c0, B)
-    _check_whh_vectors(whh, G)
-    if G > RESIDENT_G_MAX:
-        raise RuntimeError(
-            f"umx_lstm_merged: a warp's slice of W_hh (16 x G bf16) must fit 128 registers a "
-            f"thread, G <= {RESIDENT_G_MAX}; got G = {G}")
-    lib = _build.library()
-    capacity = _resident_capacity(xp.device.index)
-    chains = resident_chain_groups(R, G, capacity)
-    rows = resident_row_groups(B)
-    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
-    hT = torch.empty((RB, G), dtype=torch.float32, device=xp.device)
-    cT = c0.clone()  # the kernel updates c in place
-    hx = torch.zeros(resident_exchange_words(R, G), dtype=torch.int64, device=xp.device)
-    launched = 0
-    for r0, nr in chains:
-        for b0, nb in rows:
-            err = lib.umx_lstm_merged(
-                xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
-                hT.data_ptr(), hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, launched * T,
-                _stream(xp),
-            )
-            _build.check(err, "umx_lstm_merged")
-            launched += 1
-    lstm_merged.launches += 1
-    lstm_merged.form = (resident_blocks_per_chain(G), capacity, len(chains), len(rows))
-    return hs, hT, cT
+    return _resident_forward(lstm_merged, xp, whh, h0, c0, B, residuals=False)
 
 
 lstm_merged.launches = 0
@@ -303,39 +337,25 @@ lstm_merged.form = None
 
 def lstm_merged_train_fwd(xp, whh, h0, c0, B: int):
     """K4: :func:`lstm_merged` plus the residuals → (hs, hT, cT, gates
-    (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G)).  Counts
-    ``lstm_merged_train_fwd.launches``."""
-    T, R, G = _dims(xp, whh, B)
-    RB = R * B
-    route = _check(xp, [
-        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
-        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
-    ])
-    if route == "cpu":
-        return lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
-    _check_whh_vectors(whh, G)
-    lib = _build.library()
-    _check_step_smem(lib, B, G, xp.device)
-    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
-    cs = torch.empty_like(hs)
-    gates = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=xp.device)
-    hT = torch.empty((RB, G), dtype=torch.float32, device=xp.device)
-    cT = c0.clone()
-    err = lib.umx_lstm_merged_train(
-        xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
-        hT.data_ptr(), gates.data_ptr(), cs.data_ptr(), T, R, B, G, _stream(xp),
-    )
-    _build.check(err, "umx_lstm_merged_train")
-    lstm_merged_train_fwd.launches += 1
-    return hs, hT, cT, gates, cs
+    (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G)).  The same resident
+    kernel as K1 with the residual stores compiled in: one launch per layer
+    and group of 16 rows, any B, hs/hT/cT bit-equal to K1's; G above 512
+    raises.  Leaves its form in ``lstm_merged_train_fwd.form`` and counts
+    ``lstm_merged_train_fwd.launches`` once per layer."""
+    return _resident_forward(lstm_merged_train_fwd, xp, whh, h0, c0, B, residuals=True)
 
 
 lstm_merged_train_fwd.launches = 0
+lstm_merged_train_fwd.form = None
 
 
 def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
     """K5: the reverse-time sweep → (dxp (T, R*B, 4G), dh0, dc0), all f32.
-    Counts ``lstm_merged_bwd_step.launches`` once per sweep."""
+    One resident launch runs all T steps (and the product that gives dh0)
+    of all chains and up to 16 rows per chain; further rows and chains are
+    further launches, any B; G above 512 raises.  Leaves its form in
+    ``lstm_merged_bwd_step.form`` and counts
+    ``lstm_merged_bwd_step.launches`` once per sweep."""
     T, R, G = _dims(gates, whh, B)
     RB = R * B
     route = _check(gates, [
@@ -347,23 +367,28 @@ def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
     if route == "cpu":
         return lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
     _check_whh_vectors(whh, G)
+    _check_resident_width("umx_lstm_bwd", G)
     lib = _build.library()
     dev = gates.device
+    plan = _resident_plan(lstm_merged_bwd_step, "K5", gates, R, B, G)
     dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
     dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
     dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
-    dgbuf = torch.empty((2, RB, 4 * G), dtype=torch.bfloat16, device=dev)
-    err = lib.umx_lstm_bwd(
-        gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), whh.data_ptr(), dhs.data_ptr(),
-        dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), dgbuf.data_ptr(),
-        T, R, B, G, _stream(gates),
-    )
-    _build.check(err, "umx_lstm_bwd")
+    dgx = torch.empty(bwd_exchange_elems(R, G), dtype=torch.bfloat16, device=dev)
+    flags = torch.zeros(bwd_flag_words(R), dtype=torch.int32, device=dev)
+    for launched, (r0, nr, b0, nb) in enumerate(plan):
+        err = lib.umx_lstm_bwd(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), whh.data_ptr(), dhs.data_ptr(),
+            dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), dgx.data_ptr(),
+            flags.data_ptr(), T, R, B, G, r0, nr, b0, nb, launched * T, _stream(gates),
+        )
+        _build.check(err, "umx_lstm_bwd")
     lstm_merged_bwd_step.launches += 1
     return dxp, dh0, dc
 
 
 lstm_merged_bwd_step.launches = 0
+lstm_merged_bwd_step.form = None
 
 
 def lstm_merged_dw(hs, h0, dxp, B: int):

@@ -36,9 +36,11 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    at batch 32 (two row groups per kernel), and the trained weights
    exported as ggml and demixed through the CLI;
 7. the overlap-add kernel K7 (bit-equal and bit-stable) and the
-   Cooley-Tukey iSTFT kernel K8 against their plain versions (100 s UMX-L
-   track: 3 chunks of 60 s, M = 8 and 16 rows; 8 rows x 2584 frames and a
-   ragged 37);
+   Cooley-Tukey iSTFT kernel K8 (one launch, the overlap-add inside it)
+   against their plain versions (100 s UMX-L track: 3 chunks of 60 s,
+   M = 8 and 16 rows; 8 rows x 2584 frames, and shapes whose runs end
+   inside a row or that are shorter than the overlap-add ring: 3 and 5
+   rows x 37 frames, 1 row x 3 frames), bit-stable;
 8. the batched whole-track path: the CLI with ``--no-streaming --shifts 2
    --istft-algo ct2`` on the 100 s track, and a ``Separator`` with
    ``ola_impl="pallas"``, the ct2 iSTFT, non-streaming chunk groups at the
@@ -52,7 +54,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    batched-shift programs beside the planner's estimate, which must bound
    it;
 10. the per-target recurrence kernel K9 against its plain version and
-    against K1 at T = 2584, G = 512 and G = 256, timed beside K1;
+    against K1 at T = 2584, G = 512 and G = 256, bit-stable, with the
+    cluster form that ran (blocks per cluster, clusters the card holds at
+    once, waves: as few as the card allows), timed beside K1;
     the Wiener passes in mode "mags" (and "y") against their plain
     versions at S = 4, T = 2584, F = 2049;
 11. the catalogue path: five synthetic tracks (three of 100 s, one of
@@ -74,10 +78,11 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     PyTorch call computes the same function, that call (CUDA events,
     after warm-up), each beside its bound (bytes over 3.35 TB/s or
     operations over the peak rate, whichever is larger), the warm demix
-    times of the 100 s track, and train steps/s; K1 must be faster than
-    K9 at one row per chain, K6 no slower than ``torch.bmm`` on the same
-    operands, K4 at most twice K1 at the same shape, and K4 and K5 faster
-    than their earlier forms.
+    times of the 100 s track, and train steps/s; K6 must be no slower
+    than ``torch.bmm`` on the same operands, K8 no slower than
+    ``torch.istft``, K4 at most twice K1 at the same shape, and K4, K5, K8
+    and K9 faster than their earlier forms (K9 beside K1 at one row per
+    chain is printed, not gated).
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -123,12 +128,17 @@ HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
 # and K6 from before the recurrence became one resident launch per layer and
 # the weight gradient moved to the tensor cores (K1 then one grid launch per
 # step, K6 a CUDA-core GEMM); K4, K5 and the training rate from before K4
-# and K5 became resident launches too (then one grid per step each)
+# and K5 became resident launches too (then one grid per step each); K9 from
+# when a chain's cluster had 16 blocks with W_hh in shared memory (two waves
+# for 8 chains), K8 from when it wrote its frames to device memory and a
+# second launch overlap-added them (48 rows x 2584 frames)
 EARLIER = {"demix_s": 0.319, "batched_demix_s": 0.294, "catalogue_demix_s": 2.706,
            "train_steps_per_s": 7.250, "lstm_merged_ms": {1: 19.9261, 3: 24.6960, 6: 41.5486,
                                                           16: 8.1123},
            "lstm_merged_dw_ms": 3.9927, "lstm_merged_train_fwd_ms": 8.7091,
-           "lstm_merged_bwd_step_ms": 11.5000}
+           "lstm_merged_bwd_step_ms": 11.5000, "lstm_layer_pertarget_ms": 12.9396,
+           "istft_ct2_ms": 7.3161}
+ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
 
@@ -514,7 +524,7 @@ def check_istft_ct(dev, shapes, seed: int):
         del plain, f64
         print(f"istft_ct2 vs plain (rows={rows}, T={T}, F={F_BINS}): max|err| {err:.3g}; "
               f"vs float64 on {min(rows, 8)} rows {err64:.3g} (plain vs float64 {plain64:.3g}); "
-              f"max|sig| {sig:.3g}")
+              f"max|sig| {sig:.3g}; (runs per row, hops per run) {istft_ct_cuda.istft_ct2.form}")
         # f32 sums over 2049 bins in other orders: ~1e-7 against float64,
         # measured; 1e-5 absolute is the JAX package's own bound between
         # its CT forms on unit-normal planes
@@ -611,6 +621,11 @@ def check_pertarget(dev, T, G, seed, smi):
     out_k = L.lstm_layer_pertarget(*args)
     torch.cuda.synchronize()
     form = L.lstm_layer_pertarget.form
+    require(all(torch.equal(a, b) for a, b in zip(out_k, L.lstm_layer_pertarget(*args))),
+            f"lstm_layer_pertarget is not bit-stable from run to run at G = {G}")
+    placeable = L._pertarget_placeable(torch.cuda.current_device(), G, 8)
+    fewest = min(-(-8 // n) for cl, n in placeable.items()
+                 if L.pertarget_units_per_block(G, cl) <= L.PERTARGET_MAX_UNITS)
     out_p = L.lstm_pertarget_plain(*args)
     errs = {n: max_err(a, b) for n, a, b in zip(("hs", "hT", "cT"), out_k, out_p)}
     # the merged kernel on the same values, rows chain-major
@@ -620,7 +635,10 @@ def check_pertarget(dev, T, G, seed, smi):
     vs_k1 = max_err(out_k[0], hs1)
     print(f"lstm_layer_pertarget vs plain (T={T}, T#=4, D=2, G={G}): max|err| hs "
           f"{errs['hs']:.3g} hT {errs['hT']:.3g} cT {errs['cT']:.3g}; vs lstm_merged hs "
-          f"{vs_k1:.3g}; form (blocks per cluster, clusters at once) {form}")
+          f"{vs_k1:.3g}; bit-stable; form (blocks per cluster, clusters at once, waves) {form} "
+          f"among the clusters the card holds at once by size {placeable}")
+    require(form[2] == fewest, f"lstm_layer_pertarget ran {form[2]} wave(s) at G = {G} where the "
+            f"card allows {fewest}: {placeable}")
     # the same contract and the same argument as K1: 5e-3 absolute
     require(max(errs.values()) <= 5e-3, f"lstm_layer_pertarget disagrees with plain: {errs}")
     require(vs_k1 <= 5e-3, f"lstm_layer_pertarget disagrees with lstm_merged: {vs_k1}")
@@ -1163,12 +1181,17 @@ def planner_anchors(sep, mix, smi: str):
             else:
                 est = memory.parallel_track_hbm_bytes(cfg, width, length / SR, params)
             total = est["total"]
+            # the factor on the segment transients at which the estimate would equal the peak
+            factor = memory._TRANSIENT_FACTOR["ct2" if algo == "ct2" else "dense"]
+            needed = (peak - (total - int(est["seg_transients"] * factor))) / est["seg_transients"]
             print(f"planner anchor istft {algo}, {'streaming' if streaming else 'non-streaming'}, "
                   f"width {width}, shifts {shifts}: peak {peak} B, estimate {total} B "
-                  f"({total / peak:.3f}x)  [{smi}]")
+                  f"({total / peak:.3f}x; transient factor {factor}, {needed:.3f} would meet the "
+                  f"peak)  [{smi}]")
             require(total >= peak, f"the planner's estimate {total} is below the peak {peak}")
             rows.append({"istft": algo, "streaming": streaming, "width": width,
-                         "shifts": shifts, "peak": peak, "estimate": total})
+                         "shifts": shifts, "peak": peak, "estimate": total,
+                         "transient_factor_needed": needed})
     sep.cfg = cfg0
     return rows
 
@@ -1370,7 +1393,8 @@ def main() -> int:
     lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # two n-tiles of rows
     lstm_err = max(lstm_err, check_lstm_resident(dev))
     ola_args, ola_err = check_ola(dev)
-    istft8_args, istft_err = check_istft_ct(dev, [(ISTFT_ROWS, T_SEG), (3, 37)], seed=4)
+    istft8_args, istft_err = check_istft_ct(
+        dev, [(ISTFT_ROWS, T_SEG), (3, 37), (5, 37), (1, 3)], seed=4)
 
     with tempfile.TemporaryDirectory(prefix="umx_smoke_") as tmp:
         model, wav, mix = write_inputs(tmp)
@@ -1517,6 +1541,7 @@ def main() -> int:
     k8_args = istft_args[k8_shape]
     times["istft_ct2"] = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*k8_args), 10),
                           cuda_ms(lambda: istft_ct.istft_ct2_plain(*k8_args), 10))
+    k8_form = istft_ct_cuda.istft_ct2.form
 
     def istft_bound(rows, T):
         # planes in, signal out; a 4096-point real inverse FFT is about
@@ -1545,13 +1570,23 @@ def main() -> int:
     library["lstm_merged_dw"] = cuda_ms(lambda: torch.bmm(hp, dg), 10)
     library["istft_ct2"] = istft_library_ms(*k8_shape)
     del hp, dg
+    require(times["istft_ct2"][0] <= library["istft_ct2"],
+            f"istft_ct2 ({times['istft_ct2'][0]} ms) is slower than torch.istft "
+            f"({library['istft_ct2']} ms) at {k8_shape}")
+    if k8_shape == ISTFT_EARLIER_SHAPE:
+        require(times["istft_ct2"][0] < EARLIER["istft_ct2_ms"],
+                f"istft_ct2 ({times['istft_ct2'][0]} ms) is not faster than its earlier form "
+                f"({EARLIER['istft_ct2_ms']} ms)")
     istft8 = (ISTFT_ROWS, T_SEG)
     if istft8 in istft_args and istft8 != k8_shape:
         k8 = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*istft_args[istft8]), 10),
               cuda_ms(lambda: istft_ct.istft_ct2_plain(*istft_args[istft8]), 10))
+        k8_lib = istft_library_ms(*istft8)
         print(f"istft_ct2 at {istft8[0]} rows x {istft8[1]} frames: kernel {k8[0]:.4f} ms, plain "
-              f"{k8[1]:.4f} ms, torch.istft {istft_library_ms(*istft8):.4f} ms, bound "
+              f"{k8[1]:.4f} ms, torch.istft {k8_lib:.4f} ms, bound "
               f"{istft_bound(*istft8)[0]:.4f} ms  [{smi}]")
+        require(k8[0] <= k8_lib, f"istft_ct2 ({k8[0]} ms) is slower than torch.istft "
+                f"({k8_lib} ms) at {istft8}")
 
     k1_path = {bt: (cuda_ms(lambda: L.lstm_merged(*a), 5),
                     cuda_ms(lambda: L.lstm_merged_plain(*a), 2))
@@ -1573,12 +1608,15 @@ def main() -> int:
           f"{lstm_bound(T_TRAIN, rows_t, G_HIDDEN, lstm16_args[:4])[0]:.4f} ms  [{smi}]")
     k1_ms, k9_now = times["lstm_merged"][0], times["lstm_layer_pertarget"][0]
     print(f"lstm_merged at one row per chain {k1_ms:.4f} ms (earlier form "
-          f"{EARLIER['lstm_merged_ms'][1]}) against lstm_layer_pertarget {k9_now:.4f} ms; "
+          f"{EARLIER['lstm_merged_ms'][1]}) against lstm_layer_pertarget {k9_now:.4f} ms (earlier "
+          f"form {EARLIER['lstm_layer_pertarget_ms']}; form {k9_form}; "
+          f"{'K9' if k9_now < k1_ms else 'K1'} is the faster at one row per chain); "
           f"lstm_merged_dw {times['lstm_merged_dw'][0]:.4f} ms (earlier form "
           f"{EARLIER['lstm_merged_dw_ms']}) against torch.bmm f32 "
           f"{library['lstm_merged_dw']:.4f} ms  [{smi}]")
-    require(k1_ms < k9_now, f"lstm_merged ({k1_ms} ms) is not faster than lstm_layer_pertarget "
-            f"({k9_now} ms) at one row per chain")
+    require(k9_now < EARLIER["lstm_layer_pertarget_ms"],
+            f"lstm_layer_pertarget ({k9_now} ms) is not faster than its earlier form "
+            f"({EARLIER['lstm_layer_pertarget_ms']} ms)")
     require(times["lstm_merged_dw"][0] <= library["lstm_merged_dw"],
             f"lstm_merged_dw ({times['lstm_merged_dw'][0]} ms) is slower than torch.bmm "
             f"({library['lstm_merged_dw']} ms)")
@@ -1593,13 +1631,16 @@ def main() -> int:
     require(k4_ms < EARLIER["lstm_merged_train_fwd_ms"]
             and k5_ms < EARLIER["lstm_merged_bwd_step_ms"],
             f"K4 ({k4_ms} ms) or K5 ({k5_ms} ms) is not faster than its earlier form")
+    ola16_bound = bound_ms(nbytes(*ola_args[16][:2]) + 16 * ola_len * 4, 2.0 * 16 * ola_len, "f32")
     print(f"ola_normalized at M=16 (two shift rows): kernel {ola16[0]:.4f} ms, plain "
-          f"{ola16[1]:.4f} ms  [{smi}]")
+          f"{ola16[1]:.4f} ms, bound {ola16_bound[0]:.4f} ms by {ola16_bound[1]}  [{smi}]")
     for (B, T), (k, p) in k1_path.items():
         print(f"lstm_merged at a path's shape (T={T}, B={B}): kernel {k:.4f} ms (earlier form "
               f"{EARLIER['lstm_merged_ms'].get(B)}), plain {p:.4f} ms, bound "
               f"{lstm_bound(T, R_CHAINS * B, G_HIDDEN, path_lstm_args[B, T][:4])[0]:.4f} ms  [{smi}]")
-    print(f"istft_ct2 timed at the batched path's shape (rows={k8_shape[0]}, T={k8_shape[1]})")
+    print(f"istft_ct2 timed at the batched path's shape (rows={k8_shape[0]}, T={k8_shape[1]}): "
+          f"{times['istft_ct2'][0]:.4f} ms (earlier form {EARLIER['istft_ct2_ms']} at "
+          f"{ISTFT_EARLIER_SHAPE}), one launch, (runs per row, hops per run) {k8_form}")
 
     wsrc, wrep = "umx_tpu_torch/csrc/wiener.cu", "umx_tpu/ops/wiener_pallas.py"
     meta = {

@@ -442,11 +442,15 @@ def test_ola_kernel_refuses_what_it_cannot_take(dev):
         ola_cuda.ola_normalized(ys, torch.zeros(3 * 384 + 128), 384)
 
 
-@pytest.mark.parametrize("rows, T, windowed", [(1, 1, True), (3, 37, True), (5, 9, False),
-                                               (2, 200, True)])
+@pytest.mark.parametrize("rows, T, windowed", [
+    (1, 1, True), (3, 37, True), (5, 9, False), (2, 200, True), (1, 1, False), (1, 3, True),
+    (1, 3, False), (3, 37, False), (5, 9, True), (48, 130, True), (48, 130, False), (500, 2, True),
+])
 def test_istft_ct_kernel_matches_plain(dev, rows, T, windowed):
     """K8 at ragged frame counts against its plain version (cuFFT irfft
-    and the same overlap-add) and a float64 CPU reference."""
+    and the same overlap-add) and a float64 CPU reference: rows shorter
+    than the overlap-add ring, runs that end inside a row, more rows than
+    the card holds blocks; one launch, the same bits from run to run."""
     from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
     from umx_tpu_torch.ops.stft import hann_window
 
@@ -459,6 +463,8 @@ def test_istft_ct_kernel_matches_plain(dev, rows, T, windowed):
     torch.cuda.synchronize()
     assert istft_ct_cuda.istft_ct2.launches == before + 1
     assert out.shape == (rows, (T - 1) * 1024 + 4096)
+    per_row, hops_per_run = istft_ct_cuda.istft_ct2.form
+    assert per_row * hops_per_run >= T + 3 > (per_row - 1) * hops_per_run
     plain = istft_ct.istft_ct2_plain(re, im, 4096, 1024, w)
     f64 = istft_ct.istft_ct2_plain(re.cpu().double(), im.cpu().double(), 4096, 1024,
                                    w.cpu().double() if windowed else None)
@@ -466,6 +472,25 @@ def test_istft_ct_kernel_matches_plain(dev, rows, T, windowed):
     assert (out - plain).abs().max().item() <= 1e-5
     assert (out.cpu().double() - f64).abs().max().item() <= 1e-6
     assert torch.equal(out, istft_ct_cuda.istft_ct2(re, im, 4096, 1024, w))
+
+
+def test_istft_ct_kernel_allocates_no_frames_buffer(dev):
+    """One launch keeps every frame on chip: beyond its inputs the call
+    holds the output signal and nothing of the frames' size."""
+    from umx_tpu_torch.ops import istft_ct_cuda
+
+    rows, T = 8, 300
+    re = torch.randn((rows, T, 2049), device=dev)
+    im = torch.randn((rows, T, 2049), device=dev)
+    istft_ct_cuda.istft_ct2(re, im, 4096, 1024)  # the table and the capacity are cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = istft_ct_cuda.istft_ct2(re, im, 4096, 1024)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    frames = rows * T * 4096 * 4
+    assert extra < out.numel() * 4 + frames // 8, (extra, frames)
 
 
 def test_istft_ct_kernel_refuses_other_geometry(dev):
@@ -534,15 +559,15 @@ def _pertarget_inputs(dev, T, G, seed, n_targets=4, D=2):
 
 
 @pytest.mark.parametrize("G", [64, 256, 512])
-@pytest.mark.parametrize("T", [1, 37, 300])
+@pytest.mark.parametrize("T", [1, 2, 37, 300])
 def test_pertarget_lstm_kernel_matches_plain(dev, G, T):
     args = _pertarget_inputs(dev, T, G, seed=G + T)
     before = lstm_cuda.lstm_layer_pertarget.launches
     out_k = lstm_cuda.lstm_layer_pertarget(*args)
     torch.cuda.synchronize()
     assert lstm_cuda.lstm_layer_pertarget.launches == before + 1
-    cluster, active = lstm_cuda.lstm_layer_pertarget.form
-    assert cluster >= 1 and active >= 1
+    cluster, held, waves = lstm_cuda.lstm_layer_pertarget.form
+    assert cluster >= 1 and held >= 1 and waves == -(-8 // held)
     out_p = lstm_cuda.lstm_pertarget_plain(*args)
     # as the merged kernel: bf16 operands, f32 sums in another order; a
     # flipped bf16 rounding of h moves a gate by ~1e-3 at most
@@ -553,19 +578,43 @@ def test_pertarget_lstm_kernel_matches_plain(dev, G, T):
     assert torch.equal(args[3], _pertarget_inputs(dev, T, G, seed=G + T)[3])
 
 
-@pytest.mark.parametrize("G", [16, 40, 72, 128, 200, 640])
+@pytest.mark.parametrize("G", [16, 40, 72, 128, 200, 256, 512, 640])
 def test_pertarget_lstm_kernel_cluster_sizes(dev, G):
-    """Widths that take each cluster size from 1 to 16 blocks, some with a
-    last block that owns fewer units than the others or none (G = 72 in
-    two blocks of 40, G = 200 in four of 56): idle blocks still keep the
-    barriers."""
-    args = _pertarget_inputs(dev, 29, G, seed=11, n_targets=2, D=2)
+    """Widths that take clusters from 1 to 16 blocks, some with a last
+    block that owns fewer units than the others (G = 72 in two blocks of
+    40): idle warps and blocks still keep the barriers.  The form that ran
+    is the chooser's pick among what the device reports, and the result
+    has the same bits from run to run."""
+    n_targets, D = 2, 2
+    args = _pertarget_inputs(dev, 29, G, seed=11, n_targets=n_targets, D=D)
     ref = lstm_cuda.lstm_pertarget_plain(*args)
     out = lstm_cuda.lstm_layer_pertarget(*args)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_layer_pertarget.form[0] in (1, 2, 4, 8, 16)
+    cluster, held, waves = lstm_cuda.lstm_layer_pertarget.form
+    placeable = lstm_cuda._pertarget_placeable(dev.index or 0, G, n_targets * D)
+    assert placeable[cluster] == held and waves == -(-n_targets * D // held)
+    assert (cluster, lstm_cuda.pertarget_units_per_block(G, cluster), waves) == (
+        lstm_cuda.pertarget_cluster_choice(G, n_targets * D, placeable))
+    assert all(1 <= cl <= 16 and n >= 1 for cl, n in placeable.items())
     for k, p in zip(out, ref):
         assert (k - p).abs().max().item() <= 5e-3
+    again = lstm_cuda.lstm_layer_pertarget(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))
+
+
+def test_pertarget_lstm_kernel_is_bit_stable_at_the_segment_shape(dev):
+    """UMX-L's 8 chains at G = 512: fixed order of every sum, so two runs
+    agree bit for bit; and they run in as few waves as the device allows."""
+    args = _pertarget_inputs(dev, 300, 512, seed=5)
+    a = lstm_cuda.lstm_layer_pertarget(*args)
+    b = lstm_cuda.lstm_layer_pertarget(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    cluster, held, waves = lstm_cuda.lstm_layer_pertarget.form
+    placeable = lstm_cuda._pertarget_placeable(dev.index or 0, 512, 8)
+    fewest = min(-(-8 // n) for cl, n in placeable.items()
+                 if lstm_cuda.pertarget_units_per_block(512, cl) <= lstm_cuda.PERTARGET_MAX_UNITS)
+    assert waves == fewest
 
 
 def test_pertarget_lstm_kernel_agrees_with_the_merged_kernel(dev):
@@ -578,7 +627,8 @@ def test_pertarget_lstm_kernel_agrees_with_the_merged_kernel(dev):
 
 def test_pertarget_lstm_kernel_refuses_what_it_cannot_take(dev):
     before = lstm_cuda.lstm_layer_pertarget.launches
-    # 1024 / 16 units x 4 gates x 1024 x 2 bytes do not fit one block's shared memory
+    # a block of 64 units cannot hold its share of 1024 x 4096 bf16 in registers and
+    # shared memory
     with pytest.raises(RuntimeError, match="no cluster of up to 16 blocks"):
         lstm_cuda.lstm_layer_pertarget(*_pertarget_inputs(dev, 3, 1024, seed=1, n_targets=1, D=1))
     x_proj, whh, h0, c0 = _pertarget_inputs(dev, 3, 512, seed=1, n_targets=1, D=1)

@@ -49,12 +49,21 @@ def test_parallel_track_terms_equal_jax(width, batch, secs):
 
 
 def test_ct2_counts_the_whole_frames_buffer():
+    """What the planner counts of the iSTFT frames: the dense inverse a
+    quarter of them, the ct2 kernel none (it once kept the whole buffer
+    between two launches; it now overlap-adds on chip and has no frames in
+    device memory), and the other terms are the same for both."""
     _, tcfg = _cfgs()
     ct2 = dataclasses.replace(tcfg, dsp=DSPConfig(istft_algo="ct2"))
     t = tcfg.dsp.n_frames(tcfg.segment.segment_samples(44100))
     frames = 4 * 2 * t * 4096 * 4
-    assert (memory._segment_transient_bytes(ct2) - memory._segment_transient_bytes(tcfg)
-            == frames - frames // 4)
+    planes = (2 * 4 * 2 + 2 * 2 + 4 * 2) * t * 2049 * 4  # y, mix, masks
+    assert memory._segment_transient_bytes(ct2) == planes
+    assert memory._segment_transient_bytes(tcfg) == planes + frames // 4
+    # the ct2 estimate of a track is below the dense one by its rows' frames share
+    dense_est = memory.parallel_track_hbm_bytes(tcfg, 2, 100.0)
+    ct2_est = memory.parallel_track_hbm_bytes(ct2, 2, 100.0)
+    assert ct2_est["seg_transients"] == dense_est["seg_transients"] - 2 * (frames // 4)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 3])

@@ -250,9 +250,23 @@ def test_make_batch_from_audio_matches_jax(cfgs):
     mix = rng.standard_normal((2, 2, n)).astype(np.float32) * 0.1
     targets = rng.standard_normal((2, 4, 2, n)).astype(np.float32) * 0.05
     ref = jmake_batch(mix, targets, jcfg, JDSPConfig(), seq_len)
-    ours = ttrain.make_batch_from_audio(mix, targets, tcfg, DSPConfig(), seq_len)
+    ours = ttrain.make_batch_from_audio(mix, targets, tcfg, DSPConfig(), seq_len, "cpu")
     for k, r in ref.items():
         r = np.asarray(r)
         assert ours[k].shape == r.shape, k
         # f32 FFTs with different summation orders (as test_torch_stft.py)
         assert np.max(np.abs(ours[k].numpy() - r)) <= 1e-4 * np.max(np.abs(r)), k
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_make_batch_from_audio_defaults_to_the_card_and_raises_without_one(cfgs, device, monkeypatch):
+    """The batch's STFTs run on the GPU unless the CPU is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = cfgs
+    mix = np.zeros((1, 2, 4096), np.float32)
+    targets = np.zeros((1, 4, 2, 4096), np.float32)
+    args = (mix, targets, tcfg, DSPConfig(), 4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ttrain.make_batch_from_audio(*args) if device is None else ttrain.make_batch_from_audio(
+            *args, device)
+    assert ttrain.make_batch_from_audio(*args, "cpu")["x"].shape[:2] == (1, 4)

@@ -49,8 +49,10 @@ _SIGNATURES = {
     # stream
     "umx_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _U, _P],
-    # xp, whh, h0, c0, hs, hT, cT, T, n_targets, D, G, chosen, stream
-    "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # G, R, held (out, 17 ints)
+    "umx_lstm_pertarget_clusters": [_I, _I, _P],
+    # xp, whh, h0, c0, hs, hT, cT, T, n_targets, D, G, CL, U, stream
+    "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # hs, h0, dxp, dw, T, R, B, G, stream
     "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # mode, a_re, a_im, masks, inv_ma, partials, racc, T, F, t_chunk, stream
@@ -59,8 +61,10 @@ _SIGNATURES = {
     "umx_wiener_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # ys, inv_sw, out, n_chunks, M, seg, stride, L, stream
     "umx_ola_normalized": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # re, im, table, window, frames, out, rows, T, F, N, hop, grid, stream
-    "umx_istft_ct2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # blocks (out)
+    "umx_istft_ct2_capacity": [_P],
+    # re, im, table, window, out, rows, T, F, N, hop, runs_per_row, hops_per_run, stream
+    "umx_istft_ct2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

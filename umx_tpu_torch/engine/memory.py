@@ -18,8 +18,9 @@ transients are live together.  How the port differs:
   float32);
 * parameter bytes are exact when the parameters are given, quantized
   ones counted at their stored size;
-* with ``istft_algo="ct2"`` the segment transients count the whole
-  frames buffer of the iSTFT kernel (the dense path keeps a quarter);
+* with ``istft_algo="ct2"`` the segment transients count no iSTFT frames:
+  the kernel overlap-adds on chip and writes only the signal (the dense
+  path keeps a quarter of the frames, as the JAX package counts it);
 * the fitted factors are anchored on an H100, one transient factor per
   iSTFT algorithm (``chip_smoke.py`` prints the measured peaks beside
   these estimates; PERF.md keeps them).
@@ -42,10 +43,11 @@ from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words
 # projections of all three LSTM layers, the per-row Wiener outputs).
 # Fitted on an H100 80GB HBM3 at 700 W from the UMX-L peaks
 # (torch.cuda.max_memory_allocated) of a 100 s track at widths 1-3 and two
-# batched shifts, streaming or not: the dense inverse needs 2.93 to 3.03
-# times its per-row term, the ct2 inverse 1.12 to 1.19 times its own
-# (which counts the whole frames buffer); each factor bounds them all.
-_TRANSIENT_FACTOR = {"dense": 3.2, "ct2": 1.3}
+# batched shifts, streaming or not: the dense inverse needs 2.91 to 3.01
+# times its per-row term, the ct2 inverse 1.37 to 1.69 times its own (which
+# counts no frames: with the frames buffer gone the Wiener stage holds its
+# peak, and one row alone needs the most); each factor bounds them all.
+_TRANSIENT_FACTOR = {"dense": 3.2, "ct2": 1.75}
 # Resident bytes over the raw float32 parameter bytes: 452,427,776
 # allocated for UMX-L's 452,424,832 (the caching allocator's rounding),
 # on the same card.
@@ -93,16 +95,15 @@ def params_hbm_bytes(cfg: EngineConfig, params=None) -> int:
 def _segment_transient_bytes(cfg: EngineConfig) -> int:
     """Bytes of one segment row's pipeline tensors: Wiener y planes,
     masks, mix spectrogram planes and the iSTFT frames (a quarter share
-    for the dense inverse, as the JAX package counts it; the whole buffer
-    for the ct2 kernel, which keeps it until its overlap-add launch)."""
+    for the dense inverse, as the JAX package counts it; none for the ct2
+    kernel, which keeps no frame in device memory)."""
     s = cfg.model.n_targets
     t = cfg.dsp.n_frames(cfg.segment.segment_samples(cfg.dsp.sample_rate))
     f = cfg.dsp.n_bins
     y_planes = 2 * s * 2 * t * f * _F32
     mix_planes = 2 * 2 * t * f * _F32
     masks = s * t * 2 * f * _F32
-    frames = s * 2 * t * cfg.dsp.n_fft * _F32
-    frames_share = frames if cfg.dsp.istft_algo == "ct2" else frames // 4
+    frames_share = 0 if cfg.dsp.istft_algo == "ct2" else s * 2 * t * cfg.dsp.n_fft * _F32 // 4
     return y_planes + mix_planes + masks + frames_share
 
 

@@ -19,8 +19,8 @@ backward the dh/dc carries) in f32.
   and the weight gradient (``_make_merged_bwd_kernel``).
 - K9 :func:`lstm_layer_pertarget`: the same function as K1 at one batch
   row in the per-target layout (T#, T, D, 4G), one launch per layer with
-  each chain's W_hh and state kept on chip (``_make_kernel``, reached by
-  ``lstm_layer_pallas``).
+  each chain on a thread-block cluster that keeps its W_hh and state on
+  chip (``_make_kernel``, reached by ``lstm_layer_pallas``).
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count per
@@ -479,16 +479,76 @@ def lstm_pertarget_plain(x_proj, whh, h0, c0):
     return hs, h, c
 
 
+# K9 (csrc/lstm_pertarget.cu): a cluster of up to 16 blocks per chain, a
+# block of 16 warps that own 4 hidden units each.
+PERTARGET_MAX_CLUSTER = 16
+PERTARGET_WARP_UNITS = 4
+PERTARGET_MAX_UNITS = 64
+PERTARGET_MIN_UNITS = 32
+
+
+def pertarget_units_per_block(G: int, cluster: int) -> int:
+    """Hidden units a block of a ``cluster``-block chain owns: an even
+    share of G, rounded up to a warp's 4."""
+    per = -(-G // cluster)
+    return -(-per // PERTARGET_WARP_UNITS) * PERTARGET_WARP_UNITS
+
+
+def pertarget_cluster_choice(G: int, R: int, placeable, max_units: int = PERTARGET_MAX_UNITS):
+    """The cluster K9 runs R chains of width G on → (blocks per cluster,
+    units per block, waves).
+
+    ``placeable`` maps a cluster size to the number of such clusters the
+    device holds at once (0 or missing: it cannot); ``max_units`` is the
+    most units a block of the kernel can own.  No size leaves a block
+    fewer than 32 units (a cluster of one block takes any G up to
+    ``max_units``).  Among the sizes that hold a chain the one with the
+    fewest waves wins, then the fewest units per block (the shortest
+    step), then the fewest blocks.  Raises by name where no size holds a
+    chain."""
+    best = None
+    for cluster in range(1, PERTARGET_MAX_CLUSTER + 1):
+        held = int(placeable.get(cluster, 0))
+        units = pertarget_units_per_block(G, cluster)
+        if held < 1 or units > max_units or cluster > max(1, G // PERTARGET_MIN_UNITS):
+            continue
+        key = (-(-R // held), units, cluster)
+        if best is None or key < best:
+            best = key
+    if best is None:
+        raise RuntimeError(
+            f"umx_lstm_pertarget: no cluster of up to {PERTARGET_MAX_CLUSTER} blocks holds one "
+            f"chain's W_hh (G x 4G bf16 = {G * 4 * G * 2} bytes at G = {G}) on this device: "
+            f"clusters held at once by size {dict(placeable)}")
+    waves, units, cluster = best
+    return cluster, units, waves
+
+
+@functools.lru_cache(maxsize=None)
+def _pertarget_placeable(index: int, G: int, R: int) -> dict[int, int]:
+    """{cluster size: clusters of K9 that CUDA device ``index`` holds at
+    once} for R chains of width G, sizes the kernel cannot take left out:
+    a property of the device and the built kernel, asked once."""
+    import ctypes
+
+    held = (ctypes.c_int * (PERTARGET_MAX_CLUSTER + 1))()
+    with torch.cuda.device(index):
+        err = _build.library().umx_lstm_pertarget_clusters(G, R, ctypes.addressof(held))
+    _build.check(err, "umx_lstm_pertarget_clusters")
+    return {cl: held[cl] for cl in range(1, PERTARGET_MAX_CLUSTER + 1) if held[cl] > 0}
+
+
 def lstm_layer_pertarget(x_proj, whh, h0, c0):
     """K9: one BLSTM layer's recurrence for all targets and directions at
     one batch row, one kernel launch for all T steps (see module docstring).
 
     x_proj (T#, T, D, 4G) f32, whh (T#, D, G, 4G) bf16, h0/c0 (T#, D, G)
     f32 → (hs (T#, T, D, G), hT, cT).  Each chain runs on a thread-block
-    cluster that keeps its W_hh in shared memory; the kernel picks the
-    cluster size for the device and raises where no size holds a chain's
-    W_hh.  The size that ran is left in ``lstm_layer_pertarget.form`` as
-    (blocks per cluster, clusters the device holds at once).  Increments
+    cluster that keeps its W_hh in registers and shared memory;
+    :func:`pertarget_cluster_choice` picks the cluster size among those
+    the device can place and raises where none holds a chain's W_hh.  The
+    form that ran is left in ``lstm_layer_pertarget.form`` as (blocks per
+    cluster, clusters the device holds at once, waves).  Increments
     ``lstm_layer_pertarget.launches`` once per kernel launch."""
     if x_proj.dim() != 4:
         raise ValueError(f"expected x_proj (T#, T, D, 4G), got shape {tuple(x_proj.shape)}")
@@ -506,26 +566,19 @@ def lstm_layer_pertarget(x_proj, whh, h0, c0):
     if route == "cpu":
         return lstm_pertarget_plain(x_proj, whh, h0, c0)
     _check_whh_vectors(whh, G)
-    import ctypes
-
-    lib = _build.library()
     dev = x_proj.device
+    placeable = _pertarget_placeable(dev.index, G, n_targets * D)
+    cluster, units, waves = pertarget_cluster_choice(G, n_targets * D, placeable)
     hs = torch.empty((n_targets, T, D, G), dtype=torch.float32, device=dev)
     hT = torch.empty((n_targets, D, G), dtype=torch.float32, device=dev)
     cT = torch.empty((n_targets, D, G), dtype=torch.float32, device=dev)
-    chosen = (ctypes.c_int * 2)()
-    err = lib.umx_lstm_pertarget(
+    err = _build.library().umx_lstm_pertarget(
         x_proj.data_ptr(), whh.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-        hT.data_ptr(), cT.data_ptr(), T, n_targets, D, G, ctypes.addressof(chosen),
-        _stream(x_proj),
+        hT.data_ptr(), cT.data_ptr(), T, n_targets, D, G, cluster, units, _stream(x_proj),
     )
-    if err == _CUDA_ERROR_INVALID_CONFIGURATION:
-        raise RuntimeError(
-            f"umx_lstm_pertarget: no cluster of up to 16 blocks holds one chain's W_hh "
-            f"(G x 4G bf16 = {G * G4 * 2} bytes at G = {G}) in this device's shared memory")
     _build.check(err, "umx_lstm_pertarget")
     lstm_layer_pertarget.launches += 1
-    lstm_layer_pertarget.form = (chosen[0], chosen[1])
+    lstm_layer_pertarget.form = (cluster, placeable[cluster], waves)
     return hs, hT, cT
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from umx_tpu_torch.config import ModelConfig
-from umx_tpu_torch.engine.separator import apply_masks
+from umx_tpu_torch.engine.separator import apply_masks, resolve_device
 from umx_tpu_torch.models.umx import (
     LSTMState,
     UMXParams,
@@ -223,10 +223,13 @@ def export_ggml(params: UMXParams, path: str, cfg: ModelConfig) -> None:
 
 
 def make_batch_from_audio(audio_mix, audio_targets, cfg: ModelConfig, dsp_cfg, seq_len: int,
-                          device="cpu") -> dict:
+                          device=None) -> dict:
     """A training batch from raw audio: audio_mix (B, 2, n), audio_targets
     (B, T#, 2, n) → the ``mask_loss`` batch on ``device``, cut to
-    ``seq_len`` frames."""
+    ``seq_len`` frames.  The STFTs of the whole batch run there: the
+    default is the GPU, which raises without one; the CPU runs it only
+    when asked for by name."""
+    device = resolve_device(device)
     mix = torch.as_tensor(np.asarray(audio_mix, np.float32), device=device)
     targets = torch.as_tensor(np.asarray(audio_targets, np.float32), device=device)
     mix_mag = stft_magnitude(mix, dsp_cfg)  # (B, 2, T, F)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The forms of the reverse-sweep kernel K5 and of the per-target recurrence
-K9 that were tried beside the ones kept, and where a step of each kept form
-goes.
+"""The forms of the reverse-sweep kernel K5, of the per-target recurrence
+K9, of the overlap-add K7 and of the Wiener reduce K2 that were tried beside
+the ones kept, and where a step of each kept recurrence goes.
 
-    python3 chip_forms.py [k5] [k9]      (both when none is named)
+    python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce]   (all when none is named)
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -15,13 +15,23 @@ counters (``clock64`` of one thread of one block): the phases of a step.
 The same for ``umx_tpu_torch/csrc/lstm_pertarget.cu`` at the UMX-L segment
 shape (T = 2584, 8 chains, one row) at G = 512 and G = 256: the kept form at
 every cluster size the card can place, the variants, and the phases of a
-step.  A measurement aid beside ``chip_smoke.py``, not a check.  Needs one
-CUDA GPU and exits non-zero without one.
+step.  ``ola``: variants of ``csrc/ola.cu`` and its earlier form (one
+output sample a thread, rows on the grid's y axis), each bit-equal to the
+plain version, timed in turns at the 100 s track's shape (3 chunks of 60 s,
+M = 8 and 16 rows), the kept form also with half and twice its grid and in
+scalars.  ``wiener_reduce``: variants of ``csrc/wiener.cu``'s reduce and its
+earlier form (pass 1 over 128-bin x 64-row blocks, a second launch summing
+the partials), held to the kept form's bits (the earlier form, another
+order of summation, within 1e-5), timed in turns in the three input modes
+at the UMX-L segment shape (S = 4, T = 2584, F = 2049).  A measurement aid
+beside ``chip_smoke.py``, not a check.  Needs one CUDA GPU and exits
+non-zero without one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 
@@ -181,7 +191,13 @@ extern "C" int umx_prof_read(unsigned long long* out) {
 
 def build_all(texts: dict[str, str], entries=("umx_lstm_bwd",),
               tag: str = "form") -> dict[str, ctypes.CDLL]:
+    """Each text built into its own library; ``entries`` are the entry
+    points to bind, by name (the argtypes of ``_build``) or as a dict of
+    name -> argtypes; a library binds those of them it has."""
     from umx_tpu_torch import _build
+
+    if not isinstance(entries, dict):
+        entries = {entry: _build._SIGNATURES[entry] for entry in entries}
 
     out_dir = _build.BUILD_DIR.parent / "chip_forms"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -198,16 +214,18 @@ def build_all(texts: dict[str, str], entries=("umx_lstm_bwd",),
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on the form {name!r}:\n{log[-3000:]}")
-        # the two K5 instantiations come first in the file, K6 last
+        # in the order of the kernels in the file (lstm_train.cu: the two K5
+        # instantiations, then K6)
         regs = [line.split("Used ")[1].split(" registers")[0] for line in log.splitlines()
                 if "Used " in line and " registers" in line]
         spills = sum("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
                      for line in log.splitlines())
-        print(f"{name}: registers {'/'.join(regs[:2])}, kernels with spills {spills}", flush=True)
+        print(f"{name}: registers {'/'.join(regs)}, kernels with spills {spills}", flush=True)
         lib = ctypes.CDLL(str(so))
-        for entry in entries:
-            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
-            getattr(lib, entry).restype = ctypes.c_int
+        for entry, argtypes in entries.items():
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -433,6 +451,378 @@ def bwd_forms(dev, smi: str) -> None:
             + f"; sum {sum(counters[:6]) / n:.0f}", flush=True)
 
 
+# K7's earlier form: one output sample of one row a thread, grid
+# (ceil(L / 256), M) with the rows on y
+OLA_EARLIER = """#include <cuda_runtime.h>
+namespace {
+constexpr int BLOCK = 256;
+__global__ void ola_normalized_kernel(const float* __restrict__ ys, const float* __restrict__ inv_sw,
+                                      float* __restrict__ out, int n_chunks, int M, int seg,
+                                      int stride, int L) {
+  const int n = blockIdx.x * BLOCK + threadIdx.x;
+  if (n >= L) return;
+  const int m = blockIdx.y;
+  const int tail = seg - stride;
+  const int k = n / stride;
+  const int j = n - k * stride;
+  float v;
+  if (k < n_chunks) {
+    const float head = ys[((size_t)k * M + m) * seg + j];
+    const float prev = (k > 0 && j < tail) ? ys[((size_t)(k - 1) * M + m) * seg + stride + j] : 0.0f;
+    v = __fadd_rn(head, prev);
+  } else {
+    v = ys[((size_t)(n_chunks - 1) * M + m) * seg + stride + j];
+  }
+  out[(size_t)m * L + n] = __fmul_rn(v, inv_sw[n]);
+}
+}  // namespace
+extern "C" int umx_ola_earlier(const float* ys, const float* inv_sw, float* out, int n_chunks, int M,
+                               int seg, int stride, int L, void* stream) {
+  const dim3 grid((L + BLOCK - 1) / BLOCK, M);
+  ola_normalized_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      ys, inv_sw, out, n_chunks, M, seg, stride, L);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+# K7 with the rows outside: a warp walks its share once a row, so that it
+# has three streams (head, tail, out) open at a time, and reads inv_sw
+# through L1/L2 once a row
+OLA_ROWS_OUTER = """template <int V>
+__device__ __forceinline__ typename Vec<V>::T ld_cached(const float* p);
+template <>
+__device__ __forceinline__ float ld_cached<1>(const float* p) { return __ldg(p); }
+template <>
+__device__ __forceinline__ float4 ld_cached<4>(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+template <int V>
+__device__ __forceinline__ void ola_share(const float* __restrict__ ys,
+                                          const float* __restrict__ inv_sw,
+                                          float* __restrict__ out, int n_chunks, int M, int seg,
+                                          int stride, int L, int a, int b, int lane) {
+  using W = Vec<V>;
+  const int tail = seg - stride;
+  const size_t chunk_step = (size_t)M * seg;
+  for (int m = 0; m < M; ++m) {
+    for (int n = a; n < b;) {
+      const int k = n / stride;
+      const int k0 = k * stride;
+      const int e = k < n_chunks ? min(b, k0 + stride) : b;
+      const float* head_run = ys + (size_t)k * chunk_step + (size_t)m * seg - k0;
+      const float* prev_run = ys + (size_t)(k - 1) * chunk_step + (size_t)m * seg + stride - k0;
+      float* out_row = out + (size_t)m * L;
+#pragma unroll 4
+      for (int s = n + lane * V; s < e; s += 32 * V) {
+        const bool has_prev = k > 0 && s - k0 < tail;
+        const typename W::T inv = ld_cached<V>(inv_sw + s);
+        const typename W::T p = has_prev ? W::ld(prev_run + s) : W::zero();
+        if (k < n_chunks) {
+          W::st(out_row + s, W::combine(W::ld(head_run + s), p, inv));
+        } else {
+          W::st(out_row + s, W::scale(p, inv));
+        }
+      }
+      n = e;
+    }
+  }
+}
+
+"""
+
+
+def ola_variants(src: str) -> dict[str, str]:
+    """Variants of ``ola.cu`` by text substitution, and the earlier form."""
+    out = {"kept": src}
+    out["one row at a time"] = sub(src, "constexpr int R_AHEAD = 8;", "constexpr int R_AHEAD = 1;")
+    out["4 rows ahead"] = sub(src, "constexpr int R_AHEAD = 8;", "constexpr int R_AHEAD = 4;")
+    v = sub(src, "T ld(const float* p) { return *p; }", "T ld(const float* p) { return __ldcs(p); }")
+    v = sub(v, "void st(float* p, T v) { *p = v; }", "void st(float* p, T v) { __stcs(p, v); }")
+    v = sub(v, "return *reinterpret_cast<const float4*>(p);",
+            "return __ldcs(reinterpret_cast<const float4*>(p));")
+    out["streaming hints"] = sub(v, "*reinterpret_cast<float4*>(p) = v; }",
+                                 "__stcs(reinterpret_cast<float4*>(p), v); }")
+    # the first form of the present design
+    out["4 rows ahead, streaming hints"] = sub(
+        out["streaming hints"], "constexpr int R_AHEAD = 8;", "constexpr int R_AHEAD = 4;")
+    v, _ = cut(src, "// One warp's share [a, b) of every row", "__global__ void __launch_bounds__(THREADS)")
+    out["rows outer"] = sub(v, "__global__ void __launch_bounds__(THREADS)",
+                            OLA_ROWS_OUTER + "__global__ void __launch_bounds__(THREADS)")
+    out["earlier form"] = OLA_EARLIER
+    return out
+
+
+def ola_forms(dev, smi: str) -> None:
+    """K7: the variants and the earlier form at M = 8 and 16, in turns."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import ola, ola_cuda
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    libs = build_all(ola_variants((_build.CSRC / "ola.cu").read_text()), {
+        "umx_ola_normalized": _build._SIGNATURES["umx_ola_normalized"],
+        "umx_ola_grid": _build._SIGNATURES["umx_ola_grid"],
+        "umx_ola_earlier": [P, P, P, I, I, I, I, I, P]}, tag="ola")
+    n_chunks, seg, stride = S.N_CHUNKS, S.SEG, S.STRIDE
+    L = n_chunks * stride + seg - stride
+    stream = torch.cuda.current_stream().cuda_stream
+    grid = ctypes.c_int(0)
+    S.require(libs["kept"].umx_ola_grid(ctypes.addressof(grid)) == 0, "umx_ola_grid")
+    print(f"ola: {grid.value} blocks of {ola_cuda.THREADS} threads a launch", flush=True)
+    for M in (8, 16):
+        g = torch.Generator(device=dev).manual_seed(M)
+        ys = torch.randn((n_chunks, M, seg), generator=g, device=dev)
+        inv_sw = 1.0 / (torch.rand(L, generator=g, device=dev) + 0.5)
+        out = torch.empty((M, L), device=dev)
+        plain = ola.ola_normalized_plain(ys, inv_sw, stride)
+
+        def runner(lib, blocks=None, vec=1):
+            def run():
+                if blocks is None:
+                    err = lib.umx_ola_earlier(ys.data_ptr(), inv_sw.data_ptr(), out.data_ptr(),
+                                              n_chunks, M, seg, stride, L, stream)
+                else:
+                    err = lib.umx_ola_normalized(ys.data_ptr(), inv_sw.data_ptr(), out.data_ptr(),
+                                                 n_chunks, M, seg, stride, L, blocks, vec, stream)
+                S.require(err == 0, f"ola: CUDA error {err}")
+                return out
+            return run
+
+        blocks = ola_cuda.ola_blocks(L, 4, grid.value)
+        runs = {name: runner(lib, None if name == "earlier form" else blocks)
+                for name, lib in libs.items()}
+        runs["kept, half the grid"] = runner(libs["kept"], max(1, blocks // 2))
+        runs["kept, two blocks an SM"] = runner(libs["kept"], 2 * blocks)
+        runs["kept, three blocks an SM (two waves)"] = runner(libs["kept"], 3 * blocks)
+        runs["kept, scalars"] = runner(libs["kept"], ola_cuda.ola_blocks(L, 1, grid.value), 0)
+        for name, run in runs.items():
+            out.zero_()
+            S.require(torch.equal(run(), plain), f"the ola form {name!r} is not bit-equal to plain")
+        moved = S.nbytes(ys, inv_sw, out)
+        # a yardstick of the card's rate for a mix of reads and writes: one
+        # device copy that reads and writes half the kernel's bytes each
+        src = torch.empty(moved // 8, device=dev)
+        dst = torch.empty_like(src)
+        runs["torch copy_ of the same bytes"] = lambda: dst.copy_(src)
+        for rnd in range(2):
+            print(f"ola M = {M} ({moved / 1e6:.0f} MB, bound {moved / S.HBM_BYTES_PER_S * 1e3:.4f} "
+                  f"ms), round {rnd}, ms  [{smi}]: " + "; ".join(
+                      f"{name} {S.cuda_ms(run, 20):.4f}" for name, run in runs.items()), flush=True)
+
+
+# K2's earlier reduce: pass 1 over (128-bin x 64-row) blocks into partials,
+# pass 2 summing the partials in order (a second launch)
+REDUCE_EARLIER = """#include <cuda_runtime.h>
+namespace {
+constexpr int S = 4;
+constexpr int BLOCK_F = 128;
+__device__ __forceinline__ void unit_phasor(float re, float im, float* ure, float* uim) {
+  const float a2 = re * re + im * im;
+  const bool nz = a2 > 0.0f;
+  const float rs = rsqrtf(nz ? a2 : 1.0f);
+  *ure = nz ? re * rs : 1.0f;
+  *uim = nz ? im * rs : 0.0f;
+}
+template <int MODE>
+__global__ void reduce_partial_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
+                                      const float* __restrict__ masks, const float* __restrict__ inv_ma,
+                                      float* __restrict__ partials, int T, int F, int t_chunk) {
+  const int f = blockIdx.x * BLOCK_F + threadIdx.x;
+  if (f >= F) return;
+  const int chunk = blockIdx.y;
+  const int t0 = chunk * t_chunk;
+  const int t1 = min(T, t0 + t_chunk);
+  const size_t TF = (size_t)T * F;
+  float acc[4 * S];
+#pragma unroll
+  for (int i = 0; i < 4 * S; ++i) acc[i] = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const size_t i = (size_t)t * F + f;
+    if (MODE == 0) {
+      const float x0r = a_re[i], x0i = a_im[i];
+      const float x1r = a_re[TF + i], x1i = a_im[TF + i];
+      const float ax0 = x0r * x0r + x0i * x0i;
+      const float ax1 = x1r * x1r + x1i * x1i;
+      const float cr = x0r * x1r + x0i * x1i;
+      const float ci = x0i * x1r - x0r * x1i;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t mi = ((size_t)s * T + t) * 2 * F + f;
+        const float m0 = masks[mi];
+        const float m1 = masks[mi + F];
+        const float m01 = m0 * m1;
+        acc[4 * s + 0] += m0 * m0 * ax0;
+        acc[4 * s + 1] += m1 * m1 * ax1;
+        acc[4 * s + 2] += m01 * cr;
+        acc[4 * s + 3] += m01 * ci;
+      }
+    } else if (MODE == 2) {
+      const float inv = inv_ma[0];
+      float u0r, u0i, u1r, u1i;
+      unit_phasor(a_re[i], a_im[i], &u0r, &u0i);
+      unit_phasor(a_re[TF + i], a_im[TF + i], &u1r, &u1i);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t c0 = (size_t)(2 * s) * TF + i;
+        const float m0 = masks[c0] * inv;
+        const float m1 = masks[c0 + TF] * inv;
+        const float yr0 = m0 * u0r, yi0 = m0 * u0i;
+        const float yr1 = m1 * u1r, yi1 = m1 * u1i;
+        acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
+        acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
+        acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
+        acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t c0 = (size_t)(2 * s) * TF + i;
+        const float yr0 = a_re[c0], yi0 = a_im[c0];
+        const float yr1 = a_re[c0 + TF], yi1 = a_im[c0 + TF];
+        acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
+        acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
+        acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
+        acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
+      }
+    }
+  }
+  float scale = 1.0f;
+  if (MODE == 0) {
+    const float inv = inv_ma[0];
+    scale = inv * inv;
+  }
+  float* out = partials + (size_t)chunk * 4 * S * F + f;
+#pragma unroll
+  for (int r = 0; r < 4 * S; ++r) out[(size_t)r * F] = acc[r] * scale;
+}
+__global__ void reduce_sum_kernel(const float* __restrict__ partials, float* __restrict__ racc,
+                                  int n_chunks, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_chunks; ++k) s += partials[(size_t)k * n + i];
+  racc[i] = s;
+}
+}  // namespace
+extern "C" int umx_wiener_reduce_earlier(int mode, const float* a_re, const float* a_im,
+                                         const float* masks, const float* inv_ma, float* partials,
+                                         float* racc, int T, int F, int t_chunk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_chunks = (T + t_chunk - 1) / t_chunk;
+  const dim3 grid((F + BLOCK_F - 1) / BLOCK_F, n_chunks);
+  if (mode == 0) {
+    reduce_partial_kernel<0><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma, partials, T, F, t_chunk);
+  } else if (mode == 1) {
+    reduce_partial_kernel<1><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma, partials, T, F, t_chunk);
+  } else {
+    reduce_partial_kernel<2><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma, partials, T, F, t_chunk);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int n = 4 * S * F;
+  reduce_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(partials, racc, n_chunks, n);
+  return (int)cudaGetLastError();
+}
+"""
+REDUCE_EARLIER_T_CHUNK = 64
+
+
+# forms of the reduce that sum in another order than the kept one: held to
+# it within 1e-5 instead of bit for bit
+REDUCE_REORDERING = ("10 time lanes", "earlier form")
+
+
+def reduce_variants(src: str) -> dict[str, str]:
+    """Variants of ``wiener.cu``'s reduce by text substitution, and the
+    earlier form."""
+    out = {"kept": src}
+    out["one row at a time"] = sub(src, "constexpr int RB_AHEAD = 2;", "constexpr int RB_AHEAD = 1;")
+    out["4 rows ahead"] = sub(src, "constexpr int RB_AHEAD = 2;", "constexpr int RB_AHEAD = 4;")
+    # at most 64 registers: the 4 blocks an SM that one wave needs at F = 2049
+    out["register bound for 4 blocks an SM"] = sub(src, "__launch_bounds__(RB_THREADS)",
+                                                   "__launch_bounds__(RB_THREADS, 4)")
+    a, b = src.index("struct ReduceRow<MODE_MASKS>"), src.index("struct ReduceRow<MODE_Y>")
+    rows = re.sub(r"= (a_re|a_im|masks|mags)\[([^\]]+)\];", r"= __ldcs(\1 + \2);", src[a:b])
+    out["streaming loads in every mode"] = src[:a] + rows + src[b:]
+    v = src
+    for old, new in (("__ldcs(a_re + c0)", "a_re[c0]"), ("__ldcs(a_im + c0)", "a_im[c0]"),
+                     ("__ldcs(a_re + c0 + TF)", "a_re[c0 + TF]"),
+                     ("__ldcs(a_im + c0 + TF)", "a_im[c0 + TF]")):
+        v = sub(v, old, new)
+    out["plain loads in every mode"] = v
+    # 40 warps a block row of the grid: 39 warps an SM at F = 2049, 4 blocks
+    # an SM at up to 51 registers
+    v = sub(src, "constexpr int RB_LANES = 8;", "constexpr int RB_LANES = 10;")
+    out["10 time lanes"] = sub(v, "__launch_bounds__(RB_THREADS)", "__launch_bounds__(RB_THREADS, 4)")
+    out["earlier form"] = REDUCE_EARLIER
+    return out
+
+
+def reduce_forms(dev, smi: str) -> None:
+    """K2's reduce: the variants and the earlier form in the three modes."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.config import WienerConfig
+    from umx_tpu_torch.ops import wiener_cuda as W
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    libs = build_all(reduce_variants((_build.CSRC / "wiener.cu").read_text()), {
+        "umx_wiener_reduce": _build._SIGNATURES["umx_wiener_reduce"],
+        "umx_wiener_reduce_earlier": [I, P, P, P, P, P, P, I, I, I, P]}, tag="reduce")
+    T, F = S.T_SEG, S.F_BINS
+    g = torch.Generator(device=dev).manual_seed(1)
+    xre = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    xim = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    masks = torch.rand((S.N_SRC, T, 2 * F), generator=g, device=dev)
+    inv = W.inv_max_abs(xre, xim, 10.0)
+    mags = torch.rand((S.N_SRC, 2, T, F), generator=g, device=dev) * 40
+    yre, yim = W.wiener_planes_from_masks(xre, xim, masks, WienerConfig())
+    yre, yim = (yre * inv).contiguous(), (yim * inv).contiguous()
+    racc = torch.empty((4 * S.N_SRC, F), device=dev)
+    n_part = -(-T // REDUCE_EARLIER_T_CHUNK)
+    partials = torch.empty((n_part, 4 * S.N_SRC, F), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for mode, a_re, a_im, m in (("masks", xre, xim, masks), ("y", yre, yim, None),
+                                ("mags", xre, xim, mags)):
+        code, mp = W._MODES[mode], (m.data_ptr() if m is not None else None)
+
+        def runner(lib, earlier):
+            def run():
+                if earlier:
+                    err = lib.umx_wiener_reduce_earlier(
+                        code, a_re.data_ptr(), a_im.data_ptr(), mp, inv.data_ptr(),
+                        partials.data_ptr(), racc.data_ptr(), T, F, REDUCE_EARLIER_T_CHUNK, stream)
+                else:
+                    err = lib.umx_wiener_reduce(code, a_re.data_ptr(), a_im.data_ptr(), mp,
+                                                inv.data_ptr(), racc.data_ptr(), T, F, stream)
+                S.require(err == 0, f"wiener reduce: CUDA error {err}")
+                return racc
+            return run
+
+        runs = {name: runner(lib, name == "earlier form") for name, lib in libs.items()}
+        kept = runs["kept"]().clone()
+        plain = W.wiener_reduce_plain(mode, a_re, a_im, m, inv)
+        err = S.max_err(kept, plain) / float(plain.abs().max())
+        S.require(err <= 1e-5, f"the kept reduce disagrees with plain in mode {mode}: {err}")
+        for name, run in runs.items():
+            got = run()
+            if name in REDUCE_REORDERING:
+                e = S.max_err(got, kept) / float(kept.abs().max())
+                S.require(e <= 1e-5, f"the reduce form {name!r} disagrees in mode {mode}: {e}")
+            else:
+                S.require(torch.equal(got, kept), f"the reduce form {name!r} changed the bits")
+        read = S.nbytes(a_re, a_im) + (0 if m is None else S.nbytes(m))
+        moved = read + S.nbytes(racc)
+        print(f"wiener_reduce mode {mode}: vs plain {err:.3g} of max|racc|; {moved / 1e6:.0f} MB, "
+              f"bound {moved / S.HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+        for rnd in range(2):
+            print(f"wiener_reduce mode {mode}, round {rnd}, ms  [{smi}]: " + "; ".join(
+                f"{name} {S.cuda_ms(run, 20):.4f}" for name, run in runs.items()), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -444,11 +834,15 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     dev = torch.device("cuda")
-    which = [a.lower() for a in sys.argv[1:]] or ["k5", "k9"]
+    which = [a.lower() for a in sys.argv[1:]] or ["k5", "k9", "ola", "wiener_reduce"]
     if "k5" in which:
         bwd_forms(dev, smi)
     if "k9" in which:
         pertarget_forms(dev, smi)
+    if "ola" in which:
+        ola_forms(dev, smi)
+    if "wiener_reduce" in which:
+        reduce_forms(dev, smi)
     return 0
 
 

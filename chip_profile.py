@@ -41,7 +41,7 @@ KINDS = (("K4 lstm_merged_train_fwd", ("lstm_resident_kernel<1, true", "lstm_res
          ("K6 lstm_merged_dw", ("lstm_dw_kernel",)),
          ("K9 lstm_pertarget", ("lstm_pertarget_kernel",)),
          # ("::apply_kernel", not "apply_kernel": AdamW's multi_tensor_apply_kernel is not K3)
-         ("K2+K3 wiener", ("reduce_partial_kernel", "reduce_sum_kernel", "::apply_kernel",
+         ("K2+K3 wiener", ("wiener_reduce_kernel", "::apply_kernel",
                            "void apply_kernel")),
          ("stems copy to host", ("Memcpy DtoH",)),
          ("audio copy to device", ("Memcpy HtoD",)),

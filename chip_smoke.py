@@ -21,7 +21,12 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    on it in-process on ``cuda`` (3 chunks of 60 s, so the LSTM state is
    carried twice); the stems are checked, and every kernel's launch
    counter must have moved during that run.  Then the GPU path is held
-   against the port's CPU path (plain versions) on a short input;
+   against the port's CPU path (plain versions) on a short input; the CLI
+   with ``--host-loop`` on the same track (one segment call per chunk: its
+   progress lines, K1 for 3 layers a chunk and K2/K3 once a chunk, stems
+   within 2e-3 of the fused run's and summing to the mix), its wall time
+   beside the fused run's; and a 30 s 48 kHz WAV through the CLI with
+   ``--resample``;
 5. the training kernels K4 (forward with residuals), K5 (reverse sweep)
    and K6 (weight gradient) against their plain versions at the UMX-L
    training shape (T = 256, R = 8, B = 16, G = 512), and K6 bit-stable;
@@ -35,7 +40,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    five steps on one fixed batch that must lower its loss, warm steps/s
    at batch 32 (two row groups per kernel), and the trained weights
    exported as ggml and demixed through the CLI;
-7. the overlap-add kernel K7 (bit-equal and bit-stable) and the
+7. the overlap-add kernel K7 (bit-equal and bit-stable, its form: blocks
+   and the samples a lane moves at a time) and the
    Cooley-Tukey iSTFT kernel K8 (one launch, the overlap-add inside it)
    against their plain versions (100 s UMX-L track: 3 chunks of 60 s,
    M = 8 and 16 rows; 8 rows x 2584 frames, and shapes whose runs end
@@ -58,7 +64,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     cluster form that ran (blocks per cluster, clusters the card holds at
     once, waves: as few as the card allows), timed beside K1;
     the Wiener passes in mode "mags" (and "y") against their plain
-    versions at S = 4, T = 2584, F = 2049;
+    versions at S = 4, T = 2584, F = 2049; K2's reduce one kernel launch a
+    call in each mode (``torch.profiler``'s device events);
 11. the catalogue path: five synthetic tracks (three of 100 s, one of
     40 s, one of 400 s) demixed by ``python -m umx_tpu_torch.cli_batch
     --quantized-hbm`` in a subprocess with its defaults, every stem
@@ -78,11 +85,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     PyTorch call computes the same function, that call (CUDA events,
     after warm-up), each beside its bound (bytes over 3.35 TB/s or
     operations over the peak rate, whichever is larger), the warm demix
-    times of the 100 s track, and train steps/s; K6 must be no slower
+    times of the 100 s track (fused, and the streaming one also through
+    the host loop), and train steps/s; K6 must be no slower
     than ``torch.bmm`` on the same operands, K8 no slower than
-    ``torch.istft``, K4 at most twice K1 at the same shape, and K4, K5, K8
-    and K9 faster than their earlier forms (K9 beside K1 at one row per
-    chain is printed, not gated).
+    ``torch.istft``, K4 at most twice K1 at the same shape, K4, K5, K8, K9,
+    K7 (M = 8 and 16) and K2's reduce in mode mags faster than their
+    earlier forms, and the reduce in modes masks and y no more than 5 %
+    slower than its earlier form (K7 and the reduce timed as the median of
+    5 rounds) (K9 beside K1 at one row per chain is
+    printed, not gated).
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -131,13 +142,19 @@ HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
 # and K5 became resident launches too (then one grid per step each); K9 from
 # when a chain's cluster had 16 blocks with W_hh in shared memory (two waves
 # for 8 chains), K8 from when it wrote its frames to device memory and a
-# second launch overlap-added them (48 rows x 2584 frames)
+# second launch overlap-added them (48 rows x 2584 frames), K7 from when a
+# thread wrote one sample of one row (M = 8 and 16 rows), K2's reduce from
+# when it was two launches (a partial-sum pass, then their sum), by mode
 EARLIER = {"demix_s": 0.319, "batched_demix_s": 0.294, "catalogue_demix_s": 2.706,
            "train_steps_per_s": 7.250, "lstm_merged_ms": {1: 19.9261, 3: 24.6960, 6: 41.5486,
                                                           16: 8.1123},
            "lstm_merged_dw_ms": 3.9927, "lstm_merged_train_fwd_ms": 8.7091,
            "lstm_merged_bwd_step_ms": 11.5000, "lstm_layer_pertarget_ms": 12.9396,
-           "istft_ct2_ms": 7.3161}
+           "istft_ct2_ms": 7.3161, "ola_normalized_ms": {8: 0.3108, 16: 0.6176},
+           "wiener_reduce_ms": {"masks": 0.1137, "y": 0.1369, "mags": 0.1703}}
+# K2's reduce in modes masks and y may be no slower than its earlier form
+# by more than this share (the same loop; the measurement's spread)
+REDUCE_SLACK = 1.05
 ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
@@ -160,6 +177,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# rounds of the timings that a gate holds against an earlier form's figure
+GATE_ROUNDS = 5
+spreads = {}  # name -> (fastest, slowest) round of cuda_ms_median
+
+
+def cuda_ms_median(name: str, fn, reps: int) -> float:
+    """Median over GATE_ROUNDS rounds of :func:`cuda_ms` (``reps`` runs
+    each), for the timings that a gate holds against a recorded figure: a
+    stray slow round moves a kernel of a tenth of a millisecond by 10 % or
+    more.  The rounds' range goes to ``spreads[name]``."""
+    rounds = sorted(cuda_ms(fn, reps) for _ in range(GATE_ROUNDS))
+    spreads[name] = (rounds[0], rounds[-1])
+    return rounds[GATE_ROUNDS // 2]
 
 
 def max_err(a, b) -> float:
@@ -492,7 +524,8 @@ def check_ola(dev):
         require(torch.equal(out, ola_cuda.ola_normalized(ys, inv_sw, STRIDE)),
                 "ola_normalized is not bit-stable from run to run")
         print(f"ola_normalized vs plain (n_chunks={N_CHUNKS}, M={M}, seg={SEG}, stride={STRIDE}): "
-              "bit-equal, bit-stable")
+              f"bit-equal, bit-stable; form (blocks, samples a lane moves at a time) "
+              f"{ola_cuda.ola_normalized.form}")
         args[M] = (ys, inv_sw, STRIDE)
     return args, worst
 
@@ -698,6 +731,35 @@ def check_wiener_modes(dev, xre, xim, masks):
         errs[f"wiener_reduce_{mode}"], errs[f"wiener_apply_{mode}"] = e_r, e_a
         args[mode] = (xre, xim, first, second, inv, racc_p, (a_re, a_im, m))
     return args, errs
+
+
+def device_kernels(fn):
+    """The names of the kernels that ``fn()`` launched on the card
+    (``torch.profiler``'s device events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_reduce_launches(wiener_args, mode_args):
+    """Phase 10: a call of K2's reduce is one kernel launch on the card, in
+    each input mode, at the UMX-L segment shape."""
+    from umx_tpu_torch.ops import wiener_cuda as W
+
+    xre, xim, masks, inv, _ = wiener_args
+    calls = {"masks": (xre, xim, masks, None, inv)}
+    calls.update({mode: a[:5] for mode, a in mode_args.items()})
+    for mode, args in calls.items():
+        names = device_kernels(lambda: W.wiener_reduce(mode, *args))
+        require(len(names) == 1 and "wiener_reduce_kernel" in names[0],
+                f"wiener_reduce in mode {mode} launched {names}, not one reduce kernel")
+    print(f"wiener_reduce: one launch a call in modes {sorted(calls)}")
 
 
 def synth_mix(secs: float, seed: int):
@@ -1049,7 +1111,87 @@ def main_path(tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
     for name in ("lstm_merged", "wiener_reduce", "wiener_apply"):
         require(launches[name] > 0, f"kernel {name} was not launched on the demix path")
     check_stems(out, mix)
-    return launches
+    return launches, out, cli_s
+
+
+def host_loop_path(tmp: str, model: str, wav: str, mix, counters: dict, fused_out: str,
+                   smi: str):
+    """Phase 4c: the CLI with ``--host-loop`` on the 100 s track, with the
+    launch counters set to 0 just before and read just after: one segment
+    call per chunk, its progress printed after each, K1 for 3 layers a
+    chunk and K2/K3 once a chunk; the stems against the fused run's
+    (``fused_out``, phase 4) and the mix.  Returns (launches, wall s)."""
+    import io
+
+    from umx_tpu_torch import cli
+    from umx_tpu_torch.config import EngineConfig
+
+    cfg = EngineConfig()
+    stride = cfg.segment.stride_samples(SR)
+    n_chunks = math.ceil((mix.shape[1] + cfg.segment.max_shift_samples(SR)) / stride)
+    out = os.path.join(tmp, "stems_host_loop")
+    printed = io.StringIO()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main([model, wav, out, "--host-loop"])
+    cli_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(rc == 0, f"CLI --host-loop exited {rc}")
+    progress = [ln.strip() for ln in printed.getvalue().splitlines() if ln.strip().startswith("demix ")]
+    want = [f"demix {(i + 1) / n_chunks * 100:.0f}%" for i in range(n_chunks)]
+    print(f"host-loop path (CLI --host-loop, {TRACK_SECS:.0f} s track, UMX-L, {n_chunks} chunks): "
+          f"{cli_s:.3f} s wall  [{smi}]; progress {progress}; kernel runs {launches}")
+    require(progress == want, f"the host loop printed {progress}, not {want}")
+    require(launches["lstm_merged"] == 3 * n_chunks,
+            f"K1 ran {launches['lstm_merged']} times on the host loop, not 3 x {n_chunks}")
+    for name in ("wiener_reduce", "wiener_apply"):
+        require(launches[name] == n_chunks,
+                f"{name} ran {launches[name]} times on the host loop, not once a chunk ({n_chunks})")
+    stems = check_stems(out, mix)
+    fused = check_stems(fused_out, mix)
+    err = float(np.max(np.abs(stems - fused)) / np.max(np.abs(fused)))
+    print(f"host loop vs fused run (CLI, {TRACK_SECS:.0f} s): max|err|/max|stem| {err:.3g}")
+    # the same kernels on the same chunks, accumulated chunk by chunk on the
+    # device instead of stacked and overlap-added at once
+    require(err <= 2e-3, f"the host loop's stems disagree with the fused run's: {err}")
+    return launches, cli_s, err
+
+
+def resample_path(tmp: str, model: str, counters: dict, smi: str):
+    """Phase 4d: a 48 kHz WAV through the CLI with ``--resample`` on the
+    card: polyphase-resampled to 44.1 kHz, then demixed; the stems checked
+    against the resampled mix."""
+    from fractions import Fraction
+
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    rate = 48_000
+    t = np.arange(int(30 * rate)) / rate
+    rng = np.random.default_rng(48)
+    mix48 = np.stack([0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.size),
+                      0.3 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.standard_normal(t.size)]
+                     ).astype(np.float32)
+    wav48 = os.path.join(tmp, "mix48.wav")
+    wavfile.write(wav48, rate, np.ascontiguousarray(mix48.T))
+    q = Fraction(SR, rate)
+    mix = resample_poly(mix48.astype(np.float64), q.numerator, q.denominator, axis=1).astype(
+        np.float32)
+    from umx_tpu_torch import cli
+
+    out = os.path.join(tmp, "stems_48k")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rc = cli.main([model, wav48, out, "--resample", "--quiet"])
+    cli_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(rc == 0, f"CLI --resample exited {rc}")
+    print(f"resample path (CLI --resample, 30 s at 48 kHz -> {mix.shape[1]} samples at 44.1 kHz): "
+          f"{cli_s:.3f} s wall  [{smi}]; kernel runs {launches}")
+    require(launches["lstm_merged"] > 0, "K1 was not launched on the resample path")
+    check_stems(out, mix)
+    return cli_s
 
 
 def batched_config(**seg):
@@ -1388,6 +1530,7 @@ def main() -> int:
     k9_args, k9_err, k9_form, k9_ms, k9_k1_ms = check_pertarget(dev, T_SEG, G_HIDDEN, 9, smi)
     _, k9_err_hq, k9_form_hq, k9_ms_hq, k9_k1_ms_hq = check_pertarget(dev, T_SEG, 256, 10, smi)
     mode_args, mode_errs = check_wiener_modes(dev, *wiener_args[:3])
+    check_reduce_launches(wiener_args, mode_args)
 
     lstm_args, lstm_err = check_lstm(dev, T_SEG, 1, seed=0)
     lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # two n-tiles of rows
@@ -1398,8 +1541,13 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="umx_smoke_") as tmp:
         model, wav, mix = write_inputs(tmp)
-        launches = main_path(tmp, model, wav, mix, counters, smi)
+        launches, fused_out, cli_s = main_path(tmp, model, wav, mix, counters, smi)
         cpu_err = gpu_vs_cpu(model, mix)
+        host_launches, host_s, host_err = host_loop_path(tmp, model, wav, mix, counters,
+                                                         fused_out, smi)
+        print(f"CLI wall time on the {TRACK_SECS:.0f} s track: fused {cli_s:.3f} s, host loop "
+              f"{host_s:.3f} s  [{smi}]")
+        resample_s = resample_path(tmp, model, counters, smi)
 
         from umx_tpu_torch.engine.separator import Separator
 
@@ -1411,9 +1559,17 @@ def main() -> int:
         sep.demix_track(mix, seed=0)
         torch.cuda.synchronize()
         demix_s = time.perf_counter() - t0
-        del sep
         print(f"demix {TRACK_SECS:.0f} s track (warm, UMX-L, shifts 1): {demix_s:.3f} s, "
               f"{TRACK_SECS / demix_s:.1f}x realtime (earlier form {EARLIER['demix_s']} s)  [{smi}]")
+        sep.demix_track(mix, seed=0, fused=False)  # warm-up of the host loop
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sep.demix_track(mix, seed=0, fused=False)
+        torch.cuda.synchronize()
+        host_demix_s = time.perf_counter() - t0
+        del sep
+        print(f"demix {TRACK_SECS:.0f} s track (warm, UMX-L, shifts 1, host loop): "
+              f"{host_demix_s:.3f} s against {demix_s:.3f} s fused  [{smi}]")
 
         batched_launches, k1_rows, bsep, k1_shapes, k8_shapes = batched_path(
             tmp, model, wav, mix, counters, smi)
@@ -1476,7 +1632,8 @@ def main() -> int:
             cuda_ms(lambda: L.lstm_merged_plain(*lstm_args), 2),
         ),
         "wiener_reduce": (
-            cuda_ms(lambda: W.wiener_reduce("masks", xre, xim, masks, None, inv), 20),
+            cuda_ms_median("wiener_reduce",
+                           lambda: W.wiener_reduce("masks", xre, xim, masks, None, inv), 20),
             cuda_ms(lambda: W.wiener_reduce_plain("masks", xre, xim, masks, inv), 20),
         ),
         "wiener_apply": (
@@ -1497,7 +1654,8 @@ def main() -> int:
     }
     for mode, (mxre, mxim, first, second, minv, mracc, plain_in) in mode_args.items():
         times[f"wiener_reduce_{mode}"] = (
-            cuda_ms(lambda: W.wiener_reduce(mode, mxre, mxim, first, second, minv), 20),
+            cuda_ms_median(f"wiener_reduce_{mode}",
+                           lambda: W.wiener_reduce(mode, mxre, mxim, first, second, minv), 20),
             cuda_ms(lambda: W.wiener_reduce_plain(mode, *plain_in, minv), 20))
         times[f"wiener_apply_{mode}"] = (
             cuda_ms(lambda: W.wiener_apply(mode, mxre, mxim, first, second, mracc, minv, 1e-10), 20),
@@ -1530,12 +1688,14 @@ def main() -> int:
     bounds["lstm_merged_dw"] = bound_ms(
         nbytes(*train_args["lstm_merged_dw"][:3]) + R_CHAINS * G_HIDDEN * 4 * G_HIDDEN * 4,
         train_ops, "bf16")
-    times["ola_normalized"] = (cuda_ms(lambda: ola_cuda.ola_normalized(*ola_args[8]), 20),
+    times["ola_normalized"] = (cuda_ms_median("ola_normalized",
+                                              lambda: ola_cuda.ola_normalized(*ola_args[8]), 20),
                                cuda_ms(lambda: ola.ola_normalized_plain(*ola_args[8]), 20))
     ola_len = N_CHUNKS * STRIDE + SEG - STRIDE
     bounds["ola_normalized"] = bound_ms(nbytes(*ola_args[8][:2]) + 8 * ola_len * 4,
                                         2.0 * 8 * ola_len, "f32")
-    ola16 = (cuda_ms(lambda: ola_cuda.ola_normalized(*ola_args[16]), 20),
+    ola16 = (cuda_ms_median("ola_normalized_m16",
+                            lambda: ola_cuda.ola_normalized(*ola_args[16]), 20),
              cuda_ms(lambda: ola.ola_normalized_plain(*ola_args[16]), 20))
     k8_shape = max(istft_args, key=math.prod)
     k8_args = istft_args[k8_shape]
@@ -1634,6 +1794,27 @@ def main() -> int:
     ola16_bound = bound_ms(nbytes(*ola_args[16][:2]) + 16 * ola_len * 4, 2.0 * 16 * ola_len, "f32")
     print(f"ola_normalized at M=16 (two shift rows): kernel {ola16[0]:.4f} ms, plain "
           f"{ola16[1]:.4f} ms, bound {ola16_bound[0]:.4f} ms by {ola16_bound[1]}  [{smi}]")
+    for M, ms, bound in ((8, times["ola_normalized"][0], bounds["ola_normalized"][0]),
+                         (16, ola16[0], ola16_bound[0])):
+        lo, hi = spreads["ola_normalized" if M == 8 else "ola_normalized_m16"]
+        print(f"ola_normalized at M={M}: {ms:.4f} ms, median of {GATE_ROUNDS} rounds "
+              f"({lo:.4f}-{hi:.4f}; earlier form {EARLIER['ola_normalized_ms'][M]}), "
+              f"{bound / ms * 100:.1f} % of its bound  [{smi}]")
+        require(ms < EARLIER["ola_normalized_ms"][M],
+                f"ola_normalized ({ms} ms) is not faster than its earlier form at M = {M}")
+    for mode, key in (("masks", "wiener_reduce"), ("y", "wiener_reduce_y"),
+                      ("mags", "wiener_reduce_mags")):
+        ms, earlier = times[key][0], EARLIER["wiener_reduce_ms"][mode]
+        lo, hi = spreads[key]
+        print(f"wiener_reduce mode {mode}: {ms:.4f} ms, median of {GATE_ROUNDS} rounds "
+              f"({lo:.4f}-{hi:.4f}; earlier form {earlier}), "
+              f"{bounds[key][0] / ms * 100:.1f} % of its bound  [{smi}]")
+        if mode == "mags":
+            require(ms < earlier, f"wiener_reduce mode mags ({ms} ms) is not faster than its "
+                    f"earlier form ({earlier} ms)")
+        else:
+            require(ms <= earlier * REDUCE_SLACK, f"wiener_reduce mode {mode} ({ms} ms) is slower "
+                    f"than its earlier form ({earlier} ms) by more than {REDUCE_SLACK}x")
     for (B, T), (k, p) in k1_path.items():
         print(f"lstm_merged at a path's shape (T={T}, B={B}): kernel {k:.4f} ms (earlier form "
               f"{EARLIER['lstm_merged_ms'].get(B)}), plain {p:.4f} ms, bound "
@@ -1704,7 +1885,11 @@ def main() -> int:
                       "pertarget_path_s": k9_path_s, "merged_path_s": k1_path_s,
                       "pertarget_vs_merged_rel_err": k9_vs_k1,
                       "catalogue_gpu_vs_cpu_rel_err": cat_cpu_err,
-                      "planes_vs_masks_rel_err": planes_err}))
+                      "planes_vs_masks_rel_err": planes_err, "cli_s": cli_s,
+                      "host_loop_cli_s": host_s, "host_loop_launches": host_launches,
+                      "host_loop_demix_s": host_demix_s,
+                      "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
+                      "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

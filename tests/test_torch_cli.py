@@ -283,3 +283,32 @@ def test_cli_batch_imports_no_jax(fixtures, catalogue):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert sorted(os.listdir(d / "nojax_batch")) == sorted(tracks)
+
+
+def test_cli_host_loop_prints_progress_and_equals_the_fused_run(fixtures, capsys):
+    d, model, wav, _, mix = fixtures
+    fused_out, loop_out = str(d / "out_fused"), str(d / "out_host_loop")
+    assert cli.main([model, wav, fused_out, *FAST]) == 0
+    capsys.readouterr()
+    assert cli.main([model, wav, loop_out, "--segment-secs", "1.0", "--device", "cpu",
+                     "--host-loop"]) == 0
+    lines = [ln.strip() for ln in capsys.readouterr().out.splitlines() if "demix" in ln
+             and "%" in ln]
+    # 1.7 s + the 0.5 s shift pad at a 0.75 s stride: 3 chunks
+    assert lines == ["demix 33%", "demix 67%", "demix 100%"]
+    fused = _read_stems(fused_out, mix.shape[1])
+    loop = _read_stems(loop_out, mix.shape[1])
+    err = float(np.max(np.abs(loop - fused)) / np.max(np.abs(fused)))
+    assert err <= 2e-4, f"max|Δ|/max|stem| = {err:.3g}"
+    # --quiet silences the progress too
+    assert cli.main([model, wav, loop_out, *FAST, "--host-loop"]) == 0
+    assert "demix" not in capsys.readouterr().out
+
+
+def test_cli_resample_demixes_a_48k_wav(fixtures):
+    d, model, _, wav48, mix = fixtures
+    out = str(d / "out_48k")
+    assert cli.main([model, wav48, out, *FAST, "--resample"]) == 0
+    n = -(-mix.shape[1] * 44100 // 48000)
+    stems = _read_stems(out, n)
+    assert stems.shape == (4, 2, n)

@@ -746,3 +746,98 @@ def test_windowed_device_tensor_on_the_card(dev):
     assert on_card.is_cuda and single.is_cuda and from_host.device.type == "cpu"
     assert torch.equal(on_card, single)
     assert torch.equal(from_host, single.cpu())
+
+
+# ---------------------------------------------------------------------------
+# K7 at the geometries of its CPU mirror (tests/test_torch_ola.py): strides
+# that take the vector body or only scalars, no tail or a tail of a stride
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [1, 3, 16])
+@pytest.mark.parametrize("with_tail", [False, True])
+@pytest.mark.parametrize("stride", [1, 3, 4, 1023, 1_984_500])
+def test_ola_kernel_at_the_mirror_geometries(dev, stride, with_tail, M):
+    from umx_tpu_torch.ops import ola, ola_cuda
+
+    n_chunks = 3
+    seg = stride * (2 if with_tail else 1)
+    g = torch.Generator(device=dev).manual_seed(stride + M)
+    ys = torch.randn((n_chunks, M, seg), generator=g, device=dev)
+    L = n_chunks * stride + seg - stride
+    inv = 1.0 / (torch.rand(L, generator=g, device=dev) + 0.5)
+    before = ola_cuda.ola_normalized.launches
+    out = ola_cuda.ola_normalized(ys, inv, stride)
+    torch.cuda.synchronize()
+    assert ola_cuda.ola_normalized.launches == before + 1
+    assert torch.equal(out, ola.ola_normalized_plain(ys, inv, stride))
+    assert torch.equal(out, ola_cuda.ola_normalized(ys, inv, stride))  # bit-stable
+
+
+# ---------------------------------------------------------------------------
+# K2 in all three modes at the shapes of its CPU mirror
+# (tests/test_torch_wiener_mags.py): one launch a call, bit-stable
+# ---------------------------------------------------------------------------
+
+
+def _device_kernels(fn):
+    """The names of the kernels that ``fn()`` launched on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("mode", ["masks", "y", "mags"])
+@pytest.mark.parametrize("T", [1, 37, 64, 65, 2584])
+@pytest.mark.parametrize("F", [1, 5, 2049])
+def test_wiener_reduce_one_launch_bit_stable(dev, mode, T, F):
+    g = torch.Generator(device=dev).manual_seed(T * 7 + F)
+    xre = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    xim = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    xre[0, 0, : F // 2] = 0.0
+    xim[0, 0, : F // 2] = 0.0  # |x| = 0: the unit phasor is 1 + 0i
+    inv = wiener_cuda.inv_max_abs(xre, xim, 10.0)
+    if mode == "masks":
+        first, second = torch.rand((4, T, 2 * F), generator=g, device=dev), None
+        plain_in = (xre, xim, first)
+    elif mode == "mags":
+        first, second = 40 * torch.rand((4, 2, T, F), generator=g, device=dev), None
+        plain_in = (xre, xim, first)
+    else:
+        first = torch.randn((4, 2, T, F), generator=g, device=dev) / 3
+        second = torch.randn((4, 2, T, F), generator=g, device=dev) / 3
+        plain_in = (first, second, None)
+    before = wiener_cuda.wiener_reduce.launches
+    racc, kernels = _device_kernels(
+        lambda: wiener_cuda.wiener_reduce(mode, xre, xim, first, second, inv))
+    assert wiener_cuda.wiener_reduce.launches == before + 1
+    assert len(kernels) == 1 and "wiener_reduce_kernel" in kernels[0], kernels
+    plain = wiener_cuda.wiener_reduce_plain(mode, *plain_in, inv)
+    # float32 sums in another order than torch's along T, and FMA: 1e-4
+    assert _rel(racc, plain) <= 1e-4
+    assert torch.equal(racc, wiener_cuda.wiener_reduce(mode, xre, xim, first, second, inv))
+
+
+def test_host_loop_demix_on_the_card_matches_cpu(dev):
+    """demix(fused=False): one segment call per chunk on the card, against
+    the same loop on the CPU's plain versions."""
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.models.umx import synthetic_params
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=64), segment=SegmentConfig(segment_secs=1.0))
+    track = np.random.default_rng(4).uniform(-0.5, 0.5, (2, int(2.6 * 44100))).astype(np.float32)
+    seen = []
+    gpu = Separator(synthetic_params(cfg.model, seed=0, device=dev), cfg, dev).demix(
+        track, progress=seen.append, fused=False)
+    cpu = Separator(synthetic_params(cfg.model, seed=0), cfg, "cpu").demix(track, fused=False)
+    assert gpu.is_cuda and len(seen) > 1 and seen[-1] == 1.0
+    # bf16 recurrence operands and cuFFT/cuBLAS summation order
+    assert (gpu.cpu() - cpu).abs().max().item() <= 2e-3 * cpu.abs().max().item()

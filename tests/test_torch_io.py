@@ -162,3 +162,22 @@ def test_write_audio_float32_round_trip(tmp_path):
     rate, data = wavfile.read(p)
     assert rate == 44100 and data.dtype == np.float32
     np.testing.assert_array_equal(data.T, wave)
+
+
+@pytest.mark.parametrize("rate, channels, dtype", [(48000, 2, np.float32), (22050, 1, np.int16)])
+def test_resample_matches_jax(tmp_path, rate, channels, dtype):
+    from umx_tpu.io.audio import load_audio as jload
+
+    rng = np.random.default_rng(rate)
+    data = rng.standard_normal((rate // 10 + 7, channels)) * 0.1
+    if dtype == np.int16:
+        data = data * 30000
+    p = str(tmp_path / f"r{rate}.wav")
+    wavfile.write(p, rate, np.squeeze(data.astype(dtype)))
+    ours = taudio.load_audio(p, resample=True)
+    ref = jload(p, resample=True)
+    assert ours.dtype == np.float32 and ours.shape == ref.shape
+    assert ours.shape == (2, -(-(rate // 10 + 7) * 44100 // rate))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
+    with pytest.raises(taudio.UnsupportedAudio, match="--resample"):
+        taudio.load_audio(p)

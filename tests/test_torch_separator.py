@@ -138,3 +138,94 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(entry, jax_params
         else:
             tsep.resolve_device()
     assert tsep.resolve_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The host loop: one segment call per chunk, per-chunk progress, segment_fn
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("streaming", [True, False])
+def test_host_loop_demix_matches_jax(track, jax_params, streaming):
+    jcfg, tcfg = _cfgs(streaming=streaming)
+    j_seen, t_seen = [], []
+    ref = np.asarray(JSeparator(jax_params, jcfg).demix(track, progress=j_seen.append,
+                                                        fused=False))
+    sep = tsep.Separator(params_from_jax(jax_params), tcfg, "cpu")
+    ours = sep.demix(track, progress=t_seen.append, fused=False)
+    assert ours.shape == ref.shape == (4, 2, track.shape[1]) and ours.dtype == torch.float32
+    err = float(np.max(np.abs(ours.numpy() - ref)) / np.max(np.abs(ref)))
+    assert err <= SLICE_RTOL, f"max|Δ|/max|stem| = {err:.3g}"
+    n_chunks = sep._geometry(track.shape[1])[2]
+    assert t_seen == j_seen == [(i + 1) / n_chunks for i in range(n_chunks)]
+    # the fused program on the same track: the same stems by another route
+    fused = sep.demix(track).numpy()
+    assert float(np.max(np.abs(ours.numpy() - fused)) / np.max(np.abs(fused))) <= SLICE_RTOL
+
+
+def _quick_cfgs(**seg):
+    """Small configs for the control-flow cases: no Wiener, the plain scan
+    on the JAX side (the numbers are not compared)."""
+    jcfg = JEngineConfig(model=JModelConfig(hidden_size=HIDDEN),
+                         segment=JSegmentConfig(segment_secs=1.0, **seg), use_wiener=False)
+    tcfg = EngineConfig(model=ModelConfig(hidden_size=HIDDEN),
+                        segment=SegmentConfig(segment_secs=1.0, **seg), use_wiener=False)
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("mode", ["fused", "fused_non_streaming", "windowed", "host_loop"])
+def test_progress_sequences_match_jax(track, jax_params, mode):
+    seg = {"windowed": {"window_chunks": 2}, "fused_non_streaming": {"streaming": False,
+                                                                       "window_chunks": -1}}
+    jcfg, tcfg = _quick_cfgs(**seg.get(mode, {"window_chunks": -1}))
+    # a progress callback alone selects the host loop; fused=True keeps the program
+    fused = mode != "host_loop"
+    j_seen, t_seen = [], []
+    JSeparator(jax_params, jcfg).demix(track, progress=j_seen.append, fused=fused)
+    tsep.Separator(params_from_jax(jax_params), tcfg, "cpu").demix(
+        track, progress=t_seen.append, fused=fused)
+    assert t_seen == j_seen
+    expected = {"fused": [1.0], "fused_non_streaming": [1.0], "windowed": [0.5, 1.0],
+                "host_loop": [0.25, 0.5, 0.75, 1.0]}[mode]
+    assert t_seen == expected
+
+
+@pytest.mark.parametrize("streaming", [True, False])
+def test_segment_fn_is_called_once_per_chunk(track, jax_params, streaming):
+    """A counting segment_fn takes the place of the segment forward: it
+    sees every chunk as (2, seg) and the state that the config carries
+    (a zero state at every call when the config does not stream)."""
+    _, tcfg = _quick_cfgs(streaming=streaming)
+    sep = tsep.Separator(params_from_jax(jax_params), tcfg, "cpu")
+    seg, stride, n_chunks, _ = sep._geometry(track.shape[1])
+    calls = []
+
+    def segment_fn(params, chunk, state, cfg, n):
+        calls.append((tuple(chunk.shape), float(state.h.abs().max()), n))
+        assert params is sep.params and cfg is tcfg
+        new = tsep.LSTMState(h=state.h + 1.0, c=state.c + 1.0)
+        return torch.ones((cfg.model.n_targets, 2, n)) * chunk[0].mean(), new
+
+    out = sep.demix(track, segment_fn=segment_fn)
+    assert len(calls) == n_chunks == 4
+    assert all(shape == (2, seg) and n == seg for shape, _, n in calls)
+    carried = [c[1] for c in calls]
+    assert carried == ([0.0, 1.0, 2.0, 3.0] if streaming else [0.0] * n_chunks)
+    assert out.shape == (4, 2, track.shape[1]) and bool(torch.isfinite(out).all())
+
+
+def test_demix_track_with_progress_takes_the_per_shift_loop(track, jax_params, monkeypatch):
+    jcfg, tcfg = _quick_cfgs(window_chunks=-1)
+    jcfg, tcfg = jcfg.replace(shifts=2), tcfg.replace(shifts=2)
+    j_seen, t_seen = [], []
+    JSeparator(jax_params, jcfg).demix_track(track, seed=0, progress=j_seen.append)
+
+    def refuse(*a, **k):
+        raise AssertionError("the batched shifts arm ran under a progress callback")
+
+    sep = tsep.Separator(params_from_jax(jax_params), tcfg, "cpu")
+    monkeypatch.setattr(sep, "_demix_shifts_batched", refuse)
+    sep.demix_track(track, seed=0, progress=t_seen.append)
+    n_chunks = sep._geometry(track.shape[1] + tcfg.segment.max_shift_samples(SR))[2]
+    one_pass = [(i + 1) / n_chunks for i in range(n_chunks)]
+    assert t_seen == j_seen == one_pass * 2

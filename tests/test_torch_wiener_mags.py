@@ -127,3 +127,101 @@ def test_mags_wrapper_rejects_bad_inputs(data):
     racc = wiener_cuda.wiener_reduce("mags", xre, xim, mags, None, inv)
     with pytest.raises(ValueError, match="mags must be"):
         wiener_cuda.wiener_apply("mags", xre, xim, mags.reshape(S, T, 2 * F), None, racc, inv, 1e-10)
+
+
+# ---------------------------------------------------------------------------
+# A numpy mirror of the reduce kernel's order of summation (csrc/wiener.cu):
+# slabs of T in cluster-rank order, time lanes in a slab, rows in a lane
+# ---------------------------------------------------------------------------
+
+
+# The reduce's order of summation: a block of LANES time lanes owns 32 bins
+# and one of the CLUSTER slabs of T; lane w sums its slab's rows w,
+# w + LANES, ... in order, the lanes are added in lane order, the slabs in
+# slab order (RB_LANES, RB_CLUSTER).
+LANES, CLUSTER = 8, 8
+
+
+def _slab(rank, T):
+    """The time rows [t_lo, t_hi) of slab ``rank`` (wiener_reduce_kernel)."""
+    return rank * T // CLUSTER, (rank + 1) * T // CLUSTER
+
+
+def _unit(re, im):
+    a2 = re * re + im * im
+    nz = a2 > 0
+    rs = (np.float32(1) / np.sqrt(np.where(nz, a2, np.float32(1)))).astype(np.float32)
+    return np.where(nz, re * rs, np.float32(1)), np.where(nz, im * rs, np.float32(0))
+
+
+def _row_stats(mode, a_re, a_im, first, inv, t):
+    """The 4S statistics (S, 4, F) that one time row adds, float32."""
+    F = a_re.shape[-1]
+    if mode == "masks":
+        x0r, x0i, x1r, x1i = a_re[0, t], a_im[0, t], a_re[1, t], a_im[1, t]
+        ax0, ax1 = x0r * x0r + x0i * x0i, x1r * x1r + x1i * x1i
+        cr, ci = x0r * x1r + x0i * x1i, x0i * x1r - x0r * x1i
+        m0, m1 = first[:, t, :F], first[:, t, F:]
+        m01 = m0 * m1
+        return np.stack([m0 * m0 * ax0, m1 * m1 * ax1, m01 * cr, m01 * ci], axis=1)
+    if mode == "mags":
+        u0r, u0i = _unit(a_re[0, t], a_im[0, t])
+        u1r, u1i = _unit(a_re[1, t], a_im[1, t])
+        m0, m1 = first[:, 0, t] * inv, first[:, 1, t] * inv
+        yr0, yi0, yr1, yi1 = m0 * u0r, m0 * u0i, m1 * u1r, m1 * u1i
+    else:
+        yr0, yi0, yr1, yi1 = a_re[:, 0, t], a_im[:, 0, t], a_re[:, 1, t], a_im[:, 1, t]
+    return np.stack([yr0 * yr0 + yi0 * yi0, yr1 * yr1 + yi1 * yi1,
+                     yr0 * yr1 + yi0 * yi1, yi0 * yr1 - yr0 * yi1], axis=1)
+
+
+def _reduce_mirror(mode, a_re, a_im, first, inv):
+    T, F = a_re.shape[-2:]
+    rows, slabs = [], []
+    for rank in range(CLUSTER):
+        t_lo, t_hi = _slab(rank, T)
+        lanes = []
+        for w in range(LANES):
+            acc = np.zeros((S, 4, F), np.float32)
+            for t in range(t_lo + w, t_hi, LANES):
+                acc = acc + _row_stats(mode, a_re, a_im, first, inv, t)
+                rows.append(t)
+            lanes.append(acc)
+        slab = lanes[0]
+        for acc in lanes[1:]:
+            slab = slab + acc
+        slabs.append(slab)
+    out = slabs[0]
+    for slab in slabs[1:]:
+        out = out + slab
+    if mode == "masks":
+        out = out * (inv * inv)
+    assert sorted(rows) == list(range(T))  # every row once
+    return out.reshape(4 * S, F)
+
+
+@pytest.mark.parametrize("mode", ["masks", "y", "mags"])
+@pytest.mark.parametrize("T, F", [(1, 1), (37, 1), (64, 5), (65, 5), (2584, 5), (1, 2049),
+                                  (37, 2049), (64, 2049), (65, 2049), (2584, 1)])
+def test_reduce_mirror_matches_plain(mode, T, F):
+    rng = np.random.default_rng(T * 7 + F)
+    x = (30 * rng.standard_normal((2, 2, T, F))).astype(np.float32)
+    x[:, 0, 0, : F // 2] = 0.0  # |x| = 0 in one channel of the first row
+    if mode == "masks":
+        first, second = rng.random((S, T, 2 * F), dtype=np.float32), None
+    elif mode == "mags":
+        first, second = (40 * rng.random((S, 2, T, F))).astype(np.float32), None
+    else:
+        first, second = (rng.standard_normal((2, S, 2, T, F)) / 3).astype(np.float32)
+    inv = np.float32(1 / 7.5)
+    a_re, a_im = (first, second) if mode == "y" else (x[0], x[1])
+    mirror = _reduce_mirror(mode, a_re, a_im, first, inv)
+    xre, xim = torch.from_numpy(x[0]), torch.from_numpy(x[1])
+    plain = wiener_cuda.wiener_reduce(
+        mode, xre, xim, torch.from_numpy(first),
+        None if second is None else torch.from_numpy(second), torch.tensor([inv]))
+    assert plain.shape == mirror.shape == (4 * S, F)
+    # float32 sums in another order: a lane's rows in sequence, then lanes
+    # and slabs, against torch's summation along T
+    assert _rel(mirror, plain.numpy()) <= 1e-5
+

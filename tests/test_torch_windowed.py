@@ -109,9 +109,9 @@ def test_windowed_auto_follows_the_planner(track, params, monkeypatch):
     calls = []
     real = tsep.Separator._demix_windowed
 
-    def spy(self, audio, n_chunks, seg, stride, W, chunk_batch):
+    def spy(self, audio, n_chunks, seg, stride, W, chunk_batch, progress=None):
         calls.append(W)
-        return real(self, audio, n_chunks, seg, stride, W, chunk_batch)
+        return real(self, audio, n_chunks, seg, stride, W, chunk_batch, progress)
 
     monkeypatch.setattr(tsep.Separator, "_demix_windowed", spy)
     monkeypatch.setattr(tsep, "suggest_window_chunks", lambda *a, **kw: 10_000)

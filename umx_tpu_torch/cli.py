@@ -7,7 +7,9 @@ machine without a usable GPU raises rather than running on the CPU.
 ``--quantized-hbm`` keeps the u8/u16 weights quantized on the device,
 ``--window-chunks`` sets the window of a long track (0 = the memory
 planner decides, -1 = never, N = N chunks) and ``--lstm-impl`` picks the
-recurrence kernel.  :func:`engine_config_from_args` builds the
+recurrence kernel.  ``--resample`` converts another sample rate instead
+of rejecting it, and ``--host-loop`` runs one call per segment and prints
+the progress after each.  :func:`engine_config_from_args` builds the
 ``EngineConfig`` for this entry point and for ``cli_batch``.
 """
 
@@ -79,6 +81,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--quantized-hbm", action="store_true",
         help="keep the u8/u16 weights quantized on the device (dequantization fused "
         "into the matmuls)",
+    )
+    p.add_argument(
+        "--host-loop",
+        action="store_true",
+        help="dispatch one call per segment (per-segment progress) "
+        "instead of the fused whole-track program",
+    )
+    p.add_argument(
+        "--resample",
+        action="store_true",
+        help="resample non-44.1 kHz inputs instead of rejecting them",
     )
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     p.add_argument(
@@ -156,7 +169,7 @@ def _main(argv=None) -> int:
         return out
 
     t0 = time.perf_counter()
-    audio = timed("load_audio", load_audio, args.wav_file, cfg.dsp.sample_rate)
+    audio = timed("load_audio", load_audio, args.wav_file, cfg.dsp.sample_rate, args.resample)
     secs = audio.shape[1] / cfg.dsp.sample_rate
     log(f"Loaded {args.wav_file}: {audio.shape[1]} samples ({secs:.1f} s)")
 
@@ -166,7 +179,10 @@ def _main(argv=None) -> int:
         f"{', quantized weights' if args.quantized_hbm else ''}) "
         f"onto {device} in {totals['load_model']:.2f} s")
 
-    stems = timed("demix", sep.demix_track, audio, args.seed)
+    progress = None
+    if args.host_loop and not args.quiet:
+        progress = lambda f: log(f"  demix {f * 100:.0f}%")  # noqa: E731
+    stems = timed("demix", sep.demix_track, audio, args.seed, progress, not args.host_loop)
     dt = totals["demix"]
     log(f"Demixed in {dt:.2f} s ({secs / dt:.1f}x realtime)")
 

@@ -21,14 +21,29 @@
 //
 // Design:
 //  * reduce.  The TPU carried one accumulator across a sequential grid;
-//    blocks here run in no order, so the sum is a deterministic two-pass
-//    reduction with no float atomics: pass 1, grid (ceil(F/128),
-//    n_time_chunks), gives each thread one bin f and one chunk of time
-//    rows and writes its 4*S sums (R00, R11, Re R01, Im R01 per source)
-//    to partials (n_chunks, 4S, F); pass 2 sums the chunk axis in order.
-//    The result is bit-identical from run to run.  Neighbouring threads
-//    read neighbouring bins, so every load coalesces.  Channel c of the
-//    masks is read in place from the (S, T, 2F) tensor at offset c*F.
+//    blocks here run in no order, so the sum is a fixed-order reduction
+//    with no float atomics, in one launch.  A block of 8 warps owns 32
+//    neighbouring bins (a warp's loads along f coalesce) and one slab of
+//    time rows; warp w of the block is time lane w and walks the slab's
+//    rows w, w + 8, w + 16, ..., keeping the 4*S sums (R00, R11, Re R01,
+//    Im R01 per source) of its 32 bins in registers.  The 8 blocks that
+//    share a bin group are one thread-block cluster, the slabs cut T into
+//    eight in cluster-rank order.  The lanes' sums are added in lane order
+//    in shared memory, then, after a cluster barrier, block r adds
+//    statistics 2r and 2r+1 of the eight blocks in rank order through
+//    distributed shared memory and stores them.  The order of every sum is
+//    a function of (T, F) alone, so the result is bit-identical from run
+//    to run and for a row whatever else runs.  Channel c of the masks is
+//    read in place from the (S, T, 2F) tensor at offset c*F.
+//    What held the first, two-pass form (pass 1 a grid of 128-bin x
+//    64-row blocks, a second launch summing the partials) under half its
+//    bound in mode mags: 21 warps an SM, each with one row's loads in
+//    flight behind that row's unit phasors.  Here 65 x 8 blocks at
+//    F = 2049 are 32 warps on each of the 132 SMs in one wave, and a
+//    thread issues the loads of RB_AHEAD rows before their arithmetic.
+//    F = 2049 makes a row 8196 bytes, not a multiple of 16, so there are
+//    no 16-byte loads or TMA along f: bytes in flight come from warps and
+//    rows issued ahead.
 //  * apply.  One thread per (t, f): reads x, the masks (or y_in) and the
 //    bin's 16 covariance sums, follows the operation order of the TPU
 //    kernel's _apply_common (reg = sqrt(eps) added once, analytic
@@ -36,12 +51,23 @@
 //    x max_abs) and writes y (S, 2, T, F).
 //  * 1/max_abs arrives as a device pointer, so no host sync is needed.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int S = 4;          // sources (targets)
-constexpr int BLOCK_F = 128;  // bins per block
+constexpr int BLOCK_F = 128;  // bins per block of the apply pass
+// the reduce: bins per block, time lanes (warps) per block, blocks per
+// cluster (the slabs of one bin group), rows whose loads a thread issues
+// ahead
+constexpr int RB_BINS = 32;
+constexpr int RB_LANES = 8;
+constexpr int RB_THREADS = RB_BINS * RB_LANES;
+constexpr int RB_CLUSTER = 8;
+constexpr int RB_AHEAD = 2;
 constexpr int MODE_MASKS = 0;
 constexpr int MODE_Y = 1;
 constexpr int MODE_MAGS = 2;
@@ -55,95 +81,175 @@ __device__ __forceinline__ void unit_phasor(float re, float im, float* ure, floa
   *uim = nz ? im * rs : 0.0f;
 }
 
-// a_re/a_im: MODE_MASKS and MODE_MAGS: mix planes (2, T, F); MODE_Y: y
-// planes (S, 2, T, F).  masks: (S, T, 2F) masks, or MODE_MAGS' (S, 2, T, F)
-// magnitudes.
+// One time row of one bin, as the reduce reads it.  a_re/a_im: MODE_MASKS
+// and MODE_MAGS: mix planes (2, T, F); MODE_Y: y planes (S, 2, T, F).
+// masks: (S, T, 2F) masks, or MODE_MAGS' (S, 2, T, F) magnitudes.
 template <int MODE>
-__global__ void reduce_partial_kernel(const float* __restrict__ a_re,
-                                      const float* __restrict__ a_im,
-                                      const float* __restrict__ masks,   // (S, T, 2F)
-                                      const float* __restrict__ inv_ma,  // (1,)
-                                      float* __restrict__ partials,      // (n_chunks, 4S, F)
-                                      int T, int F, int t_chunk) {
-  const int f = blockIdx.x * BLOCK_F + threadIdx.x;
-  if (f >= F) return;
-  const int chunk = blockIdx.y;
-  const int t0 = chunk * t_chunk;
-  const int t1 = min(T, t0 + t_chunk);
+struct ReduceRow;
+
+template <>
+struct ReduceRow<MODE_MASKS> {
+  float x0r, x0i, x1r, x1i, m[S][2];
+  __device__ __forceinline__ void load(const float* a_re, const float* a_im, const float* masks,
+                                       size_t TF, int T, int F, int t, int f) {
+    const size_t i = (size_t)t * F + f;
+    x0r = a_re[i];
+    x0i = a_im[i];
+    x1r = a_re[TF + i];
+    x1i = a_im[TF + i];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const size_t mi = ((size_t)s * T + t) * 2 * F + f;
+      m[s][0] = masks[mi];
+      m[s][1] = masks[mi + F];
+    }
+  }
+  __device__ __forceinline__ void add(float* acc, float) const {
+    const float ax0 = x0r * x0r + x0i * x0i;
+    const float ax1 = x1r * x1r + x1i * x1i;
+    const float cr = x0r * x1r + x0i * x1i;  // x0 conj(x1)
+    const float ci = x0i * x1r - x0r * x1i;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float m0 = m[s][0], m1 = m[s][1];
+      const float m01 = m0 * m1;
+      acc[4 * s + 0] += m0 * m0 * ax0;
+      acc[4 * s + 1] += m1 * m1 * ax1;
+      acc[4 * s + 2] += m01 * cr;
+      acc[4 * s + 3] += m01 * ci;
+    }
+  }
+};
+
+template <>
+struct ReduceRow<MODE_MAGS> {
+  float x0r, x0i, x1r, x1i, m[S][2];
+  __device__ __forceinline__ void load(const float* a_re, const float* a_im, const float* mags,
+                                       size_t TF, int, int F, int t, int f) {
+    const size_t i = (size_t)t * F + f;
+    x0r = a_re[i];
+    x0i = a_im[i];
+    x1r = a_re[TF + i];
+    x1i = a_im[TF + i];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const size_t c0 = (size_t)(2 * s) * TF + i;
+      m[s][0] = mags[c0];
+      m[s][1] = mags[c0 + TF];
+    }
+  }
+  __device__ __forceinline__ void add(float* acc, float inv) const {
+    float u0r, u0i, u1r, u1i;
+    unit_phasor(x0r, x0i, &u0r, &u0i);
+    unit_phasor(x1r, x1i, &u1r, &u1i);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float m0 = m[s][0] * inv;
+      const float m1 = m[s][1] * inv;
+      const float yr0 = m0 * u0r, yi0 = m0 * u0i;
+      const float yr1 = m1 * u1r, yi1 = m1 * u1i;
+      acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
+      acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
+      acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
+      acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
+    }
+  }
+};
+
+template <>
+struct ReduceRow<MODE_Y> {
+  // the 8 planes it reads with the evict-first hint: faster in this mode
+  // on the H100, slower in the others (chip_forms.py wiener_reduce)
+  float yr[S][2], yi[S][2];
+  __device__ __forceinline__ void load(const float* a_re, const float* a_im, const float*,
+                                       size_t TF, int, int F, int t, int f) {
+    const size_t i = (size_t)t * F + f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const size_t c0 = (size_t)(2 * s) * TF + i;
+      yr[s][0] = __ldcs(a_re + c0);
+      yi[s][0] = __ldcs(a_im + c0);
+      yr[s][1] = __ldcs(a_re + c0 + TF);
+      yi[s][1] = __ldcs(a_im + c0 + TF);
+    }
+  }
+  __device__ __forceinline__ void add(float* acc, float) const {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float yr0 = yr[s][0], yi0 = yi[s][0], yr1 = yr[s][1], yi1 = yi[s][1];
+      acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
+      acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
+      acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
+      acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
+    }
+  }
+};
+
+// grid (ceil(F / RB_BINS), RB_CLUSTER), clusters of the RB_CLUSTER blocks
+// of one bin group; racc (4S, F).
+template <int MODE>
+__global__ void __cluster_dims__(1, RB_CLUSTER, 1) __launch_bounds__(RB_THREADS)
+    wiener_reduce_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
+                  const float* __restrict__ masks,   // (S, T, 2F) or (S, 2, T, F)
+                  const float* __restrict__ inv_ma,  // (1,)
+                  float* __restrict__ racc,          // (4S, F)
+                  int T, int F) {
+  __shared__ float lanes[RB_LANES][4 * S][RB_BINS];
+  __shared__ float block_sum[4 * S][RB_BINS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int f = blockIdx.x * RB_BINS + lane;
   const size_t TF = (size_t)T * F;
+  const float inv = inv_ma[0];
+  // this block's slab of time rows
+  const int t_hi = (int)((long long)(rank + 1) * T / RB_CLUSTER);
+  int t = (int)((long long)rank * T / RB_CLUSTER) + w;
 
   float acc[4 * S];
 #pragma unroll
   for (int i = 0; i < 4 * S; ++i) acc[i] = 0.0f;
-
-  for (int t = t0; t < t1; ++t) {
-    const size_t i = (size_t)t * F + f;
-    if (MODE == MODE_MASKS) {
-      const float x0r = a_re[i], x0i = a_im[i];
-      const float x1r = a_re[TF + i], x1i = a_im[TF + i];
-      const float ax0 = x0r * x0r + x0i * x0i;
-      const float ax1 = x1r * x1r + x1i * x1i;
-      const float cr = x0r * x1r + x0i * x1i;   // x0 conj(x1)
-      const float ci = x0i * x1r - x0r * x1i;
+  if (f < F) {
+    // RB_AHEAD rows' loads before their arithmetic; the sums stay in row order
+    for (; t + (RB_AHEAD - 1) * RB_LANES < t_hi; t += RB_AHEAD * RB_LANES) {
+      ReduceRow<MODE> rows[RB_AHEAD];
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const size_t mi = ((size_t)s * T + t) * 2 * F + f;
-        const float m0 = masks[mi];
-        const float m1 = masks[mi + F];
-        const float m01 = m0 * m1;
-        acc[4 * s + 0] += m0 * m0 * ax0;
-        acc[4 * s + 1] += m1 * m1 * ax1;
-        acc[4 * s + 2] += m01 * cr;
-        acc[4 * s + 3] += m01 * ci;
-      }
-    } else if (MODE == MODE_MAGS) {
-      const float inv = inv_ma[0];
-      float u0r, u0i, u1r, u1i;
-      unit_phasor(a_re[i], a_im[i], &u0r, &u0i);
-      unit_phasor(a_re[TF + i], a_im[TF + i], &u1r, &u1i);
+      for (int u = 0; u < RB_AHEAD; ++u) rows[u].load(a_re, a_im, masks, TF, T, F, t + u * RB_LANES, f);
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const size_t c0 = (size_t)(2 * s) * TF + i;
-        const float m0 = masks[c0] * inv;
-        const float m1 = masks[c0 + TF] * inv;
-        const float yr0 = m0 * u0r, yi0 = m0 * u0i;
-        const float yr1 = m1 * u1r, yi1 = m1 * u1i;
-        acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
-        acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
-        acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
-        acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const size_t c0 = (size_t)(2 * s) * TF + i;
-        const float yr0 = a_re[c0], yi0 = a_im[c0];
-        const float yr1 = a_re[c0 + TF], yi1 = a_im[c0 + TF];
-        acc[4 * s + 0] += yr0 * yr0 + yi0 * yi0;
-        acc[4 * s + 1] += yr1 * yr1 + yi1 * yi1;
-        acc[4 * s + 2] += yr0 * yr1 + yi0 * yi1;
-        acc[4 * s + 3] += yi0 * yr1 - yr0 * yi1;
-      }
+      for (int u = 0; u < RB_AHEAD; ++u) rows[u].add(acc, inv);
+    }
+    for (; t < t_hi; t += RB_LANES) {
+      ReduceRow<MODE> row;
+      row.load(a_re, a_im, masks, TF, T, F, t, f);
+      row.add(acc, inv);
     }
   }
-  // the masks-mode statistics are of y = mask * x / max_abs
-  float scale = 1.0f;
-  if (MODE == MODE_MASKS) {
-    const float inv = inv_ma[0];
-    scale = inv * inv;
-  }
-  float* out = partials + (size_t)chunk * 4 * S * F + f;
 #pragma unroll
-  for (int r = 0; r < 4 * S; ++r) out[(size_t)r * F] = acc[r] * scale;
-}
-
-__global__ void reduce_sum_kernel(const float* __restrict__ partials, float* __restrict__ racc,
-                                  int n_chunks, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int k = 0; k < n_chunks; ++k) s += partials[(size_t)k * n + i];
-  racc[i] = s;
+  for (int i = 0; i < 4 * S; ++i) lanes[w][i][lane] = acc[i];
+  __syncthreads();
+  // the block's sums: its time lanes in lane order
+  for (int q = threadIdx.x; q < 4 * S * RB_BINS; q += RB_THREADS) {
+    const int i = q / RB_BINS, b = q % RB_BINS;
+    float s = lanes[0][i][b];
+#pragma unroll
+    for (int l = 1; l < RB_LANES; ++l) s += lanes[l][i][b];
+    block_sum[i][b] = s;
+  }
+  cluster.sync();
+  // block `rank` finishes statistics 2*rank and 2*rank + 1: the slabs in
+  // rank order (the masks-mode statistics are of y = mask * x / max_abs)
+  static_assert(4 * S == 2 * RB_CLUSTER, "two statistics a block");
+  if (threadIdx.x < 2 * RB_BINS) {
+    const int i = 2 * rank + threadIdx.x / RB_BINS, b = threadIdx.x % RB_BINS;
+    float s = cluster.map_shared_rank(&block_sum[0][0], 0)[i * RB_BINS + b];
+#pragma unroll
+    for (int k = 1; k < RB_CLUSTER; ++k) s += cluster.map_shared_rank(&block_sum[0][0], k)[i * RB_BINS + b];
+    if (MODE == MODE_MASKS) s *= inv * inv;
+    const int fo = blockIdx.x * RB_BINS + b;
+    if (fo < F) racc[(size_t)i * F + fo] = s;
+  }
+  // no block leaves while another still reads its shared memory
+  cluster.sync();
 }
 
 template <int MODE>
@@ -237,29 +343,22 @@ __global__ void apply_kernel(const float* __restrict__ xre, const float* __restr
 
 }  // namespace
 
-// partials: (ceil(T/t_chunk), 4S, F) scratch; racc: (4S, F) result.
+// racc: (4S, F) result; one launch.
 extern "C" int umx_wiener_reduce(int mode, const float* a_re, const float* a_im,
-                                 const float* masks, const float* inv_ma, float* partials,
-                                 float* racc, int T, int F, int t_chunk, void* stream) {
+                                 const float* masks, const float* inv_ma, float* racc, int T,
+                                 int F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (T + t_chunk - 1) / t_chunk;
-  const dim3 grid((F + BLOCK_F - 1) / BLOCK_F, n_chunks);
+  if (T < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + RB_BINS - 1) / RB_BINS, RB_CLUSTER);
   if (mode == MODE_MASKS) {
-    reduce_partial_kernel<MODE_MASKS><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma,
-                                                               partials, T, F, t_chunk);
+    wiener_reduce_kernel<MODE_MASKS><<<grid, RB_THREADS, 0, st>>>(a_re, a_im, masks, inv_ma, racc, T, F);
   } else if (mode == MODE_Y) {
-    reduce_partial_kernel<MODE_Y><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma,
-                                                           partials, T, F, t_chunk);
+    wiener_reduce_kernel<MODE_Y><<<grid, RB_THREADS, 0, st>>>(a_re, a_im, masks, inv_ma, racc, T, F);
   } else if (mode == MODE_MAGS) {
-    reduce_partial_kernel<MODE_MAGS><<<grid, BLOCK_F, 0, st>>>(a_re, a_im, masks, inv_ma,
-                                                              partials, T, F, t_chunk);
+    wiener_reduce_kernel<MODE_MAGS><<<grid, RB_THREADS, 0, st>>>(a_re, a_im, masks, inv_ma, racc, T, F);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n = 4 * S * F;
-  reduce_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(partials, racc, n_chunks, n);
   return (int)cudaGetLastError();
 }
 

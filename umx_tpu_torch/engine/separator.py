@@ -16,7 +16,9 @@ shifts ≥ 1 the track is front-padded by offsets drawn from
 run as batch rows of one program when the memory planner says they fit.
 A track longer than one program can hold (``SegmentConfig.window_chunks``)
 runs as a chain of W-chunk windows (:func:`demix_windowed_window`) that
-carry the LSTM state and the unnormalized overlap-add tail.
+carry the LSTM state and the unnormalized overlap-add tail.  The host
+loop (``Separator.demix(fused=False)``) runs one segment call per chunk
+instead, for per-chunk progress or a caller's segment function.
 """
 
 from __future__ import annotations
@@ -316,25 +318,43 @@ class Separator:
         return seg, stride, n_chunks, (n_chunks - 1) * stride + seg
 
     @torch.inference_mode()
-    def demix(self, audio) -> torch.Tensor:
+    def demix(self, audio, progress=None, fused: bool | None = None,
+              segment_fn=None) -> torch.Tensor:
         """Overlapping-segment demix of a track: audio (2, length) →
-        (T#, 2, length) float32.  Non-streaming configs run the chunk
-        groups at ``chunk_batch`` rows (0 = the memory planner's width),
-        streaming configs the chunk loop.  A track of more chunks than
-        ``window_chunks`` allows (0 = what the planner says fits) runs
-        windowed, decided before the track is placed on the device: a
-        host array then streams window slices in and stems out and a CPU
-        tensor returns, so device memory stays bounded for any length; a
-        tensor already on the device gives a tensor on the device."""
+        (T#, 2, length) float32, in one of two modes.
+
+        Fused (the default): non-streaming configs run the chunk groups at
+        ``chunk_batch`` rows (0 = the memory planner's width), streaming
+        configs the chunk loop, and one normalized overlap-add finishes the
+        track.  A track of more chunks than ``window_chunks`` allows (0 =
+        what the planner says fits) runs windowed, decided before the track
+        is placed on the device: a host array then streams window slices in
+        and stems out and a CPU tensor returns, so device memory stays
+        bounded for any length; a tensor already on the device gives a
+        tensor on the device.
+
+        Host loop (``fused=False``, and the default when ``progress`` or
+        ``segment_fn`` is given): one ``segment_fn(params, chunk, state,
+        cfg, seg)`` call per chunk (default :func:`segment_forward`; a
+        serving batcher can take its place), each chunk's weighted output
+        added into the track's buffers at its offset, the state carried
+        only when the config streams.  ``progress(f)`` is called with
+        ``(i + 1) / n_chunks`` after each chunk of the host loop, with
+        ``(j + 1) / n_windows`` after each window, and with 1.0 after a
+        fused run."""
         cfg = self.cfg
+        if fused is None:
+            fused = progress is None and segment_fn is None
+        if segment_fn is None:
+            segment_fn = segment_forward
         on_device = self._on_device(audio)
         length = audio.shape[1]
         seg, stride, n_chunks, padded_len = self._geometry(length)
         cb = cfg.segment.chunk_batch
-        if not cfg.segment.streaming and cb <= 0:
+        if fused and not cfg.segment.streaming and cb <= 0:
             cb = suggest_chunk_batch(cfg, length / cfg.dsp.sample_rate, params=self.params,
                                      device=self.device)
-        Wc = cfg.segment.window_chunks
+        Wc = cfg.segment.window_chunks if fused else -1
         if Wc == 0:
             # a caller's device tensor and the result buffer stay resident
             # across windows; a host array's windows come and go
@@ -347,23 +367,52 @@ class Separator:
                 # so the last window pads the fewest silent chunks
                 Wc = -(-n_chunks // -(-n_chunks // Wc))
         if Wc > 0 and n_chunks > Wc:
-            return self._demix_windowed(audio, n_chunks, seg, stride, Wc, max(1, cb))[..., :length]
+            out = self._demix_windowed(audio, n_chunks, seg, stride, Wc, max(1, cb), progress)
+            return out[..., :length]
 
         audio = torch.as_tensor(np.asarray(audio, np.float32) if not on_device else audio)
         audio = audio.float().to(self.device)
         audio_p = torch.nn.functional.pad(audio, (0, padded_len - length))
-        if not cfg.segment.streaming:
+        if not fused:
+            out = self._demix_host_loop(audio_p, n_chunks, seg, stride, segment_fn, progress)
+        elif not cfg.segment.streaming:
             out = demix_fused_parallel(self.params, audio_p, cfg, n_chunks, seg, stride,
                                        min(cb, n_chunks))
         else:
             state = init_lstm_state(cfg.model, self.device, batch=1)
             out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg, stride)
             out = out[0]
+        if fused and progress is not None:
+            progress(1.0)
         return out[..., :length]
+
+    def _demix_host_loop(self, audio_p, n_chunks: int, seg: int, stride: int, segment_fn,
+                         progress):
+        """One ``segment_fn`` call per chunk of audio_p (2, padded_len) on
+        the device; the weighted outputs and the weights are summed into
+        (T#, 2, padded_len) and (padded_len,) buffers at each chunk's
+        offset, then divided."""
+        cfg = self.cfg
+        padded_len = audio_p.shape[-1]
+        weight = transition_weight(seg, cfg.segment.transition_power, self.device)
+        out = torch.zeros((cfg.model.n_targets, 2, padded_len), device=self.device)
+        sum_weight = torch.zeros((padded_len,), device=self.device)
+        state = init_lstm_state(cfg.model, self.device)
+        for i in range(n_chunks):
+            off = i * stride
+            chunk_out, new_state = segment_fn(self.params, audio_p[:, off : off + seg], state,
+                                              cfg, seg)
+            if cfg.segment.streaming:
+                state = new_state
+            out[..., off : off + seg] += weight * chunk_out
+            sum_weight[off : off + seg] += weight
+            if progress is not None:
+                progress((i + 1) / n_chunks)
+        return out / sum_weight
 
     @torch.inference_mode()
     def _demix_windowed(self, audio, n_chunks: int, seg: int, stride: int, W: int,
-                        chunk_batch: int):
+                        chunk_batch: int, progress=None):
         """ceil(n_chunks / W) windows of W chunks chained by the LSTM state
         and the unnormalized overlap-add tail (:func:`demix_windowed_window`);
         the last window is padded with silent chunks.  audio (2, length):
@@ -371,7 +420,8 @@ class Separator:
         its stems copied out as it finishes, and a CPU tensor returns; a
         tensor on the device has its windows written in place into one
         resident result buffer, which returns.  Either covers the whole
-        padded length (n_windows*W - 1)*stride + seg."""
+        padded length (n_windows*W - 1)*stride + seg.  ``progress(f)`` is
+        called with ``(j + 1) / n_windows`` after each window."""
         cfg = self.cfg
         n_t = cfg.model.n_targets
         n_windows = -(-n_chunks // W)
@@ -393,27 +443,32 @@ class Separator:
                 self.params, a, state, tail, tail_w, cfg, W, seg, stride, chunk_batch
             )
             res[..., s0 : s0 + W * stride] = out_j
+            if progress is not None:
+                progress((j + 1) / n_windows)
         # the last window's tail is the end of the padded track
         res[..., full_len - tail_len :] = tail / tail_w
         return res
 
-    def demix_track(self, audio, seed: int = 0) -> np.ndarray:
+    def demix_track(self, audio, seed: int = 0, progress=None, fused: bool | None = None,
+                    segment_fn=None) -> np.ndarray:
         """Full-track demix with the Demucs random-shift trick: each of
         ``cfg.shifts`` passes front-pads the track by an offset in
         [0, max_shift) and trims the output back; the passes are
         averaged.  Several passes run as batch rows of one program when
-        the memory planner fits at least two.  Returns (T#, 2, length)
-        float32 numpy."""
+        the memory planner fits at least two, unless the host loop is
+        asked for (``fused=False``, a ``progress`` callback or a
+        ``segment_fn``; all three go on to :meth:`demix`).  Returns
+        (T#, 2, length) float32 numpy."""
         cfg = self.cfg
         audio = np.asarray(audio, np.float32)
         length = audio.shape[1]
         if cfg.shifts <= 0:
-            return self.demix(audio).cpu().numpy()
+            return self.demix(audio, progress, fused, segment_fn).cpu().numpy()
 
         max_shift = cfg.segment.max_shift_samples(cfg.dsp.sample_rate)
         rng = np.random.default_rng(seed)
         offsets = [int(rng.integers(0, max_shift)) for _ in range(cfg.shifts)]
-        if cfg.shifts > 1:
+        if cfg.shifts > 1 and fused is not False and segment_fn is None and progress is None:
             fit = suggest_max_batch(cfg, (length + max_shift) / cfg.dsp.sample_rate,
                                     params=self.params, device=self.device)
             if fit >= 2:
@@ -422,7 +477,7 @@ class Separator:
         acc = None
         for offset in offsets:
             shifted = np.pad(audio, ((0, 0), (offset, max_shift - offset)))
-            out = self.demix(shifted)[..., offset : offset + length]
+            out = self.demix(shifted, progress, fused, segment_fn)[..., offset : offset + length]
             acc = out if acc is None else acc + out
         return (acc / cfg.shifts).cpu().numpy()
 

@@ -1,8 +1,8 @@
 """WAV decode/encode through scipy.
 
-44.1 kHz enforcement, mono→stereo duplication, (2, n) channel-major
-float32 layout, float32 PCM output.  FLAC, OGG and MP3 are not read by
-the port yet.
+44.1 kHz enforcement (or, asked for, polyphase resampling to it),
+mono→stereo duplication, (2, n) channel-major float32 layout, float32 PCM
+output.  FLAC, OGG and MP3 are not read by the port yet.
 """
 
 from __future__ import annotations
@@ -16,8 +16,10 @@ class UnsupportedAudio(ValueError):
     pass
 
 
-def load_audio(path: str, expected_rate: int = 44100) -> np.ndarray:
-    """Load a WAV into a float32 (2, n_samples) array."""
+def load_audio(path: str, expected_rate: int = 44100, resample: bool = False) -> np.ndarray:
+    """Load a WAV into a float32 (2, n_samples) array.  Another sample
+    rate raises, unless ``resample``: then the samples are
+    polyphase-resampled to ``expected_rate`` in float64."""
     from scipy.io import wavfile
 
     with open(path, "rb") as fh:
@@ -36,9 +38,19 @@ def load_audio(path: str, expected_rate: int = 44100) -> np.ndarray:
     if data.ndim == 1:
         data = data[:, None]
     if rate != expected_rate:
-        raise UnsupportedAudio(
-            f"{path}: sample rate {rate} Hz unsupported; only {expected_rate} Hz"
-        )
+        if not resample:
+            raise UnsupportedAudio(
+                f"{path}: sample rate {rate} Hz unsupported; only {expected_rate} Hz "
+                "(pass resample=True / --resample to convert)"
+            )
+        from math import gcd
+
+        from scipy.signal import resample_poly
+
+        g = gcd(expected_rate, rate)
+        data = resample_poly(
+            data.astype(np.float64), expected_rate // g, rate // g, axis=0
+        ).astype(np.float32)
     n_ch = data.shape[1]
     if n_ch == 1:
         data = np.repeat(data, 2, axis=1)

@@ -6,10 +6,15 @@ whole-track entry point over it.
 CPU tensors run :func:`umx_tpu_torch.ops.ola.ola_normalized_plain`, CUDA
 tensors launch the kernel or raise.  The kernel sums the same two addends
 as the plain version, in the same order, so the two are bit-equal.
+
+The launch is planned here, in pure functions that the CPU tests reach:
+:func:`ola_vector_width` (16-byte vectors or scalars) and
+:func:`ola_blocks` (one block an SM).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,8 +22,35 @@ import torch
 from umx_tpu_torch import _build
 from umx_tpu_torch.ops.ola import ola_geometry_ok, ola_normalized_plain
 
-_MAX_ROWS = 65535  # the grid's y extent
-_MAX_LEN = 2**31 - 1
+THREADS = 256  # threads a block: 8 warps (csrc/ola.cu)
+WARPS = THREADS // 32
+_MAX_LEN = 2**31 - 4 * 32 * 2  # a lane's sample index steps past L by up to 32 vectors
+
+
+def ola_vector_width(seg: int, stride: int, *pointers: int) -> int:
+    """Samples a lane moves at a time: 4 (16-byte vectors) where seg and
+    stride are multiples of 4 and every pointer is 16-byte aligned, so that
+    every run of the kernel starts and ends on a vector; else 1."""
+    aligned = all(p % 16 == 0 for p in pointers)
+    return 4 if seg % 4 == 0 and stride % 4 == 0 and aligned else 1
+
+
+def ola_blocks(L: int, V: int, grid: int) -> int:
+    """Blocks of one launch: ``grid`` (one an SM), fewer where the track
+    has less than a vector a thread."""
+    return max(1, min(grid, -(-L // (THREADS * V))))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(index: int) -> int:
+    """Blocks of one launch on CUDA device ``index`` (one an SM)."""
+    import ctypes
+
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().umx_ola_grid(ctypes.addressof(blocks))
+    _build.check(err, "umx_ola_grid")
+    return blocks.value
 
 
 def ola_normalized(ys: torch.Tensor, inv_sw: torch.Tensor, stride: int) -> torch.Tensor:
@@ -46,20 +78,23 @@ def ola_normalized(ys: torch.Tensor, inv_sw: torch.Tensor, stride: int) -> torch
         return ola_normalized_plain(ys, inv_sw, stride)
     if ys.device.type != "cuda":
         raise ValueError(f"no kernel for device {ys.device}")
-    if M > _MAX_ROWS or L > _MAX_LEN:
-        raise ValueError(f"the overlap-add kernel takes M <= {_MAX_ROWS} rows and "
-                         f"L < 2**31 samples; got M = {M}, L = {L}")
+    if L > _MAX_LEN:
+        raise ValueError(f"the overlap-add kernel takes L <= {_MAX_LEN} samples; got L = {L}")
     out = torch.empty((M, L), dtype=torch.float32, device=ys.device)
+    V = ola_vector_width(seg, stride, ys.data_ptr(), inv_sw.data_ptr(), out.data_ptr())
+    blocks = ola_blocks(L, V, _grid(ys.device.index))
     err = _build.library().umx_ola_normalized(
         ys.data_ptr(), inv_sw.data_ptr(), out.data_ptr(), n_chunks, M, seg, stride, L,
-        torch.cuda.current_stream(ys.device).cuda_stream,
+        blocks, int(V == 4), torch.cuda.current_stream(ys.device).cuda_stream,
     )
     _build.check(err, "umx_ola_normalized")
     ola_normalized.launches += 1
+    ola_normalized.form = (blocks, V)
     return out
 
 
 ola_normalized.launches = 0
+ola_normalized.form = None  # (blocks, samples a lane moves at a time) of the last launch
 
 
 def overlap_add_normalized(ys: torch.Tensor, inv_sw: torch.Tensor, stride: int,

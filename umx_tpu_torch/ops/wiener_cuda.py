@@ -29,8 +29,7 @@ from umx_tpu_torch import _build
 
 N_SOURCES = 4  # the kernels are specialized to 4 sources and stereo
 _MODES = {"masks": 0, "y": 1, "mags": 2}
-_T_CHUNK = 64  # time rows per reduce block (pass 1)
-_MAX_GRID_Y = 65535
+_MAX_GRID_Y = 65535  # the apply pass's grid: one block row per time row
 
 
 def inv_max_abs(xre, xim, scale_factor: float):
@@ -211,25 +210,20 @@ def wiener_reduce(mode: str, xre, xim, m_or_yre, y_im, inv_ma):
     mode "masks": xre/xim (2, T, F) mix planes, m_or_yre the (S, T, 2F)
     masks, y_im unused.  mode "mags": m_or_yre the (S, 2, T, F) target
     magnitudes, y_im unused.  mode "y": m_or_yre/y_im the previous y planes
-    (S, 2, T, F) divided by max_abs.  CUDA tensors launch the kernel (or
-    raise); CPU tensors run :func:`wiener_reduce_plain`."""
+    (S, 2, T, F) divided by max_abs.  CUDA tensors launch the kernel once
+    (or raise); CPU tensors run :func:`wiener_reduce_plain`."""
     T, F = _check(mode, xre, xim, m_or_yre, y_im, inv_ma)
     a_re, a_im = (m_or_yre, y_im) if mode == "y" else (xre, xim)
     masks = None if mode == "y" else m_or_yre
     if xre.device.type == "cpu":
         return wiener_reduce_plain(mode, a_re, a_im, masks, inv_ma)
 
-    lib = _build.library()
-    n_chunks = -(-T // _T_CHUNK)
-    if n_chunks > _MAX_GRID_Y:
-        raise ValueError(f"T={T} exceeds the reduce grid")
-    partials = torch.empty((n_chunks, 4 * N_SOURCES, F), dtype=torch.float32, device=xre.device)
     racc = torch.empty((4 * N_SOURCES, F), dtype=torch.float32, device=xre.device)
-    err = lib.umx_wiener_reduce(
+    err = _build.library().umx_wiener_reduce(
         _MODES[mode], a_re.data_ptr(), a_im.data_ptr(),
         masks.data_ptr() if masks is not None else None,
-        inv_ma.data_ptr(), partials.data_ptr(), racc.data_ptr(),
-        T, F, _T_CHUNK, torch.cuda.current_stream(xre.device).cuda_stream,
+        inv_ma.data_ptr(), racc.data_ptr(), T, F,
+        torch.cuda.current_stream(xre.device).cuda_stream,
     )
     _build.check(err, "umx_wiener_reduce")
     wiener_reduce.launches += 1

@@ -94,6 +94,22 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     slower than its earlier form (K7 and the reduce timed as the median of
     5 rounds) (K9 beside K1 at one row per chain is
     printed, not gated).
+13. (run right after phase 4, on its ggml file and 100 s WAV) the HTTP
+    service (``umx_tpu_torch.serve``) on cuda with its default flags
+    (60 s segments, max_batch 4, Wiener 1 iteration): /healthz, /info
+    (max_batch is the memory planner's cap), /warmup, /stats/reset; three
+    concurrent /demix requests of the WAV (seeds 0, 1, 2) that the segment
+    batcher must coalesce (fewer device calls than jobs, K1 at two or more
+    rows per chain), each response's stems checked and held within 1e-5 of
+    the same seed run alone (the host loop without the batcher), the
+    shapes K1 ran at recorded and K1 held against its plain version there;
+    one request alone; a streaming session (10 s pushes, X-Stems-Samples 0
+    until one segment is in, the stems within 1e-5 of the offline demix);
+    a FLAC body (encoded here; skipped with its reason if the native IO
+    library cannot be built); the batched segment call's measured peak at
+    B = 1 and the served width beside ``segment_batch_hbm_bytes``, which
+    must bound it.  Wall times, aggregate x realtime, busy fraction,
+    average batch fill and the session's time per segment are printed.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -1485,6 +1501,313 @@ def gpu_vs_cpu(model: str, mix):
     return err
 
 
+def flac_bytes(mix) -> bytes:
+    """A FLAC file of ``mix`` (2, n) float32 as 16-bit samples: STREAMINFO,
+    then frames of 4096 samples (the last one shorter) with one VERBATIM
+    subframe per channel, CRC-8 headers and CRC-16 footers (the FLAC
+    format specification).  The CRCs run over all frames of one length at
+    once, a byte column at a time."""
+    pcm = np.clip(np.round(mix * 32767.0), -32768, 32767).astype(">i2")  # (2, n)
+    n = pcm.shape[1]
+    bs = 4096
+    streaminfo = (bs.to_bytes(2, "big") * 2 + bytes(6)
+                  + ((SR << 44) | (1 << 41) | (15 << 36) | n).to_bytes(8, "big") + bytes(16))
+    head = b"fLaC" + bytes([0x80]) + len(streaminfo).to_bytes(3, "big") + streaminfo
+
+    def crc_table(poly, bits):
+        top, mask = 1 << (bits - 1), (1 << bits) - 1
+        table = []
+        for b in range(256):
+            c = b << (bits - 8)
+            for _ in range(8):
+                c = ((c << 1) ^ poly) & mask if c & top else (c << 1) & mask
+            table.append(c)
+        return np.array(table, np.uint32)
+
+    crc8, crc16 = crc_table(0x07, 8), crc_table(0x8005, 16)
+
+    def crcs(rows, table, bits):
+        c = np.zeros(rows.shape[0], np.uint32)
+        for col in rows.T:
+            c = ((c << 8) & ((1 << bits) - 1)) ^ table[((c >> (bits - 8)) ^ col) & 0xFF]
+        return c
+
+    def utf8(k):  # frame numbers below 2^11 take one or two bytes
+        require(k < 0x800, f"flac_bytes writes fewer than 2048 frames, not {k + 1}")
+        return bytes([k]) if k < 0x80 else bytes([0xC0 | (k >> 6), 0x80 | (k & 0x3F)])
+
+    frames = {}  # frame length -> (frame numbers, rows of bytes without the CRC-16)
+    for k in range(-(-n // bs)):
+        block = pcm[:, k * bs : (k + 1) * bs]
+        m = block.shape[1]
+        code = 0xC0 if m == bs else 0x70  # 4096, or a 16-bit (size - 1) at the header's end
+        header = b"\xff\xf8" + bytes([code | 0x9, 0x18]) + utf8(k)
+        if m != bs:
+            header += (m - 1).to_bytes(2, "big")
+        row = np.frombuffer(header + bytes(1) + b"\x02" + block[0].tobytes() + b"\x02"
+                            + block[1].tobytes(), np.uint8).copy()
+        row[len(header)] = crcs(row[None, : len(header)], crc8, 8)[0]
+        frames.setdefault(len(row), []).append((k, row))
+    out = {}
+    for group in frames.values():
+        rows = np.stack([r for _, r in group])
+        for (k, row), c in zip(group, crcs(rows, crc16, 16)):
+            out[k] = row.tobytes() + int(c).to_bytes(2, "big")
+    return head + b"".join(out[k] for k in sorted(out))
+
+
+def _http(url: str, body: bytes | None = None):
+    """(status, headers, body) of a GET (no body) or POST."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def _zip_stems(payload: bytes, n: int):
+    """The four stems of a /demix response: 44.1 kHz stereo float32 WAVs of
+    ``n`` samples → (4, 2, n)."""
+    import io
+    import zipfile
+
+    from scipy.io import wavfile
+
+    with zipfile.ZipFile(io.BytesIO(payload)) as zf:
+        names = sorted(zf.namelist())
+        require(names == [f"target_{i}.wav" for i in range(4)], f"ZIP holds {names}")
+        stems = []
+        for name in names:
+            rate, data = wavfile.read(io.BytesIO(zf.read(name)))
+            require(rate == SR and data.shape == (n, 2) and data.dtype == np.float32,
+                    f"{name}: rate {rate}, shape {data.shape}, dtype {data.dtype}")
+            require(bool(np.isfinite(data).all()), f"{name} has non-finite samples")
+            stems.append(data.T)
+    return np.stack(stems)
+
+
+def _partition(stems, mix, what: str) -> float:
+    corr = float(np.corrcoef(stems.sum(axis=0).ravel(), mix.ravel())[0, 1])
+    require(corr >= 0.99, f"{what}: the stems do not sum to the mix (corr {corr})")
+    return corr
+
+
+def serving_path(model: str, wav: str, mix, counters: dict, smi: str):
+    """Phase 13: the HTTP service (``umx_tpu_torch.serve``) on cuda with its
+    default flags (60 s segments, max_batch 4, Wiener 1 iteration), driven
+    over a socket: health, info, warm-up and stats reset; three concurrent
+    /demix requests of the 100 s WAV (seeds 0, 1, 2) with the launch
+    counters set to 0 just before and read just after, the shapes the
+    batcher gave K1 recorded, each response held against the same seed run
+    alone (the host loop without the batcher); one request alone; a
+    streaming session pushed in 10 s pieces against the offline demix; a
+    FLAC body; the batched segment call's measured peaks at B = 1 and the
+    served width beside the planner's estimate.  Returns the figures."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from umx_tpu_torch.engine import memory
+    from umx_tpu_torch.engine.separator import Separator, segment_forward_batched
+    from umx_tpu_torch.io import native
+    from umx_tpu_torch.models import umx
+    from umx_tpu_torch.serve import serve
+
+    srv = serve(model, port=0)  # no device given: the default is the GPU
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    svc = srv.service
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        require(svc.device.type == "cuda", f"the service runs on {svc.device}")
+        sep = svc.separator
+        status, _, body = _http(url + "/healthz")
+        require(status == 200 and json.loads(body)["status"] == "ok", f"/healthz: {status} {body}")
+        cap = memory.suggest_max_segment_batch(sep.cfg, params=sep.params, device="cuda")
+        info = json.loads(_http(url + "/info")[2])
+        require(info["batching"]["max_batch"] == min(4, cap) == svc.batcher.max_batch,
+                f"/info max_batch {info['batching']['max_batch']}, planner's cap {cap}")
+        warm = json.loads(_http(url + "/warmup")[2])["warmup_s"]
+        _http(url + "/demix?seed=0", open(wav, "rb").read())  # warms the request path
+        body = open(wav, "rb").read()
+        n = mix.shape[1]
+
+        k1_shapes: set = set()
+        served = [None] * 3
+        with recording(umx, "lstm_layer_merged_batched", lambda x, *a: (x.shape[0], x.shape[2]),
+                       k1_shapes):
+            _http(url + "/stats/reset", b"")
+            reset_counts(counters)
+
+            def post(seed):
+                served[seed] = _http(url + f"/demix?seed={seed}", body)
+
+            threads = [threading.Thread(target=post, args=(s,)) for s in range(3)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            concurrent_s = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            info = json.loads(_http(url + "/info")[2])
+        require(all(r is not None and r[0] == 200 for r in served), "a /demix request failed")
+        batching, auto = info["batching"], info["autoscaling"]
+        print(f"serving path (3 concurrent /demix of the {TRACK_SECS:.0f} s WAV, UMX-L, max_batch "
+              f"{svc.batcher.max_batch}): {concurrent_s:.3f} s wall, "
+              f"{3 * TRACK_SECS / concurrent_s:.1f}x realtime in aggregate  [{smi}]; batching "
+              f"{batching}; autoscaling {auto}; kernel runs {launches}; K1 (rows per chain, "
+              f"frames) {sorted(k1_shapes)}; warm-up {warm} s")
+        require(batching["device_calls"] < batching["jobs"] and batching["max_batch_observed"] >= 2,
+                f"the requests were not coalesced: {batching}")
+        require(max(b for b, _ in k1_shapes) >= 2, f"K1 ran at one row per chain: {k1_shapes}")
+        for name in ("lstm_merged", "wiener_reduce", "wiener_apply"):
+            require(launches[name] > 0, f"kernel {name} was not launched on the serving path")
+        require(launches["lstm_merged"] == 3 * batching["device_calls"],
+                f"K1 ran {launches['lstm_merged']} times for {batching['device_calls']} calls")
+        require(launches["wiener_reduce"] == batching["jobs"],
+                f"K2 ran {launches['wiener_reduce']} times for {batching['jobs']} rows")
+
+        alone_errs, bit_equal = [], []
+        for seed in range(3):
+            stems = _zip_stems(served[seed][2], n)
+            _partition(stems, mix, f"served request, seed {seed}")
+            ref = Separator(sep.params, sep.cfg, "cuda").demix_track(mix, seed, segment_fn=None,
+                                                                     fused=False)
+            alone_errs.append(float(np.max(np.abs(stems - ref)) / np.max(np.abs(ref))))
+            bit_equal.append(bool(np.array_equal(stems, ref)))
+        print(f"served stems vs the same seed run alone (host loop, no batcher): max|err|/max|stem| "
+              f"{alone_errs}; bit-equal {bit_equal}")
+        require(max(alone_errs) <= 1e-5, f"served stems disagree with the request alone: "
+                f"{alone_errs}")
+
+        t0 = time.perf_counter()
+        one = _http(url + "/demix?seed=0", body)
+        one_s = time.perf_counter() - t0
+        one_stems, first = _zip_stems(one[2], n), _zip_stems(served[0][2], n)
+        one_err = float(np.max(np.abs(one_stems - first)) / np.max(np.abs(first)))
+        print(f"serving path, one /demix of the {TRACK_SECS:.0f} s WAV alone: {one_s:.3f} s wall, "
+              f"{TRACK_SECS / one_s:.1f}x realtime  [{smi}]; against the same seed served with "
+              f"others max|err|/max|stem| {one_err:.3g} (bit-equal "
+              f"{bool(np.array_equal(one_stems, first))})")
+        require(one_err <= 1e-5, f"the request alone disagrees with the same request served "
+                f"with others: {one_err}")
+
+        # one streaming session: 10 s pieces of float32 PCM
+        sid = json.loads(_http(url + "/stream/start", b"")[2])["session"]
+        piece = 10 * SR
+        got, samples, call_s, emitted = [], [], [], 0
+        reset_counts(counters)
+        t_session = time.perf_counter()
+        for s0 in range(0, n, piece):
+            t0 = time.perf_counter()
+            _, headers, payload = _http(url + f"/stream/push?session={sid}",
+                                        np.ascontiguousarray(mix[:, s0 : s0 + piece].T).tobytes())
+            m = int(headers["X-Stems-Samples"])
+            samples.append(m)
+            if m:
+                call_s.append(time.perf_counter() - t0)
+                got.append(np.frombuffer(payload, np.float32).reshape(4, 2, m))
+        t0 = time.perf_counter()
+        _, headers, payload = _http(url + f"/stream/close?session={sid}", b"")
+        m = int(headers["X-Stems-Samples"])
+        got.append(np.frombuffer(payload, np.float32).reshape(4, 2, m))
+        close_s = time.perf_counter() - t0
+        session_s = time.perf_counter() - t_session
+        stream_launches = {name: fn.launches for name, fn in counters.items()}
+        seg = sep.cfg.segment.segment_samples(SR)
+        stride = sep.cfg.segment.stride_samples(SR)
+        n_segments = -(-n // stride)
+        per_segment_s = (sum(call_s) + close_s) / n_segments
+        stream = np.concatenate(got, axis=-1)
+        full = [k for k, s0 in enumerate(range(0, n, piece)) if min(s0 + piece, n) >= seg]
+        require(all(m == 0 for m in samples[: full[0]]) and samples[full[0]] > 0,
+                f"X-Stems-Samples {samples}: not 0 until {seg} samples were in")
+        require(stream.shape == (4, 2, n), f"the session returned {stream.shape}")
+        offline = Separator(sep.params, sep.cfg.replace(shifts=0), "cuda").demix(mix).cpu().numpy()
+        stream_err = float(np.max(np.abs(stream - offline)) / np.max(np.abs(offline)))
+        print(f"streaming session ({TRACK_SECS:.0f} s in 10 s pushes): X-Stems-Samples {samples} + "
+              f"{m} at close; {session_s:.3f} s wall, {per_segment_s:.3f} s per emitted segment "
+              f"({n_segments} segments)  [{smi}]; kernel runs {stream_launches}; vs the offline "
+              f"demix max|err|/max|stem| {stream_err:.3g} (bit-equal "
+              f"{bool(np.array_equal(stream, offline))})")
+        require(stream_err <= 1e-5, f"the stream disagrees with the offline demix: {stream_err}")
+        require(stream_launches["lstm_merged"] == 3 * n_segments
+                and stream_launches["wiener_reduce"] == n_segments,
+                f"the session's kernel runs {stream_launches} for {n_segments} segments")
+        _partition(stream, mix, "streaming session")
+
+        # a FLAC body (the port's native decoder, a host library)
+        flac_note = native.build_error()
+        if flac_note is None:
+            q = np.clip(np.round(mix * 32767.0), -32768, 32767) / 32768.0
+            t0 = time.perf_counter()
+            _, _, payload = _http(url + "/demix?seed=0", flac_bytes(mix))
+            flac_s = time.perf_counter() - t0
+            corr = _partition(_zip_stems(payload, n), q, "FLAC body")
+            flac_note = f"{flac_s:.3f} s wall with the FLAC encode, corr(sum of stems, mix) {corr:.6f}"
+        else:
+            flac_note = f"not run: the native IO library could not be built: {flac_note}"
+        print(f"serving path, FLAC body of the {TRACK_SECS:.0f} s track: {flac_note}")
+
+        # the planner's batched segment term against the measured peaks, for
+        # the served inverse (dense) and the ct2 kernel's
+        anchors = []
+        for algo in ("dense", "ct2"):
+            cfg = sep.cfg.replace(dsp=dataclasses.replace(sep.cfg.dsp, istft_algo=algo))
+            peaks = {}
+            for B in sorted({1, svc.batcher.max_batch}):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                with torch.inference_mode():
+                    audio_b = torch.from_numpy(np.stack([mix[:, :seg]] * B)).to("cuda")
+                    state = umx.init_lstm_state(cfg.model, "cuda", batch=B)
+                    out = segment_forward_batched(sep.params, audio_b, state, cfg, seg)
+                    torch.cuda.synchronize()
+                    del out, audio_b, state
+                peaks[B] = (torch.cuda.max_memory_allocated() - base
+                            + memory.params_hbm_bytes(cfg, sep.params))
+            # the per-row and fixed factors at which the estimate would meet
+            # both peaks: peak - params - io - (fixed - row * fixed factor)
+            # = B * row * per-row factor + row * fixed factor
+            ests = {B: memory.segment_batch_hbm_bytes(cfg, B, params=sep.params) for B in peaks}
+            row = ests[1]["seg_transients"]
+            fixed_factor = memory._SEGMENT_FIXED_FACTOR[algo]
+            rest = {B: peaks[B] - e["params"] - e["io"] - (e["fixed"] - int(row * fixed_factor))
+                    for B, e in ests.items()}
+            Bw = max(peaks)
+            a_needed = (rest[Bw] - rest[1]) / ((Bw - 1) * row) if Bw > 1 else float("nan")
+            b_needed = rest[1] / row - (a_needed if Bw > 1 else memory._SEGMENT_ROW_FACTOR[algo])
+            for B, peak in peaks.items():
+                est = ests[B]["total"]
+                print(f"planner anchor, batched segment call, istft {algo}, B = {B}: peak {peak} B, "
+                      f"estimate {est} B ({est / peak:.3f}x)  [{smi}]")
+                anchors.append({"istft": algo, "batch": B, "peak": peak, "estimate": est})
+            print(f"planner anchor, batched segment call, istft {algo}: per-row factor "
+                  f"{a_needed:.3f} and fixed factor {b_needed:.3f} would meet both peaks (in use: "
+                  f"{memory._SEGMENT_ROW_FACTOR[algo]}, {fixed_factor})")
+        for a in anchors:
+            require(a["estimate"] >= a["peak"], f"the planner's batched segment estimate "
+                    f"{a['estimate']} is below the peak {a['peak']} at B = {a['batch']} "
+                    f"(istft {a['istft']})")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.batcher.close()
+        thread.join(timeout=30)
+    return {
+        "launches": launches, "stream_launches": stream_launches, "k1_shapes": sorted(k1_shapes),
+        "concurrent_s": concurrent_s, "aggregate_realtime": 3 * TRACK_SECS / concurrent_s,
+        "one_request_s": one_s, "busy_fraction": auto["busy_fraction"],
+        "avg_batch_fill": auto["avg_batch_fill"], "batching": batching,
+        "vs_alone_rel_err": alone_errs, "vs_alone_bit_equal": bit_equal,
+        "stream_s_per_segment": per_segment_s, "stream_vs_offline_rel_err": stream_err,
+        "flac": flac_note, "anchors": anchors,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1548,6 +1871,7 @@ def main() -> int:
         print(f"CLI wall time on the {TRACK_SECS:.0f} s track: fused {cli_s:.3f} s, host loop "
               f"{host_s:.3f} s  [{smi}]")
         resample_s = resample_path(tmp, model, counters, smi)
+        serving = serving_path(model, wav, mix, counters, smi)
 
         from umx_tpu_torch.engine.separator import Separator
 
@@ -1598,8 +1922,9 @@ def main() -> int:
 
         csep, tracks, cat_launches, cat_stats, cat_s, cat_k1_shapes, bucket_err = catalogue_path(
             tmp, model, counters, smi)
-        # K1 against its plain version at the shapes the catalogue path ran it at
-        for B, T in cat_k1_shapes:
+        # K1 against its plain version at the shapes the catalogue and the
+        # serving paths ran it at
+        for B, T in [*cat_k1_shapes, *serving["k1_shapes"]]:
             if (B, T) not in path_lstm_args and (B, T) != (1, T_SEG):
                 path_lstm_args[B, T], err = check_lstm(dev, T, B, seed=100 + B)
                 lstm_err = max(lstm_err, err)
@@ -1889,7 +2214,8 @@ def main() -> int:
                       "host_loop_cli_s": host_s, "host_loop_launches": host_launches,
                       "host_loop_demix_s": host_demix_s,
                       "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
-                      "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads}))
+                      "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
+                      "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

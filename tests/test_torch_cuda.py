@@ -841,3 +841,104 @@ def test_host_loop_demix_on_the_card_matches_cpu(dev):
     assert gpu.is_cuda and len(seen) > 1 and seen[-1] == 1.0
     # bf16 recurrence operands and cuFFT/cuBLAS summation order
     assert (gpu.cpu() - cpu).abs().max().item() <= 2e-3 * cpu.abs().max().item()
+
+
+def _serving_setup(dev, n_jobs, seed):
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.models.umx import LSTMState, init_lstm_state, synthetic_params
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=64), segment=SegmentConfig(segment_secs=1.0))
+    params = synthetic_params(cfg.model, seed=0, device=dev)
+    n = cfg.segment.segment_samples(44100)
+    rng = np.random.default_rng(seed)
+    shape = init_lstm_state(cfg.model).h.shape
+    jobs = [
+        (torch.from_numpy(rng.uniform(-0.5, 0.5, (2, n)).astype(np.float32)).to(dev),
+         LSTMState(h=torch.from_numpy(rng.uniform(-0.5, 0.5, shape).astype(np.float32)).to(dev),
+                   c=torch.from_numpy(rng.uniform(-0.5, 0.5, shape).astype(np.float32)).to(dev)))
+        for _ in range(n_jobs)
+    ]
+    return cfg, params, n, jobs
+
+
+def test_served_rows_on_the_card_are_bit_equal_to_rows_alone(dev):
+    """Three requests' segments coalesced by the batcher into one call of
+    exactly three rows (K1 at three rows per chain) have the bits of each
+    segment run alone (K1 at one row)."""
+    import threading
+
+    from umx_tpu_torch.engine.batcher import SegmentBatcher
+    from umx_tpu_torch.engine.separator import segment_forward
+
+    cfg, params, n, jobs = _serving_setup(dev, 3, seed=6)
+    batcher = SegmentBatcher(max_batch=3, max_wait_ms=5000.0)
+    results = [None] * 3
+    before = lstm_cuda.lstm_merged.launches
+    try:
+        def post(i):
+            results[i] = batcher.run(params, jobs[i][0], jobs[i][1], cfg, n)
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert batcher.stats.device_calls == 1 and batcher.stats.max_batch_observed == 3
+    finally:
+        batcher.close()
+    assert lstm_cuda.lstm_merged.launches == before + cfg.model.n_lstm_layers
+    with torch.inference_mode():
+        for (audio, state), (out, new_state) in zip(jobs, results):
+            want, want_state = segment_forward(params, audio, state, cfg, n)
+            assert out.is_cuda and torch.equal(out, want)
+            assert torch.equal(new_state.h, want_state.h)
+            assert torch.equal(new_state.c, want_state.c)
+
+
+def test_batcher_waits_on_an_event_not_the_device(dev, monkeypatch):
+    """The batcher's completion barrier is an event recorded after its
+    call: when ``run`` returns the call's work is done (the stream is
+    idle), ``busy_s`` counts it, and ``torch.cuda.synchronize`` (which
+    would wait for other threads' work as well) is never called."""
+    from umx_tpu_torch.engine.batcher import SegmentBatcher
+
+    cfg, params, n, jobs = _serving_setup(dev, 1, seed=7)
+
+    def no_sync(*a, **kw):
+        raise AssertionError("the batcher called torch.cuda.synchronize")
+
+    batcher = SegmentBatcher(max_batch=1)
+    try:
+        batcher.run(params, *jobs[0], cfg, n)  # the first call builds the kernels
+        batcher.reset_stats()
+        monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+        out, _ = batcher.run(params, *jobs[0], cfg, n)
+        assert torch.cuda.current_stream(dev).query()
+        assert batcher.stats.device_calls == 1 and batcher.stats.busy_s > 0.0
+        assert 0.0 < batcher.utilization() <= 1.0
+    finally:
+        batcher.close()
+
+
+def test_streaming_on_the_card_matches_offline(dev):
+    """A stream pushed in odd pieces on the card against the offline host
+    loop on the card: the same segment calls, so within 1e-5."""
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.engine.streaming import StreamingDemixer
+    from umx_tpu_torch.models.umx import synthetic_params
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=64), segment=SegmentConfig(segment_secs=1.0),
+                       shifts=0)
+    params = synthetic_params(cfg.model, seed=0, device=dev)
+    track = np.random.default_rng(8).uniform(-0.5, 0.5, (2, int(2.6 * 44100))).astype(np.float32)
+    sd = StreamingDemixer(params, cfg, dev)
+    pieces = [sd.push(track[:, s : s + 30_000]) for s in range(0, track.shape[1], 30_000)]
+    stems = np.concatenate([*pieces, sd.flush()], axis=-1)
+    want = Separator(params, cfg, dev).demix(track, fused=False).cpu().numpy()
+    assert stems.shape == want.shape
+    assert np.max(np.abs(stems - want)) <= 1e-5 * np.max(np.abs(want))

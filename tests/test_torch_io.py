@@ -149,8 +149,8 @@ def test_wav_load_matches_jax_and_rejects_bad_input(tmp_path):
     wavfile.write(p48, 48000, stereo)
     with pytest.raises(taudio.UnsupportedAudio, match="48000"):
         taudio.load_audio(p48)
-    notwav = tmp_path / "x.flac"
-    notwav.write_bytes(b"fLaC" + bytes(64))
+    notwav = tmp_path / "x.bin"
+    notwav.write_bytes(b"JUNK" + bytes(64))
     with pytest.raises(taudio.UnsupportedAudio, match="WAV"):
         taudio.load_audio(str(notwav))
 

@@ -138,3 +138,54 @@ def test_peak_counts_the_recurrence_kernels_exchange_buffer():
     parts = est["ys"] + est["stems"] + est["audio"] + int(
         est["seg_transients"] * memory._TRANSIENT_FACTOR["dense"])
     assert est["boundary"] == parts + 512 * 1024
+
+
+@pytest.mark.parametrize("batch", [1, 4, 32])
+def test_segment_batch_terms_equal_jax(batch):
+    """The batched segment call's raw terms are the JAX planner's: the
+    audio in and waveforms out, and the rows' transients (the ct2 inverse
+    keeps no frames, so its rows count exactly the JAX package's planes;
+    the dense inverse adds its frames share)."""
+    jcfg, tcfg = _cfgs()
+    ref = jmem.segment_batch_hbm_bytes(jcfg, batch)
+    ours = memory.segment_batch_hbm_bytes(tcfg, batch)
+    assert ours["io"] == ref["io"]
+    ct2 = dataclasses.replace(tcfg, dsp=DSPConfig(istft_algo="ct2"))
+    assert memory.segment_batch_hbm_bytes(ct2, batch)["seg_transients"] == ref["transients"]
+    assert ours["seg_transients"] == batch * memory._segment_transient_bytes(tcfg)
+    parts = ours["transients"] + ours["io"] + ours["fixed"] + ours["params"]
+    assert ours["total"] == parts
+    assert ours["fixed"] >= memory._lstm_exchange_bytes(tcfg)
+
+
+def test_suggest_max_segment_batch_monotone():
+    """The widest batch whose estimate fits 0.9 of the capacity, and never
+    fewer than one row."""
+    _, tcfg = _cfgs()
+    caps = (1, 8, 16, 80, 400)
+    fits = [memory.suggest_max_segment_batch(tcfg, hbm_bytes=g * 2**30) for g in caps]
+    assert fits == sorted(fits) and fits[0] == 1 and fits[-1] > fits[2]
+
+    def total(b):
+        return memory.segment_batch_hbm_bytes(tcfg, b)["total"]
+
+    for g, b in zip(caps[1:], fits[1:]):
+        assert total(b) <= 0.9 * g * 2**30 < total(b + 1)
+    # the quantized parameters are smaller, so no fewer rows fit
+    assert memory.suggest_max_segment_batch(tcfg, hbm_bytes=8 * 2**30, quantized=True) >= fits[1]
+
+
+def test_quantized_params_bytes_derived_and_exact(tmp_path):
+    """The shape-derived quantized size against the exact resident bytes of
+    quantized parameters (bf16 planes, per-tensor scale and offset)."""
+    from umx_tpu_torch.io.ggml import read_ggml, write_ggml
+    from umx_tpu_torch.models.umx import quantized_params_from_ggml, synthetic_state_dicts
+
+    _, tcfg = _cfgs(hidden=64)
+    path = str(tmp_path / "m.bin")
+    write_ggml(path, 64, synthetic_state_dicts(tcfg.model, seed=0))
+    q = quantized_params_from_ggml(read_ggml(path, keep_quantized=True), tcfg.model)
+    exact = memory.params_hbm_bytes(tcfg, q)
+    derived = memory.params_hbm_bytes(tcfg, quantized=True)
+    assert exact <= derived <= exact * 1.01
+    assert derived < memory.params_hbm_bytes(tcfg)

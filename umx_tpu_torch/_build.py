@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -135,9 +136,20 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call in the process)."""
+    """The loaded kernel library (built on first call in the process).
+    Threads that reach their first kernel together (a server's batcher
+    worker and its request threads) build and load it once: the lock
+    holds the others until the first has bound it."""
+    with _LIBRARY_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -26,7 +26,7 @@ from umx_tpu_torch.engine.memory import (
     suggest_max_fleet_batch,
     suggest_window_chunks,
 )
-from umx_tpu_torch.engine.separator import Separator, demix_fused, demix_fused_parallel
+from umx_tpu_torch.engine.separator import Separator, demix_fused, demix_fused_parallel, to_host
 from umx_tpu_torch.models.umx import init_lstm_state
 
 
@@ -161,7 +161,7 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
                 t1 = sync()
                 out_b, _ = fn(params, audio_b, states)
                 t2 = sync()
-                out_b = out_b.cpu().numpy()
+                out_b = to_host(out_b)
                 t3 = sync()
                 _add(stats, upload_s=t1 - t0, compute_s=t2 - t1, download_s=t3 - t2,
                      dispatches=1, rows=len(sub))

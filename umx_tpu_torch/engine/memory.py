@@ -1,6 +1,7 @@
-"""Device-memory planning for the whole-track programs: the subset of
-``umx_tpu.engine.memory`` that the port's demix paths call (the chunk-group
-width, the shift and fleet batches, the window of a long track).
+"""Device-memory planning for the whole-track programs and the serving
+batcher: the subset of ``umx_tpu.engine.memory`` that the port's demix
+paths call (the chunk-group width, the shift and fleet batches, the window
+of a long track, the width of a batched segment call).
 
 The non-streaming program runs its segments in groups of ``width`` rows
 and the batched shifts run B tracks at once, so the peak grows with
@@ -48,6 +49,17 @@ from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words
 # counts no frames: with the frames buffer gone the Wiener stage holds its
 # peak, and one row alone needs the most); each factor bounds them all.
 _TRANSIENT_FACTOR = {"dense": 3.2, "ct2": 1.75}
+# Slack on the batched segment call (the serving batcher's
+# ``segment_forward_batched`` over B rows), per iSTFT algorithm: a per-row
+# factor on each row's segment transients and a fixed factor on one row's,
+# for what runs one row at a time (the Wiener passes) or once a call.
+# Fitted on an H100 80GB HBM3 at 700 W from the UMX-L peaks
+# (torch.cuda.max_memory_allocated) of one 60 s segment call at B = 1 and
+# B = 4 (chip_smoke.py phase 13): the dense inverse's peak grows by 2.94
+# times a row's transients (plus its audio and waves) a row, with almost
+# nothing fixed; the ct2 inverse's by 1.40, with a quarter of a row fixed.
+_SEGMENT_ROW_FACTOR = {"dense": 3.0, "ct2": 1.42}
+_SEGMENT_FIXED_FACTOR = {"dense": 0.05, "ct2": 0.3}
 # Resident bytes over the raw float32 parameter bytes: 452,427,776
 # allocated for UMX-L's 452,424,832 (the caching allocator's rounding),
 # on the same card.
@@ -69,11 +81,13 @@ def device_hbm_bytes(device=None) -> int:
     return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
 
 
-def params_hbm_bytes(cfg: EngineConfig, params=None) -> int:
+def params_hbm_bytes(cfg: EngineConfig, params=None, quantized: bool = False) -> int:
     """Bytes of the resident parameters: exact when ``params`` (a
     ``UMXParams``) is given, else derived from the model shape (per
     target fc1, 3 bidirectional LSTM layers, fc2, fc3, batch norms, input
-    and output mean and scale, all float32)."""
+    and output mean and scale), all float32 or, with ``quantized``, in the
+    layout of ``quantized_params_from_ggml``: fc1 and W_ih as one bf16
+    plane (2 bytes a weight), fc2 and fc3 as two (4 bytes), W_hh bf16."""
     if params is not None:
         # a QTensor counts its planes, scale and offset at their stored size
         return sum(
@@ -83,13 +97,18 @@ def params_hbm_bytes(cfg: EngineConfig, params=None) -> int:
     m = cfg.model
     h, g, s = m.hidden_size, m.lstm_hidden, m.n_targets
     nf, no = m.n_features, m.n_outputs
-    mats = nf * h + 6 * (h * 4 * g + g * 4 * g) + 2 * h * h + h * no
+    mat_u8 = nf * h + 6 * (h * 4 * g + g * 4 * g)  # fc1 + 3x2 LSTM ih/hh
+    mat_u16 = 2 * h * h + h * no  # fc2 + fc3
     vec = (
         4 * h + 4 * h + 4 * no  # bn1, bn2, bn3 (w, b, mean, var)
         + 2 * nf + 2 * no       # input/output mean+scale
         + 6 * 2 * 4 * g         # LSTM b_ih + b_hh per direction-layer
     )
-    return int(s * _F32 * (mats + vec) * _PARAMS_OVERHEAD)
+    if quantized:
+        per_target = 2 * mat_u8 + 4 * mat_u16 + _F32 * vec
+    else:
+        per_target = _F32 * (mat_u8 + mat_u16 + vec)
+    return int(s * per_target * _PARAMS_OVERHEAD)
 
 
 def _segment_transient_bytes(cfg: EngineConfig) -> int:
@@ -174,6 +193,30 @@ def parallel_track_hbm_bytes(cfg: EngineConfig, chunk_batch: int, track_secs: fl
     terms = _track_terms(cfg, track_secs, b)
     width = min(chunk_batch, terms["n_chunks"])
     return _peak(cfg, terms, b * width * _segment_transient_bytes(cfg), params)
+
+
+def segment_batch_hbm_bytes(cfg: EngineConfig, batch: int, quantized: bool = False,
+                            params=None) -> dict[str, int]:
+    """Estimated peak of one batched segment call (the serving batcher's
+    ``segment_forward_batched`` over ``batch`` rows): the parameters, the
+    rows' audio in and waveforms out, each row's segment transients
+    (``seg_transients``, the JAX package's ``transients`` plus the dense
+    inverse's frames share) times the per-row factor, and a fixed part for
+    what runs a row at a time.  ``quantized`` matters only without
+    ``params`` (:func:`params_hbm_bytes`).  Returns the terms (bytes) and
+    ``total``."""
+    seg = cfg.segment.segment_samples(cfg.dsp.sample_rate)
+    algo = "ct2" if cfg.dsp.istft_algo == "ct2" else "dense"
+    row = _segment_transient_bytes(cfg)
+    transients = int(batch * row * _SEGMENT_ROW_FACTOR[algo])
+    io = batch * (2 + cfg.model.n_targets * 2) * seg * _F32  # audio in + waves out
+    fixed = (int(row * _SEGMENT_FIXED_FACTOR[algo]) + _dequant_transient_bytes(params)
+             + _lstm_exchange_bytes(cfg))
+    params_b = params_hbm_bytes(cfg, params, quantized)
+    return {
+        "seg_transients": batch * row, "transients": transients, "io": io, "fixed": fixed,
+        "params": params_b, "total": transients + io + fixed + params_b,
+    }
 
 
 def _suggest(estimate, budget: float, hard_cap: int = 1024) -> int:
@@ -271,3 +314,14 @@ def window_hbm_bytes(cfg: EngineConfig, w: int, hbm_bytes: int, safety: float = 
             width = suggest_chunk_batch(cfg, secs, hbm_bytes, safety, params)
         one = parallel_track_hbm_bytes(cfg, width, secs, params)["total"]
     return one + prev_out
+
+
+def suggest_max_segment_batch(cfg: EngineConfig, hbm_bytes: int | None = None,
+                              safety: float = 0.9, quantized: bool = False, params=None,
+                              device=None) -> int:
+    """Widest batched segment call (the serving batcher's ``max_batch``)
+    whose estimated footprint fits in ``safety`` × the capacity (always
+    >= 1)."""
+    budget = (device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes) * safety
+    return _suggest(
+        lambda b: segment_batch_hbm_bytes(cfg, b, quantized, params)["total"], budget)

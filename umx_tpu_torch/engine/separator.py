@@ -63,6 +63,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """The stems' copy from the device into pageable host memory, as a
+    numpy array (the one place the demix, fleet, streaming and serving
+    paths copy their results out)."""
+    return t.cpu().numpy()
+
+
 def apply_masks(masks, mag, n_bins: int):
     """masks (..., T#, T, 2*n_bins) ⊙ mix magnitude (..., 2, T, n_bins) →
     per-target magnitudes (..., T#, 2, T, n_bins)."""
@@ -463,7 +470,7 @@ class Separator:
         audio = np.asarray(audio, np.float32)
         length = audio.shape[1]
         if cfg.shifts <= 0:
-            return self.demix(audio, progress, fused, segment_fn).cpu().numpy()
+            return to_host(self.demix(audio, progress, fused, segment_fn))
 
         max_shift = cfg.segment.max_shift_samples(cfg.dsp.sample_rate)
         rng = np.random.default_rng(seed)
@@ -479,7 +486,7 @@ class Separator:
             shifted = np.pad(audio, ((0, 0), (offset, max_shift - offset)))
             out = self.demix(shifted, progress, fused, segment_fn)[..., offset : offset + length]
             acc = out if acc is None else acc + out
-        return (acc / cfg.shifts).cpu().numpy()
+        return to_host(acc / cfg.shifts)
 
     @torch.inference_mode()
     def _demix_shifts_batched(self, audio: np.ndarray, offsets: list[int], max_shift: int,
@@ -504,4 +511,4 @@ class Separator:
             for b, off in enumerate(group):
                 contrib = out_b[b, ..., off : off + length]
                 acc = contrib.clone() if acc is None else acc + contrib
-        return (acc / len(offsets)).cpu().numpy()
+        return to_host(acc / len(offsets))

@@ -1,8 +1,12 @@
-"""WAV decode/encode through scipy.
+"""Audio decode/encode.
 
 44.1 kHz enforcement (or, asked for, polyphase resampling to it),
 mono→stereo duplication, (2, n) channel-major float32 layout, float32 PCM
-output.  FLAC, OGG and MP3 are not read by the port yet.
+output.  The format is sniffed from the file's first bytes, as the JAX
+package does: ``fLaC`` → the native FLAC decoder (``io/native.py``),
+``OggS`` → the system libvorbisfile (``io/ogg.py``), an ID3 tag or an MPEG
+frame sync → the system libmpg123 (``io/mp3.py``), a RIFF header → scipy's
+WAV reader.
 """
 
 from __future__ import annotations
@@ -16,16 +20,9 @@ class UnsupportedAudio(ValueError):
     pass
 
 
-def load_audio(path: str, expected_rate: int = 44100, resample: bool = False) -> np.ndarray:
-    """Load a WAV into a float32 (2, n_samples) array.  Another sample
-    rate raises, unless ``resample``: then the samples are
-    polyphase-resampled to ``expected_rate`` in float64."""
+def _decode_scipy(path: str) -> tuple[np.ndarray, int]:
     from scipy.io import wavfile
 
-    with open(path, "rb") as fh:
-        magic = fh.read(4)
-    if magic not in _WAV_MAGICS:
-        raise UnsupportedAudio(f"{path}: not a WAV file; the port reads WAV only")
     rate, data = wavfile.read(path)
     if data.dtype == np.int16:
         data = data.astype(np.float32) / 32768.0
@@ -37,6 +34,55 @@ def load_audio(path: str, expected_rate: int = 44100, resample: bool = False) ->
         data = data.astype(np.float32)
     if data.ndim == 1:
         data = data[:, None]
+    return data, rate
+
+
+def _decode(path: str) -> tuple[np.ndarray, int]:
+    """(data (frames, channels) float32, rate) by the file's magic."""
+    with open(path, "rb") as fh:
+        magic = fh.read(4)
+    if magic == b"fLaC":
+        from umx_tpu_torch.io import native
+
+        decoded = native.read_flac_native(path)
+        if decoded is None:
+            raise UnsupportedAudio(
+                f"{path}: FLAC decoding requires the native library, which could not be "
+                f"built: {native.build_error()}"
+            )
+        return decoded
+    if magic == b"OggS":
+        from umx_tpu_torch.io import ogg
+
+        decoded = ogg.decode_ogg(path)
+        if decoded is None:
+            raise UnsupportedAudio(
+                f"{path}: OGG decoding requires the system libvorbisfile "
+                "(not found); supply WAV or FLAC"
+            )
+        return decoded
+    from umx_tpu_torch.io import mp3
+
+    if mp3.looks_like_mp3(magic):
+        # after the fixed magics: MP3 has none, only an ID3 tag or a frame sync
+        decoded = mp3.decode_mp3(path)
+        if decoded is None:
+            raise UnsupportedAudio(
+                f"{path}: MP3 decoding requires the system libmpg123 "
+                "(not found); supply WAV or FLAC"
+            )
+        return decoded
+    if magic not in _WAV_MAGICS:
+        raise UnsupportedAudio(f"{path}: not a WAV, FLAC, OGG or MP3 file")
+    return _decode_scipy(path)
+
+
+def load_audio(path: str, expected_rate: int = 44100, resample: bool = False) -> np.ndarray:
+    """Load a WAV, FLAC, OGG/Vorbis or MP3 file into a float32 (2,
+    n_samples) array.  Another sample rate raises, unless ``resample``:
+    then the decoded samples are polyphase-resampled to ``expected_rate``
+    in float64."""
+    data, rate = _decode(path)
     if rate != expected_rate:
         if not resample:
             raise UnsupportedAudio(
@@ -60,7 +106,8 @@ def load_audio(path: str, expected_rate: int = 44100, resample: bool = False) ->
 
 
 def write_audio(path: str, waveform: np.ndarray, rate: int = 44100) -> None:
-    """Write a (2, n_samples) float32 waveform as a float32 PCM WAV."""
+    """Write a (2, n_samples) float32 waveform as a float32 PCM WAV to
+    ``path`` (a file name or a binary file)."""
     from scipy.io import wavfile
 
     wavfile.write(path, rate, np.ascontiguousarray(np.asarray(waveform, np.float32).T))

@@ -44,6 +44,19 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def _hh_product(h, w, B: int):
+    """bf16(h) (R*B, G) @ W_hh per chain (R, G, 4G) → (R*B, 4G).  One row
+    per chain runs beside a zero row: a CPU BLAS computes a one-row product
+    (a matrix-vector product) in another order than a wider one, and a row
+    of a batched call must have the bits of the same row alone (the serving
+    batcher's rows)."""
+    R, G = w.shape[0], w.shape[1]
+    hb = _bf16(h).view(R, B, G)
+    if B == 1:
+        hb = torch.cat([hb, torch.zeros_like(hb)], dim=1)
+    return torch.bmm(hb, w)[:, :B].reshape(R * B, 4 * G)
+
+
 def _cell(pre, c, G: int):
     """Activated gates (i, f, g, o) of the pre-activations, new c, new h."""
     i = torch.sigmoid(pre[:, :G])
@@ -61,13 +74,13 @@ def lstm_merged_plain(xp, whh, h0, c0, B: int):
     (hs (T, R*B, G), hT, cT).  h is rounded to bf16 before each product
     and the bf16 weights are exact in f32, so every product is exact and
     only the f32 summation order differs from the kernel."""
-    T, RB, G4 = xp.shape
-    R, G = whh.shape[0], whh.shape[1]
+    T, RB, _ = xp.shape
+    G = whh.shape[1]
     w = whh.float()
     h, c = h0, c0
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
     for t in range(T):
-        pre = xp[t] + torch.bmm(_bf16(h).view(R, B, G), w).view(RB, G4)
+        pre = xp[t] + _hh_product(h, w, B)
         _, c, h = _cell(pre, c, G)
         hs[t] = h
     return hs, h, c
@@ -77,14 +90,14 @@ def lstm_merged_train_fwd_plain(xp, whh, h0, c0, B: int):
     """:func:`lstm_merged_plain` plus the residuals of the backward:
     returns (hs, hT, cT, gates (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G))."""
     T, RB, G4 = xp.shape
-    R, G = whh.shape[0], whh.shape[1]
+    G = whh.shape[1]
     w = whh.float()
     h, c = h0, c0
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
     cs = torch.empty_like(hs)
     gates = torch.empty((T, RB, G4), dtype=torch.float32, device=xp.device)
     for t in range(T):
-        pre = xp[t] + torch.bmm(_bf16(h).view(R, B, G), w).view(RB, G4)
+        pre = xp[t] + _hh_product(h, w, B)
         act, c, h = _cell(pre, c, G)
         gates[t] = torch.cat(act, dim=1)
         cs[t] = c

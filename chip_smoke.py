@@ -110,6 +110,24 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     B = 1 and the served width beside ``segment_batch_hbm_bytes``, which
     must bound it.  Wall times, aggregate x realtime, busy fraction,
     average batch fill and the session's time per segment are printed.
+14. (run right after phase 6, on its exported trained and initial UMX-L
+    models) evaluation: ``umx_tpu_torch.scripts.evaluate_musdb`` with no
+    ``--device`` on 3 synthetic MUSDB-style tracks of 20 s, once per model
+    (K1, K2 and K3 launched, every median finite, the trained model's
+    mean median SDR above the initial's; per-track demix and scoring
+    seconds and both tables printed); ``evaluate_demixed_output`` on the
+    first 4 s of phase 6's held-out stems in v4 and in v3 (the v3 solves on the card, held
+    within 0.1 dB SDR and 0.3 dB SIR of ``accelerator="numpy"`` on the same
+    inputs; the device-solve and host-solve seconds and the windows
+    re-solved in float64 printed); ``train_umx`` at its default UMX-HQ
+    width, 4 steps with a validation split (K4, K5, K6 and K1 launched,
+    finite losses), its export demixed by a ``Separator`` on the card;
+    ``demix_tracks_multihost`` as processes 0 and 1 of 2 against one
+    ``demix_tracks`` run (within 2e-4, the difference printed); a
+    ``StageTimer`` over the phase (its table printed) and a
+    ``device_trace`` of one demix whose trace file must name K1
+    (``lstm_resident_kernel``); ``profile_train_stream`` at small steps.
+    Its figures go under ``"evaluation"`` in the JSON line.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -1356,7 +1374,8 @@ def planner_anchors(sep, mix, smi: str):
 
 def write_stem_dir(root: str, n_tracks: int = 4, secs: float = 12.0):
     """Synthetic MUSDB-style stems: per track, band-limited noise per
-    stem (bass, drums, other, vocals in rising bands), float32 WAVs."""
+    stem (bass, drums, other, vocals in rising bands) and their sum as
+    mixture.wav, float32 WAVs."""
     from scipy.io import wavfile
 
     from umx_tpu_torch.config import TARGETS
@@ -1368,12 +1387,15 @@ def write_stem_dir(root: str, n_tracks: int = 4, secs: float = 12.0):
     for k in range(n_tracks):
         d = os.path.join(root, f"track_{k}")
         os.makedirs(d)
+        mix = np.zeros((2, n), np.float32)
         for name, (lo, hi) in zip(TARGETS, bands):
             spec = np.fft.rfft(rng.standard_normal((2, n)).astype(np.float32), axis=-1)
             spec[:, (freqs < lo) | (freqs >= hi)] = 0
             x = np.fft.irfft(spec, n, axis=-1).astype(np.float32)
             x = x / (np.abs(x).max() + 1e-9) * 0.5
+            mix += x
             wavfile.write(os.path.join(d, f"{name}.wav"), SR, np.ascontiguousarray(x.T))
+        wavfile.write(os.path.join(d, "mixture.wav"), SR, np.ascontiguousarray(mix.T))
 
 
 def training_path(tmp: str, counters: dict, smi: str):
@@ -1477,7 +1499,244 @@ def training_path(tmp: str, counters: dict, smi: str):
     print(f"mean corr(stem estimate, true stem): trained {sep['trained']:.4f}, "
           f"initial {sep['initial']:.4f}")
     require(sep["trained"] > sep["initial"], f"training did not improve the separation: {sep}")
-    return launches, steps_per_s, wide_steps_per_s
+    held_out = {"trained": os.path.join(tmp, "trained.bin"),
+                "initial": os.path.join(tmp, "initial.bin"),
+                "estimates": os.path.join(tmp, "stems_trained"), "true": true}
+    return launches, steps_per_s, wide_steps_per_s, held_out
+
+
+EVAL_TRACKS, EVAL_SECS = 3, 20.0  # the MUSDB-style set of the evaluation phase
+EVAL_TRAIN_STEPS = 4  # train_umx steps at UMX-HQ width, 2 validations
+# seconds of phase 6's held-out track scored in v4 and v3: the float64
+# host work of one v3 window is about 2.7 s on the host of an H100 80GB HBM3 machine
+EVAL_HELD_OUT_SECS = 4
+
+
+def _run_main(main, argv):
+    """``main(argv)`` with its standard output captured; returns (its
+    return value, the output), the output also printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    print(buf.getvalue().rstrip())
+    return rc, buf.getvalue()
+
+
+class _Timed:
+    """Wraps a function with a wall-clock sum over its calls (each closed by
+    a device synchronisation when ``sync``)."""
+
+    def __init__(self, fn, sync: bool):
+        self.fn, self.sync, self.s, self.calls = fn, sync, 0.0, 0
+
+    def __call__(self, *a, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        if self.sync:
+            torch.cuda.synchronize()
+        self.s += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def evaluation_path(tmp: str, held_out: dict, counters: dict, smi: str) -> dict:
+    """Phase 14: the researcher's loop on the card.  ``evaluate_musdb`` on a
+    MUSDB-style set with phase 6's trained and initial UMX-L models (K1-K3;
+    finite medians; the trained model's SDR above the initial's);
+    ``evaluate_demixed_output`` on phase 6's held-out stems in v4 and v3
+    (the v3 solves on the card, held against the float64 host path);
+    ``train_umx`` at UMX-HQ width with a validation split (K4-K6 and K1),
+    its export demixed on the card; ``demix_tracks_multihost`` as process 0
+    and 1 of 2 against one fleet run; a ``device_trace`` of one demix that
+    must name K1; ``profile_train_stream`` at small steps.  Returns its
+    figures."""
+    import re
+
+    import torch
+    from scipy.io import wavfile
+
+    from umx_tpu_torch.config import TARGETS
+    from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.eval import bss
+    from umx_tpu_torch.io.audio import load_audio
+    from umx_tpu_torch.parallel.multihost import demix_tracks_multihost, partition_tracks
+    from umx_tpu_torch.scripts import (
+        evaluate_demixed_output, evaluate_musdb, profile_train_stream, train_umx,
+    )
+    from umx_tpu_torch.utils.profiling import StageTimer, device_trace
+
+    timer = StageTimer()
+    t_phase = time.perf_counter()
+    fig: dict = {"card": smi}
+    root = os.path.join(tmp, "musdb_eval")
+    with timer.stage("write_set"):
+        write_stem_dir(root, n_tracks=EVAL_TRACKS, secs=EVAL_SECS)
+
+    # evaluate_musdb with both models, no device given: the card
+    medians = {}
+    for name in ("trained", "initial"):
+        out = os.path.join(tmp, f"eval_{name}.json")
+        reset_counts(counters)
+        print(f"evaluate_musdb, {name} UMX-L model, {EVAL_TRACKS} tracks x {EVAL_SECS:.0f} s  "
+              f"[{smi}]:")
+        with timer.stage(f"evaluate_musdb_{name}"):
+            rc, _ = _run_main(evaluate_musdb.main, [held_out[name], root, "--out", out])
+        require(rc == 0, f"evaluate_musdb on the {name} model failed")
+        launches = {k: counters[k].launches for k in ("lstm_merged", "wiener_reduce",
+                                                      "wiener_apply")}
+        require(all(n > 0 for n in launches.values()),
+                f"evaluate_musdb did not launch K1-K3: {launches}")
+        res = json.load(open(out))
+        vals = [v for m in res["median"].values() for v in m.values()]
+        require(len(vals) == 16 and all(np.isfinite(vals)), f"non-finite medians: {res['median']}")
+        medians[name] = res["median"]
+        fig[f"evaluate_musdb_{name}"] = {
+            "launches": launches, "median": res["median"],
+            "demix_s": [r["demix_s"] for r in res["tracks"]],
+            "bss_s": [r["bss_s"] for r in res["tracks"]],
+            "wall_s": timer.totals[f"evaluate_musdb_{name}"]}
+        print(f"per track: demix_s {fig[f'evaluate_musdb_{name}']['demix_s']}, scoring s "
+              f"{fig[f'evaluate_musdb_{name}']['bss_s']}; kernel runs {launches}")
+    mean_sdr = {k: float(np.mean(list(m["sdr"].values()))) for k, m in medians.items()}
+    fig["mean_median_sdr"] = mean_sdr
+    print(f"mean over stems of the median SDR: trained {mean_sdr['trained']:.3f} dB, initial "
+          f"{mean_sdr['initial']:.3f} dB")
+    require(mean_sdr["trained"] > mean_sdr["initial"],
+            f"the trained model does not score above the initial one: {mean_sdr}")
+
+    # evaluate_demixed_output on the held-out stems: v4 (host), v3 (the
+    # solves on the card) against the float64 host path on the same inputs
+    track = os.path.join(tmp, "held_out_track")
+    os.makedirs(track)
+    for name, x in zip(TARGETS, held_out["true"]):
+        wavfile.write(os.path.join(track, f"{name}.wav"), SR,
+                      np.ascontiguousarray(x[:, : EVAL_HELD_OUT_SECS * SR].T))
+    est_dir = held_out["estimates"]
+    results = {}
+    for mode in ("v4", "v3"):
+        out = os.path.join(tmp, f"eval_{mode}.json")
+        solve = _Timed(bss._solve_cholesky_batched, sync=True)
+        bss._solve_cholesky_batched = solve
+        try:
+            with timer.stage(f"evaluate_demixed_output_{mode}"):
+                rc, text = _run_main(evaluate_demixed_output.main,
+                                     [est_dir, track, "--mode", mode, "--json", out])
+        finally:
+            bss._solve_cholesky_batched = solve.fn
+        require(rc == 0, f"evaluate_demixed_output --mode {mode} failed")
+        results[mode] = json.load(open(out))
+        if mode == "v3":
+            resolves = int(re.search(r"^# (\d+) windows re-solved in float64$", text,
+                                     re.M).group(1))
+            fig["v3_device_solve_s"], fig["v3_device_solve_calls"] = solve.s, solve.calls
+            fig["v3_float64_resolves"] = resolves
+    refs = np.stack([load_audio(os.path.join(track, f"{t}.wav")) for t in TARGETS])
+    ests = np.stack([load_audio(os.path.join(est_dir, f"target_{i}.wav")) for i in range(4)])
+    n = min(refs.shape[-1], ests.shape[-1])
+    factor = _Timed(bss.cho_factor, sync=False)
+    solve_h = _Timed(bss.cho_solve, sync=False)
+    bss.cho_factor, bss.cho_solve = factor, solve_h
+    try:
+        with timer.stage("v3_numpy"):
+            host = bss.bss_eval_images_framewise(refs[..., :n].astype(np.float64),
+                                                 ests[..., :n].astype(np.float64),
+                                                 mode="v3", accelerator="numpy")
+    finally:
+        bss.cho_factor, bss.cho_solve = factor.fn, solve_h.fn
+    worst = {"SDR": 0.0, "SIR": 0.0}
+    for j, t in enumerate(TARGETS):
+        for m in worst:
+            worst[m] = max(worst[m], abs(results["v3"][t][m] - float(host[f"median_{m}"][j])))
+    fig.update(v3_vs_numpy_db=worst, v3_wall_s=timer.totals["evaluate_demixed_output_v3"],
+               v3_numpy_wall_s=timer.totals["v3_numpy"], v3_numpy_solve_s=factor.s + solve_h.s,
+               v4_wall_s=timer.totals["evaluate_demixed_output_v4"],
+               held_out_v4=results["v4"], held_out_v3=results["v3"])
+    print(f"v3 on the card against float64 on the host, {n / SR:.0f} s held-out track: worst "
+          f"median SDR {worst['SDR']:.4f} dB, SIR {worst['SIR']:.4f} dB; device solves "
+          f"{fig['v3_device_solve_s']:.3f} s ({fig['v3_device_solve_calls']} calls), "
+          f"{fig['v3_float64_resolves']} windows re-solved in float64; host factor+solve "
+          f"{fig['v3_numpy_solve_s']:.3f} s; whole v3 runs {fig['v3_wall_s']:.2f} s (card) and "
+          f"{fig['v3_numpy_wall_s']:.2f} s (numpy); v4 {fig['v4_wall_s']:.2f} s  [{smi}]")
+    require(worst["SDR"] <= 0.1 and worst["SIR"] <= 0.3,
+            f"v3 on the card disagrees with the float64 host path: {worst}")
+
+    # train_umx at its default width (UMX-HQ), a validation split; export,
+    # then the port's Separator demixes with the exported model on the card
+    model = os.path.join(tmp, "umxhq_trained.bin")
+    reset_counts(counters)
+    print(f"train_umx, UMX-HQ (hidden 512), {EVAL_TRAIN_STEPS} steps  [{smi}]:")
+    with timer.stage("train_umx"):
+        rc, text = _run_main(train_umx.main, [root, model, "--steps", str(EVAL_TRAIN_STEPS),
+                                              "--valid-tracks", "1", "--valid-every", "2"])
+    require(rc == 0, "train_umx failed")
+    launches = {k: counters[k].launches for k in ("lstm_merged_train_fwd", "lstm_merged_bwd_step",
+                                                  "lstm_merged_dw", "lstm_merged")}
+    require(all(n > 0 for n in launches.values()), f"train_umx did not launch K4-K6 and K1: "
+            f"{launches}")
+    losses = [float(ln.split()[2]) for ln in text.splitlines()
+              if ln.startswith(("final loss", "best valid"))]
+    require(len(losses) == 2 and all(np.isfinite(losses)), f"train_umx losses: {text}")
+    mix = load_audio(os.path.join(root, "track_0", "mixture.wav"))
+    with timer.stage("demix_umxhq"):
+        sep_hq = Separator.from_ggml(model)
+        stems = sep_hq.demix_track(mix)
+    require(sep_hq.device.type == "cuda" and stems.shape == (4, *mix.shape)
+            and bool(np.isfinite(stems).all()), "the exported UMX-HQ model did not demix")
+    fig.update(train_umx_launches=launches, train_umx_losses=losses,
+               train_umx_wall_s=timer.totals["train_umx"])
+
+    # two processes' shares against one fleet run, on the card
+    sep = Separator.from_ggml(held_out["trained"])
+    tracks = [load_audio(os.path.join(root, f"track_{k}", "mixture.wav"))
+              for k in range(EVAL_TRACKS)]
+    with timer.stage("fleet"):
+        ref = demix_tracks(sep, tracks)
+    union: dict = {}
+    with timer.stage("multihost"):
+        for pid in range(2):
+            res = demix_tracks_multihost(sep, tracks, process_id=pid, process_count=2)
+            require(res.owned_indices() == partition_tracks(len(tracks), pid, 2),
+                    f"process {pid} demixed {res.owned_indices()}")
+            union.update(res.local)
+    require(sorted(union) == list(range(len(tracks))), f"union covers {sorted(union)}")
+    mh_err = max(float(np.max(np.abs(union[i] - r))) for i, r in enumerate(ref))
+    fig["multihost_max_abs_diff"] = mh_err
+    print(f"demix_tracks_multihost, processes 0 and 1 of 2, against one fleet run: max|diff| "
+          f"{mh_err:.3g}")
+    require(mh_err <= 2e-4, f"multihost union differs from the fleet: {mh_err}")
+
+    # a device trace of one demix: the trace file must name K1's kernel
+    trace_dir = os.path.join(tmp, "trace")
+    cut = tracks[0][:, : 10 * SR]
+    out = torch.empty((4, *cut.shape), device="cuda")
+    with device_trace(trace_dir) as prof:
+        # block_on: the stage ends when the copy of the stems into ``out`` has
+        with timer.stage("traced_demix", block_on=out):
+            out.copy_(sep.demix(cut))
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    require(len(files) == 1, f"device_trace wrote {files}")
+    text = open(os.path.join(trace_dir, files[0])).read()
+    require("lstm_resident_kernel" in text, "the trace names no K1 launch (lstm_resident_kernel)")
+    kernel_ms = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    fig["trace_device_ms"] = kernel_ms
+    print(f"device_trace of one 10 s demix: {files[0]} names lstm_resident_kernel; "
+          f"{kernel_ms:.3f} ms of device time  [{smi}]")
+
+    with timer.stage("profile_train_stream"):
+        prof_res = profile_train_stream.main(["--steps", "6", "--stream-secs", "30",
+                                              "--segment-secs", "10"])
+    fig["profile_train_stream"] = prof_res
+    fig["stages"] = json.loads(timer.as_json())
+    fig["wall_s"] = time.perf_counter() - t_phase
+    print(timer.report())
+    print(f"evaluation phase: {fig['wall_s']:.1f} s wall  [{smi}]")
+    return fig
 
 
 def gpu_vs_cpu(model: str, mix):
@@ -1937,7 +2196,9 @@ def main() -> int:
 
         train_args, train_errs = check_train_kernels(dev)
         check_train_resident(dev)
-        train_launches, steps_per_s, wide_steps_per_s = training_path(tmp, counters, smi)
+        train_launches, steps_per_s, wide_steps_per_s, held_out = training_path(tmp, counters,
+                                                                                  smi)
+        evaluation = evaluation_path(tmp, held_out, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -2215,7 +2476,7 @@ def main() -> int:
                       "host_loop_demix_s": host_demix_s,
                       "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
-                      "serving": serving}))
+                      "serving": serving, "evaluation": evaluation}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -102,8 +102,19 @@ def test_port_imports_no_jax(fixtures):
         import sys
         sys.modules["jax"] = None  # any import of jax now fails
         sys.modules["umx_tpu"] = None
+        import importlib, pkgutil
         import torch
         torch.set_num_threads(1)
+        import umx_tpu_torch
+        # every module of the port, the evaluation, utilities, parallel
+        # and script modules included
+        names = [m.name for m in pkgutil.walk_packages(umx_tpu_torch.__path__, "umx_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for name in ("eval.bss", "models.registry", "utils.logging", "utils.profiling",
+                     "parallel.multihost", "scripts.train_umx", "scripts.evaluate_musdb",
+                     "scripts.evaluate_demixed_output", "scripts.profile_train_stream"):
+            assert "umx_tpu_torch." + name in names, name
         from umx_tpu_torch import cli
         rc = cli.main([{model!r}, {wav!r}, {str(d / "nojax")!r}, "--segment-secs", "1.0",
                        "--device", "cpu", "--quiet"])
@@ -312,3 +323,40 @@ def test_cli_resample_demixes_a_48k_wav(fixtures):
     n = -(-mix.shape[1] * 44100 // 48000)
     stems = _read_stems(out, n)
     assert stems.shape == (4, 2, n)
+
+
+def _timings_table(out: str) -> tuple[str, list[str]]:
+    """The header and the stage names of a ``--timings`` table."""
+    lines = out.strip().splitlines()
+    i = next(k for k, ln in enumerate(lines) if ln.split()[:1] == ["stage"])
+    return lines[i], [ln.split()[0] for ln in lines[i + 1 :]]
+
+
+def test_cli_timings_print_the_jax_stage_table(fixtures, capsys, monkeypatch):
+    """``--timings`` prints ``StageTimer.report()``: the JAX CLI's header and
+    stage names.  The JAX CLI runs with a stand-in separator (its table,
+    not its demix, is what is compared)."""
+    import umx_tpu.engine.separator as jsep
+    from umx_tpu import cli as jcli
+
+    d, model, wav, _, mix = fixtures
+    assert cli.main([model, wav, str(d / "out_timings"), *FAST, "--timings"]) == 0
+    header, names = _timings_table(capsys.readouterr().out)
+
+    class StandIn:
+        def __init__(self, cfg):
+            self.cfg = cfg
+
+        @classmethod
+        def from_ggml(cls, path, cfg, quantized_hbm=False):
+            return cls(cfg)
+
+        def demix_track(self, audio, seed=0, progress=None, fused=True):
+            return np.zeros((4, *audio.shape), np.float32)
+
+    monkeypatch.setattr(jsep, "Separator", StandIn)
+    assert jcli.main([model, wav, str(d / "out_timings_jax"), "--quiet", "--timings"]) == 0
+    jheader, jnames = _timings_table(capsys.readouterr().out)
+    assert header == jheader
+    assert sorted(names) == sorted(jnames) == ["demix", "load_audio", "load_model",
+                                              "write_stems"]

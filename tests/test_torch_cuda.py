@@ -942,3 +942,99 @@ def test_streaming_on_the_card_matches_offline(dev):
     want = Separator(params, cfg, dev).demix(track, fused=False).cpu().numpy()
     assert stems.shape == want.shape
     assert np.max(np.abs(stems - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+def _bss_sources(J, C, T, seed):
+    """Noise plus one tone per source, as the sources of tests/test_bss.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((J, C, T))
+    t = np.arange(T)
+    for j in range(J):
+        s[j] += 2.0 * np.sin(2 * np.pi * 50 * (j + 1) * t / T)[None, :]
+    return s, s + 0.05 * rng.standard_normal(s.shape)
+
+
+@pytest.mark.parametrize("J, T, window, flen", [(3, 8000, 4000, 16), (4, 2 * 44100, 44100, 512)])
+def test_bss_batched_solve_on_the_card_matches_float64(dev, J, T, window, flen):
+    """The v3 evaluator's batched float32 solves on the card against the
+    float64 host evaluation of each window: within 0.1 dB (the bound of
+    tests/test_bss.py); at J = 4, flen 512 the museval shape (N = 4096)."""
+    import numpy as np
+
+    from umx_tpu_torch.eval.bss import bss_eval_window, bss_eval_window_batch
+
+    refs, ests = _bss_sources(J, 2, T, seed=J)
+    W = T // window
+    refs_w = np.stack([refs[..., w * window : (w + 1) * window] for w in range(W)])
+    ests_w = np.stack([ests[..., w * window : (w + 1) * window] for w in range(W)])
+    batched = bss_eval_window_batch(refs_w, ests_w, flen=flen)  # no device given: the card
+    for w in range(W):
+        single = bss_eval_window(refs_w[w], ests_w[w], flen=flen)
+        for m_b, m_s in zip(batched, single):
+            assert np.isfinite(m_b[w]).all()
+            np.testing.assert_allclose(m_b[w], m_s, atol=0.1)
+
+
+def test_stage_timer_block_on_waits_for_the_tensor(dev):
+    from umx_tpu_torch.utils.profiling import StageTimer
+
+    a = torch.randn((4096, 4096), device=dev)
+    torch.cuda.synchronize(dev)
+    timer = StageTimer()
+    done = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with timer.stage("matmuls", block_on={"out": [a]}):
+        for _ in range(20):
+            a = a @ a / 64.0
+        done.record()
+    assert done.query(), "the stage ended before the tensor's work did"
+    # the stage's wall time holds the device time of its work
+    assert timer.totals["matmuls"] * 1000 >= start.elapsed_time(done) * 0.99
+
+
+def test_device_trace_records_a_cuda_kernel(dev, tmp_path):
+    import json
+    import os
+
+    from umx_tpu_torch.utils.profiling import device_trace
+
+    a = torch.randn((512, 512), device=dev)
+    with device_trace(str(tmp_path / "trace")) as prof:  # no device given: the card
+        (a @ a).sum()
+    files = [f for f in os.listdir(tmp_path / "trace") if f.endswith(".pt.trace.json")]
+    assert len(files) == 1
+    events = json.load(open(tmp_path / "trace" / files[0]))["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events), "no CUDA kernel in the trace"
+    assert sum(e.device_time_total for e in prof.key_averages()) > 0
+
+
+def test_evaluate_musdb_runs_on_the_card_by_default(dev, tmp_path, capsys):
+    import json
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from umx_tpu_torch.config import TARGETS, ModelConfig
+    from umx_tpu_torch.io.ggml import write_ggml
+    from umx_tpu_torch.models.umx import synthetic_state_dicts
+    from umx_tpu_torch.scripts import evaluate_musdb
+
+    rng = np.random.default_rng(3)
+    track = tmp_path / "test" / "track_0"
+    track.mkdir(parents=True)
+    stems = [0.2 * rng.standard_normal((3 * 44100, 2)).astype(np.float32) for _ in TARGETS]
+    for name, s in zip(TARGETS, stems):
+        wavfile.write(str(track / f"{name}.wav"), 44100, s)
+    wavfile.write(str(track / "mixture.wav"), 44100, np.sum(stems, axis=0))
+    model = str(tmp_path / "model.bin")
+    write_ggml(model, 64, synthetic_state_dicts(ModelConfig(hidden_size=64), seed=0))
+    before = lstm_cuda.lstm_merged.launches
+    out = tmp_path / "res.json"
+    assert evaluate_musdb.main([model, str(tmp_path / "test"), "--segment-secs", "1.0",
+                                "--flen", "64", "--out", str(out)]) == 0
+    assert lstm_cuda.lstm_merged.launches > before  # the recurrence ran on the card
+    res = json.loads(out.read_text())
+    assert all(np.isfinite(v) for m in res["median"].values() for v in m.values())

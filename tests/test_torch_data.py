@@ -5,6 +5,7 @@ runs with a validation split, and the trainer imports without jax."""
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -122,3 +123,52 @@ def test_trainer_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+NUMBER = re.compile(r"\d+\.\d+(?:e[-+]\d+)?")
+
+
+@pytest.mark.parametrize("valid", [False, True])
+def test_train_loop_prints_the_jax_progress_lines(stem_root, capsys, monkeypatch, valid):
+    """With ``UMX_TPU_LOG`` unset both loops print ``step N/M loss ...`` at
+    info level on stderr (and, with a flat validation loss, the early-stop
+    line): after the timestamp the same words, and the same losses within
+    ``rtol``.  The JAX trainer runs its float32 scan on the CPU, the port
+    the plain version of its kernels (bf16 recurrence operands): a step's
+    loss agrees to 5e-6 (measured).  The learning rate is 0 so that the
+    lines compare the same weights: with lr > 0 AdamW's first steps (about
+    lr * sign(g)) carry each side's gradient differences into the next
+    losses (1.5e-4 apart after 6 steps at lr 1e-4, measured), which
+    ``tests/test_torch_train.py`` covers from identical gradients."""
+    rtol = 2e-5
+    from umx_tpu.config import ModelConfig as JModelConfig
+    from umx_tpu.data import train_loop as jtrain_loop
+    from umx_tpu.train import TrainConfig as JTrainConfig
+
+    monkeypatch.delenv("UMX_TPU_LOG", raising=False)
+    kw = dict(seq_len=8, learning_rate=0.0, early_stop_patience=1, lr_decay_patience=1000)
+    runs = {}
+    for name, loop, mcfg, tcfg, ds, extra in (
+        ("ours", train_loop, ModelConfig(hidden_size=32), TrainConfig(**kw), StemDataset,
+         {"device": "cpu"}),
+        ("jax", jtrain_loop, JModelConfig(hidden_size=32), JTrainConfig(**kw), JStemDataset, {}),
+    ):
+        train = ds(stem_root, excerpt_samples=1024 * 7, split="train" if valid else "all", seed=4)
+        vkw = {}
+        if valid:
+            vkw = dict(valid_dataset=ds(stem_root, excerpt_samples=1024 * 7, split="valid",
+                                        seed=4), valid_every=2, valid_batches=1)
+        capsys.readouterr()
+        loop(train, mcfg, tcfg, steps=8, batch_size=2, log_every=2, **vkw, **extra)
+        err = capsys.readouterr().err.splitlines()
+        runs[name] = [re.sub(r"^\[ *\d+\.\d\ds\] ", "", ln) for ln in err
+                      if re.match(r"^\[ *\d+\.\d\ds\] info: step", ln)]
+    # 4 step lines; with a flat validation loss, early stop at step 6
+    want_text = (["info: step 2/8 loss #", "info: step 4/8 loss #",
+                  "info: step 6/8 loss #", "info: step 6: early stop (best #)"] if valid
+                 else [f"info: step {i}/8 loss #" for i in (2, 4, 6, 8)])
+    for name in ("jax", "ours"):
+        assert [NUMBER.sub("#", ln) for ln in runs[name]] == want_text, (name, runs[name])
+    for ours, theirs in zip(runs["ours"], runs["jax"]):
+        a, b = float(NUMBER.findall(ours)[-1]), float(NUMBER.findall(theirs)[-1])
+        assert abs(a - b) <= rtol * abs(b), (ours, theirs)

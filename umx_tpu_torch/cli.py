@@ -150,56 +150,45 @@ def _main(argv=None) -> int:
         if not args.quiet:
             print(*a, flush=True)
 
-    import torch
-
     from umx_tpu_torch.engine.separator import Separator, resolve_device
     from umx_tpu_torch.io.audio import load_audio, write_audio
 
     device = resolve_device(args.device)
     cfg = engine_config_from_args(args)
 
-    totals: dict[str, float] = {}
+    from umx_tpu_torch.utils.profiling import StageTimer, block_until_ready
 
-    def timed(name, fn, *a):
-        t = time.perf_counter()
-        out = fn(*a)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        totals[name] = time.perf_counter() - t
-        return out
-
+    timer = StageTimer()
     t0 = time.perf_counter()
-    audio = timed("load_audio", load_audio, args.wav_file, cfg.dsp.sample_rate, args.resample)
+    with timer.stage("load_audio"):
+        audio = load_audio(args.wav_file, cfg.dsp.sample_rate, args.resample)
     secs = audio.shape[1] / cfg.dsp.sample_rate
     log(f"Loaded {args.wav_file}: {audio.shape[1]} samples ({secs:.1f} s)")
 
-    sep = timed("load_model", Separator.from_ggml, args.model_file, cfg, device,
-                args.quantized_hbm)
+    with timer.stage("load_model"):
+        sep = Separator.from_ggml(args.model_file, cfg, device, args.quantized_hbm)
+        block_until_ready(sep.params.fc1_w)  # the weights' copies end in this stage
     log(f"Loaded model {args.model_file} (hidden_size={sep.cfg.model.hidden_size}"
         f"{', quantized weights' if args.quantized_hbm else ''}) "
-        f"onto {device} in {totals['load_model']:.2f} s")
+        f"onto {device} in {timer.totals['load_model']:.2f} s")
 
     progress = None
     if args.host_loop and not args.quiet:
         progress = lambda f: log(f"  demix {f * 100:.0f}%")  # noqa: E731
-    stems = timed("demix", sep.demix_track, audio, args.seed, progress, not args.host_loop)
-    dt = totals["demix"]
+    with timer.stage("demix"):  # demix_track returns host arrays: the device is done
+        stems = sep.demix_track(audio, args.seed, progress, not args.host_loop)
+    dt = timer.totals["demix"]
     log(f"Demixed in {dt:.2f} s ({secs / dt:.1f}x realtime)")
 
     os.makedirs(args.out_dir, exist_ok=True)
-
-    def write_all():
+    with timer.stage("write_stems"):
         for i in range(stems.shape[0]):
             path = os.path.join(args.out_dir, f"target_{i}.wav")
             write_audio(path, stems[i], cfg.dsp.sample_rate)
             log(f"Wrote {path}")
-
-    timed("write_stems", write_all)
     log(f"Total {time.perf_counter() - t0:.2f} s")
     if args.timings:
-        print(f"{'stage':<16} {'seconds':>9}")
-        for name, total in totals.items():
-            print(f"{name:<16} {total:>9.3f}")
+        print(timer.report())
     return 0
 
 

@@ -11,15 +11,12 @@ same batches in both.  Host-side numpy; the STFT/feature step is
 
 from __future__ import annotations
 
-import logging
 import os
 from dataclasses import dataclass, field, fields
 
 import numpy as np
 
 from umx_tpu_torch.config import TARGETS
-
-log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -216,6 +213,7 @@ def train_loop(
         save_checkpoint,
         set_lr,
     )
+    from umx_tpu_torch.utils import logging as log
 
     device = resolve_device(device)
     if params is None:
@@ -264,7 +262,7 @@ def train_loop(
                     save_checkpoint(os.path.join(checkpoint_dir, "best.pt"), state)
             new_lr = sched.update(vloss)
             if new_lr != get_lr(state.optimizer):
-                log.info(f"step {i + 1}: plateau, lr -> {new_lr:.2e}")
+                log.info(f"step {i + 1}: plateau — lr -> {new_lr:.2e}")
                 set_lr(state.optimizer, new_lr)
             history.lrs.append((i + 1, new_lr))
             if stopper.update(vloss):

@@ -128,6 +128,29 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     ``device_trace`` of one demix whose trace file must name K1
     (``lstm_resident_kernel``); ``profile_train_stream`` at small steps.
     Its figures go under ``"evaluation"`` in the JSON line.
+15. (run after phase 14) oracle parity at UMX-L production shape:
+    ``umx_tpu_torch.scripts.parity_fullscale`` at hidden 1024, 60 s, T 2584
+    on cuda, every port variant (fp32, qhbm, pallas, pertarget, ct2, em2,
+    nowiener, quirk, stream2) against the independent oracle
+    (``eval/oracle.py``) on the host CPU; each variant's kernels must have
+    launched (K1-K3; K9 for pertarget, K8 for ct2, K2/K3 in mode y for em2,
+    K1 for 3 layers in each half of stream2, at T 1292, where K1 is then
+    held against its plain version); every row's waveform error at least
+    32.7 dB below the signal (0.1 dB of SDR), every stem too but qhbm's,
+    whose stems may lie no more than 3 dB below the TPU's same stem; each
+    row printed beside the JAX package's TPU and CPU rows.  Its figures go
+    under ``"parity"`` in the JSON line.
+16. certification: ``convert_umx_pth_to_ggml --gzip`` on four UMX-L
+    ``.pth`` files of phase 4's weights (the ggml equal to phase 4's
+    file); ``e2e_test`` hermetic (``e2e OK``); ``umx_golden_inference``
+    on a 20 s cut of phase 4's WAV (finite stems that sum to the mix; its
+    error against the CLI's stems printed); ``fleet_certify`` on 10
+    MUSDB-shaped tracks; ``serve_bench`` at its defaults (4 clients, 30 s
+    tracks, max_batch 4; percentiles, x realtime, batch fill printed);
+    ``longtrack_probe`` at 1800 s (planner beside ``device_hbm_bytes``,
+    route, x realtime; finite stems, no drift of corr(sum of stems, mix)
+    from the first tenth to the last).  K1-K3 launched by the fleet, the
+    service and the long track.  Its figures go under ``"certification"``.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -2067,6 +2090,258 @@ def serving_path(model: str, wav: str, mix, counters: dict, smi: str):
     }
 
 
+# the reference rows of the oracle-parity harness (waveform error, dB below
+# the signal, then per stem bass/drums/other/vocals): the JAX package on a
+# TPU v5e (PARITY_TPU_r5.json) and on the CPU (PARITY_FULLSCALE_r3.json; the
+# port's ct2 beside its ct2_xla row)
+PARITY_TPU = {"fp32": (45.1, [39.9, 46.4, 46.0, 44.1]), "pallas": (45.1, [39.9, 46.4, 46.0, 44.1]),
+              "qhbm": (37.6, [31.0, 39.6, 39.2, 36.1]), "stream2": (44.3, [38.2, 46.0, 45.1, 43.9])}
+PARITY_CPU = {"fp32": (119.6, [115.1, 121.2, 121.8, 116.7]),
+              "qhbm": (38.2, [32.7, 39.2, 39.2, 37.5]),
+              "ct2": (119.6, [115.1, 121.2, 121.8, 116.7]),
+              "em2": (94.5, [103.4, 94.0, 93.1, 110.6]),
+              "nowiener": (125.8, [123.6, 126.7, 127.1, 123.2]),
+              "quirk": (111.9, [114.6, 118.6, 108.5, 115.7]),
+              "stream2": (121.8, [116.0, 123.4, 122.9, 120.8])}
+# 0.1 dB of SDR: by PARITY.md's formula, +-4.3 * 10^(-X/20) dB, an error
+# X dB below the signal moves SDR by at most 0.1 dB from X = 32.7 on
+PARITY_BOUND_DB = 32.7
+# a quantized-weights stem may lie this far below the TPU's same stem
+QHBM_STEM_SLACK_DB = 3.0
+
+
+def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
+    """Phase 15: ``parity_fullscale`` at UMX-L production shape (hidden 1024,
+    60 s, T 2584) on cuda, every port variant, each with its kernels'
+    launches read; the oracle runs on the host CPU.  Returns (its
+    figures, K1's inputs at the half-segment shape of stream2, K1's
+    error there)."""
+    import torch
+
+    from umx_tpu_torch.models import umx
+    from umx_tpu_torch.ops import wiener_cuda as W
+    from umx_tpu_torch.scripts import parity_fullscale as pf
+
+    t_phase = time.perf_counter()
+    par = pf.Parity(hidden=1024, seg_secs=60.0, device="cuda")
+    require(par.n_frames == T_SEG, f"parity segment of {par.n_frames} frames, not {T_SEG}")
+    # what each variant must launch beyond the Wiener and recurrence
+    # kernels every dense row runs
+    expect = {
+        "fp32": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+        "qhbm": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+        "pallas": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+        "pertarget": ("lstm_layer_pertarget", "wiener_reduce_masks", "wiener_apply_masks"),
+        "ct2": ("lstm_merged", "istft_ct2", "wiener_reduce_masks", "wiener_apply_masks"),
+        "em2": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks", "wiener_reduce_y",
+                "wiener_apply_y"),
+        "nowiener": ("lstm_merged",),
+        "quirk": ("lstm_merged",),
+        "stream2": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+    }
+    rows, launches, oracle_s, ours_s = [], {}, {}, {}
+    k1_shapes: set = set()
+    for v in pf.PORT_VARIANTS:
+        t0 = time.perf_counter()
+        waves_oracle = (par.oracle_stream2() if v == "stream2"
+                        else par.oracle(**par.variant_config(v)[2]))
+        oracle_s[v] = time.perf_counter() - t0
+        reset_counts(counters)
+        for fn in (W.wiener_reduce, W.wiener_apply):
+            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
+        seen: set = set()
+        t0 = time.perf_counter()
+        with recording(umx, "lstm_layer_merged_batched", lambda x, *a: (x.shape[0], x.shape[2]),
+                       seen):
+            waves = par.ours(v)
+        torch.cuda.synchronize()
+        ours_s[v] = time.perf_counter() - t0
+        n = {name: fn.launches for name, fn in counters.items() if fn.launches}
+        n.update({f"{name}_{m}": fn.mode_launches[m] for name, fn in
+                  (("wiener_reduce", W.wiener_reduce), ("wiener_apply", W.wiener_apply))
+                  for m in fn.mode_launches if fn.mode_launches[m]})
+        launches[v] = n
+        missing = [k for k in expect[v] if not n.get(k)]
+        require(not missing, f"parity variant {v} launched no {missing}: {n}")
+        row = pf.err_row(v, waves, waves_oracle, par.seg_secs, par.hidden, par.device, par.card)
+        rows.append(row)
+        if v == "stream2":
+            k1_shapes = seen
+            require(n.get("lstm_merged") == 6 and seen == {(1, T_SEG // 2)},
+                    f"stream2 ran K1 {n.get('lstm_merged')} times at {sorted(seen)}, not 3 layers "
+                    f"x 2 halves at (1, {T_SEG // 2})")
+        tpu, cpu = PARITY_TPU.get(v), PARITY_CPU.get(v)
+        print(f"parity {v}: {row['waveform_err_db']} dB below the signal, stems "
+              f"{row['per_stem_err_db']}; TPU row {tpu[0] if tpu else '-'} "
+              f"{tpu[1] if tpu else ''}, CPU row {cpu[0] if cpu else '-'} "
+              f"{cpu[1] if cpu else ''}; max rel err {row['waveform_max_rel_err']:.3g}; "
+              f"oracle {oracle_s[v]:.1f} s (host), port {ours_s[v]:.2f} s; kernel runs {n}"
+              f"  [{smi}]")
+    print(json.dumps(rows))
+    pf.print_table(rows)
+    for row in rows:
+        v, whole, stems = row["variant"], row["waveform_err_db"], row["per_stem_err_db"]
+        require(whole >= PARITY_BOUND_DB,
+                f"parity {v}: waveform error {whole} dB below the signal, bound {PARITY_BOUND_DB}")
+        if v == "qhbm":
+            low = [(s, t) for s, t in zip(stems, PARITY_TPU["qhbm"][1])
+                   if s < t - QHBM_STEM_SLACK_DB]
+            require(not low, f"parity qhbm: stems {stems} more than {QHBM_STEM_SLACK_DB} dB "
+                    f"below the TPU's {PARITY_TPU['qhbm'][1]}")
+            under = [s for s in stems if s < PARITY_BOUND_DB]
+            if under:
+                print(f"parity qhbm: stems {under} lie under {PARITY_BOUND_DB} dB (a finding, "
+                      f"as the TPU's bass stem at 31.0 dB)")
+        else:
+            require(min(stems) >= PARITY_BOUND_DB,
+                    f"parity {v}: stems {stems} dB below the signal, bound {PARITY_BOUND_DB}")
+    # K1 at the half-segment shape stream2 gave it, against its plain version
+    (B, T), = k1_shapes
+    k1_args, k1_err = check_lstm(dev, T, B, seed=150)
+    wall = time.perf_counter() - t_phase
+    print(f"parity phase: {wall:.1f} s wall, oracle {sum(oracle_s.values()):.1f} s of it on the "
+          f"host  [{smi}]")
+    return ({"rows": rows, "launches": launches, "oracle_s": oracle_s, "port_s": ours_s,
+             "wall_s": wall, "card": smi}, ((B, T), k1_args), k1_err)
+
+
+CERT_FLEET_TRACKS = 10  # fleet_certify's --tracks in the smoke (its default is 50)
+CERT_GOLDEN_SECS = 20.0  # the cut of phase 4's WAV that the golden inference demixes
+# the long track's stems against its mix: corr over the track at least
+# this, and over its first and last tenth within this of each other
+LONGTRACK_MIN_CORR, LONGTRACK_DRIFT = 0.97, 0.005
+
+
+def certification_phase(tmp: str, model: str, mix, counters: dict, smi: str) -> dict:
+    """Phase 16: the port's certification tools on the card.  The converter
+    on four UMX-L ``.pth`` files; ``e2e_test`` hermetic; the golden
+    inference (host CPU) on a 20 s cut of phase 4's WAV beside the port's
+    CLI on it; ``fleet_certify`` on a reduced MUSDB-shaped set;
+    ``serve_bench`` at its defaults; ``longtrack_probe`` at 1800 s.
+    Returns its figures."""
+    import gzip
+
+    import torch
+    from scipy.io import wavfile
+
+    from umx_tpu_torch import cli
+    from umx_tpu_torch.config import ModelConfig
+    from umx_tpu_torch.models.umx import synthetic_state_dicts
+    from umx_tpu_torch.scripts import (
+        convert_umx_pth_to_ggml as conv, e2e_test, fleet_certify, longtrack_probe, serve_bench,
+        umx_golden_inference,
+    )
+
+    t_phase = time.perf_counter()
+    fig: dict = {"card": smi}
+
+    # 1. the converter: the state dicts of phase 4's model as torchhub
+    # checkpoints (with the keys it skips) -> ggml, equal to phase 4's file
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "hub")
+    os.makedirs(ckpt)
+    sds = synthetic_state_dicts(ModelConfig(hidden_size=1024), seed=0)
+    for target, fname in conv.HUB_FILES["umxl"].items():
+        sd = {k: torch.from_numpy(v) for k, v in sds[target].items()}
+        sd.update({"stft.window": torch.ones(4096), "sample_rate": torch.tensor(44100.0),
+                   "transform.0.window": torch.ones(4096)})
+        sd.update({f"bn{i}.num_batches_tracked": torch.tensor(7) for i in (1, 2, 3)})
+        torch.save(sd, os.path.join(ckpt, fname))
+    del sds
+    rc, _ = _run_main(conv.main, ["--model", "umxl", "--ckpt-dir", ckpt, "--gzip",
+                                  os.path.join(tmp, "converted")])
+    require(rc == 0, f"the converter exited {rc}")
+    with gzip.open(os.path.join(tmp, "converted", "ggml-model-umxl-u8.bin.gz"), "rb") as f:
+        converted = f.read()
+    with open(model, "rb") as f:
+        require(converted == f.read(), "the converted ggml differs from write_ggml of the same "
+                "state dicts")
+    fig["convert_s"] = time.perf_counter() - t0
+    print(f"converter: 4 UMX-L .pth files -> ggml, {len(converted)} bytes equal to write_ggml's; "
+          f"{fig['convert_s']:.1f} s")
+
+    # 2. the end-to-end test, hermetic, on the card
+    t0 = time.perf_counter()
+    rc, out = _run_main(e2e_test.main, [])
+    require(rc == 0 and "e2e OK" in out, "e2e_test did not print e2e OK")
+    fig["e2e_s"] = time.perf_counter() - t0
+
+    # 3. the golden inference (host CPU) on a 20 s cut, beside the port's CLI
+    n = int(CERT_GOLDEN_SECS * SR)
+    cut = os.path.join(tmp, "cut20.wav")
+    wavfile.write(cut, SR, np.ascontiguousarray(mix[:, :n].T))
+    t0 = time.perf_counter()
+    rc, _ = _run_main(umx_golden_inference.main, [model, cut, os.path.join(tmp, "golden")])
+    fig["golden_s"] = time.perf_counter() - t0
+    require(rc == 0, f"the golden inference exited {rc}")
+    golden = check_stems(os.path.join(tmp, "golden"), mix[:, :n])
+    rc = cli.main([model, cut, os.path.join(tmp, "cut_cli"), "--quiet"])
+    require(rc == 0, f"the CLI exited {rc} on the 20 s cut")
+    ported = check_stems(os.path.join(tmp, "cut_cli"), mix[:, :n])
+    sig = float(np.sum(golden.astype(np.float64) ** 2))
+    err = float(np.sum((ported.astype(np.float64) - golden) ** 2))
+    fig["golden_vs_cli_err_db"] = 10 * math.log10(sig / max(err, 1e-30))
+    print(f"golden inference (host CPU, {fig['golden_s']:.1f} s) against the port's CLI on the "
+          f"card, {CERT_GOLDEN_SECS:.0f} s cut: error {fig['golden_vs_cli_err_db']:.1f} dB below "
+          f"the golden stems (printed, not gated)  [{smi}]")
+
+    def launched(name: str) -> dict:
+        n = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        require(all(n.get(k) for k in ("lstm_merged", "wiener_reduce", "wiener_apply")),
+                f"{name} did not launch K1-K3: {n}")
+        return n
+
+    # 4. the fleet certification on a reduced MUSDB-shaped set
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rc, out = _run_main(fleet_certify.main, ["--tracks", str(CERT_FLEET_TRACKS)])
+    require(rc == 0, f"fleet_certify exited {rc}")
+    fig["fleet"] = json.loads(out.strip().splitlines()[-1])
+    fig["fleet"]["launches"] = launched("fleet_certify")
+    fig["fleet_s"] = time.perf_counter() - t0
+
+    # 5. serving at the bench's defaults (4 clients, 30 s tracks, max_batch
+    # 4), on phase 4's model (the same synthetic UMX-L weights)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rc, out = _run_main(serve_bench.main, ["--model", model])
+    require(rc == 0, f"serve_bench exited {rc}")
+    fig["serve"] = json.loads(out.strip().splitlines()[-1])
+    fig["serve"]["launches"] = launched("serve_bench")
+    fig["serve_s"] = time.perf_counter() - t0
+    s = fig["serve"]
+    print(f"serve_bench: latency p50 {s['latency_p50_s']} s, p95 {s['latency_p95_s']} s, p99 "
+          f"{s['latency_p99_s']} s; {s['aggregate_xrt']}x realtime in aggregate, "
+          f"{s['device_xrt']}x on the device; avg_batch_fill "
+          f"{s['autoscaling']['avg_batch_fill']}  [{smi}]")
+
+    # 6. the 30-minute track
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    lt = longtrack_probe.probe(torch.device("cuda"))  # raises on non-finite stems
+    lt["launches"] = launched("longtrack_probe")
+    fig["longtrack"] = lt
+    fig["longtrack_s"] = time.perf_counter() - t0
+    print(f"longtrack_probe: {lt['secs']:.0f} s, {lt['chunks']} chunks, route {lt['route']}, "
+          f"planner {lt['planner_gib']:.2f} GiB of device_hbm_bytes {lt['device_gib']:.2f} GiB, "
+          f"{lt['xrt']:.1f}x realtime, corr(sum of stems, mix) {lt['corr']:.6f} (first tenth "
+          f"{lt['corr_first_tenth']:.6f}, last {lt['corr_last_tenth']:.6f})  [{smi}]")
+    require(lt["route"] == "one program" or lt["planner_gib"] > 0.9 * lt["device_gib"],
+            f"the long track ran in {lt['route']} though the planner's estimate fits")
+    # the synthetic weights zero every target's mask in some bins of this
+    # signal, so the stems do not partition all of it: the JAX package's
+    # separator gives the port's corr on it (0.97624 on 4 s at 2 s
+    # segments, tests/test_torch_tools.py)
+    require(lt["corr"] >= LONGTRACK_MIN_CORR,
+            f"long track: corr(sum of stems, mix) {lt['corr']} under {LONGTRACK_MIN_CORR}")
+    require(abs(lt["corr_first_tenth"] - lt["corr_last_tenth"]) <= LONGTRACK_DRIFT,
+            f"long track: the partition drifts along the track: first tenth "
+            f"{lt['corr_first_tenth']}, last {lt['corr_last_tenth']}")
+    fig["wall_s"] = time.perf_counter() - t_phase
+    print(f"certification phase: {fig['wall_s']:.1f} s wall  [{smi}]")
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -2199,6 +2474,10 @@ def main() -> int:
         train_launches, steps_per_s, wide_steps_per_s, held_out = training_path(tmp, counters,
                                                                                   smi)
         evaluation = evaluation_path(tmp, held_out, counters, smi)
+        parity, (k1_half, k1_half_args), err = parity_phase(dev, counters, smi)
+        path_lstm_args[k1_half] = k1_half_args
+        lstm_err = max(lstm_err, err)
+        certification = certification_phase(tmp, model, mix, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -2476,7 +2755,8 @@ def main() -> int:
                       "host_loop_demix_s": host_demix_s,
                       "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
-                      "serving": serving, "evaluation": evaluation}))
+                      "serving": serving, "evaluation": evaluation, "parity": parity,
+                      "certification": certification}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1038,3 +1038,38 @@ def test_evaluate_musdb_runs_on_the_card_by_default(dev, tmp_path, capsys):
     assert lstm_cuda.lstm_merged.launches > before  # the recurrence ran on the card
     res = json.loads(out.read_text())
     assert all(np.isfinite(v) for m in res["median"].values() for v in m.values())
+
+
+# the TPU's quantized-weights stems (PARITY_TPU_r5.json), bass/drums/other/vocals
+_TPU_QHBM_STEMS = (31.0, 39.6, 39.2, 36.1)
+
+
+def test_parity_at_umx_l_width_on_the_card(dev):
+    """Every port variant of the parity harness at hidden 1024 on a 10 s
+    segment: the whole waveform at least 32.7 dB below the oracle's signal
+    (0.1 dB of SDR), every stem too but the quantized row's, whose stems
+    may lie up to 3 dB below the TPU's."""
+    from umx_tpu_torch.scripts import parity_fullscale as pf
+
+    par = pf.Parity(hidden=1024, seg_secs=10.0, device="cuda")
+    for v in pf.PORT_VARIANTS:
+        row = par.row(v)
+        assert row["backend"] == "cuda" and row["waveform_err_db"] >= 32.7, row
+        if v == "qhbm":
+            assert all(s >= t - 3.0 for s, t in zip(row["per_stem_err_db"], _TPU_QHBM_STEMS)), row
+        else:
+            assert min(row["per_stem_err_db"]) >= 32.7, row
+
+
+def test_serve_bench_defaults_one_client_on_the_card(dev, capsys):
+    import json
+
+    from umx_tpu_torch.scripts import serve_bench
+
+    before = lstm_cuda.lstm_merged.launches
+    assert serve_bench.main(["--clients", "1"]) == 0
+    d = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert lstm_cuda.lstm_merged.launches > before
+    assert d["clients"] == d["requests"] == 1 and d["track_secs"] == 30.0
+    assert d["batching"]["max_batch"] == 4 and d["device_xrt"] > 0
+    assert d["device_name"] not in ("", "cuda")  # nvidia-smi's name and power limit

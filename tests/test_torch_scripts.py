@@ -6,10 +6,7 @@ trained model both packages read, and no GPU taken for granted."""
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
-import os
 import re
 
 import numpy as np
@@ -17,6 +14,9 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_script_helpers import flags as _flags
+from torch_script_helpers import jax_parser as _jax_parser
+from torch_script_helpers import jax_script as _jax_script
 from umx_tpu_torch.config import TARGETS, ModelConfig
 from umx_tpu_torch.io.ggml import write_ggml
 from umx_tpu_torch.models.umx import synthetic_state_dicts
@@ -27,7 +27,6 @@ from umx_tpu_torch.scripts import (
     train_umx,
 )
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 44100
 PORTED = {
     "train-umx.py": train_umx,
@@ -35,14 +34,6 @@ PORTED = {
     "evaluate-demixed-output.py": evaluate_demixed_output,
     "profile-train-stream.py": profile_train_stream,
 }
-
-
-def _jax_script(name: str):
-    path = os.path.join(REPO, "scripts", name)
-    spec = importlib.util.spec_from_file_location("jax_" + name[:-3].replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,30 +80,6 @@ def musdb(tmp_path_factory):
     model = str(d / "model.bin.gz")
     write_ggml(model, 64, synthetic_state_dicts(ModelConfig(hidden_size=64), seed=0))
     return d, root, model
-
-
-def _flags(parser: argparse.ArgumentParser) -> set[str]:
-    return {s for a in parser._actions for s in a.option_strings} | {
-        a.dest for a in parser._actions if not a.option_strings}
-
-
-class _Parsed(Exception):
-    pass
-
-
-def _jax_parser(mod, monkeypatch) -> argparse.ArgumentParser:
-    """The parser a JAX script's ``main`` builds (caught at ``parse_args``)."""
-    seen = []
-
-    def capture(self, *a, **k):
-        seen.append(self)
-        raise _Parsed
-
-    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
-    with pytest.raises(_Parsed):
-        mod.main([]) if mod.main.__code__.co_argcount else mod.main()
-    monkeypatch.undo()
-    return seen[0]
 
 
 @pytest.mark.parametrize("script", sorted(PORTED))

@@ -15,9 +15,10 @@ measured.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
+
+from umx_tpu_torch.utils.profiling import card_name
 
 # NVIDIA's data sheet, H100 SXM, float32 outside the tensor cores, at 700 W
 H100_F32_FLOPS = 67e12
@@ -41,17 +42,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-stream", action="store_true")
     p.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")
     return p
-
-
-def card_name(device) -> str:
-    """``nvidia-smi``'s name and power limit of the card, or the device."""
-    if device.type != "cuda":
-        return str(device)
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[device.index or 0] if out else str(device)
 
 
 def main(argv=None) -> dict:

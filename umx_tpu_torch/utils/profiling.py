@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import time
 from collections import defaultdict
 
@@ -32,6 +33,17 @@ def _cuda_devices(tree, out: set) -> set:
         for v in tree:
             _cuda_devices(v, out)
     return out
+
+
+def card_name(device) -> str:
+    """``nvidia-smi``'s name and power limit of the card, or the device."""
+    if device.type != "cuda":
+        return str(device)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[device.index or 0] if out else str(device)
 
 
 def block_until_ready(tree):

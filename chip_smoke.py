@@ -151,6 +151,25 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     route, x realtime; finite stems, no drift of corr(sum of stems, mix)
     from the first tenth to the last).  K1-K3 launched by the fleet, the
     service and the long track.  Its figures go under ``"certification"``.
+17. (run after phase 16; phase 11 checks ``cli_batch``'s mesh line) the
+    device mesh at UMX-L width: ``make_mesh()`` must read ``{'dp': 1,
+    'tp': 1}`` over the one card; then the grid's devices repeated
+    (``[cuda:0] * 4``, so no copy between cards is made or timed): the
+    sharded demix of four 60 s segments cut from phase 4's track at dp 4
+    and at dp 2 x tp 2, each bit-equal to the unsharded batch (K1-K3
+    launched; the dp audit finds no combine, the tp audit only the masks'
+    gathers, at most 4), warm wall times and x realtime printed; one dp 1
+    x tp 2 call with ``lstm_impl="pallas"`` (K9 at two targets, bit-equal
+    to the unsharded call); ``demix_tracks`` over dp 2 on three 100 s
+    tracks (a silent track pads the bucket), bit-equal to the fleet
+    without a mesh; the sharded train step over dp 2 x tp 2 at batch 16 x
+    256 frames, 3 steps against the unsharded step (first loss within
+    1e-5, first gradients within 1e-4 of each field's max|g|, the losses
+    of steps 2-3 within 1e-4, the loss after the third update within
+    1e-2; K4-K6 launched); ``train_umx --mesh`` for 2 steps
+    at UMX-HQ on phase 14's stems; the shapes the phase gave K1, K2/K3,
+    K4-K6 and K9 recorded and each new one held against its plain version
+    and timed beside its bound.  Its figures go under ``"mesh"``.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -276,33 +295,34 @@ def lstm_bound(T, rows, G, inputs, extra_out: int = 0):
     return bound_ms(nbytes(*inputs) + out, 2.0 * T * rows * G * 4 * G, "bf16")
 
 
-def lstm_inputs(dev, T, B, seed):
-    """Random K1 inputs at R = 8 chains, G = 512 (the UMX-L layer)."""
+def lstm_inputs(dev, T, B, seed, R=R_CHAINS):
+    """Random K1 inputs at R chains (8: the UMX-L layer), G = 512."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    RB, G4 = R_CHAINS * B, 4 * G_HIDDEN
+    RB, G4 = R * B, 4 * G_HIDDEN
     xp = torch.randn((T, RB, G4), generator=g, device=dev)
-    whh = (torch.randn((R_CHAINS, G_HIDDEN, G4), generator=g, device=dev)
+    whh = (torch.randn((R, G_HIDDEN, G4), generator=g, device=dev)
            / G_HIDDEN**0.5).to(torch.bfloat16)
     h0 = 0.5 * torch.randn((RB, G_HIDDEN), generator=g, device=dev)
     c0 = 0.5 * torch.randn((RB, G_HIDDEN), generator=g, device=dev)
     return xp, whh, h0, c0, B
 
 
-def check_lstm(dev, T, B, seed):
-    """Phase 2: K1 against its plain version at R = 8, G = 512."""
+def check_lstm(dev, T, B, seed, R=R_CHAINS):
+    """Phase 2: K1 against its plain version at R chains (8 unless given),
+    G = 512."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda
 
-    args = lstm_inputs(dev, T, B, seed)
+    args = lstm_inputs(dev, T, B, seed, R)
     out_k = lstm_cuda.lstm_merged(*args)
     torch.cuda.synchronize()
     out_p = lstm_cuda.lstm_merged_plain(*args)
     torch.cuda.synchronize()
     errs = {n: max_err(a, b) for n, a, b in zip(("hs", "hT", "cT"), out_k, out_p)}
-    print(f"lstm_merged vs plain (T={T}, R={R_CHAINS}, B={B}, G={G_HIDDEN}): "
+    print(f"lstm_merged vs plain (T={T}, R={R}, B={B}, G={G_HIDDEN}): "
           f"max|err| hs {errs['hs']:.3g} hT {errs['hT']:.3g} cT {errs['cT']:.3g}; form (blocks per "
           f"chain, blocks held at once, chain groups, row groups) {lstm_cuda.lstm_merged.form}")
     # Both round h to bf16 before the product; an f32 last-bit difference
@@ -630,11 +650,14 @@ def check_istft_ct(dev, shapes, seed: int):
 @contextlib.contextmanager
 def recording(module, name: str, shape_of, seen: set):
     """For the block, ``module.name`` is a wrapper that adds
-    ``shape_of(*args)`` of every call to ``seen`` and then calls it."""
+    ``shape_of(*args)`` of every call to ``seen`` (unless it is None) and
+    then calls it."""
     real = getattr(module, name)
 
     def spy(*args, **kw):
-        seen.add(shape_of(*args, **kw))
+        shape = shape_of(*args, **kw)
+        if shape is not None:
+            seen.add(shape)
         return real(*args, **kw)
 
     setattr(module, name, spy)
@@ -876,6 +899,10 @@ def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=900)
     cli_s = time.perf_counter() - t0
     require(proc.returncode == 0, f"cli_batch exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    mesh_line = "mesh: {'dp': 1, 'tp': 1} over 1 device(s)"
+    require(mesh_line in proc.stdout.splitlines(),
+            f"cli_batch did not log its mesh as {mesh_line!r}:\n{proc.stdout[-2000:]}")
+    print(f"cli_batch: {mesh_line}")
     for line in proc.stdout.splitlines():
         if line.startswith("demixed"):
             print(f"catalogue path (cli_batch --quantized-hbm, subprocess, UMX-L, {len(tracks)} "
@@ -2342,6 +2369,351 @@ def certification_phase(tmp: str, model: str, mix, counters: dict, smi: str) -> 
     return fig
 
 
+# Phase 17: the device mesh on the one card, its devices repeated
+MESH_OFFSETS = (0.0, 10.0, 20.0, 40.0)  # s: four 60 s segments cut from phase 4's track
+MESH_TRAIN_STEPS = 3
+# The sharded train step against the unsharded one.  Its first loss and
+# gradients differ only in the order of f32 sums (the dp rows' weight
+# gradients are summed per row, then added); after an update AdamW divides
+# each element's step by its own gradient, so an element whose gradient is
+# at the rounding level moves by up to the learning rate either way, and
+# the losses drift apart with the updates: the losses of steps 2 and 3
+# within 1e-4 (2.6e-7 measured at UMX-L on an H100), the loss of the
+# parameters after the third update within 1e-2 (7.1e-4 measured), which
+# still catches a wrong slice or a lost gradient
+MESH_FIRST_LOSS_RTOL, MESH_GRAD_RTOL, MESH_LATER_LOSS_RTOL, MESH_TRAINED_RTOL = (
+    1e-5, 1e-4, 1e-4, 1e-2)
+
+
+def check_train_kernels_at(dev, R, B, T, seed):
+    """K4, K5 and K6 against their plain versions at R chains, B rows per
+    chain, T steps, G = 512 (the bounds of phase 5).  Returns ((K4 args,
+    K5 args, K6 args), max|err| of each)."""
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    (xp, whh, h0, c0, _), (dhs, dhT, dcT) = train_inputs_at(dev, T, R, B, G_HIDDEN, seed)
+    fwd_k = L.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    fwd_p = L.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
+    fwd = max(max_err(a, b) for a, b in zip(fwd_k, fwd_p))
+    hs, _, _, gates, cs = fwd_p
+    dxp_k, dh0_k, dc0_k = L.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    dxp_p, dw_p, dh0_p, dc0_p = L.lstm_merged_bwd_plain(gates, cs, hs, h0, c0, whh, dhs, dhT,
+                                                        dcT, B)
+    bwd = max(rel_err(dxp_k, dxp_p), rel_err(dh0_k, dh0_p), rel_err(dc0_k, dc0_p))
+    dw = rel_err(L.lstm_merged_dw(hs, h0, dxp_p, B), dw_p)
+    print(f"training kernels vs plain (T={T}, R={R}, B={B}, G={G_HIDDEN}): K4 max|err| {fwd:.3g}, "
+          f"K5 max|err|/max|ref| {bwd:.3g}, K6 on the plain dxp {dw:.3g}")
+    require(fwd <= 5e-3 and bwd <= 5e-3 and dw <= 1e-5,
+            f"a training kernel disagrees with its plain version at R={R}, B={B}: "
+            f"{fwd}, {bwd}, {dw}")
+    args = ((xp, whh, h0, c0, B), (gates, cs, c0, whh, dhs, dhT, dcT, B), (hs, h0, dxp_p, B))
+    return args, (fwd, bwd, dw)
+
+
+def train_inputs_at(dev, T, R, B, G, seed):
+    """:func:`train_inputs` at R chains."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    RB = R * B
+    xp = torch.randn((T, RB, 4 * G), generator=g, device=dev)
+    whh = (torch.randn((R, G, 4 * G), generator=g, device=dev) / G**0.5).to(torch.bfloat16)
+    h0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    cts = tuple(torch.randn(shape, generator=g, device=dev)
+                for shape in ((T, RB, G), (RB, G), (RB, G)))
+    return (xp, whh, h0, c0, B), cts
+
+
+def check_pertarget_at(dev, n_targets, T, G, seed):
+    """K9 against its plain version at ``n_targets`` targets (a tp slice)."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = (torch.randn((n_targets, T, 2, 4 * G), generator=g, device=dev),
+            (torch.randn((n_targets, 2, G, 4 * G), generator=g, device=dev)
+             / G**0.5).to(torch.bfloat16),
+            0.5 * torch.randn((n_targets, 2, G), generator=g, device=dev),
+            0.5 * torch.randn((n_targets, 2, G), generator=g, device=dev))
+    err = max(max_err(a, b) for a, b in
+              zip(L.lstm_layer_pertarget(*args), L.lstm_pertarget_plain(*args)))
+    print(f"lstm_layer_pertarget vs plain (T={T}, T#={n_targets}, D=2, G={G}): max|err| {err:.3g}; "
+          f"form {L.lstm_layer_pertarget.form}")
+    require(err <= 5e-3, f"lstm_layer_pertarget disagrees with plain at T#={n_targets}: {err}")
+    return args, err
+
+
+def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str) -> dict:
+    """Phase 17: the device mesh at UMX-L width on the one card, the grid's
+    devices repeated (``[cuda:0] * 4``): ``make_mesh()``; the sharded
+    segment demix at dp 4 (bit-equal to the unsharded batch) and dp 2 x tp
+    2 (and its combine audit), one tp 2 call with the per-target kernel;
+    the fleet over dp 2 (bit-equal to the fleet without a mesh); the
+    sharded train step over dp 2 x tp 2 against the unsharded step;
+    ``train_umx --mesh``; every kernel shape the phase gives held against
+    its plain version, K1, K4-K6 and K9 there timed."""
+    import dataclasses
+
+    import torch
+
+    from umx_tpu_torch.config import DSPConfig, ModelConfig
+    from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.engine.separator import Separator, segment_forward_batched
+    from umx_tpu_torch.models import umx
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.ops import lstm_cuda as L
+    from umx_tpu_torch.ops import wiener
+    from umx_tpu_torch.parallel.mesh import make_mesh
+    from umx_tpu_torch.parallel.sharding import (
+        audit_collectives, batched_lstm_state, demix_segments_batch,
+    )
+    from umx_tpu_torch.scripts import train_umx
+    from umx_tpu_torch.train import (
+        FROZEN, TrainConfig, init_train_state, make_batch_from_audio, make_eval_step,
+        make_sharded_train_step, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    fig: dict = {"card": smi}
+    mesh = make_mesh()
+    line = f"mesh: {dict(mesh.shape)} over {len(mesh.devices.flat)} device(s)"
+    print(f"mesh phase: make_mesh() -> {line}  [{smi}]")
+    require(dict(mesh.shape) == {"dp": 1, "tp": 1} and len(mesh.devices.flat) == 1,
+            f"make_mesh() on one card gave {line}")
+    card = mesh.devices[0, 0]
+    grid = [card] * 4
+    print(f"the grid's devices repeat ({card} x 4): every shard runs on the one card, so no "
+          f"copy between cards is made or timed")
+
+    sep = Separator.from_ggml(model, device=card)
+    cfg = sep.cfg
+    n = cfg.segment.segment_samples(SR)
+    batch = torch.from_numpy(np.stack([mix[:, int(o * SR) : int(o * SR) + n]
+                                       for o in MESH_OFFSETS])).to(card)
+    states = batched_lstm_state(cfg, len(MESH_OFFSETS), card)
+    with torch.inference_mode():
+        ref, ref_st = segment_forward_batched(sep.params, batch, states, cfg, n)
+
+    k1_shapes, k23_shapes, k9_shapes, train_shapes = set(), set(), set(), set()
+    spies = contextlib.ExitStack()
+    def k1_or_k4(x, hh, *a):
+        # the layer runs K4 (K5 + K6 backward) where a gradient is wanted, else K1
+        shape = (x.shape[1] * x.shape[3], x.shape[0], x.shape[2])
+        if torch.is_grad_enabled() and (x.requires_grad or hh.requires_grad):
+            train_shapes.add(shape)
+            return None
+        return shape
+
+    spies.enter_context(recording(umx, "lstm_layer_merged_batched", k1_or_k4, k1_shapes))
+    spies.enter_context(recording(wiener, "wiener_planes_from_masks",
+                                  lambda xre, xim, m, *a: (m.shape[0], *xre.shape[1:]), k23_shapes))
+    spies.enter_context(recording(umx, "lstm_layer_pertarget_batched",
+                                  lambda x, *a: (x.shape[1], x.shape[2], x.shape[-1] // 4),
+                                  k9_shapes))
+    with spies:
+        # dp 4: each dp row runs one segment; bit-equal to the batch
+        reset_counts(counters)
+        dp_mesh = make_mesh(4, 1, grid)
+        out, st = demix_segments_batch(sep.params, batch, states, cfg, dp_mesh)
+        dp_launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        dp_equal = bool(torch.equal(out, ref) and torch.equal(st.h, ref_st.h)
+                        and torch.equal(st.c, ref_st.c))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        demix_segments_batch(sep.params, batch, states, cfg, dp_mesh)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        audio_s = len(MESH_OFFSETS) * n / SR
+        print(f"sharded demix, dp 4 x 60 s segments (UMX-L): bit-equal to the unsharded batch: "
+              f"{dp_equal}; warm {dp_s:.3f} s = {audio_s / dp_s:.1f}x realtime; kernel runs "
+              f"{dp_launches}  [{smi}]")
+        require(dp_equal, "the dp-sharded demix is not bit-equal to the unsharded batch")
+        require(all(dp_launches.get(k, 0) > 0 for k in ("lstm_merged", "wiener_reduce",
+                                                        "wiener_apply")),
+                f"the dp-sharded demix did not launch K1-K3: {dp_launches}")
+        require(audit_collectives(sep.params, batch, states, cfg, dp_mesh) == [],
+                "the dp-sharded demix combines across devices")
+
+        # dp 2 x tp 2: each tp device runs two targets' mask network
+        reset_counts(counters)
+        tp_mesh = make_mesh(2, 2, grid)
+        out_tp, st_tp = demix_segments_batch(sep.params, batch, states, cfg, tp_mesh, tp=True)
+        tp_launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        tp_err = float((out_tp - ref).abs().max() / ref.abs().max())
+        tp_equal = bool(torch.equal(out_tp, ref) and torch.equal(st_tp.h, ref_st.h))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        demix_segments_batch(sep.params, batch, states, cfg, tp_mesh, tp=True)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+        audit = audit_collectives(sep.params, batch, states, cfg, tp_mesh, tp=True)
+        print(f"sharded demix, dp 2 x tp 2: max|err|/max|stem| {tp_err:.3g} against the unsharded "
+              f"batch, bit-equal: {tp_equal}; warm {tp_s:.3f} s = {audio_s / tp_s:.1f}x realtime; "
+              f"kernel runs {tp_launches}; combines {audit}  [{smi}]")
+        # each chain's and each target's arithmetic does not depend on what
+        # runs beside it (bit-equal at UMX-L on an H100, measured)
+        require(tp_equal, f"the tp-sharded demix is not bit-equal to the unsharded batch: "
+                f"{tp_err}")
+        require(audit and len(audit) <= 4 and all(a.startswith("all-gather") for a in audit),
+                f"the tp-sharded demix's combines: {audit}")
+
+        # one tp 2 call at lstm_impl="pallas": K9 at two targets
+        pcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, lstm_impl="pallas"))
+        reset_counts(counters)
+        one_state = batched_lstm_state(cfg, 1, card)
+        with torch.inference_mode():
+            pref, _ = segment_forward_batched(sep.params, batch[:1], one_state, pcfg, n)
+        k9_alone = counters["lstm_layer_pertarget"].launches
+        reset_counts(counters)
+        pout, _ = demix_segments_batch(sep.params, batch[:1], one_state, pcfg,
+                                       make_mesh(1, 2, grid), tp=True)
+        k9_launches = counters["lstm_layer_pertarget"].launches
+        k9_err = float((pout - pref).abs().max() / pref.abs().max())
+        print(f"sharded demix, dp 1 x tp 2, lstm_impl pallas: K9 runs {k9_launches} (unsharded "
+              f"{k9_alone}); max|err|/max|stem| {k9_err:.3g} against the unsharded call, "
+              f"bit-equal: {k9_err == 0.0}")
+        require(k9_launches == 2 * k9_alone and k9_err == 0.0,
+                f"the tp call with the per-target kernel: {k9_launches} runs, err {k9_err}")
+
+        # the fleet over dp 2: bit-equal to the fleet without a mesh
+        seeds = list(range(len(bucket)))
+        alone = demix_tracks(sep, bucket, seeds=seeds)
+        stats: dict = {}
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        together = demix_tracks(sep, bucket, seeds=seeds, stats=stats,
+                                mesh=make_mesh(2, 1, grid[:2]))
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+        fleet_launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        fleet_equal = all(np.array_equal(a, b) for a, b in zip(together, alone))
+        print(f"fleet over dp 2 ({len(bucket)} x {bucket[0].shape[1] / SR:.0f} s): bit-equal to "
+              f"the fleet without a mesh: {fleet_equal}; {fleet_s:.3f} s wall; stats "
+              f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()} }; "
+              f"kernel runs {fleet_launches}  [{smi}]")
+        require(fleet_equal, "the fleet over a mesh is not bit-equal to the fleet without one")
+        require(stats["rows"] % 2 == 0, f"the fleet did not pad its bucket to dp: {stats}")
+
+        # the sharded train step over dp 2 x tp 2 against the unsharded one
+        mcfg, tcfg = ModelConfig(hidden_size=1024), TrainConfig()
+        rng = np.random.default_rng(17)
+        tlen = DSPConfig().hop * (tcfg.seq_len - 1)
+        targets = (0.1 * rng.standard_normal((B_TRAIN, 4, 2, tlen))).astype(np.float32)
+        tbatch = make_batch_from_audio(targets.sum(axis=1), targets, mcfg, DSPConfig(),
+                                       tcfg.seq_len, card)
+        del targets
+        params0 = synthetic_params(mcfg, seed=0, device=card)
+        ref_state, ref_step = init_train_state(params0, tcfg), make_train_step(mcfg)
+        ref_losses = [float(ref_step(ref_state, tbatch)[1])]
+        trained = [f.name for f in dataclasses.fields(umx.UMXParams) if f.name not in FROZEN]
+        ref_grads = {k: getattr(ref_state.params, k).grad.clone() for k in trained}
+        ref_losses += [float(ref_step(ref_state, tbatch)[1]) for _ in range(MESH_TRAIN_STEPS - 1)]
+        step, shard_state, shard_batch = make_sharded_train_step(mcfg, tcfg, tp_mesh)
+        sstate, sbatch = shard_state(init_train_state(params0, tcfg)), shard_batch(tbatch)
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(step(sstate, sbatch)[1])]
+        grad_rel = max(
+            float((torch.cat([getattr(sl, k).grad for sl in sstate.slices]) - g).abs().max()
+                  / g.abs().max())
+            for k, g in ref_grads.items())
+        losses += [float(step(sstate, sbatch)[1]) for _ in range(MESH_TRAIN_STEPS - 1)]
+        torch.cuda.synchronize()
+        sharded_steps_s = MESH_TRAIN_STEPS / (time.perf_counter() - t0)
+        train_launches = {k: counters[k].launches for k in
+                          ("lstm_merged_train_fwd", "lstm_merged_bwd_step", "lstm_merged_dw")}
+        eval_step = make_eval_step(mcfg)
+        trained_ref = float(eval_step(ref_state.params, tbatch))
+        eval_rel = abs(float(eval_step(sstate.params, tbatch)) - trained_ref) / trained_ref
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        print(f"sharded train step, dp 2 x tp 2, UMX-L, batch {B_TRAIN} x {tcfg.seq_len} frames: "
+              f"losses {losses} against unsharded {ref_losses} (rel "
+              f"{[f'{x:.3g}' for x in loss_rel]}); first step's gradients within {grad_rel:.3g} "
+              f"of each field's max|g|; the trained parameters' loss on the batch within "
+              f"{eval_rel:.3g}; "
+              f"{sharded_steps_s:.3f} steps/s; kernel runs {train_launches}  [{smi}]")
+        require(loss_rel[0] <= MESH_FIRST_LOSS_RTOL and grad_rel <= MESH_GRAD_RTOL
+                and max(loss_rel) <= MESH_LATER_LOSS_RTOL and eval_rel <= MESH_TRAINED_RTOL,
+                f"the sharded train step disagrees with the unsharded one: losses {loss_rel}, "
+                f"gradients {grad_rel}, trained {eval_rel}")
+        require(all(v > 0 for v in train_launches.values()),
+                f"the sharded train step did not launch K4-K6: {train_launches}")
+        del ref_state, sstate, sbatch, tbatch, params0
+
+    # train_umx --mesh at its default width (UMX-HQ) on phase 14's stems
+    reset_counts(counters)
+    rc, text = _run_main(train_umx.main, [os.path.join(tmp, "musdb_eval"),
+                                          os.path.join(tmp, "umxhq_mesh.bin"), "--steps", "2",
+                                          "--mesh"])
+    require(rc == 0 and "mesh: {'dp': 1, 'tp': 1}" in text and "final loss" in text,
+            f"train_umx --mesh: rc {rc}\n{text}")
+    require(counters["lstm_merged_train_fwd"].launches > 0, "train_umx --mesh did not launch K4")
+
+    # every kernel shape the phase gave, against its plain version
+    print(f"mesh phase shapes: K1 (chains, rows per chain, frames) {sorted(k1_shapes)}; K2/K3 "
+          f"(sources, frames, bins) {sorted(k23_shapes)}; K4-K6 (chains, rows per chain, steps) "
+          f"{sorted(train_shapes)}; K9 (targets, frames, G) {sorted(k9_shapes)}")
+    # phase 3 holds K2 and K3 at this shape
+    require(k23_shapes == {(N_SRC, T_SEG, F_BINS)}, f"K2/K3 ran at other shapes: {k23_shapes}")
+    # (phases 2, 5, 10 and 11 hold the UMX-L shapes of one card's paths)
+    k1_shapes -= {(R_CHAINS, 1, T_SEG), (R_CHAINS, 3, T_SEG), (R_CHAINS, B_TRAIN, T_TRAIN)}
+    train_shapes -= {(R_CHAINS, B_TRAIN, T_TRAIN)}
+    k9_shapes -= {(N_SRC, T_SEG, G_HIDDEN)}
+    errs, timed = {}, {}
+    for R, B, T in sorted(k1_shapes):
+        args, errs[f"K1 R{R} B{B} T{T}"] = check_lstm(dev, T, B, seed=200 + R + B, R=R)
+        timed[f"lstm_merged R{R} B{B} T{T}"] = (
+            cuda_ms(lambda: L.lstm_merged(*args), 5),
+            cuda_ms(lambda: L.lstm_merged_plain(*args), 2),
+            lstm_bound(T, R * B, G_HIDDEN, args[:4])[0])
+    for R, B, T in sorted(train_shapes):
+        (fa, ba, da), e = check_train_kernels_at(dev, R, B, T, seed=300 + R + B)
+        errs[f"K4-K6 R{R} B{B} T{T}"] = max(e)
+        rows = R * B
+        ops = 2.0 * T * rows * G_HIDDEN * 4 * G_HIDDEN
+        step_bytes = T * rows * G_HIDDEN * 4
+        timed[f"lstm_merged_train_fwd R{R} B{B} T{T}"] = (
+            cuda_ms(lambda: L.lstm_merged_train_fwd(*fa), 5),
+            cuda_ms(lambda: L.lstm_merged_train_fwd_plain(*fa), 2),
+            lstm_bound(T, rows, G_HIDDEN, fa[:4], extra_out=5 * step_bytes)[0])
+        timed[f"lstm_merged_bwd_step R{R} B{B} T{T}"] = (
+            cuda_ms(lambda: L.lstm_merged_bwd_step(*ba), 5),
+            cuda_ms(lambda: L.lstm_merged_bwd_step_plain(*ba), 2),
+            bound_ms(nbytes(*ba[:7]) + 4 * step_bytes + 2 * rows * G_HIDDEN * 4, ops, "bf16")[0])
+        timed[f"lstm_merged_dw R{R} B{B} T{T}"] = (
+            cuda_ms(lambda: L.lstm_merged_dw(*da), 5),
+            cuda_ms(lambda: L.lstm_merged_dw_plain(*da), 2),
+            bound_ms(nbytes(*da[:3]) + R * G_HIDDEN * 4 * G_HIDDEN * 4, ops, "bf16")[0])
+    for n_t, T, G in sorted(k9_shapes):
+        args, errs[f"K9 T#{n_t} T{T} G{G}"] = check_pertarget_at(dev, n_t, T, G, seed=400 + n_t)
+        timed[f"lstm_layer_pertarget T#{n_t} T{T} G{G}"] = (
+            cuda_ms(lambda: L.lstm_layer_pertarget(*args), 5),
+            cuda_ms(lambda: L.lstm_pertarget_plain(*args), 2),
+            lstm_bound(T, n_t * 2, G, args)[0])
+    for name, (k, p, b) in timed.items():
+        print(f"{name}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms  [{smi}]")
+    require(train_shapes and k9_shapes and k1_shapes, "the phase recorded no kernel shape")
+    fig.update(
+        dp_bit_equal=dp_equal, dp_demix_s=dp_s, dp_xrt=audio_s / dp_s, dp_launches=dp_launches,
+        tp_rel_err=tp_err, tp_bit_equal=tp_equal, tp_demix_s=tp_s, tp_xrt=audio_s / tp_s,
+        tp_launches=tp_launches, tp_combines=audit, k9_tp_rel_err=k9_err,
+        k9_tp_launches=k9_launches, fleet_bit_equal=fleet_equal, fleet_s=fleet_s,
+        fleet_launches=fleet_launches,
+        fleet_stats=stats, train_losses=losses, train_unsharded_losses=ref_losses,
+        train_grad_rel_err=grad_rel, train_eval_rel_err=eval_rel,
+        sharded_steps_per_s=sharded_steps_s,
+        train_launches=train_launches, k1_shapes=sorted(k1_shapes),
+        train_shapes=sorted(train_shapes), k9_shapes=sorted(k9_shapes), kernel_errs=errs,
+        kernel_ms={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2]} for k, v in timed.items()})
+    fig["wall_s"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {fig['wall_s']:.1f} s wall  [{smi}]")
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -2478,6 +2850,7 @@ def main() -> int:
         path_lstm_args[k1_half] = k1_half_args
         lstm_err = max(lstm_err, err)
         certification = certification_phase(tmp, model, mix, counters, smi)
+        mesh = mesh_phase(dev, tmp, model, mix, list(tracks.values())[:3], counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -2756,7 +3129,7 @@ def main() -> int:
                       "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
                       "serving": serving, "evaluation": evaluation, "parity": parity,
-                      "certification": certification}))
+                      "certification": certification, "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -258,6 +258,19 @@ def test_cli_batch_writes_every_tracks_stems(fixtures, catalogue, extra):
             assert np.corrcoef(stems.sum(axis=0).ravel(), audio.ravel())[0, 1] >= 0.99
 
 
+def test_cli_batch_logs_its_mesh(fixtures, catalogue, capsys):
+    # the JAX batch CLI's line, over the one device --device names
+    from umx_tpu_torch import cli_batch
+
+    d, model, _, _, _ = fixtures
+    root, tracks = catalogue
+    argv = [model, root, str(d / "batch_mesh"), "--segment-secs", "1.0", "--device", "cpu"]
+    assert cli_batch.main(argv) == 0
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("mesh:")]
+    assert lines == ["mesh: {'dp': 1, 'tp': 1} over 1 device(s)"]
+    assert sorted(os.listdir(d / "batch_mesh")) == sorted(tracks)
+
+
 def test_cli_batch_errors(fixtures, tmp_path):
     from umx_tpu_torch import cli_batch
 

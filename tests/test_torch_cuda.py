@@ -1073,3 +1073,180 @@ def test_serve_bench_defaults_one_client_on_the_card(dev, capsys):
     assert d["clients"] == d["requests"] == 1 and d["track_secs"] == 30.0
     assert d["batching"]["max_batch"] == 4 and d["device_xrt"] > 0
     assert d["device_name"] not in ("", "cuda")  # nvidia-smi's name and power limit
+
+
+def _mesh_batch(cfg, n_rows, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = cfg.segment.segment_samples(44100)
+    t = np.arange(n) / 44100
+    return torch.from_numpy(np.stack([
+        np.stack([0.4 * np.sin(2 * np.pi * (220 + 40 * k) * t), 0.3 * np.sin(2 * np.pi * 330 * t)])
+        + 0.05 * rng.standard_normal((2, n)) for k in range(n_rows)]).astype(np.float32))
+
+
+def test_sharded_demix_on_one_card_repeated(dev):
+    """dp 4 and dp 2 x tp 2 over [cuda:0] * 4, bit-equal to the unsharded
+    batch."""
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import segment_forward_batched
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.parallel.mesh import make_mesh
+    from umx_tpu_torch.parallel.sharding import batched_lstm_state, demix_segments_batch
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=512), segment=SegmentConfig(segment_secs=4.0))
+    params = synthetic_params(cfg.model, seed=3, device=dev)
+    batch = _mesh_batch(cfg, 4, 5).to(dev)
+    states = batched_lstm_state(cfg, 4, dev)
+    n = batch.shape[-1]
+    with torch.inference_mode():
+        ref, ref_st = segment_forward_batched(params, batch, states, cfg, n)
+    card = [torch.device("cuda", torch.cuda.current_device())] * 4
+    before = lstm_cuda.lstm_merged.launches
+    out, st = demix_segments_batch(params, batch, states, cfg, make_mesh(4, 1, card))
+    assert lstm_cuda.lstm_merged.launches == before + 4 * cfg.model.n_lstm_layers
+    assert torch.equal(out, ref) and torch.equal(st.h, ref_st.h) and torch.equal(st.c, ref_st.c)
+    # a chain's and a target's arithmetic does not depend on what runs
+    # beside it, so the target split is bit-equal too
+    out, st = demix_segments_batch(params, batch, states, cfg, make_mesh(2, 2, card), tp=True)
+    assert torch.equal(out, ref) and torch.equal(st.h, ref_st.h) and torch.equal(st.c, ref_st.c)
+
+
+def test_sharded_train_step_on_one_card_repeated(dev):
+    """dp 2 x tp 2 over [cuda:0] * 4 against the unsharded step: K4-K6 at
+    R = 4 chains, B = batch / dp rows.  The first loss within 1e-5 and the
+    first gradients within 1e-4 of each field's max|g| (f32 sums in another
+    order); AdamW moves an element whose gradient is at the rounding level
+    by up to the learning rate either way, so the losses of steps 2-3
+    within 1e-4 and the loss after the third update within 1e-2 (3.3e-5
+    measured on an H100)."""
+    import dataclasses
+
+    import numpy as np
+
+    from umx_tpu_torch.config import DSPConfig, ModelConfig
+    from umx_tpu_torch.models.umx import UMXParams, synthetic_params
+    from umx_tpu_torch.parallel.mesh import make_mesh
+    from umx_tpu_torch.train import (
+        FROZEN, TrainConfig, init_train_state, make_batch_from_audio, make_eval_step,
+        make_sharded_train_step, make_train_step,
+    )
+
+    mcfg, tcfg = ModelConfig(hidden_size=512), TrainConfig(seq_len=64)
+    rng = np.random.default_rng(6)
+    n = DSPConfig().hop * (tcfg.seq_len - 1)
+    targets = (0.1 * rng.standard_normal((8, 4, 2, n))).astype(np.float32)
+    batch = make_batch_from_audio(targets.sum(axis=1), targets, mcfg, DSPConfig(), tcfg.seq_len,
+                                  dev)
+    params = synthetic_params(mcfg, seed=2, device=dev)
+    ref, ref_step = init_train_state(params, tcfg), make_train_step(mcfg)
+    ref_losses = [float(ref_step(ref, batch)[1])]
+    names = [f.name for f in dataclasses.fields(UMXParams) if f.name not in FROZEN]
+    ref_grads = {n: getattr(ref.params, n).grad.clone() for n in names}
+    ref_losses += [float(ref_step(ref, batch)[1]) for _ in range(2)]
+    card = [torch.device("cuda", torch.cuda.current_device())] * 4
+    step, shard_state, shard_batch = make_sharded_train_step(mcfg, tcfg, make_mesh(2, 2, card))
+    state, sb = shard_state(init_train_state(params, tcfg)), shard_batch(batch)
+    before = (lstm_cuda.lstm_merged_train_fwd.launches, lstm_cuda.lstm_merged_bwd_step.launches)
+    losses = [float(step(state, sb)[1])]
+    grads = {n: torch.cat([getattr(s, n).grad for s in state.slices]) for n in names}
+    losses += [float(step(state, sb)[1]) for _ in range(2)]
+    # 3 steps x 3 layers x 4 grid devices
+    assert lstm_cuda.lstm_merged_train_fwd.launches == before[0] + 36
+    assert lstm_cuda.lstm_merged_bwd_step.launches == before[1] + 36
+    eval_step = make_eval_step(mcfg)
+    trained = (float(eval_step(state.params, batch)), float(eval_step(ref.params, batch)))
+    grad_err = max(_rel(grads[n], g) for n, g in ref_grads.items())
+    print(f"sharded step against the unsharded one: losses {losses} / {ref_losses}, first "
+          f"gradients {grad_err:.3g} of max|g|, trained loss {trained}")
+    np.testing.assert_allclose(losses[0], ref_losses[0], rtol=1e-5)
+    assert grad_err <= 1e-4
+    np.testing.assert_allclose(losses[1:], ref_losses[1:], rtol=1e-4)
+    np.testing.assert_allclose(trained[0], trained[1], rtol=1e-2)
+
+
+def _peer_copies(fn) -> int:
+    """Device-to-device copies between cards in ``fn()`` (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any("lstm_resident_kernel" in n for n in names), "the profiler saw no kernel"
+    return sum("PtoP" in n for n in names)
+
+
+def test_mesh_over_two_cards(dev):
+    """dp 2 over cuda:0 and cuda:1: the forward (inputs placed, result not
+    yet gathered) makes no copy between cards, and equals one card's run;
+    dp 1 x tp 2 makes at most 4."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.parallel import sharding
+    from umx_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=512), segment=SegmentConfig(segment_secs=4.0))
+    params = synthetic_params(cfg.model, seed=3)
+    batch = _mesh_batch(cfg, 2, 7)
+    states = sharding.batched_lstm_state(cfg, 2)
+    one, _ = sharding.demix_segments_batch(params, batch, states, cfg,
+                                           make_mesh(2, 1, [torch.device("cuda", 0)] * 2))
+    two = make_mesh(2, 1, [torch.device("cuda", 0), torch.device("cuda", 1)])
+    out, _ = sharding.demix_segments_batch(params, batch, states, cfg, two)
+    assert torch.equal(out, one)
+    with torch.inference_mode():
+        placed = sharding._place(params, batch, states, two, False)
+        torch.cuda.synchronize()
+        assert _peer_copies(lambda: sharding._forward(placed, cfg, two)) == 0
+        tp = make_mesh(1, 2, [torch.device("cuda", 0), torch.device("cuda", 1)])
+        placed = sharding._place(params, batch[:1], sharding.batched_lstm_state(cfg, 1), tp, True)
+        torch.cuda.synchronize()
+        n = _peer_copies(lambda: sharding._forward(placed, cfg, tp))
+    print(f"dp 1 x tp 2 over two cards: {n} copies between cards in the forward")
+    assert n <= 4
+
+
+def test_fleet_and_train_step_over_two_cards(dev):
+    """The fleet over dp 2 on cuda:0 and cuda:1 equals one card's; the
+    sharded train step over dp 2 x tp 1 on two cards against the same grid
+    on one card (the same arithmetic on each device; the leaves' gradient
+    sums may take another order)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import numpy as np
+
+    from umx_tpu_torch.config import DSPConfig, EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.parallel.mesh import make_mesh
+    from umx_tpu_torch.train import (
+        TrainConfig, init_train_state, make_batch_from_audio, make_sharded_train_step,
+    )
+
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    cfg = EngineConfig(model=ModelConfig(hidden_size=512), segment=SegmentConfig(segment_secs=4.0))
+    params = synthetic_params(cfg.model, seed=3, device=two[0])
+    tracks = [t.numpy() for t in _mesh_batch(cfg, 3, 8)]
+    one = demix_tracks(params, tracks, cfg, mesh=make_mesh(2, 1, [two[0]] * 2))
+    both = demix_tracks(params, tracks, cfg, mesh=make_mesh(2, 1, two))
+    assert all(np.array_equal(a, b) for a, b in zip(one, both))
+
+    mcfg, tcfg = cfg.model, TrainConfig(seq_len=64)
+    rng = np.random.default_rng(9)
+    n = DSPConfig().hop * (tcfg.seq_len - 1)
+    targets = (0.1 * rng.standard_normal((4, 4, 2, n))).astype(np.float32)
+    batch = make_batch_from_audio(targets.sum(axis=1), targets, mcfg, DSPConfig(), tcfg.seq_len,
+                                  two[0])
+    losses = {}
+    for name, devices in (("one", [two[0]] * 2), ("two", two)):
+        step, shard_state, shard_batch = make_sharded_train_step(
+            mcfg, tcfg, make_mesh(2, 1, devices), tp=False)
+        state, sb = shard_state(init_train_state(params, tcfg)), shard_batch(batch)
+        losses[name] = [float(step(state, sb)[1]) for _ in range(3)]
+    print(f"sharded train step over one card and over two: {losses}")
+    assert losses["one"][0] == losses["two"][0]
+    np.testing.assert_allclose(losses["two"], losses["one"], rtol=1e-3)

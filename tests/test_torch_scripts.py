@@ -1,7 +1,6 @@
 """The port's script modules (``umx_tpu_torch.scripts``) against the
 repository's scripts that drive the JAX package (``scripts/*.py``, loaded
-with importlib): the same flags (but ``--mesh``, not ported, and
-``--device``), the same evaluation results on the same directories, a
+with importlib): the same flags (plus ``--device``), the same evaluation results on the same directories, a
 trained model both packages read, and no GPU taken for granted."""
 
 from __future__ import annotations
@@ -86,7 +85,7 @@ def musdb(tmp_path_factory):
 def test_flags_equal_the_jax_scripts(script, monkeypatch):
     ours = _flags(PORTED[script].build_parser())
     theirs = _flags(_jax_parser(_jax_script(script), monkeypatch))
-    assert ours - {"--device"} == theirs - {"--mesh"}
+    assert ours - {"--device"} == theirs
     assert "--device" in ours
 
 

@@ -6,10 +6,11 @@
 a ``mixture.wav``; each track's stems go to
 ``<out_root>/<track name>/target_{0..3}.wav``.  The tracks are bucketed by
 length and batched as far as the device's memory allows
-(``engine/fleet.py::demix_tracks``); a track too long for one program
-runs windowed.  ``--device`` picks the device (default ``cuda``); asking
-for CUDA on a machine without a usable GPU raises rather than running on
-the CPU.
+(``engine/fleet.py::demix_tracks``), data-parallel over a mesh of every
+card (``parallel/mesh.py::make_mesh``); a track too long for one program
+runs windowed.  ``--device`` picks the device (default ``cuda``, every
+card; another name, that device alone); asking for CUDA on a machine
+without a usable GPU raises rather than running on the CPU.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ def main(argv=None) -> int:
     from umx_tpu_torch.engine.fleet import demix_tracks
     from umx_tpu_torch.engine.separator import Separator, resolve_device
     from umx_tpu_torch.io.audio import load_audio, write_audio
+    from umx_tpu_torch.parallel.mesh import make_mesh
 
     device = resolve_device(args.device)
     sep = Separator.from_ggml(args.model_file, engine_config_from_args(args), device,
@@ -79,9 +81,12 @@ def main(argv=None) -> int:
     tracks = [load_audio(path, cfg.dsp.sample_rate) for _, path in entries]
     total_secs = sum(t.shape[1] for t in tracks) / cfg.dsp.sample_rate
 
+    mesh = make_mesh() if args.device == "cuda" else make_mesh(devices=[device])
+    log(f"mesh: {dict(mesh.shape)} over {len(mesh.devices.flat)} device(s)")
+
     stats: dict = {}
     t0 = time.perf_counter()
-    outs = demix_tracks(sep, tracks, stats=stats)
+    outs = demix_tracks(sep, tracks, stats=stats, mesh=mesh)
     wall = time.perf_counter() - t0
     log(f"demixed {total_secs:.0f}s of audio in {wall:.1f}s "
         f"({total_secs / wall:.0f}x realtime aggregate) on {device}; "

@@ -188,15 +188,23 @@ def train_loop(
     valid_dataset: StemDataset | None = None,
     valid_every: int = 50,
     valid_batches: int = 4,
+    mesh=None,
 ):
     """Dataset → batches → train steps on one ``device``: the GPU unless
-    another is named (``"cpu"`` runs the kernels' plain versions).
+    another is named (``"cpu"`` runs the kernels' plain versions).  With
+    a ``mesh`` (``parallel/mesh.py``) the steps are
+    :func:`~umx_tpu_torch.train.make_sharded_train_step`'s over it (tp
+    when the mesh has a tp axis above 1), the batches are made on its
+    first device, and the returned state is a ``ShardedTrainState``
+    (``state.params`` the whole parameters).
 
     With a ``valid_dataset`` this runs the upstream open-unmix recipe:
-    every ``valid_every`` steps the deterministic validation loss drives
+    every ``valid_every`` steps the deterministic validation loss (of the
+    whole parameters, with a mesh gathered from its slices) drives
     ReduceLROnPlateau (the optimizer's LR lowered in place) and
     EarlyStopping, and ``checkpoint_dir`` keeps the best-validation state
-    as ``best.pt``.  Returns (state, history)."""
+    as ``best.pt`` (with a mesh, the gathered state of
+    ``unshard_state``).  Returns (state, history)."""
     import torch
 
     from umx_tpu_torch.config import DSPConfig
@@ -209,20 +217,33 @@ def train_loop(
         init_train_state,
         make_batch_from_audio,
         make_eval_step,
+        make_sharded_train_step,
         make_train_step,
         save_checkpoint,
         set_lr,
+        unshard_state,
     )
     from umx_tpu_torch.utils import logging as log
 
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.devices[0, 0]
     if params is None:
         params = synthetic_params(model_cfg, seed=0)
     state = init_train_state(
         UMXParams(**{f.name: getattr(params, f.name).to(device) for f in fields(UMXParams)}),
         train_cfg,
     )
-    step = make_train_step(model_cfg)
+    if mesh is not None:
+        sharded_step, shard_state, shard_batch = make_sharded_train_step(
+            model_cfg, train_cfg, mesh, tp=mesh.shape["tp"] > 1)
+        state = shard_state(state)
+
+        def step(st, b):
+            return sharded_step(st, shard_batch(b))
+
+        def save(path, st):
+            save_checkpoint(path, unshard_state(st))
+    else:
+        step, save = make_train_step(model_cfg), save_checkpoint
     dsp = DSPConfig(sample_rate=dataset.sample_rate)
     eval_step = make_eval_step(model_cfg) if valid_dataset is not None else None
     sched = PlateauScheduler(
@@ -250,7 +271,7 @@ def train_loop(
         if log_every and (i + 1) % log_every == 0:
             log.info(f"step {i + 1}/{steps} loss {np.mean(history[-log_every:]):.5f}")
         if checkpoint_dir and (i + 1) % max(1, steps // 5) == 0:
-            save_checkpoint(os.path.join(checkpoint_dir, f"step_{i + 1}.pt"), state)
+            save(os.path.join(checkpoint_dir, f"step_{i + 1}.pt"), state)
 
         if eval_step is not None and (i + 1) % valid_every == 0:
             vloss = validate()
@@ -259,7 +280,7 @@ def train_loop(
                 history.best_valid = vloss
                 history.best_step = i + 1
                 if checkpoint_dir:
-                    save_checkpoint(os.path.join(checkpoint_dir, "best.pt"), state)
+                    save(os.path.join(checkpoint_dir, "best.pt"), state)
             new_lr = sched.update(vloss)
             if new_lr != get_lr(state.optimizer):
                 log.info(f"step {i + 1}: plateau — lr -> {new_lr:.2e}")
@@ -269,6 +290,7 @@ def train_loop(
                 log.info(f"step {i + 1}: early stop (best {stopper.best:.5f})")
                 history.stopped_early = True
                 break
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for dev in ([device] if mesh is None else mesh.distinct_devices()):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return state, history

@@ -1,5 +1,6 @@
 """The fleet runner: many tracks of mixed lengths through batched
-whole-track programs on one device (``umx_tpu.engine.fleet``).
+whole-track programs, on one device or data-parallel over a mesh's dp
+devices (``umx_tpu.engine.fleet``).
 
 :func:`demix_tracks` buckets the tracks by chunk count, so that each
 bucket is one shape, caps every dispatch with the memory planner and
@@ -8,7 +9,8 @@ path.  A bucket runs B stacked tracks through one program: streaming
 configs run the chunk loop over all B tracks at once, each track's LSTM
 state carried in its own batch row (the recurrence kernel runs B rows per
 chain); non-streaming configs run the chunk groups with B × width segment
-rows per group.
+rows per group.  With a mesh, a bucket's tracks are split over the dp
+devices, each of which runs the same program on its rows.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from umx_tpu_torch.engine.memory import (
 )
 from umx_tpu_torch.engine.separator import Separator, demix_fused, demix_fused_parallel, to_host
 from umx_tpu_torch.models.umx import init_lstm_state
+from umx_tpu_torch.parallel.sharding import device_guard, params_on
 
 
 def resolve_batched_width(cfg: EngineConfig, n_chunks: int, seg: int, stride: int,
@@ -66,10 +69,19 @@ def _add(stats: dict | None, **kw) -> None:
             stats[k] = stats.get(k, 0) + v
 
 
+def _rows_per_device(per_dev: int, dp_devices: list) -> int:
+    """Track rows a dp device takes in one dispatch: the planner's
+    ``per_dev`` rows over the dp rows that share its card, so that no card
+    holds more than ``per_dev`` rows (at least one row each)."""
+    share = max(dp_devices.count(d) for d in dp_devices)
+    return max(1, per_dev // share)
+
+
 @torch.inference_mode()
 def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | None = None,
-                 seeds: list[int] | None = None, stats: dict | None = None) -> list[np.ndarray]:
-    """Demix many tracks on one device.
+                 seeds: list[int] | None = None, stats: dict | None = None,
+                 mesh=None) -> list[np.ndarray]:
+    """Demix many tracks on one device, or data-parallel over a mesh.
 
     ``sep_or_params``: a :class:`Separator` (its parameters and device;
     ``cfg`` defaults to its config) or parameters already on their device.
@@ -78,12 +90,22 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
     ``Separator.demix_track(track, seed)`` gives each track (``seeds``
     default to 0 as there).
 
+    mesh: a :class:`~umx_tpu_torch.parallel.mesh.Mesh`; its dp devices
+    share each bucket.  The parameters are placed once on each distinct dp
+    device; a dispatch takes the planner's rows per card
+    (``suggest_max_fleet_batch``, divided among the dp rows that share a
+    card) times dp, padded to a multiple of dp with silent tracks, and
+    each dp device runs the program on its share.  Tracks beyond the
+    single-program window keep the windowed path on the parameters' own
+    device.  ``None``: everything on the parameters' device.
+
     stats: an optional dict that accumulates the phase times of every
     dispatch, each closed by a device synchronisation: ``upload_s``
     (host → device), ``compute_s`` (the program), ``download_s`` (stems →
-    host), and ``dispatches``, ``rows`` (track rows dispatched) and
-    ``windowed_tracks`` (tracks beyond the single-program window, demixed
-    one by one through the windowed path)."""
+    host), and ``dispatches``, ``rows`` (track rows dispatched, silent
+    padding rows included) and ``windowed_tracks`` (tracks beyond the
+    single-program window, demixed one by one through the windowed
+    path)."""
     if isinstance(sep_or_params, Separator):
         params, device = sep_or_params.params, sep_or_params.device
         cfg = sep_or_params.cfg if cfg is None else cfg
@@ -91,6 +113,11 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
         params = sep_or_params
         device = params.input_mean.device
         cfg = EngineConfig() if cfg is None else cfg
+    dp_devices = [device] if mesh is None else list(mesh.devices[:, 0])
+    dp = len(dp_devices)
+    # the parameters placed once per distinct device, outside the pass and
+    # bucket loops (a UMX-L tree is about 450 MB)
+    placed = {dev: params_on(params, dev) for dev in dict.fromkeys(dp_devices)}
     sr = cfg.dsp.sample_rate
     seg = cfg.segment.segment_samples(sr)
     stride = cfg.segment.stride_samples(sr)
@@ -99,8 +126,10 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
         seeds = [0] * len(tracks)
 
     def sync():
-        if stats is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if stats is not None:
+            for dev in placed:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         return time.perf_counter()
 
     # per-track offsets drawn as Separator.demix_track draws them
@@ -151,20 +180,31 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
         for n_chunks, items in sorted(buckets.items()):
             # sub-batches of at most the planner's batch for this length
             track_secs = ((n_chunks - 1) * stride + seg) / sr
-            cap = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params, device=device))
+            per_dev = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params,
+                                                     device=device))
+            cap = _rows_per_device(per_dev, dp_devices) * dp
             for s0 in range(0, len(items), cap):
                 sub = items[s0 : s0 + cap]
-                fn = _batched_demix(cfg, n_chunks, seg, stride, batch=len(sub), device=device)
+                batch = [it[3] for it in sub]
+                while len(batch) % dp:  # silent tracks up to a multiple of dp
+                    batch.append(np.zeros_like(batch[0]))
+                share = len(batch) // dp
                 t0 = sync()
-                audio_b = torch.from_numpy(np.stack([it[3] for it in sub])).to(device)
-                states = init_lstm_state(cfg.model, device, batch=len(sub))
+                inputs = []
+                for k, dev in enumerate(dp_devices):
+                    audio_b = torch.from_numpy(np.stack(batch[k * share : (k + 1) * share]))
+                    inputs.append((audio_b.to(dev), init_lstm_state(cfg.model, dev, batch=share)))
                 t1 = sync()
-                out_b, _ = fn(params, audio_b, states)
+                outs = []
+                for dev, (audio_b, states) in zip(dp_devices, inputs):
+                    fn = _batched_demix(cfg, n_chunks, seg, stride, batch=share, device=dev)
+                    with device_guard(dev):
+                        outs.append(fn(placed[dev], audio_b, states)[0])
                 t2 = sync()
-                out_b = to_host(out_b)
+                out_b = to_host(outs[0]) if dp == 1 else np.concatenate([to_host(o) for o in outs])
                 t3 = sync()
                 _add(stats, upload_s=t1 - t0, compute_s=t2 - t1, download_s=t3 - t2,
-                     dispatches=1, rows=len(sub))
+                     dispatches=1, rows=len(batch))
                 for (idx, offset, length, _), out in zip(sub, out_b):
                     contrib = out[..., offset : offset + length] / n_passes
                     results[idx] = contrib if results[idx] is None else results[idx] + contrib

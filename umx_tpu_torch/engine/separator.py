@@ -76,6 +76,19 @@ def apply_masks(masks, mag, n_bins: int):
     return masks_to_planes(masks, n_bins) * mag.unsqueeze(-4)
 
 
+def segment_masks(params: UMXParams, audio, state: LSTMState, cfg: EngineConfig):
+    """The first half of :func:`segment_forward_batched`: audio (N, 2, n)
+    and state h/c (N, T#, L, D, G) → (STFT planes re, im (N, 2, T, F),
+    masks (N, T#, T, 2F), new state).  T# is the parameters' own target
+    count, so a slice of the targets gives its slice of the masks."""
+    mcfg = cfg.model
+    re, im = stft_planes(audio, cfg.dsp)  # (N, 2, T, F)
+    mag = torch.sqrt(re * re + im * im)
+    x1 = umx_pre(params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)  # (N, T#, T, H)
+    lstm_out, new_state = umx_recurrence_batched(params, x1, state, mcfg)
+    return re, im, umx_post(params, x1, lstm_out, mcfg), new_state
+
+
 def segment_forward_batched(
     params: UMXParams, audio, state: LSTMState, cfg: EngineConfig, n_samples: int
 ):
@@ -85,12 +98,14 @@ def segment_forward_batched(
     The STFT, the network and the iSTFT run on the whole batch (the
     recurrence kernel takes the N rows per chain); the Wiener passes run
     row by row, because their max|x| scaling is per segment."""
+    re, im, masks, new_state = segment_masks(params, audio, state, cfg)
+    return segment_finish(re, im, masks, cfg, n_samples), new_state
+
+
+def segment_finish(re, im, masks, cfg: EngineConfig, n_samples: int):
+    """The second half of :func:`segment_forward_batched`: the STFT planes
+    and all targets' masks → waveforms (N, T#, 2, n_samples)."""
     mcfg = cfg.model
-    re, im = stft_planes(audio, cfg.dsp)  # (N, 2, T, F)
-    mag = torch.sqrt(re * re + im * im)
-    x1 = umx_pre(params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)  # (N, T#, T, H)
-    lstm_out, new_state = umx_recurrence_batched(params, x1, state, mcfg)
-    masks = umx_post(params, x1, lstm_out, mcfg)  # (N, T#, T, 2F)
     if cfg.use_wiener:
         n, n_t, T = masks.shape[:3]
         tre = torch.empty((n, n_t, 2, T, mcfg.n_bins), dtype=torch.float32, device=re.device)
@@ -102,7 +117,7 @@ def segment_forward_batched(
         m = masks_to_planes(masks, mcfg.n_bins)
         tre = m * re.unsqueeze(1)
         tim = m * im.unsqueeze(1)
-    return istft_planes(tre, tim, n_samples, cfg.dsp), new_state
+    return istft_planes(tre, tim, n_samples, cfg.dsp)
 
 
 def segment_forward(

@@ -4,9 +4,9 @@
 A track's forward pass needs no collective at all, so the only problem
 past one process is *input distribution*: hand each process its own
 slice of the track list and let every process run the ordinary fleet
-(``engine/fleet.py::demix_tracks``) on its one device.  The process
-group carries nothing but the final metric gather; audio never crosses
-processes.
+(``engine/fleet.py::demix_tracks``) on its devices: one card, or a mesh
+of the cards it sees (``parallel/mesh.py``).  The process group carries
+nothing but the final metric gather; audio never crosses processes.
 
     process 0: tracks 0, P, 2P, ...
     process 1: tracks 1, P+1, ...      (P = process count)
@@ -110,16 +110,26 @@ def demix_tracks_multihost(
     seeds: list[int] | None = None,
     process_id: int | None = None,
     process_count: int | None = None,
+    mesh=None,
 ) -> MultihostFleetResult:
-    """Fleet demix of this process's share of a track list, on one device.
+    """Fleet demix of this process's share of a track list.
 
     ``tracks`` is the GLOBAL list, the same in every process; an entry may
     be a (2, n) array or a callable that loads it, called only for the
-    tracks this process owns.  ``sep_or_params`` and ``cfg`` are those of
-    :func:`umx_tpu_torch.engine.fleet.demix_tracks` (a ``Separator``, or
-    parameters already on their device), which demixes the owned tracks;
-    nothing is transferred between processes."""
+    tracks this process owns.  ``sep_or_params``, ``cfg`` and ``mesh`` are
+    those of :func:`umx_tpu_torch.engine.fleet.demix_tracks` (a
+    ``Separator``, or parameters already on their device), which demixes
+    the owned tracks; nothing is transferred between processes.
+
+    ``mesh`` defaults to a dp mesh over the cards this process sees when
+    the parameters are on a card and it sees more than one.  A launcher
+    that runs one process per card gives each process one visible card
+    (``CUDA_VISIBLE_DEVICES``), so there the default stays one device."""
+    import torch
+
     from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.parallel.mesh import make_mesh
 
     pid = _rank() if process_id is None else process_id
     num = _world_size() if process_count is None else process_count
@@ -131,8 +141,12 @@ def demix_tracks_multihost(
         t = t() if callable(t) else t  # lazy loader support
         local_tracks.append(np.asarray(t, np.float32))
 
+    params = sep_or_params.params if isinstance(sep_or_params, Separator) else sep_or_params
+    if mesh is None and params.input_mean.is_cuda and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+
     local_seeds = [seeds[i] for i in owned] if seeds is not None else None
-    outs = demix_tracks(sep_or_params, local_tracks, cfg, seeds=local_seeds)
+    outs = demix_tracks(sep_or_params, local_tracks, cfg, seeds=local_seeds, mesh=mesh)
     return MultihostFleetResult(
         local=dict(zip(owned, outs)), process_id=pid, process_count=num
     )

@@ -15,9 +15,9 @@ Each track directory must contain mixture.wav + bass/drums/other/
 vocals.wav (the MUSDB18-HQ layout).  Several processes (one per card) may
 share a set: inside a ``torch.distributed`` process group the tracks
 partition round-robin and the medians are gathered over the group
-(``parallel/multihost.py``).  The JAX script's multi-device mesh inside
-one process is not ported yet.  Each printed row is the JAX script's
-plus ``bss_s``, the seconds its scoring took.
+(``parallel/multihost.py``).  A process that sees more than one card
+demixes over a dp mesh of them (``parallel/mesh.py``).  Each printed row
+is the JAX script's plus ``bss_s``, the seconds its scoring took.
 """
 
 from __future__ import annotations
@@ -55,11 +55,14 @@ def main(argv=None) -> int:
 
     import dataclasses
 
+    import torch
+
     from umx_tpu_torch.config import SegmentConfig
     from umx_tpu_torch.engine.fleet import demix_tracks
     from umx_tpu_torch.engine.separator import Separator
     from umx_tpu_torch.eval.bss import bss_eval_images_framewise
     from umx_tpu_torch.io.audio import load_audio
+    from umx_tpu_torch.parallel.mesh import make_mesh
     from umx_tpu_torch.parallel.multihost import allgather_metrics, partition_tracks
 
     track_dirs = sorted(
@@ -81,6 +84,10 @@ def main(argv=None) -> int:
         use_wiener=not args.no_wiener,
     )
 
+    mesh = None
+    if sep.device.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+
     owned = partition_tracks(len(track_dirs))
     print(f"# {len(track_dirs)} tracks, this process owns {len(owned)}", file=sys.stderr)
 
@@ -91,7 +98,7 @@ def main(argv=None) -> int:
         d = track_dirs[i]
         mix = load_audio(str(d / "mixture.wav"))
         t0 = time.perf_counter()
-        stems = demix_tracks(sep, [mix], cfg)[0]
+        stems = demix_tracks(sep, [mix], cfg, mesh=mesh)[0]
         demix_s = time.perf_counter() - t0
         refs = np.stack(
             [load_audio(str(d / f"{t}.wav"))[:, : mix.shape[1]] for t in TARGETS]

@@ -7,9 +7,9 @@
 
 The lifecycle the vendored open-unmix-pytorch covers for the reference:
 train → quantize → serve with the same engine.  Training runs on one
-device (default the GPU, which raises without one); the JAX script's
-``--mesh`` (data and tensor parallel over several devices) is not ported
-yet.
+device (default the GPU, which raises without one); ``--mesh`` shards
+the step over every card (``parallel/mesh.py::make_mesh``: batch rows
+over dp; ``--device cpu`` makes it a mesh of the one CPU device).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-len", type=int, default=256, help="frames per example")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--mesh", action="store_true", help="shard over all devices (dp x tp)")
     p.add_argument("--valid-tracks", type=int, default=0,
                    help="hold out the last N tracks for validation; enables the "
                    "full recipe (plateau LR decay + early stopping)")
@@ -72,12 +73,19 @@ def main(argv=None) -> int:
         dataset = StemDataset(args.data_root, excerpt_samples=excerpt)
         print(f"{len(dataset.tracks)} training tracks")
 
+    mesh = None
+    if args.mesh:
+        from umx_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=None if args.device is None else [device])
+        print(f"mesh: {dict(mesh.shape)}")
+
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
     state, losses = train_loop(
         dataset, mcfg, tcfg, steps=args.steps, batch_size=args.batch_size,
         device=device, checkpoint_dir=args.checkpoint_dir,
-        valid_dataset=valid_dataset, valid_every=args.valid_every,
+        valid_dataset=valid_dataset, valid_every=args.valid_every, mesh=mesh,
     )
     print(f"final loss {losses[-1]:.5f}")
     if valid_dataset is not None and losses.valid:

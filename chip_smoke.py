@@ -131,7 +131,7 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 15. (run after phase 14) oracle parity at UMX-L production shape:
     ``umx_tpu_torch.scripts.parity_fullscale`` at hidden 1024, 60 s, T 2584
     on cuda, every port variant (fp32, qhbm, pallas, pertarget, ct2, em2,
-    nowiener, quirk, stream2) against the independent oracle
+    nowiener, quirk, stream2, wiener_bf16, wiener_f32) against the independent oracle
     (``eval/oracle.py``) on the host CPU; each variant's kernels must have
     launched (K1-K3; K9 for pertarget, K8 for ct2, K2/K3 in mode y for em2,
     K1 for 3 layers in each half of stream2, at T 1292, where K1 is then
@@ -169,7 +169,25 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     1e-2; K4-K6 launched); ``train_umx --mesh`` for 2 steps
     at UMX-HQ on phase 14's stems; the shapes the phase gave K1, K2/K3,
     K4-K6 and K9 recorded and each new one held against its plain version
-    and timed beside its bound.  Its figures go under ``"mesh"``.
+    and timed beside its bound (K6 also beside ``torch.bmm`` f32 on the
+    same operands).  Its figures go under ``"mesh"``.
+18. (run after phase 17) the streaming schedules at UMX-L on the 100 s
+    track (3 chunks): ``stream_impl`` "scan", "groups" and "pipelined"
+    through their whole-track functions, warm, the median of 3 runs each,
+    each peak beside the planner's estimate; each arm's stems and final
+    state within 1e-5 of the scan's (bit-equality printed); K1's chain
+    counts in the pipelined schedule (R 8, 16, 24, 16, 8: fill, steady,
+    drain), K1 at R 8, 16 and 24 against its plain version with its
+    forms (R 24 in chain groups), R 24 bit-equal per chain to three R 8
+    launches on the same inputs and timed against them; the bfloat16
+    seams (``mask_dtype``, ``wiener.out_dtype``, ``stems_stack_dtype``,
+    each alone and all three) against float32 as dB below the signal,
+    within the JAX seam tests' gates (2e-2 of the peak, 1.5e-2 for the
+    stack alone); the CLI with ``--stream-impl pipelined`` (counts set to 0
+    just before and read just after; K1 at those chain counts, K2/K3 once
+    a chunk, four finite stems summing to the mix).  Its figures go under
+    ``"stream"``, and K1's row of the kernels line gets its launches by
+    chain count on that run.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -295,34 +313,34 @@ def lstm_bound(T, rows, G, inputs, extra_out: int = 0):
     return bound_ms(nbytes(*inputs) + out, 2.0 * T * rows * G * 4 * G, "bf16")
 
 
-def lstm_inputs(dev, T, B, seed, R=R_CHAINS):
-    """Random K1 inputs at R chains (8: the UMX-L layer), G = 512."""
+def lstm_inputs(dev, T, B, seed, R=R_CHAINS, G=G_HIDDEN):
+    """Random K1 inputs at R chains (8: the UMX-L layer) of width G (512
+    unless given)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    RB, G4 = R * B, 4 * G_HIDDEN
+    RB, G4 = R * B, 4 * G
     xp = torch.randn((T, RB, G4), generator=g, device=dev)
-    whh = (torch.randn((R, G_HIDDEN, G4), generator=g, device=dev)
-           / G_HIDDEN**0.5).to(torch.bfloat16)
-    h0 = 0.5 * torch.randn((RB, G_HIDDEN), generator=g, device=dev)
-    c0 = 0.5 * torch.randn((RB, G_HIDDEN), generator=g, device=dev)
+    whh = (torch.randn((R, G, G4), generator=g, device=dev) / G**0.5).to(torch.bfloat16)
+    h0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
     return xp, whh, h0, c0, B
 
 
-def check_lstm(dev, T, B, seed, R=R_CHAINS):
+def check_lstm(dev, T, B, seed, R=R_CHAINS, G=G_HIDDEN):
     """Phase 2: K1 against its plain version at R chains (8 unless given),
-    G = 512."""
+    G = 512 unless given."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda
 
-    args = lstm_inputs(dev, T, B, seed, R)
+    args = lstm_inputs(dev, T, B, seed, R, G)
     out_k = lstm_cuda.lstm_merged(*args)
     torch.cuda.synchronize()
     out_p = lstm_cuda.lstm_merged_plain(*args)
     torch.cuda.synchronize()
     errs = {n: max_err(a, b) for n, a, b in zip(("hs", "hT", "cT"), out_k, out_p)}
-    print(f"lstm_merged vs plain (T={T}, R={R}, B={B}, G={G_HIDDEN}): "
+    print(f"lstm_merged vs plain (T={T}, R={R}, B={B}, G={G}): "
           f"max|err| hs {errs['hs']:.3g} hT {errs['hT']:.3g} cT {errs['cT']:.3g}; form (blocks per "
           f"chain, blocks held at once, chain groups, row groups) {lstm_cuda.lstm_merged.form}")
     # Both round h to bf16 before the product; an f32 last-bit difference
@@ -2122,7 +2140,10 @@ def serving_path(model: str, wav: str, mix, counters: dict, smi: str):
 # TPU v5e (PARITY_TPU_r5.json) and on the CPU (PARITY_FULLSCALE_r3.json; the
 # port's ct2 beside its ct2_xla row)
 PARITY_TPU = {"fp32": (45.1, [39.9, 46.4, 46.0, 44.1]), "pallas": (45.1, [39.9, 46.4, 46.0, 44.1]),
-              "qhbm": (37.6, [31.0, 39.6, 39.2, 36.1]), "stream2": (44.3, [38.2, 46.0, 45.1, 43.9])}
+              "qhbm": (37.6, [31.0, 39.6, 39.2, 36.1]), "stream2": (44.3, [38.2, 46.0, 45.1, 43.9]),
+              # PARITY_BF16_TPU.json
+              "wiener_bf16": (45.8, [39.6, 47.7, 46.7, 45.1]),
+              "wiener_f32": (45.8, [39.6, 47.7, 46.7, 45.1])}
 PARITY_CPU = {"fp32": (119.6, [115.1, 121.2, 121.8, 116.7]),
               "qhbm": (38.2, [32.7, 39.2, 39.2, 37.5]),
               "ct2": (119.6, [115.1, 121.2, 121.8, 116.7]),
@@ -2165,6 +2186,8 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
         "nowiener": ("lstm_merged",),
         "quirk": ("lstm_merged",),
         "stream2": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+        "wiener_bf16": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+        "wiener_f32": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
     }
     rows, launches, oracle_s, ours_s = [], {}, {}, {}
     k1_shapes: set = set()
@@ -2408,6 +2431,21 @@ def check_train_kernels_at(dev, R, B, T, seed):
             f"{fwd}, {bwd}, {dw}")
     args = ((xp, whh, h0, c0, B), (gates, cs, c0, whh, dhs, dhT, dcT, B), (hs, h0, dxp_p, B))
     return args, (fwd, bwd, dw)
+
+
+def dw_bmm_ms(hs, h0, dxp, B) -> float:
+    """Milliseconds of ``torch.bmm`` f32 on K6's operands (bf16-rounded
+    h_{t-1} and dxp, chain-major): the one PyTorch call that computes K6's
+    function."""
+    import torch
+
+    T, RB, G = hs.shape
+    R = RB // B
+    hp = torch.cat([h0[None], hs[:-1]]).to(torch.bfloat16).float().view(
+        T, R, B, G).permute(1, 3, 0, 2).reshape(R, G, -1)
+    dg = dxp.to(torch.bfloat16).float().view(T, R, B, 4 * G).permute(
+        1, 0, 2, 3).reshape(R, -1, 4 * G)
+    return cuda_ms(lambda: torch.bmm(hp, dg), 10)
 
 
 def train_inputs_at(dev, T, R, B, G, seed):
@@ -2663,7 +2701,7 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
     k1_shapes -= {(R_CHAINS, 1, T_SEG), (R_CHAINS, 3, T_SEG), (R_CHAINS, B_TRAIN, T_TRAIN)}
     train_shapes -= {(R_CHAINS, B_TRAIN, T_TRAIN)}
     k9_shapes -= {(N_SRC, T_SEG, G_HIDDEN)}
-    errs, timed = {}, {}
+    errs, timed, library = {}, {}, {}
     for R, B, T in sorted(k1_shapes):
         args, errs[f"K1 R{R} B{B} T{T}"] = check_lstm(dev, T, B, seed=200 + R + B, R=R)
         timed[f"lstm_merged R{R} B{B} T{T}"] = (
@@ -2688,6 +2726,7 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
             cuda_ms(lambda: L.lstm_merged_dw(*da), 5),
             cuda_ms(lambda: L.lstm_merged_dw_plain(*da), 2),
             bound_ms(nbytes(*da[:3]) + R * G_HIDDEN * 4 * G_HIDDEN * 4, ops, "bf16")[0])
+        library[f"lstm_merged_dw R{R} B{B} T{T}"] = dw_bmm_ms(*da)
     for n_t, T, G in sorted(k9_shapes):
         args, errs[f"K9 T#{n_t} T{T} G{G}"] = check_pertarget_at(dev, n_t, T, G, seed=400 + n_t)
         timed[f"lstm_layer_pertarget T#{n_t} T{T} G{G}"] = (
@@ -2695,7 +2734,9 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
             cuda_ms(lambda: L.lstm_pertarget_plain(*args), 2),
             lstm_bound(T, n_t * 2, G, args)[0])
     for name, (k, p, b) in timed.items():
-        print(f"{name}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms  [{smi}]")
+        lib = f"{library[name]:.4f} ms" if name in library else "none"
+        print(f"{name}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms, library call "
+              f"{lib}  [{smi}]")
     require(train_shapes and k9_shapes and k1_shapes, "the phase recorded no kernel shape")
     fig.update(
         dp_bit_equal=dp_equal, dp_demix_s=dp_s, dp_xrt=audio_s / dp_s, dp_launches=dp_launches,
@@ -2708,9 +2749,278 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
         sharded_steps_per_s=sharded_steps_s,
         train_launches=train_launches, k1_shapes=sorted(k1_shapes),
         train_shapes=sorted(train_shapes), k9_shapes=sorted(k9_shapes), kernel_errs=errs,
-        kernel_ms={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2]} for k, v in timed.items()})
+        kernel_ms={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+                       "library_ms": library.get(k)} for k, v in timed.items()})
     fig["wall_s"] = time.perf_counter() - t_phase
     print(f"mesh phase: {fig['wall_s']:.1f} s wall  [{smi}]")
+    return fig
+
+
+# Phase 18: the streaming schedules and the bfloat16 seams
+STREAM_ARMS = ("scan", "groups", "pipelined")
+STREAM_REPS = 3  # warm runs of each schedule; the median is kept
+# K1's chains in the pipelined schedule's iterations over 3 chunks: fill,
+# steady, drain (8 chains a layer at UMX-L)
+PIPELINED_CHAINS = [8, 16, 24, 16, 8]
+# a bfloat16 seam against float32, of the float32 stems' peak: the JAX
+# package's seam tests' gates (the stems stack alone rounds at most two
+# addends a sample)
+SEAM_GATES = {"mask_dtype": 2e-2, "wiener.out_dtype": 2e-2, "stems_stack_dtype": 1.5e-2,
+              "all three": 2e-2}
+
+
+@contextlib.contextmanager
+def chain_counts(chains: list):
+    """For the block, every merged recurrence layer the network runs (one
+    K1 call) appends its chain count R = targets x directions, times the
+    stages of the pipelined schedule, to ``chains``."""
+    from umx_tpu_torch.models import umx
+
+    real = umx.lstm_layer_merged_batched
+
+    def spy(x_proj, *args):
+        chains.append(x_proj.shape[1] * x_proj.shape[3])
+        return real(x_proj, *args)
+
+    umx.lstm_layer_merged_batched = spy
+    try:
+        yield
+    finally:
+        umx.lstm_layer_merged_batched = real
+
+
+def stream_arms(dev, params, cfg, audio, geom: tuple, cb: int, label: str, smi: str):
+    """Phase 18: the 100 s track (``geom`` = n_chunks, seg, stride) through
+    ``demix_fused``, ``demix_fused_stream_groups`` (``cb`` chunks a group) and
+    ``demix_fused_stream_pipelined``, each warm, the median of 3 runs, its
+    own peak device memory with the parameters (as the planner counts
+    them); each arm's stems and final state within 1e-5 of the scan's,
+    bit-equality printed -> (walls, peaks, per-arm errors, ``run(arm)``)."""
+    import statistics
+
+    import torch
+
+    from umx_tpu_torch.engine import separator as S
+    from umx_tpu_torch.engine.memory import params_hbm_bytes
+    from umx_tpu_torch.models.umx import init_lstm_state
+
+    n_chunks, seg, stride = geom
+    secs = TRACK_SECS
+
+    def run(arm):
+        state = init_lstm_state(cfg.model, dev, batch=1)
+        with torch.inference_mode():
+            if arm == "groups":
+                return S.demix_fused_stream_groups(params, audio, state, cfg, n_chunks, seg,
+                                                   stride, cb)
+            if arm == "pipelined":
+                return S.demix_fused_stream_pipelined(params, audio, state, cfg, n_chunks, seg,
+                                                      stride)
+            return S.demix_fused(params, audio, state, cfg, n_chunks, seg, stride)
+
+    results, walls, peaks = {}, {}, {}
+    p_bytes = params_hbm_bytes(cfg, params)
+    for arm in STREAM_ARMS:
+        run(arm)  # warm-up
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rounds = []
+        for _ in range(STREAM_REPS):
+            t0 = time.perf_counter()
+            out, st = run(arm)
+            torch.cuda.synchronize()
+            rounds.append(time.perf_counter() - t0)
+        peaks[arm] = torch.cuda.max_memory_allocated() - before + p_bytes
+        walls[arm] = statistics.median(rounds)
+        results[arm] = (out, st)
+        print(f"stream_impl {arm} ({label}): {walls[arm]:.4f} s median of {STREAM_REPS} "
+              f"({min(rounds):.4f}-{max(rounds):.4f}), {secs / walls[arm]:.1f}x realtime; peak "
+              f"{peaks[arm] / 2**30:.3f} GiB  [{smi}]")
+    ref, ref_st = results["scan"]
+    amp = float(ref.abs().max())
+    errs = {}
+    for arm in ("groups", "pipelined"):
+        out, st = results[arm]
+        err = float((out - ref).abs().max()) / amp
+        st_err = max(max_err(st.h, ref_st.h), max_err(st.c, ref_st.c))
+        bit = bool(torch.equal(out, ref) and torch.equal(st.h, ref_st.h)
+                   and torch.equal(st.c, ref_st.c))
+        print(f"stream_impl {arm} vs scan ({label}): stems max|err|/max|stem| {err:.3g}, state "
+              f"max|err| {st_err:.3g}, bit-equal {bit}")
+        require(err <= 1e-5 and st_err <= 1e-5,
+                f"stream_impl {arm} ({label}) disagrees with the scan: stems {err}, "
+                f"state {st_err}")
+        errs[arm] = {"rel_err": err, "state_err": st_err, "bit_equal": bit}
+    return walls, peaks, errs, run
+
+
+def stream_phase(dev, model: str, wav: str, mix, counters: dict, smi: str) -> dict:
+    """Phase 18: the streaming schedules (``EngineConfig.stream_impl``) at
+    UMX-L on the 100 s track (3 chunks) through ``demix_fused``,
+    ``demix_fused_stream_groups`` and ``demix_fused_stream_pipelined``
+    (:func:`stream_arms`), the peaks beside the planner's; the same at
+    UMX-HQ (seed-0 weights at hidden 512, where K1 holds 16 chains in one
+    wave: the workload where the pipelined schedule gains), with K1's
+    chain counts there and its forms, kernel and plain times at G 256;
+    K1's chain counts in the pipelined schedule at UMX-L (8, 16, 24, 16,
+    8), K1 at R 16 and R 24 against its plain version,
+    its forms, and R 24 (chain groups) against three R 8 launches on the
+    same inputs (bit-equal per chain, and timed); the bfloat16 seams alone
+    and together against float32, as dB below the signal, within the JAX
+    tests' gates; and the CLI with ``--stream-impl pipelined`` (its
+    counts set to 0 just before and read just after; four finite stems
+    summing to the mix)."""
+    import dataclasses
+
+    import torch
+
+    from umx_tpu_torch import cli
+    from umx_tpu_torch.engine import separator as S
+    from umx_tpu_torch.engine.memory import (
+        fused_track_hbm_bytes, parallel_track_hbm_bytes, suggest_chunk_batch,
+    )
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    t_phase = time.perf_counter()
+    fig = {"card": smi}
+    sep = S.Separator.from_ggml(model)
+    params, cfg = sep.params, sep.cfg
+    seg, stride, n_chunks, padded = sep._geometry(mix.shape[1])
+    require(n_chunks == N_CHUNKS, f"the track splits into {n_chunks} chunks, not {N_CHUNKS}")
+    audio = torch.nn.functional.pad(torch.from_numpy(mix).to(dev), (0, padded - mix.shape[1]))[None]
+    geom = (n_chunks, seg, stride)
+    secs = mix.shape[1] / SR
+    cb = min(suggest_chunk_batch(cfg, secs, params=params, device=dev), n_chunks)
+
+    walls, peaks, fig["arms"], run = stream_arms(dev, params, cfg, audio, geom, cb, "UMX-L",
+                                                       smi)
+    laps = {"UMX-L": time.perf_counter() - t_phase}
+    est = fused_track_hbm_bytes(cfg, 1, secs, params)["total"]
+    est_groups = parallel_track_hbm_bytes(cfg, cb, secs, params)["total"]
+    print(f"planner: fused_track_hbm_bytes {est / 2**30:.3f} GiB (the scan program); "
+          f"parallel_track_hbm_bytes at the groups' width {cb}: {est_groups / 2**30:.3f} GiB  [{smi}]")
+
+    # UMX-HQ (hidden 512, G 256): a chain takes 8 of K1's blocks, so one
+    # wave holds 16 chains and the pipelined schedule's R 16 and R 24 run
+    # as one and two chain groups, against the scan's 9 of R 8
+    hq_cfg = cfg.replace(model=dataclasses.replace(cfg.model, hidden_size=512))
+    hq_params = synthetic_params(hq_cfg.model, seed=0, device=dev)
+    hq_cb = min(suggest_chunk_batch(hq_cfg, secs, params=hq_params, device=dev), n_chunks)
+    hq_walls, hq_peaks, fig["hq_arms"], hq_run = stream_arms(dev, hq_params, hq_cfg, audio,
+                                                            geom, hq_cb, "UMX-HQ", smi)
+    hq_chains: list = []
+    reset_counts(counters)
+    with chain_counts(hq_chains):
+        hq_run("pipelined")
+    torch.cuda.synchronize()
+    require(hq_chains == PIPELINED_CHAINS and counters["lstm_merged"].launches == len(hq_chains),
+            f"the pipelined schedule ran K1 at {hq_chains} chains at UMX-HQ")
+    hq_k1 = {}
+    for R in (8, 16, 24):
+        a, err = check_lstm(dev, T_SEG, 1, seed=600 + R, R=R, G=256)
+        k = hq_k1[f"R{R}"] = {"form": L.lstm_merged.form, "max_abs_err": err,
+                              "ms": cuda_ms(lambda: L.lstm_merged(*a), 5),
+                              "plain_ms": cuda_ms(lambda: L.lstm_merged_plain(*a), 1),
+                              "bound_ms": lstm_bound(T_SEG, R, 256, a[:4])[0],
+                              "launches": hq_chains.count(R)}
+        print(f"lstm_merged at R {R}, B 1, T {T_SEG}, G 256: kernel {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms; form {k['form']}; "
+              f"{k['launches']} launch(es) in the UMX-HQ pipelined run  [{smi}]")
+    del a, hq_params, hq_run
+    fig["hq"] = {"wall_s": hq_walls, "peak_bytes": hq_peaks, "groups_width": hq_cb, "k1": hq_k1}
+    laps["UMX-HQ"] = time.perf_counter() - t_phase
+
+    # K1's chain counts in the pipelined schedule, and its forms there
+    chains: list = []
+    reset_counts(counters)
+    with chain_counts(chains):
+        run("pipelined")
+    torch.cuda.synchronize()
+    require(chains == PIPELINED_CHAINS and counters["lstm_merged"].launches == len(chains),
+            f"the pipelined schedule ran K1 at {chains} chains, not {PIPELINED_CHAINS}")
+    args, forms, errs, timed = {}, {}, {}, {}
+    for R in (8, 16, 24):
+        args[R], errs[R] = check_lstm(dev, T_SEG, 1, seed=500 + R, R=R)
+        forms[R] = L.lstm_merged.form
+        timed[R] = (cuda_ms(lambda: L.lstm_merged(*args[R]), 5),
+                    cuda_ms(lambda: L.lstm_merged_plain(*args[R]), 1),
+                    lstm_bound(T_SEG, R, G_HIDDEN, args[R][:4]))
+    require(forms[24][2] > forms[8][2],
+            f"K1 at R 24 ran as {forms[24][2]} chain group(s), R 8 as {forms[8][2]}")
+    # the same 24 chains as three R 8 launches (rows are chains at B 1)
+    xp, whh, h0, c0, _ = args[24]
+    starts = (0, 8, 16)
+    parts = [(xp[:, r0 : r0 + 8].contiguous(), whh[r0 : r0 + 8].contiguous(),
+              h0[r0 : r0 + 8].contiguous(), c0[r0 : r0 + 8].contiguous(), 1) for r0 in starts]
+    full = L.lstm_merged(*args[24])
+    same = all(torch.equal(full[0][:, r0 : r0 + 8], o[0]) and torch.equal(full[1][r0 : r0 + 8], o[1])
+               and torch.equal(full[2][r0 : r0 + 8], o[2])
+               for r0, o in zip(starts, [L.lstm_merged(*p) for p in parts]))
+    require(same, "K1 at R 24 is not bit-equal per chain to three R 8 launches")
+    three_ms = cuda_ms(lambda: [L.lstm_merged(*p) for p in parts], 5)
+    for R in (8, 16, 24):
+        k, p, (b, by) = timed[R]
+        print(f"lstm_merged at R {R}, B 1, T {T_SEG}: kernel {k:.4f} ms, plain {p:.4f} ms, bound "
+              f"{b:.4f} ms by {by}, library call none; form (blocks per chain, blocks held at "
+              f"once, chain groups, row groups) {forms[R]}  [{smi}]")
+    print(f"lstm_merged at R 24 (one call, {forms[24][2]} chain groups) {timed[24][0]:.4f} ms "
+          f"against three R 8 calls on the same inputs {three_ms:.4f} ms; bit-equal per chain  "
+          f"[{smi}]")
+    fig["k1"] = {f"R{R}": {"ms": timed[R][0], "plain_ms": timed[R][1], "bound_ms": timed[R][2][0],
+                           "form": forms[R], "max_abs_err": errs[R]} for R in (8, 16, 24)}
+    fig["k1"]["three_r8_ms"] = three_ms
+    laps["K1"] = time.perf_counter() - t_phase
+    del args, parts, full, xp, whh, h0, c0
+
+    # the bfloat16 seams against float32, on the same track and seed
+    ref = sep.demix_track(mix, seed=0)
+    amp = float(np.abs(ref).max())
+    cases = {"mask_dtype": cfg.replace(mask_dtype="bfloat16"),
+             "wiener.out_dtype": cfg.replace(wiener=dataclasses.replace(cfg.wiener,
+                                                                         out_dtype="bfloat16")),
+             "stems_stack_dtype": cfg.replace(stems_stack_dtype="bfloat16")}
+    cases["all three"] = cases["mask_dtype"].replace(wiener=cases["wiener.out_dtype"].wiener,
+                                                     stems_stack_dtype="bfloat16")
+    fig["seams"] = {}
+    for name, c in cases.items():
+        out = S.Separator(params, c).demix_track(mix, seed=0)
+        err = float(np.abs(out - ref).max()) / amp
+        db = 10.0 * math.log10(float(np.sum(ref.astype(np.float64) ** 2))
+                               / max(float(np.sum((out - ref).astype(np.float64) ** 2)), 1e-30))
+        print(f"bf16 {name}: {db:.1f} dB below the signal, max|err|/max|stem| {err:.3g} (gate "
+              f"{SEAM_GATES[name]})")
+        require(0.0 < err <= SEAM_GATES[name],
+                f"bf16 {name}: max|err|/max|stem| {err}, gate {SEAM_GATES[name]}")
+        fig["seams"][name] = {"db_below_signal": db, "rel_err": err}
+    del sep
+    laps["seams"] = time.perf_counter() - t_phase
+
+    # the CLI with the pipelined schedule, its counts read around it
+    out_dir = os.path.join(os.path.dirname(model), "stems_pipelined")
+    chains = []
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with chain_counts(chains):
+        rc = cli.main([model, wav, out_dir, "--quiet", "--stream-impl", "pipelined"])
+    cli_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(rc == 0, f"CLI --stream-impl pipelined exited {rc}")
+    print(f"CLI --stream-impl pipelined ({TRACK_SECS:.0f} s track, UMX-L): {cli_s:.3f} s wall; "
+          f"K1 chains per call {chains}; kernel runs {launches}  [{smi}]")
+    require(chains == PIPELINED_CHAINS, f"the CLI's pipelined run gave K1 {chains} chains")
+    for name in ("wiener_reduce", "wiener_apply"):
+        require(launches[name] == N_CHUNKS, f"{name} ran {launches[name]} times, not {N_CHUNKS}")
+    check_stems(out_dir, mix)
+    fig.update(wall_s={arm: walls[arm] for arm in STREAM_ARMS},
+               peak_bytes=peaks, planner_bytes=est, planner_groups_bytes=est_groups,
+               groups_width=cb, cli_s=cli_s, cli_launches=launches,
+               k1_chain_launches={str(R): chains.count(R) for R in sorted(set(chains))})
+    fig["phase_s"] = time.perf_counter() - t_phase
+    fig["laps_s"] = laps
+    print(f"stream phase: {fig['phase_s']:.1f} s wall (at the end of each part: "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in laps.items())})  [{smi}]")
     return fig
 
 
@@ -2851,6 +3161,7 @@ def main() -> int:
         lstm_err = max(lstm_err, err)
         certification = certification_phase(tmp, model, mix, counters, smi)
         mesh = mesh_phase(dev, tmp, model, mix, list(tracks.values())[:3], counters, smi)
+        stream = stream_phase(dev, model, wav, mix, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -2959,15 +3270,9 @@ def main() -> int:
                                            center=True, normalized=False, onesided=True,
                                            length=(T - 1) * 1024), 10)
 
-    hs_t, h0_t, dxp_t, b_t = train_args["lstm_merged_dw"]
-    hp = torch.cat([h0_t[None], hs_t[:-1]]).to(torch.bfloat16).float().view(
-        T_TRAIN, R_CHAINS, b_t, G_HIDDEN).permute(1, 3, 0, 2).reshape(R_CHAINS, G_HIDDEN, -1)
-    dg = dxp_t.to(torch.bfloat16).float().view(T_TRAIN, R_CHAINS, b_t, 4 * G_HIDDEN).permute(
-        1, 0, 2, 3).reshape(R_CHAINS, -1, 4 * G_HIDDEN)
     library = dict.fromkeys(times)
-    library["lstm_merged_dw"] = cuda_ms(lambda: torch.bmm(hp, dg), 10)
+    library["lstm_merged_dw"] = dw_bmm_ms(*train_args["lstm_merged_dw"])
     library["istft_ct2"] = istft_library_ms(*k8_shape)
-    del hp, dg
     require(times["istft_ct2"][0] <= library["istft_ct2"],
             f"istft_ct2 ({times['istft_ct2'][0]} ms) is slower than torch.istft "
             f"({library['istft_ct2']} ms) at {k8_shape}")
@@ -3102,6 +3407,9 @@ def main() -> int:
          "bound_by": bounds[name][1], "library_ms": library[name]}
         for name, (src, rep, err) in meta.items()
     ]
+    # K1's launches by chain count on the CLI's pipelined run (phase 18)
+    kernels[0]["pipelined_launches_by_chains"] = stream["k1_chain_launches"]
+    kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
                       "gpu_vs_cpu_rel_err": cpu_err, "train_steps_per_s": steps_per_s,
                       "train_steps_per_s_batch_32": wide_steps_per_s,
@@ -3129,7 +3437,7 @@ def main() -> int:
                       "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
                       "serving": serving, "evaluation": evaluation, "parity": parity,
-                      "certification": certification, "mesh": mesh}))
+                      "certification": certification, "mesh": mesh, "stream": stream}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1250,3 +1250,76 @@ def test_fleet_and_train_step_over_two_cards(dev):
     print(f"sharded train step over one card and over two: {losses}")
     assert losses["one"][0] == losses["two"][0]
     np.testing.assert_allclose(losses["two"], losses["one"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("G, groups", [(512, 3), (256, 2)])
+def test_lstm_kernel_chain_groups_bit_equal_to_separate_launches(dev, G, groups):
+    """K1 over R 24 chains (the pipelined schedule's three stacked layers):
+    the card holds 8 chains at G = 512 (16 blocks each) and 16 at G = 256,
+    so R 24 runs as serial cooperative launches of chain groups, whose
+    exchange tags start at ``launched * T``.  Each chain is bit-equal to its
+    launch among three R 8 calls on the same weights and inputs, and to
+    the plain version within its tolerance."""
+    T, B = 37, 1
+    xp, whh, h0, c0 = _lstm_inputs(dev, T, 24, B, G, seed=24 + G)
+    out = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    per_chain, capacity, n_groups, _ = lstm_cuda.lstm_merged.form
+    print(f"K1 at R 24, G {G}: form {lstm_cuda.lstm_merged.form}")
+    # an H100 SXM holds 132 blocks at once: 3 groups at G = 512, 2 at 256
+    assert n_groups == len(lstm_cuda.resident_chain_groups(24, G, capacity)) > 1
+    if capacity == 132:
+        assert n_groups == groups
+    for r0 in range(0, 24, 8):
+        part = lstm_cuda.lstm_merged(xp[:, r0 : r0 + 8].contiguous(), whh[r0 : r0 + 8].contiguous(),
+                                     h0[r0 : r0 + 8].contiguous(), c0[r0 : r0 + 8].contiguous(), B)
+        assert torch.equal(out[0][:, r0 : r0 + 8], part[0])
+        assert torch.equal(out[1][r0 : r0 + 8], part[1]) and torch.equal(out[2][r0 : r0 + 8], part[2])
+    for k, p in zip(out, lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, B)):
+        assert (k - p).abs().max().item() <= 5e-3
+
+
+def test_stream_schedules_on_the_card_match_the_scan(dev):
+    """Hidden 512, 2 s segments, a track of 4 chunks with a nonzero incoming
+    state: the groups (width 3: a remainder group) and pipelined schedules
+    against the scan, stems and final state within 1e-5 (K1 at R 8, 16 and
+    24 in the pipelined one), and the CPU's pipelined run within 2e-3."""
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine import separator as S
+    from umx_tpu_torch.models.umx import LSTMState, synthetic_params
+
+    import numpy as np
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=512), segment=SegmentConfig(segment_secs=2.0))
+    params = synthetic_params(cfg.model, seed=3, device=dev)
+    seg, stride = cfg.segment.segment_samples(44100), cfg.segment.stride_samples(44100)
+    n_chunks = 4
+    rng = np.random.default_rng(7)
+    audio = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 2, (n_chunks - 1) * stride + seg))
+                             .astype(np.float32)).to(dev)
+    h0, c0 = (torch.from_numpy((0.1 * rng.standard_normal((1, 4, 3, 2, 256))).astype(np.float32))
+              for _ in range(2))
+
+    def state():
+        return LSTMState(h=h0.to(dev), c=c0.to(dev))
+
+    with torch.inference_mode():
+        ref, ref_st = S.demix_fused(params, audio, state(), cfg, n_chunks, seg, stride)
+        before = lstm_cuda.lstm_merged.launches
+        pipe, pipe_st = S.demix_fused_stream_pipelined(params, audio, state(), cfg, n_chunks,
+                                                       seg, stride)
+        launches = lstm_cuda.lstm_merged.launches - before
+        groups, groups_st = S.demix_fused_stream_groups(params, audio, state(), cfg, n_chunks,
+                                                        seg, stride, 3)
+    assert launches == n_chunks + 2  # the fill and the drain: R 8, 16, 24, 24, 16, 8
+    peak = ref.abs().max().item()
+    for out, st in ((pipe, pipe_st), (groups, groups_st)):
+        print(f"arm vs scan: stems {(out - ref).abs().max().item() / peak:.3g} of the peak, "
+              f"bit-equal {torch.equal(out, ref)}; h {(st.h - ref_st.h).abs().max().item():.3g}")
+        assert (out - ref).abs().max().item() <= 1e-5 * peak
+        assert (st.h - ref_st.h).abs().max().item() <= 1e-5
+        assert (st.c - ref_st.c).abs().max().item() <= 1e-5
+    cpu = synthetic_params(cfg.model, seed=3)
+    with torch.inference_mode():
+        out_cpu, _ = S.demix_fused_stream_pipelined(
+            cpu, audio.cpu(), LSTMState(h=h0, c=c0), cfg, n_chunks, seg, stride)
+    assert (out_cpu - pipe.cpu()).abs().max().item() <= 2e-3 * peak

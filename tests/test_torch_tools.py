@@ -216,6 +216,14 @@ def test_parity_pallas_is_the_fp32_program(parity_rows):
     assert a["waveform_max_abs_err"] == b["waveform_max_abs_err"]
 
 
+def test_parity_wiener_out_dtype_rows(parity_rows):
+    """wiener_f32 is the fp32 program; wiener_bf16 rounds the Wiener
+    output planes, so its error moves, inside the envelope."""
+    fp32 = parity_rows["fp32"]
+    assert parity_rows["wiener_f32"]["waveform_max_abs_err"] == fp32["waveform_max_abs_err"]
+    assert parity_rows["wiener_bf16"]["waveform_max_abs_err"] != fp32["waveform_max_abs_err"]
+
+
 def test_parity_quantized_row_beside_the_jax_harness(parity_rows, jax_qhbm_row):
     """The quantized path rounds activations to bf16 before every product,
     so its error against the float32 oracle is the quantization's, not the

@@ -6,11 +6,21 @@ drums, other, vocals).
 machine without a usable GPU raises rather than running on the CPU.
 ``--quantized-hbm`` keeps the u8/u16 weights quantized on the device,
 ``--window-chunks`` sets the window of a long track (0 = the memory
-planner decides, -1 = never, N = N chunks) and ``--lstm-impl`` picks the
-recurrence kernel.  ``--resample`` converts another sample rate instead
+planner decides, -1 = never, N = N chunks), ``--lstm-impl`` picks the
+recurrence kernel, ``--wiener-impl`` the Wiener path and
+``--stream-impl`` the streaming schedule; ``--mask-dtype``,
+``--stems-stack-dtype`` and ``--wiener-out-dtype`` store their seams in
+bfloat16 when asked.  ``--resample`` converts another sample rate instead
 of rejecting it, and ``--host-loop`` runs one call per segment and prints
-the progress after each.  :func:`engine_config_from_args` builds the
-``EngineConfig`` for this entry point and for ``cli_batch``.
+the progress after each.  The flags set is the JAX CLI's, plus
+``--device``: its precision flags (``--matmul-precision``,
+``--dft-precision``, ``--idft-precision``, ``--iframes-dtype``) are
+accepted with their choices and compute, as the JAX package does off a
+TPU, what the defaults compute (float32 matmuls without TF32, cuFFT or the
+ct2 kernel), and its TPU-only values (``--lstm-impl scan``,
+``--istft-algo ct2_xla``) are refused by name.
+:func:`engine_config_from_args` builds the ``EngineConfig`` for this
+entry point and for ``cli_batch``.
 """
 
 from __future__ import annotations
@@ -78,6 +88,40 @@ def build_parser() -> argparse.ArgumentParser:
         "per-target kernel (pallas)",
     )
     p.add_argument(
+        "--wiener-impl",
+        choices=("auto", "einsum", "pallas"),
+        default="auto",
+        help="Wiener-EM implementation (auto = pallas = the fused two-pass kernels; einsum = "
+        "the whole-segment einsum chain; --wiener-psd umxcpp runs einsum and refuses pallas)",
+    )
+    p.add_argument(
+        "--stream-impl",
+        choices=("scan", "groups", "pipelined"),
+        default="scan",
+        help="streaming track schedule (scan = one segment call per chunk; groups = the "
+        "state-free halves over chunk groups, only the recurrence chained; pipelined = 3 "
+        "layer-stages of different chunks per merged-kernel call); the same arithmetic",
+    )
+    same_cost = "; bfloat16 only reproduces the JAX package's rounding (a cast; no memory or " \
+        "time saved: the Wiener kernels read and write float32)"
+    for flag, what in (
+        ("--mask-dtype", "the network's masks at the seam before the Wiener passes" + same_cost),
+        ("--stems-stack-dtype", "the stacked weighted chunk outputs feeding overlap-add "
+         "(which accumulates in float32); bfloat16 halves the stack's memory"),
+        ("--wiener-out-dtype", "the fused Wiener path's output planes (the einsum path "
+         "gives float32)" + same_cost),
+    ):
+        p.add_argument(flag, choices=("auto", "float32", "bfloat16"), default="auto",
+                       help=f"storage dtype of {what}; auto = float32")
+    for flag, choices in (("--matmul-precision", ("default", "high", "highest")),
+                          ("--dft-precision", ("auto", "default", "high", "highest")),
+                          ("--idft-precision", ("auto", "default", "high", "highest")),
+                          ("--iframes-dtype", ("auto", "float32", "bfloat16"))):
+        p.add_argument(flag, choices=choices, default=choices[0],
+                       help="the JAX CLI's TPU precision knob: every choice computes what the "
+                       "default does here (float32 matmuls without TF32; cuFFT or the ct2 "
+                       "kernel, which store no iDFT frames)")
+    p.add_argument(
         "--quantized-hbm", action="store_true",
         help="keep the u8/u16 weights quantized on the device (dequantization fused "
         "into the matmuls)",
@@ -126,9 +170,14 @@ def engine_config_from_args(args):
             window_chunks=arg("window_chunks", d.segment.window_chunks),
         ),
         wiener=WienerConfig(iterations=arg("wiener_iters", d.wiener.iterations),
-                            psd=arg("wiener_psd", d.wiener.psd)),
+                            psd=arg("wiener_psd", d.wiener.psd),
+                            impl=arg("wiener_impl", d.wiener.impl),
+                            out_dtype=arg("wiener_out_dtype", d.wiener.out_dtype)),
         use_wiener=not arg("no_wiener", not d.use_wiener),
         shifts=arg("shifts", d.shifts),
+        mask_dtype=arg("mask_dtype", d.mask_dtype),
+        stems_stack_dtype=arg("stems_stack_dtype", d.stems_stack_dtype),
+        stream_impl=arg("stream_impl", d.stream_impl),
     )
 
 
@@ -145,6 +194,10 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.wiener_psd == "umxcpp" and args.wiener_impl == "pallas":
+        print("umx-tpu-torch: --wiener-psd umxcpp requires --wiener-impl einsum "
+              "(the fused kernels implement the correct-PSD semantics only)", file=sys.stderr)
+        return 2
 
     def log(*a):
         if not args.quiet:

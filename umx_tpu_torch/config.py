@@ -5,20 +5,46 @@ config translates field for field.
 The algorithm choices that carry over: ``DSPConfig.istft_algo`` ("ct2" is
 the hand-written Cooley-Tukey iSTFT kernel), ``ModelConfig.lstm_impl``
 ("pallas_merged" and "pallas" keep their JAX names and select the merged
-and the per-target recurrence kernel), ``SegmentConfig.chunk_batch`` (the
-non-streaming group width, 0 = the memory planner's pick),
-``SegmentConfig.window_chunks`` (windowed long tracks) and
-``EngineConfig.ola_impl`` ("pallas" selects the hand-written overlap-add
-kernel).  Values the port does not implement raise ``ValueError``.  The
-TPU-only knobs (FFT/DFT precision, storage dtypes, streaming schedules)
-have no counterpart: the port keeps masks, Wiener output and stems in
-float32, and its forward STFT and dense iSTFT run through cuFFT.
+and the per-target recurrence kernel), ``WienerConfig.impl`` ("pallas"
+keeps its JAX name and selects the fused Wiener kernels, "einsum" the
+einsum path), ``SegmentConfig.chunk_batch`` (the chunk-group width, 0 =
+the memory planner's pick), ``SegmentConfig.window_chunks`` (windowed
+long tracks), ``EngineConfig.ola_impl`` ("pallas" selects the
+hand-written overlap-add kernel) and ``EngineConfig.stream_impl`` (the
+streaming schedules "scan", "groups" and "pipelined").  So do the storage
+dtypes ``EngineConfig.mask_dtype``, ``EngineConfig.stems_stack_dtype``
+and ``WienerConfig.out_dtype``: "bfloat16" rounds that seam's tensor to
+bfloat16, and "auto" means float32, the JAX package's meaning off a TPU.
+Only the stems stack saves memory in bfloat16; the Wiener kernels read
+masks and write planes in float32, so the other two seams reproduce the
+JAX package's rounding at the cost of a cast.
+Values the port does not implement raise ``ValueError``.  The TPU's
+matmul and DFT precisions and the iDFT frame dtype have no field: the
+port's matmuls are float32 with TF32 off and its transforms are cuFFT or
+the ct2 kernel, which is what the JAX package computes for every value
+of those knobs off a TPU (the CLI accepts their flags).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
+
+import torch
+
+# storage dtypes of the seams (mask, Wiener output, stems stack): "auto" is
+# float32, as the JAX package resolves it off a TPU
+STORAGE_DTYPES = ("auto", "float32", "bfloat16")
+
+
+def _check_storage(name: str, choice: str) -> None:
+    if choice not in STORAGE_DTYPES:
+        raise ValueError(f"{name} must be auto, float32 or bfloat16, got {choice!r}")
+
+
+def storage_dtype(choice: str) -> torch.dtype:
+    """The torch dtype of a seam's storage choice ("auto" = float32)."""
+    return torch.bfloat16 if choice == "bfloat16" else torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +134,26 @@ class WienerConfig:
     eps: float = 1e-10
     scale_factor: float = 10.0
     psd: Literal["correct", "umxcpp"] = "correct"
+    # "auto" = "pallas" = the fused reduce/apply passes (K2/K3 on CUDA
+    # tensors, their plain versions on the CPU) where the semantics allow
+    # them (psd "correct", iterations >= 1); "einsum" = the einsum path
+    impl: Literal["auto", "einsum", "pallas"] = "auto"
+    # dtype of the final apply pass's y planes on the fused path (a cast
+    # after K3); the einsum path always gives float32.  bfloat16 only
+    # reproduces the JAX package's rounding: K3 writes float32, so it adds
+    # a cast and saves no memory or time
+    out_dtype: Literal["auto", "float32", "bfloat16"] = "auto"
+
+    def __post_init__(self):
+        if self.impl == "pallas_interpret":
+            raise ValueError(
+                "wiener impl 'pallas_interpret' has no meaning in the port (the fused passes "
+                "run their kernels on a GPU and their plain versions on the CPU); use auto, "
+                "einsum or pallas"
+            )
+        if self.impl not in ("auto", "einsum", "pallas"):
+            raise ValueError(f"wiener impl must be auto, einsum or pallas, got {self.impl!r}")
+        _check_storage("wiener out_dtype", self.out_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,11 +212,32 @@ class EngineConfig:
     # form; "pallas" = the overlap-add kernel (K7, ops/ola_cuda.py; on
     # CUDA overlap above 50 % raises)
     ola_impl: str = "auto"
+    # dtype of the masks at the seam between the network and the Wiener
+    # passes (K2/K3 read them after an exact upcast).  bfloat16 only
+    # reproduces the JAX package's rounding: K2/K3 read float32, so it
+    # adds a cast and saves no memory or time
+    mask_dtype: Literal["auto", "float32", "bfloat16"] = "auto"
+    # dtype of the stacked weighted chunk outputs that feed the overlap-add
+    # (which accumulates in float32); bfloat16 halves the stack's memory
+    stems_stack_dtype: Literal["auto", "float32", "bfloat16"] = "auto"
+    # the streaming whole-track schedule: "scan" = one segment call per
+    # chunk; "groups" = the state-free halves over groups of chunk_batch
+    # chunks, only the recurrence chained chunk by chunk; "pipelined" =
+    # iteration i runs layer 1 of chunk i, layer 2 of chunk i-1 and layer 3
+    # of chunk i-2 as one merged-kernel call (dense weights).  The same
+    # arithmetic in every schedule; the two arms never window.
+    stream_impl: Literal["scan", "groups", "pipelined"] = "scan"
 
     def __post_init__(self):
         if self.ola_impl not in ("auto", "unroll", "xla", "pallas"):
             raise ValueError(
                 f"ola_impl must be auto, unroll, xla or pallas, got {self.ola_impl!r}"
+            )
+        _check_storage("mask_dtype", self.mask_dtype)
+        _check_storage("stems_stack_dtype", self.stems_stack_dtype)
+        if self.stream_impl not in ("scan", "groups", "pipelined"):
+            raise ValueError(
+                f"stream_impl must be scan, groups or pipelined, got {self.stream_impl!r}"
             )
 
     def replace(self, **kw) -> "EngineConfig":

@@ -146,6 +146,8 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
     # Separator.demix_track, which chains windows: a bucket never
     # dispatches a program that the planner says does not fit.  The same
     # seed draws the same offsets, and windowed equals single-program.
+    # The buckets run the scan whatever ``stream_impl`` says, and so do
+    # these tracks, so that they window.
     long_set: set[int] = set()
     win_limit = cfg.segment.window_chunks
     if win_limit == 0:
@@ -156,7 +158,7 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
             if max(1, math.ceil((np.asarray(t).shape[1] + shift_pad) / stride)) > win_limit:
                 long_set.add(i)
     if long_set:
-        sep = Separator(params, cfg, device)
+        sep = Separator(params, cfg.replace(stream_impl="scan"), device)
         for i in sorted(long_set):
             results[i] = sep.demix_track(np.asarray(tracks[i], np.float32), seed=seeds[i])
             _add(stats, windowed_tracks=1)

@@ -15,8 +15,8 @@ transients are live together.  How the port differs:
 * capacity is ``torch.cuda.mem_get_info(device)[1]`` on a GPU (the
   default device; it raises without one) and the physical RAM when the
   CPU is asked for;
-* the stacked chunk outputs are always float32 (the port keeps stems in
-  float32);
+* the stacked chunk outputs count ``EngineConfig.stems_stack_dtype``'s
+  bytes, "auto" as float32 (the JAX package's meaning off a TPU);
 * parameter bytes are exact when the parameters are given, quantized
   ones counted at their stored size;
 * with ``istft_algo="ct2"`` the segment transients count no iSTFT frames:
@@ -35,7 +35,7 @@ from dataclasses import fields
 
 import torch
 
-from umx_tpu_torch.config import EngineConfig
+from umx_tpu_torch.config import EngineConfig, storage_dtype
 from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words
 
 # Slack on the segment-transient share of the boundary model, per iSTFT
@@ -126,6 +126,12 @@ def _segment_transient_bytes(cfg: EngineConfig) -> int:
     return y_planes + mix_planes + masks + frames_share
 
 
+def _stems_itemsize(cfg: EngineConfig) -> int:
+    """Bytes a sample of the stacked weighted chunk outputs takes
+    (``EngineConfig.stems_stack_dtype``; "auto" = float32)."""
+    return storage_dtype(cfg.stems_stack_dtype).itemsize
+
+
 def _track_terms(cfg: EngineConfig, track_secs: float, b: int) -> dict[str, int]:
     sr = cfg.dsp.sample_rate
     seg = cfg.segment.segment_samples(sr)
@@ -135,7 +141,7 @@ def _track_terms(cfg: EngineConfig, track_secs: float, b: int) -> dict[str, int]
     s = cfg.model.n_targets
     return {
         "n_chunks": n_chunks,
-        "ys": b * s * 2 * n_chunks * seg * _F32,  # stacked weighted chunks
+        "ys": b * s * 2 * n_chunks * seg * _stems_itemsize(cfg),  # stacked weighted chunks
         "ola": b * 2 * s * 2 * n_chunks * stride * _F32,  # pad+sum combine grids
         "stems": b * s * 2 * padded * _F32,
         "audio": b * 2 * padded * _F32,

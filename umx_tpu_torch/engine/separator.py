@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from umx_tpu_torch.config import EngineConfig
+from umx_tpu_torch.config import EngineConfig, storage_dtype
 from umx_tpu_torch.engine.memory import (
     suggest_chunk_batch,
     suggest_max_batch,
@@ -39,9 +39,12 @@ from umx_tpu_torch.models.umx import (
     LSTMState,
     UMXParams,
     init_lstm_state,
+    is_quantized,
+    pipelined_hh,
     umx_post,
     umx_pre,
     umx_recurrence_batched,
+    umx_recurrence_pipelined_step,
 )
 from umx_tpu_torch.ops.ola import overlap_add_chunks
 from umx_tpu_torch.ops.ola_cuda import overlap_add_normalized
@@ -76,17 +79,38 @@ def apply_masks(masks, mag, n_bins: int):
     return masks_to_planes(masks, n_bins) * mag.unsqueeze(-4)
 
 
-def segment_masks(params: UMXParams, audio, state: LSTMState, cfg: EngineConfig):
-    """The first half of :func:`segment_forward_batched`: audio (N, 2, n)
-    and state h/c (N, T#, L, D, G) → (STFT planes re, im (N, 2, T, F),
-    masks (N, T#, T, 2F), new state).  T# is the parameters' own target
-    count, so a slice of the targets gives its slice of the masks."""
+def segment_pre(params: UMXParams, audio, cfg: EngineConfig):
+    """The state-free front of a segment: audio (N, 2, n) → STFT planes
+    re, im (N, 2, T, F) and the recurrence input x1 (N, T#, T, H) (STFT,
+    magnitude, crop/stack, input norm + fc1 + bn1 + tanh)."""
     mcfg = cfg.model
     re, im = stft_planes(audio, cfg.dsp)  # (N, 2, T, F)
     mag = torch.sqrt(re * re + im * im)
-    x1 = umx_pre(params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)  # (N, T#, T, H)
-    lstm_out, new_state = umx_recurrence_batched(params, x1, state, mcfg)
-    return re, im, umx_post(params, x1, lstm_out, mcfg), new_state
+    return re, im, umx_pre(params, crop_stack(mag, mcfg.nb_bins_cropped), mcfg)
+
+
+def _seam_masks(params: UMXParams, x1, lstm_out, cfg: EngineConfig):
+    """The network's masks (N, T#, T, 2F) from x1 and the recurrence
+    output, stored in ``cfg.mask_dtype`` (the seam before the Wiener
+    passes; float32 is a no-op)."""
+    return umx_post(params, x1, lstm_out, cfg.model).to(storage_dtype(cfg.mask_dtype))
+
+
+def segment_post(params: UMXParams, re, im, x1, lstm_out, cfg: EngineConfig, n_samples: int):
+    """The state-free back of a segment: the masks, the mask seam, then
+    :func:`segment_finish` → waveforms (N, T#, 2, n_samples)."""
+    return segment_finish(re, im, _seam_masks(params, x1, lstm_out, cfg), cfg, n_samples)
+
+
+def segment_masks(params: UMXParams, audio, state: LSTMState, cfg: EngineConfig):
+    """The first half of :func:`segment_forward_batched`: audio (N, 2, n)
+    and state h/c (N, T#, L, D, G) → (STFT planes re, im (N, 2, T, F),
+    masks (N, T#, T, 2F) in ``cfg.mask_dtype``, new state).  T# is the
+    parameters' own target count, so a slice of the targets gives its
+    slice of the masks."""
+    re, im, x1 = segment_pre(params, audio, cfg)  # x1 (N, T#, T, H)
+    lstm_out, new_state = umx_recurrence_batched(params, x1, state, cfg.model)
+    return re, im, _seam_masks(params, x1, lstm_out, cfg), new_state
 
 
 def segment_forward_batched(
@@ -104,8 +128,10 @@ def segment_forward_batched(
 
 def segment_finish(re, im, masks, cfg: EngineConfig, n_samples: int):
     """The second half of :func:`segment_forward_batched`: the STFT planes
-    and all targets' masks → waveforms (N, T#, 2, n_samples)."""
+    and all targets' masks (any float dtype, upcast exactly) → waveforms
+    (N, T#, 2, n_samples)."""
     mcfg = cfg.model
+    masks = masks.float()
     if cfg.use_wiener:
         n, n_t, T = masks.shape[:3]
         tre = torch.empty((n, n_t, 2, T, mcfg.n_bins), dtype=torch.float32, device=re.device)
@@ -216,6 +242,84 @@ def demix_fused_parallel(params: UMXParams, audio_p, cfg: EngineConfig, n_chunks
     return _normalized_overlap_add(ys, weight, stride, P, cfg)
 
 
+def _chunk_stack(cfg: EngineConfig, n_chunks: int, B: int, seg: int, device):
+    """The transition weight and an empty stack (n_chunks, B, T#, 2, seg)
+    in ``cfg.stems_stack_dtype`` for the weighted chunk outputs (each
+    weighted in float32, then stored)."""
+    weight = transition_weight(seg, cfg.segment.transition_power, device)
+    ys = torch.empty((n_chunks, B, cfg.model.n_targets, 2, seg),
+                     dtype=storage_dtype(cfg.stems_stack_dtype), device=device)
+    return weight, ys
+
+
+def demix_fused_stream_groups(params: UMXParams, audio_p, state: LSTMState, cfg: EngineConfig,
+                              n_chunks: int, seg: int, stride: int, chunk_batch: int):
+    """Streaming whole-track demix of B stacked tracks with only the
+    recurrence on the state chain (``stream_impl="groups"``): audio_p
+    (B, 2, P), state h/c (B, T#, L, D, G) → (stems (B, T#, 2, P), final
+    state), as :func:`demix_fused`.
+
+    The chunks run in groups of ``chunk_batch`` (the remainder group at
+    its natural width): :func:`segment_pre` and :func:`segment_post` over
+    the group's width × B rows at once, the recurrence chunk by chunk in
+    order, so the state flows chunk k → k+1 as in the scan."""
+    B = audio_p.shape[0]
+    weight, ys = _chunk_stack(cfg, n_chunks, B, seg, audio_p.device)
+    for k0 in range(0, n_chunks, chunk_batch):
+        width = min(chunk_batch, n_chunks - k0)
+        rows = torch.stack([audio_p[:, :, k * stride : k * stride + seg]
+                            for k in range(k0, k0 + width)])  # (width, B, 2, seg)
+        re, im, x1 = segment_pre(params, rows.view(width * B, 2, seg), cfg)
+        x1_k = x1.view(width, B, *x1.shape[1:])
+        outs = []
+        for k in range(width):
+            lstm_out, state = umx_recurrence_batched(params, x1_k[k], state, cfg.model)
+            outs.append(lstm_out)
+        waves = segment_post(params, re, im, x1, torch.cat(outs), cfg, seg)
+        torch.mul(weight, waves.view(width, B, *waves.shape[1:]), out=ys[k0 : k0 + width])
+    return _normalized_overlap_add(ys, weight, stride, audio_p.shape[-1], cfg), state
+
+
+def demix_fused_stream_pipelined(params: UMXParams, audio_p, state: LSTMState, cfg: EngineConfig,
+                                 n_chunks: int, seg: int, stride: int):
+    """Streaming whole-track demix of B stacked tracks with the recurrence
+    layer-pipelined across chunks (``stream_impl="pipelined"``): audio_p
+    (B, 2, P), state h/c (B, T#, L, D, G) → (stems (B, T#, 2, P), final
+    state), as :func:`demix_fused`.
+
+    Iteration i runs layer 1 of chunk i, layer 2 of chunk i-1 and layer 3
+    of chunk i-2 as one merged-kernel call
+    (:func:`~umx_tpu_torch.models.umx.umx_recurrence_pipelined_step`); the
+    L-1 iterations of fill and drain stack only their active stages
+    (R = 8, 16, 24 chains at UMX-L).  Layer l's incoming state goes to
+    chunk 0's stage l and flows iteration to iteration.  Dense weights."""
+    L = cfg.model.n_lstm_layers
+    B = audio_p.shape[0]
+    weight, ys = _chunk_stack(cfg, n_chunks, B, seg, audio_p.device)
+    whh = pipelined_hh(params)
+    pre = {}  # chunk k -> (re, im, x1), alive until its post half runs
+    stage_in = {}  # (layer l, chunk k) -> the layer's input, alive one iteration
+    stage_st = {l: (state.h[:, :, l], state.c[:, :, l]) for l in range(L)}
+    for i in range(n_chunks + L - 1):
+        if i < n_chunks:
+            pre[i] = segment_pre(params, audio_p[:, :, i * stride : i * stride + seg], cfg)
+            stage_in[0, i] = pre[i][2]
+        layers = [l for l in range(L) if 0 <= i - l < n_chunks]
+        outs, new_states = umx_recurrence_pipelined_step(
+            params, [stage_in.pop((l, i - l)) for l in layers], [stage_st[l] for l in layers],
+            layers, cfg.model, whh)
+        for l, out, st in zip(layers, outs, new_states):
+            stage_st[l] = st
+            if l + 1 < L:
+                stage_in[l + 1, i - l] = out
+            else:
+                re, im, x1 = pre.pop(i - l)
+                torch.mul(weight, segment_post(params, re, im, x1, out, cfg, seg), out=ys[i - l])
+    final = LSTMState(h=torch.stack([stage_st[l][0] for l in range(L)], dim=2),
+                      c=torch.stack([stage_st[l][1] for l in range(L)], dim=2))
+    return _normalized_overlap_add(ys, weight, stride, audio_p.shape[-1], cfg), final
+
+
 def _chunk_outputs(params: UMXParams, a, state: LSTMState | None, cfg: EngineConfig,
                    n_chunks: int, seg: int, stride: int, chunk_batch: int):
     """The weighted chunk outputs of B stacked tracks a (B, 2, P): ys
@@ -225,9 +329,8 @@ def _chunk_outputs(params: UMXParams, a, state: LSTMState | None, cfg: EngineCon
     ``chunk_batch`` chunks × B rows through one batched segment forward at
     zero state, the remainder group at its natural width."""
     B = a.shape[0]
+    weight, ys = _chunk_stack(cfg, n_chunks, B, seg, a.device)
     n_t = cfg.model.n_targets
-    weight = transition_weight(seg, cfg.segment.transition_power, a.device)
-    ys = torch.empty((n_chunks, B, n_t, 2, seg), device=a.device)
     if state is not None:
         for i in range(n_chunks):
             off = i * stride
@@ -347,10 +450,13 @@ class Separator:
 
         Fused (the default): non-streaming configs run the chunk groups at
         ``chunk_batch`` rows (0 = the memory planner's width), streaming
-        configs the chunk loop, and one normalized overlap-add finishes the
-        track.  A track of more chunks than ``window_chunks`` allows (0 =
-        what the planner says fits) runs windowed, decided before the track
-        is placed on the device: a host array then streams window slices in
+        configs the schedule ``stream_impl`` names (the chunk loop; with
+        two chunks or more the groups of ``chunk_batch`` chunks, or the
+        layer pipeline for dense weights), and one normalized overlap-add
+        finishes the track.  Unless a stream arm runs, a track
+        of more chunks than ``window_chunks`` allows (0 = what the planner
+        says fits) runs windowed, decided before the track is placed on the
+        device: a host array then streams window slices in
         and stems out and a CPU tensor returns, so device memory stays
         bounded for any length; a tensor already on the device gives a
         tensor on the device.
@@ -372,11 +478,17 @@ class Separator:
         on_device = self._on_device(audio)
         length = audio.shape[1]
         seg, stride, n_chunks, padded_len = self._geometry(length)
+        # the streaming arm that runs: the two schedules need two chunks
+        # or more, and the pipelined one dense weights; they never window,
+        # while the scan that runs in their place does
+        arm = cfg.stream_impl if fused and cfg.segment.streaming and n_chunks > 1 else "scan"
+        if arm == "pipelined" and is_quantized(self.params):
+            arm = "scan"
         cb = cfg.segment.chunk_batch
-        if fused and not cfg.segment.streaming and cb <= 0:
+        if fused and (not cfg.segment.streaming or arm == "groups") and cb <= 0:
             cb = suggest_chunk_batch(cfg, length / cfg.dsp.sample_rate, params=self.params,
                                      device=self.device)
-        Wc = cfg.segment.window_chunks if fused else -1
+        Wc = cfg.segment.window_chunks if fused and arm == "scan" else -1
         if Wc == 0:
             # a caller's device tensor and the result buffer stay resident
             # across windows; a host array's windows come and go
@@ -402,7 +514,15 @@ class Separator:
                                        min(cb, n_chunks))
         else:
             state = init_lstm_state(cfg.model, self.device, batch=1)
-            out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg, stride)
+            if arm == "groups":
+                out, _ = demix_fused_stream_groups(self.params, audio_p[None], state, cfg,
+                                                   n_chunks, seg, stride, min(cb, n_chunks))
+            elif arm == "pipelined":
+                out, _ = demix_fused_stream_pipelined(self.params, audio_p[None], state, cfg,
+                                                      n_chunks, seg, stride)
+            else:
+                out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg,
+                                     stride)
             out = out[0]
         if fused and progress is not None:
             progress(1.0)

@@ -414,6 +414,62 @@ def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: Mod
     return lstm_in, LSTMState(h=torch.stack(hTs, dim=2), c=torch.stack(cTs, dim=2))
 
 
+def pipelined_hh(params: UMXParams) -> torch.Tensor:
+    """W_hh layer-major in bfloat16, (L, T#, D, G, 4G) contiguous: the
+    operand of :func:`umx_recurrence_pipelined_step`, made once per track
+    so that each iteration's stacked layers are a contiguous slice."""
+    return params.lstm_hh_w.transpose(0, 1).to(torch.bfloat16).contiguous()
+
+
+def umx_recurrence_pipelined_step(params: UMXParams, stage_inputs: list, stage_states: list,
+                                  layers: list, cfg: ModelConfig, whh=None):
+    """One iteration of the layer-pipelined streaming recurrence
+    (``EngineConfig.stream_impl="pipelined"``;
+    ``umx_tpu.models.umx.umx_recurrence_pipelined_step``).
+
+    Stage s runs LSTM layer ``layers[s]`` on another chunk's data: layer l
+    of chunk k needs layer l-1 of chunk k (one iteration earlier) and its
+    own layer-l state after chunk k-1, so the schedule L1(k) | L2(k-1) |
+    L3(k-2) computes what the serial program computes.  The stages' chains
+    are stacked into one merged-kernel call of R = S·T#·D chains at B rows,
+    stage-major (chain ``(s*T# + j)*D + d``), after one stacked float32 ih
+    projection plus both biases.
+
+    stage_inputs: per stage (B, T#, T, H) layer inputs; stage_states: per
+    stage (h, c), each (B, T#, D, G); layers: a contiguous ascending range
+    of layer indices.  ``whh``: :func:`pipelined_hh` of the parameters
+    (made here when not given).  Dense weights only.  Returns (per-stage
+    outputs (B, T#, T, 2G), per-stage new (h, c))."""
+    if is_quantized(params):
+        raise ValueError("the pipelined recurrence needs dense weights (quantized weights "
+                         "run the scan)")
+    S = len(layers)
+    if not (S >= 1 and S == len(stage_inputs) == len(stage_states)
+            and list(layers) == list(range(layers[0], layers[0] + S))):
+        raise ValueError(f"layers must be a contiguous range, one per stage; got {layers}")
+    l0, l1 = layers[0], layers[0] + S
+    if whh is None:
+        whh = pipelined_hh(params)
+    x = torch.stack(stage_inputs, dim=1)  # (B, S, T#, T, H)
+    xs = torch.stack([x, x.flip(3)], dim=3)  # (B, S, T#, D, T, H)
+    ih_w = params.lstm_ih_w[:, l0:l1].transpose(0, 1)  # (S, T#, D, H, 4G)
+    bias = (params.lstm_ih_b[:, l0:l1] + params.lstm_hh_b[:, l0:l1]).transpose(0, 1)
+    proj = torch.matmul(xs, ih_w) + bias[:, :, :, None]  # (B, S, T#, D, T, 4G)
+    Bsz, _, n_t, D, T, G4 = proj.shape
+    # the stages as S*T# targets of one merged layer: (B, S*T#, T, D, 4G)
+    x_proj = proj.view(Bsz, S * n_t, D, T, G4).transpose(2, 3)
+    h0 = torch.stack([h for h, _ in stage_states], dim=1).reshape(Bsz, S * n_t, D, -1)
+    c0 = torch.stack([c for _, c in stage_states], dim=1).reshape(Bsz, S * n_t, D, -1)
+    hs, hT, cT = lstm_layer_merged_batched(
+        x_proj, whh[l0:l1].reshape(S * n_t, D, G4 // 4, G4), h0, c0)
+    outs, states = [], []
+    for s in range(S):
+        j = slice(s * n_t, (s + 1) * n_t)
+        outs.append(torch.cat([hs[:, j, :, 0], hs[:, j, :, 1].flip(2)], dim=-1))
+        states.append((hT[:, j], cT[:, j]))
+    return outs, states
+
+
 def umx_recurrence(params: UMXParams, x1, state: LSTMState, cfg: ModelConfig):
     """The 3-layer bidirectional LSTM, the only phase with streaming state:
     x1 (T#, T, H) → (lstm_out (T#, T, 2G), new state); one batch row of

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from umx_tpu_torch.config import WienerConfig
+from umx_tpu_torch.config import WienerConfig, storage_dtype
 from umx_tpu_torch.ops.stft import masks_to_planes, polar_to_complex
 from umx_tpu_torch.ops.wiener_cuda import wiener_planes_from_mags, wiener_planes_from_masks
 
@@ -61,19 +61,27 @@ def wiener_filter(mix_stft, target_mags, cfg: WienerConfig):
 def _fused_eligible(cfg: WienerConfig) -> bool:
     # the fused passes implement the correct PSD only, and zero iterations
     # is the raw first estimate: both run the einsum reference by semantics
-    return cfg.psd == "correct" and cfg.iterations >= 1
+    return cfg.impl != "einsum" and cfg.psd == "correct" and cfg.iterations >= 1
+
+
+def _out(planes, cfg: WienerConfig):
+    """The fused path's y planes in ``cfg.out_dtype`` (a no-op for float32)."""
+    dt = storage_dtype(cfg.out_dtype)
+    return tuple(p.to(dt) for p in planes)
 
 
 def wiener_filter_planes(xre, xim, target_mags, cfg: WienerConfig):
     """Planes-form Wiener filter: mix planes (2, T, F) and target
-    magnitudes (S, 2, T, F) → (yre, yim), each (S, 2, T, F) float32.
+    magnitudes (S, 2, T, F) → (yre, yim), each (S, 2, T, F).
 
     ``psd="correct"`` with ``iterations >= 1`` runs the fused reduce/apply
-    passes in mode "mags" (kernels for CUDA tensors); ``psd="umxcpp"`` or
-    ``iterations=0`` runs the einsum reference on any device."""
+    passes in mode "mags" (kernels for CUDA tensors) unless ``impl`` is
+    "einsum", and gives its planes in ``out_dtype``; ``psd="umxcpp"``,
+    ``iterations=0`` or ``impl="einsum"`` runs the einsum reference on any
+    device, in float32."""
     if _fused_eligible(cfg):
-        return wiener_planes_from_mags(xre.float().contiguous(), xim.float().contiguous(),
-                                       target_mags.float().contiguous(), cfg)
+        return _out(wiener_planes_from_mags(xre.float().contiguous(), xim.float().contiguous(),
+                                            target_mags.float().contiguous(), cfg), cfg)
     y = wiener_filter(torch.complex(xre, xim), target_mags, cfg)
     return y.real.contiguous(), y.imag.contiguous()
 
@@ -82,13 +90,14 @@ def wiener_filter_masks(xre, xim, masks, n_bins: int, cfg: WienerConfig):
     """Wiener filter fed the network-layout masks (S, T, 2*n_bins).
 
     ``psd="correct"`` with ``iterations >= 1`` runs the fused reduce/apply
-    passes (kernels for CUDA tensors); ``psd="umxcpp"`` or
+    passes (kernels for CUDA tensors) unless ``impl`` is "einsum", and
+    gives its planes in ``out_dtype``; ``psd="umxcpp"`` or
     ``iterations=0`` runs the einsum reference on any device, by
     semantics — the kernels implement the correct PSD only, and zero
-    iterations is the raw mask estimate.  Returns (yre, yim), each
-    (S, 2, T, F) float32."""
+    iterations is the raw mask estimate — as ``impl="einsum"`` does by
+    choice, in float32.  Returns (yre, yim), each (S, 2, T, F)."""
     if _fused_eligible(cfg):
-        return wiener_planes_from_masks(xre, xim, masks.contiguous(), cfg)
+        return _out(wiener_planes_from_masks(xre, xim, masks.contiguous(), cfg), cfg)
     m = masks_to_planes(masks, n_bins)
     mag = torch.sqrt(xre * xre + xim * xim)
     y = wiener_filter(torch.complex(xre, xim), m * mag[None], cfg)

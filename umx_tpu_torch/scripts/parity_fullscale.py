@@ -23,10 +23,14 @@ variant:
     stream2    TWO sequential half-length segments with the LSTM state
                carried across the boundary (streaming semantics,
                umx.cpp:167-171); the oracle carries nn.LSTM state the same way
+    wiener_bf16  wiener.out_dtype="bfloat16" (the Wiener kernels' y planes
+               rounded to bfloat16 before the iSTFT)
+    wiener_f32   wiener.out_dtype="float32" (the same program as fp32)
 
-The JAX script's precision and storage variants (high, ct2_xla,
-ct2_interpret, idft_*, dft_*, wiener_bf16, wiener_f32) have no
-counterpart in the port and raise by name.
+The JAX script's precision variants (high, idft_*, dft_*) raise by name:
+the port's CLI accepts their flags, and each computes what fp32 computes
+(float32 matmuls without TF32, cuFFT), so its row would be fp32's.  So do
+its ct2_xla and ct2_interpret, which are XLA and Pallas forms.
 
 Inputs and weights are the JAX harness's: tests/data/gspi_stereo.wav
 tiled to the segment plus 0.01 * default_rng(0) noise, normalized to a
@@ -51,20 +55,20 @@ import sys
 import numpy as np
 
 PORT_VARIANTS = ("fp32", "qhbm", "pallas", "pertarget", "ct2", "em2", "nowiener", "quirk",
-                 "stream2")
-# the JAX script's variants that select TPU precisions or storage types,
-# none of which the port has (it keeps masks, Wiener output and stems in
-# float32 and runs cuFFT, or the Cooley-Tukey kernel, for the transforms)
+                 "stream2", "wiener_bf16", "wiener_f32")
+_SAME_AS_FP32 = ("the port accepts that flag, and every value of it computes what fp32 "
+                 "computes")
+# the JAX script's variants that select TPU precisions or an XLA / Pallas
+# form: no row of the port's differs from fp32 for the first, and the
+# second does not exist here
 JAX_ONLY_VARIANTS = {
-    "high": "matmul_precision (the port's matmuls are float32 with TF32 off)",
+    "high": f"matmul_precision: {_SAME_AS_FP32} (float32 matmuls with TF32 off)",
     "ct2_xla": "the XLA einsum Cooley-Tukey stages (the port's ct2 is its kernel)",
     "ct2_interpret": "Pallas interpret mode",
-    "idft_default": "idft_precision (the port's inverse is cuFFT or its ct2 kernel)",
-    "idft_high": "idft_precision (the port's inverse is cuFFT or its ct2 kernel)",
-    "dft_default": "dft_precision (the port's forward transform is cuFFT)",
-    "dft_high": "dft_precision (the port's forward transform is cuFFT)",
-    "wiener_bf16": "wiener.out_dtype (the port's Wiener output is float32)",
-    "wiener_f32": "wiener.out_dtype (the port's Wiener output is float32)",
+    "idft_default": f"idft_precision: {_SAME_AS_FP32} (cuFFT or the ct2 kernel)",
+    "idft_high": f"idft_precision: {_SAME_AS_FP32} (cuFFT or the ct2 kernel)",
+    "dft_default": f"dft_precision: {_SAME_AS_FP32} (cuFFT)",
+    "dft_high": f"dft_precision: {_SAME_AS_FP32} (cuFFT)",
 }
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GSPI = os.path.join(REPO, "tests", "data", "gspi_stereo.wav")
@@ -76,7 +80,7 @@ def check_variants(names) -> list[str]:
     out = []
     for v in names:
         if v in JAX_ONLY_VARIANTS:
-            raise ValueError(f"variant {v!r} has no meaning in the port: it selects "
+            raise ValueError(f"variant {v!r} has no row of its own in the port: it selects "
                              f"{JAX_ONLY_VARIANTS[v]}; use one of {', '.join(PORT_VARIANTS)}")
         if v not in PORT_VARIANTS:
             raise SystemExit(f"unknown variant {v}")
@@ -283,6 +287,9 @@ class Parity:
         elif variant == "quirk":
             cfg = cfg.replace(wiener=dataclasses.replace(cfg.wiener, psd="umxcpp"))
             okey = dict(psd="umxcpp")
+        elif variant in ("wiener_bf16", "wiener_f32"):
+            out_dtype = "bfloat16" if variant == "wiener_bf16" else "float32"
+            cfg = cfg.replace(wiener=dataclasses.replace(cfg.wiener, out_dtype=out_dtype))
         return cfg, variant == "qhbm", okey
 
     def ours(self, variant: str) -> np.ndarray:

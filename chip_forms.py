@@ -743,8 +743,10 @@ def reduce_variants(src: str) -> dict[str, str]:
     # at most 64 registers: the 4 blocks an SM that one wave needs at F = 2049
     out["register bound for 4 blocks an SM"] = sub(src, "__launch_bounds__(RB_THREADS)",
                                                    "__launch_bounds__(RB_THREADS, 4)")
-    a, b = src.index("struct ReduceRow<MODE_MASKS>"), src.index("struct ReduceRow<MODE_Y>")
+    a = src.index("struct ReduceRow<MODE_MASKS, MT>")
+    b = src.index("struct ReduceRow<MODE_Y, float>")
     rows = re.sub(r"= (a_re|a_im|masks|mags)\[([^\]]+)\];", r"= __ldcs(\1 + \2);", src[a:b])
+    rows = re.sub(r"= to_f32\(masks\[([^\]]+)\]\);", r"= to_f32(__ldcs(masks + \1));", rows)
     out["streaming loads in every mode"] = src[:a] + rows + src[b:]
     v = src
     for old, new in (("__ldcs(a_re + c0)", "a_re[c0]"), ("__ldcs(a_im + c0)", "a_im[c0]"),
@@ -796,7 +798,7 @@ def reduce_forms(dev, smi: str) -> None:
                         code, a_re.data_ptr(), a_im.data_ptr(), mp, inv.data_ptr(),
                         partials.data_ptr(), racc.data_ptr(), T, F, REDUCE_EARLIER_T_CHUNK, stream)
                 else:
-                    err = lib.umx_wiener_reduce(code, a_re.data_ptr(), a_im.data_ptr(), mp,
+                    err = lib.umx_wiener_reduce(code, 0, a_re.data_ptr(), a_im.data_ptr(), mp,
                                                 inv.data_ptr(), racc.data_ptr(), T, F, stream)
                 S.require(err == 0, f"wiener reduce: CUDA error {err}")
                 return racc

@@ -15,16 +15,26 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    per chain (beyond one launch's 16: two row groups); rows bit-equal
    whatever runs beside them; a width above 512 refused;
 3. the Wiener-EM reduce/apply kernels against their plain versions at
-   S = 4, T = 2584, F = 2049, for 1 and 2 EM iterations;
+   S = 4, T = 2584, F = 2049, for 1 and 2 EM iterations; their bfloat16
+   forms (K2/K3 reading bf16 masks, K3 writing bf16 planes, and the two
+   mixed forms) against the plain versions on the same bf16 inputs and
+   bit-equal to the float32 forms on the upcast masks (K3's bf16 planes:
+   the RNE cast of its float32 ones), each timed beside its float32 form
+   in turns and no slower than 1.05 times it, its bytes bound printed;
 4. the demix path: synthetic UMX-L weights (hidden 1024, seed 0) written
    as a ggml file, a synthetic 100 s stereo WAV, and the port's CLI run
    on it in-process on ``cuda`` (3 chunks of 60 s, so the LSTM state is
    carried twice); the stems are checked, and every kernel's launch
-   counter must have moved during that run.  Then the GPU path is held
-   against the port's CPU path (plain versions) on a short input; the CLI
+   counter must have moved during that run, K2/K3 in their bf16 forms
+   (the card's "auto" seams).  Then the GPU path is held against the
+   port's CPU path (plain versions) on a short input with the storage
+   seams pinned to float32 on both sides (K2/K3's float32 forms counted
+   there), and the card's default against the CPU with the three seams
+   bfloat16 by name (2e-2 of the peak, the error's RMS 2e-3); the CLI
    with ``--host-loop`` on the same track (one segment call per chunk: its
    progress lines, K1 for 3 layers a chunk and K2/K3 once a chunk, stems
-   within 2e-3 of the fused run's and summing to the mix), its wall time
+   within 2e-3 of the fused run's with a float32 stems stack and summing
+   to the mix), its wall time
    beside the fused run's; and a 30 s 48 kHz WAV through the CLI with
    ``--resample``;
 5. the training kernels K4 (forward with residuals), K5 (reverse sweep)
@@ -55,16 +65,18 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    at which that path ran K1 (rows per chain x frames) and K8 (rows x
    frames) are recorded during the run, and each kernel is then held
    against its plain version at each of them; then the GPU against the
-   CPU for that config on a short input;
+   CPU for that config on a short input (float32 seams on both sides);
 9. memory-planner anchors: the measured peak of the non-streaming and
    batched-shift programs beside the planner's estimate, which must bound
-   it;
+   it, at the card's default seams (the stack in bfloat16);
 10. the per-target recurrence kernel K9 against its plain version and
     against K1 at T = 2584, G = 512 and G = 256, bit-stable, with the
     cluster form that ran (blocks per cluster, clusters the card holds at
     once, waves: as few as the card allows), timed beside K1;
     the Wiener passes in mode "mags" (and "y") against their plain
-    versions at S = 4, T = 2584, F = 2049; K2's reduce one kernel launch a
+    versions at S = 4, T = 2584, F = 2049, K3's bf16 planes in both modes
+    too (the RNE cast of its float32 planes, timed beside them, no slower
+    than 1.05 times); K2's reduce one kernel launch a
     call in each mode (``torch.profiler``'s device events);
 11. the catalogue path: five synthetic tracks (three of 100 s, one of
     40 s, one of 400 s) demixed by ``python -m umx_tpu_torch.cli_batch
@@ -75,12 +87,14 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     shapes it gave K1 (three rows per chain in the bucket of 100 s tracks)
     and K2/K3 recorded and each kernel held against its plain version
     there, and that bucket with dense weights held against the tracks one
-    by one and against the CPU; one
+    by one and (float32 seams) against the CPU; one
     ``Separator`` with ``lstm_impl="pallas"`` on the 400 s track (K9
     launched 3 layers x chunks times) against the K1 run and against the
     CPU on a 100 s cut; ``wiener_filter_planes`` on a real segment against
-    ``wiener_filter_masks``; the window and fleet planners' estimates
-    beside the measured peaks;
+    ``wiener_filter_masks`` with float32 planes and at the card's default
+    (bf16 planes, within one bf16 step), K2/K3's forms counted in each
+    run; the window and fleet planners' estimates beside the measured
+    peaks;
 12. timings: each kernel against its plain version and, where one
     PyTorch call computes the same function, that call (CUDA events,
     after warm-up), each beside its bound (bytes over 3.35 TB/s or
@@ -93,7 +107,11 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     earlier forms, and the reduce in modes masks and y no more than 5 %
     slower than its earlier form (K7 and the reduce timed as the median of
     5 rounds) (K9 beside K1 at one row per chain is
-    printed, not gated).
+    printed, not gated).  The kernels line's K2/K3 rows are by storage
+    form: the float32 forms with their launches on phase 4b's float32
+    run, the bf16 forms (``WIENER_FORMS``) with the times of phases 3 and
+    10 and their launches on the demix path (masks) and the planes entry
+    (mags, y).
 13. (run right after phase 4, on its ggml file and 100 s WAV) the HTTP
     service (``umx_tpu_torch.serve``) on cuda with its default flags
     (60 s segments, max_batch 4, Wiener 1 iteration): /healthz, /info
@@ -104,7 +122,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     the same seed run alone (the host loop without the batcher), the
     shapes K1 ran at recorded and K1 held against its plain version there;
     one request alone; a streaming session (10 s pushes, X-Stems-Samples 0
-    until one segment is in, the stems within 1e-5 of the offline demix);
+    until one segment is in, the stems within 1e-5 of the offline demix
+    with a float32 stems stack, which the session's accumulation is);
     a FLAC body (encoded here; skipped with its reason if the native IO
     library cannot be built); the batched segment call's measured peak at
     B = 1 and the served width beside ``segment_batch_hbm_bytes``, which
@@ -131,12 +150,15 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 15. (run after phase 14) oracle parity at UMX-L production shape:
     ``umx_tpu_torch.scripts.parity_fullscale`` at hidden 1024, 60 s, T 2584
     on cuda, every port variant (fp32, qhbm, pallas, pertarget, ct2, em2,
-    nowiener, quirk, stream2, wiener_bf16, wiener_f32) against the independent oracle
+    nowiener, quirk, stream2, wiener_bf16, wiener_f32 with the storage
+    seams pinned to float32, and auto, the card's default bf16 seams)
+    against the independent oracle
     (``eval/oracle.py``) on the host CPU; each variant's kernels must have
     launched (K1-K3; K9 for pertarget, K8 for ct2, K2/K3 in mode y for em2,
     K1 for 3 layers in each half of stream2, at T 1292, where K1 is then
     held against its plain version); every row's waveform error at least
-    32.7 dB below the signal (0.1 dB of SDR), every stem too but qhbm's,
+    32.7 dB below the signal (0.1 dB of SDR), fp32 within 0.5 dB of the
+    port's earlier 73.5 dB, every stem too but qhbm's,
     whose stems may lie no more than 3 dB below the TPU's same stem; each
     row printed beside the JAX package's TPU and CPU rows.  Its figures go
     under ``"parity"`` in the JSON line.
@@ -181,9 +203,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     forms (R 24 in chain groups), R 24 bit-equal per chain to three R 8
     launches on the same inputs and timed against them; the bfloat16
     seams (``mask_dtype``, ``wiener.out_dtype``, ``stems_stack_dtype``,
-    each alone and all three) against float32 as dB below the signal,
-    within the JAX seam tests' gates (2e-2 of the peak, 1.5e-2 for the
-    stack alone); the CLI with ``--stream-impl pipelined`` (counts set to 0
+    each alone and all three) against the three pinned to float32 as dB
+    below the signal, within the JAX seam tests' gates (2e-2 of the peak,
+    1.5e-2 for the stack alone), and the default demix bit-equal to all
+    three in bfloat16; the CLI with ``--stream-impl pipelined`` (counts set to 0
     just before and read just after; K1 at those chain counts, K2/K3 once
     a chunk, four finite stems summing to the mix).  Its figures go under
     ``"stream"``, and K1's row of the kernels line gets its launches by
@@ -249,6 +272,26 @@ EARLIER = {"demix_s": 0.319, "batched_demix_s": 0.294, "catalogue_demix_s": 2.70
 # K2's reduce in modes masks and y may be no slower than its earlier form
 # by more than this share (the same loop; the measurement's spread)
 REDUCE_SLACK = 1.05
+# a bfloat16 form of K2/K3 (bf16 masks read, bf16 planes written) may be no
+# slower than its float32 form on the same values by more than this share
+BF16_SLACK = 1.05
+# the kernels line's rows of K2/K3 by storage form: name -> (wrapper, form
+# of ``wiener_cuda.form``); the float32 forms keep their earlier names
+WIENER_FORMS = {
+    "wiener_reduce": ("wiener_reduce", "masks"),
+    "wiener_apply": ("wiener_apply", "masks"),
+    "wiener_reduce_bf16": ("wiener_reduce", "masks_bf16"),
+    "wiener_apply_bf16": ("wiener_apply", "masks_bf16_out_bf16"),
+    "wiener_reduce_y": ("wiener_reduce", "y"),
+    "wiener_apply_y": ("wiener_apply", "y"),
+    "wiener_apply_y_bf16": ("wiener_apply", "y_out_bf16"),
+    "wiener_reduce_mags": ("wiener_reduce", "mags"),
+    "wiener_apply_mags": ("wiener_apply", "mags"),
+    "wiener_apply_mags_bf16": ("wiener_apply", "mags_out_bf16"),
+    # the mixed forms (timed in phase 3, not rows of the kernels line)
+    "wiener_apply_bf16_masks_f32_out": ("wiener_apply", "masks_bf16"),
+    "wiener_apply_f32_masks_bf16_out": ("wiener_apply", "masks_out_bf16"),
+}
 ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
@@ -553,8 +596,13 @@ def check_train_kernels(dev):
     return args, errs
 
 
-def check_wiener(dev):
-    """Phase 3: K2 + K3 against their plain versions, 1 and 2 iterations."""
+def check_wiener(dev, smi: str):
+    """Phase 3: K2 + K3 against their plain versions, 1 and 2 iterations;
+    then their bfloat16 forms (bf16 masks read by both passes, bf16 planes
+    written by K3) against the plain versions on the same bf16 inputs, and
+    bit-equal to the float32 forms on the upcast masks (K3's bf16 planes:
+    the RNE cast of its float32 ones), each timed beside its float32 form
+    (gated at BF16_SLACK) and its bytes bound."""
     import torch
 
     from umx_tpu_torch.config import WienerConfig
@@ -593,7 +641,88 @@ def check_wiener(dev):
     }
     print(f"wiener passes alone: max|err| reduce {errs['wiener_reduce']:.3g} "
           f"(max|racc| {float(racc_p.abs().max()):.3g}), apply {errs['wiener_apply']:.3g}")
-    return (xre, xim, masks, inv, racc), errs
+
+    # the bfloat16 forms, on bf16 masks and their exact upcast
+    m16 = masks.to(torch.bfloat16)
+    m32 = m16.float()
+    rows, bf16 = {}, {}
+    r16 = W.wiener_reduce("masks", xre, xim, m16, None, inv)
+    r32 = W.wiener_reduce("masks", xre, xim, m32, None, inv)
+    rp = W.wiener_reduce_plain("masks", xre, xim, m16, inv)
+    require(torch.equal(r16, r32), "the reduce on bf16 masks is not the reduce on their upcast")
+    # name: (max|err| against the plain version, the same beyond one bf16
+    # step of each element, scale, gate as a share of the scale)
+    rows["wiener_reduce_bf16"] = (max_err(r16, rp), max_err(r16, rp), float(rp.abs().max()), 1e-5)
+    for out_dt in (torch.float32, torch.bfloat16):
+        a16 = W.wiener_apply("masks", xre, xim, m16, None, rp, inv, 1e-10, out_dt)
+        a32 = W.wiener_apply("masks", xre, xim, m32, None, rp, inv, 1e-10, out_dt)
+        require(all(torch.equal(a, b) for a, b in zip(a16, a32)),
+                f"the apply on bf16 masks ({out_dt}) is not the apply on their upcast")
+    f32 = W.wiener_apply("masks", xre, xim, m32, None, rp, inv, 1e-10)
+    for in_dt, m in (("f32", m32), ("bf16", m16)):
+        o16 = W.wiener_apply("masks", xre, xim, m, None, rp, inv, 1e-10, torch.bfloat16)
+        require(all(torch.equal(b, a.to(torch.bfloat16)) for a, b in zip(f32, o16)),
+                f"K3's bf16 planes ({in_dt} masks) are not the RNE cast of its f32 planes")
+    p16 = W.wiener_apply_plain("masks", xre, xim, m16, None, rp, inv, 1e-10, torch.bfloat16)
+    # the float32 values agree within the f32 gate; a rounding that flips
+    # there moves an element by one bf16 step
+    rows["wiener_apply_bf16"] = (
+        max(max_err(o16[0], p16[0]), max_err(o16[1], p16[1])),
+        max(bf16_step_err(o16[0], p16[0]), bf16_step_err(o16[1], p16[1])),
+        float(p16[0].float().abs().max()), 1e-4)
+    for name, (e, beyond, scale, gate) in rows.items():
+        print(f"{name} vs plain (bf16 masks{', bf16 planes' if 'apply' in name else ''}): "
+              f"max|err| {e:.3g}, {beyond:.3g} beyond one bf16 step (scale {scale:.3g}); "
+              f"bit-equal to the float32 form on the upcast masks")
+        require(beyond <= gate * scale, f"{name} disagrees with its plain version: {beyond}")
+
+    # times beside the float32 forms, the bytes each form must move
+    x_b, racc_b = nbytes(xre, xim), nbytes(rp)
+    y32_b = 2 * N_SRC * 2 * T_SEG * F_BINS * 4
+    px = 2 * T_SEG * F_BINS
+    red_ops, app_ops = px * (8 + 12 * N_SRC), px / 2 * (40 + 30 * N_SRC)
+    forms = {
+        # name: (bf16 call, f32 call, plain call, bf16 bytes, f32 bytes, ops)
+        "wiener_reduce_bf16": (
+            lambda: W.wiener_reduce("masks", xre, xim, m16, None, inv),
+            lambda: W.wiener_reduce("masks", xre, xim, m32, None, inv),
+            lambda: W.wiener_reduce_plain("masks", xre, xim, m16, inv),
+            x_b + nbytes(m16) + racc_b, x_b + nbytes(m32) + racc_b, red_ops),
+        "wiener_apply_bf16": (
+            lambda: W.wiener_apply("masks", xre, xim, m16, None, rp, inv, 1e-10, torch.bfloat16),
+            lambda: W.wiener_apply("masks", xre, xim, m32, None, rp, inv, 1e-10),
+            lambda: W.wiener_apply_plain("masks", xre, xim, m16, None, rp, inv, 1e-10,
+                                         torch.bfloat16),
+            x_b + nbytes(m16) + racc_b + y32_b // 2, x_b + nbytes(m32) + racc_b + y32_b,
+            app_ops),
+        # the two mixed forms: bf16 masks with float32 planes (the first of
+        # several EM iterations), float32 masks with bf16 planes
+        "wiener_apply_bf16_masks_f32_out": (
+            lambda: W.wiener_apply("masks", xre, xim, m16, None, rp, inv, 1e-10),
+            lambda: W.wiener_apply("masks", xre, xim, m32, None, rp, inv, 1e-10),
+            lambda: W.wiener_apply_plain("masks", xre, xim, m16, None, rp, inv, 1e-10),
+            x_b + nbytes(m16) + racc_b + y32_b, x_b + nbytes(m32) + racc_b + y32_b, app_ops),
+        "wiener_apply_f32_masks_bf16_out": (
+            lambda: W.wiener_apply("masks", xre, xim, m32, None, rp, inv, 1e-10, torch.bfloat16),
+            lambda: W.wiener_apply("masks", xre, xim, m32, None, rp, inv, 1e-10),
+            lambda: W.wiener_apply_plain("masks", xre, xim, m32, None, rp, inv, 1e-10,
+                                         torch.bfloat16),
+            x_b + nbytes(m32) + racc_b + y32_b // 2, x_b + nbytes(m32) + racc_b + y32_b,
+            app_ops),
+    }
+    for name, (fn16, fn32, plain, b16, b32, ops) in forms.items():
+        ms32, ms16 = paired_ms(fn32, fn16, 20, name)
+        bound16, bound32 = bound_ms(b16, ops, "f32"), bound_ms(b32, ops, "f32")
+        bf16[name] = {"ms": ms16, "f32_ms": ms32, "bound": bound16, "f32_bound_ms": bound32[0],
+                      "plain_ms": cuda_ms(plain, 20),
+                      "max_abs_err": rows.get(name, (None,))[0]}
+        print(f"{name}: {ms16:.4f} ms against the float32 form's {ms32:.4f} ms "
+              f"({ms16 / ms32:.3f}x; medians of {GATE_ROUNDS} rounds in turns), bound "
+              f"{bound16[0]:.4f} ms by {bound16[1]} ({b16 / 1e6:.1f} MB; float32 form "
+              f"{bound32[0]:.4f} ms, {b32 / 1e6:.1f} MB)  [{smi}]")
+        require(ms16 <= BF16_SLACK * ms32, f"{name} ({ms16} ms) is slower than its float32 "
+                f"form ({ms32} ms) by more than {BF16_SLACK}x")
+    return (xre, xim, masks, inv, racc), errs, bf16
 
 
 def check_ola(dev):
@@ -732,8 +861,57 @@ def stem_correlation(est, ref) -> float:
 
 
 def reset_counts(counters: dict) -> None:
+    """Every wrapper's launch count to 0, and the Wiener wrappers' counts
+    by storage form."""
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "form_launches"):
+            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+
+
+def form_counts() -> dict:
+    """K2/K3's launches by storage form, under the kernels line's names
+    (``WIENER_FORMS``)."""
+    from umx_tpu_torch.ops import wiener_cuda
+
+    return {name: getattr(wiener_cuda, fn).form_launches[form]
+            for name, (fn, form) in WIENER_FORMS.items()}
+
+
+def f32_seams(cfg):
+    """``cfg`` with the three storage seams pinned to float32, for the
+    gates that hold the card against the CPU's plain versions (or two
+    kernels against each other): both sides then store what the CPU's
+    "auto" stores, and the gate measures the kernels, not the seams."""
+    import dataclasses
+
+    return cfg.replace(mask_dtype="float32", stems_stack_dtype="float32",
+                       wiener=dataclasses.replace(cfg.wiener, out_dtype="float32"))
+
+
+def paired_ms(fn_a, fn_b, reps: int, name: str):
+    """Median device ms of ``fn_a`` and ``fn_b`` over GATE_ROUNDS rounds of
+    :func:`cuda_ms`, the two timed in turns (a, b, then b, a), for a gate
+    that holds one form against another in this run; the rounds' ranges go
+    to ``spreads``."""
+    ra, rb = [], []
+    for k in range(GATE_ROUNDS):
+        order = ((ra, fn_a), (rb, fn_b)) if k % 2 == 0 else ((rb, fn_b), (ra, fn_a))
+        for rounds, fn in order:
+            rounds.append(cuda_ms(fn, reps))
+    ra.sort()
+    rb.sort()
+    spreads[f"{name}_f32"] = (ra[0], ra[-1])
+    spreads[name] = (rb[0], rb[-1])
+    return ra[GATE_ROUNDS // 2], rb[GATE_ROUNDS // 2]
+
+
+def bf16_step_err(got, want) -> float:
+    """max|got - want| beyond one bfloat16 step of each element (0 where
+    two bf16 values differ by at most one rounding)."""
+    g, w = got.float(), want.float()
+    step = 2.0 ** (g.abs().maximum(w.abs()).clamp_min(1e-30).log2().floor() - 7)
+    return float(((g - w).abs() - step).clamp_min(0.0).max())
 
 
 def check_pertarget(dev, T, G, seed, smi):
@@ -780,10 +958,13 @@ def check_pertarget(dev, T, G, seed, smi):
     return args, max(errs.values()), form, ms, k1_ms
 
 
-def check_wiener_modes(dev, xre, xim, masks):
+def check_wiener_modes(dev, xre, xim, masks, smi: str):
     """Phase 10: K2/K3 in mode "mags" (and the later iterations' mode "y")
     against their plain versions, on the Wiener check's x with a patch of
-    exact zeros and the magnitudes mask * |x|."""
+    exact zeros and the magnitudes mask * |x|; K3's bfloat16 planes in
+    both modes against the plain versions and bit-equal to the RNE cast
+    of its float32 planes, each timed beside its float32 form (gated at
+    BF16_SLACK) and its bytes bound."""
     import torch
 
     from umx_tpu_torch.config import WienerConfig
@@ -807,10 +988,12 @@ def check_wiener_modes(dev, xre, xim, masks):
         require(bool(torch.isfinite(yk[0]).all()) and err <= 1e-4,
                 f"wiener mags kernels disagree with plain: {err}")
     inv = W.inv_max_abs(xre, xim, 10.0)
-    args, errs = {}, {}
+    args, errs, bf16 = {}, {}, {}
     # mode y reads the first iteration's estimates in the working frame
     y1 = W.wiener_planes_from_mags(xre, xim, mags, WienerConfig())
     yre_s, yim_s = y1[0] * inv, y1[1] * inv
+    y32_b = 2 * N_SRC * 2 * T_SEG * F_BINS * 4
+    px = 2 * T_SEG * F_BINS
     for mode, first, second in (("mags", mags, None), ("y", yre_s, yim_s)):
         racc = W.wiener_reduce(mode, xre, xim, first, second, inv)
         a_re, a_im, m = (first, second, None) if mode == "y" else (xre, xim, first)
@@ -828,7 +1011,37 @@ def check_wiener_modes(dev, xre, xim, masks):
                 f"wiener mode {mode} disagrees with plain: reduce {e_r}, apply {e_a}")
         errs[f"wiener_reduce_{mode}"], errs[f"wiener_apply_{mode}"] = e_r, e_a
         args[mode] = (xre, xim, first, second, inv, racc_p, (a_re, a_im, m))
-    return args, errs
+
+        # K3's bfloat16 planes in this mode
+        name = f"wiener_apply_{mode}_bf16"
+        b_k = W.wiener_apply(mode, xre, xim, first, second, racc_p, inv, 1e-10, torch.bfloat16)
+        b_p = W.wiener_apply_plain(mode, xre, xim, first, second, racc_p, inv, 1e-10,
+                                   torch.bfloat16)
+        require(all(torch.equal(b, a.to(torch.bfloat16)) for a, b in zip(y_k, b_k)),
+                f"{name}: K3's bf16 planes are not the RNE cast of its f32 planes")
+        e_b = max(max_err(b_k[0], b_p[0]), max_err(b_k[1], b_p[1]))
+        beyond = max(bf16_step_err(b_k[0], b_p[0]), bf16_step_err(b_k[1], b_p[1]))
+        require(beyond <= 1e-4 * y_scale, f"{name} disagrees with its plain version: {beyond}")
+        a_in = nbytes(xre, xim, first) + (nbytes(second) if mode == "y" else 0) + nbytes(racc_p)
+        fn16 = (lambda f=first, sc=second, r=racc_p: W.wiener_apply(
+            mode, xre, xim, f, sc, r, inv, 1e-10, torch.bfloat16))
+        fn32 = (lambda f=first, sc=second, r=racc_p: W.wiener_apply(
+            mode, xre, xim, f, sc, r, inv, 1e-10))
+        ms32, ms16 = paired_ms(fn32, fn16, 20, name)
+        ops = px / 2 * (40 + 30 * N_SRC)
+        bound16, bound32 = bound_ms(a_in + y32_b // 2, ops, "f32"), bound_ms(a_in + y32_b, ops, "f32")
+        bf16[name] = {"ms": ms16, "f32_ms": ms32, "bound": bound16, "f32_bound_ms": bound32[0],
+                      "plain_ms": cuda_ms(lambda f=first, sc=second, r=racc_p: W.wiener_apply_plain(
+                          mode, xre, xim, f, sc, r, inv, 1e-10, torch.bfloat16), 20),
+                      "max_abs_err": e_b}
+        print(f"{name}: vs plain max|err| {e_b:.3g}, {beyond:.3g} beyond one bf16 step (max|y| "
+              f"{y_scale:.3g}); the RNE cast of the f32 form's planes, bit for bit; "
+              f"{ms16:.4f} ms against the float32 form's {ms32:.4f} ms ({ms16 / ms32:.3f}x), "
+              f"bound {bound16[0]:.4f} ms by {bound16[1]} (float32 form {bound32[0]:.4f} ms)"
+              f"  [{smi}]")
+        require(ms16 <= BF16_SLACK * ms32, f"{name} ({ms16} ms) is slower than its float32 "
+                f"form ({ms32} ms) by more than {BF16_SLACK}x")
+    return args, errs, bf16
 
 
 def device_kernels(fn):
@@ -898,7 +1111,8 @@ def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
     process with a forced window, launch counts around it and the shapes
     it gives K1 ((rows per chain, frames)) and K2/K3 ((frames, bins))
     recorded; then the bucket of 100 s tracks with dense weights against
-    the same tracks one by one and against the CPU."""
+    the same tracks one by one (the card's default seams) and its first
+    track against the CPU (float32 seams on both sides)."""
     import torch
 
     from umx_tpu_torch.config import EngineConfig, SegmentConfig
@@ -990,13 +1204,15 @@ def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
     # a row of K1 has the same order of summation at every B, and so has
     # every other product of the path
     require(bucket_err == 0.0, f"the bucket and the single tracks are not bit-equal: {bucket_err}")
-    # and the bucket's first track against the port's CPU path (plain versions)
+    # and the bucket's first track against the port's CPU path (plain
+    # versions), the storage seams pinned to float32 on both sides
+    gpu32 = Separator(dense.params, f32_seams(cfg), "cuda").demix_track(bucket[0], seed=seeds[0])
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
-    cpu = Separator.from_ggml(model, cfg, "cpu").demix_track(bucket[0], seed=seeds[0])
-    cpu_err = float(np.max(np.abs(together[0] - cpu)) / np.max(np.abs(cpu)))
-    print(f"GPU vs CPU port, first track of that bucket, 100 s at UMX-L: max|err|/max|stem| "
-          f"{cpu_err:.3g} (CPU run {time.perf_counter() - t0:.1f} s)")
+    cpu = Separator.from_ggml(model, f32_seams(cfg), "cpu").demix_track(bucket[0], seed=seeds[0])
+    cpu_err = float(np.max(np.abs(gpu32 - cpu)) / np.max(np.abs(cpu)))
+    print(f"GPU vs CPU port, first track of that bucket, 100 s at UMX-L, float32 seams: "
+          f"max|err|/max|stem| {cpu_err:.3g} (CPU run {time.perf_counter() - t0:.1f} s)")
     # bf16 operands in the recurrence and cuFFT/cuBLAS summation order, as phase 4
     require(cpu_err <= 2e-3, f"the bucket on the GPU and the CPU path disagree: {cpu_err}")
     return sep, tracks, launches, stats, fleet_s, sorted(k1_shapes), max(bucket_err, cpu_err)
@@ -1071,25 +1287,29 @@ def pertarget_path(sep, model: str, long_track, counters: dict, smi: str):
 
     # the same two kernels with dense weights, where no activation is
     # rounded: the class of the GPU against the CPU
-    dense = Separator.from_ggml(model, sep.cfg, "cuda")
+    # (the storage seams pinned to float32: a bf16 rounding that the two
+    # kernels' last float32 bits flip would be the seam's, not theirs)
+    dense = Separator.from_ggml(model, f32_seams(sep.cfg), "cuda")
     d1 = dense.demix_track(long_track, seed=0)
-    d9 = Separator(dense.params, cfg9, "cuda").demix_track(long_track, seed=0)
+    d9 = Separator(dense.params, f32_seams(cfg9), "cuda").demix_track(long_track, seed=0)
     d_err = rel(d9, d1)
-    print(f"the same with dense weights: K9 vs K1 stems max|err|/max|stem| {d_err:.3g}; the K1 "
+    print(f"the same with dense weights and float32 seams: K9 vs K1 stems max|err|/max|stem| "
+          f"{d_err:.3g}; the K1 "
           f"path against itself on the track x (1 + 1e-6): "
           f"{rel(dense.demix_track(nudged, seed=0), d1):.3g}")
     require(d_err <= 2e-3, f"dense K9 and K1 paths disagree: {d_err}")
     del dense, d1, d9
 
     cut = long_track[:, : int(100 * SR)]
-    cfgc = dataclasses.replace(cfg9, segment=dataclasses.replace(cfg9.segment, window_chunks=2))
+    cfgc = f32_seams(dataclasses.replace(
+        cfg9, segment=dataclasses.replace(cfg9.segment, window_chunks=2)))
     gpu = Separator(sep.params, cfgc, "cuda").demix_track(cut, seed=0)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
     cpu = Separator.from_ggml(model, cfgc, "cpu", quantized_hbm=True).demix_track(cut, seed=0)
     err_cpu, cpu_db = rel(gpu, cpu), energy_db(gpu, cpu)
-    print(f"GPU vs CPU port, catalogue slice (quantized, lstm_impl pallas, windows of 2), 100 s at "
-          f"UMX-L: max|err|/max|stem| {err_cpu:.3g}, error energy {cpu_db:.1f} dB "
+    print(f"GPU vs CPU port, catalogue slice (quantized, lstm_impl pallas, windows of 2, float32 "
+          f"seams), 100 s at UMX-L: max|err|/max|stem| {err_cpu:.3g}, error energy {cpu_db:.1f} dB "
           f"(CPU run {time.perf_counter() - t0:.1f} s)")
     require(bool(np.isfinite(gpu).all()) and cpu_db <= -30.0,
             f"GPU and CPU disagree: error energy {cpu_db} dB")
@@ -1099,7 +1319,13 @@ def pertarget_path(sep, model: str, long_track, counters: dict, smi: str):
 def planes_entry(sep, track):
     """Phase 11: ``wiener_filter_planes`` (modes "mags", then "y") on a real
     segment's x and target magnitudes, against ``wiener_filter_masks`` on
-    the masks that gave them: one estimate through two entries."""
+    the masks that gave them: one estimate through two entries.  Three
+    runs, each with K2/K3's counts by storage form set to 0 just before
+    and read just after: 2 iterations with float32 planes (the float32
+    forms of modes mags and y), 2 iterations at the card's default
+    (mode y's bf16 planes) and 1 iteration at the default (mode mags'
+    bf16 planes).  Returns ({kernels line name: launches}, the float32
+    run's error, the bf16 runs' errors beyond one bf16 step)."""
     import torch
 
     from umx_tpu_torch.config import WienerConfig
@@ -1112,6 +1338,14 @@ def planes_entry(sep, track):
     from umx_tpu_torch.ops.wiener import wiener_filter_masks, wiener_filter_planes
 
     cfg, mcfg = sep.cfg, sep.cfg.model
+    runs = {  # name: (config, the forms it must launch once each)
+        "float32": (WienerConfig(iterations=2, out_dtype="float32"),
+                    ("wiener_reduce_mags", "wiener_apply_mags", "wiener_reduce_y",
+                     "wiener_apply_y")),
+        "default, 2 iterations": (WienerConfig(iterations=2), ("wiener_apply_y_bf16",)),
+        "default, 1 iteration": (WienerConfig(), ("wiener_apply_mags_bf16",)),
+    }
+    counts, errs = {}, {}
     with torch.inference_mode():
         audio = torch.from_numpy(track[:, :SEG]).to("cuda")[None]
         re, im = stft_planes(audio, cfg.dsp)
@@ -1120,25 +1354,33 @@ def planes_entry(sep, track):
         lstm_out, _ = umx_recurrence_batched(sep.params, x1, init_lstm_state(mcfg, "cuda", 1), mcfg)
         masks = umx_post(sep.params, x1, lstm_out, mcfg)
         mags = apply_masks(masks, mag, mcfg.n_bins)[0].contiguous()
-        wcfg = WienerConfig(iterations=2)
-        for fn in (W.wiener_reduce, W.wiener_apply):
-            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
-        yp = wiener_filter_planes(re[0], im[0], mags, wcfg)
-        torch.cuda.synchronize()
-        counts = {f"{n}_{m}": fn.mode_launches[m] for n, fn in
-                  (("wiener_reduce", W.wiener_reduce), ("wiener_apply", W.wiener_apply))
-                  for m in ("mags", "y")}
-        ym = wiener_filter_masks(re[0], im[0], masks[0], mcfg.n_bins, wcfg)
-    scale = float(ym[0].abs().max())
-    err = max(max_err(yp[0], ym[0]), max_err(yp[1], ym[1])) / scale
-    print(f"wiener_filter_planes vs wiener_filter_masks on a real segment, 2 iterations: "
-          f"max|err|/max|y| {err:.3g}; kernel runs by mode {counts}")
-    for name, n in counts.items():
-        require(n == 1, f"{name} ran {n} times through wiener_filter_planes")
-    # mask * x against (mask * |x|) * (x * rsqrt(|x|^2)): a few f32 roundings
-    # per element, carried through two EM iterations
-    require(err <= 1e-4, f"the planes and masks entries disagree: {err}")
-    return counts, err
+        for name, (wcfg, must) in runs.items():
+            for fn in (W.wiener_reduce, W.wiener_apply):
+                fn.form_launches = dict.fromkeys(fn.form_launches, 0)
+            yp = wiener_filter_planes(re[0], im[0], mags, wcfg)
+            torch.cuda.synchronize()
+            run = {k: n for k, n in form_counts().items() if n}
+            ym = wiener_filter_masks(re[0], im[0], masks[0], mcfg.n_bins, wcfg)
+            for k in must:
+                require(run.get(k) == 1, f"wiener_filter_planes ({name}) ran {k} "
+                        f"{run.get(k, 0)} times: {run}")
+                counts[k] = run[k]
+            scale = float(ym[0].float().abs().max())
+            if name == "float32":
+                err = max(max_err(yp[0], ym[0]), max_err(yp[1], ym[1])) / scale
+            else:
+                # two entries' float32 values a few roundings apart: an
+                # element's bf16 rounding may flip, one bf16 step
+                require(yp[0].dtype == ym[0].dtype == torch.bfloat16, f"{name}: {yp[0].dtype}")
+                err = max(bf16_step_err(yp[0], ym[0]), bf16_step_err(yp[1], ym[1])) / scale
+            errs[name] = err
+            print(f"wiener_filter_planes vs wiener_filter_masks on a real segment, {name}: "
+                  f"max|err|/max|y| {err:.3g}{'' if name == 'float32' else ' beyond one bf16 step'}"
+                  f"; kernel runs by form {run}")
+            # mask * x against (mask * |x|) * (x * rsqrt(|x|^2)): a few f32
+            # roundings per element, carried through the EM iterations
+            require(err <= 1e-4, f"the planes and masks entries disagree ({name}): {err}")
+    return counts, errs["float32"], errs
 
 
 def catalogue_anchors(sep, tracks, smi: str):
@@ -1207,13 +1449,18 @@ def main_path(tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
     rc = cli.main([model, wav, out, "--quiet"])
     cli_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    forms = form_counts()
     require(rc == 0, f"CLI exited {rc}")
     print(f"demix path (CLI, {TRACK_SECS:.0f} s track, UMX-L): {cli_s:.3f} s wall  [{smi}]; "
-          f"kernel runs {launches}")
+          f"kernel runs {launches}; K2/K3 by storage form {forms}")
     for name in ("lstm_merged", "wiener_reduce", "wiener_apply"):
         require(launches[name] > 0, f"kernel {name} was not launched on the demix path")
+    # the card's "auto" seams: K2/K3 read bf16 masks and K3 writes bf16 planes
+    for name in ("wiener_reduce_bf16", "wiener_apply_bf16"):
+        require(forms[name] == launches[name.removesuffix("_bf16")],
+                f"the demix path ran K2/K3 in other forms than bf16: {forms}")
     check_stems(out, mix)
-    return launches, out, cli_s
+    return launches, forms, out, cli_s
 
 
 def host_loop_path(tmp: str, model: str, wav: str, mix, counters: dict, fused_out: str,
@@ -1221,8 +1468,12 @@ def host_loop_path(tmp: str, model: str, wav: str, mix, counters: dict, fused_ou
     """Phase 4c: the CLI with ``--host-loop`` on the 100 s track, with the
     launch counters set to 0 just before and read just after: one segment
     call per chunk, its progress printed after each, K1 for 3 layers a
-    chunk and K2/K3 once a chunk; the stems against the fused run's
-    (``fused_out``, phase 4) and the mix.  Returns (launches, wall s)."""
+    chunk and K2/K3 once a chunk; the stems against the fused run's with
+    the stems stack in float32 (the host loop adds each chunk's float32
+    output into its track buffers; the other seams round in the same
+    places on both) and the mix, and beside the default fused run
+    (``fused_out``, phase 4, its stack bfloat16 on the card).  Returns
+    (launches, wall s)."""
     import io
 
     from umx_tpu_torch import cli
@@ -1231,6 +1482,9 @@ def host_loop_path(tmp: str, model: str, wav: str, mix, counters: dict, fused_ou
     cfg = EngineConfig()
     stride = cfg.segment.stride_samples(SR)
     n_chunks = math.ceil((mix.shape[1] + cfg.segment.max_shift_samples(SR)) / stride)
+    fused32_out = os.path.join(tmp, "stems_f32_stack")
+    require(cli.main([model, wav, fused32_out, "--quiet", "--stems-stack-dtype", "float32"]) == 0,
+            "CLI --stems-stack-dtype float32 failed")
     out = os.path.join(tmp, "stems_host_loop")
     printed = io.StringIO()
     reset_counts(counters)
@@ -1251,9 +1505,12 @@ def host_loop_path(tmp: str, model: str, wav: str, mix, counters: dict, fused_ou
         require(launches[name] == n_chunks,
                 f"{name} ran {launches[name]} times on the host loop, not once a chunk ({n_chunks})")
     stems = check_stems(out, mix)
-    fused = check_stems(fused_out, mix)
+    fused = check_stems(fused32_out, mix)
     err = float(np.max(np.abs(stems - fused)) / np.max(np.abs(fused)))
-    print(f"host loop vs fused run (CLI, {TRACK_SECS:.0f} s): max|err|/max|stem| {err:.3g}")
+    default = check_stems(fused_out, mix)
+    print(f"host loop vs fused run with a float32 stems stack (CLI, {TRACK_SECS:.0f} s): "
+          f"max|err|/max|stem| {err:.3g}; vs the default fused run (bf16 stack) "
+          f"{float(np.max(np.abs(stems - default)) / np.max(np.abs(default))):.3g}")
     # the same kernels on the same chunks, accumulated chunk by chunk on the
     # device instead of stacked and overlap-added at once
     require(err <= 2e-3, f"the host loop's stems disagree with the fused run's: {err}")
@@ -1365,18 +1622,20 @@ def batched_path(tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
 
 def batched_gpu_vs_cpu(model: str, mix):
     """Phase 8: the batched config on the GPU against the port's CPU path
-    on 5 s of the mix with 2 s segments."""
+    on 5 s of the mix with 2 s segments, the storage seams pinned to
+    float32 on both sides."""
     import torch
 
     from umx_tpu_torch.engine.separator import Separator
 
-    cfg = batched_config(segment_secs=2.0)
+    cfg = f32_seams(batched_config(segment_secs=2.0))
     short = mix[:, : 5 * SR]
     gpu = Separator.from_ggml(model, cfg, "cuda").demix_track(short, seed=0)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     cpu = Separator.from_ggml(model, cfg, "cpu").demix_track(short, seed=0)
     err = float(np.max(np.abs(gpu - cpu)) / np.max(np.abs(cpu)))
-    print(f"GPU vs CPU port, batched path, 5 s at UMX-L width: max|err|/max|stem| {err:.3g}")
+    print(f"GPU vs CPU port, batched path, 5 s at UMX-L width, float32 seams: max|err|/max|stem| "
+          f"{err:.3g}")
     require(bool(np.isfinite(gpu).all()) and err <= 2e-3, f"GPU and CPU paths disagree: {err}")
     return err
 
@@ -1807,9 +2066,18 @@ def evaluation_path(tmp: str, held_out: dict, counters: dict, smi: str) -> dict:
     return fig
 
 
-def gpu_vs_cpu(model: str, mix):
+def gpu_vs_cpu(model: str, mix, counters: dict, smi: str):
     """Phase 4b: the GPU path against the port's CPU path (plain
-    versions of every kernel) on 5 s of the mix with 2 s segments."""
+    versions of every kernel) on 5 s of the mix with 2 s segments, the
+    storage seams pinned to float32 on both sides; the GPU run's launches
+    by storage form (the float32 forms of K2/K3, counted with the counts
+    set to 0 just before it and read just after).  Then the card's
+    default (its "auto" seams: bfloat16) against the CPU with the three
+    seams set to bfloat16 by name, within the seams' own gates, the
+    rounding flips of the stems stack judged by the error's RMS.
+    Returns (the float32 error, the form counts, the bf16 figures)."""
+    import dataclasses
+
     import torch
 
     from umx_tpu_torch.config import EngineConfig, SegmentConfig
@@ -1817,15 +2085,38 @@ def gpu_vs_cpu(model: str, mix):
 
     cfg = EngineConfig(segment=SegmentConfig(segment_secs=2.0))
     short = mix[:, : 5 * SR]
-    gpu = Separator.from_ggml(model, cfg, "cuda").demix_track(short, seed=0)
+    reset_counts(counters)
+    gpu = Separator.from_ggml(model, f32_seams(cfg), "cuda").demix_track(short, seed=0)
+    forms = form_counts()
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    cpu = Separator.from_ggml(model, cfg, "cpu").demix_track(short, seed=0)
+    cpu = Separator.from_ggml(model, f32_seams(cfg), "cpu").demix_track(short, seed=0)
     err = float(np.max(np.abs(gpu - cpu)) / np.max(np.abs(cpu)))
-    print(f"GPU vs CPU port, 5 s at UMX-L width: max|err|/max|stem| {err:.3g}")
+    print(f"GPU vs CPU port, 5 s at UMX-L width, float32 seams: max|err|/max|stem| {err:.3g}; "
+          f"K2/K3 by storage form on the GPU run {forms}")
     # bf16 operands in the recurrence and cuFFT/cuBLAS summation order;
     # the same a-priori cap as the CPU tests' slice comparison class
     require(bool(np.isfinite(gpu).all()) and err <= 2e-3, f"GPU and CPU paths disagree: {err}")
-    return err
+    for name in ("wiener_reduce", "wiener_apply"):
+        require(forms[name] > 0, f"the float32 seams' run launched no {name} in its f32 form")
+
+    bf16 = cfg.replace(mask_dtype="bfloat16", stems_stack_dtype="bfloat16",
+                       wiener=dataclasses.replace(cfg.wiener, out_dtype="bfloat16"))
+    card = Separator.from_ggml(model, cfg, "cuda").demix_track(short, seed=0)
+    cpu16 = Separator.from_ggml(model, bf16, "cpu").demix_track(short, seed=0)
+    peak = float(np.max(np.abs(cpu16)))
+    diff = (card - cpu16).astype(np.float64)
+    fig = {"rel_err": float(np.max(np.abs(diff))) / peak,
+           "rms_rel": float(np.sqrt(np.mean(diff * diff))) / peak}
+    print(f"GPU default (bf16 seams) vs CPU with the three seams bfloat16 by name, 5 s: "
+          f"max|err|/max|stem| {fig['rel_err']:.3g} (gate {SEAM_GATES['all three']}), RMS "
+          f"{fig['rms_rel']:.3g} of the peak (gate 2e-3)  [{smi}]")
+    # the dense class (2e-3) differs in the last float32 bits, so a bf16
+    # rounding of the stack may flip (one bf16 step, ~4e-3 of the peak): the
+    # largest error is held at the seams' gate, its RMS at the dense class
+    require(bool(np.isfinite(card).all()) and fig["rel_err"] <= SEAM_GATES["all three"]
+            and fig["rms_rel"] <= 2e-3, f"the card's bf16 default and the CPU's bf16 knobs "
+            f"disagree: {fig}")
+    return err, forms, fig
 
 
 def flac_bytes(mix) -> bytes:
@@ -2052,7 +2343,11 @@ def serving_path(model: str, wav: str, mix, counters: dict, smi: str):
         require(all(m == 0 for m in samples[: full[0]]) and samples[full[0]] > 0,
                 f"X-Stems-Samples {samples}: not 0 until {seg} samples were in")
         require(stream.shape == (4, 2, n), f"the session returned {stream.shape}")
-        offline = Separator(sep.params, sep.cfg.replace(shifts=0), "cuda").demix(mix).cpu().numpy()
+        # the session adds each segment's float32 output into its window, so
+        # the offline run it equals keeps its stems stack in float32 (the
+        # other seams round in the same places on both)
+        offline = Separator(sep.params, sep.cfg.replace(shifts=0, stems_stack_dtype="float32"),
+                            "cuda").demix(mix).cpu().numpy()
         stream_err = float(np.max(np.abs(stream - offline)) / np.max(np.abs(offline)))
         print(f"streaming session ({TRACK_SECS:.0f} s in 10 s pushes): X-Stems-Samples {samples} + "
               f"{m} at close; {session_s:.3f} s wall, {per_segment_s:.3f} s per emitted segment "
@@ -2156,6 +2451,10 @@ PARITY_CPU = {"fp32": (119.6, [115.1, 121.2, 121.8, 116.7]),
 PARITY_BOUND_DB = 32.7
 # a quantized-weights stem may lie this far below the TPU's same stem
 QHBM_STEM_SLACK_DB = 3.0
+# the port's fp32 row on an H100 80GB HBM3 at 700 W before the card's
+# "auto" became bfloat16 (the same program: every seam float32); the row
+# with the seams pinned must stay within this much of it
+PARITY_FP32_DB, PARITY_FP32_SLACK_DB = 73.5, 0.5
 
 
 def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
@@ -2167,7 +2466,6 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
     import torch
 
     from umx_tpu_torch.models import umx
-    from umx_tpu_torch.ops import wiener_cuda as W
     from umx_tpu_torch.scripts import parity_fullscale as pf
 
     t_phase = time.perf_counter()
@@ -2175,19 +2473,23 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
     require(par.n_frames == T_SEG, f"parity segment of {par.n_frames} frames, not {T_SEG}")
     # what each variant must launch beyond the Wiener and recurrence
     # kernels every dense row runs
+    # K2/K3 by storage form ("form <kernels line name>"): every row but
+    # auto pins the seams to float32, so its passes run the float32 forms
+    k23 = ("form wiener_reduce", "form wiener_apply")
     expect = {
-        "fp32": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
-        "qhbm": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
-        "pallas": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
-        "pertarget": ("lstm_layer_pertarget", "wiener_reduce_masks", "wiener_apply_masks"),
-        "ct2": ("lstm_merged", "istft_ct2", "wiener_reduce_masks", "wiener_apply_masks"),
-        "em2": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks", "wiener_reduce_y",
-                "wiener_apply_y"),
+        "fp32": ("lstm_merged", *k23),
+        "qhbm": ("lstm_merged", *k23),
+        "pallas": ("lstm_merged", *k23),
+        "pertarget": ("lstm_layer_pertarget", *k23),
+        "ct2": ("lstm_merged", "istft_ct2", *k23),
+        "em2": ("lstm_merged", *k23, "form wiener_reduce_y", "form wiener_apply_y"),
         "nowiener": ("lstm_merged",),
         "quirk": ("lstm_merged",),
-        "stream2": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
-        "wiener_bf16": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
-        "wiener_f32": ("lstm_merged", "wiener_reduce_masks", "wiener_apply_masks"),
+        "stream2": ("lstm_merged", *k23),
+        "wiener_bf16": ("lstm_merged", "form wiener_reduce", "form wiener_apply_f32_masks_bf16_out"),
+        "wiener_f32": ("lstm_merged", *k23),
+        # the card's default seams: K2/K3 read bf16 masks, K3 writes bf16
+        "auto": ("lstm_merged", "form wiener_reduce_bf16", "form wiener_apply_bf16"),
     }
     rows, launches, oracle_s, ours_s = [], {}, {}, {}
     k1_shapes: set = set()
@@ -2197,8 +2499,6 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
                         else par.oracle(**par.variant_config(v)[2]))
         oracle_s[v] = time.perf_counter() - t0
         reset_counts(counters)
-        for fn in (W.wiener_reduce, W.wiener_apply):
-            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
         seen: set = set()
         t0 = time.perf_counter()
         with recording(umx, "lstm_layer_merged_batched", lambda x, *a: (x.shape[0], x.shape[2]),
@@ -2207,9 +2507,7 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
         torch.cuda.synchronize()
         ours_s[v] = time.perf_counter() - t0
         n = {name: fn.launches for name, fn in counters.items() if fn.launches}
-        n.update({f"{name}_{m}": fn.mode_launches[m] for name, fn in
-                  (("wiener_reduce", W.wiener_reduce), ("wiener_apply", W.wiener_apply))
-                  for m in fn.mode_launches if fn.mode_launches[m]})
+        n.update({f"form {k}": c for k, c in form_counts().items() if c})
         launches[v] = n
         missing = [k for k in expect[v] if not n.get(k)]
         require(not missing, f"parity variant {v} launched no {missing}: {n}")
@@ -2229,6 +2527,10 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
               f"  [{smi}]")
     print(json.dumps(rows))
     pf.print_table(rows)
+    fp32 = next(r["waveform_err_db"] for r in rows if r["variant"] == "fp32")
+    require(abs(fp32 - PARITY_FP32_DB) <= PARITY_FP32_SLACK_DB,
+            f"parity fp32 (float32 seams): {fp32} dB, not within {PARITY_FP32_SLACK_DB} dB of "
+            f"the port's earlier {PARITY_FP32_DB}")
     for row in rows:
         v, whole, stems = row["variant"], row["waveform_err_db"], row["per_stem_err_db"]
         require(whole >= PARITY_BOUND_DB,
@@ -2974,18 +3276,22 @@ def stream_phase(dev, model: str, wav: str, mix, counters: dict, smi: str) -> di
     laps["K1"] = time.perf_counter() - t_phase
     del args, parts, full, xp, whh, h0, c0
 
-    # the bfloat16 seams against float32, on the same track and seed
-    ref = sep.demix_track(mix, seed=0)
+    # the bfloat16 seams against float32, on the same track and seed: the
+    # baseline pins the three seams to float32 (the card's "auto" is
+    # bfloat16), each case sets one of them, or all three, to bfloat16
+    cfg32 = f32_seams(cfg)
+    ref = S.Separator(params, cfg32).demix_track(mix, seed=0)
     amp = float(np.abs(ref).max())
-    cases = {"mask_dtype": cfg.replace(mask_dtype="bfloat16"),
-             "wiener.out_dtype": cfg.replace(wiener=dataclasses.replace(cfg.wiener,
-                                                                         out_dtype="bfloat16")),
-             "stems_stack_dtype": cfg.replace(stems_stack_dtype="bfloat16")}
+    cases = {"mask_dtype": cfg32.replace(mask_dtype="bfloat16"),
+             "wiener.out_dtype": cfg32.replace(wiener=dataclasses.replace(cfg32.wiener,
+                                                                           out_dtype="bfloat16")),
+             "stems_stack_dtype": cfg32.replace(stems_stack_dtype="bfloat16")}
     cases["all three"] = cases["mask_dtype"].replace(wiener=cases["wiener.out_dtype"].wiener,
                                                      stems_stack_dtype="bfloat16")
     fig["seams"] = {}
+    outs = {}
     for name, c in cases.items():
-        out = S.Separator(params, c).demix_track(mix, seed=0)
+        out = outs[name] = S.Separator(params, c).demix_track(mix, seed=0)
         err = float(np.abs(out - ref).max()) / amp
         db = 10.0 * math.log10(float(np.sum(ref.astype(np.float64) ** 2))
                                / max(float(np.sum((out - ref).astype(np.float64) ** 2)), 1e-30))
@@ -2994,7 +3300,14 @@ def stream_phase(dev, model: str, wav: str, mix, counters: dict, smi: str) -> di
         require(0.0 < err <= SEAM_GATES[name],
                 f"bf16 {name}: max|err|/max|stem| {err}, gate {SEAM_GATES[name]}")
         fig["seams"][name] = {"db_below_signal": db, "rel_err": err}
-    del sep
+    # the card's default is the three seams in bfloat16, bit for bit
+    default = sep.demix_track(mix, seed=0)
+    fig["seams"]["default_is_all_three"] = bool(np.array_equal(default, outs["all three"]))
+    print(f"default (auto) seams on the card vs all three bfloat16 by name: bit-equal "
+          f"{fig['seams']['default_is_all_three']}")
+    require(fig["seams"]["default_is_all_three"],
+            "the card's default demix is not the demix with the three seams bfloat16")
+    del sep, outs
     laps["seams"] = time.perf_counter() - t_phase
 
     # the CLI with the pipelined schedule, its counts read around it
@@ -3065,11 +3378,12 @@ def main() -> int:
         "ola_normalized": ola_cuda.ola_normalized,
         "istft_ct2": istft_ct_cuda.istft_ct2,
     }
-    wiener_args, wiener_errs = check_wiener(dev)
+    wiener_args, wiener_errs, wiener_bf16 = check_wiener(dev, smi)
     k9_args, k9_err, k9_form, k9_ms, k9_k1_ms = check_pertarget(dev, T_SEG, G_HIDDEN, 9, smi)
     _, k9_err_hq, k9_form_hq, k9_ms_hq, k9_k1_ms_hq = check_pertarget(dev, T_SEG, 256, 10, smi)
-    mode_args, mode_errs = check_wiener_modes(dev, *wiener_args[:3])
+    mode_args, mode_errs, mode_bf16 = check_wiener_modes(dev, *wiener_args[:3], smi)
     check_reduce_launches(wiener_args, mode_args)
+    bf16_forms = {**wiener_bf16, **mode_bf16}
 
     lstm_args, lstm_err = check_lstm(dev, T_SEG, 1, seed=0)
     lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # two n-tiles of rows
@@ -3080,8 +3394,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="umx_smoke_") as tmp:
         model, wav, mix = write_inputs(tmp)
-        launches, fused_out, cli_s = main_path(tmp, model, wav, mix, counters, smi)
-        cpu_err = gpu_vs_cpu(model, mix)
+        launches, main_forms, fused_out, cli_s = main_path(tmp, model, wav, mix, counters, smi)
+        cpu_err, f32_forms, bf16_vs_cpu = gpu_vs_cpu(model, mix, counters, smi)
         host_launches, host_s, host_err = host_loop_path(tmp, model, wav, mix, counters,
                                                          fused_out, smi)
         print(f"CLI wall time on the {TRACK_SECS:.0f} s track: fused {cli_s:.3f} s, host loop "
@@ -3147,7 +3461,7 @@ def main() -> int:
         long_track = list(tracks.values())[-1]
         k9_launches, k9_path_s, k1_path_s, k9_vs_k1, cat_cpu_err = pertarget_path(
             csep, model, long_track, counters, smi)
-        mode_launches, planes_err = planes_entry(csep, long_track)
+        mode_launches, planes_err, planes_errs = planes_entry(csep, long_track)
         cat_anchors = catalogue_anchors(csep, tracks, smi)
         del csep
 
@@ -3376,6 +3690,14 @@ def main() -> int:
         "wiener_apply_y": (wsrc, f"{wrep}:245", mode_errs["wiener_apply_y"]),
         "wiener_reduce_mags": (wsrc, f"{wrep}:148", mode_errs["wiener_reduce_mags"]),
         "wiener_apply_mags": (wsrc, f"{wrep}:245", mode_errs["wiener_apply_mags"]),
+        # the bfloat16 forms (bf16 masks read by K2/K3; bf16 planes written
+        # by K3), the TPU kernels' storage dtypes
+        "wiener_reduce_bf16": (wsrc, f"{wrep}:89", bf16_forms["wiener_reduce_bf16"]["max_abs_err"]),
+        "wiener_apply_bf16": (wsrc, f"{wrep}:128", bf16_forms["wiener_apply_bf16"]["max_abs_err"]),
+        "wiener_apply_y_bf16": (wsrc, f"{wrep}:245",
+                                bf16_forms["wiener_apply_y_bf16"]["max_abs_err"]),
+        "wiener_apply_mags_bf16": (wsrc, f"{wrep}:245",
+                                   bf16_forms["wiener_apply_mags_bf16"]["max_abs_err"]),
         "lstm_layer_pertarget": ("umx_tpu_torch/csrc/lstm_pertarget.cu",
                                  "umx_tpu/ops/lstm_pallas.py:39", max(k9_err, k9_err_hq)),
         "lstm_merged_train_fwd": ("umx_tpu_torch/csrc/lstm_merged.cu",
@@ -3392,7 +3714,11 @@ def main() -> int:
     # each kernel's launches on its own path: K1-K3 the demix, K4-K6
     # training, K7-K8 the batched whole-track demix, K9 the per-target
     # catalogue run, the Wiener modes mags and y the planes entry
-    path_launches = {**{k: launches[k] for k in ("lstm_merged", "wiener_reduce", "wiener_apply")},
+    # K2/K3: the bf16 forms on the demix path (the card's default), the
+    # float32 forms on the float32-seams run of phase 4b
+    path_launches = {"lstm_merged": launches["lstm_merged"],
+                     **{k: f32_forms[k] for k in ("wiener_reduce", "wiener_apply")},
+                     **{k: main_forms[k] for k in ("wiener_reduce_bf16", "wiener_apply_bf16")},
                      **{k: train_launches[k] for k in
                         ("lstm_merged_train_fwd", "lstm_merged_bwd_step", "lstm_merged_dw")},
                      **{k: batched_launches[k] for k in ("ola_normalized", "istft_ct2")},
@@ -3400,6 +3726,12 @@ def main() -> int:
                      **mode_launches}
     for name, n in path_launches.items():
         require(n > 0, f"kernel {name} was launched no time on its path")
+    for name, form in bf16_forms.items():
+        if name not in meta:
+            continue  # the mixed forms: figures under "wiener_bf16_forms"
+        times[name] = (form["ms"], form["plain_ms"])
+        bounds[name] = form["bound"]
+        library[name] = None
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[name], "max_abs_err": err,
@@ -3407,11 +3739,18 @@ def main() -> int:
          "bound_by": bounds[name][1], "library_ms": library[name]}
         for name, (src, rep, err) in meta.items()
     ]
+    for k in kernels:
+        if k["name"] in bf16_forms:
+            k["f32_form_ms"] = bf16_forms[k["name"]]["f32_ms"]
     # K1's launches by chain count on the CLI's pipelined run (phase 18)
     kernels[0]["pipelined_launches_by_chains"] = stream["k1_chain_launches"]
     kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
-                      "gpu_vs_cpu_rel_err": cpu_err, "train_steps_per_s": steps_per_s,
+                      "gpu_vs_cpu_rel_err": cpu_err, "bf16_default_vs_cpu": bf16_vs_cpu,
+                      "wiener_bf16_forms": {n: {k: v for k, v in f.items() if k != "bound"}
+                                            | {"bound_ms": f["bound"][0]}
+                                            for n, f in bf16_forms.items()},
+                      "planes_entry_errs": planes_errs, "train_steps_per_s": steps_per_s,
                       "train_steps_per_s_batch_32": wide_steps_per_s,
                       "lstm_merged_train_fwd_form": lstm_cuda.lstm_merged_train_fwd.form,
                       "lstm_merged_bwd_step_form": lstm_cuda.lstm_merged_bwd_step.form,

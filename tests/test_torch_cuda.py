@@ -20,6 +20,16 @@ from umx_tpu_torch.ops import lstm_cuda, wiener_cuda
 pytestmark = pytest.mark.cuda
 
 
+def _f32_seams(cfg):
+    """``cfg`` with the three storage seams pinned to float32: where the
+    card is held against the CPU's plain versions, both sides store what
+    the CPU's "auto" stores (the card's "auto" is bfloat16)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, mask_dtype="float32", stems_stack_dtype="float32",
+                               wiener=dataclasses.replace(cfg.wiener, out_dtype="float32"))
+
+
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
@@ -348,9 +358,13 @@ def test_wiener_reduce_is_bit_stable_and_counted(dev):
 )
 def test_wiener_dispatch_on_the_card_matches_cpu(dev, cfg):
     """The einsum routes (psd umxcpp, 0 iterations) run on any device;
-    the kernel route agrees with the CPU's plain versions."""
+    the kernel route agrees with the CPU's plain versions (float32 planes
+    on both sides)."""
+    import dataclasses
+
     from umx_tpu_torch.ops.wiener import wiener_filter_masks
 
+    cfg = dataclasses.replace(cfg, out_dtype="float32")
     g = torch.Generator(device=dev).manual_seed(9)
     xre = 30 * torch.randn((2, 23, 2049), generator=g, device=dev)
     xim = 30 * torch.randn((2, 23, 2049), generator=g, device=dev)
@@ -372,7 +386,8 @@ def test_separator_on_the_card_matches_cpu(dev):
     from umx_tpu_torch.io.ggml import GGMLModel
     from umx_tpu_torch.models.umx import params_from_ggml, synthetic_state_dicts
 
-    cfg = EngineConfig(model=ModelConfig(hidden_size=48), segment=SegmentConfig(segment_secs=1.0))
+    cfg = _f32_seams(EngineConfig(model=ModelConfig(hidden_size=48),
+                                  segment=SegmentConfig(segment_secs=1.0)))
     model = GGMLModel(48, synthetic_state_dicts(cfg.model, seed=2))
     track = np.random.default_rng(2).standard_normal((2, 100_000)).astype(np.float32) * 0.1
     gpu = Separator(params_from_ggml(model, cfg.model, dev), cfg, dev).demix_track(track, seed=1)
@@ -534,11 +549,11 @@ def test_batched_whole_track_on_the_card_matches_cpu(dev):
     from umx_tpu_torch.models.umx import params_from_ggml, synthetic_state_dicts
     from umx_tpu_torch.ops import istft_ct_cuda, ola_cuda
 
-    cfg = EngineConfig(
+    cfg = _f32_seams(EngineConfig(
         dsp=DSPConfig(istft_algo="ct2"), model=ModelConfig(hidden_size=48),
         segment=SegmentConfig(segment_secs=1.0, streaming=False, chunk_batch=0),
         shifts=2, ola_impl="pallas",
-    )
+    ))
     model = GGMLModel(48, synthetic_state_dicts(cfg.model, seed=3))
     track = np.random.default_rng(3).standard_normal((2, 100_000)).astype(np.float32) * 0.1
     k7, k8 = ola_cuda.ola_normalized.launches, istft_ct_cuda.istft_ct2.launches
@@ -686,8 +701,9 @@ def test_catalogue_slice_on_the_card_matches_cpu(dev):
         params_from_ggml, quantized_params_from_ggml, synthetic_state_dicts,
     )
 
-    cfg = EngineConfig(model=ModelConfig(hidden_size=128, lstm_impl="pallas"),
-                       segment=SegmentConfig(segment_secs=1.0, window_chunks=2), shifts=1)
+    cfg = _f32_seams(EngineConfig(model=ModelConfig(hidden_size=128, lstm_impl="pallas"),
+                                  segment=SegmentConfig(segment_secs=1.0, window_chunks=2),
+                                  shifts=1))
     model = read_ggml_bytes(write_ggml_bytes(128, synthetic_state_dicts(cfg.model, seed=0)),
                             keep_quantized=True)
     t = np.arange(int(2.6 * 44100)) / 44100
@@ -832,7 +848,8 @@ def test_host_loop_demix_on_the_card_matches_cpu(dev):
     from umx_tpu_torch.engine.separator import Separator
     from umx_tpu_torch.models.umx import synthetic_params
 
-    cfg = EngineConfig(model=ModelConfig(hidden_size=64), segment=SegmentConfig(segment_secs=1.0))
+    cfg = _f32_seams(EngineConfig(model=ModelConfig(hidden_size=64),
+                                  segment=SegmentConfig(segment_secs=1.0)))
     track = np.random.default_rng(4).uniform(-0.5, 0.5, (2, int(2.6 * 44100))).astype(np.float32)
     seen = []
     gpu = Separator(synthetic_params(cfg.model, seed=0, device=dev), cfg, dev).demix(
@@ -1289,7 +1306,8 @@ def test_stream_schedules_on_the_card_match_the_scan(dev):
 
     import numpy as np
 
-    cfg = EngineConfig(model=ModelConfig(hidden_size=512), segment=SegmentConfig(segment_secs=2.0))
+    cfg = _f32_seams(EngineConfig(model=ModelConfig(hidden_size=512),
+                                  segment=SegmentConfig(segment_secs=2.0)))
     params = synthetic_params(cfg.model, seed=3, device=dev)
     seg, stride = cfg.segment.segment_samples(44100), cfg.segment.stride_samples(44100)
     n_chunks = 4
@@ -1323,3 +1341,119 @@ def test_stream_schedules_on_the_card_match_the_scan(dev):
         out_cpu, _ = S.demix_fused_stream_pipelined(
             cpu, audio.cpu(), LSTMState(h=h0, c=c0), cfg, n_chunks, seg, stride)
     assert (out_cpu - pipe.cpu()).abs().max().item() <= 2e-3 * peak
+
+
+# ---------------------------------------------------------------------------
+# The Wiener kernels in the TPU kernels' storage dtypes: bfloat16 masks read
+# by K2/K3, bfloat16 planes written by K3, and "auto" = bfloat16 on the card
+# ---------------------------------------------------------------------------
+
+
+def _wiener_case(dev, T, F, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xre = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    xim = 30 * torch.randn((2, T, F), generator=g, device=dev)
+    masks = torch.rand((4, T, 2 * F), generator=g, device=dev).to(torch.bfloat16)
+    return xre, xim, masks, wiener_cuda.inv_max_abs(xre, xim, 10.0)
+
+
+@pytest.mark.parametrize("T", [1, 37, 300, 2584])
+def test_wiener_bf16_masks_bit_equal_to_the_upcast(dev, T):
+    """K2 and K3 reading bfloat16 masks give the bits of the float32 forms
+    on the masks upcast (exact), for both output dtypes, at F = 2049 (odd,
+    so channel 1 of a bf16 mask row lies on a 2-byte boundary only)."""
+    xre, xim, m16, inv = _wiener_case(dev, T, 2049, seed=T)
+    m32 = m16.float()
+    red, app = wiener_cuda.wiener_reduce, wiener_cuda.wiener_apply
+    before = (red.form_launches["masks_bf16"], app.form_launches["masks_bf16"],
+              app.form_launches["masks_bf16_out_bf16"])
+    racc = red("masks", xre, xim, m16, None, inv)
+    assert torch.equal(racc, red("masks", xre, xim, m32, None, inv))
+    for out in (torch.float32, torch.bfloat16):
+        a = app("masks", xre, xim, m16, None, racc, inv, 1e-10, out)
+        b = app("masks", xre, xim, m32, None, racc, inv, 1e-10, out)
+        assert a[0].dtype == out and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (red.form_launches["masks_bf16"], app.form_launches["masks_bf16"],
+            app.form_launches["masks_bf16_out_bf16"]) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("mode", ["masks", "mags", "y"])
+@pytest.mark.parametrize("T", [37, 2584])
+def test_wiener_bf16_output_is_the_rne_cast_of_the_f32_output(dev, mode, T):
+    """K3 writing bfloat16 planes gives the round-to-nearest-even cast of
+    its float32 planes (``Tensor.to(torch.bfloat16)``), bit for bit."""
+    xre, xim, m16, inv = _wiener_case(dev, T, 2049, seed=T + 1)
+    m32 = m16.float()
+    racc = wiener_cuda.wiener_reduce("masks", xre, xim, m32, None, inv)
+    if mode == "masks":
+        first, second = m32, None
+    elif mode == "mags":
+        mags = m32.view(4, T, 2, 2049).transpose(1, 2) * torch.sqrt(xre * xre + xim * xim)[None]
+        first, second = mags.contiguous(), None
+    else:
+        y = wiener_cuda.wiener_apply("masks", xre, xim, m32, None, racc, inv, 1e-10)
+        first, second = (y[0] * inv).contiguous(), (y[1] * inv).contiguous()
+    f32 = wiener_cuda.wiener_apply(mode, xre, xim, first, second, racc, inv, 1e-10)
+    b16 = wiener_cuda.wiener_apply(mode, xre, xim, first, second, racc, inv, 1e-10,
+                                   torch.bfloat16)
+    for a, b in zip(f32, b16):
+        assert b.dtype == torch.bfloat16 and torch.equal(b, a.to(torch.bfloat16))
+
+
+def test_wiener_wrappers_take_bf16_without_an_f32_copy(dev):
+    """Given bfloat16 masks, the wrappers launch the bf16 forms and
+    allocate nothing but their outputs: no float32 copy of the masks (and
+    with bf16 output no float32 planes); an unsupported dtype raises by
+    name before any launch."""
+    T, F = 2584, 2049
+    xre, xim, m16, inv = _wiener_case(dev, T, F, seed=3)
+    racc = wiener_cuda.wiener_reduce("masks", xre, xim, m16, None, inv)
+    torch.cuda.synchronize()
+    for call, outputs in (
+        (lambda: wiener_cuda.wiener_reduce("masks", xre, xim, m16, None, inv), 4 * 4 * F * 4),
+        (lambda: wiener_cuda.wiener_apply("masks", xre, xim, m16, None, racc, inv, 1e-10,
+                                          torch.bfloat16), 2 * 4 * 2 * T * F * 2),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        # the caching allocator rounds each output up to 2 MB at most; a
+        # float32 copy of the masks would add 169 MB
+        assert grown <= outputs + 2 * 2**21, (grown, outputs)
+        del out
+    launches = (wiener_cuda.wiener_reduce.launches, wiener_cuda.wiener_apply.launches)
+    with pytest.raises(TypeError, match=r"torch\.float16"):
+        wiener_cuda.wiener_reduce("masks", xre, xim, m16.half(), None, inv)
+    with pytest.raises(TypeError, match=r"torch\.float16"):
+        wiener_cuda.wiener_apply("masks", xre, xim, m16, None, racc, inv, 1e-10, torch.float16)
+    y16 = torch.zeros((4, 2, T, F), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError, match=r"torch\.bfloat16"):
+        wiener_cuda.wiener_reduce("y", xre, xim, y16, y16, inv)
+    assert (wiener_cuda.wiener_reduce.launches, wiener_cuda.wiener_apply.launches) == launches
+
+
+def test_default_demix_on_the_card_is_the_explicit_bf16_demix(dev):
+    """"auto" resolves to bfloat16 on the card for the three seams: a
+    default Separator on cuda gives the bits of the same demix with the
+    seams set to bfloat16 by name, and K2/K3 run their bf16 forms."""
+    import dataclasses
+
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.models.umx import synthetic_params
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=64), segment=SegmentConfig(segment_secs=1.0))
+    bf16 = dataclasses.replace(cfg, mask_dtype="bfloat16", stems_stack_dtype="bfloat16",
+                               wiener=dataclasses.replace(cfg.wiener, out_dtype="bfloat16"))
+    params = synthetic_params(cfg.model, seed=0, device=dev)
+    track = np.random.default_rng(5).uniform(-0.5, 0.5, (2, int(2.6 * 44100))).astype(np.float32)
+    before = wiener_cuda.wiener_apply.form_launches["masks_bf16_out_bf16"]
+    auto = Separator(params, cfg, dev).demix_track(track, seed=1)
+    assert wiener_cuda.wiener_apply.form_launches["masks_bf16_out_bf16"] > before
+    assert np.array_equal(auto, Separator(params, bf16, dev).demix_track(track, seed=1))
+    f32 = Separator(params, _f32_seams(cfg), dev).demix_track(track, seed=1)
+    assert not np.array_equal(auto, f32)

@@ -134,8 +134,9 @@ def test_bf16_seam_within_its_gate(setup, knobs, gate):
 
 
 def test_auto_storage_is_float32(setup):
-    """"auto" is the JAX package's off-TPU meaning: every default result
-    keeps its bits when the three seams are set to float32 by name."""
+    """On the CPU "auto" is float32, as the JAX package resolves it on a
+    CPU backend: every default CPU result keeps its bits when the three
+    seams are set to float32 by name."""
     _, params, audio = setup
     _, f32 = _cfgs()
     auto = dataclasses.replace(f32, mask_dtype="auto", stems_stack_dtype="auto",
@@ -143,6 +144,87 @@ def test_auto_storage_is_float32(setup):
     assert auto == EngineConfig(model=f32.model, segment=f32.segment, shifts=0)
     a = Separator(params, auto, "cpu").demix_track(audio, seed=3)
     assert np.array_equal(a, Separator(params, f32, "cpu").demix_track(audio, seed=3))
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_bf16_seams_reach_the_passes_and_the_istft_as_stored(setup, monkeypatch, rows):
+    """With bfloat16 masks and Wiener output, a segment hands the masks to
+    the fused passes as they are stored (no float32 copy; the passes read
+    them) and the last pass's bfloat16 planes to the iSTFT (no float32
+    copy; the iSTFT upcasts once), for one row or several; the output is
+    float32 waves."""
+    from umx_tpu_torch.engine import separator as S
+    from umx_tpu_torch.models.umx import init_lstm_state
+    from umx_tpu_torch.ops import wiener_cuda
+
+    _, params, audio = setup
+    _, cfg = _cfgs(mask=True, wiener_out=True)
+    seen = {"masks": [], "out": [], "planes": []}
+    reduce, apply, istft = wiener_cuda.wiener_reduce, wiener_cuda.wiener_apply, S.istft_planes
+
+    def spy_reduce(mode, xre, xim, m, y_im, inv):
+        if mode == "masks":
+            seen["masks"].append(m.dtype)
+        return reduce(mode, xre, xim, m, y_im, inv)
+
+    def spy_apply(*args):
+        seen["out"].append(args[-1])
+        return apply(*args)
+
+    def spy_istft(tre, tim, n, dsp):
+        seen["planes"].append((tre.dtype, tim.dtype))
+        return istft(tre, tim, n, dsp)
+
+    monkeypatch.setattr(wiener_cuda, "wiener_reduce", spy_reduce)
+    monkeypatch.setattr(wiener_cuda, "wiener_apply", spy_apply)
+    monkeypatch.setattr(S, "istft_planes", spy_istft)
+    n = cfg.segment.segment_samples(SR)
+    batch = torch.from_numpy(np.stack([audio[:, :n]] * rows))
+    with torch.inference_mode():
+        waves, _ = S.segment_forward_batched(
+            params, batch, init_lstm_state(cfg.model, batch=rows), cfg, n)
+    assert seen["masks"] == [torch.bfloat16] * rows
+    assert seen["out"] == [torch.bfloat16] * rows
+    assert seen["planes"] == [(torch.bfloat16, torch.bfloat16)]
+    assert waves.dtype == torch.float32 and waves.shape == (rows, 4, 2, n)
+
+
+@pytest.mark.parametrize("backend, device, dtype", [
+    ("cpu", "cpu", torch.float32), ("gpu", "cuda", torch.bfloat16),
+    ("gpu", "cuda:1", torch.bfloat16), ("gpu", None, torch.bfloat16)])
+def test_auto_resolves_as_the_jax_package(monkeypatch, backend, device, dtype):
+    """"auto" at the three seams, the port's by the device against the JAX
+    package's by the backend (``umx_tpu/engine/separator.py``'s
+    ``_resolve_mask_dtype`` and ``_resolve_stems_stack_dtype``,
+    ``umx_tpu/ops/wiener.py``'s ``_resolve_out_dtype``, the planner's
+    ``_stems_itemsize``): bfloat16 on any backend but the CPU.  The
+    explicit values hold on every device."""
+    import jax
+    import jax.numpy as jnp
+
+    from umx_tpu.engine import separator as jsep
+    from umx_tpu_torch.config import storage_dtype
+    from umx_tpu_torch.ops.wiener import wiener_out_dtype
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    jcfg = JEngineConfig()
+    jdt = {"mask": jsep._resolve_mask_dtype(jcfg),
+           "stems_stack": jsep._resolve_stems_stack_dtype(jcfg),
+           "wiener_out": jwiener._resolve_out_dtype(jcfg.wiener)}
+    want = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    assert all(jnp.dtype(v) == want for v in jdt.values()), jdt
+    cfg = EngineConfig()
+    assert storage_dtype(cfg.mask_dtype, device) == dtype
+    assert storage_dtype(cfg.stems_stack_dtype, device) == dtype
+    assert storage_dtype(cfg.wiener.out_dtype, device) == dtype
+    assert wiener_out_dtype(cfg.wiener, device) == dtype
+    # the planner's stack term: 2 bytes a sample on the card, as the JAX
+    # planner's on an accelerator
+    assert memory._stems_itemsize(cfg, device) == jmemory._stems_itemsize(jcfg) == dtype.itemsize
+    for choice, explicit in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        assert storage_dtype(choice, device) == explicit
+    # the einsum path gives float32 whatever out_dtype resolves to
+    assert wiener_out_dtype(WienerConfig(impl="einsum"), device) == torch.float32
 
 
 @pytest.fixture(scope="module")
@@ -238,12 +320,17 @@ def test_planner_counts_the_stems_stack_dtype(track_secs):
 
     (t32, j32), (t16, j16) = both("float32"), both("bfloat16")
     assert t32["ys"] == j32["ys"] and t16["ys"] == j16["ys"] == t32["ys"] // 2
-    assert memory.fused_track_hbm_bytes(EngineConfig(), 4, track_secs) == t32  # auto = f32
+    # "auto" counts the dtype of the device the run uses: float32 on the
+    # CPU, bfloat16 on the card (the default device)
+    auto = EngineConfig()
+    assert memory.fused_track_hbm_bytes(auto, 4, track_secs, device="cpu") == t32
+    for dev in (None, "cuda", "cuda:0"):
+        assert memory.fused_track_hbm_bytes(auto, 4, track_secs, device=dev) == t16
     assert t16["total"] < t32["total"]
     cap = 80 * 2**30
     assert (memory.suggest_max_batch(EngineConfig(stems_stack_dtype="bfloat16"), track_secs,
                                      hbm_bytes=cap)
-            >= memory.suggest_max_batch(EngineConfig(), track_secs, hbm_bytes=cap))
+            >= memory.suggest_max_batch(auto, track_secs, hbm_bytes=cap, device="cpu"))
 
 
 def _jax_options():

@@ -20,10 +20,10 @@ TERMS = ("ys", "stems", "audio", "seg_transients")
 
 
 def _cfgs(hidden=1024, seg_secs=60.0):
-    # the port keeps the stacked chunk outputs in float32
+    # "auto" stacks: the JAX planner resolves them on its CPU backend, the
+    # port's by the device it is given (float32 on the CPU)
     jcfg = JEngineConfig(model=JModelConfig(hidden_size=hidden),
-                         segment=JSegmentConfig(segment_secs=seg_secs),
-                         stems_stack_dtype="float32")
+                         segment=JSegmentConfig(segment_secs=seg_secs))
     tcfg = EngineConfig(model=ModelConfig(hidden_size=hidden),
                         segment=SegmentConfig(segment_secs=seg_secs))
     return jcfg, tcfg
@@ -33,7 +33,7 @@ def _cfgs(hidden=1024, seg_secs=60.0):
 def test_fused_track_terms_equal_jax(batch, secs):
     jcfg, tcfg = _cfgs()
     ref = jmem.fused_track_hbm_bytes(jcfg, batch, secs)
-    ours = memory.fused_track_hbm_bytes(tcfg, batch, secs)
+    ours = memory.fused_track_hbm_bytes(tcfg, batch, secs, device="cpu")
     for k in TERMS:
         assert ours[k] == ref[k], k
 
@@ -43,7 +43,7 @@ def test_fused_track_terms_equal_jax(batch, secs):
 def test_parallel_track_terms_equal_jax(width, batch, secs):
     jcfg, tcfg = _cfgs()
     ref = jmem.parallel_track_hbm_bytes(jcfg, width, secs, batch=batch)
-    ours = memory.parallel_track_hbm_bytes(tcfg, width, secs, batch=batch)
+    ours = memory.parallel_track_hbm_bytes(tcfg, width, secs, batch=batch, device="cpu")
     for k in TERMS:
         assert ours[k] == ref[k], k
 

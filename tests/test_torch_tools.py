@@ -224,6 +224,15 @@ def test_parity_wiener_out_dtype_rows(parity_rows):
     assert parity_rows["wiener_bf16"]["waveform_max_abs_err"] != fp32["waveform_max_abs_err"]
 
 
+def test_parity_auto_row_is_the_fp32_program_on_the_cpu(parity_rows):
+    """fp32 pins the three storage seams to float32; auto runs the
+    defaults, which resolve to float32 on the CPU (bfloat16 on the card),
+    so on the CPU the two rows are one program."""
+    a, b = parity_rows["auto"], parity_rows["fp32"]
+    assert a["waveform_max_abs_err"] == b["waveform_max_abs_err"]
+    assert a["per_stem_err_db"] == b["per_stem_err_db"]
+
+
 def test_parity_quantized_row_beside_the_jax_harness(parity_rows, jax_qhbm_row):
     """The quantized path rounds activations to bf16 before every product,
     so its error against the float32 oracle is the quantization's, not the

@@ -56,10 +56,11 @@ _SIGNATURES = {
     "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # hs, h0, dxp, dw, T, R, B, G, stream
     "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # mode, a_re, a_im, masks, inv_ma, racc, T, F, stream
-    "umx_wiener_reduce": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
-    # mode, xre, xim, m_or_yre, yim, racc, inv_ma, yre_out, yim_out, T, F, eps, reg, stream
-    "umx_wiener_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # mode, mask_bf16, a_re, a_im, masks, inv_ma, racc, T, F, stream
+    "umx_wiener_reduce": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # mode, mask_bf16, out_bf16, xre, xim, m_or_yre, yim, racc, inv_ma, yre_out, yim_out, T, F,
+    # eps, reg, stream
+    "umx_wiener_apply": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # blocks (out)
     "umx_ola_grid": [_P],
     # ys, inv_sw, out, n_chunks, M, seg, stride, L, blocks, vec, stream

@@ -9,8 +9,9 @@ machine without a usable GPU raises rather than running on the CPU.
 planner decides, -1 = never, N = N chunks), ``--lstm-impl`` picks the
 recurrence kernel, ``--wiener-impl`` the Wiener path and
 ``--stream-impl`` the streaming schedule; ``--mask-dtype``,
-``--stems-stack-dtype`` and ``--wiener-out-dtype`` store their seams in
-bfloat16 when asked.  ``--resample`` converts another sample rate instead
+``--stems-stack-dtype`` and ``--wiener-out-dtype`` pick their seams'
+storage dtypes ("auto", the default: bfloat16 on the GPU, float32 on the
+CPU, as the JAX package resolves it).  ``--resample`` converts another sample rate instead
 of rejecting it, and ``--host-loop`` runs one call per segment and prints
 the progress after each.  The flags set is the JAX CLI's, plus
 ``--device``: its precision flags (``--matmul-precision``,
@@ -102,17 +103,17 @@ def build_parser() -> argparse.ArgumentParser:
         "state-free halves over chunk groups, only the recurrence chained; pipelined = 3 "
         "layer-stages of different chunks per merged-kernel call); the same arithmetic",
     )
-    same_cost = "; bfloat16 only reproduces the JAX package's rounding (a cast; no memory or " \
-        "time saved: the Wiener kernels read and write float32)"
     for flag, what in (
-        ("--mask-dtype", "the network's masks at the seam before the Wiener passes" + same_cost),
+        ("--mask-dtype", "the network's masks at the seam before the Wiener passes, which read "
+         "them as stored (bfloat16 halves both passes' mask reads)"),
         ("--stems-stack-dtype", "the stacked weighted chunk outputs feeding overlap-add "
          "(which accumulates in float32); bfloat16 halves the stack's memory"),
-        ("--wiener-out-dtype", "the fused Wiener path's output planes (the einsum path "
-         "gives float32)" + same_cost),
+        ("--wiener-out-dtype", "the fused Wiener path's output planes, which its last pass "
+         "writes (bfloat16 halves that write; the einsum path gives float32)"),
     ):
         p.add_argument(flag, choices=("auto", "float32", "bfloat16"), default="auto",
-                       help=f"storage dtype of {what}; auto = float32")
+                       help=f"storage dtype of {what}; auto = bfloat16 on the GPU, float32 on "
+                       "the CPU")
     for flag, choices in (("--matmul-precision", ("default", "high", "highest")),
                           ("--dft-precision", ("auto", "default", "high", "highest")),
                           ("--idft-precision", ("auto", "default", "high", "highest")),

@@ -13,11 +13,11 @@ long tracks), ``EngineConfig.ola_impl`` ("pallas" selects the
 hand-written overlap-add kernel) and ``EngineConfig.stream_impl`` (the
 streaming schedules "scan", "groups" and "pipelined").  So do the storage
 dtypes ``EngineConfig.mask_dtype``, ``EngineConfig.stems_stack_dtype``
-and ``WienerConfig.out_dtype``: "bfloat16" rounds that seam's tensor to
-bfloat16, and "auto" means float32, the JAX package's meaning off a TPU.
-Only the stems stack saves memory in bfloat16; the Wiener kernels read
-masks and write planes in float32, so the other two seams reproduce the
-JAX package's rounding at the cost of a cast.
+and ``WienerConfig.out_dtype``: "bfloat16" stores that seam's tensor in
+bfloat16, and "auto" resolves as the JAX package resolves it, by the
+device (:func:`storage_dtype`): bfloat16 on the GPU, float32 on the CPU.
+In bfloat16 the Wiener kernels read the masks and write their planes as
+the TPU kernels do, so each seam halves its tensor's bytes.
 Values the port does not implement raise ``ValueError``.  The TPU's
 matmul and DFT precisions and the iDFT frame dtype have no field: the
 port's matmuls are float32 with TF32 off and its transforms are cuFFT or
@@ -32,8 +32,7 @@ from typing import Literal
 
 import torch
 
-# storage dtypes of the seams (mask, Wiener output, stems stack): "auto" is
-# float32, as the JAX package resolves it off a TPU
+# storage dtypes of the seams (mask, Wiener output, stems stack)
 STORAGE_DTYPES = ("auto", "float32", "bfloat16")
 
 
@@ -42,8 +41,14 @@ def _check_storage(name: str, choice: str) -> None:
         raise ValueError(f"{name} must be auto, float32 or bfloat16, got {choice!r}")
 
 
-def storage_dtype(choice: str) -> torch.dtype:
-    """The torch dtype of a seam's storage choice ("auto" = float32)."""
+def storage_dtype(choice: str, device) -> torch.dtype:
+    """The torch dtype of a seam's storage choice on ``device`` (None: the
+    GPU, the port's default device).  "auto" is bfloat16 on every device
+    but the CPU and float32 on the CPU, the JAX package's rule
+    (``jax.default_backend() not in ("cpu",)``)."""
+    if choice == "auto":
+        cpu = device is not None and torch.device(device).type == "cpu"
+        return torch.float32 if cpu else torch.bfloat16
     return torch.bfloat16 if choice == "bfloat16" else torch.float32
 
 
@@ -95,8 +100,9 @@ class ModelConfig:
     # kernel (K1, all chains per step, any batch); "pallas" = the
     # per-target kernel (K9, one launch per layer with each chain's
     # weights and state kept on chip; one launch per batch row).  The
-    # JAX package's "scan" and "pallas_interpret" are CPU/interpreter
-    # forms with no meaning here.  Training always runs K4-K6.
+    # JAX package's "scan" (its float32 recurrence off a TPU) and
+    # "pallas_interpret" (its interpreter) have no port: the port follows
+    # the TPU path, K1, on the GPU.  Training always runs K4-K6.
     lstm_impl: Literal["auto", "pallas_merged", "pallas"] = "auto"
 
     def __post_init__(self):
@@ -138,10 +144,10 @@ class WienerConfig:
     # tensors, their plain versions on the CPU) where the semantics allow
     # them (psd "correct", iterations >= 1); "einsum" = the einsum path
     impl: Literal["auto", "einsum", "pallas"] = "auto"
-    # dtype of the final apply pass's y planes on the fused path (a cast
-    # after K3); the einsum path always gives float32.  bfloat16 only
-    # reproduces the JAX package's rounding: K3 writes float32, so it adds
-    # a cast and saves no memory or time
+    # dtype of the final apply pass's y planes on the fused path (K3 writes
+    # it; earlier EM iterations stay float32); the einsum path always gives
+    # float32.  bfloat16 halves K3's dominant write and the planes' memory;
+    # "auto" = bfloat16 on the GPU, float32 on the CPU (storage_dtype)
     out_dtype: Literal["auto", "float32", "bfloat16"] = "auto"
 
     def __post_init__(self):
@@ -213,12 +219,13 @@ class EngineConfig:
     # CUDA overlap above 50 % raises)
     ola_impl: str = "auto"
     # dtype of the masks at the seam between the network and the Wiener
-    # passes (K2/K3 read them after an exact upcast).  bfloat16 only
-    # reproduces the JAX package's rounding: K2/K3 read float32, so it
-    # adds a cast and saves no memory or time
+    # passes (K2/K3 read them in it and upcast in registers); bfloat16
+    # halves both passes' mask reads and the masks' memory.  "auto" =
+    # bfloat16 on the GPU, float32 on the CPU (storage_dtype)
     mask_dtype: Literal["auto", "float32", "bfloat16"] = "auto"
     # dtype of the stacked weighted chunk outputs that feed the overlap-add
-    # (which accumulates in float32); bfloat16 halves the stack's memory
+    # (which accumulates in float32); bfloat16 halves the stack's memory.
+    # "auto" as mask_dtype
     stems_stack_dtype: Literal["auto", "float32", "bfloat16"] = "auto"
     # the streaming whole-track schedule: "scan" = one segment call per
     # chunk; "groups" = the state-free halves over groups of chunk_batch

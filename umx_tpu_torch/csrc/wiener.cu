@@ -50,8 +50,22 @@
 //    Hermitian 2x2 inverse, the source-independent z = Cxx^-1 x, final
 //    x max_abs) and writes y (S, 2, T, F).
 //  * 1/max_abs arrives as a device pointer, so no host sync is needed.
+//  * Storage dtypes, as the TPU kernels take them (wiener_pallas.py
+//    wiener_planes_from_masks / wiener_planes_pallas): the masks of mode
+//    MASKS are read as float or __nv_bfloat16 (EngineConfig.mask_dtype)
+//    and upcast in registers, exactly; the apply pass writes its y planes
+//    as float or __nv_bfloat16 (WienerConfig.out_dtype, the last EM
+//    iteration's only), rounded to nearest even after the float32
+//    arithmetic.  The mask type and the output type are template
+//    parameters, so each form is its own kernel and the float32 forms are
+//    unchanged.  Rows of F = 2049 bf16 start on 2-byte boundaries only
+//    (channel 1 of a mask row at byte 4098), so every bf16 access is a
+//    scalar one; a warp's 32 neighbouring bins still coalesce.  bf16
+//    halves the masks' read traffic in both passes and the apply pass's
+//    dominant write.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -72,6 +86,16 @@ constexpr int MODE_MASKS = 0;
 constexpr int MODE_Y = 1;
 constexpr int MODE_MAGS = 2;
 
+using bf16 = __nv_bfloat16;
+
+// a stored element as float32 (bf16 -> f32 is exact)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// store a float32 result in the output's dtype (bf16: round to nearest even)
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // x / |x| as (re, im); |x| = 0 gives 1 + 0i
 __device__ __forceinline__ void unit_phasor(float re, float im, float* ure, float* uim) {
   const float a2 = re * re + im * im;
@@ -83,14 +107,15 @@ __device__ __forceinline__ void unit_phasor(float re, float im, float* ure, floa
 
 // One time row of one bin, as the reduce reads it.  a_re/a_im: MODE_MASKS
 // and MODE_MAGS: mix planes (2, T, F); MODE_Y: y planes (S, 2, T, F).
-// masks: (S, T, 2F) masks, or MODE_MAGS' (S, 2, T, F) magnitudes.
-template <int MODE>
+// masks: (S, T, 2F) masks of element type MT (float or bf16), or MODE_MAGS'
+// (S, 2, T, F) float magnitudes.
+template <int MODE, typename MT>
 struct ReduceRow;
 
-template <>
-struct ReduceRow<MODE_MASKS> {
+template <typename MT>
+struct ReduceRow<MODE_MASKS, MT> {
   float x0r, x0i, x1r, x1i, m[S][2];
-  __device__ __forceinline__ void load(const float* a_re, const float* a_im, const float* masks,
+  __device__ __forceinline__ void load(const float* a_re, const float* a_im, const MT* masks,
                                        size_t TF, int T, int F, int t, int f) {
     const size_t i = (size_t)t * F + f;
     x0r = a_re[i];
@@ -100,8 +125,8 @@ struct ReduceRow<MODE_MASKS> {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const size_t mi = ((size_t)s * T + t) * 2 * F + f;
-      m[s][0] = masks[mi];
-      m[s][1] = masks[mi + F];
+      m[s][0] = to_f32(masks[mi]);
+      m[s][1] = to_f32(masks[mi + F]);
     }
   }
   __device__ __forceinline__ void add(float* acc, float) const {
@@ -122,7 +147,7 @@ struct ReduceRow<MODE_MASKS> {
 };
 
 template <>
-struct ReduceRow<MODE_MAGS> {
+struct ReduceRow<MODE_MAGS, float> {
   float x0r, x0i, x1r, x1i, m[S][2];
   __device__ __forceinline__ void load(const float* a_re, const float* a_im, const float* mags,
                                        size_t TF, int, int F, int t, int f) {
@@ -157,7 +182,7 @@ struct ReduceRow<MODE_MAGS> {
 };
 
 template <>
-struct ReduceRow<MODE_Y> {
+struct ReduceRow<MODE_Y, float> {
   // the 8 planes it reads with the evict-first hint: faster in this mode
   // on the H100, slower in the others (chip_forms.py wiener_reduce)
   float yr[S][2], yi[S][2];
@@ -187,10 +212,10 @@ struct ReduceRow<MODE_Y> {
 
 // grid (ceil(F / RB_BINS), RB_CLUSTER), clusters of the RB_CLUSTER blocks
 // of one bin group; racc (4S, F).
-template <int MODE>
+template <int MODE, typename MT>
 __global__ void __cluster_dims__(1, RB_CLUSTER, 1) __launch_bounds__(RB_THREADS)
     wiener_reduce_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
-                  const float* __restrict__ masks,   // (S, T, 2F) or (S, 2, T, F)
+                  const MT* __restrict__ masks,      // (S, T, 2F) or (S, 2, T, F)
                   const float* __restrict__ inv_ma,  // (1,)
                   float* __restrict__ racc,          // (4S, F)
                   int T, int F) {
@@ -212,14 +237,14 @@ __global__ void __cluster_dims__(1, RB_CLUSTER, 1) __launch_bounds__(RB_THREADS)
   if (f < F) {
     // RB_AHEAD rows' loads before their arithmetic; the sums stay in row order
     for (; t + (RB_AHEAD - 1) * RB_LANES < t_hi; t += RB_AHEAD * RB_LANES) {
-      ReduceRow<MODE> rows[RB_AHEAD];
+      ReduceRow<MODE, MT> rows[RB_AHEAD];
 #pragma unroll
       for (int u = 0; u < RB_AHEAD; ++u) rows[u].load(a_re, a_im, masks, TF, T, F, t + u * RB_LANES, f);
 #pragma unroll
       for (int u = 0; u < RB_AHEAD; ++u) rows[u].add(acc, inv);
     }
     for (; t < t_hi; t += RB_LANES) {
-      ReduceRow<MODE> row;
+      ReduceRow<MODE, MT> row;
       row.load(a_re, a_im, masks, TF, T, F, t, f);
       row.add(acc, inv);
     }
@@ -252,14 +277,16 @@ __global__ void __cluster_dims__(1, RB_CLUSTER, 1) __launch_bounds__(RB_THREADS)
   cluster.sync();
 }
 
-template <int MODE>
+// MT: the masks' element type (MODE_MASKS; float in the other modes); OT:
+// the y planes' element type.
+template <int MODE, typename MT, typename OT>
 __global__ void apply_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                              // masks (S,T,2F), or mags or y_re (S,2,T,F)
-                             const float* __restrict__ m_or_yre,
+                             const MT* __restrict__ m_or_yre,
                              const float* __restrict__ y_im,      // y_im (S,2,T,F); MODE_Y only
                              const float* __restrict__ racc,      // (4S, F)
                              const float* __restrict__ inv_ma_p,  // (1,)
-                             float* __restrict__ yre_out, float* __restrict__ yim_out,
+                             OT* __restrict__ yre_out, OT* __restrict__ yim_out,
                              int T, int F, float eps, float reg) {
   const int f = blockIdx.x * BLOCK_F + threadIdx.x;
   const int t = blockIdx.y;
@@ -276,8 +303,8 @@ __global__ void apply_kernel(const float* __restrict__ xre, const float* __restr
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const size_t mi = ((size_t)s * T + t) * 2 * F + f;
-      const float m0 = m_or_yre[mi];
-      const float m1 = m_or_yre[mi + F];
+      const float m0 = to_f32(m_or_yre[mi]);
+      const float m1 = to_f32(m_or_yre[mi + F]);
       v[s] = 0.5f * sq * (m0 * m0 * ax0 + m1 * m1 * ax1);
     }
   } else if (MODE == MODE_MAGS) {
@@ -285,16 +312,16 @@ __global__ void apply_kernel(const float* __restrict__ xre, const float* __restr
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const size_t c0 = (size_t)(2 * s) * TF + i;
-      const float m0 = m_or_yre[c0];
-      const float m1 = m_or_yre[c0 + TF];
+      const float m0 = to_f32(m_or_yre[c0]);
+      const float m1 = to_f32(m_or_yre[c0 + TF]);
       v[s] = 0.5f * sq * (m0 * m0 + m1 * m1);
     }
   } else {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const size_t c0 = (size_t)(2 * s) * TF + i;
-      const float a = m_or_yre[c0], b = y_im[c0];
-      const float c = m_or_yre[c0 + TF], d = y_im[c0 + TF];
+      const float a = to_f32(m_or_yre[c0]), b = y_im[c0];
+      const float c = to_f32(m_or_yre[c0 + TF]), d = y_im[c0 + TF];
       v[s] = 0.5f * (a * a + b * b + c * c + d * d);
     }
   }
@@ -334,51 +361,82 @@ __global__ void apply_kernel(const float* __restrict__ xre, const float* __restr
     const float vs = v[s] * ma;
     const size_t o0 = (size_t)(2 * s) * TF + i;
     // y_s0 = v (R00 z0 + R01 z1); y_s1 = v (conj(R01) z0 + R11 z1)
-    yre_out[o0] = vs * (r00[s] * z0re + r01re[s] * z1re - r01im[s] * z1im);
-    yim_out[o0] = vs * (r00[s] * z0im + r01re[s] * z1im + r01im[s] * z1re);
-    yre_out[o0 + TF] = vs * (r01re[s] * z0re + r01im[s] * z0im + r11[s] * z1re);
-    yim_out[o0 + TF] = vs * (r01re[s] * z0im - r01im[s] * z0re + r11[s] * z1im);
+    store(yre_out + o0, vs * (r00[s] * z0re + r01re[s] * z1re - r01im[s] * z1im));
+    store(yim_out + o0, vs * (r00[s] * z0im + r01re[s] * z1im + r01im[s] * z1re));
+    store(yre_out + o0 + TF, vs * (r01re[s] * z0re + r01im[s] * z0im + r11[s] * z1re));
+    store(yim_out + o0 + TF, vs * (r01re[s] * z0im - r01im[s] * z0re + r11[s] * z1im));
   }
+}
+
+template <int MODE, typename MT>
+int launch_reduce(const float* a_re, const float* a_im, const void* masks, const float* inv_ma,
+                  float* racc, int T, int F, cudaStream_t st) {
+  const dim3 grid((F + RB_BINS - 1) / RB_BINS, RB_CLUSTER);
+  wiener_reduce_kernel<MODE, MT><<<grid, RB_THREADS, 0, st>>>(
+      a_re, a_im, static_cast<const MT*>(masks), inv_ma, racc, T, F);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, typename MT, typename OT>
+int launch_apply(const float* xre, const float* xim, const void* m_or_yre, const float* y_im,
+                 const float* racc, const float* inv_ma, void* yre_out, void* yim_out, int T,
+                 int F, float eps, float reg, cudaStream_t st) {
+  const dim3 grid((F + BLOCK_F - 1) / BLOCK_F, T);
+  apply_kernel<MODE, MT, OT><<<grid, BLOCK_F, 0, st>>>(
+      xre, xim, static_cast<const MT*>(m_or_yre), y_im, racc, inv_ma, static_cast<OT*>(yre_out),
+      static_cast<OT*>(yim_out), T, F, eps, reg);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, typename MT>
+int launch_apply_out(int out_bf16, const float* xre, const float* xim, const void* m_or_yre,
+                     const float* y_im, const float* racc, const float* inv_ma, void* yre_out,
+                     void* yim_out, int T, int F, float eps, float reg, cudaStream_t st) {
+  return out_bf16 ? launch_apply<MODE, MT, bf16>(xre, xim, m_or_yre, y_im, racc, inv_ma, yre_out,
+                                                 yim_out, T, F, eps, reg, st)
+                  : launch_apply<MODE, MT, float>(xre, xim, m_or_yre, y_im, racc, inv_ma, yre_out,
+                                                  yim_out, T, F, eps, reg, st);
 }
 
 }  // namespace
 
-// racc: (4S, F) result; one launch.
-extern "C" int umx_wiener_reduce(int mode, const float* a_re, const float* a_im,
-                                 const float* masks, const float* inv_ma, float* racc, int T,
+// racc: (4S, F) result; one launch.  mask_bf16: the masks of mode MASKS are
+// bf16 (other modes read float32 only).
+extern "C" int umx_wiener_reduce(int mode, int mask_bf16, const float* a_re, const float* a_im,
+                                 const void* masks, const float* inv_ma, float* racc, int T,
                                  int F, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T < 1 || F < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((F + RB_BINS - 1) / RB_BINS, RB_CLUSTER);
+  if (T < 1 || F < 1 || (mask_bf16 && mode != MODE_MASKS)) return (int)cudaErrorInvalidValue;
   if (mode == MODE_MASKS) {
-    wiener_reduce_kernel<MODE_MASKS><<<grid, RB_THREADS, 0, st>>>(a_re, a_im, masks, inv_ma, racc, T, F);
+    return mask_bf16 ? launch_reduce<MODE_MASKS, bf16>(a_re, a_im, masks, inv_ma, racc, T, F, st)
+                     : launch_reduce<MODE_MASKS, float>(a_re, a_im, masks, inv_ma, racc, T, F, st);
   } else if (mode == MODE_Y) {
-    wiener_reduce_kernel<MODE_Y><<<grid, RB_THREADS, 0, st>>>(a_re, a_im, masks, inv_ma, racc, T, F);
+    return launch_reduce<MODE_Y, float>(a_re, a_im, masks, inv_ma, racc, T, F, st);
   } else if (mode == MODE_MAGS) {
-    wiener_reduce_kernel<MODE_MAGS><<<grid, RB_THREADS, 0, st>>>(a_re, a_im, masks, inv_ma, racc, T, F);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_reduce<MODE_MAGS, float>(a_re, a_im, masks, inv_ma, racc, T, F, st);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int umx_wiener_apply(int mode, const float* xre, const float* xim,
-                                const float* m_or_yre, const float* y_im, const float* racc,
-                                const float* inv_ma, float* yre_out, float* yim_out, int T,
-                                int F, float eps, float reg, void* stream) {
+// mask_bf16: as umx_wiener_reduce; out_bf16: the y planes are bf16.
+extern "C" int umx_wiener_apply(int mode, int mask_bf16, int out_bf16, const float* xre,
+                                const float* xim, const void* m_or_yre, const float* y_im,
+                                const float* racc, const float* inv_ma, void* yre_out,
+                                void* yim_out, int T, int F, float eps, float reg, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((F + BLOCK_F - 1) / BLOCK_F, T);
+  if (T < 1 || F < 1 || (mask_bf16 && mode != MODE_MASKS)) return (int)cudaErrorInvalidValue;
   if (mode == MODE_MASKS) {
-    apply_kernel<MODE_MASKS><<<grid, BLOCK_F, 0, st>>>(xre, xim, m_or_yre, y_im, racc, inv_ma,
-                                                      yre_out, yim_out, T, F, eps, reg);
+    return mask_bf16
+        ? launch_apply_out<MODE_MASKS, bf16>(out_bf16, xre, xim, m_or_yre, y_im, racc, inv_ma,
+                                             yre_out, yim_out, T, F, eps, reg, st)
+        : launch_apply_out<MODE_MASKS, float>(out_bf16, xre, xim, m_or_yre, y_im, racc, inv_ma,
+                                              yre_out, yim_out, T, F, eps, reg, st);
   } else if (mode == MODE_Y) {
-    apply_kernel<MODE_Y><<<grid, BLOCK_F, 0, st>>>(xre, xim, m_or_yre, y_im, racc, inv_ma,
-                                                  yre_out, yim_out, T, F, eps, reg);
+    return launch_apply_out<MODE_Y, float>(out_bf16, xre, xim, m_or_yre, y_im, racc, inv_ma,
+                                           yre_out, yim_out, T, F, eps, reg, st);
   } else if (mode == MODE_MAGS) {
-    apply_kernel<MODE_MAGS><<<grid, BLOCK_F, 0, st>>>(xre, xim, m_or_yre, y_im, racc, inv_ma,
-                                                     yre_out, yim_out, T, F, eps, reg);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_apply_out<MODE_MAGS, float>(out_bf16, xre, xim, m_or_yre, y_im, racc, inv_ma,
+                                              yre_out, yim_out, T, F, eps, reg, st);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,12 @@ transients are live together.  How the port differs:
   default device; it raises without one) and the physical RAM when the
   CPU is asked for;
 * the stacked chunk outputs count ``EngineConfig.stems_stack_dtype``'s
-  bytes, "auto" as float32 (the JAX package's meaning off a TPU);
+  bytes on the device the run uses (``device``; None is the GPU), "auto"
+  resolved as the JAX package resolves it: bfloat16 on the GPU, float32
+  on the CPU;
+* the segment transients count the masks and the Wiener planes at
+  float32 whatever their storage dtype, as the JAX package does (an upper
+  bound where they are bfloat16);
 * parameter bytes are exact when the parameters are given, quantized
   ones counted at their stored size;
 * with ``istft_algo="ct2"`` the segment transients count no iSTFT frames:
@@ -126,13 +131,14 @@ def _segment_transient_bytes(cfg: EngineConfig) -> int:
     return y_planes + mix_planes + masks + frames_share
 
 
-def _stems_itemsize(cfg: EngineConfig) -> int:
-    """Bytes a sample of the stacked weighted chunk outputs takes
-    (``EngineConfig.stems_stack_dtype``; "auto" = float32)."""
-    return storage_dtype(cfg.stems_stack_dtype).itemsize
+def _stems_itemsize(cfg: EngineConfig, device=None) -> int:
+    """Bytes a sample of the stacked weighted chunk outputs takes on
+    ``device`` (``EngineConfig.stems_stack_dtype``; "auto" = 2 on the GPU,
+    4 on the CPU)."""
+    return storage_dtype(cfg.stems_stack_dtype, device).itemsize
 
 
-def _track_terms(cfg: EngineConfig, track_secs: float, b: int) -> dict[str, int]:
+def _track_terms(cfg: EngineConfig, track_secs: float, b: int, device=None) -> dict[str, int]:
     sr = cfg.dsp.sample_rate
     seg = cfg.segment.segment_samples(sr)
     stride = cfg.segment.stride_samples(sr)
@@ -141,7 +147,7 @@ def _track_terms(cfg: EngineConfig, track_secs: float, b: int) -> dict[str, int]
     s = cfg.model.n_targets
     return {
         "n_chunks": n_chunks,
-        "ys": b * s * 2 * n_chunks * seg * _stems_itemsize(cfg),  # stacked weighted chunks
+        "ys": b * s * 2 * n_chunks * seg * _stems_itemsize(cfg, device),  # stacked weighted chunks
         "ola": b * 2 * s * 2 * n_chunks * stride * _F32,  # pad+sum combine grids
         "stems": b * s * 2 * padded * _F32,
         "audio": b * 2 * padded * _F32,
@@ -182,21 +188,22 @@ def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params) -> dict[s
 
 
 def fused_track_hbm_bytes(cfg: EngineConfig, batch: int, track_secs: float,
-                          params=None) -> dict[str, int]:
+                          params=None, device=None) -> dict[str, int]:
     """Estimated peak of B stacked tracks through the streaming program
-    (one segment row per track in flight).  Returns the liveness terms
-    (bytes) and ``total``."""
-    terms = _track_terms(cfg, track_secs, batch)
+    (one segment row per track in flight) on ``device`` (None: the GPU).
+    Returns the liveness terms (bytes) and ``total``."""
+    terms = _track_terms(cfg, track_secs, batch, device)
     return _peak(cfg, terms, batch * _segment_transient_bytes(cfg), params)
 
 
 def parallel_track_hbm_bytes(cfg: EngineConfig, chunk_batch: int, track_secs: float,
-                             params=None, batch: int = 1) -> dict[str, int]:
+                             params=None, batch: int = 1, device=None) -> dict[str, int]:
     """Estimated peak of the non-streaming program at group width
     ``chunk_batch`` over ``batch`` stacked tracks (batch × width segment
-    rows in flight).  Returns the liveness terms (bytes) and ``total``."""
+    rows in flight) on ``device`` (None: the GPU).  Returns the liveness
+    terms (bytes) and ``total``."""
     b = max(1, batch)
-    terms = _track_terms(cfg, track_secs, b)
+    terms = _track_terms(cfg, track_secs, b, device)
     width = min(chunk_batch, terms["n_chunks"])
     return _peak(cfg, terms, b * width * _segment_transient_bytes(cfg), params)
 
@@ -248,7 +255,8 @@ def suggest_max_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | Non
     """Largest number of ``track_secs`` tracks whose estimated streaming
     footprint fits in ``safety`` × the capacity (always >= 1)."""
     budget = (device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes) * safety
-    return _suggest(lambda b: fused_track_hbm_bytes(cfg, b, track_secs, params)["total"], budget)
+    return _suggest(lambda b: fused_track_hbm_bytes(cfg, b, track_secs, params, device)["total"],
+                    budget)
 
 
 def suggest_chunk_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | None = None,
@@ -258,7 +266,7 @@ def suggest_chunk_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int | N
     batch × width stays at most 16 rows."""
     budget = (device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes) * safety
     return _suggest(
-        lambda w: parallel_track_hbm_bytes(cfg, w, track_secs, params, batch)["total"],
+        lambda w: parallel_track_hbm_bytes(cfg, w, track_secs, params, batch, device)["total"],
         budget,
         hard_cap=max(1, 16 // max(1, batch)),
     )
@@ -279,8 +287,10 @@ def suggest_max_fleet_batch(cfg: EngineConfig, track_secs: float, hbm_bytes: int
     def est(b: int) -> int:
         w = cfg.segment.chunk_batch
         if w <= 0:
-            w = suggest_chunk_batch(cfg, track_secs, capacity, safety, params, batch=b)
-        return parallel_track_hbm_bytes(cfg, w, track_secs, params, batch=b)["total"]
+            w = suggest_chunk_batch(cfg, track_secs, capacity, safety, params, batch=b,
+                                    device=device)
+        return parallel_track_hbm_bytes(cfg, w, track_secs, params, batch=b,
+                                        device=device)["total"]
 
     return _suggest(est, capacity * safety)
 
@@ -297,28 +307,28 @@ def suggest_window_chunks(cfg: EngineConfig, hbm_bytes: int | None = None, safet
     when the input arrived as a device tensor)."""
     capacity = device_hbm_bytes(device) if hbm_bytes is None else hbm_bytes
     budget = capacity * safety - resident_bytes
-    return _suggest(lambda w: window_hbm_bytes(cfg, w, capacity, safety, params), budget,
+    return _suggest(lambda w: window_hbm_bytes(cfg, w, capacity, safety, params, device), budget,
                     hard_cap=4096)
 
 
 def window_hbm_bytes(cfg: EngineConfig, w: int, hbm_bytes: int, safety: float = 0.9,
-                     params=None) -> int:
-    """Estimated peak of one W-chunk window: a W-chunk track through the
-    single program (non-streaming: at ``chunk_batch``, or the width the
-    planner picks within ``safety`` × ``hbm_bytes``) plus the previous
-    window's normalized stems."""
+                     params=None, device=None) -> int:
+    """Estimated peak of one W-chunk window on ``device`` (None: the GPU):
+    a W-chunk track through the single program (non-streaming: at
+    ``chunk_batch``, or the width the planner picks within ``safety`` ×
+    ``hbm_bytes``) plus the previous window's normalized stems."""
     stride = cfg.segment.stride_samples(cfg.dsp.sample_rate)
     # track_secs = w*stride/sr gives exactly w chunks: a window of W chunks
     # has the buffer shapes of a W-chunk track
     secs = w * stride / cfg.dsp.sample_rate
     prev_out = cfg.model.n_targets * 2 * w * stride * _F32
     if cfg.segment.streaming:
-        one = fused_track_hbm_bytes(cfg, 1, secs, params)["total"]
+        one = fused_track_hbm_bytes(cfg, 1, secs, params, device)["total"]
     else:
         width = cfg.segment.chunk_batch
         if width <= 0:
-            width = suggest_chunk_batch(cfg, secs, hbm_bytes, safety, params)
-        one = parallel_track_hbm_bytes(cfg, width, secs, params)["total"]
+            width = suggest_chunk_batch(cfg, secs, hbm_bytes, safety, params, device=device)
+        one = parallel_track_hbm_bytes(cfg, width, secs, params, device=device)["total"]
     return one + prev_out
 
 

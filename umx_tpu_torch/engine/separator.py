@@ -49,7 +49,7 @@ from umx_tpu_torch.models.umx import (
 from umx_tpu_torch.ops.ola import overlap_add_chunks
 from umx_tpu_torch.ops.ola_cuda import overlap_add_normalized
 from umx_tpu_torch.ops.stft import crop_stack, istft_planes, masks_to_planes, stft_planes
-from umx_tpu_torch.ops.wiener import wiener_filter_masks
+from umx_tpu_torch.ops.wiener import wiener_filter_masks, wiener_out_dtype
 
 # Shift passes batched into one program at most (batch rows of the
 # recurrence kernel in the streaming program).
@@ -91,9 +91,10 @@ def segment_pre(params: UMXParams, audio, cfg: EngineConfig):
 
 def _seam_masks(params: UMXParams, x1, lstm_out, cfg: EngineConfig):
     """The network's masks (N, T#, T, 2F) from x1 and the recurrence
-    output, stored in ``cfg.mask_dtype`` (the seam before the Wiener
-    passes; float32 is a no-op)."""
-    return umx_post(params, x1, lstm_out, cfg.model).to(storage_dtype(cfg.mask_dtype))
+    output, stored in ``cfg.mask_dtype`` resolved for their device (the
+    seam before the Wiener passes; float32 is a no-op)."""
+    masks = umx_post(params, x1, lstm_out, cfg.model)
+    return masks.to(storage_dtype(cfg.mask_dtype, masks.device))
 
 
 def segment_post(params: UMXParams, re, im, x1, lstm_out, cfg: EngineConfig, n_samples: int):
@@ -128,19 +129,25 @@ def segment_forward_batched(
 
 def segment_finish(re, im, masks, cfg: EngineConfig, n_samples: int):
     """The second half of :func:`segment_forward_batched`: the STFT planes
-    and all targets' masks (any float dtype, upcast exactly) → waveforms
-    (N, T#, 2, n_samples)."""
+    and all targets' masks (float32 or bfloat16) → waveforms (N, T#, 2,
+    n_samples).  The fused Wiener passes read the masks and write their
+    planes in their storage dtypes; the iSTFT upcasts the planes once."""
     mcfg = cfg.model
-    masks = masks.float()
     if cfg.use_wiener:
         n, n_t, T = masks.shape[:3]
-        tre = torch.empty((n, n_t, 2, T, mcfg.n_bins), dtype=torch.float32, device=re.device)
-        tim = torch.empty_like(tre)
-        for i in range(n):
-            tre[i], tim[i] = wiener_filter_masks(re[i], im[i], masks[i], mcfg.n_bins, cfg.wiener)
+        rows = (wiener_filter_masks(re[i], im[i], masks[i], mcfg.n_bins, cfg.wiener)
+                for i in range(n))
+        if n == 1:
+            tre, tim = (p[None] for p in next(rows))
+        else:
+            dt = wiener_out_dtype(cfg.wiener, re.device)
+            tre = torch.empty((n, n_t, 2, T, mcfg.n_bins), dtype=dt, device=re.device)
+            tim = torch.empty_like(tre)
+            for i, (yre, yim) in enumerate(rows):
+                tre[i], tim[i] = yre, yim
     else:
         # mix-phase reconstruction: mag * unit(x) = mask * x
-        m = masks_to_planes(masks, mcfg.n_bins)
+        m = masks_to_planes(masks.float(), mcfg.n_bins)
         tre = m * re.unsqueeze(1)
         tim = m * im.unsqueeze(1)
     return istft_planes(tre, tim, n_samples, cfg.dsp)
@@ -244,11 +251,11 @@ def demix_fused_parallel(params: UMXParams, audio_p, cfg: EngineConfig, n_chunks
 
 def _chunk_stack(cfg: EngineConfig, n_chunks: int, B: int, seg: int, device):
     """The transition weight and an empty stack (n_chunks, B, T#, 2, seg)
-    in ``cfg.stems_stack_dtype`` for the weighted chunk outputs (each
-    weighted in float32, then stored)."""
+    in ``cfg.stems_stack_dtype`` resolved for ``device`` for the weighted
+    chunk outputs (each weighted in float32, then stored)."""
     weight = transition_weight(seg, cfg.segment.transition_power, device)
     ys = torch.empty((n_chunks, B, cfg.model.n_targets, 2, seg),
-                     dtype=storage_dtype(cfg.stems_stack_dtype), device=device)
+                     dtype=storage_dtype(cfg.stems_stack_dtype, device), device=device)
     return weight, ys
 
 

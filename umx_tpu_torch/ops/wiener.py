@@ -64,10 +64,11 @@ def _fused_eligible(cfg: WienerConfig) -> bool:
     return cfg.impl != "einsum" and cfg.psd == "correct" and cfg.iterations >= 1
 
 
-def _out(planes, cfg: WienerConfig):
-    """The fused path's y planes in ``cfg.out_dtype`` (a no-op for float32)."""
-    dt = storage_dtype(cfg.out_dtype)
-    return tuple(p.to(dt) for p in planes)
+def wiener_out_dtype(cfg: WienerConfig, device) -> torch.dtype:
+    """The dtype of the planes the Wiener entries give on ``device``:
+    ``out_dtype`` resolved for the device on the fused path (the last apply
+    pass writes it), float32 on the einsum path."""
+    return storage_dtype(cfg.out_dtype, device) if _fused_eligible(cfg) else torch.float32
 
 
 def wiener_filter_planes(xre, xim, target_mags, cfg: WienerConfig):
@@ -76,29 +77,35 @@ def wiener_filter_planes(xre, xim, target_mags, cfg: WienerConfig):
 
     ``psd="correct"`` with ``iterations >= 1`` runs the fused reduce/apply
     passes in mode "mags" (kernels for CUDA tensors) unless ``impl`` is
-    "einsum", and gives its planes in ``out_dtype``; ``psd="umxcpp"``,
-    ``iterations=0`` or ``impl="einsum"`` runs the einsum reference on any
-    device, in float32."""
+    "einsum", and its last apply writes the planes in ``out_dtype``
+    (:func:`wiener_out_dtype`); ``psd="umxcpp"``, ``iterations=0`` or
+    ``impl="einsum"`` runs the einsum reference on any device, in
+    float32."""
     if _fused_eligible(cfg):
-        return _out(wiener_planes_from_mags(xre.float().contiguous(), xim.float().contiguous(),
-                                            target_mags.float().contiguous(), cfg), cfg)
+        return wiener_planes_from_mags(xre.float().contiguous(), xim.float().contiguous(),
+                                       target_mags.float().contiguous(), cfg,
+                                       wiener_out_dtype(cfg, xre.device))
     y = wiener_filter(torch.complex(xre, xim), target_mags, cfg)
     return y.real.contiguous(), y.imag.contiguous()
 
 
 def wiener_filter_masks(xre, xim, masks, n_bins: int, cfg: WienerConfig):
-    """Wiener filter fed the network-layout masks (S, T, 2*n_bins).
+    """Wiener filter fed the network-layout masks (S, T, 2*n_bins), float32
+    or bfloat16.
 
     ``psd="correct"`` with ``iterations >= 1`` runs the fused reduce/apply
-    passes (kernels for CUDA tensors) unless ``impl`` is "einsum", and
-    gives its planes in ``out_dtype``; ``psd="umxcpp"`` or
+    passes (kernels for CUDA tensors), which read the masks in their
+    dtype, unless ``impl`` is "einsum", and its last apply writes the
+    planes in ``out_dtype`` (:func:`wiener_out_dtype`); ``psd="umxcpp"`` or
     ``iterations=0`` runs the einsum reference on any device, by
     semantics — the kernels implement the correct PSD only, and zero
     iterations is the raw mask estimate — as ``impl="einsum"`` does by
-    choice, in float32.  Returns (yre, yim), each (S, 2, T, F)."""
+    choice, on the masks upcast, in float32.  Returns (yre, yim), each
+    (S, 2, T, F)."""
     if _fused_eligible(cfg):
-        return _out(wiener_planes_from_masks(xre, xim, masks.contiguous(), cfg), cfg)
-    m = masks_to_planes(masks, n_bins)
+        return wiener_planes_from_masks(xre, xim, masks.contiguous(), cfg,
+                                        wiener_out_dtype(cfg, xre.device))
+    m = masks_to_planes(masks.float(), n_bins)
     mag = torch.sqrt(xre * xre + xim * xim)
     y = wiener_filter(torch.complex(xre, xim), m * mag[None], cfg)
     return y.real.contiguous(), y.imag.contiguous()

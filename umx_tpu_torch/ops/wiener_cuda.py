@@ -19,6 +19,18 @@ rows: reduce ← ``_make_reduce_kernel_masks`` and ``_make_reduce_kernel``
 (``from_mags`` False: mode y, True: mode mags); apply ←
 ``_make_apply_kernel_masks`` and ``_make_apply_kernel`` (the same two
 modes) with ``_apply_common``.
+
+The passes take the TPU kernels' storage dtypes: the masks of mode
+"masks" may be bfloat16 (``EngineConfig.mask_dtype``), read as they are
+and upcast in registers, and the apply pass writes its planes in
+``out_dtype`` (float32 or bfloat16, rounded to nearest even after the
+float32 arithmetic; ``WienerConfig.out_dtype`` for the last EM iteration,
+float32 for the others).  The magnitudes of mode "mags", the y planes of
+mode "y", x, racc and 1/max_abs are float32.  On a CUDA tensor a wrapper
+launches the kernel of the given dtypes or raises naming the dtype; the
+plain versions take the same dtypes (upcast, float32 arithmetic, the
+output rounded).  Each wrapper counts its launches in all and by form
+(:func:`form`: the input mode and the storage dtypes).
 """
 
 from __future__ import annotations
@@ -30,6 +42,22 @@ from umx_tpu_torch import _build
 N_SOURCES = 4  # the kernels are specialized to 4 sources and stereo
 _MODES = {"masks": 0, "y": 1, "mags": 2}
 _MAX_GRID_Y = 65535  # the apply pass's grid: one block row per time row
+# the element types the kernels store: the masks of mode "masks" and the
+# apply pass's y planes
+STORAGE = (torch.float32, torch.bfloat16)
+
+
+def form(mode: str, in_dtype=torch.float32, out_dtype=None) -> str:
+    """A pass's form: its mode, "_bf16" for bfloat16 masks, and (apply
+    only, ``out_dtype`` given) "_out_bf16" for bfloat16 planes, e.g.
+    "masks_bf16_out_bf16"."""
+    name = mode + ("_bf16" if in_dtype == torch.bfloat16 else "")
+    return name + ("_out_bf16" if out_dtype == torch.bfloat16 else "")
+
+
+REDUCE_FORMS = ("masks", "masks_bf16", "y", "mags")
+APPLY_FORMS = ("masks", "masks_out_bf16", "masks_bf16", "masks_bf16_out_bf16",
+               "y", "y_out_bf16", "mags", "mags_out_bf16")
 
 
 def inv_max_abs(xre, xim, scale_factor: float):
@@ -70,8 +98,9 @@ def _y_stats(yr0, yi0, yr1, yi1):
 
 def wiener_reduce_plain(mode: str, a_re, a_im, masks, inv_ma):
     """Plain version of :func:`wiener_reduce` (same operation order as the
-    TPU kernels' per-block sums)."""
+    TPU kernels' per-block sums); bfloat16 masks are upcast exactly."""
     if mode == "masks":
+        masks = masks.float()
         F = a_re.shape[-1]
         x0r, x0i, x1r, x1i = _planes(mode, a_re, a_im)
         ax0 = x0r * x0r + x0i * x0i
@@ -100,12 +129,15 @@ def wiener_reduce_plain(mode: str, a_re, a_im, masks, inv_ma):
     return torch.stack(rows).transpose(0, 1).reshape(-1, rows[0].shape[-1])
 
 
-def wiener_apply_plain(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float):
+def wiener_apply_plain(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float,
+                       out_dtype=torch.float32):
     """Plain version of :func:`wiener_apply` (operation order of the TPU
-    kernels' ``_apply_common``)."""
+    kernels' ``_apply_common``): bfloat16 masks upcast exactly, float32
+    arithmetic, the planes rounded to ``out_dtype``."""
     reg = float(eps) ** 0.5
     inv = inv_ma[0]
     if mode == "masks":
+        m_or_yre = m_or_yre.float()
         F = xre.shape[-1]
         sq = inv * inv
         ax0 = xre[0] * xre[0] + xim[0] * xim[0]
@@ -162,10 +194,10 @@ def wiener_apply_plain(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: f
         ],
         dim=1,
     )
-    return yre, yim
+    return yre.to(out_dtype), yim.to(out_dtype)
 
 
-def _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc=None):
+def _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc=None, out_dtype=torch.float32):
     """Validate the pass inputs; returns (T, F)."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {sorted(_MODES)}, got {mode!r}")
@@ -176,7 +208,9 @@ def _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc=None):
     if mode == "masks":
         if tuple(m_or_yre.shape) != (S, T, 2 * F):
             raise ValueError(f"masks must be ({S}, {T}, {2 * F}), got {tuple(m_or_yre.shape)}")
-        tensors = [xre, xim, m_or_yre, inv_ma]
+        if m_or_yre.dtype not in STORAGE:
+            raise TypeError(f"wiener masks must be float32 or bfloat16, got {m_or_yre.dtype}")
+        tensors = [xre, xim, inv_ma]
     elif mode == "mags":
         if tuple(m_or_yre.shape) != (S, 2, T, F):
             raise ValueError(f"mags must be ({S}, 2, {T}, {F}), got {tuple(m_or_yre.shape)}")
@@ -186,6 +220,8 @@ def _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc=None):
             if tuple(y.shape) != (S, 2, T, F):
                 raise ValueError(f"y planes must be ({S}, 2, {T}, {F}), got {tuple(y.shape)}")
         tensors = [xre, xim, m_or_yre, y_im, inv_ma]
+    if out_dtype not in STORAGE:
+        raise TypeError(f"wiener out_dtype must be float32 or bfloat16, got {out_dtype}")
     if tuple(inv_ma.shape) != (1,):
         raise ValueError(f"inv_ma must have shape (1,), got {tuple(inv_ma.shape)}")
     if racc is not None:
@@ -195,6 +231,7 @@ def _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc=None):
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"wiener planes must be float32, got {t.dtype}")
+    for t in (*tensors, m_or_yre):
         if t.device != xre.device:
             raise ValueError(f"inputs on {t.device} and {xre.device}")
         if not t.is_contiguous():
@@ -208,9 +245,9 @@ def wiener_reduce(mode: str, xre, xim, m_or_yre, y_im, inv_ma):
     """Covariance statistics racc (4S, F) of one EM iteration.
 
     mode "masks": xre/xim (2, T, F) mix planes, m_or_yre the (S, T, 2F)
-    masks, y_im unused.  mode "mags": m_or_yre the (S, 2, T, F) target
-    magnitudes, y_im unused.  mode "y": m_or_yre/y_im the previous y planes
-    (S, 2, T, F) divided by max_abs.  CUDA tensors launch the kernel once
+    masks (float32 or bfloat16), y_im unused.  mode "mags": m_or_yre the
+    (S, 2, T, F) target magnitudes, y_im unused.  mode "y": m_or_yre/y_im
+    the previous y planes (S, 2, T, F) divided by max_abs.  CUDA tensors launch the kernel once
     (or raise); CPU tensors run :func:`wiener_reduce_plain`."""
     T, F = _check(mode, xre, xim, m_or_yre, y_im, inv_ma)
     a_re, a_im = (m_or_yre, y_im) if mode == "y" else (xre, xim)
@@ -219,39 +256,44 @@ def wiener_reduce(mode: str, xre, xim, m_or_yre, y_im, inv_ma):
         return wiener_reduce_plain(mode, a_re, a_im, masks, inv_ma)
 
     racc = torch.empty((4 * N_SOURCES, F), dtype=torch.float32, device=xre.device)
+    mask_bf16 = mode == "masks" and masks.dtype == torch.bfloat16
     err = _build.library().umx_wiener_reduce(
-        _MODES[mode], a_re.data_ptr(), a_im.data_ptr(),
+        _MODES[mode], int(mask_bf16), a_re.data_ptr(), a_im.data_ptr(),
         masks.data_ptr() if masks is not None else None,
         inv_ma.data_ptr(), racc.data_ptr(), T, F,
         torch.cuda.current_stream(xre.device).cuda_stream,
     )
     _build.check(err, "umx_wiener_reduce")
     wiener_reduce.launches += 1
-    wiener_reduce.mode_launches[mode] += 1
+    wiener_reduce.form_launches[form(mode, m_or_yre.dtype)] += 1
     return racc
 
 
 wiener_reduce.launches = 0
-wiener_reduce.mode_launches = dict.fromkeys(_MODES, 0)  # the same launches, by input mode
+wiener_reduce.form_launches = dict.fromkeys(REDUCE_FORMS, 0)  # the same launches, by form
 
 
-def wiener_apply(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float):
-    """New estimates (yre, yim), each (S, 2, T, F) f32, from the
-    statistics ``racc`` of :func:`wiener_reduce` (same modes).  CUDA
-    tensors launch the kernel (or raise); CPU tensors run
+def wiener_apply(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float,
+                 out_dtype=torch.float32):
+    """New estimates (yre, yim), each (S, 2, T, F) in ``out_dtype``
+    (float32 or bfloat16), from the statistics ``racc`` of
+    :func:`wiener_reduce` (same modes and mask dtypes).  CUDA tensors
+    launch the kernel (or raise); CPU tensors run
     :func:`wiener_apply_plain`."""
-    T, F = _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc)
+    T, F = _check(mode, xre, xim, m_or_yre, y_im, inv_ma, racc, out_dtype)
     if xre.device.type == "cpu":
-        return wiener_apply_plain(mode, xre, xim, m_or_yre, y_im, racc, inv_ma, eps)
+        return wiener_apply_plain(mode, xre, xim, m_or_yre, y_im, racc, inv_ma, eps, out_dtype)
 
     lib = _build.library()
     if T > _MAX_GRID_Y:
         raise ValueError(f"T={T} exceeds the apply grid")
     shape = (N_SOURCES, 2, T, F)
-    yre = torch.empty(shape, dtype=torch.float32, device=xre.device)
-    yim = torch.empty(shape, dtype=torch.float32, device=xre.device)
+    yre = torch.empty(shape, dtype=out_dtype, device=xre.device)
+    yim = torch.empty(shape, dtype=out_dtype, device=xre.device)
+    mask_bf16 = mode == "masks" and m_or_yre.dtype == torch.bfloat16
     err = lib.umx_wiener_apply(
-        _MODES[mode], xre.data_ptr(), xim.data_ptr(), m_or_yre.data_ptr(),
+        _MODES[mode], int(mask_bf16), int(out_dtype == torch.bfloat16), xre.data_ptr(),
+        xim.data_ptr(), m_or_yre.data_ptr(),
         y_im.data_ptr() if y_im is not None else None,
         racc.data_ptr(), inv_ma.data_ptr(), yre.data_ptr(), yim.data_ptr(),
         T, F, float(eps), float(eps) ** 0.5,
@@ -259,39 +301,46 @@ def wiener_apply(mode: str, xre, xim, m_or_yre, y_im, racc, inv_ma, eps: float):
     )
     _build.check(err, "umx_wiener_apply")
     wiener_apply.launches += 1
-    wiener_apply.mode_launches[mode] += 1
+    wiener_apply.form_launches[form(mode, m_or_yre.dtype, out_dtype)] += 1
     return yre, yim
 
 
 wiener_apply.launches = 0
-wiener_apply.mode_launches = dict.fromkeys(_MODES, 0)
+wiener_apply.form_launches = dict.fromkeys(APPLY_FORMS, 0)
 
 
-def _wiener_planes(mode, xre, xim, first, cfg):
+def _wiener_planes(mode, xre, xim, first, cfg, out_dtype):
     """``cfg.iterations`` (≥ 1) reduce/apply pairs; the first pair reads
-    ``first`` in ``mode`` ("masks" or "mags"), later ones the previous y."""
+    ``first`` in ``mode`` ("masks" or "mags"), later ones the previous y
+    (float32); the last apply writes ``out_dtype``."""
     inv_ma = inv_max_abs(xre, xim, cfg.scale_factor)
     racc = wiener_reduce(mode, xre, xim, first, None, inv_ma)
-    yre, yim = wiener_apply(mode, xre, xim, first, None, racc, inv_ma, cfg.eps)
-    for _ in range(cfg.iterations - 1):
+    last = cfg.iterations == 1
+    yre, yim = wiener_apply(mode, xre, xim, first, None, racc, inv_ma, cfg.eps,
+                            out_dtype if last else torch.float32)
+    for it in range(cfg.iterations - 1):
         # later iterations read the previous y in the working frame
         # (divided by max_abs); apply emits y * max_abs
         yre_s = yre * inv_ma
         yim_s = yim * inv_ma
         racc = wiener_reduce("y", xre, xim, yre_s, yim_s, inv_ma)
-        yre, yim = wiener_apply("y", xre, xim, yre_s, yim_s, racc, inv_ma, cfg.eps)
+        last = it == cfg.iterations - 2
+        yre, yim = wiener_apply("y", xre, xim, yre_s, yim_s, racc, inv_ma, cfg.eps,
+                                out_dtype if last else torch.float32)
     return yre, yim
 
 
-def wiener_planes_from_masks(xre, xim, masks, cfg):
-    """EM-refined estimates (yre, yim), each (S, 2, T, F), straight from
-    the network-layout masks (S, T, 2F): ``cfg.iterations`` (≥ 1)
-    reduce/apply pairs, psd "correct" semantics."""
-    return _wiener_planes("masks", xre, xim, masks, cfg)
+def wiener_planes_from_masks(xre, xim, masks, cfg, out_dtype=torch.float32):
+    """EM-refined estimates (yre, yim), each (S, 2, T, F) in ``out_dtype``,
+    straight from the network-layout masks (S, T, 2F), float32 or
+    bfloat16: ``cfg.iterations`` (≥ 1) reduce/apply pairs, psd "correct"
+    semantics."""
+    return _wiener_planes("masks", xre, xim, masks, cfg, out_dtype)
 
 
-def wiener_planes_from_mags(xre, xim, target_mags, cfg):
-    """EM-refined estimates (yre, yim), each (S, 2, T, F), from the target
-    magnitudes (S, 2, T, F) and the mix planes (2, T, F): the first
-    estimate is mag × the mix's unit phasor (``wiener_planes_pallas``)."""
-    return _wiener_planes("mags", xre, xim, target_mags, cfg)
+def wiener_planes_from_mags(xre, xim, target_mags, cfg, out_dtype=torch.float32):
+    """EM-refined estimates (yre, yim), each (S, 2, T, F) in ``out_dtype``,
+    from the target magnitudes (S, 2, T, F) and the mix planes (2, T, F):
+    the first estimate is mag × the mix's unit phasor
+    (``wiener_planes_pallas``)."""
+    return _wiener_planes("mags", xre, xim, target_mags, cfg, out_dtype)

@@ -65,7 +65,8 @@ def probe(device, cfg=None, track_secs: float = 1800.0) -> dict:
 
     cfg = EngineConfig() if cfg is None else cfg
     fig = {"secs": track_secs, "card": card_name(device),
-           "planner_gib": fused_track_hbm_bytes(cfg, 1, track_secs)["total"] / 2**30,
+           "planner_gib": fused_track_hbm_bytes(cfg, 1, track_secs,
+                                                 device=device)["total"] / 2**30,
            "device_gib": device_hbm_bytes(device) / 2**30}
     print(
         f"# planner: {fig['planner_gib']:.2f} GiB estimated of "

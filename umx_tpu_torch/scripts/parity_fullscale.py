@@ -11,7 +11,10 @@ is ``segment_forward`` on ``--device`` (default ``cuda``, which raises
 without a GPU; ``cpu`` runs the kernels' plain versions), once per
 variant:
 
-    fp32       the defaults: the merged recurrence kernel, the Wiener kernels
+    fp32       the defaults with the three storage seams pinned to float32
+               (mask_dtype, wiener.out_dtype, stems_stack_dtype): the merged
+               recurrence kernel, the Wiener kernels; every variant below but
+               auto starts from it
     qhbm       quantized resident weights (u8/u16 planes, ops/qmatmul.py)
     pallas     lstm_impl="pallas_merged" (the merged kernel, as in the JAX
                script; the same program as fp32)
@@ -26,6 +29,9 @@ variant:
     wiener_bf16  wiener.out_dtype="bfloat16" (the Wiener kernels' y planes
                rounded to bfloat16 before the iSTFT)
     wiener_f32   wiener.out_dtype="float32" (the same program as fp32)
+    auto       the EngineConfig defaults as they are: the seams at "auto",
+               bfloat16 on the GPU (masks read and Wiener planes written by
+               the kernels in bfloat16), float32 on the CPU (fp32's program)
 
 The JAX script's precision variants (high, idft_*, dft_*) raise by name:
 the port's CLI accepts their flags, and each computes what fp32 computes
@@ -55,7 +61,7 @@ import sys
 import numpy as np
 
 PORT_VARIANTS = ("fp32", "qhbm", "pallas", "pertarget", "ct2", "em2", "nowiener", "quirk",
-                 "stream2", "wiener_bf16", "wiener_f32")
+                 "stream2", "wiener_bf16", "wiener_f32", "auto")
 _SAME_AS_FP32 = ("the port accepts that flag, and every value of it computes what fp32 "
                  "computes")
 # the JAX script's variants that select TPU precisions or an XLA / Pallas
@@ -143,8 +149,13 @@ class Parity:
         self.device = resolve_device(device)
         self.card = card_name(self.device)
         self.hidden, self.seg_secs = hidden, seg_secs
-        self.cfg = EngineConfig(model=ModelConfig(hidden_size=hidden),
-                                segment=SegmentConfig(segment_secs=seg_secs))
+        # the card's defaults (variant auto); the other variants start from
+        # ``self.cfg``, the same with the storage seams pinned to float32
+        self.auto_cfg = EngineConfig(model=ModelConfig(hidden_size=hidden),
+                                     segment=SegmentConfig(segment_secs=seg_secs))
+        self.cfg = self.auto_cfg.replace(
+            mask_dtype="float32", stems_stack_dtype="float32",
+            wiener=dataclasses.replace(self.auto_cfg.wiener, out_dtype="float32"))
         dcfg = self.cfg.dsp
         self.n = n = self.cfg.segment.segment_samples(dcfg.sample_rate)
         self.n_frames = dcfg.n_frames(n)
@@ -290,6 +301,8 @@ class Parity:
         elif variant in ("wiener_bf16", "wiener_f32"):
             out_dtype = "bfloat16" if variant == "wiener_bf16" else "float32"
             cfg = cfg.replace(wiener=dataclasses.replace(cfg.wiener, out_dtype=out_dtype))
+        elif variant == "auto":
+            cfg = self.auto_cfg
         return cfg, variant == "qhbm", okey
 
     def ours(self, variant: str) -> np.ndarray:

@@ -149,12 +149,13 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     Its figures go under ``"evaluation"`` in the JSON line.
 15. (run after phase 14) oracle parity at UMX-L production shape:
     ``umx_tpu_torch.scripts.parity_fullscale`` at hidden 1024, 60 s, T 2584
-    on cuda, every port variant (fp32, qhbm, pallas, pertarget, ct2, em2,
-    nowiener, quirk, stream2, wiener_bf16, wiener_f32 with the storage
-    seams pinned to float32, and auto, the card's default bf16 seams)
-    against the independent oracle
+    on cuda, every port variant (fp32, qhbm, pallas, pertarget, scan, ct2,
+    em2, nowiener, quirk, stream2, wiener_bf16, wiener_f32 with the
+    storage seams pinned to float32, and auto, the card's default bf16
+    seams) against the independent oracle
     (``eval/oracle.py``) on the host CPU; each variant's kernels must have
-    launched (K1-K3; K9 for pertarget, K8 for ct2, K2/K3 in mode y for em2,
+    launched (K1-K3; K9 for pertarget, K10 for scan, K8 for ct2, K2/K3 in
+    mode y for em2,
     K1 for 3 layers in each half of stream2, at T 1292, where K1 is then
     held against its plain version); every row's waveform error at least
     32.7 dB below the signal (0.1 dB of SDR), fp32 within 0.5 dB of the
@@ -211,6 +212,28 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     a chunk, four finite stems summing to the mix).  Its figures go under
     ``"stream"``, and K1's row of the kernels line gets its launches by
     chain count on that run.
+19. (run after phase 18) the float32 recurrence K10 (``lstm_impl="scan"``,
+    ``csrc/lstm_scan.cu``; the JAX package's portable ``lax.scan``, no
+    Pallas kernel): against its plain version at T 2584, R 8 and (G 512,
+    B 1, 3, 6), W_hh bf16 at G 512, G 256, G 640 and G 18 (1e-4), rows at
+    B 3 and 6 bit-equal to their B 1 runs, five more runs of each shape
+    bit-equal to the first, its form and time beside its
+    bound and four ``nn.LSTM`` calls (a yardstick); the CLI with
+    ``--lstm-impl scan`` on the 100 s track, dense and ``--quantized-hbm``
+    (counts set to 0 just before and read just after: K10 three layers a
+    chunk, K1 never; stems summing to the mix); the GPU against the CPU on
+    5 s with float32 seams, the CPU side in a child process with its
+    instruction set, MKL path and threads pinned (dense 2e-4 of the peak;
+    quantized 30 dB of error energy below the stems, as phase 11, since
+    its bf16 activations flip on a last-bit change), each with K10 at the
+    path's own inputs against its plain version (1e-4) and two card runs
+    bit-equal; the warm streaming demix
+    under "scan" beside the default, in turns; and a synthetic hidden-1280
+    model (G 640, wider than K1 takes) through the CLI on a 20 s cut
+    (finite stems, four WAVs) and against the CPU on 5 s (2e-4).  Its
+    figures go under ``"scan"``, and K10's row of the kernels line gets its
+    launches from the dense CLI run.  Phase 15 runs the parity variant
+    ``scan`` among the others.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -1455,6 +1478,7 @@ def main_path(tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
           f"kernel runs {launches}; K2/K3 by storage form {forms}")
     for name in ("lstm_merged", "wiener_reduce", "wiener_apply"):
         require(launches[name] > 0, f"kernel {name} was not launched on the demix path")
+    require(launches["lstm_scan"] == 0, "the default demix path launched the float32 recurrence")
     # the card's "auto" seams: K2/K3 read bf16 masks and K3 writes bf16 planes
     for name in ("wiener_reduce_bf16", "wiener_apply_bf16"):
         require(forms[name] == launches[name.removesuffix("_bf16")],
@@ -2481,6 +2505,7 @@ def parity_phase(dev, counters: dict, smi: str) -> tuple[dict, tuple, float]:
         "qhbm": ("lstm_merged", *k23),
         "pallas": ("lstm_merged", *k23),
         "pertarget": ("lstm_layer_pertarget", *k23),
+        "scan": ("lstm_scan", *k23),
         "ct2": ("lstm_merged", "istft_ct2", *k23),
         "em2": ("lstm_merged", *k23, "form wiener_reduce_y", "form wiener_apply_y"),
         "nowiener": ("lstm_merged",),
@@ -3337,6 +3362,329 @@ def stream_phase(dev, model: str, wav: str, mix, counters: dict, smi: str) -> di
     return fig
 
 
+# Phase 19: the float32 recurrence K10 (lstm_impl="scan")
+# K10 against its plain version at these (G, rows per chain, W_hh dtype),
+# R 8 chains, T 2584: UMX-L at B 1, 3 and 6 (f32 and the quantized path's
+# bf16 W_hh), UMX-HQ, a hidden-1280 model and hidden 36
+SCAN_SHAPES = ((512, 1, "float32"), (512, 3, "float32"), (512, 6, "float32"),
+               (512, 1, "bfloat16"), (256, 1, "float32"), (640, 1, "float32"),
+               (18, 1, "float32"))
+# both sides take f32 products of unrounded h and exact weights, summed in
+# another order: measured ~4e-7 on h and c, so 1e-4 catches any index fault
+SCAN_ATOL = 1e-4
+SCAN_REPEATS = 5  # further runs of each shape, each held to the first run's bits
+SCAN_SLICE_RTOL = 2e-4  # the port against the CPU, dense, both f32 (the CPU tests' class)
+# The CPU side of that comparison runs in a process of its own with its
+# instruction set, MKL's code path and its thread count pinned, so that
+# its last bits do not depend on the host; the input scaled by 1 + 1e-6
+# shows how far the CPU path itself moves on a last-bit change (printed)
+SCAN_CPU_THREADS = 8
+SCAN_CPU_PINS = {"ATEN_CPU_CAPABILITY": "avx2", "MKL_CBWR": "AVX2", "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": str(SCAN_CPU_THREADS), "MKL_NUM_THREADS": str(SCAN_CPU_THREADS)}
+SCAN_NUDGE = 1e-6
+# quantized weights round the activations to bf16 before every product, so
+# the GPU and the CPU are held on the error's energy, as phase 11 holds them
+SCAN_QUANT_DB = -30.0
+SCAN_WIDE_HIDDEN, SCAN_WIDE_SECS = 1280, 20.0  # the model wider than UMX-L, its cut
+
+
+def scan_bound(T, rows, G, inputs):
+    """Bound of one K10 layer: the inputs once, hs + hT + cT out, and
+    2*T*rows*G*4G float32 operations on the CUDA cores."""
+    out = (T + 2) * rows * G * 4
+    return bound_ms(nbytes(*inputs) + out, 2.0 * T * rows * G * 4 * G, "f32")
+
+
+def scan_inputs(dev, T, B, G, seed, dtype="float32"):
+    """Random K10 inputs at R 8 chains of width G, W_hh in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    RB = R_CHAINS * B
+    xp = torch.randn((T, RB, 4 * G), generator=g, device=dev)
+    whh = (torch.randn((R_CHAINS, G, 4 * G), generator=g, device=dev) / G**0.5).to(
+        getattr(torch, dtype))
+    h0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((RB, G), generator=g, device=dev)
+    return xp, whh, h0, c0, B
+
+
+_CPU_DEMIX = """
+import pickle, sys
+import numpy as np, torch
+torch.set_num_threads(int(sys.argv[3]))
+from umx_tpu_torch.engine.separator import Separator
+path, cfg, short, quantized, nudge = pickle.load(open(sys.argv[1], "rb"))
+sep = Separator.from_ggml(path, cfg, "cpu", quantized_hbm=quantized)
+np.save(sys.argv[2], np.stack([sep.demix_track(short, seed=0),
+                               sep.demix_track(short * np.float32(1 + nudge), seed=0)]))
+print(torch.backends.cpu.get_cpu_capability(), torch.get_num_threads())
+"""
+
+
+def pinned_cpu_demix(tmp: str, path: str, cfg, short, quantized: bool):
+    """The port's CPU demix of ``short`` (and of it scaled by 1 +
+    ``SCAN_NUDGE``) in a child process under ``SCAN_CPU_PINS``: (stems,
+    nudged stems, the child's "capability threads")."""
+    import pickle
+
+    job, out = os.path.join(tmp, "cpu_job.pkl"), os.path.join(tmp, "cpu_out.npy")
+    with open(job, "wb") as f:
+        pickle.dump((path, cfg, short, quantized, SCAN_NUDGE), f)
+    res = subprocess.run([sys.executable, "-c", _CPU_DEMIX, job, out, str(SCAN_CPU_THREADS)],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env={**os.environ, **SCAN_CPU_PINS}, capture_output=True, text=True,
+                         timeout=600)
+    require(res.returncode == 0, f"the pinned CPU demix exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+    cpu, nudged = np.load(out)
+    return cpu, nudged, res.stdout.strip().splitlines()[-1]
+
+
+def scan_vs_cpu(tmp: str, path: str, cfg, short, quantized: bool = False) -> dict:
+    """The card's demix of ``short`` against the port's CPU path (pinned,
+    :func:`pinned_cpu_demix`) on the same ggml file and config:
+    max|err|/max|stem|, the error's energy in dB, and the CPU path against
+    itself on the nudged input.  Also K10 at the path's own inputs (its
+    three layers of the first segment, captured on the way) against its
+    plain version on the card, and the card's demix run twice (the same
+    bits, or the exchange raced)."""
+    import torch
+
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    from umx_tpu_torch.models import umx
+
+    sep = Separator.from_ggml(path, cfg, "cuda", quantized_hbm=quantized)
+    layer, seen = umx.lstm_layer_scan_batched, []
+
+    def spy(x_proj, hh_w, h0, c0):
+        if len(seen) < cfg.model.n_lstm_layers:
+            xp, h0r, c0r = L._chain_rows(x_proj, h0, c0)
+            R, G = x_proj.shape[1] * x_proj.shape[3], x_proj.shape[4] // 4
+            seen.append((xp, hh_w.reshape(R, G, 4 * G).contiguous(), h0r, c0r, x_proj.shape[0]))
+        return layer(x_proj, hh_w, h0, c0)
+
+    umx.lstm_layer_scan_batched = spy
+    try:
+        gpu = sep.demix_track(short, seed=0)
+        again = sep.demix_track(short, seed=0)
+    finally:
+        umx.lstm_layer_scan_batched = layer
+    in_path = max(float((k - p).abs().max()) for args in seen
+                  for k, p in zip(L.lstm_scan(*args), L.lstm_scan_plain(*args)))
+    whh = str(seen[0][1].dtype).replace("torch.", "")
+    del sep, seen
+    cpu, nudged, pins = pinned_cpu_demix(tmp, path, cfg, short, quantized)
+    peak = float(np.max(np.abs(cpu)))
+    return {"rel_err": float(np.max(np.abs(gpu - cpu))) / peak,
+            "err_energy_db": float(20 * np.log10(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu))),
+            "cpu_own_rel": float(np.max(np.abs(nudged - cpu))) / peak,
+            "k10_in_path_err": in_path, "whh": whh, "repeat_equal": bool(np.array_equal(gpu, again)),
+            "cpu_pins": pins, "finite": bool(np.isfinite(gpu).all())}
+
+
+def check_scan_vs_cpu(r: dict, what: str, quantized: bool = False) -> None:
+    """The gates of :func:`scan_vs_cpu`'s figures ``r``."""
+    require(r["finite"], f"{what}: the card's stems are not finite")
+    require(r["repeat_equal"], f"{what}: two demixes of the same input on the card differ")
+    require(r["k10_in_path_err"] <= SCAN_ATOL,
+            f"{what}: K10 at the path's inputs disagrees with its plain version: "
+            f"{r['k10_in_path_err']}")
+    if quantized:
+        require(r["err_energy_db"] <= SCAN_QUANT_DB,
+                f"{what}: GPU and CPU disagree, error energy {r['err_energy_db']} dB")
+    else:
+        require(r["rel_err"] <= SCAN_SLICE_RTOL, f"{what}: GPU and CPU disagree: {r}")
+
+
+def scan_cpu_line(r: dict) -> str:
+    return (f"max|err|/max|stem| {r['rel_err']:.3g}, error energy {r['err_energy_db']:.1f} dB; "
+            f"K10 at the path's inputs (W_hh {r['whh']}) vs plain {r['k10_in_path_err']:.3g}; "
+            f"two card runs bit-equal {r['repeat_equal']}; the CPU path against itself on the "
+            f"input x (1 + {SCAN_NUDGE:g}): {r['cpu_own_rel']:.3g}; CPU side pinned "
+            f"(capability, threads) {r['cpu_pins']}")
+
+
+def scan_phase(dev, tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
+    """Phase 19: K10 (``csrc/lstm_scan.cu``, ``lstm_impl="scan"``) against
+    its plain version at ``SCAN_SHAPES``, rows at B 3 and 6 bit-equal to
+    their B 1 runs, timed beside its bound and four ``nn.LSTM`` calls (a
+    yardstick: they compute the ih product too); the CLI with
+    ``--lstm-impl scan`` on the 100 s track, dense and ``--quantized-hbm``
+    (counts set to 0 just before and read just after each: K10 three
+    layers a chunk, K1 never); the GPU against the port's pinned CPU path
+    on 5 s with the seams pinned to float32 (:func:`scan_vs_cpu`); the
+    warm streaming demix under "scan" beside the default in turns; and a
+    synthetic hidden-1280 model (G 640, which K1 refuses) through the CLI
+    on a 20 s cut and against the CPU on 5 s.  Returns (its figures, K10's inputs at G 512, B 1)."""
+    import dataclasses
+
+    import torch
+
+    from umx_tpu_torch import cli
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.io.ggml import write_ggml
+    from umx_tpu_torch.models.umx import synthetic_state_dicts
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fig = {"card": smi, "shapes": {}}
+    args_main, worst = None, 0.0
+    for G, B, dt in SCAN_SHAPES:
+        args = scan_inputs(dev, T_SEG, B, G, seed=700 + G + B, dtype=dt)
+        xp, whh, h0, c0, _ = args
+        out = L.lstm_scan(*args)
+        torch.cuda.synchronize()
+        form = L.lstm_scan.form
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = L.lstm_scan_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(out, ref))
+        worst = max(worst, err)
+        same = None
+        if B > 1:
+            same = True
+            for b in range(B):
+                rows = torch.arange(R_CHAINS, device=dev) * B + b
+                one = L.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                                  c0[rows].contiguous(), 1)
+                same &= (torch.equal(one[0], out[0][:, rows]) and torch.equal(one[1], out[1][rows])
+                         and torch.equal(one[2], out[2][rows]))
+        ms = cuda_ms(lambda: L.lstm_scan(*args), 3)
+        # a race in the exchange of h would move the output between runs
+        repeats = all(all(torch.equal(a, b) for a, b in zip(L.lstm_scan(*args), out))
+                      for _ in range(SCAN_REPEATS))
+        bound = scan_bound(T_SEG, R_CHAINS * B, G, args[:4])
+        key = f"G{G}_B{B}" + ("_bf16" if dt == "bfloat16" else "")
+        fig["shapes"][key] = {"ms": ms, "plain_ms": start.elapsed_time(end), "bound_ms": bound[0],
+                              "bound_by": bound[1], "us_per_step": ms / T_SEG * 1e3,
+                              "max_abs_err": err, "form": form, "rows_bit_equal": same,
+                              "repeats_bit_equal": repeats}
+        print(f"lstm_scan vs plain (T={T_SEG}, R={R_CHAINS}, B={B}, G={G}, W_hh {dt}): max|err| "
+              f"{err:.3g} (gate {SCAN_ATOL}); form (blocks per chain, blocks held at once, chain "
+              f"groups, row groups) {form}; rows bit-equal to B 1: {same}; {SCAN_REPEATS} more runs bit-equal: {repeats}; kernel {ms:.4f} ms = "
+              f"{ms / T_SEG * 1e3:.3f} us a step, plain {start.elapsed_time(end):.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]} (the steps depend on each other)  [{smi}]")
+        require(err <= SCAN_ATOL, f"lstm_scan disagrees with plain at G {G}, B {B}, {dt}: {err}")
+        require(same is not False, f"lstm_scan rows at B {B} are not their B 1 bits")
+        require(repeats, f"lstm_scan at G {G}, B {B}, {dt} gave other bits on another run")
+        if (G, B, dt) == (G_HIDDEN, 1, "float32"):
+            args_main = args
+        del out, ref, args, xp, whh, h0, c0
+    # the yardstick: four nn.LSTM(bidirectional) f32 calls at the same T and
+    # G, the UMX-L layer's input width (they also compute the ih product)
+    lstm = torch.nn.LSTM(2 * G_HIDDEN, G_HIDDEN, bidirectional=True).to(dev)
+    x = torch.randn(T_SEG, 1, 2 * G_HIDDEN, device=dev)
+    with torch.no_grad():
+        fig["nn_lstm_x4_ms"] = cuda_ms(lambda: [lstm(x) for _ in range(4)], 2)
+    print(f"yardstick: 4 x nn.LSTM(1024, 512, bidirectional) f32, TF32 off, T {T_SEG}: "
+          f"{fig['nn_lstm_x4_ms']:.4f} ms against lstm_scan at R 8 "
+          f"{fig['shapes']['G512_B1']['ms']:.4f} ms  [{smi}]")
+    del lstm, x
+
+    # the CLI on the 100 s track, dense and quantized, counts around each run
+    fig["cli"] = {}
+    for flags in ((), ("--quantized-hbm",)):
+        name = "quantized" if flags else "dense"
+        out_dir = os.path.join(tmp, f"stems_scan_{name}")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        rc = cli.main([model, wav, out_dir, "--quiet", "--lstm-impl", "scan", *flags])
+        cli_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        require(rc == 0, f"CLI --lstm-impl scan {' '.join(flags)} exited {rc}")
+        print(f"CLI --lstm-impl scan {' '.join(flags)} ({TRACK_SECS:.0f} s track, UMX-L): "
+              f"{cli_s:.3f} s wall; kernel runs {launches}  [{smi}]")
+        require(launches["lstm_scan"] == 3 * N_CHUNKS and launches["lstm_merged"] == 0,
+                f"the scan run launched K10 {launches['lstm_scan']} times (not 3 layers x "
+                f"{N_CHUNKS} chunks) and K1 {launches['lstm_merged']} times")
+        for k in ("wiener_reduce", "wiener_apply"):
+            require(launches[k] > 0, f"the scan run launched no {k}")
+        check_stems(out_dir, mix)
+        fig["cli"][name] = {"s": cli_s, "launches": launches}
+
+    # the GPU against the port's CPU path, 5 s with 2 s segments, float32 seams
+    cfg = f32_seams(EngineConfig(model=ModelConfig(lstm_impl="scan"),
+                                 segment=SegmentConfig(segment_secs=2.0)))
+    short = mix[:, : 5 * SR]
+    fig["gpu_vs_cpu"] = {}
+    for quantized in (False, True):
+        name = "quantized" if quantized else "dense"
+        r = fig["gpu_vs_cpu"][name] = scan_vs_cpu(tmp, model, cfg, short, quantized)
+        print(f"GPU vs CPU port, lstm_impl scan, {name} weights, 5 s at UMX-L, float32 seams: "
+              f"{scan_cpu_line(r)}  [{smi}]")
+        check_scan_vs_cpu(r, f"scan, {name} weights", quantized)
+
+    # the warm streaming demix of the 100 s track, the default beside it
+    seps = {"auto": Separator.from_ggml(model),
+            "scan": Separator.from_ggml(model, EngineConfig(model=ModelConfig(lstm_impl="scan")))}
+    walls = {k: [] for k in seps}
+    for k in ("auto", "scan", "scan", "auto", "auto", "scan"):
+        if not walls[k]:
+            seps[k].demix_track(mix, seed=0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seps[k].demix_track(mix, seed=0)
+        torch.cuda.synchronize()
+        walls[k].append(time.perf_counter() - t0)
+    fig["demix_s"] = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"demix {TRACK_SECS:.0f} s track (warm, UMX-L, shifts 1), median of 3 in turns: "
+          f"lstm_impl scan {fig['demix_s']['scan']:.3f} s = "
+          f"{TRACK_SECS / fig['demix_s']['scan']:.1f}x realtime, auto "
+          f"{fig['demix_s']['auto']:.3f} s = {TRACK_SECS / fig['demix_s']['auto']:.1f}x  [{smi}]")
+    del seps
+
+    # a model wider than UMX-L: hidden 1280, G 640, through the CLI
+    wide = os.path.join(tmp, "synthetic_h1280.bin")
+    write_ggml(wide, SCAN_WIDE_HIDDEN,
+               synthetic_state_dicts(ModelConfig(hidden_size=SCAN_WIDE_HIDDEN), seed=0))
+    from scipy.io import wavfile
+
+    cut = mix[:, : int(SCAN_WIDE_SECS * SR)]
+    cut_wav = os.path.join(tmp, "mix_20s.wav")
+    wavfile.write(cut_wav, SR, np.ascontiguousarray(cut.T))
+    out_dir = os.path.join(tmp, "stems_h1280")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rc = cli.main([wide, cut_wav, out_dir, "--quiet", "--lstm-impl", "scan"])
+    wide_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    require(rc == 0, f"CLI on the hidden-{SCAN_WIDE_HIDDEN} model exited {rc}")
+    print(f"CLI --lstm-impl scan, synthetic hidden {SCAN_WIDE_HIDDEN} (G "
+          f"{SCAN_WIDE_HIDDEN // 2}), {SCAN_WIDE_SECS:.0f} s cut: {wide_s:.3f} s wall; kernel runs "
+          f"{launches}; form {L.lstm_scan.form}  [{smi}]")
+    require(launches["lstm_scan"] > 0 and launches["lstm_merged"] == 0,
+            f"the hidden-{SCAN_WIDE_HIDDEN} run did not go through K10 alone: {launches}")
+    # finite stems, the four WAVs; how well they partition the mix depends
+    # on the random weights, so it is printed beside UMX-L's on the same
+    # cut and held by the GPU against the CPU below
+    stems = check_stems(out_dir, cut, min_corr=0.0)
+    umxl = Separator.from_ggml(model, EngineConfig(model=ModelConfig(lstm_impl="scan")))
+    corr_l = float(np.corrcoef(umxl.demix_track(cut, seed=0).sum(0).ravel(), cut.ravel())[0, 1])
+    corr_w = float(np.corrcoef(stems.sum(0).ravel(), cut.ravel())[0, 1])
+    del umxl
+    wcfg = cfg.replace(model=ModelConfig(hidden_size=SCAN_WIDE_HIDDEN, lstm_impl="scan"))
+    r = scan_vs_cpu(tmp, wide, wcfg, short)
+    print(f"hidden {SCAN_WIDE_HIDDEN}: corr(sum of stems, mix) {corr_w:.6f} on the "
+          f"{SCAN_WIDE_SECS:.0f} s cut (UMX-L's synthetic weights on it: {corr_l:.6f}); GPU vs "
+          f"CPU port, 5 s, float32 seams: {scan_cpu_line(r)}  [{smi}]")
+    check_scan_vs_cpu(r, f"hidden {SCAN_WIDE_HIDDEN}")
+    fig["wide"] = {"hidden": SCAN_WIDE_HIDDEN, "s": wide_s, "launches": launches,
+                   "form": L.lstm_scan.form, "corr_sum_mix": corr_w, "umxl_corr_sum_mix": corr_l,
+                   "gpu_vs_cpu": r}
+    fig["max_abs_err"] = worst
+    fig["phase_s"] = time.perf_counter() - t_phase
+    print(f"scan phase: {fig['phase_s']:.1f} s wall  [{smi}]")
+    return fig, args_main
+
+
 def main() -> int:
     import torch
 
@@ -3377,6 +3725,7 @@ def main() -> int:
         "lstm_merged_dw": lstm_cuda.lstm_merged_dw,
         "ola_normalized": ola_cuda.ola_normalized,
         "istft_ct2": istft_ct_cuda.istft_ct2,
+        "lstm_scan": lstm_cuda.lstm_scan,
     }
     wiener_args, wiener_errs, wiener_bf16 = check_wiener(dev, smi)
     k9_args, k9_err, k9_form, k9_ms, k9_k1_ms = check_pertarget(dev, T_SEG, G_HIDDEN, 9, smi)
@@ -3476,6 +3825,7 @@ def main() -> int:
         certification = certification_phase(tmp, model, mix, counters, smi)
         mesh = mesh_phase(dev, tmp, model, mix, list(tracks.values())[:3], counters, smi)
         stream = stream_phase(dev, model, wav, mix, counters, smi)
+        scan, scan_args = scan_phase(dev, tmp, model, wav, mix, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -3710,6 +4060,9 @@ def main() -> int:
                            "umx_tpu/ops/lstm_pallas.py:397", train_errs["lstm_merged_dw"]),
         "ola_normalized": ("umx_tpu_torch/csrc/ola.cu", "umx_tpu/ops/ola_pallas.py:61", ola_err),
         "istft_ct2": ("umx_tpu_torch/csrc/istft_ct.cu", "umx_tpu/ops/istft_ct.py:270", istft_err),
+        # not Pallas: the lax.scan step of _bilstm_layer (lstm_impl="scan")
+        "lstm_scan": ("umx_tpu_torch/csrc/lstm_scan.cu", "umx_tpu/models/umx.py:385",
+                      scan["max_abs_err"]),
     }
     # each kernel's launches on its own path: K1-K3 the demix, K4-K6
     # training, K7-K8 the batched whole-track demix, K9 the per-target
@@ -3723,9 +4076,14 @@ def main() -> int:
                         ("lstm_merged_train_fwd", "lstm_merged_bwd_step", "lstm_merged_dw")},
                      **{k: batched_launches[k] for k in ("ola_normalized", "istft_ct2")},
                      "lstm_layer_pertarget": k9_launches["lstm_layer_pertarget"],
-                     **mode_launches}
+                     **mode_launches,
+                     "lstm_scan": scan["cli"]["dense"]["launches"]["lstm_scan"]}
     for name, n in path_launches.items():
         require(n > 0, f"kernel {name} was launched no time on its path")
+    k10 = scan["shapes"]["G512_B1"]
+    times["lstm_scan"] = (k10["ms"], k10["plain_ms"])
+    bounds["lstm_scan"] = scan_bound(T_SEG, R_CHAINS, G_HIDDEN, scan_args[:4])
+    library["lstm_scan"] = None  # nn.LSTM computes the ih product too: a yardstick
     for name, form in bf16_forms.items():
         if name not in meta:
             continue  # the mixed forms: figures under "wiener_bf16_forms"
@@ -3745,6 +4103,8 @@ def main() -> int:
     # K1's launches by chain count on the CLI's pipelined run (phase 18)
     kernels[0]["pipelined_launches_by_chains"] = stream["k1_chain_launches"]
     kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
+    next(k for k in kernels if k["name"] == "lstm_scan")["nn_lstm_x4_yardstick_ms"] = \
+        scan["nn_lstm_x4_ms"]
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
                       "gpu_vs_cpu_rel_err": cpu_err, "bf16_default_vs_cpu": bf16_vs_cpu,
                       "wiener_bf16_forms": {n: {k: v for k, v in f.items() if k != "bound"}
@@ -3776,7 +4136,8 @@ def main() -> int:
                       "host_loop_vs_fused_rel_err": host_err, "resample_cli_s": resample_s,
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
                       "serving": serving, "evaluation": evaluation, "parity": parity,
-                      "certification": certification, "mesh": mesh, "stream": stream}))
+                      "certification": certification, "mesh": mesh, "stream": stream,
+                      "scan": scan}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

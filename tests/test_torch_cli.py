@@ -215,8 +215,26 @@ def test_cli_catalogue_flags_equal_the_separator_api(fixtures):
 def test_cli_rejects_an_unknown_lstm_impl(fixtures):
     d, model, wav, _, _ = fixtures
     with pytest.raises(SystemExit) as e:
-        cli.main([model, wav, str(d / "obad2"), *FAST, "--lstm-impl", "scan"])
+        cli.main([model, wav, str(d / "obad2"), *FAST, "--lstm-impl", "cudnn"])
     assert e.value.code == 2
+
+
+def test_cli_lstm_impl_scan_writes_four_stems(fixtures):
+    """--lstm-impl scan (the float32 recurrence) runs on the CPU and
+    writes four stems that sum to the mix, the Separator's with that
+    config."""
+    from umx_tpu_torch.config import EngineConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+
+    d, model, wav, _, mix = fixtures
+    out = str(d / "out_scan")
+    assert cli.main([model, wav, out, *FAST, "--lstm-impl", "scan"]) == 0
+    stems = _read_stems(out, mix.shape[1])
+    corr = np.corrcoef(stems.sum(axis=0).ravel(), mix.ravel())[0, 1]
+    assert corr >= 0.99
+    cfg = EngineConfig(model=ModelConfig(hidden_size=32, lstm_impl="scan"),
+                       segment=SegmentConfig(segment_secs=1.0))
+    assert np.array_equal(stems, Separator.from_ggml(model, cfg, "cpu").demix_track(mix, seed=0))
 
 
 @pytest.fixture(scope="module")

@@ -1457,3 +1457,89 @@ def test_default_demix_on_the_card_is_the_explicit_bf16_demix(dev):
     assert np.array_equal(auto, Separator(params, bf16, dev).demix_track(track, seed=1))
     f32 = Separator(params, _f32_seams(cfg), dev).demix_track(track, seed=1)
     assert not np.array_equal(auto, f32)
+
+
+# ---- K10: the float32 recurrence (lstm_impl="scan") ------------------------
+
+
+def _scan_inputs(dev, T, R, B, G, seed, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xp = torch.randn((T, R * B, 4 * G), generator=g, device=dev)
+    whh = (torch.randn((R, G, 4 * G), generator=g, device=dev) / G**0.5).to(dtype)
+    h0 = 0.5 * torch.randn((R * B, G), generator=g, device=dev)
+    c0 = 0.5 * torch.randn((R * B, G), generator=g, device=dev)
+    return xp, whh, h0, c0
+
+
+@pytest.mark.parametrize("T, R, B, G, dtype", [
+    (37, 3, 3, 40, torch.float32), (9, 8, 1, 512, torch.float32), (5, 2, 6, 18, torch.bfloat16),
+    (7, 8, 20, 512, torch.float32), (11, 8, 1, 640, torch.float32), (1, 2, 1, 1, torch.float32),
+    (3, 1, 9, 4096, torch.bfloat16),
+])
+def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype):
+    """K10 at ragged widths (G 1, 18, 40: no multiple of 8 needed; G 640
+    and 4096 beyond K1), W_hh in f32 and bf16, rows beyond one launch (B
+    20: groups of 16 and 4; G 4096, B 9: of 8 and 1, the rows that fit a
+    block's shared memory)."""
+    xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed=T + G)
+    before = lstm_cuda.lstm_scan.launches
+    out_k = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_scan.launches == before + 1
+    rows, _ = lstm_cuda._scan_capacity(dev.index, G, dtype == torch.bfloat16)
+    assert rows == (8 if G == 4096 else 16)  # the H100's 227 KiB of shared memory a block
+    assert lstm_cuda.lstm_scan.form[3] == len(lstm_cuda.scan_row_groups(B, rows))
+    out_p = lstm_cuda.lstm_scan_plain(xp, whh, h0, c0, B)
+    # f32 products of the same operands, summed in another order
+    for k, p in zip(out_k, out_p):
+        assert (k - p).abs().max().item() <= 1e-4
+    assert torch.equal(c0, _scan_inputs(dev, T, R, B, G, seed=T + G)[3])  # c0 untouched
+
+
+@pytest.mark.parametrize("B, G", [(3, 512), (17, 40)])
+def test_scan_kernel_rows_are_bit_equal_alone(dev, B, G):
+    """A row of K10 has the bits of the same row run alone, whatever rows
+    (and row groups) run beside it."""
+    T, R = 23, 4
+    xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed=B)
+    hs, hT, cT = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+    for b in (0, B - 1):
+        rows = torch.arange(R, device=dev) * B + b
+        one = lstm_cuda.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                                  c0[rows].contiguous(), 1)
+        assert torch.equal(one[0], hs[:, rows]) and torch.equal(one[1], hT[rows])
+        assert torch.equal(one[2], cT[rows])
+
+
+@pytest.mark.parametrize("B, G", [(6, 512), (1, 640)])
+def test_scan_kernel_repeats_its_bits(dev, B, G):
+    """Twenty launches of K10 on the same inputs give the same bits: the
+    exchange of h between a chain's blocks never hands a block a word of
+    another step (a race there would show as an output that moves)."""
+    xp, whh, h0, c0 = _scan_inputs(dev, 257, 8, B, G, seed=G + B)
+    ref = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+    for _ in range(20):
+        out = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_scan_demix_on_the_card_matches_the_cpu(dev):
+    """lstm_impl="scan" at hidden 36 (G 18, which K1 refuses): the card's
+    streaming demix through K10 against the CPU's plain versions, the
+    seams pinned to float32 on both sides (both recurrences float32)."""
+    import numpy as np
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.models.umx import synthetic_params
+
+    cfg = _f32_seams(EngineConfig(model=ModelConfig(hidden_size=36, lstm_impl="scan"),
+                                  segment=SegmentConfig(segment_secs=1.0)))
+    track = np.random.default_rng(6).uniform(-0.5, 0.5, (2, int(2.6 * 44100))).astype(np.float32)
+    before = (lstm_cuda.lstm_scan.launches, lstm_cuda.lstm_merged.launches)
+    gpu = Separator(synthetic_params(cfg.model, seed=0, device=dev), cfg, dev).demix_track(
+        track, seed=0)
+    assert lstm_cuda.lstm_scan.launches > before[0]
+    assert lstm_cuda.lstm_merged.launches == before[1]
+    cpu = Separator(synthetic_params(cfg.model, seed=0), cfg, "cpu").demix_track(track, seed=0)
+    assert float(np.abs(gpu - cpu).max() / np.abs(cpu).max()) <= 2e-4

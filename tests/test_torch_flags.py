@@ -55,9 +55,10 @@ BF16_STEP = 2.0**-7
 # bf16 Wiener planes against the JAX package's: equal but for rare flips
 # (measured 0 to 2 of 3168 elements), each one bf16 step
 PLANE_FLIPS = 1e-2
-# the JAX CLI's values that select what only a TPU has; the port's parser
-# refuses them, naming the value
-JAX_ONLY = {"--lstm-impl": {"scan"}, "--istft-algo": {"ct2_xla"}}
+# the JAX CLI's values that select what only XLA has; the port's parser
+# refuses them, naming the value (``--lstm-impl scan``, the JAX package's
+# float32 recurrence, is the port's kernel K10: nothing refused there)
+JAX_ONLY = {"--lstm-impl": set(), "--istft-algo": {"ct2_xla"}}
 PRECISION_FLAGS = {"--matmul-precision": ("default", "high", "highest"),
                    "--dft-precision": ("auto", "default", "high", "highest"),
                    "--idft-precision": ("auto", "default", "high", "highest"),

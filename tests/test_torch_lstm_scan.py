@@ -1,0 +1,415 @@
+"""The float32 recurrence (``lstm_impl="scan"``, kernel K10's plain
+version on the CPU) against the JAX package's ``lax.scan`` recurrence
+(``umx_tpu.models.umx._bilstm_layer``) per layer, with float32 and bf16
+stored W_hh; rows bit-equal to themselves alone; the model, the
+streaming, windowed and fleet slice against the JAX ``Separator`` and
+``demix_tracks`` under ``lstm_impl="scan"``; the trainer's and the
+layer's refusal of a gradient, the eval step running the scan; the
+pipelined arm keeping K1; and K10's launch plan."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from umx_tpu.config import EngineConfig as JEngineConfig
+from umx_tpu.config import ModelConfig as JModelConfig
+from umx_tpu.config import SegmentConfig as JSegmentConfig
+from umx_tpu.config import WienerConfig as JWienerConfig
+from umx_tpu.engine.fleet import demix_tracks as jdemix_tracks
+from umx_tpu.engine.separator import Separator as JSeparator
+from umx_tpu.models import umx as jumx
+from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+from umx_tpu_torch.engine import fleet, memory
+from umx_tpu_torch.engine.separator import Separator
+from umx_tpu_torch.models import umx as tumx
+from umx_tpu_torch.ops import lstm_cuda as L
+from umx_tpu_torch.train import make_eval_step, make_train_step, mask_loss
+
+# Both sides take f32 products of unrounded h and exact weights and sum
+# them in f32; they differ in summation order only (measured below 1e-6 of
+# |h| < 1 at T 100), so 1e-5.
+LAYER_ATOL = 1e-5
+SLICE_RTOL = 2e-4  # port against JAX, dense (tests/test_torch_separator.py)
+HIDDEN = 32
+SR = 44100
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _layer_inputs(G, T, B, seed, n_in=24):
+    """One layer of one target: per-row inputs x (B, T, in), the JAX
+    layouts of the weights (D, in, 4G), (D, G, 4G), biases (D, 4G), and a
+    non-zero state (B, D, G)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, n_in)).astype(np.float32)
+    ih_w = (rng.standard_normal((2, n_in, 4 * G)) / np.sqrt(n_in)).astype(np.float32)
+    hh_w = (rng.standard_normal((2, G, 4 * G)) / np.sqrt(G)).astype(np.float32)
+    ih_b = (0.1 * rng.standard_normal((2, 4 * G))).astype(np.float32)
+    hh_b = (0.1 * rng.standard_normal((2, 4 * G))).astype(np.float32)
+    h0 = (0.5 * rng.standard_normal((B, 2, G))).astype(np.float32)
+    c0 = (0.5 * rng.standard_normal((B, 2, G))).astype(np.float32)
+    return x, ih_w, ih_b, hh_w, hh_b, h0, c0
+
+
+def _jax_layer(x, ih_w, ih_b, hh_w, hh_b, h0, c0):
+    """``_bilstm_layer`` row by row → out (B, T, 2G), hT, cT (B, D, G), and
+    its input projection (B, T, D, 4G), computed as it computes it."""
+    outs, hTs, cTs, projs = [], [], [], []
+    for b in range(x.shape[0]):
+        xb = jnp.asarray(x[b])
+        out, (hT, cT) = jumx._bilstm_layer(xb, jnp.asarray(ih_w), jnp.asarray(ih_b),
+                                           jnp.asarray(hh_w), jnp.asarray(hh_b),
+                                           jnp.asarray(h0[b]), jnp.asarray(c0[b]), "default")
+        xs = jnp.stack([xb, xb[::-1]])
+        projs.append(np.asarray(jnp.einsum("dti,dig->tdg", xs, jnp.asarray(ih_w))
+                                + jnp.asarray(ih_b) + jnp.asarray(hh_b)))
+        outs.append(np.asarray(out))
+        hTs.append(np.asarray(hT))
+        cTs.append(np.asarray(cT))
+    return np.stack(outs), np.stack(hTs), np.stack(cTs), np.stack(projs)
+
+
+def _port_layer(proj, hh, h0, c0):
+    """The port's layer on the JAX projection: (B, T, 2G), hT, cT."""
+    hs, hT, cT = L.lstm_layer_scan_batched(
+        torch.from_numpy(proj)[:, None], hh[None], torch.from_numpy(h0)[:, None],
+        torch.from_numpy(c0)[:, None])
+    out = torch.cat([hs[:, 0, :, 0], hs[:, 0, :, 1].flip(1)], dim=-1)
+    return out.numpy(), hT[:, 0].numpy(), cT[:, 0].numpy()
+
+
+@pytest.mark.parametrize("hidden, B", [(32, 1), (32, 3), (36, 1), (36, 3)])
+def test_scan_layer_matches_jax_bilstm_layer(hidden, B):
+    """hidden 36 is G 18, not a multiple of 8 (K1 refuses it; the scan
+    takes any G)."""
+    G = hidden // 2
+    x, ih_w, ih_b, hh_w, hh_b, h0, c0 = _layer_inputs(G, 100, B, seed=hidden + B)
+    ref_out, ref_hT, ref_cT, proj = _jax_layer(x, ih_w, ih_b, hh_w, hh_b, h0, c0)
+    out, hT, cT = _port_layer(proj, torch.from_numpy(hh_w), h0, c0)
+    errs = [float(np.abs(a - b).max()) for a, b in ((out, ref_out), (hT, ref_hT), (cT, ref_cT))]
+    print(f"scan layer vs JAX (G {G}, B {B}): max|dh| {errs[0]:.3g}, hT {errs[1]:.3g}, "
+          f"cT {errs[2]:.3g}")
+    assert max(errs) <= LAYER_ATOL, errs
+
+
+def test_scan_layer_with_bf16_weights_matches_jax():
+    """The quantized parameters' W_hh is dense bf16: both sides upcast it
+    exactly and run f32 h against it."""
+    G = 16
+    x, ih_w, ih_b, hh_w, hh_b, h0, c0 = _layer_inputs(G, 100, 2, seed=5)
+    hh_bf16 = torch.from_numpy(hh_w).to(torch.bfloat16)
+    ref_out, _, ref_cT, proj = _jax_layer(x, ih_w, ih_b, jnp.asarray(hh_w).astype(jnp.bfloat16),
+                                          hh_b, h0, c0)
+    out, _, cT = _port_layer(proj, hh_bf16, h0, c0)
+    err = max(float(np.abs(out - ref_out).max()), float(np.abs(cT - ref_cT).max()))
+    assert err <= LAYER_ATOL, err
+    # and the weights' rounding is real: against the f32 weights it moves h
+    out32, _, _ = _port_layer(proj, torch.from_numpy(hh_w), h0, c0)
+    assert float(np.abs(out32 - out).max()) > 10 * LAYER_ATOL
+
+
+def _scan_inputs(T, R, B, G, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn((T, R * B, 4 * G), generator=g)
+    whh = (torch.randn((R, G, 4 * G), generator=g) / G**0.5).to(dtype)
+    h0 = 0.5 * torch.randn((R * B, G), generator=g)
+    c0 = 0.5 * torch.randn((R * B, G), generator=g)
+    return xp, whh, h0, c0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_rows_are_bit_equal_to_themselves_alone(dtype):
+    """A row's sums have one order whatever B is: each of B = 3 rows gives
+    the bits of the same row run alone (B = 1), as the fleet bucket and
+    the serving batcher need."""
+    T, R, B, G = 40, 4, 3, 20
+    xp, whh, h0, c0 = _scan_inputs(T, R, B, G, seed=7, dtype=dtype)
+    hs, hT, cT = L.lstm_scan(xp, whh, h0, c0, B)
+    for b in range(B):
+        rows = torch.arange(R) * B + b
+        one = L.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                          c0[rows].contiguous(), 1)
+        assert torch.equal(one[0], hs[:, rows]) and torch.equal(one[1], hT[rows])
+        assert torch.equal(one[2], cT[rows])
+
+
+def test_scan_wrapper_checks_and_counts():
+    xp, whh, h0, c0 = _scan_inputs(5, 2, 1, 8, seed=1)
+    before = L.lstm_scan.launches
+    L.lstm_scan(xp, whh, h0, c0, 1)
+    assert L.lstm_scan.launches == before  # the CPU runs the plain version: no launch
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        L.lstm_scan(xp, whh.half(), h0, c0, 1)
+    with pytest.raises(TypeError, match="xp must be"):
+        L.lstm_scan(xp.double(), whh, h0, c0, 1)
+    with pytest.raises(ValueError, match="rows"):
+        L.lstm_scan(xp, whh, h0, c0, 2)
+    with pytest.raises(ValueError, match="h0 must be"):
+        L.lstm_scan(xp, whh, h0[:1], c0, 1)
+
+
+def test_scan_plain_is_the_f32_recurrence_and_not_k1():
+    """The scan's plain version does not round h: it differs from K1's
+    plain version (bf16 h operands) on the same bf16 weights."""
+    xp, whh, h0, c0 = _scan_inputs(30, 2, 2, 16, seed=3, dtype=torch.bfloat16)
+    ours = L.lstm_scan_plain(xp, whh, h0, c0, 2)[0]
+    k1 = L.lstm_merged_plain(xp, whh, h0, c0, 2)[0]
+    assert float((ours - k1).abs().max()) > 1e-4
+
+
+def test_launch_plan():
+    assert L.scan_blocks_per_chain(1) == 1 and L.scan_blocks_per_chain(18) == 1
+    assert L.scan_blocks_per_chain(512) == 16 and L.scan_blocks_per_chain(640) == 20
+    # rows per launch come from the device (16 on the H100 up to G 2048)
+    assert L.scan_row_groups(3, 16) == [(0, 3, 4)]
+    assert L.scan_row_groups(20, 16) == [(0, 16, 16), (16, 4, 4)]
+    assert L.scan_row_groups(1, 16) == [(0, 1, 1)]
+    assert L.scan_row_groups(9, 8) == [(0, 8, 8), (8, 1, 1)]
+    assert L.scan_row_groups(5, 2) == [(0, 2, 2), (2, 2, 2), (4, 1, 1)]
+    # chains: one launch while the device holds them all, else groups
+    assert L.chain_groups(8, L.scan_blocks_per_chain(640), 264, "K10") == [(0, 8)]
+    assert L.chain_groups(8, L.scan_blocks_per_chain(640), 100, "K10") == [(0, 5), (5, 3)]
+    with pytest.raises(RuntimeError, match="K10 needs 20 co-resident blocks"):
+        L.chain_groups(8, L.scan_blocks_per_chain(640), 19, "K10")
+    assert L.scan_exchange_words(8, 512) == 8 * 2 * 16 * 512
+
+
+# ---- the model and the slice ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jumx.synthetic_params(JModelConfig(hidden_size=HIDDEN), seed=0)
+
+
+@pytest.fixture(scope="module")
+def params(jax_params):
+    return tumx.params_from_jax(jax_params)
+
+
+def test_recurrence_dispatches_scan_and_matches_jax(jax_params, params, monkeypatch):
+    """umx_recurrence_batched under "scan" runs the scan layer three times
+    (never K1) and gives the JAX scan's outputs and states."""
+    rng = np.random.default_rng(4)
+    B, T = 2, 30
+    x1 = rng.standard_normal((B, 4, T, HIDDEN)).astype(np.float32)
+    h = (0.3 * rng.standard_normal((B, 4, 3, 2, HIDDEN // 2))).astype(np.float32)
+    c = (0.3 * rng.standard_normal((B, 4, 3, 2, HIDDEN // 2))).astype(np.float32)
+    jcfg = JModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
+    jout, jst = jumx.umx_recurrence_batched(jax_params, jnp.asarray(x1),
+                                            jumx.LSTMState(h=jnp.asarray(h), c=jnp.asarray(c)),
+                                            jcfg)
+    calls = []
+    scan_layer = L.lstm_layer_scan_batched
+    monkeypatch.setattr(tumx, "lstm_layer_scan_batched",
+                        lambda *a: calls.append(1) or scan_layer(*a))
+    monkeypatch.setattr(tumx, "lstm_layer_merged_batched",
+                        lambda *a: pytest.fail("K1 ran under lstm_impl='scan'"))
+    cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
+    with torch.no_grad():
+        out, st = tumx.umx_recurrence_batched(
+            params, torch.from_numpy(x1),
+            tumx.LSTMState(h=torch.from_numpy(h), c=torch.from_numpy(c)), cfg)
+    assert len(calls) == cfg.n_lstm_layers
+    for a, b in ((out, jout), (st.h, jst.h), (st.c, jst.c)):
+        assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= LAYER_ATOL
+
+
+@pytest.fixture(scope="module")
+def track():
+    # 2.6 s of stereo tones + noise: five 1 s chunks with the shift pad
+    t = np.arange(int(2.6 * SR)) / SR
+    rng = np.random.default_rng(0)
+    return np.stack([
+        0.4 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.size),
+        0.3 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.standard_normal(t.size),
+    ]).astype(np.float32)
+
+
+def _rel(ours, ref, what):
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    assert ours.shape == ref.shape and np.isfinite(ours).all()
+    err = float(np.max(np.abs(ours - ref)) / np.max(np.abs(ref)))
+    print(f"scan {what} vs JAX: max|d|/max|stem| {err:.3g}")
+    return err
+
+
+def _cfgs(secs, shifts, window_chunks=-1, chunk_batch=0):
+    seg = dict(segment_secs=secs, window_chunks=window_chunks, chunk_batch=chunk_batch)
+    jcfg = JEngineConfig(model=JModelConfig(hidden_size=HIDDEN, lstm_impl="scan"),
+                         segment=JSegmentConfig(**seg),
+                         wiener=JWienerConfig(impl="pallas_interpret"), shifts=shifts)
+    tcfg = EngineConfig(model=ModelConfig(hidden_size=HIDDEN, lstm_impl="scan"),
+                        segment=SegmentConfig(**seg), shifts=shifts)
+    return jcfg, tcfg
+
+
+def test_streaming_demix_track_matches_jax_scan(jax_params, params, track):
+    jcfg, tcfg = _cfgs(1.0, shifts=1)
+    ref = JSeparator(jax_params, jcfg).demix_track(track, seed=0)
+    ours = Separator(params, tcfg, "cpu").demix_track(track, seed=0)
+    assert _rel(ours, ref, "streaming demix_track") <= SLICE_RTOL
+
+
+def test_windowed_demix_matches_jax_scan(jax_params, params, track):
+    jcfg, tcfg = _cfgs(0.5, shifts=0, window_chunks=4, chunk_batch=2)
+    ref = JSeparator(jax_params, jcfg).demix(track)
+    sep = Separator(params, tcfg, "cpu")
+    assert sep._geometry(track.shape[1])[2] > 4  # more chunks than a window
+    ours = sep.demix(track).numpy()
+    assert _rel(ours, ref, "windowed demix") <= SLICE_RTOL
+
+
+def test_fleet_bucket_matches_jax_scan(jax_params, params, track):
+    """A bucket of three tracks of one length: the scan over three rows a
+    chain, each track against the JAX fleet and against itself alone."""
+    jcfg, tcfg = _cfgs(0.5, shifts=1)
+    sub = [track[:, :30_000], track[:, 30_000:60_000] * 0.5, track[:, 60_000:90_000]]
+    seeds = [7, 8, 9]
+    ref = jdemix_tracks(jax_params, sub, jcfg, mesh=None, seeds=seeds)
+    stats: dict = {}
+    ours = fleet.demix_tracks(params, sub, tcfg, seeds=seeds, stats=stats)
+    assert stats["rows"] == 3
+    for k, (o, r) in enumerate(zip(ours, ref)):
+        assert _rel(o, r, f"fleet bucket track {k}") <= SLICE_RTOL
+        alone = fleet.demix_tracks(params, [sub[k]], tcfg, seeds=[seeds[k]])[0]
+        assert np.array_equal(alone, o)
+
+
+def _run_path(path, params, track):
+    """One inference entry point under lstm_impl="scan", small and on the CPU."""
+    from umx_tpu_torch.engine.batcher import SegmentBatcher
+    from umx_tpu_torch.engine.streaming import StreamingDemixer
+    from umx_tpu_torch.parallel.mesh import make_mesh
+    from umx_tpu_torch.parallel.sharding import batched_lstm_state, demix_segments_batch
+
+    _, cfg = _cfgs(0.5, shifts=0)
+    audio = track[:, :40_000]
+    if path in ("streaming", "groups", "batched", "windowed"):
+        seg = {"batched": dict(streaming=False), "windowed": dict(window_chunks=2)}.get(path, {})
+        cfg = cfg.replace(segment=dataclasses.replace(cfg.segment, **seg),
+                          stream_impl="groups" if path == "groups" else "scan")
+        Separator(params, cfg, "cpu").demix(audio)
+    elif path == "fleet":
+        fleet.demix_tracks(params, [audio, audio[:, ::-1].copy()], cfg)
+    elif path == "served row":
+        n = cfg.segment.segment_samples(SR)
+        batcher = SegmentBatcher(max_batch=2)
+        try:
+            batcher.run(params, torch.from_numpy(audio[:, :n]), tumx.init_lstm_state(cfg.model),
+                        cfg, n)
+        finally:
+            batcher.close()
+    elif path == "stream session":
+        sd = StreamingDemixer(params, cfg, "cpu")
+        sd.push(audio)
+        sd.flush()
+    else:  # the sharded demix on a grid of one repeated CPU device
+        n = cfg.segment.segment_samples(SR)
+        batch = torch.from_numpy(np.stack([track[:, :n], track[:, n: 2 * n]]))
+        demix_segments_batch(params, batch, batched_lstm_state(cfg, 2), cfg,
+                             make_mesh(2, 1, [torch.device("cpu")] * 2))
+
+
+@pytest.mark.parametrize("path", ["streaming", "groups", "batched", "windowed", "fleet",
+                                  "served row", "stream session", "sharded demix"])
+def test_every_inference_path_runs_the_scan(params, track, path, monkeypatch):
+    """Every inference entry point reaches the float32 layer under "scan"
+    (the pipelined arm excepted, below), never the merged kernel."""
+    calls = {"scan": 0, "merged": 0}
+    real = {"scan": L.lstm_layer_scan_batched, "merged": L.lstm_layer_merged_batched}
+
+    def counted(name):
+        def fn(*a):
+            calls[name] += 1
+            return real[name](*a)
+        return fn
+
+    monkeypatch.setattr(tumx, "lstm_layer_scan_batched", counted("scan"))
+    monkeypatch.setattr(tumx, "lstm_layer_merged_batched", counted("merged"))
+    _run_path(path, params, track)
+    assert calls["scan"] > 0 and calls["merged"] == 0, calls
+
+
+def test_pipelined_arm_keeps_k1_under_scan(params, monkeypatch):
+    """The pipelined step calls the merged kernel whatever lstm_impl says,
+    as the JAX arm always calls its merged kernel."""
+    monkeypatch.setattr(tumx, "lstm_layer_scan_batched",
+                        lambda *a: pytest.fail("the pipelined arm ran the scan"))
+    cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
+    x = torch.zeros((1, 4, 5, HIDDEN))
+    st = (torch.zeros((1, 4, 2, HIDDEN // 2)),) * 2
+    with torch.no_grad():
+        outs, states = tumx.umx_recurrence_pipelined_step(params, [x, x], [st, st], [0, 1], cfg)
+    assert len(outs) == len(states) == 2 and outs[0].shape == (1, 4, 5, HIDDEN)
+
+
+# ---- what the scan does not do yet: gradients -------------------------------
+
+
+def _loss_batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return {
+        "x": torch.from_numpy(np.abs(rng.standard_normal((1, 5, cfg.n_features))).astype(np.float32)),
+        "mix_mag": torch.from_numpy(np.abs(rng.standard_normal((1, 2, 5, cfg.n_bins))).astype(np.float32)),
+        "target_mag": torch.from_numpy(
+            np.abs(rng.standard_normal((1, 4, 2, 5, cfg.n_bins))).astype(np.float32)),
+    }
+
+
+def test_trainer_refuses_scan_by_name(params):
+    """The train steps refuse "scan" when they are made; the loss with a
+    gradient wanted raises in the layer, by name (never lowered to K4)."""
+    cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
+    with pytest.raises(ValueError, match="no backward"):
+        make_train_step(cfg)
+    p = dataclasses.replace(params, lstm_hh_w=params.lstm_hh_w.detach().clone().requires_grad_())
+    with pytest.raises(RuntimeError, match='lstm_impl="scan".*no backward'):
+        mask_loss(p, _loss_batch(cfg), cfg)
+
+
+def test_eval_step_runs_the_scan(params, monkeypatch):
+    """The eval step takes no gradient, so it runs the float32 recurrence
+    (three layers, never K1) and gives the loss of the scan's forward."""
+    cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
+    batch = _loss_batch(cfg, seed=1)
+    calls = []
+    monkeypatch.setattr(L, "lstm_scan", lambda *a: calls.append(1) or L.lstm_scan_plain(*a))
+    monkeypatch.setattr(L, "lstm_merged", lambda *a: pytest.fail("K1 ran under scan"))
+    loss = make_eval_step(cfg)(params, batch)
+    assert len(calls) == cfg.n_lstm_layers
+    with torch.no_grad():
+        assert torch.equal(loss, mask_loss(params, batch, cfg))
+    assert torch.isfinite(loss) and float(loss) > 0
+
+
+def test_scan_layer_refuses_a_gradient(params):
+    cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
+    hh = params.lstm_hh_w.detach().clone().requires_grad_(True)
+    p = dataclasses.replace(params, lstm_hh_w=hh)
+    x1 = torch.zeros((1, 4, 5, HIDDEN))
+    with pytest.raises(RuntimeError, match='lstm_impl="scan".*no backward'):
+        tumx.umx_recurrence_batched(p, x1, tumx.init_lstm_state(cfg, batch=1), cfg)
+    with torch.no_grad():
+        tumx.umx_recurrence_batched(p, x1, tumx.init_lstm_state(cfg, batch=1), cfg)
+
+
+def test_planner_counts_the_scan_exchange_buffer():
+    """K10's exchange holds one f32 value of h a word (K1's two bf16): the
+    planner's fixed part grows by the difference, nothing else."""
+    auto = EngineConfig()
+    scan = auto.replace(model=dataclasses.replace(auto.model, lstm_impl="scan"))
+    a, s = memory.segment_batch_hbm_bytes(auto, 1), memory.segment_batch_hbm_bytes(scan, 1)
+    words = L.scan_exchange_words(8, 512) - L.resident_exchange_words(8, 512)
+    assert s["fixed"] - a["fixed"] == 8 * words and s["total"] - a["total"] == 8 * words

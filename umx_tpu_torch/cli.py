@@ -18,8 +18,9 @@ the progress after each.  The flags set is the JAX CLI's, plus
 ``--dft-precision``, ``--idft-precision``, ``--iframes-dtype``) are
 accepted with their choices and compute, as the JAX package does off a
 TPU, what the defaults compute (float32 matmuls without TF32, cuFFT or the
-ct2 kernel), and its TPU-only values (``--lstm-impl scan``,
-``--istft-algo ct2_xla``) are refused by name.
+ct2 kernel), and its one XLA-only value (``--istft-algo ct2_xla``) is
+refused by name.  ``--lstm-impl scan`` is the JAX CLI's portable float32
+recurrence, here the float32 recurrence kernel (any model width).
 :func:`engine_config_from_args` builds the ``EngineConfig`` for this
 entry point and for ``cli_batch``.
 """
@@ -83,10 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--lstm-impl",
-        choices=("auto", "pallas_merged", "pallas"),
+        choices=("auto", "scan", "pallas_merged", "pallas"),
         default="auto",
-        help="BLSTM recurrence kernel: the merged kernel (auto, pallas_merged) or the "
-        "per-target kernel (pallas)",
+        help="BLSTM recurrence kernel: the merged kernel (auto, pallas_merged; bf16 W_hh, "
+        "hidden <= 1024), the per-target kernel (pallas), or scan = the portable float32 "
+        "recurrence (f32 h and W_hh, any width)",
     )
     p.add_argument(
         "--wiener-impl",

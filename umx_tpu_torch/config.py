@@ -5,7 +5,7 @@ config translates field for field.
 The algorithm choices that carry over: ``DSPConfig.istft_algo`` ("ct2" is
 the hand-written Cooley-Tukey iSTFT kernel), ``ModelConfig.lstm_impl``
 ("pallas_merged" and "pallas" keep their JAX names and select the merged
-and the per-target recurrence kernel), ``WienerConfig.impl`` ("pallas"
+and the per-target recurrence kernel, "scan" the float32 recurrence), ``WienerConfig.impl`` ("pallas"
 keeps its JAX name and selects the fused Wiener kernels, "einsum" the
 einsum path), ``SegmentConfig.chunk_batch`` (the chunk-group width, 0 =
 the memory planner's pick), ``SegmentConfig.window_chunks`` (windowed
@@ -97,24 +97,28 @@ class ModelConfig:
     # "umxcpp":    x = x * scale + mean   (the umx.cpp reference)
     input_scaling: Literal["openunmix", "umxcpp"] = "openunmix"
     # BLSTM recurrence kernel: "auto" = "pallas_merged" = the merged
-    # kernel (K1, all chains per step, any batch); "pallas" = the
+    # kernel (K1: bf16 W_hh and h operands, f32 state, G <= 512; the
+    # kernel the JAX package's "auto" runs on a TPU); "pallas" = the
     # per-target kernel (K9, one launch per layer with each chain's
-    # weights and state kept on chip; one launch per batch row).  The
-    # JAX package's "scan" (its float32 recurrence off a TPU) and
-    # "pallas_interpret" (its interpreter) have no port: the port follows
-    # the TPU path, K1, on the GPU.  Training always runs K4-K6.
-    lstm_impl: Literal["auto", "pallas_merged", "pallas"] = "auto"
+    # weights and state kept on chip; one launch per batch row); "scan" =
+    # the float32 recurrence (K10: f32 h against W_hh in its stored
+    # dtype, f32 sums, any G; the JAX package's portable lax.scan, its
+    # "auto" off a TPU).  "auto" is not resolved by the device: it stays
+    # K1, the TPU path the port follows.  "pallas_interpret" (the JAX
+    # interpreter) has no port.  Training runs K4-K6 under "auto",
+    # "pallas_merged" and "pallas", and raises under "scan".
+    lstm_impl: Literal["auto", "pallas_merged", "pallas", "scan"] = "auto"
 
     def __post_init__(self):
-        if self.lstm_impl in ("scan", "pallas_interpret"):
+        if self.lstm_impl == "pallas_interpret":
             raise ValueError(
-                f"lstm_impl {self.lstm_impl!r} has no meaning in the port (the recurrence "
+                "lstm_impl 'pallas_interpret' has no meaning in the port (the recurrence "
                 "always runs a kernel on a GPU and its plain version on the CPU); "
-                "use auto, pallas_merged or pallas"
+                "use auto, pallas_merged, pallas or scan"
             )
-        if self.lstm_impl not in ("auto", "pallas_merged", "pallas"):
+        if self.lstm_impl not in ("auto", "pallas_merged", "pallas", "scan"):
             raise ValueError(
-                f"lstm_impl must be auto, pallas_merged or pallas, got {self.lstm_impl!r}"
+                f"lstm_impl must be auto, pallas_merged, pallas or scan, got {self.lstm_impl!r}"
             )
 
     @property

@@ -41,7 +41,7 @@ from dataclasses import fields
 import torch
 
 from umx_tpu_torch.config import EngineConfig, storage_dtype
-from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words
+from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words, scan_exchange_words
 
 # Slack on the segment-transient share of the boundary model, per iSTFT
 # algorithm.  The port's segment forward keeps more per row alive than the
@@ -165,9 +165,11 @@ def _dequant_transient_bytes(params) -> int:
 
 def _lstm_exchange_bytes(cfg: EngineConfig) -> int:
     """The recurrence kernel's exchange buffer (``ops/lstm_cuda.py``): one
-    per layer call, whatever the rows."""
+    per layer call, whatever the rows; K10's (``lstm_impl="scan"``) holds
+    one f32 value of h a word, K1's two bf16 values."""
     m = cfg.model
-    return 8 * resident_exchange_words(m.n_targets * 2, m.lstm_hidden)
+    words = scan_exchange_words if m.lstm_impl == "scan" else resident_exchange_words
+    return 8 * words(m.n_targets * 2, m.lstm_hidden)
 
 
 def _peak(cfg: EngineConfig, terms: dict, seg_transients: int, params) -> dict[str, int]:

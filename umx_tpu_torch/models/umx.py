@@ -12,7 +12,9 @@ targets × directions (× batch rows, in training) runs as one merged
 kernel call per layer (``ops/lstm_cuda.py``), differentiable through the
 training kernels when a gradient is wanted, or with
 ``ModelConfig.lstm_impl="pallas"`` as one per-target kernel launch per
-layer and batch row.  With quantized parameters
+layer and batch row, or with ``lstm_impl="scan"`` as the float32
+recurrence kernel (f32 h against W_hh in its stored dtype), one launch per
+layer.  With quantized parameters
 (:func:`quantized_params_from_ggml`) the fc and input-projection weights
 are ``QTensor`` s whose dequantization is fused into the matmul
 (``ops/qmatmul.py``) and ``lstm_hh_w`` is dense bfloat16, which the
@@ -33,7 +35,11 @@ import numpy as np
 import torch
 
 from umx_tpu_torch.config import TARGETS, ModelConfig
-from umx_tpu_torch.ops.lstm_cuda import lstm_layer_merged_batched, lstm_layer_pertarget_batched
+from umx_tpu_torch.ops.lstm_cuda import (
+    lstm_layer_merged_batched,
+    lstm_layer_pertarget_batched,
+    lstm_layer_scan_batched,
+)
 from umx_tpu_torch.ops.qmatmul import QTensor, q_mm, qtensor_from_raw, stack_qtensors
 
 
@@ -393,11 +399,13 @@ def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: Mod
     batched matmul plus both biases, the recurrence, and the backward
     direction re-reversed.  ``cfg.lstm_impl``: "auto"/"pallas_merged" run
     the merged kernel over all T#·D chains × B rows; "pallas" runs the
-    per-target kernel once per batch row and raises where a gradient is
-    wanted, which only the merged kernels provide (the trainer's loss
-    lowers "pallas" to "auto")."""
-    layer_fn = (lstm_layer_pertarget_batched if cfg.lstm_impl == "pallas"
-                else lstm_layer_merged_batched)
+    per-target kernel once per batch row; "scan" runs the float32
+    recurrence over all chains × rows, W_hh in its stored dtype (the
+    quantized parameters' hh is dense bf16).  "pallas" and "scan" raise
+    where a gradient is wanted, which only the merged kernels provide (the
+    trainer's loss lowers "pallas" to "auto" and refuses "scan")."""
+    layer_fn = {"pallas": lstm_layer_pertarget_batched,
+                "scan": lstm_layer_scan_batched}.get(cfg.lstm_impl, lstm_layer_merged_batched)
     lstm_in = x1_b
     hTs, cTs = [], []
     for layer in range(cfg.n_lstm_layers):
@@ -438,8 +446,10 @@ def umx_recurrence_pipelined_step(params: UMXParams, stage_inputs: list, stage_s
     stage_inputs: per stage (B, T#, T, H) layer inputs; stage_states: per
     stage (h, c), each (B, T#, D, G); layers: a contiguous ascending range
     of layer indices.  ``whh``: :func:`pipelined_hh` of the parameters
-    (made here when not given).  Dense weights only.  Returns (per-stage
-    outputs (B, T#, T, 2G), per-stage new (h, c))."""
+    (made here when not given).  Dense weights only.  The merged kernel
+    (K1) runs whatever ``cfg.lstm_impl`` says, as the JAX arm always calls
+    its merged kernel.  Returns (per-stage outputs (B, T#, T, 2G),
+    per-stage new (h, c))."""
     if is_quantized(params):
         raise ValueError("the pipelined recurrence needs dense weights (quantized weights "
                          "run the scan)")

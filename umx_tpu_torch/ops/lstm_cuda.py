@@ -21,6 +21,12 @@ backward the dh/dc carries) in f32.
   row in the per-target layout (T#, T, D, 4G), one launch per layer with
   each chain on a thread-block cluster that keeps its W_hh and state on
   chip (``_make_kernel``, reached by ``lstm_layer_pallas``).
+- K10 :func:`lstm_scan` (``csrc/lstm_scan.cu``): the float32 recurrence
+  of the JAX package's ``lax.scan`` (``_bilstm_layer``, its
+  ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
+  h against W_hh in its stored dtype (f32, or bf16 upcast exactly), f32
+  FMA on the CUDA cores, any G; one launch per layer, W_hh read from L2
+  each step.  Inference only.
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count per
@@ -44,14 +50,14 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _hh_product(h, w, B: int):
-    """bf16(h) (R*B, G) @ W_hh per chain (R, G, 4G) → (R*B, 4G).  One row
-    per chain runs beside a zero row: a CPU BLAS computes a one-row product
-    (a matrix-vector product) in another order than a wider one, and a row
-    of a batched call must have the bits of the same row alone (the serving
-    batcher's rows)."""
+def _hh_product(h, w, B: int, round_h: bool = True):
+    """bf16(h) (R*B, G) @ W_hh per chain (R, G, 4G) → (R*B, 4G); h as it
+    is with ``round_h`` False.  One row per chain runs beside a zero row: a
+    CPU BLAS computes a one-row product (a matrix-vector product) in
+    another order than a wider one, and a row of a batched call must have
+    the bits of the same row alone (the serving batcher's rows)."""
     R, G = w.shape[0], w.shape[1]
-    hb = _bf16(h).view(R, B, G)
+    hb = (_bf16(h) if round_h else h).view(R, B, G)
     if B == 1:
         hb = torch.cat([hb, torch.zeros_like(hb)], dim=1)
     return torch.bmm(hb, w)[:, :B].reshape(R * B, 4 * G)
@@ -218,17 +224,23 @@ def resident_row_groups(B: int) -> list[tuple[int, int]]:
     return [(b0, min(RESIDENT_ROWS, B - b0)) for b0 in range(0, B, RESIDENT_ROWS)]
 
 
-def resident_chain_groups(R: int, G: int, capacity: int) -> list[tuple[int, int]]:
-    """(first chain, chains) of a resident kernel's launches over R chains
-    on a device that holds ``capacity`` of its blocks at once: a launch's
-    blocks must all be resident, because a chain's blocks wait for each
-    other.  Raises where not even one chain fits."""
-    per = capacity // resident_blocks_per_chain(G)
+def chain_groups(R: int, per_chain: int, capacity: int, what: str) -> list[tuple[int, int]]:
+    """(first chain, chains) of a kernel's launches over R chains of
+    ``per_chain`` blocks each, on a device that holds ``capacity`` of its
+    blocks at once: a launch's blocks must all be resident, because a
+    chain's blocks wait for each other.  Raises where not even one chain
+    fits."""
+    per = capacity // per_chain
     if per < 1:
-        raise RuntimeError(
-            f"the resident recurrence needs {resident_blocks_per_chain(G)} co-resident blocks "
-            f"per chain at G = {G}; this device holds {capacity}")
+        raise RuntimeError(f"{what} needs {per_chain} co-resident blocks per chain; this "
+                           f"device holds {capacity}")
     return [(r0, min(per, R - r0)) for r0 in range(0, R, per)]
+
+
+def resident_chain_groups(R: int, G: int, capacity: int) -> list[tuple[int, int]]:
+    """:func:`chain_groups` of a resident kernel (K1, K4, K5) at width G."""
+    return chain_groups(R, resident_blocks_per_chain(G), capacity,
+                        f"the resident recurrence at G = {G}")
 
 
 def resident_exchange_words(R: int, G: int) -> int:
@@ -278,7 +290,7 @@ def _check_resident_width(what: str, G: int):
     if G > RESIDENT_G_MAX:
         raise RuntimeError(
             f"{what}: a warp's slice of W_hh must fit 128 registers a thread, "
-            f"G <= {RESIDENT_G_MAX}; got G = {G}")
+            f"G <= {RESIDENT_G_MAX}; got G = {G} (lstm_impl=\"scan\" runs any width)")
 
 
 def _resident_plan(wrapper, kernel: str, xp, R: int, B: int, G: int):
@@ -627,21 +639,171 @@ def lstm_layer_merged_batched(x_proj, hh_w, h0, c0):
     With grad enabled and an input that requires it, runs
     :class:`LSTMMergedTrain` (K4, and K5 + K6 in the backward); otherwise K1."""
     _check_hh_dtype(hh_w)
-    Bsz, n_targets, T, D, G4 = x_proj.shape
-    G = G4 // 4
-    R = n_targets * D
-    # rows chain-major: row = ((t# * D) + d) * B + b
-    xp = x_proj.permute(2, 1, 3, 0, 4).reshape(T, R * Bsz, G4).contiguous()
-    h0r = h0.float().permute(1, 2, 0, 3).reshape(R * Bsz, G).contiguous()
-    c0r = c0.float().permute(1, 2, 0, 3).reshape(R * Bsz, G).contiguous()
+    Bsz, n_targets, _, D, G4 = x_proj.shape
+    R, G = n_targets * D, G4 // 4
+    xp, h0r, c0r = _chain_rows(x_proj, h0, c0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, hh_w, h0, c0)):
         hh = hh_w.float().reshape(R, G, G4).contiguous()
-        hs, hT, cT = LSTMMergedTrain.apply(xp, hh, h0r, c0r, Bsz)
+        out = LSTMMergedTrain.apply(xp, hh, h0r, c0r, Bsz)
     else:
         whh = hh_w.to(torch.bfloat16).reshape(R, G, G4).contiguous()
-        hs, hT, cT = lstm_merged(xp, whh, h0r, c0r, Bsz)
+        out = lstm_merged(xp, whh, h0r, c0r, Bsz)
+    return _batched_outputs(*out, x_proj.shape)
+
+
+def _chain_rows(x_proj, h0, c0):
+    """The batched layouts x_proj (B, T#, T, D, 4G), h0/c0 (B, T#, D, G) →
+    the kernels' (T, R*B, 4G) and (R*B, G), rows chain-major:
+    row = ((t# * D) + d) * B + b."""
+    Bsz, n_targets, T, D, G4 = x_proj.shape
+    RB = n_targets * D * Bsz
+    xp = x_proj.permute(2, 1, 3, 0, 4).reshape(T, RB, G4).contiguous()
+    h0r = h0.float().permute(1, 2, 0, 3).reshape(RB, G4 // 4).contiguous()
+    c0r = c0.float().permute(1, 2, 0, 3).reshape(RB, G4 // 4).contiguous()
+    return xp, h0r, c0r
+
+
+def _batched_outputs(hs, hT, cT, shape):
+    """The kernels' (hs (T, R*B, G), hT, cT (R*B, G)) back in the batched
+    layouts of an x_proj of ``shape``: (B, T#, T, D, G), (B, T#, D, G)."""
+    Bsz, n_targets, T, D, G4 = shape
+    G = G4 // 4
     hs = hs.view(T, n_targets, D, Bsz, G).permute(3, 1, 0, 2, 4)
     hT = hT.view(n_targets, D, Bsz, G).permute(2, 0, 1, 3)
     cT = cT.view(n_targets, D, Bsz, G).permute(2, 0, 1, 3)
     return hs, hT, cT
 
+
+# K10 (csrc/lstm_scan.cu): a block owns 32 hidden units of one chain; a
+# launch takes up to 16 rows per chain (fewer where the device's shared
+# memory runs out, as its capacity query says), and the exchange buffer
+# has room for 16 rows of each chain.
+SCAN_UNITS = 32
+SCAN_ROWS = 16
+
+
+def scan_blocks_per_chain(G: int) -> int:
+    """Blocks that share one chain in K10: one per 32 hidden units."""
+    return -(-G // SCAN_UNITS)
+
+
+def scan_row_groups(B: int, rows: int) -> list[tuple[int, int, int]]:
+    """(first row, rows, row tile) of K10's launches over B rows per chain,
+    at most ``rows`` (the device's largest tile) a launch, the last group
+    ragged; the row tile is the power of two the kernel is instantiated
+    for.  Rows are independent, so a row's result does not depend on its
+    group."""
+    out = []
+    for b0 in range(0, B, rows):
+        nb = min(rows, B - b0)
+        out.append((b0, nb, 1 << (nb - 1).bit_length()))
+    return out
+
+
+def scan_exchange_words(R: int, G: int) -> int:
+    """64-bit words of K10's exchange buffer: per chain two steps of 16
+    rows of G words (one f32 value of h and the step's tag each)."""
+    return R * 2 * SCAN_ROWS * G
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_capacity(index: int, G: int, whh_bf16: bool) -> tuple[int, int]:
+    """(the largest row tile, the blocks of it held at once) of K10 at
+    width G, W_hh in bf16 or f32, on CUDA device ``index``, asked once."""
+    import ctypes
+
+    rows, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().umx_lstm_scan_capacity(
+            G, int(whh_bf16), ctypes.addressof(rows), ctypes.addressof(blocks))
+    if err == _CUDA_ERROR_INVALID_CONFIGURATION:
+        raise RuntimeError("K10: this device has no cooperative launch, which the "
+                           "float32 recurrence needs")
+    _build.check(err, "umx_lstm_scan_capacity")
+    if rows.value < 1:
+        raise RuntimeError(f"umx_lstm_scan: one row of h (G = {G}) does not fit a block's "
+                           "shared memory on this device")
+    return rows.value, blocks.value
+
+
+def lstm_scan_plain(xp, whh, h0, c0, B: int):
+    """Plain PyTorch float32 recurrence (the JAX package's scan step): one
+    f32 batched matmul per timestep of h, unrounded, against W_hh upcast
+    from its stored dtype (exact).
+
+    xp (T, R*B, 4G) f32, whh (R, G, 4G) f32 or bf16, h0/c0 (R*B, G) f32 →
+    (hs (T, R*B, G), hT, cT)."""
+    T, RB, _ = xp.shape
+    G = whh.shape[1]
+    w = whh.float()
+    h, c = h0, c0
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
+    for t in range(T):
+        pre = xp[t] + _hh_product(h, w, B, round_h=False)
+        _, c, h = _cell(pre, c, G)
+        hs[t] = h
+    return hs, h, c
+
+
+def lstm_scan(xp, whh, h0, c0, B: int):
+    """K10: one BLSTM layer's float32 recurrence for all chains (see
+    module docstring and ``csrc/lstm_scan.cu``).
+
+    xp (T, R*B, 4G) f32, whh (R, G, 4G) f32 or bf16, h0/c0 (R*B, G) f32 →
+    (hs (T, R*B, G), hT, cT).  One cooperative launch runs all T steps of
+    all chains and up to 16 rows per chain; further rows (and chains beyond
+    what the device holds at once) are further launches of the same
+    kernel.  Any G.  The form that ran is left in ``lstm_scan.form`` as
+    (blocks per chain, blocks the device holds at once, chain groups, row
+    groups).  Increments ``lstm_scan.launches`` once per layer.  CPU
+    tensors run :func:`lstm_scan_plain`."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
+    if whh.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"whh must be float32 or bfloat16, got {whh.dtype}")
+    route = _check(xp, [
+        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, whh.dtype),
+        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_scan_plain(xp, whh, h0, c0, B)
+    lib = _build.library()
+    dev = xp.device
+    bf16 = whh.dtype == torch.bfloat16
+    rows, capacity = _scan_capacity(dev.index, G, bf16)
+    chains = chain_groups(R, scan_blocks_per_chain(G), capacity, "K10")
+    groups = scan_row_groups(B, rows)
+    plan = [(r0, nr, b0, nb, rt) for b0, nb, rt in groups for r0, nr in chains]
+    lstm_scan.form = (scan_blocks_per_chain(G), capacity, len(chains), len(groups))
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
+    hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    cT = c0.clone()  # the kernel updates c in place
+    hx = torch.zeros(scan_exchange_words(R, G), dtype=torch.int64, device=dev)
+    for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
+        err = lib.umx_lstm_scan(
+            xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(), cT.data_ptr(),
+            hs.data_ptr(), hT.data_ptr(), hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt,
+            launched * T, _stream(xp),
+        )
+        _build.check(err, "umx_lstm_scan")
+    lstm_scan.launches += 1
+    return hs, hT, cT
+
+
+lstm_scan.launches = 0
+lstm_scan.form = None
+
+
+def lstm_layer_scan_batched(x_proj, hh_w, h0, c0):
+    """The float32 layer over a batch, in the layouts of
+    :func:`lstm_layer_merged_batched`: K10 over all T#·D chains × B rows,
+    W_hh in its stored dtype (f32, or the quantized parameters' bf16).  No
+    gradient yet: an input that requires one raises."""
+    _check_hh_dtype(hh_w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, hh_w, h0, c0)):
+        raise RuntimeError('the float32 recurrence (lstm_impl="scan") has no backward in the '
+                           'port yet: take a gradient with lstm_impl="auto"')
+    Bsz, n_targets, _, D, G4 = x_proj.shape
+    xp, h0r, c0r = _chain_rows(x_proj, h0, c0)
+    whh = hh_w.reshape(n_targets * D, G4 // 4, G4).contiguous()
+    return _batched_outputs(*lstm_scan(xp, whh, h0r, c0r, Bsz), x_proj.shape)

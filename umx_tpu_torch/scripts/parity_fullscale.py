@@ -19,6 +19,9 @@ variant:
     pallas     lstm_impl="pallas_merged" (the merged kernel, as in the JAX
                script; the same program as fp32)
     pertarget  lstm_impl="pallas" (the per-target recurrence kernel)
+    scan       lstm_impl="scan" (the float32 recurrence kernel: f32 h and
+               W_hh; the JAX script's default config off a TPU, whose CPU
+               fp32 row runs its scan)
     ct2        the Cooley-Tukey iSTFT kernel
     em2        wiener.iterations=2 (the --wiener-iters CLI path)
     nowiener   use_wiener=False (mask * mixture-phase path)
@@ -60,8 +63,8 @@ import sys
 
 import numpy as np
 
-PORT_VARIANTS = ("fp32", "qhbm", "pallas", "pertarget", "ct2", "em2", "nowiener", "quirk",
-                 "stream2", "wiener_bf16", "wiener_f32", "auto")
+PORT_VARIANTS = ("fp32", "qhbm", "pallas", "pertarget", "scan", "ct2", "em2", "nowiener",
+                 "quirk", "stream2", "wiener_bf16", "wiener_f32", "auto")
 _SAME_AS_FP32 = ("the port accepts that flag, and every value of it computes what fp32 "
                  "computes")
 # the JAX script's variants that select TPU precisions or an XLA / Pallas
@@ -287,6 +290,8 @@ class Parity:
             cfg = cfg.replace(model=dataclasses.replace(mcfg, lstm_impl="pallas_merged"))
         elif variant == "pertarget":
             cfg = cfg.replace(model=dataclasses.replace(mcfg, lstm_impl="pallas"))
+        elif variant == "scan":
+            cfg = cfg.replace(model=dataclasses.replace(mcfg, lstm_impl="scan"))
         elif variant == "ct2":
             cfg = cfg.replace(dsp=dataclasses.replace(cfg.dsp, istft_algo="ct2"))
         elif variant == "em2":

@@ -156,13 +156,25 @@ def init_train_state(params: UMXParams, tcfg: TrainConfig) -> TrainState:
     return TrainState(params, make_optimizer(params, tcfg), 0)
 
 
+def _check_trainable(cfg: ModelConfig) -> None:
+    """Raise by name where the trainer has no kernels for ``cfg``'s
+    recurrence (``lstm_impl="scan"``)."""
+    if cfg.lstm_impl == "scan":
+        raise ValueError('lstm_impl="scan": the float32 recurrence has no backward in the '
+                         'port yet; train with lstm_impl="auto"')
+
+
 def _masked_magnitudes(params: UMXParams, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """The masked mix magnitudes (B, T#, 2, T, n_bins) of ``mask_loss``,
     T# the parameters' own target count (a tp slice's, in the sharded
     step).  The LSTM state starts at zeros for every row.
     ``lstm_impl="pallas"`` is ignored: the per-target kernel has no
     backward, so training and its validation always run the merged
-    kernels (the JAX trainer lowers it to its scan the same way)."""
+    kernels (the JAX trainer lowers it to its scan the same way).
+    ``lstm_impl="scan"`` runs the float32 recurrence, which has no
+    backward in the port yet: with a gradient wanted its layer raises (it
+    is never lowered to the merged kernels, which would train another
+    program than the one asked for); the eval step runs it."""
     if cfg.lstm_impl == "pallas":
         cfg = dataclasses.replace(cfg, lstm_impl="auto")
     B, n_t = batch["x"].shape[0], params.input_mean.shape[0]
@@ -197,7 +209,9 @@ def make_eval_step(cfg: ModelConfig):
 
 def make_train_step(cfg: ModelConfig):
     """``train_step(state, batch) -> (state, loss)``: one AdamW step on
-    ``mask_loss``; the state is updated in place and returned."""
+    ``mask_loss``; the state is updated in place and returned.  Raises
+    under ``lstm_impl="scan"`` (no backward yet)."""
+    _check_trainable(cfg)
 
     def train_step(state: TrainState, batch: dict):
         state.optimizer.zero_grad(set_to_none=True)
@@ -296,6 +310,8 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, tp: bool 
     and export; ``ShardedTrainState.params`` the whole parameters."""
     from umx_tpu_torch.parallel.mesh import Mesh, shard
     from umx_tpu_torch.parallel.sharding import all_reduce_sum, broadcast, device_guard
+
+    _check_trainable(cfg)
 
     cols = mesh.shape["tp"] if tp else 1
     if cfg.n_targets % cols:

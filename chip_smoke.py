@@ -234,6 +234,32 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     figures go under ``"scan"``, and K10's row of the kernels line gets its
     launches from the dense CLI run.  Phase 15 runs the parity variant
     ``scan`` among the others.
+20. (run after phase 19) training through the float32 recurrence: K10
+    with its residual flag (``lstm_scan_train_fwd``: hs/hT/cT K10's bits,
+    the residuals within 1e-4 of the plain version) and the reverse sweep
+    K11 (``csrc/lstm_scan_train.cu``) against their plain versions (1e-4
+    of each output's largest entry) at T 256, R 8 and (G, B) = (512, 16),
+    (512, 32), (256, 16), (640, 16), (18, 16), rows bit-equal to
+    themselves alone, three repeat runs bit-equal; both kernels, the f32 dW
+    ``torch.bmm`` and four ``nn.LSTM`` forward + backward calls (a
+    yardstick) timed at the UMX-L training shape beside their bounds;
+    ``train_loop`` under ``lstm_impl="scan"`` at UMX-L, 8 steps at batch 16
+    x 256 frames (counts set to 0 before and read after: K10 with residuals
+    and K11 three times a step, K4-K6 and K1 never), warm steps on one
+    batch under "scan" and the default in turns (steps/s; the loss under
+    "scan" falls), a synthetic hidden-1280 model (G 640) trained 2 steps
+    under "auto" through K10/K11; the card's first step under "scan"
+    against the port's CPU path pinned as in phase 19, at UMX-L on 4 x 64
+    frames (loss 1e-5 relative; the LSTM's gradients 2e-4 of their max|g|,
+    the other fields, which pass ReLU kinks, 3 times the CPU path's own
+    movement on an input 1e-6 larger, within [2e-4, 2e-3]); and a
+    stress run of K10, K10 with residuals and K11, at least 2000 launches
+    at T 64 over B 1, 3, 6, 16, 20 and G 18, 256, 512, 640, at 8 chains
+    and at one chain more than a launch holds (two chain groups), every
+    other round with K1 on a second CUDA stream, each output bit-equal to
+    its shape's first run.  Its figures go under ``"scan_train"``; the
+    kernels line gets rows for both kernels with their launches from the
+    ``train_loop`` run.
 
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
@@ -1069,16 +1095,22 @@ def check_wiener_modes(dev, xre, xim, masks, smi: str):
 
 def device_kernels(fn):
     """The names of the kernels that ``fn()`` launched on the card
-    (``torch.profiler``'s device events)."""
+    (``torch.profiler``'s device events).  A trace with no device event at
+    all is the profiler's failure to attach, not a result: ``fn`` is traced
+    again, up to three times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def check_reduce_launches(wiener_args, mode_args):
@@ -1793,6 +1825,8 @@ def training_path(tmp: str, counters: dict, smi: str):
     require(not torch.equal(state.params.fc1_w, params0.fc1_w), "fc1_w did not train")
     for name in ("lstm_merged", "lstm_merged_train_fwd", "lstm_merged_bwd_step", "lstm_merged_dw"):
         require(launches[name] > 0, f"kernel {name} was not launched on the training path")
+    require(launches["lstm_scan_train_fwd"] == launches["lstm_scan_bwd_step"] == 0,
+            "the default trainer at UMX-L ran the float32 recurrence")
 
     # five steps on one fixed batch lower its loss; steps 2-5 are timed
     mix, targets = train.sample(B_TRAIN)
@@ -3685,6 +3719,467 @@ def scan_phase(dev, tmp: str, model: str, wav: str, mix, counters: dict, smi: st
     return fig, args_main
 
 
+# phase 20: training through the float32 recurrence (K10 with residuals, K11)
+# shapes (G, B) at T 256 and R 8 chains: the UMX-L training batch, twice it
+# (two row groups), UMX-HQ's width, hidden 1280's, and a width that is no
+# multiple of 8
+SCAN_TRAIN_SHAPES = ((G_HIDDEN, B_TRAIN), (G_HIDDEN, B_TRAIN_WIDE), (256, B_TRAIN),
+                     (640, B_TRAIN), (18, B_TRAIN))
+SCAN_TRAIN_REPEATS = 3
+# K11 against its plain version: 1e-4 of each output's largest entry (f32
+# products of the same operands, summed in another order)
+SCAN_BWD_RTOL = 1e-4
+# the card's first training step against the port's pinned CPU path at
+# UMX-L under "scan": batch x frames (cut from the training batch's 16 x 256
+# so that the CPU side takes seconds), and the gates (both float32).  The
+# fields K10 with residuals, K11 and the dW product compute
+# (``SCAN_TRAIN_LSTM_FIELDS``) are held to 2e-4 of their max|g|.  The
+# others also pass the ReLUs of the mask network, where an element within
+# an f32 rounding of a kink takes the gradient on one side and not on the
+# other: each is held to 3 times how far the CPU path's own gradient moves
+# on an input 1e-6 larger (``SCAN_NUDGE``), as phase 19 holds the demix,
+# but to no less than 2e-4 and no more than 2e-3 of its max|g|
+SCAN_TRAIN_CPU_BATCH, SCAN_TRAIN_CPU_FRAMES = 4, 64
+SCAN_TRAIN_LOSS_RTOL, SCAN_TRAIN_GRAD_TOL, SCAN_TRAIN_GRAD_CAP = 1e-5, 2e-4, 2e-3
+SCAN_TRAIN_LSTM_FIELDS = ("lstm_ih_w", "lstm_hh_w", "lstm_ih_b", "lstm_hh_b")
+SCAN_TRAIN_HIDDEN = 1024  # UMX-L
+# the stress run of K10 and K11's tagged exchange
+STRESS_T, STRESS_BS, STRESS_GS, STRESS_LAUNCHES = 64, (1, 3, 6, 16, 20), (18, 256, 512, 640), 2000
+
+
+def scan_train_inputs(dev, T, B, G, seed, R=R_CHAINS):
+    """Random K10 inputs at R chains (8 unless given) of width G, W_hh
+    float32 (the trainer's), and the cotangents dhs, dhT, dcT of its
+    outputs."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    RB = R * B
+    xp = torch.randn((T, RB, 4 * G), generator=g, device=dev)
+    whh = torch.randn((R, G, 4 * G), generator=g, device=dev) / G**0.5
+    h0, c0 = 0.5 * torch.randn((2, RB, G), generator=g, device=dev)
+    cts = (torch.randn((T, RB, G), generator=g, device=dev),
+           *torch.randn((2, RB, G), generator=g, device=dev))
+    return xp, whh, h0, c0, cts
+
+
+def rel_to_max(got, want) -> float:
+    return max_err(got, want) / max(float(want.abs().max()), 1e-30)
+
+
+def scan_bwd_bound(T, rows, G, inputs):
+    """Bound of one K11 sweep: gates, cs, c0, W_hh and the three cotangents
+    in, dxp + dh0 + dc0 out, 2*T*rows*G*4G float32 operations."""
+    out = (T * 4 + 2) * rows * G * 4
+    return bound_ms(nbytes(*inputs) + out, 2.0 * T * rows * G * 4 * G, "f32")
+
+
+def check_scan_train_kernels(dev, smi: str) -> dict:
+    """Phase 20a: K10 with residuals (hs/hT/cT K10's bits, residuals within
+    1e-4 of the plain version) and K11 against their plain versions at
+    ``SCAN_TRAIN_SHAPES``, rows bit-equal to themselves
+    alone, repeat runs bit-equal; the kernels, the dW ``torch.bmm`` and an
+    ``nn.LSTM`` yardstick timed at the UMX-L training shape."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    fig = {"shapes": {}}
+    main = None
+    for G, B in SCAN_TRAIN_SHAPES:
+        xp, whh, h0, c0, cts = scan_train_inputs(dev, T_TRAIN, B, G, seed=900 + G + B)
+        fwd = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+        fwd_form = L.lstm_scan_train_fwd.form
+        k10 = L.lstm_scan(xp, whh, h0, c0, B)
+        fwd_bits = all(torch.equal(a, b) for a, b in zip(fwd[:3], k10))
+        fwd_err = max(max_err(a, b) for a, b in
+                      zip(fwd, L.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)))
+        _, _, _, gates, cs = fwd
+        ref = L.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
+        row = {"fwd_bit_equal_k10": fwd_bits, "fwd_max_abs_err": fwd_err, "fwd_form": fwd_form}
+        out = L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
+        torch.cuda.synchronize()
+        err = max(rel_to_max(a, b) for a, b in zip(out, ref))
+        abs_err = max(max_err(a, b) for a, b in zip(out, ref))
+        alone = True
+        for b in (0, B - 1):
+            rows = torch.arange(R_CHAINS, device=dev) * B + b
+            one = L.lstm_scan_bwd_step(
+                gates[:, rows].contiguous(), cs[:, rows].contiguous(), c0[rows].contiguous(),
+                whh, cts[0][:, rows].contiguous(), cts[1][rows].contiguous(),
+                cts[2][rows].contiguous(), 1)
+            alone &= (torch.equal(one[0], out[0][:, rows]) and torch.equal(one[1], out[1][rows])
+                      and torch.equal(one[2], out[2][rows]))
+        repeats = all(all(torch.equal(a, b) for a, b in zip(
+            L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B), out))
+            for _ in range(SCAN_TRAIN_REPEATS))
+        row["bwd"] = {"rel_err": err, "max_abs_err": abs_err, "rows_bit_equal": alone,
+                      "repeats_bit_equal": repeats, "form": L.lstm_scan_bwd_step.form}
+        require(err <= SCAN_BWD_RTOL, f"K11 disagrees with plain at G {G}, B {B}: {err}")
+        require(alone, f"K11 rows at G {G}, B {B} are not their bits alone")
+        require(repeats, f"K11 at G {G}, B {B} gave other bits on another run")
+        dxp = out[0]
+        print(f"lstm_scan_train_fwd (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): hs/hT/cT bit-equal "
+              f"to lstm_scan {fwd_bits}; max|err| vs plain {fwd_err:.3g} (gate {SCAN_ATOL}); form "
+              f"{fwd_form}; lstm_scan_bwd_step vs plain, of max|out|: {err:.3g} (form "
+              f"{row['bwd']['form']}, gate {SCAN_BWD_RTOL}); rows bit-equal alone and "
+              f"{SCAN_TRAIN_REPEATS} repeats bit-equal: all  [{smi}]")
+        require(fwd_bits, f"K10 with residuals is not K10's bits at G {G}, B {B}")
+        require(fwd_err <= SCAN_ATOL, f"K10's residuals disagree with plain at G {G}, B {B}")
+        fig["shapes"][f"G{G}_B{B}"] = row
+        if (G, B) == (G_HIDDEN, B_TRAIN):
+            main = (xp, whh, h0, c0, cts, gates, cs, fwd[0], dxp)
+        del xp, whh, h0, c0, cts, fwd, k10, gates, cs, ref, out, dxp
+
+    # timings at the UMX-L training shape
+    xp, whh, h0, c0, cts, gates, cs, hs, dxp = main
+    B = B_TRAIN
+    fwd_args, bwd_args = (xp, whh, h0, c0, B), (gates, cs, c0, whh, *cts, B)
+    t = {"lstm_scan_train_fwd": cuda_ms(lambda: L.lstm_scan_train_fwd(*fwd_args), 3),
+         "lstm_scan": cuda_ms(lambda: L.lstm_scan(*fwd_args), 3)}
+    t["lstm_scan_bwd_step"] = cuda_ms(lambda: L.lstm_scan_bwd_step(*bwd_args), 3)
+    t["lstm_scan_dw_bmm"] = cuda_ms(lambda: L.lstm_scan_dw(hs, h0, dxp, B), 5)
+    plain = {"lstm_scan_train_fwd": cuda_ms(lambda: L.lstm_scan_train_fwd_plain(*fwd_args), 1),
+             "lstm_scan_bwd_step": cuda_ms(lambda: L.lstm_scan_bwd_step_plain(*bwd_args), 1)}
+    rows = R_CHAINS * B
+    step_bytes = T_TRAIN * rows * G_HIDDEN * 4
+    bounds = {
+        "lstm_scan_train_fwd": scan_bound(T_TRAIN, rows, G_HIDDEN, fwd_args[:4]),
+        "lstm_scan_bwd_step": scan_bwd_bound(T_TRAIN, rows, G_HIDDEN, bwd_args[:7]),
+        "lstm_scan_dw_bmm": bound_ms(nbytes(hs, h0, dxp) + R_CHAINS * G_HIDDEN * 4 * G_HIDDEN * 4,
+                                     2.0 * T_TRAIN * rows * G_HIDDEN * 4 * G_HIDDEN, "f32"),
+    }
+    # the residuals' bytes: gates (T, RB, 4G) and cs (T, RB, G) out
+    bounds["lstm_scan_train_fwd"] = bound_ms(
+        nbytes(*fwd_args[:4]) + (T_TRAIN + 2) * rows * G_HIDDEN * 4 + 5 * step_bytes,
+        2.0 * T_TRAIN * rows * G_HIDDEN * 4 * G_HIDDEN, "f32")
+    # the yardstick: four nn.LSTM(bidirectional) f32 calls, forward and
+    # backward, at the same T, batch and G (they compute the ih product too)
+    lstm = torch.nn.LSTM(2 * G_HIDDEN, G_HIDDEN, bidirectional=True).to(dev)
+    x = torch.randn(T_TRAIN, B, 2 * G_HIDDEN, device=dev, requires_grad=True)
+    gy = torch.randn(T_TRAIN, B, 2 * G_HIDDEN, device=dev)
+
+    def yardstick():
+        for _ in range(4):
+            lstm(x)[0].backward(gy)
+
+    t["nn_lstm_x4_fwd_bwd"] = cuda_ms(yardstick, 2)
+    del lstm, x, gy
+    for name, ms in t.items():
+        print(f"{name} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G_HIDDEN}): {ms:.4f} ms = "
+              f"{ms / T_TRAIN * 1e3:.3f} us a step  [{smi}]")
+    print(f"bounds: K10 with residuals {bounds['lstm_scan_train_fwd'][0]:.4f} ms by "
+          f"{bounds['lstm_scan_train_fwd'][1]}, K11 {bounds['lstm_scan_bwd_step'][0]:.4f} ms by "
+          f"{bounds['lstm_scan_bwd_step'][1]}, dW {bounds['lstm_scan_dw_bmm'][0]:.4f} ms by "
+          f"{bounds['lstm_scan_dw_bmm'][1]}; plain K10 with residuals "
+          f"{plain['lstm_scan_train_fwd']:.4f} ms, K11 {plain['lstm_scan_bwd_step']:.4f} ms  "
+          f"[{smi}]")
+    fig.update(ms=t, plain_ms=plain, bound=bounds)
+    return fig
+
+
+_CPU_TRAIN_STEP = """
+import sys
+import torch
+torch.set_num_threads(int(sys.argv[3]))
+from dataclasses import fields
+from umx_tpu_torch.config import ModelConfig
+from umx_tpu_torch.models.umx import UMXParams, synthetic_params
+from umx_tpu_torch.train import FROZEN, mask_loss
+batch = torch.load(sys.argv[1])
+cfg = ModelConfig(hidden_size=int(sys.argv[4]), lstm_impl="scan")
+p = synthetic_params(cfg, seed=0)
+names = [f.name for f in fields(UMXParams) if f.name not in FROZEN]
+for n in names:
+    getattr(p, n).requires_grad_(True)
+out = {}
+for key, scale in (("grads", 1.0), ("nudged", 1.0 + float(sys.argv[5]))):
+    for n in names:
+        getattr(p, n).grad = None
+    loss = mask_loss(p, {**batch, "x": batch["x"] * scale}, cfg)
+    loss.backward()
+    out[key] = {n: getattr(p, n).grad.clone() for n in names}
+    out.setdefault("loss", loss.item())
+torch.save(out, sys.argv[2])
+print(torch.backends.cpu.get_cpu_capability(), torch.get_num_threads())
+"""
+
+
+def scan_train_vs_cpu(dev, tmp: str, smi: str) -> dict:
+    """Phase 20c: the first training step's loss and gradients under "scan"
+    at UMX-L, on the card against the port's CPU path in a child process
+    pinned as phase 19 pins it, on the same batch (made on the CPU)."""
+    from dataclasses import fields
+
+    import torch
+
+    from umx_tpu_torch.config import DSPConfig, ModelConfig
+    from umx_tpu_torch.models.umx import UMXParams, synthetic_params
+    from umx_tpu_torch.train import FROZEN, make_batch_from_audio, mask_loss
+
+    cfg = ModelConfig(hidden_size=SCAN_TRAIN_HIDDEN, lstm_impl="scan")
+    rng = np.random.default_rng(20)
+    n = DSPConfig().hop * (SCAN_TRAIN_CPU_FRAMES - 1)
+    mix = rng.standard_normal((SCAN_TRAIN_CPU_BATCH, 2, n)).astype(np.float32) * 0.1
+    targets = rng.standard_normal((SCAN_TRAIN_CPU_BATCH, 4, 2, n)).astype(np.float32) * 0.05
+    batch = make_batch_from_audio(mix, targets, cfg, DSPConfig(), SCAN_TRAIN_CPU_FRAMES, "cpu")
+    job, out = os.path.join(tmp, "train_batch.pt"), os.path.join(tmp, "train_grads.pt")
+    torch.save(batch, job)
+    res = subprocess.run([sys.executable, "-c", _CPU_TRAIN_STEP, job, out, str(SCAN_CPU_THREADS),
+                          str(cfg.hidden_size), str(SCAN_NUDGE)],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env={**os.environ, **SCAN_CPU_PINS}, capture_output=True, text=True,
+                         timeout=600)
+    require(res.returncode == 0, f"the pinned CPU train step exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+    cpu = torch.load(out)
+
+    p = synthetic_params(cfg, seed=0, device=dev)
+    names = [f.name for f in fields(UMXParams) if f.name not in FROZEN]
+    for name in names:
+        getattr(p, name).requires_grad_(True)
+    loss = mask_loss(p, {k: v.to(dev) for k, v in batch.items()}, cfg)
+    loss.backward()
+    loss_rel = abs(loss.item() - cpu["loss"]) / abs(cpu["loss"])
+    errs = {name: rel_to_max(getattr(p, name).grad.cpu(), cpu["grads"][name]) for name in names}
+    own = {name: rel_to_max(cpu["nudged"][name], cpu["grads"][name]) for name in names}
+    gate = {name: SCAN_TRAIN_GRAD_TOL if name in SCAN_TRAIN_LSTM_FIELDS
+            else min(SCAN_TRAIN_GRAD_CAP, max(SCAN_TRAIN_GRAD_TOL, 3 * own[name]))
+            for name in names}
+    worst = max(errs, key=lambda name: errs[name] / gate[name])
+    print(f"train step under scan, card vs the pinned CPU path (UMX-L, batch "
+          f"{SCAN_TRAIN_CPU_BATCH} x {SCAN_TRAIN_CPU_FRAMES} frames): loss {loss_rel:.3g} "
+          f"relative (gate {SCAN_TRAIN_LOSS_RTOL}); gradients, of each field's max|g|, card vs CPU "
+          f"(the CPU against itself on the input x (1 + {SCAN_NUDGE:g})): " + ", ".join(
+              f"{name} {errs[name]:.3g} ({own[name]:.3g})" for name in names)
+          + f"; the LSTM's fields gated at {SCAN_TRAIN_GRAD_TOL}, the others at 3 x the CPU's "
+          f"own within [{SCAN_TRAIN_GRAD_TOL}, {SCAN_TRAIN_GRAD_CAP}]; nearest its gate: {worst} "
+          f"({errs[worst]:.3g} of {gate[worst]:.3g}); CPU side (capability, threads) "
+          f"{res.stdout.strip().splitlines()[-1]}  [{smi}]")
+    require(loss_rel <= SCAN_TRAIN_LOSS_RTOL, f"the card's loss under scan is off: {loss_rel}")
+    require(errs[worst] <= gate[worst], f"the card's gradient of {worst} under scan is off: "
+                                        f"{errs[worst]} against a gate of {gate[worst]}")
+    return {"loss_rel": loss_rel, "grad_rel": errs, "cpu_own_grad_rel": own, "grad_gate": gate,
+            "cpu_pins": res.stdout.strip()}
+
+
+def scan_train_path(dev, tmp: str, counters: dict, smi: str) -> dict:
+    """Phase 20b: ``train_loop`` under "scan" at UMX-L (counts set to 0
+    before and read after: K10 with residuals and K11 three times a step,
+    K4-K6 never), steps on a fixed batch under "scan" and the default in
+    turns (steps/s; the loss under "scan" falls), and a synthetic
+    hidden-1280 model (G 640) trained 2 steps under "auto"."""
+    import torch
+
+    from umx_tpu_torch.config import DSPConfig, ModelConfig
+    from umx_tpu_torch.data import StemDataset, train_loop
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.train import (
+        TrainConfig, init_train_state, make_batch_from_audio, make_train_step,
+    )
+
+    root = os.path.join(tmp, "stems_train")
+    if not os.path.isdir(root):
+        write_stem_dir(root)
+    tcfg = TrainConfig(seq_len=T_TRAIN)
+    excerpt = DSPConfig().hop * (tcfg.seq_len - 1)
+    train = StemDataset(root, excerpt_samples=excerpt, split="train", seed=0)
+    scan_cfg = ModelConfig(hidden_size=SCAN_TRAIN_HIDDEN, lstm_impl="scan")
+    params0 = synthetic_params(scan_cfg, seed=0, device=dev)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    state, hist = train_loop(train, scan_cfg, tcfg, steps=TRAIN_STEPS, batch_size=B_TRAIN,
+                             params=params0, device=dev, log_every=0)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"train_loop under scan (UMX-L, batch {B_TRAIN} x {tcfg.seq_len} frames, "
+          f"{TRAIN_STEPS} steps): {loop_s:.3f} s wall; losses {[round(x, 6) for x in hist]}; "
+          f"kernel runs {launches}  [{smi}]")
+    require(len(hist) == TRAIN_STEPS and bool(np.isfinite(hist).all()), f"losses: {list(hist)}")
+    n = 3 * TRAIN_STEPS
+    require(launches["lstm_scan_train_fwd"] == n and launches["lstm_scan_bwd_step"] == n,
+            f"under scan K10 with residuals and K11 ran {launches['lstm_scan_train_fwd']} and "
+            f"{launches['lstm_scan_bwd_step']} times, not 3 a step")
+    for name in ("lstm_merged_train_fwd", "lstm_merged_bwd_step", "lstm_merged_dw", "lstm_merged"):
+        require(launches[name] == 0, f"{name} ran {launches[name]} times under scan")
+    require(not torch.equal(state.params.lstm_hh_w, params0.lstm_hh_w), "W_hh did not train")
+    del state
+
+    # warm steps on one fixed batch, "auto" and "scan" in turns
+    mix, targets = train.sample(B_TRAIN)
+    batch = make_batch_from_audio(mix, targets, scan_cfg, DSPConfig(), tcfg.seq_len, dev)
+    steps = {}
+    for impl in ("auto", "scan"):
+        cfg = ModelConfig(hidden_size=SCAN_TRAIN_HIDDEN, lstm_impl=impl)
+        steps[impl] = [make_train_step(cfg), init_train_state(params0, tcfg), [], []]
+    for impl in ("auto", "scan", "scan", "auto", "auto", "scan"):
+        step, st, losses, walls = steps[impl]
+        if not losses:
+            st, loss = step(st, batch)  # warm-up
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st, loss = step(st, batch)
+            losses.append(float(loss))  # a scalar fetch: a barrier each step
+        walls.append(2 / (time.perf_counter() - t0))
+        steps[impl][1] = st
+    sps = {impl: float(np.median(v[3])) for impl, v in steps.items()}
+    scan_losses = steps["scan"][2]
+    print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {tcfg.seq_len} frames, one batch, "
+          f"median of 3 turns): scan {sps['scan']:.3f}, auto {sps['auto']:.3f}; losses under scan "
+          f"{[round(x, 6) for x in scan_losses]}  [{smi}]")
+    require(bool(np.isfinite(scan_losses).all()) and scan_losses[-1] < scan_losses[0],
+            f"steps under scan on one batch did not lower its loss: {scan_losses}")
+    del steps, batch
+
+    # a model wider than UMX-L under "auto": G 640, which K4-K6 cannot take
+    wide_cfg = ModelConfig(hidden_size=SCAN_WIDE_HIDDEN)
+    mix, targets = train.sample(B_TRAIN)
+    batch = make_batch_from_audio(mix, targets, wide_cfg, DSPConfig(), tcfg.seq_len, dev)
+    wide = init_train_state(synthetic_params(wide_cfg, seed=0, device=dev), tcfg)
+    step = make_train_step(wide_cfg)
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wide_losses = []
+    for _ in range(2):
+        wide, loss = step(wide, batch)
+        wide_losses.append(float(loss))
+    wide_s = time.perf_counter() - t0
+    wide_launches = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    print(f"hidden {SCAN_WIDE_HIDDEN} (G {SCAN_WIDE_HIDDEN // 2}) under auto, 2 steps at batch "
+          f"{B_TRAIN} x {tcfg.seq_len}: losses {wide_losses}, {wide_s:.3f} s; kernel runs "
+          f"{wide_launches}  [{smi}]")
+    require(bool(np.isfinite(wide_losses).all()), f"hidden {SCAN_WIDE_HIDDEN} losses: {wide_losses}")
+    require(wide_launches.get("lstm_scan_bwd_step", 0) == 6
+            and not wide_launches.get("lstm_merged_train_fwd"),
+            f"hidden {SCAN_WIDE_HIDDEN} under auto did not train through K10/K11: {wide_launches}")
+    del wide, batch
+    return {"loop_s": loop_s, "losses": list(map(float, hist)), "launches": launches,
+            "steps_per_s": sps, "fixed_batch_losses_scan": scan_losses,
+            "wide": {"losses": wide_losses, "s": wide_s, "launches": wide_launches}}
+
+
+def stress_scan(dev, smi: str) -> dict:
+    """Phase 20d: K10, K10 with residuals and K11 launched at least
+    ``STRESS_LAUNCHES`` times at T ``STRESS_T`` over ``STRESS_BS`` x
+    ``STRESS_GS`` at R 8 chains and at one chain more than a launch holds
+    (two chain groups), each output compared bit for bit with the first run
+    of its shape; every other round runs K1 on a second CUDA stream beside
+    them.  A race in the tagged exchange would move an output."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device=dev)
+    k1_args = lstm_inputs(dev, T_SEG, 1, seed=77, R=2, G=256)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    cases = []
+    for G in STRESS_GS:
+        per = min(L._scan_capacity(dev.index, G, False, k)[1] // L.scan_blocks_per_chain(G)
+                  for k in ("K10", "K10r"))
+        per_bwd = L._scan_capacity(dev.index, G, False, "K11")[1] // L.scan_blocks_per_chain(G)
+        for R in sorted({R_CHAINS, per + 1, per_bwd + 1}):
+            for B in STRESS_BS:
+                cases.append((G, R, B))
+    kernels = ("lstm_scan", "lstm_scan_train_fwd", "lstm_scan_bwd_step")
+    rounds = -(-STRESS_LAUNCHES // (len(cases) * len(kernels)))
+    launches, mismatches, beside, groups = 0, 0, 0, set()
+    for G, R, B in cases:
+        xp, whh, h0, c0, cts = scan_train_inputs(dev, STRESS_T, B, G, seed=G + R + B, R=R)
+        first = {}
+        for k in range(rounds):
+            if k % 2:
+                with torch.cuda.stream(side):
+                    L.lstm_merged(*k1_args)
+                beside += 1
+            outs = {"lstm_scan": L.lstm_scan(xp, whh, h0, c0, B)}
+            groups.add(L.lstm_scan.form[2])
+            outs["lstm_scan_train_fwd"] = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+            gates, cs = outs["lstm_scan_train_fwd"][3:]
+            outs["lstm_scan_bwd_step"] = L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
+            groups.add(L.lstm_scan_bwd_step.form[2])
+            launches += len(outs)
+            if not first:
+                first = outs
+                continue
+            for name, out in outs.items():
+                mismatches += sum(not torch.equal(a, b) for a, b in zip(out, first[name]))
+        torch.cuda.synchronize()
+        del xp, whh, h0, c0, cts, first, outs
+    side.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"stress: {mismatches} mismatches in {launches} launches of K10, K10 with residuals "
+          f"and K11 (T {STRESS_T}, B {STRESS_BS}, G {STRESS_GS}, {len(cases)} shapes, chain "
+          f"groups {sorted(groups)}; {beside} rounds with K1 on a second stream), {wall:.1f} s "
+          f"wall  [{smi}]")
+    require(launches >= STRESS_LAUNCHES, f"the stress run made {launches} launches")
+    require(max(groups) >= 2, f"the stress run never split the chains: {groups}")
+    require(mismatches == 0, f"the stress run found {mismatches} outputs off their first run's bits")
+    return {"launches": launches, "mismatches": mismatches, "shapes": len(cases),
+            "chain_groups": sorted(groups), "rounds_beside_k1": beside, "wall_s": wall}
+
+
+def wide_auto_demix(dev, tmp: str, counters: dict, smi: str) -> dict:
+    """Phase 20e: the synthetic hidden-1280 model (G 640) demixes under the
+    default "auto" through K10 and never K1, with the bits of "scan" (one
+    program), and "pallas_merged" named at that width raises by name."""
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.io.ggml import write_ggml
+    from umx_tpu_torch.models.umx import synthetic_state_dicts
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    wide = os.path.join(tmp, "synthetic_h1280.bin")
+    if not os.path.isfile(wide):  # phase 19 writes it
+        write_ggml(wide, SCAN_WIDE_HIDDEN,
+                   synthetic_state_dicts(ModelConfig(hidden_size=SCAN_WIDE_HIDDEN), seed=0))
+    audio = synth_mix(5.0, seed=3)
+    seg = SegmentConfig(segment_secs=2.0)
+    out = {}
+    for impl in ("auto", "scan"):
+        cfg = EngineConfig(model=ModelConfig(lstm_impl=impl), segment=seg)
+        reset_counts(counters)
+        out[impl] = Separator.from_ggml(wide, cfg, dev).demix_track(audio, seed=0)
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        require(launches.get("lstm_scan", 0) > 0 and not launches.get("lstm_merged"),
+                f"hidden {SCAN_WIDE_HIDDEN} under {impl} did not demix through K10: {launches}")
+    same = bool(np.array_equal(out["auto"], out["scan"]))
+    cfg = EngineConfig(model=ModelConfig(lstm_impl="pallas_merged"), segment=seg)
+    try:
+        Separator.from_ggml(wide, cfg, dev).demix_track(audio, seed=0)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    print(f"hidden {SCAN_WIDE_HIDDEN} demix of 5 s under auto: K10 {launches['lstm_scan']} "
+          f"launches, K1 none; stems bit-equal to lstm_impl scan's: {same}; finite "
+          f"{bool(np.isfinite(out['auto']).all())}; pallas_merged refused: {refused!r}  [{smi}]")
+    require(same and np.isfinite(out["auto"]).all(), "auto at hidden 1280 is not the scan's demix")
+    require(f"G <= {L.RESIDENT_G_MAX}" in refused,
+            f"pallas_merged at hidden {SCAN_WIDE_HIDDEN} was not refused by name: {refused!r}")
+    return {"auto_equals_scan": same, "pallas_merged_refused": refused}
+
+
+def scan_train_phase(dev, tmp: str, counters: dict, smi: str) -> dict:
+    """Phase 20: training through the float32 recurrence (module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fig = {"card": smi, "kernels": check_scan_train_kernels(dev, smi)}
+    fig["train"] = scan_train_path(dev, tmp, counters, smi)
+    fig["vs_cpu"] = scan_train_vs_cpu(dev, tmp, smi)
+    fig["wide_demix"] = wide_auto_demix(dev, tmp, counters, smi)
+    fig["stress"] = stress_scan(dev, smi)
+    fig["phase_s"] = time.perf_counter() - t_phase
+    print(f"scan train phase: {fig['phase_s']:.1f} s wall  [{smi}]")
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -3726,6 +4221,8 @@ def main() -> int:
         "ola_normalized": ola_cuda.ola_normalized,
         "istft_ct2": istft_ct_cuda.istft_ct2,
         "lstm_scan": lstm_cuda.lstm_scan,
+        "lstm_scan_train_fwd": lstm_cuda.lstm_scan_train_fwd,
+        "lstm_scan_bwd_step": lstm_cuda.lstm_scan_bwd_step,
     }
     wiener_args, wiener_errs, wiener_bf16 = check_wiener(dev, smi)
     k9_args, k9_err, k9_form, k9_ms, k9_k1_ms = check_pertarget(dev, T_SEG, G_HIDDEN, 9, smi)
@@ -3826,6 +4323,7 @@ def main() -> int:
         mesh = mesh_phase(dev, tmp, model, mix, list(tracks.values())[:3], counters, smi)
         stream = stream_phase(dev, model, wav, mix, counters, smi)
         scan, scan_args = scan_phase(dev, tmp, model, wav, mix, counters, smi)
+        scan_train = scan_train_phase(dev, tmp, counters, smi)
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -4031,6 +4529,7 @@ def main() -> int:
           f"{ISTFT_EARLIER_SHAPE}), one launch, (runs per row, hops per run) {k8_form}")
 
     wsrc, wrep = "umx_tpu_torch/csrc/wiener.cu", "umx_tpu/ops/wiener_pallas.py"
+    st_kernels = scan_train["kernels"]
     meta = {
         "lstm_merged": ("umx_tpu_torch/csrc/lstm_merged.cu",
                         "umx_tpu/ops/lstm_pallas.py:158", max(lstm_err, lstm16_err)),
@@ -4061,8 +4560,15 @@ def main() -> int:
         "ola_normalized": ("umx_tpu_torch/csrc/ola.cu", "umx_tpu/ops/ola_pallas.py:61", ola_err),
         "istft_ct2": ("umx_tpu_torch/csrc/istft_ct.cu", "umx_tpu/ops/istft_ct.py:270", istft_err),
         # not Pallas: the lax.scan step of _bilstm_layer (lstm_impl="scan")
-        "lstm_scan": ("umx_tpu_torch/csrc/lstm_scan.cu", "umx_tpu/models/umx.py:385",
+        "lstm_scan": ("umx_tpu_torch/csrc/lstm_scan.cu", "umx_tpu/models/umx.py:388",
                       scan["max_abs_err"]),
+        # not Pallas: JAX's autodiff of that step, forward with residuals
+        # and the reverse sweep (the trainer under lstm_impl="scan")
+        "lstm_scan_train_fwd": ("umx_tpu_torch/csrc/lstm_scan.cu", "umx_tpu/models/umx.py:388",
+                                max(r["fwd_max_abs_err"] for r in st_kernels["shapes"].values())),
+        "lstm_scan_bwd_step": ("umx_tpu_torch/csrc/lstm_scan_train.cu",
+                               "umx_tpu/models/umx.py:388",
+                               max(r["bwd"]["max_abs_err"] for r in st_kernels["shapes"].values())),
     }
     # each kernel's launches on its own path: K1-K3 the demix, K4-K6
     # training, K7-K8 the batched whole-track demix, K9 the per-target
@@ -4077,13 +4583,19 @@ def main() -> int:
                      **{k: batched_launches[k] for k in ("ola_normalized", "istft_ct2")},
                      "lstm_layer_pertarget": k9_launches["lstm_layer_pertarget"],
                      **mode_launches,
-                     "lstm_scan": scan["cli"]["dense"]["launches"]["lstm_scan"]}
+                     "lstm_scan": scan["cli"]["dense"]["launches"]["lstm_scan"],
+                     **{k: scan_train["train"]["launches"][k] for k in
+                        ("lstm_scan_train_fwd", "lstm_scan_bwd_step")}}
     for name, n in path_launches.items():
         require(n > 0, f"kernel {name} was launched no time on its path")
     k10 = scan["shapes"]["G512_B1"]
     times["lstm_scan"] = (k10["ms"], k10["plain_ms"])
     bounds["lstm_scan"] = scan_bound(T_SEG, R_CHAINS, G_HIDDEN, scan_args[:4])
     library["lstm_scan"] = None  # nn.LSTM computes the ih product too: a yardstick
+    for name in ("lstm_scan_train_fwd", "lstm_scan_bwd_step"):
+        times[name] = (st_kernels["ms"][name], st_kernels["plain_ms"][name])
+        bounds[name] = st_kernels["bound"][name]
+        library[name] = None  # nn.LSTM (forward and backward) is a yardstick, printed
     for name, form in bf16_forms.items():
         if name not in meta:
             continue  # the mixed forms: figures under "wiener_bf16_forms"
@@ -4105,6 +4617,9 @@ def main() -> int:
     kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
     next(k for k in kernels if k["name"] == "lstm_scan")["nn_lstm_x4_yardstick_ms"] = \
         scan["nn_lstm_x4_ms"]
+    k11 = next(k for k in kernels if k["name"] == "lstm_scan_bwd_step")
+    k11["nn_lstm_x4_fwd_bwd_yardstick_ms"] = st_kernels["ms"]["nn_lstm_x4_fwd_bwd"]
+    k11["dw_bmm_ms"] = st_kernels["ms"]["lstm_scan_dw_bmm"]
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
                       "gpu_vs_cpu_rel_err": cpu_err, "bf16_default_vs_cpu": bf16_vs_cpu,
                       "wiener_bf16_forms": {n: {k: v for k, v in f.items() if k != "bound"}
@@ -4137,7 +4652,7 @@ def main() -> int:
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
                       "serving": serving, "evaluation": evaluation, "parity": parity,
                       "certification": certification, "mesh": mesh, "stream": stream,
-                      "scan": scan}))
+                      "scan": scan, "scan_train": scan_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1543,3 +1543,134 @@ def test_scan_demix_on_the_card_matches_the_cpu(dev):
     assert lstm_cuda.lstm_merged.launches == before[1]
     cpu = Separator(synthetic_params(cfg.model, seed=0), cfg, "cpu").demix_track(track, seed=0)
     assert float(np.abs(gpu - cpu).max() / np.abs(cpu).max()) <= 2e-4
+
+
+# ---- K10 with residuals and K11: training through the float32 recurrence ----
+
+
+_SCAN_TRAIN_SHAPES = [
+    (37, 3, 3, 40, torch.float32), (9, 8, 16, 512, torch.float32),
+    (5, 2, 6, 18, torch.bfloat16), (7, 8, 20, 512, torch.float32),
+    (11, 8, 1, 640, torch.float32), (1, 2, 1, 1, torch.float32),
+    (3, 1, 9, 4096, torch.bfloat16),
+]
+
+
+def _scan_train_case(dev, T, R, B, G, dtype, seed):
+    """K10 inputs, the residual forward's outputs, and cotangents."""
+    xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    cts = (torch.randn((T, R * B, G), generator=g, device=dev),
+           torch.randn((R * B, G), generator=g, device=dev),
+           torch.randn((R * B, G), generator=g, device=dev))
+    return xp, whh, h0, c0, cts
+
+
+@pytest.mark.parametrize("T, R, B, G, dtype", _SCAN_TRAIN_SHAPES)
+def test_scan_train_fwd_is_k10_with_residuals(dev, T, R, B, G, dtype):
+    """K10 with its residual flag: hs/hT/cT are K10's bits, the activated
+    gates and c within 1e-4 of the plain version's (rows beyond one
+    launch's 16 at B 20; G 4096 at 8 rows a launch)."""
+    xp, whh, h0, c0, _ = _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)
+    before = lstm_cuda.lstm_scan_train_fwd.launches
+    out = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_scan_train_fwd.launches == before + 1
+    for a, b in zip(out[:3], lstm_cuda.lstm_scan(xp, whh, h0, c0, B)):
+        assert torch.equal(a, b)
+    ref = lstm_cuda.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
+    for a, b in zip(out, ref):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("T, R, B, G, dtype", _SCAN_TRAIN_SHAPES)
+def test_scan_bwd_kernel_matches_plain(dev, T, R, B, G, dtype):
+    """K11 against its plain version on the same residuals: dxp, dh0 and
+    dc0 within 1e-4 of their largest entry (f32 products of the same
+    operands, summed in another order)."""
+    xp, whh, h0, c0, cts = _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)
+    _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+    before = lstm_cuda.lstm_scan_bwd_step.launches
+    out = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_scan_bwd_step.launches == before + 1
+    rows, _ = lstm_cuda._scan_capacity(dev.index, G, dtype == torch.bfloat16, "K11")
+    assert lstm_cuda.lstm_scan_bwd_step.form[3] == len(lstm_cuda.scan_row_groups(B, rows))
+    ref = lstm_cuda.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
+    for k, p in zip(out, ref):
+        assert (k - p).abs().max().item() <= 1e-4 * max(p.abs().max().item(), 1e-30)
+    assert torch.equal(cts[2], _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)[4][2])
+
+
+@pytest.mark.parametrize("B, G", [(3, 512), (17, 40)])
+def test_scan_bwd_rows_are_bit_equal_alone(dev, B, G):
+    """A row of K11 has the bits of the same row run alone, whatever rows
+    and row groups run beside it."""
+    T, R = 23, 4
+    xp, whh, h0, c0, (dhs, dhT, dcT) = _scan_train_case(dev, T, R, B, G, torch.float32, seed=B)
+    _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+    dxp, dh0, dc0 = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    for b in (0, B - 1):
+        rows = torch.arange(R, device=dev) * B + b
+        one = lstm_cuda.lstm_scan_bwd_step(
+            gates[:, rows].contiguous(), cs[:, rows].contiguous(), c0[rows].contiguous(), whh,
+            dhs[:, rows].contiguous(), dhT[rows].contiguous(), dcT[rows].contiguous(), 1)
+        assert torch.equal(one[0], dxp[:, rows]) and torch.equal(one[1], dh0[rows])
+        assert torch.equal(one[2], dc0[rows])
+
+
+@pytest.mark.parametrize("B, G", [(6, 512), (1, 640)])
+def test_scan_bwd_repeats_its_bits(dev, B, G):
+    """Twenty launches of K11 on the same inputs give the same bits: the
+    exchange never hands a block a word of another step."""
+    xp, whh, h0, c0, cts = _scan_train_case(dev, 129, 8, B, G, torch.float32, seed=G + B)
+    _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+    ref = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
+    for _ in range(20):
+        out = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("impl", ["scan", "auto"])
+def test_scan_training_on_the_card_matches_cpu(dev, impl):
+    """mask_loss and every gradient at hidden 36 (G 18: "auto" is the scan
+    too), K10 with residuals and K11 on the card against their plain
+    versions on the CPU: both float32, so 1e-5 on the loss and 2e-4 of
+    each field's largest gradient entry (cuBLAS's summation order)."""
+    import dataclasses
+
+    import numpy as np
+
+    from umx_tpu_torch.config import ModelConfig
+    from umx_tpu_torch.models.umx import UMXParams, synthetic_params
+    from umx_tpu_torch.train import FROZEN, mask_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(hidden_size=36, lstm_impl=impl)
+    rng = np.random.default_rng(8)
+    batch = {
+        "x": rng.uniform(0, 1, (3, 12, cfg.n_features)),
+        "mix_mag": rng.uniform(0, 1, (3, 2, 12, cfg.n_bins)),
+        "target_mag": rng.uniform(0, 1, (3, 4, 2, 12, cfg.n_bins)),
+    }
+    grads = {}
+    for d in ("cpu", dev):
+        p = synthetic_params(cfg, seed=4, device=d)
+        names = [f.name for f in dataclasses.fields(UMXParams) if f.name not in FROZEN]
+        for n in names:
+            getattr(p, n).requires_grad_(True)
+        b = {k: torch.tensor(v, dtype=torch.float32, device=d) for k, v in batch.items()}
+        before = (lstm_cuda.lstm_scan_train_fwd.launches, lstm_cuda.lstm_scan_bwd_step.launches,
+                  lstm_cuda.lstm_merged_bwd_step.launches)
+        loss = mask_loss(p, b, cfg)
+        loss.backward()
+        if d != "cpu":
+            L = cfg.n_lstm_layers
+            assert (lstm_cuda.lstm_scan_train_fwd.launches, lstm_cuda.lstm_scan_bwd_step.launches,
+                    lstm_cuda.lstm_merged_bwd_step.launches) == (
+                        before[0] + L, before[1] + L, before[2])
+        grads[str(d)] = (loss.item(), {n: getattr(p, n).grad.cpu() for n in names})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads[str(dev)]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for n, g in g_cpu.items():
+        assert _rel(g_gpu[n], g) <= 2e-4, n

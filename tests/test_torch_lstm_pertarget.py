@@ -122,7 +122,8 @@ def test_recurrence_dispatches_on_lstm_impl(batch, monkeypatch):
 
 
 def test_training_ignores_the_pertarget_kernel(monkeypatch):
-    """A gradient runs the merged training kernels whatever lstm_impl says."""
+    """A gradient never runs the per-target kernel: the trainer's loss
+    lowers "pallas" to the float32 recurrence, as the JAX trainer does."""
     from umx_tpu_torch.train import mask_loss
 
     cfg = ModelConfig(hidden_size=32, lstm_impl="pallas")

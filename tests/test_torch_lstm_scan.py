@@ -3,9 +3,10 @@ version on the CPU) against the JAX package's ``lax.scan`` recurrence
 (``umx_tpu.models.umx._bilstm_layer``) per layer, with float32 and bf16
 stored W_hh; rows bit-equal to themselves alone; the model, the
 streaming, windowed and fleet slice against the JAX ``Separator`` and
-``demix_tracks`` under ``lstm_impl="scan"``; the trainer's and the
-layer's refusal of a gradient, the eval step running the scan; the
-pipelined arm keeping K1; and K10's launch plan."""
+``demix_tracks`` under ``lstm_impl="scan"``; the train step and the layer
+taking a gradient through the float32 kernels (against the JAX trainer:
+``tests/test_torch_lstm_scan_train.py``), the eval step running the scan;
+the pipelined arm keeping K1; and K10's launch plan."""
 
 from __future__ import annotations
 
@@ -355,7 +356,7 @@ def test_pipelined_arm_keeps_k1_under_scan(params, monkeypatch):
     assert len(outs) == len(states) == 2 and outs[0].shape == (1, 4, 5, HIDDEN)
 
 
-# ---- what the scan does not do yet: gradients -------------------------------
+# ---- gradients through the scan ---------------------------------------------
 
 
 def _loss_batch(cfg, seed=0):
@@ -368,15 +369,26 @@ def _loss_batch(cfg, seed=0):
     }
 
 
-def test_trainer_refuses_scan_by_name(params):
-    """The train steps refuse "scan" when they are made; the loss with a
-    gradient wanted raises in the layer, by name (never lowered to K4)."""
+def test_trainer_trains_through_the_scan(params, monkeypatch):
+    """The train step under "scan" runs K10 with residuals and K11 once per
+    layer (their plain versions here), never the merged kernels, and
+    updates every trainable field."""
+    from umx_tpu_torch.train import TrainConfig, init_train_state
+
     cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
-    with pytest.raises(ValueError, match="no backward"):
-        make_train_step(cfg)
-    p = dataclasses.replace(params, lstm_hh_w=params.lstm_hh_w.detach().clone().requires_grad_())
-    with pytest.raises(RuntimeError, match='lstm_impl="scan".*no backward'):
-        mask_loss(p, _loss_batch(cfg), cfg)
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = L.lstm_scan_train_fwd, L.lstm_scan_bwd_step
+    monkeypatch.setattr(L, "lstm_scan_train_fwd",
+                        lambda *a: calls.__setitem__("fwd", calls["fwd"] + 1) or fwd(*a))
+    monkeypatch.setattr(L, "lstm_scan_bwd_step",
+                        lambda *a: calls.__setitem__("bwd", calls["bwd"] + 1) or bwd(*a))
+    for name in ("lstm_merged", "lstm_merged_train_fwd", "lstm_merged_bwd_step"):
+        monkeypatch.setattr(L, name, lambda *a, n=name: pytest.fail(f"{n} ran under scan"))
+    state = init_train_state(params, TrainConfig())
+    state, loss = make_train_step(cfg)(state, _loss_batch(cfg))
+    assert calls == {"fwd": cfg.n_lstm_layers, "bwd": cfg.n_lstm_layers}
+    assert torch.isfinite(loss) and state.step == 1
+    assert not torch.equal(state.params.lstm_hh_w, params.lstm_hh_w)
 
 
 def test_eval_step_runs_the_scan(params, monkeypatch):
@@ -394,15 +406,43 @@ def test_eval_step_runs_the_scan(params, monkeypatch):
     assert torch.isfinite(loss) and float(loss) > 0
 
 
-def test_scan_layer_refuses_a_gradient(params):
+def test_scan_layer_takes_a_gradient(params):
+    """The recurrence under "scan" with a gradient wanted gives autograd's
+    gradients through the plain float32 forward (the same function run
+    step by step): W_hh, x1 and the initial state, within 1e-5 of each
+    gradient's largest entry (f32 both sides, summation order only)."""
     cfg = ModelConfig(hidden_size=HIDDEN, lstm_impl="scan")
-    hh = params.lstm_hh_w.detach().clone().requires_grad_(True)
-    p = dataclasses.replace(params, lstm_hh_w=hh)
-    x1 = torch.zeros((1, 4, 5, HIDDEN))
-    with pytest.raises(RuntimeError, match='lstm_impl="scan".*no backward'):
-        tumx.umx_recurrence_batched(p, x1, tumx.init_lstm_state(cfg, batch=1), cfg)
-    with torch.no_grad():
-        tumx.umx_recurrence_batched(p, x1, tumx.init_lstm_state(cfg, batch=1), cfg)
+    rng = np.random.default_rng(11)
+    x1 = torch.from_numpy(np.tanh(rng.standard_normal((2, 4, 7, HIDDEN))).astype(np.float32))
+    st = tumx.init_lstm_state(cfg, batch=2)
+    h0 = torch.from_numpy(0.3 * rng.standard_normal(st.h.shape).astype(np.float32))
+    c0 = torch.from_numpy(0.3 * rng.standard_normal(st.c.shape).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2, 4, 7, HIDDEN)).astype(np.float32))
+
+    def grads(layer):
+        leaves = [params.lstm_hh_w.detach().clone().requires_grad_(), x1.clone().requires_grad_(),
+                  h0.clone().requires_grad_(), c0.clone().requires_grad_()]
+        p = dataclasses.replace(params, lstm_hh_w=leaves[0])
+        real = tumx.lstm_layer_scan_batched
+        tumx.lstm_layer_scan_batched = layer
+        try:
+            out, new = tumx.umx_recurrence_batched(p, leaves[1], tumx.LSTMState(*leaves[2:]), cfg)
+        finally:
+            tumx.lstm_layer_scan_batched = real
+        ((out * cot).sum() + new.h.sum() + 0.5 * new.c.sum()).backward()
+        return [t.grad for t in leaves]
+
+    def plain_layer(x_proj, hh_w, h0, c0):  # autograd through the plain forward
+        Bsz, n_t, _, D, G4 = x_proj.shape
+        xp, h0r, c0r = L._chain_rows(x_proj, h0, c0)
+        out = L.lstm_scan_plain(xp, hh_w.reshape(n_t * D, G4 // 4, G4), h0r, c0r, Bsz)
+        return L._batched_outputs(*out, x_proj.shape)
+
+    ours, ref = grads(tumx.lstm_layer_scan_batched), grads(plain_layer)
+    for name, a, b in zip(("hh_w", "x1", "h0", "c0"), ours, ref):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        print(f"scan layer gradient {name}: {err:.3g} of max|g|")
+        assert err <= 1e-5, (name, err)
 
 
 def test_planner_counts_the_scan_exchange_buffer():

@@ -83,10 +83,19 @@ def musdb(tmp_path_factory):
 
 @pytest.mark.parametrize("script", sorted(PORTED))
 def test_flags_equal_the_jax_scripts(script, monkeypatch):
-    ours = _flags(PORTED[script].build_parser())
-    theirs = _flags(_jax_parser(_jax_script(script), monkeypatch))
+    """The same options (plus ``--device``), each with the JAX script's
+    choices and default."""
+    port = PORTED[script].build_parser()
+    jax_ = _jax_parser(_jax_script(script), monkeypatch)
+    ours, theirs = _flags(port), _flags(jax_)
     assert ours - {"--device"} == theirs
     assert "--device" in ours
+    mine = {a.dest: a for a in port._actions}
+    for a in jax_._actions:
+        if a.dest == "help":
+            continue
+        assert mine[a.dest].choices == a.choices, a.dest
+        assert mine[a.dest].default == a.default, a.dest
 
 
 @pytest.mark.parametrize("script", sorted(PORTED))

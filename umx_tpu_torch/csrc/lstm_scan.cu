@@ -18,6 +18,13 @@
 // with precise expf / tanhf.  Outputs hs (T, R*B, G), hT (R*B, G) f32; c is
 // updated in place and ends as cT.  Any G >= 1 and any B.
 //
+// With the compile-time flag RESID (umx_lstm_scan_train, the forward of
+// training, as K4 is K1 with a flag in lstm_merged.cu) the thread that owns
+// a (unit, row) also stores that step's activated gates i|f|g|o into
+// gates (T, R*B, 4G) f32 and c into cs (T, R*B, G) f32: the residuals of
+// the reverse sweep (lstm_scan_train.cu).  The arithmetic is the same, so
+// hs, hT and cT are the bits of the form without the flag.
+//
 // What bounds it on the H100: the T steps depend on each other, and a step
 // needs the whole of W_hh against a few rows of h.  At UMX-L in float32
 // W_hh is 8 x 512 x 2048 x 4 B = 33.5 MB: under the 50 MB L2, but not under
@@ -101,7 +108,7 @@ __device__ __forceinline__ void fma_rows(float (&acc)[RT], float w, const float*
 // h (G x RT f32, k-major) and the quarters' sums (SCAN_PARTS x RT x 128 f32).
 // hx: exchange words (R, 2, SCAN_ROWS, G), zeroed before the layer's first
 // launch.
-template <typename W, int RT>
+template <typename W, int RT, bool RESID>
 __global__ void __launch_bounds__(SCAN_THREADS, 2)
 lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
                  const W* __restrict__ whh,      // (R, G, 4G)
@@ -109,6 +116,8 @@ lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
                  float* __restrict__ c,          // (RB, G), in place
                  float* __restrict__ hs,         // (T, RB, G)
                  float* __restrict__ hT,         // (RB, G)
+                 float* __restrict__ gates,      // (T, RB, 4G), RESID only
+                 float* __restrict__ cs,         // (T, RB, G), RESID only
                  unsigned long long* hx, int T, int R, int B, int b0, int nb, int G, int r0,
                  unsigned tag0) {
   extern __shared__ __align__(16) float smem[];
@@ -229,6 +238,14 @@ lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
       // explicit roundings: f*c + i*g as the plain version computes it
       cc = __fadd_rn(__fmul_rn(fg, cc), __fmul_rn(ig, gg));
       hl = __fmul_rn(og, tanhf(cc));
+      if constexpr (RESID) {
+        float* gp = gates + ((size_t)t * RB + row) * G4 + u;
+        gp[0] = ig;
+        gp[G] = fg;
+        gp[2 * G] = gg;
+        gp[3 * G] = og;
+        cs[((size_t)t * RB + row) * G + u] = cc;
+      }
       if (t + 1 < T) {
         volatile unsigned long long* dst =
             hx_r + ((size_t)((t + 1) & 1) * SCAN_ROWS + cb) * G + u;
@@ -245,14 +262,14 @@ lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
   }
 }
 
-template <typename W>
+template <typename W, bool RESID>
 const void* scan_kernel_rt(int rt) {
   switch (rt) {
-    case 1: return (const void*)lstm_scan_kernel<W, 1>;
-    case 2: return (const void*)lstm_scan_kernel<W, 2>;
-    case 4: return (const void*)lstm_scan_kernel<W, 4>;
-    case 8: return (const void*)lstm_scan_kernel<W, 8>;
-    case 16: return (const void*)lstm_scan_kernel<W, 16>;
+    case 1: return (const void*)lstm_scan_kernel<W, 1, RESID>;
+    case 2: return (const void*)lstm_scan_kernel<W, 2, RESID>;
+    case 4: return (const void*)lstm_scan_kernel<W, 4, RESID>;
+    case 8: return (const void*)lstm_scan_kernel<W, 8, RESID>;
+    case 16: return (const void*)lstm_scan_kernel<W, 16, RESID>;
     default: return nullptr;
   }
 }
@@ -263,10 +280,14 @@ size_t scan_smem(int G, int rt) {
   return sizeof(float) * ((size_t)G * rt + (size_t)SCAN_PARTS * rt * SCAN_COLS);
 }
 
-// The instantiation for row tile rt and W_hh storage, with the dynamic
-// shared memory it needs allowed; nullptr for a tile it does not have.
-cudaError_t scan_kernel(int rt, int whh_bf16, int G, const void** fn, size_t* smem) {
-  *fn = whh_bf16 ? scan_kernel_rt<__nv_bfloat16>(rt) : scan_kernel_rt<float>(rt);
+// The instantiation for row tile rt, W_hh storage and the residual flag,
+// with the dynamic shared memory it needs allowed; nullptr for a tile it
+// does not have.
+cudaError_t scan_kernel(int rt, int whh_bf16, int resid, int G, const void** fn, size_t* smem) {
+  if (resid)
+    *fn = whh_bf16 ? scan_kernel_rt<__nv_bfloat16, true>(rt) : scan_kernel_rt<float, true>(rt);
+  else
+    *fn = whh_bf16 ? scan_kernel_rt<__nv_bfloat16, false>(rt) : scan_kernel_rt<float, false>(rt);
   if (*fn == nullptr || G < 1) return cudaErrorInvalidValue;
   *smem = scan_smem(G, rt);
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
@@ -275,13 +296,13 @@ cudaError_t scan_kernel(int rt, int whh_bf16, int G, const void** fn, size_t* sm
 }  // namespace
 
 // K10's launch geometry on the current device at width G, W_hh in bf16
-// (whh_bf16 = 1) or f32: `rows`, the largest row tile (16, 8, 4, 2 or 1)
+// (whh_bf16 = 1) or f32, with the residual stores (resid = 1) or not: `rows`, the largest row tile (16, 8, 4, 2 or 1)
 // whose shared memory a block may have, and `blocks`, how many blocks of
 // that tile the device holds at once (what a cooperative launch may ask
 // for; a smaller tile needs less and fits as many).  rows = 0 where not even
 // one row of h fits.  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
-extern "C" int umx_lstm_scan_capacity(int G, int whh_bf16, int* rows, int* blocks) {
+extern "C" int umx_lstm_scan_capacity(int G, int whh_bf16, int resid, int* rows, int* blocks) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
   *rows = 0;
   *blocks = 0;
@@ -299,7 +320,7 @@ extern "C" int umx_lstm_scan_capacity(int G, int whh_bf16, int* rows, int* block
     const void* fn = nullptr;
     size_t smem = 0;
     int per_sm = 0;
-    e = scan_kernel(rt, whh_bf16, G, &fn, &smem);
+    e = scan_kernel(rt, whh_bf16, resid, G, &fn, &smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, SCAN_THREADS, smem);
     if (e != cudaSuccess) return (int)e;
@@ -309,6 +330,30 @@ extern "C" int umx_lstm_scan_capacity(int G, int whh_bf16, int* rows, int* block
   }
   return (int)cudaSuccess;
 }
+
+namespace {
+
+int scan_launch(const float* xp, const void* whh, int whh_bf16, const float* h0, float* c,
+                float* hs, float* hT, float* gates, float* cs, void* hx, int T, int R, int B,
+                int G, int r0, int nr, int b0, int nb, int rt, unsigned tag0, void* stream) {
+  if (G < 1 || T < 1 || B < 1 || nb < 1 || nb > rt || rt > SCAN_ROWS || b0 < 0 ||
+      b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  cudaError_t e = scan_kernel(rt, whh_bf16, gates != nullptr, G, &fn, &smem);
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
+  void* args[] = {&xp, &whh, &h0, &c, &hs, &hT, &gates, &cs, &hxp, &T, &R, &B,
+                  &b0, &nb, &G, &r0, &tag0};
+  const dim3 grid((G + SCAN_UNITS - 1) / SCAN_UNITS, nr);
+  e = cudaLaunchCooperativeKernel(fn, grid, dim3(SCAN_THREADS), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // K10: one launch, all T steps of chains [r0, r0 + nr) and rows
 // [b0, b0 + nb) of each, nb <= rt <= 16, rt a power of two.  `c` holds c0 on
@@ -320,19 +365,17 @@ extern "C" int umx_lstm_scan(const float* xp, const void* whh, int whh_bf16, con
                              float* c, float* hs, float* hT, void* hx, int T, int R, int B, int G,
                              int r0, int nr, int b0, int nb, int rt, unsigned tag0,
                              void* stream) {
-  if (G < 1 || T < 1 || B < 1 || nb < 1 || nb > rt || rt > SCAN_ROWS || b0 < 0 ||
-      b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R)
-    return (int)cudaErrorInvalidValue;
-  const void* fn = nullptr;
-  size_t smem = 0;
-  cudaError_t e = scan_kernel(rt, whh_bf16, G, &fn, &smem);
-  if (e != cudaSuccess) return (int)e;
-  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
-  void* args[] = {&xp, &whh, &h0, &c, &hs, &hT, &hxp, &T, &R, &B,
-                  &b0, &nb, &G, &r0, &tag0};
-  const dim3 grid((G + SCAN_UNITS - 1) / SCAN_UNITS, nr);
-  e = cudaLaunchCooperativeKernel(fn, grid, dim3(SCAN_THREADS), args, smem,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return scan_launch(xp, whh, whh_bf16, h0, c, hs, hT, nullptr, nullptr, hx, T, R, B, G, r0, nr,
+                     b0, nb, rt, tag0, stream);
+}
+
+// K10 with the residual stores: umx_lstm_scan plus the activated gates
+// (T, R*B, 4G) and c (T, R*B, G) of every step of those chains and rows.
+extern "C" int umx_lstm_scan_train(const float* xp, const void* whh, int whh_bf16,
+                                   const float* h0, float* c, float* hs, float* hT, float* gates,
+                                   float* cs, void* hx, int T, int R, int B, int G, int r0,
+                                   int nr, int b0, int nb, int rt, unsigned tag0, void* stream) {
+  if (gates == nullptr || cs == nullptr) return (int)cudaErrorInvalidValue;
+  return scan_launch(xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb,
+                     rt, tag0, stream);
 }

@@ -1,0 +1,387 @@
+// The reverse-time float32 sweep of one BLSTM layer, all chains at once
+// (K11): the backward of K10 (lstm_scan.cu).
+//
+// Replaces no Pallas kernel: it ports what JAX's autodiff makes of the
+// lax.scan step of umx_tpu/models/umx.py:_bilstm_layer (lstm_impl="scan",
+// which the JAX trainer differentiates).  A plain loop of torch.bmm would
+// put T launches a layer on the card's training path; this is one launch a
+// layer.
+//
+// Contract (K10's layouts; rows chain-major, row = r*B + b).  From the
+// residuals of K10's forward with its flag: gates (T, RB, 4G) activated
+// i|f|g|o, cs (T, RB, G), and c0 (RB, G); W_hh transposed, wt (R, 4G, G),
+// in its stored dtype (f32, or bf16 upcast exactly); the cotangents
+// dhs (T, RB, G), dhT (RB, G) and dcT (in `dc`).  Per step, t = T-1 ... 0,
+// cprev = cs[t-1] (c0 at t = 0), in the plain version's order
+// (ops/lstm_cuda.py:lstm_scan_bwd_step_plain), every product rounded on
+// its own (no contraction into an FMA):
+//   dh  = dh_carry + dhs[t];  tc = tanh(cs[t]);  do = dh tc
+//   dct = dc + (dh o)(1 - tc tc)
+//   dg  = [((dct g) i)(1-i), ((dct cprev) f)(1-f), (dct i)(1-g g), (do o)(1-o)]
+//   dxp[t] = dg;  dc = dct f;  dh_carry = dg . W_hh[r]^T   (f32 FMA, all 4G)
+// Outputs dxp (T, RB, 4G), dh0 (RB, G) (the product after step 0) and dc0
+// (in `dc`), all f32; nothing is rounded to bf16 (this is the scan's VJP,
+// not K5's).  The weight gradient, sum over t, b of h_{t-1}^T dxp_t, is a
+// plain f32 matrix product outside the sweep (torch.bmm in the wrapper's
+// caller), as JAX leaves it to XLA.  Any G >= 1 and any B.
+//
+// What bounds it on the H100: what bounds K10.  The T steps depend on each
+// other, and a step needs all of W_hh (4 MiB a chain in f32 at G 512,
+// 33.5 MB for UMX-L's 8 chains: in the 50 MB L2, not in the register file)
+// against a few rows of dg, so W_hh is read from L2 every step.  The
+// product contracts over the 4G gate columns and yields G units, so where
+// K10's exchange carries h (G a row), a step here needs every gate
+// cotangent of the row (4G) before it can form dh.
+//
+// The form: K10's.  ONE cooperative launch runs all T steps of all chains
+// and up to 16 rows per chain; a chain is split over ceil(G/32) blocks of
+// 512 threads, a block owns 32 hidden units and their 128 gate columns.
+// The wrapper hands the kernel W_hh transposed, so that the 32 units of a
+// block are 32 neighbouring words of one row of wt: a warp reads one
+// 128-byte line a column, and dg is read from shared memory as K10 reads h
+// (one broadcast a column, four rows a load).  Every (unit, row) sum has
+// one fixed order, whatever B, the row group or what runs beside it: a
+// row is bit-equal to itself run alone.
+//
+// The exchange of a step, through L2 in K10's 64-bit words (an f32 value
+// and the step's tag in one store, polled until the tag matches,
+// double-buffered by step parity, a poll that lasts seconds traps): each
+// block multiplies its own 128 columns of dg against W_hh for every unit
+// of the chain (a thread owns one unit; the units of the chain are spread
+// over the 16 warps) and publishes those G partial sums; a block then
+// reads the partials of its 32 units from every block of the chain and
+// adds them in block order.  Words per row and step: G written and G read
+// a block.  (Publishing dg itself instead, 4G words read a block and row,
+// measured slower on the H100: PERF.md, K11.)
+//
+// Rows beyond a launch's 16 and chains beyond what the card holds at once
+// are further launches of the same kernel, planned by the wrapper; tag0
+// keeps the tags of a launch unique among the launches that share the
+// exchange buffer.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int SB_THREADS = 512;
+constexpr int SB_UNITS = 32;                        // hidden units a block owns
+constexpr int SB_COLS = 4 * SB_UNITS;               // its gate columns
+constexpr int SB_WARPS = SB_THREADS / 32;           // 16
+constexpr int SB_ROWS = 16;                         // rows per chain in one launch, at most
+constexpr int SB_POLL = 4;                          // exchange words a thread has in flight
+constexpr int SB_UNROLL = 8;                        // W_hh loads a thread has in flight
+constexpr unsigned SB_MAX_POLLS = 1u << 24;
+
+__device__ __forceinline__ float load_w(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_w(const __nv_bfloat16* p) {
+  // a bf16 value is the upper half of its f32 value: exact
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// acc[b] += w * d[b] for the RT rows of one column, d column-major in
+// shared memory (the same order of operations at every RT)
+template <int RT>
+__device__ __forceinline__ void fma_rows(float (&acc)[RT], float w, const float* d) {
+  if constexpr (RT % 4 == 0) {
+#pragma unroll
+    for (int b = 0; b < RT; b += 4) {
+      const float4 d4 = *reinterpret_cast<const float4*>(d + b);
+      acc[b] = __fmaf_rn(w, d4.x, acc[b]);
+      acc[b + 1] = __fmaf_rn(w, d4.y, acc[b + 1]);
+      acc[b + 2] = __fmaf_rn(w, d4.z, acc[b + 2]);
+      acc[b + 3] = __fmaf_rn(w, d4.w, acc[b + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < RT; ++b) acc[b] = __fmaf_rn(w, d[b], acc[b]);
+  }
+}
+
+// acc[b] += sum over columns c in [c_lo, c_hi) of wt[c * G] * d[c * RT + b],
+// in ascending c; wt points at one unit's entry of the first column
+template <typename W, int RT>
+__device__ __forceinline__ void dot_cols(float (&acc)[RT], const W* wt, int G, int c_lo,
+                                         int c_hi, const float* d) {
+  int c = c_lo;
+  for (; c + SB_UNROLL <= c_hi; c += SB_UNROLL) {
+    float w[SB_UNROLL];
+#pragma unroll
+    for (int e = 0; e < SB_UNROLL; ++e) w[e] = load_w(wt + (size_t)(c + e) * G);
+#pragma unroll
+    for (int e = 0; e < SB_UNROLL; ++e) fma_rows<RT>(acc, w[e], d + (c + e) * RT);
+  }
+  for (; c < c_hi; ++c) fma_rows<RT>(acc, load_w(wt + (size_t)c * G), d + c * RT);
+}
+
+// Poll `n` exchange words at src[idx(i)] until each carries tag `want`,
+// and hand each value to put(i, value).  Every thread takes words
+// i = tid, tid + 512, ...; SB_POLL words in flight a thread.
+template <typename Idx, typename Put>
+__device__ __forceinline__ void poll_words(const volatile unsigned long long* src, int n,
+                                           unsigned want, Idx idx, Put put) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += SB_POLL * SB_THREADS) {
+    unsigned long long v[SB_POLL];
+#pragma unroll
+    for (int e = 0; e < SB_POLL; ++e) {
+      const int i = i0 + e * SB_THREADS;
+      v[e] = i < n ? src[idx(i)] : 0ull;
+    }
+    unsigned polls = 0;
+#pragma unroll
+    for (int e = 0; e < SB_POLL; ++e) {
+      const int i = i0 + e * SB_THREADS;
+      if (i < n) {
+        while ((unsigned)(v[e] >> 32) != want) {
+          if (++polls > SB_MAX_POLLS) __trap();
+          v[e] = src[idx(i)];
+        }
+        put(i, __uint_as_float((uint32_t)v[e]));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned long long tagged(unsigned tag, float v) {
+  return ((unsigned long long)tag << 32) | (unsigned long long)__float_as_uint(v);
+}
+
+// grid = (ceil(G/32), chains of this launch), SB_THREADS threads.  RT: the
+// row tile, a power of two >= nb.  Dynamic shared memory (floats): dg of
+// the block's 128 columns (128 x RT, column-major) and the chain's
+// partials of the block's 32 units (nblk x RT x 32).  hx: exchange words
+// (R, 2, nblk, SB_ROWS, G), zeroed before the layer's first launch.
+template <typename W, int RT>
+__global__ void __launch_bounds__(SB_THREADS, 1)
+lstm_scan_bwd_kernel(const float* __restrict__ gates,  // (T, RB, 4G)
+                     const float* __restrict__ cs,     // (T, RB, G)
+                     const float* __restrict__ c0,     // (RB, G)
+                     const W* __restrict__ wt,         // (R, 4G, G)
+                     const float* __restrict__ dhs,    // (T, RB, G)
+                     const float* __restrict__ dhT,    // (RB, G)
+                     float* __restrict__ dc,           // (RB, G): dcT in, dc0 out
+                     float* __restrict__ dxp,          // (T, RB, 4G)
+                     float* __restrict__ dh0,          // (RB, G)
+                     unsigned long long* hx, int T, int R, int B, int b0, int nb, int G, int r0,
+                     unsigned tag0) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int r = r0 + blockIdx.y;
+  const int blk = blockIdx.x;
+  const int nblk = gridDim.x;
+  const int u0 = blk * SB_UNITS;
+  const int G4 = 4 * G;
+  const size_t RB = (size_t)R * B;
+  const W* wt_r = wt + (size_t)r * G4 * G;
+
+  // dg_s[(q * 32 + j) * RT + b] over the block's own columns, then
+  // sum_s[(blk' * RT + b) * 32 + j]
+  float* dg_s = smem;
+  float* sum_s = smem + (size_t)SB_COLS * RT;
+
+  // the cell's role: unit u0 + cj of row cb
+  const int cj = lane;
+  const int cb = warp;
+  const int u = u0 + cj;
+  const bool cell_ok = cb < nb && u < G;
+  const size_t row = (size_t)r * B + b0 + cb;
+
+  // columns (and rows) that are never written stay zero
+  for (int i = tid; i < SB_COLS * RT; i += SB_THREADS) dg_s[i] = 0.0f;
+
+  float dcl = 0.0f, carry = 0.0f;
+  float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f, cst = 0.0f, cprev = 0.0f, dhst = 0.0f;
+  // this step's residuals and cotangent: they do not depend on the carry
+  auto load_step = [&](int t) {
+    if (cell_ok) {
+      const float* g4 = gates + ((size_t)t * RB + row) * G4 + u;
+      gi = g4[0];
+      gf = g4[G];
+      gg = g4[2 * G];
+      go = g4[3 * G];
+      cst = cs[((size_t)t * RB + row) * G + u];
+      cprev = t > 0 ? cs[((size_t)(t - 1) * RB + row) * G + u] : c0[row * G + u];
+      dhst = dhs[((size_t)t * RB + row) * G + u];
+    }
+  };
+  if (cell_ok) {
+    dcl = dc[row * G + u];
+    carry = dhT[row * G + u];
+  }
+  load_step(T - 1);
+  __syncthreads();
+
+  unsigned long long* hx_r = hx + (size_t)r * 2 * SB_ROWS * nblk * G;
+
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i;
+    const int par = i & 1;
+    const unsigned tag = tag0 + (unsigned)i + 1u;
+
+    // the cell: dg of this unit's four columns, dxp, the dc carry
+    float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (cell_ok) {
+      const float tc = tanhf(cst);
+      const float dh = __fadd_rn(carry, dhst);
+      const float dov = __fmul_rn(dh, tc);
+      const float dct =
+          __fadd_rn(dcl, __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+      dg[0] = __fmul_rn(__fmul_rn(__fmul_rn(dct, gg), gi), __fsub_rn(1.0f, gi));
+      dg[1] = __fmul_rn(__fmul_rn(__fmul_rn(dct, cprev), gf), __fsub_rn(1.0f, gf));
+      dg[2] = __fmul_rn(__fmul_rn(dct, gi), __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+      dg[3] = __fmul_rn(__fmul_rn(dov, go), __fsub_rn(1.0f, go));
+      dcl = __fmul_rn(dct, gf);
+      float* dx = dxp + ((size_t)t * RB + row) * G4 + u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dx[(size_t)q * G] = dg[q];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dg_s[(q * SB_UNITS + cj) * RT + cb] = dg[q];
+    }
+    if (t > 0) load_step(t - 1);  // in flight while the exchange runs
+
+    __syncthreads();  // the block's dg is in
+    // every unit of the chain against this block's columns: warp w takes
+    // the units [32 kt, 32 kt + 32) for kt = w, w + 16, ...
+    const int nj = min(SB_UNITS, G - u0);
+    for (int kt = warp; kt < nblk; kt += SB_WARPS) {
+      const int k = kt * SB_UNITS + lane;
+      float acc[RT];
+#pragma unroll
+      for (int b = 0; b < RT; ++b) acc[b] = 0.0f;
+      if (k < G) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          dot_cols<W, RT>(acc, wt_r + (size_t)(q * G + u0) * G + k, G, 0, nj,
+                          dg_s + q * SB_UNITS * RT);
+        volatile unsigned long long* dst =
+            hx_r + (((size_t)par * nblk + blk) * SB_ROWS) * G + k;
+#pragma unroll
+        for (int b = 0; b < RT; ++b)
+          if (b < nb) dst[(size_t)b * G] = tagged(tag, acc[b]);
+      }
+    }
+    // the partials of this block's units from every block of the chain
+    const volatile unsigned long long* src = hx_r + (size_t)par * nblk * SB_ROWS * G;
+    const int per = nb * SB_UNITS;
+    poll_words(src, nblk * per, tag,
+               [&](int w) {
+                 const int p = w / per;
+                 const int rem = w - p * per;
+                 const int b = rem / SB_UNITS;
+                 const int j = rem - b * SB_UNITS;
+                 return ((size_t)p * SB_ROWS + b) * G + min(u0 + j, G - 1);
+               },
+               [&](int w, float v) {
+                 const int p = w / per;
+                 const int rem = w - p * per;
+                 sum_s[(p * RT) * SB_UNITS + rem] = v;
+               });
+    __syncthreads();
+    if (cell_ok) {
+      float s = sum_s[cb * SB_UNITS + cj];
+      for (int p = 1; p < nblk; ++p) s = __fadd_rn(s, sum_s[(p * RT + cb) * SB_UNITS + cj]);
+      carry = s;
+    }
+  }
+
+  if (cell_ok) {
+    dh0[row * G + u] = carry;
+    dc[row * G + u] = dcl;
+  }
+}
+
+template <typename W>
+const void* bwd_kernel_rt(int rt) {
+  switch (rt) {
+    case 1: return (const void*)lstm_scan_bwd_kernel<W, 1>;
+    case 2: return (const void*)lstm_scan_bwd_kernel<W, 2>;
+    case 4: return (const void*)lstm_scan_bwd_kernel<W, 4>;
+    case 8: return (const void*)lstm_scan_bwd_kernel<W, 8>;
+    case 16: return (const void*)lstm_scan_bwd_kernel<W, 16>;
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory at row tile rt (see the kernel)
+size_t bwd_smem(int G, int rt) {
+  const size_t nblk = (G + SB_UNITS - 1) / SB_UNITS;
+  return sizeof(float) * ((size_t)SB_COLS * rt + nblk * rt * SB_UNITS);
+}
+
+cudaError_t bwd_kernel(int rt, int whh_bf16, int G, const void** fn, size_t* smem) {
+  *fn = whh_bf16 ? bwd_kernel_rt<__nv_bfloat16>(rt) : bwd_kernel_rt<float>(rt);
+  if (*fn == nullptr || G < 1) return cudaErrorInvalidValue;
+  *smem = bwd_smem(G, rt);
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+}  // namespace
+
+// K11's launch geometry on the current device at width G, W_hh in bf16
+// (whh_bf16 = 1) or f32: `rows`, the largest row tile (16, 8, 4, 2 or 1)
+// whose shared memory a block may have, and `blocks`, how many blocks of
+// that tile the device holds at once.
+// rows = 0 where not even one row fits.  Returns the first CUDA error;
+// cudaErrorInvalidConfiguration where the device has no cooperative launch.
+extern "C" int umx_lstm_scan_bwd_capacity(int G, int whh_bf16, int* rows, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, smem_max = 0;
+  *rows = 0;
+  *blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorInvalidConfiguration;
+  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  for (int rt = SB_ROWS; rt >= 1; rt /= 2) {
+    if (bwd_smem(G, rt) > (size_t)smem_max) continue;
+    const void* fn = nullptr;
+    size_t smem = 0;
+    int per_sm = 0;
+    e = bwd_kernel(rt, whh_bf16, G, &fn, &smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, SB_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    *rows = rt;
+    *blocks = per_sm * sms;
+    return (int)cudaSuccess;
+  }
+  return (int)cudaSuccess;
+}
+
+// K11: one launch, the whole reverse sweep of chains [r0, r0 + nr) and rows
+// [b0, b0 + nb) of each, nb <= rt <= 16, rt a power of two.  `wt` is W_hh
+// transposed, (R, 4G, G).  `dc` holds dcT on entry and dc0 on return for
+// those rows.  `hx` is the exchange buffer (R * 2 * ceil(G/32) * 16 * G
+// words), zeroed before the layer's first launch; `tag0` is the number of
+// steps earlier launches ran on it.
+// Returns the first CUDA error.
+extern "C" int umx_lstm_scan_bwd(const float* gates, const float* cs, const float* c0,
+                                 const void* wt, int whh_bf16, const float* dhs,
+                                 const float* dhT, float* dc, float* dxp, float* dh0, void* hx,
+                                 int T, int R, int B, int G, int r0, int nr, int b0, int nb,
+                                 int rt, unsigned tag0, void* stream) {
+  if (G < 1 || T < 1 || B < 1 || nb < 1 || nb > rt || rt > SB_ROWS || b0 < 0 ||
+      b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  cudaError_t e = bwd_kernel(rt, whh_bf16, G, &fn, &smem);
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
+  void* args[] = {&gates, &cs, &c0, &wt, &dhs, &dhT, &dc, &dxp, &dh0, &hxp, &T, &R, &B,
+                  &b0, &nb, &G, &r0, &tag0};
+  const dim3 grid((G + SB_UNITS - 1) / SB_UNITS, nr);
+  e = cudaLaunchCooperativeKernel(fn, grid, dim3(SB_THREADS), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}

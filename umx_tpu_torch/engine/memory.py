@@ -41,6 +41,7 @@ from dataclasses import fields
 import torch
 
 from umx_tpu_torch.config import EngineConfig, storage_dtype
+from umx_tpu_torch.models.umx import resolve_lstm_impl
 from umx_tpu_torch.ops.lstm_cuda import resident_exchange_words, scan_exchange_words
 
 # Slack on the segment-transient share of the boundary model, per iSTFT
@@ -165,10 +166,12 @@ def _dequant_transient_bytes(params) -> int:
 
 def _lstm_exchange_bytes(cfg: EngineConfig) -> int:
     """The recurrence kernel's exchange buffer (``ops/lstm_cuda.py``): one
-    per layer call, whatever the rows; K10's (``lstm_impl="scan"``) holds
-    one f32 value of h a word, K1's two bf16 values."""
+    per layer call, whatever the rows; K10's (``lstm_impl="scan"``, and
+    "auto" where K1 cannot hold the width) holds one f32 value of h a word,
+    K1's two bf16 values."""
     m = cfg.model
-    words = scan_exchange_words if m.lstm_impl == "scan" else resident_exchange_words
+    scan = resolve_lstm_impl(m.lstm_impl, m.lstm_hidden) == "scan"
+    words = scan_exchange_words if scan else resident_exchange_words
     return 8 * words(m.n_targets * 2, m.lstm_hidden)
 
 

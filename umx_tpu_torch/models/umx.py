@@ -14,7 +14,9 @@ training kernels when a gradient is wanted, or with
 ``ModelConfig.lstm_impl="pallas"`` as one per-target kernel launch per
 layer and batch row, or with ``lstm_impl="scan"`` as the float32
 recurrence kernel (f32 h against W_hh in its stored dtype), one launch per
-layer.  With quantized parameters
+layer, differentiable through its reverse sweep; ``"auto"`` takes that
+kernel where the merged one cannot hold the width (:func:`resolve_lstm_impl`).
+With quantized parameters
 (:func:`quantized_params_from_ggml`) the fc and input-projection weights
 are ``QTensor`` s whose dequantization is fused into the matmul
 (``ops/qmatmul.py``) and ``lstm_hh_w`` is dense bfloat16, which the
@@ -36,6 +38,7 @@ import torch
 
 from umx_tpu_torch.config import TARGETS, ModelConfig
 from umx_tpu_torch.ops.lstm_cuda import (
+    RESIDENT_G_MAX,
     lstm_layer_merged_batched,
     lstm_layer_pertarget_batched,
     lstm_layer_scan_batched,
@@ -389,6 +392,20 @@ def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig):
     return torch.relu(x * params.output_scale[:, None] + params.output_mean[:, None])
 
 
+def resolve_lstm_impl(impl: str, G: int) -> str:
+    """The recurrence ``impl`` runs at width G (``ModelConfig.lstm_hidden``):
+    ``"auto"`` is the merged kernel (K1, and K4-K6 under a gradient) where it
+    holds G (G <= ``RESIDENT_G_MAX`` and G % 8 == 0), and the float32
+    recurrence ``"scan"`` (K10, K11) where it does not, on the CPU as on the
+    GPU, so both compute one program (the JAX package's ``"auto"`` is its
+    scan at every width off a TPU).  Every other value is itself: a merged
+    kernel named by ``"pallas_merged"`` still raises on the card at such a
+    width."""
+    if impl == "auto" and (G > RESIDENT_G_MAX or G % 8):
+        return "scan"
+    return impl
+
+
 def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: ModelConfig):
     """The 3-layer bidirectional LSTM over a batch, in the training
     recurrence's layout (``umx_tpu.models.umx.umx_recurrence_batched``).
@@ -397,15 +414,18 @@ def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: Mod
     (B, T#, T, 2G), new state).  Per layer: the (B, T#, D, T, in) stack of
     forward and time-reversed rows, the input projection as one f32
     batched matmul plus both biases, the recurrence, and the backward
-    direction re-reversed.  ``cfg.lstm_impl``: "auto"/"pallas_merged" run
-    the merged kernel over all T#·D chains × B rows; "pallas" runs the
-    per-target kernel once per batch row; "scan" runs the float32
+    direction re-reversed.  ``cfg.lstm_impl`` (:func:`resolve_lstm_impl`):
+    "auto"/"pallas_merged" run the merged kernel over all T#·D chains × B
+    rows; "pallas" runs the per-target kernel once per batch row; "scan"
+    (and "auto" where the merged kernel cannot hold G) runs the float32
     recurrence over all chains × rows, W_hh in its stored dtype (the
-    quantized parameters' hh is dense bf16).  "pallas" and "scan" raise
-    where a gradient is wanted, which only the merged kernels provide (the
-    trainer's loss lowers "pallas" to "auto" and refuses "scan")."""
+    quantized parameters' hh is dense bf16).  Where a gradient is wanted the
+    merged and the float32 recurrences run their training kernels; "pallas"
+    raises (the trainer's loss lowers it to "scan", as the JAX trainer
+    does)."""
+    impl = resolve_lstm_impl(cfg.lstm_impl, cfg.lstm_hidden)
     layer_fn = {"pallas": lstm_layer_pertarget_batched,
-                "scan": lstm_layer_scan_batched}.get(cfg.lstm_impl, lstm_layer_merged_batched)
+                "scan": lstm_layer_scan_batched}.get(impl, lstm_layer_merged_batched)
     lstm_in = x1_b
     hTs, cTs = [], []
     for layer in range(cfg.n_lstm_layers):

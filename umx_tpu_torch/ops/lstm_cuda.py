@@ -1,7 +1,8 @@
 """The BLSTM recurrence kernels and their plain PyTorch versions: the
 merged recurrence and its backward (``csrc/lstm_merged.cu``,
-``csrc/lstm_train.cu``) and the per-target recurrence
-(``csrc/lstm_pertarget.cu``).
+``csrc/lstm_train.cu``), the per-target recurrence
+(``csrc/lstm_pertarget.cu``), and the float32 recurrence and its backward
+(``csrc/lstm_scan.cu``, ``csrc/lstm_scan_train.cu``).
 
 Every entry has the contract of the TPU kernel it replaces
 (``umx_tpu/ops/lstm_pallas.py``): R independent chains of B rows each,
@@ -26,14 +27,23 @@ backward the dh/dc carries) in f32.
   ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
   h against W_hh in its stored dtype (f32, or bf16 upcast exactly), f32
   FMA on the CUDA cores, any G; one launch per layer, W_hh read from L2
-  each step.  Inference only.
+  each step.
+- K10 with residuals :func:`lstm_scan_train_fwd`: the same kernel with a
+  flag that also writes the activated gates and c per step, as K4 is K1.
+- K11 :func:`lstm_scan_bwd_step` (``csrc/lstm_scan_train.cu``): the
+  reverse-time float32 sweep, the scan's VJP (no bf16 anywhere), one
+  launch per layer in K10's form, W_hhᵀ read from L2 each step; the weight
+  gradient :func:`lstm_scan_dw` is a plain f32 ``torch.bmm``, as the JAX
+  package leaves it to XLA.
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches its kernel or raises, and adds one to its ``launches`` count per
 kernel run.  :class:`LSTMMergedTrain` is the ``torch.autograd.Function``
-over K4 and K5 + K6; :func:`lstm_layer_merged_batched` takes it when a
-gradient is wanted and K1 otherwise, as the JAX package's custom VJP runs
-the inference kernel for primal-only evaluation.
+over K4 and K5 + K6, :class:`LSTMScanTrain` the one over K10 with
+residuals and K11 + the f32 dW; :func:`lstm_layer_merged_batched` and
+:func:`lstm_layer_scan_batched` take them when a gradient is wanted and
+K1 / K10 otherwise, as the JAX package's custom VJP runs the inference
+kernel for primal-only evaluation.
 """
 
 from __future__ import annotations
@@ -73,50 +83,32 @@ def _cell(pre, c, G: int):
     return (i, f, g, o), c, o * torch.tanh(c)
 
 
-def lstm_merged_plain(xp, whh, h0, c0, B: int):
-    """Plain PyTorch recurrence: one batched matmul per timestep.
-
-    xp (T, R*B, 4G) f32, whh (R, G, 4G) bf16, h0/c0 (R*B, G) f32 →
-    (hs (T, R*B, G), hT, cT).  h is rounded to bf16 before each product
-    and the bf16 weights are exact in f32, so every product is exact and
-    only the f32 summation order differs from the kernel."""
-    T, RB, _ = xp.shape
-    G = whh.shape[1]
-    w = whh.float()
-    h, c = h0, c0
-    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
-    for t in range(T):
-        pre = xp[t] + _hh_product(h, w, B)
-        _, c, h = _cell(pre, c, G)
-        hs[t] = h
-    return hs, h, c
-
-
-def lstm_merged_train_fwd_plain(xp, whh, h0, c0, B: int):
-    """:func:`lstm_merged_plain` plus the residuals of the backward:
-    returns (hs, hT, cT, gates (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G))."""
+def _recurrence_plain(xp, whh, h0, c0, B: int, round_h: bool, residuals: bool):
+    """The plain recurrence loop of K1/K4 (``round_h``) and K10: one batched
+    matmul per timestep; with ``residuals`` also the activated gates and c
+    of every step."""
     T, RB, G4 = xp.shape
     G = whh.shape[1]
     w = whh.float()
     h, c = h0, c0
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
-    cs = torch.empty_like(hs)
-    gates = torch.empty((T, RB, G4), dtype=torch.float32, device=xp.device)
+    if residuals:
+        cs = torch.empty_like(hs)
+        gates = torch.empty((T, RB, G4), dtype=torch.float32, device=xp.device)
     for t in range(T):
-        pre = xp[t] + _hh_product(h, w, B)
+        pre = xp[t] + _hh_product(h, w, B, round_h)
         act, c, h = _cell(pre, c, G)
-        gates[t] = torch.cat(act, dim=1)
-        cs[t] = c
+        if residuals:
+            gates[t] = torch.cat(act, dim=1)
+            cs[t] = c
         hs[t] = h
-    return hs, h, c, gates, cs
+    return (hs, h, c, gates, cs) if residuals else (hs, h, c)
 
 
-def lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
-    """Plain reverse-time sweep, in the TPU backward kernel's operation
-    order: returns (dxp (T, R*B, 4G), dh0, dc0), all f32.  The gate
-    cotangents are rounded to bf16 before their product with W_hhᵀ and the
-    dh/dc carries stay f32 (autograd through :func:`lstm_merged_plain`
-    would round the dh carry to bf16 at every step instead)."""
+def _sweep_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int, round_dg: bool):
+    """The plain reverse-time sweep of K5 (``round_dg``: the gate
+    cotangents rounded to bf16 before their product with W_hhᵀ) and K11,
+    in the TPU backward kernel's operation order → (dxp, dh0, dc0)."""
     T, RB, G4 = gates.shape
     R, G = whh.shape[0], whh.shape[1]
     wt = whh.float().transpose(1, 2)  # (R, 4G, G)
@@ -137,20 +129,40 @@ def lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
             do * o * (1.0 - o),
         ], dim=1)
         dxp[t] = dg
-        dh = torch.bmm(_bf16(dg).view(R, B, G4), wt).view(RB, G)
+        dh = torch.bmm((_bf16(dg) if round_dg else dg).view(R, B, G4), wt).view(RB, G)
         dc = dct * f
     return dxp, dh, dc
+
+
+def lstm_merged_plain(xp, whh, h0, c0, B: int):
+    """Plain PyTorch recurrence: one batched matmul per timestep.
+
+    xp (T, R*B, 4G) f32, whh (R, G, 4G) bf16, h0/c0 (R*B, G) f32 →
+    (hs (T, R*B, G), hT, cT).  h is rounded to bf16 before each product
+    and the bf16 weights are exact in f32, so every product is exact and
+    only the f32 summation order differs from the kernel."""
+    return _recurrence_plain(xp, whh, h0, c0, B, round_h=True, residuals=False)
+
+
+def lstm_merged_train_fwd_plain(xp, whh, h0, c0, B: int):
+    """:func:`lstm_merged_plain` plus the residuals of the backward:
+    returns (hs, hT, cT, gates (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G))."""
+    return _recurrence_plain(xp, whh, h0, c0, B, round_h=True, residuals=True)
+
+
+def lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """Plain reverse-time sweep, in the TPU backward kernel's operation
+    order: returns (dxp (T, R*B, 4G), dh0, dc0), all f32.  The gate
+    cotangents are rounded to bf16 before their product with W_hhᵀ and the
+    dh/dc carries stay f32 (autograd through :func:`lstm_merged_plain`
+    would round the dh carry to bf16 at every step instead)."""
+    return _sweep_plain(gates, cs, c0, whh, dhs, dhT, dcT, B, round_dg=True)
 
 
 def lstm_merged_dw_plain(hs, h0, dxp, B: int):
     """Plain weight gradient: dW[r] = Σ over t, b of bf16(h_{t-1})ᵀ bf16(dxp_t),
     h_{-1} = h0, f32 accumulation → (R, G, 4G)."""
-    T, RB, G = hs.shape
-    R, G4 = RB // B, dxp.shape[2]
-    hprev = torch.cat([h0[None], hs[:-1]])
-    hp = _bf16(hprev).view(T, R, B, G).permute(1, 0, 2, 3).reshape(R, T * B, G)
-    dg = _bf16(dxp).view(T, R, B, G4).permute(1, 0, 2, 3).reshape(R, T * B, G4)
-    return torch.bmm(hp.transpose(1, 2), dg)
+    return lstm_scan_dw(_bf16(hs), _bf16(h0), _bf16(dxp), B)
 
 
 def lstm_merged_bwd_plain(gates, cs, hs, h0, c0, whh, dhs, dhT, dcT, B: int):
@@ -475,9 +487,9 @@ class LSTMMergedTrain(torch.autograd.Function):
                 dc0 if need[3] else None, None)
 
 
-def _check_hh_dtype(hh_w):
+def _check_hh_dtype(hh_w, name: str = "hh_w"):
     if hh_w.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"hh_w must be float32 or bfloat16, got {hh_w.dtype}")
+        raise TypeError(f"{name} must be float32 or bfloat16, got {hh_w.dtype}")
 
 
 def lstm_pertarget_plain(x_proj, whh, h0, c0):
@@ -707,23 +719,41 @@ def scan_exchange_words(R: int, G: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_capacity(index: int, G: int, whh_bf16: bool) -> tuple[int, int]:
-    """(the largest row tile, the blocks of it held at once) of K10 at
-    width G, W_hh in bf16 or f32, on CUDA device ``index``, asked once."""
+def _scan_capacity(index: int, G: int, whh_bf16: bool, kernel: str = "K10") -> tuple[int, int]:
+    """(the largest row tile, the blocks of it held at once) of ``kernel``
+    ("K10", "K10r" with the residual stores, or "K11") at width G, W_hh in
+    bf16 or f32, on CUDA device ``index``, asked once."""
     import ctypes
 
     rows, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _build.library()
     with torch.cuda.device(index):
-        err = _build.library().umx_lstm_scan_capacity(
-            G, int(whh_bf16), ctypes.addressof(rows), ctypes.addressof(blocks))
+        if kernel == "K11":
+            err = lib.umx_lstm_scan_bwd_capacity(
+                G, int(whh_bf16), ctypes.addressof(rows), ctypes.addressof(blocks))
+        else:
+            err = lib.umx_lstm_scan_capacity(G, int(whh_bf16), int(kernel == "K10r"),
+                                             ctypes.addressof(rows), ctypes.addressof(blocks))
     if err == _CUDA_ERROR_INVALID_CONFIGURATION:
-        raise RuntimeError("K10: this device has no cooperative launch, which the "
+        raise RuntimeError(f"{kernel}: this device has no cooperative launch, which the "
                            "float32 recurrence needs")
-    _build.check(err, "umx_lstm_scan_capacity")
+    _build.check(err, f"{kernel} capacity")
     if rows.value < 1:
-        raise RuntimeError(f"umx_lstm_scan: one row of h (G = {G}) does not fit a block's "
-                           "shared memory on this device")
+        raise RuntimeError(f"{kernel}: one row (G = {G}) does not fit a block's shared memory "
+                           "on this device")
     return rows.value, blocks.value
+
+
+def _scan_plan(wrapper, kernel: str, ref, R: int, B: int, G: int, bf16: bool):
+    """The launches of one K10 / K11 layer, (r0, nr, b0, nb, row tile)
+    each, row groups outermost; leaves the form in ``wrapper.form`` as
+    (blocks per chain, blocks the device holds at once, chain groups, row
+    groups)."""
+    rows, capacity = _scan_capacity(ref.device.index, G, bf16, kernel)
+    chains = chain_groups(R, scan_blocks_per_chain(G), capacity, kernel)
+    groups = scan_row_groups(B, rows)
+    wrapper.form = (scan_blocks_per_chain(G), capacity, len(chains), len(groups))
+    return [(r0, nr, b0, nb, rt) for b0, nb, rt in groups for r0, nr in chains]
 
 
 def lstm_scan_plain(xp, whh, h0, c0, B: int):
@@ -733,16 +763,53 @@ def lstm_scan_plain(xp, whh, h0, c0, B: int):
 
     xp (T, R*B, 4G) f32, whh (R, G, 4G) f32 or bf16, h0/c0 (R*B, G) f32 →
     (hs (T, R*B, G), hT, cT)."""
-    T, RB, _ = xp.shape
-    G = whh.shape[1]
-    w = whh.float()
-    h, c = h0, c0
-    hs = torch.empty((T, RB, G), dtype=torch.float32, device=xp.device)
-    for t in range(T):
-        pre = xp[t] + _hh_product(h, w, B, round_h=False)
-        _, c, h = _cell(pre, c, G)
-        hs[t] = h
-    return hs, h, c
+    return _recurrence_plain(xp, whh, h0, c0, B, round_h=False, residuals=False)
+
+
+def lstm_scan_train_fwd_plain(xp, whh, h0, c0, B: int):
+    """:func:`lstm_scan_plain` plus the residuals of the backward: returns
+    (hs, hT, cT, gates (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G))."""
+    return _recurrence_plain(xp, whh, h0, c0, B, round_h=False, residuals=True)
+
+
+def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+    """K10 (``residuals`` False) or K10 with its residual stores on CUDA
+    tensors, or their plain versions on CPU tensors: the launches of one
+    layer over its chain and row groups, counted once in
+    ``wrapper.launches``."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
+    _check_hh_dtype(whh, "whh")
+    route = _check(xp, [
+        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, whh.dtype),
+        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        if residuals:
+            return lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
+        return lstm_scan_plain(xp, whh, h0, c0, B)
+    lib = _build.library()
+    dev = xp.device
+    bf16 = whh.dtype == torch.bfloat16
+    plan = _scan_plan(wrapper, "K10r" if residuals else "K10", xp, R, B, G, bf16)
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
+    hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    cT = c0.clone()  # the kernel updates c in place
+    hx = torch.zeros(scan_exchange_words(R, G), dtype=torch.int64, device=dev)
+    extra = ()
+    if residuals:
+        extra = (torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev),  # gates
+                 torch.empty((T, RB, G), dtype=torch.float32, device=dev))  # cs
+    entry = "umx_lstm_scan_train" if residuals else "umx_lstm_scan"
+    for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
+        err = getattr(lib, entry)(
+            xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(), cT.data_ptr(),
+            hs.data_ptr(), hT.data_ptr(), *(t.data_ptr() for t in extra), hx.data_ptr(),
+            T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(xp),
+        )
+        _build.check(err, entry)
+    wrapper.launches += 1
+    return (hs, hT, cT, *extra)
 
 
 def lstm_scan(xp, whh, h0, c0, B: int):
@@ -757,53 +824,145 @@ def lstm_scan(xp, whh, h0, c0, B: int):
     (blocks per chain, blocks the device holds at once, chain groups, row
     groups).  Increments ``lstm_scan.launches`` once per layer.  CPU
     tensors run :func:`lstm_scan_plain`."""
-    T, R, G = _dims(xp, whh, B)
-    RB = R * B
-    if whh.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"whh must be float32 or bfloat16, got {whh.dtype}")
-    route = _check(xp, [
-        ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, whh.dtype),
-        ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
-    ])
-    if route == "cpu":
-        return lstm_scan_plain(xp, whh, h0, c0, B)
-    lib = _build.library()
-    dev = xp.device
-    bf16 = whh.dtype == torch.bfloat16
-    rows, capacity = _scan_capacity(dev.index, G, bf16)
-    chains = chain_groups(R, scan_blocks_per_chain(G), capacity, "K10")
-    groups = scan_row_groups(B, rows)
-    plan = [(r0, nr, b0, nb, rt) for b0, nb, rt in groups for r0, nr in chains]
-    lstm_scan.form = (scan_blocks_per_chain(G), capacity, len(chains), len(groups))
-    hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
-    hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
-    cT = c0.clone()  # the kernel updates c in place
-    hx = torch.zeros(scan_exchange_words(R, G), dtype=torch.int64, device=dev)
-    for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
-        err = lib.umx_lstm_scan(
-            xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(), cT.data_ptr(),
-            hs.data_ptr(), hT.data_ptr(), hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt,
-            launched * T, _stream(xp),
-        )
-        _build.check(err, "umx_lstm_scan")
-    lstm_scan.launches += 1
-    return hs, hT, cT
+    return _scan_forward(lstm_scan, xp, whh, h0, c0, B, residuals=False)
 
 
 lstm_scan.launches = 0
 lstm_scan.form = None
 
 
+def lstm_scan_train_fwd(xp, whh, h0, c0, B: int):
+    """K10 with residuals: :func:`lstm_scan` plus (gates (T, R*B, 4G)
+    activated i|f|g|o, cs (T, R*B, G)).  The same kernel with the residual
+    stores compiled in: hs/hT/cT are :func:`lstm_scan`'s bits.  Leaves its
+    form in ``lstm_scan_train_fwd.form`` and counts
+    ``lstm_scan_train_fwd.launches`` once per layer."""
+    return _scan_forward(lstm_scan_train_fwd, xp, whh, h0, c0, B, residuals=True)
+
+
+lstm_scan_train_fwd.launches = 0
+lstm_scan_train_fwd.form = None
+
+
+def lstm_scan_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """Plain reverse-time float32 sweep, the VJP of :func:`lstm_scan_plain`
+    in :func:`lstm_merged_bwd_step_plain`'s operation order without any
+    bf16 rounding: returns (dxp (T, R*B, 4G), dh0, dc0), all f32, with
+    dh = dg · W_hhᵀ (W_hh upcast from its stored dtype)."""
+    return _sweep_plain(gates, cs, c0, whh, dhs, dhT, dcT, B, round_dg=False)
+
+
+def scan_bwd_exchange_words(R: int, G: int) -> int:
+    """64-bit words of K11's exchange buffer: per chain two steps of 16
+    rows of G partial sums of dh from each of the chain's blocks (each
+    block publishes its own columns' share of dg · W_hhᵀ for every unit)."""
+    return R * 2 * SCAN_ROWS * scan_blocks_per_chain(G) * G
+
+
+def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """K11: the reverse-time float32 sweep of one layer → (dxp
+    (T, R*B, 4G), dh0, dc0), all f32 (see ``csrc/lstm_scan_train.cu``).
+
+    gates (T, R*B, 4G), cs (T, R*B, G) from :func:`lstm_scan_train_fwd`;
+    c0, dhT, dcT (R*B, G) and dhs (T, R*B, G) f32; whh (R, G, 4G) f32 or
+    bf16, handed to the kernel transposed.  One cooperative launch runs all
+    T steps of all chains and up to 16 rows per chain; further rows and
+    chains are further launches.  Any G.  Leaves its form in
+    ``lstm_scan_bwd_step.form`` and counts ``lstm_scan_bwd_step.launches``
+    once per sweep.  CPU tensors run :func:`lstm_scan_bwd_step_plain`."""
+    T, R, G = _dims(gates, whh, B)
+    RB = R * B
+    _check_hh_dtype(whh, "whh")
+    route = _check(gates, [
+        ("gates", gates, gates.shape, torch.float32), ("cs", cs, (T, RB, G), torch.float32),
+        ("c0", c0, (RB, G), torch.float32), ("whh", whh, whh.shape, whh.dtype),
+        ("dhs", dhs, (T, RB, G), torch.float32), ("dhT", dhT, (RB, G), torch.float32),
+        ("dcT", dcT, (RB, G), torch.float32),
+    ])
+    if route == "cpu":
+        return lstm_scan_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    lib = _build.library()
+    dev = gates.device
+    bf16 = whh.dtype == torch.bfloat16
+    plan = _scan_plan(lstm_scan_bwd_step, "K11", gates, R, B, G, bf16)
+    wt = whh.transpose(1, 2).contiguous()  # (R, 4G, G): a block's units are neighbours
+    dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
+    hx = torch.zeros(scan_bwd_exchange_words(R, G), dtype=torch.int64, device=dev)
+    for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
+        err = lib.umx_lstm_scan_bwd(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), wt.data_ptr(), int(bf16),
+            dhs.data_ptr(), dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(),
+            hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(gates),
+        )
+        _build.check(err, "umx_lstm_scan_bwd")
+    lstm_scan_bwd_step.launches += 1
+    return dxp, dh0, dc
+
+
+lstm_scan_bwd_step.launches = 0
+lstm_scan_bwd_step.form = None
+
+
+def lstm_scan_dw(hs, h0, dxp, B: int):
+    """The float32 weight gradient of one layer, dW[r] = Σ over t, b of
+    h_{t-1}ᵀ dxp_t (h_{-1} = h0) → (R, G, 4G) f32: a plain ``torch.bmm``
+    of the unrounded operands on either device (no kernel: the JAX package
+    leaves this product to XLA)."""
+    T, RB, G = hs.shape
+    R, G4 = RB // B, dxp.shape[2]
+    hprev = torch.cat([h0[None], hs[:-1]])
+    hp = hprev.view(T, R, B, G).permute(1, 0, 2, 3).reshape(R, T * B, G)
+    dg = dxp.view(T, R, B, G4).permute(1, 0, 2, 3).reshape(R, T * B, G4)
+    return torch.bmm(hp.transpose(1, 2), dg)
+
+
+class LSTMScanTrain(torch.autograd.Function):
+    """Differentiable float32 layer at the row level: K10 with residuals
+    forward, K11 + the f32 dW backward (their plain versions on the CPU).
+
+    forward(xp (T, R*B, 4G), hh_w (R, G, 4G) f32 or bf16, h0, c0 (R*B, G),
+    B) → (hs, hT, cT).  W_hh runs in its stored dtype, and its gradient
+    leaves in hh_w's dtype."""
+
+    @staticmethod
+    def forward(ctx, xp, hh_w, h0, c0, B):
+        whh = hh_w.contiguous()
+        hs, hT, cT, gates, cs = lstm_scan_train_fwd(xp, whh, h0, c0, B)
+        ctx.save_for_backward(gates, cs, hs, h0, c0, whh)
+        ctx.B = B
+        return hs, hT, cT
+
+    @staticmethod
+    def backward(ctx, dhs, dhT, dcT):
+        gates, cs, hs, h0, c0, whh = ctx.saved_tensors
+
+        def ct(g, like):
+            return torch.zeros_like(like) if g is None else g.float().contiguous()
+
+        dxp, dh0, dc0 = lstm_scan_bwd_step(
+            gates, cs, c0, whh, ct(dhs, hs), ct(dhT, h0), ct(dcT, c0), ctx.B
+        )
+        need = ctx.needs_input_grad
+        dw = lstm_scan_dw(hs, h0, dxp, ctx.B).to(whh.dtype) if need[1] else None
+        return (dxp if need[0] else None, dw, dh0 if need[2] else None,
+                dc0 if need[3] else None, None)
+
+
 def lstm_layer_scan_batched(x_proj, hh_w, h0, c0):
     """The float32 layer over a batch, in the layouts of
     :func:`lstm_layer_merged_batched`: K10 over all T#·D chains × B rows,
-    W_hh in its stored dtype (f32, or the quantized parameters' bf16).  No
-    gradient yet: an input that requires one raises."""
+    W_hh in its stored dtype (f32, or the quantized parameters' bf16).
+    With grad enabled and an input that requires it, runs
+    :class:`LSTMScanTrain` (K10 with residuals, and K11 + the f32 dW in the
+    backward); otherwise K10."""
     _check_hh_dtype(hh_w)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, hh_w, h0, c0)):
-        raise RuntimeError('the float32 recurrence (lstm_impl="scan") has no backward in the '
-                           'port yet: take a gradient with lstm_impl="auto"')
     Bsz, n_targets, _, D, G4 = x_proj.shape
     xp, h0r, c0r = _chain_rows(x_proj, h0, c0)
     whh = hh_w.reshape(n_targets * D, G4 // 4, G4).contiguous()
-    return _batched_outputs(*lstm_scan(xp, whh, h0r, c0r, Bsz), x_proj.shape)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, hh_w, h0, c0)):
+        out = LSTMScanTrain.apply(xp, whh, h0r, c0r, Bsz)
+    else:
+        out = lstm_scan(xp, whh, h0r, c0r, Bsz)
+    return _batched_outputs(*out, x_proj.shape)

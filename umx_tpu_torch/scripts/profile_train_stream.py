@@ -8,8 +8,8 @@ segment-boundary latency); counterpart of ``scripts/profile-train-stream.py``.
 On the GPU it prints the card's name and power limit, and the MFU
 against the H100 SXM's published float32 peak (67 TFLOP/s outside the
 tensor cores): the trainer's projections run in float32 with TF32 off,
-its recurrence kernels on bf16 operands.  On the CPU the MFU is not
-measured.
+its recurrence kernels on bf16 operands (``--lstm-impl scan``: in
+float32).  On the CPU the MFU is not measured.
 """
 
 from __future__ import annotations
@@ -34,10 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream-secs", type=float, default=120.0)
     p.add_argument("--segment-secs", type=float, default=60.0)
     p.add_argument(
-        "--lstm-impl", default="auto", choices=("auto", "pallas_merged", "pallas"),
-        help="recurrence kernel of the streaming demixer (UMX-L): the merged "
-        "kernel (auto, pallas_merged) or the per-target kernel (pallas); the "
-        "trainer always runs the merged training kernels",
+        "--lstm-impl", default="auto", choices=("auto", "scan", "pallas_merged"),
+        help="recurrence of the trainer and the streaming demixer: the merged "
+        "kernels (auto, pallas_merged; auto takes the float32 ones where they "
+        "cannot hold the width) or the float32 recurrence (scan)",
     )
     p.add_argument("--skip-stream", action="store_true")
     p.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")

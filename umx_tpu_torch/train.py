@@ -3,9 +3,12 @@
 Objective as upstream open-unmix: MSE between the masked mixture
 magnitude and the target source magnitude, all four targets at once
 (their weights are stacked on one axis).  The BLSTM recurrence runs
-through the merged kernels: K4 forward with residuals, K5 + K6 backward
+through the merged kernels, K4 forward with residuals and K5 + K6
+backward, or under ``lstm_impl="scan"`` (and ``"pallas"``, and ``"auto"``
+where the merged kernels cannot hold the width) through the float32
+ones, K10 with residuals forward and K11 + an f32 ``torch.bmm`` backward
 (``ops/lstm_cuda.py``); validation runs under ``torch.no_grad()`` and so
-takes the inference kernel K1.
+takes the inference kernel K1 or K10.
 
 The BatchNorm running statistics are inference buffers, not trained: they
 never enter the optimizer (the JAX package routes them to
@@ -156,27 +159,15 @@ def init_train_state(params: UMXParams, tcfg: TrainConfig) -> TrainState:
     return TrainState(params, make_optimizer(params, tcfg), 0)
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    """Raise by name where the trainer has no kernels for ``cfg``'s
-    recurrence (``lstm_impl="scan"``)."""
-    if cfg.lstm_impl == "scan":
-        raise ValueError('lstm_impl="scan": the float32 recurrence has no backward in the '
-                         'port yet; train with lstm_impl="auto"')
-
-
 def _masked_magnitudes(params: UMXParams, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """The masked mix magnitudes (B, T#, 2, T, n_bins) of ``mask_loss``,
     T# the parameters' own target count (a tp slice's, in the sharded
     step).  The LSTM state starts at zeros for every row.
-    ``lstm_impl="pallas"`` is ignored: the per-target kernel has no
-    backward, so training and its validation always run the merged
-    kernels (the JAX trainer lowers it to its scan the same way).
-    ``lstm_impl="scan"`` runs the float32 recurrence, which has no
-    backward in the port yet: with a gradient wanted its layer raises (it
-    is never lowered to the merged kernels, which would train another
-    program than the one asked for); the eval step runs it."""
+    ``lstm_impl="pallas"`` is lowered to ``"scan"``, as the JAX trainer
+    lowers it (``umx_tpu/train.py:187-190``): the per-target kernel has no
+    backward, so training and its validation run the float32 recurrence."""
     if cfg.lstm_impl == "pallas":
-        cfg = dataclasses.replace(cfg, lstm_impl="auto")
+        cfg = dataclasses.replace(cfg, lstm_impl="scan")
     B, n_t = batch["x"].shape[0], params.input_mean.shape[0]
     st = init_lstm_state(cfg, batch["x"].device)
     state_b = LSTMState(h=st.h[:n_t].expand(B, n_t, *st.h.shape[1:]),
@@ -209,9 +200,7 @@ def make_eval_step(cfg: ModelConfig):
 
 def make_train_step(cfg: ModelConfig):
     """``train_step(state, batch) -> (state, loss)``: one AdamW step on
-    ``mask_loss``; the state is updated in place and returned.  Raises
-    under ``lstm_impl="scan"`` (no backward yet)."""
-    _check_trainable(cfg)
+    ``mask_loss``; the state is updated in place and returned."""
 
     def train_step(state: TrainState, batch: dict):
         state.optimizer.zero_grad(set_to_none=True)
@@ -300,18 +289,18 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, tp: bool 
       the devices' squared errors over the whole batch's element count,
       ``mask_loss``'s mean.  The state is updated in place and returned.
 
-    The recurrence keeps the trainer's kernels on CUDA, K4 forward and
-    K5 + K6 backward, at (T#/tp)·D chains and batch/dp rows: each device
-    runs its rows through the same ``autograd.Function`` as the
-    single-device step.  (The JAX package's sharded step pins
-    ``lstm_impl="scan"``, because a ``pallas_call`` under pjit would need
-    shard_map plumbing; that is a limit of XLA's partitioner, not of the
-    step.)  ``unshard_state`` gives back one whole state for checkpoints
-    and export; ``ShardedTrainState.params`` the whole parameters."""
+    The recurrence runs the trainer's kernels on CUDA at (T#/tp)·D chains
+    and batch/dp rows, each device its rows through the same
+    ``autograd.Function`` as the single-device step: under ``"auto"`` K4
+    forward and K5 + K6 backward, under ``"scan"`` K10 with residuals and
+    K11.  This departs on purpose from the JAX package's sharded step,
+    which pins ``lstm_impl="scan"`` because a ``pallas_call`` under pjit
+    would need shard_map plumbing: a limit of XLA's partitioner, not of
+    the step, so the port keeps the value it is given.
+    ``unshard_state`` gives back one whole state for checkpoints and
+    export; ``ShardedTrainState.params`` the whole parameters."""
     from umx_tpu_torch.parallel.mesh import Mesh, shard
     from umx_tpu_torch.parallel.sharding import all_reduce_sum, broadcast, device_guard
-
-    _check_trainable(cfg)
 
     cols = mesh.shape["tp"] if tp else 1
     if cfg.n_targets % cols:

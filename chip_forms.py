@@ -3,7 +3,8 @@
 K9, of the overlap-add K7 and of the Wiener reduce K2 that were tried beside
 the ones kept, and where a step of each kept recurrence goes.
 
-    python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce]   (all when none is named)
+    python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce] [scan] [k8]   (all when none is named)
+    python3 chip_forms.py k11_streaming [earlier lstm_scan_train.cu ...]
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -23,7 +24,20 @@ scalars.  ``wiener_reduce``: variants of ``csrc/wiener.cu``'s reduce and its
 earlier form (pass 1 over 128-bin x 64-row blocks, a second launch summing
 the partials), held to the kept form's bits (the earlier form, another
 order of summation, within 1e-5), timed in turns in the three input modes
-at the UMX-L segment shape (S = 4, T = 2584, F = 2049).  A measurement aid
+at the UMX-L segment shape (S = 4, T = 2584, F = 2049).  ``scan``: the
+float32 recurrence K10, K10 with residuals and K11 in their two forms (W_hh
+resident on the chip, or streamed from L2 each step) at the kernel table's
+shapes, in turns.  ``k8``: the iSTFT kernel K8 at every n_fft = 1024 k up to
+16384 on 8 rows of a 60 s segment, beside its plain version, torch.istft
+and its bound, and at n_fft 4096 (48 rows of a segment) its mixed-radix
+form (4 x 8 x 8 x 8) against the hand-scheduled one kept there, in turns
+(that comparison alone: ``k8_4096``).
+``k11_streaming [FILE ...]``: K11's streaming form at T 256, R 8, B 16 and G
+512 and 640, in turns against earlier sources of ``csrc/lstm_scan_train.cu``
+named on the command line (for example one written by ``git show
+<commit>:umx_tpu_torch/csrc/lstm_scan_train.cu``), each held to the plain
+version; a source whose kernel takes W_hh transposed gets the transposed
+copy its wrapper made, made outside the timing.  A measurement aid
 beside ``chip_smoke.py``, not a check.  Needs one CUDA GPU and exits
 non-zero without one.
 """
@@ -825,6 +839,335 @@ def reduce_forms(dev, smi: str) -> None:
                 f"{name} {S.cuda_ms(run, 20):.4f}" for name, run in runs.items()), flush=True)
 
 
+# K10's shapes of the kernel table (T, rows per chain, G, W_hh dtype) at 8
+# chains, and K10 with residuals and K11 at the UMX-L training shape
+SCAN_K10_SHAPES = ((S.T_SEG, 1, 512, "float32"), (S.T_SEG, 3, 512, "float32"),
+                   (S.T_SEG, 6, 512, "float32"), (S.T_SEG, 1, 512, "bfloat16"),
+                   (S.T_SEG, 1, 256, "float32"), (S.T_SEG, 1, 640, "float32"),
+                   (S.T_SEG, 1, 18, "float32"), (S.T_TRAIN, S.B_TRAIN, 512, "float32"))
+SCAN_TRAIN_SHAPE = (S.T_TRAIN, S.B_TRAIN, 512)
+
+
+def scan_variants(src: str) -> dict[str, str]:
+    """``csrc/lstm_scan.cu`` as kept, with the resident form's W_hh in
+    registers for 9 and for 13 iterations of a part at every row tile (11
+    kept up to 4 rows, 9 at 8 and 16), and with cycle
+    counters in the resident kernel (threads 0 and 255 of block (0, 0),
+    steps 1 .. T-1): the wait for h (the poll), the barrier after it, the
+    product (with the first pass's tree and cells where there are two
+    passes), the barrier after the last read of h, and the last pass's
+    tree and cells with their stores."""
+    out = {"kept": src}
+    for kreg in (9, 13):
+        out[f"W_hh {kreg} iterations in registers"] = sub(
+            src, "return rt >= 8 ? 9 : 11;", f"return {kreg};")
+    v = sub(src, "namespace {\n", "__device__ unsigned long long umx_prof[16];\nnamespace {\n")
+    v = sub(v, "    float* hb = h_s;\n",
+            "    float* hb = h_s;\n"
+            "    const int slot = blockIdx.x == 0 && blockIdx.y == 0 && t > 0\n"
+            "                         ? (tid == 0 ? 0 : tid == RS_THREADS - 1 ? 8 : -1) : -1;\n"
+            "    long long q0 = clock64(), q1 = q0, q2 = q0, q3 = q0, q4 = q0;\n")
+    v = sub(v, "    __syncthreads();\n\n#pragma unroll\n    for (int n = 0; n < NP; ++n) {\n",
+            "    q1 = clock64();\n    __syncthreads();\n    q2 = clock64();\n\n"
+            "#pragma unroll\n    for (int n = 0; n < NP; ++n) {\n")
+    v = sub(v, "      if (n == NP - 1) __syncthreads();\n",
+            "      if (n == NP - 1) {\n        q3 = clock64();\n        __syncthreads();\n"
+            "        q4 = clock64();\n      }\n")
+    v = sub(v, "#pragma unroll\n    for (int n = 0; n < NP; ++n) {\n#pragma unroll\n"
+               "      for (int q = 0; q < 4; ++q) xv[n][q] = xn[n][q];\n",
+            "    if (slot >= 0) {\n"
+            "      const long long q[6] = {q0, q1, q2, q3, q4, clock64()};\n"
+            "      for (int e = 0; e < 5; ++e) umx_prof[slot + e] += q[e + 1] - q[e];\n"
+            "      umx_prof[slot + 7] += 1;\n    }\n"
+            "#pragma unroll\n    for (int n = 0; n < NP; ++n) {\n#pragma unroll\n"
+            "      for (int q = 0; q < 4; ++q) xv[n][q] = xn[n][q];\n")
+    out["cycle counters"] = v + """
+extern "C" int umx_prof_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, umx_prof, sizeof(umx_prof));
+  unsigned long long z[16] = {0};
+  cudaMemcpyToSymbol(umx_prof, z, sizeof(z));
+  return (int)e;
+}
+"""
+    return out
+
+
+def scan_phases(dev, smi: str) -> None:
+    """K10's resident form: the variants of :func:`scan_variants`, each
+    bit-equal to the kept form (the register split does not change the
+    order of a sum), timed in turns at R 8, G 512 at B 1 (T 1024) and at
+    the training shape (T 256, B 16), and where a step of the kept form
+    goes in cycles."""
+    import torch
+
+    from umx_tpu_torch import _build
+
+    libs = build_all(scan_variants((_build.CSRC / "lstm_scan.cu").read_text()),
+                     ("umx_lstm_scan",), tag="scan")
+    stream = torch.cuda.current_stream().cuda_stream
+    names = ("poll", "barrier (h in)", "product (and the first pass's tree and cells)",
+             "barrier (h read)", "the last pass's tree and cells")
+    for T, B in ((1024, 1), (S.T_TRAIN, S.B_TRAIN)):
+        xp, whh, h0, c0, _ = S.scan_inputs(dev, T, B, 512, seed=B)
+        RB, rt = 8 * B, 1 << (B - 1).bit_length()
+        hs = torch.empty((T, RB, 512), device=dev)
+        hT = torch.empty((RB, 512), device=dev)
+
+        def run(lib):
+            def go():
+                c = c0.clone()
+                hx = torch.zeros(8 * 2 * 16 * 512, dtype=torch.int64, device=dev)
+                err = lib.umx_lstm_scan(1, xp.data_ptr(), whh.data_ptr(), 0, h0.data_ptr(),
+                                        c.data_ptr(), hs.data_ptr(), hT.data_ptr(),
+                                        hx.data_ptr(), T, 8, B, 512, 0, 8, 0, B, rt, 0, stream)
+                S.require(err == 0, f"umx_lstm_scan: CUDA error {err}")
+                return hs.clone(), hT.clone(), c
+            return go
+
+        runs = {name: run(lib) for name, lib in libs.items()}
+        kept = runs["kept"]()
+        for name, go in runs.items():
+            S.require(all(torch.equal(a, b) for a, b in zip(go(), kept)),
+                      f"the variant {name!r} does not give the kept form's bits at B = {B}")
+        for rnd in range(2):
+            print(f"lstm_scan resident, T {T}, B {B}, round {rnd}, us per step  [{smi}]: "
+                  + "; ".join(f"{name} {S.cuda_ms(go, 5) / T * 1e3:.3f}"
+                              for name, go in runs.items()), flush=True)
+        counters = (ctypes.c_ulonglong * 16)()
+        libs["cycle counters"].umx_prof_read(counters)
+        runs["cycle counters"]()
+        torch.cuda.synchronize()
+        libs["cycle counters"].umx_prof_read(counters)
+        for slot, who in ((0, "thread 0"), (8, "thread 255")):
+            n = max(1, counters[slot + 7])
+            print(f"lstm_scan resident, T {T}, B {B}, cycles per step of {who} of block (0, 0) "
+                  f"over {n} steps  [{smi}]: " + "; ".join(
+                      f"{what} {counters[slot + e] / n:.0f}" for e, what in enumerate(names))
+                  + f"; sum {sum(counters[slot:slot + 5]) / n:.0f}", flush=True)
+
+
+def scan_forms(dev, smi: str) -> None:
+    """K10, K10 with residuals and K11 in their two forms (W_hh resident on
+    the chip, or streamed from L2 each step) at the kernel table's shapes,
+    in turns (streaming, resident, resident, streaming): ms and us a step,
+    each form against the plain version."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    def turns(name, fns, steps):
+        got = {f: [] for f in fns}
+        order = ("streaming", "resident", "resident", "streaming")
+        for f in order:
+            if f in fns:
+                got[f].append(S.cuda_ms(fns[f], 3))
+        print(f"{name}: " + "; ".join(
+            f"{f} {min(v):.4f} ms ({', '.join(f'{x:.4f}' for x in v)}; "
+            f"{min(v) / steps * 1e3:.3f} us a step)" for f, v in got.items()) + f"  [{smi}]",
+            flush=True)
+
+    for T, B, G, dt in SCAN_K10_SHAPES:
+        xp, whh, h0, c0, _ = S.scan_inputs(dev, T, B, G, seed=T + B + G, dtype=dt)
+        forms = [f for f in L.SCAN_FORMS if f == "streaming" or G <= L.SCAN_RESIDENT_G_MAX]
+        ref = L.lstm_scan_plain(xp, whh, h0, c0, B)
+        errs = {}
+        for f in forms:
+            out = L.lstm_scan(xp, whh, h0, c0, B, _form=f)
+            errs[f] = (max(S.max_err(a, b) for a, b in zip(out, ref)), L.lstm_scan.form)
+        print(f"lstm_scan T {T}, R 8, B {B}, G {G}, W_hh {dt}: vs plain (form): {errs}", flush=True)
+        turns(f"lstm_scan T {T}, B {B}, G {G}, {dt}",
+              {f: (lambda f=f: L.lstm_scan(xp, whh, h0, c0, B, _form=f)) for f in forms}, T)
+        del xp, whh, h0, c0, ref
+    T, B, G = SCAN_TRAIN_SHAPE
+    xp, whh, h0, c0, cts = S.scan_train_inputs(dev, T, B, G, seed=5)
+    _, _, _, gates, cs = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+    ref = L.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
+    outs = {f: L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form=f) for f in L.SCAN_FORMS}
+    print(f"lstm_scan_bwd_step T {T}, B {B}, G {G}: of max|out| vs plain "
+          f"{ {f: max(S.rel_to_max(a, b) for a, b in zip(o, ref)) for f, o in outs.items()} }; "
+          f"the forms bit-equal: "
+          f"{all(torch.equal(a, b) for a, b in zip(outs['resident'], outs['streaming']))}",
+          flush=True)
+    turns(f"lstm_scan_train_fwd T {T}, B {B}, G {G}",
+          {f: (lambda f=f: L.lstm_scan_train_fwd(xp, whh, h0, c0, B, _form=f)) for f in L.SCAN_FORMS}, T)
+    turns(f"lstm_scan_bwd_step T {T}, B {B}, G {G}",
+          {f: (lambda f=f: L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form=f))
+           for f in L.SCAN_FORMS}, T)
+
+
+K8_MIXED_AT_4096 = (
+    ("    case 4: *smem = SMEM_BYTES; return (const void*)istft_ct2_kernel;\n",
+     "    case 4: return (const void*)istft_ct2_mr_kernel<4>;\n"),
+    ("  *threads = n_fft == NW ? THREADS : MR_THREADS;\n", "  *threads = MR_THREADS;\n"),
+)
+
+
+def k8_mixed_at_4096(dev, smi: str) -> None:
+    """K8 at n_fft 4096 on 48 rows of a UMX-L segment (T 2584): the
+    hand-scheduled 16 x 16 x 8 form kept there against the mixed-radix form
+    the other sizes run (4 x 8 x 8 x 8), both built here from the same
+    source, each held to the plain version, timed in turns."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    src = (_build.CSRC / "istft_ct.cu").read_text()
+    mixed = src
+    for old, new in K8_MIXED_AT_4096:
+        mixed = sub(mixed, old, new)
+    libs = build_all({"hand-scheduled 16 x 16 x 8": src, "mixed-radix 4 x 8 x 8 x 8": mixed},
+                     ("umx_istft_ct2", "umx_istft_ct2_capacity"), tag="k8")
+    n, hop, rows, T = 4096, 1024, 48, S.T_SEG
+    F = n // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(n)
+    re_, im_ = (torch.randn((rows, T, F), generator=g, device=dev) for _ in range(2))
+    w = hann_window(n, dev)
+    table = istft_ct_cuda._table(n, dev)
+    ref = istft_ct.istft_ct2_plain(re_, im_, n, hop, w)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib):
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        S.require(lib.umx_istft_ct2_capacity(n, ctypes.addressof(blocks),
+                                             ctypes.addressof(smem)) == 0, "k8 capacity")
+        per_row, hops_per_run = istft_ct_cuda.istft_run_plan(rows, T, blocks.value)
+        out = torch.empty((rows, (T - 1) * hop + n), device=dev)
+
+        def go():
+            err = lib.umx_istft_ct2(re_.data_ptr(), im_.data_ptr(), table.data_ptr(),
+                                    w.data_ptr(), out.data_ptr(), rows, T, F, n, hop, per_row,
+                                    hops_per_run, stream)
+            S.require(err == 0, f"umx_istft_ct2: CUDA error {err}")
+            return out
+        return go, smem.value
+
+    runs = {name: run(lib) for name, lib in libs.items()}
+    got = {name: [] for name in runs}
+    for name in (*runs, *reversed(runs)):
+        go = runs[name][0]
+        err = S.max_err(go(), ref)
+        S.require(err <= 1e-5, f"K8 {name} at n_fft 4096 is {err} off its plain version")
+        got[name].append(S.cuda_ms(go, 10))
+    print(f"istft_ct2 n_fft 4096 ({rows} rows x {T} frames), in turns: " + "; ".join(
+        f"{name} {min(v):.4f} ms ({', '.join(f'{x:.4f}' for x in v)}; shared memory "
+        f"{runs[name][1]} B a block)" for name, v in got.items()) + f"  [{smi}]", flush=True)
+
+
+def k11_streaming(dev, smi: str, earlier: list[str]) -> None:
+    """K11's streaming form at T 256, R 8, B 16, G 512 and 640 as kept,
+    against the earlier sources named, in turns (kept, earlier..., then
+    back): ms a sweep, each held to the plain version within 1e-4 of its
+    largest entry."""
+    from pathlib import Path
+
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    texts = {"kept": (_build.CSRC / "lstm_scan_train.cu").read_text()}
+    texts.update({Path(f).name: Path(f).read_text() for f in earlier})
+    new_sig = _build._SIGNATURES["umx_lstm_scan_bwd"]
+    old_sig = new_sig[1:]  # before the form's flag
+    libs = build_all(texts, {"umx_lstm_scan_bwd": new_sig}, tag="k11")
+    for name, text in texts.items():
+        if "int umx_lstm_scan_bwd(int resident" not in text:
+            libs[name].umx_lstm_scan_bwd.argtypes = old_sig
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    T, B = S.T_TRAIN, S.B_TRAIN
+    for G in (512, 640):
+        xp, whh, h0, c0, cts = S.scan_train_inputs(dev, T, B, G, seed=G)
+        _, _, _, gates, cs = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+        ref = L.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
+        wt = whh.transpose(1, 2).contiguous()
+        R = whh.shape[0]
+
+        class Plan:
+            form = None
+
+        plan = L._scan_plan(Plan, "K11", gates, R, B, G, False, "streaming")
+
+        def run(name):
+            lib = libs[name]
+            takes_wt = "const W* __restrict__ wt" in texts[name]
+            resident = () if "int umx_lstm_scan_bwd(int resident" not in texts[name] else (0,)
+
+            def go():
+                dxp = torch.empty((T, R * B, 4 * G), device=dev)
+                dh0 = torch.empty((R * B, G), device=dev)
+                dc = cts[2].clone()
+                hx = torch.zeros(L.scan_bwd_exchange_words(R, G), dtype=torch.int64, device=dev)
+                for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
+                    err = lib.umx_lstm_scan_bwd(
+                        *resident, gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+                        (wt if takes_wt else whh).data_ptr(), 0, cts[0].data_ptr(),
+                        cts[1].data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(),
+                        hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt, launched * T, stream)
+                    S.require(err == 0, f"{name}: CUDA error {err}")
+                return dxp, dh0, dc
+            return go
+
+        runs = {name: run(name) for name in libs}
+        got = {name: [] for name in runs}
+        for name in (*runs, *reversed(runs)):
+            out = runs[name]()
+            err = max(S.rel_to_max(a, b) for a, b in zip(out, ref))
+            S.require(err <= 1e-4, f"K11 {name} at G {G} is {err} off its plain version")
+            got[name].append(S.cuda_ms(runs[name], 3))
+        wrapper = S.cuda_ms(lambda: L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B,
+                                                         _form="streaming"), 3)
+        print(f"lstm_scan_bwd_step streaming, T {T}, R {R}, B {B}, G {G} ({len(plan)} launches), "
+              f"in turns: " + "; ".join(
+                  f"{name} {min(v):.4f} ms ({', '.join(f'{x:.4f}' for x in v)}; "
+                  f"{min(v) / T * 1e3:.3f} us a step)" for name, v in got.items())
+              + f"; the kept wrapper {wrapper:.4f} ms; a transposed copy of W_hh "
+              f"{S.cuda_ms(lambda: whh.transpose(1, 2).contiguous(), 5):.4f} ms  [{smi}]",
+              flush=True)
+        del xp, whh, h0, c0, cts, gates, cs, ref, wt
+
+
+def k8_sizes(dev, smi: str) -> None:
+    """K8 at every n_fft = 1024 k up to 16384 on 8 rows of a 60 s segment
+    (T = 2646000 / hop + 1 frames), against its plain version and
+    ``torch.istft``, beside its bound (planes in, signal out, ~2.5 N log2 N
+    operations a frame)."""
+    import math
+
+    import torch
+
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    rows = S.ISTFT_ROWS
+    for k in range(1, 17):
+        n = 1024 * k
+        hop, F = n // 4, n // 2 + 1
+        T = S.SEG // hop + 1
+        g = torch.Generator(device=dev).manual_seed(n)
+        re = torch.randn((rows, T, F), generator=g, device=dev)
+        im = torch.randn((rows, T, F), generator=g, device=dev)
+        w = hann_window(n, dev)
+        out = istft_ct_cuda.istft_ct2(re, im, n, hop, w)
+        err = S.max_err(out, istft_ct.istft_ct2_plain(re, im, n, hop, w))
+        form = istft_ct_cuda.istft_ct2.form
+        spec = torch.complex(re, im).transpose(-1, -2).contiguous()
+        spec.imag[:, 0] = 0.0
+        spec.imag[:, -1] = 0.0
+        ms = S.cuda_ms(lambda: istft_ct_cuda.istft_ct2(re, im, n, hop, w), 10)
+        plain = S.cuda_ms(lambda: istft_ct.istft_ct2_plain(re, im, n, hop, w), 5)
+        lib = S.cuda_ms(lambda: torch.istft(spec, n_fft=n, hop_length=hop, window=w, center=True,
+                                            onesided=True, length=(T - 1) * hop), 5)
+        bound = S.bound_ms(2 * rows * T * F * 4 + rows * ((T - 1) * hop + n) * 4,
+                           rows * T * (2.5 * n * math.log2(n) + 2 * n), "f32")
+        print(f"istft_ct2 n_fft {n} ({rows} rows x {T} frames): vs plain {err:.3g}; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, torch.istft {lib:.4f} ms, bound {bound[0]:.4f} "
+              f"ms by {bound[1]}; form (runs per row, hops per run, radices) {form}  [{smi}]",
+              flush=True)
+        del re, im, spec, out
+
+
 def main() -> int:
     import torch
 
@@ -836,7 +1179,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
     dev = torch.device("cuda")
-    which = [a.lower() for a in sys.argv[1:]] or ["k5", "k9", "ola", "wiener_reduce"]
+    which = [a.lower() for a in sys.argv[1:] if not a.endswith(".cu")] or [
+        "k5", "k9", "ola", "wiener_reduce", "scan", "k8"]
     if "k5" in which:
         bwd_forms(dev, smi)
     if "k9" in which:
@@ -845,6 +1189,16 @@ def main() -> int:
         ola_forms(dev, smi)
     if "wiener_reduce" in which:
         reduce_forms(dev, smi)
+    if "scan" in which:
+        scan_forms(dev, smi)
+    if "scan_phases" in which:
+        scan_phases(dev, smi)
+    if "k8" in which:
+        k8_sizes(dev, smi)
+    if "k8" in which or "k8_4096" in which:
+        k8_mixed_at_4096(dev, smi)
+    if "k11_streaming" in which:
+        k11_streaming(dev, smi, [a for a in sys.argv[1:] if a.endswith(".cu")])
     return 0
 
 

@@ -56,7 +56,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    against their plain versions (100 s UMX-L track: 3 chunks of 60 s,
    M = 8 and 16 rows; 8 rows x 2584 frames, and shapes whose runs end
    inside a row or that are shorter than the overlap-add ring: 3 and 5
-   rows x 37 frames, 1 row x 3 frames), bit-stable;
+   rows x 37 frames, 1 row x 3 frames), bit-stable; K8 at n_fft 1024,
+   2048, 3072, 5120, 8192 and 16384 too (its mixed-radix form, the sizes
+   JAX's ct2 takes beside UMX's 4096) on 8 rows of a 60 s segment against
+   its plain version and float64 (1e-5), with its radices, bit-stable;
 8. the batched whole-track path: the CLI with ``--no-streaming --shifts 2
    --istft-algo ct2`` on the 100 s track, and a ``Separator`` with
    ``ola_impl="pallas"``, the ct2 iSTFT, non-streaming chunk groups at the
@@ -102,7 +105,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     times of the 100 s track (fused, and the streaming one also through
     the host loop), and train steps/s; K6 must be no slower
     than ``torch.bmm`` on the same operands, K8 no slower than
-    ``torch.istft``, K4 at most twice K1 at the same shape, K4, K5, K8, K9,
+    ``torch.istft``, K8 at n_fft 4096 and 48 rows at most 1.05 times its
+    1.4149 ms before it took every n_fft (its other sizes timed beside
+    their plain version, ``torch.istft`` and their bound), K4 at most twice
+    K1 at the same shape, K4, K5, K8, K9,
     K7 (M = 8 and 16) and K2's reduce in mode mags faster than their
     earlier forms, and the reduce in modes masks and y no more than 5 %
     slower than its earlier form (K7 and the reduce timed as the median of
@@ -111,7 +117,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     form: the float32 forms with their launches on phase 4b's float32
     run, the bf16 forms (``WIENER_FORMS``) with the times of phases 3 and
     10 and their launches on the demix path (masks) and the planes entry
-    (mags, y).
+    (mags, y).  Every row carries its kernel's form; a line before the
+    kernels line gives each phase's wall seconds.
 13. (run right after phase 4, on its ggml file and 100 s WAV) the HTTP
     service (``umx_tpu_torch.serve``) on cuda with its default flags
     (60 s segments, max_batch 4, Wiener 1 iteration): /healthz, /info
@@ -131,7 +138,7 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     average batch fill and the session's time per segment are printed.
 14. (run right after phase 6, on its exported trained and initial UMX-L
     models) evaluation: ``umx_tpu_torch.scripts.evaluate_musdb`` with no
-    ``--device`` on 3 synthetic MUSDB-style tracks of 20 s, once per model
+    ``--device`` on 3 synthetic MUSDB-style tracks of 12 s, once per model
     (K1, K2 and K3 launched, every median finite, the trained model's
     mean median SDR above the initial's; per-track demix and scoring
     seconds and both tables printed); ``evaluate_demixed_output`` on the
@@ -214,11 +221,14 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     chain count on that run.
 19. (run after phase 18) the float32 recurrence K10 (``lstm_impl="scan"``,
     ``csrc/lstm_scan.cu``; the JAX package's portable ``lax.scan``, no
-    Pallas kernel): against its plain version at T 2584, R 8 and (G 512,
-    B 1, 3, 6), W_hh bf16 at G 512, G 256, G 640 and G 18 (1e-4), rows at
-    B 3 and 6 bit-equal to their B 1 runs, five more runs of each shape
-    bit-equal to the first, its form and time beside its
-    bound and four ``nn.LSTM`` calls (a yardstick); the CLI with
+    Pallas kernel) in both its forms (W_hh resident on the chip, the
+    default up to G 512, and streamed from L2 each step, the only form
+    above): against its plain version at T 2584, R 8 and (G 512, B 1, 3,
+    6), W_hh bf16 at G 512, G 256, G 640 and G 18 (1e-4), rows at B 3 and
+    6 bit-equal to their B 1 runs, five more runs of each shape bit-equal
+    to the first, each form's time beside its bound, the resident form
+    faster than the streaming one at every shape it takes, and four
+    ``nn.LSTM`` calls (a yardstick); the CLI with
     ``--lstm-impl scan`` on the 100 s track, dense and ``--quantized-hbm``
     (counts set to 0 just before and read just after: K10 three layers a
     chunk, K1 never; stems summing to the mix); the GPU against the CPU on
@@ -237,12 +247,13 @@ Phases, each of which raises (exit code 1, no result line) on failure:
 20. (run after phase 19) training through the float32 recurrence: K10
     with its residual flag (``lstm_scan_train_fwd``: hs/hT/cT K10's bits,
     the residuals within 1e-4 of the plain version) and the reverse sweep
-    K11 (``csrc/lstm_scan_train.cu``) against their plain versions (1e-4
-    of each output's largest entry) at T 256, R 8 and (G, B) = (512, 16),
-    (512, 32), (256, 16), (640, 16), (18, 16), rows bit-equal to
-    themselves alone, three repeat runs bit-equal; both kernels, the f32 dW
-    ``torch.bmm`` and four ``nn.LSTM`` forward + backward calls (a
-    yardstick) timed at the UMX-L training shape beside their bounds;
+    K11 (``csrc/lstm_scan_train.cu``) in both forms against their plain
+    versions (1e-4 of each output's largest entry) at T 256, R 8 and
+    (G, B) = (512, 16), (512, 32), (256, 16), (640, 16), (18, 16), rows
+    bit-equal to themselves alone, three repeat runs bit-equal, K11's two
+    forms bit-equal; both kernels in both forms (the resident one faster),
+    the f32 dW ``torch.bmm`` and four ``nn.LSTM`` forward + backward calls
+    (a yardstick) timed at the UMX-L training shape beside their bounds;
     ``train_loop`` under ``lstm_impl="scan"`` at UMX-L, 8 steps at batch 16
     x 256 frames (counts set to 0 before and read after: K10 with residuals
     and K11 three times a step, K4-K6 and K1 never), warm steps on one
@@ -253,7 +264,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     frames (loss 1e-5 relative; the LSTM's gradients 2e-4 of their max|g|,
     the other fields, which pass ReLU kinks, 3 times the CPU path's own
     movement on an input 1e-6 larger, within [2e-4, 2e-3]); and a
-    stress run of K10, K10 with residuals and K11, at least 2000 launches
+    stress run of K10, K10 with residuals and K11, each width in its
+    default form, at least 2000 launches of the resident forms
     at T 64 over B 1, 3, 6, 16, 20 and G 18, 256, 512, 640, at 8 chains
     and at one chain more than a launch holds (two chain groups), every
     other round with K1 on a second CUDA stream, each output bit-equal to
@@ -342,7 +354,26 @@ WIENER_FORMS = {
     "wiener_apply_f32_masks_bf16_out": ("wiener_apply", "masks_out_bf16"),
 }
 ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
+# K8's 4096 form at that shape on an H100 80GB HBM3 at 700 W before the
+# kernel took every n_fft; it may be no slower than this share of it now
+ISTFT_4096_MS, ISTFT_4096_SLACK = 1.4149, 1.05
+# K8 at n_fft beyond UMX's 4096 (JAX's ct2 takes every n_fft with
+# 1024 | n_fft): the mixed-radix form, on 8 rows of a 60 s segment
+ISTFT_SIZES = (1024, 2048, 3072, 5120, 8192, 16384)
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
+
+
+_PHASE_T = [None]
+PHASE_S = {}  # seconds of each part of the run, in order (printed before the kernels line)
+
+
+def phase_done(name: str) -> None:
+    """Book the wall seconds since the previous call (or the first call's
+    start) to ``name``."""
+    now = time.perf_counter()
+    if _PHASE_T[0] is not None:
+        PHASE_S[name] = round(now - _PHASE_T[0], 1)
+    _PHASE_T[0] = now
 
 
 def require(cond: bool, msg: str) -> None:
@@ -840,6 +871,46 @@ def check_istft_ct(dev, shapes, seed: int):
         worst = max(worst, err)
         args[(rows, T)] = (re, im, 4096, 1024, w)
         del out
+    return args, worst
+
+
+def check_istft_sizes(dev, smi: str):
+    """Phase 7: K8 at ``ISTFT_SIZES`` (its mixed-radix form: a DFT of
+    n_fft/1024 points, then three radix-8 passes) on 8 rows of a 60 s
+    segment (T = 2646000 / hop + 1 frames), windowed, against its plain
+    version and a float64 CPU reference on 2 rows, bit-stable.  Returns
+    ({n_fft: kernel args}, worst max|err| vs plain)."""
+    import torch
+
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    args, worst = {}, 0.0
+    for n in ISTFT_SIZES:
+        hop, F = n // 4, n // 2 + 1
+        T = SEG // hop + 1
+        g = torch.Generator(device=dev).manual_seed(n)
+        re = torch.randn((ISTFT_ROWS, T, F), generator=g, device=dev)
+        im = torch.randn((ISTFT_ROWS, T, F), generator=g, device=dev)
+        w = hann_window(n, dev)
+        out = istft_ct_cuda.istft_ct2(re, im, n, hop, w)
+        torch.cuda.synchronize()
+        form = istft_ct_cuda.istft_ct2.form
+        plain = istft_ct.istft_ct2_plain(re, im, n, hop, w)
+        err = max_err(out, plain)
+        f64 = istft_ct.istft_ct2_plain(re[:2].cpu().double(), im[:2].cpu().double(), n, hop,
+                                       w.cpu().double())
+        err64 = float((out[:2].cpu().double() - f64).abs().max())
+        print(f"istft_ct2 at n_fft {n} ({ISTFT_ROWS} rows x {T} frames): max|err| vs plain "
+              f"{err:.3g}, vs float64 on 2 rows {err64:.3g}; (runs per row, hops per run, "
+              f"radices) {form}  [{smi}]")
+        require(err <= 1e-5 and err64 <= 1e-5, f"istft_ct2 at n_fft {n} disagrees: {err}, {err64}")
+        require(form[2] == istft_ct_cuda.istft_radix_plan(n), f"istft_ct2 at n_fft {n}: {form}")
+        require(torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n, hop, w)),
+                f"istft_ct2 at n_fft {n} is not bit-stable from run to run")
+        worst = max(worst, err)
+        args[n] = (re, im, n, hop, w)
+        del out, plain, f64
     return args, worst
 
 
@@ -1890,7 +1961,9 @@ def training_path(tmp: str, counters: dict, smi: str):
     return launches, steps_per_s, wide_steps_per_s, held_out
 
 
-EVAL_TRACKS, EVAL_SECS = 3, 20.0  # the MUSDB-style set of the evaluation phase
+# the MUSDB-style set of the evaluation phase (12 s a track: the float64
+# scoring on the host is nearly all of the phase's time)
+EVAL_TRACKS, EVAL_SECS = 3, 12.0
 EVAL_TRAIN_STEPS = 4  # train_umx steps at UMX-HQ width, 2 validations
 # seconds of phase 6's held-out track scored in v4 and v3: the float64
 # host work of one v3 window is about 2.7 s on the host of an H100 80GB HBM3 machine
@@ -3420,6 +3493,19 @@ SCAN_NUDGE = 1e-6
 # the GPU and the CPU are held on the error's energy, as phase 11 holds them
 SCAN_QUANT_DB = -30.0
 SCAN_WIDE_HIDDEN, SCAN_WIDE_SECS = 1280, 20.0  # the model wider than UMX-L, its cut
+# K10's figures at these shapes on an H100 80GB HBM3 at 700 W before W_hh
+# stayed on the chip (every step read it from L2), printed beside the new ones
+SCAN_EARLIER_MS = {"G512_B1": 10.8848, "G512_B3": 17.8935, "G512_B6": 24.4463,
+                   "G512_B1_bf16": 12.7418, "G256_B1": 7.0232, "G640_B1": 25.1177,
+                   "G18_B1": 3.3333}
+
+
+def scan_forms_at(G: int) -> tuple:
+    """The forms of K10 and K11 that take width G: both up to 512, the
+    streaming one above."""
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    return tuple(f for f in L.SCAN_FORMS if f == "streaming" or G <= L.SCAN_RESIDENT_G_MAX)
 
 
 def scan_bound(T, rows, G, inputs):
@@ -3572,46 +3658,69 @@ def scan_phase(dev, tmp: str, model: str, wav: str, mix, counters: dict, smi: st
     for G, B, dt in SCAN_SHAPES:
         args = scan_inputs(dev, T_SEG, B, G, seed=700 + G + B, dtype=dt)
         xp, whh, h0, c0, _ = args
-        out = L.lstm_scan(*args)
-        torch.cuda.synchronize()
-        form = L.lstm_scan.form
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         ref = L.lstm_scan_plain(*args)
         end.record()
         torch.cuda.synchronize()
-        err = max(max_err(a, b) for a, b in zip(out, ref))
-        worst = max(worst, err)
-        same = None
-        if B > 1:
-            same = True
-            for b in range(B):
-                rows = torch.arange(R_CHAINS, device=dev) * B + b
-                one = L.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
-                                  c0[rows].contiguous(), 1)
-                same &= (torch.equal(one[0], out[0][:, rows]) and torch.equal(one[1], out[1][rows])
-                         and torch.equal(one[2], out[2][rows]))
-        ms = cuda_ms(lambda: L.lstm_scan(*args), 3)
-        # a race in the exchange of h would move the output between runs
-        repeats = all(all(torch.equal(a, b) for a, b in zip(L.lstm_scan(*args), out))
-                      for _ in range(SCAN_REPEATS))
+        plain_ms = start.elapsed_time(end)
+        default = L.scan_form(G, whh.dtype)
         bound = scan_bound(T_SEG, R_CHAINS * B, G, args[:4])
         key = f"G{G}_B{B}" + ("_bf16" if dt == "bfloat16" else "")
-        fig["shapes"][key] = {"ms": ms, "plain_ms": start.elapsed_time(end), "bound_ms": bound[0],
-                              "bound_by": bound[1], "us_per_step": ms / T_SEG * 1e3,
-                              "max_abs_err": err, "form": form, "rows_bit_equal": same,
-                              "repeats_bit_equal": repeats}
-        print(f"lstm_scan vs plain (T={T_SEG}, R={R_CHAINS}, B={B}, G={G}, W_hh {dt}): max|err| "
-              f"{err:.3g} (gate {SCAN_ATOL}); form (blocks per chain, blocks held at once, chain "
-              f"groups, row groups) {form}; rows bit-equal to B 1: {same}; {SCAN_REPEATS} more runs bit-equal: {repeats}; kernel {ms:.4f} ms = "
-              f"{ms / T_SEG * 1e3:.3f} us a step, plain {start.elapsed_time(end):.4f} ms, bound "
-              f"{bound[0]:.4f} ms by {bound[1]} (the steps depend on each other)  [{smi}]")
-        require(err <= SCAN_ATOL, f"lstm_scan disagrees with plain at G {G}, B {B}, {dt}: {err}")
-        require(same is not False, f"lstm_scan rows at B {B} are not their B 1 bits")
-        require(repeats, f"lstm_scan at G {G}, B {B}, {dt} gave other bits on another run")
+        row = {"plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+               "default_form": default, "forms": {}}
+        # both forms where the resident one takes G, the default first
+        for form in sorted(scan_forms_at(G), key=lambda f: f != default):
+            out = L.lstm_scan(xp, whh, h0, c0, B, _form=form)
+            torch.cuda.synchronize()
+            got = L.lstm_scan.form
+            err = max(max_err(a, b) for a, b in zip(out, ref))
+            worst = max(worst, err)
+            same = None
+            if B > 1:
+                same = True
+                for b in range(B):
+                    rows = torch.arange(R_CHAINS, device=dev) * B + b
+                    one = L.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                                      c0[rows].contiguous(), 1, _form=form)
+                    same &= (torch.equal(one[0], out[0][:, rows])
+                             and torch.equal(one[1], out[1][rows])
+                             and torch.equal(one[2], out[2][rows]))
+            ms = cuda_ms(lambda: L.lstm_scan(xp, whh, h0, c0, B, _form=form), 3)
+            # a race in the exchange of h would move the output between runs
+            repeats = all(all(torch.equal(a, b) for a, b in zip(L.lstm_scan(xp, whh, h0, c0, B,
+                                                                            _form=form), out))
+                          for _ in range(SCAN_REPEATS))
+            row["forms"][form] = {"ms": ms, "us_per_step": ms / T_SEG * 1e3, "max_abs_err": err,
+                                  "form": got, "rows_bit_equal": same, "repeats_bit_equal": repeats}
+            print(f"lstm_scan vs plain (T={T_SEG}, R={R_CHAINS}, B={B}, G={G}, W_hh {dt}), {form} "
+                  f"form{' (the default)' if form == default else ''}: max|err| {err:.3g} (gate "
+                  f"{SCAN_ATOL}); form (form, blocks per chain, blocks held at once, chain groups, "
+                  f"row groups) {got}; rows bit-equal to B 1: {same}; {SCAN_REPEATS} more runs "
+                  f"bit-equal: {repeats}; kernel {ms:.4f} ms = {ms / T_SEG * 1e3:.3f} us a step "
+                  f"(before W_hh stayed on the chip {SCAN_EARLIER_MS.get(key)}), plain "
+                  f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} (the steps depend on "
+                  f"each other)  [{smi}]")
+            require(got[0] == form, f"lstm_scan ran {got} when {form} was asked for")
+            require(err <= SCAN_ATOL, f"lstm_scan ({form}) disagrees with plain at G {G}, B {B}, "
+                                      f"{dt}: {err}")
+            require(same is not False, f"lstm_scan ({form}) rows at B {B} are not their B 1 bits")
+            require(repeats, f"lstm_scan ({form}) at G {G}, B {B}, {dt} gave other bits on "
+                             f"another run")
+            del out
+        forms = row["forms"]
+        row.update({k: forms[default][k] for k in ("ms", "us_per_step", "form", "rows_bit_equal",
+                                                   "repeats_bit_equal")})
+        row["max_abs_err"] = max(f["max_abs_err"] for f in forms.values())
+        if "resident" in forms:
+            require(forms["resident"]["ms"] < forms["streaming"]["ms"],
+                    f"lstm_scan at G {G}, B {B}, {dt}: the resident form "
+                    f"({forms['resident']['ms']} ms) is not faster than the streaming one "
+                    f"({forms['streaming']['ms']} ms)")
+        fig["shapes"][key] = row
         if (G, B, dt) == (G_HIDDEN, 1, "float32"):
             args_main = args
-        del out, ref, args, xp, whh, h0, c0
+        del ref, args, xp, whh, h0, c0
     # the yardstick: four nn.LSTM(bidirectional) f32 calls at the same T and
     # G, the UMX-L layer's input width (they also compute the ih product)
     lstm = torch.nn.LSTM(2 * G_HIDDEN, G_HIDDEN, bidirectional=True).to(dev)
@@ -3742,6 +3851,9 @@ SCAN_BWD_RTOL = 1e-4
 SCAN_TRAIN_CPU_BATCH, SCAN_TRAIN_CPU_FRAMES = 4, 64
 SCAN_TRAIN_LOSS_RTOL, SCAN_TRAIN_GRAD_TOL, SCAN_TRAIN_GRAD_CAP = 1e-5, 2e-4, 2e-3
 SCAN_TRAIN_LSTM_FIELDS = ("lstm_ih_w", "lstm_hh_w", "lstm_ih_b", "lstm_hh_b")
+# K10 with residuals and K11 at the UMX-L training shape on an H100 80GB
+# HBM3 at 700 W before W_hh stayed on the chip, printed beside the new ones
+SCAN_TRAIN_EARLIER_MS = {"lstm_scan_train_fwd": 4.5161, "lstm_scan_bwd_step": 6.3962}
 SCAN_TRAIN_HIDDEN = 1024  # UMX-L
 # the stress run of K10 and K11's tagged exchange
 STRESS_T, STRESS_BS, STRESS_GS, STRESS_LAUNCHES = 64, (1, 3, 6, 16, 20), (18, 256, 512, 640), 2000
@@ -3788,48 +3900,69 @@ def check_scan_train_kernels(dev, smi: str) -> dict:
     main = None
     for G, B in SCAN_TRAIN_SHAPES:
         xp, whh, h0, c0, cts = scan_train_inputs(dev, T_TRAIN, B, G, seed=900 + G + B)
-        fwd = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
-        fwd_form = L.lstm_scan_train_fwd.form
-        k10 = L.lstm_scan(xp, whh, h0, c0, B)
-        fwd_bits = all(torch.equal(a, b) for a, b in zip(fwd[:3], k10))
-        fwd_err = max(max_err(a, b) for a, b in
-                      zip(fwd, L.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)))
-        _, _, _, gates, cs = fwd
-        ref = L.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
-        row = {"fwd_bit_equal_k10": fwd_bits, "fwd_max_abs_err": fwd_err, "fwd_form": fwd_form}
-        out = L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
-        torch.cuda.synchronize()
-        err = max(rel_to_max(a, b) for a, b in zip(out, ref))
-        abs_err = max(max_err(a, b) for a, b in zip(out, ref))
-        alone = True
-        for b in (0, B - 1):
-            rows = torch.arange(R_CHAINS, device=dev) * B + b
-            one = L.lstm_scan_bwd_step(
-                gates[:, rows].contiguous(), cs[:, rows].contiguous(), c0[rows].contiguous(),
-                whh, cts[0][:, rows].contiguous(), cts[1][rows].contiguous(),
-                cts[2][rows].contiguous(), 1)
-            alone &= (torch.equal(one[0], out[0][:, rows]) and torch.equal(one[1], out[1][rows])
-                      and torch.equal(one[2], out[2][rows]))
-        repeats = all(all(torch.equal(a, b) for a, b in zip(
-            L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B), out))
-            for _ in range(SCAN_TRAIN_REPEATS))
-        row["bwd"] = {"rel_err": err, "max_abs_err": abs_err, "rows_bit_equal": alone,
-                      "repeats_bit_equal": repeats, "form": L.lstm_scan_bwd_step.form}
-        require(err <= SCAN_BWD_RTOL, f"K11 disagrees with plain at G {G}, B {B}: {err}")
-        require(alone, f"K11 rows at G {G}, B {B} are not their bits alone")
-        require(repeats, f"K11 at G {G}, B {B} gave other bits on another run")
-        dxp = out[0]
-        print(f"lstm_scan_train_fwd (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): hs/hT/cT bit-equal "
-              f"to lstm_scan {fwd_bits}; max|err| vs plain {fwd_err:.3g} (gate {SCAN_ATOL}); form "
-              f"{fwd_form}; lstm_scan_bwd_step vs plain, of max|out|: {err:.3g} (form "
-              f"{row['bwd']['form']}, gate {SCAN_BWD_RTOL}); rows bit-equal alone and "
-              f"{SCAN_TRAIN_REPEATS} repeats bit-equal: all  [{smi}]")
-        require(fwd_bits, f"K10 with residuals is not K10's bits at G {G}, B {B}")
-        require(fwd_err <= SCAN_ATOL, f"K10's residuals disagree with plain at G {G}, B {B}")
+        fwd_ref = L.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
+        row = {"default_form": L.scan_form(G, whh.dtype), "forms": {}}
+        bwd_ref = bwd_by_form = None
+        for form in scan_forms_at(G):
+            fwd = L.lstm_scan_train_fwd(xp, whh, h0, c0, B, _form=form)
+            fwd_form = L.lstm_scan_train_fwd.form
+            k10 = L.lstm_scan(xp, whh, h0, c0, B, _form=form)
+            fwd_bits = all(torch.equal(a, b) for a, b in zip(fwd[:3], k10))
+            fwd_err = max(max_err(a, b) for a, b in zip(fwd, fwd_ref))
+            _, _, _, gates, cs = fwd
+            if bwd_ref is None:  # the residuals of every form agree within 1e-4; K11's
+                # plain version runs once, on the first form's
+                bwd_ref = L.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
+                bwd_in = (gates, cs)
+            out = L.lstm_scan_bwd_step(*bwd_in, c0, whh, *cts, B, _form=form)
+            torch.cuda.synchronize()
+            err = max(rel_to_max(a, b) for a, b in zip(out, bwd_ref))
+            abs_err = max(max_err(a, b) for a, b in zip(out, bwd_ref))
+            alone = True
+            for b in (0, B - 1):
+                rows = torch.arange(R_CHAINS, device=dev) * B + b
+                one = L.lstm_scan_bwd_step(
+                    bwd_in[0][:, rows].contiguous(), bwd_in[1][:, rows].contiguous(),
+                    c0[rows].contiguous(), whh, cts[0][:, rows].contiguous(),
+                    cts[1][rows].contiguous(), cts[2][rows].contiguous(), 1, _form=form)
+                alone &= (torch.equal(one[0], out[0][:, rows]) and torch.equal(one[1], out[1][rows])
+                          and torch.equal(one[2], out[2][rows]))
+            repeats = all(all(torch.equal(a, b) for a, b in zip(
+                L.lstm_scan_bwd_step(*bwd_in, c0, whh, *cts, B, _form=form), out))
+                for _ in range(SCAN_TRAIN_REPEATS))
+            # K11's two forms sum in one order: the same bits on the same residuals
+            same_bits = bwd_by_form is None or all(torch.equal(a, b)
+                                                   for a, b in zip(out, bwd_by_form))
+            bwd_by_form = out
+            row["forms"][form] = {
+                "fwd_bit_equal_k10": fwd_bits, "fwd_max_abs_err": fwd_err, "fwd_form": fwd_form,
+                "bwd": {"rel_err": err, "max_abs_err": abs_err, "rows_bit_equal": alone,
+                        "repeats_bit_equal": repeats, "form": L.lstm_scan_bwd_step.form,
+                        "bit_equal_other_form": same_bits}}
+            print(f"lstm_scan_train_fwd (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}), {form} form: "
+                  f"hs/hT/cT bit-equal to lstm_scan {fwd_bits}; max|err| vs plain {fwd_err:.3g} "
+                  f"(gate {SCAN_ATOL}); form {fwd_form}; lstm_scan_bwd_step vs plain, of max|out|: "
+                  f"{err:.3g} (form {L.lstm_scan_bwd_step.form}, gate {SCAN_BWD_RTOL}); rows "
+                  f"bit-equal alone {alone}, {SCAN_TRAIN_REPEATS} repeats bit-equal {repeats}, the "
+                  f"forms bit-equal {same_bits}  [{smi}]")
+            require(fwd_bits, f"K10 with residuals ({form}) is not K10's bits at G {G}, B {B}")
+            require(fwd_err <= SCAN_ATOL, f"K10's residuals ({form}) disagree with plain at G {G}, "
+                                          f"B {B}")
+            require(err <= SCAN_BWD_RTOL, f"K11 ({form}) disagrees with plain at G {G}, B {B}: "
+                                          f"{err}")
+            require(alone, f"K11 ({form}) rows at G {G}, B {B} are not their bits alone")
+            require(repeats, f"K11 ({form}) at G {G}, B {B} gave other bits on another run")
+            require(same_bits, f"K11's two forms give other bits at G {G}, B {B}")
+            if (G, B, form) == (G_HIDDEN, B_TRAIN, row["default_form"]):
+                main = (xp, whh, h0, c0, cts, gates, cs, fwd[0], out[0])
+            del fwd, k10, one
+        forms = row["forms"]
+        row.update(forms[row["default_form"]])
+        row["fwd_max_abs_err"] = max(f["fwd_max_abs_err"] for f in forms.values())
+        row["bwd"] = dict(row["bwd"], max_abs_err=max(f["bwd"]["max_abs_err"]
+                                                      for f in forms.values()))
         fig["shapes"][f"G{G}_B{B}"] = row
-        if (G, B) == (G_HIDDEN, B_TRAIN):
-            main = (xp, whh, h0, c0, cts, gates, cs, fwd[0], dxp)
-        del xp, whh, h0, c0, cts, fwd, k10, gates, cs, ref, out, dxp
+        del xp, whh, h0, c0, cts, fwd_ref, bwd_ref, bwd_in, bwd_by_form, out
 
     # timings at the UMX-L training shape
     xp, whh, h0, c0, cts, gates, cs, hs, dxp = main
@@ -3838,6 +3971,17 @@ def check_scan_train_kernels(dev, smi: str) -> dict:
     t = {"lstm_scan_train_fwd": cuda_ms(lambda: L.lstm_scan_train_fwd(*fwd_args), 3),
          "lstm_scan": cuda_ms(lambda: L.lstm_scan(*fwd_args), 3)}
     t["lstm_scan_bwd_step"] = cuda_ms(lambda: L.lstm_scan_bwd_step(*bwd_args), 3)
+    fig["form"] = {"lstm_scan_train_fwd": L.lstm_scan_train_fwd.form,
+                   "lstm_scan_bwd_step": L.lstm_scan_bwd_step.form}
+    # the streaming forms at the same shape, in the same call
+    for name, fn, a in (("lstm_scan_train_fwd", L.lstm_scan_train_fwd, fwd_args),
+                        ("lstm_scan", L.lstm_scan, fwd_args),
+                        ("lstm_scan_bwd_step", L.lstm_scan_bwd_step, bwd_args)):
+        t[f"{name}_streaming"] = cuda_ms(lambda: fn(*a, _form="streaming"), 3)
+    for name in ("lstm_scan_train_fwd", "lstm_scan_bwd_step"):
+        require(t[name] < t[f"{name}_streaming"],
+                f"{name} at the training shape: the resident form ({t[name]} ms) is not faster "
+                f"than the streaming one ({t[f'{name}_streaming']} ms)")
     t["lstm_scan_dw_bmm"] = cuda_ms(lambda: L.lstm_scan_dw(hs, h0, dxp, B), 5)
     plain = {"lstm_scan_train_fwd": cuda_ms(lambda: L.lstm_scan_train_fwd_plain(*fwd_args), 1),
              "lstm_scan_bwd_step": cuda_ms(lambda: L.lstm_scan_bwd_step_plain(*bwd_args), 1)}
@@ -3866,8 +4010,10 @@ def check_scan_train_kernels(dev, smi: str) -> dict:
     t["nn_lstm_x4_fwd_bwd"] = cuda_ms(yardstick, 2)
     del lstm, x, gy
     for name, ms in t.items():
+        before = (f" (before W_hh stayed on the chip {SCAN_TRAIN_EARLIER_MS[name]})"
+                  if name in SCAN_TRAIN_EARLIER_MS else "")
         print(f"{name} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G_HIDDEN}): {ms:.4f} ms = "
-              f"{ms / T_TRAIN * 1e3:.3f} us a step  [{smi}]")
+              f"{ms / T_TRAIN * 1e3:.3f} us a step{before}  [{smi}]")
     print(f"bounds: K10 with residuals {bounds['lstm_scan_train_fwd'][0]:.4f} ms by "
           f"{bounds['lstm_scan_train_fwd'][1]}, K11 {bounds['lstm_scan_bwd_step'][0]:.4f} ms by "
           f"{bounds['lstm_scan_bwd_step'][1]}, dW {bounds['lstm_scan_dw_bmm'][0]:.4f} ms by "
@@ -4079,15 +4225,20 @@ def stress_scan(dev, smi: str) -> dict:
     side.wait_stream(torch.cuda.current_stream(dev))
     cases = []
     for G in STRESS_GS:
-        per = min(L._scan_capacity(dev.index, G, False, k)[1] // L.scan_blocks_per_chain(G)
+        form = L.scan_form(G, torch.float32)  # each width in the form it runs in
+        per = min(L._scan_capacity(dev.index, G, False, k, form)[1] // L.scan_blocks_per_chain(G)
                   for k in ("K10", "K10r"))
-        per_bwd = L._scan_capacity(dev.index, G, False, "K11")[1] // L.scan_blocks_per_chain(G)
+        per_bwd = (L._scan_capacity(dev.index, G, False, "K11", form)[1]
+                   // L.scan_blocks_per_chain(G))
         for R in sorted({R_CHAINS, per + 1, per_bwd + 1}):
             for B in STRESS_BS:
                 cases.append((G, R, B))
     kernels = ("lstm_scan", "lstm_scan_train_fwd", "lstm_scan_bwd_step")
-    rounds = -(-STRESS_LAUNCHES // (len(cases) * len(kernels)))
+    # at least STRESS_LAUNCHES launches of the resident forms alone
+    resident_cases = sum(L.scan_form(G, torch.float32) == "resident" for G, _, _ in cases)
+    rounds = -(-STRESS_LAUNCHES // (resident_cases * len(kernels)))
     launches, mismatches, beside, groups = 0, 0, 0, set()
+    by_form = {f: 0 for f in L.SCAN_FORMS}
     for G, R, B in cases:
         xp, whh, h0, c0, cts = scan_train_inputs(dev, STRESS_T, B, G, seed=G + R + B, R=R)
         first = {}
@@ -4097,12 +4248,13 @@ def stress_scan(dev, smi: str) -> dict:
                     L.lstm_merged(*k1_args)
                 beside += 1
             outs = {"lstm_scan": L.lstm_scan(xp, whh, h0, c0, B)}
-            groups.add(L.lstm_scan.form[2])
+            groups.add(L.lstm_scan.form[3])
             outs["lstm_scan_train_fwd"] = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
             gates, cs = outs["lstm_scan_train_fwd"][3:]
             outs["lstm_scan_bwd_step"] = L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
-            groups.add(L.lstm_scan_bwd_step.form[2])
+            groups.add(L.lstm_scan_bwd_step.form[3])
             launches += len(outs)
+            by_form[L.lstm_scan_bwd_step.form[0]] += len(outs)
             if not first:
                 first = outs
                 continue
@@ -4114,13 +4266,15 @@ def stress_scan(dev, smi: str) -> dict:
     wall = time.perf_counter() - t0
     print(f"stress: {mismatches} mismatches in {launches} launches of K10, K10 with residuals "
           f"and K11 (T {STRESS_T}, B {STRESS_BS}, G {STRESS_GS}, {len(cases)} shapes, chain "
-          f"groups {sorted(groups)}; {beside} rounds with K1 on a second stream), {wall:.1f} s "
-          f"wall  [{smi}]")
-    require(launches >= STRESS_LAUNCHES, f"the stress run made {launches} launches")
+          f"groups {sorted(groups)}; {beside} rounds with K1 on a second stream; launches by "
+          f"form {by_form}), {wall:.1f} s wall  [{smi}]")
+    require(by_form["resident"] >= STRESS_LAUNCHES,
+            f"the stress run made {by_form['resident']} launches of the resident forms")
     require(max(groups) >= 2, f"the stress run never split the chains: {groups}")
     require(mismatches == 0, f"the stress run found {mismatches} outputs off their first run's bits")
-    return {"launches": launches, "mismatches": mismatches, "shapes": len(cases),
-            "chain_groups": sorted(groups), "rounds_beside_k1": beside, "wall_s": wall}
+    return {"launches": launches, "launches_by_form": by_form, "mismatches": mismatches,
+            "shapes": len(cases), "chain_groups": sorted(groups), "rounds_beside_k1": beside,
+            "wall_s": wall}
 
 
 def wide_auto_demix(dev, tmp: str, counters: dict, smi: str) -> dict:
@@ -4188,6 +4342,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    phase_done("start")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4204,6 +4359,7 @@ def main() -> int:
     _build.library()
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.2f} s -> {os.path.relpath(lib_path)}  [{smi}]")
+    phase_done("1 build")
     log = lib_path.with_name(lib_path.name + ".log")
     if log.is_file():
         for line in log.read_text().splitlines():
@@ -4230,6 +4386,7 @@ def main() -> int:
     mode_args, mode_errs, mode_bf16 = check_wiener_modes(dev, *wiener_args[:3], smi)
     check_reduce_launches(wiener_args, mode_args)
     bf16_forms = {**wiener_bf16, **mode_bf16}
+    phase_done("3, 10 Wiener and K9 kernels")
 
     lstm_args, lstm_err = check_lstm(dev, T_SEG, 1, seed=0)
     lstm16_args, lstm16_err = check_lstm(dev, T_TRAIN, B_TRAIN, seed=16)  # two n-tiles of rows
@@ -4237,6 +4394,9 @@ def main() -> int:
     ola_args, ola_err = check_ola(dev)
     istft8_args, istft_err = check_istft_ct(
         dev, [(ISTFT_ROWS, T_SEG), (3, 37), (5, 37), (1, 3)], seed=4)
+    istft_size_args, err = check_istft_sizes(dev, smi)
+    istft_err = max(istft_err, err)
+    phase_done("2, 7 K1, K7, K8 kernels")
 
     with tempfile.TemporaryDirectory(prefix="umx_smoke_") as tmp:
         model, wav, mix = write_inputs(tmp)
@@ -4248,6 +4408,7 @@ def main() -> int:
               f"{host_s:.3f} s  [{smi}]")
         resample_s = resample_path(tmp, model, counters, smi)
         serving = serving_path(model, wav, mix, counters, smi)
+        phase_done("4, 13 demix paths and serving")
 
         from umx_tpu_torch.engine.separator import Separator
 
@@ -4285,6 +4446,7 @@ def main() -> int:
         anchors = planner_anchors(bsep, mix, smi)
         del bsep
         batched_err = batched_gpu_vs_cpu(model, mix)
+        phase_done("8, 9 batched path")
 
         # K1 and K8 against their plain versions at the shapes the batched
         # path ran them at (after its counts were read)
@@ -4310,20 +4472,29 @@ def main() -> int:
         mode_launches, planes_err, planes_errs = planes_entry(csep, long_track)
         cat_anchors = catalogue_anchors(csep, tracks, smi)
         del csep
+        phase_done("11 catalogue")
 
         train_args, train_errs = check_train_kernels(dev)
         check_train_resident(dev)
         train_launches, steps_per_s, wide_steps_per_s, held_out = training_path(tmp, counters,
                                                                                   smi)
+        phase_done("5, 6 training")
         evaluation = evaluation_path(tmp, held_out, counters, smi)
+        phase_done("14 evaluation")
         parity, (k1_half, k1_half_args), err = parity_phase(dev, counters, smi)
         path_lstm_args[k1_half] = k1_half_args
         lstm_err = max(lstm_err, err)
+        phase_done("15 parity")
         certification = certification_phase(tmp, model, mix, counters, smi)
+        phase_done("16 certification")
         mesh = mesh_phase(dev, tmp, model, mix, list(tracks.values())[:3], counters, smi)
+        phase_done("17 mesh")
         stream = stream_phase(dev, model, wav, mix, counters, smi)
+        phase_done("18 stream schedules")
         scan, scan_args = scan_phase(dev, tmp, model, wav, mix, counters, smi)
+        phase_done("19 float32 recurrence")
         scan_train = scan_train_phase(dev, tmp, counters, smi)
+        phase_done("20 training through it")
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -4442,6 +4613,33 @@ def main() -> int:
         require(times["istft_ct2"][0] < EARLIER["istft_ct2_ms"],
                 f"istft_ct2 ({times['istft_ct2'][0]} ms) is not faster than its earlier form "
                 f"({EARLIER['istft_ct2_ms']} ms)")
+        require(times["istft_ct2"][0] <= ISTFT_4096_SLACK * ISTFT_4096_MS,
+                f"istft_ct2 at n_fft 4096 ({times['istft_ct2'][0]} ms) is slower than "
+                f"{ISTFT_4096_SLACK} x its figure before the kernel took every n_fft "
+                f"({ISTFT_4096_MS} ms)")
+    # K8 at the other n_fft: kernel, plain version, torch.istft, bound
+    k8_sizes = {}
+    for n, a in istft_size_args.items():
+        re_n, im_n, _, hop_n, w_n = a
+        T_n, F_n = re_n.shape[1], re_n.shape[2]
+        spec = torch.complex(re_n, im_n).transpose(-1, -2).contiguous()
+        spec.imag[:, 0] = 0.0
+        spec.imag[:, -1] = 0.0
+        ms = cuda_ms(lambda: istft_ct_cuda.istft_ct2(*a), 10)
+        form = istft_ct_cuda.istft_ct2.form
+        plain_ms = cuda_ms(lambda: istft_ct.istft_ct2_plain(*a), 5)
+        lib_ms = cuda_ms(lambda: torch.istft(spec, n_fft=n, hop_length=hop_n, window=w_n,
+                                             center=True, normalized=False, onesided=True,
+                                             length=(T_n - 1) * hop_n), 5)
+        bound = bound_ms(2 * ISTFT_ROWS * T_n * F_n * 4 + ISTFT_ROWS * ((T_n - 1) * hop_n + n) * 4,
+                         ISTFT_ROWS * T_n * (2.5 * n * math.log2(n) + 2 * n), "f32")
+        k8_sizes[n] = {"rows": ISTFT_ROWS, "frames": T_n, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                       "form": form}
+        print(f"istft_ct2 at n_fft {n} ({ISTFT_ROWS} rows x {T_n} frames, a 60 s segment): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.istft {lib_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]}; form {form}  [{smi}]")
+        del spec
     istft8 = (ISTFT_ROWS, T_SEG)
     if istft8 in istft_args and istft8 != k8_shape:
         k8 = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*istft_args[istft8]), 10),
@@ -4528,6 +4726,7 @@ def main() -> int:
           f"{times['istft_ct2'][0]:.4f} ms (earlier form {EARLIER['istft_ct2_ms']} at "
           f"{ISTFT_EARLIER_SHAPE}), one launch, (runs per row, hops per run) {k8_form}")
 
+    phase_done("12 timings")
     wsrc, wrep = "umx_tpu_torch/csrc/wiener.cu", "umx_tpu/ops/wiener_pallas.py"
     st_kernels = scan_train["kernels"]
     meta = {
@@ -4612,6 +4811,24 @@ def main() -> int:
     for k in kernels:
         if k["name"] in bf16_forms:
             k["f32_form_ms"] = bf16_forms[k["name"]]["f32_ms"]
+    # each row's form: the Wiener passes' storage form; K8's run plan and
+    # radices, K10's, K10 with residuals' and K11's form at the timed shape;
+    # the others as their wrapper last ran
+    row_forms = {name: WIENER_FORMS[name][1] for name in meta if name in WIENER_FORMS}
+    row_forms.update({"istft_ct2": k8_form, "lstm_scan": scan["shapes"]["G512_B1"]["form"],
+                      **st_kernels["form"]})
+    for k in kernels:
+        k["form"] = row_forms.get(k["name"], getattr(counters.get(k["name"]), "form", None))
+    k8_row = next(k for k in kernels if k["name"] == "istft_ct2")
+    k8_row["n_fft"] = 4096
+    k8_row["other_n_fft"] = k8_sizes
+    k10_row = next(k for k in kernels if k["name"] == "lstm_scan")
+    k10_row["streaming_ms"] = scan["shapes"]["G512_B1"]["forms"]["streaming"]["ms"]
+    k10_row["by_shape_ms"] = {key: {f: v["ms"] for f, v in row["forms"].items()}
+                              for key, row in scan["shapes"].items()}
+    for name in ("lstm_scan_train_fwd", "lstm_scan_bwd_step"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["streaming_ms"] = st_kernels["ms"][f"{name}_streaming"]
     # K1's launches by chain count on the CLI's pipelined run (phase 18)
     kernels[0]["pipelined_launches_by_chains"] = stream["k1_chain_launches"]
     kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
@@ -4620,6 +4837,8 @@ def main() -> int:
     k11 = next(k for k in kernels if k["name"] == "lstm_scan_bwd_step")
     k11["nn_lstm_x4_fwd_bwd_yardstick_ms"] = st_kernels["ms"]["nn_lstm_x4_fwd_bwd"]
     k11["dw_bmm_ms"] = st_kernels["ms"]["lstm_scan_dw_bmm"]
+    print(f"phase seconds: {json.dumps(PHASE_S)}; {sum(PHASE_S.values()):.1f} s in all  "
+          f"[{smi}]")
     print(json.dumps({"kernels": kernels, "build_s": build_s, "demix_s": demix_s,
                       "gpu_vs_cpu_rel_err": cpu_err, "bf16_default_vs_cpu": bf16_vs_cpu,
                       "wiener_bf16_forms": {n: {k: v for k, v in f.items() if k != "bound"}
@@ -4652,7 +4871,7 @@ def main() -> int:
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
                       "serving": serving, "evaluation": evaluation, "parity": parity,
                       "certification": certification, "mesh": mesh, "stream": stream,
-                      "scan": scan, "scan_train": scan_train}))
+                      "scan": scan, "scan_train": scan_train, "phase_s": PHASE_S}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

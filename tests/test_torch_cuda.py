@@ -478,8 +478,9 @@ def test_istft_ct_kernel_matches_plain(dev, rows, T, windowed):
     torch.cuda.synchronize()
     assert istft_ct_cuda.istft_ct2.launches == before + 1
     assert out.shape == (rows, (T - 1) * 1024 + 4096)
-    per_row, hops_per_run = istft_ct_cuda.istft_ct2.form
+    per_row, hops_per_run, plan = istft_ct_cuda.istft_ct2.form
     assert per_row * hops_per_run >= T + 3 > (per_row - 1) * hops_per_run
+    assert plan == (16, 16, 8)
     plain = istft_ct.istft_ct2_plain(re, im, 4096, 1024, w)
     f64 = istft_ct.istft_ct2_plain(re.cpu().double(), im.cpu().double(), 4096, 1024,
                                    w.cpu().double() if windowed else None)
@@ -487,6 +488,51 @@ def test_istft_ct_kernel_matches_plain(dev, rows, T, windowed):
     assert (out - plain).abs().max().item() <= 1e-5
     assert (out.cpu().double() - f64).abs().max().item() <= 1e-6
     assert torch.equal(out, istft_ct_cuda.istft_ct2(re, im, 4096, 1024, w))
+
+
+@pytest.mark.parametrize("rows, T", [(3, 37), (48, 130), (1, 1), (500, 2)])
+@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 5120, 6144, 7168, 8192, 12288, 15360,
+                                   16384])
+def test_istft_ct_kernel_at_every_n_fft(dev, n_fft, rows, T):
+    """K8's mixed-radix form (a DFT of n_fft/1024 points, then three
+    radix-8 passes) against its plain version and float64, windowed, at
+    sizes that are and are not powers of two; one launch, bit-stable."""
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    F, hop = n_fft // 2 + 1, n_fft // 4
+    g = torch.Generator(device=dev).manual_seed(n_fft + rows * T)
+    re = torch.randn((rows, T, F), generator=g, device=dev)
+    im = torch.randn((rows, T, F), generator=g, device=dev)
+    w = hann_window(n_fft, dev)
+    before = istft_ct_cuda.istft_ct2.launches
+    out = istft_ct_cuda.istft_ct2(re, im, n_fft, hop, w)
+    torch.cuda.synchronize()
+    assert istft_ct_cuda.istft_ct2.launches == before + 1
+    assert istft_ct_cuda.istft_ct2.form[2] == istft_ct_cuda.istft_radix_plan(n_fft)
+    assert out.shape == (rows, (T - 1) * hop + n_fft)
+    plain = istft_ct.istft_ct2_plain(re, im, n_fft, hop, w)
+    n64 = min(rows, 8)
+    f64 = istft_ct.istft_ct2_plain(re[:n64].cpu().double(), im[:n64].cpu().double(), n_fft, hop,
+                                   w.cpu().double())
+    assert (out - plain).abs().max().item() <= 1e-5
+    assert (out[:n64].cpu().double() - f64).abs().max().item() <= 1e-6
+    assert torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n_fft, hop, w))
+
+
+def test_istft_ct_kernel_block_fits_at_every_n_fft(dev):
+    """What K8 reports of its blocks at every n_fft = 1024 k up to 16384:
+    the frame and the ring fit a block's shared memory, at least one block
+    an SM; the next size has no form."""
+    from umx_tpu_torch.ops import istft_ct_cuda
+
+    props = torch.cuda.get_device_properties(dev)
+    for k in range(1, 17):
+        blocks, smem = istft_ct_cuda.istft_block_layout(dev.index, 1024 * k)
+        assert 0 < smem <= props.shared_memory_per_block_optin
+        assert blocks >= props.multi_processor_count
+    with pytest.raises(RuntimeError):
+        istft_ct_cuda.istft_block_layout(dev.index, 17 * 1024)
 
 
 def test_istft_ct_kernel_allocates_no_frames_buffer(dev):
@@ -518,9 +564,9 @@ def test_istft_ct_kernel_refuses_other_geometry(dev):
     small = torch.zeros((2, 4, 751), device=dev)
     with pytest.raises(ValueError, match="1024 | n_fft"):
         istft_ct_cuda.istft_ct2(small, small, 1500, 375)
-    big = torch.zeros((2, 4, 4097), device=dev)
-    with pytest.raises(ValueError, match="n_fft = 4096"):
-        istft_ct_cuda.istft_ct2(big, big, 8192, 2048)
+    big = torch.zeros((2, 4, 16385), device=dev)
+    with pytest.raises(ValueError, match="up to 16384"):  # the largest frame a block holds
+        istft_ct_cuda.istft_ct2(big, big, 32768, 8192)
     assert istft_ct_cuda.istft_ct2.launches == before
 
 
@@ -1471,24 +1517,37 @@ def _scan_inputs(dev, T, R, B, G, seed, dtype=torch.float32):
     return xp, whh, h0, c0
 
 
-@pytest.mark.parametrize("T, R, B, G, dtype", [
+# (T, R, B, G, W_hh dtype) of K10's tests, and the forms each shape takes:
+# both at G <= 512 (the resident form by default), the streaming one above
+_SCAN_SHAPES = [
     (37, 3, 3, 40, torch.float32), (9, 8, 1, 512, torch.float32), (5, 2, 6, 18, torch.bfloat16),
     (7, 8, 20, 512, torch.float32), (11, 8, 1, 640, torch.float32), (1, 2, 1, 1, torch.float32),
-    (3, 1, 9, 4096, torch.bfloat16),
-])
-def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype):
-    """K10 at ragged widths (G 1, 18, 40: no multiple of 8 needed; G 640
-    and 4096 beyond K1), W_hh in f32 and bf16, rows beyond one launch (B
-    20: groups of 16 and 4; G 4096, B 9: of 8 and 1, the rows that fit a
-    block's shared memory)."""
+    (3, 1, 9, 4096, torch.bfloat16), (9, 8, 16, 512, torch.bfloat16), (13, 8, 3, 256, torch.float32),
+]
+
+
+def _with_forms(shapes):
+    return [(*shape, form) for shape in shapes for form in lstm_cuda.SCAN_FORMS
+            if form == "streaming" or shape[3] <= lstm_cuda.SCAN_RESIDENT_G_MAX]
+
+
+@pytest.mark.parametrize("T, R, B, G, dtype, form", _with_forms(_SCAN_SHAPES))
+def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype, form):
+    """K10 in each form at ragged widths (G 1, 18, 40: no multiple of 8
+    needed; G 640 and 4096 beyond K1), W_hh in f32 and bf16, rows beyond
+    one launch (B 20: groups of 16 and 4; G 4096, B 9: of 8 and 1, the rows
+    that fit a block's shared memory)."""
     xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed=T + G)
     before = lstm_cuda.lstm_scan.launches
-    out_k = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+    out_k = lstm_cuda.lstm_scan(xp, whh, h0, c0, B, _form=form)
     torch.cuda.synchronize()
     assert lstm_cuda.lstm_scan.launches == before + 1
-    rows, _ = lstm_cuda._scan_capacity(dev.index, G, dtype == torch.bfloat16)
+    rows, _ = lstm_cuda._scan_capacity(dev.index, G, dtype == torch.bfloat16, "K10", form)
     assert rows == (8 if G == 4096 else 16)  # the H100's 227 KiB of shared memory a block
-    assert lstm_cuda.lstm_scan.form[3] == len(lstm_cuda.scan_row_groups(B, rows))
+    assert lstm_cuda.lstm_scan.form[0] == form
+    assert lstm_cuda.lstm_scan.form[4] == len(lstm_cuda.scan_row_groups(B, rows))
+    lstm_cuda.lstm_scan(xp, whh, h0, c0, B)  # the default form: resident up to G 512
+    assert lstm_cuda.lstm_scan.form[0] == lstm_cuda.scan_form(G, dtype)
     out_p = lstm_cuda.lstm_scan_plain(xp, whh, h0, c0, B)
     # f32 products of the same operands, summed in another order
     for k, p in zip(out_k, out_p):
@@ -1496,28 +1555,59 @@ def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype):
     assert torch.equal(c0, _scan_inputs(dev, T, R, B, G, seed=T + G)[3])  # c0 untouched
 
 
-@pytest.mark.parametrize("B, G", [(3, 512), (17, 40)])
-def test_scan_kernel_rows_are_bit_equal_alone(dev, B, G):
+@pytest.mark.parametrize("kernel", ["K10", "K10r", "K11"])
+@pytest.mark.parametrize("G", [18, 256, 512, 640])
+def test_scan_block_layout_is_the_kernels_own(dev, kernel, G):
+    """What K10, K10r and K11 report of their blocks at G 18, 256, 512 and
+    640: the resident form holds a block's whole share of W_hh (128 columns
+    x G, f32) between registers and its shared memory, all 16 rows at once
+    under the card's shared memory a block, and UMX-L's 8 chains of 16
+    blocks in one cooperative wave; the streaming form holds none of it."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for form in lstm_cuda.SCAN_FORMS:
+            if form == "resident" and G > lstm_cuda.SCAN_RESIDENT_G_MAX:
+                with pytest.raises(RuntimeError):
+                    lstm_cuda.scan_block_layout(dev.index, G, bf16, kernel, form)
+                continue
+            rows, blocks, smem, w_regs = lstm_cuda.scan_block_layout(dev.index, G, bf16, kernel,
+                                                                     form)
+            assert rows == 16 and 0 < smem <= limit
+            share = 128 * G * 4
+            if form == "streaming":
+                assert w_regs == 0
+                continue
+            assert 0 < w_regs <= share and share - w_regs <= smem
+            assert blocks >= 8 * lstm_cuda.scan_blocks_per_chain(G)
+    assert lstm_cuda.scan_form(G, torch.float32) == (
+        "resident" if G <= lstm_cuda.SCAN_RESIDENT_G_MAX else "streaming")
+
+
+@pytest.mark.parametrize("form", lstm_cuda.SCAN_FORMS)
+@pytest.mark.parametrize("B, G", [(3, 512), (17, 40), (16, 512), (6, 18)])
+def test_scan_kernel_rows_are_bit_equal_alone(dev, B, G, form):
     """A row of K10 has the bits of the same row run alone, whatever rows
-    (and row groups) run beside it."""
+    (and row groups, and row tiles) run beside it, in either form."""
     T, R = 23, 4
     xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed=B)
-    hs, hT, cT = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+    hs, hT, cT = lstm_cuda.lstm_scan(xp, whh, h0, c0, B, _form=form)
     for b in (0, B - 1):
         rows = torch.arange(R, device=dev) * B + b
         one = lstm_cuda.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
-                                  c0[rows].contiguous(), 1)
+                                  c0[rows].contiguous(), 1, _form=form)
         assert torch.equal(one[0], hs[:, rows]) and torch.equal(one[1], hT[rows])
         assert torch.equal(one[2], cT[rows])
 
 
-@pytest.mark.parametrize("B, G", [(6, 512), (1, 640)])
+@pytest.mark.parametrize("B, G", [(6, 512), (1, 640), (16, 512), (1, 512)])
 def test_scan_kernel_repeats_its_bits(dev, B, G):
     """Twenty launches of K10 on the same inputs give the same bits: the
     exchange of h between a chain's blocks never hands a block a word of
     another step (a race there would show as an output that moves)."""
     xp, whh, h0, c0 = _scan_inputs(dev, 257, 8, B, G, seed=G + B)
     ref = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
+    assert lstm_cuda.lstm_scan.form[0] == lstm_cuda.scan_form(G, torch.float32)
     for _ in range(20):
         out = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
@@ -1552,7 +1642,8 @@ _SCAN_TRAIN_SHAPES = [
     (37, 3, 3, 40, torch.float32), (9, 8, 16, 512, torch.float32),
     (5, 2, 6, 18, torch.bfloat16), (7, 8, 20, 512, torch.float32),
     (11, 8, 1, 640, torch.float32), (1, 2, 1, 1, torch.float32),
-    (3, 1, 9, 4096, torch.bfloat16),
+    (3, 1, 9, 4096, torch.bfloat16), (9, 8, 16, 512, torch.bfloat16),
+    (13, 8, 3, 256, torch.float32), (6, 2, 4, 516, torch.float32), (5, 2, 2, 642, torch.float32),
 ]
 
 
@@ -1566,60 +1657,69 @@ def _scan_train_case(dev, T, R, B, G, dtype, seed):
     return xp, whh, h0, c0, cts
 
 
-@pytest.mark.parametrize("T, R, B, G, dtype", _SCAN_TRAIN_SHAPES)
-def test_scan_train_fwd_is_k10_with_residuals(dev, T, R, B, G, dtype):
-    """K10 with its residual flag: hs/hT/cT are K10's bits, the activated
-    gates and c within 1e-4 of the plain version's (rows beyond one
-    launch's 16 at B 20; G 4096 at 8 rows a launch)."""
+@pytest.mark.parametrize("T, R, B, G, dtype, form", _with_forms(_SCAN_TRAIN_SHAPES))
+def test_scan_train_fwd_is_k10_with_residuals(dev, T, R, B, G, dtype, form):
+    """K10 with its residual flag: hs/hT/cT are K10's bits in the same
+    form, the activated gates and c within 1e-4 of the plain version's
+    (rows beyond one launch's 16 at B 20; G 4096 at 8 rows a launch)."""
     xp, whh, h0, c0, _ = _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)
     before = lstm_cuda.lstm_scan_train_fwd.launches
-    out = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+    out = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B, _form=form)
     torch.cuda.synchronize()
     assert lstm_cuda.lstm_scan_train_fwd.launches == before + 1
-    for a, b in zip(out[:3], lstm_cuda.lstm_scan(xp, whh, h0, c0, B)):
+    assert lstm_cuda.lstm_scan_train_fwd.form[0] == form
+    for a, b in zip(out[:3], lstm_cuda.lstm_scan(xp, whh, h0, c0, B, _form=form)):
         assert torch.equal(a, b)
     ref = lstm_cuda.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
     for a, b in zip(out, ref):
         assert (a - b).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("T, R, B, G, dtype", _SCAN_TRAIN_SHAPES)
-def test_scan_bwd_kernel_matches_plain(dev, T, R, B, G, dtype):
-    """K11 against its plain version on the same residuals: dxp, dh0 and
-    dc0 within 1e-4 of their largest entry (f32 products of the same
-    operands, summed in another order)."""
+@pytest.mark.parametrize("T, R, B, G, dtype, form", _with_forms(_SCAN_TRAIN_SHAPES))
+def test_scan_bwd_kernel_matches_plain(dev, T, R, B, G, dtype, form):
+    """K11 in each form against its plain version on the same residuals:
+    dxp, dh0 and dc0 within 1e-4 of their largest entry (f32 products of
+    the same operands, summed in another order); the two forms sum in one
+    order, so they give the same bits."""
     xp, whh, h0, c0, cts = _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)
     _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
     before = lstm_cuda.lstm_scan_bwd_step.launches
-    out = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B)
+    out = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form=form)
     torch.cuda.synchronize()
     assert lstm_cuda.lstm_scan_bwd_step.launches == before + 1
-    rows, _ = lstm_cuda._scan_capacity(dev.index, G, dtype == torch.bfloat16, "K11")
-    assert lstm_cuda.lstm_scan_bwd_step.form[3] == len(lstm_cuda.scan_row_groups(B, rows))
+    rows, _ = lstm_cuda._scan_capacity(dev.index, G, dtype == torch.bfloat16, "K11", form)
+    assert lstm_cuda.lstm_scan_bwd_step.form[0] == form
+    assert lstm_cuda.lstm_scan_bwd_step.form[4] == len(lstm_cuda.scan_row_groups(B, rows))
+    if form == "resident":
+        streamed = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form="streaming")
+        assert all(torch.equal(a, b) for a, b in zip(out, streamed))
     ref = lstm_cuda.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
     for k, p in zip(out, ref):
         assert (k - p).abs().max().item() <= 1e-4 * max(p.abs().max().item(), 1e-30)
     assert torch.equal(cts[2], _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)[4][2])
 
 
-@pytest.mark.parametrize("B, G", [(3, 512), (17, 40)])
-def test_scan_bwd_rows_are_bit_equal_alone(dev, B, G):
+@pytest.mark.parametrize("form", lstm_cuda.SCAN_FORMS)
+@pytest.mark.parametrize("B, G", [(3, 512), (17, 40), (16, 512), (6, 18)])
+def test_scan_bwd_rows_are_bit_equal_alone(dev, B, G, form):
     """A row of K11 has the bits of the same row run alone, whatever rows
-    and row groups run beside it."""
+    and row groups run beside it, in either form."""
     T, R = 23, 4
     xp, whh, h0, c0, (dhs, dhT, dcT) = _scan_train_case(dev, T, R, B, G, torch.float32, seed=B)
     _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
-    dxp, dh0, dc0 = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    dxp, dh0, dc0 = lstm_cuda.lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B,
+                                                 _form=form)
     for b in (0, B - 1):
         rows = torch.arange(R, device=dev) * B + b
         one = lstm_cuda.lstm_scan_bwd_step(
             gates[:, rows].contiguous(), cs[:, rows].contiguous(), c0[rows].contiguous(), whh,
-            dhs[:, rows].contiguous(), dhT[rows].contiguous(), dcT[rows].contiguous(), 1)
+            dhs[:, rows].contiguous(), dhT[rows].contiguous(), dcT[rows].contiguous(), 1,
+            _form=form)
         assert torch.equal(one[0], dxp[:, rows]) and torch.equal(one[1], dh0[rows])
         assert torch.equal(one[2], dc0[rows])
 
 
-@pytest.mark.parametrize("B, G", [(6, 512), (1, 640)])
+@pytest.mark.parametrize("B, G", [(6, 512), (1, 640), (16, 512), (1, 512)])
 def test_scan_bwd_repeats_its_bits(dev, B, G):
     """Twenty launches of K11 on the same inputs give the same bits: the
     exchange never hands a block a word of another step."""

@@ -45,6 +45,32 @@ def test_plain_ct_matches_jax_fused_interpret(t, lead, windowed):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=CT_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("windowed", [True, False])
+@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 8192])
+def test_plain_ct_matches_jax_fused_interpret_at_every_n_fft(n_fft, windowed):
+    """Every n_fft with 1024 | n_fft, as the JAX function takes it (3072:
+    no power of two), 5 frames."""
+    n_bins = n_fft // 2 + 1
+    re, im = _planes(5, n_bins=n_bins, seed=n_fft)
+    win = j_stft.hann_window(n_fft) if windowed else None
+    ref = j_istft_ct.istft_ct2_fused(jnp.asarray(re), jnp.asarray(im), n_fft, n_fft // 4,
+                                     window=win, kf=4, interpret=True)
+    ours = istft_ct_cuda.istft_ct2(torch.from_numpy(re), torch.from_numpy(im), n_fft, n_fft // 4,
+                                   t_stft.hann_window(n_fft, "cpu") if windowed else None)
+    assert ours.shape == (4 * (n_fft // 4) + n_fft,)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=CT_ATOL, rtol=0)
+
+
+def test_istft_planes_ct2_at_n_fft_2048_matches_the_dense_inverse():
+    cfg = DSPConfig(n_fft=2048, hop=512)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal((2, 9000)).astype(np.float32))
+    re, im = t_stft.stft_planes(x, cfg)
+    dense = t_stft.istft_planes(re, im, 9000, cfg)
+    ct2 = t_stft.istft_planes(re, im, 9000, dataclasses.replace(cfg, istft_algo="ct2"))
+    np.testing.assert_allclose(ct2.numpy(), dense.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(ct2.numpy(), x.numpy(), atol=1e-4, rtol=0)
+
+
 def test_istft_planes_ct2_matches_jax():
     # the JAX ct2 arm needs the matmul DFT; both precisions at highest
     jcfg = JDSPConfig(fft_impl="matmul", dft_precision="highest", idft_precision="highest",
@@ -104,9 +130,13 @@ def test_kernel_wrapper_route_and_geometry():
     small = torch.zeros((3, 1001))
     with pytest.raises(ValueError, match="1024 | n_fft"):
         istft_ct_cuda.istft_ct2(small, small, 2000, 500)
-    big = torch.zeros((3, 4097))
-    with pytest.raises(ValueError, match="n_fft = 4096"):  # the kernel's one size, either route
-        istft_ct_cuda.istft_ct2(big, big, 8192, 2048)
+    # every n_fft with 1024 | n_fft runs (the CPU route: the plain version),
+    # 8192 and 3072 (no power of two) as well as 4096
+    for n_fft in (8192, 3072):
+        big = torch.ones((3, n_fft // 2 + 1))
+        out = istft_ct_cuda.istft_ct2(big, big, n_fft, n_fft // 4)
+        assert torch.equal(out, istft_ct.istft_ct2_plain(big, big, n_fft, n_fft // 4))
+    assert istft_ct_cuda.istft_ct2.launches == before
     with pytest.raises(ValueError, match="one-sided bins"):
         istft_ct_cuda.istft_ct2(re[..., :-1], im[..., :-1], 4096, 1024)
     with pytest.raises(ValueError, match="istft_algo"):
@@ -294,3 +324,86 @@ def test_ring_walk_is_overlap_add_bit_for_bit(rows, frames, capacity):
         np.float32)
     ref = t_stft.overlap_add(torch.from_numpy(x), hop).numpy()
     np.testing.assert_array_equal(_ring_walk(x, hop, capacity), ref)
+
+
+# --- the mixed-radix form (every n_fft but 4096), mirrored in numpy ---------
+# csrc/istft_ct.cu's istft_ct2_mr_kernel: the Hermitian unpacking, then
+# Stockham passes of the radices istft_radix_plan gives, each with the
+# kernel's butterfly index j, its table twiddles and its write index, then
+# the sample pairs each of its 256 threads owns in the ring.
+
+
+@pytest.mark.parametrize("n_fft, plan", [
+    (1024, (8, 8, 8)), (2048, (2, 8, 8, 8)), (3072, (3, 8, 8, 8)), (4096, (16, 16, 8)),
+    (5120, (5, 8, 8, 8)), (8192, (8, 8, 8, 8)), (15360, (15, 8, 8, 8)), (16384, (16, 8, 8, 8)),
+])
+def test_radix_plan(n_fft, plan):
+    assert istft_ct_cuda.istft_radix_plan(n_fft) == plan
+    assert int(np.prod(plan)) == n_fft // 2
+
+
+def test_kernel_takes_every_n_fft_up_to_16384_and_names_the_limit():
+    for k in range(1, 17):
+        assert istft_ct_cuda.istft_radix_plan(1024 * k)
+    for bad in (32768, 17408, 3000):
+        with pytest.raises(ValueError, match="up to 16384"):
+            istft_ct_cuda.istft_radix_plan(bad)
+
+
+def _dft_small(v):
+    """dft_small: y[n] = sum_r v[r] e^(2 pi i n r / R), natural order."""
+    R = v.shape[0]
+    w = np.exp(2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+    return w @ v
+
+
+def _mixed_radix_frame_mirror(re, im, window, n_fft):
+    """One frame as istft_ct2_mr_kernel computes it → the windowed frame,
+    and how many threads own each sample."""
+    M, threads = n_fft // 2, 256
+    table = np.exp(2j * np.pi * np.arange(n_fft) / n_fft)
+    k = np.arange(M)
+    x = re[k] + 1j * np.where(k == 0, 0.0, im[k])
+    xm = re[M - k] - 1j * np.where(k == 0, 0.0, im[M - k])  # conj X[N/2 - k]
+    buf = (x + xm) + 1j * table[k] * (x - xm)
+    ns = 1
+    for R in istft_ct_cuda.istft_radix_plan(n_fft):
+        nb, tw = M // R, n_fft // (ns * R)
+        j = np.arange(nb)  # butterflies j = tid + 256 e
+        assert set(range(nb)) == {t + threads * e for t in range(threads)
+                                  for e in range(-(-nb // threads)) if t + threads * e < nb}
+        v = np.stack([buf[j + r * nb] for r in range(R)])
+        jm = j % ns
+        for r in range(1, R):
+            v[r] *= table[jm * r * tw]  # p = jm q TW < N
+        v = _dft_small(v)
+        out = np.empty_like(buf)
+        d = (j // ns) * ns * R + jm
+        for r in range(R):
+            out[d + r * ns] = v[r]
+        buf, ns = out, ns * R
+    assert ns == M
+    frame = np.empty(n_fft)
+    frame[0::2], frame[1::2] = buf.real, buf.imag
+    # the ring: thread tid owns pair q = tid + 256 e of every piece
+    pairs = n_fft // 8
+    owners = np.zeros(n_fft, int)
+    for q in range(pairs):
+        for p in range(4):
+            n = p * pairs + q
+            owners[2 * n] += 1
+            owners[2 * n + 1] += 1
+    return frame / n_fft * window, owners
+
+
+@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 5120, 8192, 16384])
+def test_mixed_radix_mirror_is_the_windowed_inverse_real_dft(n_fft):
+    rng = np.random.default_rng(n_fft)
+    re, im = rng.standard_normal(n_fft // 2 + 1), rng.standard_normal(n_fft // 2 + 1)
+    window = rng.uniform(0.5, 1.5, n_fft)
+    spec = re + 1j * im
+    spec[0], spec[-1] = spec[0].real, spec[-1].real
+    ref = np.fft.irfft(spec, n_fft) * window
+    got, owners = _mixed_radix_frame_mirror(re, im, window, n_fft)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    assert (owners == 1).all()  # every sample of the frame has exactly one owner

@@ -11,6 +11,7 @@ the pipelined arm keeping K1; and K10's launch plan."""
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -184,6 +185,157 @@ def test_launch_plan():
     with pytest.raises(RuntimeError, match="K10 needs 20 co-resident blocks"):
         L.chain_groups(8, L.scan_blocks_per_chain(640), 19, "K10")
     assert L.scan_exchange_words(8, 512) == 8 * 2 * 16 * 512
+
+
+# ---- the two forms of K10 and K11, and the resident form's maps ------------
+
+
+@pytest.mark.parametrize("G, want", [(1, "resident"), (18, "resident"), (256, "resident"),
+                                     (512, "resident"), (513, "streaming"), (640, "streaming"),
+                                     (4096, "streaming")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_form_is_chosen_by_width_alone(G, want, dtype, monkeypatch):
+    """The form comes from G (and W_hh's dtype, which changes nothing: bf16
+    is upcast to f32 on the chip) before any launch: the card's plan for
+    every B, R and kernel, with its capacity query stubbed, runs that form
+    and reports it first in ``wrapper.form``."""
+    assert L.scan_form(G, dtype) == want
+    asked = []
+
+    def capacity(index, G_, bf16, kernel, form):
+        asked.append(form)
+        return 16, 264
+
+    monkeypatch.setattr(L, "_scan_capacity", capacity)
+
+    class Ref:
+        device = torch.device("cuda", 0)
+
+    for kernel, wrapper in (("K10", L.lstm_scan), ("K10r", L.lstm_scan_train_fwd),
+                            ("K11", L.lstm_scan_bwd_step)):
+        for R, B in ((8, 1), (8, 16), (3, 40), (1, 5)):
+            form = L._scan_form_for(G, dtype, None)
+            L._scan_plan(wrapper, kernel, Ref, R, B, G, dtype == torch.bfloat16, form)
+            assert wrapper.form[0] == want
+    assert set(asked) == {want}
+
+
+@pytest.mark.parametrize("name", ["lstm_scan", "lstm_scan_train_fwd", "lstm_scan_bwd_step"])
+def test_the_form_is_no_public_argument(name):
+    """The wrappers choose the form from the width alone; only the private
+    keyword ``_form`` names one, for the checks that compare the forms."""
+    params = inspect.signature(getattr(L, name)).parameters
+    assert "form" not in params
+    assert params["_form"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert params["_form"].default is None
+
+
+def test_a_form_named_is_checked_on_either_route():
+    xp, whh, h0, c0 = _scan_inputs(4, 2, 1, 8, seed=2)
+    ref = L.lstm_scan(xp, whh, h0, c0, 1)
+    for form in L.SCAN_FORMS:  # the CPU runs the plain version whatever the form
+        assert all(torch.equal(a, b)
+                   for a, b in zip(L.lstm_scan(xp, whh, h0, c0, 1, _form=form), ref))
+    with pytest.raises(ValueError, match="form must be one of"):
+        L.lstm_scan(xp, whh, h0, c0, 1, _form="stream")
+    xp, whh, h0, c0 = _scan_inputs(2, 1, 1, 640, seed=2)
+    with pytest.raises(ValueError, match="up to G = 512"):
+        L.lstm_scan_train_fwd(xp, whh, h0, c0, 1, _form="resident")
+
+
+def _k10_lane_roles(G):
+    """The resident K10's roles: lane l of warp w owns units 4 w + 2 (l //
+    16) and the next of the block, and k part p = l % 16, the k = p + 16 i
+    of the product."""
+    roles = {}
+    for tid in range(256):
+        lane, warp = tid % 32, tid // 32
+        roles[tid] = (4 * warp + 2 * (lane // 16), lane % 16)
+    ks = {p: list(range(p, G, 16)) for p in range(16)}
+    return roles, ks
+
+
+@pytest.mark.parametrize("G", [18, 256, 512])
+def test_k10_resident_lanes_cover_every_product_term_once(G):
+    roles, ks = _k10_lane_roles(G)
+    seen = np.zeros((32, G), int)
+    for unit, p in roles.values():
+        for k in ks[p]:
+            seen[unit, k] += 1
+            seen[unit + 1, k] += 1
+    assert (seen == 1).all()
+    # a quarter-warp reads h at eight neighbouring k = 16 i + p (p = 0..7 or
+    # 8..15), a float4 of rows each (a float2, a float at 2 and 1 rows) at
+    # the padded row stride: distinct banks, one wavefront
+    for rows in (1, 2, 4, 8, 16):
+        hs = rows if rows <= 4 else rows + 4
+        width = min(rows, 4)
+        lanes = 8 if width == 4 else 16  # the parts one wavefront serves at that width
+        for first in range(0, 16, lanes):
+            banks = [((16 * 3 + p) * hs + e) % 32 for p in range(first, first + lanes)
+                     for e in range(width)]
+            assert len(set(banks)) == len(banks)
+
+
+def _rs_reduce(parts, rp):
+    """The shuffle tree of rs_reduce on float32 sums parts (16 lanes, 2
+    units, 4 gates, rp rows): returns {lane: (unit, first row, rows held,
+    leader, values (4, rows))}."""
+    scat = {1: 0, 2: 1, 4: 2, 8: 3}[rp]
+    acc = np.empty((16, 4, rp), np.float32)
+    for p in range(16):  # mask 8: the lane keeps the unit of its mask bit
+        e = p >> 3
+        acc[p] = (parts[p, e] + parts[p ^ 8, e]).astype(np.float32)
+    held = {p: rp for p in range(16)}
+    base = {p: 0 for p in range(16)}
+    for rnd in range(3):
+        mask = 4 >> rnd
+        new = acc.copy()
+        for p in range(16):
+            q = p ^ mask
+            if rnd < scat:
+                half = (rp >> rnd) // 2
+                hi = bool(p & mask)
+                # keep the upper half on the side with the mask bit; the
+                # partner sends its copy of the half this lane keeps
+                keep = acc[p, :, half:2 * half] if hi else acc[p, :, :half]
+                recv = acc[q, :, half:2 * half] if hi else acc[q, :, :half]
+                new[p, :, :half] = (keep + recv).astype(np.float32)
+            else:
+                new[p, :, :1] = (acc[p, :, :1] + acc[q, :, :1]).astype(np.float32)
+        for p in range(16):
+            if rnd < scat:
+                if p & mask:
+                    base[p] += (rp >> rnd) // 2
+                held[p] = (rp >> rnd) // 2
+        acc = new
+    out = {}
+    for p in range(16):
+        leader = (p & ((1 << (3 - scat)) - 1)) == 0
+        rows = held[p] if scat else 1
+        out[p] = (p >> 3, base[p], rows, leader, acc[p, :, :rows])
+    return out
+
+
+@pytest.mark.parametrize("rp", [1, 2, 4, 8])
+def test_k10_resident_reduce_is_one_tree_at_every_row_tile(rp):
+    """Every (unit, gate, row) sum of the sixteen parts is led by exactly
+    one lane and has the bits of the tree over the masks 8, 4, 2, 1,
+    whatever the rows of the pass: a row's bits do not depend on B."""
+    rng = np.random.default_rng(rp)
+    parts = (rng.standard_normal((16, 2, 4, 8))
+             * 10.0 ** rng.integers(-3, 4, (16, 2, 4, 8))).astype(np.float32)
+    level = list(parts)  # the tree: pairs {p, p ^ 8}, then {p, p ^ 4}, ...
+    for mask in (8, 4, 2, 1):
+        level = [(level[p] + level[p ^ mask]).astype(np.float32) for p in range(16)]
+    tree = level[0]
+    out = _rs_reduce(parts[..., :rp], rp)
+    led = np.zeros((2, rp), int)
+    for p, (unit, first, rows, leader, vals) in out.items():
+        for m in range(rows):
+            np.testing.assert_array_equal(vals[:, m], tree[unit, :, first + m])
+            led[unit, first + m] += leader
+    assert (led == 1).all()
 
 
 # ---- the model and the slice ----------------------------------------------

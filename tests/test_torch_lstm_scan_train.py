@@ -355,6 +355,18 @@ def test_bwd_exchange_sizes():
     assert L.scan_bwd_exchange_words(1, 18) == 2 * 16 * 18
 
 
+@pytest.mark.parametrize("G", [18, 256, 512])
+def test_k11_resident_roles_cover_every_unit_and_pair_once(G):
+    """K11's resident roles: thread tid owns units tid and tid + 256 of the
+    chain in the product (every unit of G once) and the (unit, row) pairs
+    e = tid + 256 m, unit e % 32 and row e // 32 of the block, in the cell
+    (every one of the block's 32 units x 16 rows once)."""
+    units = [tid + 256 * m for tid in range(256) for m in range(2) if tid + 256 * m < G]
+    assert sorted(units) == list(range(G))
+    pairs = [(e % 32, e // 32) for tid in range(256) for m in range(2) for e in [tid + 256 * m]]
+    assert sorted(pairs) == sorted((j, b) for j in range(32) for b in range(16))
+
+
 _C_TYPES = {"int": "I", "unsigned": "U", "float": "F"}
 
 

@@ -54,21 +54,22 @@ _SIGNATURES = {
     "umx_lstm_pertarget_clusters": [_I, _I, _P],
     # xp, whh, h0, c0, hs, hT, cT, T, n_targets, D, G, CL, U, stream
     "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # G, whh_bf16, resid, rows (out), blocks (out)
-    "umx_lstm_scan_capacity": [_I, _I, _I, _P, _P],
-    # xp, whh, whh_bf16, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0, stream
-    "umx_lstm_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _U,
-                      _P],
-    # xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,
+    # resident, G, whh_bf16, resid, rows, blocks, smem, w_regs (out)
+    "umx_lstm_scan_capacity": [_I, _I, _I, _I, _P, _P, _P, _P],
+    # resident, xp, whh, whh_bf16, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,
     # stream
-    "umx_lstm_scan_train": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _U, _P],
-    # G, whh_bf16, rows (out), blocks (out)
-    "umx_lstm_scan_bwd_capacity": [_I, _I, _P, _P],
-    # gates, cs, c0, wt, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr, b0, nb, rt,
+    "umx_lstm_scan": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _U, _P],
+    # resident, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt,
     # tag0, stream
-    "umx_lstm_scan_bwd": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _U, _P],
+    "umx_lstm_scan_train": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _U, _P],
+    # resident, G, whh_bf16, rows, blocks, smem, w_regs (out)
+    "umx_lstm_scan_bwd_capacity": [_I, _I, _I, _P, _P, _P, _P],
+    # resident, gates, cs, c0, whh, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr,
+    # b0, nb, rt, tag0, stream
+    "umx_lstm_scan_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _U, _P],
     # hs, h0, dxp, dw, T, R, B, G, stream
     "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # mode, mask_bf16, a_re, a_im, masks, inv_ma, racc, T, F, stream
@@ -80,8 +81,8 @@ _SIGNATURES = {
     "umx_ola_grid": [_P],
     # ys, inv_sw, out, n_chunks, M, seg, stride, L, blocks, vec, stream
     "umx_ola_normalized": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # blocks (out)
-    "umx_istft_ct2_capacity": [_P],
+    # n_fft, blocks (out), smem (out)
+    "umx_istft_ct2_capacity": [_I, _P, _P],
     # re, im, table, window, out, rows, T, F, N, hop, runs_per_row, hops_per_run, stream
     "umx_istft_ct2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

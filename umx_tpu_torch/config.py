@@ -63,7 +63,7 @@ class DSPConfig:
     hop: int = 1024
     # inverse-transform algorithm: "dense" = torch.istft; "ct2" = the
     # fused Cooley-Tukey kernel (K8, ops/istft_ct_cuda.py; needs
-    # n_fft = 4096 and hop = n_fft/4); "auto" = dense
+    # 1024 | n_fft and hop = n_fft/4, n_fft <= 16384 on the card); "auto" = dense
     istft_algo: Literal["auto", "dense", "ct2"] = "auto"
 
     def __post_init__(self):

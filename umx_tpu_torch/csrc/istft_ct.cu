@@ -7,7 +7,9 @@
 //
 // from the one-sided bins X[0..N/2] (the imaginary parts of DC and Nyquist
 // drop out), and overlap-adds the frames at hop N/4 into the row's signal.
-// Built for N = 4096, UMX's transform.
+// Takes every N = 1024 K with K = 1 .. 16, as the JAX function takes every
+// N with 1024 | N: N = 4096, UMX's transform, in the hand-scheduled form
+// below; every other N in the mixed-radix form at the end of this file.
 //
 // What bounds it on the H100: 16.4 KB of spectrum read and 4 KB of signal
 // written per frame put the device-memory bound at 0.76 ms for 48 rows of
@@ -292,20 +294,282 @@ istft_ct2_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+// ---- the mixed-radix form: every other n_fft = 1024 K, K = 1 .. 16 -------
+//
+// The same Hermitian form, run plan and overlap-add ring, but the N/2 =
+// 512 K point complex inverse goes through shared memory in Stockham
+// passes (natural order in, natural order out): one DFT of K points (a
+// direct sum where K is not 2, 4, 8 or 16: 3072, 5120, ... need a factor
+// that is no power of two, as JAX's split n_fft = 128 x n2 does), then
+// three radix-8 passes.  A pass of radix R over the points done so far, Ns,
+// takes butterfly j from the points j + r M/R, turns point r by
+// e^{2 pi i r (j % Ns) / (Ns R)}, transforms, and writes point r to
+// (j / Ns) Ns R + j % Ns + r Ns.  Every twiddle is a table entry (a multiple
+// of 2 pi / N).  A thread stages its butterflies in registers between two
+// barriers, so one buffer of M complex values serves every pass.  Then the
+// frame is windowed and overlap-added into the 4-hop ring exactly as the
+// 4096 form does (a thread owns the same sample pairs of every hop): the
+// same sums in the same order.  Shared memory: the buffer (M complex) and
+// the ring (N floats), 8 K KiB: 128 KiB at N = 16384, the largest N a
+// block holds with room for both (N = 32768 would need 256 KiB).
+
+constexpr int MR_THREADS = 256;
+constexpr int MR_K_MAX = 16;  // n_fft <= 16384
+
+__host__ __device__ constexpr size_t mr_smem(int k) { return (size_t)8192 * k; }
+
+// y[n] = sum_r x[r] e^{2 pi i n r / R} for n < R, in place, natural order;
+// a direct sum takes e^{2 pi i m / R} from the table at stride N / R
+template <int R>
+__device__ __forceinline__ void dft_small(float (&r)[R], float (&i)[R], const float* table,
+                                          int N) {
+  if constexpr (R == 1) {
+    return;
+  } else if constexpr (R == 2) {
+    const float ar = r[0], ai = i[0];
+    r[0] = ar + r[1];
+    i[0] = ai + i[1];
+    r[1] = ar - r[1];
+    i[1] = ai - i[1];
+  } else if constexpr (R == 4) {
+    dft4(r[0], i[0], r[1], i[1], r[2], i[2], r[3], i[3]);
+  } else if constexpr (R == 8 || R == 16) {
+    float sr[R], si[R];
+    if constexpr (R == 8) {
+      dft8(r, i);
+    } else {
+      dft16(r, i);
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      sr[s] = r[s];
+      si[s] = i[s];
+    }
+    // dft8 leaves output n in slot 2 (n % 4) + n / 4, dft16 in 4 (n % 4) + n / 4
+#pragma unroll
+    for (int n = 0; n < R; ++n) {
+      const int s = (R / 4) * (n & 3) + (n >> 2);
+      r[n] = sr[s];
+      i[n] = si[s];
+    }
+  } else {
+    float yr[R], yi[R];
+    const int stride = N / R;
+#pragma unroll
+    for (int n = 0; n < R; ++n) {
+      float ar = r[0], ai = i[0];
+#pragma unroll
+      for (int q = 1; q < R; ++q) {
+        const int m = (n * q) % R * stride;
+        const float wc = __ldg(table + m), ws = __ldg(table + N + m);
+        ar += r[q] * wc - i[q] * ws;
+        ai += r[q] * ws + i[q] * wc;
+      }
+      yr[n] = ar;
+      yi[n] = ai;
+    }
+#pragma unroll
+    for (int n = 0; n < R; ++n) {
+      r[n] = yr[n];
+      i[n] = yi[n];
+    }
+  }
+}
+
+// One Stockham pass of radix R over M points with NS points done so far,
+// in place on (br, bi) through registers; ends with a barrier.
+template <int M, int R, int NS>
+__device__ __forceinline__ void stockham_pass(float* br, float* bi, const float* table, int N) {
+  constexpr int NB = M / R;                                    // butterflies
+  constexpr int BPT = (NB + MR_THREADS - 1) / MR_THREADS;      // per thread
+  constexpr int TW = 2 * M / (NS * R);                         // N / (NS R)
+  const int tid = threadIdx.x;
+  float vr[BPT][R], vi[BPT][R];
+#pragma unroll
+  for (int e = 0; e < BPT; ++e) {
+    const int j = tid + e * MR_THREADS;
+    if (NB % MR_THREADS == 0 || j < NB) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        vr[e][q] = br[j + q * NB];
+        vi[e][q] = bi[j + q * NB];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < BPT; ++e) {
+    const int j = tid + e * MR_THREADS;
+    if (NB % MR_THREADS == 0 || j < NB) {
+      const int jm = j % NS;
+      if (NS > 1) {
+#pragma unroll
+        for (int q = 1; q < R; ++q) {
+          const int p = jm * q * TW;  // < N
+          cmul(vr[e][q], vi[e][q], __ldg(table + p), __ldg(table + N + p));
+        }
+      }
+      dft_small<R>(vr[e], vi[e], table, N);
+      const int d = (j / NS) * NS * R + jm;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        br[d + q * NS] = vr[e][q];
+        bi[d + q * NS] = vi[e][q];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// As istft_ct2_kernel, at n_fft = 1024 K.  Dynamic shared memory
+// mr_smem(K): the buffer (re, im: 2 x 512 K floats), the ring (4 hops of
+// 256 K floats).
+template <int K>
+__global__ void __launch_bounds__(MR_THREADS)
+istft_ct2_mr_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                    const float* __restrict__ table, const float* __restrict__ window,
+                    float* __restrict__ out, int T, int runs_per_row, int hops_per_run) {
+  constexpr int N = 1024 * K, M = N / 2, HP = N / 4, F = M + 1;
+  constexpr int PAIRS = HP / 2;                                   // sample pairs a hop
+  constexpr int PPT = (PAIRS + MR_THREADS - 1) / MR_THREADS;      // a thread's pairs
+  extern __shared__ __align__(16) float sm[];
+  float* br = sm;
+  float* bi = br + M;
+  float2* ring = reinterpret_cast<float2*>(bi + M);  // (RING, PAIRS)
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / runs_per_row;
+  const int hops = T + RING - 1;
+  const int a = (blockIdx.x % runs_per_row) * hops_per_run;
+  const int b = min(a + hops_per_run, hops);
+  if (a >= b) return;
+  const int t_hi = min(b - 1, T - 1);
+  const int t_lo = max(a - (RING - 1), 0);
+  float* out_r = out + (size_t)row * hops * HP;
+  const float inv_n = 1.0f / (float)N;  // the transform's 1 / N, folded into the window
+  // the hops below frame T's reach get no piece 0: they start from zero
+#pragma unroll
+  for (int e = 0; e < PPT; ++e) {
+    const int q = tid + e * MR_THREADS;
+    if (PAIRS % MR_THREADS == 0 || q < PAIRS) {
+#pragma unroll
+      for (int p = 0; p < RING; ++p) ring[p * PAIRS + q] = make_float2(0.0f, 0.0f);
+    }
+  }
+
+  for (int t = t_hi; t >= t_lo; --t) {
+    const float* xr = re + ((size_t)row * T + t) * F;
+    const float* xi = im + ((size_t)row * T + t) * F;
+    __syncthreads();  // the previous frame's reads of the buffer are done
+    for (int k = tid; k < M; k += MR_THREADS) {
+      const float ar = xr[k], cr = xr[M - k];
+      float ai = xi[k], ci = xi[M - k];
+      if (k == 0) ai = ci = 0.0f;  // DC's and Nyquist's imaginary parts drop out
+      const float cs = __ldg(table + k), sn = __ldg(table + N + k);
+      const float dr = ar - cr, di = ai + ci;
+      br[k] = (ar + cr) - (dr * sn + di * cs);
+      bi[k] = (ai - ci) + (dr * cs - di * sn);
+    }
+    __syncthreads();
+    if constexpr (K > 1) stockham_pass<M, K, 1>(br, bi, table, N);
+    stockham_pass<M, 8, K>(br, bi, table, N);
+    stockham_pass<M, 8, 8 * K>(br, bi, table, N);
+    stockham_pass<M, 8, 64 * K>(br, bi, table, N);
+
+    // pair n = p PAIRS + q of the frame (samples 2 n, 2 n + 1) is piece p,
+    // pair q of hop t + p: piece 0 assigns, the later pieces add
+#pragma unroll
+    for (int e = 0; e < PPT; ++e) {
+      const int q = tid + e * MR_THREADS;
+      if (PAIRS % MR_THREADS == 0 || q < PAIRS) {
+#pragma unroll
+        for (int p = 0; p < RING; ++p) {
+          const int n = p * PAIRS + q;
+          const float2 w = window != nullptr
+                               ? make_float2(__ldg(window + 2 * n) * inv_n,
+                                             __ldg(window + 2 * n + 1) * inv_n)
+                               : make_float2(inv_n, inv_n);
+          const float2 v = make_float2(br[n] * w.x, bi[n] * w.y);
+          float2* acc = ring + ((t + p) & (RING - 1)) * PAIRS + q;
+          if (p == 0) {
+            *acc = v;
+          } else {
+            const float2 old = *acc;
+            *acc = make_float2(old.x + v.x, old.y + v.y);
+          }
+        }
+      }
+    }
+    const int h_first = t + RING - 1;
+    const int h_last = t == 0 ? 0 : h_first;
+    for (int h = h_first; h >= h_last; --h) {
+      if (h >= a && h < b) {
+#pragma unroll
+        for (int e = 0; e < PPT; ++e) {
+          const int q = tid + e * MR_THREADS;
+          if (PAIRS % MR_THREADS == 0 || q < PAIRS)
+            *reinterpret_cast<float2*>(out_r + (size_t)h * HP + 2 * q) =
+                ring[(h & (RING - 1)) * PAIRS + q];
+        }
+      }
+    }
+  }
+}
+
+// The kernel for n_fft = 1024 k and its dynamic shared memory; nullptr
+// for a k it has no form for.
+const void* istft_kernel(int k, size_t* smem) {
+  *smem = mr_smem(k);
+  switch (k) {
+    case 1: return (const void*)istft_ct2_mr_kernel<1>;
+    case 2: return (const void*)istft_ct2_mr_kernel<2>;
+    case 3: return (const void*)istft_ct2_mr_kernel<3>;
+    case 4: *smem = SMEM_BYTES; return (const void*)istft_ct2_kernel;
+    case 5: return (const void*)istft_ct2_mr_kernel<5>;
+    case 6: return (const void*)istft_ct2_mr_kernel<6>;
+    case 7: return (const void*)istft_ct2_mr_kernel<7>;
+    case 8: return (const void*)istft_ct2_mr_kernel<8>;
+    case 9: return (const void*)istft_ct2_mr_kernel<9>;
+    case 10: return (const void*)istft_ct2_mr_kernel<10>;
+    case 11: return (const void*)istft_ct2_mr_kernel<11>;
+    case 12: return (const void*)istft_ct2_mr_kernel<12>;
+    case 13: return (const void*)istft_ct2_mr_kernel<13>;
+    case 14: return (const void*)istft_ct2_mr_kernel<14>;
+    case 15: return (const void*)istft_ct2_mr_kernel<15>;
+    case 16: return (const void*)istft_ct2_mr_kernel<16>;
+    default: return nullptr;
+  }
+}
+
+// The kernel for n_fft with its dynamic shared memory allowed; its block
+// size in `threads`.
+cudaError_t istft_setup(int n_fft, const void** fn, size_t* smem, int* threads) {
+  if (n_fft < 1024 || n_fft % 1024 != 0 || n_fft / 1024 > MR_K_MAX)
+    return cudaErrorInvalidValue;
+  *fn = istft_kernel(n_fft / 1024, smem);
+  if (*fn == nullptr) return cudaErrorInvalidValue;
+  *threads = n_fft == NW ? THREADS : MR_THREADS;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
 }  // namespace
 
-// Blocks of the kernel that the current device holds at once.
-extern "C" int umx_istft_ct2_capacity(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+// Blocks of the kernel for n_fft that the current device holds at once,
+// and the dynamic shared memory a block asks for (`smem`, bytes).
+extern "C" int umx_istft_ct2_capacity(int n_fft, int* blocks, int* smem_bytes) {
+  int dev = 0, sms = 0, per_sm = 0, threads = 0;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  *blocks = 0;
+  *smem_bytes = 0;
+  cudaError_t e = istft_setup(n_fft, &fn, &smem, &threads);
+  if (e != cudaSuccess) return (int)e;
+  *smem_bytes = (int)smem;
+  e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(istft_ct2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, istft_ct2_kernel, THREADS,
-                                                    SMEM_BYTES);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (e != cudaSuccess) return (int)e;
   *blocks = per_sm * sms;
   return (int)cudaSuccess;
@@ -313,22 +577,23 @@ extern "C" int umx_istft_ct2_capacity(int* blocks) {
 
 // re/im (rows, T, F) f32 with F = N/2 + 1, table (2, N), window (N,) or null,
 // out (rows, (T-1)*hop + N).  One launch of rows x runs_per_row blocks, each
-// on hops_per_run output hops of its row.  Needs N = 4096 and hop = N/4
-// (checked by the wrapper; refused here as well).
+// on hops_per_run output hops of its row.  Needs N = 1024 k with 1 <= k <= 16
+// and hop = N/4 (checked by the wrapper; refused here as well).
 extern "C" int umx_istft_ct2(const float* re, const float* im, const float* table,
                              const float* window, float* out, int rows, int T, int F, int N,
                              int hop, int runs_per_row, int hops_per_run, void* stream) {
-  if (N != NW || hop != HOP || F != NBINS || rows < 1 || T < 1 || runs_per_row < 1 ||
+  if (4 * hop != N || F != N / 2 + 1 || rows < 1 || T < 1 || runs_per_row < 1 ||
       hops_per_run < 1 || (long long)runs_per_row * hops_per_run < T + RING - 1 ||
       (long long)rows * runs_per_row > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(istft_ct2_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
+  const void* fn = nullptr;
+  size_t smem = 0;
+  int threads = 0;
+  cudaError_t e = istft_setup(N, &fn, &smem, &threads);
   if (e != cudaSuccess) return (int)e;
-  istft_ct2_kernel<<<rows * runs_per_row, THREADS, SMEM_BYTES, st>>>(re, im, table, window, out,
-                                                                     T, runs_per_row,
-                                                                     hops_per_run);
+  void* args[] = {&re, &im, &table, &window, &out, &T, &runs_per_row, &hops_per_run};
+  e = cudaLaunchKernel(fn, dim3(rows * runs_per_row), dim3(threads), args, smem,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

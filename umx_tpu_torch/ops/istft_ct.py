@@ -17,10 +17,10 @@ from umx_tpu_torch.ops.stft import hermitian_spectrum, overlap_add
 
 
 def check_ct2_geometry(n_fft: int, hop: int, n_bins: int) -> None:
-    """Raise unless the CT split applies: 1024 | n_fft, a power of two,
-    hop = n_fft/4, one-sided bins (the JAX function asserts the same)."""
-    if n_fft % 1024 or n_fft & (n_fft - 1):
-        raise ValueError(f"ct2 requires 1024 | n_fft and n_fft a power of two, got {n_fft}")
+    """Raise unless the CT split applies: 1024 | n_fft, hop = n_fft/4,
+    one-sided bins (the JAX function asserts the same)."""
+    if n_fft < 1024 or n_fft % 1024:
+        raise ValueError(f"ct2 requires 1024 | n_fft, got {n_fft}")
     if 4 * hop != n_fft:
         raise ValueError(f"ct2 requires hop == n_fft/4, got hop {hop} at n_fft {n_fft}")
     if n_bins != n_fft // 2 + 1:

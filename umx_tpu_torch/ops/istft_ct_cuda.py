@@ -17,9 +17,23 @@ import torch
 from umx_tpu_torch import _build
 from umx_tpu_torch.ops.istft_ct import check_ct2_geometry, istft_ct2_plain
 
-N_FFT = 4096  # the one transform size the kernel is built for
+N_FFT = 4096  # UMX's transform: the kernel's hand-scheduled form
+N_FFT_MAX = 16384  # the largest n_fft whose frame and ring fit a block
 PIECES = 4  # hop = n_fft / 4: a frame reaches 4 output hops, a hop 4 frames
 _MIN_HOPS = 8  # no run shorter than this, unless the row is
+
+
+def istft_radix_plan(n_fft: int) -> tuple[int, ...]:
+    """The radices of the kernel's n_fft/2-point complex inverse, first
+    pass first: 16 x 16 x 8 at 4096 (its hand-scheduled form), else a pass
+    of K = n_fft/1024 points (none at K = 1) and three radix-8 passes (the
+    mixed-radix Stockham form)."""
+    if n_fft % 1024 or not 1024 <= n_fft <= N_FFT_MAX:
+        raise ValueError(f"the iSTFT kernel takes n_fft = 1024 k up to {N_FFT_MAX}, got {n_fft}")
+    if n_fft == N_FFT:
+        return (16, 16, 8)
+    k = n_fft // 1024
+    return ((k,) if k > 1 else ()) + (8, 8, 8)
 
 
 @functools.lru_cache(maxsize=8)
@@ -67,33 +81,35 @@ def istft_runs(rows: int, n_frames: int, capacity: int) -> list[tuple[int, int, 
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(index: int) -> int:
-    """Blocks of the kernel that CUDA device ``index`` holds at once."""
+def istft_block_layout(index: int, n_fft: int) -> tuple[int, int]:
+    """What the kernel at ``n_fft`` reports of itself on CUDA device
+    ``index``, asked once: (the blocks the device holds at once, the
+    dynamic shared memory a block asks for, in bytes)."""
     import ctypes
 
-    blocks = ctypes.c_int(0)
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = _build.library().umx_istft_ct2_capacity(ctypes.addressof(blocks))
+        err = _build.library().umx_istft_ct2_capacity(n_fft, ctypes.addressof(blocks),
+                                                      ctypes.addressof(smem))
     _build.check(err, "umx_istft_ct2_capacity")
-    return blocks.value
+    return blocks.value, smem.value
 
 
 def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
               window: torch.Tensor | None = None) -> torch.Tensor:
     """Planes re/im (..., T, n_fft/2+1) f32 → raw overlap-added signal
     (..., (T-1)*hop + n_fft) with the window folded in (the caller divides
-    by the window sum-of-squares).  Needs n_fft = 4096 and hop = n_fft/4,
-    on either route.
+    by the window sum-of-squares).  Takes every n_fft with 1024 | n_fft and
+    hop = n_fft/4, as the JAX function does; on a CUDA tensor the kernel
+    takes n_fft up to ``N_FFT_MAX`` and raises beyond it before any launch.
     One kernel launch transforms, windows and overlap-adds (no frames
     buffer); the run plan that ran is left in ``istft_ct2.form`` as (runs
-    per row, hops per run).  Counts ``istft_ct2.launches`` once per launch."""
+    per row, hops per run, radix plan).  Counts ``istft_ct2.launches`` once
+    per launch."""
     if re.dim() < 2 or tuple(im.shape) != tuple(re.shape):
         raise ValueError(f"re and im must both be (..., T, F), got {tuple(re.shape)}, {tuple(im.shape)}")
     *lead, T, F = re.shape
     check_ct2_geometry(n_fft, hop, F)
-    if n_fft != N_FFT:
-        raise ValueError(f"the iSTFT kernel is built for n_fft = {N_FFT} (UMX's transform), "
-                         f"got {n_fft}")
     if T < 1:
         raise ValueError("no frames")
     tensors = [("re", re), ("im", im)] + ([("window", window)] if window is not None else [])
@@ -109,9 +125,10 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     if re.device.type != "cuda":
         raise ValueError(f"no kernel for device {re.device}")
 
+    plan = istft_radix_plan(n_fft)
     rows = int(np.prod(lead)) if lead else 1
     dev = re.device
-    per_row, hops_per_run = istft_run_plan(rows, T, _capacity(dev.index))
+    per_row, hops_per_run = istft_run_plan(rows, T, istft_block_layout(dev.index, n_fft)[0])
     re_c = re.reshape(rows, T, F).contiguous()
     im_c = im.reshape(rows, T, F).contiguous()
     win = window.contiguous() if window is not None else None
@@ -125,7 +142,7 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     )
     _build.check(err, "umx_istft_ct2")
     istft_ct2.launches += 1
-    istft_ct2.form = (per_row, hops_per_run)
+    istft_ct2.form = (per_row, hops_per_run, plan)
     return out.reshape(*lead, L)
 
 

@@ -26,13 +26,15 @@ backward the dh/dc carries) in f32.
   of the JAX package's ``lax.scan`` (``_bilstm_layer``, its
   ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
   h against W_hh in its stored dtype (f32, or bf16 upcast exactly), f32
-  FMA on the CUDA cores, any G; one launch per layer, W_hh read from L2
-  each step.
+  FMA on the CUDA cores, any G; one launch per layer, W_hh resident on
+  the chip (registers and shared memory) up to G 512, read from L2 each
+  step above (:func:`scan_form`).
 - K10 with residuals :func:`lstm_scan_train_fwd`: the same kernel with a
   flag that also writes the activated gates and c per step, as K4 is K1.
 - K11 :func:`lstm_scan_bwd_step` (``csrc/lstm_scan_train.cu``): the
   reverse-time float32 sweep, the scan's VJP (no bf16 anywhere), one
-  launch per layer in K10's form, W_hhᵀ read from L2 each step; the weight
+  launch per layer in K10's two forms (W_hh as stored in the resident
+  form, a transposed copy in the streaming one); the weight
   gradient :func:`lstm_scan_dw` is a plain f32 ``torch.bmm``, as the JAX
   package leaves it to XLA.
 
@@ -692,6 +694,36 @@ def _batched_outputs(hs, hT, cT, shape):
 # has room for 16 rows of each chain.
 SCAN_UNITS = 32
 SCAN_ROWS = 16
+# The resident forms of K10 and K11 keep a block's share of W_hh (its 128
+# gate columns x G rows, upcast to f32) on the chip up to this width,
+# split between registers and shared memory (their capacity queries report
+# the split: scan_block_layout); wider layers stream it.
+SCAN_RESIDENT_G_MAX = 512
+SCAN_FORMS = ("resident", "streaming")
+
+
+def scan_form(G: int, whh_dtype: torch.dtype) -> str:
+    """The form K10, K10 with residuals and K11 take at width G, W_hh in
+    ``whh_dtype`` (f32 or bf16, upcast to f32 on the chip either way):
+    "resident" up to ``SCAN_RESIDENT_G_MAX``, else "streaming".  Chosen from
+    the width before any launch, never from the rows, the chains or a
+    failed launch."""
+    if whh_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"whh must be float32 or bfloat16, got {whh_dtype}")
+    return "resident" if G <= SCAN_RESIDENT_G_MAX else "streaming"
+
+
+def _scan_form_for(G: int, whh_dtype: torch.dtype, form: str | None) -> str:
+    """``form`` as asked for (None: :func:`scan_form`), raising by name for
+    an unknown form or the resident form above its width."""
+    if form is None:
+        return scan_form(G, whh_dtype)
+    if form not in SCAN_FORMS:
+        raise ValueError(f"form must be one of {SCAN_FORMS} or None, got {form!r}")
+    if form == "resident" and G > SCAN_RESIDENT_G_MAX:
+        raise ValueError(f"the resident form holds W_hh on the chip up to G = "
+                         f"{SCAN_RESIDENT_G_MAX}; got G = {G}")
+    return form
 
 
 def scan_blocks_per_chain(G: int) -> int:
@@ -719,40 +751,52 @@ def scan_exchange_words(R: int, G: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_capacity(index: int, G: int, whh_bf16: bool, kernel: str = "K10") -> tuple[int, int]:
-    """(the largest row tile, the blocks of it held at once) of ``kernel``
-    ("K10", "K10r" with the residual stores, or "K11") at width G, W_hh in
-    bf16 or f32, on CUDA device ``index``, asked once."""
+def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
+                      form: str = "streaming") -> tuple[int, int, int, int]:
+    """What ``kernel`` ("K10", "K10r" with the residual stores, or "K11")
+    in ``form`` at width G, W_hh in bf16 or f32, reports of itself on CUDA
+    device ``index``, asked once: (the largest row tile, the blocks of it
+    held at once, the dynamic shared memory a block of that tile asks for,
+    the bytes of a full block's share of W_hh that stay in registers, 0 in
+    the streaming form)."""
     import ctypes
 
-    rows, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    ptrs = [ctypes.addressof(v) for v in out]
     lib = _build.library()
+    resident = int(form == "resident")
     with torch.cuda.device(index):
         if kernel == "K11":
-            err = lib.umx_lstm_scan_bwd_capacity(
-                G, int(whh_bf16), ctypes.addressof(rows), ctypes.addressof(blocks))
+            err = lib.umx_lstm_scan_bwd_capacity(resident, G, int(whh_bf16), *ptrs)
         else:
-            err = lib.umx_lstm_scan_capacity(G, int(whh_bf16), int(kernel == "K10r"),
-                                             ctypes.addressof(rows), ctypes.addressof(blocks))
+            err = lib.umx_lstm_scan_capacity(resident, G, int(whh_bf16), int(kernel == "K10r"),
+                                             *ptrs)
     if err == _CUDA_ERROR_INVALID_CONFIGURATION:
         raise RuntimeError(f"{kernel}: this device has no cooperative launch, which the "
                            "float32 recurrence needs")
     _build.check(err, f"{kernel} capacity")
-    if rows.value < 1:
+    if out[0].value < 1:
         raise RuntimeError(f"{kernel}: one row (G = {G}) does not fit a block's shared memory "
                            "on this device")
-    return rows.value, blocks.value
+    return tuple(v.value for v in out)
 
 
-def _scan_plan(wrapper, kernel: str, ref, R: int, B: int, G: int, bf16: bool):
-    """The launches of one K10 / K11 layer, (r0, nr, b0, nb, row tile)
-    each, row groups outermost; leaves the form in ``wrapper.form`` as
-    (blocks per chain, blocks the device holds at once, chain groups, row
-    groups)."""
-    rows, capacity = _scan_capacity(ref.device.index, G, bf16, kernel)
+def _scan_capacity(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
+                   form: str = "streaming") -> tuple[int, int]:
+    """(the largest row tile, the blocks of it held at once): the first two
+    of :func:`scan_block_layout`."""
+    return scan_block_layout(index, G, whh_bf16, kernel, form)[:2]
+
+
+def _scan_plan(wrapper, kernel: str, ref, R: int, B: int, G: int, bf16: bool, form: str):
+    """The launches of one K10 / K11 layer in ``form``, (r0, nr, b0, nb,
+    row tile) each, row groups outermost; leaves the form in
+    ``wrapper.form`` as (form, blocks per chain, blocks the device holds at
+    once, chain groups, row groups)."""
+    rows, capacity = _scan_capacity(ref.device.index, G, bf16, kernel, form)
     chains = chain_groups(R, scan_blocks_per_chain(G), capacity, kernel)
     groups = scan_row_groups(B, rows)
-    wrapper.form = (scan_blocks_per_chain(G), capacity, len(chains), len(groups))
+    wrapper.form = (form, scan_blocks_per_chain(G), capacity, len(chains), len(groups))
     return [(r0, nr, b0, nb, rt) for b0, nb, rt in groups for r0, nr in chains]
 
 
@@ -772,11 +816,11 @@ def lstm_scan_train_fwd_plain(xp, whh, h0, c0, B: int):
     return _recurrence_plain(xp, whh, h0, c0, B, round_h=False, residuals=True)
 
 
-def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool, form: str | None):
     """K10 (``residuals`` False) or K10 with its residual stores on CUDA
-    tensors, or their plain versions on CPU tensors: the launches of one
-    layer over its chain and row groups, counted once in
-    ``wrapper.launches``."""
+    tensors, in ``form`` (None: :func:`scan_form`), or their plain versions
+    on CPU tensors: the launches of one layer over its chain and row
+    groups, counted once in ``wrapper.launches``."""
     T, R, G = _dims(xp, whh, B)
     RB = R * B
     _check_hh_dtype(whh, "whh")
@@ -784,6 +828,7 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
         ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, whh.dtype),
         ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
     ])
+    form = _scan_form_for(G, whh.dtype, form)
     if route == "cpu":
         if residuals:
             return lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
@@ -791,7 +836,7 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     lib = _build.library()
     dev = xp.device
     bf16 = whh.dtype == torch.bfloat16
-    plan = _scan_plan(wrapper, "K10r" if residuals else "K10", xp, R, B, G, bf16)
+    plan = _scan_plan(wrapper, "K10r" if residuals else "K10", xp, R, B, G, bf16, form)
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
     hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
     cT = c0.clone()  # the kernel updates c in place
@@ -803,7 +848,8 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     entry = "umx_lstm_scan_train" if residuals else "umx_lstm_scan"
     for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
         err = getattr(lib, entry)(
-            xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(), cT.data_ptr(),
+            int(form == "resident"), xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(),
+            cT.data_ptr(),
             hs.data_ptr(), hT.data_ptr(), *(t.data_ptr() for t in extra), hx.data_ptr(),
             T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(xp),
         )
@@ -812,7 +858,7 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     return (hs, hT, cT, *extra)
 
 
-def lstm_scan(xp, whh, h0, c0, B: int):
+def lstm_scan(xp, whh, h0, c0, B: int, *, _form: str | None = None):
     """K10: one BLSTM layer's float32 recurrence for all chains (see
     module docstring and ``csrc/lstm_scan.cu``).
 
@@ -820,24 +866,26 @@ def lstm_scan(xp, whh, h0, c0, B: int):
     (hs (T, R*B, G), hT, cT).  One cooperative launch runs all T steps of
     all chains and up to 16 rows per chain; further rows (and chains beyond
     what the device holds at once) are further launches of the same
-    kernel.  Any G.  The form that ran is left in ``lstm_scan.form`` as
-    (blocks per chain, blocks the device holds at once, chain groups, row
-    groups).  Increments ``lstm_scan.launches`` once per layer.  CPU
-    tensors run :func:`lstm_scan_plain`."""
-    return _scan_forward(lstm_scan, xp, whh, h0, c0, B, residuals=False)
+    kernel.  Any G: W_hh resident on the chip up to G 512, streamed above
+    (:func:`scan_form`; the private ``_form`` names one, for the checks that
+    compare them).  The form that ran is left in ``lstm_scan.form`` as (form, blocks per chain,
+    blocks the device holds at once, chain groups, row groups).  Increments
+    ``lstm_scan.launches`` once per layer.  CPU tensors run
+    :func:`lstm_scan_plain`."""
+    return _scan_forward(lstm_scan, xp, whh, h0, c0, B, False, _form)
 
 
 lstm_scan.launches = 0
 lstm_scan.form = None
 
 
-def lstm_scan_train_fwd(xp, whh, h0, c0, B: int):
+def lstm_scan_train_fwd(xp, whh, h0, c0, B: int, *, _form: str | None = None):
     """K10 with residuals: :func:`lstm_scan` plus (gates (T, R*B, 4G)
     activated i|f|g|o, cs (T, R*B, G)).  The same kernel with the residual
-    stores compiled in: hs/hT/cT are :func:`lstm_scan`'s bits.  Leaves its
-    form in ``lstm_scan_train_fwd.form`` and counts
+    stores compiled in: hs/hT/cT are :func:`lstm_scan`'s bits in the same
+    form.  Leaves its form in ``lstm_scan_train_fwd.form`` and counts
     ``lstm_scan_train_fwd.launches`` once per layer."""
-    return _scan_forward(lstm_scan_train_fwd, xp, whh, h0, c0, B, residuals=True)
+    return _scan_forward(lstm_scan_train_fwd, xp, whh, h0, c0, B, True, _form)
 
 
 lstm_scan_train_fwd.launches = 0
@@ -859,15 +907,18 @@ def scan_bwd_exchange_words(R: int, G: int) -> int:
     return R * 2 * SCAN_ROWS * scan_blocks_per_chain(G) * G
 
 
-def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int, *,
+                       _form: str | None = None):
     """K11: the reverse-time float32 sweep of one layer → (dxp
     (T, R*B, 4G), dh0, dc0), all f32 (see ``csrc/lstm_scan_train.cu``).
 
     gates (T, R*B, 4G), cs (T, R*B, G) from :func:`lstm_scan_train_fwd`;
     c0, dhT, dcT (R*B, G) and dhs (T, R*B, G) f32; whh (R, G, 4G) f32 or
-    bf16, handed to the kernel transposed.  One cooperative launch runs all
-    T steps of all chains and up to 16 rows per chain; further rows and
-    chains are further launches.  Any G.  Leaves its form in
+    bf16.  One cooperative launch runs all T steps of all chains and up to
+    16 rows per chain; further rows and chains are further launches.  Any
+    G: W_hh resident on the chip up to G 512 (read as stored), streamed
+    above (from a transposed copy; :func:`scan_form`; the private ``_form``
+    names one; both give the same bits).  Leaves its form in
     ``lstm_scan_bwd_step.form`` and counts ``lstm_scan_bwd_step.launches``
     once per sweep.  CPU tensors run :func:`lstm_scan_bwd_step_plain`."""
     T, R, G = _dims(gates, whh, B)
@@ -879,20 +930,24 @@ def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
         ("dhs", dhs, (T, RB, G), torch.float32), ("dhT", dhT, (RB, G), torch.float32),
         ("dcT", dcT, (RB, G), torch.float32),
     ])
+    form = _scan_form_for(G, whh.dtype, _form)
     if route == "cpu":
         return lstm_scan_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
     lib = _build.library()
     dev = gates.device
     bf16 = whh.dtype == torch.bfloat16
-    plan = _scan_plan(lstm_scan_bwd_step, "K11", gates, R, B, G, bf16)
-    wt = whh.transpose(1, 2).contiguous()  # (R, 4G, G): a block's units are neighbours
+    plan = _scan_plan(lstm_scan_bwd_step, "K11", gates, R, B, G, bf16, form)
     dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
     dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
     dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
     hx = torch.zeros(scan_bwd_exchange_words(R, G), dtype=torch.int64, device=dev)
+    # the resident form loads W_hh as stored; the streaming one reads
+    # neighbouring units from one row of W_hh transposed (R, 4G, G)
+    w = whh if form == "resident" else whh.transpose(1, 2).contiguous()
     for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
         err = lib.umx_lstm_scan_bwd(
-            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), wt.data_ptr(), int(bf16),
+            int(form == "resident"), gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+            w.data_ptr(), int(bf16),
             dhs.data_ptr(), dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(),
             hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(gates),
         )

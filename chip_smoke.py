@@ -13,7 +13,7 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    (B = 16, T = 256), with the form that ran (blocks per chain, blocks the
    card holds at once, chain groups, row groups); at G = 256; at 20 rows
    per chain (beyond one launch's 16: two row groups); rows bit-equal
-   whatever runs beside them; a width above 512 refused;
+   whatever runs beside them; a width above 512 in the wide form;
 3. the Wiener-EM reduce/apply kernels against their plain versions at
    S = 4, T = 2584, F = 2049, for 1 and 2 EM iterations; their bfloat16
    forms (K2/K3 reading bf16 masks, K3 writing bf16 planes, and the two
@@ -43,7 +43,7 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    K4 and K5, each one resident launch per layer: K4's hs/hT/cT bit-equal
    to K1's, both at 20 rows per chain and a ragged T (two row groups), at
    96 rows, at G = 256, rows bit-equal whatever runs beside them, a width
-   above 512 refused, their forms printed (one wave at UMX-L);
+   above 512 in the wide form, their forms printed (one wave at UMX-L);
 6. the training path: synthetic stems on disk, ``data.train_loop`` for 8
    steps at batch 16 × 256 frames at UMX-L width with a validation split
    (finite losses, frozen BatchNorm statistics, K1/K4/K5/K6 launched),
@@ -58,8 +58,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    inside a row or that are shorter than the overlap-add ring: 3 and 5
    rows x 37 frames, 1 row x 3 frames), bit-stable; K8 at n_fft 1024,
    2048, 3072, 5120, 8192 and 16384 too (its mixed-radix form, the sizes
-   JAX's ct2 takes beside UMX's 4096) on 8 rows of a 60 s segment against
-   its plain version and float64 (1e-5), with its radices, bit-stable;
+   JAX's ct2 takes beside UMX's 4096) and 32768 (its device-memory form,
+   above what a block's shared memory holds) on 8 rows of a 60 s segment
+   against its plain version and float64 (1e-5), with its radices,
+   bit-stable;
 8. the batched whole-track path: the CLI with ``--no-streaming --shifts 2
    --istft-algo ct2`` on the 100 s track, and a ``Separator`` with
    ``ola_impl="pallas"``, the ct2 iSTFT, non-streaming chunk groups at the
@@ -90,7 +92,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     shapes it gave K1 (three rows per chain in the bucket of 100 s tracks)
     and K2/K3 recorded and each kernel held against its plain version
     there, and that bucket with dense weights held against the tracks one
-    by one and (float32 seams) against the CPU; one
+    by one and (float32 seams, its first track's first 50 s) against the
+    CPU; one
     ``Separator`` with ``lstm_impl="pallas"`` on the 400 s track (K9
     launched 3 layers x chunks times) against the K1 run and against the
     CPU on a 100 s cut; ``wiener_filter_planes`` on a real segment against
@@ -273,6 +276,27 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     kernels line gets rows for both kernels with their launches from the
     ``train_loop`` run.
 
+21. (run after phase 20) every width the JAX kernels take: K1 in its wide
+    form (G 640: K10's streaming kernel with h rounded to bf16 for the
+    product) and padded (G 18 to 24 by zero units) at T 2584, R 8, B 1; K9
+    padded (G 18) and through the wide K1 (G 1024, where no cluster holds a
+    chain); K4 and K5 wide and padded at the training shape: each against
+    its plain version (5e-3), rows bit-equal alone, K4's hs/hT/cT K1's
+    bits, timed beside plain and bound.  Then, counts set to 0 just before
+    and read just after each run: the CLI on phase 19's hidden-1280 model
+    and its 20 s cut under ``--lstm-impl pallas_merged`` and ``--stream-impl
+    pipelined`` (the wide K1), and on a hidden-36 model under
+    ``--lstm-impl pallas_merged``, ``pallas`` (padded K1, K9) and
+    ``--stream-impl pipelined``, each held against the port's pinned CPU
+    path on 5 s with float32 seams (2e-3 of the peak; K1/K9 at the path's
+    inputs against plain, 5e-3; corr printed, not gated); hidden 2048 under
+    ``pallas`` (K9's chains through the wide K1); ``train_loop`` 2 steps
+    under ``"pallas_merged"`` at hidden 1280 (the wide K4/K5) and 36
+    (padded); and ``umx_forward(compute="bfloat16")`` under ``"scan"`` on
+    the card (K1, never K10) against the CPU at hidden 1280 and 36 (max
+    2e-2 and RMS 2e-3 of the peak).  Its figures go under ``"width"``; the
+    kernels line gets a row for each new form with its launches there.
+
 Prints the card's name and power limit, a JSON line with the kernels,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits
 non-zero without one.
@@ -359,7 +383,7 @@ ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
 ISTFT_4096_MS, ISTFT_4096_SLACK = 1.4149, 1.05
 # K8 at n_fft beyond UMX's 4096 (JAX's ct2 takes every n_fft with
 # 1024 | n_fft): the mixed-radix form, on 8 rows of a 60 s segment
-ISTFT_SIZES = (1024, 2048, 3072, 5120, 8192, 16384)
+ISTFT_SIZES = (1024, 2048, 3072, 5120, 8192, 16384, 32768)
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
 
@@ -477,7 +501,8 @@ def check_lstm(dev, T, B, seed, R=R_CHAINS, G=G_HIDDEN):
 def check_lstm_resident(dev):
     """Phase 2: what the resident form of K1 has to hold beyond the paths'
     shapes: UMX-HQ's width, rows beyond one launch, rows that do not
-    depend on their neighbours, one wave at UMX-L, and the refusal."""
+    depend on their neighbours, one wave at UMX-L, and G 520 in the wide
+    form."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda as L
@@ -512,15 +537,12 @@ def check_lstm_resident(dev):
                     zip(sub, (out_k[0][:, rows], out_k[1][rows], out_k[2][rows]))),
                 f"rows {picks} of lstm_merged depend on the rows beside them")
     print("lstm_merged rows alone, in 3 and in 6 are bit-equal to the same rows among 20")
-    before = L.lstm_merged.launches
-    try:
-        L.lstm_merged(*inputs(2, 1, 520, seed=1))
-    except RuntimeError as e:
-        print(f"lstm_merged refuses G = 520: {e}")
-    else:
-        raise RuntimeError("lstm_merged took G = 520")
-    require(L.lstm_merged.launches == before, "a refused call was counted as a launch")
-    return worst
+    wide = inputs(2, 1, 520, seed=1)
+    err = max(max_err(a, b) for a, b in zip(L.lstm_merged(*wide), L.lstm_merged_plain(*wide)))
+    print(f"lstm_merged at G = 520: form {L.lstm_merged.form}, max|err| vs plain {err:.3g}")
+    require(L.lstm_merged.form[0] == "wide" and err <= 5e-3,
+            f"lstm_merged at G = 520: form {L.lstm_merged.form}, max|err| {err}")
+    return max(worst, err)
 
 
 def train_inputs(dev, T, B, G, seed):
@@ -547,7 +569,8 @@ def check_train_resident(dev):
     """Phase 5: what the resident forms of K4 and K5 have to hold beyond
     the training shape: K4's hs/hT/cT are K1's bits, rows beyond one launch
     and beyond the 81 that K4's earlier form could hold, UMX-HQ's width, a
-    ragged T, rows that do not depend on their neighbours, and the refusal."""
+    ragged T, rows that do not depend on their neighbours, and G 520 in the
+    wide form."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda as L
@@ -594,21 +617,16 @@ def check_train_resident(dev):
             require(all(torch.equal(s, sub(o, rows)) for s, o in zip(b_sub, bwd_k)),
                     f"rows {picks} of lstm_merged_bwd_step depend on the rows beside them")
         print("K4 and K5 rows alone, in 3 and in 6 are bit-equal to the same rows among 20")
-    before = (L.lstm_merged_train_fwd.launches, L.lstm_merged_bwd_step.launches)
-    (xp, whh, h0, c0, _), cts = train_inputs(dev, 2, 1, 520, seed=1)
-    for name, call in (
-        ("lstm_merged_train_fwd", lambda: L.lstm_merged_train_fwd(xp, whh, h0, c0, 1)),
-        ("lstm_merged_bwd_step", lambda: L.lstm_merged_bwd_step(
-            torch.zeros_like(xp), cts[0], c0, whh, *cts, 1)),
-    ):
-        try:
-            call()
-        except RuntimeError as e:
-            print(f"{name} refuses G = 520: {e}")
-        else:
-            raise RuntimeError(f"{name} took G = 520")
-    require((L.lstm_merged_train_fwd.launches, L.lstm_merged_bwd_step.launches) == before,
-            "a refused call was counted as a launch")
+    fwd_in, cts = train_inputs(dev, 2, 1, 520, seed=1)
+    fwd_k = L.lstm_merged_train_fwd(*fwd_in)
+    ferr = max(max_err(a, b) for a, b in zip(fwd_k, L.lstm_merged_train_fwd_plain(*fwd_in)))
+    bwd_in = (fwd_k[3], fwd_k[4], fwd_in[3], fwd_in[1], *cts, 1)
+    berr = max(rel_err(a, b) for a, b in zip(L.lstm_merged_bwd_step(*bwd_in),
+                                             L.lstm_merged_bwd_step_plain(*bwd_in)))
+    forms = (L.lstm_merged_train_fwd.form, L.lstm_merged_bwd_step.form)
+    print(f"K4/K5 at G = 520: forms {forms}, max|err| vs plain {ferr:.3g}, {berr:.3g}")
+    require(forms[0][0] == forms[1][0] == "wide" and ferr <= 5e-3 and berr <= 5e-3,
+            f"K4/K5 at G = 520: forms {forms}, errors {ferr}, {berr}")
 
 
 def check_train_kernels(dev):
@@ -1232,13 +1250,19 @@ def write_catalogue(tmp: str):
     return root, tracks
 
 
+# the catalogue bucket's track held against the CPU: its first 50 s (two
+# chunks at a 45 s stride), cut from the whole 100 s to keep the smoke run
+# inside its time limit beside phase 21
+CATALOGUE_CPU_SECS = 50.0
+
+
 def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
     """Phase 11: the batch CLI in a subprocess, then ``demix_tracks`` in
     process with a forced window, launch counts around it and the shapes
     it gives K1 ((rows per chain, frames)) and K2/K3 ((frames, bins))
     recorded; then the bucket of 100 s tracks with dense weights against
-    the same tracks one by one (the card's default seams) and its first
-    track against the CPU (float32 seams on both sides)."""
+    the same tracks one by one (the card's default seams) and the first
+    50 s of its first track against the CPU (float32 seams on both sides)."""
     import torch
 
     from umx_tpu_torch.config import EngineConfig, SegmentConfig
@@ -1330,15 +1354,18 @@ def catalogue_path(tmp: str, model: str, counters: dict, smi: str):
     # a row of K1 has the same order of summation at every B, and so has
     # every other product of the path
     require(bucket_err == 0.0, f"the bucket and the single tracks are not bit-equal: {bucket_err}")
-    # and the bucket's first track against the port's CPU path (plain
+    # and the first CATALOGUE_CPU_SECS of the bucket's first track (two
+    # chunks: the state carried once) against the port's CPU path (plain
     # versions), the storage seams pinned to float32 on both sides
-    gpu32 = Separator(dense.params, f32_seams(cfg), "cuda").demix_track(bucket[0], seed=seeds[0])
+    head = bucket[0][:, : int(CATALOGUE_CPU_SECS * SR)]
+    gpu32 = Separator(dense.params, f32_seams(cfg), "cuda").demix_track(head, seed=seeds[0])
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
-    cpu = Separator.from_ggml(model, f32_seams(cfg), "cpu").demix_track(bucket[0], seed=seeds[0])
+    cpu = Separator.from_ggml(model, f32_seams(cfg), "cpu").demix_track(head, seed=seeds[0])
     cpu_err = float(np.max(np.abs(gpu32 - cpu)) / np.max(np.abs(cpu)))
-    print(f"GPU vs CPU port, first track of that bucket, 100 s at UMX-L, float32 seams: "
-          f"max|err|/max|stem| {cpu_err:.3g} (CPU run {time.perf_counter() - t0:.1f} s)")
+    print(f"GPU vs CPU port, first {CATALOGUE_CPU_SECS:.0f} s of that bucket's first track at "
+          f"UMX-L, float32 seams: max|err|/max|stem| {cpu_err:.3g} (CPU run "
+          f"{time.perf_counter() - t0:.1f} s)")
     # bf16 operands in the recurrence and cuFFT/cuBLAS summation order, as phase 4
     require(cpu_err <= 2e-3, f"the bucket on the GPU and the CPU path disagree: {cpu_err}")
     return sep, tracks, launches, stats, fleet_s, sorted(k1_shapes), max(bucket_err, cpu_err)
@@ -3561,70 +3588,98 @@ def pinned_cpu_demix(tmp: str, path: str, cfg, short, quantized: bool):
     return cpu, nudged, res.stdout.strip().splitlines()[-1]
 
 
-def scan_vs_cpu(tmp: str, path: str, cfg, short, quantized: bool = False) -> dict:
+# the recurrence layer each kind of path calls (models/umx.py), its
+# kernel's name on the lines, and the tolerance of that kernel against its
+# plain version at the path's inputs
+PATH_LAYERS = {"scan": ("lstm_layer_scan_batched", "K10", SCAN_ATOL),
+               "merged": ("lstm_layer_merged_batched", "K1", 5e-3),
+               "pertarget": ("lstm_layer_pertarget_batched", "K9", 5e-3)}
+
+
+def layer_kernel_calls(kind: str, x_proj, hh_w, h0, c0) -> list:
+    """The kernel calls a recurrence layer of ``kind`` makes at these
+    batched inputs, as [(kernel, plain version, arguments)]."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    if kind == "pertarget":
+        whh = hh_w.to(torch.bfloat16).contiguous()
+        return [(L.lstm_layer_pertarget, L.lstm_pertarget_plain,
+                 (x_proj[b].float().contiguous(), whh, h0[b].float().contiguous(),
+                  c0[b].float().contiguous())) for b in range(x_proj.shape[0])]
+    xp, h0r, c0r = L._chain_rows(x_proj, h0, c0)
+    R, G = x_proj.shape[1] * x_proj.shape[3], x_proj.shape[4] // 4
+    if kind == "merged":
+        whh = hh_w.to(torch.bfloat16).reshape(R, G, 4 * G).contiguous()
+        return [(L.lstm_merged, L.lstm_merged_plain, (xp, whh, h0r, c0r, x_proj.shape[0]))]
+    whh = hh_w.reshape(R, G, 4 * G).contiguous()
+    return [(L.lstm_scan, L.lstm_scan_plain, (xp, whh, h0r, c0r, x_proj.shape[0]))]
+
+
+def scan_vs_cpu(tmp: str, path: str, cfg, short, quantized: bool = False,
+                kind: str = "scan") -> dict:
     """The card's demix of ``short`` against the port's CPU path (pinned,
     :func:`pinned_cpu_demix`) on the same ggml file and config:
     max|err|/max|stem|, the error's energy in dB, and the CPU path against
-    itself on the nudged input.  Also K10 at the path's own inputs (its
-    three layers of the first segment, captured on the way) against its
-    plain version on the card, and the card's demix run twice (the same
-    bits, or the exchange raced)."""
-    import torch
-
+    itself on the nudged input.  Also the recurrence kernel of ``kind``
+    (:data:`PATH_LAYERS`) at the path's own inputs (its layers of the first
+    segment, captured on the way) against its plain version on the card,
+    and the card's demix run twice (the same bits, or the exchange raced)."""
     from umx_tpu_torch.engine.separator import Separator
-    from umx_tpu_torch.ops import lstm_cuda as L
-
     from umx_tpu_torch.models import umx
 
+    name, kernel, atol = PATH_LAYERS[kind]
     sep = Separator.from_ggml(path, cfg, "cuda", quantized_hbm=quantized)
-    layer, seen = umx.lstm_layer_scan_batched, []
+    layer, seen = getattr(umx, name), []
 
     def spy(x_proj, hh_w, h0, c0):
         if len(seen) < cfg.model.n_lstm_layers:
-            xp, h0r, c0r = L._chain_rows(x_proj, h0, c0)
-            R, G = x_proj.shape[1] * x_proj.shape[3], x_proj.shape[4] // 4
-            seen.append((xp, hh_w.reshape(R, G, 4 * G).contiguous(), h0r, c0r, x_proj.shape[0]))
+            seen.extend(layer_kernel_calls(kind, x_proj, hh_w, h0, c0))
         return layer(x_proj, hh_w, h0, c0)
 
-    umx.lstm_layer_scan_batched = spy
+    setattr(umx, name, spy)
     try:
         gpu = sep.demix_track(short, seed=0)
         again = sep.demix_track(short, seed=0)
     finally:
-        umx.lstm_layer_scan_batched = layer
-    in_path = max(float((k - p).abs().max()) for args in seen
-                  for k, p in zip(L.lstm_scan(*args), L.lstm_scan_plain(*args)))
-    whh = str(seen[0][1].dtype).replace("torch.", "")
+        setattr(umx, name, layer)
+    require(bool(seen), f"the {kind} path never called {name}")
+    in_path = max(float((k - p).abs().max()) for fn, plain, args in seen
+                  for k, p in zip(fn(*args), plain(*args)))
+    whh = str(seen[0][2][1].dtype).replace("torch.", "")
     del sep, seen
     cpu, nudged, pins = pinned_cpu_demix(tmp, path, cfg, short, quantized)
     peak = float(np.max(np.abs(cpu)))
     return {"rel_err": float(np.max(np.abs(gpu - cpu))) / peak,
             "err_energy_db": float(20 * np.log10(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu))),
             "cpu_own_rel": float(np.max(np.abs(nudged - cpu))) / peak,
-            "k10_in_path_err": in_path, "whh": whh, "repeat_equal": bool(np.array_equal(gpu, again)),
-            "cpu_pins": pins, "finite": bool(np.isfinite(gpu).all())}
+            "kernel": kernel, "kernel_in_path_err": in_path, "kernel_atol": atol, "whh": whh,
+            "repeat_equal": bool(np.array_equal(gpu, again)), "cpu_pins": pins,
+            "finite": bool(np.isfinite(gpu).all())}
 
 
-def check_scan_vs_cpu(r: dict, what: str, quantized: bool = False) -> None:
+def check_scan_vs_cpu(r: dict, what: str, quantized: bool = False,
+                      rtol: float = SCAN_SLICE_RTOL) -> None:
     """The gates of :func:`scan_vs_cpu`'s figures ``r``."""
     require(r["finite"], f"{what}: the card's stems are not finite")
     require(r["repeat_equal"], f"{what}: two demixes of the same input on the card differ")
-    require(r["k10_in_path_err"] <= SCAN_ATOL,
-            f"{what}: K10 at the path's inputs disagrees with its plain version: "
-            f"{r['k10_in_path_err']}")
+    require(r["kernel_in_path_err"] <= r["kernel_atol"],
+            f"{what}: {r['kernel']} at the path's inputs disagrees with its plain version: "
+            f"{r['kernel_in_path_err']}")
     if quantized:
         require(r["err_energy_db"] <= SCAN_QUANT_DB,
                 f"{what}: GPU and CPU disagree, error energy {r['err_energy_db']} dB")
     else:
-        require(r["rel_err"] <= SCAN_SLICE_RTOL, f"{what}: GPU and CPU disagree: {r}")
+        require(r["rel_err"] <= rtol, f"{what}: GPU and CPU disagree: {r}")
 
 
 def scan_cpu_line(r: dict) -> str:
     return (f"max|err|/max|stem| {r['rel_err']:.3g}, error energy {r['err_energy_db']:.1f} dB; "
-            f"K10 at the path's inputs (W_hh {r['whh']}) vs plain {r['k10_in_path_err']:.3g}; "
-            f"two card runs bit-equal {r['repeat_equal']}; the CPU path against itself on the "
-            f"input x (1 + {SCAN_NUDGE:g}): {r['cpu_own_rel']:.3g}; CPU side pinned "
-            f"(capability, threads) {r['cpu_pins']}")
+            f"{r['kernel']} at the path's inputs (W_hh {r['whh']}) vs plain "
+            f"{r['kernel_in_path_err']:.3g}; two card runs bit-equal {r['repeat_equal']}; the CPU "
+            f"path against itself on the input x (1 + {SCAN_NUDGE:g}): {r['cpu_own_rel']:.3g}; "
+            f"CPU side pinned (capability, threads) {r['cpu_pins']}")
 
 
 def scan_phase(dev, tmp: str, model: str, wav: str, mix, counters: dict, smi: str):
@@ -3637,7 +3692,7 @@ def scan_phase(dev, tmp: str, model: str, wav: str, mix, counters: dict, smi: st
     layers a chunk, K1 never); the GPU against the port's pinned CPU path
     on 5 s with the seams pinned to float32 (:func:`scan_vs_cpu`); the
     warm streaming demix under "scan" beside the default in turns; and a
-    synthetic hidden-1280 model (G 640, which K1 refuses) through the CLI
+    synthetic hidden-1280 model (G 640, above K1's resident form) through the CLI
     on a 20 s cut and against the CPU on 5 s.  Returns (its figures, K10's inputs at G 512, B 1)."""
     import dataclasses
 
@@ -4280,12 +4335,12 @@ def stress_scan(dev, smi: str) -> dict:
 def wide_auto_demix(dev, tmp: str, counters: dict, smi: str) -> dict:
     """Phase 20e: the synthetic hidden-1280 model (G 640) demixes under the
     default "auto" through K10 and never K1, with the bits of "scan" (one
-    program), and "pallas_merged" named at that width raises by name."""
+    program); "pallas_merged" named at that width runs the wide K1 (phase
+    21)."""
     from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
     from umx_tpu_torch.engine.separator import Separator
     from umx_tpu_torch.io.ggml import write_ggml
     from umx_tpu_torch.models.umx import synthetic_state_dicts
-    from umx_tpu_torch.ops import lstm_cuda as L
 
     wide = os.path.join(tmp, "synthetic_h1280.bin")
     if not os.path.isfile(wide):  # phase 19 writes it
@@ -4302,19 +4357,11 @@ def wide_auto_demix(dev, tmp: str, counters: dict, smi: str) -> dict:
         require(launches.get("lstm_scan", 0) > 0 and not launches.get("lstm_merged"),
                 f"hidden {SCAN_WIDE_HIDDEN} under {impl} did not demix through K10: {launches}")
     same = bool(np.array_equal(out["auto"], out["scan"]))
-    cfg = EngineConfig(model=ModelConfig(lstm_impl="pallas_merged"), segment=seg)
-    try:
-        Separator.from_ggml(wide, cfg, dev).demix_track(audio, seed=0)
-        refused = ""
-    except RuntimeError as e:
-        refused = str(e)
     print(f"hidden {SCAN_WIDE_HIDDEN} demix of 5 s under auto: K10 {launches['lstm_scan']} "
           f"launches, K1 none; stems bit-equal to lstm_impl scan's: {same}; finite "
-          f"{bool(np.isfinite(out['auto']).all())}; pallas_merged refused: {refused!r}  [{smi}]")
+          f"{bool(np.isfinite(out['auto']).all())}  [{smi}]")
     require(same and np.isfinite(out["auto"]).all(), "auto at hidden 1280 is not the scan's demix")
-    require(f"G <= {L.RESIDENT_G_MAX}" in refused,
-            f"pallas_merged at hidden {SCAN_WIDE_HIDDEN} was not refused by name: {refused!r}")
-    return {"auto_equals_scan": same, "pallas_merged_refused": refused}
+    return {"auto_equals_scan": same}
 
 
 def scan_train_phase(dev, tmp: str, counters: dict, smi: str) -> dict:
@@ -4331,6 +4378,354 @@ def scan_train_phase(dev, tmp: str, counters: dict, smi: str) -> dict:
     fig["stress"] = stress_scan(dev, smi)
     fig["phase_s"] = time.perf_counter() - t_phase
     print(f"scan train phase: {fig['phase_s']:.1f} s wall  [{smi}]")
+    return fig
+
+
+# phase 21: every width the JAX kernels take
+WIDTH_PAD_HIDDEN = 36  # G 18: the resident kernels run it padded to 24
+WIDTH_K9_WIDE_HIDDEN = 2048  # G 1024: no cluster holds a chain's W_hh; K9 runs the wide K1
+WIDTH_RTOL = 2e-3  # PERF.md section 2: the card against the CPU with bf16 recurrence operands
+WIDTH_TRAIN_STEPS = 2
+# "bfloat16" masks on the card against the CPU's: one bf16 rounding of an
+# operand may flip between two f32 sums (2^-8 relative): max and RMS of the
+# error over the masks' peak
+WIDTH_BF16_MAX, WIDTH_BF16_RMS = 2e-2, 2e-3
+# the kernels line's rows of the new forms: name -> (wrapper, source, TPU kernel)
+WIDTH_ROWS = {
+    "lstm_merged_wide": ("lstm_merged", "umx_tpu_torch/csrc/lstm_scan.cu",
+                         "umx_tpu/ops/lstm_pallas.py:158"),
+    "lstm_merged_padded": ("lstm_merged", "umx_tpu_torch/csrc/lstm_merged.cu",
+                           "umx_tpu/ops/lstm_pallas.py:158"),
+    "lstm_merged_train_fwd_wide": ("lstm_merged_train_fwd", "umx_tpu_torch/csrc/lstm_scan.cu",
+                                   "umx_tpu/ops/lstm_pallas.py:323"),
+    "lstm_merged_train_fwd_padded": ("lstm_merged_train_fwd",
+                                     "umx_tpu_torch/csrc/lstm_merged.cu",
+                                     "umx_tpu/ops/lstm_pallas.py:323"),
+    "lstm_merged_bwd_step_wide": ("lstm_merged_bwd_step",
+                                  "umx_tpu_torch/csrc/lstm_scan_train.cu",
+                                  "umx_tpu/ops/lstm_pallas.py:397"),
+    "lstm_merged_bwd_step_padded": ("lstm_merged_bwd_step", "umx_tpu_torch/csrc/lstm_train.cu",
+                                    "umx_tpu/ops/lstm_pallas.py:397"),
+    "lstm_layer_pertarget_padded": ("lstm_layer_pertarget",
+                                    "umx_tpu_torch/csrc/lstm_pertarget.cu",
+                                    "umx_tpu/ops/lstm_pallas.py:39"),
+    "lstm_layer_pertarget_wide": ("lstm_layer_pertarget", "umx_tpu_torch/csrc/lstm_scan.cu",
+                                  "umx_tpu/ops/lstm_pallas.py:39"),
+}
+
+
+def width_forward_rows(dev, smi: str) -> dict:
+    """Phase 21a: K1 in its wide form (G 640, hidden 1280) and padded (G 18,
+    hidden 36) at the segment shape (T 2584, R 8, B 1), K9 padded (G 18) and
+    wide (G 1024) at T# 4, D 2: each against its plain version (5e-3), rows
+    at B 3 bit-equal to their runs alone, a second run bit-equal, timed
+    beside its plain version and its bound."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    rows = {}
+    for name, G in (("lstm_merged_wide", SCAN_WIDE_HIDDEN // 2),
+                    ("lstm_merged_padded", WIDTH_PAD_HIDDEN // 2)):
+        args = lstm_inputs(dev, T_SEG, 1, seed=2100 + G, G=G)
+        out = L.lstm_merged(*args)
+        torch.cuda.synchronize()
+        form = L.lstm_merged.form
+        err = max(max_err(a, b) for a, b in zip(out, L.lstm_merged_plain(*args)))
+        stable = all(torch.equal(a, b) for a, b in zip(L.lstm_merged(*args), out))
+        xp, whh, h0, c0, B = lstm_inputs(dev, 300, 3, seed=2200 + G, G=G)
+        three = L.lstm_merged(xp, whh, h0, c0, B)
+        alone = True
+        for b in range(B):
+            r = torch.arange(R_CHAINS, device=dev) * B + b
+            one = L.lstm_merged(xp[:, r].contiguous(), whh, h0[r].contiguous(),
+                                c0[r].contiguous(), 1)
+            alone &= all(torch.equal(a, o) for a, o in
+                         zip(one, (three[0][:, r], three[1][r], three[2][r])))
+        ms = cuda_ms(lambda: L.lstm_merged(*args), 3)
+        plain_ms = cuda_ms(lambda: L.lstm_merged_plain(*args), 1)
+        bound = lstm_bound(T_SEG, R_CHAINS, G, args[:4])
+        rows[name] = {"G": G, "form": form, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound": bound, "rows_alone_bit_equal": alone, "bit_stable": stable}
+        print(f"{name} (T={T_SEG}, R={R_CHAINS}, B=1, G={G}): max|err| vs plain {err:.3g}; form "
+              f"{form}; rows at B 3 bit-equal alone {alone}; bit-stable {stable}; kernel "
+              f"{ms:.4f} ms ({ms / T_SEG * 1e3:.3f} us a step), plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]}  [{smi}]")
+        require(err <= 5e-3 and alone and stable, f"{name} at G {G}: {rows[name]}")
+        require((form[0] == "wide") == (name == "lstm_merged_wide"), f"{name} ran form {form}")
+        del args, out, xp, whh, h0, c0, three
+    for name, G in (("lstm_layer_pertarget_padded", WIDTH_PAD_HIDDEN // 2),
+                    ("lstm_layer_pertarget_wide", WIDTH_K9_WIDE_HIDDEN // 2)):
+        args = check_pertarget_at(dev, N_SRC, T_SEG, G, seed=2300 + G)[0]
+        form = L.lstm_layer_pertarget.form
+        out = L.lstm_layer_pertarget(*args)
+        err = max(max_err(a, b) for a, b in zip(out, L.lstm_pertarget_plain(*args)))
+        stable = all(torch.equal(a, b) for a, b in zip(L.lstm_layer_pertarget(*args), out))
+        ms = cuda_ms(lambda: L.lstm_layer_pertarget(*args), 3)
+        plain_ms = cuda_ms(lambda: L.lstm_pertarget_plain(*args), 1)
+        bound = lstm_bound(T_SEG, R_CHAINS, G, args)
+        rows[name] = {"G": G, "form": form, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound": bound, "bit_stable": stable}
+        print(f"{name} (T={T_SEG}, T#={N_SRC}, D=2, G={G}): max|err| vs plain {err:.3g}; form "
+              f"{form}; bit-stable {stable}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]}  [{smi}]")
+        require(err <= 5e-3 and stable, f"{name} at G {G}: {rows[name]}")
+        require((form[0] == "wide") == (name == "lstm_layer_pertarget_wide"),
+                f"{name} ran form {form}")
+        del args, out
+    return rows
+
+
+def width_train_rows(dev, smi: str) -> dict:
+    """Phase 21a: K4 and K5 in their wide form (G 640) and padded (G 18) at
+    the training shape (T 256, R 8, B 16): against their plain versions
+    (5e-3; K5 of each output's largest entry), K4's hs/hT/cT K1's bits, rows
+    alone bit-equal, timed beside plain and bound."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    rows = {}
+    for suffix, G in (("wide", SCAN_WIDE_HIDDEN // 2), ("padded", WIDTH_PAD_HIDDEN // 2)):
+        fwd_in, cts = train_inputs(dev, T_TRAIN, B_TRAIN, G, seed=2400 + G)
+        xp, whh, h0, c0, B = fwd_in
+        fwd = L.lstm_merged_train_fwd(*fwd_in)
+        torch.cuda.synchronize()
+        f_form = L.lstm_merged_train_fwd.form
+        k1_bits = all(torch.equal(a, b) for a, b in zip(fwd[:3], L.lstm_merged(*fwd_in)))
+        ferr = max(max_err(a, b) for a, b in zip(fwd, L.lstm_merged_train_fwd_plain(*fwd_in)))
+        bwd_in = (fwd[3], fwd[4], c0, whh, *cts, B)
+        bwd = L.lstm_merged_bwd_step(*bwd_in)
+        torch.cuda.synchronize()
+        b_form = L.lstm_merged_bwd_step.form
+        berr = max(rel_err(a, b) for a, b in zip(bwd, L.lstm_merged_bwd_step_plain(*bwd_in)))
+        babs = max(max_err(a, b) for a, b in zip(bwd, L.lstm_merged_bwd_step_plain(*bwd_in)))
+        alone = True
+        for picks in ([0], sorted({B // 3, B - 1})):
+            r = torch.tensor([c * B + b for c in range(R_CHAINS) for b in picks], device=dev)
+
+            def sub(x):
+                return (x[:, r] if x.dim() == 3 else x[r]).contiguous()
+
+            n = len(picks)
+            f1 = L.lstm_merged_train_fwd(sub(xp), whh, sub(h0), sub(c0), n)
+            b1 = L.lstm_merged_bwd_step(sub(fwd[3]), sub(fwd[4]), sub(c0), whh,
+                                        *(sub(c) for c in cts), n)
+            alone &= all(torch.equal(a, sub(o)) for a, o in zip(f1, fwd))
+            alone &= all(torch.equal(a, sub(o)) for a, o in zip(b1, bwd))
+        rows_t = R_CHAINS * B
+        step_elems = T_TRAIN * rows_t * G * 4
+        ops = 2.0 * T_TRAIN * rows_t * G * 4 * G
+        bounds = {"fwd": lstm_bound(T_TRAIN, rows_t, G, fwd_in[:4], extra_out=5 * step_elems),
+                  "bwd": bound_ms(nbytes(*bwd_in[:7]) + 4 * step_elems + 2 * rows_t * G * 4, ops,
+                                  "bf16")}
+        times = {"fwd": (cuda_ms(lambda: L.lstm_merged_train_fwd(*fwd_in), 3),
+                         cuda_ms(lambda: L.lstm_merged_train_fwd_plain(*fwd_in), 1)),
+                 "bwd": (cuda_ms(lambda: L.lstm_merged_bwd_step(*bwd_in), 3),
+                         cuda_ms(lambda: L.lstm_merged_bwd_step_plain(*bwd_in), 1))}
+        for key, name, form, err in (("fwd", "lstm_merged_train_fwd", f_form, ferr),
+                                     ("bwd", "lstm_merged_bwd_step", b_form, babs)):
+            rows[f"{name}_{suffix}"] = {"G": G, "form": form, "max_abs_err": err,
+                                        "ms": times[key][0], "plain_ms": times[key][1],
+                                        "bound": bounds[key], "rows_alone_bit_equal": alone}
+        print(f"K4/K5 {suffix} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): forward max|err| "
+              f"{ferr:.3g} (hs/hT/cT K1's bits {k1_bits}), sweep max|err|/max|ref| {berr:.3g}; "
+              f"forms {f_form} {b_form}; rows alone bit-equal {alone}; K4 {times['fwd'][0]:.4f} "
+              f"ms (plain {times['fwd'][1]:.4f}, bound {bounds['fwd'][0]:.4f}), K5 "
+              f"{times['bwd'][0]:.4f} ms (plain {times['bwd'][1]:.4f}, bound "
+              f"{bounds['bwd'][0]:.4f})  [{smi}]")
+        require(ferr <= 5e-3 and berr <= 5e-3 and k1_bits and alone,
+                f"K4/K5 {suffix} at G {G}: {ferr}, {berr}, K1 bits {k1_bits}, alone {alone}")
+        require((f_form[0] == "wide") == (b_form[0] == "wide") == (suffix == "wide"),
+                f"K4/K5 at G {G} ran forms {f_form} {b_form}")
+        del fwd_in, cts, fwd, bwd, bwd_in, xp, whh, h0, c0
+    return rows
+
+
+def width_cli(model: str, wav: str, out_dir: str, flags, counters: dict, expect: dict,
+              smi: str):
+    """The CLI on ``model`` with ``flags``, counts set to 0 just before and
+    read just after; each kernel of ``expect`` ({wrapper: form is "wide"})
+    launched in the form named, K10 never.  Returns (wall s, launches,
+    forms, the stems)."""
+    from umx_tpu_torch import cli
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    rc = cli.main([model, wav, out_dir, "--quiet", *flags])
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    forms = {k: getattr(L, k).form for k in expect}
+    print(f"CLI {' '.join(flags)} on {os.path.basename(model)}: {wall:.3f} s wall; kernel runs "
+          f"{launches}; forms {forms}  [{smi}]")
+    require(rc == 0, f"CLI {flags} on {model} exited {rc}")
+    for k, wide in expect.items():
+        require(launches.get(k, 0) > 0 and (forms[k][0] == "wide") == wide,
+                f"CLI {flags}: {k} launched {launches.get(k, 0)} times in form {forms[k]}")
+    require(not launches.get("lstm_scan"), f"CLI {flags} ran K10: {launches}")
+    return wall, launches, forms
+
+
+def width_phase(dev, tmp: str, mix, counters: dict, smi: str) -> dict:
+    """Phase 21: K1, K4, K5 and K9 at every width the JAX kernels take (the
+    wide forms above G 512, zero-unit padding where G % 8 != 0) and
+    ``umx_forward`` with its compute specs (module docstring)."""
+    import torch
+
+    from umx_tpu_torch.config import DSPConfig, EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.data import StemDataset, train_loop
+    from umx_tpu_torch.engine.separator import Separator
+    from umx_tpu_torch.io.ggml import write_ggml
+    from umx_tpu_torch.models import umx
+    from umx_tpu_torch.ops import lstm_cuda as L
+    from umx_tpu_torch.train import TrainConfig
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fig = {"card": smi, "kernels": {**width_forward_rows(dev, smi), **width_train_rows(dev, smi)}}
+
+    # the paths: hidden 1280 (phase 19's file and 20 s cut) and hidden 36
+    from scipy.io import wavfile
+
+    wide = os.path.join(tmp, "synthetic_h1280.bin")
+    narrow = os.path.join(tmp, f"synthetic_h{WIDTH_PAD_HIDDEN}.bin")
+    for path, hidden in ((wide, SCAN_WIDE_HIDDEN), (narrow, WIDTH_PAD_HIDDEN)):
+        if not os.path.isfile(path):  # phase 19 writes the first
+            write_ggml(path, hidden,
+                       umx.synthetic_state_dicts(ModelConfig(hidden_size=hidden), seed=0))
+    cut = mix[:, : int(SCAN_WIDE_SECS * SR)]
+    cut_wav = os.path.join(tmp, "mix_20s.wav")
+    if not os.path.isfile(cut_wav):
+        wavfile.write(cut_wav, SR, np.ascontiguousarray(cut.T))
+    short = mix[:, : 5 * SR]
+    seg = SegmentConfig(segment_secs=2.0)
+    # the pipelined schedule needs two chunks or more: 8 s segments on the cut
+    chunks = ("--segment-secs", "8")
+    runs = (  # (name, model, hidden, CLI flags, config, kind, {wrapper: wide}, row)
+        ("h1280_pallas_merged", wide, SCAN_WIDE_HIDDEN, ("--lstm-impl", "pallas_merged"),
+         {"model": {"lstm_impl": "pallas_merged"}}, "merged", {"lstm_merged": True},
+         "lstm_merged_wide"),
+        ("h1280_pipelined", wide, SCAN_WIDE_HIDDEN, ("--stream-impl", "pipelined", *chunks),
+         {"stream_impl": "pipelined"}, "merged", {"lstm_merged": True}, None),
+        ("h36_pallas_merged", narrow, WIDTH_PAD_HIDDEN, ("--lstm-impl", "pallas_merged"),
+         {"model": {"lstm_impl": "pallas_merged"}}, "merged", {"lstm_merged": False},
+         "lstm_merged_padded"),
+        ("h36_pallas", narrow, WIDTH_PAD_HIDDEN, ("--lstm-impl", "pallas"),
+         {"model": {"lstm_impl": "pallas"}}, "pertarget", {"lstm_layer_pertarget": False},
+         "lstm_layer_pertarget_padded"),
+        ("h36_pipelined", narrow, WIDTH_PAD_HIDDEN, ("--stream-impl", "pipelined", *chunks),
+         {"stream_impl": "pipelined"}, "merged", {"lstm_merged": False}, None),
+    )
+    fig["paths"], launches_of = {}, {}
+    for name, path, hidden, flags, kw, kind, expect, row in runs:
+        wall, launches, forms = width_cli(path, cut_wav, os.path.join(tmp, f"stems_{name}"),
+                                          flags, counters, expect, smi)
+        stems = check_stems(os.path.join(tmp, f"stems_{name}"), cut, min_corr=0.0)
+        corr = float(np.corrcoef(stems.sum(0).ravel(), cut.ravel())[0, 1])
+        mcfg = ModelConfig(hidden_size=hidden, **kw.get("model", {}))
+        cfg = f32_seams(EngineConfig(model=mcfg, segment=seg,
+                                     **{k: v for k, v in kw.items() if k != "model"}))
+        r = scan_vs_cpu(tmp, path, cfg, short, kind=kind)
+        print(f"{name}: corr(sum of stems, mix) {corr:.6f} on the {SCAN_WIDE_SECS:.0f} s cut "
+              f"(printed, not gated: synthetic weights); GPU vs CPU port, 5 s, float32 seams: "
+              f"{scan_cpu_line(r)}  [{smi}]")
+        check_scan_vs_cpu(r, name, rtol=WIDTH_RTOL)
+        fig["paths"][name] = {"s": wall, "launches": launches, "forms": forms,
+                              "corr_sum_mix": corr, "gpu_vs_cpu": r}
+        if row:
+            launches_of[row] = launches.get(WIDTH_ROWS[row][0], 0)
+
+    # K9's chains through the wide K1: hidden 2048 (G 1024), 5 s, 2 s segments
+    cfg = EngineConfig(model=ModelConfig(hidden_size=WIDTH_K9_WIDE_HIDDEN, lstm_impl="pallas"),
+                       segment=seg)
+    sep = Separator(umx.synthetic_params(cfg.model, seed=0, device=dev), cfg, dev)
+    reset_counts(counters)
+    stems = sep.demix_track(short, seed=0)
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    k9_form = L.lstm_layer_pertarget.form
+    print(f"hidden {WIDTH_K9_WIDE_HIDDEN} under lstm_impl pallas, 5 s: kernel runs {launches}; "
+          f"K9 form {k9_form}; finite {bool(np.isfinite(stems).all())}  [{smi}]")
+    require(launches.get("lstm_layer_pertarget", 0) > 0 and k9_form[0] == "wide"
+            and not launches.get("lstm_merged") and bool(np.isfinite(stems).all())
+            and stems.shape == (4, *short.shape),
+            f"hidden {WIDTH_K9_WIDE_HIDDEN} under pallas: {launches}, form {k9_form}")
+    launches_of["lstm_layer_pertarget_wide"] = launches.get("lstm_layer_pertarget", 0)
+    fig["paths"]["h2048_pallas"] = {"launches": launches, "form": k9_form}
+    del sep, stems
+
+    # the trainer under "pallas_merged": hidden 1280 (wide K4/K5) and 36 (padded)
+    root = os.path.join(tmp, "stems_train")
+    if not os.path.isdir(root):
+        write_stem_dir(root)
+    tcfg = TrainConfig(seq_len=T_TRAIN)
+    train = StemDataset(root, excerpt_samples=DSPConfig().hop * (tcfg.seq_len - 1),
+                        split="train", seed=0)
+    fig["train"] = {}
+    for suffix, hidden in (("wide", SCAN_WIDE_HIDDEN), ("padded", WIDTH_PAD_HIDDEN)):
+        mcfg = ModelConfig(hidden_size=hidden, lstm_impl="pallas_merged")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        _, hist = train_loop(train, mcfg, tcfg, steps=WIDTH_TRAIN_STEPS, batch_size=B_TRAIN,
+                             params=umx.synthetic_params(mcfg, seed=0, device=dev), device=dev,
+                             log_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        forms = (L.lstm_merged_train_fwd.form, L.lstm_merged_bwd_step.form)
+        print(f"train_loop under pallas_merged at hidden {hidden}, {WIDTH_TRAIN_STEPS} steps at "
+              f"batch {B_TRAIN} x {tcfg.seq_len}: losses {list(map(float, hist))}, {wall:.3f} s; "
+              f"kernel runs {launches}; forms {forms}  [{smi}]")
+        n = 3 * WIDTH_TRAIN_STEPS
+        require(bool(np.isfinite(hist).all()) and len(hist) == WIDTH_TRAIN_STEPS,
+                f"hidden {hidden} under pallas_merged: losses {list(hist)}")
+        require(launches.get("lstm_merged_train_fwd") == n and
+                launches.get("lstm_merged_bwd_step") == n and launches.get("lstm_merged_dw") == n
+                and not launches.get("lstm_scan_train_fwd"),
+                f"hidden {hidden} under pallas_merged did not train through K4-K6: {launches}")
+        require((forms[0][0] == "wide") == (forms[1][0] == "wide") == (suffix == "wide"),
+                f"hidden {hidden}: forms {forms}")
+        for k in ("lstm_merged_train_fwd", "lstm_merged_bwd_step"):
+            launches_of[f"{k}_{suffix}"] = launches.get(k, 0)
+        fig["train"][suffix] = {"hidden": hidden, "losses": list(map(float, hist)), "s": wall,
+                                "launches": launches, "forms": forms}
+
+    # umx_forward(compute="bfloat16") under "scan" is K1's function: on the
+    # card it runs K1 (wide at hidden 1280, padded at 36), never K10
+    fig["umx_forward_bf16"] = {}
+    g = np.random.default_rng(21)
+    for hidden in (SCAN_WIDE_HIDDEN, WIDTH_PAD_HIDDEN):
+        mcfg = ModelConfig(hidden_size=hidden, lstm_impl="scan")
+        x = (np.abs(g.standard_normal((400, mcfg.n_features))) * 0.3).astype(np.float32)
+        out = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            params = umx.synthetic_params(mcfg, seed=0, device=device)
+            reset_counts(counters)
+            with torch.inference_mode():
+                masks, st = umx.umx_forward(params, torch.from_numpy(x).to(device),
+                                            umx.init_lstm_state(mcfg, device), mcfg, "bfloat16")
+            out[where] = masks.float().cpu().numpy()
+            if where == "card":
+                launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            del params, masks, st
+        err = np.abs(out["card"].astype(np.float64) - out["cpu"])
+        peak = float(np.abs(out["cpu"]).max())
+        res = {"max_rel": float(err.max()) / peak,
+               "rms_rel": float(np.sqrt((err ** 2).mean())) / peak, "launches": launches,
+               "form": L.lstm_merged.form}
+        print(f"umx_forward(compute=bfloat16) under scan at hidden {hidden}, 400 frames: card vs "
+              f"CPU max|err|/peak {res['max_rel']:.3g} (gate {WIDTH_BF16_MAX}), RMS/peak "
+              f"{res['rms_rel']:.3g} (gate {WIDTH_BF16_RMS}); kernel runs {launches}; K1 form "
+              f"{res['form']}  [{smi}]")
+        require(launches.get("lstm_merged") == 3 and not launches.get("lstm_scan"),
+                f"bfloat16 under scan at hidden {hidden} did not run K1 alone: {launches}")
+        require(res["max_rel"] <= WIDTH_BF16_MAX and res["rms_rel"] <= WIDTH_BF16_RMS,
+                f"umx_forward bfloat16 at hidden {hidden}: card vs CPU {res}")
+        fig["umx_forward_bf16"][hidden] = res
+    for name, n in launches_of.items():
+        fig["kernels"][name]["launches"] = n
+    fig["phase_s"] = time.perf_counter() - t_phase
+    print(f"width phase: {fig['phase_s']:.1f} s wall  [{smi}]")
     return fig
 
 
@@ -4495,6 +4890,8 @@ def main() -> int:
         phase_done("19 float32 recurrence")
         scan_train = scan_train_phase(dev, tmp, counters, smi)
         phase_done("20 training through it")
+        width = width_phase(dev, tmp, mix, counters, smi)
+        phase_done("21 every width")
     print(f"train steps/s (warm, UMX-L, batch {B_TRAIN} x {T_TRAIN} frames, AdamW): "
           f"{steps_per_s:.3f} (earlier form {EARLIER['train_steps_per_s']}); batch "
           f"{B_TRAIN_WIDE} x {T_TRAIN} frames: {wide_steps_per_s:.3f}  [{smi}]")
@@ -4812,13 +5209,22 @@ def main() -> int:
         if k["name"] in bf16_forms:
             k["f32_form_ms"] = bf16_forms[k["name"]]["f32_ms"]
     # each row's form: the Wiener passes' storage form; K8's run plan and
-    # radices, K10's, K10 with residuals' and K11's form at the timed shape;
-    # the others as their wrapper last ran
+    # radices, K9's, K10's, K10 with residuals' and K11's form at the timed
+    # shape; the others as their wrapper last ran
     row_forms = {name: WIENER_FORMS[name][1] for name in meta if name in WIENER_FORMS}
     row_forms.update({"istft_ct2": k8_form, "lstm_scan": scan["shapes"]["G512_B1"]["form"],
-                      **st_kernels["form"]})
+                      "lstm_layer_pertarget": k9_form, **st_kernels["form"]})
     for k in kernels:
         k["form"] = row_forms.get(k["name"], getattr(counters.get(k["name"]), "form", None))
+    # phase 21's forms: the wide K1, K4, K5 and K9 and the padded ones, each
+    # with its launches on its own path of that phase
+    for name, (_, src, rep) in WIDTH_ROWS.items():
+        r = width["kernels"][name]
+        require(r["launches"] > 0, f"kernel {name} was launched no time on its path")
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                        "bound_by": r["bound"][1], "library_ms": None, "form": r["form"]})
     k8_row = next(k for k in kernels if k["name"] == "istft_ct2")
     k8_row["n_fft"] = 4096
     k8_row["other_n_fft"] = k8_sizes
@@ -4871,7 +5277,8 @@ def main() -> int:
                       "ola_normalized_ms_m16": ola16[0], "gated_round_spreads": spreads,
                       "serving": serving, "evaluation": evaluation, "parity": parity,
                       "certification": certification, "mesh": mesh, "stream": stream,
-                      "scan": scan, "scan_train": scan_train, "phase_s": PHASE_S}))
+                      "scan": scan, "scan_train": scan_train, "width": width,
+                      "phase_s": PHASE_S}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -81,17 +81,71 @@ def test_lstm_kernel_takes_b64_and_refuses_what_it_cannot_hold(dev):
     wrappers = (lstm_cuda.lstm_merged, lstm_cuda.lstm_merged_train_fwd,
                 lstm_cuda.lstm_merged_bwd_step)
     before = [f.launches for f in wrappers]
-    # a width whose W_hh slice does not fit a warp's registers is refused
+    # a width whose W_hh slice does not fit a warp's registers takes the
+    # wide form: one launch each, against plain
     wide = _lstm_inputs(dev, 2, 1, 1, 520, seed=3)
-    with pytest.raises(RuntimeError, match="G <= 512"):
-        lstm_cuda.lstm_merged(*wide, 1)
-    with pytest.raises(RuntimeError, match="G <= 512"):
-        lstm_cuda.lstm_merged_train_fwd(*wide, 1)
+    for k, p in zip(lstm_cuda.lstm_merged(*wide, 1), lstm_cuda.lstm_merged_plain(*wide, 1)):
+        assert (k - p).abs().max().item() <= 5e-3
+    assert lstm_cuda.lstm_merged.form[0] == "wide"
+    fwd = lstm_cuda.lstm_merged_train_fwd(*wide, 1)
     z = torch.zeros((2, 1, 520), device=dev)
-    with pytest.raises(RuntimeError, match="G <= 512"):
-        lstm_cuda.lstm_merged_bwd_step(torch.zeros((2, 1, 2080), device=dev), z, z[0], wide[1],
-                                       z, z[0], z[0], 1)
-    assert [f.launches for f in wrappers] == before
+    args = (fwd[3], fwd[4], wide[3], wide[1], z, z[0], z[0], 1)
+    for k, p in zip(lstm_cuda.lstm_merged_bwd_step(*args),
+                    lstm_cuda.lstm_merged_bwd_step_plain(*args)):
+        assert (k - p).abs().max().item() <= 5e-3
+    assert [f.launches for f in wrappers] == [n + 1 for n in before]
+    # what no form takes is still refused before any launch
+    with pytest.raises(ValueError, match="h0 is on"):
+        lstm_cuda.lstm_merged(wide[0], wide[1], wide[2].cpu(), wide[3], 1)
+    assert [f.launches for f in wrappers] == [n + 1 for n in before]
+
+
+# (T, R, B, G): zero-unit padding (G 18, 20: the resident form at 24) and
+# the wide form (G 520, 640: 17 and 20 blocks a chain; R 8 at G 640 is 160
+# blocks, more than the card's SMs, so the chains go in groups)
+_WIDTHS = [(9, 8, 1, 18), (11, 8, 3, 20), (7, 2, 17, 18), (6, 2, 3, 520), (5, 8, 1, 640),
+           (4, 2, 17, 640)]
+
+
+@pytest.mark.parametrize("T, R, B, G", _WIDTHS)
+def test_merged_kernels_take_every_width(dev, T, R, B, G):
+    """K1, K4 and K5 at widths the resident kernels do not hold as they
+    are: against their plain versions (5e-3), K4's hs/hT/cT K1's bits,
+    rows bit-equal to themselves run alone, and the form chosen from G."""
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, T, R, B, G, seed=G + B)
+    wide = lstm_cuda.merged_form(G) == "wide"
+    k1 = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    fwd = lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    torch.cuda.synchronize()
+    for wrapper in (lstm_cuda.lstm_merged, lstm_cuda.lstm_merged_train_fwd):
+        assert (wrapper.form[0] == "wide") == wide
+        assert wide or wrapper.form[0] == lstm_cuda.resident_blocks_per_chain(
+            lstm_cuda.merged_width(G))
+    for a, b in zip(fwd[:3], k1):
+        assert torch.equal(a, b)
+    for name, k, p in zip(("hs", "hT", "cT", "gates", "cs"), fwd,
+                          lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)):
+        assert k.shape == p.shape and (k - p).abs().max().item() <= 5e-3, name
+    _, _, _, gates, cs = fwd
+    bwd = lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.lstm_merged_bwd_step.form[0] == "wide") == wide
+    for name, k, p in zip(("dxp", "dh0", "dc0"), bwd, lstm_cuda.lstm_merged_bwd_step_plain(
+            gates, cs, c0, whh, dhs, dhT, dcT, B)):
+        assert k.shape == p.shape and _rel(k, p) <= 5e-3, name
+    for picks in ([0], [B - 1], sorted({0, B // 2, B - 1})):
+        rows = torch.tensor([r * B + b for r in range(R) for b in picks], device=dev)
+
+        def sub(x):
+            return (x[:, rows] if x.dim() == 3 else x[rows]).contiguous()
+
+        one = lstm_cuda.lstm_merged(sub(xp), whh, sub(h0), sub(c0), len(picks))
+        assert all(torch.equal(a, sub(b)) for a, b in zip(one, k1)), picks
+        one = lstm_cuda.lstm_merged_bwd_step(sub(gates), sub(cs), sub(c0), whh, sub(dhs),
+                                             sub(dhT), sub(dcT), len(picks))
+        assert all(torch.equal(a, sub(b)) for a, b in zip(one, bwd)), picks
+    again = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    assert all(torch.equal(a, b) for a, b in zip(again, k1))  # bit-stable
 
 
 def test_train_kernels_take_b96(dev):
@@ -523,7 +577,8 @@ def test_istft_ct_kernel_at_every_n_fft(dev, n_fft, rows, T):
 def test_istft_ct_kernel_block_fits_at_every_n_fft(dev):
     """What K8 reports of its blocks at every n_fft = 1024 k up to 16384:
     the frame and the ring fit a block's shared memory, at least one block
-    an SM; the next size has no form."""
+    an SM; above, the device-memory form: one block (and scratch slot) an
+    SM, no dynamic shared memory."""
     from umx_tpu_torch.ops import istft_ct_cuda
 
     props = torch.cuda.get_device_properties(dev)
@@ -531,8 +586,35 @@ def test_istft_ct_kernel_block_fits_at_every_n_fft(dev):
         blocks, smem = istft_ct_cuda.istft_block_layout(dev.index, 1024 * k)
         assert 0 < smem <= props.shared_memory_per_block_optin
         assert blocks >= props.multi_processor_count
-    with pytest.raises(RuntimeError):
-        istft_ct_cuda.istft_block_layout(dev.index, 17 * 1024)
+    for k in (17, 32):
+        assert istft_ct_cuda.istft_block_layout(dev.index, 1024 * k) == (
+            props.multi_processor_count, 0)
+
+
+@pytest.mark.parametrize("n_fft, rows, T", [(32768, 3, 41), (17408, 2, 9), (32768, 1, 2)])
+def test_istft_ct_kernel_above_16384(dev, n_fft, rows, T):
+    """K8's device-memory form against its plain version and float64
+    (1e-5, as the other sizes), bit-stable, one launch; runs of a row
+    shorter than the ring and rows beyond the grid's slots walk the grid."""
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    hop, F = n_fft // 4, n_fft // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(n_fft + T)
+    re = torch.randn((rows, T, F), generator=g, device=dev)
+    im = torch.randn((rows, T, F), generator=g, device=dev)
+    w = hann_window(n_fft, dev)
+    before = istft_ct_cuda.istft_ct2.launches
+    out = istft_ct_cuda.istft_ct2(re, im, n_fft, hop, w)
+    torch.cuda.synchronize()
+    assert istft_ct_cuda.istft_ct2.launches == before + 1
+    assert istft_ct_cuda.istft_ct2.form[2] == istft_ct_cuda.istft_radix_plan(n_fft)
+    plain = istft_ct.istft_ct2_plain(re, im, n_fft, hop, w)
+    f64 = istft_ct.istft_ct2_plain(re.cpu().double(), im.cpu().double(), n_fft, hop,
+                                   w.cpu().double())
+    assert (out - plain).abs().max().item() <= 1e-5
+    assert (out.cpu().double() - f64).abs().max().item() <= 1e-5
+    assert torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n_fft, hop, w))
 
 
 def test_istft_ct_kernel_allocates_no_frames_buffer(dev):
@@ -564,9 +646,6 @@ def test_istft_ct_kernel_refuses_other_geometry(dev):
     small = torch.zeros((2, 4, 751), device=dev)
     with pytest.raises(ValueError, match="1024 | n_fft"):
         istft_ct_cuda.istft_ct2(small, small, 1500, 375)
-    big = torch.zeros((2, 4, 16385), device=dev)
-    with pytest.raises(ValueError, match="up to 16384"):  # the largest frame a block holds
-        istft_ct_cuda.istft_ct2(big, big, 32768, 8192)
     assert istft_ct_cuda.istft_ct2.launches == before
 
 
@@ -687,18 +766,36 @@ def test_pertarget_lstm_kernel_agrees_with_the_merged_kernel(dev):
 
 
 def test_pertarget_lstm_kernel_refuses_what_it_cannot_take(dev):
+    """Every width runs (G 20 padded to 24 on a cluster; G 1024, whose
+    chain no cluster holds, through the wide K1), one counted launch each;
+    a tensor on another device is still refused before any launch."""
     before = lstm_cuda.lstm_layer_pertarget.launches
-    # a block of 64 units cannot hold its share of 1024 x 4096 bf16 in registers and
-    # shared memory
-    with pytest.raises(RuntimeError, match="no cluster of up to 16 blocks"):
-        lstm_cuda.lstm_layer_pertarget(*_pertarget_inputs(dev, 3, 1024, seed=1, n_targets=1, D=1))
+    for G, wide in ((20, False), (1024, True)):
+        args = _pertarget_inputs(dev, 3, G, seed=1, n_targets=1, D=2)
+        out = lstm_cuda.lstm_layer_pertarget(*args)
+        assert (lstm_cuda.lstm_layer_pertarget.form[0] == "wide") == wide
+        for k, p in zip(out, lstm_cuda.lstm_pertarget_plain(*args)):
+            assert k.shape == p.shape and (k - p).abs().max().item() <= 5e-3
+    assert lstm_cuda.lstm_layer_pertarget.launches == before + 2
     x_proj, whh, h0, c0 = _pertarget_inputs(dev, 3, 512, seed=1, n_targets=1, D=1)
     with pytest.raises(ValueError, match="h0 is on"):
         lstm_cuda.lstm_layer_pertarget(x_proj, whh, h0.cpu(), c0)
-    x20 = _pertarget_inputs(dev, 3, 20, seed=1, n_targets=1, D=1)
-    with pytest.raises(ValueError, match="G % 8"):
-        lstm_cuda.lstm_layer_pertarget(*x20)
-    assert lstm_cuda.lstm_layer_pertarget.launches == before
+    assert lstm_cuda.lstm_layer_pertarget.launches == before + 2
+
+
+@pytest.mark.parametrize("G", [20, 1024])
+def test_pertarget_lstm_kernel_at_every_width(dev, G):
+    """K9 at G 20 (a cluster at 24, zero units) and G 1024 (the wide K1 at
+    one row per chain) against its plain version at UMX's chains, bit-stable."""
+    args = _pertarget_inputs(dev, 29, G, seed=G)
+    out = lstm_cuda.lstm_layer_pertarget(*args)
+    torch.cuda.synchronize()
+    form = lstm_cuda.lstm_layer_pertarget.form
+    assert (form[0] == "wide") == (G == 1024)
+    for k, p in zip(out, lstm_cuda.lstm_pertarget_plain(*args)):
+        assert k.shape == p.shape and (k - p).abs().max().item() <= 5e-3
+    again = lstm_cuda.lstm_layer_pertarget(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))
 
 
 @pytest.mark.parametrize("T, F", [(19, 2049), (130, 2049), (67, 300)])
@@ -1614,7 +1711,7 @@ def test_scan_kernel_repeats_its_bits(dev, B, G):
 
 
 def test_scan_demix_on_the_card_matches_the_cpu(dev):
-    """lstm_impl="scan" at hidden 36 (G 18, which K1 refuses): the card's
+    """lstm_impl="scan" at hidden 36 (G 18, which K1 pads to 24): the card's
     streaming demix through K10 against the CPU's plain versions, the
     seams pinned to float32 on both sides (both recurrences float32)."""
     import numpy as np

@@ -343,10 +343,18 @@ def test_radix_plan(n_fft, plan):
 
 
 def test_kernel_takes_every_n_fft_up_to_16384_and_names_the_limit():
+    """Up to 16384 a frame and its ring fit a block's shared memory; above,
+    the device-memory form runs the same radices; 1024 | n_fft is the
+    one limit, the JAX function's."""
     for k in range(1, 17):
         assert istft_ct_cuda.istft_radix_plan(1024 * k)
-    for bad in (32768, 17408, 3000):
-        with pytest.raises(ValueError, match="up to 16384"):
+        assert istft_ct_cuda.istft_form(1024 * k) == "shared"
+    for n, plan in ((32768, (8, 4, 8, 8, 8)), (17408, (17, 8, 8, 8)),
+                    (24576, (3, 8, 8, 8, 8)), (65536, (8, 8, 8, 8, 8)), (49152, (3, 8, 2, 8, 8, 8))):
+        assert istft_ct_cuda.istft_radix_plan(n) == plan
+        assert istft_ct_cuda.istft_form(n) == "device"
+    for bad in (3000, 512):
+        with pytest.raises(ValueError, match="1024 k"):
             istft_ct_cuda.istft_radix_plan(bad)
 
 
@@ -396,7 +404,8 @@ def _mixed_radix_frame_mirror(re, im, window, n_fft):
     return frame / n_fft * window, owners
 
 
-@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 5120, 8192, 16384])
+@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 5120, 8192, 16384, 17408, 24576, 32768,
+                                   49152])
 def test_mixed_radix_mirror_is_the_windowed_inverse_real_dft(n_fft):
     rng = np.random.default_rng(n_fft)
     re, im = rng.standard_normal(n_fft // 2 + 1), rng.standard_normal(n_fft // 2 + 1)

@@ -238,14 +238,13 @@ def test_row_groups_give_the_training_layer(G, B):
 
 @pytest.mark.parametrize("G", [520, 12])
 def test_the_width_limit_is_the_kernels_not_the_plain_versions(G):
-    """G above 512 does not fit a warp's registers: the wrappers' check
-    refuses it by name (for CUDA tensors, before any launch); CPU tensors
-    of any width run the plain versions, uncounted."""
-    if G > L.RESIDENT_G_MAX:
-        for what in ("umx_lstm_merged_train", "umx_lstm_bwd"):
-            with pytest.raises(RuntimeError, match=f"{what}.*G <= 512; got G = {G}"):
-                L._check_resident_width(what, G)
-    L._check_resident_width("umx_lstm_bwd", 512)
+    """The width picks the kernels' form, not a refusal: G above 512 does
+    not fit a warp's registers and takes the wide form, G % 8 != 0 the
+    resident form at the next multiple of 8 (for CUDA tensors, before any
+    launch); CPU tensors of any width run the plain versions, uncounted."""
+    want = ("wide", G) if G > L.RESIDENT_G_MAX else ("resident", -(-G // 8) * 8)
+    assert (L.merged_form(G), L.merged_width(G)) == want
+    assert (L.merged_form(512), L.merged_width(512)) == ("resident", 512)
     (xp, whh, h0, c0), (dhs, dhT, dcT) = _case(2, 1, 1, G, seed=G)
     before = (L.lstm_merged_train_fwd.launches, L.lstm_merged_bwd_step.launches)
     hs, hT, cT, gates, cs = L.lstm_merged_train_fwd(xp, whh, h0, c0, 1)

@@ -85,6 +85,20 @@ _SIGNATURES = {
     "umx_istft_ct2_capacity": [_I, _P, _P],
     # re, im, table, window, out, rows, T, F, N, hop, runs_per_row, hops_per_run, stream
     "umx_istft_ct2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # re, im, table, window, out, scratch, rows, T, F, N, hop, runs_per_row, hops_per_run,
+    # grid, stream
+    "umx_istft_ct2_big": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # G, resid, rows, blocks, smem, w_regs (out)
+    "umx_lstm_merged_wide_capacity": [_I, _I, _P, _P, _P, _P],
+    # xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0, stream
+    "umx_lstm_merged_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _U, _P],
+    # G, rows, blocks, smem, w_regs (out)
+    "umx_lstm_bwd_wide_capacity": [_I, _P, _P, _P, _P],
+    # gates, cs, c0, wt, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,
+    # stream
+    "umx_lstm_bwd_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _U, _P],
 }
 
 

@@ -96,17 +96,20 @@ class ModelConfig:
     # "openunmix": x = (x + mean) * scale (upstream open-unmix-pytorch);
     # "umxcpp":    x = x * scale + mean   (the umx.cpp reference)
     input_scaling: Literal["openunmix", "umxcpp"] = "openunmix"
-    # BLSTM recurrence kernel: "auto" = "pallas_merged" = the merged
-    # kernel (K1: bf16 W_hh and h operands, f32 state, G <= 512; the
-    # kernel the JAX package's "auto" runs on a TPU); "pallas" = the
-    # per-target kernel (K9, one launch per layer with each chain's
-    # weights and state kept on chip; one launch per batch row); "scan" =
-    # the float32 recurrence (K10: f32 h against W_hh in its stored
-    # dtype, f32 sums, any G; the JAX package's portable lax.scan, its
-    # "auto" off a TPU).  "auto" is not resolved by the device: it stays
-    # K1, the TPU path the port follows.  "pallas_interpret" (the JAX
-    # interpreter) has no port.  Training runs K4-K6 under "auto",
-    # "pallas_merged" and "pallas", and raises under "scan".
+    # BLSTM recurrence kernel: "pallas_merged" = the merged kernel (K1:
+    # bf16 W_hh and h operands, f32 state, any G: resident up to G 512,
+    # zero units padding G % 8 != 0, the wide form above; the kernel the
+    # JAX package's "auto" runs on a TPU); "pallas" = the per-target kernel
+    # (K9, one launch per layer with each chain's weights and state kept
+    # on chip, one launch per batch row; the wide K1 where no cluster holds
+    # a chain); "scan" = the float32 recurrence (K10: f32 h against W_hh in
+    # its stored dtype, f32 sums, any G; the JAX package's portable
+    # lax.scan, its "auto" off a TPU).  "auto" is resolved by a width rule,
+    # not by the device (models.umx.resolve_lstm_impl): K1 at G <= 512 with
+    # G % 8 == 0, the scan at every other width.  "pallas_interpret" (the
+    # JAX interpreter) has no port.  Training runs K4-K6 under
+    # "pallas_merged" (and "auto" where it is K1), K10/K11 under "scan",
+    # and lowers "pallas" to "scan", as the JAX trainer does.
     lstm_impl: Literal["auto", "pallas_merged", "pallas", "scan"] = "auto"
 
     def __post_init__(self):
@@ -255,4 +258,9 @@ class EngineConfig:
         return dataclasses.replace(self, **kw)
 
 
+UMXL = EngineConfig()
+UMXHQ = EngineConfig(model=ModelConfig(hidden_size=512))
+
 TARGETS = ("bass", "drums", "other", "vocals")
+# output file digit convention (the reference's scripts/umx_pytorch_inference.py)
+TARGET_FILE_INDEX = {"bass": 0, "drums": 1, "other": 2, "vocals": 3}

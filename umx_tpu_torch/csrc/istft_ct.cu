@@ -7,9 +7,10 @@
 //
 // from the one-sided bins X[0..N/2] (the imaginary parts of DC and Nyquist
 // drop out), and overlap-adds the frames at hop N/4 into the row's signal.
-// Takes every N = 1024 K with K = 1 .. 16, as the JAX function takes every
-// N with 1024 | N: N = 4096, UMX's transform, in the hand-scheduled form
-// below; every other N in the mixed-radix form at the end of this file.
+// Takes every N = 1024 K, as the JAX function takes every N with 1024 | N:
+// N = 4096, UMX's transform, in the hand-scheduled form below; every other
+// N up to 16384 in the mixed-radix form after it; N above 16384 in the
+// device-memory form at the end of this file.
 //
 // What bounds it on the H100: 16.4 KB of spectrum read and 4 KB of signal
 // written per frame put the device-memory bound at 0.76 ms for 48 rows of
@@ -516,6 +517,207 @@ istft_ct2_mr_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
+// ---- the device-memory form: n_fft = 1024 K above 16384 -----------------
+//
+// Above 16384 a frame (N/2 complex) and its ring (N floats) no longer fit a
+// block's shared memory (32768 would need 256 KiB).  This form computes
+// what the mixed-radix form computes, with the same unpacking, Stockham
+// passes of the same indexing, the same window and the same ring, but keeps
+// them in device memory: each block owns a scratch slot of 3 N floats (two
+// buffers of N/2 complex, ping-ponged between the passes, and the ring) and
+// walks the runs of the plan grid-stride, so the scratch is the grid's (one
+// block an SM: 132 slots, 50 MB at N = 32768, about what the L2 holds), not
+// one slot a run.  A block's writes reach its own threads at its barriers.
+// The passes (ops/istft_ct_cuda.py:istft_radix_plan): the odd part of K as
+// a direct sum, the power-of-two part of K in radix 8 (then 4 or 2), then
+// three radix-8 passes; every pass reads each value once, so the passes'
+// loads have no long chains through the L2 (a direct K-point pass read each
+// input K times, one after another: 5.90 ms at N 32768, 8 rows of 60 s, on
+// an H100 80GB HBM3 at 700 W).  What bounds it: the passes' round trips
+// through L1 and L2, not the 16 B a bin read and 4 B a sample written; no
+// UMX model runs it (UMX's n_fft is 4096).
+
+constexpr int BG_THREADS = 512;
+
+// One Stockham pass of radix R (2, 4 or 8) over M points with ns points
+// done, from (sr, si) to (dr, di), natural order in and out
+// (stockham_pass's indices at run-time sizes).
+template <int R>
+__device__ __forceinline__ void big_pass(const float* sr, const float* si, float* dr, float* di,
+                                         const float* table, int N, int M, int ns) {
+  const int nb = M / R;
+  const int tw = N / (ns * R);
+  for (int j = threadIdx.x; j < nb; j += BG_THREADS) {
+    float vr[R], vi[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      vr[q] = sr[j + q * nb];
+      vi[q] = si[j + q * nb];
+    }
+    const int jm = j % ns;
+    if (ns > 1) {
+#pragma unroll
+      for (int q = 1; q < R; ++q) {
+        const int p = jm * q * tw;  // < N
+        cmul(vr[q], vi[q], __ldg(table + p), __ldg(table + N + p));
+      }
+    }
+    dft_small<R>(vr, vi, table, N);
+    const int d = (j / ns) * ns * R + jm;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      dr[d + q * ns] = vr[q];
+      di[d + q * ns] = vi[q];
+    }
+  }
+}
+
+// The first pass (no points done: no twiddles) of an odd radix m, a direct
+// sum as dft_small's, (n q) mod m stepped by n.
+__device__ __forceinline__ void big_pass_odd(const float* sr, const float* si, float* dr,
+                                             float* di, const float* table, int N, int M,
+                                             int m) {
+  const int nb = M / m;
+  const int st = N / m;
+  for (int j = threadIdx.x; j < nb; j += BG_THREADS) {
+    for (int n = 0; n < m; ++n) {
+      float sum_r = sr[j], sum_i = si[j];
+      int idx = 0;
+      for (int q = 1; q < m; ++q) {
+        idx += n;
+        if (idx >= m) idx -= m;
+        const float wc = __ldg(table + idx * st), ws = __ldg(table + N + idx * st);
+        const float vr = sr[j + q * nb], vi = si[j + q * nb];
+        sum_r += vr * wc - vi * ws;
+        sum_i += vr * ws + vi * wc;
+      }
+      dr[j * m + n] = sum_r;
+      di[j * m + n] = sum_i;
+    }
+  }
+}
+
+// As istft_ct2_mr_kernel at n_fft N = 1024 K, K > 16, run-time sized.
+// scratch: gridDim.x slots of 3 N floats.  Block b takes runs b, b + grid,
+// ... of the rows x runs_per_row runs.
+__global__ void __launch_bounds__(BG_THREADS)
+istft_ct2_big_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                     const float* __restrict__ table, const float* __restrict__ window,
+                     float* __restrict__ out, float* scratch, int rows, int T, int N,
+                     int runs_per_row, int hops_per_run) {
+  const int K = N / 1024, M = N / 2, HP = N / 4, F = M + 1, PAIRS = HP / 2;
+  float* ar = scratch + (size_t)blockIdx.x * 3 * N;  // buffer A (re, im), buffer B, the ring
+  float* ai = ar + M;
+  float* br = ai + M;
+  float* bi = br + M;
+  float2* ring = reinterpret_cast<float2*>(bi + M);  // (RING, PAIRS)
+  const int tid = threadIdx.x;
+  const int hops = T + RING - 1;
+  const float inv_n = 1.0f / (float)N;  // the transform's 1 / N, folded into the window
+  int k_odd = K;  // K = k_odd x k_two
+  while (k_odd % 2 == 0) k_odd /= 2;
+  const int k_two = K / k_odd;
+
+  for (int run = blockIdx.x; run < rows * runs_per_row; run += gridDim.x) {
+    const int row = run / runs_per_row;
+    const int a = (run % runs_per_row) * hops_per_run;
+    const int b = min(a + hops_per_run, hops);
+    if (a >= b) continue;
+    const int t_hi = min(b - 1, T - 1);
+    const int t_lo = max(a - (RING - 1), 0);
+    float* out_r = out + (size_t)row * hops * HP;
+    // a thread's ring entries are its own: no barrier between runs
+    for (int q = tid; q < PAIRS; q += BG_THREADS) {
+#pragma unroll
+      for (int p = 0; p < RING; ++p) ring[p * PAIRS + q] = make_float2(0.0f, 0.0f);
+    }
+
+    for (int t = t_hi; t >= t_lo; --t) {
+      const float* xr = re + ((size_t)row * T + t) * F;
+      const float* xi = im + ((size_t)row * T + t) * F;
+      __syncthreads();  // the previous frame's reads of both buffers are done
+      for (int k = tid; k < M; k += BG_THREADS) {
+        const float vr = xr[k], cr = xr[M - k];
+        float vi = xi[k], ci = xi[M - k];
+        if (k == 0) vi = ci = 0.0f;  // DC's and Nyquist's imaginary parts drop out
+        const float cs = __ldg(table + k), sn = __ldg(table + N + k);
+        const float dr = vr - cr, di = vi + ci;
+        ar[k] = (vr + cr) - (dr * sn + di * cs);
+        ai[k] = (vi - ci) + (dr * cs - di * sn);
+      }
+      __syncthreads();
+      // the frame in (fr, fi), the other buffer (gr, gi), swapped after each pass
+      float *fr = ar, *fi = ai, *gr = br, *gi = bi;
+      auto swap = [&]() {
+        float* t0 = fr;
+        fr = gr;
+        gr = t0;
+        t0 = fi;
+        fi = gi;
+        gi = t0;
+        __syncthreads();
+      };
+      int ns = 1;
+      if (k_odd > 1) {
+        big_pass_odd(fr, fi, gr, gi, table, N, M, k_odd);
+        ns = k_odd;
+        swap();
+      }
+      for (int r = k_two; r > 1;) {
+        if (r >= 8) {
+          big_pass<8>(fr, fi, gr, gi, table, N, M, ns);
+          ns *= 8;
+          r /= 8;
+        } else if (r == 4) {
+          big_pass<4>(fr, fi, gr, gi, table, N, M, ns);
+          ns *= 4;
+          r = 1;
+        } else {
+          big_pass<2>(fr, fi, gr, gi, table, N, M, ns);
+          ns *= 2;
+          r = 1;
+        }
+        swap();
+      }
+      for (int pass = 0; pass < 3; ++pass) {
+        big_pass<8>(fr, fi, gr, gi, table, N, M, ns);
+        ns *= 8;
+        swap();
+      }
+
+      // pair n = p PAIRS + q of the frame is piece p, pair q of hop t + p:
+      // piece 0 assigns, the later pieces add
+      for (int q = tid; q < PAIRS; q += BG_THREADS) {
+#pragma unroll
+        for (int p = 0; p < RING; ++p) {
+          const int n = p * PAIRS + q;
+          const float2 w = window != nullptr
+                               ? make_float2(__ldg(window + 2 * n) * inv_n,
+                                             __ldg(window + 2 * n + 1) * inv_n)
+                               : make_float2(inv_n, inv_n);
+          const float2 v = make_float2(fr[n] * w.x, fi[n] * w.y);
+          float2* acc = ring + ((t + p) & (RING - 1)) * PAIRS + q;
+          if (p == 0) {
+            *acc = v;
+          } else {
+            const float2 old = *acc;
+            *acc = make_float2(old.x + v.x, old.y + v.y);
+          }
+        }
+      }
+      const int h_first = t + RING - 1;
+      const int h_last = t == 0 ? 0 : h_first;
+      for (int h = h_first; h >= h_last; --h) {
+        if (h >= a && h < b) {
+          for (int q = tid; q < PAIRS; q += BG_THREADS)
+            *reinterpret_cast<float2*>(out_r + (size_t)h * HP + 2 * q) =
+                ring[(h & (RING - 1)) * PAIRS + q];
+        }
+      }
+    }
+  }
+}
+
 // The kernel for n_fft = 1024 k and its dynamic shared memory; nullptr
 // for a k it has no form for.
 const void* istft_kernel(int k, size_t* smem) {
@@ -555,13 +757,23 @@ cudaError_t istft_setup(int n_fft, const void** fn, size_t* smem, int* threads) 
 }  // namespace
 
 // Blocks of the kernel for n_fft that the current device holds at once,
-// and the dynamic shared memory a block asks for (`smem`, bytes).
+// and the dynamic shared memory a block asks for (`smem`, bytes).  Above
+// 16384, the device-memory form: one block an SM (its grid and its scratch
+// slots; umx_istft_ct2_big) and no dynamic shared memory.
 extern "C" int umx_istft_ct2_capacity(int n_fft, int* blocks, int* smem_bytes) {
   int dev = 0, sms = 0, per_sm = 0, threads = 0;
   const void* fn = nullptr;
   size_t smem = 0;
   *blocks = 0;
   *smem_bytes = 0;
+  if (n_fft > 1024 * MR_K_MAX && n_fft % 1024 == 0) {
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    *blocks = sms;
+    return (int)cudaSuccess;
+  }
   cudaError_t e = istft_setup(n_fft, &fn, &smem, &threads);
   if (e != cudaSuccess) return (int)e;
   *smem_bytes = (int)smem;
@@ -595,5 +807,22 @@ extern "C" int umx_istft_ct2(const float* re, const float* im, const float* tabl
   e = cudaLaunchKernel(fn, dim3(rows * runs_per_row), dim3(threads), args, smem,
                        static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The device-memory form, N = 1024 k above 16384: the arguments of
+// umx_istft_ct2, plus `scratch` (grid x 3 N floats) and the grid, at most
+// rows x runs_per_row blocks (the blocks walk the runs grid-stride).
+extern "C" int umx_istft_ct2_big(const float* re, const float* im, const float* table,
+                                 const float* window, float* out, float* scratch, int rows, int T,
+                                 int F, int N, int hop, int runs_per_row, int hops_per_run,
+                                 int grid, void* stream) {
+  if (N <= 1024 * MR_K_MAX || N % 1024 != 0 || 4 * hop != N || F != N / 2 + 1 || rows < 1 ||
+      T < 1 || runs_per_row < 1 || hops_per_run < 1 ||
+      (long long)runs_per_row * hops_per_run < T + RING - 1 || grid < 1 ||
+      (long long)rows * runs_per_row > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  istft_ct2_big_kernel<<<grid, BG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      re, im, table, window, out, scratch, rows, T, N, runs_per_row, hops_per_run);
   return (int)cudaGetLastError();
 }

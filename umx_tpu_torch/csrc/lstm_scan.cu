@@ -75,6 +75,15 @@
 // the four quarters are summed in a fixed order through shared memory.
 // Then a thread per (unit, row) applies the cell.
 //
+// The wide merged form (umx_lstm_merged_wide; K1 and K4 above G 512, where a
+// warp's slice of bf16 W_hh no longer fits lstm_merged.cu's registers) is
+// the streaming form with the compile-time flag ROUND_H and W_hh in bf16:
+// h is rounded to bf16 (round to nearest even) where it enters the product
+// (h0 and each polled word, into shared memory), so every product is
+// bf16(h) x bf16(W_hh), exact in f32, summed in f32: K1's function
+// (lstm_merged.cu).  hs, hT, cT and the exchange carry the unrounded f32 h,
+// as K1 publishes it; only the product's operand is rounded.
+//
 // In either form a (unit, row) sum has one order, set by G and the form
 // alone, never by B, by the rows or chains beside it, or by the row group
 // it falls in: a row is bit-equal to itself run alone.  The thread that
@@ -118,6 +127,17 @@ constexpr int RS_PASS = 8;                     // rows of one pass over W
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// h as the product takes it: rounded to bf16 and back (round to nearest
+// even, as torch's .to(torch.bfloat16)) in the wide merged form, else as it is
+template <bool ROUND_H>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (ROUND_H) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" : : "l"(p));
 }
@@ -151,8 +171,8 @@ __device__ __forceinline__ void fma_rows(float (&acc)[RT], float w, const float*
 // the row tile, a power of two >= nb.  Dynamic shared memory:
 // h (G x RT f32, k-major) and the quarters' sums (SCAN_PARTS x RT x 128 f32).
 // hx: exchange words (R, 2, SCAN_ROWS, G), zeroed before the layer's first
-// launch.
-template <typename W, int RT, bool RESID>
+// launch.  ROUND_H: the wide merged form (h rounded to bf16 for the product).
+template <typename W, int RT, bool RESID, bool ROUND_H = false>
 __global__ void __launch_bounds__(SCAN_THREADS, 2)
 lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
                  const W* __restrict__ whh,      // (R, G, 4G)
@@ -202,7 +222,7 @@ lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
   for (int i = tid; i < nb * G; i += SCAN_THREADS) {
     const int b = i / G;
     const int k = i - b * G;
-    h_s[k * RT + b] = h0[((size_t)r * B + b0 + b) * G + k];
+    h_s[k * RT + b] = operand<ROUND_H>(h0[((size_t)r * B + b0 + b) * G + k]);
   }
 
   unsigned long long* hx_r = hx + (size_t)r * 2 * SCAN_ROWS * G;
@@ -239,7 +259,7 @@ lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
               v[e] = src[i];
             }
             const int b = i / G;
-            h_s[(i - b * G) * RT + b] = __uint_as_float((uint32_t)v[e]);
+            h_s[(i - b * G) * RT + b] = operand<ROUND_H>(__uint_as_float((uint32_t)v[e]));
           }
         }
       }
@@ -706,14 +726,14 @@ const void* resident_kernel_rt(int rt) {
 
 // ---- the streaming form's instantiations, and both forms' setup --------
 
-template <typename W, bool RESID>
+template <typename W, bool RESID, bool ROUND_H = false>
 const void* scan_kernel_rt(int rt) {
   switch (rt) {
-    case 1: return (const void*)lstm_scan_kernel<W, 1, RESID>;
-    case 2: return (const void*)lstm_scan_kernel<W, 2, RESID>;
-    case 4: return (const void*)lstm_scan_kernel<W, 4, RESID>;
-    case 8: return (const void*)lstm_scan_kernel<W, 8, RESID>;
-    case 16: return (const void*)lstm_scan_kernel<W, 16, RESID>;
+    case 1: return (const void*)lstm_scan_kernel<W, 1, RESID, ROUND_H>;
+    case 2: return (const void*)lstm_scan_kernel<W, 2, RESID, ROUND_H>;
+    case 4: return (const void*)lstm_scan_kernel<W, 4, RESID, ROUND_H>;
+    case 8: return (const void*)lstm_scan_kernel<W, 8, RESID, ROUND_H>;
+    case 16: return (const void*)lstm_scan_kernel<W, 16, RESID, ROUND_H>;
     default: return nullptr;
   }
 }
@@ -725,13 +745,20 @@ size_t scan_smem(int G, int rt) {
 }
 
 // The instantiation of the form (resident = 1 or streaming) for row tile
-// rt, W_hh storage and the residual flag, with the dynamic shared memory it
-// needs allowed, and its block size; cudaErrorInvalidValue for a tile it
-// does not have or a width the resident form does not take (G > 512).
-cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int G, const void** fn,
-                        size_t* smem, int* threads) {
+// rt, W_hh storage and the residual flag (round_h: the wide merged form,
+// streaming with bf16 W_hh only), with the dynamic shared memory it needs
+// allowed, and its block size; cudaErrorInvalidValue for a tile it does not
+// have or a width the resident form does not take (G > 512).
+cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int round_h, int G,
+                        const void** fn, size_t* smem, int* threads) {
   if (G < 1 || (resident && G > RS_G_MAX)) return cudaErrorInvalidValue;
-  if (resident) {
+  if (round_h) {
+    if (resident || !whh_bf16) return cudaErrorInvalidValue;
+    *fn = resid ? scan_kernel_rt<__nv_bfloat16, true, true>(rt)
+                : scan_kernel_rt<__nv_bfloat16, false, true>(rt);
+    *smem = scan_smem(G, rt);
+    *threads = SCAN_THREADS;
+  } else if (resident) {
     if (resid)
       *fn = whh_bf16 ? resident_kernel_rt<__nv_bfloat16, true>(rt)
                      : resident_kernel_rt<float, true>(rt);
@@ -752,8 +779,6 @@ cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int G, co
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-}  // namespace
-
 // K10's launch geometry on the current device in the form asked for
 // (resident = 1: W_hh on the chip, G <= 512; 0: streaming) at width G,
 // W_hh in bf16 (whh_bf16 = 1) or f32, with the residual stores (resid = 1)
@@ -766,8 +791,9 @@ cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int G, co
 // x G, f32) that stay in registers (the rest is in shared memory; 0 in the
 // streaming form).  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
-extern "C" int umx_lstm_scan_capacity(int resident, int G, int whh_bf16, int resid, int* rows,
-                                      int* blocks, int* smem, int* w_regs) {
+// round_h: the wide merged form's instantiation (umx_lstm_merged_wide).
+int scan_capacity(int resident, int G, int whh_bf16, int resid, int round_h, int* rows,
+                  int* blocks, int* smem, int* w_regs) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
   *rows = 0;
   *blocks = 0;
@@ -788,7 +814,7 @@ extern "C" int umx_lstm_scan_capacity(int resident, int G, int whh_bf16, int res
     const void* fn = nullptr;
     size_t bytes = 0;
     int per_sm = 0, threads = 0;
-    e = scan_kernel(resident, rt, whh_bf16, resid, G, &fn, &bytes, &threads);
+    e = scan_kernel(resident, rt, whh_bf16, resid, round_h, G, &fn, &bytes, &threads);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, bytes);
     if (e != cudaSuccess) return (int)e;
@@ -804,19 +830,34 @@ extern "C" int umx_lstm_scan_capacity(int resident, int G, int whh_bf16, int res
   return (int)cudaSuccess;
 }
 
+}  // namespace
+
+extern "C" int umx_lstm_scan_capacity(int resident, int G, int whh_bf16, int resid, int* rows,
+                                      int* blocks, int* smem, int* w_regs) {
+  return scan_capacity(resident, G, whh_bf16, resid, 0, rows, blocks, smem, w_regs);
+}
+
+// The wide merged form's launch geometry (umx_lstm_scan_capacity of the
+// streaming form with bf16 W_hh and rounded h): K1 (resid = 0) or K4.
+extern "C" int umx_lstm_merged_wide_capacity(int G, int resid, int* rows, int* blocks, int* smem,
+                                             int* w_regs) {
+  return scan_capacity(0, G, 1, resid, 1, rows, blocks, smem, w_regs);
+}
+
 namespace {
 
-int scan_launch(int resident, const float* xp, const void* whh, int whh_bf16, const float* h0,
-                float* c, float* hs, float* hT, float* gates, float* cs, void* hx, int T, int R,
-                int B, int G, int r0, int nr, int b0, int nb, int rt, unsigned tag0,
-                void* stream) {
+int scan_launch(int resident, int round_h, const float* xp, const void* whh, int whh_bf16,
+                const float* h0, float* c, float* hs, float* hT, float* gates, float* cs,
+                void* hx, int T, int R, int B, int G, int r0, int nr, int b0, int nb, int rt,
+                unsigned tag0, void* stream) {
   if (G < 1 || T < 1 || B < 1 || nb < 1 || nb > rt || rt > SCAN_ROWS || b0 < 0 ||
       b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R)
     return (int)cudaErrorInvalidValue;
   const void* fn = nullptr;
   size_t smem = 0;
   int threads = 0;
-  cudaError_t e = scan_kernel(resident, rt, whh_bf16, gates != nullptr, G, &fn, &smem, &threads);
+  cudaError_t e =
+      scan_kernel(resident, rt, whh_bf16, gates != nullptr, round_h, G, &fn, &smem, &threads);
   if (e != cudaSuccess) return (int)e;
   unsigned long long* hxp = static_cast<unsigned long long*>(hx);
   void* args[] = {&xp, &whh, &h0, &c, &hs, &hT, &gates, &cs, &hxp, &T, &R, &B,
@@ -841,8 +882,8 @@ extern "C" int umx_lstm_scan(int resident, const float* xp, const void* whh, int
                              const float* h0, float* c, float* hs, float* hT, void* hx, int T,
                              int R, int B, int G, int r0, int nr, int b0, int nb, int rt,
                              unsigned tag0, void* stream) {
-  return scan_launch(resident, xp, whh, whh_bf16, h0, c, hs, hT, nullptr, nullptr, hx, T, R, B,
-                     G, r0, nr, b0, nb, rt, tag0, stream);
+  return scan_launch(resident, 0, xp, whh, whh_bf16, h0, c, hs, hT, nullptr, nullptr, hx, T, R,
+                     B, G, r0, nr, b0, nb, rt, tag0, stream);
 }
 
 // K10 with the residual stores: umx_lstm_scan plus the activated gates
@@ -853,6 +894,19 @@ extern "C" int umx_lstm_scan_train(int resident, const float* xp, const void* wh
                                    int B, int G, int r0, int nr, int b0, int nb, int rt,
                                    unsigned tag0, void* stream) {
   if (gates == nullptr || cs == nullptr) return (int)cudaErrorInvalidValue;
-  return scan_launch(resident, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0,
-                     nr, b0, nb, rt, tag0, stream);
+  return scan_launch(resident, 0, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G,
+                     r0, nr, b0, nb, rt, tag0, stream);
+}
+
+// K1 and K4 above G 512, the wide merged form: umx_lstm_scan's streaming
+// launch with bf16 W_hh (R, G, 4G) and h rounded to bf16 for the product,
+// K1's function; with gates and cs (both given) also K4's residuals.
+// The arguments and the exchange buffer are umx_lstm_scan's.
+extern "C" int umx_lstm_merged_wide(const float* xp, const void* whh, const float* h0, float* c,
+                                    float* hs, float* hT, float* gates, float* cs, void* hx, int T,
+                                    int R, int B, int G, int r0, int nr, int b0, int nb, int rt,
+                                    unsigned tag0, void* stream) {
+  if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
+  return scan_launch(0, 1, xp, whh, 1, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb,
+                     rt, tag0, stream);
 }

@@ -73,6 +73,14 @@
 // bits, and a row's bits do not depend on B, the row group or what runs
 // beside it: a row is bit-equal to itself run alone.
 //
+// The wide merged backward (umx_lstm_bwd_wide; K5 above G 512, where a
+// warp's slice of bf16 W_hh no longer fits lstm_train.cu's registers) is
+// the streaming form with the compile-time flag ROUND_DG and wt in bf16: the
+// gate cotangents are rounded to bf16 (round to nearest even) where they
+// enter the product, so every product is bf16(dg) x bf16(W_hh), exact in
+// f32, summed in f32: K5's function (ops/lstm_cuda.py:
+// lstm_merged_bwd_step_plain).  dxp and the carries stay unrounded f32.
+//
 // Rows beyond a launch's 16 and chains beyond what the card holds at once
 // are further launches of the same kernel, planned by the wrapper; tag0
 // keeps the tags of a launch unique among the launches that share the
@@ -175,6 +183,17 @@ __device__ __forceinline__ void poll_words(const volatile unsigned long long* sr
   }
 }
 
+// dg as the product takes it: rounded to bf16 and back in the wide merged
+// backward, else as it is
+template <bool ROUND_DG>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (ROUND_DG) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
 __device__ __forceinline__ unsigned long long tagged(unsigned tag, float v) {
   return ((unsigned long long)tag << 32) | (unsigned long long)__float_as_uint(v);
 }
@@ -184,7 +203,8 @@ __device__ __forceinline__ unsigned long long tagged(unsigned tag, float v) {
 // the block's 128 columns (128 x RT, column-major) and the chain's
 // partials of the block's 32 units (nblk x RT x 32).  hx: exchange words
 // (R, 2, nblk, SB_ROWS, G), zeroed before the layer's first launch.
-template <typename W, int RT>
+// ROUND_DG: the wide merged backward (dg rounded to bf16 for the product).
+template <typename W, int RT, bool ROUND_DG = false>
 __global__ void __launch_bounds__(SB_THREADS, 1)
 lstm_scan_bwd_kernel(const float* __restrict__ gates,  // (T, RB, 4G)
                      const float* __restrict__ cs,     // (T, RB, G)
@@ -270,7 +290,8 @@ lstm_scan_bwd_kernel(const float* __restrict__ gates,  // (T, RB, 4G)
 #pragma unroll
       for (int q = 0; q < 4; ++q) dx[(size_t)q * G] = dg[q];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) dg_s[(q * SB_UNITS + cj) * RT + cb] = dg[q];
+      for (int q = 0; q < 4; ++q)
+        dg_s[(q * SB_UNITS + cj) * RT + cb] = operand<ROUND_DG>(dg[q]);
     }
     if (t > 0) load_step(t - 1);  // in flight while the exchange runs
 
@@ -549,14 +570,14 @@ const void* bwd_resident_kernel_rt(int rt) {
 
 // ---- the streaming form's instantiations, and both forms' setup --------
 
-template <typename W>
+template <typename W, bool ROUND_DG = false>
 const void* bwd_kernel_rt(int rt) {
   switch (rt) {
-    case 1: return (const void*)lstm_scan_bwd_kernel<W, 1>;
-    case 2: return (const void*)lstm_scan_bwd_kernel<W, 2>;
-    case 4: return (const void*)lstm_scan_bwd_kernel<W, 4>;
-    case 8: return (const void*)lstm_scan_bwd_kernel<W, 8>;
-    case 16: return (const void*)lstm_scan_bwd_kernel<W, 16>;
+    case 1: return (const void*)lstm_scan_bwd_kernel<W, 1, ROUND_DG>;
+    case 2: return (const void*)lstm_scan_bwd_kernel<W, 2, ROUND_DG>;
+    case 4: return (const void*)lstm_scan_bwd_kernel<W, 4, ROUND_DG>;
+    case 8: return (const void*)lstm_scan_bwd_kernel<W, 8, ROUND_DG>;
+    case 16: return (const void*)lstm_scan_bwd_kernel<W, 16, ROUND_DG>;
     default: return nullptr;
   }
 }
@@ -568,13 +589,19 @@ size_t bwd_smem(int G, int rt) {
 }
 
 // The instantiation of the form (resident = 1 or streaming) for row tile rt
-// and W_hh storage, with the dynamic shared memory it needs allowed, and
-// its block size; cudaErrorInvalidValue for a tile it does not have or a
-// width the resident form does not take (G > 512).
-cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int G, const void** fn, size_t* smem,
-                       int* threads) {
+// and W_hh storage (round_dg: the wide merged backward, streaming with bf16
+// W_hh only), with the dynamic shared memory it needs allowed, and its block
+// size; cudaErrorInvalidValue for a tile it does not have or a width the
+// resident form does not take (G > 512).
+cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int round_dg, int G, const void** fn,
+                       size_t* smem, int* threads) {
   if (G < 1 || (resident && G > RB_G_MAX)) return cudaErrorInvalidValue;
-  if (resident) {
+  if (round_dg) {
+    if (resident || !whh_bf16) return cudaErrorInvalidValue;
+    *fn = bwd_kernel_rt<__nv_bfloat16, true>(rt);
+    *smem = bwd_smem(G, rt);
+    *threads = SB_THREADS;
+  } else if (resident) {
     *fn = whh_bf16 ? bwd_resident_kernel_rt<__nv_bfloat16>(rt) : bwd_resident_kernel_rt<float>(rt);
     *smem = rb_smem(rt);
     *threads = RB_THREADS;
@@ -587,8 +614,6 @@ cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int G, const void** f
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-}  // namespace
-
 // K11's launch geometry on the current device in the form asked for
 // (resident = 1: W_hh on the chip, G <= 512; 0: streaming) at width G,
 // W_hh in bf16 (whh_bf16 = 1) or f32: `rows`, the largest row tile (16, 8,
@@ -599,8 +624,9 @@ cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int G, const void** f
 // 128 columns x G, f32) that stay in registers (the rest is in shared
 // memory; 0 in the streaming form).  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
-extern "C" int umx_lstm_scan_bwd_capacity(int resident, int G, int whh_bf16, int* rows,
-                                          int* blocks, int* smem, int* w_regs) {
+// round_dg: the wide merged backward's instantiation (umx_lstm_bwd_wide).
+int bwd_capacity(int resident, int G, int whh_bf16, int round_dg, int* rows, int* blocks,
+                 int* smem, int* w_regs) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
   *rows = 0;
   *blocks = 0;
@@ -621,7 +647,7 @@ extern "C" int umx_lstm_scan_bwd_capacity(int resident, int G, int whh_bf16, int
     const void* fn = nullptr;
     size_t bytes = 0;
     int per_sm = 0, threads = 0;
-    e = bwd_kernel(resident, rt, whh_bf16, G, &fn, &bytes, &threads);
+    e = bwd_kernel(resident, rt, whh_bf16, round_dg, G, &fn, &bytes, &threads);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, bytes);
     if (e != cudaSuccess) return (int)e;
@@ -632,6 +658,42 @@ extern "C" int umx_lstm_scan_bwd_capacity(int resident, int G, int whh_bf16, int
     return (int)cudaSuccess;
   }
   return (int)cudaSuccess;
+}
+
+int bwd_launch(int resident, int round_dg, const float* gates, const float* cs, const float* c0,
+               const void* whh, int whh_bf16, const float* dhs, const float* dhT, float* dc,
+               float* dxp, float* dh0, void* hx, int T, int R, int B, int G, int r0, int nr,
+               int b0, int nb, int rt, unsigned tag0, void* stream) {
+  if (G < 1 || T < 1 || B < 1 || nb < 1 || nb > rt || rt > SB_ROWS || b0 < 0 ||
+      b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  int threads = 0;
+  cudaError_t e = bwd_kernel(resident, rt, whh_bf16, round_dg, G, &fn, &smem, &threads);
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
+  void* args[] = {&gates, &cs, &c0, &whh, &dhs, &dhT, &dc, &dxp, &dh0, &hxp, &T, &R, &B,
+                  &b0, &nb, &G, &r0, &tag0};
+  const dim3 grid((G + SB_UNITS - 1) / SB_UNITS, nr);
+  e = cudaLaunchCooperativeKernel(fn, grid, dim3(threads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int umx_lstm_scan_bwd_capacity(int resident, int G, int whh_bf16, int* rows,
+                                          int* blocks, int* smem, int* w_regs) {
+  return bwd_capacity(resident, G, whh_bf16, 0, rows, blocks, smem, w_regs);
+}
+
+// The wide merged backward's launch geometry (umx_lstm_scan_bwd_capacity of
+// the streaming form with bf16 W_hh and rounded dg).
+extern "C" int umx_lstm_bwd_wide_capacity(int G, int* rows, int* blocks, int* smem,
+                                          int* w_regs) {
+  return bwd_capacity(0, G, 1, 1, rows, blocks, smem, w_regs);
 }
 
 // K11: one launch in the form asked for (resident = 1 or streaming), the
@@ -647,20 +709,19 @@ extern "C" int umx_lstm_scan_bwd(int resident, const float* gates, const float* 
                                  const float* dhs, const float* dhT, float* dc, float* dxp,
                                  float* dh0, void* hx, int T, int R, int B, int G, int r0, int nr,
                                  int b0, int nb, int rt, unsigned tag0, void* stream) {
-  if (G < 1 || T < 1 || B < 1 || nb < 1 || nb > rt || rt > SB_ROWS || b0 < 0 ||
-      b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R)
-    return (int)cudaErrorInvalidValue;
-  const void* fn = nullptr;
-  size_t smem = 0;
-  int threads = 0;
-  cudaError_t e = bwd_kernel(resident, rt, whh_bf16, G, &fn, &smem, &threads);
-  if (e != cudaSuccess) return (int)e;
-  unsigned long long* hxp = static_cast<unsigned long long*>(hx);
-  void* args[] = {&gates, &cs, &c0, &whh, &dhs, &dhT, &dc, &dxp, &dh0, &hxp, &T, &R, &B,
-                  &b0, &nb, &G, &r0, &tag0};
-  const dim3 grid((G + SB_UNITS - 1) / SB_UNITS, nr);
-  e = cudaLaunchCooperativeKernel(fn, grid, dim3(threads), args, smem,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return bwd_launch(resident, 0, gates, cs, c0, whh, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R,
+                    B, G, r0, nr, b0, nb, rt, tag0, stream);
+}
+
+// K5 above G 512, the wide merged backward: umx_lstm_scan_bwd's streaming
+// launch with wt = W_hh transposed, (R, 4G, G) bf16, and dg rounded to bf16
+// for the product.  The arguments and the exchange buffer are
+// umx_lstm_scan_bwd's.
+extern "C" int umx_lstm_bwd_wide(const float* gates, const float* cs, const float* c0,
+                                 const void* wt, const float* dhs, const float* dhT, float* dc,
+                                 float* dxp, float* dh0, void* hx, int T, int R, int B, int G,
+                                 int r0, int nr, int b0, int nb, int rt, unsigned tag0,
+                                 void* stream) {
+  return bwd_launch(0, 1, gates, cs, c0, wt, 1, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr,
+                    b0, nb, rt, tag0, stream);
 }

@@ -26,7 +26,14 @@ like the forward one's, carries across segments (the reference's
 streaming LSTM).
 
 Float32 matmuls stay full float32 on the GPU (no TF32): the separator
-sets ``torch.backends.cuda.matmul.allow_tf32 = False``.
+sets ``torch.backends.cuda.matmul.allow_tf32 = False``.  The phases take
+the JAX package's ``compute`` specs (:func:`resolve_compute`) with the
+meaning they have there off a TPU: every spec but a narrower dtype
+("bfloat16") is a float32 product; "bfloat16" rounds the operands of the
+fc and input-projection products to bf16 (f32 sums) and, under
+``lstm_impl="scan"``, h and W_hh in the recurrence, which is the merged
+kernel's function (K1).  The merged and per-target recurrences and the
+quantized weights' products ignore the spec, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 
 from umx_tpu_torch.config import TARGETS, ModelConfig
 from umx_tpu_torch.ops.lstm_cuda import (
+    MERGED_G_ALIGN,
     RESIDENT_G_MAX,
     lstm_layer_merged_batched,
     lstm_layer_pertarget_batched,
@@ -361,52 +369,100 @@ def _batchnorm(x, w, b, rm, rv, eps: float):
     return (x - rm[:, None]) * inv * w[:, None] + b[:, None]
 
 
-def _mm(x, w):
-    """x @ w for a dense weight or a ``QTensor`` (dequantization fused)."""
-    return q_mm(x, w) if isinstance(w, QTensor) else torch.matmul(x, w)
+# compute spec: name -> (the products' operand dtype, the JAX package's
+# precision name).  Off a TPU the JAX package's "default", "float32",
+# "high" and "highest" are all one float32 product, as every one is here
+# (TF32 off); only a narrower operand dtype changes the arithmetic.
+_COMPUTE_SPECS = {
+    "default": (torch.float32, "default"),
+    "float32": (torch.float32, "default"),
+    "bfloat16": (torch.bfloat16, "default"),
+    "high": (torch.float32, "high"),
+    "highest": (torch.float32, "highest"),
+}
 
 
-def umx_pre(params: UMXParams, x, cfg: ModelConfig):
+def resolve_compute(name) -> tuple[torch.dtype, str]:
+    """Resolve a compute spec (``umx_tpu.models.umx.resolve_compute``): a
+    name from ``_COMPUTE_SPECS``, a dtype or dtype name (the "default"
+    precision), or an already-resolved (dtype, precision) tuple, returned
+    as it is."""
+    if isinstance(name, tuple):
+        return name
+    if isinstance(name, str) and name in _COMPUTE_SPECS:
+        return _COMPUTE_SPECS[name]
+    if isinstance(name, torch.dtype):
+        return name, "default"
+    try:
+        dtype = getattr(torch, np.dtype(name).name)
+    except TypeError:
+        dtype = None
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown compute spec {name!r}; valid names: "
+                         f"{sorted(_COMPUTE_SPECS)} or any dtype name")
+    return dtype, "default"
+
+
+_F32 = _COMPUTE_SPECS["float32"]
+
+
+def _mm(x, w, compute=_F32):
+    """x @ w for a dense weight, its operands rounded to the resolved
+    ``compute`` spec's dtype and the product summed in float32; a
+    ``QTensor`` weight ignores the spec (dequantization fused)."""
+    if isinstance(w, QTensor):
+        return q_mm(x, w)
+    dtype = compute[0]
+    if dtype == torch.float32:
+        return torch.matmul(x, w)
+    return torch.matmul(x.to(dtype).float(), w.to(dtype).float())
+
+
+def umx_pre(params: UMXParams, x, cfg: ModelConfig, compute="default"):
     """Everything before the recurrence: input norm + fc1 + bn1 + tanh for
     all targets.  x: (T, F) shared input magnitudes → x1 (T#, T, H); with a
     leading batch axis (B, T, F) → (B, T#, T, H)."""
+    spec = resolve_compute(compute)
     x = x.float().unsqueeze(-3)
     if cfg.input_scaling == "openunmix":
         x = (x + params.input_mean[:, None]) * params.input_scale[:, None]
     else:  # the umx.cpp reference's convention
         x = x * params.input_scale[:, None] + params.input_mean[:, None]
-    x = _mm(x, params.fc1_w)
+    x = _mm(x, params.fc1_w, spec)
     return torch.tanh(
         _batchnorm(x, params.bn1_w, params.bn1_b, params.bn1_rm, params.bn1_rv, cfg.bn_eps)
     )
 
 
-def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig):
+def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig, compute="default"):
     """Skip-concat + fc2/bn2/relu + fc3/bn3 + output norm for all targets.
     Returns masks (T#, T, O), or (B, T#, T, O) for batched inputs."""
+    spec = resolve_compute(compute)
     eps = cfg.bn_eps
-    x = _mm(torch.cat([x1, lstm_out], dim=-1), params.fc2_w)
+    x = _mm(torch.cat([x1, lstm_out], dim=-1), params.fc2_w, spec)
     x = torch.relu(_batchnorm(x, params.bn2_w, params.bn2_b, params.bn2_rm, params.bn2_rv, eps))
-    x = _mm(x, params.fc3_w)
+    x = _mm(x, params.fc3_w, spec)
     x = _batchnorm(x, params.bn3_w, params.bn3_b, params.bn3_rm, params.bn3_rv, eps)
     return torch.relu(x * params.output_scale[:, None] + params.output_mean[:, None])
 
 
 def resolve_lstm_impl(impl: str, G: int) -> str:
-    """The recurrence ``impl`` runs at width G (``ModelConfig.lstm_hidden``):
-    ``"auto"`` is the merged kernel (K1, and K4-K6 under a gradient) where it
-    holds G (G <= ``RESIDENT_G_MAX`` and G % 8 == 0), and the float32
-    recurrence ``"scan"`` (K10, K11) where it does not, on the CPU as on the
-    GPU, so both compute one program (the JAX package's ``"auto"`` is its
-    scan at every width off a TPU).  Every other value is itself: a merged
-    kernel named by ``"pallas_merged"`` still raises on the card at such a
-    width."""
-    if impl == "auto" and (G > RESIDENT_G_MAX or G % 8):
+    """The recurrence ``impl`` runs at width G (``ModelConfig.lstm_hidden``)
+    by a named width rule: ``"auto"`` is the merged kernel (K1, and K4-K6
+    under a gradient) at G <= ``RESIDENT_G_MAX`` with G % 8 == 0, the widths
+    its resident form holds without padding, and the float32 recurrence
+    ``"scan"`` (K10, K11) at every other width, on the CPU as on the GPU, so
+    both compute one program (the JAX package's ``"auto"`` is its scan at
+    every width off a TPU).  Every other value is itself: ``"pallas_merged"``
+    and ``"pallas"`` run their kernels at any width (padded, or the wide
+    forms)."""
+    if impl == "auto" and (G > RESIDENT_G_MAX or G % MERGED_G_ALIGN):
         return "scan"
     return impl
 
 
-def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: ModelConfig):
+def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: ModelConfig,
+                           compute="default"):
     """The 3-layer bidirectional LSTM over a batch, in the training
     recurrence's layout (``umx_tpu.models.umx.umx_recurrence_batched``).
 
@@ -422,15 +478,24 @@ def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: Mod
     quantized parameters' hh is dense bf16).  Where a gradient is wanted the
     merged and the float32 recurrences run their training kernels; "pallas"
     raises (the trainer's loss lowers it to "scan", as the JAX trainer
-    does)."""
+    does).  ``compute`` (:func:`resolve_compute`) sets the input
+    projections' operand dtype; under "scan" with dense weights a bfloat16
+    spec also rounds h and W_hh, which is the merged recurrence (K1, at any
+    width), as the JAX scan computes it."""
+    spec = resolve_compute(compute)
     impl = resolve_lstm_impl(cfg.lstm_impl, cfg.lstm_hidden)
+    if impl == "scan" and spec[0] != torch.float32 and not is_quantized(params):
+        if spec[0] != torch.bfloat16:
+            raise ValueError(f'the recurrence under lstm_impl "scan" has products in float32 or '
+                             f'bfloat16, got compute dtype {spec[0]}')
+        impl = "pallas_merged"  # bf16(h) x bf16(W_hh), f32 sums: K1's function
     layer_fn = {"pallas": lstm_layer_pertarget_batched,
                 "scan": lstm_layer_scan_batched}.get(impl, lstm_layer_merged_batched)
     lstm_in = x1_b
     hTs, cTs = [], []
     for layer in range(cfg.n_lstm_layers):
         xs = torch.stack([lstm_in, lstm_in.flip(2)], dim=2)  # (B, T#, D, T, in)
-        proj = _mm(xs, params.lstm_ih_w[:, layer])  # (B, T#, D, T, 4G)
+        proj = _mm(xs, params.lstm_ih_w[:, layer], spec)  # (B, T#, D, T, 4G)
         bias = params.lstm_ih_b[:, layer] + params.lstm_hh_b[:, layer]  # (T#, D, 4G)
         x_proj = (proj + bias[:, :, None]).transpose(2, 3)  # (B, T#, T, D, 4G)
         hs, hT, cT = layer_fn(
@@ -500,19 +565,39 @@ def umx_recurrence_pipelined_step(params: UMXParams, stage_inputs: list, stage_s
     return outs, states
 
 
-def umx_recurrence(params: UMXParams, x1, state: LSTMState, cfg: ModelConfig):
+def umx_recurrence(params: UMXParams, x1, state: LSTMState, cfg: ModelConfig,
+                   compute="default"):
     """The 3-layer bidirectional LSTM, the only phase with streaming state:
     x1 (T#, T, H) → (lstm_out (T#, T, 2G), new state); one batch row of
     :func:`umx_recurrence_batched`."""
     out, st = umx_recurrence_batched(
-        params, x1[None], LSTMState(h=state.h[None], c=state.c[None]), cfg
+        params, x1[None], LSTMState(h=state.h[None], c=state.c[None]), cfg, compute
     )
     return out[0], LSTMState(h=st.h[0], c=st.c[0])
 
 
-def umx_forward_batched(params: UMXParams, x_b, state_b: LSTMState, cfg: ModelConfig):
+def umx_forward_batched(params: UMXParams, x_b, state_b: LSTMState, cfg: ModelConfig,
+                        compute="default"):
     """Batched all-targets mask network (the training forward): x_b
     (B, T, F) → (masks (B, T#, T, O), new state)."""
-    x1_b = umx_pre(params, x_b, cfg)
-    lstm_out, new_state = umx_recurrence_batched(params, x1_b, state_b, cfg)
-    return umx_post(params, x1_b, lstm_out, cfg), new_state
+    spec = resolve_compute(compute)
+    x1_b = umx_pre(params, x_b, cfg, spec)
+    lstm_out, new_state = umx_recurrence_batched(params, x1_b, state_b, cfg, spec)
+    return umx_post(params, x1_b, lstm_out, cfg, spec), new_state
+
+
+def umx_forward(params: UMXParams, x, state: LSTMState, cfg: ModelConfig, compute="default"):
+    """All-targets mask network of one segment (``umx_tpu.models.umx.umx_forward``):
+    x (T, F) shared input magnitudes → (masks (T#, T, O), new streaming
+    state).  ``compute`` names a spec of :func:`resolve_compute`; the
+    activations and the state stay float32."""
+    spec = resolve_compute(compute)
+    x1 = umx_pre(params, x, cfg, spec)
+    lstm_out, new_state = umx_recurrence(params, x1, state, cfg, spec)
+    return umx_post(params, x1, lstm_out, cfg, spec), new_state
+
+
+def param_count(params: UMXParams) -> int:
+    """The number of parameters: the elements of every field (a quantized
+    field counts its weight's shape)."""
+    return sum(int(np.prod(getattr(params, f.name).shape)) for f in fields(params))

@@ -18,22 +18,46 @@ from umx_tpu_torch import _build
 from umx_tpu_torch.ops.istft_ct import check_ct2_geometry, istft_ct2_plain
 
 N_FFT = 4096  # UMX's transform: the kernel's hand-scheduled form
-N_FFT_MAX = 16384  # the largest n_fft whose frame and ring fit a block
+SHARED_N_FFT_MAX = 16384  # the largest n_fft whose frame and ring fit a block's shared memory
 PIECES = 4  # hop = n_fft / 4: a frame reaches 4 output hops, a hop 4 frames
 _MIN_HOPS = 8  # no run shorter than this, unless the row is
+# the device-memory form's scratch slot a block: two buffers of n_fft/2
+# complex values and the overlap-add ring, n_fft floats each
+_BIG_SLOT_FLOATS = 3
 
 
 def istft_radix_plan(n_fft: int) -> tuple[int, ...]:
     """The radices of the kernel's n_fft/2-point complex inverse, first
-    pass first: 16 x 16 x 8 at 4096 (its hand-scheduled form), else a pass
-    of K = n_fft/1024 points (none at K = 1) and three radix-8 passes (the
-    mixed-radix Stockham form)."""
-    if n_fft % 1024 or not 1024 <= n_fft <= N_FFT_MAX:
-        raise ValueError(f"the iSTFT kernel takes n_fft = 1024 k up to {N_FFT_MAX}, got {n_fft}")
+    pass first: 16 x 16 x 8 at 4096 (its hand-scheduled form); up to
+    ``SHARED_N_FFT_MAX`` a pass of K = n_fft/1024 points (none at K = 1)
+    and three radix-8 passes (the Stockham form in shared memory); above,
+    in device memory (:func:`istft_form`), the odd part of K as one pass,
+    its power-of-two part in radix 8 (then 4 or 2), then three radix 8."""
+    if n_fft < 1024 or n_fft % 1024:
+        raise ValueError(f"the iSTFT kernel takes n_fft = 1024 k, got {n_fft}")
     if n_fft == N_FFT:
         return (16, 16, 8)
     k = n_fft // 1024
-    return ((k,) if k > 1 else ()) + (8, 8, 8)
+    if n_fft <= SHARED_N_FFT_MAX:
+        return ((k,) if k > 1 else ()) + (8, 8, 8)
+    odd = k
+    while odd % 2 == 0:
+        odd //= 2
+    plan, two = [odd] if odd > 1 else [], k // odd
+    while two > 1:
+        r = 8 if two >= 8 else two
+        plan.append(r)
+        two //= r
+    return (*plan, 8, 8, 8)
+
+
+def istft_form(n_fft: int) -> str:
+    """Where the kernel keeps a frame at ``n_fft``: "shared" (shared
+    memory, the hand-scheduled 4096 form and the mixed radix up to
+    ``SHARED_N_FFT_MAX``) or "device" (a scratch slot a block in device
+    memory, above it)."""
+    istft_radix_plan(n_fft)
+    return "shared" if n_fft <= SHARED_N_FFT_MAX else "device"
 
 
 @functools.lru_cache(maxsize=8)
@@ -100,12 +124,12 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     """Planes re/im (..., T, n_fft/2+1) f32 → raw overlap-added signal
     (..., (T-1)*hop + n_fft) with the window folded in (the caller divides
     by the window sum-of-squares).  Takes every n_fft with 1024 | n_fft and
-    hop = n_fft/4, as the JAX function does; on a CUDA tensor the kernel
-    takes n_fft up to ``N_FFT_MAX`` and raises beyond it before any launch.
-    One kernel launch transforms, windows and overlap-adds (no frames
-    buffer); the run plan that ran is left in ``istft_ct2.form`` as (runs
-    per row, hops per run, radix plan).  Counts ``istft_ct2.launches`` once
-    per launch."""
+    hop = n_fft/4, as the JAX function does, on either device.  One kernel
+    launch transforms, windows and overlap-adds (no frames buffer; above
+    ``SHARED_N_FFT_MAX`` a scratch slot of 3 n_fft floats for each block of
+    the grid, :func:`istft_form`); the run plan that ran is left in
+    ``istft_ct2.form`` as (runs per row, hops per run, radix plan).  Counts
+    ``istft_ct2.launches`` once per launch."""
     if re.dim() < 2 or tuple(im.shape) != tuple(re.shape):
         raise ValueError(f"re and im must both be (..., T, F), got {tuple(re.shape)}, {tuple(im.shape)}")
     *lead, T, F = re.shape
@@ -128,18 +152,24 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     plan = istft_radix_plan(n_fft)
     rows = int(np.prod(lead)) if lead else 1
     dev = re.device
-    per_row, hops_per_run = istft_run_plan(rows, T, istft_block_layout(dev.index, n_fft)[0])
+    capacity = istft_block_layout(dev.index, n_fft)[0]
+    per_row, hops_per_run = istft_run_plan(rows, T, capacity)
     re_c = re.reshape(rows, T, F).contiguous()
     im_c = im.reshape(rows, T, F).contiguous()
     win = window.contiguous() if window is not None else None
     L = (T - 1) * hop + n_fft
     out = torch.empty((rows, L), dtype=torch.float32, device=dev)
-    err = _build.library().umx_istft_ct2(
-        re_c.data_ptr(), im_c.data_ptr(), _table(n_fft, dev).data_ptr(),
-        win.data_ptr() if win is not None else None, out.data_ptr(),
-        rows, T, F, n_fft, hop, per_row, hops_per_run,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (re_c.data_ptr(), im_c.data_ptr(), _table(n_fft, dev).data_ptr(),
+            win.data_ptr() if win is not None else None, out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.library()
+    if istft_form(n_fft) == "shared":
+        err = lib.umx_istft_ct2(*args, rows, T, F, n_fft, hop, per_row, hops_per_run, stream)
+    else:
+        grid = min(rows * per_row, capacity)
+        scratch = torch.empty(grid * _BIG_SLOT_FLOATS * n_fft, dtype=torch.float32, device=dev)
+        err = lib.umx_istft_ct2_big(*args, scratch.data_ptr(), rows, T, F, n_fft, hop, per_row,
+                                    hops_per_run, grid, stream)
     _build.check(err, "umx_istft_ct2")
     istft_ct2.launches += 1
     istft_ct2.form = (per_row, hops_per_run, plan)

@@ -22,6 +22,17 @@ backward the dh/dc carries) in f32.
   row in the per-target layout (T#, T, D, 4G), one launch per layer with
   each chain on a thread-block cluster that keeps its W_hh and state on
   chip (``_make_kernel``, reached by ``lstm_layer_pallas``).
+
+K1, K4, K5 and K9 take every width, as the TPU kernels do
+(:func:`merged_form`): up to G 512 the resident forms, with G % 8 != 0
+padded by zero units (:func:`at_width`: a zero unit's gates are 0, its c
+and h stay exactly 0 and it adds +0 to every real sum, so the cut result
+is the unpadded function's); above G 512, where a warp's slice of W_hh no
+longer fits its registers, the "wide" forms: K10's and K11's streaming
+kernels with a compile-time flag that rounds the product's h (K1, K4) or
+dg (K5) to bf16, K1's and K5's functions with W_hh read from L2 each step.
+K9 runs its chains through the wide K1 where no cluster holds a chain's
+W_hh.
 - K10 :func:`lstm_scan` (``csrc/lstm_scan.cu``): the float32 recurrence
   of the JAX package's ``lax.scan`` (``_bilstm_layer``, its
   ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
@@ -107,6 +118,22 @@ def _recurrence_plain(xp, whh, h0, c0, B: int, round_h: bool, residuals: bool):
     return (hs, h, c, gates, cs) if residuals else (hs, h, c)
 
 
+def _dh_product(dg, wt, B: int):
+    """dg (R*B, 4G) @ W_hhᵀ per chain (R, 4G, G) → (R*B, G), as the sum of
+    the four gates' products in gate order, each a contraction over G (so
+    zero units appended to each gate block add +0 at the end of a sum).
+    One row per chain runs beside a zero row, as in :func:`_hh_product`."""
+    R, G = wt.shape[0], wt.shape[2]
+    d = dg.view(R, B, 4, G)
+    if B == 1:
+        d = torch.cat([d, torch.zeros_like(d)], dim=1)
+    out = None
+    for q in range(4):
+        p = torch.bmm(d[:, :, q], wt[:, q * G:(q + 1) * G])
+        out = p if out is None else out + p
+    return out[:, :B].reshape(R * B, G)
+
+
 def _sweep_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int, round_dg: bool):
     """The plain reverse-time sweep of K5 (``round_dg``: the gate
     cotangents rounded to bf16 before their product with W_hhᵀ) and K11,
@@ -131,7 +158,7 @@ def _sweep_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int, round_dg: bool):
             do * o * (1.0 - o),
         ], dim=1)
         dxp[t] = dg
-        dh = torch.bmm((_bf16(dg) if round_dg else dg).view(R, B, G4), wt).view(RB, G)
+        dh = _dh_product(_bf16(dg) if round_dg else dg, wt, B)
         dc = dct * f
     return dxp, dh, dc
 
@@ -300,11 +327,75 @@ def _resident_capacity(index: int, kernel: str, G: int = 0) -> int:
     return blocks.value
 
 
-def _check_resident_width(what: str, G: int):
-    if G > RESIDENT_G_MAX:
-        raise RuntimeError(
-            f"{what}: a warp's slice of W_hh must fit 128 registers a thread, "
-            f"G <= {RESIDENT_G_MAX}; got G = {G} (lstm_impl=\"scan\" runs any width)")
+# the resident kernels (and K9) read W_hh rows as 16-byte vectors of 8 bf16
+MERGED_G_ALIGN = 8
+
+
+def _aligned(G: int) -> int:
+    """G rounded up to a multiple of ``MERGED_G_ALIGN``."""
+    return -(-G // MERGED_G_ALIGN) * MERGED_G_ALIGN
+
+
+def merged_form(G: int) -> str:
+    """The form K1, K4 and K5 take at width G, chosen before any launch:
+    "resident" (W_hh in registers; G % 8 != 0 padded to the next multiple
+    of 8) up to ``RESIDENT_G_MAX``, "wide" (W_hh from L2 each step, any G)
+    above."""
+    if G < 1:
+        raise ValueError(f"G must be positive, got {G}")
+    return "resident" if G <= RESIDENT_G_MAX else "wide"
+
+
+def merged_width(G: int) -> int:
+    """The width the merged kernels launch at: G rounded up to a multiple
+    of 8 in the resident form, G itself in the wide form."""
+    return G if merged_form(G) == "wide" else _aligned(G)
+
+
+def pad_width(t, kind: str, G: int, Gp: int):
+    """``t`` at width Gp >= G, zero units appended: ``kind`` "units" pads
+    the last axis (…, G); "gates" each of the four gate blocks of the last
+    axis (…, 4G), laid out i|f|g|o with column gate·G + unit; "whh" the rows
+    and the gate blocks of (…, G, 4G)."""
+    if kind == "units":
+        return torch.nn.functional.pad(t, (0, Gp - G)).contiguous()
+    if kind == "gates":
+        lead = t.shape[:-1]
+        return torch.nn.functional.pad(t.reshape(*lead, 4, G), (0, Gp - G)).reshape(
+            *lead, 4 * Gp).contiguous()
+    if kind == "whh":
+        return pad_width(torch.nn.functional.pad(t, (0, 0, 0, Gp - G)), "gates", G, Gp)
+    raise ValueError(f"kind must be units, gates or whh, got {kind!r}")
+
+
+def cut_width(t, kind: str, G: int, Gp: int):
+    """:func:`pad_width`'s inverse: the first G units of each block."""
+    if kind == "units":
+        return t[..., :G].contiguous()
+    if kind == "gates":
+        lead = t.shape[:-1]
+        return t.reshape(*lead, 4, Gp)[..., :G].reshape(*lead, 4 * G).contiguous()
+    if kind == "whh":
+        return cut_width(t[..., :G, :], "gates", G, Gp)
+    raise ValueError(f"kind must be units, gates or whh, got {kind!r}")
+
+
+def at_width(fn, G: int, Gp: int, args, kinds, out_kinds):
+    """``fn(*args)`` run at width Gp: each argument padded by its kind of
+    ``kinds`` (None: as it is), each output cut by its kind of
+    ``out_kinds``.  Zero units leave the real units' results exact (a zero
+    unit's pre-activations are 0: i = f = o = 1/2, g = 0, so its c and h
+    stay 0, its gate cotangents are 0, and it adds 0 to every real sum)."""
+    if Gp == G:
+        return fn(*args)
+    padded = [a if k is None else pad_width(a, k, G, Gp) for a, k in zip(args, kinds)]
+    return tuple(cut_width(o, k, G, Gp) for o, k in zip(fn(*padded), out_kinds))
+
+
+_FWD_KINDS = ("gates", "whh", "units", "units", None)
+_FWD_OUT = ("units", "units", "units", "gates", "units")  # hs, hT, cT, gates, cs
+_BWD_KINDS = ("gates", "units", "units", "whh", "units", "units", "units", None)
+_BWD_OUT = ("gates", "units", "units")  # dxp, dh0, dc0
 
 
 def _resident_plan(wrapper, kernel: str, xp, R: int, B: int, G: int):
@@ -318,10 +409,11 @@ def _resident_plan(wrapper, kernel: str, xp, R: int, B: int, G: int):
     return [(r0, nr, b0, nb) for r0, nr in chains for b0, nb in rows]
 
 
-def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
-    """K1 (``residuals`` False) or K4 on CUDA tensors, or their plain
-    versions on CPU tensors: the launches of one layer over its chain and
-    row groups, counted once in ``wrapper.launches``."""
+def _merged_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+    """K1 (``residuals`` False) or K4 on CUDA tensors, in the form of
+    :func:`merged_form` at :func:`merged_width`, or their plain versions on
+    CPU tensors: the launches of one layer, counted once in
+    ``wrapper.launches``."""
     T, R, G = _dims(xp, whh, B)
     RB = R * B
     route = _check(xp, [
@@ -331,9 +423,20 @@ def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     if route == "cpu":
         plain = lstm_merged_train_fwd_plain if residuals else lstm_merged_plain
         return plain(xp, whh, h0, c0, B)
+    if merged_form(G) == "wide":
+        return _wide_forward(wrapper, xp, whh, h0, c0, B, residuals)
+    n = 5 if residuals else 3
+    return at_width(lambda *a: _resident_forward(wrapper, *a, residuals), G, merged_width(G),
+                    (xp, whh, h0, c0, B), _FWD_KINDS, _FWD_OUT[:n])
+
+
+def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+    """The resident K1 or K4 on checked CUDA tensors at G % 8 == 0: the
+    launches of one layer over its chain and row groups."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
     entry = "umx_lstm_merged_train" if residuals else "umx_lstm_merged"
     _check_whh_vectors(whh, G)
-    _check_resident_width(entry, G)
     lib = _build.library()
     plan = _resident_plan(wrapper, "K4" if residuals else "K1", xp, R, B, G)
     dev = xp.device
@@ -361,13 +464,15 @@ def lstm_merged(xp, whh, h0, c0, B: int):
 
     xp (T, R*B, 4G) f32, whh (R, G, 4G) bf16, h0/c0 (R*B, G) f32 →
     (hs (T, R*B, G), hT, cT).  One kernel launch runs all T steps of all
-    chains and up to 16 rows per chain with W_hh resident in registers;
-    further rows (and chains beyond what the device holds at once) are
-    further launches of the same kernel.  G above 512 raises.  The form
-    that ran is left in ``lstm_merged.form`` as (blocks per chain, blocks
-    the device holds at once, chain groups, row groups).  Increments
-    ``lstm_merged.launches`` once per layer."""
-    return _resident_forward(lstm_merged, xp, whh, h0, c0, B, residuals=False)
+    chains and up to 16 rows per chain; further rows (and chains beyond
+    what the device holds at once) are further launches of the same
+    kernel.  Any G (:func:`merged_form`): up to 512 with W_hh resident in
+    registers (G % 8 != 0 padded by zero units), the wide form above.  The
+    form that ran is left in ``lstm_merged.form``: resident as (blocks per
+    chain, blocks the device holds at once, chain groups, row groups), wide
+    as ("wide", the same four).  Increments ``lstm_merged.launches`` once
+    per layer."""
+    return _merged_forward(lstm_merged, xp, whh, h0, c0, B, residuals=False)
 
 
 lstm_merged.launches = 0
@@ -376,12 +481,12 @@ lstm_merged.form = None
 
 def lstm_merged_train_fwd(xp, whh, h0, c0, B: int):
     """K4: :func:`lstm_merged` plus the residuals → (hs, hT, cT, gates
-    (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G)).  The same resident
-    kernel as K1 with the residual stores compiled in: one launch per layer
-    and group of 16 rows, any B, hs/hT/cT bit-equal to K1's; G above 512
-    raises.  Leaves its form in ``lstm_merged_train_fwd.form`` and counts
+    (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G)).  The same kernel as
+    K1, in the same form, with the residual stores compiled in: one launch
+    per layer and group of 16 rows, any B, any G, hs/hT/cT bit-equal to
+    K1's.  Leaves its form in ``lstm_merged_train_fwd.form`` and counts
     ``lstm_merged_train_fwd.launches`` once per layer."""
-    return _resident_forward(lstm_merged_train_fwd, xp, whh, h0, c0, B, residuals=True)
+    return _merged_forward(lstm_merged_train_fwd, xp, whh, h0, c0, B, residuals=True)
 
 
 lstm_merged_train_fwd.launches = 0
@@ -390,11 +495,14 @@ lstm_merged_train_fwd.form = None
 
 def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
     """K5: the reverse-time sweep → (dxp (T, R*B, 4G), dh0, dc0), all f32.
-    One resident launch runs all T steps (and the product that gives dh0)
-    of all chains and up to 16 rows per chain; further rows and chains are
-    further launches, any B; G above 512 raises.  Leaves its form in
-    ``lstm_merged_bwd_step.form`` and counts
-    ``lstm_merged_bwd_step.launches`` once per sweep."""
+    One launch runs all T steps (and the product that gives dh0) of all
+    chains and up to 16 rows per chain; further rows and chains are
+    further launches, any B.  Any G, in :func:`merged_form`'s form: up to
+    512 resident (W_hh in registers, G % 8 != 0 padded by zero units), the
+    wide form above (K11's streaming sweep with the gate cotangents rounded
+    to bf16 for the product, from a transposed bf16 copy of W_hh).  Leaves
+    its form in ``lstm_merged_bwd_step.form`` (as :func:`lstm_merged`'s)
+    and counts ``lstm_merged_bwd_step.launches`` once per sweep."""
     T, R, G = _dims(gates, whh, B)
     RB = R * B
     route = _check(gates, [
@@ -405,8 +513,17 @@ def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
     ])
     if route == "cpu":
         return lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
+    args = (gates, cs, c0, whh, dhs, dhT, dcT, B)
+    if merged_form(G) == "wide":
+        return _wide_bwd(*args)
+    return at_width(_resident_bwd, G, merged_width(G), args, _BWD_KINDS, _BWD_OUT)
+
+
+def _resident_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """The resident K5 on checked CUDA tensors at G % 8 == 0."""
+    T, R, G = _dims(gates, whh, B)
+    RB = R * B
     _check_whh_vectors(whh, G)
-    _check_resident_width("umx_lstm_bwd", G)
     lib = _build.library()
     dev = gates.device
     plan = _resident_plan(lstm_merged_bwd_step, "K5", gates, R, B, G)
@@ -503,11 +620,12 @@ def lstm_pertarget_plain(x_proj, whh, h0, c0):
     f32 → (hs (T#, T, D, G), hT, cT)."""
     n_targets, T, D, G4 = x_proj.shape
     G = G4 // 4
-    w = whh.float()
+    R = n_targets * D
+    w = whh.float().reshape(R, G, G4)
     h, c = h0, c0
     hs = torch.empty((n_targets, T, D, G), dtype=torch.float32, device=x_proj.device)
     for t in range(T):
-        pre = x_proj[:, t] + torch.einsum("jdg,jdgf->jdf", _bf16(h), w)
+        pre = x_proj[:, t] + _hh_product(h.reshape(R, G), w, 1).view(n_targets, D, G4)
         i = torch.sigmoid(pre[..., :G])
         f = torch.sigmoid(pre[..., G : 2 * G])
         g = torch.tanh(pre[..., 2 * G : 3 * G])
@@ -544,7 +662,18 @@ def pertarget_cluster_choice(G: int, R: int, placeable, max_units: int = PERTARG
     ``max_units``).  Among the sizes that hold a chain the one with the
     fewest waves wins, then the fewest units per block (the shortest
     step), then the fewest blocks.  Raises by name where no size holds a
-    chain."""
+    chain (:func:`lstm_layer_pertarget` then runs the wide K1)."""
+    best = _pertarget_best(G, R, placeable, max_units)
+    if best is None:
+        raise RuntimeError(
+            f"umx_lstm_pertarget: no cluster of up to {PERTARGET_MAX_CLUSTER} blocks holds one "
+            f"chain's W_hh (G x 4G bf16 = {G * 4 * G * 2} bytes at G = {G}) on this device: "
+            f"clusters held at once by size {dict(placeable)}")
+    return best
+
+
+def _pertarget_best(G: int, R: int, placeable, max_units: int = PERTARGET_MAX_UNITS):
+    """:func:`pertarget_cluster_choice`, or None where no size holds a chain."""
     best = None
     for cluster in range(1, PERTARGET_MAX_CLUSTER + 1):
         held = int(placeable.get(cluster, 0))
@@ -555,10 +684,7 @@ def pertarget_cluster_choice(G: int, R: int, placeable, max_units: int = PERTARG
         if best is None or key < best:
             best = key
     if best is None:
-        raise RuntimeError(
-            f"umx_lstm_pertarget: no cluster of up to {PERTARGET_MAX_CLUSTER} blocks holds one "
-            f"chain's W_hh (G x 4G bf16 = {G * 4 * G * 2} bytes at G = {G}) on this device: "
-            f"clusters held at once by size {dict(placeable)}")
+        return None
     waves, units, cluster = best
     return cluster, units, waves
 
@@ -582,13 +708,16 @@ def lstm_layer_pertarget(x_proj, whh, h0, c0):
     one batch row, one kernel launch for all T steps (see module docstring).
 
     x_proj (T#, T, D, 4G) f32, whh (T#, D, G, 4G) bf16, h0/c0 (T#, D, G)
-    f32 → (hs (T#, T, D, G), hT, cT).  Each chain runs on a thread-block
-    cluster that keeps its W_hh in registers and shared memory;
+    f32 → (hs (T#, T, D, G), hT, cT).  Any G.  Each chain runs on a
+    thread-block cluster that keeps its W_hh in registers and shared
+    memory (G % 8 != 0 padded by zero units, :func:`at_width`);
     :func:`pertarget_cluster_choice` picks the cluster size among those
-    the device can place and raises where none holds a chain's W_hh.  The
-    form that ran is left in ``lstm_layer_pertarget.form`` as (blocks per
-    cluster, clusters the device holds at once, waves).  Increments
-    ``lstm_layer_pertarget.launches`` once per kernel launch."""
+    the device can place.  Where none holds a chain's W_hh (G above about
+    704 on an H100) the chains run through the wide K1 (the same function
+    at one row per chain).  The form that ran is left in
+    ``lstm_layer_pertarget.form``: (blocks per cluster, clusters the device
+    holds at once, waves), or ("wide", …) as :func:`lstm_merged`'s.
+    Increments ``lstm_layer_pertarget.launches`` once per kernel launch."""
     if x_proj.dim() != 4:
         raise ValueError(f"expected x_proj (T#, T, D, 4G), got shape {tuple(x_proj.shape)}")
     n_targets, T, D, G4 = x_proj.shape
@@ -604,10 +733,27 @@ def lstm_layer_pertarget(x_proj, whh, h0, c0):
     ])
     if route == "cpu":
         return lstm_pertarget_plain(x_proj, whh, h0, c0)
+    R, Gp = n_targets * D, _aligned(G)
+    placeable = _pertarget_placeable(x_proj.device.index, Gp, R)
+    best = _pertarget_best(Gp, R, placeable)
+    if best is None:
+        xp = x_proj.permute(1, 0, 2, 3).reshape(T, R, G4).contiguous()
+        hs, hT, cT = _wide_forward(lstm_layer_pertarget, xp, whh.reshape(R, G, G4),
+                                   h0.reshape(R, G), c0.reshape(R, G), 1, residuals=False)
+        return (hs.view(T, n_targets, D, G).permute(1, 0, 2, 3).contiguous(),
+                hT.view(n_targets, D, G), cT.view(n_targets, D, G))
+    return at_width(lambda *a: _pertarget_launch(*a, best, placeable), G, Gp,
+                    (x_proj, whh, h0, c0), ("gates", "whh", "units", "units"),
+                    ("units", "units", "units"))
+
+
+def _pertarget_launch(x_proj, whh, h0, c0, best, placeable):
+    """K9's cluster launch on checked CUDA tensors at G % 8 == 0."""
+    n_targets, T, D, G4 = x_proj.shape
+    G = G4 // 4
+    cluster, units, waves = best
     _check_whh_vectors(whh, G)
     dev = x_proj.device
-    placeable = _pertarget_placeable(dev.index, G, n_targets * D)
-    cluster, units, waves = pertarget_cluster_choice(G, n_targets * D, placeable)
     hs = torch.empty((n_targets, T, D, G), dtype=torch.float32, device=dev)
     hT = torch.empty((n_targets, D, G), dtype=torch.float32, device=dev)
     cT = torch.empty((n_targets, D, G), dtype=torch.float32, device=dev)
@@ -753,12 +899,13 @@ def scan_exchange_words(R: int, G: int) -> int:
 @functools.lru_cache(maxsize=None)
 def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
                       form: str = "streaming") -> tuple[int, int, int, int]:
-    """What ``kernel`` ("K10", "K10r" with the residual stores, or "K11")
-    in ``form`` at width G, W_hh in bf16 or f32, reports of itself on CUDA
-    device ``index``, asked once: (the largest row tile, the blocks of it
-    held at once, the dynamic shared memory a block of that tile asks for,
-    the bytes of a full block's share of W_hh that stay in registers, 0 in
-    the streaming form)."""
+    """What ``kernel`` ("K10", "K10r" with the residual stores, or "K11";
+    "K1w", "K4w", "K5w": the wide merged forms, the streaming kernels with
+    bf16 operands, ``form`` "wide") in ``form`` at width G, W_hh in bf16 or
+    f32, reports of itself on CUDA device ``index``, asked once: (the
+    largest row tile, the blocks of it held at once, the dynamic shared
+    memory a block of that tile asks for, the bytes of a full block's share
+    of W_hh that stay in registers, 0 in the streaming forms)."""
     import ctypes
 
     out = [ctypes.c_int(0) for _ in range(4)]
@@ -766,7 +913,11 @@ def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
     lib = _build.library()
     resident = int(form == "resident")
     with torch.cuda.device(index):
-        if kernel == "K11":
+        if kernel in ("K1w", "K4w"):
+            err = lib.umx_lstm_merged_wide_capacity(G, int(kernel == "K4w"), *ptrs)
+        elif kernel == "K5w":
+            err = lib.umx_lstm_bwd_wide_capacity(G, *ptrs)
+        elif kernel == "K11":
             err = lib.umx_lstm_scan_bwd_capacity(resident, G, int(whh_bf16), *ptrs)
         else:
             err = lib.umx_lstm_scan_capacity(resident, G, int(whh_bf16), int(kernel == "K10r"),
@@ -1021,3 +1172,64 @@ def lstm_layer_scan_batched(x_proj, hh_w, h0, c0):
     else:
         out = lstm_scan(xp, whh, h0r, c0r, Bsz)
     return _batched_outputs(*out, x_proj.shape)
+
+
+# ---- the wide forms of K1, K4 and K5 (G > 512; csrc/lstm_scan.cu and
+# csrc/lstm_scan_train.cu with their bf16 operand flags)
+
+
+def _wide_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+    """The wide K1 (or K4 with ``residuals``) on checked CUDA tensors: K10's
+    streaming kernel with bf16 W_hh and h rounded to bf16 for the product,
+    K1's function.  Leaves ("wide", blocks per chain, blocks the device
+    holds at once, chain groups, row groups) in ``wrapper.form`` and counts
+    ``wrapper.launches`` once."""
+    T, R, G = _dims(xp, whh, B)
+    RB = R * B
+    plan = _scan_plan(wrapper, "K4w" if residuals else "K1w", xp, R, B, G, True, "wide")
+    dev = xp.device
+    hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
+    hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    cT = c0.clone()  # the kernel updates c in place
+    hx = torch.zeros(scan_exchange_words(R, G), dtype=torch.int64, device=dev)
+    extra = ()
+    if residuals:
+        extra = (torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev),  # gates
+                 torch.empty((T, RB, G), dtype=torch.float32, device=dev))  # cs
+    ptrs = [t.data_ptr() for t in extra] or [None, None]
+    lib = _build.library()
+    for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
+        err = lib.umx_lstm_merged_wide(
+            xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
+            hT.data_ptr(), *ptrs, hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt, launched * T,
+            _stream(xp),
+        )
+        _build.check(err, "umx_lstm_merged_wide")
+    wrapper.launches += 1
+    return (hs, hT, cT, *extra)
+
+
+def _wide_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """The wide K5 on checked CUDA tensors: K11's streaming sweep with the
+    gate cotangents rounded to bf16 for the product against a transposed
+    bf16 copy of W_hh, K5's function."""
+    T, R, G = _dims(gates, whh, B)
+    RB = R * B
+    wrapper = lstm_merged_bwd_step
+    plan = _scan_plan(wrapper, "K5w", gates, R, B, G, True, "wide")
+    dev = gates.device
+    dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
+    hx = torch.zeros(scan_bwd_exchange_words(R, G), dtype=torch.int64, device=dev)
+    wt = whh.transpose(1, 2).contiguous()  # (R, 4G, G) bf16
+    lib = _build.library()
+    for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
+        err = lib.umx_lstm_bwd_wide(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), wt.data_ptr(), dhs.data_ptr(),
+            dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), hx.data_ptr(),
+            T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(gates),
+        )
+        _build.check(err, "umx_lstm_bwd_wide")
+    wrapper.launches += 1
+    return dxp, dh0, dc

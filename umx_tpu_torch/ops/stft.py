@@ -52,6 +52,38 @@ def stft_planes(x: torch.Tensor, cfg: DSPConfig):
     return spec.real.contiguous(), spec.imag.contiguous()
 
 
+def frame_signal(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Split x (..., n) into hop-strided frames (..., T, n_fft) with
+    T = (n - n_fft) // hop + 1 (``umx_tpu.ops.stft.frame_signal``): frame t
+    is the concatenation of the n_fft/hop pieces of hop samples starting
+    at (t + p) * hop.  Requires hop | n_fft."""
+    if n_fft % hop:
+        raise ValueError(f"frame_signal requires hop | n_fft, got {hop}, {n_fft}")
+    n_frames = (x.shape[-1] - n_fft) // hop + 1
+    pieces = [x[..., p * hop:(p + n_frames) * hop].reshape(*x.shape[:-1], n_frames, hop)
+              for p in range(n_fft // hop)]
+    return torch.cat(pieces, dim=-1)
+
+
+def stft(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
+    """Centered STFT of x (..., n) → complex64 (..., T, F) with
+    T = n // hop + 1, the JAX package's layout (:func:`stft_planes` as one
+    complex tensor)."""
+    re, im = stft_planes(x, cfg)
+    return torch.complex(re, im)
+
+
+def istft(spec: torch.Tensor, n_samples: int, cfg: DSPConfig) -> torch.Tensor:
+    """Inverse of :func:`stft`: spec (..., T, F) complex → (..., n_samples)
+    (:func:`istft_planes` on its real and imaginary planes)."""
+    return istft_planes(spec.real, spec.imag, n_samples, cfg)
+
+
+def magnitude(spec: torch.Tensor) -> torch.Tensor:
+    """|spec| of a complex spectrogram."""
+    return spec.abs()
+
+
 def stft_magnitude(x: torch.Tensor, cfg: DSPConfig) -> torch.Tensor:
     """|STFT| of x (..., n) → (..., T, F) float32, e.g. a batch of mixes
     (B, 2, n) or of targets (B, T#, 2, n)."""

@@ -5,6 +5,7 @@ the ones kept, and where a step of each kept recurrence goes.
 
     python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce] [scan] [k8]   (all when none is named)
     python3 chip_forms.py k11_streaming [earlier lstm_scan_train.cu ...]
+    python3 chip_forms.py wide k8_cluster
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -31,7 +32,10 @@ shapes, in turns.  ``k8``: the iSTFT kernel K8 at every n_fft = 1024 k up to
 16384 on 8 rows of a 60 s segment, beside its plain version, torch.istft
 and its bound, and at n_fft 4096 (48 rows of a segment) its mixed-radix
 form (4 x 8 x 8 x 8) against the hand-scheduled one kept there, in turns
-(that comparison alone: ``k8_4096``).
+(that comparison alone: ``k8_4096``).  ``wide``: the wide K1 and K4 in
+their block forms (W_hh in registers and shared memory) beside their
+streaming yardstick, in turns; ``k8_cluster``: K8's cluster form beside its
+device-memory form and torch.istft above n_fft 16384.
 ``k11_streaming [FILE ...]``: K11's streaming form at T 256, R 8, B 16 and G
 512 and 640, in turns against earlier sources of ``csrc/lstm_scan_train.cu``
 named on the command line (for example one written by ``git show
@@ -1168,6 +1172,126 @@ def k8_sizes(dev, smi: str) -> None:
         del re, im, spec, out
 
 
+def wide_forms(dev, smi: str) -> None:
+    """The wide K1 and K4 (G above 512) in their block forms beside the
+    streaming yardstick (``_form="wide_streaming"``), in turns: K1 at T
+    2584, R 8, B 1 at G 640 and 1024 (K9's chains at hidden 2048), K4 at T
+    256, R 8, B 16 at G 640; K1 in its own form at G 512 for reference.
+    Each against its plain version; microseconds a step."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    for T_, B, G_, name in ((S.T_SEG, 1, 512, "lstm_merged"), (S.T_SEG, 1, 640, "lstm_merged"),
+                            (S.T_TRAIN, 16, 640, "lstm_merged_train_fwd"),
+                            (S.T_SEG, 1, 1024, "lstm_merged")):
+        fn = getattr(L, name)
+        args = S.lstm_inputs(dev, T_, B, seed=G_ + B, G=G_)
+        plain = (L.lstm_merged_train_fwd_plain if B > 1 else L.lstm_merged_plain)(*args)
+        err = max(S.max_err(a, b) for a, b in zip(fn(*args), plain))
+        form = fn.form
+        line = ""
+        if G_ > L.RESIDENT_G_MAX:
+            stream_ms, ms = S.paired_ms(lambda: fn(*args, _form="wide_streaming"),
+                                        lambda: fn(*args), 1, f"{name} G {G_}")
+            line = (f", streaming {stream_ms:.4f} ms ({stream_ms / T_ * 1e3:.3f} us a step), "
+                    f"{stream_ms / ms:.2f} x")
+        else:
+            ms = S.cuda_ms(lambda: fn(*args), 3)
+        print(f"{name} T {T_}, R {S.R_CHAINS}, B {B}, G {G_}: form {form}, max|err| vs plain "
+              f"{err:.3g}; {ms:.4f} ms ({ms / T_ * 1e3:.3f} us a step){line}  [{smi}]",
+              flush=True)
+        del args, plain
+
+
+def k8_cluster(dev, smi: str) -> None:
+    """K8 above n_fft 16384 on 8 rows of a 60 s segment: the cluster form
+    beside the device-memory form (``_form="device"``) in turns, bit-equal,
+    and ``torch.istft``."""
+    import torch
+
+    from umx_tpu_torch.ops import istft_ct_cuda
+    from umx_tpu_torch.ops.stft import hann_window
+
+    rows = S.ISTFT_ROWS
+    for n in (17408, 32768, 65536, 131072):
+        hop, F = n // 4, n // 2 + 1
+        T_ = S.SEG // hop + 1
+        g = torch.Generator(device=dev).manual_seed(n)
+        re = torch.randn((rows, T_, F), generator=g, device=dev)
+        im = torch.randn((rows, T_, F), generator=g, device=dev)
+        w = hann_window(n, dev)
+        same = torch.equal(istft_ct_cuda.istft_ct2(re, im, n, hop, w),
+                           istft_ct_cuda.istft_ct2(re, im, n, hop, w, _form="device"))
+        spec = torch.complex(re, im).transpose(-1, -2).contiguous()
+        spec.imag[:, 0] = 0.0
+        spec.imag[:, -1] = 0.0
+        dev_ms, ms = S.paired_ms(lambda: istft_ct_cuda.istft_ct2(re, im, n, hop, w, _form="device"),
+                                 lambda: istft_ct_cuda.istft_ct2(re, im, n, hop, w), 5, f"k8 {n}")
+        lib = S.cuda_ms(lambda: torch.istft(spec, n_fft=n, hop_length=hop, window=w, center=True,
+                                            onesided=True, length=(T_ - 1) * hop), 5)
+        print(f"istft_ct2 n_fft {n} ({rows} rows x {T_} frames): cluster of "
+              f"{istft_ct_cuda.istft_cluster_size(n)} {ms:.4f} ms, device-memory form "
+              f"{dev_ms:.4f} ms, torch.istft {lib:.4f} ms; bit-equal {same}  [{smi}]", flush=True)
+        del re, im, spec
+
+
+def k8_cluster_forms(dev, smi: str) -> None:
+    """K8's cluster form at n_fft 32768 (8 rows of a 60 s segment) in the
+    form kept (512 threads a block, clusters of 2) beside clusters of 4 and
+    8 of the same kernel and a variant of 256 threads a block (twice the
+    staging a thread, no spills), in turns, each bit-equal to the kept
+    form."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import istft_ct_cuda as K
+    from umx_tpu_torch.ops.stft import hann_window
+
+    text = (_build.CSRC / "istft_ct.cu").read_text()
+    libs = build_all({"kept": text,
+                      "t256": sub(text, "constexpr int CL_THREADS = 512;",
+                                  "constexpr int CL_THREADS = 256;")},
+                     ("umx_istft_ct2_cluster", "umx_istft_ct2_cluster_capacity"), tag="k8c")
+    n, rows = S.ISTFT_GATED_N_FFT, S.ISTFT_ROWS
+    hop, F = n // 4, n // 2 + 1
+    T_ = S.SEG // hop + 1
+    g = torch.Generator(device=dev).manual_seed(n)
+    re = torch.randn((rows, T_, F), generator=g, device=dev)
+    im = torch.randn((rows, T_, F), generator=g, device=dev)
+    w = hann_window(n, dev)
+    table, ptw = K._table(n, dev), K._pass_twiddles(n, dev)
+    ref = K.istft_ct2(re, im, n, hop, w)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def form(lib, C):
+        held, smem = ctypes.c_int(0), ctypes.c_int(0)
+        S.require(lib.umx_istft_ct2_cluster_capacity(n, C, ctypes.addressof(held),
+                                                     ctypes.addressof(smem)) == 0, "capacity")
+        per_row, hops_per_run = K.istft_run_plan(rows, T_, held.value)
+        out = torch.empty_like(ref)
+
+        def go():
+            S.require(lib.umx_istft_ct2_cluster(
+                re.data_ptr(), im.data_ptr(), table.data_ptr(), ptw.data_ptr(), w.data_ptr(),
+                out.data_ptr(), rows, T_, F, n, hop, C, per_row, hops_per_run, stream) == 0,
+                "launch")
+            return out
+        return go, held.value
+
+    runs = {f"{name} C {C}": form(libs[name], C) for name in libs for C in (2, 4, 8)
+            if name == "kept" or C == 2}
+    got = {name: [] for name in runs}
+    for name, (go, _) in runs.items():
+        S.require(torch.equal(go(), ref), f"{name}: not the kept form's bits")
+    for r in range(4):
+        for name in (runs if r % 2 == 0 else reversed(list(runs))):
+            got[name].append(S.cuda_ms(runs[name][0], 5))
+    print(f"istft_ct2 cluster forms at n_fft {n} ({rows} rows x {T_} frames): " + "; ".join(
+        f"{name} {min(v):.4f} ms ({runs[name][1]} clusters held)" for name, v in got.items())
+        + f"  [{smi}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1197,6 +1321,12 @@ def main() -> int:
         k8_sizes(dev, smi)
     if "k8" in which or "k8_4096" in which:
         k8_mixed_at_4096(dev, smi)
+    if "wide" in which:
+        wide_forms(dev, smi)
+    if "k8_cluster" in which:
+        k8_cluster(dev, smi)
+    if "k8_cluster_forms" in which:
+        k8_cluster_forms(dev, smi)
     if "k11_streaming" in which:
         k11_streaming(dev, smi, [a for a in sys.argv[1:] if a.endswith(".cu")])
     return 0

@@ -58,10 +58,11 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    inside a row or that are shorter than the overlap-add ring: 3 and 5
    rows x 37 frames, 1 row x 3 frames), bit-stable; K8 at n_fft 1024,
    2048, 3072, 5120, 8192 and 16384 too (its mixed-radix form, the sizes
-   JAX's ct2 takes beside UMX's 4096) and 32768 (its device-memory form,
-   above what a block's shared memory holds) on 8 rows of a 60 s segment
-   against its plain version and float64 (1e-5), with its radices,
-   bit-stable;
+   JAX's ct2 takes beside UMX's 4096) and 32768, 65536 and 131072 (its
+   cluster form, a frame and its ring in the shared memory of a cluster of
+   2, 4 and 8 blocks, above what one block's holds; bit-equal to its
+   device-memory form) on 8 rows of a 60 s segment against its plain
+   version and float64 (1e-5), with its radices, bit-stable;
 8. the batched whole-track path: the CLI with ``--no-streaming --shifts 2
    --istft-algo ct2`` on the 100 s track, and a ``Separator`` with
    ``ola_impl="pallas"``, the ct2 iSTFT, non-streaming chunk groups at the
@@ -110,7 +111,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     than ``torch.bmm`` on the same operands, K8 no slower than
     ``torch.istft``, K8 at n_fft 4096 and 48 rows at most 1.05 times its
     1.4149 ms before it took every n_fft (its other sizes timed beside
-    their plain version, ``torch.istft`` and their bound), K4 at most twice
+    their plain version, ``torch.istft`` and their bound; above 16384 its
+    cluster form beside its device-memory form in turns, and at 32768
+    faster than both and than ``torch.istft``), K4 at most twice
     K1 at the same shape, K4, K5, K8, K9,
     K7 (M = 8 and 16) and K2's reduce in mode mags faster than their
     earlier forms, and the reduce in modes masks and y no more than 5 %
@@ -277,15 +280,19 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     ``train_loop`` run.
 
 21. (run after phase 20) every width the JAX kernels take: K1 in its wide
-    form (G 640: K10's streaming kernel with h rounded to bf16 for the
-    product) and padded (G 18 to 24 by zero units) at T 2584, R 8, B 1; K9
-    padded (G 18) and through the wide K1 (G 1024, where no cluster holds a
-    chain); K4 and K5 wide and padded at the training shape: each against
-    its plain version (5e-3), rows bit-equal alone, K4's hs/hT/cT K1's
-    bits, timed beside plain and bound.  Then, counts set to 0 just before
+    form (G 640: the resident kernel in a 10-warp block form, W_hh in
+    registers and shared memory) and padded (G 18 to 24 by zero units) at T
+    2584, R 8, B 1; K9 padded (G 18) and through the wide K1 (G 1024, where
+    no cluster holds a chain: two chain groups of four); K4 and K5 wide and
+    padded at the training shape: each against its plain version (5e-3),
+    rows bit-equal alone, K4's hs/hT/cT K1's bits, timed beside plain and
+    bound; the wide K1, K4 and K9 beside their streaming yardstick (K10's
+    streaming kernel with h rounded to bf16, by name) in turns, which they
+    must beat.  Then, counts set to 0 just before
     and read just after each run: the CLI on phase 19's hidden-1280 model
     and its 20 s cut under ``--lstm-impl pallas_merged`` and ``--stream-impl
-    pipelined`` (the wide K1), and on a hidden-36 model under
+    pipelined`` (the wide K1, its block form and not the streaming one), and
+    on a hidden-36 model under
     ``--lstm-impl pallas_merged``, ``pallas`` (padded K1, K9) and
     ``--stream-impl pipelined``, each held against the port's pinned CPU
     path on 5 s with float32 seams (2e-3 of the peak; K1/K9 at the path's
@@ -383,7 +390,9 @@ ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
 ISTFT_4096_MS, ISTFT_4096_SLACK = 1.4149, 1.05
 # K8 at n_fft beyond UMX's 4096 (JAX's ct2 takes every n_fft with
 # 1024 | n_fft): the mixed-radix form, on 8 rows of a 60 s segment
-ISTFT_SIZES = (1024, 2048, 3072, 5120, 8192, 16384, 32768)
+ISTFT_SIZES = (1024, 2048, 3072, 5120, 8192, 16384, 32768, 65536, 131072)
+# above 16384 the cluster form must beat torch.istft in the same call here
+ISTFT_GATED_N_FFT = 32768
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
 
@@ -892,18 +901,46 @@ def check_istft_ct(dev, shapes, seed: int):
     return args, worst
 
 
+def cluster_istft_path(dev, counters: dict, smi: str) -> dict:
+    """K8's cluster form on the path a caller runs it by: the ct2 iSTFT at
+    n_fft ``ISTFT_GATED_N_FFT`` (``stft_planes``, then ``istft_planes``
+    with ``istft_algo="ct2"``, the JAX package's DSP functions) on 8 rows
+    of a 60 s segment of noise; counts set to 0 just before the inverse and
+    read just after; the round trip within 1e-4 of the input's peak."""
+    import torch
+
+    from umx_tpu_torch.config import DSPConfig
+    from umx_tpu_torch.ops.stft import istft_planes, stft_planes
+
+    cfg = DSPConfig(n_fft=ISTFT_GATED_N_FFT, hop=ISTFT_GATED_N_FFT // 4, istft_algo="ct2")
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = 0.3 * torch.randn((ISTFT_ROWS, SEG), generator=g, device=dev)
+    re, im = stft_planes(x, cfg)
+    reset_counts(counters)
+    y = istft_planes(re, im, SEG, cfg)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    err = float((y - x).abs().max()) / float(x.abs().max())
+    print(f"ct2 round trip at n_fft {cfg.n_fft} ({ISTFT_ROWS} rows x 60 s): max|x - istft(stft "
+          f"x)|/max|x| {err:.3g}; kernel runs {launches}  [{smi}]")
+    require(launches == {"istft_ct2": 1} and err <= 1e-4,
+            f"the ct2 round trip at n_fft {cfg.n_fft}: {launches}, {err}")
+    return {"launches": launches["istft_ct2"], "round_trip_rel_err": err}
+
+
 def check_istft_sizes(dev, smi: str):
     """Phase 7: K8 at ``ISTFT_SIZES`` (its mixed-radix form: a DFT of
-    n_fft/1024 points, then three radix-8 passes) on 8 rows of a 60 s
-    segment (T = 2646000 / hop + 1 frames), windowed, against its plain
-    version and a float64 CPU reference on 2 rows, bit-stable.  Returns
-    ({n_fft: kernel args}, worst max|err| vs plain)."""
+    n_fft/1024 points, then three radix-8 passes; above 16384 its cluster
+    form, bit-equal to its device-memory form) on 8 rows of a 60 s segment
+    (T = 2646000 / hop + 1 frames), windowed, against its plain version and
+    a float64 CPU reference on 2 rows, bit-stable.  Returns ({n_fft: kernel
+    args}, {n_fft: max|err| vs plain})."""
     import torch
 
     from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
     from umx_tpu_torch.ops.stft import hann_window
 
-    args, worst = {}, 0.0
+    args, errs = {}, {}
     for n in ISTFT_SIZES:
         hop, F = n // 4, n // 2 + 1
         T = SEG // hop + 1
@@ -919,17 +956,25 @@ def check_istft_sizes(dev, smi: str):
         f64 = istft_ct.istft_ct2_plain(re[:2].cpu().double(), im[:2].cpu().double(), n, hop,
                                        w.cpu().double())
         err64 = float((out[:2].cpu().double() - f64).abs().max())
-        print(f"istft_ct2 at n_fft {n} ({ISTFT_ROWS} rows x {T} frames): max|err| vs plain "
-              f"{err:.3g}, vs float64 on 2 rows {err64:.3g}; (runs per row, hops per run, "
-              f"radices) {form}  [{smi}]")
+        where = istft_ct_cuda.istft_form(n)
+        # above 16384 the cluster form's bits are the device-memory form's
+        # (the same arithmetic through the same helpers)
+        same = (where != "cluster" or
+                torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n, hop, w, _form="device")))
+        print(f"istft_ct2 at n_fft {n} ({ISTFT_ROWS} rows x {T} frames), form {where} (cluster "
+              f"{istft_ct_cuda.istft_cluster_size(n) if where == 'cluster' else '-'}): max|err| "
+              f"vs plain {err:.3g}, vs float64 on 2 rows {err64:.3g}; bit-equal to the "
+              f"device-memory form {same}; (runs per row, hops per run, radices) {form}  [{smi}]")
         require(err <= 1e-5 and err64 <= 1e-5, f"istft_ct2 at n_fft {n} disagrees: {err}, {err64}")
         require(form[2] == istft_ct_cuda.istft_radix_plan(n), f"istft_ct2 at n_fft {n}: {form}")
+        require(same, f"istft_ct2 at n_fft {n}: the cluster form is not the device-memory "
+                "form's bits")
         require(torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n, hop, w)),
                 f"istft_ct2 at n_fft {n} is not bit-stable from run to run")
-        worst = max(worst, err)
+        errs[n] = err
         args[n] = (re, im, n, hop, w)
         del out, plain, f64
-    return args, worst
+    return args, errs
 
 
 @contextlib.contextmanager
@@ -4392,11 +4437,11 @@ WIDTH_TRAIN_STEPS = 2
 WIDTH_BF16_MAX, WIDTH_BF16_RMS = 2e-2, 2e-3
 # the kernels line's rows of the new forms: name -> (wrapper, source, TPU kernel)
 WIDTH_ROWS = {
-    "lstm_merged_wide": ("lstm_merged", "umx_tpu_torch/csrc/lstm_scan.cu",
+    "lstm_merged_wide": ("lstm_merged", "umx_tpu_torch/csrc/lstm_merged.cu",
                          "umx_tpu/ops/lstm_pallas.py:158"),
     "lstm_merged_padded": ("lstm_merged", "umx_tpu_torch/csrc/lstm_merged.cu",
                            "umx_tpu/ops/lstm_pallas.py:158"),
-    "lstm_merged_train_fwd_wide": ("lstm_merged_train_fwd", "umx_tpu_torch/csrc/lstm_scan.cu",
+    "lstm_merged_train_fwd_wide": ("lstm_merged_train_fwd", "umx_tpu_torch/csrc/lstm_merged.cu",
                                    "umx_tpu/ops/lstm_pallas.py:323"),
     "lstm_merged_train_fwd_padded": ("lstm_merged_train_fwd",
                                      "umx_tpu_torch/csrc/lstm_merged.cu",
@@ -4409,17 +4454,40 @@ WIDTH_ROWS = {
     "lstm_layer_pertarget_padded": ("lstm_layer_pertarget",
                                     "umx_tpu_torch/csrc/lstm_pertarget.cu",
                                     "umx_tpu/ops/lstm_pallas.py:39"),
-    "lstm_layer_pertarget_wide": ("lstm_layer_pertarget", "umx_tpu_torch/csrc/lstm_scan.cu",
+    "lstm_layer_pertarget_wide": ("lstm_layer_pertarget", "umx_tpu_torch/csrc/lstm_merged.cu",
                                   "umx_tpu/ops/lstm_pallas.py:39"),
 }
 
 
+def wide_vs_streaming(name: str, fn, args, ref, smi: str):
+    """The wide block form (``fn(*args)``) beside its streaming yardstick
+    (``fn(*args, _form="wide_streaming")``) in turns: the yardstick within
+    5e-3 of the plain version's ``ref``, the wide form faster (a hard gate).
+    Returns (wide ms, streaming ms, the yardstick's max|err| vs plain)."""
+    import torch
+
+    streaming = fn(*args, _form="wide_streaming")
+    torch.cuda.synchronize()
+    form = fn.form
+    err = max(max_err(a, b) for a, b in zip(streaming, ref))
+    stream_ms, ms = paired_ms(lambda: fn(*args, _form="wide_streaming"), lambda: fn(*args), 1,
+                              f"{name} streaming vs wide")
+    print(f"{name}: wide block form {ms:.4f} ms against its streaming yardstick {stream_ms:.4f} "
+          f"ms (form {form}, max|err| vs plain {err:.3g}), in turns  [{smi}]")
+    require(form[0] == "wide_streaming" and err <= 5e-3, f"{name} streaming: {form}, {err}")
+    require(ms < stream_ms, f"{name}: the wide block form ({ms} ms) is not faster than the "
+            f"streaming form ({stream_ms} ms)")
+    return ms, stream_ms, err
+
+
 def width_forward_rows(dev, smi: str) -> dict:
-    """Phase 21a: K1 in its wide form (G 640, hidden 1280) and padded (G 18,
-    hidden 36) at the segment shape (T 2584, R 8, B 1), K9 padded (G 18) and
-    wide (G 1024) at T# 4, D 2: each against its plain version (5e-3), rows
-    at B 3 bit-equal to their runs alone, a second run bit-equal, timed
-    beside its plain version and its bound."""
+    """Phase 21a: K1 in its wide form (G 640, hidden 1280: a 10-warp block
+    form, W_hh in registers and shared memory) and padded (G 18, hidden 36)
+    at the segment shape (T 2584, R 8, B 1), K9 padded (G 18) and through
+    the wide K1 (G 1024, two chain groups) at T# 4, D 2: each against its
+    plain version (5e-3), rows at B 3 bit-equal to their runs alone, a
+    second run bit-equal, timed beside its plain version and its bound;
+    the wide forms beside their streaming yardstick, which they must beat."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda as L
@@ -4431,7 +4499,8 @@ def width_forward_rows(dev, smi: str) -> dict:
         out = L.lstm_merged(*args)
         torch.cuda.synchronize()
         form = L.lstm_merged.form
-        err = max(max_err(a, b) for a, b in zip(out, L.lstm_merged_plain(*args)))
+        ref = L.lstm_merged_plain(*args)
+        err = max(max_err(a, b) for a, b in zip(out, ref))
         stable = all(torch.equal(a, b) for a, b in zip(L.lstm_merged(*args), out))
         xp, whh, h0, c0, B = lstm_inputs(dev, 300, 3, seed=2200 + G, G=G)
         three = L.lstm_merged(xp, whh, h0, c0, B)
@@ -4453,13 +4522,17 @@ def width_forward_rows(dev, smi: str) -> dict:
               f"{bound[0]:.4f} ms by {bound[1]}  [{smi}]")
         require(err <= 5e-3 and alone and stable, f"{name} at G {G}: {rows[name]}")
         require((form[0] == "wide") == (name == "lstm_merged_wide"), f"{name} ran form {form}")
-        del args, out, xp, whh, h0, c0, three
+        if name == "lstm_merged_wide":
+            wide_ms, stream_ms, _ = wide_vs_streaming(name, L.lstm_merged, args, ref, smi)
+            rows[name].update(ms_in_turns=wide_ms, streaming_ms=stream_ms)
+        del args, out, ref, xp, whh, h0, c0, three
     for name, G in (("lstm_layer_pertarget_padded", WIDTH_PAD_HIDDEN // 2),
                     ("lstm_layer_pertarget_wide", WIDTH_K9_WIDE_HIDDEN // 2)):
         args = check_pertarget_at(dev, N_SRC, T_SEG, G, seed=2300 + G)[0]
         form = L.lstm_layer_pertarget.form
         out = L.lstm_layer_pertarget(*args)
-        err = max(max_err(a, b) for a, b in zip(out, L.lstm_pertarget_plain(*args)))
+        ref = L.lstm_pertarget_plain(*args)
+        err = max(max_err(a, b) for a, b in zip(out, ref))
         stable = all(torch.equal(a, b) for a, b in zip(L.lstm_layer_pertarget(*args), out))
         ms = cuda_ms(lambda: L.lstm_layer_pertarget(*args), 3)
         plain_ms = cuda_ms(lambda: L.lstm_pertarget_plain(*args), 1)
@@ -4472,7 +4545,11 @@ def width_forward_rows(dev, smi: str) -> dict:
         require(err <= 5e-3 and stable, f"{name} at G {G}: {rows[name]}")
         require((form[0] == "wide") == (name == "lstm_layer_pertarget_wide"),
                 f"{name} ran form {form}")
-        del args, out
+        if name == "lstm_layer_pertarget_wide":
+            wide_ms, stream_ms, _ = wide_vs_streaming(name, L.lstm_layer_pertarget, args, ref,
+                                                      smi)
+            rows[name].update(ms_in_turns=wide_ms, streaming_ms=stream_ms)
+        del args, out, ref
     return rows
 
 
@@ -4523,11 +4600,19 @@ def width_train_rows(dev, smi: str) -> dict:
                          cuda_ms(lambda: L.lstm_merged_train_fwd_plain(*fwd_in), 1)),
                  "bwd": (cuda_ms(lambda: L.lstm_merged_bwd_step(*bwd_in), 3),
                          cuda_ms(lambda: L.lstm_merged_bwd_step_plain(*bwd_in), 1))}
+        yardstick = {}
+        if suffix == "wide":
+            ref = L.lstm_merged_train_fwd_plain(*fwd_in)
+            wide_ms, stream_ms, _ = wide_vs_streaming("lstm_merged_train_fwd_wide",
+                                                      L.lstm_merged_train_fwd, fwd_in, ref, smi)
+            yardstick = {"ms_in_turns": wide_ms, "streaming_ms": stream_ms}
+            del ref
         for key, name, form, err in (("fwd", "lstm_merged_train_fwd", f_form, ferr),
                                      ("bwd", "lstm_merged_bwd_step", b_form, babs)):
             rows[f"{name}_{suffix}"] = {"G": G, "form": form, "max_abs_err": err,
                                         "ms": times[key][0], "plain_ms": times[key][1],
-                                        "bound": bounds[key], "rows_alone_bit_equal": alone}
+                                        "bound": bounds[key], "rows_alone_bit_equal": alone,
+                                        **(yardstick if key == "fwd" else {})}
         print(f"K4/K5 {suffix} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): forward max|err| "
               f"{ferr:.3g} (hs/hT/cT K1's bits {k1_bits}), sweep max|err|/max|ref| {berr:.3g}; "
               f"forms {f_form} {b_form}; rows alone bit-equal {alone}; K4 {times['fwd'][0]:.4f} "
@@ -4789,8 +4874,8 @@ def main() -> int:
     ola_args, ola_err = check_ola(dev)
     istft8_args, istft_err = check_istft_ct(
         dev, [(ISTFT_ROWS, T_SEG), (3, 37), (5, 37), (1, 3)], seed=4)
-    istft_size_args, err = check_istft_sizes(dev, smi)
-    istft_err = max(istft_err, err)
+    istft_size_args, istft_size_errs = check_istft_sizes(dev, smi)
+    istft_err = max(istft_err, *(e for n, e in istft_size_errs.items() if n <= 16384))
     phase_done("2, 7 K1, K7, K8 kernels")
 
     with tempfile.TemporaryDirectory(prefix="umx_smoke_") as tmp:
@@ -5030,13 +5115,31 @@ def main() -> int:
                                              length=(T_n - 1) * hop_n), 5)
         bound = bound_ms(2 * ISTFT_ROWS * T_n * F_n * 4 + ISTFT_ROWS * ((T_n - 1) * hop_n + n) * 4,
                          ISTFT_ROWS * T_n * (2.5 * n * math.log2(n) + 2 * n), "f32")
+        where = istft_ct_cuda.istft_form(n)
         k8_sizes[n] = {"rows": ISTFT_ROWS, "frames": T_n, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1],
-                       "form": form}
+                       "form": form, "where": where}
+        line = ""
+        if where == "cluster":
+            # the device-memory form it replaces there, in turns with it
+            dev_ms, ms2 = paired_ms(lambda: istft_ct_cuda.istft_ct2(*a, _form="device"),
+                                    lambda: istft_ct_cuda.istft_ct2(*a), 5,
+                                    f"istft_ct2 at n_fft {n}, device-memory vs cluster form")
+            k8_sizes[n].update(device_ms=dev_ms, cluster_ms_in_turns=ms2,
+                               cluster=istft_ct_cuda.istft_cluster_size(n))
+            line = (f", device-memory form {dev_ms:.4f} ms (cluster form in turns with it "
+                    f"{ms2:.4f})")
+            if n == ISTFT_GATED_N_FFT:
+                require(ms2 < dev_ms, f"istft_ct2 at n_fft {n}: the cluster form ({ms2} ms) is "
+                        f"not faster than the device-memory form ({dev_ms} ms)")
         print(f"istft_ct2 at n_fft {n} ({ISTFT_ROWS} rows x {T_n} frames, a 60 s segment): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.istft {lib_ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms by {bound[1]}; form {form}  [{smi}]")
+              f"{bound[0]:.4f} ms by {bound[1]}{line}; form {where} {form}  [{smi}]")
+        if n == ISTFT_GATED_N_FFT:
+            require(ms < lib_ms, f"istft_ct2 at n_fft {n} ({ms} ms) is not faster than "
+                    f"torch.istft ({lib_ms} ms)")
         del spec
+    cluster_path = cluster_istft_path(dev, counters, smi)
     istft8 = (ISTFT_ROWS, T_SEG)
     if istft8 in istft_args and istft8 != k8_shape:
         k8 = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*istft_args[istft8]), 10),
@@ -5224,10 +5327,24 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                        "bound_by": r["bound"][1], "library_ms": None, "form": r["form"]})
+                        "bound_by": r["bound"][1], "library_ms": None, "form": r["form"],
+                        **{k: r[k] for k in ("streaming_ms", "ms_in_turns") if k in r}})
     k8_row = next(k for k in kernels if k["name"] == "istft_ct2")
     k8_row["n_fft"] = 4096
     k8_row["other_n_fft"] = k8_sizes
+    # K8's cluster form at n_fft 32768, with its launches on the ct2 round
+    # trip at that size and its device-memory form's time beside it
+    k8c = k8_sizes[ISTFT_GATED_N_FFT]
+    kernels.append({"name": "istft_ct2_cluster", "route": "cuda",
+                    "source": "umx_tpu_torch/csrc/istft_ct.cu",
+                    "replaces": "umx_tpu/ops/istft_ct.py:270",
+                    "launches": cluster_path["launches"],
+                    "max_abs_err": istft_size_errs[ISTFT_GATED_N_FFT], "ms": k8c["ms"],
+                    "plain_ms": k8c["plain_ms"], "bound_ms": k8c["bound_ms"],
+                    "bound_by": k8c["bound_by"], "library_ms": k8c["library_ms"],
+                    "device_ms": k8c["device_ms"], "n_fft": ISTFT_GATED_N_FFT,
+                    "cluster": k8c["cluster"], "form": k8c["form"],
+                    "round_trip_rel_err": cluster_path["round_trip_rel_err"]})
     k10_row = next(k for k in kernels if k["name"] == "lstm_scan")
     k10_row["streaming_ms"] = scan["shapes"]["G512_B1"]["forms"]["streaming"]["ms"]
     k10_row["by_shape_ms"] = {key: {f: v["ms"] for f, v in row["forms"].items()}

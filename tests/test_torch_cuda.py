@@ -101,10 +101,10 @@ def test_lstm_kernel_takes_b64_and_refuses_what_it_cannot_hold(dev):
 
 
 # (T, R, B, G): zero-unit padding (G 18, 20: the resident form at 24) and
-# the wide form (G 520, 640: 17 and 20 blocks a chain; R 8 at G 640 is 160
-# blocks, more than the card's SMs, so the chains go in groups)
+# the wide forms (G 520, 640: 13 and 16 blocks of 40 units a chain, R 8 in
+# one wave; G 1024: 32 blocks of 32 units, two chain groups of four)
 _WIDTHS = [(9, 8, 1, 18), (11, 8, 3, 20), (7, 2, 17, 18), (6, 2, 3, 520), (5, 8, 1, 640),
-           (4, 2, 17, 640)]
+           (4, 2, 17, 640), (3, 8, 2, 1024)]
 
 
 @pytest.mark.parametrize("T, R, B, G", _WIDTHS)
@@ -146,6 +146,66 @@ def test_merged_kernels_take_every_width(dev, T, R, B, G):
         assert all(torch.equal(a, sub(b)) for a, b in zip(one, bwd)), picks
     again = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
     assert all(torch.equal(a, b) for a, b in zip(again, k1))  # bit-stable
+
+
+@pytest.mark.parametrize("G", [520, 640, 1024, 1600])
+def test_wide_block_forms_hold_w_hh_on_the_chip(dev, G):
+    """The wide K1 and K4 (G above 512) in the block form
+    ``merged_wide_plan`` picks from the card's figures: its shared memory
+    as the kernel reports it, against plain (5e-3) and against the streaming
+    yardstick run by name (5e-3: both bf16(h) x bf16(W_hh) summed in f32, in
+    other orders), K4's hs/hT/cT the same bits, rows bit-equal alone, every
+    row group and chain group of the plan."""
+    T, R, B = 6, 8, 17
+    xp, whh, h0, c0 = _lstm_inputs(dev, T, R, B, G, seed=G)
+    plan = lstm_cuda.merged_wide_plan(G, R, *lstm_cuda.device_limits(dev.index))
+    assert plan is not None and plan.kreg + plan.ksmem == -(-G // 16)
+    blocks, smem = lstm_cuda.merged_layout(dev.index, G, False, plan.warps, plan.rows)
+    assert smem == plan.smem and blocks >= plan.blocks_per_chain * plan.chains_per_group
+    k1 = lstm_cuda.lstm_merged(xp, whh, h0, c0, B)
+    torch.cuda.synchronize()
+    form = lstm_cuda.lstm_merged.form
+    assert form[0] == "wide" and form[1] == plan.blocks_per_chain and form[5] == plan.units
+    assert form[4] == len(lstm_cuda.resident_row_groups(B, plan.rows))
+    fwd = lstm_cuda.lstm_merged_train_fwd(xp, whh, h0, c0, B)
+    assert lstm_cuda.lstm_merged_train_fwd.form[0] == "wide"
+    assert all(torch.equal(a, b) for a, b in zip(fwd[:3], k1))
+    for name, k, p in zip(("hs", "hT", "cT", "gates", "cs"), fwd,
+                          lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)):
+        assert (k - p).abs().max().item() <= 5e-3, name
+    streaming = lstm_cuda.lstm_merged(xp, whh, h0, c0, B, _form="wide_streaming")
+    assert lstm_cuda.lstm_merged.form[0] == "wide_streaming"
+    for k, y in zip(k1, streaming):
+        assert (k - y).abs().max().item() <= 5e-3
+    for picks in ([0], [B - 1], [1, 8, 9, 16]):
+        rows = torch.tensor([r * B + b for r in range(R) for b in picks], device=dev)
+
+        def sub(x):
+            return (x[:, rows] if x.dim() == 3 else x[rows]).contiguous()
+
+        one = lstm_cuda.lstm_merged(sub(xp), whh, sub(h0), sub(c0), len(picks))
+        assert all(torch.equal(a, sub(b)) for a, b in zip(one, k1)), picks
+    assert all(torch.equal(a, b) for a, b in zip(lstm_cuda.lstm_merged(xp, whh, h0, c0, B), k1))
+
+
+def test_wide_forms_are_chosen_from_the_width(dev):
+    """Above the widest G a block form holds a chain of, the wide K1
+    streams W_hh, as the planner says; a wide form by name is refused at a
+    width that has none, and so is a form the wrapper does not know."""
+    limits = lstm_cuda.device_limits(dev.index)
+    assert lstm_cuda.merged_wide_plan(lstm_cuda.MERGED_WIDE_G_MAX, 1, *limits) is not None
+    G = lstm_cuda.MERGED_WIDE_G_MAX + 8
+    assert lstm_cuda.merged_wide_plan(G, 1, *limits) is None
+    xp, whh, h0, c0 = _lstm_inputs(dev, 2, 1, 1, G, seed=7)
+    out = lstm_cuda.lstm_merged(xp, whh, h0, c0, 1)
+    assert lstm_cuda.lstm_merged.form[0] == "wide_streaming"
+    for k, p in zip(out, lstm_cuda.lstm_merged_plain(xp, whh, h0, c0, 1)):
+        assert (k - p).abs().max().item() <= 5e-3
+    with pytest.raises(RuntimeError, match="no block form"):
+        lstm_cuda.lstm_merged(xp, whh, h0, c0, 1, _form="wide")
+    small = _lstm_inputs(dev, 2, 1, 1, 512, seed=7)
+    with pytest.raises(ValueError, match="form must be"):
+        lstm_cuda.lstm_merged(*small, 1, _form="wide")
 
 
 def test_train_kernels_take_b96(dev):
@@ -577,25 +637,40 @@ def test_istft_ct_kernel_at_every_n_fft(dev, n_fft, rows, T):
 def test_istft_ct_kernel_block_fits_at_every_n_fft(dev):
     """What K8 reports of its blocks at every n_fft = 1024 k up to 16384:
     the frame and the ring fit a block's shared memory, at least one block
-    an SM; above, the device-memory form: one block (and scratch slot) an
-    SM, no dynamic shared memory."""
+    an SM; above, the cluster form up to 232448: 8 n_fft / C bytes a block
+    of its clusters of C, which the card holds at once at least a cluster
+    per C SMs' GPC share; and the device-memory form (above, and by name):
+    one block (and scratch slot) an SM, no dynamic shared memory."""
     from umx_tpu_torch.ops import istft_ct_cuda
 
     props = torch.cuda.get_device_properties(dev)
+    assert props.shared_memory_per_block_optin == istft_ct_cuda.BLOCK_SMEM_MAX
     for k in range(1, 17):
         blocks, smem = istft_ct_cuda.istft_block_layout(dev.index, 1024 * k)
         assert 0 < smem <= props.shared_memory_per_block_optin
         assert blocks >= props.multi_processor_count
-    for k in (17, 32):
-        assert istft_ct_cuda.istft_block_layout(dev.index, 1024 * k) == (
+    for k in (17, 32, 57, 64, 113, 128, 227):
+        n = 1024 * k
+        C = istft_ct_cuda.istft_cluster_size(n)
+        clusters, smem = istft_ct_cuda.istft_block_layout(dev.index, n)
+        assert istft_ct_cuda.istft_form(n) == "cluster" and smem == 8 * n // C
+        assert clusters * C >= props.multi_processor_count // 2, (k, C, clusters)
+        assert istft_ct_cuda.istft_block_layout(dev.index, n, "device") == (
             props.multi_processor_count, 0)
+    assert istft_ct_cuda.istft_form(1024 * 228) == "device"
+    assert istft_ct_cuda.istft_block_layout(dev.index, 1024 * 228) == (
+        props.multi_processor_count, 0)
 
 
-@pytest.mark.parametrize("n_fft, rows, T", [(32768, 3, 41), (17408, 2, 9), (32768, 1, 2)])
+@pytest.mark.parametrize("n_fft, rows, T", [
+    (32768, 3, 41), (17408, 2, 9), (32768, 1, 2), (59392, 2, 5), (131072, 1, 6), (233472, 1, 3)])
 def test_istft_ct_kernel_above_16384(dev, n_fft, rows, T):
-    """K8's device-memory form against its plain version and float64
-    (1e-5, as the other sizes), bit-stable, one launch; runs of a row
-    shorter than the ring and rows beyond the grid's slots walk the grid."""
+    """K8 above 16384 (the cluster form: C 2 at 17408 and 32768, C 4 at
+    59392 with an odd pass of 29, C 8 at 131072; the device-memory form at
+    233472) against its plain version and float64 (1e-5, as the other
+    sizes), bit-stable, one launch, and bit-equal to the device-memory form
+    run by name (the same arithmetic); runs of a row shorter than the ring
+    and rows beyond the grid's slots walk the grid."""
     from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
     from umx_tpu_torch.ops.stft import hann_window
 
@@ -615,6 +690,9 @@ def test_istft_ct_kernel_above_16384(dev, n_fft, rows, T):
     assert (out - plain).abs().max().item() <= 1e-5
     assert (out.cpu().double() - f64).abs().max().item() <= 1e-5
     assert torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n_fft, hop, w))
+    device = istft_ct_cuda.istft_ct2(re, im, n_fft, hop, w, _form="device")
+    assert istft_ct_cuda.istft_ct2.launches == before + 3
+    assert torch.equal(out, device)
 
 
 def test_istft_ct_kernel_allocates_no_frames_buffer(dev):
@@ -796,6 +874,14 @@ def test_pertarget_lstm_kernel_at_every_width(dev, G):
         assert k.shape == p.shape and (k - p).abs().max().item() <= 5e-3
     again = lstm_cuda.lstm_layer_pertarget(*args)
     assert all(torch.equal(a, b) for a, b in zip(again, out))
+    if G == 1024:
+        # its chains in the wide block form (two chain groups of four),
+        # against the streaming yardstick by name
+        assert form[3] == 2 and form[5] == 32
+        streaming = lstm_cuda.lstm_layer_pertarget(*args, _form="wide_streaming")
+        assert lstm_cuda.lstm_layer_pertarget.form[0] == "wide_streaming"
+        for k, y in zip(out, streaming):
+            assert (k - y).abs().max().item() <= 5e-3
 
 
 @pytest.mark.parametrize("T, F", [(19, 2049), (130, 2049), (67, 300)])

@@ -46,10 +46,11 @@ def test_plain_ct_matches_jax_fused_interpret(t, lead, windowed):
 
 
 @pytest.mark.parametrize("windowed", [True, False])
-@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 8192])
+@pytest.mark.parametrize("n_fft", [1024, 2048, 3072, 8192, 17408])
 def test_plain_ct_matches_jax_fused_interpret_at_every_n_fft(n_fft, windowed):
     """Every n_fft with 1024 | n_fft, as the JAX function takes it (3072:
-    no power of two), 5 frames."""
+    no power of two; 17408: above 16384, where the card runs the cluster
+    form), 5 frames."""
     n_bins = n_fft // 2 + 1
     re, im = _planes(5, n_bins=n_bins, seed=n_fft)
     win = j_stft.hann_window(n_fft) if windowed else None
@@ -344,15 +345,19 @@ def test_radix_plan(n_fft, plan):
 
 def test_kernel_takes_every_n_fft_up_to_16384_and_names_the_limit():
     """Up to 16384 a frame and its ring fit a block's shared memory; above,
-    the device-memory form runs the same radices; 1024 | n_fft is the
-    one limit, the JAX function's."""
+    up to 227 x 1024 they fit a thread-block cluster's, and the
+    device-memory form takes the rest; the forms above 16384 run the same
+    radices; 1024 | n_fft is the one limit, the JAX function's."""
     for k in range(1, 17):
         assert istft_ct_cuda.istft_radix_plan(1024 * k)
         assert istft_ct_cuda.istft_form(1024 * k) == "shared"
     for n, plan in ((32768, (8, 4, 8, 8, 8)), (17408, (17, 8, 8, 8)),
                     (24576, (3, 8, 8, 8, 8)), (65536, (8, 8, 8, 8, 8)), (49152, (3, 8, 2, 8, 8, 8))):
         assert istft_ct_cuda.istft_radix_plan(n) == plan
-        assert istft_ct_cuda.istft_form(n) == "device"
+        assert istft_ct_cuda.istft_form(n) == "cluster"
+    assert istft_ct_cuda.CLUSTER_N_FFT_MAX == 227 * 1024
+    assert istft_ct_cuda.istft_form(227 * 1024) == "cluster"
+    assert istft_ct_cuda.istft_form(228 * 1024) == "device"
     for bad in (3000, 512):
         with pytest.raises(ValueError, match="1024 k"):
             istft_ct_cuda.istft_radix_plan(bad)
@@ -416,3 +421,102 @@ def test_mixed_radix_mirror_is_the_windowed_inverse_real_dft(n_fft):
     got, owners = _mixed_radix_frame_mirror(re, im, window, n_fft)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
     assert (owners == 1).all()  # every sample of the frame has exactly one owner
+
+
+# --- the cluster form (16384 < n_fft <= 227 x 1024), its plan and layout ----
+# csrc/istft_ct.cu's istft_ct2_cluster_kernel: point k of a frame in block
+# k % C of the cluster at k // C, ring pair q in block q % C; a radix pass's
+# butterfly j in block j % C; 512 threads a block, 32 complex values staged
+# a thread in a pass at most.
+
+CL_THREADS, CL_STAGE = 512, 32
+
+
+def test_cluster_size_is_the_smallest_that_holds_a_frame_and_its_ring():
+    """At every n_fft = 1024 k above 16384: C = 2, 4 or 8, the smallest
+    whose slices (8 n_fft / C bytes) fit the 227 KiB a block may ask for;
+    the device-memory form above 227 x 1024; the form from n_fft alone."""
+    for k in range(17, 300):
+        n = 1024 * k
+        C = istft_ct_cuda.istft_cluster_size(n)
+        if k <= 227:
+            assert istft_ct_cuda.istft_form(n) == "cluster" and C in (2, 4, 8)
+            assert 8 * n // C <= istft_ct_cuda.BLOCK_SMEM_MAX
+            assert C == 2 or 8 * n // (C // 2) > istft_ct_cuda.BLOCK_SMEM_MAX
+            # the kernel's staging: each thread stages its share of every pass
+            assert (n // 2) // C <= CL_STAGE * CL_THREADS
+        else:
+            assert istft_ct_cuda.istft_form(n) == "device" and C == 0
+    assert [istft_ct_cuda.istft_cluster_size(1024 * k) for k in (17, 56, 57, 113, 114, 227)] == [
+        2, 2, 4, 4, 8, 8]
+
+
+@pytest.mark.parametrize("n_fft", [17408, 32768, 59392, 131072, 232448])
+def test_cluster_layout_keeps_most_accesses_in_the_block(n_fft):
+    """Every point and ring pair has one block; a radix pass's butterflies
+    cover the pass once, each reads its points in its own block and writes
+    to other blocks only while ns % C != 0; the odd first pass writes its
+    own block's points; a thread's ring pairs read their frame points in its
+    block; no thread stages more than the kernel's registers hold."""
+    C = istft_ct_cuda.istft_cluster_size(n_fft)
+    M, pairs = n_fft // 2, n_fft // 8
+    ML, PL = M // C, pairs // C
+    blocks = np.arange(C)[:, None]
+    points = (blocks + C * np.arange(ML)[None]).ravel()
+    assert sorted(points.tolist()) == list(range(M))
+    ns, remote_passes = 1, []
+    for i, R in enumerate(istft_ct_cuda.istft_radix_plan(n_fft)):
+        if R not in (2, 4, 8):
+            assert i == 0 and R % 2 == 1
+            # outputs o = c + C il: in the block that writes them
+            assert -(-ML // CL_THREADS) <= CL_STAGE
+            ns = R
+            continue
+        nb = M // R
+        assert nb % C == 0
+        nbl = nb // C
+        assert -(-nbl // CL_THREADS) <= CL_STAGE // R
+        j = (blocks + C * np.arange(nbl)[None])  # (C, nbl)
+        assert sorted(j.ravel().tolist()) == list(range(nb))
+        for q in range(R):
+            assert ((j + q * nb) % C == blocks).all()  # reads in the block
+        d = (j // ns) * ns * R + j % ns
+        writes = np.stack([d + q * ns for q in range(R)])
+        assert sorted(writes.ravel().tolist()) == list(range(M))
+        local = (writes % C == blocks[None]).all()
+        assert local == (ns % C == 0)
+        if not local:
+            remote_passes.append(i)
+        ns *= R
+    assert ns == M
+    # the last two radix-8 passes always stay in the block (ns >= 8 C there)
+    assert all(i < len(istft_ct_cuda.istft_radix_plan(n_fft)) - 2 for i in remote_passes)
+    q = blocks + C * np.arange(PL)[None]
+    assert sorted(q.ravel().tolist()) == list(range(pairs))
+    for p in range(4):
+        assert ((p * pairs + q) % C == blocks).all()
+    assert 8 * n_fft // C == 4 * 2 * ML + 8 * 4 * PL  # the shared memory of a block
+
+
+@pytest.mark.parametrize("n_fft", [17408, 32768, 59392])
+def test_cluster_pass_twiddles_are_the_tables_entries(n_fft):
+    """The cluster form reads its radix passes' twiddles from
+    ``pass_twiddles``: pass by pass (ns > 1), entry (q - 1, jm) of the
+    cosines and of the sines is the table's entry jm q n_fft / (ns R), the
+    value the device-memory form reads, so the two forms multiply by the
+    same float32 twiddles."""
+    table = istft_ct_cuda._table_np(n_fft)
+    ptw = istft_ct_cuda.pass_twiddles(n_fft)
+    off, ns = 0, 1
+    for R in istft_ct_cuda.istft_radix_plan(n_fft):
+        if ns > 1:
+            jm = np.arange(ns)
+            for q in range(1, R):
+                p = jm * q * (n_fft // (ns * R))
+                assert (p < n_fft).all()
+                np.testing.assert_array_equal(ptw[off + (q - 1) * ns + jm], table[0, p])
+                np.testing.assert_array_equal(ptw[off + (R - 1) * ns + (q - 1) * ns + jm],
+                                              table[1, p])
+            off += 2 * (R - 1) * ns
+        ns *= R
+    assert off == ptw.size

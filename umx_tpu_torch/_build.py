@@ -37,13 +37,13 @@ NVCC_FLAGS = (
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # entry point -> argtypes (see the extern "C" functions in csrc/)
 _SIGNATURES = {
-    # xp, whh, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, tag0, stream
-    "umx_lstm_merged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U, _P],
-    # resid (0: K1, 1: K4), blocks (out)
-    "umx_lstm_merged_capacity": [_I, _P],
-    # xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, tag0, stream
-    "umx_lstm_merged_train": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _U, _P],
+    # xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, warps, r0, nr, b0, nb, tag0, stream
+    "umx_lstm_merged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _U, _P],
+    # G, resid, warps, rows, blocks (out), smem (out)
+    "umx_lstm_merged_layout": [_I, _I, _I, _I, _P, _P],
+    # sms, smem_per_block, regs_per_sm (out)
+    "umx_device_limits": [_P, _P, _P],
     # G, blocks (out)
     "umx_lstm_bwd_capacity": [_I, _P],
     # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, dgx, flags, T, R, B, G, r0, nr, b0, nb, tag0,
@@ -88,11 +88,16 @@ _SIGNATURES = {
     # re, im, table, window, out, scratch, rows, T, F, N, hop, runs_per_row, hops_per_run,
     # grid, stream
     "umx_istft_ct2_big": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # n_fft, cluster, clusters (out), smem (out)
+    "umx_istft_ct2_cluster_capacity": [_I, _I, _P, _P],
+    # re, im, table, ptw, window, out, rows, T, F, N, hop, cluster, runs_per_row, hops_per_run,
+    # stream
+    "umx_istft_ct2_cluster": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # G, resid, rows, blocks, smem, w_regs (out)
-    "umx_lstm_merged_wide_capacity": [_I, _I, _P, _P, _P, _P],
+    "umx_lstm_merged_streaming_capacity": [_I, _I, _P, _P, _P, _P],
     # xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0, stream
-    "umx_lstm_merged_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _U, _P],
+    "umx_lstm_merged_streaming": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _U, _P],
     # G, rows, blocks, smem, w_regs (out)
     "umx_lstm_bwd_wide_capacity": [_I, _P, _P, _P, _P],
     # gates, cs, c0, wt, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,

@@ -9,8 +9,9 @@
 // drop out), and overlap-adds the frames at hop N/4 into the row's signal.
 // Takes every N = 1024 K, as the JAX function takes every N with 1024 | N:
 // N = 4096, UMX's transform, in the hand-scheduled form below; every other
-// N up to 16384 in the mixed-radix form after it; N above 16384 in the
-// device-memory form at the end of this file.
+// N up to 16384 in the mixed-radix form after it; N above 16384 up to
+// 232448 (K 227) in the cluster form, a frame and its ring in the shared
+// memory of a thread-block cluster; above, in the device-memory form.
 //
 // What bounds it on the H100: 16.4 KB of spectrum read and 4 KB of signal
 // written per frame put the device-memory bound at 0.76 ms for 48 rows of
@@ -58,7 +59,12 @@
 // warp-shuffle transforms into a frames buffer and a second launch for the
 // overlap-add), 0.26 ms for 8 rows (bound 0.13 ms; torch.istft 1.66 ms).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -517,27 +523,134 @@ istft_ct2_mr_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
-// ---- the device-memory form: n_fft = 1024 K above 16384 -----------------
+// ---- above 16384: the cluster form, and the device-memory form beyond it --
 //
-// Above 16384 a frame (N/2 complex) and its ring (N floats) no longer fit a
-// block's shared memory (32768 would need 256 KiB).  This form computes
-// what the mixed-radix form computes, with the same unpacking, Stockham
-// passes of the same indexing, the same window and the same ring, but keeps
-// them in device memory: each block owns a scratch slot of 3 N floats (two
-// buffers of N/2 complex, ping-ponged between the passes, and the ring) and
-// walks the runs of the plan grid-stride, so the scratch is the grid's (one
-// block an SM: 132 slots, 50 MB at N = 32768, about what the L2 holds), not
-// one slot a run.  A block's writes reach its own threads at its barriers.
-// The passes (ops/istft_ct_cuda.py:istft_radix_plan): the odd part of K as
-// a direct sum, the power-of-two part of K in radix 8 (then 4 or 2), then
-// three radix-8 passes; every pass reads each value once, so the passes'
-// loads have no long chains through the L2 (a direct K-point pass read each
-// input K times, one after another: 5.90 ms at N 32768, 8 rows of 60 s, on
-// an H100 80GB HBM3 at 700 W).  What bounds it: the passes' round trips
-// through L1 and L2, not the 16 B a bin read and 4 B a sample written; no
-// UMX model runs it (UMX's n_fft is 4096).
+// Above 16384 a frame (N/2 complex) and its ring (N floats), 8 N bytes,
+// no longer fit one block's shared memory (32768 would need 256 KiB).
+// Both forms compute what the mixed-radix form computes, with the same
+// unpacking, Stockham passes of the same indexing, the same window and
+// the same ring, through the helpers below, which both call: so they give
+// the same bits.  The passes (ops/istft_ct_cuda.py:istft_radix_plan): the
+// odd part of K as a direct sum, the power-of-two part of K in radix 8
+// (then 4 or 2), then three radix-8 passes; every pass reads each value
+// once (a direct K-point pass read each input K times, one after another:
+// 5.90 ms at N 32768, 8 rows of 60 s, on an H100 80GB HBM3 at 700 W).
+//
+// The cluster form (N up to 232448 = 227 x 1024): a thread-block cluster
+// of C = 2, 4 or 8 blocks (the smallest whose slices fit, 8 N / C bytes a
+// block: ops/istft_ct_cuda.py:istft_cluster_size) holds a frame and its
+// ring in the blocks' shared memory, which Hopper's distributed shared
+// memory lets every block of the cluster address.  Point k of the frame
+// lives in block k % C, ring pair q in block q % C (cyclic, so that the
+// slices are even and most accesses local): a radix pass's butterfly j
+// runs in block j % C and reads its R points there (the distance between
+// them, M / R, is a multiple of C); it writes to other blocks only while
+// ns % C != 0 (the first pass, or the one after an odd pass).  Each pass
+// stages its butterflies in registers between two barriers (8, 16 or 32
+// complex values a thread, a template sized by M / C: at 32768, 16, with
+// 168 bytes a thread spilled where 32 spilled 704), so one buffer serves
+// every pass, as in the mixed-radix form; a barrier is the cluster's
+// (cluster.sync()) where another block's data crosses it, else the block's
+// own.  The direct odd
+// pass is the first: a block sums the points of its own butterflies (the
+// inputs of butterfly j are all in block j % C), stages the outputs and
+// writes them to their blocks.  The next frame's bins are prefetched into
+// L2 while a frame is transformed.  The ring pairs a thread owns read their frame points in
+// the thread's own block, so the overlap-add needs no atomics and keeps
+// overlap_add's order.  One cluster a run (istft_run_plan over the
+// clusters the card holds at once).  On an H100 80GB HBM3 at 700 W, 8 rows
+// of 60 s: 1.13 ms at N 32768 (clusters of 2; the device-memory form 2.45,
+// torch.istft 1.85), 2.42 at 65536 (of 4; 3.24, 1.90), 4.63 at 131072 (of
+// 8; 5.36, 2.24).  Laying out each pass's twiddles in the order its
+// butterflies read them took 32768 from 1.69 to 1.15 ms: in the table's
+// order a lane reads its own cache line at the middle passes.
+//
+// The device-memory form (N above 232448): each block owns a scratch slot
+// of 3 N floats in device memory (two buffers of N/2 complex, ping-ponged
+// between the passes, and the ring) and walks the runs of the plan
+// grid-stride, so the scratch is the grid's (one block an SM: 132 slots,
+// 50 MB at N = 32768), not one slot a run.  It took 2.46 ms at N 32768 (8
+// rows of 60 s; torch.istft 1.78): the passes' round trips through L1 and
+// L2, not the 16 B a bin read and 4 B a sample written, bound it.  No UMX
+// model runs either form (UMX's n_fft is 4096).
 
 constexpr int BG_THREADS = 512;
+constexpr int CL_THREADS = 512;
+constexpr int CL_MAX = 8;  // a portable cluster
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" : : "l"(p));
+}
+
+// Z[k] of the Hermitian form from the bins of a frame (xr, xi: F = M + 1)
+__device__ __forceinline__ void unpack_point(const float* xr, const float* xi,
+                                             const float* table, int N, int M, int k, float& zr,
+                                             float& zi) {
+  const float vr = xr[k], cr = xr[M - k];
+  float vi = xi[k], ci = xi[M - k];
+  if (k == 0) vi = ci = 0.0f;  // DC's and Nyquist's imaginary parts drop out
+  const float cs = __ldg(table + k), sn = __ldg(table + N + k);
+  const float dr = vr - cr, di = vi + ci;
+  zr = (vr + cr) - (dr * sn + di * cs);
+  zi = (vi - ci) + (dr * cs - di * sn);
+}
+
+// Output n of butterfly j of the first pass of an odd radix m (no points
+// done: no twiddles), a direct sum as dft_small's with (n q) mod m stepped
+// by n; at(k) gives point k of the frame as a float2.
+template <typename At>
+__device__ __forceinline__ float2 odd_point(At at, const float* table, int N, int nb, int m,
+                                            int j, int n) {
+  const int st = N / m;
+  const float2 x0 = at(j);
+  float sum_r = x0.x, sum_i = x0.y;
+  int idx = 0;
+  for (int q = 1; q < m; ++q) {
+    idx += n;
+    if (idx >= m) idx -= m;
+    const float wc = __ldg(table + idx * st), ws = __ldg(table + N + idx * st);
+    const float2 v = at(j + q * nb);
+    sum_r += v.x * wc - v.y * ws;
+    sum_i += v.x * ws + v.y * wc;
+  }
+  return make_float2(sum_r, sum_i);
+}
+
+// Butterfly j of a Stockham pass of radix R with ns points done, on its R
+// points in registers: the twiddles (point q times tw(q) = (cos, sin) of 2 pi
+// (j % ns) q / (ns R), a table entry), then the R-point transform; its
+// outputs go to (j / ns) ns R + j % ns + q ns.
+template <int R, typename Tw>
+__device__ __forceinline__ void butterfly(float (&vr)[R], float (&vi)[R], const float* table,
+                                          int N, int ns, Tw tw) {
+  if (ns > 1) {
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+      const float2 w = tw(q);
+      cmul(vr[q], vi[q], w.x, w.y);
+    }
+  }
+  dft_small<R>(vr, vi, table, N);
+}
+
+// Piece p, pair q of a frame (v = z[n] of its windowed sample pair n = p
+// PAIRS + q, the window's n-th pair w with 1/N folded in) into the ring
+// entry acc of hop t + p: piece 0 assigns, the later pieces add.
+__device__ __forceinline__ void ring_piece(float2* acc, float2 z, float2 w, int p) {
+  const float2 v = make_float2(z.x * w.x, z.y * w.y);
+  if (p == 0) {
+    *acc = v;
+  } else {
+    const float2 old = *acc;
+    *acc = make_float2(old.x + v.x, old.y + v.y);
+  }
+}
+
+__device__ __forceinline__ float2 window_pair(const float* window, int n, float inv_n) {
+  return window != nullptr
+             ? make_float2(__ldg(window + 2 * n) * inv_n, __ldg(window + 2 * n + 1) * inv_n)
+             : make_float2(inv_n, inv_n);
+}
 
 // One Stockham pass of radix R (2, 4 or 8) over M points with ns points
 // done, from (sr, si) to (dr, di), natural order in and out
@@ -546,7 +659,6 @@ template <int R>
 __device__ __forceinline__ void big_pass(const float* sr, const float* si, float* dr, float* di,
                                          const float* table, int N, int M, int ns) {
   const int nb = M / R;
-  const int tw = N / (ns * R);
   for (int j = threadIdx.x; j < nb; j += BG_THREADS) {
     float vr[R], vi[R];
 #pragma unroll
@@ -554,15 +666,11 @@ __device__ __forceinline__ void big_pass(const float* sr, const float* si, float
       vr[q] = sr[j + q * nb];
       vi[q] = si[j + q * nb];
     }
-    const int jm = j % ns;
-    if (ns > 1) {
-#pragma unroll
-      for (int q = 1; q < R; ++q) {
-        const int p = jm * q * tw;  // < N
-        cmul(vr[q], vi[q], __ldg(table + p), __ldg(table + N + p));
-      }
-    }
-    dft_small<R>(vr, vi, table, N);
+    const int jm = j % ns, tw = N / (ns * R);
+    butterfly<R>(vr, vi, table, N, ns, [&](int q) {
+      const int p = jm * q * tw;  // < N
+      return make_float2(__ldg(table + p), __ldg(table + N + p));
+    });
     const int d = (j / ns) * ns * R + jm;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
@@ -572,27 +680,17 @@ __device__ __forceinline__ void big_pass(const float* sr, const float* si, float
   }
 }
 
-// The first pass (no points done: no twiddles) of an odd radix m, a direct
-// sum as dft_small's, (n q) mod m stepped by n.
+// The first pass of an odd radix m, from (sr, si) to (dr, di).
 __device__ __forceinline__ void big_pass_odd(const float* sr, const float* si, float* dr,
                                              float* di, const float* table, int N, int M,
                                              int m) {
   const int nb = M / m;
-  const int st = N / m;
+  auto at = [&](int k) { return make_float2(sr[k], si[k]); };
   for (int j = threadIdx.x; j < nb; j += BG_THREADS) {
     for (int n = 0; n < m; ++n) {
-      float sum_r = sr[j], sum_i = si[j];
-      int idx = 0;
-      for (int q = 1; q < m; ++q) {
-        idx += n;
-        if (idx >= m) idx -= m;
-        const float wc = __ldg(table + idx * st), ws = __ldg(table + N + idx * st);
-        const float vr = sr[j + q * nb], vi = si[j + q * nb];
-        sum_r += vr * wc - vi * ws;
-        sum_i += vr * ws + vi * wc;
-      }
-      dr[j * m + n] = sum_r;
-      di[j * m + n] = sum_i;
+      const float2 y = odd_point(at, table, N, nb, m, j, n);
+      dr[j * m + n] = y.x;
+      di[j * m + n] = y.y;
     }
   }
 }
@@ -636,15 +734,7 @@ istft_ct2_big_kernel(const float* __restrict__ re, const float* __restrict__ im,
       const float* xr = re + ((size_t)row * T + t) * F;
       const float* xi = im + ((size_t)row * T + t) * F;
       __syncthreads();  // the previous frame's reads of both buffers are done
-      for (int k = tid; k < M; k += BG_THREADS) {
-        const float vr = xr[k], cr = xr[M - k];
-        float vi = xi[k], ci = xi[M - k];
-        if (k == 0) vi = ci = 0.0f;  // DC's and Nyquist's imaginary parts drop out
-        const float cs = __ldg(table + k), sn = __ldg(table + N + k);
-        const float dr = vr - cr, di = vi + ci;
-        ar[k] = (vr + cr) - (dr * sn + di * cs);
-        ai[k] = (vi - ci) + (dr * cs - di * sn);
-      }
+      for (int k = tid; k < M; k += BG_THREADS) unpack_point(xr, xi, table, N, M, k, ar[k], ai[k]);
       __syncthreads();
       // the frame in (fr, fi), the other buffer (gr, gi), swapped after each pass
       float *fr = ar, *fi = ai, *gr = br, *gi = bi;
@@ -685,24 +775,13 @@ istft_ct2_big_kernel(const float* __restrict__ re, const float* __restrict__ im,
         swap();
       }
 
-      // pair n = p PAIRS + q of the frame is piece p, pair q of hop t + p:
-      // piece 0 assigns, the later pieces add
+      // pair n = p PAIRS + q of the frame is piece p, pair q of hop t + p
       for (int q = tid; q < PAIRS; q += BG_THREADS) {
 #pragma unroll
         for (int p = 0; p < RING; ++p) {
           const int n = p * PAIRS + q;
-          const float2 w = window != nullptr
-                               ? make_float2(__ldg(window + 2 * n) * inv_n,
-                                             __ldg(window + 2 * n + 1) * inv_n)
-                               : make_float2(inv_n, inv_n);
-          const float2 v = make_float2(fr[n] * w.x, fi[n] * w.y);
-          float2* acc = ring + ((t + p) & (RING - 1)) * PAIRS + q;
-          if (p == 0) {
-            *acc = v;
-          } else {
-            const float2 old = *acc;
-            *acc = make_float2(old.x + v.x, old.y + v.y);
-          }
+          ring_piece(ring + ((t + p) & (RING - 1)) * PAIRS + q, make_float2(fr[n], fi[n]),
+                     window_pair(window, n, inv_n), p);
         }
       }
       const int h_first = t + RING - 1;
@@ -716,6 +795,263 @@ istft_ct2_big_kernel(const float* __restrict__ re, const float* __restrict__ im,
       }
     }
   }
+}
+
+// The barrier before a cluster pass's reads or writes: the cluster's where
+// another block's data crosses it, else the block's.
+__device__ __forceinline__ void cl_barrier(cg::cluster_group& cluster, bool across) {
+  if (across) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// j / ns and j % ns, by shifts where ns is a power of two (ls = log2 ns;
+// -1 otherwise)
+__device__ __forceinline__ int div_ns(int j, int ns, int ls) { return ls >= 0 ? j >> ls : j / ns; }
+__device__ __forceinline__ int mod_ns(int j, int ns, int ls) {
+  return ls >= 0 ? j & (ns - 1) : j % ns;
+}
+
+// A radix-R Stockham pass of the cluster form, in place on the cluster's
+// frame (point k in block k % C at k / C): butterfly j = c + C jl runs in
+// block c, its R points there; writes cross blocks where ns % C != 0.  A
+// thread stages S / R butterflies (S complex values) in registers.  ptw:
+// the pass's twiddles where ns > 1, the cosines (R - 1, ns) then the sines,
+// entry (q - 1, j % ns) the table's entry (j % ns) q N / (ns R): the same
+// values, read by neighbouring lanes at neighbouring addresses.  `across`:
+// whether the previous phase wrote to other blocks; on return, whether
+// this one did.
+template <int R, int S>
+__device__ __forceinline__ void cluster_pass(cg::cluster_group& cluster, float* br, float* bi,
+                                             const float* table, const float* ptw, int N, int M,
+                                             int ns, int c, int lc, bool& across) {
+  constexpr int BPT = S / R;  // butterflies a thread stages
+  const int C = 1 << lc;
+  const int nbl = (M / R) >> lc;  // butterflies a block runs
+  const int ls = (ns & (ns - 1)) == 0 ? __ffs(ns) - 1 : -1;
+  const bool remote = (ns & (C - 1)) != 0;
+  cl_barrier(cluster, across);
+  float vr[BPT][R], vi[BPT][R];
+#pragma unroll
+  for (int e = 0; e < BPT; ++e) {
+    const int jl = threadIdx.x + e * CL_THREADS;
+    if (jl < nbl) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        vr[e][q] = br[jl + q * nbl];
+        vi[e][q] = bi[jl + q * nbl];
+      }
+      const int jm = mod_ns(c + (jl << lc), ns, ls);
+      butterfly<R>(vr[e], vi[e], table, N, ns, [&](int q) {
+        const int i = (q - 1) * ns + jm;
+        return make_float2(__ldg(ptw + i), __ldg(ptw + (R - 1) * ns + i));
+      });
+    }
+  }
+  cl_barrier(cluster, remote);
+#pragma unroll
+  for (int e = 0; e < BPT; ++e) {
+    const int jl = threadIdx.x + e * CL_THREADS;
+    if (jl < nbl) {
+      const int j = c + (jl << lc);
+      const int d = div_ns(j, ns, ls) * ns * R + mod_ns(j, ns, ls);
+      if (!remote) {
+        // d + q ns = c (mod C): this block's, at (d + q ns) / C
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          br[(d >> lc) + q * (ns >> lc)] = vr[e][q];
+          bi[(d >> lc) + q * (ns >> lc)] = vi[e][q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          const int k = d + q * ns;
+          const int rank = k & (C - 1);
+          float* dr = rank == c ? br : cluster.map_shared_rank(br, rank);
+          float* di = rank == c ? bi : cluster.map_shared_rank(bi, rank);
+          dr[k >> lc] = vr[e][q];
+          di[k >> lc] = vi[e][q];
+        }
+      }
+    }
+  }
+  across = remote;
+}
+
+// As istft_ct2_big_kernel, with a frame and its ring in the shared memory
+// of a cluster of C blocks (the launch's cluster dimension).  Dynamic
+// shared memory 8 N / C bytes a block: its points (re, im: 2 x M / C
+// floats) and its ring pairs (4 hops of N / 8 / C float2).  Cluster i
+// takes run i of the rows x runs_per_row runs.  S: complex values a
+// thread stages in a pass, at least M / C / CL_THREADS.  ptw: the radix
+// passes' twiddles (cluster_pass), one pass after another in the plan's
+// order, those with ns > 1.
+template <int S>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+istft_ct2_cluster_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                         const float* __restrict__ table, const float* __restrict__ ptw,
+                         const float* __restrict__ window, float* __restrict__ out, int T, int N,
+                         int runs_per_row, int hops_per_run) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.dim_blocks().x;
+  const int c = (int)cluster.block_rank();
+  const int lc = __ffs(C) - 1;
+  const int K = N / 1024, M = N / 2, HP = N / 4, F = M + 1, PAIRS = HP / 2;
+  const int ML = M >> lc, PL = PAIRS >> lc;  // points and ring pairs a block holds
+  extern __shared__ __align__(16) float cl_sm[];
+  float* br = cl_sm;  // point c + C i at i
+  float* bi = br + ML;
+  float2* ring = reinterpret_cast<float2*>(bi + ML);  // (RING, PL): pair c + C i at i
+  const int tid = threadIdx.x;
+  const int run = blockIdx.x / C;
+  const int row = run / runs_per_row;
+  const int hops = T + RING - 1;
+  const int a = (run % runs_per_row) * hops_per_run;
+  const int b = min(a + hops_per_run, hops);
+  // a whole cluster shares its run: all its blocks leave here or none
+  if (a >= b) return;
+  const int t_hi = min(b - 1, T - 1);
+  const int t_lo = max(a - (RING - 1), 0);
+  float* out_r = out + (size_t)row * hops * HP;
+  const float inv_n = 1.0f / (float)N;
+  int k_odd = K;
+  while (k_odd % 2 == 0) k_odd /= 2;
+  const int k_two = K / k_odd;
+  for (int ql = tid; ql < PL; ql += CL_THREADS) {
+#pragma unroll
+    for (int p = 0; p < RING; ++p) ring[p * PL + ql] = make_float2(0.0f, 0.0f);
+  }
+
+  for (int t = t_hi; t >= t_lo; --t) {
+    const float* xr = re + ((size_t)row * T + t) * F;
+    const float* xi = im + ((size_t)row * T + t) * F;
+    // the previous frame's last reads were of this block's own points
+    __syncthreads();
+    // the next frame's bins into L2 while this one is transformed: a line
+    // of each plane a thread (the cluster's threads cover F floats in lines of 32)
+    if (t > t_lo) {
+      const int line = (c * CL_THREADS + tid) * 32;
+      if (line < F) {
+        prefetch_l2(xr - F + line);
+        prefetch_l2(xi - F + line);
+      }
+    }
+#pragma unroll 4
+    for (int il = tid; il < ML; il += CL_THREADS)
+      unpack_point(xr, xi, table, N, M, c + (il << lc), br[il], bi[il]);
+    bool across = false;
+    int ns = 1;
+    if (k_odd > 1) {
+      // the odd first pass: output n of butterfly j sums the points j + q
+      // nb, all in block j % C (nb % C == 0), so a block computes the
+      // outputs of its butterflies from its own points (at most S a
+      // thread: nb / C butterflies of k_odd outputs are M / C), stages
+      // them, and writes them, to any block, after the cluster's barrier.
+      // Output-major (o = n nbl + j / C): a warp's lanes take neighbouring
+      // butterflies at one n, so they read one twiddle and neighbouring
+      // points, as the device-memory form's loop over j does.
+      const int nb = M / k_odd, nbl = nb >> lc;
+      auto at = [&](int k) { return make_float2(br[k >> lc], bi[k >> lc]); };
+      __syncthreads();
+      float2 y[S];
+#pragma unroll
+      for (int e = 0; e < S; ++e) {
+        const int o = tid + e * CL_THREADS;
+        if (o < nbl * k_odd)
+          y[e] = odd_point(at, table, N, nb, k_odd, c + ((o % nbl) << lc), o / nbl);
+      }
+      cluster.sync();
+#pragma unroll
+      for (int e = 0; e < S; ++e) {
+        const int o = tid + e * CL_THREADS;
+        if (o < nbl * k_odd) {
+          const int k = (c + ((o % nbl) << lc)) * k_odd + o / nbl;
+          const int rank = k & (C - 1);
+          float* dr = rank == c ? br : cluster.map_shared_rank(br, rank);
+          float* di = rank == c ? bi : cluster.map_shared_rank(bi, rank);
+          dr[k >> lc] = y[e].x;
+          di[k >> lc] = y[e].y;
+        }
+      }
+      across = true;
+      ns = k_odd;
+    }
+    const float* tw = ptw;  // this pass's twiddles
+    auto pass = [&](auto radix) {
+      constexpr int R = decltype(radix)::value;
+      cluster_pass<R, S>(cluster, br, bi, table, tw, N, M, ns, c, lc, across);
+      if (ns > 1) tw += 2 * (R - 1) * ns;
+      ns *= R;
+    };
+    for (int r = k_two; r > 1;) {
+      if (r >= 8) {
+        pass(std::integral_constant<int, 8>());
+        r /= 8;
+      } else if (r == 4) {
+        pass(std::integral_constant<int, 4>());
+        r = 1;
+      } else {
+        pass(std::integral_constant<int, 2>());
+        r = 1;
+      }
+    }
+    for (int k = 0; k < 3; ++k) pass(std::integral_constant<int, 8>());
+    cl_barrier(cluster, across);
+
+    // pair q = c + C ql: its points p PAIRS + q are this block's (PAIRS % C == 0)
+    for (int ql = tid; ql < PL; ql += CL_THREADS) {
+#pragma unroll
+      for (int p = 0; p < RING; ++p) {
+        const int n = p * PAIRS + c + (ql << lc);
+        const int nl = p * PL + ql;
+        ring_piece(ring + ((t + p) & (RING - 1)) * PL + ql, make_float2(br[nl], bi[nl]),
+                   window_pair(window, n, inv_n), p);
+      }
+    }
+    const int h_first = t + RING - 1;
+    const int h_last = t == 0 ? 0 : h_first;
+    for (int h = h_first; h >= h_last; --h) {
+      if (h >= a && h < b) {
+        for (int ql = tid; ql < PL; ql += CL_THREADS)
+          *reinterpret_cast<float2*>(out_r + (size_t)h * HP + 2 * (c + (ql << lc))) =
+              ring[(h & (RING - 1)) * PL + ql];
+      }
+    }
+  }
+  // no block leaves while another may still write to its shared memory
+  cluster.sync();
+}
+
+// The cluster form's kernel for N with a cluster of C blocks, its staging
+// the least of 8, 16 or 32 complex values a thread that holds a block's
+// M / C points, with its dynamic shared memory (8 N / C bytes) allowed, and
+// the launch's configuration; cudaErrorInvalidValue for a size or cluster
+// it does not take.
+cudaError_t cluster_setup(int N, int C, const void** fn, cudaLaunchConfig_t* cfg,
+                          cudaLaunchAttribute* attr) {
+  if (N <= 1024 * MR_K_MAX || N % 1024 != 0 || (C != 2 && C != 4 && C != CL_MAX))
+    return cudaErrorInvalidValue;
+  const int per_thread = (N / 2 / C + CL_THREADS - 1) / CL_THREADS;
+  *fn = per_thread <= 8    ? (const void*)istft_ct2_cluster_kernel<8>
+        : per_thread <= 16 ? (const void*)istft_ct2_cluster_kernel<16>
+        : per_thread <= 32 ? (const void*)istft_ct2_cluster_kernel<32>
+                           : nullptr;
+  if (*fn == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)8 * N / C;
+  cudaError_t e = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->blockDim = dim3(CL_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 // The kernel for n_fft = 1024 k and its dynamic shared memory; nullptr
@@ -810,7 +1146,51 @@ extern "C" int umx_istft_ct2(const float* re, const float* im, const float* tabl
   return (int)cudaGetLastError();
 }
 
-// The device-memory form, N = 1024 k above 16384: the arguments of
+// The cluster form, 16384 < N <= 232448: clusters of C blocks (2, 4 or 8)
+// the current device holds at once, and the dynamic shared memory a block
+// asks for (8 N / C bytes).  Returns the first CUDA error.
+extern "C" int umx_istft_ct2_cluster_capacity(int n_fft, int cluster, int* clusters,
+                                              int* smem_bytes) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* fn = nullptr;
+  *clusters = 0;
+  *smem_bytes = 0;
+  cudaError_t e = cluster_setup(n_fft, cluster, &fn, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  *smem_bytes = (int)cfg.dynamicSmemBytes;
+  cfg.gridDim = dim3(cluster);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
+}
+
+// The cluster form: the arguments of umx_istft_ct2, plus the radix passes'
+// twiddles `ptw` (ops/istft_ct_cuda.py:pass_twiddles) and the cluster's
+// blocks C (2, 4 or 8, the smallest whose 8 N / C bytes fit a block: the
+// wrapper's istft_cluster_size); one cluster a run, rows x runs_per_row
+// clusters.
+extern "C" int umx_istft_ct2_cluster(const float* re, const float* im, const float* table,
+                                     const float* ptw, const float* window, float* out, int rows,
+                                     int T, int F, int N, int hop, int cluster, int runs_per_row,
+                                     int hops_per_run, void* stream) {
+  if (4 * hop != N || F != N / 2 + 1 || rows < 1 || T < 1 || runs_per_row < 1 ||
+      hops_per_run < 1 || (long long)runs_per_row * hops_per_run < T + RING - 1 ||
+      (long long)rows * runs_per_row * cluster > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* fn = nullptr;
+  cudaError_t e = cluster_setup(N, cluster, &fn, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  cfg.gridDim = dim3(rows * runs_per_row * cluster);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  void* args[] = {&re, &im, &table, &ptw, &window, &out, &T, &N, &runs_per_row, &hops_per_run};
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The device-memory form, N = 1024 k above 16384 (the wrapper runs it above
+// the cluster form's 232448, and by name): the arguments of
 // umx_istft_ct2, plus `scratch` (grid x 3 N floats) and the grid, at most
 // rows x runs_per_row blocks (the blocks walk the runs grid-stride).
 extern "C" int umx_istft_ct2_big(const float* re, const float* im, const float* table,

@@ -75,14 +75,18 @@
 // the four quarters are summed in a fixed order through shared memory.
 // Then a thread per (unit, row) applies the cell.
 //
-// The wide merged form (umx_lstm_merged_wide; K1 and K4 above G 512, where a
-// warp's slice of bf16 W_hh no longer fits lstm_merged.cu's registers) is
-// the streaming form with the compile-time flag ROUND_H and W_hh in bf16:
-// h is rounded to bf16 (round to nearest even) where it enters the product
-// (h0 and each polled word, into shared memory), so every product is
-// bf16(h) x bf16(W_hh), exact in f32, summed in f32: K1's function
-// (lstm_merged.cu).  hs, hT, cT and the exchange carry the unrounded f32 h,
-// as K1 publishes it; only the product's operand is rounded.
+// The merged streaming form (umx_lstm_merged_streaming) is the streaming
+// form with the compile-time flag ROUND_H and W_hh in bf16: h is rounded to
+// bf16 (round to nearest even) where it enters the product (h0 and each
+// polled word, into shared memory), so every product is bf16(h) x
+// bf16(W_hh), exact in f32, summed in f32: K1's function (lstm_merged.cu).
+// hs, hT, cT and the exchange carry the unrounded f32 h, as K1 publishes
+// it; only the product's operand is rounded.  It was K1's and K4's form
+// above G 512 until lstm_merged.cu's wide block forms kept bf16 W_hh on the
+// chip there; it stays as their yardstick (ops/lstm_cuda.py,
+// _form="wide_streaming") and runs a user's path only at a G where no block
+// form holds one chain (above G 1952 on an H100): it reads W_hh from L2 or
+// device memory every step (8.95 us a step at G 640, 27.7 at G 1024).
 //
 // In either form a (unit, row) sum has one order, set by G and the form
 // alone, never by B, by the rows or chains beside it, or by the row group
@@ -128,7 +132,7 @@ constexpr int RS_PASS = 8;                     // rows of one pass over W
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // h as the product takes it: rounded to bf16 and back (round to nearest
-// even, as torch's .to(torch.bfloat16)) in the wide merged form, else as it is
+// even, as torch's .to(torch.bfloat16)) in the merged streaming form, else as it is
 template <bool ROUND_H>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (ROUND_H) {
@@ -171,7 +175,7 @@ __device__ __forceinline__ void fma_rows(float (&acc)[RT], float w, const float*
 // the row tile, a power of two >= nb.  Dynamic shared memory:
 // h (G x RT f32, k-major) and the quarters' sums (SCAN_PARTS x RT x 128 f32).
 // hx: exchange words (R, 2, SCAN_ROWS, G), zeroed before the layer's first
-// launch.  ROUND_H: the wide merged form (h rounded to bf16 for the product).
+// launch.  ROUND_H: the merged streaming form (h rounded to bf16 for the product).
 template <typename W, int RT, bool RESID, bool ROUND_H = false>
 __global__ void __launch_bounds__(SCAN_THREADS, 2)
 lstm_scan_kernel(const float* __restrict__ xp,   // (T, RB, 4G)
@@ -745,7 +749,7 @@ size_t scan_smem(int G, int rt) {
 }
 
 // The instantiation of the form (resident = 1 or streaming) for row tile
-// rt, W_hh storage and the residual flag (round_h: the wide merged form,
+// rt, W_hh storage and the residual flag (round_h: the merged streaming form,
 // streaming with bf16 W_hh only), with the dynamic shared memory it needs
 // allowed, and its block size; cudaErrorInvalidValue for a tile it does not
 // have or a width the resident form does not take (G > 512).
@@ -791,7 +795,7 @@ cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int round
 // x G, f32) that stay in registers (the rest is in shared memory; 0 in the
 // streaming form).  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
-// round_h: the wide merged form's instantiation (umx_lstm_merged_wide).
+// round_h: the merged streaming form's instantiation (umx_lstm_merged_streaming).
 int scan_capacity(int resident, int G, int whh_bf16, int resid, int round_h, int* rows,
                   int* blocks, int* smem, int* w_regs) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
@@ -837,10 +841,10 @@ extern "C" int umx_lstm_scan_capacity(int resident, int G, int whh_bf16, int res
   return scan_capacity(resident, G, whh_bf16, resid, 0, rows, blocks, smem, w_regs);
 }
 
-// The wide merged form's launch geometry (umx_lstm_scan_capacity of the
-// streaming form with bf16 W_hh and rounded h): K1 (resid = 0) or K4.
-extern "C" int umx_lstm_merged_wide_capacity(int G, int resid, int* rows, int* blocks, int* smem,
-                                             int* w_regs) {
+// The merged streaming form's launch geometry (umx_lstm_scan_capacity of
+// the streaming form with bf16 W_hh and rounded h): K1 (resid = 0) or K4.
+extern "C" int umx_lstm_merged_streaming_capacity(int G, int resid, int* rows, int* blocks,
+                                                  int* smem, int* w_regs) {
   return scan_capacity(0, G, 1, resid, 1, rows, blocks, smem, w_regs);
 }
 
@@ -898,14 +902,14 @@ extern "C" int umx_lstm_scan_train(int resident, const float* xp, const void* wh
                      r0, nr, b0, nb, rt, tag0, stream);
 }
 
-// K1 and K4 above G 512, the wide merged form: umx_lstm_scan's streaming
-// launch with bf16 W_hh (R, G, 4G) and h rounded to bf16 for the product,
-// K1's function; with gates and cs (both given) also K4's residuals.
+// K1 and K4 in the merged streaming form: umx_lstm_scan's streaming launch
+// with bf16 W_hh (R, G, 4G) and h rounded to bf16 for the product, K1's
+// function; with gates and cs (both given) also K4's residuals.
 // The arguments and the exchange buffer are umx_lstm_scan's.
-extern "C" int umx_lstm_merged_wide(const float* xp, const void* whh, const float* h0, float* c,
-                                    float* hs, float* hT, float* gates, float* cs, void* hx, int T,
-                                    int R, int B, int G, int r0, int nr, int b0, int nb, int rt,
-                                    unsigned tag0, void* stream) {
+extern "C" int umx_lstm_merged_streaming(const float* xp, const void* whh, const float* h0,
+                                         float* c, float* hs, float* hT, float* gates, float* cs,
+                                         void* hx, int T, int R, int B, int G, int r0, int nr,
+                                         int b0, int nb, int rt, unsigned tag0, void* stream) {
   if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
   return scan_launch(0, 1, xp, whh, 1, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb,
                      rt, tag0, stream);

@@ -19,6 +19,14 @@ from umx_tpu_torch.ops.istft_ct import check_ct2_geometry, istft_ct2_plain
 
 N_FFT = 4096  # UMX's transform: the kernel's hand-scheduled form
 SHARED_N_FFT_MAX = 16384  # the largest n_fft whose frame and ring fit a block's shared memory
+# Above, a thread-block cluster holds a frame and its ring (8 n_fft bytes)
+# in its blocks' shared memory, C = 2, 4 or 8 blocks (portable cluster
+# sizes), the smallest whose slices of 8 n_fft / C bytes fit the 227 KiB a
+# block may ask for on an H100: so up to 8 x 227 KiB / 8 = 232448 = 227 x
+# 1024; the device-memory form above that.
+CLUSTER_SIZES = (2, 4, 8)
+BLOCK_SMEM_MAX = 232448  # bytes of shared memory a block may ask for on an H100
+CLUSTER_N_FFT_MAX = BLOCK_SMEM_MAX * CLUSTER_SIZES[-1] // 8
 PIECES = 4  # hop = n_fft / 4: a frame reaches 4 output hops, a hop 4 frames
 _MIN_HOPS = 8  # no run shorter than this, unless the row is
 # the device-memory form's scratch slot a block: two buffers of n_fft/2
@@ -30,9 +38,10 @@ def istft_radix_plan(n_fft: int) -> tuple[int, ...]:
     """The radices of the kernel's n_fft/2-point complex inverse, first
     pass first: 16 x 16 x 8 at 4096 (its hand-scheduled form); up to
     ``SHARED_N_FFT_MAX`` a pass of K = n_fft/1024 points (none at K = 1)
-    and three radix-8 passes (the Stockham form in shared memory); above,
-    in device memory (:func:`istft_form`), the odd part of K as one pass,
-    its power-of-two part in radix 8 (then 4 or 2), then three radix 8."""
+    and three radix-8 passes (the Stockham form in shared memory); above
+    (the cluster and device-memory forms, :func:`istft_form`), the odd
+    part of K as one pass, its power-of-two part in radix 8 (then 4 or 2),
+    then three radix 8."""
     if n_fft < 1024 or n_fft % 1024:
         raise ValueError(f"the iSTFT kernel takes n_fft = 1024 k, got {n_fft}")
     if n_fft == N_FFT:
@@ -52,12 +61,22 @@ def istft_radix_plan(n_fft: int) -> tuple[int, ...]:
 
 
 def istft_form(n_fft: int) -> str:
-    """Where the kernel keeps a frame at ``n_fft``: "shared" (shared
-    memory, the hand-scheduled 4096 form and the mixed radix up to
-    ``SHARED_N_FFT_MAX``) or "device" (a scratch slot a block in device
-    memory, above it)."""
+    """Where the kernel keeps a frame at ``n_fft``, from n_fft alone:
+    "shared" (a block's shared memory: the hand-scheduled 4096 form and the
+    mixed radix up to ``SHARED_N_FFT_MAX``), "cluster" (the shared memory
+    of a thread-block cluster, up to ``CLUSTER_N_FFT_MAX``) or "device" (a
+    scratch slot a block in device memory, above)."""
     istft_radix_plan(n_fft)
-    return "shared" if n_fft <= SHARED_N_FFT_MAX else "device"
+    if n_fft <= SHARED_N_FFT_MAX:
+        return "shared"
+    return "cluster" if n_fft <= CLUSTER_N_FFT_MAX else "device"
+
+
+def istft_cluster_size(n_fft: int, smem_per_block: int = BLOCK_SMEM_MAX) -> int:
+    """The blocks of the cluster form's clusters at ``n_fft``: the
+    smallest of ``CLUSTER_SIZES`` whose slices of a frame and its ring
+    (8 n_fft / C bytes) fit ``smem_per_block``; 0 where none does."""
+    return next((c for c in CLUSTER_SIZES if 8 * n_fft // c <= smem_per_block), 0)
 
 
 @functools.lru_cache(maxsize=8)
@@ -70,6 +89,28 @@ def _table_np(n_fft: int) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def _table(n_fft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_table_np(n_fft)).to(device)
+
+
+def pass_twiddles(n_fft: int) -> np.ndarray:
+    """The cluster form's twiddles, entries of the table in the order its
+    butterflies read them: for each radix pass of :func:`istft_radix_plan`
+    with ns > 1 points done (the odd first pass has its own), the cosines
+    (R - 1, ns) then the sines, entry (q - 1, jm) the table's entry
+    jm q n_fft / (ns R), so that neighbouring butterflies read neighbouring
+    addresses; the same float32 values, so the same bits."""
+    table = _table_np(n_fft)
+    blocks, ns = [], 1
+    for R in istft_radix_plan(n_fft):
+        if ns > 1:  # the odd pass, where there is one, is the first (ns = 1)
+            idx = np.arange(1, R)[:, None] * np.arange(ns)[None] * (n_fft // (ns * R))
+            blocks += [table[0, idx].ravel(), table[1, idx].ravel()]
+        ns *= R
+    return np.concatenate(blocks).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _pass_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(pass_twiddles(n_fft)).to(device)
 
 
 def istft_run_plan(rows: int, n_frames: int, capacity: int) -> tuple[int, int]:
@@ -105,29 +146,43 @@ def istft_runs(rows: int, n_frames: int, capacity: int) -> list[tuple[int, int, 
 
 
 @functools.lru_cache(maxsize=None)
-def istft_block_layout(index: int, n_fft: int) -> tuple[int, int]:
-    """What the kernel at ``n_fft`` reports of itself on CUDA device
-    ``index``, asked once: (the blocks the device holds at once, the
-    dynamic shared memory a block asks for, in bytes)."""
+def istft_block_layout(index: int, n_fft: int, form: str | None = None) -> tuple[int, int]:
+    """What the kernel at ``n_fft`` in ``form`` (None: :func:`istft_form`)
+    reports of itself on CUDA device ``index``, asked once: (the blocks the
+    device holds at once, the dynamic shared memory a block asks for, in
+    bytes); in the cluster form (the clusters the device holds at once,
+    the same)."""
     import ctypes
 
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _build.library()
     with torch.cuda.device(index):
-        err = _build.library().umx_istft_ct2_capacity(n_fft, ctypes.addressof(blocks),
-                                                      ctypes.addressof(smem))
+        if (form or istft_form(n_fft)) == "cluster":
+            err = lib.umx_istft_ct2_cluster_capacity(n_fft, istft_cluster_size(n_fft),
+                                                     ctypes.addressof(blocks),
+                                                     ctypes.addressof(smem))
+        else:
+            err = lib.umx_istft_ct2_capacity(n_fft, ctypes.addressof(blocks),
+                                             ctypes.addressof(smem))
     _build.check(err, "umx_istft_ct2_capacity")
+    if blocks.value < 1:
+        raise RuntimeError(f"the iSTFT kernel at n_fft {n_fft} ({form or istft_form(n_fft)}): "
+                           "this device holds none of its blocks")
     return blocks.value, smem.value
 
 
 def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
-              window: torch.Tensor | None = None) -> torch.Tensor:
+              window: torch.Tensor | None = None, *, _form: str | None = None) -> torch.Tensor:
     """Planes re/im (..., T, n_fft/2+1) f32 → raw overlap-added signal
     (..., (T-1)*hop + n_fft) with the window folded in (the caller divides
     by the window sum-of-squares).  Takes every n_fft with 1024 | n_fft and
     hop = n_fft/4, as the JAX function does, on either device.  One kernel
-    launch transforms, windows and overlap-adds (no frames buffer; above
-    ``SHARED_N_FFT_MAX`` a scratch slot of 3 n_fft floats for each block of
-    the grid, :func:`istft_form`); the run plan that ran is left in
+    launch transforms, windows and overlap-adds, in the form
+    :func:`istft_form` picks from n_fft (no frames buffer; above
+    ``CLUSTER_N_FFT_MAX`` a scratch slot of 3 n_fft floats for each block
+    of the grid; the private ``_form`` names "device" above
+    ``SHARED_N_FFT_MAX``, for the checks that compare the two forms, which
+    give the same bits); the run plan that ran is left in
     ``istft_ct2.form`` as (runs per row, hops per run, radix plan).  Counts
     ``istft_ct2.launches`` once per launch."""
     if re.dim() < 2 or tuple(im.shape) != tuple(re.shape):
@@ -144,6 +199,12 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
             raise ValueError(f"{name} is on {t.device}, expected {re.device}")
     if window is not None and tuple(window.shape) != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
+    form = istft_form(n_fft)
+    if _form is not None:
+        if _form != "device" or form == "shared":
+            raise ValueError(f"form must be None or, above n_fft {SHARED_N_FFT_MAX}, 'device'; "
+                             f"got {_form!r} at n_fft {n_fft}")
+        form = _form
     if re.device.type == "cpu":
         return istft_ct2_plain(re, im, n_fft, hop, window)
     if re.device.type != "cuda":
@@ -152,7 +213,7 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     plan = istft_radix_plan(n_fft)
     rows = int(np.prod(lead)) if lead else 1
     dev = re.device
-    capacity = istft_block_layout(dev.index, n_fft)[0]
+    capacity = istft_block_layout(dev.index, n_fft, form)[0]
     per_row, hops_per_run = istft_run_plan(rows, T, capacity)
     re_c = re.reshape(rows, T, F).contiguous()
     im_c = im.reshape(rows, T, F).contiguous()
@@ -163,8 +224,13 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
             win.data_ptr() if win is not None else None, out.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
-    if istft_form(n_fft) == "shared":
+    if form == "shared":
         err = lib.umx_istft_ct2(*args, rows, T, F, n_fft, hop, per_row, hops_per_run, stream)
+    elif form == "cluster":
+        re_p, im_p, table_p, win_p, out_p = args
+        err = lib.umx_istft_ct2_cluster(re_p, im_p, table_p, _pass_twiddles(n_fft, dev).data_ptr(),
+                                        win_p, out_p, rows, T, F, n_fft, hop,
+                                        istft_cluster_size(n_fft), per_row, hops_per_run, stream)
     else:
         grid = min(rows * per_row, capacity)
         scratch = torch.empty(grid * _BIG_SLOT_FLOATS * n_fft, dtype=torch.float32, device=dev)

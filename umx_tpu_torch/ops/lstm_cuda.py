@@ -28,11 +28,14 @@ K1, K4, K5 and K9 take every width, as the TPU kernels do
 padded by zero units (:func:`at_width`: a zero unit's gates are 0, its c
 and h stay exactly 0 and it adds +0 to every real sum, so the cut result
 is the unpadded function's); above G 512, where a warp's slice of W_hh no
-longer fits its registers, the "wide" forms: K10's and K11's streaming
-kernels with a compile-time flag that rounds the product's h (K1, K4) or
-dg (K5) to bf16, K1's and K5's functions with W_hh read from L2 each step.
-K9 runs its chains through the wide K1 where no cluster holds a chain's
-W_hh.
+longer fits its registers, the "wide" forms.  K1 and K4 stay resident
+there: the same kernel in another block form (:func:`merged_wide_plan`),
+its further k-tiles of bf16 W_hh in shared memory; only where no block
+form holds one chain (above G 1952 on an H100) do they stream W_hh from
+L2 each step (K10's streaming kernel with the product's h rounded to
+bf16, the form they took before, kept by name as their yardstick).  K5's
+wide form is K11's streaming sweep with dg rounded to bf16.  K9 runs its
+chains through the wide K1 where no cluster holds a chain's W_hh.
 - K10 :func:`lstm_scan` (``csrc/lstm_scan.cu``): the float32 recurrence
   of the JAX package's ``lax.scan`` (``_bilstm_layer``, its
   ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
@@ -62,6 +65,7 @@ kernel for primal-only evaluation.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -258,11 +262,12 @@ def resident_blocks_per_chain(G: int) -> int:
     return -(-G // RESIDENT_UNITS)
 
 
-def resident_row_groups(B: int) -> list[tuple[int, int]]:
+def resident_row_groups(B: int, rows: int = RESIDENT_ROWS) -> list[tuple[int, int]]:
     """(first row, rows) of a resident kernel's launches over B rows per
-    chain: groups of 16, the last one ragged.  Rows are independent, so a
-    row's result does not depend on its group."""
-    return [(b0, min(RESIDENT_ROWS, B - b0)) for b0 in range(0, B, RESIDENT_ROWS)]
+    chain: groups of ``rows`` (16, or 8 where a wide block form's shared
+    memory holds no more), the last one ragged.  Rows are independent, so
+    a row's result does not depend on its group."""
+    return [(b0, min(rows, B - b0)) for b0 in range(0, B, rows)]
 
 
 def chain_groups(R: int, per_chain: int, capacity: int, what: str) -> list[tuple[int, int]]:
@@ -310,21 +315,140 @@ def _resident_capacity(index: int, kernel: str, G: int = 0) -> int:
     """Blocks of resident kernel ``kernel`` ("K1", "K4" or "K5", the last
     at width G, which sets its shared memory) that CUDA device ``index``
     holds at once: a property of the device and the built kernel, asked
-    once."""
+    once.  K1 and K4 in their own block form (8 warps) up to G 512."""
+    if kernel == "K5":
+        import ctypes
+
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _build.library().umx_lstm_bwd_capacity(G, ctypes.addressof(blocks))
+        if err == _CUDA_ERROR_INVALID_CONFIGURATION:
+            raise RuntimeError("K5: this device has no cooperative launch, which the resident "
+                               "recurrence needs")
+        _build.check(err, "K5 capacity")
+        return blocks.value
+    return merged_layout(index, RESIDENT_G_MAX, kernel == "K4", RESIDENT_WARPS,
+                         RESIDENT_ROWS)[0]
+
+
+# The resident kernel's block forms (csrc/lstm_merged.cu:resident_kreg):
+# (warps a block, k-tiles of 16 a warp keeps in registers).  A warp owns 4
+# hidden units (one mma row tile of 16 gate columns); its k-tiles beyond the
+# registers' sit in shared memory.  K1's own form, up to G 512, is the first.
+MERGED_BLOCK_FORMS = ((8, 32), (10, 20), (6, 40), (4, 40))
+RESIDENT_WARPS = 8
+# registers a thread uses beside its register tiles (K1 at two n-tiles: 212,
+# 128 of them W_hh; ptxas on sm_90a)
+MERGED_OTHER_REGS = 84
+MERGED_HPAD = 4  # words of padding a row of h in shared memory
+# The widest G whose chain one of the block forms holds on an H100 (132 SMs,
+# 227 KiB of shared memory a block, 64 Ki registers an SM): 4 warps of 16
+# units, 122 blocks a chain, 40 k-tiles a warp in registers and 82 in shared
+# memory beside h of 8 rows (227.5 of 227 KiB at G 1960).  Above it the
+# wide K1/K4 stream W_hh (a chain is 8 G^2 bytes: 30.5 MB at 1952).
+MERGED_WIDE_G_MAX = 1952
+
+
+def merged_thread_regs(warps: int, regs_per_sm: int) -> int:
+    """The registers a thread of a block of ``warps`` warps may have, one
+    block an SM: an SM's registers are four partitions', a block's warps
+    spread over them (ceil(warps / 4) on one), allotted 8 at a time, at
+    most 255 (168 at 10 warps on an H100)."""
+    per = regs_per_sm // 4 // (32 * -(-warps // 4))
+    return min(255, per // 8 * 8)
+
+
+def merged_block_smem(G: int, warps: int, rows: int) -> int:
+    """Dynamic shared memory of a block of the resident kernel in the block
+    form of ``warps`` warps at width G (a multiple of 8) and a row tile of
+    ``rows`` (8 or 16): h of two steps (rows x (8 ceil(G/16) + 4) words)
+    and 16 bytes a thread for each k-tile beyond its registers'
+    (``csrc/lstm_merged.cu:resident_smem``)."""
+    kreg = dict(MERGED_BLOCK_FORMS)[warps]
+    kt = -(-G // 16)
+    return 4 * 2 * rows * (8 * kt + MERGED_HPAD) + 16 * max(0, kt - kreg) * 32 * warps
+
+
+class MergedWidePlan(NamedTuple):
+    """A block form of the wide K1/K4 (:func:`merged_wide_plan`)."""
+
+    warps: int
+    units: int  # hidden units a block owns, 4 a warp
+    kreg: int  # k-tiles a warp keeps in registers
+    ksmem: int  # k-tiles a warp keeps in shared memory
+    rows: int  # rows per chain a launch takes: 16, or 8
+    blocks_per_chain: int
+    chains_per_group: int  # chains a launch holds, one block an SM
+    smem: int  # dynamic shared memory a block asks for
+
+
+def merged_wide_plan(G: int, R: int, sms: int, smem_per_block: int,
+                     regs_per_sm: int) -> MergedWidePlan | None:
+    """The block form the wide K1 and K4 run R chains of width G (a
+    multiple of 8) in, from the card's figures alone: ``sms``, the shared
+    memory a block may ask for and the 32-bit registers of an SM (an H100:
+    132, 232448, 65536).  A block is one SM; a form holds a chain where its
+    blocks a chain are no more than the SMs, a thread's register tiles and
+    other registers fit what it may have (:func:`merged_thread_regs`), and
+    its shared memory (at 16 rows, else 8) fits a block.  Among those, the
+    fewest chain groups win, then the most rows a launch, then the fewest
+    units a block (the shortest step).
+    None where no form holds one chain (G above ``MERGED_WIDE_G_MAX`` on
+    an H100): the wide K1/K4 then stream W_hh."""
+    if G < 8 or G % 8:
+        raise ValueError(f"the block forms take G % 8 == 0, got {G}")
+    best = None
+    for warps, kreg in MERGED_BLOCK_FORMS:
+        units = 4 * warps
+        per_chain = -(-G // units)
+        if per_chain > sms or 4 * kreg + MERGED_OTHER_REGS > merged_thread_regs(warps,
+                                                                               regs_per_sm):
+            continue
+        rows = next((r for r in (RESIDENT_ROWS, 8)
+                     if merged_block_smem(G, warps, r) <= smem_per_block), None)
+        if rows is None:
+            continue
+        per = min(R, sms // per_chain)
+        kt = -(-G // 16)
+        plan = MergedWidePlan(warps, units, min(kt, kreg), max(0, kt - kreg), rows, per_chain,
+                              per, merged_block_smem(G, warps, rows))
+        key = (-(-R // per), -rows, units)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int, int]:
+    """(SMs, the shared memory a block may ask for, registers an SM) of
+    CUDA device ``index``: the figures :func:`merged_wide_plan` plans from."""
     import ctypes
 
-    blocks = ctypes.c_int(0)
-    lib = _build.library()
+    out = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(index):
-        if kernel == "K5":
-            err = lib.umx_lstm_bwd_capacity(G, ctypes.addressof(blocks))
-        else:
-            err = lib.umx_lstm_merged_capacity(int(kernel == "K4"), ctypes.addressof(blocks))
+        err = _build.library().umx_device_limits(*(ctypes.addressof(v) for v in out))
+    _build.check(err, "umx_device_limits")
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def merged_layout(index: int, G: int, resid: bool, warps: int, rows: int) -> tuple[int, int]:
+    """What the resident kernel in the block form of ``warps`` warps
+    reports of itself on CUDA device ``index`` at width G and a row tile of
+    ``rows``, for K1 or (``resid``) K4, asked once: (the blocks the device
+    holds at once, the dynamic shared memory a block asks for)."""
+    import ctypes
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().umx_lstm_merged_layout(G, int(resid), warps, rows,
+                                                      ctypes.addressof(blocks),
+                                                      ctypes.addressof(smem))
     if err == _CUDA_ERROR_INVALID_CONFIGURATION:
-        raise RuntimeError(f"{kernel}: this device has no cooperative launch, which the "
-                           "resident recurrence needs")
-    _build.check(err, f"{kernel} capacity")
-    return blocks.value
+        raise RuntimeError("K1/K4: this device has no cooperative launch, which the resident "
+                           "recurrence needs")
+    _build.check(err, "umx_lstm_merged_layout")
+    return blocks.value, smem.value
 
 
 # the resident kernels (and K9) read W_hh rows as 16-byte vectors of 8 bf16
@@ -339,17 +463,19 @@ def _aligned(G: int) -> int:
 def merged_form(G: int) -> str:
     """The form K1, K4 and K5 take at width G, chosen before any launch:
     "resident" (W_hh in registers; G % 8 != 0 padded to the next multiple
-    of 8) up to ``RESIDENT_G_MAX``, "wide" (W_hh from L2 each step, any G)
-    above."""
+    of 8) up to ``RESIDENT_G_MAX``, "wide" above (K1 and K4 in a wider
+    block form with W_hh on the chip, :func:`merged_wide_plan`; K5
+    streaming W_hh)."""
     if G < 1:
         raise ValueError(f"G must be positive, got {G}")
     return "resident" if G <= RESIDENT_G_MAX else "wide"
 
 
 def merged_width(G: int) -> int:
-    """The width the merged kernels launch at: G rounded up to a multiple
-    of 8 in the resident form, G itself in the wide form."""
-    return G if merged_form(G) == "wide" else _aligned(G)
+    """The width the resident kernel launches at, in K1's block form and
+    the wide ones: G rounded up to a multiple of 8 (K5's wide form streams
+    at G itself)."""
+    return _aligned(G)
 
 
 def pad_width(t, kind: str, G: int, Gp: int):
@@ -409,9 +535,13 @@ def _resident_plan(wrapper, kernel: str, xp, R: int, B: int, G: int):
     return [(r0, nr, b0, nb) for r0, nr in chains for b0, nb in rows]
 
 
-def _merged_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+MERGED_WIDE_FORMS = ("wide", "wide_streaming")
+
+
+def _merged_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool, form: str | None):
     """K1 (``residuals`` False) or K4 on CUDA tensors, in the form of
-    :func:`merged_form` at :func:`merged_width`, or their plain versions on
+    :func:`merged_form` at :func:`merged_width` (``form``: a wide form by
+    name, for the checks that compare them), or their plain versions on
     CPU tensors: the launches of one layer, counted once in
     ``wrapper.launches``."""
     T, R, G = _dims(xp, whh, B)
@@ -420,25 +550,59 @@ def _merged_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
         ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, torch.bfloat16),
         ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
     ])
+    if form is not None and (form not in MERGED_WIDE_FORMS or merged_form(G) != "wide"):
+        raise ValueError(f"form must be None or, above G {RESIDENT_G_MAX}, one of "
+                         f"{MERGED_WIDE_FORMS}; got {form!r} at G = {G}")
     if route == "cpu":
         plain = lstm_merged_train_fwd_plain if residuals else lstm_merged_plain
         return plain(xp, whh, h0, c0, B)
+    return _merged_launches(wrapper, xp, whh, h0, c0, B, residuals, form)
+
+
+def _merged_launches(wrapper, xp, whh, h0, c0, B: int, residuals: bool, form: str | None = None):
+    """K1 or K4 on checked CUDA tensors: K1's block form up to G 512, the
+    wide block form of :func:`merged_wide_plan` above, or the streaming form
+    where no block form holds a chain (or by name, ``form``)."""
+    T, R, G = _dims(xp, whh, B)
+    Gp = merged_width(G)
+    plan = None
     if merged_form(G) == "wide":
-        return _wide_forward(wrapper, xp, whh, h0, c0, B, residuals)
+        plan = merged_wide_plan(Gp, R, *device_limits(xp.device.index))
+        form = form or ("wide" if plan is not None else "wide_streaming")
+        if form == "wide_streaming":
+            return _streaming_forward(wrapper, xp, whh, h0, c0, B, residuals)
+        if plan is None:
+            raise RuntimeError(f"no block form of the resident kernel holds one chain at G = "
+                               f"{G} on this device")
     n = 5 if residuals else 3
-    return at_width(lambda *a: _resident_forward(wrapper, *a, residuals), G, merged_width(G),
+    return at_width(lambda *a: _resident_forward(wrapper, *a, residuals, plan), G, Gp,
                     (xp, whh, h0, c0, B), _FWD_KINDS, _FWD_OUT[:n])
 
 
-def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool,
+                      plan: MergedWidePlan | None = None):
     """The resident K1 or K4 on checked CUDA tensors at G % 8 == 0: the
-    launches of one layer over its chain and row groups."""
+    launches of one layer over its chain and row groups, in K1's block form
+    (``plan`` None) or a wide one."""
     T, R, G = _dims(xp, whh, B)
     RB = R * B
-    entry = "umx_lstm_merged_train" if residuals else "umx_lstm_merged"
     _check_whh_vectors(whh, G)
     lib = _build.library()
-    plan = _resident_plan(wrapper, "K4" if residuals else "K1", xp, R, B, G)
+    if plan is None:
+        warps = RESIDENT_WARPS
+        groups = _resident_plan(wrapper, "K4" if residuals else "K1", xp, R, B, G)
+    else:
+        warps = plan.warps
+        capacity, smem = merged_layout(xp.device.index, G, residuals, warps, plan.rows)
+        if smem != plan.smem:
+            raise RuntimeError(f"the wide block form's shared memory {smem} is not the "
+                               f"planned {plan.smem} (G {G}, {warps} warps, {plan.rows} rows)")
+        chains = chain_groups(R, plan.blocks_per_chain, capacity,
+                              f"the wide resident recurrence at G = {G}")
+        rows = resident_row_groups(B, plan.rows)
+        wrapper.form = ("wide", plan.blocks_per_chain, capacity, len(chains), len(rows),
+                        plan.units)
+        groups = [(r0, nr, b0, nb) for r0, nr in chains for b0, nb in rows]
     dev = xp.device
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
     hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
@@ -448,18 +612,19 @@ def _resident_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     if residuals:
         extra = (torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev),  # gates
                  torch.empty((T, RB, G), dtype=torch.float32, device=dev))  # cs
-    for launched, (r0, nr, b0, nb) in enumerate(plan):
-        err = getattr(lib, entry)(
+    ptrs = [t.data_ptr() for t in extra] or [None, None]
+    for launched, (r0, nr, b0, nb) in enumerate(groups):
+        err = lib.umx_lstm_merged(
             xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
-            hT.data_ptr(), *(t.data_ptr() for t in extra), hx.data_ptr(), T, R, B, G,
-            r0, nr, b0, nb, launched * T, _stream(xp),
+            hT.data_ptr(), *ptrs, hx.data_ptr(), T, R, B, G, warps, r0, nr, b0, nb,
+            launched * T, _stream(xp),
         )
-        _build.check(err, entry)
+        _build.check(err, "umx_lstm_merged")
     wrapper.launches += 1
     return (hs, hT, cT, *extra)
 
 
-def lstm_merged(xp, whh, h0, c0, B: int):
+def lstm_merged(xp, whh, h0, c0, B: int, *, _form: str | None = None):
     """K1: one BLSTM layer's recurrence for all chains (see module docstring).
 
     xp (T, R*B, 4G) f32, whh (R, G, 4G) bf16, h0/c0 (R*B, G) f32 →
@@ -467,26 +632,31 @@ def lstm_merged(xp, whh, h0, c0, B: int):
     chains and up to 16 rows per chain; further rows (and chains beyond
     what the device holds at once) are further launches of the same
     kernel.  Any G (:func:`merged_form`): up to 512 with W_hh resident in
-    registers (G % 8 != 0 padded by zero units), the wide form above.  The
-    form that ran is left in ``lstm_merged.form``: resident as (blocks per
-    chain, blocks the device holds at once, chain groups, row groups), wide
-    as ("wide", the same four).  Increments ``lstm_merged.launches`` once
-    per layer."""
-    return _merged_forward(lstm_merged, xp, whh, h0, c0, B, residuals=False)
+    registers (G % 8 != 0 padded by zero units), above in a wide block
+    form with W_hh in registers and shared memory
+    (:func:`merged_wide_plan`; the private ``_form`` names "wide" or its
+    streaming yardstick "wide_streaming", for the checks that compare
+    them).  The form that ran is left in ``lstm_merged.form``: resident as
+    (blocks per chain, blocks the device holds at once, chain groups, row
+    groups), wide as ("wide", the same four, units a block), streaming as
+    ("wide_streaming", the same four).  Increments ``lstm_merged.launches``
+    once per layer."""
+    return _merged_forward(lstm_merged, xp, whh, h0, c0, B, False, _form)
 
 
 lstm_merged.launches = 0
 lstm_merged.form = None
 
 
-def lstm_merged_train_fwd(xp, whh, h0, c0, B: int):
+def lstm_merged_train_fwd(xp, whh, h0, c0, B: int, *, _form: str | None = None):
     """K4: :func:`lstm_merged` plus the residuals → (hs, hT, cT, gates
     (T, R*B, 4G) activated i|f|g|o, cs (T, R*B, G)).  The same kernel as
     K1, in the same form, with the residual stores compiled in: one launch
-    per layer and group of 16 rows, any B, any G, hs/hT/cT bit-equal to
-    K1's.  Leaves its form in ``lstm_merged_train_fwd.form`` and counts
+    per layer and group of rows, any B, any G, hs/hT/cT bit-equal to K1's
+    (``_form`` as :func:`lstm_merged`'s).  Leaves its form in
+    ``lstm_merged_train_fwd.form`` and counts
     ``lstm_merged_train_fwd.launches`` once per layer."""
-    return _merged_forward(lstm_merged_train_fwd, xp, whh, h0, c0, B, residuals=True)
+    return _merged_forward(lstm_merged_train_fwd, xp, whh, h0, c0, B, True, _form)
 
 
 lstm_merged_train_fwd.launches = 0
@@ -703,7 +873,7 @@ def _pertarget_placeable(index: int, G: int, R: int) -> dict[int, int]:
     return {cl: held[cl] for cl in range(1, PERTARGET_MAX_CLUSTER + 1) if held[cl] > 0}
 
 
-def lstm_layer_pertarget(x_proj, whh, h0, c0):
+def lstm_layer_pertarget(x_proj, whh, h0, c0, *, _form: str | None = None):
     """K9: one BLSTM layer's recurrence for all targets and directions at
     one batch row, one kernel launch for all T steps (see module docstring).
 
@@ -714,10 +884,11 @@ def lstm_layer_pertarget(x_proj, whh, h0, c0):
     :func:`pertarget_cluster_choice` picks the cluster size among those
     the device can place.  Where none holds a chain's W_hh (G above about
     704 on an H100) the chains run through the wide K1 (the same function
-    at one row per chain).  The form that ran is left in
-    ``lstm_layer_pertarget.form``: (blocks per cluster, clusters the device
-    holds at once, waves), or ("wide", …) as :func:`lstm_merged`'s.
-    Increments ``lstm_layer_pertarget.launches`` once per kernel launch."""
+    at one row per chain; the private ``_form`` as :func:`lstm_merged`'s).
+    The form that ran is left in ``lstm_layer_pertarget.form``: (blocks per
+    cluster, clusters the device holds at once, waves), or ("wide", …) as
+    :func:`lstm_merged`'s.  Increments ``lstm_layer_pertarget.launches``
+    once per kernel launch (once per layer through the wide K1)."""
     if x_proj.dim() != 4:
         raise ValueError(f"expected x_proj (T#, T, D, 4G), got shape {tuple(x_proj.shape)}")
     n_targets, T, D, G4 = x_proj.shape
@@ -736,10 +907,12 @@ def lstm_layer_pertarget(x_proj, whh, h0, c0):
     R, Gp = n_targets * D, _aligned(G)
     placeable = _pertarget_placeable(x_proj.device.index, Gp, R)
     best = _pertarget_best(Gp, R, placeable)
+    if _form is not None and best is not None:
+        raise ValueError(f"form {_form!r}: a cluster holds a chain at G = {G}")
     if best is None:
         xp = x_proj.permute(1, 0, 2, 3).reshape(T, R, G4).contiguous()
-        hs, hT, cT = _wide_forward(lstm_layer_pertarget, xp, whh.reshape(R, G, G4),
-                                   h0.reshape(R, G), c0.reshape(R, G), 1, residuals=False)
+        hs, hT, cT = _merged_launches(lstm_layer_pertarget, xp, whh.reshape(R, G, G4),
+                                      h0.reshape(R, G), c0.reshape(R, G), 1, False, _form)
         return (hs.view(T, n_targets, D, G).permute(1, 0, 2, 3).contiguous(),
                 hT.view(n_targets, D, G), cT.view(n_targets, D, G))
     return at_width(lambda *a: _pertarget_launch(*a, best, placeable), G, Gp,
@@ -900,8 +1073,8 @@ def scan_exchange_words(R: int, G: int) -> int:
 def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
                       form: str = "streaming") -> tuple[int, int, int, int]:
     """What ``kernel`` ("K10", "K10r" with the residual stores, or "K11";
-    "K1w", "K4w", "K5w": the wide merged forms, the streaming kernels with
-    bf16 operands, ``form`` "wide") in ``form`` at width G, W_hh in bf16 or
+    "K1w", "K4w": the merged streaming forms, "K5w": the wide K5, the
+    streaming kernels with bf16 operands, ``form`` "wide") in ``form`` at width G, W_hh in bf16 or
     f32, reports of itself on CUDA device ``index``, asked once: (the
     largest row tile, the blocks of it held at once, the dynamic shared
     memory a block of that tile asks for, the bytes of a full block's share
@@ -914,7 +1087,7 @@ def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
     resident = int(form == "resident")
     with torch.cuda.device(index):
         if kernel in ("K1w", "K4w"):
-            err = lib.umx_lstm_merged_wide_capacity(G, int(kernel == "K4w"), *ptrs)
+            err = lib.umx_lstm_merged_streaming_capacity(G, int(kernel == "K4w"), *ptrs)
         elif kernel == "K5w":
             err = lib.umx_lstm_bwd_wide_capacity(G, *ptrs)
         elif kernel == "K11":
@@ -1174,19 +1347,22 @@ def lstm_layer_scan_batched(x_proj, hh_w, h0, c0):
     return _batched_outputs(*out, x_proj.shape)
 
 
-# ---- the wide forms of K1, K4 and K5 (G > 512; csrc/lstm_scan.cu and
-# csrc/lstm_scan_train.cu with their bf16 operand flags)
+# ---- the streaming forms of K1 and K4 (their yardstick above G 512) and
+# the wide K5 (csrc/lstm_scan.cu and csrc/lstm_scan_train.cu with their bf16
+# operand flags)
 
 
-def _wide_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
-    """The wide K1 (or K4 with ``residuals``) on checked CUDA tensors: K10's
-    streaming kernel with bf16 W_hh and h rounded to bf16 for the product,
-    K1's function.  Leaves ("wide", blocks per chain, blocks the device
-    holds at once, chain groups, row groups) in ``wrapper.form`` and counts
+def _streaming_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
+    """The streaming K1 (or K4 with ``residuals``) on checked CUDA tensors:
+    K10's streaming kernel with bf16 W_hh and h rounded to bf16 for the
+    product, K1's function with W_hh read from L2 each step.  Leaves
+    ("wide_streaming", blocks per chain, blocks the device holds at once,
+    chain groups, row groups) in ``wrapper.form`` and counts
     ``wrapper.launches`` once."""
     T, R, G = _dims(xp, whh, B)
     RB = R * B
     plan = _scan_plan(wrapper, "K4w" if residuals else "K1w", xp, R, B, G, True, "wide")
+    wrapper.form = ("wide_streaming", *wrapper.form[1:])
     dev = xp.device
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
     hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
@@ -1199,12 +1375,12 @@ def _wide_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     ptrs = [t.data_ptr() for t in extra] or [None, None]
     lib = _build.library()
     for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
-        err = lib.umx_lstm_merged_wide(
+        err = lib.umx_lstm_merged_streaming(
             xp.data_ptr(), whh.data_ptr(), h0.data_ptr(), cT.data_ptr(), hs.data_ptr(),
             hT.data_ptr(), *ptrs, hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt, launched * T,
             _stream(xp),
         )
-        _build.check(err, "umx_lstm_merged_wide")
+        _build.check(err, "umx_lstm_merged_streaming")
     wrapper.launches += 1
     return (hs, hT, cT, *extra)
 

@@ -5,7 +5,7 @@ the ones kept, and where a step of each kept recurrence goes.
 
     python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce] [scan] [k8]   (all when none is named)
     python3 chip_forms.py k11_streaming [earlier lstm_scan_train.cu ...]
-    python3 chip_forms.py wide k8_cluster
+    python3 chip_forms.py wide k8_cluster wide_bwd wide_bwd_forms
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -34,7 +34,10 @@ and its bound, and at n_fft 4096 (48 rows of a segment) its mixed-radix
 form (4 x 8 x 8 x 8) against the hand-scheduled one kept there, in turns
 (that comparison alone: ``k8_4096``).  ``wide``: the wide K1 and K4 in
 their block forms (W_hh in registers and shared memory) beside their
-streaming yardstick, in turns; ``k8_cluster``: K8's cluster form beside its
+streaming yardstick, in turns; ``wide_bwd``: the wide K5 in its block form
+(W_hh on the chip, the contraction split over a chain's blocks) beside its
+streaming yardstick, in turns (``wide_bwd_forms``: variants of it, in
+turns); ``k8_cluster``: K8's cluster form beside its
 device-memory form and torch.istft above n_fft 16384.
 ``k11_streaming [FILE ...]``: K11's streaming form at T 256, R 8, B 16 and G
 512 and 640, in turns against earlier sources of ``csrc/lstm_scan_train.cu``
@@ -93,11 +96,19 @@ PRODUCT = """#pragma unroll
           }
         }
 """
+PROF_READ = """
+extern "C" int umx_prof_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, umx_prof, sizeof(umx_prof));
+  unsigned long long z[8] = {0};
+  cudaMemcpyToSymbol(umx_prof, z, sizeof(z));
+  return (int)e;
+}
+"""
 RELEASE = "    if (tid == 0) st_release(flag_r + blockIdx.x, tag0 + (unsigned)i + 1u);\n"
 DXP = "    // dxp after the flag, so that the release does not wait for it\n"
 COEFS = "    // the next step's coefficients, while the flag travels\n"
 STORES = "    // every thread's exchange stores, then the block's flag;"
-K6 = "constexpr int DW_BM"
+BLOCK_FORM = "// " + "-" * 75 + "\n// K5's block form"  # what follows the resident K5
 
 
 def sub(text: str, old: str, new: str) -> str:
@@ -130,7 +141,7 @@ def variants(src: str) -> dict[str, str]:
             "        if (valid[j]) {\n          load_step(j, t - 1);",
             "    if (t >= 0) {\n#pragma unroll\n      for (int j = 0; j < NT; ++j) {\n"
             "        if (valid[j]) {\n          load_step(j, t);")
-    v, _ = cut(v, COEFS, "  }\n}\n\n" + K6)
+    v, _ = cut(v, COEFS, "  }\n}\n\n" + BLOCK_FORM)
     out["coefficients after the carry"] = sub(
         v, "    float dg[NT][4];\n",
         "#pragma unroll\n    for (int j = 0; j < NT; ++j) coefficients(j);\n    float dg[NT][4];\n")
@@ -196,14 +207,7 @@ def variants(src: str) -> dict[str, str]:
             "      const long long q[7] = {q0, q1, q2, q3, q4, q5, clock64()};\n"
             "      for (int e = 0; e < 6; ++e) umx_prof[e] += q[e + 1] - q[e];\n"
             "      umx_prof[6] += 1;\n    }\n  }\n}\n")
-    out["cycle counters"] = v + """
-extern "C" int umx_prof_read(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, umx_prof, sizeof(umx_prof));
-  unsigned long long z[8] = {0};
-  cudaMemcpyToSymbol(umx_prof, z, sizeof(z));
-  return (int)e;
-}
-"""
+    out["cycle counters"] = v + PROF_READ
     return out
 
 
@@ -232,8 +236,8 @@ def build_all(texts: dict[str, str], entries=("umx_lstm_bwd",),
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on the form {name!r}:\n{log[-3000:]}")
-        # in the order of the kernels in the file (lstm_train.cu: the two K5
-        # instantiations, then K6)
+        # in the order of the kernels in the file (lstm_train.cu: the two
+        # instantiations of the resident K5, the four of its block form, K6)
         regs = [line.split("Used ")[1].split(" registers")[0] for line in log.splitlines()
                 if "Used " in line and " registers" in line]
         spills = sum("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
@@ -351,14 +355,7 @@ __device__ __forceinline__ int h_pos(int w)""")
             "      const long long q[6] = {q0, q1, q2, q3, q4, clock64()};\n"
             "      for (int e = 0; e < 5; ++e) umx_prof[e] += q[e + 1] - q[e];\n"
             "      umx_prof[6] += 1;\n    }\n  }\n")
-    out["cycle counters"] = v + """
-extern "C" int umx_prof_read(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, umx_prof, sizeof(umx_prof));
-  unsigned long long z[8] = {0};
-  cudaMemcpyToSymbol(umx_prof, z, sizeof(z));
-  return (int)e;
-}
-"""
+    out["cycle counters"] = v + PROF_READ
     return out
 
 
@@ -1204,6 +1201,157 @@ def wide_forms(dev, smi: str) -> None:
         del args, plain
 
 
+def wide_bwd(dev, smi: str) -> None:
+    """The wide K5 (G above 512) in its block form: the ptxas lines of its
+    instantiations from the build log; at T 256, R 8, B 16 and G 520, 640,
+    644 (padded to 648) and 1024 against its plain version (of each
+    output's largest entry), its form against the plan, rows alone and a
+    repeat bit-equal, and beside its streaming yardstick
+    (``_form="wide_streaming"``) in turns; microseconds a step."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    _build.library()
+    log = _build.library_path().with_name(_build.library_path().name + ".log").read_text()
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "lstm_bwd_block_kernel" in line and "Compiling entry" in line:
+            print(line.strip(), "|", " | ".join(x.strip() for x in lines[i + 1:i + 4]))
+    for G_ in (640, 520, 644, 1024):
+        fwd_in, cts = S.train_inputs(dev, T, S.B_TRAIN, G_, seed=2400 + G_)
+        xp, whh, h0, c0, B = fwd_in
+        _, _, _, gates, cs = L.lstm_merged_train_fwd_plain(*fwd_in)
+        args = (gates, cs, c0, whh, *cts, B)
+        out = L.lstm_merged_bwd_step(*args)
+        torch.cuda.synchronize()
+        form = L.lstm_merged_bwd_step.form
+        plan = L.merged_bwd_wide_plan(L.merged_width(G_), R, *L.device_limits(dev.index))
+        ref = L.lstm_merged_bwd_step_plain(*args)
+        err = max(S.rel_err(a, b) for a, b in zip(out, ref))
+        again = all(torch.equal(a, b) for a, b in zip(L.lstm_merged_bwd_step(*args), out))
+        alone = True
+        for picks in ([0], [B - 1], [1, 8, 9]):
+            rows = torch.tensor([c * B + b for c in range(R) for b in picks], device=dev)
+
+            def part(x):
+                return (x[:, rows] if x.dim() == 3 else x[rows]).contiguous()
+
+            one = L.lstm_merged_bwd_step(part(gates), part(cs), part(c0), whh,
+                                         *(part(c) for c in cts), len(picks))
+            alone &= all(torch.equal(a, part(b)) for a, b in zip(one, out))
+        stream_ms, ms = S.paired_ms(lambda: L.lstm_merged_bwd_step(*args, _form="wide_streaming"),
+                                    lambda: L.lstm_merged_bwd_step(*args), 1, f"K5 G {G_}")
+        print(f"lstm_merged_bwd_step T {T}, R {R}, B {B}, G {G_}: form {form}, plan {plan}; "
+              f"max|err|/max|ref| vs plain {err:.3g}; rows alone bit-equal {alone}, repeat "
+              f"bit-equal {again}; {ms:.4f} ms ({ms / T * 1e3:.3f} us a step), streaming "
+              f"{stream_ms:.4f} ms ({stream_ms / T * 1e3:.3f} us a step), {stream_ms / ms:.2f} x"
+              f"  [{smi}]", flush=True)
+        del fwd_in, cts, xp, whh, h0, c0, gates, cs, args, out, ref
+
+
+BWW_POLL = ("      if (warp == 0) {\n        for (int bb = lane; bb < nblk; bb += 32) {",
+            "      }\n      __syncthreads();\n      // the nblk partials")
+
+
+def block_bwd_variants(src: str) -> dict[str, str]:
+    """Variants of K5's block form (``lstm_train.cu:lstm_bwd_block_kernel``)
+    at 40 units a block by text substitution: fewer or more k-tiles a warp
+    in registers, fewer partials in flight, every warp polling the flags
+    (no barrier after the wait)."""
+    def kreg(text, k):
+        text = sub(text, "mtw == 5 && units == 40 ? 24 :", f"mtw == 5 && units == 40 ? {k} :")
+        return sub(text, "two ? lstm_bwd_block_kernel<2, 5, 10, 24> : lstm_bwd_block_kernel<1, 5, "
+                   "10, 24>", f"two ? lstm_bwd_block_kernel<2, 5, 10, {k}> : "
+                   f"lstm_bwd_block_kernel<1, 5, 10, {k}>")
+
+    out = {"kept": src, "kreg 20": kreg(src, 20), "kreg 28": kreg(src, 28),
+           "kreg 16": kreg(src, 16),
+           "16 partials in flight": sub(src, "constexpr int BWW_PCHUNK = 8;",
+                                        "constexpr int BWW_PCHUNK = 16;")}
+    every = sub(src, BWW_POLL[0], "      {\n        for (int bb = lane; bb < nblk; bb += 32) {")
+    out["every warp polls"] = sub(every, BWW_POLL[1], "      }\n      __syncwarp();\n"
+                                  "      // the nblk partials")
+    out["every warp polls, kreg 16"] = kreg(out["every warp polls"], 16)
+    # cycle counters of thread 0 of block (0, 0), steps 1 .. T-1
+    head, tail = src.split(BLOCK_FORM)
+    tail = sub(tail, "    const int t = T - 1 - i;\n", "    const int t = T - 1 - i;\n"
+               "    const bool prof = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0 && i > 0 && "
+               "i < T;\n    long long q0 = clock64(), q1 = q0, q2 = q0, q3 = q0, q4 = q0, q5 = q0;\n")
+    tail = sub(tail, "      __syncthreads();\n      // the nblk partials",
+               "      __syncthreads();\n      q1 = clock64();\n      // the nblk partials")
+    tail = sub(tail, "    if (i == T) {\n", "    q2 = clock64();\n    if (i == T) {\n")
+    for anchor, q in (("    // the product: this warp's m-tiles", "q3"),
+                      ("    // accumulator (unit 16 m + g [+ 8], row j*8", "q4"), (DXP, "q5")):
+        tail = sub(tail, anchor, f"    {q} = clock64();\n" + anchor)
+    tail = sub(tail, "      for (int j = 0; j < CELLS; ++j) coefficients(j);\n    }\n  }\n}\n",
+               "      for (int j = 0; j < CELLS; ++j) coefficients(j);\n    }\n    if (prof) {\n"
+               "      const long long q[7] = {q0, q1, q2, q3, q4, q5, clock64()};\n"
+               "      for (int e = 0; e < 6; ++e) umx_prof[e] += q[e + 1] - q[e];\n"
+               "      umx_prof[6] += 1;\n    }\n  }\n}\n")
+    head = sub(head, "namespace {\n", "__device__ unsigned long long umx_prof[8];\nnamespace {\n")
+    out["cycle counters"] = head + BLOCK_FORM + tail + PROF_READ
+    return out
+
+
+def block_bwd_forms(dev, smi: str) -> None:
+    """The variants of :func:`block_bwd_variants` at T 256, R 8, B 16 and G
+    640, each bit-equal to the kept form, in turns: microseconds a step."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    libs = build_all(block_bwd_variants((_build.CSRC / "lstm_train.cu").read_text()),
+                     entries={**{e: _build._SIGNATURES[e] for e in ("umx_lstm_bwd_block",)},
+                              "umx_prof_read": [ctypes.c_void_p]}, tag="block")
+    G_, B = 640, 16
+    fwd_in, cts = S.train_inputs(dev, T, B, G_, seed=2400 + G_)
+    xp, whh, h0, c0, _ = fwd_in
+    _, _, _, gates, cs = L.lstm_merged_train_fwd(*fwd_in)
+    nblk = -(-G_ // 40)
+    px = torch.empty(L.bwd_block_exchange_floats(R, G_, nblk), device=dev)
+    dxp = torch.empty((T, R * B, 4 * G_), device=dev)
+    dh0 = torch.empty((R * B, G_), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner_of(lib):
+        def run():
+            dc = cts[2].clone()
+            flags = torch.zeros(R * L.BWD_BLOCK_FLAG_WORDS, dtype=torch.int32, device=dev)
+            err = lib.umx_lstm_bwd_block(
+                gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), whh.data_ptr(),
+                cts[0].data_ptr(), cts[1].data_ptr(), dc.data_ptr(), dxp.data_ptr(),
+                dh0.data_ptr(), px.data_ptr(), flags.data_ptr(), T, R, B, G_, 5, 40, 0, R, 0, B,
+                0, stream)
+            S.require(err == 0, f"umx_lstm_bwd_block: CUDA error {err}")
+            return dxp, dh0, dc
+        return run
+
+    runs = {name: runner_of(lib) for name, lib in libs.items()}
+    kept = [x.clone() for x in runs["kept"]()]
+    for name, run in runs.items():
+        S.require(all(torch.equal(a, b) for a, b in zip(run(), kept)),
+                  f"the form {name!r} does not give the kept form's bits")
+    for rnd in range(3):
+        order = list(runs.items())[::(-1) ** rnd]
+        print(f"K5 block form, G {G_}, B {B}, round {rnd}, us per step  [{smi}]: " + "; ".join(
+            f"{name} {S.cuda_ms(run, 5) / T * 1e3:.3f}" for name, run in order), flush=True)
+    counters = (ctypes.c_ulonglong * 8)()
+    libs["cycle counters"].umx_prof_read(counters)  # clears what the timing runs counted
+    runs["cycle counters"]()
+    torch.cuda.synchronize()
+    libs["cycle counters"].umx_prof_read(counters)
+    n = max(1, counters[6])
+    names = ("wait for the flags", "partials from L2 and their sum",
+             "cell, bf16(dg) to shared memory, barrier", "product",
+             "exchange stores, barrier, release", "dxp stores, next coefficients")
+    print(f"K5 block form, G {G_}, B {B}, cycles per step of one thread over {n} steps  [{smi}]: "
+          + "; ".join(f"{what} {counters[e] / n:.0f}" for e, what in enumerate(names)),
+          flush=True)
+
+
 def k8_cluster(dev, smi: str) -> None:
     """K8 above n_fft 16384 on 8 rows of a 60 s segment: the cluster form
     beside the device-memory form (``_form="device"``) in turns, bit-equal,
@@ -1323,6 +1471,10 @@ def main() -> int:
         k8_mixed_at_4096(dev, smi)
     if "wide" in which:
         wide_forms(dev, smi)
+    if "wide_bwd" in which:
+        wide_bwd(dev, smi)
+    if "wide_bwd_forms" in which:
+        block_bwd_forms(dev, smi)
     if "k8_cluster" in which:
         k8_cluster(dev, smi)
     if "k8_cluster_forms" in which:

@@ -108,7 +108,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     operations over the peak rate, whichever is larger), the warm demix
     times of the 100 s track (fused, and the streaming one also through
     the host loop), and train steps/s; K6 must be no slower
-    than ``torch.bmm`` on the same operands, K8 no slower than
+    than ``torch.bmm`` on the same operands (``torch.bmm`` of the bf16
+    operands with ``out_dtype=torch.float32`` printed beside it), K8 no slower than
     ``torch.istft``, K8 at n_fft 4096 and 48 rows at most 1.05 times its
     1.4149 ms before it took every n_fft (its other sizes timed beside
     their plain version, ``torch.istft`` and their bound; above 16384 its
@@ -259,7 +260,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     bit-equal to themselves alone, three repeat runs bit-equal, K11's two
     forms bit-equal; both kernels in both forms (the resident one faster),
     the f32 dW ``torch.bmm`` and four ``nn.LSTM`` forward + backward calls
-    (a yardstick) timed at the UMX-L training shape beside their bounds;
+    (a yardstick) timed at the UMX-L training shape beside their bounds,
+    and both kernels at G 640 (their streaming form) beside plain and bound;
     ``train_loop`` under ``lstm_impl="scan"`` at UMX-L, 8 steps at batch 16
     x 256 frames (counts set to 0 before and read after: K10 with residuals
     and K11 three times a step, K4-K6 and K1 never), warm steps on one
@@ -288,7 +290,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     rows bit-equal alone, K4's hs/hT/cT K1's bits, timed beside plain and
     bound; the wide K1, K4 and K9 beside their streaming yardstick (K10's
     streaming kernel with h rounded to bf16, by name) in turns, which they
-    must beat.  Then, counts set to 0 just before
+    must beat; the wide K5 in its block form (W_hh on the chip, the
+    contraction split over a chain's blocks; its fields the plan's, a
+    repeat bit-equal) beside its streaming yardstick (K11's streaming sweep
+    with dg rounded to bf16) in turns, which it must beat.  Then, counts set to 0 just before
     and read just after each run: the CLI on phase 19's hidden-1280 model
     and its 20 s cut under ``--lstm-impl pallas_merged`` and ``--stream-impl
     pipelined`` (the wide K1, its block form and not the streaming one), and
@@ -298,7 +303,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     path on 5 s with float32 seams (2e-3 of the peak; K1/K9 at the path's
     inputs against plain, 5e-3; corr printed, not gated); hidden 2048 under
     ``pallas`` (K9's chains through the wide K1); ``train_loop`` 2 steps
-    under ``"pallas_merged"`` at hidden 1280 (the wide K4/K5) and 36
+    under ``"pallas_merged"`` at hidden 1280 (the wide K4/K5, both in their
+    block forms) and 36
     (padded); and ``umx_forward(compute="bfloat16")`` under ``"scan"`` on
     the card (K1, never K10) against the CPU at hidden 1280 and 36 (max
     2e-2 and RMS 2e-3 of the peak).  Its figures go under ``"width"``; the
@@ -2954,6 +2960,22 @@ def dw_bmm_ms(hs, h0, dxp, B) -> float:
     return cuda_ms(lambda: torch.bmm(hp, dg), 10)
 
 
+def dw_bmm_bf16_ms(hs, h0, dxp, B) -> float:
+    """Milliseconds of ``torch.bmm(bf16, bf16, out_dtype=torch.float32)`` on
+    K6's operands (h_{t-1} and dxp rounded to bf16, chain-major; f32 sums
+    and output): K6's function as one PyTorch call on bf16 operands (the
+    ``aten::bmm.dtype`` overload, which torch has for CUDA only), a
+    yardstick beside the f32 call of :func:`dw_bmm_ms`."""
+    import torch
+
+    T, RB, G = hs.shape
+    R = RB // B
+    hp = torch.cat([h0[None], hs[:-1]]).to(torch.bfloat16).view(
+        T, R, B, G).permute(1, 3, 0, 2).reshape(R, G, -1)
+    dg = dxp.to(torch.bfloat16).view(T, R, B, 4 * G).permute(1, 0, 2, 3).reshape(R, -1, 4 * G)
+    return cuda_ms(lambda: torch.bmm(hp, dg, out_dtype=torch.float32), 10)
+
+
 def train_inputs_at(dev, T, R, B, G, seed):
     """:func:`train_inputs` at R chains."""
     import torch
@@ -3955,6 +3977,7 @@ SCAN_TRAIN_LSTM_FIELDS = ("lstm_ih_w", "lstm_hh_w", "lstm_ih_b", "lstm_hh_b")
 # HBM3 at 700 W before W_hh stayed on the chip, printed beside the new ones
 SCAN_TRAIN_EARLIER_MS = {"lstm_scan_train_fwd": 4.5161, "lstm_scan_bwd_step": 6.3962}
 SCAN_TRAIN_HIDDEN = 1024  # UMX-L
+SCAN_TRAIN_WIDE_G = 640  # hidden 1280: the shape timed beside UMX-L's
 # the stress run of K10 and K11's tagged exchange
 STRESS_T, STRESS_BS, STRESS_GS, STRESS_LAUNCHES = 64, (1, 3, 6, 16, 20), (18, 256, 512, 640), 2000
 
@@ -3997,7 +4020,7 @@ def check_scan_train_kernels(dev, smi: str) -> dict:
     from umx_tpu_torch.ops import lstm_cuda as L
 
     fig = {"shapes": {}}
-    main = None
+    main = wide = None
     for G, B in SCAN_TRAIN_SHAPES:
         xp, whh, h0, c0, cts = scan_train_inputs(dev, T_TRAIN, B, G, seed=900 + G + B)
         fwd_ref = L.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
@@ -4055,6 +4078,8 @@ def check_scan_train_kernels(dev, smi: str) -> dict:
             require(same_bits, f"K11's two forms give other bits at G {G}, B {B}")
             if (G, B, form) == (G_HIDDEN, B_TRAIN, row["default_form"]):
                 main = (xp, whh, h0, c0, cts, gates, cs, fwd[0], out[0])
+            if (G, B, form) == (SCAN_TRAIN_WIDE_G, B_TRAIN, row["default_form"]):
+                wide = (xp, whh, h0, c0, cts, gates, cs)
             del fwd, k10, one
         forms = row["forms"]
         row.update(forms[row["default_form"]])
@@ -4121,6 +4146,28 @@ def check_scan_train_kernels(dev, smi: str) -> dict:
           f"{plain['lstm_scan_train_fwd']:.4f} ms, K11 {plain['lstm_scan_bwd_step']:.4f} ms  "
           f"[{smi}]")
     fig.update(ms=t, plain_ms=plain, bound=bounds)
+
+    # both kernels at hidden 1280's width in their default (streaming) form:
+    # time, plain time and bound
+    xp, whh, h0, c0, cts, gates, cs = wide
+    G = SCAN_TRAIN_WIDE_G
+    fwd_args, bwd_args = (xp, whh, h0, c0, B), (gates, cs, c0, whh, *cts, B)
+    step_bytes = T_TRAIN * rows * G * 4
+    fig["wide"] = {}
+    for name, fn, plain_fn, a, bound in (
+        ("lstm_scan_train_fwd", L.lstm_scan_train_fwd, L.lstm_scan_train_fwd_plain, fwd_args,
+         bound_ms(nbytes(*fwd_args[:4]) + (T_TRAIN + 2) * rows * G * 4 + 5 * step_bytes,
+                  2.0 * T_TRAIN * rows * G * 4 * G, "f32")),
+        ("lstm_scan_bwd_step", L.lstm_scan_bwd_step, L.lstm_scan_bwd_step_plain, bwd_args,
+         scan_bwd_bound(T_TRAIN, rows, G, bwd_args[:7])),
+    ):
+        ms = cuda_ms(lambda: fn(*a), 3)
+        plain_ms = cuda_ms(lambda: plain_fn(*a), 1)
+        fig["wide"][name] = {"G": G, "form": fn.form, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"{name} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}), form {fn.form}: {ms:.4f} ms = "
+              f"{ms / T_TRAIN * 1e3:.3f} us a step, plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]}  [{smi}]")
     return fig
 
 
@@ -4446,8 +4493,7 @@ WIDTH_ROWS = {
     "lstm_merged_train_fwd_padded": ("lstm_merged_train_fwd",
                                      "umx_tpu_torch/csrc/lstm_merged.cu",
                                      "umx_tpu/ops/lstm_pallas.py:323"),
-    "lstm_merged_bwd_step_wide": ("lstm_merged_bwd_step",
-                                  "umx_tpu_torch/csrc/lstm_scan_train.cu",
+    "lstm_merged_bwd_step_wide": ("lstm_merged_bwd_step", "umx_tpu_torch/csrc/lstm_train.cu",
                                   "umx_tpu/ops/lstm_pallas.py:397"),
     "lstm_merged_bwd_step_padded": ("lstm_merged_bwd_step", "umx_tpu_torch/csrc/lstm_train.cu",
                                     "umx_tpu/ops/lstm_pallas.py:397"),
@@ -4459,21 +4505,22 @@ WIDTH_ROWS = {
 }
 
 
-def wide_vs_streaming(name: str, fn, args, ref, smi: str):
+def wide_vs_streaming(name: str, fn, args, ref, smi: str, err_of=None):
     """The wide block form (``fn(*args)``) beside its streaming yardstick
     (``fn(*args, _form="wide_streaming")``) in turns: the yardstick within
-    5e-3 of the plain version's ``ref``, the wide form faster (a hard gate).
-    Returns (wide ms, streaming ms, the yardstick's max|err| vs plain)."""
+    5e-3 of the plain version's ``ref`` (by ``err_of``, max|err| unless
+    given), the wide form faster (a hard gate).  Returns (wide ms,
+    streaming ms, the yardstick's error vs plain)."""
     import torch
 
     streaming = fn(*args, _form="wide_streaming")
     torch.cuda.synchronize()
     form = fn.form
-    err = max(max_err(a, b) for a, b in zip(streaming, ref))
+    err = max((err_of or max_err)(a, b) for a, b in zip(streaming, ref))
     stream_ms, ms = paired_ms(lambda: fn(*args, _form="wide_streaming"), lambda: fn(*args), 1,
                               f"{name} streaming vs wide")
     print(f"{name}: wide block form {ms:.4f} ms against its streaming yardstick {stream_ms:.4f} "
-          f"ms (form {form}, max|err| vs plain {err:.3g}), in turns  [{smi}]")
+          f"ms (form {form}, error vs plain {err:.3g}), in turns  [{smi}]")
     require(form[0] == "wide_streaming" and err <= 5e-3, f"{name} streaming: {form}, {err}")
     require(ms < stream_ms, f"{name}: the wide block form ({ms} ms) is not faster than the "
             f"streaming form ({stream_ms} ms)")
@@ -4554,10 +4601,12 @@ def width_forward_rows(dev, smi: str) -> dict:
 
 
 def width_train_rows(dev, smi: str) -> dict:
-    """Phase 21a: K4 and K5 in their wide form (G 640) and padded (G 18) at
-    the training shape (T 256, R 8, B 16): against their plain versions
-    (5e-3; K5 of each output's largest entry), K4's hs/hT/cT K1's bits, rows
-    alone bit-equal, timed beside plain and bound."""
+    """Phase 21a: K4 and K5 in their wide form (G 640: both block forms with
+    W_hh on the chip, K5's fields the plan's) and padded (G 18) at the
+    training shape (T 256, R 8, B 16): against their plain versions (5e-3;
+    K5 of each output's largest entry), K4's hs/hT/cT K1's bits, rows alone
+    and repeats bit-equal, timed beside plain and bound; the wide forms
+    beside their streaming yardstick in turns, which they must beat."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda as L
@@ -4575,8 +4624,10 @@ def width_train_rows(dev, smi: str) -> dict:
         bwd = L.lstm_merged_bwd_step(*bwd_in)
         torch.cuda.synchronize()
         b_form = L.lstm_merged_bwd_step.form
-        berr = max(rel_err(a, b) for a, b in zip(bwd, L.lstm_merged_bwd_step_plain(*bwd_in)))
-        babs = max(max_err(a, b) for a, b in zip(bwd, L.lstm_merged_bwd_step_plain(*bwd_in)))
+        bwd_ref = L.lstm_merged_bwd_step_plain(*bwd_in)
+        berr = max(rel_err(a, b) for a, b in zip(bwd, bwd_ref))
+        babs = max(max_err(a, b) for a, b in zip(bwd, bwd_ref))
+        stable = all(torch.equal(a, b) for a, b in zip(L.lstm_merged_bwd_step(*bwd_in), bwd))
         alone = True
         for picks in ([0], sorted({B // 3, B - 1})):
             r = torch.tensor([c * B + b for c in range(R_CHAINS) for b in picks], device=dev)
@@ -4600,30 +4651,45 @@ def width_train_rows(dev, smi: str) -> dict:
                          cuda_ms(lambda: L.lstm_merged_train_fwd_plain(*fwd_in), 1)),
                  "bwd": (cuda_ms(lambda: L.lstm_merged_bwd_step(*bwd_in), 3),
                          cuda_ms(lambda: L.lstm_merged_bwd_step_plain(*bwd_in), 1))}
-        yardstick = {}
+        yardstick = {"fwd": {}, "bwd": {}}
         if suffix == "wide":
             ref = L.lstm_merged_train_fwd_plain(*fwd_in)
             wide_ms, stream_ms, _ = wide_vs_streaming("lstm_merged_train_fwd_wide",
                                                       L.lstm_merged_train_fwd, fwd_in, ref, smi)
-            yardstick = {"ms_in_turns": wide_ms, "streaming_ms": stream_ms}
+            yardstick["fwd"] = {"ms_in_turns": wide_ms, "streaming_ms": stream_ms}
             del ref
+            # K5's block form: the plan's fields, then beside its streaming
+            # yardstick (K11's streaming sweep with dg rounded to bf16)
+            plan = L.merged_bwd_wide_plan(G, R_CHAINS, *L.device_limits(dev.index))
+            require(b_form[0] == "wide" and b_form[1] == plan.blocks_per_chain
+                    and b_form[5] == plan.units and b_form[4] == len(
+                        L.resident_row_groups(B, plan.rows)),
+                    f"K5 at G {G} ran form {b_form}, not the block form of {plan}")
+            wide_ms, stream_ms, _ = wide_vs_streaming("lstm_merged_bwd_step_wide",
+                                                      L.lstm_merged_bwd_step, bwd_in, bwd_ref,
+                                                      smi, err_of=rel_err)
+            yardstick["bwd"] = {"ms_in_turns": wide_ms, "streaming_ms": stream_ms,
+                                "plan": plan._asdict()}
         for key, name, form, err in (("fwd", "lstm_merged_train_fwd", f_form, ferr),
                                      ("bwd", "lstm_merged_bwd_step", b_form, babs)):
             rows[f"{name}_{suffix}"] = {"G": G, "form": form, "max_abs_err": err,
                                         "ms": times[key][0], "plain_ms": times[key][1],
                                         "bound": bounds[key], "rows_alone_bit_equal": alone,
-                                        **(yardstick if key == "fwd" else {})}
+                                        **yardstick[key]}
+        rows[f"lstm_merged_bwd_step_{suffix}"].update(rel_err=berr, bit_stable=stable)
         print(f"K4/K5 {suffix} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): forward max|err| "
               f"{ferr:.3g} (hs/hT/cT K1's bits {k1_bits}), sweep max|err|/max|ref| {berr:.3g}; "
-              f"forms {f_form} {b_form}; rows alone bit-equal {alone}; K4 {times['fwd'][0]:.4f} "
-              f"ms (plain {times['fwd'][1]:.4f}, bound {bounds['fwd'][0]:.4f}), K5 "
-              f"{times['bwd'][0]:.4f} ms (plain {times['bwd'][1]:.4f}, bound "
-              f"{bounds['bwd'][0]:.4f})  [{smi}]")
-        require(ferr <= 5e-3 and berr <= 5e-3 and k1_bits and alone,
-                f"K4/K5 {suffix} at G {G}: {ferr}, {berr}, K1 bits {k1_bits}, alone {alone}")
+              f"forms {f_form} {b_form}; rows alone bit-equal {alone}; K5 repeat bit-equal "
+              f"{stable}; K4 {times['fwd'][0]:.4f} ms (plain {times['fwd'][1]:.4f}, bound "
+              f"{bounds['fwd'][0]:.4f}), K5 {times['bwd'][0]:.4f} ms "
+              f"({times['bwd'][0] / T_TRAIN * 1e3:.3f} us a step; plain {times['bwd'][1]:.4f}, "
+              f"bound {bounds['bwd'][0]:.4f} by {bounds['bwd'][1]})  [{smi}]")
+        require(ferr <= 5e-3 and berr <= 5e-3 and k1_bits and alone and stable,
+                f"K4/K5 {suffix} at G {G}: {ferr}, {berr}, K1 bits {k1_bits}, alone {alone}, "
+                f"K5 bit-stable {stable}")
         require((f_form[0] == "wide") == (b_form[0] == "wide") == (suffix == "wide"),
                 f"K4/K5 at G {G} ran forms {f_form} {b_form}")
-        del fwd_in, cts, fwd, bwd, bwd_in, xp, whh, h0, c0
+        del fwd_in, cts, fwd, bwd, bwd_in, bwd_ref, xp, whh, h0, c0
     return rows
 
 
@@ -4770,6 +4836,9 @@ def width_phase(dev, tmp: str, mix, counters: dict, smi: str) -> dict:
                 f"hidden {hidden} under pallas_merged did not train through K4-K6: {launches}")
         require((forms[0][0] == "wide") == (forms[1][0] == "wide") == (suffix == "wide"),
                 f"hidden {hidden}: forms {forms}")
+        # the wide K4 and K5 in their block forms (units a block), not streaming
+        require(suffix != "wide" or (len(forms[0]) == 6 and len(forms[1]) == 6),
+                f"hidden {hidden}: K4/K5 did not run their block forms: {forms}")
         for k in ("lstm_merged_train_fwd", "lstm_merged_bwd_step"):
             launches_of[f"{k}_{suffix}"] = launches.get(k, 0)
         fig["train"][suffix] = {"hidden": hidden, "losses": list(map(float, hist)), "s": wall,
@@ -5087,6 +5156,7 @@ def main() -> int:
 
     library = dict.fromkeys(times)
     library["lstm_merged_dw"] = dw_bmm_ms(*train_args["lstm_merged_dw"])
+    k6_bf16_call_ms = dw_bmm_bf16_ms(*train_args["lstm_merged_dw"])
     library["istft_ct2"] = istft_library_ms(*k8_shape)
     require(times["istft_ct2"][0] <= library["istft_ct2"],
             f"istft_ct2 ({times['istft_ct2'][0]} ms) is slower than torch.istft "
@@ -5176,7 +5246,8 @@ def main() -> int:
           f"{'K9' if k9_now < k1_ms else 'K1'} is the faster at one row per chain); "
           f"lstm_merged_dw {times['lstm_merged_dw'][0]:.4f} ms (earlier form "
           f"{EARLIER['lstm_merged_dw_ms']}) against torch.bmm f32 "
-          f"{library['lstm_merged_dw']:.4f} ms  [{smi}]")
+          f"{library['lstm_merged_dw']:.4f} ms and torch.bmm(bf16, bf16, out_dtype=float32) "
+          f"{k6_bf16_call_ms:.4f} ms (printed, not gated)  [{smi}]")
     require(k9_now < EARLIER["lstm_layer_pertarget_ms"],
             f"lstm_layer_pertarget ({k9_now} ms) is not faster than its earlier form "
             f"({EARLIER['lstm_layer_pertarget_ms']} ms)")
@@ -5352,11 +5423,14 @@ def main() -> int:
     for name in ("lstm_scan_train_fwd", "lstm_scan_bwd_step"):
         row = next(k for k in kernels if k["name"] == name)
         row["streaming_ms"] = st_kernels["ms"][f"{name}_streaming"]
+        row["at_g640"] = st_kernels["wide"][name]
     # K1's launches by chain count on the CLI's pipelined run (phase 18)
     kernels[0]["pipelined_launches_by_chains"] = stream["k1_chain_launches"]
     kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
     next(k for k in kernels if k["name"] == "lstm_scan")["nn_lstm_x4_yardstick_ms"] = \
         scan["nn_lstm_x4_ms"]
+    next(k for k in kernels if k["name"] == "lstm_merged_dw")["library_bf16_out_f32_ms"] = \
+        k6_bf16_call_ms
     k11 = next(k for k in kernels if k["name"] == "lstm_scan_bwd_step")
     k11["nn_lstm_x4_fwd_bwd_yardstick_ms"] = st_kernels["ms"]["nn_lstm_x4_fwd_bwd"]
     k11["dw_bmm_ms"] = st_kernels["ms"]["lstm_scan_dw_bmm"]

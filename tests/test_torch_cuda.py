@@ -208,6 +208,72 @@ def test_wide_forms_are_chosen_from_the_width(dev):
         lstm_cuda.lstm_merged(*small, 1, _form="wide")
 
 
+@pytest.mark.parametrize("G, B", [(520, 16), (640, 16), (640, 3), (644, 9), (1024, 17)])
+def test_wide_k5_block_form_holds_w_hh_on_the_chip(dev, G, B):
+    """The wide K5 (G above 512) in the block form ``merged_bwd_wide_plan``
+    picks from the card's figures (padded to the next multiple of 8): its
+    shared memory as the kernel reports it, its form fields the plan's,
+    against plain and against the streaming yardstick run by name (5e-3 of
+    each output's largest entry), rows bit-equal alone, a repeat bit-equal."""
+    T, R = 6, 8
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, T, R, B, G, seed=G + B)
+    _, _, _, gates, cs = lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, B)
+    args = (gates, cs, c0, whh, dhs, dhT, dcT, B)
+    Gp = lstm_cuda.merged_width(G)
+    plan = lstm_cuda.merged_bwd_wide_plan(Gp, R, *lstm_cuda.device_limits(dev.index))
+    assert plan is not None and plan.kreg + plan.ksmem == plan.mtw * plan.units // 4
+    blocks, smem = lstm_cuda.bwd_block_layout(dev.index, plan.mtw, plan.units, plan.rows)
+    assert smem == plan.smem and blocks >= plan.blocks_per_chain * plan.chains_per_group
+    before = lstm_cuda.lstm_merged_bwd_step.launches
+    out = lstm_cuda.lstm_merged_bwd_step(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_merged_bwd_step.launches == before + 1
+    form = lstm_cuda.lstm_merged_bwd_step.form
+    groups = lstm_cuda.chain_groups(R, plan.blocks_per_chain, form[2], "K5")
+    assert form == ("wide", plan.blocks_per_chain, blocks, len(groups),
+                    len(lstm_cuda.resident_row_groups(B, plan.rows)), plan.units)
+    ref = lstm_cuda.lstm_merged_bwd_step_plain(*args)
+    for name, k, p in zip(("dxp", "dh0", "dc0"), out, ref):
+        assert k.shape == p.shape and _rel(k, p) <= 5e-3, name
+    streaming = lstm_cuda.lstm_merged_bwd_step(*args, _form="wide_streaming")
+    assert lstm_cuda.lstm_merged_bwd_step.form[0] == "wide_streaming"
+    for k, p in zip(streaming, ref):
+        assert _rel(k, p) <= 5e-3
+    for picks in ([0], [B - 1], sorted({1, B // 2, B - 1})):
+        rows = torch.tensor([r * B + b for r in range(R) for b in picks], device=dev)
+
+        def sub(x):
+            return (x[:, rows] if x.dim() == 3 else x[rows]).contiguous()
+
+        one = lstm_cuda.lstm_merged_bwd_step(sub(gates), sub(cs), sub(c0), whh, sub(dhs),
+                                             sub(dhT), sub(dcT), len(picks))
+        assert all(torch.equal(a, sub(b)) for a, b in zip(one, out)), picks
+    assert all(torch.equal(a, b) for a, b in zip(lstm_cuda.lstm_merged_bwd_step(*args), out))
+
+
+def test_wide_k5_streams_above_the_block_forms(dev):
+    """Above ``BWD_WIDE_G_MAX`` the wide K5 streams W_hh, chosen from the
+    width; the block form by name is refused there, and a wide form by name
+    at a resident width."""
+    limits = lstm_cuda.device_limits(dev.index)
+    G = lstm_cuda.BWD_WIDE_G_MAX + 8
+    assert lstm_cuda.merged_bwd_wide_plan(lstm_cuda.BWD_WIDE_G_MAX, 1, *limits) is not None
+    assert lstm_cuda.merged_bwd_wide_plan(G, 1, *limits) is None
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, 2, 1, 1, G, seed=3)
+    _, _, _, gates, cs = lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, 1)
+    args = (gates, cs, c0, whh, dhs, dhT, dcT, 1)
+    out = lstm_cuda.lstm_merged_bwd_step(*args)
+    assert lstm_cuda.lstm_merged_bwd_step.form[0] == "wide_streaming"
+    for k, p in zip(out, lstm_cuda.lstm_merged_bwd_step_plain(*args)):
+        assert _rel(k, p) <= 5e-3
+    with pytest.raises(RuntimeError, match="no block form"):
+        lstm_cuda.lstm_merged_bwd_step(*args, _form="wide")
+    (xp, whh, h0, c0), (dhs, dhT, dcT) = _train_case(dev, 2, 1, 1, 512, seed=3)
+    _, _, _, gates, cs = lstm_cuda.lstm_merged_train_fwd_plain(xp, whh, h0, c0, 1)
+    with pytest.raises(ValueError, match="form must be"):
+        lstm_cuda.lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, 1, _form="wide")
+
+
 def test_train_kernels_take_b96(dev):
     """K4 and K5 above the 81 rows per chain that K4's earlier form could
     hold: six row groups each, against plain."""

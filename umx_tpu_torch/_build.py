@@ -98,6 +98,12 @@ _SIGNATURES = {
     # xp, whh, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0, stream
     "umx_lstm_merged_streaming": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _U, _P],
+    # mtw, units, rows, blocks (out), smem (out)
+    "umx_lstm_bwd_block_layout": [_I, _I, _I, _P, _P],
+    # gates, cs, c0, whh, dhs, dhT, dc, dxp, dh0, px, flags, T, R, B, G, mtw, units, r0, nr, b0,
+    # nb, tag0, stream
+    "umx_lstm_bwd_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _U, _P],
     # G, rows, blocks, smem, w_regs (out)
     "umx_lstm_bwd_wide_capacity": [_I, _P, _P, _P, _P],
     # gates, cs, c0, wt, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,

@@ -73,13 +73,16 @@
 // bits, and a row's bits do not depend on B, the row group or what runs
 // beside it: a row is bit-equal to itself run alone.
 //
-// The wide merged backward (umx_lstm_bwd_wide; K5 above G 512, where a
-// warp's slice of bf16 W_hh no longer fits lstm_train.cu's registers) is
-// the streaming form with the compile-time flag ROUND_DG and wt in bf16: the
-// gate cotangents are rounded to bf16 (round to nearest even) where they
-// enter the product, so every product is bf16(dg) x bf16(W_hh), exact in
-// f32, summed in f32: K5's function (ops/lstm_cuda.py:
-// lstm_merged_bwd_step_plain).  dxp and the carries stay unrounded f32.
+// The streaming merged backward (umx_lstm_bwd_wide) is the streaming form
+// with the compile-time flag ROUND_DG and wt in bf16: the gate cotangents
+// are rounded to bf16 (round to nearest even) where they enter the
+// product, so every product is bf16(dg) x bf16(W_hh), exact in f32, summed
+// in f32: K5's function (ops/lstm_cuda.py:lstm_merged_bwd_step_plain).
+// dxp and the carries stay unrounded f32.  It is the yardstick of K5's
+// block form (lstm_train.cu, W_hh on the chip above G 512; by name,
+// _form="wide_streaming"), and K5's form above the widest G a block form
+// holds (ops/lstm_cuda.py:BWD_WIDE_G_MAX, 1024 on an H100), where it reads
+// W_hh from L2 every step.
 //
 // Rows beyond a launch's 16 and chains beyond what the card holds at once
 // are further launches of the same kernel, planned by the wrapper; tag0
@@ -183,7 +186,7 @@ __device__ __forceinline__ void poll_words(const volatile unsigned long long* sr
   }
 }
 
-// dg as the product takes it: rounded to bf16 and back in the wide merged
+// dg as the product takes it: rounded to bf16 and back in the streaming merged
 // backward, else as it is
 template <bool ROUND_DG>
 __device__ __forceinline__ float operand(float x) {
@@ -203,7 +206,7 @@ __device__ __forceinline__ unsigned long long tagged(unsigned tag, float v) {
 // the block's 128 columns (128 x RT, column-major) and the chain's
 // partials of the block's 32 units (nblk x RT x 32).  hx: exchange words
 // (R, 2, nblk, SB_ROWS, G), zeroed before the layer's first launch.
-// ROUND_DG: the wide merged backward (dg rounded to bf16 for the product).
+// ROUND_DG: the streaming merged backward (dg rounded to bf16 for the product).
 template <typename W, int RT, bool ROUND_DG = false>
 __global__ void __launch_bounds__(SB_THREADS, 1)
 lstm_scan_bwd_kernel(const float* __restrict__ gates,  // (T, RB, 4G)
@@ -589,7 +592,7 @@ size_t bwd_smem(int G, int rt) {
 }
 
 // The instantiation of the form (resident = 1 or streaming) for row tile rt
-// and W_hh storage (round_dg: the wide merged backward, streaming with bf16
+// and W_hh storage (round_dg: the streaming merged backward, streaming with bf16
 // W_hh only), with the dynamic shared memory it needs allowed, and its block
 // size; cudaErrorInvalidValue for a tile it does not have or a width the
 // resident form does not take (G > 512).
@@ -624,7 +627,7 @@ cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int round_dg, int G, 
 // 128 columns x G, f32) that stay in registers (the rest is in shared
 // memory; 0 in the streaming form).  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
-// round_dg: the wide merged backward's instantiation (umx_lstm_bwd_wide).
+// round_dg: the streaming merged backward's instantiation (umx_lstm_bwd_wide).
 int bwd_capacity(int resident, int G, int whh_bf16, int round_dg, int* rows, int* blocks,
                  int* smem, int* w_regs) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
@@ -689,8 +692,8 @@ extern "C" int umx_lstm_scan_bwd_capacity(int resident, int G, int whh_bf16, int
   return bwd_capacity(resident, G, whh_bf16, 0, rows, blocks, smem, w_regs);
 }
 
-// The wide merged backward's launch geometry (umx_lstm_scan_bwd_capacity of
-// the streaming form with bf16 W_hh and rounded dg).
+// The streaming merged backward's launch geometry (umx_lstm_scan_bwd_capacity
+// of the streaming form with bf16 W_hh and rounded dg).
 extern "C" int umx_lstm_bwd_wide_capacity(int G, int* rows, int* blocks, int* smem,
                                           int* w_regs) {
   return bwd_capacity(0, G, 1, 1, rows, blocks, smem, w_regs);
@@ -713,7 +716,8 @@ extern "C" int umx_lstm_scan_bwd(int resident, const float* gates, const float* 
                     B, G, r0, nr, b0, nb, rt, tag0, stream);
 }
 
-// K5 above G 512, the wide merged backward: umx_lstm_scan_bwd's streaming
+// The streaming merged backward (K5 above the widest G of its block form in
+// lstm_train.cu, and that form's yardstick): umx_lstm_scan_bwd's streaming
 // launch with wt = W_hh transposed, (R, 4G, G) bf16, and dg rounded to bf16
 // for the product.  The arguments and the exchange buffer are
 // umx_lstm_scan_bwd's.

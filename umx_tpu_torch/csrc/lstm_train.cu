@@ -63,7 +63,46 @@
 // traps instead of hanging the card.  After step 0 one more product gives
 // dh0.  Rows beyond 16 and chains beyond what the card holds at once are
 // further launches, planned by the wrapper; G above 512 is refused
-// (cudaErrorInvalidConfiguration).  Requires G % 8 == 0.
+// (cudaErrorInvalidConfiguration): there the block form below runs.
+// Requires G % 8 == 0.
+//
+// K5's block form (the wide K5, G above 512).  What bounds it: a chain's
+// bf16 W_hh is 8 G^2 bytes, 3.28 MB at G 640 (UMX-style chains of hidden
+// 1280), 26.2 MB for R 8, against the card's 63.8 MB of registers and shared
+// memory; read from L2 every step (the streaming sweep, lstm_scan_train.cu)
+// it costs about 58 us a step.  The resident form's split (a block owns 32
+// units against all 4G columns, the 4G columns of dg staged from the
+// exchange) needs 20 blocks a chain at G 640, 160 for R 8, more than one
+// wave; a block of 48 units would need 80 KiB of staged dg rows and 27 KiB
+// of warp partials beside 240 KiB of W_hh, more than an SM holds at 16
+// rows.  So this form splits the contraction instead (K11's "partial"
+// exchange, in bf16 on the tensor cores): block b of a chain owns U units
+// [bU, bU + U) and their 4U gate columns of the contraction, and W_hh^T of
+// those columns for EVERY unit of the chain (G x 4U bf16, loaded once and
+// kept on the chip: the first KREG of a warp's k-tiles as mma A-fragments
+// in registers, the rest in shared memory, 16 bytes a thread and tile, in
+// the order the thread holds them).  A step: the block's cells (its U units
+// x the launch's rows, several a thread) form dg of its own 4U columns and
+// write bf16(dg) into shared memory, where the block's own product reads
+// it: dg never leaves the block.  The product's m dimension is the chain's
+// units (warp w takes m-tiles w, w + 8, ...), its k dimension the block's
+// local columns (local column l is gate l / U of unit bU + l % U), its n
+// the rows: each warp sums its m-tiles over all KL local k-tiles in one
+// accumulator each, ascending, and stores the f32 sums, G a row, to the
+// exchange, a block's slice of it; then the block's flag is released, as
+// the resident form releases its own.  A cell's carry is the sum of the
+// nblk blocks' partials of its (unit, row), read from L2 (ld.global.cg)
+// after warp 0 has seen every flag of the chain, added in block order: one
+// order, set by the form, whatever B, the row group or the chains beside.
+// The exchange is double-buffered by step parity, its tags and trap as the
+// resident form's.  No warp partials meet in shared memory, and shared
+// memory holds only W_hh's shared tiles and the block's own dg rows (5 KiB
+// at 16 rows), so a launch takes 16 rows.  The forms (bww_kernel below,
+// ops/lstm_cuda.py:BWD_BLOCK_FORMS; 8 warps, so a thread may have 255
+// registers, not the 168 of a 10-warp block): 40 units a block and 5
+// m-tiles a warp up to G 640 (16 blocks a chain: R 8 in one wave of 128
+// blocks; 24 of a warp's 50 tiles in registers), 32 units and 8 m-tiles up
+// to G 1024 (two chain groups for R 8); wider chains stream.
 //
 // K6, the weight gradient.  What bounds it: 2 * R*G*4G*T*B flops (69 GFLOP
 // per layer at UMX-L training, T*B = 4096) on bf16-rounded operands, which
@@ -447,7 +486,341 @@ lstm_bwd_resident_kernel(const float* __restrict__ gates,        // (T, RB, 4G)
   }
 }
 
-constexpr int DW_BM = 128;      // dW rows (hidden units) per K6 block
+// ---------------------------------------------------------------------------
+// K5's block form (G above 512)
+// ---------------------------------------------------------------------------
+
+constexpr int BWW_WARPS = 8;
+constexpr int BWW_THREADS = 32 * BWW_WARPS;
+constexpr int BWW_FLAGS = 128;  // flag words per chain: one per block, four lines
+constexpr int BWW_PCHUNK = 8;   // partials a cell has in flight
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+// Dynamic shared memory of a block of the form (MTW m-tiles a warp, KL local
+// k-tiles, KREG of a warp's tiles in registers) at a row tile of `rows`: the
+// shared tiles (16 bytes a thread each) and the block's bf16 dg rows.
+__host__ __device__ constexpr size_t bww_smem_bytes(int mtw, int kl, int kreg, int rows) {
+  return (size_t)16 * (mtw * kl - kreg) * BWW_THREADS + (size_t)4 * rows * (8 * kl + BW_DPAD);
+}
+
+// grid = (blocks a chain, chains of this launch), BWW_THREADS threads.  NT
+// n-tiles of 8 rows; a block owns U = 4 KL units.  px: exchange (R, 2,
+// blocks a chain, BW_ROWS, G) f32; flags (R, BWW_FLAGS) words, zeroed by the
+// caller before the layer's first launch; tag0 as the resident form's.
+template <int NT, int MTW, int KL, int KREG>
+__global__ void __launch_bounds__(BWW_THREADS, 1)
+lstm_bwd_block_kernel(const float* __restrict__ gates,        // (T, RB, 4G)
+                      const float* __restrict__ cs,           // (T, RB, G)
+                      const float* __restrict__ c0,           // (RB, G)
+                      const __nv_bfloat16* __restrict__ whh,  // (R, G, 4G)
+                      const float* __restrict__ dhs,          // (T, RB, G)
+                      const float* __restrict__ dhT,          // (RB, G)
+                      float* __restrict__ dc,                 // (RB, G), in place
+                      float* __restrict__ dxp,                // (T, RB, 4G)
+                      float* __restrict__ dh0,                // (RB, G)
+                      float* px, unsigned* flags, int T, int R, int B, int b0, int nb, int G,
+                      int r0, unsigned tag0) {
+  constexpr int U = 4 * KL;      // units a block owns: 4U local columns, KL k-tiles
+  constexpr int ROWS = 8 * NT;   // rows of the launch's row tile
+  constexpr int CELLS = (U * ROWS + BWW_THREADS - 1) / BWW_THREADS;
+  constexpr int TILES = MTW * KL;  // a warp's A tiles; tile s = kt * MTW + i
+  constexpr int SW = 2 * U + BW_DPAD;  // words per dg row; SW % 32 in {4, 20}
+  static_assert(KREG <= TILES, "register tiles beyond the warp's tiles");
+  extern __shared__ __align__(16) unsigned char bww_smem[];
+  uint4* w_s = reinterpret_cast<uint4*>(bww_smem);  // (TILES - KREG, warps, 32 lanes)
+  uint32_t* dgl =                                    // (ROWS, SW) words of bf16 pairs
+      reinterpret_cast<uint32_t*>(bww_smem + (size_t)16 * (TILES - KREG) * BWW_THREADS);
+  unsigned short* dgh = reinterpret_cast<unsigned short*>(dgl);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // mma group: tile rows g and g + 8, B/C column g
+  const int tq = lane & 3;
+  const int r = r0 + blockIdx.y;
+  const int nblk = gridDim.x;
+  const int G4 = 4 * G;
+  const int RB = R * B;
+  const int MT = (G + 15) / 16;  // m-tiles of the chain's units
+  const int u0 = blockIdx.x * U;
+
+  // A-fragments: m = unit v of the chain, k = local column l, the gate
+  // l / U of unit u0 + l % U.  Register 0: (unit 16 m + g, columns 2tq,
+  // 2tq+1 of the k-tile), 1: (unit + 8, same), 2/3: the columns 8 higher.
+  // l is even and U is even, so a register is two neighbouring units of
+  // one gate: one aligned 32-bit load.  Zero beyond G.
+  uint32_t wf[KREG > 0 ? KREG : 1][4];
+  {
+    const unsigned short* wr = reinterpret_cast<const unsigned short*>(whh) + (size_t)r * G * G4;
+    auto word = [&](int v, int l) -> uint32_t {
+      const int u = u0 + l % U;
+      if (v >= G || u >= G) return 0u;
+      return *reinterpret_cast<const uint32_t*>(wr + (size_t)v * G4 + (size_t)(l / U) * G + u);
+    };
+#pragma unroll
+    for (int s = 0; s < TILES; ++s) {
+      const int kt = s / MTW;
+      const int m = warp + BWW_WARPS * (s % MTW);
+      const int va = m * 16 + g;
+      const int l = kt * 16 + 2 * tq;
+      uint32_t a[4] = {0u, 0u, 0u, 0u};
+      if (m < MT) {
+        a[0] = word(va, l);
+        a[1] = word(va + 8, l);
+        a[2] = word(va, l + 8);
+        a[3] = word(va + 8, l + 8);
+      }
+      if (s < KREG) {  // a constant once unrolled; the guard keeps wf's index in range
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wf[s < KREG ? s : 0][e] = a[e];
+      } else {
+        // the thread's own slot: no other thread reads it, so no barrier
+        w_s[((s - KREG) * BWW_WARPS + warp) * 32 + lane] = make_uint4(a[0], a[1], a[2], a[3]);
+      }
+    }
+  }
+
+  // The cells: cell c = tid + BWW_THREADS e is unit u0 + c % U, row c / U
+  // of the row tile (neighbouring threads, neighbouring units).
+  bool valid[CELLS];
+  int uu[CELLS], nn[CELLS];
+  size_t row[CELLS];
+  float dcc[CELLS], cs_cur[CELLS];
+  BwdCoef k[CELLS];
+  float nx[CELLS][6];  // the next step's i, f, g, o, dhs, cprev
+#pragma unroll
+  for (int j = 0; j < CELLS; ++j) {
+    const int c = tid + BWW_THREADS * j;
+    nn[j] = c / U;
+    uu[j] = u0 + c % U;
+    valid[j] = c < U * ROWS && uu[j] < G && nn[j] < nb;
+    row[j] = (size_t)r * B + b0 + nn[j];
+    dcc[j] = cs_cur[j] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 6; ++e) nx[j][e] = 0.0f;
+  }
+
+  const size_t x_step = (size_t)RB * G4;
+  const size_t h_step = (size_t)RB * G;
+  auto load_step = [&](int j, int t) {
+    const float* gp = gates + (size_t)t * x_step + row[j] * G4 + uu[j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) nx[j][q] = gp[(size_t)q * G];
+    nx[j][4] = dhs[(size_t)t * h_step + row[j] * G + uu[j]];
+    nx[j][5] =
+        t > 0 ? cs[(size_t)(t - 1) * h_step + row[j] * G + uu[j]] : c0[row[j] * G + uu[j]];
+  };
+  auto prefetch_step = [&](int j, int t) {
+    const float* gp = gates + (size_t)t * x_step + row[j] * G4 + uu[j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) prefetch_l2(gp + (size_t)q * G);
+    prefetch_l2(dhs + (size_t)t * h_step + row[j] * G + uu[j]);
+    if (t > 0) prefetch_l2(cs + (size_t)(t - 1) * h_step + row[j] * G + uu[j]);
+  };
+  // the resident form's cell, with its explicit roundings
+  auto coefficients = [&](int j) {
+    const float ig = nx[j][0], fg = nx[j][1], gg = nx[j][2], og = nx[j][3];
+    const float tc = tanhf(cs_cur[j]);
+    k[j].dhs = nx[j][4];
+    k[j].a = __fmul_rn(og, __fsub_rn(1.0f, __fmul_rn(tc, tc)));
+    k[j].i = __fmul_rn(__fmul_rn(gg, ig), __fsub_rn(1.0f, ig));
+    k[j].f = __fmul_rn(__fmul_rn(nx[j][5], fg), __fsub_rn(1.0f, fg));
+    k[j].g = __fmul_rn(ig, __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+    k[j].o = __fmul_rn(__fmul_rn(tc, og), __fsub_rn(1.0f, og));
+    k[j].fg = fg;
+    cs_cur[j] = nx[j][5];
+  };
+
+#pragma unroll
+  for (int j = 0; j < CELLS; ++j) {
+    if (valid[j]) {
+      dcc[j] = dc[row[j] * G + uu[j]];
+      cs_cur[j] = cs[(size_t)(T - 1) * h_step + row[j] * G + uu[j]];
+      load_step(j, T - 1);
+      if (T > 1) prefetch_step(j, T - 2);
+      if (T > 2) prefetch_step(j, T - 3);
+    }
+    coefficients(j);
+  }
+
+  // Rows beyond nb, units beyond G and the padding stay zero.
+  for (int i = tid; i < ROWS * SW; i += BWW_THREADS) dgl[i] = 0u;
+  __syncthreads();
+
+  const size_t slice = (size_t)BW_ROWS * G;  // one block's partials of a step
+  float* px_r = px + (size_t)r * 2 * nblk * slice;
+  unsigned* flag_r = flags + (size_t)r * BWW_FLAGS;
+
+  // Iteration i handles step t = T - 1 - i; iteration T only forms dh0.
+  for (int i = 0; i <= T; ++i) {
+    const int t = T - 1 - i;
+    if (t >= 1) {
+#pragma unroll
+      for (int j = 0; j < CELLS; ++j) {
+        if (valid[j]) {
+          load_step(j, t - 1);
+          if (t >= 3) prefetch_step(j, t - 3);
+        }
+      }
+    }
+
+    float carry[CELLS];
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < CELLS; ++j) carry[j] = valid[j] ? dhT[row[j] * G + uu[j]] : 0.0f;
+    } else {
+      // every block of the chain has published its partials of the step
+      // before: warp 0 waits for the flags, the barrier holds the others
+      const unsigned want = tag0 + (unsigned)i;
+      if (warp == 0) {
+        for (int bb = lane; bb < nblk; bb += 32) {
+          unsigned polled = 0;
+          while ((int)(ld_acquire(flag_r + bb) - want) < 0) {
+            if (++polled > BW_MAX_POLLS) __trap();
+          }
+        }
+      }
+      __syncthreads();
+      // the nblk partials of each cell, BWW_PCHUNK in flight, added in
+      // block order
+      const float* src = px_r + (size_t)((i - 1) & 1) * nblk * slice;
+#pragma unroll
+      for (int j = 0; j < CELLS; ++j) carry[j] = 0.0f;
+      for (int c0b = 0; c0b < nblk; c0b += BWW_PCHUNK) {
+        float p[CELLS][BWW_PCHUNK];
+#pragma unroll
+        for (int e = 0; e < BWW_PCHUNK; ++e) {
+#pragma unroll
+          for (int j = 0; j < CELLS; ++j) {
+            p[j][e] = (valid[j] && c0b + e < nblk)
+                          ? __ldcg(src + (size_t)(c0b + e) * slice + (size_t)nn[j] * G + uu[j])
+                          : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < BWW_PCHUNK; ++e) {
+          if (c0b + e < nblk) {
+#pragma unroll
+            for (int j = 0; j < CELLS; ++j)
+              carry[j] = c0b + e == 0 ? p[j][e] : __fadd_rn(carry[j], p[j][e]);
+          }
+        }
+      }
+    }
+
+    if (i == T) {
+#pragma unroll
+      for (int j = 0; j < CELLS; ++j) {
+        if (valid[j]) {
+          dh0[row[j] * G + uu[j]] = carry[j];
+          dc[row[j] * G + uu[j]] = dcc[j];
+        }
+      }
+      break;
+    }
+
+    float dg[CELLS][4];
+#pragma unroll
+    for (int j = 0; j < CELLS; ++j) {
+      if (valid[j]) {
+        const float dh = __fadd_rn(carry[j], k[j].dhs);
+        const float dct = __fmaf_rn(dh, k[j].a, dcc[j]);
+        dg[j][0] = __fmul_rn(dct, k[j].i);
+        dg[j][1] = __fmul_rn(dct, k[j].f);
+        dg[j][2] = __fmul_rn(dct, k[j].g);
+        dg[j][3] = __fmul_rn(dh, k[j].o);
+        dcc[j] = __fmul_rn(dct, k[j].fg);
+        // local column q U + (unit - u0) of row nn
+        unsigned short* de = dgh + (size_t)nn[j] * 2 * SW + (uu[j] - u0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) de[q * U] = (unsigned short)bf16_bits(dg[j][q]);
+      }
+    }
+    __syncthreads();
+
+    // the product: this warp's m-tiles over the block's KL k-tiles
+    float acc[MTW][NT][4];
+#pragma unroll
+    for (int a = 0; a < MTW; ++a)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < KL; ++kt) {
+      uint32_t bfr[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t* bp = dgl + (j * 8 + g) * SW + kt * 8 + tq;
+        bfr[j][0] = bp[0];
+        bfr[j][1] = bp[4];
+      }
+#pragma unroll
+      for (int a = 0; a < MTW; ++a) {
+        const int s = kt * MTW + a;
+        if (warp + BWW_WARPS * a < MT) {
+          uint32_t fa[4];
+          if (s < KREG) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) fa[e] = wf[s < KREG ? s : 0][e];
+          } else {
+            const uint4 a4 = w_s[((s - KREG) * BWW_WARPS + warp) * 32 + lane];
+            fa[0] = a4.x;
+            fa[1] = a4.y;
+            fa[2] = a4.z;
+            fa[3] = a4.w;
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[a][j], fa, bfr[j][0], bfr[j][1]);
+        }
+      }
+    }
+    // accumulator (unit 16 m + g [+ 8], row j*8 + 2tq [+ 1]) -> this
+    // block's slice of the exchange, (row, unit)
+    float* dst = px_r + ((size_t)(i & 1) * nblk + blockIdx.x) * slice;
+#pragma unroll
+    for (int a = 0; a < MTW; ++a) {
+      const int va = (warp + BWW_WARPS * a) * 16 + g;
+      if (va - g < G) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n0 = j * 8 + 2 * tq;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int v = va + (e >> 1) * 8;
+            const int n = n0 + (e & 1);
+            if (v < G && n < nb) dst[(size_t)n * G + v] = acc[a][j][e];
+          }
+        }
+      }
+    }
+    // every thread's exchange stores, then the block's flag; the barrier
+    // also frees the dg rows for the next step's cells
+    __syncthreads();
+    if (tid == 0) st_release(flag_r + blockIdx.x, tag0 + (unsigned)i + 1u);
+
+    // dxp after the flag, so that the release does not wait for it
+#pragma unroll
+    for (int j = 0; j < CELLS; ++j) {
+      if (valid[j]) {
+        float* dx = dxp + (size_t)t * x_step + row[j] * G4 + uu[j];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dx[(size_t)q * G] = dg[j][q];
+      }
+    }
+
+    // the next step's coefficients, while the flag travels
+    if (t >= 1) {
+#pragma unroll
+      for (int j = 0; j < CELLS; ++j) coefficients(j);
+    }
+  }
+}
+
+constexpr int DW_BM = 128;     // dW rows (hidden units) per K6 block
 constexpr int DW_BN = 128;      // dW columns (gate columns) per K6 block
 constexpr int DW_BK = 32;       // (t, b) pairs per shared-memory stage
 constexpr int DW_LD = DW_BM + 8;  // bf16 per staged row: 272 bytes, conflict-free ldmatrix
@@ -601,7 +974,105 @@ lstm_dw_kernel(const float* __restrict__ hs,    // (T, RB, G)
   }
 }
 
+using bww_fn = void (*)(const float*, const float*, const float*, const __nv_bfloat16*,
+                        const float*, const float*, float*, float*, float*, float*, unsigned*,
+                        int, int, int, int, int, int, int, unsigned);
+
+// K5's block forms, (m-tiles a warp, units a block) -> (k-tiles a warp keeps
+// in registers): 5 m-tiles and 40 units (G <= 640), 24 of 50 tiles; 8
+// m-tiles and 32 units (G <= 1024), 20 of 64.  ops/lstm_cuda.py:
+// BWD_BLOCK_FORMS mirrors the table.  0: no such form.
+int bww_kreg(int mtw, int units) {
+  return mtw == 5 && units == 40 ? 24 : mtw == 8 && units == 32 ? 20 : 0;
+}
+
+// The instantiation of the form for nb rows a chain; nullptr for a form the
+// table has not.
+bww_fn bww_kernel(int mtw, int units, int nb) {
+  const bool two = nb > 8;
+  if (mtw == 5 && units == 40)
+    return two ? lstm_bwd_block_kernel<2, 5, 10, 24> : lstm_bwd_block_kernel<1, 5, 10, 24>;
+  if (mtw == 8 && units == 32)
+    return two ? lstm_bwd_block_kernel<2, 8, 8, 20> : lstm_bwd_block_kernel<1, 8, 8, 20>;
+  return nullptr;
+}
+
+// The kernel for (mtw, units, nb) with the dynamic shared memory it asks
+// for allowed; cudaErrorInvalidValue for a form the table has not.
+cudaError_t bww_setup(int mtw, int units, int nb, bww_fn* fn, size_t* smem) {
+  *fn = bww_kernel(mtw, units, nb);
+  if (*fn == nullptr) return cudaErrorInvalidValue;
+  *smem = bww_smem_bytes(mtw, units / 4, bww_kreg(mtw, units), nb > 8 ? 16 : 8);
+  return cudaFuncSetAttribute((const void*)*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
 }  // namespace
+
+// K5's block form on the current device: blocks of the form (mtw m-tiles a
+// warp, `units` units a block) at a row tile of `rows` (8 or 16): `smem`,
+// the dynamic shared memory a block asks for, and `blocks`, how many such
+// blocks the device holds at once (0 where a block's shared memory is more
+// than the device allows).  Returns the first CUDA error;
+// cudaErrorInvalidConfiguration where the device has no cooperative launch.
+extern "C" int umx_lstm_bwd_block_layout(int mtw, int units, int rows, int* blocks, int* smem) {
+  int dev = 0, sms = 0, coop = 0, smem_max = 0, per_sm = 0;
+  *blocks = 0;
+  *smem = 0;
+  if ((rows != 8 && rows != BW_ROWS) || bww_kernel(mtw, units, rows) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorInvalidConfiguration;
+  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  *smem = (int)bww_smem_bytes(mtw, units / 4, bww_kreg(mtw, units), rows);
+  if (*smem > smem_max) return (int)cudaSuccess;
+  bww_fn fn = nullptr;
+  size_t bytes = 0;
+  e = bww_setup(mtw, units, rows, &fn, &bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)fn, BWW_THREADS, bytes);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = per_sm * sms;
+  return (int)cudaSuccess;
+}
+
+// K5's block form: one launch, the whole reverse sweep of chains [r0, r0 +
+// nr) and rows [b0, b0 + nb) of each, nb <= 16, in the form (mtw, units),
+// which must hold G (ceil(G/16) <= 8 mtw m-tiles, at most 128 blocks a
+// chain).  `dc` holds dcT on entry and dc0 on return for those rows.  `px`
+// is the exchange, R * 2 * ceil(G/units) * 16 * G f32; `flags` R * 128
+// words, zeroed before the layer's first launch; `tag0` the number of steps
+// earlier launches ran on the same buffers.  Returns the first CUDA error.
+extern "C" int umx_lstm_bwd_block(const float* gates, const float* cs, const float* c0,
+                                  const void* whh, const float* dhs, const float* dhT, float* dc,
+                                  float* dxp, float* dh0, void* px, void* flags, int T, int R,
+                                  int B, int G, int mtw, int units, int r0, int nr, int b0, int nb,
+                                  unsigned tag0, void* stream) {
+  if (G % 8 != 0 || G < 8 || T < 1 || B < 1 || nb < 1 || nb > BW_ROWS || b0 < 0 ||
+      b0 + nb > B || nr < 1 || r0 < 0 || r0 + nr > R || units < 8 ||
+      (G + 15) / 16 > BWW_WARPS * mtw || (G + units - 1) / units > BWW_FLAGS)
+    return (int)cudaErrorInvalidValue;
+  bww_fn fn = nullptr;
+  size_t smem = 0;
+  cudaError_t e = bww_setup(mtw, units, nb, &fn, &smem);
+  if (e != cudaSuccess) return (int)e;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(whh);
+  float* pxp = static_cast<float*>(px);
+  unsigned* fl = static_cast<unsigned*>(flags);
+  void* args[] = {&gates, &cs, &c0, &w,  &dhs, &dhT, &dc, &dxp, &dh0, &pxp,
+                  &fl,    &T,  &R,  &B,  &b0,  &nb,  &G,  &r0,  &tag0};
+  const dim3 grid((G + units - 1) / units, nr);
+  e = cudaLaunchCooperativeKernel((const void*)fn, grid, dim3(BWW_THREADS), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 // K5: how many of its blocks the current device holds at once at width G
 // (what a cooperative launch may ask for).  Returns the first CUDA error;

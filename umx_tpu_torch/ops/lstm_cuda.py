@@ -28,14 +28,17 @@ K1, K4, K5 and K9 take every width, as the TPU kernels do
 padded by zero units (:func:`at_width`: a zero unit's gates are 0, its c
 and h stay exactly 0 and it adds +0 to every real sum, so the cut result
 is the unpadded function's); above G 512, where a warp's slice of W_hh no
-longer fits its registers, the "wide" forms.  K1 and K4 stay resident
-there: the same kernel in another block form (:func:`merged_wide_plan`),
-its further k-tiles of bf16 W_hh in shared memory; only where no block
-form holds one chain (above G 1952 on an H100) do they stream W_hh from
-L2 each step (K10's streaming kernel with the product's h rounded to
-bf16, the form they took before, kept by name as their yardstick).  K5's
-wide form is K11's streaming sweep with dg rounded to bf16.  K9 runs its
-chains through the wide K1 where no cluster holds a chain's W_hh.
+longer fits its registers, the "wide" forms, padded the same way.  K1 and
+K4 stay resident there: the same kernel in another block form
+(:func:`merged_wide_plan`), its further k-tiles of bf16 W_hh in shared
+memory; only where no block form holds one chain (above G 1952 on an
+H100) do they stream W_hh from L2 each step (K10's streaming kernel with
+the product's h rounded to bf16, the form they took before, kept by name
+as their yardstick).  K5 keeps W_hh on the chip too, in a block form that
+splits the contraction over a chain's blocks (:func:`merged_bwd_wide_plan`,
+``csrc/lstm_train.cu``); above G 1024 it streams (K11's streaming sweep
+with dg rounded to bf16, its yardstick by name).  K9 runs its chains
+through the wide K1 where no cluster holds a chain's W_hh.
 - K10 :func:`lstm_scan` (``csrc/lstm_scan.cu``): the float32 recurrence
   of the JAX package's ``lax.scan`` (``_bilstm_layer``, its
   ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
@@ -418,6 +421,103 @@ def merged_wide_plan(G: int, R: int, sms: int, smem_per_block: int,
     return None if best is None else best[1]
 
 
+# K5's block forms (csrc/lstm_train.cu:bww_kreg): (m-tiles of 16 units a
+# warp takes of the chain's product, units a block owns, k-tiles of 16 gate
+# columns a warp keeps in registers).  A block has 8 warps; it owns its
+# units' 4 x units gate columns of the contraction (units / 4 local
+# k-tiles) against every unit of the chain, so a warp has m-tiles x units /
+# 4 tiles of W_hh^T, the first in registers, the rest in shared memory.
+# The first form that holds G runs it: the sum order is the form's, so the
+# form depends on G and the card alone, never on R or B.
+BWD_BLOCK_FORMS = ((5, 40, 24), (8, 32, 20))
+BWD_BLOCK_WARPS = 8
+# registers a thread of each form uses beside its register tiles, by
+# m-tiles a warp (ptxas on sm_90a gives both forms 255 a thread at two
+# n-tiles of rows: 96 and 80 of them tiles)
+BWD_BLOCK_OTHER_REGS = {5: 159, 8: 175}
+BWD_BLOCK_FLAG_WORDS = 128  # flag words a chain: one per block
+# The widest G the block forms hold (8 warps x 8 m-tiles x 16 units); above
+# it the wide K5 streams W_hh.  At 1024 a chain is 32 blocks of 32 units,
+# 8.4 MB of bf16 W_hh; R 8 run as two chain groups of four.
+BWD_WIDE_G_MAX = 1024
+
+
+def bwd_block_smem(mtw: int, units: int, kreg: int, rows: int) -> int:
+    """Dynamic shared memory of a block of K5's block form at a row tile of
+    ``rows`` (8 or 16): the shared tiles, 16 bytes a thread each, and the
+    block's bf16 dg rows, rows x (2 units + 4) words
+    (``csrc/lstm_train.cu:bww_smem_bytes``)."""
+    return 16 * (mtw * units // 4 - kreg) * 32 * BWD_BLOCK_WARPS + 4 * rows * (2 * units + 4)
+
+
+class BwdBlockPlan(NamedTuple):
+    """A block form of the wide K5 (:func:`merged_bwd_wide_plan`)."""
+
+    mtw: int  # m-tiles of 16 units a warp takes of the chain's product
+    units: int  # units a block owns (and their 4 x units gate columns)
+    kreg: int  # tiles of W_hh^T a warp keeps in registers
+    ksmem: int  # tiles a warp keeps in shared memory
+    rows: int  # rows per chain a launch takes: 16, or 8
+    blocks_per_chain: int
+    chains_per_group: int  # chains a launch holds, one block an SM
+    smem: int  # dynamic shared memory a block asks for
+
+
+def merged_bwd_wide_plan(G: int, R: int, sms: int, smem_per_block: int,
+                         regs_per_sm: int) -> BwdBlockPlan | None:
+    """The block form the wide K5 runs R chains of width G (a multiple of
+    8) in, from the card's figures alone (:func:`merged_wide_plan`'s): the
+    first form of ``BWD_BLOCK_FORMS`` whose warps' m-tiles cover the chain's
+    units, whose blocks a chain are no more than the SMs (and its flag
+    words), whose thread's registers fit what a thread of 8 warps may have
+    (:func:`merged_thread_regs`) and whose shared memory (at 16 rows, else
+    8) fits a block.  The form does not depend on R (a chain's bits do not
+    depend on the chains beside it); R sets the chains a launch holds.
+    None where no form holds one chain (G above ``BWD_WIDE_G_MAX`` on an
+    H100): the wide K5 then streams W_hh."""
+    if G < 8 or G % 8:
+        raise ValueError(f"the block forms take G % 8 == 0, got {G}")
+    for mtw, units, kreg in BWD_BLOCK_FORMS:
+        per_chain = -(-G // units)
+        if (-(-G // 16) > BWD_BLOCK_WARPS * mtw or per_chain > min(sms, BWD_BLOCK_FLAG_WORDS)
+                or 4 * kreg + BWD_BLOCK_OTHER_REGS[mtw] > merged_thread_regs(BWD_BLOCK_WARPS,
+                                                                             regs_per_sm)):
+            continue
+        rows = next((r for r in (RESIDENT_ROWS, 8)
+                     if bwd_block_smem(mtw, units, kreg, r) <= smem_per_block), None)
+        if rows is None:
+            continue
+        tiles = mtw * units // 4
+        return BwdBlockPlan(mtw, units, kreg, tiles - kreg, rows, per_chain,
+                            min(R, sms // per_chain), bwd_block_smem(mtw, units, kreg, rows))
+    return None
+
+
+def bwd_block_exchange_floats(R: int, G: int, blocks_per_chain: int) -> int:
+    """f32 elements of the block form's exchange: per chain two steps of
+    each block's partial sums, 16 rows of G units."""
+    return R * 2 * blocks_per_chain * RESIDENT_ROWS * G
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_block_layout(index: int, mtw: int, units: int, rows: int) -> tuple[int, int]:
+    """What K5's block form (``mtw``, ``units``) reports of itself on CUDA
+    device ``index`` at a row tile of ``rows``, asked once: (the blocks the
+    device holds at once, the dynamic shared memory a block asks for)."""
+    import ctypes
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().umx_lstm_bwd_block_layout(mtw, units, rows,
+                                                         ctypes.addressof(blocks),
+                                                         ctypes.addressof(smem))
+    if err == _CUDA_ERROR_INVALID_CONFIGURATION:
+        raise RuntimeError("K5: this device has no cooperative launch, which the block form "
+                           "needs")
+    _build.check(err, "umx_lstm_bwd_block_layout")
+    return blocks.value, smem.value
+
+
 @functools.lru_cache(maxsize=None)
 def device_limits(index: int) -> tuple[int, int, int]:
     """(SMs, the shared memory a block may ask for, registers an SM) of
@@ -463,18 +563,20 @@ def _aligned(G: int) -> int:
 def merged_form(G: int) -> str:
     """The form K1, K4 and K5 take at width G, chosen before any launch:
     "resident" (W_hh in registers; G % 8 != 0 padded to the next multiple
-    of 8) up to ``RESIDENT_G_MAX``, "wide" above (K1 and K4 in a wider
-    block form with W_hh on the chip, :func:`merged_wide_plan`; K5
-    streaming W_hh)."""
+    of 8) up to ``RESIDENT_G_MAX``, "wide" above (W_hh on the chip in a
+    block form: K1 and K4 in a wider form of their kernel,
+    :func:`merged_wide_plan`; K5 in a form that splits the contraction over
+    a chain's blocks, :func:`merged_bwd_wide_plan`; each streaming W_hh
+    where no block form holds a chain)."""
     if G < 1:
         raise ValueError(f"G must be positive, got {G}")
     return "resident" if G <= RESIDENT_G_MAX else "wide"
 
 
 def merged_width(G: int) -> int:
-    """The width the resident kernel launches at, in K1's block form and
-    the wide ones: G rounded up to a multiple of 8 (K5's wide form streams
-    at G itself)."""
+    """The width the resident kernels and the block forms of K1, K4 and K5
+    launch at: G rounded up to a multiple of 8 (the streaming yardsticks
+    run at G itself)."""
     return _aligned(G)
 
 
@@ -663,16 +765,24 @@ lstm_merged_train_fwd.launches = 0
 lstm_merged_train_fwd.form = None
 
 
-def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int, *,
+                         _form: str | None = None):
     """K5: the reverse-time sweep → (dxp (T, R*B, 4G), dh0, dc0), all f32.
     One launch runs all T steps (and the product that gives dh0) of all
     chains and up to 16 rows per chain; further rows and chains are
-    further launches, any B.  Any G, in :func:`merged_form`'s form: up to
-    512 resident (W_hh in registers, G % 8 != 0 padded by zero units), the
-    wide form above (K11's streaming sweep with the gate cotangents rounded
-    to bf16 for the product, from a transposed bf16 copy of W_hh).  Leaves
-    its form in ``lstm_merged_bwd_step.form`` (as :func:`lstm_merged`'s)
-    and counts ``lstm_merged_bwd_step.launches`` once per sweep."""
+    further launches, any B.  Any G, in :func:`merged_form`'s form (G % 8
+    != 0 padded by zero units): up to 512 resident (W_hh in registers, a
+    block owns 32 units against all 4G gate columns), above in a block form
+    that keeps bf16 W_hh in registers and shared memory with the
+    contraction split over the chain's blocks (:func:`merged_bwd_wide_plan`;
+    the private ``_form`` names "wide" or its streaming yardstick
+    "wide_streaming", K11's streaming sweep with the gate cotangents rounded
+    to bf16 for the product, which also runs where no block form holds a
+    chain).  The form that ran is left in ``lstm_merged_bwd_step.form``:
+    resident as (blocks per chain, blocks the device holds at once, chain
+    groups, row groups), the block form as ("wide", the same four, units a
+    block), streaming as ("wide_streaming", the same four).  Counts
+    ``lstm_merged_bwd_step.launches`` once per sweep."""
     T, R, G = _dims(gates, whh, B)
     RB = R * B
     route = _check(gates, [
@@ -681,12 +791,22 @@ def lstm_merged_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
         ("dhs", dhs, (T, RB, G), torch.float32), ("dhT", dhT, (RB, G), torch.float32),
         ("dcT", dcT, (RB, G), torch.float32),
     ])
+    if _form is not None and (_form not in MERGED_WIDE_FORMS or merged_form(G) != "wide"):
+        raise ValueError(f"form must be None or, above G {RESIDENT_G_MAX}, one of "
+                         f"{MERGED_WIDE_FORMS}; got {_form!r} at G = {G}")
     if route == "cpu":
         return lstm_merged_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B)
     args = (gates, cs, c0, whh, dhs, dhT, dcT, B)
+    Gp = merged_width(G)
     if merged_form(G) == "wide":
-        return _wide_bwd(*args)
-    return at_width(_resident_bwd, G, merged_width(G), args, _BWD_KINDS, _BWD_OUT)
+        plan = merged_bwd_wide_plan(Gp, R, *device_limits(gates.device.index))
+        form = _form or ("wide" if plan is not None else "wide_streaming")
+        if form == "wide_streaming":
+            return _streaming_bwd(*args)
+        if plan is None:
+            raise RuntimeError(f"no block form of K5 holds one chain at G = {G} on this device")
+        return at_width(lambda *a: _block_bwd(*a, plan), G, Gp, args, _BWD_KINDS, _BWD_OUT)
+    return at_width(_resident_bwd, G, Gp, args, _BWD_KINDS, _BWD_OUT)
 
 
 def _resident_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
@@ -709,6 +829,41 @@ def _resident_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
             flags.data_ptr(), T, R, B, G, r0, nr, b0, nb, launched * T, _stream(gates),
         )
         _build.check(err, "umx_lstm_bwd")
+    lstm_merged_bwd_step.launches += 1
+    return dxp, dh0, dc
+
+
+def _block_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int, plan: BwdBlockPlan):
+    """K5's block form on checked CUDA tensors at G % 8 == 0: the launches
+    of one layer over the plan's chain and row groups."""
+    T, R, G = _dims(gates, whh, B)
+    RB = R * B
+    _check_whh_vectors(whh, G)
+    dev = gates.device
+    capacity, smem = bwd_block_layout(dev.index, plan.mtw, plan.units, plan.rows)
+    if smem != plan.smem:
+        raise RuntimeError(f"K5's block form's shared memory {smem} is not the planned "
+                           f"{plan.smem} (G {G}, {plan.units} units, {plan.rows} rows)")
+    chains = chain_groups(R, plan.blocks_per_chain, capacity, f"K5's block form at G = {G}")
+    rows = resident_row_groups(B, plan.rows)
+    lstm_merged_bwd_step.form = ("wide", plan.blocks_per_chain, capacity, len(chains), len(rows),
+                                 plan.units)
+    dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
+    dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
+    px = torch.empty(bwd_block_exchange_floats(R, G, plan.blocks_per_chain),
+                     dtype=torch.float32, device=dev)
+    flags = torch.zeros(R * BWD_BLOCK_FLAG_WORDS, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    groups = [(r0, nr, b0, nb) for r0, nr in chains for b0, nb in rows]
+    for launched, (r0, nr, b0, nb) in enumerate(groups):
+        err = lib.umx_lstm_bwd_block(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), whh.data_ptr(), dhs.data_ptr(),
+            dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), px.data_ptr(),
+            flags.data_ptr(), T, R, B, G, plan.mtw, plan.units, r0, nr, b0, nb, launched * T,
+            _stream(gates),
+        )
+        _build.check(err, "umx_lstm_bwd_block")
     lstm_merged_bwd_step.launches += 1
     return dxp, dh0, dc
 
@@ -1073,8 +1228,8 @@ def scan_exchange_words(R: int, G: int) -> int:
 def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
                       form: str = "streaming") -> tuple[int, int, int, int]:
     """What ``kernel`` ("K10", "K10r" with the residual stores, or "K11";
-    "K1w", "K4w": the merged streaming forms, "K5w": the wide K5, the
-    streaming kernels with bf16 operands, ``form`` "wide") in ``form`` at width G, W_hh in bf16 or
+    "K1w", "K4w", "K5w": the streaming K1, K4 and K5, the streaming kernels
+    with bf16 operands, ``form`` "wide") in ``form`` at width G, W_hh in bf16 or
     f32, reports of itself on CUDA device ``index``, asked once: (the
     largest row tile, the blocks of it held at once, the dynamic shared
     memory a block of that tile asks for, the bytes of a full block's share
@@ -1347,9 +1502,9 @@ def lstm_layer_scan_batched(x_proj, hh_w, h0, c0):
     return _batched_outputs(*out, x_proj.shape)
 
 
-# ---- the streaming forms of K1 and K4 (their yardstick above G 512) and
-# the wide K5 (csrc/lstm_scan.cu and csrc/lstm_scan_train.cu with their bf16
-# operand flags)
+# ---- the streaming forms of K1, K4 and K5 (their yardstick above G 512,
+# and their form where no block form holds a chain; csrc/lstm_scan.cu and
+# csrc/lstm_scan_train.cu with their bf16 operand flags)
 
 
 def _streaming_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
@@ -1385,14 +1540,18 @@ def _streaming_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     return (hs, hT, cT, *extra)
 
 
-def _wide_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
-    """The wide K5 on checked CUDA tensors: K11's streaming sweep with the
-    gate cotangents rounded to bf16 for the product against a transposed
-    bf16 copy of W_hh, K5's function."""
+def _streaming_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
+    """The streaming K5 on checked CUDA tensors (the block form's yardstick,
+    and the wide K5 where no block form holds a chain): K11's streaming
+    sweep with the gate cotangents rounded to bf16 for the product against
+    a transposed bf16 copy of W_hh, K5's function, at any G.  Leaves
+    ("wide_streaming", blocks per chain, blocks the device holds at once,
+    chain groups, row groups) in ``lstm_merged_bwd_step.form``."""
     T, R, G = _dims(gates, whh, B)
     RB = R * B
     wrapper = lstm_merged_bwd_step
     plan = _scan_plan(wrapper, "K5w", gates, R, B, G, True, "wide")
+    wrapper.form = ("wide_streaming", *wrapper.form[1:])
     dev = gates.device
     dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
     dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)

@@ -5,7 +5,7 @@ the ones kept, and where a step of each kept recurrence goes.
 
     python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce] [scan] [k8]   (all when none is named)
     python3 chip_forms.py k11_streaming [earlier lstm_scan_train.cu ...]
-    python3 chip_forms.py wide k8_cluster wide_bwd wide_bwd_forms
+    python3 chip_forms.py wide k8_cluster wide_bwd wide_bwd_forms scan_wide
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -39,6 +39,9 @@ streaming yardstick, in turns; ``wide_bwd``: the wide K5 in its block form
 streaming yardstick, in turns (``wide_bwd_forms``: variants of it, in
 turns); ``k8_cluster``: K8's cluster form beside its
 device-memory form and torch.istft above n_fft 16384.
+``scan_wide``: K10, K10 with residuals and K11 in their wide forms (G
+above 512: W_hh on the chip in shares of 20 units) at G 640 and 520, each
+against its plain version and beside the streaming form in turns.
 ``k11_streaming [FILE ...]``: K11's streaming form at T 256, R 8, B 16 and G
 512 and 640, in turns against earlier sources of ``csrc/lstm_scan_train.cu``
 named on the command line (for example one written by ``git show
@@ -969,7 +972,7 @@ def scan_forms(dev, smi: str) -> None:
 
     for T, B, G, dt in SCAN_K10_SHAPES:
         xp, whh, h0, c0, _ = S.scan_inputs(dev, T, B, G, seed=T + B + G, dtype=dt)
-        forms = [f for f in L.SCAN_FORMS if f == "streaming" or G <= L.SCAN_RESIDENT_G_MAX]
+        forms = list(S.scan_forms_at(G))
         ref = L.lstm_scan_plain(xp, whh, h0, c0, B)
         errs = {}
         for f in forms:
@@ -983,17 +986,116 @@ def scan_forms(dev, smi: str) -> None:
     xp, whh, h0, c0, cts = S.scan_train_inputs(dev, T, B, G, seed=5)
     _, _, _, gates, cs = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
     ref = L.lstm_scan_bwd_step_plain(gates, cs, c0, whh, *cts, B)
-    outs = {f: L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form=f) for f in L.SCAN_FORMS}
+    outs = {f: L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form=f)
+            for f in S.scan_forms_at(G)}
     print(f"lstm_scan_bwd_step T {T}, B {B}, G {G}: of max|out| vs plain "
           f"{ {f: max(S.rel_to_max(a, b) for a, b in zip(o, ref)) for f, o in outs.items()} }; "
           f"the forms bit-equal: "
           f"{all(torch.equal(a, b) for a, b in zip(outs['resident'], outs['streaming']))}",
           flush=True)
     turns(f"lstm_scan_train_fwd T {T}, B {B}, G {G}",
-          {f: (lambda f=f: L.lstm_scan_train_fwd(xp, whh, h0, c0, B, _form=f)) for f in L.SCAN_FORMS}, T)
+          {f: (lambda f=f: L.lstm_scan_train_fwd(xp, whh, h0, c0, B, _form=f))
+           for f in S.scan_forms_at(G)}, T)
     turns(f"lstm_scan_bwd_step T {T}, B {B}, G {G}",
           {f: (lambda f=f: L.lstm_scan_bwd_step(gates, cs, c0, whh, *cts, B, _form=f))
-           for f in L.SCAN_FORMS}, T)
+           for f in S.scan_forms_at(G)}, T)
+
+
+def scan_wide(dev, smi: str, widths=(640, 520)) -> None:
+    """K10, K10 with residuals and K11 in their wide forms (G above 512,
+    W_hh on the chip in shares of 20 units over more blocks): the ptxas
+    lines of their instantiations from the build log, then at each width
+    their form against the plan, the plain version (K10 at 1e-4, K11 at
+    1e-4 of each output's largest entry), whether K10 gives the streaming
+    form's bits (printed: another order), K10r's hs/hT/cT against K10's,
+    rows alone and a repeat bit-equal, and each beside the streaming form
+    in turns: K10 at T 2584, R 8, B 1 (and bf16 W_hh), K10r and K11 at T
+    256, R 8, B 16; microseconds a step."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    _build.library()
+    log = _build.library_path().with_name(_build.library_path().name + ".log").read_text()
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "wide_kernel" in line and "Compiling entry" in line and "scan" in line:
+            print(line.strip()[:160], "|", " | ".join(x.strip() for x in lines[i + 1:i + 4]))
+    R = S.R_CHAINS
+    for G in widths:
+        for T, B, dt in ((S.T_SEG, 1, "float32"), (S.T_SEG, 1, "bfloat16"),
+                         (S.T_TRAIN, S.B_TRAIN, "float32")):
+            args = S.scan_inputs(dev, T, B, G, seed=2100 + G + B, dtype=dt)
+            xp, whh, h0, c0, _ = args
+            out = L.lstm_scan(*args)
+            torch.cuda.synchronize()
+            form = L.lstm_scan.form
+            plan = L.scan_wide_plan(G, R, *L.device_limits(dev.index))
+            ref = L.lstm_scan_plain(*args)
+            err = max(S.max_err(a, b) for a, b in zip(out, ref))
+            stream = L.lstm_scan(*args, _form="streaming")
+            same = all(torch.equal(a, b) for a, b in zip(out, stream))
+            again = all(torch.equal(a, b) for a, b in zip(L.lstm_scan(*args), out))
+            alone = True
+            if B > 1:
+                for picks in ([0], [B - 1], [1, 8, 9]):
+                    rows = torch.tensor([c * B + b for c in range(R) for b in picks], device=dev)
+                    one = L.lstm_scan(xp[:, rows].contiguous(), whh, h0[rows].contiguous(),
+                                      c0[rows].contiguous(), len(picks))
+                    alone &= (torch.equal(one[0], out[0][:, rows])
+                              and torch.equal(one[1], out[1][rows])
+                              and torch.equal(one[2], out[2][rows]))
+            stream_ms, ms = S.paired_ms(lambda: L.lstm_scan(*args, _form="streaming"),
+                                        lambda: L.lstm_scan(*args), 1, f"K10 G {G} B {B} {dt}")
+            print(f"lstm_scan T {T}, R {R}, B {B}, G {G}, W_hh {dt}: form {form}, plan {plan}; "
+                  f"max|err| vs plain {err:.3g}; bit-equal to streaming {same}; rows alone "
+                  f"{alone}; repeat {again}; {ms:.4f} ms ({ms / T * 1e3:.3f} us a step), "
+                  f"streaming {stream_ms:.4f} ms ({stream_ms / T * 1e3:.3f} us a step), "
+                  f"{stream_ms / ms:.2f} x  [{smi}]", flush=True)
+            del args, xp, whh, h0, c0, out, ref, stream
+        T, B = S.T_TRAIN, S.B_TRAIN
+        xp, whh, h0, c0, cts = S.scan_train_inputs(dev, T, B, G, seed=2200 + G)
+        fwd = L.lstm_scan_train_fwd(xp, whh, h0, c0, B)
+        k10 = L.lstm_scan(xp, whh, h0, c0, B)
+        fwd_bits = all(torch.equal(a, b) for a, b in zip(fwd[:3], k10))
+        fwd_ref = L.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
+        fwd_err = max(S.max_err(a, b) for a, b in zip(fwd, fwd_ref))
+        _, _, _, gates, cs = fwd
+        bargs = (gates, cs, c0, whh, *cts, B)
+        out = L.lstm_scan_bwd_step(*bargs)
+        torch.cuda.synchronize()
+        form = L.lstm_scan_bwd_step.form
+        ref = L.lstm_scan_bwd_step_plain(*bargs)
+        err = max(S.rel_to_max(a, b) for a, b in zip(out, ref))
+        stream = L.lstm_scan_bwd_step(*bargs, _form="streaming")
+        serr = max(S.rel_to_max(a, b) for a, b in zip(stream, ref))
+        again = all(torch.equal(a, b) for a, b in zip(L.lstm_scan_bwd_step(*bargs), out))
+        alone = True
+        for picks in ([0], [B - 1], [1, 8, 9]):
+            rows = torch.tensor([c * B + b for c in range(R) for b in picks], device=dev)
+
+            def part(x):
+                return (x[:, rows] if x.dim() == 3 else x[rows]).contiguous()
+
+            one = L.lstm_scan_bwd_step(part(gates), part(cs), part(c0), whh,
+                                       *(part(c) for c in cts), len(picks))
+            alone &= all(torch.equal(a, part(b)) for a, b in zip(one, out))
+        fs_ms, f_ms = S.paired_ms(lambda: L.lstm_scan_train_fwd(xp, whh, h0, c0, B,
+                                                                 _form="streaming"),
+                                  lambda: L.lstm_scan_train_fwd(xp, whh, h0, c0, B), 1,
+                                  f"K10r G {G}")
+        bs_ms, b_ms = S.paired_ms(lambda: L.lstm_scan_bwd_step(*bargs, _form="streaming"),
+                                  lambda: L.lstm_scan_bwd_step(*bargs), 1, f"K11 G {G}")
+        print(f"lstm_scan_train_fwd T {T}, R {R}, B {B}, G {G}: form "
+              f"{L.lstm_scan_train_fwd.form}; hs/hT/cT K10's bits {fwd_bits}; max|err| vs plain "
+              f"{fwd_err:.3g}; {f_ms:.4f} ms ({f_ms / T * 1e3:.3f} us a step), streaming "
+              f"{fs_ms:.4f} ms, {fs_ms / f_ms:.2f} x  [{smi}]", flush=True)
+        print(f"lstm_scan_bwd_step T {T}, R {R}, B {B}, G {G}: form {form}; of max|out| vs plain "
+              f"{err:.3g} (streaming {serr:.3g}); rows alone {alone}; repeat {again}; "
+              f"{b_ms:.4f} ms ({b_ms / T * 1e3:.3f} us a step), streaming {bs_ms:.4f} ms, "
+              f"{bs_ms / b_ms:.2f} x  [{smi}]", flush=True)
+        del xp, whh, h0, c0, cts, fwd, k10, fwd_ref, gates, cs, out, ref, stream
 
 
 K8_MIXED_AT_4096 = (
@@ -1463,6 +1565,8 @@ def main() -> int:
         reduce_forms(dev, smi)
     if "scan" in which:
         scan_forms(dev, smi)
+    if "scan_wide" in which:
+        scan_wide(dev, smi)
     if "scan_phases" in which:
         scan_phases(dev, smi)
     if "k8" in which:

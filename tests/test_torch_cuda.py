@@ -1091,16 +1091,33 @@ def test_ola_kernel_at_the_mirror_geometries(dev, stride, with_tail, M):
 # ---------------------------------------------------------------------------
 
 
-def _device_kernels(fn):
-    """The names of the kernels that ``fn()`` launched on the card."""
+def _device_kernels(fn, counted=None):
+    """``fn()``'s result and the names of the kernels it launched on the
+    card (``torch.profiler``'s device events).  A trace with no device
+    event at all is the profiler's failure to attach, not a result: ``fn``
+    is traced again after a pause, up to three times in all, as
+    ``chip_smoke.py``'s ``device_kernels`` does (up to ten there).
+    ``counted`` (a wrapper with a ``launches`` count) is set back before
+    each retry, so that it counts the traced call alone."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    start = None if counted is None else counted.launches
+    for attempt in range(3):
+        if attempt:
+            time.sleep(0.5)
+            if counted is not None:
+                counted.launches = start
         torch.cuda.synchronize()
-    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return out, names
 
 
 @pytest.mark.parametrize("mode", ["masks", "y", "mags"])
@@ -1125,7 +1142,8 @@ def test_wiener_reduce_one_launch_bit_stable(dev, mode, T, F):
         plain_in = (first, second, None)
     before = wiener_cuda.wiener_reduce.launches
     racc, kernels = _device_kernels(
-        lambda: wiener_cuda.wiener_reduce(mode, xre, xim, first, second, inv))
+        lambda: wiener_cuda.wiener_reduce(mode, xre, xim, first, second, inv),
+        wiener_cuda.wiener_reduce)
     assert wiener_cuda.wiener_reduce.launches == before + 1
     assert len(kernels) == 1 and "wiener_reduce_kernel" in kernels[0], kernels
     plain = wiener_cuda.wiener_reduce_plain(mode, *plain_in, inv)
@@ -1767,25 +1785,36 @@ def _scan_inputs(dev, T, R, B, G, seed, dtype=torch.float32):
 
 
 # (T, R, B, G, W_hh dtype) of K10's tests, and the forms each shape takes:
-# both at G <= 512 (the resident form by default), the streaming one above
+# the resident and the streaming one at G <= 512 (the resident form by
+# default), the wide and the streaming one up to G 640 (the wide form by
+# default), the streaming one above
 _SCAN_SHAPES = [
     (37, 3, 3, 40, torch.float32), (9, 8, 1, 512, torch.float32), (5, 2, 6, 18, torch.bfloat16),
     (7, 8, 20, 512, torch.float32), (11, 8, 1, 640, torch.float32), (1, 2, 1, 1, torch.float32),
     (3, 1, 9, 4096, torch.bfloat16), (9, 8, 16, 512, torch.bfloat16), (13, 8, 3, 256, torch.float32),
+    (9, 8, 20, 640, torch.float32), (7, 5, 3, 520, torch.bfloat16), (5, 9, 17, 600, torch.float32),
+    (3, 2, 2, 641, torch.float32),
 ]
 
 
+def _forms_at(G):
+    """The forms of K10 and K11 that take width G."""
+    if G <= lstm_cuda.SCAN_RESIDENT_G_MAX:
+        return ("resident", "streaming")
+    return ("wide", "streaming") if G <= lstm_cuda.SCAN_WIDE_G_MAX else ("streaming",)
+
+
 def _with_forms(shapes):
-    return [(*shape, form) for shape in shapes for form in lstm_cuda.SCAN_FORMS
-            if form == "streaming" or shape[3] <= lstm_cuda.SCAN_RESIDENT_G_MAX]
+    return [(*shape, form) for shape in shapes for form in _forms_at(shape[3])]
 
 
 @pytest.mark.parametrize("T, R, B, G, dtype, form", _with_forms(_SCAN_SHAPES))
 def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype, form):
     """K10 in each form at ragged widths (G 1, 18, 40: no multiple of 8
-    needed; G 640 and 4096 beyond K1), W_hh in f32 and bf16, rows beyond
-    one launch (B 20: groups of 16 and 4; G 4096, B 9: of 8 and 1, the rows
-    that fit a block's shared memory)."""
+    needed; G 520-640 in the wide form, G 641 and 4096 streamed), W_hh in
+    f32 and bf16, rows beyond one launch (B 20: groups of 16 and 4; G 4096,
+    B 9: of 8 and 1, the rows that fit a block's shared memory), chains
+    beyond one launch (R 9 at G 600: 30 blocks a chain, 4 chains a group)."""
     xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed=T + G)
     before = lstm_cuda.lstm_scan.launches
     out_k = lstm_cuda.lstm_scan(xp, whh, h0, c0, B, _form=form)
@@ -1795,7 +1824,7 @@ def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype, form):
     assert rows == (8 if G == 4096 else 16)  # the H100's 227 KiB of shared memory a block
     assert lstm_cuda.lstm_scan.form[0] == form
     assert lstm_cuda.lstm_scan.form[4] == len(lstm_cuda.scan_row_groups(B, rows))
-    lstm_cuda.lstm_scan(xp, whh, h0, c0, B)  # the default form: resident up to G 512
+    lstm_cuda.lstm_scan(xp, whh, h0, c0, B)  # the default form: resident up to 512, wide to 640
     assert lstm_cuda.lstm_scan.form[0] == lstm_cuda.scan_form(G, dtype)
     out_p = lstm_cuda.lstm_scan_plain(xp, whh, h0, c0, B)
     # f32 products of the same operands, summed in another order
@@ -1805,39 +1834,51 @@ def test_scan_kernel_matches_plain(dev, T, R, B, G, dtype, form):
 
 
 @pytest.mark.parametrize("kernel", ["K10", "K10r", "K11"])
-@pytest.mark.parametrize("G", [18, 256, 512, 640])
+@pytest.mark.parametrize("G", [18, 256, 512, 640, 520])
 def test_scan_block_layout_is_the_kernels_own(dev, kernel, G):
-    """What K10, K10r and K11 report of their blocks at G 18, 256, 512 and
-    640: the resident form holds a block's whole share of W_hh (128 columns
-    x G, f32) between registers and its shared memory, all 16 rows at once
-    under the card's shared memory a block, and UMX-L's 8 chains of 16
-    blocks in one cooperative wave; the streaming form holds none of it."""
+    """What K10, K10r and K11 report of their blocks at G 18, 256, 512, 520
+    and 640: the resident form holds a block's whole share of W_hh (128
+    columns x G, f32) between registers and its shared memory, all 16 rows
+    at once under the card's shared memory a block, and UMX-L's 8 chains of
+    16 blocks in one cooperative wave; the wide form a block's share of 80
+    columns x G the same way, 4 chains a wave, its rows and shared memory
+    those of its plan from the card's figures; the streaming form holds
+    none of it; a form refuses the widths it does not take."""
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for form in lstm_cuda.SCAN_FORMS:
-            if form == "resident" and G > lstm_cuda.SCAN_RESIDENT_G_MAX:
+            if form not in _forms_at(G):
                 with pytest.raises(RuntimeError):
                     lstm_cuda.scan_block_layout(dev.index, G, bf16, kernel, form)
                 continue
             rows, blocks, smem, w_regs = lstm_cuda.scan_block_layout(dev.index, G, bf16, kernel,
                                                                      form)
             assert rows == 16 and 0 < smem <= limit
-            share = 128 * G * 4
             if form == "streaming":
                 assert w_regs == 0
                 continue
+            if form == "wide":
+                share = 4 * lstm_cuda.SCAN_WIDE_UNITS * G * 4
+                plan = lstm_cuda.scan_wide_plan(G, 8, *lstm_cuda.device_limits(dev.index), kernel)
+                assert (rows, smem) == (plan.rows, plan.smem)
+                assert blocks >= 4 * plan.blocks_per_chain
+            else:
+                share = 128 * G * 4
+                assert blocks >= 8 * lstm_cuda.scan_blocks_per_chain(G)
             assert 0 < w_regs <= share and share - w_regs <= smem
-            assert blocks >= 8 * lstm_cuda.scan_blocks_per_chain(G)
-    assert lstm_cuda.scan_form(G, torch.float32) == (
-        "resident" if G <= lstm_cuda.SCAN_RESIDENT_G_MAX else "streaming")
+    assert lstm_cuda.scan_form(G, torch.float32) == _forms_at(G)[0]
 
 
-@pytest.mark.parametrize("form", lstm_cuda.SCAN_FORMS)
-@pytest.mark.parametrize("B, G", [(3, 512), (17, 40), (16, 512), (6, 18)])
+_ROWS_ALONE = [(B, G, form) for B, G in ((3, 512), (17, 40), (16, 512), (6, 18), (3, 640),
+                                          (17, 520), (16, 640), (6, 600))
+               for form in _forms_at(G)]
+
+
+@pytest.mark.parametrize("B, G, form", _ROWS_ALONE)
 def test_scan_kernel_rows_are_bit_equal_alone(dev, B, G, form):
     """A row of K10 has the bits of the same row run alone, whatever rows
-    (and row groups, and row tiles) run beside it, in either form."""
+    (and row groups, and row tiles) run beside it, in each form."""
     T, R = 23, 4
     xp, whh, h0, c0 = _scan_inputs(dev, T, R, B, G, seed=B)
     hs, hT, cT = lstm_cuda.lstm_scan(xp, whh, h0, c0, B, _form=form)
@@ -1849,7 +1890,7 @@ def test_scan_kernel_rows_are_bit_equal_alone(dev, B, G, form):
         assert torch.equal(one[2], cT[rows])
 
 
-@pytest.mark.parametrize("B, G", [(6, 512), (1, 640), (16, 512), (1, 512)])
+@pytest.mark.parametrize("B, G", [(6, 512), (1, 640), (16, 512), (1, 512), (16, 640), (3, 520)])
 def test_scan_kernel_repeats_its_bits(dev, B, G):
     """Twenty launches of K10 on the same inputs give the same bits: the
     exchange of h between a chain's blocks never hands a block a word of
@@ -1860,6 +1901,37 @@ def test_scan_kernel_repeats_its_bits(dev, B, G):
     for _ in range(20):
         out = lstm_cuda.lstm_scan(xp, whh, h0, c0, B)
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("kernel", ["K10", "K10r", "K11"])
+@pytest.mark.parametrize("G, R, B", [(520, 8, 1), (640, 8, 16), (640, 3, 2), (1024, 8, 1)])
+def test_scan_wide_form_is_the_plans(dev, kernel, G, R, B):
+    """The form K10, K10r and K11 choose by width on the card: the wide
+    form at G 520 and 640, its fields the plan's from the card's figures
+    (blocks a chain, chain groups, units a block), within 1e-4 of the
+    plain version; the streaming form above SCAN_WIDE_G_MAX (G 1024)."""
+    xp, whh, h0, c0, cts = _scan_train_case(dev, 3, R, B, G, torch.float32, seed=G + R + B)
+    if kernel == "K11":
+        _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd_plain(xp, whh, h0, c0, B)
+        args = (gates, cs, c0, whh, *cts, B)
+        wrapper, plain = lstm_cuda.lstm_scan_bwd_step, lstm_cuda.lstm_scan_bwd_step_plain
+    else:
+        args = (xp, whh, h0, c0, B)
+        wrapper, plain = ((lstm_cuda.lstm_scan, lstm_cuda.lstm_scan_plain) if kernel == "K10"
+                          else (lstm_cuda.lstm_scan_train_fwd, lstm_cuda.lstm_scan_train_fwd_plain))
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    form = wrapper.form
+    assert form[0] == lstm_cuda.scan_form(G, torch.float32)
+    if G <= lstm_cuda.SCAN_WIDE_G_MAX:
+        plan = lstm_cuda.scan_wide_plan(G, R, *lstm_cuda.device_limits(dev.index), kernel)
+        assert form[0] == "wide" and form[1] == plan.blocks_per_chain == -(-G // 20)
+        assert form[3] == -(-R // plan.chains_per_group) and form[5] == plan.units == 20
+        assert form[4] == len(lstm_cuda.scan_row_groups(B, plan.rows))
+    else:
+        assert form[0] == "streaming"
+    for k, p in zip(out, plain(*args)):
+        assert (k - p).abs().max().item() <= 1e-4 * max(p.abs().max().item(), 1.0)
 
 
 def test_scan_demix_on_the_card_matches_the_cpu(dev):
@@ -1893,6 +1965,7 @@ _SCAN_TRAIN_SHAPES = [
     (11, 8, 1, 640, torch.float32), (1, 2, 1, 1, torch.float32),
     (3, 1, 9, 4096, torch.bfloat16), (9, 8, 16, 512, torch.bfloat16),
     (13, 8, 3, 256, torch.float32), (6, 2, 4, 516, torch.float32), (5, 2, 2, 642, torch.float32),
+    (7, 8, 16, 640, torch.float32), (5, 9, 3, 600, torch.bfloat16), (4, 3, 20, 520, torch.float32),
 ]
 
 
@@ -1928,8 +2001,9 @@ def test_scan_train_fwd_is_k10_with_residuals(dev, T, R, B, G, dtype, form):
 def test_scan_bwd_kernel_matches_plain(dev, T, R, B, G, dtype, form):
     """K11 in each form against its plain version on the same residuals:
     dxp, dh0 and dc0 within 1e-4 of their largest entry (f32 products of
-    the same operands, summed in another order); the two forms sum in one
-    order, so they give the same bits."""
+    the same operands, summed in another order); the resident and the
+    streaming form sum in one order, so they give the same bits (the wide
+    form sums over blocks of 20 units: its own order)."""
     xp, whh, h0, c0, cts = _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)
     _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
     before = lstm_cuda.lstm_scan_bwd_step.launches
@@ -1948,11 +2022,10 @@ def test_scan_bwd_kernel_matches_plain(dev, T, R, B, G, dtype, form):
     assert torch.equal(cts[2], _scan_train_case(dev, T, R, B, G, dtype, seed=T + G)[4][2])
 
 
-@pytest.mark.parametrize("form", lstm_cuda.SCAN_FORMS)
-@pytest.mark.parametrize("B, G", [(3, 512), (17, 40), (16, 512), (6, 18)])
+@pytest.mark.parametrize("B, G, form", _ROWS_ALONE)
 def test_scan_bwd_rows_are_bit_equal_alone(dev, B, G, form):
     """A row of K11 has the bits of the same row run alone, whatever rows
-    and row groups run beside it, in either form."""
+    and row groups run beside it, in each form."""
     T, R = 23, 4
     xp, whh, h0, c0, (dhs, dhT, dcT) = _scan_train_case(dev, T, R, B, G, torch.float32, seed=B)
     _, _, _, gates, cs = lstm_cuda.lstm_scan_train_fwd(xp, whh, h0, c0, B)
@@ -1968,7 +2041,7 @@ def test_scan_bwd_rows_are_bit_equal_alone(dev, B, G, form):
         assert torch.equal(one[2], dc0[rows])
 
 
-@pytest.mark.parametrize("B, G", [(6, 512), (1, 640), (16, 512), (1, 512)])
+@pytest.mark.parametrize("B, G", [(6, 512), (1, 640), (16, 512), (1, 512), (16, 640), (3, 520)])
 def test_scan_bwd_repeats_its_bits(dev, B, G):
     """Twenty launches of K11 on the same inputs give the same bits: the
     exchange never hands a block a word of another step."""

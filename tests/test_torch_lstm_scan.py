@@ -191,22 +191,23 @@ def test_launch_plan():
 
 
 @pytest.mark.parametrize("G, want", [(1, "resident"), (18, "resident"), (256, "resident"),
-                                     (512, "resident"), (513, "streaming"), (640, "streaming"),
-                                     (4096, "streaming")])
+                                     (512, "resident"), (513, "wide"), (640, "wide"),
+                                     (4096, "streaming"), (641, "streaming")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_form_is_chosen_by_width_alone(G, want, dtype, monkeypatch):
     """The form comes from G (and W_hh's dtype, which changes nothing: bf16
     is upcast to f32 on the chip) before any launch: the card's plan for
-    every B, R and kernel, with its capacity query stubbed, runs that form
-    and reports it first in ``wrapper.form``."""
+    every B, R and kernel, with its capacity query stubbed (an H100's
+    figures), runs that form and reports it first in ``wrapper.form``."""
     assert L.scan_form(G, dtype) == want
     asked = []
 
-    def capacity(index, G_, bf16, kernel, form):
+    def layout(index, G_, bf16, kernel, form):
         asked.append(form)
-        return 16, 264
+        return 16, 264, L.scan_wide_smem(kernel, G_, 16) if form == "wide" else 0, 0
 
-    monkeypatch.setattr(L, "_scan_capacity", capacity)
+    monkeypatch.setattr(L, "scan_block_layout", layout)
+    monkeypatch.setattr(L, "device_limits", lambda index: (132, 232448, 65536))
 
     class Ref:
         device = torch.device("cuda", 0)
@@ -214,9 +215,11 @@ def test_form_is_chosen_by_width_alone(G, want, dtype, monkeypatch):
     for kernel, wrapper in (("K10", L.lstm_scan), ("K10r", L.lstm_scan_train_fwd),
                             ("K11", L.lstm_scan_bwd_step)):
         for R, B in ((8, 1), (8, 16), (3, 40), (1, 5)):
-            form = L._scan_form_for(G, dtype, None)
+            form = L._scan_device_form(kernel, Ref, R, G, L._scan_form_for(G, dtype, None), False)
             L._scan_plan(wrapper, kernel, Ref, R, B, G, dtype == torch.bfloat16, form)
             assert wrapper.form[0] == want
+            if want == "wide":
+                assert wrapper.form[1] == -(-G // 20) and wrapper.form[5] == 20
     assert set(asked) == {want}
 
 
@@ -233,14 +236,20 @@ def test_the_form_is_no_public_argument(name):
 def test_a_form_named_is_checked_on_either_route():
     xp, whh, h0, c0 = _scan_inputs(4, 2, 1, 8, seed=2)
     ref = L.lstm_scan(xp, whh, h0, c0, 1)
-    for form in L.SCAN_FORMS:  # the CPU runs the plain version whatever the form
+    for form in ("resident", "streaming"):  # the CPU runs the plain version whatever the form
         assert all(torch.equal(a, b)
                    for a, b in zip(L.lstm_scan(xp, whh, h0, c0, 1, _form=form), ref))
     with pytest.raises(ValueError, match="form must be one of"):
         L.lstm_scan(xp, whh, h0, c0, 1, _form="stream")
+    with pytest.raises(ValueError, match="the wide form takes 512 < G <= 640"):
+        L.lstm_scan(xp, whh, h0, c0, 1, _form="wide")
     xp, whh, h0, c0 = _scan_inputs(2, 1, 1, 640, seed=2)
     with pytest.raises(ValueError, match="up to G = 512"):
         L.lstm_scan_train_fwd(xp, whh, h0, c0, 1, _form="resident")
+    ref = L.lstm_scan_train_fwd(xp, whh, h0, c0, 1)
+    for form in ("wide", "streaming"):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(L.lstm_scan_train_fwd(xp, whh, h0, c0, 1, _form=form), ref))
 
 
 def _k10_lane_roles(G):

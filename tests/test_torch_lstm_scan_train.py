@@ -5,7 +5,7 @@ differentiates through its ``lax.scan``: the layer's VJP against
 ``jax.vjp`` of ``umx_tpu.models.umx._bilstm_layer``; the plain backward
 against autograd through the plain forward; the trainer's loss and every
 field's gradient under "scan", "pallas" and "auto" at hidden 36 (G 18,
-which the merged kernels cannot hold) against
+no multiple of 8, where "auto" is the scan) against
 ``jax.value_and_grad(umx_tpu.train.mask_loss)`` with the same
 ``lstm_impl``; one AdamW step against the JAX train step; the sharded
 step against the JAX sharded step (which pins the scan).  Also the
@@ -311,10 +311,15 @@ def test_sharded_step_under_scan_matches_the_jax_sharded_step(monkeypatch):
 # ---- "auto" by width, the planner, the kernels' plans and entry points ---------
 
 
+# "auto" is the merged kernel at every G % 8 == 0 (resident, wide or
+# streaming), as the JAX package's "auto" on its accelerator; the scan only
+# where G % 8 != 0 (a departure kept on purpose)
 @pytest.mark.parametrize("impl, G, want", [
-    ("auto", 512, "auto"), ("auto", 256, "auto"), ("auto", 8, "auto"), ("auto", 640, "scan"),
+    ("auto", 512, "auto"), ("auto", 256, "auto"), ("auto", 8, "auto"), ("auto", 640, "auto"),
     ("auto", 18, "scan"), ("auto", 516, "scan"), ("pallas_merged", 640, "pallas_merged"),
-    ("scan", 256, "scan"), ("pallas", 18, "pallas"),
+    ("scan", 256, "scan"), ("pallas", 18, "pallas"), ("auto", 520, "auto"),
+    ("auto", 1024, "auto"), ("auto", 2048, "auto"), ("auto", 644, "scan"),
+    ("scan", 640, "scan"),
 ])
 def test_auto_resolves_to_the_scan_where_k1_cannot_hold_the_width(impl, G, want):
     assert tumx.resolve_lstm_impl(impl, G) == want
@@ -322,14 +327,16 @@ def test_auto_resolves_to_the_scan_where_k1_cannot_hold_the_width(impl, G, want)
 
 def test_auto_at_hidden_1280_trains_through_the_scan(monkeypatch):
     """A model wider than UMX-L (G 640) under "auto": the recurrence and
-    its gradient go through the float32 kernels (plain versions here,
-    hidden 1280 at 3 frames), never the merged ones."""
+    its gradient go through the merged training kernels (on the card K4
+    and K5 in their wide block forms, and K6; plain versions here, hidden
+    1280 at 3 frames), never the float32 ones, as JAX's "auto" runs its
+    merged kernel at every width on its accelerator."""
     cfg = ModelConfig(hidden_size=1280)
-    for name in ("lstm_merged", "lstm_merged_train_fwd", "lstm_merged_bwd_step"):
+    for name in ("lstm_scan", "lstm_scan_train_fwd", "lstm_scan_bwd_step"):
         monkeypatch.setattr(L, name, lambda *a, n=name: pytest.fail(f"{n} ran at G 640"))
     calls = []
-    bwd = L.lstm_scan_bwd_step
-    monkeypatch.setattr(L, "lstm_scan_bwd_step", lambda *a: calls.append(a[3].shape) or bwd(*a))
+    bwd = L.lstm_merged_bwd_step
+    monkeypatch.setattr(L, "lstm_merged_bwd_step", lambda *a: calls.append(a[3].shape) or bwd(*a))
     params = tumx.synthetic_params(cfg, seed=0)
     params.lstm_hh_w.requires_grad_(True)
     x1 = torch.zeros((1, 4, 3, 1280))
@@ -340,11 +347,18 @@ def test_auto_at_hidden_1280_trains_through_the_scan(monkeypatch):
 
 
 def test_planner_counts_the_scan_buffer_under_auto_at_hidden_1280():
+    """Under "auto" at hidden 1280 the planner counts K1's exchange (two
+    bf16 values of h a word), under "scan" K10's (one f32 value a word)."""
     auto = EngineConfig(model=ModelConfig(hidden_size=1280))
     scan = auto.replace(model=dataclasses.replace(auto.model, lstm_impl="scan"))
+    merged = auto.replace(model=dataclasses.replace(auto.model, lstm_impl="pallas_merged"))
     assert (memory.segment_batch_hbm_bytes(auto, 1)["fixed"]
-            == memory.segment_batch_hbm_bytes(scan, 1)["fixed"])
-    assert memory._lstm_exchange_bytes(auto) == 8 * L.scan_exchange_words(8, 640)
+            == memory.segment_batch_hbm_bytes(merged, 1)["fixed"])
+    assert memory._lstm_exchange_bytes(auto) == 8 * L.resident_exchange_words(8, 640)
+    assert memory._lstm_exchange_bytes(scan) == 8 * L.scan_exchange_words(8, 640)
+    assert (memory.segment_batch_hbm_bytes(scan, 1)["fixed"]
+            - memory.segment_batch_hbm_bytes(auto, 1)["fixed"]
+            == 8 * (L.scan_exchange_words(8, 640) - L.resident_exchange_words(8, 640)))
 
 
 def test_bwd_exchange_sizes():

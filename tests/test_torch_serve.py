@@ -293,20 +293,23 @@ def test_streaming_session_over_http(server):
     assert exc.value.code == 404
 
 
-def test_streaming_session_ttl_eviction(model_path):
+def test_streaming_session_ttl_eviction(model_path, monkeypatch):
     """Idle sessions past ``session_ttl_s`` are evicted when the table is
     next touched, so abandoned clients cannot fill it; the abandoning
-    client's next push reads "expired", a never-issued id "unknown"."""
-    import time
-
+    client's next push reads "expired", a never-issued id "unknown".  The
+    sessions' clock is a fake one that only the test advances, so the
+    starts take no time on it however long they take on the host."""
+    from umx_tpu_torch import serve
     from umx_tpu_torch.serve import DemixService
 
+    clock = [1000.0]
+    monkeypatch.setattr(serve, "_now", lambda: clock[0])
     svc = DemixService(model_path, segment_secs=1.0, session_ttl_s=0.25, device="cpu")
     try:
         sids = [svc.stream_start(wiener=True) for _ in range(svc.max_sessions)]
         with pytest.raises(RuntimeError, match="too many streaming sessions"):
             svc.stream_start(wiener=True)
-        time.sleep(0.35)  # every session is now past the TTL
+        clock[0] += 0.35  # every session is now past the TTL
         fresh = svc.stream_start(wiener=True)
         assert len(svc._sessions) == 1
         with pytest.raises(KeyError, match="expired"):

@@ -54,19 +54,19 @@ _SIGNATURES = {
     "umx_lstm_pertarget_clusters": [_I, _I, _P],
     # xp, whh, h0, c0, hs, hT, cT, T, n_targets, D, G, CL, U, stream
     "umx_lstm_pertarget": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # resident, G, whh_bf16, resid, rows, blocks, smem, w_regs (out)
+    # form (0 streaming, 1 resident, 2 wide), G, whh_bf16, resid, rows, blocks, smem, w_regs (out)
     "umx_lstm_scan_capacity": [_I, _I, _I, _I, _P, _P, _P, _P],
-    # resident, xp, whh, whh_bf16, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,
+    # form, xp, whh, whh_bf16, h0, c, hs, hT, hx, T, R, B, G, r0, nr, b0, nb, rt, tag0,
     # stream
     "umx_lstm_scan": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _U, _P],
-    # resident, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt,
+    # form, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb, rt,
     # tag0, stream
     "umx_lstm_scan_train": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _U, _P],
-    # resident, G, whh_bf16, rows, blocks, smem, w_regs (out)
+    # form, G, whh_bf16, rows, blocks, smem, w_regs (out)
     "umx_lstm_scan_bwd_capacity": [_I, _I, _I, _P, _P, _P, _P],
-    # resident, gates, cs, c0, whh, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr,
+    # form, gates, cs, c0, whh, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr,
     # b0, nb, rt, tag0, stream
     "umx_lstm_scan_bwd": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _U, _P],

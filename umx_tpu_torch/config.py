@@ -105,8 +105,10 @@ class ModelConfig:
     # a chain); "scan" = the float32 recurrence (K10: f32 h against W_hh in
     # its stored dtype, f32 sums, any G; the JAX package's portable
     # lax.scan, its "auto" off a TPU).  "auto" is resolved by a width rule,
-    # not by the device (models.umx.resolve_lstm_impl): K1 at G <= 512 with
-    # G % 8 == 0, the scan at every other width.  "pallas_interpret" (the
+    # not by the device (models.umx.resolve_lstm_impl): K1 at every G with
+    # G % 8 == 0 (resident, wide or streaming, as the JAX package's "auto"
+    # on its accelerator), the scan where G % 8 != 0, on the CPU as on the
+    # GPU.  "pallas_interpret" (the
     # JAX interpreter) has no port.  Training runs K4-K6 under
     # "pallas_merged" (and "auto" where it is K1), K10/K11 under "scan",
     # and lowers "pallas" to "scan", as the JAX trainer does.

@@ -35,11 +35,14 @@
 // its FMAs (2 x 4G x G per row, 4 us at 16 rows on the CUDA cores) plus one
 // exchange of h.
 //
-// Two forms, K1's launch (lstm_merged.cu): ONE cooperative launch runs all T
-// steps of all chains and up to 16 rows per chain; a chain is split over
+// Three forms, K1's launch (lstm_merged.cu): ONE cooperative launch runs all
+// T steps of all chains and up to 16 rows per chain; a chain is split over
 // ceil(G/32) blocks, and a block owns 32 hidden units, that is 128 gate
-// columns (i|f|g|o x 32 units).  The wrapper picks the form from G alone
-// (ops/lstm_cuda.py:scan_form), before the launch.
+// columns (i|f|g|o x 32 units) (20 units and 80 columns in the wide form).
+// The wrapper picks the form from G alone (ops/lstm_cuda.py:scan_form),
+// before the launch: resident up to G 512, wide up to G 640 (where the
+// card's figures give it a plan, ops/lstm_cuda.py:scan_wide_plan),
+// streaming above.
 //
 // The resident form (G <= 512, W_hh f32 or bf16).  A block's share of W_hh,
 // 128 columns x G rows, is loaded once, upcast to f32, and stays on the chip
@@ -66,8 +69,11 @@
 // hold the accumulators without spilling).  The step reads no W_hh from
 // memory.
 //
-// The streaming form (G > 512, where a chain group's W_hh would not fit
-// the chip, e.g. 52.4 MB at G 640, R 8; and by name).  512 threads; each
+// The wide form (512 < G <= 640): see "the wide form" below; W_hh stays on
+// the chip in shares of 20 units, R 8 in two chain groups.
+//
+// The streaming form (G > 640, where no form keeps a chain's W_hh on the
+// chip; and by name, the yardstick of the wide form).  512 threads; each
 // step a thread owns one column and a quarter of the k range: it streams
 // its column of W_hh from L2 or device memory (a warp reads 32 neighbouring
 // columns of one k, one 128-byte line in float32) and keeps one f32
@@ -88,7 +94,7 @@
 // form holds one chain (above G 1952 on an H100): it reads W_hh from L2 or
 // device memory every step (8.95 us a step at G 640, 27.7 at G 1024).
 //
-// In either form a (unit, row) sum has one order, set by G and the form
+// In every form a (unit, row) sum has one order, set by G and the form
 // alone, never by B, by the rows or chains beside it, or by the row group
 // it falls in: a row is bit-equal to itself run alone.  The thread that
 // applies the cell keeps c and h in registers and publishes h_t.
@@ -728,7 +734,372 @@ const void* resident_kernel_rt(int rt) {
   }
 }
 
-// ---- the streaming form's instantiations, and both forms' setup --------
+// ---- the wide form -----------------------------------------------------
+//
+// Above G 512 a chain's f32 W_hh (16 G^2 bytes: 6.55 MB at G 640, 52.4 MB
+// for 8 chains) is more than the resident form's 16 blocks hold, and more
+// than one wave of the card holds for 8 chains.  The wide form keeps it on
+// the chip all the same, in smaller shares over more blocks: a block owns
+// SW_UNITS = 20 hidden units, their 80 gate columns for all G rows of k
+// (200 KiB at G 640: 100 KiB in registers, 100 in shared memory), so a
+// chain is ceil(G/20) blocks (32 at G 640) and the card holds 4 chains at
+// once: R 8 runs as two chain groups, one after the other (planned by the
+// wrapper, ops/lstm_cuda.py:scan_wide_plan).  The step reads no W_hh from
+// memory.
+//
+// It is the resident form with one unit a half-warp in place of two: a
+// block of 320 threads (10 warps), lane p of half-warp j owns unit u0 + j
+// (its four gate columns) and k part p, the k = p, p + 16, ... of the
+// product, with W of its first SW_KREG iterations in registers (a float4
+// of the four gates each) and of the rest in shared memory.  Each float4
+// of h (four rows of one k, read at the resident form's padded row
+// stride, conflict-free) feeds 16 FMAs, so shared memory's rate keeps up
+// with the FMAs (a form with one column and a quarter of k a thread, tried
+// first, fed one FMA a value and took 32.6 us a step at T 256, R 8, B 16,
+// G 640, against the streaming form's 36.9: shared memory's rate, not the
+// FMAs, bound it).  The sixteen parts' sums meet in the resident form's
+// tree over the half-warp (masks 8, 4, 2, 1), scattering the rows over the
+// lanes as they go; the lanes that lead a row apply the cell.  So a (unit,
+// row) sum has the resident form's order at the same G: parts of strided
+// k in ascending order from 0 by f32 FMA, then that tree, then xp.  A
+// block is declared with launch bounds of 384 threads so that ptxas keeps
+// a thread within the 168 registers a thread of a 10-warp block may have
+// on an H100 (an SM's registers are four partitions').  The exchange of h
+// is the resident form's: G tagged words a row, polled from L2, a thread
+// taking every row of units tid and tid + 320 (so G <= 640).
+constexpr int SW_UNITS = 20;                          // hidden units a block owns
+constexpr int SW_THREADS = SW_UNITS * RS_PARTS;       // 320: a half-warp a unit
+constexpr int SW_BOUND_THREADS = 384;                 // launch bounds: 168 registers a thread
+constexpr int SW_KREG = 20;                           // iterations with W in registers
+constexpr int SW_UPT = 2;                             // units a thread polls h for
+constexpr int SW_G_MAX = SW_THREADS * SW_UPT;         // 640, the wide forms' widest G
+
+// Dynamic shared memory of the wide form at row tile rt: W of the
+// iterations beyond SW_KREG (a float4 of four gates a thread and
+// iteration) and h (16 max(iters, SW_KREG) k rows x rs_hs(rt) f32; the
+// rows beyond G zero).
+size_t sw_smem(int G, int rt) {
+  const int iters = rs_iters(G);
+  const int ksm = iters > SW_KREG ? iters - SW_KREG : 0;
+  const int kr = RS_PARTS * (iters > SW_KREG ? iters : SW_KREG);
+  return sizeof(float4) * (size_t)ksm * SW_THREADS + sizeof(float) * (size_t)kr * rs_hs(rt);
+}
+
+// The sixteen parts' sums of one unit meet in one tree over the lanes p of
+// a half-warp, masks 8, 4, 2, 1 in this order (rs_reduce's tree): the
+// first rs_scatter(RP) rounds keep half the rows held, the rest sum the
+// one row left in place on both sides.  Leaves this lane's rows in
+// acc[q][0 .. RP >> rs_scatter(RP)).
+template <int RP>
+__device__ __forceinline__ void sw_reduce(float (&acc)[4][RP], int p) {
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int SCAT = rs_scatter(RP);
+#pragma unroll
+  for (int round = 0; round < 4; ++round) {
+    const int mask = 8 >> round;
+    if (round < SCAT) {
+      const int half = (RP >> round) / 2;
+      const bool hi = (p & mask) != 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int i = 0; i < RP / 2; ++i) {
+          if (i < half) {
+            const float keep = hi ? acc[q][i + half] : acc[q][i];
+            const float send = hi ? acc[q][i] : acc[q][i + half];
+            acc[q][i] = __fadd_rn(keep, __shfl_xor_sync(FULL, send, mask));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[q][0] = __fadd_rn(acc[q][0], __shfl_xor_sync(FULL, acc[q][0], mask));
+    }
+  }
+}
+
+// acc[q][b] += w.q * h[b]: the four gates of one unit against the RP rows
+// of one k (h at hk, RP f32)
+template <int RP>
+__device__ __forceinline__ void fma_unit(float (&acc)[4][RP], float4 w, const float* hk) {
+  float h[RP];
+  if constexpr (RP % 4 == 0) {
+#pragma unroll
+    for (int b = 0; b < RP; b += 4) {
+      const float4 h4 = *reinterpret_cast<const float4*>(hk + b);
+      h[b] = h4.x;
+      h[b + 1] = h4.y;
+      h[b + 2] = h4.z;
+      h[b + 3] = h4.w;
+    }
+  } else if constexpr (RP == 2) {
+    const float2 h2 = *reinterpret_cast<const float2*>(hk);
+    h[0] = h2.x;
+    h[1] = h2.y;
+  } else {
+    h[0] = hk[0];
+  }
+#pragma unroll
+  for (int b = 0; b < RP; ++b) {
+    acc[0][b] = __fmaf_rn(w.x, h[b], acc[0][b]);
+    acc[1][b] = __fmaf_rn(w.y, h[b], acc[1][b]);
+    acc[2][b] = __fmaf_rn(w.z, h[b], acc[2][b]);
+    acc[3][b] = __fmaf_rn(w.w, h[b], acc[3][b]);
+  }
+}
+
+// grid = (ceil(G/20), chains of this launch), SW_THREADS threads, 512 < G
+// <= SW_G_MAX.  RT: the row tile, a power of two >= nb, taken in passes of
+// up to RS_PASS rows.  Dynamic shared memory sw_smem(G, RT).  hx: exchange
+// words (R, 2, SCAN_ROWS, G), zeroed before the layer's first launch; the
+// contract of lstm_scan_kernel.
+template <typename W, int RT, bool RESID>
+__global__ void __launch_bounds__(SW_BOUND_THREADS, 1)
+lstm_scan_wide_kernel(const float* __restrict__ xp, const W* __restrict__ whh,
+                      const float* __restrict__ h0, float* __restrict__ c,
+                      float* __restrict__ hs, float* __restrict__ hT,
+                      float* __restrict__ gates, float* __restrict__ cs,
+                      unsigned long long* hx, int T, int R, int B, int b0, int nb, int G, int r0,
+                      unsigned tag0) {
+  constexpr int HS = rs_hs(RT);
+  constexpr int RP = RT < RS_PASS ? RT : RS_PASS;  // rows of a pass
+  constexpr int NP = RT / RP;                       // passes
+  constexpr int SCAT = rs_scatter(RP);
+  extern __shared__ __align__(16) float smem[];
+  const int iters = rs_iters(G);
+  const int ksm = iters > SW_KREG ? iters - SW_KREG : 0;
+  const int KR = RS_PARTS * (iters > SW_KREG ? iters : SW_KREG);
+  float4* w_s = reinterpret_cast<float4*>(smem);           // [(i - SW_KREG) * 320 + tid]
+  float* h_s = smem + (size_t)4 * ksm * SW_THREADS;        // [k * HS + b]
+
+  const int tid = threadIdx.x;
+  const int p = tid % RS_PARTS;
+  const int u0 = blockIdx.x * SW_UNITS;
+  const int u = u0 + tid / RS_PARTS;  // this half-warp's unit
+  const int r = r0 + blockIdx.y;
+  const int G4 = 4 * G;
+  const size_t RB = (size_t)R * B;
+
+  // this lane's share of W_hh, upcast to f32, for all T steps (zero for k
+  // beyond G: those terms add +0 and leave every sum as it is)
+  const W* wr_base = whh + (size_t)r * G * G4 + u;
+  auto w_at = [&](int i) {
+    const int k = p + RS_PARTS * i;
+    return u < G && k < G ? load_w4(wr_base + (size_t)k * G4, G)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+  float4 wr[SW_KREG];
+#pragma unroll
+  for (int i = 0; i < SW_KREG; ++i) wr[i] = w_at(i);
+  for (int i = SW_KREG; i < iters; ++i) w_s[(size_t)(i - SW_KREG) * SW_THREADS + tid] = w_at(i);
+
+  // rows beyond nb and k beyond G stay zero; h0 in
+  for (int i = tid; i < KR * HS; i += SW_THREADS) h_s[i] = 0.0f;
+  __syncthreads();
+  for (int i = tid; i < nb * G; i += SW_THREADS) {
+    const int b = i / G;
+    const int k = i - b * G;
+    h_s[k * HS + b] = h0[((size_t)r * B + b0 + b) * G + k];
+  }
+
+  // the cells this lane applies after sw_reduce: unit u and, in pass n,
+  // row n RP + rb; a lane leads its row where the in-place rounds' mask
+  // bits of p are 0 (those rounds leave the same sums on both sides)
+  int rb = 0;
+#pragma unroll
+  for (int round = 0; round < SCAT; ++round)
+    if (p & (8 >> round)) rb += RP >> (round + 1);
+  const bool leader = (p & ((1 << (4 - SCAT)) - 1)) == 0;
+  float cc[NP], hl[NP];
+  bool cell_ok[NP];
+  size_t row[NP];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    cell_ok[n] = leader && u < G && n * RP + rb < nb;
+    row[n] = (size_t)r * B + b0 + n * RP + rb;
+    cc[n] = cell_ok[n] ? c[row[n] * G + u] : 0.0f;
+    hl[n] = cell_ok[n] ? h0[row[n] * G + u] : 0.0f;
+  }
+
+  unsigned long long* hx_r = hx + (size_t)r * 2 * SCAN_ROWS * G;
+
+  // xp of step t, for the cells' rows: loaded a step ahead, from L2, where a
+  // prefetch two steps earlier has put it
+  const size_t x_step = RB * G4;
+  const float* xr[NP];
+  float xv[NP][4];
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    xr[n] = xp + row[n] * G4 + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      xv[n][q] = cell_ok[n] ? xr[n][(size_t)q * G] : 0.0f;
+      if (cell_ok[n] && T > 1) prefetch_l2(xr[n] + x_step + (size_t)q * G);
+      if (cell_ok[n] && T > 2) prefetch_l2(xr[n] + 2 * x_step + (size_t)q * G);
+    }
+  }
+
+  for (int t = 0; t < T; ++t) {
+    float xn[NP][4];
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* x1 = xr[n] + (size_t)(t + 1) * x_step + (size_t)q * G;
+        xn[n][q] = cell_ok[n] && t + 1 < T ? *x1 : 0.0f;
+        if (cell_ok[n] && t + 3 < T) prefetch_l2(x1 + 2 * x_step);
+      }
+    }
+
+    if (t > 0) {
+      // h_{t-1}: a thread takes every row of units tid and tid + 320 (at 8
+      // rows and more one unit after the other, so that the words in
+      // flight leave W its registers).  It spins on the first word alone,
+      // then asks for all the others at once, and again for those without
+      // this step's tag, until none is left (the resident form's poll)
+      constexpr int MS = RT >= 8 ? 1 : SW_UPT;  // units a round
+      const volatile unsigned long long* src = hx_r + (size_t)(t & 1) * SCAN_ROWS * G;
+      const unsigned want = tag0 + (unsigned)t;
+      const unsigned long long ready = (unsigned long long)want << 32;
+      unsigned polls = 0;
+#pragma unroll
+      for (int m0 = 0; m0 < SW_UPT; m0 += MS) {
+        unsigned long long v[MS][RT];
+        if (m0 == 0 && tid < G) {
+          v[0][0] = src[tid];
+          while ((unsigned)(v[0][0] >> 32) != want) {
+            if (++polls > SCAN_MAX_POLLS) __trap();
+            v[0][0] = src[tid];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MS; ++m) {
+          const int k = tid + (m0 + m) * SW_THREADS;
+#pragma unroll
+          for (int b = 0; b < RT; ++b)
+            if (m0 + m > 0 || b > 0) v[m][b] = k < G && b < nb ? src[(size_t)b * G + k] : ready;
+        }
+        if (m0 == 0 && tid >= G) v[0][0] = ready;
+        for (;;) {
+          bool stale = false;
+#pragma unroll
+          for (int m = 0; m < MS; ++m) {
+#pragma unroll
+            for (int b = 0; b < RT; ++b) stale |= (unsigned)(v[m][b] >> 32) != want;
+          }
+          if (!stale) break;
+          if (++polls > SCAN_MAX_POLLS) __trap();
+#pragma unroll
+          for (int m = 0; m < MS; ++m) {
+#pragma unroll
+            for (int b = 0; b < RT; ++b)
+              if ((unsigned)(v[m][b] >> 32) != want)
+                v[m][b] = src[(size_t)b * G + tid + (m0 + m) * SW_THREADS];
+          }
+        }
+        // rows beyond nb carry 0, as the buffer does there
+#pragma unroll
+        for (int m = 0; m < MS; ++m) {
+          const int k = tid + (m0 + m) * SW_THREADS;
+          if (k < G) {
+            float* hk = h_s + k * HS;
+            if constexpr (RT % 4 == 0) {
+#pragma unroll
+              for (int b = 0; b < RT; b += 4)
+                *reinterpret_cast<float4*>(hk + b) =
+                    make_float4(__uint_as_float((uint32_t)v[m][b]),
+                                __uint_as_float((uint32_t)v[m][b + 1]),
+                                __uint_as_float((uint32_t)v[m][b + 2]),
+                                __uint_as_float((uint32_t)v[m][b + 3]));
+            } else {
+#pragma unroll
+              for (int b = 0; b < RT; ++b) hk[b] = __uint_as_float((uint32_t)v[m][b]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      // this lane's part of the product for the pass's rows, ascending
+      // k = p + 16 i
+      float acc[4][RP];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int b = 0; b < RP; ++b) acc[q][b] = 0.0f;
+      }
+      const float* hp = h_s + p * HS + n * RP;
+#pragma unroll
+      for (int i = 0; i < SW_KREG; ++i) fma_unit<RP>(acc, wr[i], hp + i * RS_PARTS * HS);
+#pragma unroll 4
+      for (int i = SW_KREG; i < iters; ++i)
+        fma_unit<RP>(acc, w_s[(size_t)(i - SW_KREG) * SW_THREADS + tid],
+                     hp + i * RS_PARTS * HS);
+      // the step's last read of h: the next step's poll may overwrite it
+      if (n == NP - 1) __syncthreads();
+      sw_reduce<RP>(acc, p);
+
+      if (cell_ok[n]) {
+        const float ig = sigmoidf_(__fadd_rn(xv[n][0], acc[0][0]));
+        const float fg = sigmoidf_(__fadd_rn(xv[n][1], acc[1][0]));
+        const float gg = tanhf(__fadd_rn(xv[n][2], acc[2][0]));
+        const float og = sigmoidf_(__fadd_rn(xv[n][3], acc[3][0]));
+        // explicit roundings: f*c + i*g as the plain version computes it
+        cc[n] = __fadd_rn(__fmul_rn(fg, cc[n]), __fmul_rn(ig, gg));
+        hl[n] = __fmul_rn(og, tanhf(cc[n]));
+        // h_t to the exchange first, so that no consumer waits behind the
+        // stores of the outputs
+        if (t + 1 < T) {
+          volatile unsigned long long* dst =
+              hx_r + ((size_t)((t + 1) & 1) * SCAN_ROWS + n * RP + rb) * G + u;
+          *dst = ((unsigned long long)(tag0 + (unsigned)t + 1u) << 32) |
+                 (unsigned long long)__float_as_uint(hl[n]);
+        }
+        const size_t o = (size_t)t * RB + row[n];
+        hs[o * G + u] = hl[n];
+        if constexpr (RESID) {
+          float* gp = gates + o * G4 + u;
+          gp[0] = ig;
+          gp[G] = fg;
+          gp[2 * G] = gg;
+          gp[3 * G] = og;
+          cs[o * G + u] = cc[n];
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xv[n][q] = xn[n][q];
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < NP; ++n) {
+    if (cell_ok[n]) {
+      hT[row[n] * G + u] = hl[n];
+      c[row[n] * G + u] = cc[n];
+    }
+  }
+}
+
+template <typename W, bool RESID>
+const void* wide_kernel_rt(int rt) {
+  switch (rt) {
+    case 1: return (const void*)lstm_scan_wide_kernel<W, 1, RESID>;
+    case 2: return (const void*)lstm_scan_wide_kernel<W, 2, RESID>;
+    case 4: return (const void*)lstm_scan_wide_kernel<W, 4, RESID>;
+    case 8: return (const void*)lstm_scan_wide_kernel<W, 8, RESID>;
+    case 16: return (const void*)lstm_scan_wide_kernel<W, 16, RESID>;
+    default: return nullptr;
+  }
+}
+
+// ---- the streaming form's instantiations, and the forms' setup ---------
 
 template <typename W, bool RESID, bool ROUND_H = false>
 const void* scan_kernel_rt(int rt) {
@@ -748,21 +1119,35 @@ size_t scan_smem(int G, int rt) {
   return sizeof(float) * ((size_t)G * rt + (size_t)SCAN_PARTS * rt * SCAN_COLS);
 }
 
-// The instantiation of the form (resident = 1 or streaming) for row tile
-// rt, W_hh storage and the residual flag (round_h: the merged streaming form,
-// streaming with bf16 W_hh only), with the dynamic shared memory it needs
-// allowed, and its block size; cudaErrorInvalidValue for a tile it does not
-// have or a width the resident form does not take (G > 512).
-cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int round_h, int G,
+// The forms' codes in the entry points: 0 streaming, 1 resident, 2 wide.
+constexpr int FORM_STREAMING = 0;
+constexpr int FORM_RESIDENT = 1;
+constexpr int FORM_WIDE = 2;
+
+// Whether `form` takes width G: the resident form up to 512, the wide form
+// above 512 up to SW_G_MAX, the streaming form any G.
+bool form_takes(int form, int G) {
+  if (G < 1) return false;
+  if (form == FORM_RESIDENT) return G <= RS_G_MAX;
+  if (form == FORM_WIDE) return G > RS_G_MAX && G <= SW_G_MAX;
+  return form == FORM_STREAMING;
+}
+
+// The instantiation of `form` for row tile rt, W_hh storage and the
+// residual flag (round_h: the merged streaming form, streaming with bf16
+// W_hh only), with the dynamic shared memory it needs allowed, and its
+// block size; cudaErrorInvalidValue for a tile it does not have or a width
+// the form does not take.
+cudaError_t scan_kernel(int form, int rt, int whh_bf16, int resid, int round_h, int G,
                         const void** fn, size_t* smem, int* threads) {
-  if (G < 1 || (resident && G > RS_G_MAX)) return cudaErrorInvalidValue;
+  if (!form_takes(form, G)) return cudaErrorInvalidValue;
   if (round_h) {
-    if (resident || !whh_bf16) return cudaErrorInvalidValue;
+    if (form != FORM_STREAMING || !whh_bf16) return cudaErrorInvalidValue;
     *fn = resid ? scan_kernel_rt<__nv_bfloat16, true, true>(rt)
                 : scan_kernel_rt<__nv_bfloat16, false, true>(rt);
     *smem = scan_smem(G, rt);
     *threads = SCAN_THREADS;
-  } else if (resident) {
+  } else if (form == FORM_RESIDENT) {
     if (resid)
       *fn = whh_bf16 ? resident_kernel_rt<__nv_bfloat16, true>(rt)
                      : resident_kernel_rt<float, true>(rt);
@@ -771,6 +1156,13 @@ cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int round
                      : resident_kernel_rt<float, false>(rt);
     *smem = rs_smem(G, rt);
     *threads = RS_THREADS;
+  } else if (form == FORM_WIDE) {
+    if (resid)
+      *fn = whh_bf16 ? wide_kernel_rt<__nv_bfloat16, true>(rt) : wide_kernel_rt<float, true>(rt);
+    else
+      *fn = whh_bf16 ? wide_kernel_rt<__nv_bfloat16, false>(rt) : wide_kernel_rt<float, false>(rt);
+    *smem = sw_smem(G, rt);
+    *threads = SW_THREADS;
   } else {
     if (resid)
       *fn = whh_bf16 ? scan_kernel_rt<__nv_bfloat16, true>(rt) : scan_kernel_rt<float, true>(rt);
@@ -783,27 +1175,29 @@ cudaError_t scan_kernel(int resident, int rt, int whh_bf16, int resid, int round
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-// K10's launch geometry on the current device in the form asked for
-// (resident = 1: W_hh on the chip, G <= 512; 0: streaming) at width G,
-// W_hh in bf16 (whh_bf16 = 1) or f32, with the residual stores (resid = 1)
-// or not: `rows`, the largest row tile (16, 8, 4, 2 or 1) whose shared
+// Hidden units a block of `form` owns.
+int form_units(int form) { return form == FORM_WIDE ? SW_UNITS : SCAN_UNITS; }
+
+// K10's launch geometry on the current device in `form` (FORM_*) at width
+// G, W_hh in bf16 (whh_bf16 = 1) or f32, with the residual stores (resid =
+// 1) or not: `rows`, the largest row tile (16, 8, 4, 2 or 1) whose shared
 // memory a block may have, and `blocks`, how many blocks of that tile the
 // device holds at once (what a cooperative launch may ask for; a smaller
 // tile needs less and fits as many).  rows = 0 where not even one row of h
 // fits.  At that tile, `smem`: the dynamic shared memory a block asks for,
-// and `w_regs`: the bytes of a full block's share of W_hh (its 128 columns
-// x G, f32) that stay in registers (the rest is in shared memory; 0 in the
-// streaming form).  Returns the first CUDA error;
+// and `w_regs`: the bytes of a full block's share of W_hh (its gate
+// columns x G, f32) that stay in registers (the rest is in shared memory;
+// 0 in the streaming form).  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
 // round_h: the merged streaming form's instantiation (umx_lstm_merged_streaming).
-int scan_capacity(int resident, int G, int whh_bf16, int resid, int round_h, int* rows,
+int scan_capacity(int form, int G, int whh_bf16, int resid, int round_h, int* rows,
                   int* blocks, int* smem, int* w_regs) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
   *rows = 0;
   *blocks = 0;
   *smem = 0;
   *w_regs = 0;
-  if (G < 1 || (resident && G > RS_G_MAX)) return (int)cudaErrorInvalidValue;
+  if (!form_takes(form, G)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -814,21 +1208,28 @@ int scan_capacity(int resident, int G, int whh_bf16, int resid, int round_h, int
   e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   for (int rt = SCAN_ROWS; rt >= 1; rt /= 2) {
-    if ((resident ? rs_smem(G, rt) : scan_smem(G, rt)) > (size_t)smem_max) continue;
+    const size_t need = form == FORM_RESIDENT ? rs_smem(G, rt)
+                        : form == FORM_WIDE   ? sw_smem(G, rt)
+                                              : scan_smem(G, rt);
+    if (need > (size_t)smem_max) continue;
     const void* fn = nullptr;
     size_t bytes = 0;
     int per_sm = 0, threads = 0;
-    e = scan_kernel(resident, rt, whh_bf16, resid, round_h, G, &fn, &bytes, &threads);
+    e = scan_kernel(form, rt, whh_bf16, resid, round_h, G, &fn, &bytes, &threads);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, bytes);
     if (e != cudaSuccess) return (int)e;
     *rows = rt;
     *blocks = per_sm * sms;
     *smem = (int)bytes;
-    // the k rows of the iterations held in registers (k = p + 16 i, i <
-    // rs_kreg), of the G real ones
-    const int kreg_rows = RS_PARTS * rs_kreg(rt);
-    *w_regs = resident ? (int)sizeof(float) * SCAN_COLS * (G < kreg_rows ? G : kreg_rows) : 0;
+    if (form == FORM_RESIDENT) {
+      // the k rows of the iterations held in registers (k = p + 16 i, i <
+      // rs_kreg), of the G real ones
+      const int kreg_rows = RS_PARTS * rs_kreg(rt);
+      *w_regs = (int)sizeof(float) * SCAN_COLS * (G < kreg_rows ? G : kreg_rows);
+    } else if (form == FORM_WIDE) {
+      *w_regs = (int)sizeof(float4) * SW_KREG * SW_THREADS;  // SW_KREG k of each part
+    }
     return (int)cudaSuccess;
   }
   return (int)cudaSuccess;
@@ -836,21 +1237,22 @@ int scan_capacity(int resident, int G, int whh_bf16, int resid, int round_h, int
 
 }  // namespace
 
-extern "C" int umx_lstm_scan_capacity(int resident, int G, int whh_bf16, int resid, int* rows,
+// form: 0 streaming, 1 resident, 2 wide (scan_capacity)
+extern "C" int umx_lstm_scan_capacity(int form, int G, int whh_bf16, int resid, int* rows,
                                       int* blocks, int* smem, int* w_regs) {
-  return scan_capacity(resident, G, whh_bf16, resid, 0, rows, blocks, smem, w_regs);
+  return scan_capacity(form, G, whh_bf16, resid, 0, rows, blocks, smem, w_regs);
 }
 
 // The merged streaming form's launch geometry (umx_lstm_scan_capacity of
 // the streaming form with bf16 W_hh and rounded h): K1 (resid = 0) or K4.
 extern "C" int umx_lstm_merged_streaming_capacity(int G, int resid, int* rows, int* blocks,
                                                   int* smem, int* w_regs) {
-  return scan_capacity(0, G, 1, resid, 1, rows, blocks, smem, w_regs);
+  return scan_capacity(FORM_STREAMING, G, 1, resid, 1, rows, blocks, smem, w_regs);
 }
 
 namespace {
 
-int scan_launch(int resident, int round_h, const float* xp, const void* whh, int whh_bf16,
+int scan_launch(int form, int round_h, const float* xp, const void* whh, int whh_bf16,
                 const float* h0, float* c, float* hs, float* hT, float* gates, float* cs,
                 void* hx, int T, int R, int B, int G, int r0, int nr, int b0, int nb, int rt,
                 unsigned tag0, void* stream) {
@@ -861,12 +1263,13 @@ int scan_launch(int resident, int round_h, const float* xp, const void* whh, int
   size_t smem = 0;
   int threads = 0;
   cudaError_t e =
-      scan_kernel(resident, rt, whh_bf16, gates != nullptr, round_h, G, &fn, &smem, &threads);
+      scan_kernel(form, rt, whh_bf16, gates != nullptr, round_h, G, &fn, &smem, &threads);
   if (e != cudaSuccess) return (int)e;
   unsigned long long* hxp = static_cast<unsigned long long*>(hx);
   void* args[] = {&xp, &whh, &h0, &c, &hs, &hT, &gates, &cs, &hxp, &T, &R, &B,
                   &b0, &nb, &G, &r0, &tag0};
-  const dim3 grid((G + SCAN_UNITS - 1) / SCAN_UNITS, nr);
+  const int units = form_units(form);
+  const dim3 grid((G + units - 1) / units, nr);
   e = cudaLaunchCooperativeKernel(fn, grid, dim3(threads), args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
@@ -875,30 +1278,30 @@ int scan_launch(int resident, int round_h, const float* xp, const void* whh, int
 
 }  // namespace
 
-// K10: one launch in the form asked for (resident = 1 or streaming), all T
+// K10: one launch in the form asked for (0 streaming, 1 resident, 2 wide), all T
 // steps of chains [r0, r0 + nr) and rows [b0, b0 + nb) of each,
 // nb <= rt <= 16, rt a power of two.  `c` holds c0 on entry and cT on
 // return for those rows.  `hx` is the exchange buffer, R * 2 * 16 * G
 // 64-bit words, zeroed before the layer's first launch; `tag0` is the
 // number of steps earlier launches ran on the same buffer.
 // Returns the first CUDA error.
-extern "C" int umx_lstm_scan(int resident, const float* xp, const void* whh, int whh_bf16,
+extern "C" int umx_lstm_scan(int form, const float* xp, const void* whh, int whh_bf16,
                              const float* h0, float* c, float* hs, float* hT, void* hx, int T,
                              int R, int B, int G, int r0, int nr, int b0, int nb, int rt,
                              unsigned tag0, void* stream) {
-  return scan_launch(resident, 0, xp, whh, whh_bf16, h0, c, hs, hT, nullptr, nullptr, hx, T, R,
+  return scan_launch(form, 0, xp, whh, whh_bf16, h0, c, hs, hT, nullptr, nullptr, hx, T, R,
                      B, G, r0, nr, b0, nb, rt, tag0, stream);
 }
 
 // K10 with the residual stores: umx_lstm_scan plus the activated gates
 // (T, R*B, 4G) and c (T, R*B, G) of every step of those chains and rows.
-extern "C" int umx_lstm_scan_train(int resident, const float* xp, const void* whh,
+extern "C" int umx_lstm_scan_train(int form, const float* xp, const void* whh,
                                    int whh_bf16, const float* h0, float* c, float* hs,
                                    float* hT, float* gates, float* cs, void* hx, int T, int R,
                                    int B, int G, int r0, int nr, int b0, int nb, int rt,
                                    unsigned tag0, void* stream) {
   if (gates == nullptr || cs == nullptr) return (int)cudaErrorInvalidValue;
-  return scan_launch(resident, 0, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G,
+  return scan_launch(form, 0, xp, whh, whh_bf16, h0, c, hs, hT, gates, cs, hx, T, R, B, G,
                      r0, nr, b0, nb, rt, tag0, stream);
 }
 
@@ -911,6 +1314,6 @@ extern "C" int umx_lstm_merged_streaming(const float* xp, const void* whh, const
                                          void* hx, int T, int R, int B, int G, int r0, int nr,
                                          int b0, int nb, int rt, unsigned tag0, void* stream) {
   if ((gates == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
-  return scan_launch(0, 1, xp, whh, 1, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0, nr, b0, nb,
-                     rt, tag0, stream);
+  return scan_launch(FORM_STREAMING, 1, xp, whh, 1, h0, c, hs, hT, gates, cs, hx, T, R, B, G, r0,
+                     nr, b0, nb, rt, tag0, stream);
 }

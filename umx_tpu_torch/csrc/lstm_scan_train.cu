@@ -34,7 +34,7 @@
 // a step here needs every gate cotangent of the row (4G) before it can
 // form dh.
 //
-// The form, K10's launch: ONE cooperative launch runs all T steps of all
+// The forms, K10's launch: ONE cooperative launch runs all T steps of all
 // chains and up to 16 rows per chain; a chain is split over ceil(G/32)
 // blocks, a block owns 32 hidden units and their 128 gate columns, and
 // each block multiplies its own 128 columns of dg against W_hh for every
@@ -57,7 +57,8 @@
 // units are spread two a thread for the cell and the partials' sum.  One
 // barrier a step (dg in shared memory, double-buffered by step parity).
 //
-// The streaming form (G > 512), the form from before the resident one.
+// The streaming form (G > 640; by name, the yardstick of the wide form),
+// the form from before the resident one.
 // 512 threads; a thread owns one unit at a time (the chain's units spread
 // over the 16 warps) and streams the share from L2 or device memory each
 // step, from W_hh transposed, wt (R, 4G, G), which the wrapper makes for
@@ -67,11 +68,17 @@
 // 1.12 x slower at G 640 with the copy's 0.12 ms counted; PERF.md, K11),
 // and dg from shared memory as K10 reads h.
 //
-// Both forms sum a (unit, row) partial over the block's columns in
-// ascending order (gate-major, then unit) from 0 by f32 FMA, and the
-// partials in block order: the same order, so the two forms give the same
-// bits, and a row's bits do not depend on B, the row group or what runs
-// beside it: a row is bit-equal to itself run alone.
+// The resident and streaming forms sum a (unit, row) partial over the
+// block's columns in ascending order (gate-major, then unit) from 0 by f32
+// FMA, and the partials in block order: the same order, so the two forms
+// give the same bits, and a row's bits do not depend on B, the row group
+// or what runs beside it: a row is bit-equal to itself run alone.
+//
+// The wide form (512 < G <= 640, where the card's figures give it a plan,
+// ops/lstm_cuda.py:scan_wide_plan): W_hh on the chip in shares of 20 units
+// over more blocks, R 8 in two chain groups; see "the wide form" below.
+// Its partials are over blocks of 20 units: its own order, fixed by G.
+// The streaming form then runs above G 640.
 //
 // The streaming merged backward (umx_lstm_bwd_wide) is the streaming form
 // with the compile-time flag ROUND_DG and wt in bf16: the gate cotangents
@@ -571,7 +578,259 @@ const void* bwd_resident_kernel_rt(int rt) {
   }
 }
 
-// ---- the streaming form's instantiations, and both forms' setup --------
+// ---- the wide form -----------------------------------------------------
+//
+// Above G 512 a chain's f32 W_hh (16 G^2 bytes: 6.55 MB at G 640, 52.4 MB
+// for 8 chains) no longer fits the resident form's 16 blocks.  The wide
+// form keeps it on the chip in smaller shares: a block owns SBW_UNITS = 20
+// units and their 80 gate columns c = 20 q + j (gate q of unit u0 + j)
+// against every unit of the chain, W_hh[unit][q G + u0 + j] as stored, so
+// a chain is ceil(G/20) blocks (32 at G 640) and the card holds 4 chains at
+// once: R 8 runs as two chain groups (planned by the wrapper,
+// ops/lstm_cuda.py:scan_wide_plan).  A thread of the block's 320 owns
+// units tid and tid + 320 of the chain (so G <= 640), with W of the
+// block's first SBW_CREG columns in registers (96 of its 168) and of the
+// rest in shared memory (80 KiB).  Each column feeds 2 x rows FMAs from one
+// broadcast of its dg rows, in passes of 8 rows.  The cells: (unit u0 +
+// tid % 20, row tid / 20), one a thread.  The exchange is the partial one:
+// a block publishes its columns' share of dh for every unit and row (G
+// tagged words a row), and a cell adds the shares of its unit from every
+// block of the chain in block order, 8 words in flight.  The step follows
+// the exchange (80 KiB written and 80 read a block and step at 16 rows): a
+// form with four units a thread against half the columns, which halved the
+// dg reads of shared memory, took the same time (5.32 against 5.30-5.39 ms
+// at T 256, R 8, B 16, G 640), and 11 % more with its exchange stores half
+// coalesced (PERF.md, PR 21).
+//
+// Its order of summation: a (unit, row) partial over the block's 80
+// columns in ascending c from 0 by f32 FMA, the partials in block order.
+// That is the other forms' order with blocks of 20 units in place of 32:
+// its own bits, fixed by G alone (never by B, the row group, the chain
+// group or what runs beside it, so a row is bit-equal to itself run
+// alone), within the f32 rounding of the other forms' (the streaming form
+// stays its yardstick by name, _form="streaming").  A block is declared
+// with launch bounds of 384 threads so that ptxas keeps a thread within the
+// 168 registers a thread of a 10-warp block may have on an H100.
+constexpr int SBW_UNITS = 20;                       // hidden units a block owns
+constexpr int SBW_COLS = 4 * SBW_UNITS;             // its gate columns
+constexpr int SBW_THREADS = 320;
+constexpr int SBW_BOUND_THREADS = 384;              // launch bounds: 168 registers a thread
+constexpr int SBW_UPT = 2;                          // units a thread owns in the product
+constexpr int SBW_CREG = 48;                        // block columns with W in registers
+constexpr int SBW_PASS = 8;                         // rows of one pass
+constexpr int SBW_POLL = 8;                         // exchange words in flight a cell
+constexpr int SBW_G_MAX = SBW_THREADS * SBW_UPT;    // 640
+
+// Dynamic shared memory of the wide form: W of the columns beyond SBW_CREG
+// (a float2 of the thread's two units a column) and two buffers of dg
+// (80 x rt f32, column-major), by step parity.
+size_t sbw_smem(int rt) {
+  return sizeof(float2) * (size_t)(SBW_COLS - SBW_CREG) * SBW_THREADS +
+         sizeof(float) * 2 * (size_t)SBW_COLS * rt;
+}
+
+// grid = (ceil(G/20), chains of this launch), SBW_THREADS threads, 512 < G
+// <= 640.  RT: the row tile, a power of two >= nb.  Dynamic shared memory
+// sbw_smem(RT).  hx: exchange words (R, 2, ceil(G/20), SB_ROWS, G); the
+// contract of lstm_scan_bwd_kernel, W_hh as stored (R, G, 4G).
+template <typename W, int RT>
+__global__ void __launch_bounds__(SBW_BOUND_THREADS, 1)
+lstm_scan_bwd_wide_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
+                          const float* __restrict__ c0, const W* __restrict__ whh,
+                          const float* __restrict__ dhs, const float* __restrict__ dhT,
+                          float* __restrict__ dc, float* __restrict__ dxp,
+                          float* __restrict__ dh0, unsigned long long* hx, int T, int R, int B,
+                          int b0, int nb, int G, int r0, unsigned tag0) {
+  constexpr int RP = RT < SBW_PASS ? RT : SBW_PASS;  // rows of a pass
+  constexpr int NP = RT / RP;                         // passes
+  extern __shared__ __align__(16) float smem[];
+  float2* w_s = reinterpret_cast<float2*>(smem);                        // [c - CREG][tid]
+  float* dg_s = smem + (size_t)2 * (SBW_COLS - SBW_CREG) * SBW_THREADS;  // [par][c * RT + b]
+  const int tid = threadIdx.x;
+  const int r = r0 + blockIdx.y;
+  const int blk = blockIdx.x;
+  const int nblk = gridDim.x;
+  const int u0 = blk * SBW_UNITS;
+  const int nj = min(SBW_UNITS, G - u0);  // the block's units: its columns of each gate
+  const int G4 = 4 * G;
+  const size_t RB = (size_t)R * B;
+
+  // the product's role: units tid and tid + 320 of the chain against the
+  // block's columns c = 20 q + j, upcast to f32, for all T steps
+  const W* w_r = whh + (size_t)r * G * G4 + u0;
+  auto w_at = [&](int unit, int c) {
+    return unit < G && (c % SBW_UNITS) < nj
+               ? load_w(w_r + (size_t)unit * G4 + (size_t)(c / SBW_UNITS) * G + c % SBW_UNITS)
+               : 0.0f;
+  };
+  float2 wr[SBW_CREG];
+#pragma unroll
+  for (int c = 0; c < SBW_CREG; ++c)
+    wr[c] = make_float2(w_at(tid, c), w_at(tid + SBW_THREADS, c));
+  for (int c = SBW_CREG; c < SBW_COLS; ++c)
+    w_s[(size_t)(c - SBW_CREG) * SBW_THREADS + tid] =
+        make_float2(w_at(tid, c), w_at(tid + SBW_THREADS, c));
+  for (int i = tid; i < 2 * SBW_COLS * RT; i += SBW_THREADS) dg_s[i] = 0.0f;
+
+  // the cell's role: unit u0 + cj of row cb
+  const int cj = tid % SBW_UNITS;
+  const int cb = tid / SBW_UNITS;
+  const bool ok = cb < nb && cj < nj;
+  const size_t row = (size_t)r * B + b0 + cb;
+  const int u = u0 + cj;
+  float dcl = 0.0f, carry = 0.0f;
+  float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f, cst = 0.0f, cprev = 0.0f, dhst = 0.0f;
+  if (ok) {
+    dcl = dc[row * G + u];
+    carry = dhT[row * G + u];
+  }
+  // this step's residuals and cotangent: they do not depend on the carry
+  auto load_step = [&](int t) {
+    if (ok) {
+      const float* g4 = gates + ((size_t)t * RB + row) * G4 + u;
+      gi = g4[0];
+      gf = g4[G];
+      gg = g4[2 * G];
+      go = g4[3 * G];
+      cst = cs[((size_t)t * RB + row) * G + u];
+      cprev = t > 0 ? cs[((size_t)(t - 1) * RB + row) * G + u] : c0[row * G + u];
+      dhst = dhs[((size_t)t * RB + row) * G + u];
+      if (t >= 2) {
+        // two steps ahead into L2, so that no poll queues behind a load
+        // from device memory
+        const size_t o2 = (size_t)(t - 2) * RB + row;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) prefetch_l2(gates + o2 * G4 + (size_t)q * G + u);
+        prefetch_l2(cs + o2 * G + u);
+        if (t >= 3) prefetch_l2(cs + (o2 - RB) * G + u);
+        prefetch_l2(dhs + o2 * G + u);
+      }
+    }
+  };
+  load_step(T - 1);
+  __syncthreads();
+
+  unsigned long long* hx_r = hx + (size_t)r * 2 * SB_ROWS * nblk * G;
+
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i;
+    const int par = i & 1;
+    const unsigned tag = tag0 + (unsigned)i + 1u;
+    float* dgb = dg_s + (size_t)par * SBW_COLS * RT;
+
+    // the cell: dg of the pair's four columns, dxp, the dc carry
+    if (ok) {
+      const float tc = tanhf(cst);
+      const float dh = __fadd_rn(carry, dhst);
+      const float dov = __fmul_rn(dh, tc);
+      const float dct =
+          __fadd_rn(dcl, __fmul_rn(__fmul_rn(dh, go), __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+      float dg[4];
+      dg[0] = __fmul_rn(__fmul_rn(__fmul_rn(dct, gg), gi), __fsub_rn(1.0f, gi));
+      dg[1] = __fmul_rn(__fmul_rn(__fmul_rn(dct, cprev), gf), __fsub_rn(1.0f, gf));
+      dg[2] = __fmul_rn(__fmul_rn(dct, gi), __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+      dg[3] = __fmul_rn(__fmul_rn(dov, go), __fsub_rn(1.0f, go));
+      dcl = __fmul_rn(dct, gf);
+      float* dx = dxp + ((size_t)t * RB + row) * G4 + u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dx[(size_t)q * G] = dg[q];
+        dgb[(q * SBW_UNITS + cj) * RT + cb] = dg[q];
+      }
+    }
+    if (t > 0) load_step(t - 1);  // in flight while the product and the exchange run
+    __syncthreads();  // the block's dg is in
+
+    // units tid and tid + 320 against the block's columns, ascending c
+    // (columns of units beyond G hold zero W and zero dg: a sum starts at
+    // +0, is never -0, and adding +0 leaves its bits as they are)
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      float acc[SBW_UPT][RP];
+#pragma unroll
+      for (int b = 0; b < RP; ++b) acc[0][b] = acc[1][b] = 0.0f;
+      const float* dp = dgb + n * RP;
+#pragma unroll
+      for (int c = 0; c < SBW_CREG; ++c) {
+        fma_rows<RP>(acc[0], wr[c].x, dp + c * RT);
+        fma_rows<RP>(acc[1], wr[c].y, dp + c * RT);
+      }
+#pragma unroll 8
+      for (int c = SBW_CREG; c < SBW_COLS; ++c) {
+        const float2 w = w_s[(size_t)(c - SBW_CREG) * SBW_THREADS + tid];
+        fma_rows<RP>(acc[0], w.x, dp + c * RT);
+        fma_rows<RP>(acc[1], w.y, dp + c * RT);
+      }
+#pragma unroll
+      for (int m = 0; m < SBW_UPT; ++m) {
+        const int unit = tid + m * SBW_THREADS;
+        if (unit < G) {
+          volatile unsigned long long* dst =
+              hx_r + (((size_t)par * nblk + blk) * SB_ROWS + n * RP) * G + unit;
+#pragma unroll
+          for (int b = 0; b < RP; ++b)
+            if (n * RP + b < nb) dst[(size_t)b * G] = tagged(tag, acc[m][b]);
+        }
+      }
+    }
+
+    // the cell's partials from every block of the chain, added in block
+    // order: the first word alone while waiting (one load a thread in
+    // flight), then SBW_POLL at once, again for those without this step's
+    // tag, until none is left
+    if (ok) {
+      const volatile unsigned long long* w =
+          hx_r + (size_t)par * nblk * SB_ROWS * G + (size_t)cb * G + u;
+      const size_t stride = (size_t)SB_ROWS * G;  // from one block's slice to the next
+      const unsigned long long ready = (unsigned long long)tag << 32;
+      unsigned polls = 0;
+      unsigned long long v0 = w[0];
+      while ((unsigned)(v0 >> 32) != tag) {
+        if (++polls > SB_MAX_POLLS) __trap();
+        v0 = w[0];
+      }
+      float s = __uint_as_float((uint32_t)v0);
+      for (int p0 = 1; p0 < nblk; p0 += SBW_POLL) {
+        unsigned long long v[SBW_POLL];
+#pragma unroll
+        for (int e = 0; e < SBW_POLL; ++e) v[e] = p0 + e < nblk ? w[(p0 + e) * stride] : ready;
+        for (;;) {
+          bool stale = false;
+#pragma unroll
+          for (int e = 0; e < SBW_POLL; ++e) stale |= (unsigned)(v[e] >> 32) != tag;
+          if (!stale) break;
+          if (++polls > SB_MAX_POLLS) __trap();
+#pragma unroll
+          for (int e = 0; e < SBW_POLL; ++e)
+            if ((unsigned)(v[e] >> 32) != tag) v[e] = w[(p0 + e) * stride];
+        }
+#pragma unroll
+        for (int e = 0; e < SBW_POLL; ++e)
+          if (p0 + e < nblk) s = __fadd_rn(s, __uint_as_float((uint32_t)v[e]));
+      }
+      carry = s;
+    }
+  }
+
+  if (ok) {
+    dh0[row * G + u] = carry;
+    dc[row * G + u] = dcl;
+  }
+}
+
+template <typename W>
+const void* bwd_wide_kernel_rt(int rt) {
+  switch (rt) {
+    case 1: return (const void*)lstm_scan_bwd_wide_kernel<W, 1>;
+    case 2: return (const void*)lstm_scan_bwd_wide_kernel<W, 2>;
+    case 4: return (const void*)lstm_scan_bwd_wide_kernel<W, 4>;
+    case 8: return (const void*)lstm_scan_bwd_wide_kernel<W, 8>;
+    case 16: return (const void*)lstm_scan_bwd_wide_kernel<W, 16>;
+    default: return nullptr;
+  }
+}
+
+// ---- the streaming form's instantiations, and the forms' setup ---------
 
 template <typename W, bool ROUND_DG = false>
 const void* bwd_kernel_rt(int rt) {
@@ -591,23 +850,44 @@ size_t bwd_smem(int G, int rt) {
   return sizeof(float) * ((size_t)SB_COLS * rt + nblk * rt * SB_UNITS);
 }
 
-// The instantiation of the form (resident = 1 or streaming) for row tile rt
-// and W_hh storage (round_dg: the streaming merged backward, streaming with bf16
-// W_hh only), with the dynamic shared memory it needs allowed, and its block
-// size; cudaErrorInvalidValue for a tile it does not have or a width the
-// resident form does not take (G > 512).
-cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int round_dg, int G, const void** fn,
+// The forms' codes in the entry points: 0 streaming, 1 resident, 2 wide.
+constexpr int FORM_STREAMING = 0;
+constexpr int FORM_RESIDENT = 1;
+constexpr int FORM_WIDE = 2;
+
+// Whether `form` takes width G: the resident form up to 512, the wide form
+// above 512 up to SBW_G_MAX, the streaming form any G.
+bool form_takes(int form, int G) {
+  if (G < 1) return false;
+  if (form == FORM_RESIDENT) return G <= RB_G_MAX;
+  if (form == FORM_WIDE) return G > RB_G_MAX && G <= SBW_G_MAX;
+  return form == FORM_STREAMING;
+}
+
+// Hidden units a block of `form` owns.
+int form_units(int form) { return form == FORM_WIDE ? SBW_UNITS : SB_UNITS; }
+
+// The instantiation of `form` for row tile rt and W_hh storage (round_dg:
+// the streaming merged backward, streaming with bf16 W_hh only), with the
+// dynamic shared memory it needs allowed, and its block size;
+// cudaErrorInvalidValue for a tile it does not have or a width the form
+// does not take.
+cudaError_t bwd_kernel(int form, int rt, int whh_bf16, int round_dg, int G, const void** fn,
                        size_t* smem, int* threads) {
-  if (G < 1 || (resident && G > RB_G_MAX)) return cudaErrorInvalidValue;
+  if (!form_takes(form, G)) return cudaErrorInvalidValue;
   if (round_dg) {
-    if (resident || !whh_bf16) return cudaErrorInvalidValue;
+    if (form != FORM_STREAMING || !whh_bf16) return cudaErrorInvalidValue;
     *fn = bwd_kernel_rt<__nv_bfloat16, true>(rt);
     *smem = bwd_smem(G, rt);
     *threads = SB_THREADS;
-  } else if (resident) {
+  } else if (form == FORM_RESIDENT) {
     *fn = whh_bf16 ? bwd_resident_kernel_rt<__nv_bfloat16>(rt) : bwd_resident_kernel_rt<float>(rt);
     *smem = rb_smem(rt);
     *threads = RB_THREADS;
+  } else if (form == FORM_WIDE) {
+    *fn = whh_bf16 ? bwd_wide_kernel_rt<__nv_bfloat16>(rt) : bwd_wide_kernel_rt<float>(rt);
+    *smem = sbw_smem(rt);
+    *threads = SBW_THREADS;
   } else {
     *fn = whh_bf16 ? bwd_kernel_rt<__nv_bfloat16>(rt) : bwd_kernel_rt<float>(rt);
     *smem = bwd_smem(G, rt);
@@ -617,25 +897,24 @@ cudaError_t bwd_kernel(int resident, int rt, int whh_bf16, int round_dg, int G, 
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-// K11's launch geometry on the current device in the form asked for
-// (resident = 1: W_hh on the chip, G <= 512; 0: streaming) at width G,
-// W_hh in bf16 (whh_bf16 = 1) or f32: `rows`, the largest row tile (16, 8,
-// 4, 2 or 1) whose shared memory a block may have, and `blocks`, how many
-// blocks of that tile the device holds at once.  rows = 0 where not even
-// one row fits.  At that tile, `smem`: the dynamic shared memory a block
-// asks for, and `w_regs`: the bytes of a full block's share of W_hh (its
-// 128 columns x G, f32) that stay in registers (the rest is in shared
-// memory; 0 in the streaming form).  Returns the first CUDA error;
+// K11's launch geometry on the current device in `form` (FORM_*) at width
+// G, W_hh in bf16 (whh_bf16 = 1) or f32: `rows`, the largest row tile (16,
+// 8, 4, 2 or 1) whose shared memory a block may have, and `blocks`, how
+// many blocks of that tile the device holds at once.  rows = 0 where not
+// even one row fits.  At that tile, `smem`: the dynamic shared memory a
+// block asks for, and `w_regs`: the bytes of a full block's share of W_hh
+// (its gate columns x G, f32) that stay in registers (the rest is in
+// shared memory; 0 in the streaming form).  Returns the first CUDA error;
 // cudaErrorInvalidConfiguration where the device has no cooperative launch.
 // round_dg: the streaming merged backward's instantiation (umx_lstm_bwd_wide).
-int bwd_capacity(int resident, int G, int whh_bf16, int round_dg, int* rows, int* blocks,
+int bwd_capacity(int form, int G, int whh_bf16, int round_dg, int* rows, int* blocks,
                  int* smem, int* w_regs) {
   int dev = 0, sms = 0, coop = 0, smem_max = 0;
   *rows = 0;
   *blocks = 0;
   *smem = 0;
   *w_regs = 0;
-  if (G < 1 || (resident && G > RB_G_MAX)) return (int)cudaErrorInvalidValue;
+  if (!form_takes(form, G)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -646,24 +925,30 @@ int bwd_capacity(int resident, int G, int whh_bf16, int round_dg, int* rows, int
   e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   for (int rt = SB_ROWS; rt >= 1; rt /= 2) {
-    if ((resident ? rb_smem(rt) : bwd_smem(G, rt)) > (size_t)smem_max) continue;
+    const size_t need = form == FORM_RESIDENT ? rb_smem(rt)
+                        : form == FORM_WIDE   ? sbw_smem(rt)
+                                              : bwd_smem(G, rt);
+    if (need > (size_t)smem_max) continue;
     const void* fn = nullptr;
     size_t bytes = 0;
     int per_sm = 0, threads = 0;
-    e = bwd_kernel(resident, rt, whh_bf16, round_dg, G, &fn, &bytes, &threads);
+    e = bwd_kernel(form, rt, whh_bf16, round_dg, G, &fn, &bytes, &threads);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, bytes);
     if (e != cudaSuccess) return (int)e;
     *rows = rt;
     *blocks = per_sm * sms;
     *smem = (int)bytes;
-    *w_regs = resident ? (int)sizeof(float) * RB_CREG * G : 0;  // every unit's first columns
+    // every unit's first columns
+    *w_regs = form == FORM_RESIDENT ? (int)sizeof(float) * RB_CREG * G
+              : form == FORM_WIDE   ? (int)sizeof(float) * SBW_CREG * G
+                                    : 0;
     return (int)cudaSuccess;
   }
   return (int)cudaSuccess;
 }
 
-int bwd_launch(int resident, int round_dg, const float* gates, const float* cs, const float* c0,
+int bwd_launch(int form, int round_dg, const float* gates, const float* cs, const float* c0,
                const void* whh, int whh_bf16, const float* dhs, const float* dhT, float* dc,
                float* dxp, float* dh0, void* hx, int T, int R, int B, int G, int r0, int nr,
                int b0, int nb, int rt, unsigned tag0, void* stream) {
@@ -673,12 +958,13 @@ int bwd_launch(int resident, int round_dg, const float* gates, const float* cs, 
   const void* fn = nullptr;
   size_t smem = 0;
   int threads = 0;
-  cudaError_t e = bwd_kernel(resident, rt, whh_bf16, round_dg, G, &fn, &smem, &threads);
+  cudaError_t e = bwd_kernel(form, rt, whh_bf16, round_dg, G, &fn, &smem, &threads);
   if (e != cudaSuccess) return (int)e;
   unsigned long long* hxp = static_cast<unsigned long long*>(hx);
   void* args[] = {&gates, &cs, &c0, &whh, &dhs, &dhT, &dc, &dxp, &dh0, &hxp, &T, &R, &B,
                   &b0, &nb, &G, &r0, &tag0};
-  const dim3 grid((G + SB_UNITS - 1) / SB_UNITS, nr);
+  const int units = form_units(form);
+  const dim3 grid((G + units - 1) / units, nr);
   e = cudaLaunchCooperativeKernel(fn, grid, dim3(threads), args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
@@ -687,32 +973,34 @@ int bwd_launch(int resident, int round_dg, const float* gates, const float* cs, 
 
 }  // namespace
 
-extern "C" int umx_lstm_scan_bwd_capacity(int resident, int G, int whh_bf16, int* rows,
+// form: 0 streaming, 1 resident, 2 wide (bwd_capacity)
+extern "C" int umx_lstm_scan_bwd_capacity(int form, int G, int whh_bf16, int* rows,
                                           int* blocks, int* smem, int* w_regs) {
-  return bwd_capacity(resident, G, whh_bf16, 0, rows, blocks, smem, w_regs);
+  return bwd_capacity(form, G, whh_bf16, 0, rows, blocks, smem, w_regs);
 }
 
 // The streaming merged backward's launch geometry (umx_lstm_scan_bwd_capacity
 // of the streaming form with bf16 W_hh and rounded dg).
 extern "C" int umx_lstm_bwd_wide_capacity(int G, int* rows, int* blocks, int* smem,
                                           int* w_regs) {
-  return bwd_capacity(0, G, 1, 1, rows, blocks, smem, w_regs);
+  return bwd_capacity(FORM_STREAMING, G, 1, 1, rows, blocks, smem, w_regs);
 }
 
-// K11: one launch in the form asked for (resident = 1 or streaming), the
-// whole reverse sweep of chains [r0, r0 + nr) and rows [b0, b0 + nb) of
-// each, nb <= rt <= 16, rt a power of two.  `whh` is W_hh as stored,
-// (R, G, 4G), in the resident form, and transposed, (R, 4G, G), in the
-// streaming form.  `dc` holds dcT on entry and dc0 on return for those rows.
-// `hx` is the exchange buffer (R * 2 * ceil(G/32) * 16 * G words), zeroed
+// K11: one launch in the form asked for (0 streaming, 1 resident, 2 wide),
+// the whole reverse sweep of chains [r0, r0 + nr) and rows [b0, b0 + nb)
+// of each, nb <= rt <= 16, rt a power of two.  `whh` is W_hh as stored,
+// (R, G, 4G), in the resident and wide forms, and transposed, (R, 4G, G),
+// in the streaming form.  `dc` holds dcT on entry and dc0 on return for
+// those rows.  `hx` is the exchange buffer (R * 2 * ceil(G/U) * 16 * G
+// words, U = 20 units a block in the wide form, 32 else), zeroed
 // before the layer's first launch; `tag0` is the number of steps earlier
 // launches ran on it.  Returns the first CUDA error.
-extern "C" int umx_lstm_scan_bwd(int resident, const float* gates, const float* cs,
+extern "C" int umx_lstm_scan_bwd(int form, const float* gates, const float* cs,
                                  const float* c0, const void* whh, int whh_bf16,
                                  const float* dhs, const float* dhT, float* dc, float* dxp,
                                  float* dh0, void* hx, int T, int R, int B, int G, int r0, int nr,
                                  int b0, int nb, int rt, unsigned tag0, void* stream) {
-  return bwd_launch(resident, 0, gates, cs, c0, whh, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R,
+  return bwd_launch(form, 0, gates, cs, c0, whh, whh_bf16, dhs, dhT, dc, dxp, dh0, hx, T, R,
                     B, G, r0, nr, b0, nb, rt, tag0, stream);
 }
 
@@ -726,6 +1014,6 @@ extern "C" int umx_lstm_bwd_wide(const float* gates, const float* cs, const floa
                                  float* dxp, float* dh0, void* hx, int T, int R, int B, int G,
                                  int r0, int nr, int b0, int nb, int rt, unsigned tag0,
                                  void* stream) {
-  return bwd_launch(0, 1, gates, cs, c0, wt, 1, dhs, dhT, dc, dxp, dh0, hx, T, R, B, G, r0, nr,
-                    b0, nb, rt, tag0, stream);
+  return bwd_launch(FORM_STREAMING, 1, gates, cs, c0, wt, 1, dhs, dhT, dc, dxp, dh0, hx, T, R, B,
+                    G, r0, nr, b0, nb, rt, tag0, stream);
 }

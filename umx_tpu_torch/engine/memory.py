@@ -167,8 +167,8 @@ def _dequant_transient_bytes(params) -> int:
 def _lstm_exchange_bytes(cfg: EngineConfig) -> int:
     """The recurrence kernel's exchange buffer (``ops/lstm_cuda.py``): one
     per layer call, whatever the rows; K10's (``lstm_impl="scan"``, and
-    "auto" where K1 cannot hold the width) holds one f32 value of h a word,
-    K1's two bf16 values."""
+    "auto" where G % 8 != 0) holds one f32 value of h a word, K1's (in
+    every form, at every other width under "auto") two bf16 values."""
     m = cfg.model
     scan = resolve_lstm_impl(m.lstm_impl, m.lstm_hidden) == "scan"
     words = scan_exchange_words if scan else resident_exchange_words

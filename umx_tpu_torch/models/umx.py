@@ -15,7 +15,7 @@ training kernels when a gradient is wanted, or with
 layer and batch row, or with ``lstm_impl="scan"`` as the float32
 recurrence kernel (f32 h against W_hh in its stored dtype), one launch per
 layer, differentiable through its reverse sweep; ``"auto"`` takes that
-kernel where the merged one cannot hold the width (:func:`resolve_lstm_impl`).
+kernel where the width is no multiple of 8 (:func:`resolve_lstm_impl`).
 With quantized parameters
 (:func:`quantized_params_from_ggml`) the fc and input-projection weights
 are ``QTensor`` s whose dequantization is fused into the matmul
@@ -46,7 +46,6 @@ import torch
 from umx_tpu_torch.config import TARGETS, ModelConfig
 from umx_tpu_torch.ops.lstm_cuda import (
     MERGED_G_ALIGN,
-    RESIDENT_G_MAX,
     lstm_layer_merged_batched,
     lstm_layer_pertarget_batched,
     lstm_layer_scan_batched,
@@ -449,14 +448,19 @@ def umx_post(params: UMXParams, x1, lstm_out, cfg: ModelConfig, compute="default
 def resolve_lstm_impl(impl: str, G: int) -> str:
     """The recurrence ``impl`` runs at width G (``ModelConfig.lstm_hidden``)
     by a named width rule: ``"auto"`` is the merged kernel (K1, and K4-K6
-    under a gradient) at G <= ``RESIDENT_G_MAX`` with G % 8 == 0, the widths
-    its resident form holds without padding, and the float32 recurrence
-    ``"scan"`` (K10, K11) at every other width, on the CPU as on the GPU, so
-    both compute one program (the JAX package's ``"auto"`` is its scan at
-    every width off a TPU).  Every other value is itself: ``"pallas_merged"``
-    and ``"pallas"`` run their kernels at any width (padded, or the wide
-    forms)."""
-    if impl == "auto" and (G > RESIDENT_G_MAX or G % MERGED_G_ALIGN):
+    under a gradient) at every G with G % 8 == 0, as the JAX package's
+    ``"auto"`` is its merged Pallas kernel at every width on its
+    accelerator: K1's resident form up to G 512, its wide
+    block form above (``ops/lstm_cuda.py:merged_wide_plan``) and its
+    streaming form where no block form holds a chain.  Where G % 8 != 0
+    ``"auto"`` is the float32 recurrence ``"scan"`` (K10, K11), a departure
+    kept on purpose: the merged kernels would pad such a width with zero
+    units, which is slower there than the scan, and the JAX package's
+    ``"auto"`` off a TPU is its scan.  The rule holds on the CPU as on the
+    GPU, so both compute one program.  Every other value is itself:
+    ``"pallas_merged"`` and ``"pallas"`` run their kernels at any width
+    (padded, or the wide forms)."""
+    if impl == "auto" and G % MERGED_G_ALIGN:
         return "scan"
     return impl
 
@@ -473,7 +477,7 @@ def umx_recurrence_batched(params: UMXParams, x1_b, state_b: LSTMState, cfg: Mod
     direction re-reversed.  ``cfg.lstm_impl`` (:func:`resolve_lstm_impl`):
     "auto"/"pallas_merged" run the merged kernel over all T#·D chains × B
     rows; "pallas" runs the per-target kernel once per batch row; "scan"
-    (and "auto" where the merged kernel cannot hold G) runs the float32
+    (and "auto" where G % 8 != 0) runs the float32
     recurrence over all chains × rows, W_hh in its stored dtype (the
     quantized parameters' hh is dense bf16).  Where a gradient is wanted the
     merged and the float32 recurrences run their training kernels; "pallas"

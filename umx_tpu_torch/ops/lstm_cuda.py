@@ -44,14 +44,15 @@ through the wide K1 where no cluster holds a chain's W_hh.
   ``lstm_impl="scan"``), no Pallas kernel: K1's layouts, but unrounded f32
   h against W_hh in its stored dtype (f32, or bf16 upcast exactly), f32
   FMA on the CUDA cores, any G; one launch per layer, W_hh resident on
-  the chip (registers and shared memory) up to G 512, read from L2 each
-  step above (:func:`scan_form`).
+  the chip (registers and shared memory) up to G 512, on the chip in the
+  wide form's smaller shares over more blocks up to G 640, read from L2
+  each step above (:func:`scan_form`).
 - K10 with residuals :func:`lstm_scan_train_fwd`: the same kernel with a
   flag that also writes the activated gates and c per step, as K4 is K1.
 - K11 :func:`lstm_scan_bwd_step` (``csrc/lstm_scan_train.cu``): the
   reverse-time float32 sweep, the scan's VJP (no bf16 anywhere), one
-  launch per layer in K10's two forms (W_hh as stored in the resident
-  form, a transposed copy in the streaming one); the weight
+  launch per layer in K10's three forms (W_hh as stored in the resident
+  and wide forms, a transposed copy in the streaming one); the weight
   gradient :func:`lstm_scan_dw` is a plain f32 ``torch.bmm``, as the JAX
   package leaves it to XLA.
 
@@ -1162,34 +1163,59 @@ def _batched_outputs(hs, hT, cT, shape):
     return hs, hT, cT
 
 
-# K10 (csrc/lstm_scan.cu): a block owns 32 hidden units of one chain; a
-# launch takes up to 16 rows per chain (fewer where the device's shared
-# memory runs out, as its capacity query says), and the exchange buffer
-# has room for 16 rows of each chain.
+# K10 (csrc/lstm_scan.cu): a block owns 32 hidden units of one chain (20 in
+# the wide form); a launch takes up to 16 rows per chain (fewer where the
+# device's shared memory runs out, as its capacity query says), and the
+# exchange buffer has room for 16 rows of each chain.
 SCAN_UNITS = 32
 SCAN_ROWS = 16
 # The resident forms of K10 and K11 keep a block's share of W_hh (its 128
 # gate columns x G rows, upcast to f32) on the chip up to this width,
 # split between registers and shared memory (their capacity queries report
-# the split: scan_block_layout); wider layers stream it.
+# the split: scan_block_layout).
 SCAN_RESIDENT_G_MAX = 512
-SCAN_FORMS = ("resident", "streaming")
+# Above it the wide forms keep it on the chip in smaller shares over more
+# blocks (csrc/lstm_scan.cu:lstm_scan_wide_kernel,
+# csrc/lstm_scan_train.cu:lstm_scan_bwd_wide_kernel): a block of 320
+# threads (10 warps) owns 20 units and their 80 gate columns for all G rows
+# (200 KiB of f32 at G 640), so R chains run as chain groups of what the
+# card holds at once (:func:`scan_wide_plan`).  K10's half-warp owns a
+# unit's four gate columns and its lanes the 16 strided parts of k (the
+# resident form's lanes, one unit a half-warp), the first
+# ``SCAN_WIDE_KREG`` iterations (a float4 each) in registers; K11's thread
+# owns units tid and tid + 320 (hence ``SCAN_WIDE_G_MAX``), the first
+# ``SCAN_BWD_WIDE_CREG`` columns of each in registers.  Wider layers stream
+# W_hh from L2 each step.
+SCAN_WIDE_UNITS = 20
+SCAN_WIDE_WARPS = 10
+SCAN_WIDE_KREG = 20
+SCAN_BWD_WIDE_CREG = 48
+# registers a thread of either wide form uses beside its W (ptxas on sm_90a)
+SCAN_WIDE_OTHER_REGS = 64
+SCAN_WIDE_G_MAX = 640
+SCAN_FORMS = ("resident", "streaming", "wide")
+# the forms' codes in the kernels' entry points
+_SCAN_FORM_CODE = {"streaming": 0, "resident": 1, "wide": 2}
 
 
 def scan_form(G: int, whh_dtype: torch.dtype) -> str:
     """The form K10, K10 with residuals and K11 take at width G, W_hh in
     ``whh_dtype`` (f32 or bf16, upcast to f32 on the chip either way):
-    "resident" up to ``SCAN_RESIDENT_G_MAX``, else "streaming".  Chosen from
-    the width before any launch, never from the rows, the chains or a
-    failed launch."""
+    "resident" up to ``SCAN_RESIDENT_G_MAX``, "wide" up to
+    ``SCAN_WIDE_G_MAX``, else "streaming".  Chosen from the width before any
+    launch, never from the rows, the chains or a failed launch (on a card
+    whose figures give the wide forms no plan, :func:`scan_wide_plan`, they
+    stream there too)."""
     if whh_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"whh must be float32 or bfloat16, got {whh_dtype}")
-    return "resident" if G <= SCAN_RESIDENT_G_MAX else "streaming"
+    if G <= SCAN_RESIDENT_G_MAX:
+        return "resident"
+    return "wide" if G <= SCAN_WIDE_G_MAX else "streaming"
 
 
 def _scan_form_for(G: int, whh_dtype: torch.dtype, form: str | None) -> str:
     """``form`` as asked for (None: :func:`scan_form`), raising by name for
-    an unknown form or the resident form above its width."""
+    an unknown form or a form outside its widths."""
     if form is None:
         return scan_form(G, whh_dtype)
     if form not in SCAN_FORMS:
@@ -1197,12 +1223,16 @@ def _scan_form_for(G: int, whh_dtype: torch.dtype, form: str | None) -> str:
     if form == "resident" and G > SCAN_RESIDENT_G_MAX:
         raise ValueError(f"the resident form holds W_hh on the chip up to G = "
                          f"{SCAN_RESIDENT_G_MAX}; got G = {G}")
+    if form == "wide" and not SCAN_RESIDENT_G_MAX < G <= SCAN_WIDE_G_MAX:
+        raise ValueError(f"the wide form takes {SCAN_RESIDENT_G_MAX} < G <= "
+                         f"{SCAN_WIDE_G_MAX}; got G = {G}")
     return form
 
 
-def scan_blocks_per_chain(G: int) -> int:
-    """Blocks that share one chain in K10: one per 32 hidden units."""
-    return -(-G // SCAN_UNITS)
+def scan_blocks_per_chain(G: int, units: int = SCAN_UNITS) -> int:
+    """Blocks that share one chain in K10 / K11: one per ``units`` hidden
+    units (32, or ``SCAN_WIDE_UNITS`` in the wide forms)."""
+    return -(-G // units)
 
 
 def scan_row_groups(B: int, rows: int) -> list[tuple[int, int, int]]:
@@ -1224,32 +1254,89 @@ def scan_exchange_words(R: int, G: int) -> int:
     return R * 2 * SCAN_ROWS * G
 
 
+def scan_wide_smem(kernel: str, G: int, rows: int) -> int:
+    """Dynamic shared memory of a block of the wide form of ``kernel``
+    ("K10", "K10r" or "K11") at width G and a row tile of ``rows``: K10's
+    W of the iterations beyond ``SCAN_WIDE_KREG`` (a float4 of four gates a
+    thread and iteration) and h of 16 ceil(G/16) k rows at the resident
+    form's padded row stride (``csrc/lstm_scan.cu:sw_smem``); K11's W of the
+    columns beyond ``SCAN_BWD_WIDE_CREG`` (two f32 a thread and column) and
+    two buffers of dg (``csrc/lstm_scan_train.cu:sbw_smem``)."""
+    threads, cols = 32 * SCAN_WIDE_WARPS, 4 * SCAN_WIDE_UNITS
+    if kernel == "K11":
+        return 8 * (cols - SCAN_BWD_WIDE_CREG) * threads + 4 * 2 * cols * rows
+    iters = -(-G // 16)
+    stride = rows if rows <= 4 else rows + 4
+    return (16 * max(0, iters - SCAN_WIDE_KREG) * threads
+            + 4 * 16 * max(iters, SCAN_WIDE_KREG) * stride)
+
+
+class ScanWidePlan(NamedTuple):
+    """The wide form of K10 or K11 at one width (:func:`scan_wide_plan`)."""
+
+    units: int  # hidden units a block owns (and their 4 x units gate columns)
+    warps: int
+    rows: int  # rows per chain a launch takes (the largest tile that fits)
+    blocks_per_chain: int
+    chains_per_group: int  # chains a launch holds, one block an SM
+    smem: int  # dynamic shared memory a block asks for
+
+
+def scan_wide_plan(G: int, R: int, sms: int, smem_per_block: int, regs_per_sm: int,
+                   kernel: str = "K10") -> ScanWidePlan | None:
+    """The wide form ``kernel`` ("K10", "K10r" or "K11") runs R chains of
+    width G (512 < G) in, from the card's figures alone (``sms``, the
+    shared memory a block may ask for and the 32-bit registers of an SM:
+    an H100's 132, 232448, 65536).  A block is one SM; the form holds a
+    chain where G is at most ``SCAN_WIDE_G_MAX``, its blocks a chain are no
+    more than the SMs, a thread's W registers and other registers fit what
+    a thread of 10 warps may have (:func:`merged_thread_regs`) and the
+    shared memory of at least one row fits a block; the row tile is the
+    largest of 16, 8, 4, 2, 1 that fits.  The form does not depend on R or
+    B; R sets the chains a launch holds.  None where it holds no chain
+    (above ``SCAN_WIDE_G_MAX`` on an H100): K10 and K11 then stream W_hh."""
+    if G <= SCAN_RESIDENT_G_MAX:
+        raise ValueError(f"the wide forms take G > {SCAN_RESIDENT_G_MAX}, got {G}")
+    if kernel not in ("K10", "K10r", "K11"):
+        raise ValueError(f"kernel must be K10, K10r or K11, got {kernel!r}")
+    per_chain = scan_blocks_per_chain(G, SCAN_WIDE_UNITS)
+    w_regs = 2 * SCAN_BWD_WIDE_CREG if kernel == "K11" else 4 * SCAN_WIDE_KREG
+    if (G > SCAN_WIDE_G_MAX or per_chain > sms
+            or w_regs + SCAN_WIDE_OTHER_REGS > merged_thread_regs(SCAN_WIDE_WARPS, regs_per_sm)):
+        return None
+    rows = next((r for r in (16, 8, 4, 2, 1) if scan_wide_smem(kernel, G, r) <= smem_per_block),
+                None)
+    if rows is None:
+        return None
+    return ScanWidePlan(SCAN_WIDE_UNITS, SCAN_WIDE_WARPS, rows, per_chain,
+                        min(R, sms // per_chain), scan_wide_smem(kernel, G, rows))
+
+
 @functools.lru_cache(maxsize=None)
 def scan_block_layout(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
                       form: str = "streaming") -> tuple[int, int, int, int]:
     """What ``kernel`` ("K10", "K10r" with the residual stores, or "K11";
     "K1w", "K4w", "K5w": the streaming K1, K4 and K5, the streaming kernels
-    with bf16 operands, ``form`` "wide") in ``form`` at width G, W_hh in bf16 or
-    f32, reports of itself on CUDA device ``index``, asked once: (the
-    largest row tile, the blocks of it held at once, the dynamic shared
-    memory a block of that tile asks for, the bytes of a full block's share
-    of W_hh that stay in registers, 0 in the streaming forms)."""
+    with bf16 operands) in ``form`` at width G, W_hh in bf16 or f32, reports
+    of itself on CUDA device ``index``, asked once: (the largest row tile,
+    the blocks of it held at once, the dynamic shared memory a block of that
+    tile asks for, the bytes of a full block's share of W_hh that stay in
+    registers, 0 in the streaming forms)."""
     import ctypes
 
     out = [ctypes.c_int(0) for _ in range(4)]
     ptrs = [ctypes.addressof(v) for v in out]
     lib = _build.library()
-    resident = int(form == "resident")
+    code = _SCAN_FORM_CODE[form]
     with torch.cuda.device(index):
         if kernel in ("K1w", "K4w"):
             err = lib.umx_lstm_merged_streaming_capacity(G, int(kernel == "K4w"), *ptrs)
         elif kernel == "K5w":
             err = lib.umx_lstm_bwd_wide_capacity(G, *ptrs)
         elif kernel == "K11":
-            err = lib.umx_lstm_scan_bwd_capacity(resident, G, int(whh_bf16), *ptrs)
+            err = lib.umx_lstm_scan_bwd_capacity(code, G, int(whh_bf16), *ptrs)
         else:
-            err = lib.umx_lstm_scan_capacity(resident, G, int(whh_bf16), int(kernel == "K10r"),
-                                             *ptrs)
+            err = lib.umx_lstm_scan_capacity(code, G, int(whh_bf16), int(kernel == "K10r"), *ptrs)
     if err == _CUDA_ERROR_INVALID_CONFIGURATION:
         raise RuntimeError(f"{kernel}: this device has no cooperative launch, which the "
                            "float32 recurrence needs")
@@ -1267,15 +1354,42 @@ def _scan_capacity(index: int, G: int, whh_bf16: bool, kernel: str = "K10",
     return scan_block_layout(index, G, whh_bf16, kernel, form)[:2]
 
 
+def _scan_device_form(kernel: str, ref, R: int, G: int, form: str, named: bool) -> str:
+    """The form K10 / K11 runs in on the card: ``form`` as
+    :func:`_scan_form_for` gave it, except that the wide form streams where
+    the card's figures give it no plan (:func:`scan_wide_plan`), unless it
+    was named (``named``), which raises.  Decided before any launch."""
+    if form == "wide" and scan_wide_plan(G, R, *device_limits(ref.device.index), kernel) is None:
+        if named:
+            raise RuntimeError(f"{kernel}: the wide form holds no chain at G = {G} on this "
+                               "device")
+        return "streaming"
+    return form
+
+
 def _scan_plan(wrapper, kernel: str, ref, R: int, B: int, G: int, bf16: bool, form: str):
     """The launches of one K10 / K11 layer in ``form``, (r0, nr, b0, nb,
     row tile) each, row groups outermost; leaves the form in
     ``wrapper.form`` as (form, blocks per chain, blocks the device holds at
-    once, chain groups, row groups)."""
-    rows, capacity = _scan_capacity(ref.device.index, G, bf16, kernel, form)
-    chains = chain_groups(R, scan_blocks_per_chain(G), capacity, kernel)
+    once, chain groups, row groups), the wide form with the units a block
+    as a sixth field (its plan, :func:`scan_wide_plan`, held to what the
+    kernel reports of itself)."""
+    rows, capacity, smem, _ = scan_block_layout(ref.device.index, G, bf16, kernel, form)
+    per_chain = scan_blocks_per_chain(G)
+    units = ()
+    if form == "wide":
+        wide = scan_wide_plan(G, R, *device_limits(ref.device.index), kernel)
+        if wide is None:
+            raise RuntimeError(f"{kernel}: the wide form holds no chain at G = {G} on this "
+                               "device")
+        if (rows, smem) != (wide.rows, wide.smem):
+            raise RuntimeError(f"{kernel}'s wide form reports {rows} rows and {smem} bytes of "
+                               f"shared memory, not the planned {wide.rows} and {wide.smem} "
+                               f"(G {G})")
+        per_chain, units = wide.blocks_per_chain, (wide.units,)
+    chains = chain_groups(R, per_chain, capacity, kernel)
     groups = scan_row_groups(B, rows)
-    wrapper.form = (form, scan_blocks_per_chain(G), capacity, len(chains), len(groups))
+    wrapper.form = (form, per_chain, capacity, len(chains), len(groups), *units)
     return [(r0, nr, b0, nb, rt) for b0, nb, rt in groups for r0, nr in chains]
 
 
@@ -1307,6 +1421,7 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool, form: str |
         ("xp", xp, xp.shape, torch.float32), ("whh", whh, whh.shape, whh.dtype),
         ("h0", h0, (RB, G), torch.float32), ("c0", c0, (RB, G), torch.float32),
     ])
+    named = form is not None
     form = _scan_form_for(G, whh.dtype, form)
     if route == "cpu":
         if residuals:
@@ -1315,7 +1430,9 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool, form: str |
     lib = _build.library()
     dev = xp.device
     bf16 = whh.dtype == torch.bfloat16
-    plan = _scan_plan(wrapper, "K10r" if residuals else "K10", xp, R, B, G, bf16, form)
+    kernel = "K10r" if residuals else "K10"
+    form = _scan_device_form(kernel, xp, R, G, form, named)
+    plan = _scan_plan(wrapper, kernel, xp, R, B, G, bf16, form)
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
     hT = torch.empty((RB, G), dtype=torch.float32, device=dev)
     cT = c0.clone()  # the kernel updates c in place
@@ -1327,7 +1444,7 @@ def _scan_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool, form: str |
     entry = "umx_lstm_scan_train" if residuals else "umx_lstm_scan"
     for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
         err = getattr(lib, entry)(
-            int(form == "resident"), xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(),
+            _SCAN_FORM_CODE[form], xp.data_ptr(), whh.data_ptr(), int(bf16), h0.data_ptr(),
             cT.data_ptr(),
             hs.data_ptr(), hT.data_ptr(), *(t.data_ptr() for t in extra), hx.data_ptr(),
             T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(xp),
@@ -1345,11 +1462,15 @@ def lstm_scan(xp, whh, h0, c0, B: int, *, _form: str | None = None):
     (hs (T, R*B, G), hT, cT).  One cooperative launch runs all T steps of
     all chains and up to 16 rows per chain; further rows (and chains beyond
     what the device holds at once) are further launches of the same
-    kernel.  Any G: W_hh resident on the chip up to G 512, streamed above
-    (:func:`scan_form`; the private ``_form`` names one, for the checks that
-    compare them).  The form that ran is left in ``lstm_scan.form`` as (form, blocks per chain,
-    blocks the device holds at once, chain groups, row groups).  Increments
-    ``lstm_scan.launches`` once per layer.  CPU tensors run
+    kernel.  Any G (:func:`scan_form`): W_hh resident on the chip up to G
+    512, in the wide form's smaller shares over more blocks (chain groups
+    of what the card holds, :func:`scan_wide_plan`) up to
+    ``SCAN_WIDE_G_MAX``, streamed above; the private ``_form`` names one,
+    for the checks that compare them (the wide form sums in the resident
+    form's order).  The form that ran is left in ``lstm_scan.form`` as
+    (form, blocks per chain, blocks the device holds at once, chain groups,
+    row groups), the wide form with the units a block as a sixth field.
+    Increments ``lstm_scan.launches`` once per layer.  CPU tensors run
     :func:`lstm_scan_plain`."""
     return _scan_forward(lstm_scan, xp, whh, h0, c0, B, False, _form)
 
@@ -1379,11 +1500,12 @@ def lstm_scan_bwd_step_plain(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
     return _sweep_plain(gates, cs, c0, whh, dhs, dhT, dcT, B, round_dg=False)
 
 
-def scan_bwd_exchange_words(R: int, G: int) -> int:
+def scan_bwd_exchange_words(R: int, G: int, units: int = SCAN_UNITS) -> int:
     """64-bit words of K11's exchange buffer: per chain two steps of 16
-    rows of G partial sums of dh from each of the chain's blocks (each
-    block publishes its own columns' share of dg · W_hhᵀ for every unit)."""
-    return R * 2 * SCAN_ROWS * scan_blocks_per_chain(G) * G
+    rows of G partial sums of dh from each of the chain's blocks of
+    ``units`` units (each block publishes its own columns' share of
+    dg · W_hhᵀ for every unit; ``SCAN_WIDE_UNITS`` in the wide form)."""
+    return R * 2 * SCAN_ROWS * scan_blocks_per_chain(G, units) * G
 
 
 def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int, *,
@@ -1395,11 +1517,15 @@ def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int, *,
     c0, dhT, dcT (R*B, G) and dhs (T, R*B, G) f32; whh (R, G, 4G) f32 or
     bf16.  One cooperative launch runs all T steps of all chains and up to
     16 rows per chain; further rows and chains are further launches.  Any
-    G: W_hh resident on the chip up to G 512 (read as stored), streamed
-    above (from a transposed copy; :func:`scan_form`; the private ``_form``
-    names one; both give the same bits).  Leaves its form in
-    ``lstm_scan_bwd_step.form`` and counts ``lstm_scan_bwd_step.launches``
-    once per sweep.  CPU tensors run :func:`lstm_scan_bwd_step_plain`."""
+    G (:func:`scan_form`): W_hh resident on the chip up to G 512 and in the
+    wide form's smaller shares over more blocks up to ``SCAN_WIDE_G_MAX``
+    (both read it as stored), streamed above (from a transposed copy); the
+    private ``_form`` names one.  The resident and streaming forms give the
+    same bits; the wide form sums over blocks of 20 units, in its own fixed
+    order.  Leaves its form in ``lstm_scan_bwd_step.form`` (the wide form
+    with its units a block, as :func:`lstm_scan`'s) and counts
+    ``lstm_scan_bwd_step.launches`` once per sweep.  CPU tensors run
+    :func:`lstm_scan_bwd_step_plain`."""
     T, R, G = _dims(gates, whh, B)
     RB = R * B
     _check_hh_dtype(whh, "whh")
@@ -1415,17 +1541,19 @@ def lstm_scan_bwd_step(gates, cs, c0, whh, dhs, dhT, dcT, B: int, *,
     lib = _build.library()
     dev = gates.device
     bf16 = whh.dtype == torch.bfloat16
+    form = _scan_device_form("K11", gates, R, G, form, _form is not None)
     plan = _scan_plan(lstm_scan_bwd_step, "K11", gates, R, B, G, bf16, form)
     dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)
     dh0 = torch.empty((RB, G), dtype=torch.float32, device=dev)
     dc = dcT.clone()  # the kernel carries dc in place; it ends as dc0
-    hx = torch.zeros(scan_bwd_exchange_words(R, G), dtype=torch.int64, device=dev)
-    # the resident form loads W_hh as stored; the streaming one reads
-    # neighbouring units from one row of W_hh transposed (R, 4G, G)
-    w = whh if form == "resident" else whh.transpose(1, 2).contiguous()
+    units = SCAN_WIDE_UNITS if form == "wide" else SCAN_UNITS
+    hx = torch.zeros(scan_bwd_exchange_words(R, G, units), dtype=torch.int64, device=dev)
+    # the resident and wide forms load W_hh as stored; the streaming one
+    # reads neighbouring units from one row of W_hh transposed (R, 4G, G)
+    w = whh.transpose(1, 2).contiguous() if form == "streaming" else whh
     for launched, (r0, nr, b0, nb, rt) in enumerate(plan):
         err = lib.umx_lstm_scan_bwd(
-            int(form == "resident"), gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+            _SCAN_FORM_CODE[form], gates.data_ptr(), cs.data_ptr(), c0.data_ptr(),
             w.data_ptr(), int(bf16),
             dhs.data_ptr(), dhT.data_ptr(), dc.data_ptr(), dxp.data_ptr(), dh0.data_ptr(),
             hx.data_ptr(), T, R, B, G, r0, nr, b0, nb, rt, launched * T, _stream(gates),
@@ -1516,7 +1644,7 @@ def _streaming_forward(wrapper, xp, whh, h0, c0, B: int, residuals: bool):
     ``wrapper.launches`` once."""
     T, R, G = _dims(xp, whh, B)
     RB = R * B
-    plan = _scan_plan(wrapper, "K4w" if residuals else "K1w", xp, R, B, G, True, "wide")
+    plan = _scan_plan(wrapper, "K4w" if residuals else "K1w", xp, R, B, G, True, "streaming")
     wrapper.form = ("wide_streaming", *wrapper.form[1:])
     dev = xp.device
     hs = torch.empty((T, RB, G), dtype=torch.float32, device=dev)
@@ -1550,7 +1678,7 @@ def _streaming_bwd(gates, cs, c0, whh, dhs, dhT, dcT, B: int):
     T, R, G = _dims(gates, whh, B)
     RB = R * B
     wrapper = lstm_merged_bwd_step
-    plan = _scan_plan(wrapper, "K5w", gates, R, B, G, True, "wide")
+    plan = _scan_plan(wrapper, "K5w", gates, R, B, G, True, "streaming")
     wrapper.form = ("wide_streaming", *wrapper.form[1:])
     dev = gates.device
     dxp = torch.empty((T, RB, 4 * G), dtype=torch.float32, device=dev)

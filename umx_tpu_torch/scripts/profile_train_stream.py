@@ -36,8 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--lstm-impl", default="auto", choices=("auto", "scan", "pallas_merged"),
         help="recurrence of the trainer and the streaming demixer: the merged "
-        "kernels (auto, pallas_merged; auto takes the float32 ones where they "
-        "cannot hold the width) or the float32 recurrence (scan)",
+        "kernels (auto, pallas_merged; auto takes the float32 ones where the "
+        "width is no multiple of 8) or the float32 recurrence (scan)",
     )
     p.add_argument("--skip-stream", action="store_true")
     p.add_argument("--device", default=None, help="torch device: cuda (default) or cpu")

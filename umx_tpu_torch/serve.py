@@ -62,6 +62,11 @@ from umx_tpu_torch.engine.separator import Separator, resolve_device
 from umx_tpu_torch.engine.streaming import StreamingDemixer
 from umx_tpu_torch.io.audio import load_audio, write_audio
 
+# The clock of the streaming sessions' idle times (stamps, eviction,
+# access): one module-level name, so that a test can advance it without
+# touching time.monotonic, which the batcher's threads read.
+_now = time.monotonic
+
 
 class DemixService:
     def __init__(
@@ -188,7 +193,7 @@ class DemixService:
             self._sessions[sid] = [
                 StreamingDemixer(self.separator.params, cfg, self.device),
                 threading.Lock(),
-                time.monotonic(),
+                _now(),
             ]
         return sid
 
@@ -197,7 +202,7 @@ class DemixService:
         holds ``_sessions_lock``.  Lazy (on start and access): no reaper
         thread; an abandoned session holds device memory only until the
         next session operation."""
-        now = time.monotonic()
+        now = _now()
         dead = [sid for sid, (_, _, ts) in self._sessions.items()
                 if now - ts > self.session_ttl_s]
         for sid in dead:
@@ -216,7 +221,7 @@ class DemixService:
                     )
                 raise KeyError(f"unknown streaming session {sid!r}")
             entry = self._sessions[sid]
-            entry[2] = time.monotonic()
+            entry[2] = _now()
             return entry[0], entry[1]
 
     def stream_push(self, sid: str, pcm_bytes: bytes) -> bytes:

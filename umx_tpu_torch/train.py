@@ -5,7 +5,7 @@ magnitude and the target source magnitude, all four targets at once
 (their weights are stacked on one axis).  The BLSTM recurrence runs
 through the merged kernels, K4 forward with residuals and K5 + K6
 backward, or under ``lstm_impl="scan"`` (and ``"pallas"``, and ``"auto"``
-where the merged kernels cannot hold the width) through the float32
+where the width is no multiple of 8) through the float32
 ones, K10 with residuals forward and K11 + an f32 ``torch.bmm`` backward
 (``ops/lstm_cuda.py``); validation runs under ``torch.no_grad()`` and so
 takes the inference kernel K1 or K10.

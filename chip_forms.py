@@ -5,7 +5,8 @@ the ones kept, and where a step of each kept recurrence goes.
 
     python3 chip_forms.py [k5] [k9] [ola] [wiener_reduce] [scan] [k8]   (all when none is named)
     python3 chip_forms.py k11_streaming [earlier lstm_scan_train.cu ...]
-    python3 chip_forms.py wide k8_cluster wide_bwd wide_bwd_forms scan_wide
+    python3 chip_forms.py k6_forms [other lstm_dw.cu ...]
+    python3 chip_forms.py wide k8_cluster wide_bwd wide_bwd_forms scan_wide k6
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -39,6 +40,11 @@ streaming yardstick, in turns; ``wide_bwd``: the wide K5 in its block form
 streaming yardstick, in turns (``wide_bwd_forms``: variants of it, in
 turns); ``k8_cluster``: K8's cluster form beside its
 device-memory form and torch.istft above n_fft 16384.
+``k6``: the weight gradient K6 in its Hopper form (TMA, wgmma) against
+its plain version at ragged shapes, then at the five shapes the paths give
+it in turns with the library sequence (rounding, chain-major copies,
+``torch.bmm(bf16, bf16, out_dtype=float32)``), its mma_sync form and that
+call on pre-rounded operands, beside its bound.
 ``scan_wide``: K10, K10 with residuals and K11 in their wide forms (G
 above 512: W_hh on the chip in shares of 20 units) at G 640 and 520, each
 against its plain version and beside the streaming form in turns.
@@ -1542,6 +1548,211 @@ def k8_cluster_forms(dev, smi: str) -> None:
         + f"  [{smi}]", flush=True)
 
 
+def k6(dev, smi: str) -> None:
+    """K6's Hopper form (``csrc/lstm_dw.cu``): the ptxas lines of its two
+    instantiations (registers, no spills), then at ragged shapes against
+    its plain version, and at the five shapes the paths give it
+    (``S.K6_SHAPES``) in turns with the library sequence, its mma_sync
+    form and the call on pre-rounded operands, beside its bound
+    (``S.time_dw_at``)."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    _build.library()
+    log = _build.library_path().with_name(_build.library_path().name + ".log").read_text()
+    lines = log.splitlines()
+    entries = 0
+    for i, line in enumerate(lines):
+        if "lstm_dw_wgmma_kernel" in line and "Compiling entry" in line:
+            print(line.strip(), "|", " | ".join(x.strip() for x in lines[i + 1:i + 4]))
+            if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines[i + 1:i + 4]):
+                raise RuntimeError("lstm_dw_wgmma_kernel spills")
+            entries += 1
+    if entries != 2:
+        raise RuntimeError(f"the build log names {entries} instantiations of lstm_dw_wgmma_kernel")
+    print(f"K6 capacity (columns a block: clusters held, smem): {L.dw_capacity(dev.index)}")
+    for T_, R_, B_, G_ in ((1, 1, 1, 8), (3, 2, 5, 40), (37, 3, 3, 72), (33, 1, 7, 136),
+                           (2, 2, 40, 64), (64, 8, 16, 512)):
+        args = S.dw_inputs(dev, T_, R_, B_, G_, seed=T_ * G_ + B_)
+        dw = L.lstm_merged_dw(*args)
+        torch.cuda.synchronize()
+        form = L.lstm_merged_dw.form
+        err = S.rel_err(dw, L.lstm_merged_dw_plain(*args))
+        same = torch.equal(dw, L.lstm_merged_dw(*args))
+        print(f"lstm_merged_dw T {T_}, R {R_}, B {B_}, G {G_}: form {form}, max|err|/max|ref| "
+              f"{err:.3g}, bit-stable {same}", flush=True)
+        if err > 1e-5 or not same:
+            raise RuntimeError(f"lstm_merged_dw disagrees at T {T_}, R {R_}, B {B_}, G {G_}")
+    for i, shape in enumerate(S.K6_SHAPES.values()):
+        S.time_dw_at(dev, *shape, seed=950 + i, smi=smi)
+
+
+DW_MULTICAST = """        tma_load_4d_multicast(st + L::A32 + rank * (L::B32 / 2), &map_dxp, bar,
+                              (uint16_t)((1u << DWH_CLUSTER) - 1), n0 + (int)rank * (BN / 2),
+                              b0, r, t0);
+"""
+DW_BATCH = "constexpr int CONVERT_BATCH = 12;"
+DW_PROMOTE = "constexpr int DWH_PROMOTE = 128;"
+DW_CONVERT_LOOP = "      for (int j0 = 0; j0 < PER; j0 += CONVERT_BATCH) {\n"
+DW_PRODUCT = "      wgmma_bn<BN>(d, wgmma_desc("
+
+
+def dw_variants(src: str) -> dict[str, str]:
+    """K6's Hopper form and variants of it (``csrc/lstm_dw.cu``): other
+    numbers of loads in flight a rounding thread, each block bringing its
+    whole dxp tile itself (no multicast), the tensor cores' sums going into
+    dW every 32 or 64 stages or once (OTHER ORDER: held to the plain
+    version), and, TIMING ONLY, the form without its roundings, its
+    products or its copies."""
+    out = {"kept": src}
+    for n in (4, 6):
+        out[f"{n} loads in flight a rounding thread"] = sub(
+            src, DW_BATCH, DW_BATCH.replace("= 12;", f"= {n};"))
+    for n, what in ((32, "every 32 stages"), (64, "every 64 stages"), (1 << 20, "once")):
+        out[f"OTHER ORDER sums into dW {what}"] = sub(src, DW_PROMOTE,
+                                                      DW_PROMOTE.replace("128", str(n)))
+    out["no multicast"] = sub(src, DW_MULTICAST, (
+        "        for (int hh = 0; hh < DWH_CLUSTER; ++hh)\n"
+        "          tma_load_4d(st + L::A32 + hh * (L::B32 / 2), &map_dxp, bar,\n"
+        "                      n0 + hh * (BN / 2), b0, r, t0);\n"))
+    arrive = ("      for (unsigned c = 0; c < DWH_CLUSTER; ++c) mbar_arrive_cluster(empty32 + 8 * slot, "
+              "c);\n")
+    init = "mbar_init(empty32 + 8 * s, DWH_MMA_WARPS * DWH_CLUSTER);"
+    v = sub(sub(src, "    if (lane == 0)\n" + arrive, ""), init,
+            "mbar_init(empty32 + 8 * s, DWH_CLUSTER);")
+    out["one arrival a block after the barrier"] = sub(
+        v, "    named_barrier(1, THREADS);\n",
+        "    named_barrier(1, THREADS);\n    if (ct == 0)\n" + arrive)
+    v = sub(src, DW_MULTICAST, (
+        "        for (int hh = 0; hh < DWH_CLUSTER; ++hh)\n"
+        "          tma_load_4d(st + L::A32 + hh * (L::B32 / 2), &map_dxp, bar,\n"
+        "                      n0 + hh * (BN / 2), b0, r, t0);\n"))
+    v = sub(v, init, "mbar_init(empty32 + 8 * s, DWH_MMA_WARPS);")
+    out["no multicast, each block frees its own stages"] = sub(
+        v, arrive, "      mbar_arrive_cluster(empty32 + 8 * slot, rank);\n")
+    out["TIMING ONLY no roundings"] = sub(src, DW_CONVERT_LOOP,
+                                          DW_CONVERT_LOOP.replace("j0 < PER", "j0 < 0"))
+    out["TIMING ONLY no products"] = sub(src, DW_PRODUCT, "      if (false) " + DW_PRODUCT[6:])
+    v = sub(src, "const unsigned bytes = (unsigned)(L::A32 + L::B32);",
+            "const unsigned bytes = 0u;")
+    v = sub(v, "(t0 == 0 ? (unsigned)(bp * DWH_BM * 4) : 0u)", "0u")
+    for call in ("tma_load_3d(st, &map_h0", "tma_load_4d(st, &map_hs",
+                 "if (t0 == 0) tma_load_3d(base", "tma_load_4d_multicast(st + L::A32"):
+        v = sub(v, call, "if (false) " + call)
+    out["TIMING ONLY no copies"] = v
+    out["TIMING ONLY products alone"] = sub(v, DW_CONVERT_LOOP,
+                                            DW_CONVERT_LOOP.replace("j0 < PER", "j0 < 0"))
+    out["TIMING ONLY roundings alone"] = sub(v, DW_PRODUCT, "      if (false) " + DW_PRODUCT[6:])
+    out["TIMING ONLY barriers alone"] = sub(out["TIMING ONLY products alone"], DW_PRODUCT,
+                                            "      if (false) " + DW_PRODUCT[6:])
+    out["producer 56 registers, products 224"] = sub(
+        sub(src, "setmaxnreg.dec.sync.aligned.u32 40;", "setmaxnreg.dec.sync.aligned.u32 56;"),
+        "setmaxnreg.inc.sync.aligned.u32 232;", "setmaxnreg.inc.sync.aligned.u32 224;")
+    out["4 loads in flight when the sums go in"] = sub(
+        src, "constexpr int DWH_PROMOTE_BATCH = 16;", "constexpr int DWH_PROMOTE_BATCH = 4;")
+    # TIMING ONLY cycle counters: thread 128 of block 0 sums the clocks of a
+    # stage's phases
+    v = sub(src, "namespace {\n", "__device__ unsigned long long umx_prof[8];\nnamespace {\n")
+    v = sub(v, "    mbar_wait(full32 + 8 * slot, (unsigned)((s / DWH_STAGES) & 1));\n",
+            "    const bool prof = blockIdx.x == 0 && ct == 0;\n"
+            "    long long c0 = clock64();\n"
+            "    mbar_wait(full32 + 8 * slot, (unsigned)((s / DWH_STAGES) & 1));\n"
+            "    long long c1 = clock64();\n"
+            "    if (prof) umx_prof[0] += c1 - c0;\n")
+    v = sub(v, '    asm volatile("wgmma.wait_group.sync.aligned 1;\\n" ::: "memory");\n',
+            "    long long c2 = clock64();\n    if (prof) umx_prof[1] += c2 - c1;\n"
+            '    asm volatile("wgmma.wait_group.sync.aligned 1;\\n" ::: "memory");\n')
+    v = sub(v, "    named_barrier(1, THREADS);\n",
+            "    named_barrier(1, THREADS);\n"
+            "    long long c3 = clock64();\n    if (prof) umx_prof[2] += c3 - c2;\n")
+    v = sub(v, '    asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");\n',
+            '    asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");\n'
+            "    long long c4 = clock64();\n    if (prof) { umx_prof[3] += c4 - c3; "
+            "umx_prof[5] += 1; }\n")
+    out["TIMING ONLY cycle counters"] = v + PROF_READ
+    return out
+
+
+def k6_forms(dev, smi: str, others: list[str] = ()) -> None:
+    """Variants of K6's Hopper form (:func:`dw_variants`) at the UMX-L
+    training shape (T 256, R 8, B 16, G 512), each held to the kept form's
+    bits (but for the TIMING ONLY ones), timed in turns with the kept form,
+    the mma_sync form and the library sequence: where a stage's time goes.
+    ``others``: paths of other sources of ``csrc/lstm_dw.cu`` (the same
+    entry points), held to the kept form's bits and timed with them."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    src = (_build.CSRC / "lstm_dw.cu").read_text()
+    entries = {e: _build._SIGNATURES[e] for e in ("umx_lstm_dw_wgmma", "umx_lstm_dw_capacity")}
+    texts = dw_variants(src)
+    for path in others:  # other sources of the form, held to the kept form's bits
+        texts[f"source {path}"] = open(path).read()
+    libs = build_all(texts, entries, tag="dw")
+    args = S.dw_inputs(dev, *S.K6_SHAPES["umxl_train"], seed=977)
+    hs, h0, dxp, B = args
+    T_, RB, G_ = hs.shape
+    plan = L.dw_plan(T_, RB // B, B, G_, {bn: c for bn, (c, _) in L.dw_capacity(dev.index).items()})
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(lib, p=plan):
+        def go():
+            dw = torch.empty((RB // B, G_, 4 * G_), device=dev)
+            err = lib.umx_lstm_dw_wgmma(hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(),
+                                        dw.data_ptr(), T_, RB // B, B, G_, p.bn, p.bp,
+                                        p.tb, p.nbc, p.stages, stream)
+            S.require(err == 0, f"umx_lstm_dw_wgmma: CUDA error {err}")
+            return dw
+        return go
+
+    fns = {name: run(lib) for name, lib in libs.items()}
+    prof = libs["TIMING ONLY cycle counters"]
+    prof.umx_prof_read.argtypes = [ctypes.c_void_p]
+    prof.umx_prof_read.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 8)()
+    fns["TIMING ONLY cycle counters"]()
+    torch.cuda.synchronize()
+    prof.umx_prof_read(counts)  # clears them
+    fns["TIMING ONLY cycle counters"]()
+    torch.cuda.synchronize()
+    S.require(prof.umx_prof_read(counts) == 0, "umx_prof_read failed")
+    n = max(counts[5], 1)
+    print(f"K6 a stage of block 0, thread 128, clocks: " + ", ".join(
+        f"{what} {counts[i] / n:.0f}" for i, what in enumerate(
+            ("the last stage's arrivals, wait for the f32 stage", "rounding",
+             "wait for the products of the stage before last, fence, barrier",
+             "products issued")))
+        + f" ({n} stages)", flush=True)
+    # the kept form in tiles of 128 columns (the plan at a card that held
+    # no cluster of 256)
+    plan128 = L.dw_plan(T_, RB // B, B, G_, {128: plan.held})
+    fns["kept, 128 columns a block"] = run(libs["kept"], plan128)
+    kept = fns["kept"]()
+    ref = L.lstm_merged_dw_plain(*args)
+    for name, fn in fns.items():
+        if name.startswith("OTHER ORDER"):
+            err = S.rel_err(fn(), ref)
+            print(f"K6 variant {name!r}: max|err|/max|ref| {err:.3g} (kept "
+                  f"{S.rel_err(kept, ref):.3g})", flush=True)
+        elif name.endswith("128 columns a block"):
+            S.require(S.rel_err(fn(), ref) <= 1e-5, f"K6 {name!r} disagrees with plain")
+        elif not name.startswith("TIMING ONLY"):
+            S.require(torch.equal(fn(), kept), f"K6 variant {name!r} changes the bits")
+    fns["mma_sync form"] = lambda: L.lstm_merged_dw(*args, _form="mma_sync")
+    fns["library sequence"] = lambda: S.dw_library_sequence(*args)
+    got = {name: [] for name in fns}
+    for k in range(S.GATE_ROUNDS):
+        for name in (list(fns) if k % 2 == 0 else list(fns)[::-1]):
+            got[name].append(S.cuda_ms(fns[name], 10))
+    print(f"K6 variants at T {T_}, R {RB // B}, B {B}, G {G_} (plan {plan}): " + "; ".join(
+        f"{name} {sorted(v)[len(v) // 2]:.4f} ms" for name, v in got.items()) + f"  [{smi}]",
+        flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1583,6 +1794,10 @@ def main() -> int:
         k8_cluster(dev, smi)
     if "k8_cluster_forms" in which:
         k8_cluster_forms(dev, smi)
+    if "k6_forms" in which:
+        k6_forms(dev, smi, [a for a in sys.argv[1:] if a.endswith(".cu")])
+    if "k6" in which:
+        k6(dev, smi)
     if "k11_streaming" in which:
         k11_streaming(dev, smi, [a for a in sys.argv[1:] if a.endswith(".cu")])
     return 0

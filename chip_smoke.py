@@ -39,7 +39,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    ``--resample``;
 5. the training kernels K4 (forward with residuals), K5 (reverse sweep)
    and K6 (weight gradient) against their plain versions at the UMX-L
-   training shape (T = 256, R = 8, B = 16, G = 512), and K6 bit-stable;
+   training shape (T = 256, R = 8, B = 16, G = 512), and K6 bit-stable,
+   in its Hopper form (TMA, clusters of two, wgmma: ``csrc/lstm_dw.cu``);
    K4 and K5, each one resident launch per layer: K4's hs/hT/cT bit-equal
    to K1's, both at 20 rows per chain and a ragged T (two row groups), at
    96 rows, at G = 256, rows bit-equal whatever runs beside them, a width
@@ -109,7 +110,12 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     times of the 100 s track (fused, and the streaming one also through
     the host loop), and train steps/s; K6 must be no slower
     than ``torch.bmm`` on the same operands (``torch.bmm`` of the bf16
-    operands with ``out_dtype=torch.float32`` printed beside it), K8 no slower than
+    operands with ``out_dtype=torch.float32`` printed beside it), and at
+    the UMX-L training shape no slower than the library sequence (rounding
+    and chain-major copies, then that call) and faster than its mma_sync
+    form, each timed in turns with it (both also at the four other shapes
+    the paths give K6, ``K6_SHAPES``, with each one's bound, within 1e-5 of
+    the plain version and bit-stable), K8 no slower than
     ``torch.istft``, K8 at n_fft 4096 and 48 rows at most 1.05 times its
     1.4149 ms before it took every n_fft (its other sizes timed beside
     their plain version, ``torch.istft`` and their bound; above 16384 its
@@ -207,7 +213,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     at UMX-HQ on phase 14's stems; the shapes the phase gave K1, K2/K3,
     K4-K6 and K9 recorded and each new one held against its plain version
     and timed beside its bound (K6 also beside ``torch.bmm`` f32 on the
-    same operands).  Its figures go under ``"mesh"``.
+    same operands, the library sequence and the call on pre-rounded
+    operands).  Its figures go under ``"mesh"``.
 18. (run after phase 17) the streaming schedules at UMX-L on the 100 s
     track (3 chunks): ``stream_impl`` "scan", "groups" and "pipelined"
     through their whole-track functions, warm, the median of 3 runs each,
@@ -305,7 +312,10 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     must beat; the wide K5 in its block form (W_hh on the chip, the
     contraction split over a chain's blocks; its fields the plan's, a
     repeat bit-equal) beside its streaming yardstick (K11's streaming sweep
-    with dg rounded to bf16) in turns, which it must beat.  Then, counts set to 0 just before
+    with dg rounded to bf16) in turns, which it must beat; K6 at G 18 in its
+    mma_sync form (TMA cannot stride rows of 18 floats) against its plain
+    version (1e-5), bit-stable, timed beside plain, the library sequence
+    and bound.  Then, counts set to 0 just before
     and read just after each run: the CLI on phase 19's hidden-1280 model
     and its 20 s cut under ``--lstm-impl pallas_merged`` and ``--stream-impl
     pipelined`` (the wide K1, its block form and not the streaming one), and
@@ -316,8 +326,8 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     inputs against plain, 5e-3; corr printed, not gated); hidden 2048 under
     ``pallas`` (K9's chains through the wide K1); ``train_loop`` 2 steps
     under ``"pallas_merged"`` at hidden 1280 (the wide K4/K5, both in their
-    block forms) and 36
-    (padded); and ``umx_forward(compute="bfloat16")`` under ``"scan"`` on
+    block forms; K6 in its Hopper form) and 36 (padded; K6 in its mma_sync
+    form); and ``umx_forward(compute="bfloat16")`` under ``"scan"`` on
     the card (K1, never K10) against the CPU at hidden 1280 and 36 (max
     2e-2 and RMS 2e-3 of the peak).  Its figures go under ``"width"``; the
     kernels line gets a row for each new form with its launches there.
@@ -362,10 +372,10 @@ WINDOW_CHUNKS = 4
 # cores, float32 outside them
 HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
 # This script's figures on an H100 80GB HBM3 at 700 W before each kernel
-# took its present form, printed beside the new ones: the demix times, K1
-# and K6 from before the recurrence became one resident launch per layer and
-# the weight gradient moved to the tensor cores (K1 then one grid launch per
-# step, K6 a CUDA-core GEMM); K4, K5 and the training rate from before K4
+# took its present form, printed beside the new ones: the demix times and
+# K1 from before the recurrence became one resident launch per layer (then
+# one grid launch per step); K6 from before its Hopper form (the mma.sync
+# kernel, kept by name as "mma_sync" and timed in turns with it); K4, K5 and the training rate from before K4
 # and K5 became resident launches too (then one grid per step each); K9 from
 # when a chain's cluster had 16 blocks with W_hh in shared memory (two waves
 # for 8 chains), K8 from when it wrote its frames to device memory and a
@@ -375,7 +385,7 @@ HBM_BYTES_PER_S, PEAK_OPS = 3.35e12, {"bf16": 989e12, "f32": 67e12}
 EARLIER = {"demix_s": 0.319, "batched_demix_s": 0.294, "catalogue_demix_s": 2.706,
            "train_steps_per_s": 7.250, "lstm_merged_ms": {1: 19.9261, 3: 24.6960, 6: 41.5486,
                                                           16: 8.1123},
-           "lstm_merged_dw_ms": 3.9927, "lstm_merged_train_fwd_ms": 8.7091,
+           "lstm_merged_dw_ms": 0.5787, "lstm_merged_train_fwd_ms": 8.7091,
            "lstm_merged_bwd_step_ms": 11.5000, "lstm_layer_pertarget_ms": 12.9396,
            "istft_ct2_ms": 7.3161, "ola_normalized_ms": {8: 0.3108, 16: 0.6176},
            "wiener_reduce_ms": {"masks": 0.1137, "y": 0.1369, "mags": 0.1703}}
@@ -403,6 +413,14 @@ WIENER_FORMS = {
     "wiener_apply_f32_masks_bf16_out": ("wiener_apply", "masks_out_bf16"),
 }
 ISTFT_EARLIER_SHAPE = (48, T_SEG)  # the shape of EARLIER["istft_ct2_ms"]
+# K6's shapes on the paths, (T, R, B, G): UMX-L training (phases 5, 6),
+# its batch-32 rate (phase 6), hidden 1280 under "auto" (phase 20b),
+# train_umx at UMX-HQ (phase 14: batch 4), the mesh's grid cell (phase 17)
+K6_SHAPES = {"umxl_train": (T_TRAIN, R_CHAINS, B_TRAIN, G_HIDDEN),
+             "umxl_batch32": (T_TRAIN, R_CHAINS, 32, G_HIDDEN),
+             "hidden1280": (T_TRAIN, R_CHAINS, B_TRAIN, 640),
+             "umxhq_train_umx": (T_TRAIN, R_CHAINS, 4, 256),
+             "mesh_cell": (T_TRAIN, 4, 8, G_HIDDEN)}
 # K8's 4096 form at that shape on an H100 80GB HBM3 at 700 W before the
 # kernel took every n_fft; it may be no slower than this share of it now
 ISTFT_4096_MS, ISTFT_4096_SLACK = 1.4149, 1.05
@@ -706,7 +724,10 @@ def check_train_kernels(dev):
     require(dw_alone <= 1e-5, f"lstm_merged_dw disagrees with plain on the same dxp: {dw_alone}")
     require(torch.equal(dw_k, L.lstm_merged_dw(hs, h0, dxp_k, B)),
             "lstm_merged_dw is not bit-stable from run to run")
-    print(f"lstm_merged_dw on the plain dxp: max|err|/max|ref| {dw_alone:.3g}; bit-stable")
+    require(L.lstm_merged_dw.form[0] == "wgmma",
+            f"lstm_merged_dw did not run its Hopper form at UMX-L: {L.lstm_merged_dw.form}")
+    print(f"lstm_merged_dw on the plain dxp: max|err|/max|ref| {dw_alone:.3g}; bit-stable; "
+          f"form {L.lstm_merged_dw.form}")
     errs = {
         "lstm_merged_train_fwd": max(fwd_errs.values()),
         "lstm_merged_bwd_step": max(max_err(dxp_k, dxp_p), max_err(dh0_k, dh0_p),
@@ -1063,7 +1084,7 @@ def stem_correlation(est, ref) -> float:
 
 def reset_counts(counters: dict) -> None:
     """Every wrapper's launch count to 0, and the Wiener wrappers' counts
-    by storage form."""
+    by storage form and K6's by form."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "form_launches"):
@@ -1105,6 +1126,21 @@ def paired_ms(fn_a, fn_b, reps: int, name: str):
     spreads[f"{name}_f32"] = (ra[0], ra[-1])
     spreads[name] = (rb[0], rb[-1])
     return ra[GATE_ROUNDS // 2], rb[GATE_ROUNDS // 2]
+
+
+def turns_ms(fns: dict, reps: int, name: str) -> dict:
+    """Median device ms of each of ``fns`` over GATE_ROUNDS rounds of
+    :func:`cuda_ms`, all timed in turns (each round in another order); the
+    rounds' ranges go to ``spreads``."""
+    keys, got = list(fns), {k: [] for k in fns}
+    for k in range(GATE_ROUNDS):
+        order = keys[k % len(keys):] + keys[:k % len(keys)]
+        for key in order[::-1] if k % 2 else order:
+            got[key].append(cuda_ms(fns[key], reps))
+    for key, v in got.items():
+        v.sort()
+        spreads[f"{name} {key}"] = (v[0], v[-1])
+    return {key: v[GATE_ROUNDS // 2] for key, v in got.items()}
 
 
 def bf16_step_err(got, want) -> float:
@@ -1997,6 +2033,9 @@ def training_path(tmp: str, counters: dict, smi: str):
         require(launches[name] > 0, f"kernel {name} was not launched on the training path")
     require(launches["lstm_scan_train_fwd"] == launches["lstm_scan_bwd_step"] == 0,
             "the default trainer at UMX-L ran the float32 recurrence")
+    dw_forms = dict(counters["lstm_merged_dw"].form_launches)
+    require(dw_forms["wgmma"] == launches["lstm_merged_dw"],
+            f"K6 did not run its Hopper form on every launch of the training path: {dw_forms}")
 
     # five steps on one fixed batch lower its loss; steps 2-5 are timed
     mix, targets = train.sample(B_TRAIN)
@@ -2987,6 +3026,19 @@ def dw_bmm_ms(hs, h0, dxp, B) -> float:
     return cuda_ms(lambda: torch.bmm(hp, dg), 10)
 
 
+def dw_prerounded(hs, h0, dxp, B):
+    """K6's operands rounded to bf16 and laid out chain-major outside any
+    timing: h_{t-1} as (R, G, T*B), dxp as (R, T*B, 4G)."""
+    import torch
+
+    T, RB, G = hs.shape
+    R = RB // B
+    hp = torch.cat([h0[None], hs[:-1]]).to(torch.bfloat16).view(
+        T, R, B, G).permute(1, 3, 0, 2).reshape(R, G, -1)
+    dg = dxp.to(torch.bfloat16).view(T, R, B, 4 * G).permute(1, 0, 2, 3).reshape(R, -1, 4 * G)
+    return hp, dg
+
+
 def dw_bmm_bf16_ms(hs, h0, dxp, B) -> float:
     """Milliseconds of ``torch.bmm(bf16, bf16, out_dtype=torch.float32)`` on
     K6's operands (h_{t-1} and dxp rounded to bf16, chain-major; f32 sums
@@ -2995,12 +3047,105 @@ def dw_bmm_bf16_ms(hs, h0, dxp, B) -> float:
     yardstick beside the f32 call of :func:`dw_bmm_ms`."""
     import torch
 
+    hp, dg = dw_prerounded(hs, h0, dxp, B)
+    return cuda_ms(lambda: torch.bmm(hp, dg, out_dtype=torch.float32), 10)
+
+
+def dw_library_sequence(hs, h0, dxp, B: int):
+    """K6's function as the library computes it from K6's own f32 inputs:
+    each operand rounded to bf16 and laid out chain-major in one copy
+    (h_{t-1} as (R, T*B, G), dxp as (R, T*B, 4G)), then
+    ``torch.bmm(bf16, bf16, out_dtype=torch.float32)`` with h_{t-1}
+    transposed as a view; the yardstick K6's Hopper form is gated against,
+    timed as one region."""
+    import torch
+
     T, RB, G = hs.shape
     R = RB // B
-    hp = torch.cat([h0[None], hs[:-1]]).to(torch.bfloat16).view(
+    hp = torch.empty((R, T, B, G), dtype=torch.bfloat16, device=hs.device)
+    hp[:, 0].copy_(h0.view(R, B, G))
+    hp[:, 1:].copy_(hs[:-1].view(T - 1, R, B, G).permute(1, 0, 2, 3))
+    dg = torch.empty((R, T, B, 4 * G), dtype=torch.bfloat16, device=hs.device)
+    dg.copy_(dxp.view(T, R, B, 4 * G).permute(1, 0, 2, 3))
+    return torch.bmm(hp.view(R, T * B, G).transpose(1, 2), dg.view(R, T * B, 4 * G),
+                     out_dtype=torch.float32)
+
+
+def dw_bound(hs, h0, dxp, B: int):
+    """K6's bound: hs, h0 and dxp read and dW (R, G, 4G) f32 written once,
+    or 2 R G 4G T B bf16 operations, whichever is longer."""
+    T, RB, G = hs.shape
+    return bound_ms(nbytes(hs, h0, dxp) + (RB // B) * G * 4 * G * 4, 2.0 * T * RB * G * 4 * G,
+                    "bf16")
+
+
+def dw_inputs(dev, T, R, B, G, seed):
+    """Random f32 hs (tanh-sized), h0 and dxp at a K6 shape."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hs = torch.tanh(torch.randn((T, R * B, G), generator=g, device=dev))
+    h0 = torch.tanh(torch.randn((R * B, G), generator=g, device=dev))
+    dxp = 0.1 * torch.randn((T, R * B, 4 * G), generator=g, device=dev)
+    return hs, h0, dxp, B
+
+
+def time_dw_at(dev, T, R, B, G, seed, smi: str) -> dict:
+    """K6 at one shape a path gives it: against its plain version (1e-5 of
+    max|ref|) and bit-stable, then timed in turns with the library sequence,
+    its mma.sync form and the one call on pre-rounded operands, beside the
+    f32 torch.bmm and its bound."""
+    import torch
+
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    args = dw_inputs(dev, T, R, B, G, seed)
+    dw = L.lstm_merged_dw(*args)
+    torch.cuda.synchronize()
+    form = L.lstm_merged_dw.form
+    ref = L.lstm_merged_dw_plain(*args)
+    err, err_lib = rel_err(dw, ref), rel_err(dw_library_sequence(*args), ref)
+    mma = L.lstm_merged_dw(*args, _form="mma_sync")
+    err_mma = rel_err(mma, ref)
+    stable = torch.equal(dw, L.lstm_merged_dw(*args))
+    # each against the same product summed in float64
+    hs, h0, dxp, _ = args
+    hp = torch.cat([h0[None], hs[:-1]]).to(torch.bfloat16).double().view(
         T, R, B, G).permute(1, 3, 0, 2).reshape(R, G, -1)
-    dg = dxp.to(torch.bfloat16).view(T, R, B, 4 * G).permute(1, 0, 2, 3).reshape(R, -1, 4 * G)
-    return cuda_ms(lambda: torch.bmm(hp, dg, out_dtype=torch.float32), 10)
+    dg = dxp.to(torch.bfloat16).double().view(T, R, B, 4 * G).permute(1, 0, 2, 3).reshape(
+        R, -1, 4 * G)
+    ref64 = torch.bmm(hp, dg)
+    del hp, dg
+    f64 = {name: rel_err(x.double(), ref64) for name, x in
+           (("kernel", dw), ("mma_sync", mma), ("plain", ref))}
+    del ref64, mma
+    print(f"lstm_merged_dw T {T}, R {R}, B {B}, G {G}: max|err|/max|ref| against the float64 "
+          f"sum: " + ", ".join(f"{k} {v:.3g}" for k, v in f64.items()), flush=True)
+    # the mma_sync form, the yardstick, sums in the tensor cores over the
+    # whole chain: its figures are printed, not held to 1e-5
+    require(err <= 1e-5 and stable and form[0] == L.dw_form(G),
+            f"lstm_merged_dw at T {T}, R {R}, B {B}, G {G}: form {form}, max|err|/max|ref| "
+            f"{err}, bit-stable {stable}")
+    hp, dg = dw_prerounded(*args)
+    t = turns_ms({"ms": lambda: L.lstm_merged_dw(*args),
+                  "library_sequence_ms": lambda: dw_library_sequence(*args),
+                  "mma_sync_ms": lambda: L.lstm_merged_dw(*args, _form="mma_sync"),
+                  "prerounded_bmm_bf16_ms": lambda: torch.bmm(hp, dg, out_dtype=torch.float32)},
+                 10, f"lstm_merged_dw T{T}_R{R}_B{B}_G{G}")
+    del hp, dg
+    row = {"form": form, "max_rel_err": err, "float64_rel_err": f64,
+           "library_sequence_rel_err": err_lib, "mma_sync_rel_err": err_mma, **t,
+           "plain_ms": cuda_ms(lambda: L.lstm_merged_dw_plain(*args), 2),
+           "bmm_f32_ms": dw_bmm_ms(*args)}
+    row["bound_ms"], row["bound_by"] = dw_bound(*args)
+    print(f"lstm_merged_dw T {T}, R {R}, B {B}, G {G}: form {form}, max|err|/max|ref| {err:.3g} "
+          f"(mma_sync form {err_mma:.3g}); in turns: {t['ms']:.4f} ms, the library sequence "
+          f"{t['library_sequence_ms']:.4f}, the mma_sync form {t['mma_sync_ms']:.4f}, "
+          f"torch.bmm(bf16, bf16, out_dtype=float32) on pre-rounded operands "
+          f"{t['prerounded_bmm_bf16_ms']:.4f}; plain {row['plain_ms']:.4f}, torch.bmm f32 "
+          f"{row['bmm_f32_ms']:.4f}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}  "
+          f"[{smi}]", flush=True)
+    return row
 
 
 def train_inputs_at(dev, T, R, B, G, seed):
@@ -3256,7 +3401,7 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
     k1_shapes -= {(R_CHAINS, 1, T_SEG), (R_CHAINS, 3, T_SEG), (R_CHAINS, B_TRAIN, T_TRAIN)}
     train_shapes -= {(R_CHAINS, B_TRAIN, T_TRAIN)}
     k9_shapes -= {(N_SRC, T_SEG, G_HIDDEN)}
-    errs, timed, library = {}, {}, {}
+    errs, timed, library, k6_yardsticks = {}, {}, {}, {}
     for R, B, T in sorted(k1_shapes):
         args, errs[f"K1 R{R} B{B} T{T}"] = check_lstm(dev, T, B, seed=200 + R + B, R=R)
         timed[f"lstm_merged R{R} B{B} T{T}"] = (
@@ -3282,6 +3427,8 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
             cuda_ms(lambda: L.lstm_merged_dw_plain(*da), 2),
             bound_ms(nbytes(*da[:3]) + R * G_HIDDEN * 4 * G_HIDDEN * 4, ops, "bf16")[0])
         library[f"lstm_merged_dw R{R} B{B} T{T}"] = dw_bmm_ms(*da)
+        k6_yardsticks[f"lstm_merged_dw R{R} B{B} T{T}"] = (
+            cuda_ms(lambda: dw_library_sequence(*da), 5), dw_bmm_bf16_ms(*da))
     for n_t, T, G in sorted(k9_shapes):
         args, errs[f"K9 T#{n_t} T{T} G{G}"] = check_pertarget_at(dev, n_t, T, G, seed=400 + n_t)
         timed[f"lstm_layer_pertarget T#{n_t} T{T} G{G}"] = (
@@ -3292,6 +3439,10 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
         lib = f"{library[name]:.4f} ms" if name in library else "none"
         print(f"{name}: kernel {k:.4f} ms, plain {p:.4f} ms, bound {b:.4f} ms, library call "
               f"{lib}  [{smi}]")
+    for name, (seq_ms, call_ms) in k6_yardsticks.items():
+        print(f"{name}: the library sequence (round, chain-major copies, torch.bmm(bf16, bf16, "
+              f"out_dtype=float32)) {seq_ms:.4f} ms; that call on pre-rounded operands "
+              f"{call_ms:.4f} ms  [{smi}]")
     require(train_shapes and k9_shapes and k1_shapes, "the phase recorded no kernel shape")
     fig.update(
         dp_bit_equal=dp_equal, dp_demix_s=dp_s, dp_xrt=audio_s / dp_s, dp_launches=dp_launches,
@@ -3305,7 +3456,9 @@ def mesh_phase(dev, tmp: str, model: str, mix, bucket, counters: dict, smi: str)
         train_launches=train_launches, k1_shapes=sorted(k1_shapes),
         train_shapes=sorted(train_shapes), k9_shapes=sorted(k9_shapes), kernel_errs=errs,
         kernel_ms={k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
-                       "library_ms": library.get(k)} for k, v in timed.items()})
+                       "library_ms": library.get(k)} for k, v in timed.items()},
+        k6_library_sequence_ms={k: v[0] for k, v in k6_yardsticks.items()},
+        k6_prerounded_bmm_bf16_ms={k: v[1] for k, v in k6_yardsticks.items()})
     fig["wall_s"] = time.perf_counter() - t_phase
     print(f"mesh phase: {fig['wall_s']:.1f} s wall  [{smi}]")
     return fig
@@ -4622,6 +4775,8 @@ WIDTH_ROWS = {
                                   "umx_tpu/ops/lstm_pallas.py:397"),
     "lstm_merged_bwd_step_padded": ("lstm_merged_bwd_step", "umx_tpu_torch/csrc/lstm_train.cu",
                                     "umx_tpu/ops/lstm_pallas.py:397"),
+    "lstm_merged_dw_mma_sync": ("lstm_merged_dw", "umx_tpu_torch/csrc/lstm_train.cu",
+                                "umx_tpu/ops/lstm_pallas.py:397"),
     "lstm_layer_pertarget_padded": ("lstm_layer_pertarget",
                                     "umx_tpu_torch/csrc/lstm_pertarget.cu",
                                     "umx_tpu/ops/lstm_pallas.py:39"),
@@ -4802,6 +4957,29 @@ def width_train_rows(dev, smi: str) -> dict:
                                         "bound": bounds[key], "rows_alone_bit_equal": alone,
                                         **yardstick[key]}
         rows[f"lstm_merged_bwd_step_{suffix}"].update(rel_err=berr, bit_stable=stable)
+        if suffix == "padded":
+            # K6 at G 18, where TMA cannot stride the rows: its mma_sync form
+            dw_in = (fwd[0], h0, bwd[0], B)
+            dw = L.lstm_merged_dw(*dw_in)
+            torch.cuda.synchronize()
+            dw_form = L.lstm_merged_dw.form
+            dw_ref = L.lstm_merged_dw_plain(*dw_in)
+            dw_err = rel_err(dw, dw_ref)
+            dw_stable = torch.equal(dw, L.lstm_merged_dw(*dw_in))
+            rows["lstm_merged_dw_mma_sync"] = {
+                "G": G, "form": dw_form, "max_abs_err": max_err(dw, dw_ref), "rel_err": dw_err,
+                "bit_stable": dw_stable, "ms": cuda_ms(lambda: L.lstm_merged_dw(*dw_in), 5),
+                "plain_ms": cuda_ms(lambda: L.lstm_merged_dw_plain(*dw_in), 2),
+                "bound": dw_bound(*dw_in),
+                "library_sequence_ms": cuda_ms(lambda: dw_library_sequence(*dw_in), 5)}
+            r6 = rows["lstm_merged_dw_mma_sync"]
+            print(f"K6 at G {G} (T={T_TRAIN}, R={R_CHAINS}, B={B}): form {dw_form}, "
+                  f"max|err|/max|ref| {dw_err:.3g}, bit-stable {dw_stable}; {r6['ms']:.4f} ms "
+                  f"(plain {r6['plain_ms']:.4f}, the library sequence "
+                  f"{r6['library_sequence_ms']:.4f}, bound {r6['bound'][0]:.4f})  [{smi}]")
+            require(dw_form == ("mma_sync",) and dw_err <= 1e-5 and dw_stable,
+                    f"K6 at G {G}: form {dw_form}, {dw_err}, bit-stable {dw_stable}")
+            del dw, dw_ref, dw_in
         print(f"K4/K5 {suffix} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): forward max|err| "
               f"{ferr:.3g} (hs/hT/cT K1's bits {k1_bits}), sweep max|err|/max|ref| {berr:.3g}; "
               f"forms {f_form} {b_form}; rows alone bit-equal {alone}; K5 repeat bit-equal "
@@ -4949,9 +5127,10 @@ def width_phase(dev, tmp: str, mix, counters: dict, smi: str) -> dict:
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
         forms = (L.lstm_merged_train_fwd.form, L.lstm_merged_bwd_step.form)
+        dw_forms = dict(L.lstm_merged_dw.form_launches)
         print(f"train_loop under pallas_merged at hidden {hidden}, {WIDTH_TRAIN_STEPS} steps at "
               f"batch {B_TRAIN} x {tcfg.seq_len}: losses {list(map(float, hist))}, {wall:.3f} s; "
-              f"kernel runs {launches}; forms {forms}  [{smi}]")
+              f"kernel runs {launches}; forms {forms}; K6 by form {dw_forms}  [{smi}]")
         n = 3 * WIDTH_TRAIN_STEPS
         require(bool(np.isfinite(hist).all()) and len(hist) == WIDTH_TRAIN_STEPS,
                 f"hidden {hidden} under pallas_merged: losses {list(hist)}")
@@ -4966,8 +5145,14 @@ def width_phase(dev, tmp: str, mix, counters: dict, smi: str) -> dict:
                 f"hidden {hidden}: K4/K5 did not run their block forms: {forms}")
         for k in ("lstm_merged_train_fwd", "lstm_merged_bwd_step"):
             launches_of[f"{k}_{suffix}"] = launches.get(k, 0)
+        # K6 at the layer's own G: the Hopper form at 640, the mma_sync form
+        # at 18 (TMA cannot stride rows of 18 floats)
+        want = "wgmma" if L.dw_form(hidden // 2) == "wgmma" else "mma_sync"
+        require(dw_forms[want] == n, f"hidden {hidden}: K6 by form {dw_forms}, not {n} {want}")
+        if want == "mma_sync":
+            launches_of["lstm_merged_dw_mma_sync"] = dw_forms["mma_sync"]
         fig["train"][suffix] = {"hidden": hidden, "losses": list(map(float, hist)), "s": wall,
-                                "launches": launches, "forms": forms}
+                                "launches": launches, "forms": forms, "k6_by_form": dw_forms}
 
     # umx_forward(compute="bfloat16") under "scan" is K1's function: on the
     # card it runs K1 (wide at hidden 1280, padded at 36), never K10
@@ -5281,7 +5466,10 @@ def main() -> int:
 
     library = dict.fromkeys(times)
     library["lstm_merged_dw"] = dw_bmm_ms(*train_args["lstm_merged_dw"])
-    k6_bf16_call_ms = dw_bmm_bf16_ms(*train_args["lstm_merged_dw"])
+    # K6 at every shape the paths give it, in turns with the library
+    # sequence and with its mma.sync form
+    k6_shapes = {name: time_dw_at(dev, *shape, seed=900 + i, smi=smi)
+                 for i, (name, shape) in enumerate(K6_SHAPES.items())}
     library["istft_ct2"] = istft_library_ms(*k8_shape)
     # K7's one PyTorch call: the chunk-major to time-major transpose of the
     # combined heads (n_chunks, M, stride), JAX's _transpose_kernel's
@@ -5378,17 +5566,26 @@ def main() -> int:
     print(f"lstm_merged at one row per chain {k1_ms:.4f} ms (earlier form "
           f"{EARLIER['lstm_merged_ms'][1]}) against lstm_layer_pertarget {k9_now:.4f} ms (earlier "
           f"form {EARLIER['lstm_layer_pertarget_ms']}; form {k9_form}; "
-          f"{'K9' if k9_now < k1_ms else 'K1'} is the faster at one row per chain); "
-          f"lstm_merged_dw {times['lstm_merged_dw'][0]:.4f} ms (earlier form "
-          f"{EARLIER['lstm_merged_dw_ms']}) against torch.bmm f32 "
-          f"{library['lstm_merged_dw']:.4f} ms and torch.bmm(bf16, bf16, out_dtype=float32) "
-          f"{k6_bf16_call_ms:.4f} ms (printed, not gated)  [{smi}]")
+          f"{'K9' if k9_now < k1_ms else 'K1'} is the faster at one row per chain)  [{smi}]")
+    k6 = k6_shapes["umxl_train"]
+    print(f"lstm_merged_dw at UMX-L training {times['lstm_merged_dw'][0]:.4f} ms (form "
+          f"{k6['form']}; earlier form {EARLIER['lstm_merged_dw_ms']}); in turns "
+          f"{k6['ms']:.4f} against the library sequence {k6['library_sequence_ms']:.4f}, the "
+          f"mma_sync form {k6['mma_sync_ms']:.4f} and the call on pre-rounded operands "
+          f"{k6['prerounded_bmm_bf16_ms']:.4f}; torch.bmm f32 {library['lstm_merged_dw']:.4f} "
+          f"ms  [{smi}]")
     require(k9_now < EARLIER["lstm_layer_pertarget_ms"],
             f"lstm_layer_pertarget ({k9_now} ms) is not faster than its earlier form "
             f"({EARLIER['lstm_layer_pertarget_ms']} ms)")
     require(times["lstm_merged_dw"][0] <= library["lstm_merged_dw"],
             f"lstm_merged_dw ({times['lstm_merged_dw'][0]} ms) is slower than torch.bmm "
             f"({library['lstm_merged_dw']} ms)")
+    require(k6["ms"] <= k6["library_sequence_ms"],
+            f"lstm_merged_dw ({k6['ms']} ms) is slower than the library sequence "
+            f"({k6['library_sequence_ms']} ms) in turns")
+    require(k6["ms"] < k6["mma_sync_ms"],
+            f"lstm_merged_dw ({k6['ms']} ms) is not faster than its mma_sync form "
+            f"({k6['mma_sync_ms']} ms) in turns")
     k4_ms, k5_ms = times["lstm_merged_train_fwd"][0], times["lstm_merged_bwd_step"][0]
     print(f"lstm_merged_train_fwd {k4_ms:.4f} ms (earlier form "
           f"{EARLIER['lstm_merged_train_fwd_ms']}) against lstm_merged {k1_train[0]:.4f} ms at the "
@@ -5463,7 +5660,7 @@ def main() -> int:
         "lstm_merged_bwd_step": ("umx_tpu_torch/csrc/lstm_train.cu",
                                  "umx_tpu/ops/lstm_pallas.py:397",
                                  train_errs["lstm_merged_bwd_step"]),
-        "lstm_merged_dw": ("umx_tpu_torch/csrc/lstm_train.cu",
+        "lstm_merged_dw": ("umx_tpu_torch/csrc/lstm_dw.cu",
                            "umx_tpu/ops/lstm_pallas.py:397", train_errs["lstm_merged_dw"]),
         "ola_normalized": ("umx_tpu_torch/csrc/ola.cu", "umx_tpu/ops/ola_pallas.py:61", ola_err),
         "istft_ct2": ("umx_tpu_torch/csrc/istft_ct.cu", "umx_tpu/ops/istft_ct.py:270", istft_err),
@@ -5525,7 +5722,8 @@ def main() -> int:
     # shape; the others as their wrapper last ran
     row_forms = {name: WIENER_FORMS[name][1] for name in meta if name in WIENER_FORMS}
     row_forms.update({"istft_ct2": k8_form, "lstm_scan": scan["shapes"]["G512_B1"]["form"],
-                      "lstm_layer_pertarget": k9_form, **st_kernels["form"]})
+                      "lstm_layer_pertarget": k9_form, "lstm_merged_dw": k6["form"],
+                      **st_kernels["form"]})
     for k in kernels:
         k["form"] = row_forms.get(k["name"], getattr(counters.get(k["name"]), "form", None))
     # phase 21's forms: the wide K1, K4, K5 and K9 and the padded ones, each
@@ -5537,7 +5735,8 @@ def main() -> int:
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1], "library_ms": None, "form": r["form"],
-                        **{k: r[k] for k in ("streaming_ms", "ms_in_turns") if k in r}})
+                        **{k: r[k] for k in ("streaming_ms", "ms_in_turns", "library_sequence_ms")
+                           if k in r}})
     next(k for k in kernels if k["name"] == "ola_normalized")["library_ms_m16"] = ola_call_ms[16]
     k8_row = next(k for k in kernels if k["name"] == "istft_ct2")
     k8_row["n_fft"] = 4096
@@ -5568,8 +5767,10 @@ def main() -> int:
     kernels[0]["pipelined_hq"] = stream["hq"]["k1"]
     next(k for k in kernels if k["name"] == "lstm_scan")["nn_lstm_x4_yardstick_ms"] = \
         scan["nn_lstm_x4_ms"]
-    next(k for k in kernels if k["name"] == "lstm_merged_dw")["library_bf16_out_f32_ms"] = \
-        k6_bf16_call_ms
+    k6_row = next(k for k in kernels if k["name"] == "lstm_merged_dw")
+    k6_row.update(library_bf16_out_f32_ms=k6["prerounded_bmm_bf16_ms"],
+                  library_sequence_ms=k6["library_sequence_ms"], mma_sync_ms=k6["mma_sync_ms"],
+                  ms_in_turns=k6["ms"], by_shape=k6_shapes)
     k11 = next(k for k in kernels if k["name"] == "lstm_scan_bwd_step")
     k11["nn_lstm_x4_fwd_bwd_yardstick_ms"] = st_kernels["ms"]["nn_lstm_x4_fwd_bwd"]
     k11["dw_bmm_ms"] = st_kernels["ms"]["lstm_scan_dw_bmm"]

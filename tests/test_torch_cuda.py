@@ -441,21 +441,51 @@ def test_weight_gradient_is_bit_stable(dev):
 )
 def test_weight_gradient_kernel_at_ragged_shapes(dev, T, R, B, G):
     """K6 alone on the tensor cores: G and 4G that are no multiples of its
-    128 x 128 tile (and one G that is no multiple of 4, which takes the
-    scalar loads), T*B that is no multiple of its stage of 32; identical
+    tiles (and one G that is no multiple of 4, which TMA cannot stride: the
+    mma_sync form), T*B that is no multiple of its stage of 32; identical
     bf16 operands as the plain version, f32 sums in another order; and the
-    same bits from run to run."""
+    same bits from run to run.  Each shape in the form :func:`dw_form`
+    gives it, and the other form by name where it can run."""
     g = torch.Generator(device=dev).manual_seed(T * G + B)
     hs = torch.randn((T, R * B, G), generator=g, device=dev)
     h0 = torch.randn((R * B, G), generator=g, device=dev)
     dxp = torch.randn((T, R * B, 4 * G), generator=g, device=dev)
-    before = lstm_cuda.lstm_merged_dw.launches
+    ref = lstm_cuda.lstm_merged_dw_plain(hs, h0, dxp, B)
+    forms = [None] + [f for f in lstm_cuda.DW_FORMS if f == "mma_sync" or G % 4 == 0]
+    for form in forms:
+        before = lstm_cuda.lstm_merged_dw.launches
+        dw = lstm_cuda.lstm_merged_dw(hs, h0, dxp, B, _form=form)
+        torch.cuda.synchronize()
+        assert lstm_cuda.lstm_merged_dw.launches == before + 1
+        assert lstm_cuda.lstm_merged_dw.form[0] == (form or lstm_cuda.dw_form(G)), form
+        assert dw.shape == ref.shape == (R, G, 4 * G)
+        assert _rel(dw, ref) <= 1e-5, form
+        assert torch.equal(dw, lstm_cuda.lstm_merged_dw(hs, h0, dxp, B, _form=form)), form
+
+
+@pytest.mark.parametrize("T, R, B, G", [(256, 8, 16, 512), (256, 8, 32, 512), (256, 8, 16, 640),
+                                        (256, 8, 4, 256), (256, 4, 8, 512)],
+                         ids=["umxl_train", "umxl_batch32", "hidden1280", "umxhq_train_umx",
+                              "mesh_cell"])
+def test_weight_gradient_hopper_form_at_path_shapes(dev, T, R, B, G):
+    """K6's Hopper form at the shapes the paths give it: one launch, the
+    plan's form (columns a block, clusters, clusters the card holds,
+    waves), within 1e-5 of the plain version on the same operands (the
+    tensor cores' sums go into dW every DW_PROMOTE stages, so B 32's 8192
+    pairs stay inside it) and the same bits from run to run."""
+    g = torch.Generator(device=dev).manual_seed(T + B + G)
+    hs = torch.tanh(torch.randn((T, R * B, G), generator=g, device=dev))
+    h0 = torch.tanh(torch.randn((R * B, G), generator=g, device=dev))
+    dxp = 0.1 * torch.randn((T, R * B, 4 * G), generator=g, device=dev)
+    before = dict(lstm_cuda.lstm_merged_dw.form_launches)
     dw = lstm_cuda.lstm_merged_dw(hs, h0, dxp, B)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_merged_dw.launches == before + 1
-    ref = lstm_cuda.lstm_merged_dw_plain(hs, h0, dxp, B)
-    assert dw.shape == ref.shape == (R, G, 4 * G)
-    assert _rel(dw, ref) <= 1e-5
+    assert lstm_cuda.lstm_merged_dw.form_launches["wgmma"] == before["wgmma"] + 1
+    held = {bn: c for bn, (c, _) in lstm_cuda.dw_capacity(dev.index or 0).items()}
+    plan = lstm_cuda.dw_plan(T, R, B, G, held)
+    assert lstm_cuda.lstm_merged_dw.form == ("wgmma", plan.bn, plan.clusters, plan.held,
+                                             plan.waves)
+    assert _rel(dw, lstm_cuda.lstm_merged_dw_plain(hs, h0, dxp, B)) <= 1e-5
     assert torch.equal(dw, lstm_cuda.lstm_merged_dw(hs, h0, dxp, B))
 
 

@@ -72,6 +72,10 @@ _SIGNATURES = {
                           _I, _I, _I, _U, _P],
     # hs, h0, dxp, dw, T, R, B, G, stream
     "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # bn, clusters (out), smem (out)
+    "umx_lstm_dw_capacity": [_I, _P, _P],
+    # hs, h0, dxp, dw, T, R, B, G, bn, bp, tb, nbc, stages, stream
+    "umx_lstm_dw_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # mode, mask_bf16, a_re, a_im, masks, inv_ma, racc, T, F, stream
     "umx_wiener_reduce": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # mode, mask_bf16, out_bf16, xre, xim, m_or_yre, yim, racc, inv_ma, yre_out, yim_out, T, F,

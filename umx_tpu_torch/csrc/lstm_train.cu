@@ -104,7 +104,10 @@
 // blocks; 24 of a warp's 50 tiles in registers), 32 units and 8 m-tiles up
 // to G 1024 (two chain groups for R 8); wider chains stream.
 //
-// K6, the weight gradient.  What bounds it: 2 * R*G*4G*T*B flops (69 GFLOP
+// K6, the weight gradient, in its earlier form "mma_sync": the wrapper runs
+// it where TMA cannot take the operands' strides (G % 4 != 0) and by name
+// as the yardstick of the Hopper form in lstm_dw.cu, which runs everywhere
+// else.  What bounds it: 2 * R*G*4G*T*B flops (69 GFLOP
 // per layer at UMX-L training, T*B = 4096) on bf16-rounded operands, which
 // the tensor cores take exactly, over 335 MB of f32 operands that the
 // sweep left in device memory: at the card's peaks 0.07 ms of products and

@@ -17,7 +17,8 @@ backward the dh/dc carries) in f32.
   (``_make_merged_train_kernel``).
 - K5 :func:`lstm_merged_bwd_step` and K6 :func:`lstm_merged_dw`: the
   reverse-time sweep, one resident launch per layer with W_hh in registers,
-  and the weight gradient (``_make_merged_bwd_kernel``).
+  and the weight gradient (``_make_merged_bwd_kernel``), a TMA-fed wgmma
+  GEMM over clusters of two blocks (``csrc/lstm_dw.cu``, :func:`dw_plan`).
 - K9 :func:`lstm_layer_pertarget`: the same function as K1 at one batch
   row in the per-target layout (T#, T, D, 4G), one launch per layer with
   each chain on a thread-block cluster that keeps its W_hh and state on
@@ -873,9 +874,136 @@ lstm_merged_bwd_step.launches = 0
 lstm_merged_bwd_step.form = None
 
 
-def lstm_merged_dw(hs, h0, dxp, B: int):
+# K6, the weight gradient, in two forms: "wgmma" (``csrc/lstm_dw.cu``), the
+# Hopper form, a TMA-fed warpgroup-MMA GEMM over clusters of two blocks,
+# wherever TMA takes the operands' strides (G % 4 == 0); "mma_sync"
+# (``csrc/lstm_train.cu``), the earlier tensor-core kernel, elsewhere and
+# by name as the Hopper form's yardstick.
+DW_FORMS = ("wgmma", "mma_sync")
+DW_BM = 128  # dW rows (hidden units) a block
+DW_BK = 32  # (t, b) pairs a stage
+DW_CLUSTER = 2  # blocks a cluster: two unit tiles that share the dxp tile
+# stages whose products a block sums in the tensor cores' registers before
+# it adds them into its tile of dW in f32 (round to nearest), in order
+DW_PROMOTE = 128
+# Bytes of shared-memory traffic a block moves per 16 pairs at BN columns
+# (TMA's f32 in, the rounding's f32 out and bf16 in, the two consumer
+# warpgroups' bf16 out: 24 + 24 + 12 + 20 KiB at 256, 16 + 16 + 8 + 12 at
+# 128): the form is bound by shared memory, so a block's time at BN is in
+# proportion, which :func:`dw_plan` weighs against the waves.
+DW_STAGE_SMEM = {256: 80 * 1024, 128: 52 * 1024}
+
+
+def dw_form(G: int) -> str:
+    """K6's form at width G: "wgmma" where G % 4 == 0, else "mma_sync"."""
+    return "wgmma" if G % 4 == 0 else "mma_sync"
+
+
+class DwPlan(NamedTuple):
+    """A launch of K6's Hopper form (:func:`dw_plan`)."""
+
+    bn: int  # dW columns (gate columns) a block
+    bp: int  # rows a step's box brings: B rounded up to a power of two, 32 above 32
+    tb: int  # steps a stage (32 / bp)
+    nbc: int  # boxes of 32 rows a step (B above 32; then tb is 1)
+    stages: int  # stages of 32 (t, b) pairs of a chain, the last padded with zeros
+    m_pairs: int  # clusters along the units: pairs of 128-unit tiles
+    n_tiles: int  # tiles of bn columns
+    clusters: int  # R x m_pairs x n_tiles
+    held: int  # clusters of this bn the card holds at once
+    waves: int
+
+
+def dw_plan(T: int, R: int, B: int, G: int, held: dict[int, int]) -> DwPlan:
+    """K6's Hopper form for R chains of B rows, T steps, width G (G % 4 ==
+    0), from the card's figure ``held``: {columns a block (256, 128): the
+    clusters of that kernel the card holds at once}.  The stage is 32
+    (t, b) pairs: tb steps of B rows rounded up to a power of two (the
+    extra rows read as zeros), or above 32 rows one 32-row box of one step.
+    The tile is 128 units by 256 columns, or by 128 where that takes fewer
+    waves by enough to pay for its higher cost a column
+    (``DW_STAGE_SMEM``)."""
+    if G < 4 or G % 4:
+        raise ValueError(f"K6's Hopper form takes G % 4 == 0, got {G}")
+    if min(T, R, B) < 1:
+        raise ValueError(f"T, R and B must be positive, got {T}, {R}, {B}")
+    if B > DW_BK:
+        bp, nbc, tb = DW_BK, -(-B // DW_BK), 1
+    else:
+        bp, nbc = 1 << (B - 1).bit_length(), 1
+        tb = DW_BK // bp
+    m_tiles = -(-G // DW_BM)
+    m_pairs = -(-m_tiles // DW_CLUSTER)
+    best = None
+    for bn in sorted(DW_STAGE_SMEM, reverse=True):
+        if held.get(bn, 0) < 1:
+            continue
+        n_tiles = -(-4 * G // bn)
+        clusters = R * m_pairs * n_tiles
+        waves = -(-clusters // held[bn])
+        plan = DwPlan(bn, bp, tb, nbc, -(-T * nbc // tb), m_pairs, n_tiles, clusters, held[bn],
+                      waves)
+        if best is None or waves * DW_STAGE_SMEM[bn] < best.waves * DW_STAGE_SMEM[best.bn]:
+            best = plan
+    if best is None:
+        raise RuntimeError(f"the card holds no cluster of K6's Hopper form: {held}")
+    return best
+
+
+def dw_tiles(plan: DwPlan) -> list[tuple[int, int, int]]:
+    """(chain, first unit, first column) of every block of a launch, in
+    block order: cluster c = block // 2 takes the unit tiles 2 (c %
+    m_pairs) + {0, 1} (the second past G where the tiles are odd: it only
+    brings its half of the shared dxp tile), column tile (c // m_pairs) %
+    n_tiles, chain c // (m_pairs n_tiles) (``csrc/lstm_dw.cu``)."""
+    out = []
+    for block in range(DW_CLUSTER * plan.clusters):
+        c, rank = divmod(block, DW_CLUSTER)
+        mp, nt = c % plan.m_pairs, (c // plan.m_pairs) % plan.n_tiles
+        out.append((c // (plan.m_pairs * plan.n_tiles), (2 * mp + rank) * DW_BM, nt * plan.bn))
+    return out
+
+
+def dw_stages(plan: DwPlan) -> list[tuple[int, int]]:
+    """(t0, b0) of every stage, in order: its boxes are hs at (unit m0, row
+    b0, chain, step t0 - 1) for tb steps (h_{t-1}; hs's step T - 1 and
+    steps below 0 read as zeros) and dxp at (column, b0, chain, t0) for tb
+    steps, bp rows each, those past B zeros; where t0 == 0, h0 at (m0, b0,
+    chain): in place of hs's box where tb is 1 (then every stage of step 0,
+    one a 32-row box, has its own), else into a region of its own that
+    stage 0, the only one at t0 == 0, reads for its rows [0, bp)."""
+    out = []
+    for s in range(plan.stages):
+        u0 = s * plan.tb
+        out.append((u0 // plan.nbc, (u0 % plan.nbc) * DW_BK))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def dw_capacity(index: int) -> dict[int, tuple[int, int]]:
+    """What K6's Hopper form reports of itself on CUDA device ``index``,
+    asked once: {columns a block: (clusters the device holds at once, the
+    dynamic shared memory a block asks for)}."""
+    import ctypes
+
+    out = {}
+    with torch.cuda.device(index):
+        for bn in DW_STAGE_SMEM:
+            clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+            err = _build.library().umx_lstm_dw_capacity(bn, ctypes.addressof(clusters),
+                                                        ctypes.addressof(smem))
+            _build.check(err, "umx_lstm_dw_capacity")
+            out[bn] = (clusters.value, smem.value)
+    return out
+
+
+def lstm_merged_dw(hs, h0, dxp, B: int, *, _form: str | None = None):
     """K6: dW (R, G, 4G) f32 = Σ over t, b of bf16(h_{t-1})ᵀ bf16(dxp_t).
-    Counts ``lstm_merged_dw.launches``."""
+    Any G, in :func:`dw_form`'s form (the private ``_form`` names either of
+    ``DW_FORMS``: "mma_sync" is the Hopper form's yardstick).  The form that
+    ran is left in ``lstm_merged_dw.form``: ("wgmma", columns a block,
+    clusters, clusters held at once, waves) or ("mma_sync",).  Counts
+    ``lstm_merged_dw.launches``, and by form ``lstm_merged_dw.form_launches``."""
     if hs.dim() != 3 or dxp.dim() != 3:
         raise ValueError(f"hs and dxp must be 3-d, got {tuple(hs.shape)}, {tuple(dxp.shape)}")
     T, RB, G = hs.shape
@@ -886,18 +1014,39 @@ def lstm_merged_dw(hs, h0, dxp, B: int):
         ("hs", hs, hs.shape, torch.float32), ("h0", h0, (RB, G), torch.float32),
         ("dxp", dxp, (T, RB, 4 * G), torch.float32),
     ])
+    form = _form or dw_form(G)
+    if form not in DW_FORMS or (form == "wgmma" and G % 4):
+        raise ValueError(f"form must be None or one of {DW_FORMS} (wgmma at G % 4 == 0); got "
+                         f"{_form!r} at G = {G}")
     if route == "cpu":
         return lstm_merged_dw_plain(hs, h0, dxp, B)
     dw = torch.empty((R, G, 4 * G), dtype=torch.float32, device=hs.device)
-    err = _build.library().umx_lstm_dw(
-        hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), T, R, B, G, _stream(hs)
-    )
-    _build.check(err, "umx_lstm_dw")
+    lib = _build.library()
+    if form == "wgmma":
+        if any(t.data_ptr() % 16 for t in (hs, h0, dxp)):
+            raise ValueError("K6's Hopper form needs 16-byte aligned hs, h0 and dxp")
+        held = dw_capacity(hs.device.index)
+        plan = dw_plan(T, R, B, G, {bn: c for bn, (c, _) in held.items()})
+        err = lib.umx_lstm_dw_wgmma(
+            hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), T, R, B, G, plan.bn,
+            plan.bp, plan.tb, plan.nbc, plan.stages, _stream(hs)
+        )
+        _build.check(err, "umx_lstm_dw_wgmma")
+        lstm_merged_dw.form = ("wgmma", plan.bn, plan.clusters, plan.held, plan.waves)
+    else:
+        err = lib.umx_lstm_dw(
+            hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), T, R, B, G, _stream(hs)
+        )
+        _build.check(err, "umx_lstm_dw")
+        lstm_merged_dw.form = ("mma_sync",)
     lstm_merged_dw.launches += 1
+    lstm_merged_dw.form_launches[form] += 1
     return dw
 
 
 lstm_merged_dw.launches = 0
+lstm_merged_dw.form_launches = dict.fromkeys(DW_FORMS, 0)
+lstm_merged_dw.form = None
 
 
 class LSTMMergedTrain(torch.autograd.Function):

@@ -7,6 +7,7 @@ the ones kept, and where a step of each kept recurrence goes.
     python3 chip_forms.py k11_streaming [earlier lstm_scan_train.cu ...]
     python3 chip_forms.py k6_forms [other lstm_dw.cu ...]
     python3 chip_forms.py wide k8_cluster wide_bwd wide_bwd_forms scan_wide k6
+    python3 chip_forms.py k6_small grad_flips k8_register [N_FFT ...] k8_register_forms
 
 Makes variants of ``umx_tpu_torch/csrc/lstm_train.cu`` by text substitution
 (the source itself carries no switches), builds each with its own nvcc into
@@ -45,6 +46,14 @@ its plain version at ragged shapes, then at the five shapes the paths give
 it in turns with the library sequence (rounding, chain-major copies,
 ``torch.bmm(bf16, bf16, out_dtype=float32)``), its mma_sync form and that
 call on pre-rounded operands, beside its bound.
+``k6_small``: K6 at hidden 36 and 48 (G 18 padded to 24, and 24), its
+contraction split into slices, in turns with the same yardsticks and the f32
+``torch.bmm``.  ``k8_register``: K8's register form at every n_fft it takes
+(or those named), in turns with its mixed-radix yardstick and torch.istft;
+``k8_register_forms`` other plans of it (``K8_REGISTER_VARIANTS``), in turns.
+``grad_flips``: one diagnosis of the card's gradient test (the card's
+repeats, the CPU as it is and pinned to AVX2, the ReLUs' sign flips, the
+CPU on the card's branches), a JSON line.
 ``scan_wide``: K10, K10 with residuals and K11 in their wide forms (G
 above 512: W_hh on the chip in shares of 20 units) at G 640 and 520, each
 against its plain version and beside the streaming form in turns.
@@ -253,6 +262,7 @@ def build_all(texts: dict[str, str], entries=("umx_lstm_bwd",),
                      for line in log.splitlines())
         print(f"{name}: registers {'/'.join(regs)}, kernels with spills {spills}", flush=True)
         lib = ctypes.CDLL(str(so))
+        lib.build_log = log
         for entry, argtypes in entries.items():
             if hasattr(lib, entry):
                 getattr(lib, entry).argtypes = argtypes
@@ -1753,6 +1763,278 @@ def k6_forms(dev, smi: str, others: list[str] = ()) -> None:
         flush=True)
 
 
+def ptxas_lines(kernel: str) -> list[str]:
+    """The build log's ptxas lines of each instantiation of ``kernel``
+    (registers, stack frame, spills), from the library ``_build`` made."""
+    from umx_tpu_torch import _build
+
+    _build.library()
+    lines = _build.library_path().with_name(
+        _build.library_path().name + ".log").read_text().splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if kernel in line and "Compiling entry" in line:
+            out.append(line.strip().split("'")[1] + " | " + " | ".join(
+                x.strip() for x in lines[i + 1:i + 4]
+                if "Compiling" not in x and "Function properties" not in x))
+    return out
+
+
+def k6_small(dev, smi: str) -> None:
+    """K6 where its tiles alone leave the card nearly empty: hidden 36 (G 18,
+    run at the padded width 24) and hidden 48 (G 24) at T 256, R 8, B 16,
+    in the Hopper form with its contraction split into slices; the plan,
+    then each against its plain version and the float64 sum, bit-stable,
+    and in turns with its mma_sync form, the library sequence, the f32
+    ``torch.bmm`` and the call on pre-rounded operands, beside its bound
+    (``S.time_dw_at``)."""
+    from umx_tpu_torch.ops import lstm_cuda as L
+
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for kernel in ("lstm_dw_pad_kernel", "lstm_dw_sum_slices_kernel", "lstm_dw_sum_cut_kernel"):
+        for line in ptxas_lines(kernel):
+            print(line)
+    held = {bn: c for bn, (c, _) in L.dw_capacity(dev.index).items()}
+    for i, shape in enumerate(S.K6_SMALL_SHAPES.values()):
+        T_, R_, B_, G_ = shape
+        print(f"K6 plan at T {T_}, R {R_}, B {B_}, G {G_} (run at {L.dw_width(G_)}): "
+              f"{L.dw_plan(T_, R_, B_, L.dw_width(G_), held)}", flush=True)
+        S.time_dw_at(dev, *shape, seed=970 + i, smi=smi, f32_in_turns=True)
+        # the device's own time a call, by kernel (torch.profiler), beside the
+        # host's wall time a call: where the call is host-bound, the events'
+        # figure above is the host's
+        args = S.dw_inputs(dev, *shape, seed=970 + i)
+        reps = 50
+        for _ in range(S.TRACE_ATTEMPTS):
+            time.sleep(S.TRACE_PAUSE_S)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    L.lstm_merged_dw(*args)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / reps * 1e3
+            dev_us = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    hit = re.search(r"lstm_dw_\w+?_kernel", e.name)
+                    name = hit.group(0) if hit else e.name[:40]
+                    dev_us[name] = dev_us.get(name, 0.0) + e.time_range.elapsed_us() / reps
+            if dev_us:
+                break
+        print(f"K6 at G {G_}: device time a call by kernel (us) "
+              f"{ {k: round(v, 2) for k, v in dev_us.items()} or 'not measured'}, in all "
+              f"{sum(dev_us.values()) / 1e3:.4f} ms; host wall a call {wall:.4f} ms  [{smi}]",
+              flush=True)
+
+
+def k8_register(dev, smi: str, sizes=None) -> None:
+    """K8's register form (``istft_ct2_reg_kernel``): the ptxas lines of its
+    instantiations, then at every n_fft it takes (or ``sizes``) on 8 rows
+    of a 60 s segment against its plain version and float64 (1e-5),
+    bit-stable, and in turns with its mixed-radix yardstick
+    (``_form="mixed_radix"``) and ``torch.istft``, beside its bound
+    (``S.time_istft_register``)."""
+    from umx_tpu_torch.ops import istft_ct_cuda
+
+    for line in ptxas_lines("istft_ct2_reg_kernel"):
+        print(line)
+    for n in sizes or sorted(istft_ct_cuda.REGISTER_PLANS):
+        S.time_istft_register(dev, n, smi)
+
+
+# Other plans of the register form, built as variants of csrc/istft_ct.cu
+# (the plan of each n_fft is its `case` line of reg_kernel): the first
+# plans (64 threads a frame where R1 took the whole factor of k), fewer
+# threads a frame, more (R2 32: passes of 32 points, which spill at 512
+# threads a block)
+K8_REGISTER_VARIANTS = {
+    "first plans": {1024: (8, 8, 8), 2048: (16, 8, 8), 3072: (24, 8, 8), 5120: (40, 8, 8),
+                    6144: (24, 16, 8), 7168: (28, 16, 8), 10240: (40, 16, 8)},
+    "fewer threads": {5120: (20, 16, 8), 8192: (32, 16, 8), 10240: (40, 8, 16)},
+    "more threads": {1024: (2, 16, 16), 2048: (4, 16, 16), 3072: (6, 16, 16), 8192: (8, 32, 16),
+                     12288: (12, 32, 16), 16384: (16, 32, 16)},
+}
+
+
+def k8_register_forms(dev, smi: str) -> None:
+    """K8's register form at the n_fft of ``K8_REGISTER_VARIANTS`` on 8 rows
+    of a 60 s segment in the kept plans and in those of
+    ``K8_REGISTER_VARIANTS`` (each a build of ``csrc/istft_ct.cu`` with other
+    `case` lines), each within 1e-5 of the plain version, timed in turns."""
+    import torch
+
+    from umx_tpu_torch import _build
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda as K
+    from umx_tpu_torch.ops.stft import hann_window
+
+    src = (_build.CSRC / "istft_ct.cu").read_text()
+    texts, plans = {"kept": src}, {"kept": dict(K.REGISTER_PLANS)}
+    for name, table in K8_REGISTER_VARIANTS.items():
+        text = src
+        for n, (r1, r2, r3) in table.items():
+            text, hits = re.subn(rf"case {n // 1024}: UMX_REG_PLAN\(\d+, \d+, \d+\)",
+                                 f"case {n // 1024}: UMX_REG_PLAN({r1}, {r2}, {r3})", text)
+            S.require(hits == 1, f"no case line for n_fft {n} in istft_ct.cu")
+        texts[name], plans[name] = text, {**K.REGISTER_PLANS, **table}
+    libs = build_all(texts, ("umx_istft_ct2_reg", "umx_istft_ct2_reg_capacity"), tag="k8r")
+    for name, lib in libs.items():
+        lines = lib.build_log.splitlines()
+        for i, line in enumerate(lines):
+            hit = re.search(r"istft_ct2_reg_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            if hit and "Compiling entry" in line:
+                print(f"{name} {tuple(map(int, hit.groups()))}: " + " | ".join(
+                    x.strip() for x in lines[i + 1:i + 4]
+                    if "Compiling" not in x and "Function properties" not in x))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for n in sorted({n for table in K8_REGISTER_VARIANTS.values() for n in table}):
+        hop, F = n // 4, n // 2 + 1
+        T_ = S.SEG // hop + 1
+        g = torch.Generator(device=dev).manual_seed(n)
+        re_, im_ = (torch.randn((S.ISTFT_ROWS, T_, F), generator=g, device=dev) for _ in range(2))
+        w = hann_window(n, dev)
+        table = K._table(n, dev)
+        ref = istft_ct.istft_ct2_plain(re_, im_, n, hop, w)
+        fns = {}
+        for name, lib in libs.items():
+            if name != "kept" and n not in K8_REGISTER_VARIANTS[name]:
+                continue
+            blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+            S.require(lib.umx_istft_ct2_reg_capacity(n, ctypes.addressof(blocks),
+                                                     ctypes.addressof(smem)) == 0, "capacity")
+            per_row, hops_per_run = K.istft_run_plan(S.ISTFT_ROWS, T_, blocks.value)
+            tw1 = torch.from_numpy(K.register_twiddles(n, plans[name][n])).to(dev)
+            out = torch.empty((S.ISTFT_ROWS, (T_ - 1) * hop + n), device=dev)
+
+            def go(lib=lib, per_row=per_row, hops_per_run=hops_per_run, tw1=tw1, out=out):
+                err = lib.umx_istft_ct2_reg(re_.data_ptr(), im_.data_ptr(), table.data_ptr(),
+                                            tw1.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                            S.ISTFT_ROWS, T_, F, n, hop, per_row, hops_per_run,
+                                            stream)
+                S.require(err == 0, f"umx_istft_ct2_reg: CUDA error {err}")
+                return out
+            err = S.max_err(go(), ref)
+            S.require(err <= 1e-5, f"K8 {name} {plans[name][n]} at n_fft {n}: {err} off plain")
+            fns[f"{name} {plans[name][n]} ({blocks.value} blocks, {smem.value} B)"] = go
+        t = S.turns_ms(fns, 10, f"k8 register forms {n}")
+        print(f"istft_ct2 register form at n_fft {n} ({S.ISTFT_ROWS} rows x {T_} frames), in "
+              f"turns: " + "; ".join(f"{k} {v:.4f} ms" for k, v in t.items()) + f"  [{smi}]",
+              flush=True)
+        del re_, im_, ref
+
+
+# The card test tests/test_torch_cuda.py::test_training_loss_and_grads_on_the_card_match_cpu:
+# hidden 48 (G 24), a batch of 3 x 12 frames, seed 4; the two ReLUs of
+# models/umx.py:umx_post, fc2's and the mask's
+_GRAD_CHILD = """
+import sys, torch
+sys.path.insert(0, {root!r})
+import chip_forms
+torch.save(chip_forms.grad_case("cpu"), {out!r})
+"""
+
+
+def grad_case(device: str, branches=None):
+    """The card test's loss and gradients on ``device`` → (loss, {field:
+    gradient on the CPU}, [the pre-activations of the two ReLUs, on the
+    CPU]); ``branches``: a 0/1 tensor for each ReLU, the branch it takes at
+    each element in place of its own sign (x * branch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from umx_tpu_torch.config import ModelConfig
+    from umx_tpu_torch.models.umx import UMXParams, synthetic_params
+    from umx_tpu_torch.train import FROZEN, mask_loss
+
+    cfg = ModelConfig(hidden_size=48)
+    rng = np.random.default_rng(4)
+    batch = {
+        "x": rng.uniform(0, 1, (3, 12, cfg.n_features)),
+        "mix_mag": rng.uniform(0, 1, (3, 2, 12, cfg.n_bins)),
+        "target_mag": rng.uniform(0, 1, (3, 4, 2, 12, cfg.n_bins)),
+    }
+    p = synthetic_params(cfg, seed=4, device=device)
+    names = [f.name for f in dataclasses.fields(UMXParams) if f.name not in FROZEN]
+    for n in names:
+        getattr(p, n).requires_grad_(True)
+    b = {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in batch.items()}
+    pre, relu = [], torch.relu
+
+    def recording_relu(x):
+        pre.append(x.detach().cpu().clone())
+        if branches is None:
+            return relu(x)
+        return x * branches[len(pre) - 1].to(x.device, x.dtype)
+
+    torch.relu = recording_relu
+    try:
+        loss = mask_loss(p, b, cfg)
+        loss.backward()
+    finally:
+        torch.relu = relu
+    return loss.item(), {n: getattr(p, n).grad.cpu() for n in names}, pre
+
+
+def grad_flips(dev, smi: str, repeats: int = 3) -> None:
+    """One diagnosis of the card test's comparison, as a JSON line: the
+    card's loss, gradients and ReLU pre-activations ``repeats`` times in
+    this process (bit-equal or not); the CPU's in this process and in a
+    child pinned to AVX2 (``S.SCAN_CPU_PINS``); for each ReLU the elements
+    whose sign differs between card and CPU, the largest |pre-activation|
+    among them and the largest card-CPU difference of the pre-activations;
+    the worst field's max|Δg|/max|g| against the CPU as it is and against
+    the CPU taking the card's branch at every element."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    gpu = [grad_case("cuda") for _ in range(repeats)]
+    same = all(g[0] == gpu[0][0] and all(torch.equal(g[1][n], gpu[0][1][n]) for n in g[1])
+               and all(torch.equal(a, b) for a, b in zip(g[2], gpu[0][2])) for g in gpu[1:])
+    l_gpu, g_gpu, p_gpu = gpu[0]
+    l_cpu, g_cpu, p_cpu = grad_case("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "pinned.pt")
+        code = _GRAD_CHILD.format(root=os.path.dirname(os.path.abspath(__file__)), out=out)
+        subprocess.run([sys.executable, "-c", code], check=True,
+                       env={**os.environ, **S.SCAN_CPU_PINS})
+        l_pin, g_pin, p_pin = torch.load(out)
+
+    def worst(a, b):
+        errs = {n: float((a[n] - b[n]).abs().max() / b[n].abs().max()) for n in b}
+        n = max(errs, key=errs.get)
+        return n, errs[n]
+
+    relus = []
+    for pg, pc in zip(p_gpu, p_cpu):
+        flip = (pg > 0) != (pc > 0)
+        diff = float((pg - pc).abs().max())
+        at = torch.maximum(pg.abs(), pc.abs())[flip]
+        relus.append({"elements": pg.numel(), "flips": int(flip.sum()), "max_abs_diff": diff,
+                      "max_abs_at_flips": float(at.max()) if at.numel() else 0.0,
+                      "flips_within_diff": bool(at.numel() == 0 or float(at.max()) <= diff),
+                      "near_zero_within_diff": int((pc.abs() <= diff).sum())})
+    branch = grad_case("cpu", branches=[(pg > 0).float() for pg in p_gpu])
+    row = {
+        "card": smi, "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+        "card_repeats_bit_equal": same, "repeats": repeats,
+        "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+        "worst_vs_cpu": worst(g_gpu, g_cpu), "worst_vs_pinned_cpu": worst(g_gpu, g_pin),
+        "cpu_pinned_bit_equal": all(torch.equal(g_cpu[n], g_pin[n]) for n in g_cpu),
+        "relus": relus, "worst_vs_cpu_on_card_branches": worst(g_gpu, branch[1]),
+    }
+    print("grad_flips " + json.dumps(row), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1798,6 +2080,14 @@ def main() -> int:
         k6_forms(dev, smi, [a for a in sys.argv[1:] if a.endswith(".cu")])
     if "k6" in which:
         k6(dev, smi)
+    if "k6_small" in which:
+        k6_small(dev, smi)
+    if "k8_register" in which:
+        k8_register(dev, smi, [int(a) for a in sys.argv[1:] if a.isdigit()] or None)
+    if "k8_register_forms" in which:
+        k8_register_forms(dev, smi)
+    if "grad_flips" in which:
+        grad_flips(dev, smi)
     if "k11_streaming" in which:
         k11_streaming(dev, smi, [a for a in sys.argv[1:] if a.endswith(".cu")])
     return 0

@@ -58,8 +58,11 @@ Phases, each of which raises (exit code 1, no result line) on failure:
    M = 8 and 16 rows; 8 rows x 2584 frames, and shapes whose runs end
    inside a row or that are shorter than the overlap-add ring: 3 and 5
    rows x 37 frames, 1 row x 3 frames), bit-stable; K8 at n_fft 1024,
-   2048, 3072, 5120, 8192 and 16384 too (its mixed-radix form, the sizes
-   JAX's ct2 takes beside UMX's 4096) and 32768, 65536 and 131072 (its
+   2048, 3072, 5120, 8192 and 16384 too (its register form, three passes
+   in registers; the sizes JAX's ct2 takes beside UMX's 4096; each also
+   against float64, bit-stable, and timed in turns with its mixed-radix
+   form and torch.istft, faster than both: hard gates) and 32768, 65536
+   and 131072 (its
    cluster form, a frame and its ring in the shared memory of a cluster of
    2, 4 and 8 blocks, above what one block's holds; bit-equal to its
    device-memory form) on 8 rows of a 60 s segment against its plain
@@ -312,10 +315,12 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     must beat; the wide K5 in its block form (W_hh on the chip, the
     contraction split over a chain's blocks; its fields the plan's, a
     repeat bit-equal) beside its streaming yardstick (K11's streaming sweep
-    with dg rounded to bf16) in turns, which it must beat; K6 at G 18 in its
-    mma_sync form (TMA cannot stride rows of 18 floats) against its plain
-    version (1e-5), bit-stable, timed beside plain, the library sequence
-    and bound.  Then, counts set to 0 just before
+    with dg rounded to bf16) in turns, which it must beat; K6 at hidden 36
+    (G 18, which TMA cannot stride: the Hopper form at the padded width 24)
+    and 48 (G 24), its contraction split into slices, against its plain
+    version (1e-5), bit-stable, in turns with its mma_sync form, the library
+    sequence, the f32 ``torch.bmm`` and the call on pre-rounded operands,
+    faster than the first two (hard gates).  Then, counts set to 0 just before
     and read just after each run: the CLI on phase 19's hidden-1280 model
     and its 20 s cut under ``--lstm-impl pallas_merged`` and ``--stream-impl
     pipelined`` (the wide K1, its block form and not the streaming one), and
@@ -326,8 +331,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
     inputs against plain, 5e-3; corr printed, not gated); hidden 2048 under
     ``pallas`` (K9's chains through the wide K1); ``train_loop`` 2 steps
     under ``"pallas_merged"`` at hidden 1280 (the wide K4/K5, both in their
-    block forms; K6 in its Hopper form) and 36 (padded; K6 in its mma_sync
-    form); and ``umx_forward(compute="bfloat16")`` under ``"scan"`` on
+    block forms; K6 in its Hopper form) and 36 (padded from end to end; K6
+    in its Hopper form with slices, its mma_sync form launched no time);
+    and ``umx_forward(compute="bfloat16")`` under ``"scan"`` on
     the card (K1, never K10) against the CPU at hidden 1280 and 36 (max
     2e-2 and RMS 2e-3 of the peak).  Its figures go under ``"width"``; the
     kernels line gets a row for each new form with its launches there.
@@ -421,14 +427,21 @@ K6_SHAPES = {"umxl_train": (T_TRAIN, R_CHAINS, B_TRAIN, G_HIDDEN),
              "hidden1280": (T_TRAIN, R_CHAINS, B_TRAIN, 640),
              "umxhq_train_umx": (T_TRAIN, R_CHAINS, 4, 256),
              "mesh_cell": (T_TRAIN, 4, 8, G_HIDDEN)}
+# K6 where its tiles alone leave the card nearly empty, its contraction split
+# into slices: the trainer at hidden 36 (G 18, run at the padded width 24)
+# and 48 (G 24, the width of the card's gradient test), T 256, R 8, B 16
+K6_SMALL_SHAPES = {"hidden36": (T_TRAIN, R_CHAINS, B_TRAIN, 18),
+                   "hidden48": (T_TRAIN, R_CHAINS, B_TRAIN, 24)}
 # K8's 4096 form at that shape on an H100 80GB HBM3 at 700 W before the
 # kernel took every n_fft; it may be no slower than this share of it now
 ISTFT_4096_MS, ISTFT_4096_SLACK = 1.4149, 1.05
 # K8 at n_fft beyond UMX's 4096 (JAX's ct2 takes every n_fft with
-# 1024 | n_fft): the mixed-radix form, on 8 rows of a 60 s segment
+# 1024 | n_fft): the register form up to 16384, on 8 rows of a 60 s segment
 ISTFT_SIZES = (1024, 2048, 3072, 5120, 8192, 16384, 32768, 65536, 131072)
 # above 16384 the cluster form must beat torch.istft in the same call here
 ISTFT_GATED_N_FFT = 32768
+# the register form's path in the smoke: the ct2 round trip at this n_fft
+ISTFT_REGISTER_PATH_N_FFT = 2048
 B_TRAIN_WIDE = 32  # a second training batch: two row groups per resident kernel
 
 
@@ -940,9 +953,10 @@ def check_istft_ct(dev, shapes, seed: int):
     return args, worst
 
 
-def cluster_istft_path(dev, counters: dict, smi: str) -> dict:
-    """K8's cluster form on the path a caller runs it by: the ct2 iSTFT at
-    n_fft ``ISTFT_GATED_N_FFT`` (``stft_planes``, then ``istft_planes``
+def istft_round_trip(dev, counters: dict, smi: str, n_fft: int = ISTFT_GATED_N_FFT) -> dict:
+    """K8 on the path a caller runs it by: the ct2 iSTFT at ``n_fft`` (its
+    cluster form at ``ISTFT_GATED_N_FFT``, its register form at
+    ``ISTFT_REGISTER_PATH_N_FFT``; ``stft_planes``, then ``istft_planes``
     with ``istft_algo="ct2"``, the JAX package's DSP functions) on 8 rows
     of a 60 s segment of noise; counts set to 0 just before the inverse and
     read just after; the round trip within 1e-4 of the input's peak."""
@@ -951,7 +965,7 @@ def cluster_istft_path(dev, counters: dict, smi: str) -> dict:
     from umx_tpu_torch.config import DSPConfig
     from umx_tpu_torch.ops.stft import istft_planes, stft_planes
 
-    cfg = DSPConfig(n_fft=ISTFT_GATED_N_FFT, hop=ISTFT_GATED_N_FFT // 4, istft_algo="ct2")
+    cfg = DSPConfig(n_fft=n_fft, hop=n_fft // 4, istft_algo="ct2")
     g = torch.Generator(device=dev).manual_seed(7)
     x = 0.3 * torch.randn((ISTFT_ROWS, SEG), generator=g, device=dev)
     re, im = stft_planes(x, cfg)
@@ -964,23 +978,34 @@ def cluster_istft_path(dev, counters: dict, smi: str) -> dict:
           f"x)|/max|x| {err:.3g}; kernel runs {launches}  [{smi}]")
     require(launches == {"istft_ct2": 1} and err <= 1e-4,
             f"the ct2 round trip at n_fft {cfg.n_fft}: {launches}, {err}")
-    return {"launches": launches["istft_ct2"], "round_trip_rel_err": err}
+    return {"launches": launches["istft_ct2"], "round_trip_rel_err": err,
+            "form": counters["istft_ct2"].form}
 
 
 def check_istft_sizes(dev, smi: str):
-    """Phase 7: K8 at ``ISTFT_SIZES`` (its mixed-radix form: a DFT of
-    n_fft/1024 points, then three radix-8 passes; above 16384 its cluster
-    form, bit-equal to its device-memory form) on 8 rows of a 60 s segment
-    (T = 2646000 / hop + 1 frames), windowed, against its plain version and
-    a float64 CPU reference on 2 rows, bit-stable.  Returns ({n_fft: kernel
-    args}, {n_fft: max|err| vs plain})."""
+    """Phase 7: K8 at ``ISTFT_SIZES`` (up to 16384 its register form,
+    :func:`time_istft_register`: three passes in registers, each held and
+    timed in turns with its mixed-radix yardstick and torch.istft, and
+    faster than both (hard gates); above 16384 its cluster form, bit-equal
+    to its device-memory form) on 8 rows of a 60 s segment (T = 2646000 /
+    hop + 1 frames), windowed, against its plain version and a float64 CPU
+    reference on 2 rows, bit-stable.  Returns ({n_fft: kernel args},
+    {n_fft: max|err| vs plain}, {n_fft: the register form's figures})."""
     import torch
 
     from umx_tpu_torch.ops import istft_ct, istft_ct_cuda
     from umx_tpu_torch.ops.stft import hann_window
 
-    args, errs = {}, {}
+    args, errs, reg = {}, {}, {}
     for n in ISTFT_SIZES:
+        if n <= istft_ct_cuda.SHARED_N_FFT_MAX and istft_ct_cuda.istft_shared_form(n) == "register":
+            row = time_istft_register(dev, n, smi)
+            require(row["ms"] < row["mixed_radix_ms"] and row["ms"] < row["library_ms"],
+                    f"istft_ct2's register form at n_fft {n} ({row['ms']} ms) is not faster than "
+                    f"its mixed-radix form ({row['mixed_radix_ms']} ms) and torch.istft "
+                    f"({row['library_ms']} ms) in turns")
+            args[n], errs[n], reg[n] = row.pop("args"), row["max_abs_err"], row
+            continue
         hop, F = n // 4, n // 2 + 1
         T = SEG // hop + 1
         g = torch.Generator(device=dev).manual_seed(n)
@@ -1005,7 +1030,7 @@ def check_istft_sizes(dev, smi: str):
               f"vs plain {err:.3g}, vs float64 on 2 rows {err64:.3g}; bit-equal to the "
               f"device-memory form {same}; (runs per row, hops per run, radices) {form}  [{smi}]")
         require(err <= 1e-5 and err64 <= 1e-5, f"istft_ct2 at n_fft {n} disagrees: {err}, {err64}")
-        require(form[2] == istft_ct_cuda.istft_radix_plan(n), f"istft_ct2 at n_fft {n}: {form}")
+        require(form[2] == istft_ct_cuda.istft_radices(n), f"istft_ct2 at n_fft {n}: {form}")
         require(same, f"istft_ct2 at n_fft {n}: the cluster form is not the device-memory "
                 "form's bits")
         require(torch.equal(out, istft_ct_cuda.istft_ct2(re, im, n, hop, w)),
@@ -1013,7 +1038,7 @@ def check_istft_sizes(dev, smi: str):
         errs[n] = err
         args[n] = (re, im, n, hop, w)
         del out, plain, f64
-    return args, errs
+    return args, errs, reg
 
 
 @contextlib.contextmanager
@@ -3090,11 +3115,11 @@ def dw_inputs(dev, T, R, B, G, seed):
     return hs, h0, dxp, B
 
 
-def time_dw_at(dev, T, R, B, G, seed, smi: str) -> dict:
+def time_dw_at(dev, T, R, B, G, seed, smi: str, f32_in_turns: bool = False) -> dict:
     """K6 at one shape a path gives it: against its plain version (1e-5 of
     max|ref|) and bit-stable, then timed in turns with the library sequence,
     its mma.sync form and the one call on pre-rounded operands, beside the
-    f32 torch.bmm and its bound."""
+    f32 torch.bmm (``f32_in_turns``: in the turns too) and its bound."""
     import torch
 
     from umx_tpu_torch.ops import lstm_cuda as L
@@ -3127,16 +3152,22 @@ def time_dw_at(dev, T, R, B, G, seed, smi: str) -> dict:
             f"lstm_merged_dw at T {T}, R {R}, B {B}, G {G}: form {form}, max|err|/max|ref| "
             f"{err}, bit-stable {stable}")
     hp, dg = dw_prerounded(*args)
-    t = turns_ms({"ms": lambda: L.lstm_merged_dw(*args),
-                  "library_sequence_ms": lambda: dw_library_sequence(*args),
-                  "mma_sync_ms": lambda: L.lstm_merged_dw(*args, _form="mma_sync"),
-                  "prerounded_bmm_bf16_ms": lambda: torch.bmm(hp, dg, out_dtype=torch.float32)},
-                 10, f"lstm_merged_dw T{T}_R{R}_B{B}_G{G}")
+    fns = {"ms": lambda: L.lstm_merged_dw(*args),
+           "library_sequence_ms": lambda: dw_library_sequence(*args),
+           "mma_sync_ms": lambda: L.lstm_merged_dw(*args, _form="mma_sync"),
+           "prerounded_bmm_bf16_ms": lambda: torch.bmm(hp, dg, out_dtype=torch.float32)}
+    if f32_in_turns:
+        hf, df = hp.float(), dg.float()
+        fns["bmm_f32_ms"] = lambda: torch.bmm(hf, df)
+    t = turns_ms(fns, 10, f"lstm_merged_dw T{T}_R{R}_B{B}_G{G}")
     del hp, dg
-    row = {"form": form, "max_rel_err": err, "float64_rel_err": f64,
-           "library_sequence_rel_err": err_lib, "mma_sync_rel_err": err_mma, **t,
-           "plain_ms": cuda_ms(lambda: L.lstm_merged_dw_plain(*args), 2),
-           "bmm_f32_ms": dw_bmm_ms(*args)}
+    row = {"form": form, "plan": tuple(L.lstm_merged_dw.plan), "max_rel_err": err,
+           "max_abs_err": max_err(dw, ref),
+           "float64_rel_err": f64, "library_sequence_rel_err": err_lib,
+           "mma_sync_rel_err": err_mma, **t,
+           "plain_ms": cuda_ms(lambda: L.lstm_merged_dw_plain(*args), 2)}
+    if not f32_in_turns:
+        row["bmm_f32_ms"] = dw_bmm_ms(*args)
     row["bound_ms"], row["bound_by"] = dw_bound(*args)
     print(f"lstm_merged_dw T {T}, R {R}, B {B}, G {G}: form {form}, max|err|/max|ref| {err:.3g} "
           f"(mma_sync form {err_mma:.3g}); in turns: {t['ms']:.4f} ms, the library sequence "
@@ -3145,6 +3176,66 @@ def time_dw_at(dev, T, R, B, G, seed, smi: str) -> dict:
           f"{t['prerounded_bmm_bf16_ms']:.4f}; plain {row['plain_ms']:.4f}, torch.bmm f32 "
           f"{row['bmm_f32_ms']:.4f}, bound {row['bound_ms']:.4f} ms by {row['bound_by']}  "
           f"[{smi}]", flush=True)
+    return row
+
+
+def time_istft_register(dev, n: int, smi: str) -> dict:
+    """K8's register form at n_fft ``n`` on 8 rows of a 60 s segment (T =
+    2646000 / hop + 1 frames), windowed: against its plain version and a
+    float64 CPU reference on 2 rows (1e-5), bit-stable, its radices the
+    register plan's; then in turns with its mixed-radix yardstick
+    (``_form="mixed_radix"``, held to the same bounds) and torch.istft,
+    beside its plain version and bound."""
+    import torch
+
+    from umx_tpu_torch.ops import istft_ct, istft_ct_cuda as K
+    from umx_tpu_torch.ops.stft import hann_window
+
+    hop, F = n // 4, n // 2 + 1
+    T = SEG // hop + 1
+    g = torch.Generator(device=dev).manual_seed(n)
+    re = torch.randn((ISTFT_ROWS, T, F), generator=g, device=dev)
+    im = torch.randn((ISTFT_ROWS, T, F), generator=g, device=dev)
+    w = hann_window(n, dev)
+    args = (re, im, n, hop, w)
+    out = K.istft_ct2(*args)
+    torch.cuda.synchronize()
+    form = K.istft_ct2.form
+    plain = istft_ct.istft_ct2_plain(*args)
+    err = max_err(out, plain)
+    f64 = istft_ct.istft_ct2_plain(re[:2].cpu().double(), im[:2].cpu().double(), n, hop,
+                                   w.cpu().double())
+    err64 = float((out[:2].cpu().double() - f64).abs().max())
+    mr = K.istft_ct2(*args, _form="mixed_radix")
+    err_mr = max_err(mr, plain)
+    same = torch.equal(out, K.istft_ct2(*args))
+    del f64, mr
+    require(err <= 1e-5 and err64 <= 1e-5 and err_mr <= 1e-5 and same
+            and form[2] == K.istft_register_plan(n),
+            f"istft_ct2's register form at n_fft {n}: max|err| {err} vs plain, {err64} vs "
+            f"float64, mixed-radix form {err_mr}, bit-stable {same}, form {form}")
+    spec = torch.complex(re, im).transpose(-1, -2).contiguous()
+    spec.imag[:, 0] = 0.0
+    spec.imag[:, -1] = 0.0
+    t = turns_ms({"ms": lambda: K.istft_ct2(*args),
+                  "mixed_radix_ms": lambda: K.istft_ct2(*args, _form="mixed_radix"),
+                  "library_ms": lambda: torch.istft(spec, n_fft=n, hop_length=hop, window=w,
+                                                    center=True, normalized=False, onesided=True,
+                                                    length=(T - 1) * hop)},
+                 10, f"istft_ct2 register n_fft {n}")
+    del spec
+    row = {"rows": ISTFT_ROWS, "frames": T, "form": form, "max_abs_err": err,
+           "float64_err": err64, "mixed_radix_err": err_mr, **t, "args": args,
+           "plain_ms": cuda_ms(lambda: istft_ct.istft_ct2_plain(*args), 3),
+           "smem": K.istft_block_layout(dev.index, n)[1]}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2 * ISTFT_ROWS * T * F * 4 + ISTFT_ROWS * ((T - 1) * hop + n) * 4,
+        ISTFT_ROWS * T * (2.5 * n * math.log2(n) + 2 * n), "f32")
+    print(f"istft_ct2 register form at n_fft {n} ({ISTFT_ROWS} rows x {T} frames), radices "
+          f"{form[2]}, runs {form[:2]}: max|err| vs plain {err:.3g}, vs float64 {err64:.3g}; "
+          f"bit-stable; in turns {t['ms']:.4f} ms, mixed-radix form {t['mixed_radix_ms']:.4f}, "
+          f"torch.istft {t['library_ms']:.4f}; plain {row['plain_ms']:.4f}, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}  [{smi}]", flush=True)
     return row
 
 
@@ -4775,8 +4866,8 @@ WIDTH_ROWS = {
                                   "umx_tpu/ops/lstm_pallas.py:397"),
     "lstm_merged_bwd_step_padded": ("lstm_merged_bwd_step", "umx_tpu_torch/csrc/lstm_train.cu",
                                     "umx_tpu/ops/lstm_pallas.py:397"),
-    "lstm_merged_dw_mma_sync": ("lstm_merged_dw", "umx_tpu_torch/csrc/lstm_train.cu",
-                                "umx_tpu/ops/lstm_pallas.py:397"),
+    "lstm_merged_dw_padded": ("lstm_merged_dw", "umx_tpu_torch/csrc/lstm_dw.cu",
+                              "umx_tpu/ops/lstm_pallas.py:397"),
     "lstm_layer_pertarget_padded": ("lstm_layer_pertarget",
                                     "umx_tpu_torch/csrc/lstm_pertarget.cu",
                                     "umx_tpu/ops/lstm_pallas.py:39"),
@@ -4958,28 +5049,28 @@ def width_train_rows(dev, smi: str) -> dict:
                                         **yardstick[key]}
         rows[f"lstm_merged_bwd_step_{suffix}"].update(rel_err=berr, bit_stable=stable)
         if suffix == "padded":
-            # K6 at G 18, where TMA cannot stride the rows: its mma_sync form
-            dw_in = (fwd[0], h0, bwd[0], B)
-            dw = L.lstm_merged_dw(*dw_in)
-            torch.cuda.synchronize()
-            dw_form = L.lstm_merged_dw.form
-            dw_ref = L.lstm_merged_dw_plain(*dw_in)
-            dw_err = rel_err(dw, dw_ref)
-            dw_stable = torch.equal(dw, L.lstm_merged_dw(*dw_in))
-            rows["lstm_merged_dw_mma_sync"] = {
-                "G": G, "form": dw_form, "max_abs_err": max_err(dw, dw_ref), "rel_err": dw_err,
-                "bit_stable": dw_stable, "ms": cuda_ms(lambda: L.lstm_merged_dw(*dw_in), 5),
-                "plain_ms": cuda_ms(lambda: L.lstm_merged_dw_plain(*dw_in), 2),
-                "bound": dw_bound(*dw_in),
-                "library_sequence_ms": cuda_ms(lambda: dw_library_sequence(*dw_in), 5)}
-            r6 = rows["lstm_merged_dw_mma_sync"]
-            print(f"K6 at G {G} (T={T_TRAIN}, R={R_CHAINS}, B={B}): form {dw_form}, "
-                  f"max|err|/max|ref| {dw_err:.3g}, bit-stable {dw_stable}; {r6['ms']:.4f} ms "
-                  f"(plain {r6['plain_ms']:.4f}, the library sequence "
-                  f"{r6['library_sequence_ms']:.4f}, bound {r6['bound'][0]:.4f})  [{smi}]")
-            require(dw_form == ("mma_sync",) and dw_err <= 1e-5 and dw_stable,
-                    f"K6 at G {G}: form {dw_form}, {dw_err}, bit-stable {dw_stable}")
-            del dw, dw_ref, dw_in
+            # K6 at hidden 36 (G 18, where TMA cannot stride the rows: the
+            # Hopper form at the padded width 24, here with the pad and cut
+            # around the call) and 48 (G 24, what the trainer at hidden 36
+            # hands it), its contraction split into slices: each within
+            # 1e-5 of plain, bit-stable, and faster than its mma_sync form
+            # and the library sequence in turns (hard gates)
+            k6 = {name: time_dw_at(dev, *shape, seed=980 + i, smi=smi, f32_in_turns=True)
+                  for i, (name, shape) in enumerate(K6_SMALL_SHAPES.items())}
+            for name, r6 in k6.items():
+                require(r6["plan"][L.DwPlan._fields.index("slices")] > 1 and
+                        r6["ms"] < r6["mma_sync_ms"] and r6["ms"] < r6["library_sequence_ms"],
+                        f"K6 at {name}: plan {r6['plan']}, {r6['ms']} ms in turns against its "
+                        f"mma_sync form's {r6['mma_sync_ms']} and the library sequence's "
+                        f"{r6['library_sequence_ms']}")
+            r6 = k6["hidden36"]
+            rows["lstm_merged_dw_padded"] = {
+                "G": K6_SMALL_SHAPES["hidden36"][3], "form": r6["form"], "plan": r6["plan"],
+                "max_abs_err": r6["max_abs_err"], "rel_err": r6["max_rel_err"], "ms": r6["ms"],
+                "plain_ms": r6["plain_ms"], "bound": (r6["bound_ms"], r6["bound_by"]),
+                "library_ms": r6["bmm_f32_ms"], "library_sequence_ms": r6["library_sequence_ms"],
+                "mma_sync_ms": r6["mma_sync_ms"],
+                "prerounded_bmm_bf16_ms": r6["prerounded_bmm_bf16_ms"], "at_g24": k6["hidden48"]}
         print(f"K4/K5 {suffix} (T={T_TRAIN}, R={R_CHAINS}, B={B}, G={G}): forward max|err| "
               f"{ferr:.3g} (hs/hT/cT K1's bits {k1_bits}), sweep max|err|/max|ref| {berr:.3g}; "
               f"forms {f_form} {b_form}; rows alone bit-equal {alone}; K5 repeat bit-equal "
@@ -5145,12 +5236,15 @@ def width_phase(dev, tmp: str, mix, counters: dict, smi: str) -> dict:
                 f"hidden {hidden}: K4/K5 did not run their block forms: {forms}")
         for k in ("lstm_merged_train_fwd", "lstm_merged_bwd_step"):
             launches_of[f"{k}_{suffix}"] = launches.get(k, 0)
-        # K6 at the layer's own G: the Hopper form at 640, the mma_sync form
-        # at 18 (TMA cannot stride rows of 18 floats)
-        want = "wgmma" if L.dw_form(hidden // 2) == "wgmma" else "mma_sync"
-        require(dw_forms[want] == n, f"hidden {hidden}: K6 by form {dw_forms}, not {n} {want}")
-        if want == "mma_sync":
-            launches_of["lstm_merged_dw_mma_sync"] = dw_forms["mma_sync"]
+        # K6 in its Hopper form at both widths (at 36 on the layer's padded
+        # residuals, G 24, its contraction split into slices); the mma_sync
+        # form is a yardstick only
+        require(dw_forms["wgmma"] == n and dw_forms["mma_sync"] == 0,
+                f"hidden {hidden}: K6 by form {dw_forms}, not {n} wgmma and no mma_sync")
+        if suffix == "padded":
+            plan = L.lstm_merged_dw.plan
+            require(plan.slices > 1, f"hidden {hidden}: K6 ran without slices: {plan}")
+            launches_of["lstm_merged_dw_padded"] = dw_forms["wgmma"]
         fig["train"][suffix] = {"hidden": hidden, "losses": list(map(float, hist)), "s": wall,
                                 "launches": launches, "forms": forms, "k6_by_form": dw_forms}
 
@@ -5253,7 +5347,7 @@ def main() -> int:
     ola_args, ola_err = check_ola(dev)
     istft8_args, istft_err = check_istft_ct(
         dev, [(ISTFT_ROWS, T_SEG), (3, 37), (5, 37), (1, 3)], seed=4)
-    istft_size_args, istft_size_errs = check_istft_sizes(dev, smi)
+    istft_size_args, istft_size_errs, istft_reg = check_istft_sizes(dev, smi)
     istft_err = max(istft_err, *(e for n, e in istft_size_errs.items() if n <= 16384))
     phase_done("2, 7 K1, K7, K8 kernels")
 
@@ -5513,6 +5607,14 @@ def main() -> int:
                        "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1],
                        "form": form, "where": where}
         line = ""
+        if n in istft_reg:
+            # the register form, timed in turns in phase 7
+            r = istft_reg[n]
+            k8_sizes[n].update(where="register", ms_in_turns=r["ms"],
+                               mixed_radix_ms=r["mixed_radix_ms"],
+                               library_ms_in_turns=r["library_ms"])
+            line = (f", in turns (phase 7) {r['ms']:.4f} ms, mixed-radix form "
+                    f"{r['mixed_radix_ms']:.4f}, torch.istft {r['library_ms']:.4f}")
         if where == "cluster":
             # the device-memory form it replaces there, in turns with it
             dev_ms, ms2 = paired_ms(lambda: istft_ct_cuda.istft_ct2(*a, _form="device"),
@@ -5532,7 +5634,11 @@ def main() -> int:
             require(ms < lib_ms, f"istft_ct2 at n_fft {n} ({ms} ms) is not faster than "
                     f"torch.istft ({lib_ms} ms)")
         del spec
-    cluster_path = cluster_istft_path(dev, counters, smi)
+    cluster_path = istft_round_trip(dev, counters, smi)
+    register_path = istft_round_trip(dev, counters, smi, ISTFT_REGISTER_PATH_N_FFT)
+    require(register_path["form"][2] == istft_ct_cuda.istft_register_plan(
+        ISTFT_REGISTER_PATH_N_FFT), f"the ct2 round trip at n_fft {ISTFT_REGISTER_PATH_N_FFT} "
+            f"did not run the register form: {register_path['form']}")
     istft8 = (ISTFT_ROWS, T_SEG)
     if istft8 in istft_args and istft8 != k8_shape:
         k8 = (cuda_ms(lambda: istft_ct_cuda.istft_ct2(*istft_args[istft8]), 10),
@@ -5734,9 +5840,10 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                        "bound_by": r["bound"][1], "library_ms": None, "form": r["form"],
-                        **{k: r[k] for k in ("streaming_ms", "ms_in_turns", "library_sequence_ms")
-                           if k in r}})
+                        "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+                        "form": r["form"],
+                        **{k: r[k] for k in ("streaming_ms", "ms_in_turns", "library_sequence_ms",
+                                             "mma_sync_ms", "plan", "at_g24") if k in r}})
     next(k for k in kernels if k["name"] == "ola_normalized")["library_ms_m16"] = ola_call_ms[16]
     k8_row = next(k for k in kernels if k["name"] == "istft_ct2")
     k8_row["n_fft"] = 4096
@@ -5754,6 +5861,23 @@ def main() -> int:
                     "device_ms": k8c["device_ms"], "n_fft": ISTFT_GATED_N_FFT,
                     "cluster": k8c["cluster"], "form": k8c["form"],
                     "round_trip_rel_err": cluster_path["round_trip_rel_err"]})
+    # K8's register form (n_fft = 1024 k up to 16384 but 4096): its row at
+    # the round trip's n_fft, its launches there, every size's figures beside
+    kr = k8_sizes[ISTFT_REGISTER_PATH_N_FFT]
+    kernels.append({"name": "istft_ct2_register", "route": "cuda",
+                    "source": "umx_tpu_torch/csrc/istft_ct.cu",
+                    "replaces": "umx_tpu/ops/istft_ct.py:270",
+                    "launches": register_path["launches"],
+                    "max_abs_err": max(istft_size_errs[n] for n in istft_reg),
+                    "ms": kr["ms_in_turns"], "plain_ms": kr["plain_ms"],
+                    "bound_ms": kr["bound_ms"], "bound_by": kr["bound_by"],
+                    "library_ms": kr["library_ms_in_turns"], "mixed_radix_ms": kr["mixed_radix_ms"],
+                    "n_fft": ISTFT_REGISTER_PATH_N_FFT, "form": kr["form"],
+                    "round_trip_rel_err": register_path["round_trip_rel_err"],
+                    "by_n_fft": {n: {k: r[k] for k in ("ms", "mixed_radix_ms", "library_ms",
+                                                        "plain_ms", "bound_ms", "max_abs_err",
+                                                        "float64_err", "form")}
+                                 for n, r in istft_reg.items()}})
     k10_row = next(k for k in kernels if k["name"] == "lstm_scan")
     k10_row["streaming_ms"] = scan["shapes"]["G512_B1"]["forms"]["streaming"]["ms"]
     k10_row["by_shape_ms"] = {key: {f: v["ms"] for f, v in row["forms"].items()}

@@ -520,3 +520,202 @@ def test_cluster_pass_twiddles_are_the_tables_entries(n_fft):
             off += 2 * (R - 1) * ns
         ns *= R
     assert off == ptw.size
+
+
+# --- the register form (n_fft = 1024 k up to 16384 but 4096), mirrored ------
+# csrc/istft_ct.cu's istft_ct2_reg_kernel: three passes R1 x R2 x R3 with
+# the 4096 form's index maps (k = R2 R3 k1 + R3 k2 + k3, n = n1 + R1 n2 +
+# R1 R2 n3), its in-register transforms (dft_nat: a factor 3, 5 or 7, or
+# 2 at 32, split off by Cooley-Tukey with constant twiddles), pass 1's
+# twiddles from register_twiddles, pass 2's from the table at 2 R1 n2 k3,
+# and the pieces and pairs each pass-3 column goes to.
+
+SIX_SIZES = (1024, 2048, 3072, 5120, 8192, 16384)
+
+
+def test_register_plans_multiply_to_half_n_fft_and_fit_the_block():
+    """Every plan: R1 R2 R3 = n_fft / 2; R3 8 or 16 (a column keeps whole
+    pieces); R2 R3 threads, whole warps, R3 | R2 R3 (pass 2's k3 is tid %
+    R3); at most 32 complex points a thread in a pass (R1 <= 32, R2 and
+    R3 <= 16: passes 2 and 3 take their butterflies one at a time); R1 a
+    radix dft_nat splits into 2, 3, 5 or 7 times 4, 8 or 16; the block's
+    shared memory within what a block may ask for; the odd k from 9 run
+    the mixed-radix form, 4096 its own."""
+    for k in range(1, 17):
+        n = 1024 * k
+        plan = istft_ct_cuda.istft_register_plan(n)
+        form = istft_ct_cuda.istft_shared_form(n)
+        if n == 4096:
+            assert plan is None and form == "hand"
+            continue
+        if plan is None:
+            assert k % 2 == 1 and k >= 9 and form == "mixed_radix"
+            continue
+        assert form == "register"
+        R1, R2, R3 = plan
+        assert R1 * R2 * R3 == n // 2
+        assert R3 in (8, 16) and R2 in (8, 16) and R1 <= 32
+        th, lda, ldb, smem = istft_ct_cuda.istft_register_layout(n)
+        assert th == R2 * R3 and th % 32 == 0 and th % R3 == 0 and th <= 1024
+        assert lda >= th and ldb >= R1 * R2
+        assert smem <= istft_ct_cuda.BLOCK_SMEM_MAX
+        if R1 not in (2, 4, 8, 16):
+            B = 16 if R1 % 16 == 0 else 8 if R1 % 8 == 0 else 4 if R1 % 4 == 0 else 2
+            assert R1 // B in (2, 3, 5, 7)
+    assert all(istft_ct_cuda.istft_shared_form(n) == "register" for n in SIX_SIZES if n != 4096)
+    with pytest.raises(ValueError, match="above the shared-memory forms"):
+        istft_ct_cuda.istft_shared_form(17408)
+
+
+def _reg_dft(x):
+    """dft_nat on the first axis: y[n] = sum_m x[m] e^(2 pi i n m / R),
+    natural order; the composite radices as the kernel splits them."""
+    R = x.shape[0]
+    if R in (1, 2, 4, 8, 16):
+        w = np.exp(2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R).astype(x.dtype)
+        return np.tensordot(w, x, axes=(1, 0))
+    if R in (3, 5, 7):  # dft_odd's symmetric sums
+        H = (R - 1) // 2
+        y = np.empty_like(x)
+        y[0] = x.sum(0)
+        for n in range(1, H + 1):
+            m = range(1, H + 1)
+            a = x[0] + sum(np.cos(2 * np.pi * n * q / R) * (x[q] + x[R - q]) for q in m)
+            b = sum(np.sin(2 * np.pi * n * q / R) * (x[q] - x[R - q]) for q in m)
+            y[n], y[R - n] = a + 1j * b, a - 1j * b
+        return y
+    B = 16 if R % 16 == 0 else 8 if R % 8 == 0 else 4 if R % 4 == 0 else 2
+    A = R // B
+    t = np.empty_like(x)
+    for m2 in range(B):
+        u = _reg_dft(x[[B * m1 + m2 for m1 in range(A)]])
+        for n1 in range(A):
+            t[n1 * B + m2] = u[n1] * np.exp(2j * np.pi * ((n1 * m2) % R) / R)
+    y = np.empty_like(x)
+    for n1 in range(A):
+        v = _reg_dft(t[n1 * B:(n1 + 1) * B])
+        for n2 in range(B):
+            y[n1 + A * n2] = v[n2]
+    return y
+
+
+@pytest.mark.parametrize("R", [2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 20, 24, 28, 32, 40])
+def test_register_transforms_are_the_dft(R):
+    x = np.random.default_rng(R).standard_normal((R, 3)) + 0j
+    w = np.exp(2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+    np.testing.assert_allclose(_reg_dft(x), w @ x, rtol=0, atol=1e-12)
+
+
+def _register_frames(re, im, n_fft, dtype=complex):
+    """Frames (T, n_fft) (window and 1/N not applied) as istft_ct2_reg_kernel
+    computes them, every frame at once; ``dtype`` complex64 runs the passes
+    in float32 with the table's float32 entries."""
+    R1, R2, R3 = istft_ct_cuda.istft_register_plan(n_fft)
+    M, th = n_fft // 2, R2 * R3
+    rdt = np.float32 if dtype == np.complex64 else np.float64
+    if dtype == np.complex64:
+        tab = istft_ct_cuda._table_np(n_fft)
+        table = (tab[0] + 1j * tab[1]).astype(dtype)
+        tw = istft_ct_cuda.register_twiddles(n_fft).reshape(2, R1 - 1, th)
+    else:
+        table = np.exp(2j * np.pi * np.arange(n_fft) / n_fft)
+        idx = (2 * np.arange(1, R1)[:, None] * np.arange(th)[None]) % n_fft
+        tw = np.stack([np.cos(2 * np.pi * idx / n_fft), np.sin(2 * np.pi * idx / n_fft)])
+    tw1 = (tw[0] + 1j * tw[1]).astype(dtype)  # (R1 - 1, th): entry (n1 - 1, j)
+    re, im = re.astype(rdt), im.astype(rdt)
+    T = re.shape[0]
+    # pass 1: thread j reads bins k = th k1 + j and their mirrors
+    j = np.arange(th)
+    k = th * np.arange(R1)[:, None] + j[None]  # (R1, th)
+    zero = (k == 0)
+    x = re[:, k] + 1j * np.where(zero, 0, im[:, k])
+    xm = re[:, M - k] - 1j * np.where(zero, 0, im[:, M - k])  # conj X[N/2 - k]
+    z = ((x + xm) + 1j * table[k] * (x - xm)).astype(dtype)  # (T, R1, th)
+    A = np.moveaxis(_reg_dft(np.moveaxis(z, 1, 0)), 0, 1).astype(dtype)  # A[t, n1, j]
+    A[:, 1:] *= tw1
+    # pass 2: butterfly b2 = (n1, k3) reads A[n1][R3 k2 + k3]
+    b2 = np.arange(R1 * R3)
+    n1, k3 = b2 // R3, b2 % R3
+    y = np.stack([A[:, n1, R3 * k2 + k3] for k2 in range(R2)])  # (R2, T, b2)
+    y = _reg_dft(y).astype(dtype)
+    y *= np.stack([table[2 * R1 * n2 * k3] for n2 in range(R2)])[:, None]
+    B = np.empty((T, R3, R1 * R2), dtype)
+    for n2 in range(R2):
+        B[:, k3, R1 * n2 + n1] = y[n2]
+    # pass 3: column c over k3 -> z[c + R1 R2 n3]: piece n3 // Q3, pair
+    # c + (M / R3) (n3 % Q3)
+    yz = _reg_dft(np.moveaxis(B, 1, 0)).astype(dtype)  # (R3, T, c)
+    q3, pairs = R3 // 4, M // 4
+    frames = np.empty((T, n_fft), rdt)
+    owners = np.zeros(n_fft, int)
+    c = np.arange(R1 * R2)
+    for n3 in range(R3):
+        p, q = n3 // q3, c + (M // R3) * (n3 % q3)
+        n = p * pairs + q
+        assert (n == c + R1 * R2 * n3).all()  # the sample pair z[n] is
+        frames[:, 2 * n], frames[:, 2 * n + 1] = yz[n3].real, yz[n3].imag
+        owners[2 * n] += 1
+        owners[2 * n + 1] += 1
+    assert (owners == 1).all()  # every sample of a frame has one owner
+    return frames
+
+
+@pytest.mark.parametrize("n_fft", sorted(istft_ct_cuda.REGISTER_PLANS))
+def test_register_mirror_is_the_windowed_inverse_real_dft(n_fft):
+    rng = np.random.default_rng(n_fft + 1)
+    re, im = rng.standard_normal((2, n_fft // 2 + 1)), rng.standard_normal((2, n_fft // 2 + 1))
+    spec = re + 1j * im
+    spec[:, 0], spec[:, -1] = spec[:, 0].real, spec[:, -1].real
+    got = _register_frames(re, im, n_fft) / n_fft
+    np.testing.assert_allclose(got, np.fft.irfft(spec, n_fft), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n_fft", SIX_SIZES)
+def test_register_order_in_float32_matches_plain_and_jax(n_fft):
+    """The passes in float32 with the table's float32 twiddles, windowed
+    (1/N folded into the window as the kernel does) and overlap-added
+    through the kernel's ring walk: within 1e-5 of the plain version and of
+    JAX's ``istft_ct2_fused`` (interpret mode), 6 frames, 2 rows."""
+    hop, T, rows = n_fft // 4, 6, 2
+    re, im = _planes(T, (rows,), n_bins=n_fft // 2 + 1, seed=n_fft + 2)
+    win = t_stft.hann_window(n_fft, "cpu")
+    w = (win.numpy() * np.float32(1.0 / n_fft)).astype(np.float32)
+    frames = np.stack([_register_frames(re[r], im[r], n_fft, np.complex64) for r in range(rows)])
+    got = _ring_walk((frames * w).astype(np.float32), hop, 396)
+    plain = istft_ct.istft_ct2_plain(torch.from_numpy(re), torch.from_numpy(im), n_fft, hop,
+                                     win).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=CT_ATOL)
+    ref = j_istft_ct.istft_ct2_fused(jnp.asarray(re), jnp.asarray(im), n_fft, hop,
+                                     window=j_stft.hann_window(n_fft), kf=4, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=CT_ATOL)
+
+
+@pytest.mark.parametrize("n_fft", sorted(istft_ct_cuda.REGISTER_PLANS))
+def test_register_exchanges_are_free_of_bank_conflicts(n_fft):
+    """A warp's accesses to A and B each touch 32 different banks, and its
+    ring entries (float2) are 32 neighbouring pairs, as in the 4096 form."""
+    R1, R2, R3 = istft_ct_cuda.istft_register_plan(n_fft)
+    th, lda, ldb, _ = istft_ct_cuda.istft_register_layout(n_fft)
+    M = n_fft // 2
+    checked = 0
+    for warp in range(th // 32):
+        tid = np.arange(32) + 32 * warp
+        for n1 in range(R1):
+            assert len(set(((n1 * lda + tid) % 32).tolist())) == 32  # pass 1 writes A
+        for e in range(-(-(R1 * R3) // th)):
+            b2 = tid + th * e
+            b2 = b2[b2 < R1 * R3]
+            n1, k3 = b2 // R3, b2 % R3
+            for x in range(max(R2, 1)):
+                assert len(set(((n1 * lda + R3 * x + k3) % 32).tolist())) == b2.size  # reads A
+                assert len(set(((k3 * ldb + R1 * x + n1) % 32).tolist())) == b2.size  # writes B
+                checked += 1
+        for e in range(-(-(R1 * R2) // th)):
+            c = tid + th * e
+            c = c[c < R1 * R2]
+            for k3 in range(R3):
+                assert len(set(((k3 * ldb + c) % 32).tolist())) == c.size  # pass 3 reads B
+            for m in range(R3 // 4):
+                q = c + (M // R3) * m
+                assert (np.diff(q) == 1).all()  # ring pairs: 256 contiguous bytes
+    assert checked

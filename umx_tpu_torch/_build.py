@@ -74,8 +74,10 @@ _SIGNATURES = {
     "umx_lstm_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # bn, clusters (out), smem (out)
     "umx_lstm_dw_capacity": [_I, _P, _P],
-    # hs, h0, dxp, dw, T, R, B, G, bn, bp, tb, nbc, stages, stream
-    "umx_lstm_dw_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # hs, h0, dxp, dw, parts, padded, T, R, B, G, Gp, bn, bp, tb, nbc, stages, slices,
+    # per_slice, stream
+    "umx_lstm_dw_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # mode, mask_bf16, a_re, a_im, masks, inv_ma, racc, T, F, stream
     "umx_wiener_reduce": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # mode, mask_bf16, out_bf16, xre, xim, m_or_yre, yim, racc, inv_ma, yre_out, yim_out, T, F,
@@ -92,6 +94,10 @@ _SIGNATURES = {
     # re, im, table, window, out, scratch, rows, T, F, N, hop, runs_per_row, hops_per_run,
     # grid, stream
     "umx_istft_ct2_big": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # n_fft, blocks (out), smem (out)
+    "umx_istft_ct2_reg_capacity": [_I, _P, _P],
+    # re, im, table, tw1, window, out, rows, T, F, N, hop, runs_per_row, hops_per_run, stream
+    "umx_istft_ct2_reg": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # n_fft, cluster, clusters (out), smem (out)
     "umx_istft_ct2_cluster_capacity": [_I, _I, _P, _P],
     # re, im, table, ptw, window, out, rows, T, F, N, hop, cluster, runs_per_row, hops_per_run,

@@ -8,10 +8,13 @@
 // from the one-sided bins X[0..N/2] (the imaginary parts of DC and Nyquist
 // drop out), and overlap-adds the frames at hop N/4 into the row's signal.
 // Takes every N = 1024 K, as the JAX function takes every N with 1024 | N:
-// N = 4096, UMX's transform, in the hand-scheduled form below; every other
-// N up to 16384 in the mixed-radix form after it; N above 16384 up to
-// 232448 (K 227) in the cluster form, a frame and its ring in the shared
-// memory of a thread-block cluster; above, in the device-memory form.
+// N = 4096, UMX's transform, in the hand-scheduled form below; the other N
+// up to 16384 in the register form, its scheme for three passes of other
+// radices (K = 1, 2, 3, 5, 6, 7, 8, 10, 12, 14, 16), or in the mixed-radix
+// form (odd K from 9, and by name as the register form's yardstick); N
+// above 16384 up to 232448 (K 227) in the cluster form, a frame and its
+// ring in the shared memory of a thread-block cluster; above, in the
+// device-memory form.
 //
 // What bounds it on the H100: 16.4 KB of spectrum read and 4 KB of signal
 // written per frame put the device-memory bound at 0.76 ms for 48 rows of
@@ -652,6 +655,375 @@ __device__ __forceinline__ float2 window_pair(const float* window, int n, float 
              : make_float2(inv_n, inv_n);
 }
 
+// ---- the register form: the 4096 form's scheme at other N up to 16384 ----
+//
+// The N/2 = M point complex inverse in three passes of radices R1 x R2 x R3
+// = M (ops/istft_ct_cuda.py:istft_register_plan), with k = R2 R3 k1 + R3 k2
+// + k3 and n = n1 + R1 n2 + R1 R2 n3, as istft_ct2_kernel does at 16 x 16
+// x 8: a block of TH = R2 R3 threads holds a frame.  Pass 1: thread j = R3
+// k2 + k3 reads its R1 bins (and their mirrors) from device memory,
+// coalesced, unpacks the Hermitian form, takes the R1-point transform in
+// registers, turns output n1 by e^{2 pi i n1 j / M} and writes A[n1][j].
+// Pass 2: butterfly (n1, k3) transforms A[n1][R3 k2 + k3] over k2, turns
+// output n2 by e^{2 pi i n2 k3 / (R2 R3)} and writes B[k3][R1 n2 + n1].
+// Pass 3: butterfly c = R1 n2 + n1 transforms B[k3][c] over k3: z[c + R1 R2
+// n3], sample pair c + R1 R2 n3 of the frame, windowed into the ring as the
+// other forms do (a thread owns its pairs of every hop: the same sums in
+// the same order).  A and B are separate, so a frame takes two barriers.
+// Radices 8 and 16 are the 4096 form's radix-4 steps; a factor 3, 5 or 7 of
+// K is folded into pass 1 (12 = 3 x 4, 10 = 5 x 2, 28 = 7 x 4, ...) or, at
+// 32 = 2 x 16, one more step, each a Cooley-Tukey split in registers whose
+// twiddles are compile-time constants (a float64 series rounded once to
+// float32, as the table's entries are).  The passes' twiddles are the
+// table's entries: pass 2's depend on k3 = tid % R3 alone and stay in
+// registers, pass 1's come from a copy of the table laid out [n1][j]
+// (`tw1`, coalesced; in registers up to R1 16).  Rows of A and B are padded
+// (LDA = R3, LDB = 32 / R3 mod 32) so that no warp's access conflicts.
+// Shared memory ~24 M bytes: A and B (8 M each) and the ring (8 M).
+
+constexpr double kPi = 3.14159265358979323846;
+
+// sin x and cos x for |x| <= pi, by their series in float64
+__host__ __device__ constexpr double cx_sin(double x) {
+  double term = x, sum = x;
+  for (int k = 1; k < 32; ++k) {
+    term *= -x * x / ((2.0 * k) * (2.0 * k + 1.0));
+    sum += term;
+  }
+  return sum;
+}
+__host__ __device__ constexpr double cx_cos(double x) {
+  double term = 1.0, sum = 1.0;
+  for (int k = 1; k < 32; ++k) {
+    term *= -x * x / ((2.0 * k - 1.0) * (2.0 * k));
+    sum += term;
+  }
+  return sum;
+}
+
+// e^{2 pi i m / R} for m < R, rounded once to float32
+template <int R>
+struct Roots {
+  float c[R], s[R];
+  __host__ __device__ constexpr Roots() : c(), s() {
+    for (int m = 0; m < R; ++m) {
+      double x = 2.0 * kPi * m / R;
+      if (x > kPi) x -= 2.0 * kPi;
+      c[m] = (float)cx_cos(x);
+      s[m] = (float)cx_sin(x);
+    }
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void dft_nat(float (&r)[R], float (&i)[R]);
+
+// y[n] = sum_m x[m] e^{2 pi i n m / P}, P = 3, 5, 7: the symmetric direct sum
+template <int P>
+__device__ __forceinline__ void dft_odd(float (&r)[P], float (&i)[P]) {
+  constexpr Roots<P> w{};
+  constexpr int H = (P - 1) / 2;
+  float sr[H + 1], si[H + 1], dr[H + 1], di[H + 1];
+  float y0r = r[0], y0i = i[0];
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    sr[m] = r[m] + r[P - m];
+    si[m] = i[m] + i[P - m];
+    dr[m] = r[m] - r[P - m];
+    di[m] = i[m] - i[P - m];
+    y0r += sr[m];
+    y0i += si[m];
+  }
+  float yr[P], yi[P];
+  yr[0] = y0r;
+  yi[0] = y0i;
+#pragma unroll
+  for (int n = 1; n <= H; ++n) {
+    float ar = r[0], ai = i[0], br = 0.0f, bi = 0.0f;
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      const int q = (n * m) % P;
+      ar += w.c[q] * sr[m];
+      ai += w.c[q] * si[m];
+      br += w.s[q] * dr[m];
+      bi += w.s[q] * di[m];
+    }
+    // y_n = a + i b, y_{P-n} = a - i b
+    yr[n] = ar - bi;
+    yi[n] = ai + br;
+    yr[P - n] = ar + bi;
+    yi[P - n] = ai - br;
+  }
+#pragma unroll
+  for (int n = 0; n < P; ++n) {
+    r[n] = yr[n];
+    i[n] = yi[n];
+  }
+}
+
+// R = A B (B = 16, 8, 4 or 2, the largest that divides R): input m = B m1 +
+// m2, output n = n1 + A n2; A-point transforms over m1, the twiddles
+// e^{2 pi i n1 m2 / R}, then B-point transforms over m2
+template <int R>
+__device__ __forceinline__ void dft_ct(float (&r)[R], float (&i)[R]) {
+  constexpr int B = R % 16 == 0 ? 16 : R % 8 == 0 ? 8 : R % 4 == 0 ? 4 : 2;
+  constexpr int A = R / B;
+  static_assert(A == 2 || A == 3 || A == 5 || A == 7, "a radix of the register form");
+  constexpr Roots<R> w{};
+  float tr[R], ti[R];
+#pragma unroll
+  for (int m2 = 0; m2 < B; ++m2) {
+    float ur[A], ui[A];
+#pragma unroll
+    for (int m1 = 0; m1 < A; ++m1) {
+      ur[m1] = r[B * m1 + m2];
+      ui[m1] = i[B * m1 + m2];
+    }
+    dft_nat<A>(ur, ui);
+#pragma unroll
+    for (int n1 = 0; n1 < A; ++n1) {
+      float vr = ur[n1], vi = ui[n1];
+      const int q = (n1 * m2) % R;
+      if (q != 0) cmul(vr, vi, w.c[q], w.s[q]);
+      tr[n1 * B + m2] = vr;
+      ti[n1 * B + m2] = vi;
+    }
+  }
+#pragma unroll
+  for (int n1 = 0; n1 < A; ++n1) {
+    float ur[B], ui[B];
+#pragma unroll
+    for (int m2 = 0; m2 < B; ++m2) {
+      ur[m2] = tr[n1 * B + m2];
+      ui[m2] = ti[n1 * B + m2];
+    }
+    dft_nat<B>(ur, ui);
+#pragma unroll
+    for (int n2 = 0; n2 < B; ++n2) {
+      r[n1 + A * n2] = ur[n2];
+      i[n1 + A * n2] = ui[n2];
+    }
+  }
+}
+
+// y[n] = sum_m x[m] e^{2 pi i n m / R} in registers, natural order in and out
+template <int R>
+__device__ __forceinline__ void dft_nat(float (&r)[R], float (&i)[R]) {
+  if constexpr (R == 1) {
+    return;
+  } else if constexpr (R == 2) {
+    const float ar = r[0], ai = i[0];
+    r[0] = ar + r[1];
+    i[0] = ai + i[1];
+    r[1] = ar - r[1];
+    i[1] = ai - i[1];
+  } else if constexpr (R == 4) {
+    dft4(r[0], i[0], r[1], i[1], r[2], i[2], r[3], i[3]);
+  } else if constexpr (R == 8 || R == 16) {
+    if constexpr (R == 8) {
+      dft8(r, i);
+    } else {
+      dft16(r, i);
+    }
+    // dft8 leaves output n in slot 2 (n % 4) + n / 4, dft16 in 4 (n % 4) + n / 4
+    float sr[R], si[R];
+#pragma unroll
+    for (int n = 0; n < R; ++n) {
+      sr[n] = r[n];
+      si[n] = i[n];
+    }
+#pragma unroll
+    for (int n = 0; n < R; ++n) {
+      r[n] = sr[(R / 4) * (n & 3) + (n >> 2)];
+      i[n] = si[(R / 4) * (n & 3) + (n >> 2)];
+    }
+  } else if constexpr (R == 3 || R == 5 || R == 7) {
+    dft_odd<R>(r, i);
+  } else {
+    dft_ct<R>(r, i);
+  }
+}
+
+template <int R1, int R2, int R3>
+struct RegPlan {
+  static constexpr int M = R1 * R2 * R3, N = 2 * M, HP = N / 4, F = M + 1;
+  static constexpr int TH = R2 * R3;  // threads: one pass-1 butterfly each
+  static constexpr int PAIRS = M / 4;  // sample pairs a hop
+  static constexpr int COLS = R1 * R2;  // pass-3 butterflies
+  static constexpr int LDA = TH + (R3 - TH % 32 + 32) % 32;  // = R3 (mod 32)
+  static constexpr int LDB = COLS + (32 / R3 - COLS % 32 + 32) % 32;  // = 32 / R3 (mod 32)
+  static constexpr int BPT2 = (R1 * R3 + TH - 1) / TH;  // pass-2 butterflies a thread
+  static constexpr int BPT3 = (COLS + TH - 1) / TH;  // pass-3 butterflies a thread
+  static constexpr int Q3 = R3 / 4;  // outputs n3 of a piece
+  static constexpr bool TW1_REGS = R1 <= 16;
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * R1 * LDA + 2 * R3 * LDB) + sizeof(float2) * RING * PAIRS;
+  static_assert(R3 == 8 || R3 == 16, "pass 3 leaves whole pieces to a thread");
+  static_assert(TH % 32 == 0 && TH % R3 == 0, "whole warps; k3 = tid % R3");
+};
+
+// As istft_ct2_kernel, at N = 2 R1 R2 R3.  tw1: (cos, sin) x (R1 - 1) x TH,
+// entry (n1 - 1, j) the table's entry 2 n1 j mod N.
+template <int R1, int R2, int R3>
+__global__ void __launch_bounds__(R2 * R3)
+istft_ct2_reg_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                     const float* __restrict__ table, const float* __restrict__ tw1,
+                     const float* __restrict__ window, float* __restrict__ out, int T,
+                     int runs_per_row, int hops_per_run) {
+  using P = RegPlan<R1, R2, R3>;
+  constexpr int M = P::M, N = P::N, HP = P::HP, F = P::F, TH = P::TH, PAIRS = P::PAIRS;
+  constexpr int LDA = P::LDA, LDB = P::LDB, COLS = P::COLS;
+  extern __shared__ __align__(16) float sm[];
+  float* sAr = sm;
+  float* sAi = sAr + R1 * LDA;
+  float* sBr = sAi + R1 * LDA;
+  float* sBi = sBr + R3 * LDB;
+  float2* ring = reinterpret_cast<float2*>(sBi + R3 * LDB);  // (RING, PAIRS)
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / runs_per_row;
+  const int hops = T + RING - 1;
+  const int a = (blockIdx.x % runs_per_row) * hops_per_run;
+  const int b = min(a + hops_per_run, hops);
+  if (a >= b) return;
+  const int t_hi = min(b - 1, T - 1);
+  const int t_lo = max(a - (RING - 1), 0);
+  float* out_r = out + (size_t)row * hops * HP;
+  const float inv_n = 1.0f / (float)N;  // the transform's 1 / N, folded into the window
+
+  // pass 2's twiddles (k3 = tid % R3 for every butterfly of the thread)
+  float t2c[R2], t2s[R2];
+#pragma unroll
+  for (int n2 = 0; n2 < R2; ++n2) {
+    const int p = 2 * R1 * n2 * (tid % R3);  // < N
+    t2c[n2] = __ldg(table + p);
+    t2s[n2] = __ldg(table + N + p);
+  }
+  float t1c[P::TW1_REGS ? R1 : 1], t1s[P::TW1_REGS ? R1 : 1];
+  if constexpr (P::TW1_REGS) {
+#pragma unroll
+    for (int n1 = 1; n1 < R1; ++n1) {
+      t1c[n1] = __ldg(tw1 + (n1 - 1) * TH + tid);
+      t1s[n1] = __ldg(tw1 + (R1 - 1 + n1 - 1) * TH + tid);
+    }
+  }
+  // ring pair q = c + (M / R3) m of every hop is this thread's, c = tid + TH e
+#pragma unroll
+  for (int e = 0; e < P::BPT3; ++e) {
+    const int c = tid + TH * e;
+    if (COLS % TH == 0 || c < COLS) {
+#pragma unroll
+      for (int m = 0; m < P::Q3; ++m)
+#pragma unroll
+        for (int p = 0; p < RING; ++p) ring[p * PAIRS + c + (M / R3) * m] = make_float2(0.0f, 0.0f);
+    }
+  }
+
+  for (int t = t_hi; t >= t_lo; --t) {
+    const float* xr = re + ((size_t)row * T + t) * F;
+    const float* xi = im + ((size_t)row * T + t) * F;
+
+    // pass 1: unpack Z[TH k1 + tid], transform over k1, twiddle, A[n1][tid]
+    {
+      float zr[R1], zi[R1];
+#pragma unroll
+      for (int k1 = 0; k1 < R1; ++k1) {
+        const int k = TH * k1 + tid;
+        const float ar = xr[k], cr = xr[M - k];
+        float ai = xi[k], ci = xi[M - k];
+        if (k == 0) ai = ci = 0.0f;  // DC's and Nyquist's imaginary parts drop out
+        const float cs = __ldg(table + k), sn = __ldg(table + N + k);
+        const float dr = ar - cr, di = ai + ci;
+        zr[k1] = (ar + cr) - (dr * sn + di * cs);
+        zi[k1] = (ai - ci) + (dr * cs - di * sn);
+      }
+      dft_nat<R1>(zr, zi);
+#pragma unroll
+      for (int n1 = 0; n1 < R1; ++n1) {
+        float vr = zr[n1], vi = zi[n1];
+        if (n1 > 0) {
+          if constexpr (P::TW1_REGS) {
+            cmul(vr, vi, t1c[n1], t1s[n1]);
+          } else {
+            cmul(vr, vi, __ldg(tw1 + (n1 - 1) * TH + tid),
+                 __ldg(tw1 + (R1 - 1 + n1 - 1) * TH + tid));
+          }
+        }
+        sAr[n1 * LDA + tid] = vr;
+        sAi[n1 * LDA + tid] = vi;
+      }
+    }
+    __syncthreads();
+
+    // pass 2: butterfly (n1, k3) = (b2 / R3, b2 % R3) over k2, B[k3][R1 n2 + n1]
+#pragma unroll
+    for (int e = 0; e < P::BPT2; ++e) {
+      const int b2 = tid + TH * e;
+      if ((R1 * R3) % TH == 0 || b2 < R1 * R3) {
+        const int n1 = b2 / R3, k3 = b2 % R3;
+        float yr[R2], yi[R2];
+#pragma unroll
+        for (int k2 = 0; k2 < R2; ++k2) {
+          yr[k2] = sAr[n1 * LDA + R3 * k2 + k3];
+          yi[k2] = sAi[n1 * LDA + R3 * k2 + k3];
+        }
+        dft_nat<R2>(yr, yi);
+#pragma unroll
+        for (int n2 = 0; n2 < R2; ++n2) {
+          float vr = yr[n2], vi = yi[n2];
+          if (n2 > 0) cmul(vr, vi, t2c[n2], t2s[n2]);
+          sBr[k3 * LDB + R1 * n2 + n1] = vr;
+          sBi[k3 * LDB + R1 * n2 + n1] = vi;
+        }
+      }
+    }
+    __syncthreads();
+
+    // pass 3: column c over k3; output n3 is sample pair c + (M / R3) n3:
+    // piece n3 / Q3, pair q = c + (M / R3) (n3 % Q3) of hop t + piece
+#pragma unroll
+    for (int e = 0; e < P::BPT3; ++e) {
+      const int c = tid + TH * e;
+      if (COLS % TH == 0 || c < COLS) {
+        float yr[R3], yi[R3];
+#pragma unroll
+        for (int k3 = 0; k3 < R3; ++k3) {
+          yr[k3] = sBr[k3 * LDB + c];
+          yi[k3] = sBi[k3 * LDB + c];
+        }
+        dft_nat<R3>(yr, yi);
+#pragma unroll
+        for (int n3 = 0; n3 < R3; ++n3) {
+          const int p = n3 / P::Q3;
+          const int q = c + (M / R3) * (n3 % P::Q3);
+          ring_piece(ring + ((t + p) & (RING - 1)) * PAIRS + q, make_float2(yr[n3], yi[n3]),
+                     window_pair(window, p * PAIRS + q, inv_n), p);
+        }
+      }
+    }
+
+    // hop t + 3 has its last piece; below frame 0 there is nothing to wait for
+    const int h_first = t + RING - 1;
+    const int h_last = t == 0 ? 0 : h_first;
+    for (int h = h_first; h >= h_last; --h) {
+      if (h >= a && h < b) {
+#pragma unroll
+        for (int e = 0; e < P::BPT3; ++e) {
+          const int c = tid + TH * e;
+          if (COLS % TH == 0 || c < COLS) {
+#pragma unroll
+            for (int m = 0; m < P::Q3; ++m) {
+              const int q = c + (M / R3) * m;
+              *reinterpret_cast<float2*>(out_r + (size_t)h * HP + 2 * q) =
+                  ring[(h & (RING - 1)) * PAIRS + q];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 // One Stockham pass of radix R (2, 4 or 8) over M points with ns points
 // done, from (sr, si) to (dr, di), natural order in and out
 // (stockham_pass's indices at run-time sizes).
@@ -1054,6 +1426,40 @@ cudaError_t cluster_setup(int N, int C, const void** fn, cudaLaunchConfig_t* cfg
   return cudaSuccess;
 }
 
+// The register form's kernel for n_fft = 1024 k, its dynamic shared memory
+// and its block size; nullptr for a k it has no plan for (4096: the
+// hand-scheduled form; odd k from 9: the mixed-radix form).  The plans are
+// ops/istft_ct_cuda.py:REGISTER_PLANS.
+const void* reg_kernel(int k, size_t* smem, int* threads) {
+#define UMX_REG_PLAN(r1, r2, r3)                      \
+  *smem = RegPlan<r1, r2, r3>::SMEM;                  \
+  *threads = RegPlan<r1, r2, r3>::TH;                 \
+  return (const void*)istft_ct2_reg_kernel<r1, r2, r3>;
+  switch (k) {
+    case 1: UMX_REG_PLAN(4, 16, 8)
+    case 2: UMX_REG_PLAN(8, 16, 8)
+    case 3: UMX_REG_PLAN(12, 16, 8)
+    case 5: UMX_REG_PLAN(10, 16, 16)
+    case 6: UMX_REG_PLAN(12, 16, 16)
+    case 7: UMX_REG_PLAN(14, 16, 16)
+    case 8: UMX_REG_PLAN(16, 16, 16)
+    case 10: UMX_REG_PLAN(20, 16, 16)
+    case 12: UMX_REG_PLAN(24, 16, 16)
+    case 14: UMX_REG_PLAN(28, 16, 16)
+    case 16: UMX_REG_PLAN(32, 16, 16)
+    default: return nullptr;
+  }
+#undef UMX_REG_PLAN
+}
+
+// The register form's kernel for n_fft with its dynamic shared memory allowed
+cudaError_t reg_setup(int n_fft, const void** fn, size_t* smem, int* threads) {
+  if (n_fft < 1024 || n_fft % 1024 != 0 || n_fft / 1024 > MR_K_MAX) return cudaErrorInvalidValue;
+  *fn = reg_kernel(n_fft / 1024, smem, threads);
+  if (*fn == nullptr) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
 // The kernel for n_fft = 1024 k and its dynamic shared memory; nullptr
 // for a k it has no form for.
 const void* istft_kernel(int k, size_t* smem) {
@@ -1140,6 +1546,50 @@ extern "C" int umx_istft_ct2(const float* re, const float* im, const float* tabl
   cudaError_t e = istft_setup(N, &fn, &smem, &threads);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&re, &im, &table, &window, &out, &T, &runs_per_row, &hops_per_run};
+  e = cudaLaunchKernel(fn, dim3(rows * runs_per_row), dim3(threads), args, smem,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The register form (n_fft = 1024 k up to 16384 with a plan in
+// ops/istft_ct_cuda.py:REGISTER_PLANS): blocks the current device holds at
+// once and the dynamic shared memory a block asks for.
+extern "C" int umx_istft_ct2_reg_capacity(int n_fft, int* blocks, int* smem_bytes) {
+  int dev = 0, sms = 0, per_sm = 0, threads = 0;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  *blocks = 0;
+  *smem_bytes = 0;
+  cudaError_t e = reg_setup(n_fft, &fn, &smem, &threads);
+  if (e != cudaSuccess) return (int)e;
+  *smem_bytes = (int)smem;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = per_sm * sms;
+  return (int)cudaSuccess;
+}
+
+// The register form: the arguments of umx_istft_ct2, plus pass 1's
+// twiddles `tw1` (ops/istft_ct_cuda.py:register_twiddles).
+extern "C" int umx_istft_ct2_reg(const float* re, const float* im, const float* table,
+                                 const float* tw1, const float* window, float* out, int rows,
+                                 int T, int F, int N, int hop, int runs_per_row, int hops_per_run,
+                                 void* stream) {
+  if (4 * hop != N || F != N / 2 + 1 || rows < 1 || T < 1 || runs_per_row < 1 ||
+      hops_per_run < 1 || (long long)runs_per_row * hops_per_run < T + RING - 1 ||
+      (long long)rows * runs_per_row > 2147483647LL || tw1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  size_t smem = 0;
+  int threads = 0;
+  cudaError_t e = reg_setup(N, &fn, &smem, &threads);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&re, &im, &table, &tw1, &window, &out, &T, &runs_per_row, &hops_per_run};
   e = cudaLaunchKernel(fn, dim3(rows * runs_per_row), dim3(threads), args, smem,
                        static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;

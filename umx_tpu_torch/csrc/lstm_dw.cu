@@ -11,7 +11,10 @@
 // chain-major (row = r*B + b); dW (R, G, 4G) f32 with
 //   dW[r] = sum over t, b of bf16(h_{t-1}[r*B+b])^T bf16(dxp[t, r*B+b]),
 // h_{-1} = h0, bf16 rounding to nearest even, f32 sums.  Needs G % 4 == 0
-// (TMA takes strides of 16 bytes); the wrapper runs "mma_sync" otherwise.
+// (TMA takes strides of 16 bytes); at any other G it runs at a width padded
+// with zero units (ops/lstm_cuda.py:dw_width: umx_lstm_dw_wgmma copies the
+// operands, or the trainer hands them over padded), which leaves every real
+// entry of dW the same products in the same order.
 //
 // What bounds it: at UMX-L training (T*B = 4096, R 8, G 512) 68.7 GFLOP of
 // bf16 products (0.069 ms at the card's dense peak) over 335 MB of f32
@@ -55,9 +58,15 @@
 //    dW (stored, then added in f32, round to nearest): the tensor cores'
 //    own f32 sums drop low bits at every step, which over 8192 pairs (B
 //    32) comes to 1e-5 of max|dW|.
+//  - Where the tiles leave the card nearly empty (ops/lstm_cuda.py:dw_plan:
+//    R x unit-tile pairs x column tiles well below the clusters it holds,
+//    e.g. 8 clusters at G 24, R 8), the contraction is split into S slices
+//    of consecutive stages, one cluster each: slice z sums its stages as
+//    above into its own partial tile, and a second kernel adds the S
+//    partial tiles in slice order.
 // Every output has one owner and one order of summation over k (the stages
 // in order, the wgmma's within a stage, the chunks of DWH_PROMOTE stages in
-// order): no atomics, no split, the same bits from run to run.  Shared
+// order, the slices in order): no atomics, the same bits from run to run.  Shared
 // memory holds 225 KiB at BN 256 (one block an SM); per stage of 32 pairs
 // it moves 48 KiB in by TMA, 48 out and 24 in by the rounding and 40 out
 // to the tensor cores, and L2 sends the block 32 KiB.  On an H100 80GB HBM3
@@ -292,15 +301,18 @@ __device__ __forceinline__ uint32_t swz(int k, int q4) {
   return (uint32_t)(k * 128 + ((((q4 >> 1) ^ (k & 7))) << 4) + ((q4 & 1) << 3));
 }
 
-// grid = 2 x m_pairs x n_tiles x R blocks in clusters of 2; cluster c takes
-// unit tiles 2 (c % m_pairs) + {0, 1}, column tile (c / m_pairs) % n_tiles,
-// chain c / (m_pairs n_tiles) (ops/lstm_cuda.py:dw_tiles).
+// grid = 2 x m_pairs x n_tiles x R x slices blocks in clusters of 2;
+// cluster c takes unit tiles 2 (c % m_pairs) + {0, 1}, column tile (c /
+// m_pairs) % n_tiles, chain (c / (m_pairs n_tiles)) % R and slice z = c /
+// (m_pairs n_tiles R): stages [z per_slice, min((z + 1) per_slice, stages)),
+// its sums into dw + z R G 4G (ops/lstm_cuda.py:dw_tiles, dw_blocks).
 template <int BN>
 __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREADS, 1)
     lstm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_hs,
                          const __grid_constant__ CUtensorMap map_h0,
                          const __grid_constant__ CUtensorMap map_dxp, float* __restrict__ dw,
-                         int G, int m_pairs, int n_tiles, int stages, int bp, int tb, int nbc) {
+                         int G, int R, int m_pairs, int n_tiles, int stages, int per_slice,
+                         int bp, int tb, int nbc) {
   using L = DwhLayout<BN>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -317,10 +329,15 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
   const int cluster = blockIdx.x / DWH_CLUSTER;
   const int mp = cluster % m_pairs;
   const int nt = (cluster / m_pairs) % n_tiles;
-  const int r = cluster / (m_pairs * n_tiles);
+  const int r = (cluster / (m_pairs * n_tiles)) % R;
+  const int z = cluster / (m_pairs * n_tiles * R);
   const int m0 = (2 * mp + (int)rank) * DWH_BM;
   const int n0 = nt * BN;
   const int G4 = 4 * G;
+  // this slice's stages: s0 + i for i < count (the loops below count i, so
+  // that slots and phases start afresh in every slice)
+  const int s0 = z * per_slice;
+  const int count = min(per_slice, stages - s0);
 
   if (tid == 0) {
     for (int s = 0; s < DWH_STAGES; ++s) {
@@ -338,10 +355,10 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 0 && lane == 0) {
       const unsigned bytes = (unsigned)(L::A32 + L::B32);
-      for (int s = 0; s < stages; ++s) {
-        const int slot = s % DWH_STAGES;
-        if (s >= DWH_STAGES) mbar_wait(empty32 + 8 * slot, (unsigned)((s / DWH_STAGES - 1) & 1));
-        const int u0 = s * tb;
+      for (int i = 0; i < count; ++i) {
+        const int slot = i % DWH_STAGES;
+        if (i >= DWH_STAGES) mbar_wait(empty32 + 8 * slot, (unsigned)((i / DWH_STAGES - 1) & 1));
+        const int u0 = (s0 + i) * tb;
         const int t0 = u0 / nbc;
         const int b0 = (u0 % nbc) * DWH_BK;
         const uint32_t bar = full32 + 8 * slot;
@@ -365,8 +382,8 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
       }
       // stay until both blocks have rounded every stage: no arrival from
       // the other block may reach this one after it exits
-      for (int s = stages > DWH_STAGES ? stages - DWH_STAGES : 0; s < stages; ++s)
-        mbar_wait(empty32 + 8 * (s % DWH_STAGES), (unsigned)((s / DWH_STAGES) & 1));
+      for (int i = count > DWH_STAGES ? count - DWH_STAGES : 0; i < count; ++i)
+        mbar_wait(empty32 + 8 * (i % DWH_STAGES), (unsigned)((i / DWH_STAGES) & 1));
     }
     return;
   }
@@ -394,7 +411,7 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
   // d[4 j + e]: unit 16 (warp % 4) + lane / 4 (+ 8 for e >= 2), column
   // 8 j + 2 (lane % 4) (+ 1 for odd e)
   const int row = m0 + 64 * w + 16 * (warp & 3) + (lane >> 2);
-  float* out = dw + ((size_t)r * G + row) * G4 + n0 + 2 * (lane & 3);
+  float* out = dw + (((size_t)z * R + r) * G + row) * G4 + n0 + 2 * (lane & 3);
   float d[BN / 2];
   // the sums of DWH_PROMOTE stages go into the tile's sums in dW, which
   // this thread alone owns: stored the first time, then added in f32
@@ -421,13 +438,14 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
       }
     }
   };
-  for (int s = 0; s < stages; ++s) {
-    if (s % DWH_PROMOTE == 0) {
+  for (int i = 0; i < count; ++i) {
+    const int s = s0 + i;  // the stage: only stage 0 reads h0's own region
+    if (i % DWH_PROMOTE == 0) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) d[i] = 0.0f;
+      for (int v = 0; v < BN / 2; ++v) d[v] = 0.0f;
     }
-    const int slot = s % DWH_STAGES;
-    mbar_wait(full32 + 8 * slot, (unsigned)((s / DWH_STAGES) & 1));
+    const int slot = i % DWH_STAGES;
+    mbar_wait(full32 + 8 * slot, (unsigned)((i / DWH_STAGES) & 1));
     // round the f32 stage into bf16 stage s % 3, in the swizzled MN-major
     // layout (both warpgroups' products of stage s - 3, which read it, are
     // done: the barrier of the last stage)
@@ -436,7 +454,7 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
       // stage has more steps than one
       const uint32_t f32 = base + slot * L::STAGE32;
       const uint32_t h0_rows = s == 0 && tb > 1 ? base + L::OFFH0 : f32;
-      const uint32_t b16 = base + L::OFF16 + (s % DWH_BSTAGES) * L::STAGE16;
+      const uint32_t b16 = base + L::OFF16 + (i % DWH_BSTAGES) * L::STAGE16;
       // item j of this thread: h row hk + 8 j (j < H_ITEMS), then dxp's
       // half jj / D_PASSES, row dk + D_ROWS (jj % D_PASSES); the offsets
       // past the thread's own are constants
@@ -476,18 +494,77 @@ __global__ void __cluster_dims__(DWH_CLUSTER, 1, 1) __launch_bounds__(DWH_THREAD
     fence_sums(d);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_barrier(1, THREADS);
-    const uint32_t a16 = base + L::OFF16 + (s % DWH_BSTAGES) * L::STAGE16 + w * (32 * 128);
-    const uint32_t b16 = base + L::OFF16 + (s % DWH_BSTAGES) * L::STAGE16 + L::A16;
+    const uint32_t a16 = base + L::OFF16 + (i % DWH_BSTAGES) * L::STAGE16 + w * (32 * 128);
+    const uint32_t b16 = base + L::OFF16 + (i % DWH_BSTAGES) * L::STAGE16 + L::A16;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < DWH_BK / 16; ++kk)
       wgmma_bn<BN>(d, wgmma_desc(a16 + kk * 2048, 32 * 128, 1024),
                    wgmma_desc(b16 + kk * 2048, 32 * 128, 1024));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    if ((s + 1) % DWH_PROMOTE == 0 || s + 1 == stages) {
+    if ((i + 1) % DWH_PROMOTE == 0 || i + 1 == count) {
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_sums(d);
-      promote(s < DWH_PROMOTE);
+      promote(i < DWH_PROMOTE);
+    }
+  }
+}
+
+// dw[e] = parts[0][e] + parts[1][e] + ... + parts[slices - 1][e], f32, in
+// slice order (n4 float4 of dW a slice, 16-byte aligned)
+__global__ void __launch_bounds__(256) lstm_dw_sum_slices_kernel(const float4* __restrict__ parts,
+                                                                 float4* __restrict__ dw, int n4,
+                                                                 int slices) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n4; e += gridDim.x * blockDim.x) {
+    float4 acc = parts[e];
+    for (int z = 1; z < slices; ++z) {
+      const float4 v = parts[(size_t)z * n4 + e];
+      acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
+    }
+    dw[e] = acc;
+  }
+}
+
+// As lstm_dw_sum_slices_kernel where the kernel ran at a padded width Gp >
+// G: dw (R, G, 4G) takes the real units' rows and gate columns of the
+// slices' sums (R, Gp, 4Gp), in slice order
+__global__ void __launch_bounds__(256) lstm_dw_sum_cut_kernel(const float* __restrict__ parts,
+                                                              float* __restrict__ dw, int R,
+                                                              int G, int Gp, int slices) {
+  const int n = R * G * 4 * G;
+  const size_t part = (size_t)R * Gp * 4 * Gp;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
+    const int col = e % (4 * G), ru = e / (4 * G);
+    const int r = ru / G, u = ru % G, g = col / G, c = col % G;
+    const size_t src = ((size_t)r * Gp + u) * 4 * Gp + g * Gp + c;
+    float acc = parts[src];
+    for (int z = 1; z < slices; ++z) acc += parts[z * part + src];
+    dw[e] = acc;
+  }
+}
+
+// Zero-unit copies at width Gp of hs (T RB, G), h0 (RB, G) and dxp (T RB, 4
+// G: each gate block padded): rows of h at Gp, rows of dxp at 4 Gp
+__global__ void __launch_bounds__(256) lstm_dw_pad_kernel(const float* __restrict__ hs,
+                                                          const float* __restrict__ h0,
+                                                          const float* __restrict__ dxp,
+                                                          float* __restrict__ hs_p,
+                                                          float* __restrict__ h0_p,
+                                                          float* __restrict__ dxp_p, int rows_t,
+                                                          int RB, int G, int Gp) {
+  const long long nh = (long long)(rows_t + RB) * Gp, nd = (long long)rows_t * 4 * Gp;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < nh + nd;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e < nh) {
+      const long long row = e / Gp;
+      const int u = (int)(e % Gp);
+      const bool in_hs = row < rows_t;
+      const float* src = in_hs ? hs + row * G : h0 + (row - rows_t) * G;
+      (in_hs ? hs_p + row * Gp : h0_p + (row - rows_t) * Gp)[u] = u < G ? src[u] : 0.0f;
+    } else {
+      const long long f = e - nh, row = f / (4 * Gp);
+      const int col = (int)(f % (4 * Gp)), g = col / Gp, u = col % Gp;
+      dxp_p[f] = u < G ? dxp[row * 4 * G + g * G + u] : 0.0f;
     }
   }
 }
@@ -527,9 +604,6 @@ bool encode_f32(encode_fn enc, CUtensorMap* map, const float* ptr, int rank,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-using dwh_fn = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, float*, int, int, int, int, int,
-                        int, int);
-
 // The kernel at BN columns a block with its shared memory allowed;
 // cudaErrorInvalidValue for a BN the form has not.
 cudaError_t dwh_setup(int bn, const void** fn, int* smem) {
@@ -562,19 +636,34 @@ extern "C" int umx_lstm_dw_capacity(int bn, int* clusters, int* smem) {
   return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
 }
 
-// K6's Hopper form: dW (R, G, 4G) from hs, h0 and dxp (16-byte aligned, G %
-// 4 == 0); one launch of the plan ops/lstm_cuda.py:dw_plan gives: BN columns
-// a block, bp rows a step (B rounded up to a power of two, 32 above 32), tb
-// steps a stage, nbc chunks of 32 rows a step (tb > 1 only where nbc is 1),
-// `stages` stages of 32 (t, b) pairs.  Returns the first CUDA error;
-// cudaErrorNotSupported where tensor maps are missing.
+// K6's Hopper form: dW (R, G, 4G) from hs, h0 and dxp, the kernel run at
+// width Gp (G rounded up to a multiple of 4 or more, with zero units; Gp ==
+// G where G % 4 == 0); one launch of the plan ops/lstm_cuda.py:dw_plan gives
+// at Gp: BN columns a block, bp rows a step (B rounded up to a power of
+// two, 32 above 32), tb steps a stage, nbc chunks of 32 rows a step (tb > 1
+// only where nbc is 1), `stages` stages of 32 (t, b) pairs, in `slices`
+// slices of `per_slice` stages (the last may be shorter).  With one slice
+// at Gp == G the sums go into dw; otherwise slice z's into parts + z R Gp
+// 4Gp (slices x R x Gp x 4Gp floats), and a second launch adds them into
+// dw in slice order (and cuts the padding).  Where Gp > G, `padded` (T RB
+// Gp + RB Gp + T RB 4Gp floats) first takes zero-unit copies of hs, h0 and
+// dxp (one launch).  Pointers 16-byte aligned.  Returns the first CUDA
+// error; cudaErrorNotSupported where tensor maps are missing.
 extern "C" int umx_lstm_dw_wgmma(const float* hs, const float* h0, const float* dxp, float* dw,
-                                 int T, int R, int B, int G, int bn, int bp, int tb, int nbc,
-                                 int stages, void* stream) {
-  if (T < 1 || R < 1 || B < 1 || G < 4 || G % 4 != 0 || bp < 1 || bp > DWH_BK ||
-      (bp & (bp - 1)) != 0 || bp * tb != DWH_BK || (tb > 1 && nbc != 1) || nbc * bp < B ||
-      (B <= DWH_BK && bp < B) || (long long)stages * tb < (long long)T * nbc ||
-      (((uintptr_t)hs | (uintptr_t)h0 | (uintptr_t)dxp) & 15) != 0)
+                                 float* parts, float* padded, int T, int R, int B, int G, int Gp,
+                                 int bn, int bp, int tb, int nbc, int stages, int slices,
+                                 int per_slice, void* stream) {
+  const bool cut = Gp != G;
+  const long long rows_t = (long long)T * R * B;
+  if (T < 1 || R < 1 || B < 1 || G < 1 || Gp < 4 || Gp % 4 != 0 || Gp < G || Gp - G >= 8 ||
+      bp < 1 || bp > DWH_BK || (bp & (bp - 1)) != 0 || bp * tb != DWH_BK ||
+      (tb > 1 && nbc != 1) || nbc * bp < B || (B <= DWH_BK && bp < B) ||
+      (long long)stages * tb < (long long)T * nbc || slices < 1 || per_slice < 1 ||
+      (long long)(slices - 1) * per_slice >= stages || (long long)slices * per_slice < stages ||
+      ((slices > 1 || cut) && parts == nullptr) || (cut && padded == nullptr) ||
+      rows_t * 4 * Gp > 2147483647LL || (long long)R * Gp * Gp > 2147483647LL ||
+      (((uintptr_t)dw | (uintptr_t)parts | (uintptr_t)padded) & 15) != 0 ||
+      (!cut && (((uintptr_t)hs | (uintptr_t)h0 | (uintptr_t)dxp) & 15) != 0))
     return (int)cudaErrorInvalidValue;
   const void* fn = nullptr;
   int smem = 0;
@@ -582,7 +671,23 @@ extern "C" int umx_lstm_dw_wgmma(const float* hs, const float* h0, const float* 
   if (e != cudaSuccess) return (int)e;
   const encode_fn enc = tensor_map_encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t g = (cuuint64_t)G, b = (cuuint64_t)B, rr = (cuuint64_t)R;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cut) {
+    // the kernel reads zero-unit copies at width Gp
+    float* hs_p = padded;
+    float* h0_p = hs_p + rows_t * Gp;
+    float* dxp_p = h0_p + (long long)R * B * Gp;
+    const long long n = (rows_t + (long long)R * B) * Gp + rows_t * 4 * Gp;
+    const int grid = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+    lstm_dw_pad_kernel<<<grid, 256, 0, st>>>(hs, h0, dxp, hs_p, h0_p, dxp_p, (int)rows_t, R * B,
+                                             G, Gp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    hs = hs_p;
+    h0 = h0_p;
+    dxp = dxp_p;
+  }
+  const cuuint64_t g = (cuuint64_t)Gp, b = (cuuint64_t)B, rr = (cuuint64_t)R;
   CUtensorMap map_hs, map_h0, map_dxp;
   // hs's steps 0 .. T-2 are some step's h_{t-1}; step T-1 is never read
   const cuuint64_t hs_dims[4] = {g, b, rr, (cuuint64_t)(T > 1 ? T - 1 : 1)};
@@ -595,14 +700,26 @@ extern "C" int umx_lstm_dw_wgmma(const float* hs, const float* h0, const float* 
       !encode_f32(enc, &map_h0, h0, 3, hs_dims, hs_strides, hs_box) ||
       !encode_f32(enc, &map_dxp, dxp, 4, dx_dims, dx_strides, dx_box))
     return (int)cudaErrorInvalidValue;
-  int m_pairs = ((G + DWH_BM - 1) / DWH_BM + 1) / 2;
-  int n_tiles = (4 * G + bn - 1) / bn;
-  const long long blocks = (long long)DWH_CLUSTER * m_pairs * n_tiles * R;
+  int m_pairs = ((Gp + DWH_BM - 1) / DWH_BM + 1) / 2;
+  int n_tiles = (4 * Gp + bn - 1) / bn;
+  const long long blocks = (long long)DWH_CLUSTER * m_pairs * n_tiles * R * slices;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  void* args[] = {&map_hs, &map_h0, &map_dxp, &dw,  &G,  &m_pairs,
-                  &n_tiles, &stages, &bp,      &tb,  &nbc};
-  e = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(DWH_THREADS), args, (size_t)smem,
-                       static_cast<cudaStream_t>(stream));
+  float* sums = slices > 1 || cut ? parts : dw;
+  void* args[] = {&map_hs, &map_h0,  &map_dxp,   &sums, &Gp, &R,  &m_pairs,
+                  &n_tiles, &stages, &per_slice, &bp,   &tb,  &nbc};
+  e = cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(DWH_THREADS), args, (size_t)smem, st);
   if (e != cudaSuccess) return (int)e;
+  e = cudaGetLastError();
+  if (e != cudaSuccess || sums == dw) return (int)e;
+  if (cut) {
+    const int n = R * G * 4 * G;
+    const int grid = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+    lstm_dw_sum_cut_kernel<<<grid, 256, 0, st>>>(parts, dw, R, G, Gp, slices);
+  } else {
+    const int n4 = R * G * G;  // float4 of dW: R G 4G / 4
+    const int grid = (n4 + 255) / 256 < 1024 ? (n4 + 255) / 256 : 1024;
+    lstm_dw_sum_slices_kernel<<<grid, 256, 0, st>>>(reinterpret_cast<const float4*>(parts),
+                                                    reinterpret_cast<float4*>(dw), n4, slices);
+  }
   return (int)cudaGetLastError();
 }

@@ -34,11 +34,75 @@ _MIN_HOPS = 8  # no run shorter than this, unless the row is
 _BIG_SLOT_FLOATS = 3
 
 
+# The register form's three passes (R1, R2, R3), R1 R2 R3 = n_fft / 2, at
+# every n_fft = 1024 k up to 16384 it takes (``csrc/istft_ct.cu``:
+# reg_kernel): R2 R3 threads a frame, one pass-1 butterfly each; R3 8 or 16
+# (a thread keeps whole pieces of its columns); a factor 3, 5 or 7 of k
+# folded into R1 (12 = 3 x 4, 10 = 5 x 2, 14 = 7 x 2, ...); at most 32
+# complex points a thread in a pass.  Of the plans timed in turns
+# (``chip_forms.py k8_register_forms``), the fastest at each n_fft without
+# spills: more threads a frame and a smaller R1 won wherever R2 and R3
+# (at most 16) could take them.
+# 4096 runs its hand-scheduled 16 x 16 x 8 form, the odd k from 9 the
+# mixed-radix form.
+REGISTER_PLANS = {
+    1024: (4, 16, 8), 2048: (8, 16, 8), 3072: (12, 16, 8), 5120: (10, 16, 16),
+    6144: (12, 16, 16), 7168: (14, 16, 16), 8192: (16, 16, 16), 10240: (20, 16, 16),
+    12288: (24, 16, 16), 14336: (28, 16, 16), 16384: (32, 16, 16),
+}
+SHARED_FORMS = ("hand", "register", "mixed_radix")
+
+
+def istft_register_plan(n_fft: int) -> tuple[int, int, int] | None:
+    """The register form's radices (R1, R2, R3) at ``n_fft``, or None where
+    it has none (:data:`REGISTER_PLANS`)."""
+    istft_radix_plan(n_fft)
+    return REGISTER_PLANS.get(n_fft)
+
+
+def istft_register_layout(n_fft: int) -> tuple[int, int, int, int]:
+    """The register form's block at ``n_fft`` (``RegPlan`` in
+    ``csrc/istft_ct.cu``): (threads R2 R3, LDA, LDB, dynamic shared memory
+    in bytes).  A's R1 rows of R2 R3 points and B's R3 rows of R1 R2 are
+    padded to LDA = R3 and LDB = 32 / R3 (mod 32) floats, so that no
+    warp's access to either conflicts; the ring holds 4 hops of n_fft / 8
+    sample pairs."""
+    R1, R2, R3 = istft_register_plan(n_fft)
+    th, cols = R2 * R3, R1 * R2
+    lda = th + (R3 - th % 32) % 32
+    ldb = cols + (32 // R3 - cols % 32) % 32
+    return th, lda, ldb, 4 * (2 * R1 * lda + 2 * R3 * ldb) + 8 * PIECES * (n_fft // 8)
+
+
+def istft_radices(n_fft: int) -> tuple[int, ...]:
+    """The radices of the form that runs at ``n_fft`` (``istft_ct2.form[2]``
+    after a launch there): the register form's plan where it has one, else
+    :func:`istft_radix_plan`."""
+    plan = istft_register_plan(n_fft)
+    return plan if plan is not None else istft_radix_plan(n_fft)
+
+
+def istft_shared_form(n_fft: int) -> str:
+    """Which kernel holds a frame in a block's shared memory at ``n_fft`` <=
+    ``SHARED_N_FFT_MAX``: "hand" (4096, 16 x 16 x 8), "register" (a plan in
+    :data:`REGISTER_PLANS`) or "mixed_radix" (the odd k from 9: a pass of k
+    points, then 8 x 8 x 8, the Stockham form; by name the register form's
+    yardstick)."""
+    if istft_form(n_fft) != "shared":
+        raise ValueError(f"n_fft {n_fft} is above the shared-memory forms' {SHARED_N_FFT_MAX}")
+    if n_fft == N_FFT:
+        return "hand"
+    return "register" if n_fft in REGISTER_PLANS else "mixed_radix"
+
+
 def istft_radix_plan(n_fft: int) -> tuple[int, ...]:
     """The radices of the kernel's n_fft/2-point complex inverse, first
-    pass first: 16 x 16 x 8 at 4096 (its hand-scheduled form); up to
-    ``SHARED_N_FFT_MAX`` a pass of K = n_fft/1024 points (none at K = 1)
-    and three radix-8 passes (the Stockham form in shared memory); above
+    pass first, in the hand-scheduled, mixed-radix, cluster and
+    device-memory forms (the register form's are
+    :func:`istft_register_plan`'s): 16 x 16 x 8 at 4096 (its
+    hand-scheduled form); up to ``SHARED_N_FFT_MAX`` a pass of K =
+    n_fft/1024 points (none at K = 1) and three radix-8 passes (the
+    mixed-radix Stockham form in shared memory); above
     (the cluster and device-memory forms, :func:`istft_form`), the odd
     part of K as one pass, its power-of-two part in radix 8 (then 4 or 2),
     then three radix 8."""
@@ -62,8 +126,9 @@ def istft_radix_plan(n_fft: int) -> tuple[int, ...]:
 
 def istft_form(n_fft: int) -> str:
     """Where the kernel keeps a frame at ``n_fft``, from n_fft alone:
-    "shared" (a block's shared memory: the hand-scheduled 4096 form and the
-    mixed radix up to ``SHARED_N_FFT_MAX``), "cluster" (the shared memory
+    "shared" (a block's shared memory: the hand-scheduled 4096 form, the
+    register form and the mixed radix up to ``SHARED_N_FFT_MAX``,
+    :func:`istft_shared_form`), "cluster" (the shared memory
     of a thread-block cluster, up to ``CLUSTER_N_FFT_MAX``) or "device" (a
     scratch slot a block in device memory, above)."""
     istft_radix_plan(n_fft)
@@ -113,6 +178,23 @@ def _pass_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(pass_twiddles(n_fft)).to(device)
 
 
+def register_twiddles(n_fft: int, plan: tuple[int, int, int] | None = None) -> np.ndarray:
+    """The register form's pass-1 twiddles (of ``plan``, by default
+    :func:`istft_register_plan`'s): the cosines (R1 - 1, R2 R3), then the
+    sines, entry (n1 - 1, j) the table's entry 2 n1 j mod n_fft
+    (e^{2 pi i n1 j / (n_fft / 2)}), so that thread j's reads of one n1 are
+    neighbours; the table's float32 values."""
+    R1, R2, R3 = plan or istft_register_plan(n_fft)
+    table = _table_np(n_fft)
+    idx = (2 * np.arange(1, R1)[:, None] * np.arange(R2 * R3)[None]) % n_fft
+    return np.concatenate([table[0, idx].ravel(), table[1, idx].ravel()]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _register_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(register_twiddles(n_fft)).to(device)
+
+
 def istft_run_plan(rows: int, n_frames: int, capacity: int) -> tuple[int, int]:
     """How the kernel's blocks share the work → (runs per row, output hops
     per run).  A row's (T + 3) output hops of ``hop`` samples are cut into
@@ -147,26 +229,32 @@ def istft_runs(rows: int, n_frames: int, capacity: int) -> list[tuple[int, int, 
 
 @functools.lru_cache(maxsize=None)
 def istft_block_layout(index: int, n_fft: int, form: str | None = None) -> tuple[int, int]:
-    """What the kernel at ``n_fft`` in ``form`` (None: :func:`istft_form`)
-    reports of itself on CUDA device ``index``, asked once: (the blocks the
-    device holds at once, the dynamic shared memory a block asks for, in
-    bytes); in the cluster form (the clusters the device holds at once,
-    the same)."""
+    """What the kernel at ``n_fft`` in ``form`` (None: :func:`istft_form`,
+    and in shared memory :func:`istft_shared_form`) reports of itself on
+    CUDA device ``index``, asked once: (the blocks the device holds at
+    once, the dynamic shared memory a block asks for, in bytes); in the
+    cluster form (the clusters the device holds at once, the same)."""
     import ctypes
 
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     lib = _build.library()
+    form = form or istft_form(n_fft)
+    if form == "shared":
+        form = istft_shared_form(n_fft)
     with torch.cuda.device(index):
-        if (form or istft_form(n_fft)) == "cluster":
+        if form == "cluster":
             err = lib.umx_istft_ct2_cluster_capacity(n_fft, istft_cluster_size(n_fft),
                                                      ctypes.addressof(blocks),
                                                      ctypes.addressof(smem))
+        elif form == "register":
+            err = lib.umx_istft_ct2_reg_capacity(n_fft, ctypes.addressof(blocks),
+                                                 ctypes.addressof(smem))
         else:
             err = lib.umx_istft_ct2_capacity(n_fft, ctypes.addressof(blocks),
                                              ctypes.addressof(smem))
     _build.check(err, "umx_istft_ct2_capacity")
     if blocks.value < 1:
-        raise RuntimeError(f"the iSTFT kernel at n_fft {n_fft} ({form or istft_form(n_fft)}): "
+        raise RuntimeError(f"the iSTFT kernel at n_fft {n_fft} ({form}): "
                            "this device holds none of its blocks")
     return blocks.value, smem.value
 
@@ -178,12 +266,14 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     by the window sum-of-squares).  Takes every n_fft with 1024 | n_fft and
     hop = n_fft/4, as the JAX function does, on either device.  One kernel
     launch transforms, windows and overlap-adds, in the form
-    :func:`istft_form` picks from n_fft (no frames buffer; above
+    :func:`istft_form` picks from n_fft, and in shared memory
+    :func:`istft_shared_form` (no frames buffer; above
     ``CLUSTER_N_FFT_MAX`` a scratch slot of 3 n_fft floats for each block
     of the grid; the private ``_form`` names "device" above
     ``SHARED_N_FFT_MAX``, for the checks that compare the two forms, which
-    give the same bits); the run plan that ran is left in
-    ``istft_ct2.form`` as (runs per row, hops per run, radix plan).  Counts
+    give the same bits, and "mixed_radix" where the register form runs, its
+    yardstick); the run plan that ran is left in ``istft_ct2.form`` as
+    (runs per row, hops per run, radices of the form that ran).  Counts
     ``istft_ct2.launches`` once per launch."""
     if re.dim() < 2 or tuple(im.shape) != tuple(re.shape):
         raise ValueError(f"re and im must both be (..., T, F), got {tuple(re.shape)}, {tuple(im.shape)}")
@@ -200,17 +290,21 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     if window is not None and tuple(window.shape) != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
     form = istft_form(n_fft)
+    if form == "shared":
+        form = istft_shared_form(n_fft)
     if _form is not None:
-        if _form != "device" or form == "shared":
-            raise ValueError(f"form must be None or, above n_fft {SHARED_N_FFT_MAX}, 'device'; "
-                             f"got {_form!r} at n_fft {n_fft}")
+        if not ((_form == "device" and form in ("cluster", "device"))
+                or (_form == "mixed_radix" and form == "register")):
+            raise ValueError(f"form must be None or, above n_fft {SHARED_N_FFT_MAX}, 'device', or "
+                             f"where the register form runs, 'mixed_radix'; got {_form!r} at "
+                             f"n_fft {n_fft}")
         form = _form
     if re.device.type == "cpu":
         return istft_ct2_plain(re, im, n_fft, hop, window)
     if re.device.type != "cuda":
         raise ValueError(f"no kernel for device {re.device}")
 
-    plan = istft_radix_plan(n_fft)
+    plan = istft_register_plan(n_fft) if form == "register" else istft_radix_plan(n_fft)
     rows = int(np.prod(lead)) if lead else 1
     dev = re.device
     capacity = istft_block_layout(dev.index, n_fft, form)[0]
@@ -224,8 +318,13 @@ def istft_ct2(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
             win.data_ptr() if win is not None else None, out.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
-    if form == "shared":
+    if form in ("hand", "mixed_radix"):
         err = lib.umx_istft_ct2(*args, rows, T, F, n_fft, hop, per_row, hops_per_run, stream)
+    elif form == "register":
+        re_p, im_p, table_p, win_p, out_p = args
+        err = lib.umx_istft_ct2_reg(re_p, im_p, table_p, _register_twiddles(n_fft, dev).data_ptr(),
+                                    win_p, out_p, rows, T, F, n_fft, hop, per_row, hops_per_run,
+                                    stream)
     elif form == "cluster":
         re_p, im_p, table_p, win_p, out_p = args
         err = lib.umx_istft_ct2_cluster(re_p, im_p, table_p, _pass_twiddles(n_fft, dev).data_ptr(),

@@ -875,10 +875,12 @@ lstm_merged_bwd_step.form = None
 
 
 # K6, the weight gradient, in two forms: "wgmma" (``csrc/lstm_dw.cu``), the
-# Hopper form, a TMA-fed warpgroup-MMA GEMM over clusters of two blocks,
-# wherever TMA takes the operands' strides (G % 4 == 0); "mma_sync"
-# (``csrc/lstm_train.cu``), the earlier tensor-core kernel, elsewhere and
-# by name as the Hopper form's yardstick.
+# Hopper form, a TMA-fed warpgroup-MMA GEMM over clusters of two blocks, at
+# every G (where TMA cannot take the operands' strides, G % 4 != 0, at a
+# width padded with zero units: :func:`dw_width`), its contraction split
+# over slices of blocks where the tiles alone leave the card nearly empty;
+# "mma_sync" (``csrc/lstm_train.cu``), the earlier tensor-core kernel, by
+# name only, as the Hopper form's yardstick.
 DW_FORMS = ("wgmma", "mma_sync")
 DW_BM = 128  # dW rows (hidden units) a block
 DW_BK = 32  # (t, b) pairs a stage
@@ -895,8 +897,19 @@ DW_STAGE_SMEM = {256: 80 * 1024, 128: 52 * 1024}
 
 
 def dw_form(G: int) -> str:
-    """K6's form at width G: "wgmma" where G % 4 == 0, else "mma_sync"."""
-    return "wgmma" if G % 4 == 0 else "mma_sync"
+    """K6's form at width G: "wgmma" at every G (:func:`dw_width`)."""
+    if G < 1:
+        raise ValueError(f"G must be positive, got {G}")
+    return "wgmma"
+
+
+def dw_width(G: int) -> int:
+    """The width K6's Hopper form runs at: G where TMA takes its strides (G %
+    4 == 0), else :func:`merged_width`, the width K4 and K5 run at (zero
+    units: a zero unit's h and gate cotangents are 0, so every real entry of
+    dW gets the same products in the same order, and the padded rows and
+    gate columns are cut)."""
+    return G if G % 4 == 0 else merged_width(G)
 
 
 class DwPlan(NamedTuple):
@@ -909,9 +922,11 @@ class DwPlan(NamedTuple):
     stages: int  # stages of 32 (t, b) pairs of a chain, the last padded with zeros
     m_pairs: int  # clusters along the units: pairs of 128-unit tiles
     n_tiles: int  # tiles of bn columns
-    clusters: int  # R x m_pairs x n_tiles
+    clusters: int  # R x m_pairs x n_tiles: the clusters of one slice
     held: int  # clusters of this bn the card holds at once
-    waves: int
+    waves: int  # of clusters x slices
+    slices: int  # slices of the contraction, one cluster each a tile
+    per_slice: int  # stages a slice (the last slice may have fewer)
 
 
 def dw_plan(T: int, R: int, B: int, G: int, held: dict[int, int]) -> DwPlan:
@@ -922,7 +937,11 @@ def dw_plan(T: int, R: int, B: int, G: int, held: dict[int, int]) -> DwPlan:
     extra rows read as zeros), or above 32 rows one 32-row box of one step.
     The tile is 128 units by 256 columns, or by 128 where that takes fewer
     waves by enough to pay for its higher cost a column
-    (``DW_STAGE_SMEM``)."""
+    (``DW_STAGE_SMEM``).  Where the clusters of the tiles fill at most half
+    of what the card holds, the contraction is split into slices of
+    consecutive stages: as many as the card holds such sets of clusters
+    (at most one a stage), summed in slice order by a second pass; the
+    shapes the paths give K6 take one slice (:func:`dw_slices`)."""
     if G < 4 or G % 4:
         raise ValueError(f"K6's Hopper form takes G % 4 == 0, got {G}")
     if min(T, R, B) < 1:
@@ -942,17 +961,30 @@ def dw_plan(T: int, R: int, B: int, G: int, held: dict[int, int]) -> DwPlan:
         clusters = R * m_pairs * n_tiles
         waves = -(-clusters // held[bn])
         plan = DwPlan(bn, bp, tb, nbc, -(-T * nbc // tb), m_pairs, n_tiles, clusters, held[bn],
-                      waves)
+                      waves, 1, -(-T * nbc // tb))
         if best is None or waves * DW_STAGE_SMEM[bn] < best.waves * DW_STAGE_SMEM[best.bn]:
             best = plan
     if best is None:
         raise RuntimeError(f"the card holds no cluster of K6's Hopper form: {held}")
-    return best
+    slices, per_slice = dw_slices(best.stages, best.clusters, best.held)
+    return best._replace(slices=slices, per_slice=per_slice,
+                         waves=-(-best.clusters * slices // best.held))
+
+
+def dw_slices(stages: int, clusters: int, held: int) -> tuple[int, int]:
+    """(slices, stages a slice) of a contraction of ``stages`` stages whose
+    tiles take ``clusters`` clusters where the card holds ``held`` at once:
+    held // clusters slices (one where the tiles fill more than half the
+    card), at most one a stage, each of ceil(stages / slices) consecutive
+    stages but the last, and none empty."""
+    want = min(max(1, held // clusters), stages)
+    per_slice = -(-stages // want)
+    return -(-stages // per_slice), per_slice
 
 
 def dw_tiles(plan: DwPlan) -> list[tuple[int, int, int]]:
-    """(chain, first unit, first column) of every block of a launch, in
-    block order: cluster c = block // 2 takes the unit tiles 2 (c %
+    """(chain, first unit, first column) of every block of one slice of a
+    launch, in block order: cluster c = block // 2 takes the unit tiles 2 (c %
     m_pairs) + {0, 1} (the second past G where the tiles are odd: it only
     brings its half of the shared dxp tile), column tile (c // m_pairs) %
     n_tiles, chain c // (m_pairs n_tiles) (``csrc/lstm_dw.cu``)."""
@@ -962,6 +994,16 @@ def dw_tiles(plan: DwPlan) -> list[tuple[int, int, int]]:
         mp, nt = c % plan.m_pairs, (c // plan.m_pairs) % plan.n_tiles
         out.append((c // (plan.m_pairs * plan.n_tiles), (2 * mp + rank) * DW_BM, nt * plan.bn))
     return out
+
+
+def dw_blocks(plan: DwPlan) -> list[tuple[int, int, int, int, int]]:
+    """(chain, first unit, first column, first stage, end stage) of every
+    block of a launch, in block order: the tiles of :func:`dw_tiles` for
+    each slice z in turn, slice z taking stages [z per_slice, min((z + 1)
+    per_slice, stages)) (``csrc/lstm_dw.cu``)."""
+    tiles = dw_tiles(plan)
+    return [(r, m0, n0, z * plan.per_slice, min((z + 1) * plan.per_slice, plan.stages))
+            for z in range(plan.slices) for r, m0, n0 in tiles]
 
 
 def dw_stages(plan: DwPlan) -> list[tuple[int, int]]:
@@ -999,10 +1041,15 @@ def dw_capacity(index: int) -> dict[int, tuple[int, int]]:
 
 def lstm_merged_dw(hs, h0, dxp, B: int, *, _form: str | None = None):
     """K6: dW (R, G, 4G) f32 = Σ over t, b of bf16(h_{t-1})ᵀ bf16(dxp_t).
-    Any G, in :func:`dw_form`'s form (the private ``_form`` names either of
-    ``DW_FORMS``: "mma_sync" is the Hopper form's yardstick).  The form that
-    ran is left in ``lstm_merged_dw.form``: ("wgmma", columns a block,
-    clusters, clusters held at once, waves) or ("mma_sync",).  Counts
+    Any G, in :func:`dw_form`'s form, at :func:`dw_width` (G % 4 != 0: the
+    operands copied with zero units and dW cut inside the same library
+    call; the trainer hands it operands already at K4's and K5's padded
+    width); the private ``_form``
+    names either of ``DW_FORMS``: "mma_sync", at G itself, is the Hopper
+    form's yardstick.  The form that ran is left in ``lstm_merged_dw.form``:
+    ("wgmma", columns a block, clusters of a slice, clusters held at once,
+    waves) or ("mma_sync",), and the Hopper form's whole plan (slices
+    included) in ``lstm_merged_dw.plan``.  Counts
     ``lstm_merged_dw.launches``, and by form ``lstm_merged_dw.form_launches``."""
     if hs.dim() != 3 or dxp.dim() != 3:
         raise ValueError(f"hs and dxp must be 3-d, got {tuple(hs.shape)}, {tuple(dxp.shape)}")
@@ -1015,26 +1062,15 @@ def lstm_merged_dw(hs, h0, dxp, B: int, *, _form: str | None = None):
         ("dxp", dxp, (T, RB, 4 * G), torch.float32),
     ])
     form = _form or dw_form(G)
-    if form not in DW_FORMS or (form == "wgmma" and G % 4):
-        raise ValueError(f"form must be None or one of {DW_FORMS} (wgmma at G % 4 == 0); got "
-                         f"{_form!r} at G = {G}")
+    if form not in DW_FORMS:
+        raise ValueError(f"form must be None or one of {DW_FORMS}; got {_form!r} at G = {G}")
     if route == "cpu":
         return lstm_merged_dw_plain(hs, h0, dxp, B)
-    dw = torch.empty((R, G, 4 * G), dtype=torch.float32, device=hs.device)
-    lib = _build.library()
     if form == "wgmma":
-        if any(t.data_ptr() % 16 for t in (hs, h0, dxp)):
-            raise ValueError("K6's Hopper form needs 16-byte aligned hs, h0 and dxp")
-        held = dw_capacity(hs.device.index)
-        plan = dw_plan(T, R, B, G, {bn: c for bn, (c, _) in held.items()})
-        err = lib.umx_lstm_dw_wgmma(
-            hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), T, R, B, G, plan.bn,
-            plan.bp, plan.tb, plan.nbc, plan.stages, _stream(hs)
-        )
-        _build.check(err, "umx_lstm_dw_wgmma")
-        lstm_merged_dw.form = ("wgmma", plan.bn, plan.clusters, plan.held, plan.waves)
+        dw = _dw_wgmma(hs, h0, dxp, B)
     else:
-        err = lib.umx_lstm_dw(
+        dw = torch.empty((R, G, 4 * G), dtype=torch.float32, device=hs.device)
+        err = _build.library().umx_lstm_dw(
             hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), T, R, B, G, _stream(hs)
         )
         _build.check(err, "umx_lstm_dw")
@@ -1044,9 +1080,45 @@ def lstm_merged_dw(hs, h0, dxp, B: int, *, _form: str | None = None):
     return dw
 
 
+@functools.lru_cache(maxsize=256)
+def _dw_plan_on(index: int, T: int, R: int, B: int, G: int) -> DwPlan:
+    """:func:`dw_plan` from CUDA device ``index``'s figures, once a shape."""
+    return dw_plan(T, R, B, G, {bn: c for bn, (c, _) in dw_capacity(index).items()})
+
+
+def _dw_wgmma(hs, h0, dxp, B: int):
+    """K6's Hopper form on checked CUDA tensors, one call of the library: at
+    G % 4 != 0 a launch that copies the operands at :func:`dw_width` with
+    zero units; one launch of :func:`dw_plan`'s plan there; where it has
+    slices, or the width was padded, a launch that adds the partial dW in
+    slice order and cuts the padding."""
+    T, RB, G = hs.shape
+    R = RB // B
+    Gp = dw_width(G)
+    if Gp == G and any(t.data_ptr() % 16 for t in (hs, h0, dxp)):
+        raise ValueError("K6's Hopper form needs 16-byte aligned hs, h0 and dxp")
+    plan = _dw_plan_on(hs.device.index, T, R, B, Gp)
+    dev = hs.device
+    dw = torch.empty((R, G, 4 * G), dtype=torch.float32, device=dev)
+    n_parts = plan.slices * R * Gp * 4 * Gp if plan.slices > 1 or Gp != G else 0
+    n_pad = (T * RB * 5 + RB) * Gp if Gp != G else 0
+    scratch = torch.empty(n_parts + n_pad, dtype=torch.float32, device=dev) if n_parts else None
+    base = scratch.data_ptr() if scratch is not None else None
+    err = _build.library().umx_lstm_dw_wgmma(
+        hs.data_ptr(), h0.data_ptr(), dxp.data_ptr(), dw.data_ptr(), base,
+        base + 4 * n_parts if n_pad else None, T, R, B, G, Gp, plan.bn, plan.bp, plan.tb,
+        plan.nbc, plan.stages, plan.slices, plan.per_slice, _stream(hs)
+    )
+    _build.check(err, "umx_lstm_dw_wgmma")
+    lstm_merged_dw.form = ("wgmma", plan.bn, plan.clusters, plan.held, plan.waves)
+    lstm_merged_dw.plan = plan
+    return dw
+
+
 lstm_merged_dw.launches = 0
 lstm_merged_dw.form_launches = dict.fromkeys(DW_FORMS, 0)
 lstm_merged_dw.form = None
+lstm_merged_dw.plan = None
 
 
 class LSTMMergedTrain(torch.autograd.Function):
@@ -1055,30 +1127,43 @@ class LSTMMergedTrain(torch.autograd.Function):
 
     forward(xp (T, R*B, 4G), hh_w (R, G, 4G) f32, h0, c0 (R*B, G), B) →
     (hs, hT, cT).  W_hh is rounded to bf16 inside, and its gradient leaves
-    in f32 for the f32 ``hh_w`` (as the JAX package's custom VJP does)."""
+    in f32 for the f32 ``hh_w`` (as the JAX package's custom VJP does).  On
+    the card, at G % 8 != 0, the layer runs at :func:`merged_width` from
+    end to end: its inputs are padded with zero units once, K4, K5 and K6
+    run on the padded residuals and cotangents, and the outputs and
+    gradients are cut once (``at_width``'s exactness, without a pad and cut
+    around each kernel)."""
 
     @staticmethod
     def forward(ctx, xp, hh_w, h0, c0, B):
         whh = hh_w.to(torch.bfloat16).contiguous()
-        hs, hT, cT, gates, cs = lstm_merged_train_fwd(xp, whh, h0, c0, B)
-        ctx.save_for_backward(gates, cs, hs, h0, c0, whh)
-        ctx.B = B
-        return hs, hT, cT
+        G = whh.shape[1]
+        Gp = merged_width(G) if xp.is_cuda else G
+        args = (xp, whh, h0, c0)
+        if Gp != G:
+            args = tuple(pad_width(a, k, G, Gp) for a, k in zip(args, _FWD_KINDS))
+        hs, hT, cT, gates, cs = lstm_merged_train_fwd(*args, B)
+        ctx.save_for_backward(gates, cs, hs, args[2], args[3], args[1])
+        ctx.B, ctx.G = B, G
+        return tuple(cut_width(t, "units", G, Gp) for t in (hs, hT, cT))
 
     @staticmethod
     def backward(ctx, dhs, dhT, dcT):
         gates, cs, hs, h0, c0, whh = ctx.saved_tensors
+        G, Gp = ctx.G, whh.shape[1]
 
         def ct(g, like):
-            return torch.zeros_like(like) if g is None else g.float().contiguous()
+            g = torch.zeros_like(like) if g is None else g.float().contiguous()
+            return pad_width(g, "units", G, Gp) if g.shape[-1] != Gp else g
 
         dxp, dh0, dc0 = lstm_merged_bwd_step(
             gates, cs, c0, whh, ct(dhs, hs), ct(dhT, h0), ct(dcT, c0), ctx.B
         )
         need = ctx.needs_input_grad
-        dw = lstm_merged_dw(hs, h0, dxp, ctx.B) if need[1] else None
-        return (dxp if need[0] else None, dw, dh0 if need[2] else None,
-                dc0 if need[3] else None, None)
+        dw = cut_width(lstm_merged_dw(hs, h0, dxp, ctx.B), "whh", G, Gp) if need[1] else None
+        return (cut_width(dxp, "gates", G, Gp) if need[0] else None, dw,
+                cut_width(dh0, "units", G, Gp) if need[2] else None,
+                cut_width(dc0, "units", G, Gp) if need[3] else None, None)
 
 
 def _check_hh_dtype(hh_w, name: str = "hh_w"):

@@ -31,6 +31,7 @@ from umx_tpu_torch.engine.memory import (
 from umx_tpu_torch.engine.separator import Separator, demix_fused, demix_fused_parallel, to_host
 from umx_tpu_torch.models.umx import init_lstm_state
 from umx_tpu_torch.parallel.sharding import device_guard, params_on
+from umx_tpu_torch.utils.profiling import span
 
 
 def resolve_batched_width(cfg: EngineConfig, n_chunks: int, seg: int, stride: int,
@@ -113,18 +114,6 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
         params = sep_or_params
         device = params.input_mean.device
         cfg = EngineConfig() if cfg is None else cfg
-    dp_devices = [device] if mesh is None else list(mesh.devices[:, 0])
-    dp = len(dp_devices)
-    # the parameters placed once per distinct device, outside the pass and
-    # bucket loops (a UMX-L tree is about 450 MB)
-    placed = {dev: params_on(params, dev) for dev in dict.fromkeys(dp_devices)}
-    sr = cfg.dsp.sample_rate
-    seg = cfg.segment.segment_samples(sr)
-    stride = cfg.segment.stride_samples(sr)
-    max_shift = cfg.segment.max_shift_samples(sr)
-    if seeds is None:
-        seeds = [0] * len(tracks)
-
     def sync():
         if stats is not None:
             for dev in placed:
@@ -132,31 +121,45 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
                     torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    # per-track offsets drawn as Separator.demix_track draws them
-    n_passes = max(1, cfg.shifts)
-    track_offsets = []
-    for seed in seeds:
-        rng = np.random.default_rng(seed)
-        track_offsets.append([int(rng.integers(0, max_shift)) if cfg.shifts > 0 else 0
-                              for _ in range(n_passes)])
-
     results: list[np.ndarray | None] = [None] * len(tracks)
+    # the call's set-up: the parameters' placement, the shift offsets and
+    # the planner's window
+    with span("umx.prepare"):
+        dp_devices = [device] if mesh is None else list(mesh.devices[:, 0])
+        dp = len(dp_devices)
+        # the parameters placed once per distinct device, outside the pass
+        # and bucket loops (a UMX-L tree is about 450 MB)
+        placed = {dev: params_on(params, dev) for dev in dict.fromkeys(dp_devices)}
+        sr = cfg.dsp.sample_rate
+        seg = cfg.segment.segment_samples(sr)
+        stride = cfg.segment.stride_samples(sr)
+        max_shift = cfg.segment.max_shift_samples(sr)
+        if seeds is None:
+            seeds = [0] * len(tracks)
 
-    # Tracks beyond the single-program window go one by one through
-    # Separator.demix_track, which chains windows: a bucket never
-    # dispatches a program that the planner says does not fit.  The same
-    # seed draws the same offsets, and windowed equals single-program.
-    # The buckets run the scan whatever ``stream_impl`` says, and so do
-    # these tracks, so that they window.
-    long_set: set[int] = set()
-    win_limit = cfg.segment.window_chunks
-    if win_limit == 0:
-        win_limit = suggest_window_chunks(cfg, params=params, device=device)
-    if win_limit > 0:
-        shift_pad = max_shift if cfg.shifts > 0 else 0
-        for i, t in enumerate(tracks):
-            if max(1, math.ceil((np.asarray(t).shape[1] + shift_pad) / stride)) > win_limit:
-                long_set.add(i)
+        # per-track offsets drawn as Separator.demix_track draws them
+        n_passes = max(1, cfg.shifts)
+        track_offsets = []
+        for seed in seeds:
+            rng = np.random.default_rng(seed)
+            track_offsets.append([int(rng.integers(0, max_shift)) if cfg.shifts > 0 else 0
+                                  for _ in range(n_passes)])
+
+        # Tracks beyond the single-program window go one by one through
+        # Separator.demix_track, which chains windows: a bucket never
+        # dispatches a program that the planner says does not fit.  The
+        # same seed draws the same offsets, and windowed equals
+        # single-program.  The buckets run the scan whatever
+        # ``stream_impl`` says, and so do these tracks, so that they window.
+        long_set: set[int] = set()
+        win_limit = cfg.segment.window_chunks
+        if win_limit == 0:
+            win_limit = suggest_window_chunks(cfg, params=params, device=device)
+        if win_limit > 0:
+            shift_pad = max_shift if cfg.shifts > 0 else 0
+            for i, t in enumerate(tracks):
+                if max(1, math.ceil((np.asarray(t).shape[1] + shift_pad) / stride)) > win_limit:
+                    long_set.add(i)
     if long_set:
         sep = Separator(params, cfg.replace(stream_impl="scan"), device)
         for i in sorted(long_set):
@@ -164,50 +167,56 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
             _add(stats, windowed_tracks=1)
 
     for p in range(n_passes):
-        # host-side shift padding, then buckets by chunk count
-        buckets: dict[int, list] = defaultdict(list)
-        for i, track in enumerate(tracks):
-            if i in long_set:
-                continue
-            track = np.asarray(track, np.float32)
-            length = track.shape[1]
-            offset = track_offsets[i][p]
-            if cfg.shifts > 0:
-                track = np.pad(track, ((0, 0), (offset, max_shift - offset)))
-            n_chunks = max(1, math.ceil(track.shape[1] / stride))
-            padded_len = (n_chunks - 1) * stride + seg
-            track = np.pad(track, ((0, 0), (0, padded_len - track.shape[1])))
-            buckets[n_chunks].append((i, offset, length, track))
+        with span("umx.prepare"):
+            # host-side shift padding, then buckets by chunk count
+            buckets: dict[int, list] = defaultdict(list)
+            for i, track in enumerate(tracks):
+                if i in long_set:
+                    continue
+                track = np.asarray(track, np.float32)
+                length = track.shape[1]
+                offset = track_offsets[i][p]
+                if cfg.shifts > 0:
+                    track = np.pad(track, ((0, 0), (offset, max_shift - offset)))
+                n_chunks = max(1, math.ceil(track.shape[1] / stride))
+                padded_len = (n_chunks - 1) * stride + seg
+                track = np.pad(track, ((0, 0), (0, padded_len - track.shape[1])))
+                buckets[n_chunks].append((i, offset, length, track))
 
         for n_chunks, items in sorted(buckets.items()):
-            # sub-batches of at most the planner's batch for this length
-            track_secs = ((n_chunks - 1) * stride + seg) / sr
-            per_dev = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params,
-                                                     device=device))
-            cap = _rows_per_device(per_dev, dp_devices) * dp
+            with span("umx.prepare"):
+                # sub-batches of at most the planner's batch for this length
+                track_secs = ((n_chunks - 1) * stride + seg) / sr
+                per_dev = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params,
+                                                         device=device))
+                cap = _rows_per_device(per_dev, dp_devices) * dp
             for s0 in range(0, len(items), cap):
-                sub = items[s0 : s0 + cap]
-                batch = [it[3] for it in sub]
-                while len(batch) % dp:  # silent tracks up to a multiple of dp
-                    batch.append(np.zeros_like(batch[0]))
-                share = len(batch) // dp
-                t0 = sync()
-                inputs = []
-                for k, dev in enumerate(dp_devices):
-                    audio_b = torch.from_numpy(np.stack(batch[k * share : (k + 1) * share]))
-                    inputs.append((audio_b.to(dev), init_lstm_state(cfg.model, dev, batch=share)))
-                t1 = sync()
-                outs = []
-                for dev, (audio_b, states) in zip(dp_devices, inputs):
-                    fn = _batched_demix(cfg, n_chunks, seg, stride, batch=share, device=dev)
-                    with device_guard(dev):
-                        outs.append(fn(placed[dev], audio_b, states)[0])
-                t2 = sync()
+                with span("umx.prepare"):
+                    sub = items[s0 : s0 + cap]
+                    batch = [it[3] for it in sub]
+                    while len(batch) % dp:  # silent tracks up to a multiple of dp
+                        batch.append(np.zeros_like(batch[0]))
+                    share = len(batch) // dp
+                    t0 = sync()
+                    inputs = []
+                    for k, dev in enumerate(dp_devices):
+                        audio_b = torch.from_numpy(np.stack(batch[k * share : (k + 1) * share]))
+                        inputs.append((audio_b.to(dev),
+                                       init_lstm_state(cfg.model, dev, batch=share)))
+                    t1 = sync()
+                with span("umx.program"):
+                    outs = []
+                    for dev, (audio_b, states) in zip(dp_devices, inputs):
+                        fn = _batched_demix(cfg, n_chunks, seg, stride, batch=share, device=dev)
+                        with device_guard(dev):
+                            outs.append(fn(placed[dev], audio_b, states)[0])
+                    t2 = sync()
                 out_b = to_host(outs[0]) if dp == 1 else np.concatenate([to_host(o) for o in outs])
                 t3 = sync()
-                _add(stats, upload_s=t1 - t0, compute_s=t2 - t1, download_s=t3 - t2,
-                     dispatches=1, rows=len(batch))
-                for (idx, offset, length, _), out in zip(sub, out_b):
-                    contrib = out[..., offset : offset + length] / n_passes
-                    results[idx] = contrib if results[idx] is None else results[idx] + contrib
+                with span("umx.combine"):
+                    _add(stats, upload_s=t1 - t0, compute_s=t2 - t1, download_s=t3 - t2,
+                         dispatches=1, rows=len(batch))
+                    for (idx, offset, length, _), out in zip(sub, out_b):
+                        contrib = out[..., offset : offset + length] / n_passes
+                        results[idx] = contrib if results[idx] is None else results[idx] + contrib
     return results  # type: ignore[return-value]

@@ -50,6 +50,7 @@ from umx_tpu_torch.ops.ola import overlap_add_chunks
 from umx_tpu_torch.ops.ola_cuda import overlap_add_normalized
 from umx_tpu_torch.ops.stft import crop_stack, istft_planes, masks_to_planes, stft_planes
 from umx_tpu_torch.ops.wiener import wiener_filter_masks, wiener_out_dtype
+from umx_tpu_torch.utils.profiling import span
 
 # Shift passes batched into one program at most (batch rows of the
 # recurrence kernel in the streaming program).
@@ -70,7 +71,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     """The stems' copy from the device into pageable host memory, as a
     numpy array (the one place the demix, fleet, streaming and serving
     paths copy their results out)."""
-    return t.cpu().numpy()
+    with span("umx.to_host"):
+        return t.cpu().numpy()
 
 
 def apply_masks(masks, mag, n_bins: int):
@@ -511,29 +513,37 @@ class Separator:
             out = self._demix_windowed(audio, n_chunks, seg, stride, Wc, max(1, cb), progress)
             return out[..., :length]
 
-        audio = torch.as_tensor(np.asarray(audio, np.float32) if not on_device else audio)
-        audio = audio.float().to(self.device)
-        audio_p = torch.nn.functional.pad(audio, (0, padded_len - length))
+        with span("umx.prepare"):
+            audio = torch.as_tensor(np.asarray(audio, np.float32) if not on_device else audio)
+            audio = audio.float().to(self.device)
+            audio_p = torch.nn.functional.pad(audio, (0, padded_len - length))
         if not fused:
             out = self._demix_host_loop(audio_p, n_chunks, seg, stride, segment_fn, progress)
-        elif not cfg.segment.streaming:
-            out = demix_fused_parallel(self.params, audio_p, cfg, n_chunks, seg, stride,
-                                       min(cb, n_chunks))
         else:
-            state = init_lstm_state(cfg.model, self.device, batch=1)
-            if arm == "groups":
-                out, _ = demix_fused_stream_groups(self.params, audio_p[None], state, cfg,
-                                                   n_chunks, seg, stride, min(cb, n_chunks))
-            elif arm == "pipelined":
-                out, _ = demix_fused_stream_pipelined(self.params, audio_p[None], state, cfg,
-                                                      n_chunks, seg, stride)
-            else:
-                out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg,
-                                     stride)
-            out = out[0]
+            with span("umx.program"):
+                out = self._demix_fused(audio_p, arm, n_chunks, seg, stride, cb)
         if fused and progress is not None:
             progress(1.0)
         return out[..., :length]
+
+    def _demix_fused(self, audio_p, arm: str, n_chunks: int, seg: int, stride: int, cb: int):
+        """The fused program over audio_p (2, padded_len) on the device:
+        the chunk groups at ``cb`` rows, or the streaming schedule
+        ``arm``; (T#, 2, padded_len) normalized stems."""
+        cfg = self.cfg
+        if not cfg.segment.streaming:
+            return demix_fused_parallel(self.params, audio_p, cfg, n_chunks, seg, stride,
+                                        min(cb, n_chunks))
+        state = init_lstm_state(cfg.model, self.device, batch=1)
+        if arm == "groups":
+            out, _ = demix_fused_stream_groups(self.params, audio_p[None], state, cfg, n_chunks,
+                                               seg, stride, min(cb, n_chunks))
+        elif arm == "pipelined":
+            out, _ = demix_fused_stream_pipelined(self.params, audio_p[None], state, cfg,
+                                                  n_chunks, seg, stride)
+        else:
+            out, _ = demix_fused(self.params, audio_p[None], state, cfg, n_chunks, seg, stride)
+        return out[0]
 
     def _demix_host_loop(self, audio_p, n_chunks: int, seg: int, stride: int, segment_fn,
                          progress):
@@ -625,7 +635,8 @@ class Separator:
                                                   min(fit, _MAX_SHIFT_BATCH))
         acc = None
         for offset in offsets:
-            shifted = np.pad(audio, ((0, 0), (offset, max_shift - offset)))
+            with span("umx.prepare"):
+                shifted = np.pad(audio, ((0, 0), (offset, max_shift - offset)))
             out = self.demix(shifted, progress, fused, segment_fn)[..., offset : offset + length]
             acc = out if acc is None else acc + out
         return to_host(acc / cfg.shifts)

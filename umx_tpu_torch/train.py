@@ -38,6 +38,7 @@ from umx_tpu_torch.models.umx import (
     umx_forward_batched,
 )
 from umx_tpu_torch.ops.stft import crop_stack, stft_magnitude
+from umx_tpu_torch.utils.profiling import span
 
 FROZEN = ("bn1_rm", "bn1_rv", "bn2_rm", "bn2_rv", "bn3_rm", "bn3_rv")
 
@@ -203,10 +204,13 @@ def make_train_step(cfg: ModelConfig):
     ``mask_loss``; the state is updated in place and returned."""
 
     def train_step(state: TrainState, batch: dict):
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("umx.train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         loss = mask_loss(state.params, batch, cfg)
-        loss.backward()
-        state.optimizer.step()
+        with span("umx.train.backward"):
+            loss.backward()
+        with span("umx.train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, loss.detach()
 

@@ -6,6 +6,10 @@ totals; a stage's ``block_on`` synchronizes the device of every CUDA
 tensor in it, so the device time lands in the stage that produced it.
 :func:`device_trace` records a ``torch.profiler`` trace (CPU and CUDA
 activities) and writes it under ``log_dir`` as a Chrome trace file.
+:func:`span` marks a stage of the program (``umx.prepare``,
+``umx.program``, ``umx.to_host``, ``umx.combine``, ``umx.train.backward``,
+``umx.train.optimizer``) on the profiler's timeline, and costs one flag
+check when no profiler records.
 """
 
 from __future__ import annotations
@@ -16,6 +20,10 @@ import os
 import subprocess
 import time
 from collections import defaultdict
+
+import torch.autograd.profiler as autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _cuda_devices(tree, out: set) -> set:
@@ -33,6 +41,20 @@ def _cuda_devices(tree, out: set) -> set:
         for v in tree:
             _cuda_devices(v, out)
     return out
+
+
+def span(name: str):
+    """A context manager that marks the block as ``name`` on the profiler's
+    timeline while one records (``torch.profiler.profile`` or the legacy
+    ``torch.autograd.profiler.profile``): a ``record_function``, which the
+    trace places on the same clock as the device's kernels and copies.
+    Otherwise one shared null context, so an untraced run pays a flag
+    check and no ``record_function``."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    from torch.profiler import record_function
+
+    return record_function(name)
 
 
 def card_name(device) -> str:

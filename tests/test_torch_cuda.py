@@ -1161,6 +1161,37 @@ def test_catalogue_slice_on_the_card_matches_cpu(dev):
                 assert db <= -20.0, f"quantized: {db:.1f} dB, max|err|/max|stem| {err:.3g}"
 
 
+@pytest.mark.parametrize("shifts, dp", [(1, 1), (3, 1), (3, 2)])
+def test_fleet_on_the_card_is_bit_equal_to_host_staging(dev, shifts, dp):
+    """The fleet's batches built and its stems cut and divided on the card
+    give the arrays of its earlier host staging (``np.pad``, ``np.stack``,
+    the whole padded stems copied back, cut and divided by numpy) bit for
+    bit: at 3 passes a division by the reciprocal would not."""
+    import numpy as np
+    from fleet_host_staging import host_staged_demix_tracks
+
+    from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
+    from umx_tpu_torch.engine.fleet import demix_tracks
+    from umx_tpu_torch.models.umx import synthetic_params
+    from umx_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = EngineConfig(model=ModelConfig(hidden_size=128),
+                       segment=SegmentConfig(segment_secs=1.0, window_chunks=-1), shifts=shifts)
+    params = synthetic_params(cfg.model, seed=0, device=dev)
+    rng = np.random.default_rng(3)
+    tracks = [(0.3 * rng.standard_normal((2, n))).astype(np.float32)
+              for n in (70_000, 120_000, 70_000)]
+    mesh = None if dp == 1 else make_mesh(dp=dp, devices=[dev] * dp)
+    stats: dict = {}
+    outs = demix_tracks(params, tracks, cfg, seeds=[5, 6, 7], stats=stats, mesh=mesh)
+    ref = host_staged_demix_tracks(params, tracks, cfg, [5, 6, 7], mesh=mesh)
+    for out, r in zip(outs, ref):
+        np.testing.assert_array_equal(out, r)
+    n = sum(t.shape[1] for t in tracks)
+    assert stats["upload_bytes"] == shifts * 2 * n * 4
+    assert stats["download_bytes"] == shifts * 4 * 2 * n * 4
+
+
 def test_windowed_device_tensor_on_the_card(dev):
     """A track already on the card runs windowed into one resident result
     buffer and equals the host-array route and the single program."""

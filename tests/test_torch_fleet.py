@@ -1,7 +1,9 @@
 """The fleet runner: ``demix_tracks`` over tracks of mixed lengths equals
 per-track ``Separator.demix_track`` (shifts 0, 1 and 2, streaming or
-not), routes a track beyond the window through the windowed path, splits
-a bucket at the planner's cap, and matches the JAX ``demix_tracks``."""
+not), gives the arrays of its earlier host staging bit for bit and moves
+each track's own bytes, routes a track beyond the window through the
+windowed path, splits a bucket at the planner's cap, and matches the JAX
+``demix_tracks``."""
 
 from __future__ import annotations
 
@@ -15,10 +17,12 @@ from umx_tpu.config import SegmentConfig as JSegmentConfig
 from umx_tpu.config import WienerConfig as JWienerConfig
 from umx_tpu.engine.fleet import demix_tracks as jdemix_tracks
 from umx_tpu.models.umx import synthetic_params
+from fleet_host_staging import host_staged_demix_tracks
 from umx_tpu_torch.config import EngineConfig, ModelConfig, SegmentConfig
 from umx_tpu_torch.engine import fleet
 from umx_tpu_torch.engine.separator import Separator
 from umx_tpu_torch.models.umx import params_from_jax
+from umx_tpu_torch.parallel.mesh import make_mesh
 
 HIDDEN = 32
 SLICE_RTOL = 2e-4  # the class of tests/test_torch_separator.py
@@ -87,6 +91,32 @@ def test_fleet_equals_per_track(params, tracks, shifts, streaming):
     sep = Separator(params, cfg, "cpu")
     for seed, track, out in zip(seeds, tracks, outs):
         _close(out, sep.demix_track(track, seed=seed))
+
+
+@pytest.mark.parametrize("shifts, streaming, dp", [
+    (0, True, 1), (1, True, 1), (2, True, 1), (3, True, 1),
+    (0, False, 1), (1, False, 1), (2, False, 1), (3, False, 1),
+    (3, True, 2),  # a CPU mesh, the device repeated: a silent row pads the 50k track's bucket
+])
+def test_fleet_is_bit_equal_to_host_staging(params, tracks, shifts, streaming, dp):
+    cfg, sub, seeds = _cfg(shifts, streaming), tracks[1:4], [11, 12, 13]
+    mesh = None if dp == 1 else make_mesh(dp=dp, devices=[torch.device("cpu")] * dp)
+    outs = fleet.demix_tracks(params, sub, cfg, seeds=seeds, mesh=mesh)
+    ref = host_staged_demix_tracks(params, sub, cfg, seeds, mesh=mesh)
+    for out, r in zip(outs, ref):
+        assert out.dtype == np.float32 and out.flags.c_contiguous
+        np.testing.assert_array_equal(out, r)
+
+
+@pytest.mark.parametrize("shifts", [1, 2])
+def test_fleet_counts_the_bytes_each_track_moves(params, tracks, shifts):
+    stats: dict = {}
+    outs = fleet.demix_tracks(params, tracks, _cfg(shifts), seeds=[1, 2, 3, 4, 5], stats=stats)
+    n = sum(t.shape[1] for t in tracks)  # 190k samples; padded, 391k a pass
+    assert stats["upload_bytes"] == shifts * 2 * n * 4
+    assert stats["download_bytes"] == shifts * 4 * 2 * n * 4 == shifts * sum(o.nbytes for o in outs)
+    # the bucketing is unchanged: 2 and 4 chunks (3 and 5 with the shift pad)
+    assert stats["rows"] == 5 * shifts and stats["dispatches"] == 2 * shifts
 
 
 def test_fleet_takes_a_separator_and_default_seeds(params, tracks):

@@ -10,7 +10,10 @@ configs run the chunk loop over all B tracks at once, each track's LSTM
 state carried in its own batch row (the recurrence kernel runs B rows per
 chain); non-streaming configs run the chunk groups with B × width segment
 rows per group.  With a mesh, a bucket's tracks are split over the dp
-devices, each of which runs the same program on its rows.
+devices, each of which runs the same program on its rows.  A dispatch's
+batch is built on its devices: each track crosses to the device once a
+pass at its own length, into its row of a zero batch, and its stems come
+back once, cut to its span (and divided by the pass count) on the device.
 """
 
 from __future__ import annotations
@@ -102,9 +105,13 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
 
     stats: an optional dict that accumulates the phase times of every
     dispatch, each closed by a device synchronisation: ``upload_s``
-    (host → device), ``compute_s`` (the program), ``download_s`` (stems →
-    host), and ``dispatches``, ``rows`` (track rows dispatched, silent
-    padding rows included) and ``windowed_tracks`` (tracks beyond the
+    (the batch built on the device from the tracks' uploads),
+    ``compute_s`` (the program), ``download_s`` (each track's stems cut
+    on the device and copied to the host, summed there from the second
+    pass on), and ``dispatches``, ``rows`` (track rows dispatched, silent
+    padding rows included), ``upload_bytes`` and ``download_bytes`` (the
+    audio and stems that crossed between host and device: each track's
+    own length, once a pass) and ``windowed_tracks`` (tracks beyond the
     single-program window, demixed one by one through the windowed
     path)."""
     if isinstance(sep_or_params, Separator):
@@ -122,8 +129,8 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
         return time.perf_counter()
 
     results: list[np.ndarray | None] = [None] * len(tracks)
-    # the call's set-up: the parameters' placement, the shift offsets and
-    # the planner's window
+    # the call's set-up: the parameters' placement, the shift offsets, the
+    # planner's window and the buckets with their caps
     with span("umx.prepare"):
         dp_devices = [device] if mesh is None else list(mesh.devices[:, 0])
         dp = len(dp_devices)
@@ -144,6 +151,10 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
             rng = np.random.default_rng(seed)
             track_offsets.append([int(rng.integers(0, max_shift)) if cfg.shifts > 0 else 0
                                   for _ in range(n_passes)])
+        # the pass count as a device tensor: a CUDA division by a Python
+        # scalar multiplies by its reciprocal, which is not the host's
+        # quotient in the last bit (at 3 passes)
+        divisor = {dev: torch.full((), n_passes, dtype=torch.float32, device=dev) for dev in placed}
 
         # Tracks beyond the single-program window go one by one through
         # Separator.demix_track, which chains windows: a bucket never
@@ -151,58 +162,52 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
         # same seed draws the same offsets, and windowed equals
         # single-program.  The buckets run the scan whatever
         # ``stream_impl`` says, and so do these tracks, so that they window.
-        long_set: set[int] = set()
+        # The rest are bucketed by chunk count, which the shift pad and
+        # the length alone decide, so one bucketing serves every pass.
+        audio = [np.ascontiguousarray(t, np.float32) for t in tracks]
         win_limit = cfg.segment.window_chunks
         if win_limit == 0:
             win_limit = suggest_window_chunks(cfg, params=params, device=device)
-        if win_limit > 0:
-            shift_pad = max_shift if cfg.shifts > 0 else 0
-            for i, t in enumerate(tracks):
-                if max(1, math.ceil((np.asarray(t).shape[1] + shift_pad) / stride)) > win_limit:
-                    long_set.add(i)
-    if long_set:
+        shift_pad = max_shift if cfg.shifts > 0 else 0
+        long_tracks: list[int] = []
+        buckets: dict[int, list[int]] = defaultdict(list)
+        for i, a in enumerate(audio):
+            n_chunks = max(1, math.ceil((a.shape[1] + shift_pad) / stride))
+            if 0 < win_limit < n_chunks:
+                long_tracks.append(i)
+            else:
+                buckets[n_chunks].append(i)
+        # each bucket's sub-batches: at most the planner's batch for its length
+        caps = {}
+        for n_chunks in buckets:
+            track_secs = ((n_chunks - 1) * stride + seg) / sr
+            per_dev = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params,
+                                                     device=device))
+            caps[n_chunks] = _rows_per_device(per_dev, dp_devices) * dp
+    if long_tracks:
         sep = Separator(params, cfg.replace(stream_impl="scan"), device)
-        for i in sorted(long_set):
-            results[i] = sep.demix_track(np.asarray(tracks[i], np.float32), seed=seeds[i])
+        for i in long_tracks:
+            results[i] = sep.demix_track(audio[i], seed=seeds[i])
             _add(stats, windowed_tracks=1)
 
     for p in range(n_passes):
-        with span("umx.prepare"):
-            # host-side shift padding, then buckets by chunk count
-            buckets: dict[int, list] = defaultdict(list)
-            for i, track in enumerate(tracks):
-                if i in long_set:
-                    continue
-                track = np.asarray(track, np.float32)
-                length = track.shape[1]
-                offset = track_offsets[i][p]
-                if cfg.shifts > 0:
-                    track = np.pad(track, ((0, 0), (offset, max_shift - offset)))
-                n_chunks = max(1, math.ceil(track.shape[1] / stride))
-                padded_len = (n_chunks - 1) * stride + seg
-                track = np.pad(track, ((0, 0), (0, padded_len - track.shape[1])))
-                buckets[n_chunks].append((i, offset, length, track))
-
         for n_chunks, items in sorted(buckets.items()):
-            with span("umx.prepare"):
-                # sub-batches of at most the planner's batch for this length
-                track_secs = ((n_chunks - 1) * stride + seg) / sr
-                per_dev = max(1, suggest_max_fleet_batch(cfg, track_secs, params=params,
-                                                         device=device))
-                cap = _rows_per_device(per_dev, dp_devices) * dp
-            for s0 in range(0, len(items), cap):
+            padded_len = (n_chunks - 1) * stride + seg
+            for s0 in range(0, len(items), caps[n_chunks]):
+                sub = items[s0 : s0 + caps[n_chunks]]
+                share = -(-len(sub) // dp)  # silent rows up to a multiple of dp
                 with span("umx.prepare"):
-                    sub = items[s0 : s0 + cap]
-                    batch = [it[3] for it in sub]
-                    while len(batch) % dp:  # silent tracks up to a multiple of dp
-                        batch.append(np.zeros_like(batch[0]))
-                    share = len(batch) // dp
+                    # each track uploaded once into its row of a zero batch,
+                    # at its shift offset
                     t0 = sync()
                     inputs = []
                     for k, dev in enumerate(dp_devices):
-                        audio_b = torch.from_numpy(np.stack(batch[k * share : (k + 1) * share]))
-                        inputs.append((audio_b.to(dev),
-                                       init_lstm_state(cfg.model, dev, batch=share)))
+                        audio_b = torch.zeros((share, 2, padded_len), device=dev)
+                        for r, i in enumerate(sub[k * share : (k + 1) * share]):
+                            off = track_offsets[i][p]
+                            audio_b[r, :, off : off + audio[i].shape[1]].copy_(
+                                torch.from_numpy(audio[i]))
+                        inputs.append((audio_b, init_lstm_state(cfg.model, dev, batch=share)))
                     t1 = sync()
                 with span("umx.program"):
                     outs = []
@@ -211,12 +216,22 @@ def demix_tracks(sep_or_params, tracks: list[np.ndarray], cfg: EngineConfig | No
                         with device_guard(dev):
                             outs.append(fn(placed[dev], audio_b, states)[0])
                     t2 = sync()
-                out_b = to_host(outs[0]) if dp == 1 else np.concatenate([to_host(o) for o in outs])
-                t3 = sync()
                 with span("umx.combine"):
+                    # each track's span cut and divided on its device, then
+                    # copied out once; the passes summed on the host in order
+                    down = 0
+                    for j, i in enumerate(sub):
+                        k, off, length = j // share, track_offsets[i][p], audio[i].shape[1]
+                        cut = outs[k][j % share, ..., off : off + length]
+                        cut = cut / divisor[dp_devices[k]] if n_passes > 1 else cut.clone()
+                        stems = to_host(cut)
+                        down += stems.nbytes
+                        if results[i] is None:
+                            results[i] = stems
+                        else:
+                            results[i] += stems
+                    t3 = sync()
                     _add(stats, upload_s=t1 - t0, compute_s=t2 - t1, download_s=t3 - t2,
-                         dispatches=1, rows=len(batch))
-                    for (idx, offset, length, _), out in zip(sub, out_b):
-                        contrib = out[..., offset : offset + length] / n_passes
-                        results[idx] = contrib if results[idx] is None else results[idx] + contrib
+                         dispatches=1, rows=share * dp,
+                         upload_bytes=sum(audio[i].nbytes for i in sub), download_bytes=down)
     return results  # type: ignore[return-value]
